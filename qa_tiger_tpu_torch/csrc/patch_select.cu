@@ -1,0 +1,114 @@
+// fused_patch_select: the whole eval PatchSelecter over a [B*T, P, D] batch
+// of frames: per-frame self-attention over the P patches with residual, then
+// the frame's video and audio vectors as two queries attending its patches,
+// out_proj, MLP (ReLU) and one LayerNorm per stream.
+//
+// Replaces qa_tiger_tpu/ops/pallas/patch_select.py:_pallas_impl (_kernel).
+//
+// Bound on the H100: operations. At B=256, T=60, P=14, D=512 the patch-row
+// projections (qkv, out_proj, kv) are 12*BT*P*D^2 = 677 GFLOP of the
+// module's ~731; attention over 14 keys is under 1% of it. Nine
+// launches, all written here: five GEMMs on bf16 tensor cores over the
+// BT*P patch rows and 2*BT query rows (fp32 FMAs for fp32), two launches of
+// attention.cu's device code (self: 14 queries x 14 keys per frame and head;
+// cross: 2 queries x 14 keys), and one LayerNorm launch that splits the
+// interleaved (video, audio) rows into the two outputs. The TPU kernel's
+// block-diagonal frame packing is not needed: a block owns one frame and
+// head, so no score is computed across frames. Intermediates make one HBM
+// round trip each, which the Pallas kernel avoided; fusing them is later
+// work.
+#include "common.cuh"
+
+namespace {
+
+template <typename T> struct PairLoad {  // row 2f is video[f], row 2f+1 is audio[f]
+  const T* video;
+  const T* audio;
+  long long ld;
+  __device__ float operator()(int m, int k) const {
+    const T* src = (m & 1) ? audio : video;
+    return qt::to_f<T>(src[(long long)(m >> 1) * ld + k]);
+  }
+};
+
+template <typename T>
+cudaError_t run(const T* patch, const T* video, const T* audio, const T* slf_w,
+                const T* slf_b, const T* slf_ow, const T* slf_ob, const T* crs_w,
+                const T* crs_b, const T* crs_ow, const T* crs_ob, const T* mlp_w1,
+                const T* mlp_b1, const T* mlp_w2, const T* mlp_b2, const T* anorm_w,
+                const T* anorm_b, const T* vnorm_w, const T* vnorm_b, T* a_out, T* v_out,
+                T* qkv, T* ctx, T* x1, T* kv, T* q, T* ctx2, T* crs, T* hid, float* outf,
+                int BT, int P, int D, int heads, cudaStream_t stream) {
+  const int M = BT * P, Q = 2 * BT, Dh = D / 2, hd = D / heads;
+  const float scale = 1.0f / sqrtf((float)hd);
+  cudaError_t err;
+#define QT_CHECK()                                   \
+  if ((err = cudaGetLastError()) != cudaSuccess) return err
+  // self-attention over each frame's P patches, out_proj + residual
+  qt::gemm<T, true>(qt::RowLoad<T>{patch, D}, slf_w, D, M, 3 * D, D,
+                    qt::EpiBias<T>{qkv, 3LL * D, slf_b, false}, stream);
+  QT_CHECK();
+  const long long fs = 3LL * P * D;
+  err = qt::attention<T>(qkv, fs, 3LL * D, qkv + D, fs, 3LL * D, qkv + 2 * D, fs, 3LL * D, ctx,
+                         (long long)P * D, D, nullptr, BT, P, P, heads, hd, scale, stream);
+  if (err != cudaSuccess) return err;
+  qt::gemm<T, true>(qt::RowLoad<T>{ctx, D}, slf_ow, D, M, D, D,
+                    qt::EpiResidual<T>{x1, D, slf_ob, patch, D}, stream);
+  QT_CHECK();
+  // cross-attention: keys/values from the patches, 2 queries per frame
+  qt::gemm<T, true>(qt::RowLoad<T>{x1, D}, crs_w + (long long)D * D, D, M, 2 * D, D,
+                    qt::EpiBias<T>{kv, 2LL * D, crs_b + D, false}, stream);
+  QT_CHECK();
+  qt::gemm<T, true>(PairLoad<T>{video, audio, D}, crs_w, D, Q, D, D,
+                    qt::EpiBias<T>{q, D, crs_b, false}, stream);
+  QT_CHECK();
+  const long long ks = 2LL * P * D;
+  err = qt::attention<T>(q, 2LL * D, D, kv, ks, 2LL * D, kv + D, ks, 2LL * D, ctx2, 2LL * D, D,
+                         nullptr, BT, 2, P, heads, hd, scale, stream);
+  if (err != cudaSuccess) return err;
+  qt::gemm<T, true>(qt::RowLoad<T>{ctx2, D}, crs_ow, D, Q, D, D,
+                    qt::EpiBias<T>{crs, D, crs_ob, false}, stream);
+  QT_CHECK();
+  // MLP; its output stays fp32 into the per-stream LayerNorm
+  qt::gemm<T, true>(qt::RowLoad<T>{crs, D}, mlp_w1, D, Q, Dh, D,
+                    qt::EpiBias<T>{hid, Dh, mlp_b1, true}, stream);
+  QT_CHECK();
+  qt::gemm<T, true>(qt::RowLoad<T>{hid, Dh}, mlp_w2, Dh, Q, D, Dh,
+                    qt::EpiF32<T>{outf, D, mlp_b2}, stream);
+  QT_CHECK();
+  qt::layer_norm_kernel<float, T><<<qt::ln_blocks(Q), qt::LN_WARPS * 32, 0, stream>>>(
+      outf, Q, D, 2, vnorm_w, vnorm_b, v_out, anorm_w, anorm_b, a_out);
+  return cudaGetLastError();
+#undef QT_CHECK
+}
+
+}  // namespace
+
+extern "C" int qt_patch_select(int dtype, const void* patch, const void* video,
+                               const void* audio, const void* slf_w, const void* slf_b,
+                               const void* slf_ow, const void* slf_ob, const void* crs_w,
+                               const void* crs_b, const void* crs_ow, const void* crs_ob,
+                               const void* mlp_w1, const void* mlp_b1, const void* mlp_w2,
+                               const void* mlp_b2, const void* anorm_w, const void* anorm_b,
+                               const void* vnorm_w, const void* vnorm_b, void* a_out,
+                               void* v_out, void* qkv, void* ctx, void* x1, void* kv, void* q,
+                               void* ctx2, void* crs, void* hid, void* outf, int BT, int P,
+                               int D, int heads, void* stream) {
+#define QT_ARGS(T)                                                                            \
+  static_cast<const T*>(patch), static_cast<const T*>(video), static_cast<const T*>(audio),    \
+      static_cast<const T*>(slf_w), static_cast<const T*>(slf_b),                               \
+      static_cast<const T*>(slf_ow), static_cast<const T*>(slf_ob),                             \
+      static_cast<const T*>(crs_w), static_cast<const T*>(crs_b),                               \
+      static_cast<const T*>(crs_ow), static_cast<const T*>(crs_ob),                             \
+      static_cast<const T*>(mlp_w1), static_cast<const T*>(mlp_b1),                             \
+      static_cast<const T*>(mlp_w2), static_cast<const T*>(mlp_b2),                             \
+      static_cast<const T*>(anorm_w), static_cast<const T*>(anorm_b),                           \
+      static_cast<const T*>(vnorm_w), static_cast<const T*>(vnorm_b), static_cast<T*>(a_out),   \
+      static_cast<T*>(v_out), static_cast<T*>(qkv), static_cast<T*>(ctx), static_cast<T*>(x1),  \
+      static_cast<T*>(kv), static_cast<T*>(q), static_cast<T*>(ctx2), static_cast<T*>(crs),     \
+      static_cast<T*>(hid), static_cast<float*>(outf), BT, P, D, heads,                         \
+      static_cast<cudaStream_t>(stream)
+  if (dtype == 0) return run<float>(QT_ARGS(float));
+  return run<__nv_bfloat16>(QT_ARGS(__nv_bfloat16));
+#undef QT_ARGS
+}

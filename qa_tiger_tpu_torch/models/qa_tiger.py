@@ -1,0 +1,118 @@
+"""The QA-TIGER network, eval forward, PyTorch edition.
+
+Port of ``qa_tiger_tpu/models/qa_tiger.py``: five input projections ->
+question-guided AV cross attention -> patch selection -> audio and visual
+temporal Gaussian MoE aggregation -> two stacked question groundings ->
+ReLU -> Linear head. The frozen CLIP text tower encodes token ids online.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from qa_tiger_tpu_torch.models import modules as M
+from qa_tiger_tpu_torch.models.clip_text import CLIPTextTower
+from qa_tiger_tpu_torch.nn.core import Linear
+
+FROZEN_PREFIXES = ("quest_encoder",)
+
+
+def qa_tiger_config(d_model: int = 512, video_dim: int = 512,
+                    patch_dim: int = 768, audio_dim: int = 128,
+                    topK: int = 3, num_experts: int = 10,
+                    num_labels: int = 42,
+                    encoder_type: str = "ViT-L/14@336px",
+                    late_fusion: bool = False, nce_loss: bool = False,
+                    gather_mode: str = "reference",
+                    text_ctx: int | None = None,
+                    encoder_dtype: str | None = None,
+                    **_unused) -> dict:
+    """Model hyperparameters, the JAX package's defaults; the shipped config
+    (configs/qa-tiger/vitl14.py) sets d_model 512, video 768, patch 1024,
+    audio 128, topK 7, experts 7."""
+    return dict(
+        d_model=d_model, video_dim=video_dim, patch_dim=patch_dim,
+        audio_dim=audio_dim, topK=topK, num_experts=num_experts,
+        num_labels=num_labels, encoder_type=encoder_type,
+        nhead=8, sigma=9.0, dropout=0.1, gather_mode=gather_mode,
+        text_ctx=text_ctx, encoder_dtype=encoder_dtype,
+    )
+
+
+class QATiger(nn.Module):
+    """Parameters named as the JAX pytree flattened (``audio_proj.proj.weight``,
+    ``crs_attn.qst_attn.in_proj_weight``, ``at_aggregator.experts.0.0.weight``,
+    ``quest_encoder.transformer.resblocks.3.ln_1.bias``, ``head.weight``).
+    Initialised on the CPU from ``seed`` with the JAX package's init
+    statistics (the numbers differ: the generators differ)."""
+
+    def __init__(self, cfg: dict, seed: int = 0):
+        super().__init__()
+        self.cfg = dict(cfg)
+        g = torch.Generator().manual_seed(seed)
+        d = cfg["d_model"]
+        self.audio_proj = M.Projection(cfg["audio_dim"], d, g)
+        self.video_proj = M.Projection(cfg["video_dim"], d, g)
+        self.patch_proj = M.Projection(cfg["patch_dim"], d, g)
+        # the words/quest projections take the CLIP text width, which equals
+        # video_dim for the shipped ViT-L/14 tower
+        self.words_proj = M.Projection(cfg["video_dim"], d, g)
+        self.quest_proj = M.Projection(cfg["video_dim"], d, g)
+        self.crs_attn = M.AVQCrossAttn(d, g)
+        self.patch_selecter = M.PatchSelecter(d, g)
+        self.quest_grounding = M.QstGrounding(d, g)
+        self.at_aggregator = M.TempMoE(d, cfg["num_experts"], g, vis_branch=False)
+        self.vt_aggregator = M.TempMoE(d, cfg["num_experts"], g, vis_branch=True)
+        self.head = Linear(d, cfg["num_labels"], g)
+        self.quest_encoder = CLIPTextTower(cfg["encoder_type"], g)
+
+    def encode_question(self, quest: torch.Tensor,
+                        words: torch.Tensor | None = None):
+        """(quest [B, Dq], words [B, L, W] or None) from one of three forms:
+
+        - integer token ids [B, L] -> the frozen CLIP text tower, after the
+          opt-in ``text_ctx`` trim; its outputs are cast to the dtype of the
+          trainable projections, as the tower may run at another precision;
+        - a float question [B, Dq] or [B, 1, Dq] with cached ``words``
+          (the question cache's frozen-tower output), cast the same way;
+        - a float question alone, which leaves ``words`` None.
+        """
+        tgt = self.quest_proj.proj.weight.dtype
+        if not torch.is_floating_point(quest):
+            ctx = self.cfg.get("text_ctx")
+            if ctx and ctx < quest.shape[1]:
+                quest = quest[:, :ctx]
+            pooled, words = self.quest_encoder(quest)
+            return pooled.to(tgt), words.to(tgt)
+        if quest.dim() == 3:
+            quest = quest[:, 0]
+        if words is not None:
+            return quest.to(tgt), words.to(tgt)
+        return quest, None
+
+    def forward(self, batch: dict) -> dict:
+        """batch: quest [B, 77] token ids (or a float question, with
+        ``quest_words``), audio [B, T, audio_dim], video [B, T, video_dim],
+        patch [B, T, P, patch_dim] -> {'out': logits [B, num_labels]}."""
+        cfg = self.cfg
+        nhead = cfg["nhead"]
+        quest, words = self.encode_question(batch["quest"], batch.get("quest_words"))
+        if words is None:
+            raise ValueError("the words projection needs word features: pass "
+                             "token ids, or a float question with quest_words")
+        audio = self.audio_proj(batch["audio"])
+        video = self.video_proj(batch["video"])
+        patch = self.patch_proj(batch["patch"])
+        words = self.words_proj(words)
+        quest = self.quest_proj(quest)
+
+        audio, video = self.crs_attn(audio, video, words, nhead=nhead)
+        patch_pair = self.patch_selecter(patch, audio, video, nhead=nhead)
+        moe = dict(nhead=nhead, topK=cfg["topK"], sigma=cfg["sigma"],
+                   gather_mode=cfg["gather_mode"])
+        a_global = self.at_aggregator(quest, audio, None, **moe)
+        ap_global, vp_global = self.vt_aggregator(quest, video, patch_pair, **moe)
+        fusion = self.quest_grounding(quest, [ap_global, vp_global], nhead=nhead)
+        fusion = self.quest_grounding(quest, [fusion[:, None, :], a_global],
+                                      nhead=nhead)
+        return {"out": self.head(torch.relu(fusion))}

@@ -1,0 +1,22 @@
+from qa_tiger_tpu_torch.nn.attention import MultiheadAttention, mha
+from qa_tiger_tpu_torch.nn.core import (
+    MLP2,
+    LayerNorm,
+    Linear,
+    layer_norm,
+    linear,
+    mlp2,
+    quick_gelu,
+)
+
+__all__ = [
+    "MLP2",
+    "LayerNorm",
+    "Linear",
+    "MultiheadAttention",
+    "layer_norm",
+    "linear",
+    "mha",
+    "mlp2",
+    "quick_gelu",
+]

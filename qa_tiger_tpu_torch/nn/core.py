@@ -1,0 +1,96 @@
+"""Plain PyTorch layers with the JAX package's parameter names and numerics.
+
+Weights keep torch's ``[out, in]`` layout, so every module's ``state_dict()``
+carries the same dotted names as the JAX parameter pytree flattened
+(``proj.weight``, ``mlp.0.bias``, ...). Initializers draw from an explicit
+``torch.Generator`` on the CPU; the caller moves the module afterwards.
+
+Numerics follow ``qa_tiger_tpu.nn.core``: matrix products accumulate in fp32
+(``F.linear``), LayerNorm takes its statistics in fp32 with eps 1e-5 and
+casts back to the activation dtype. Dropout is the identity in eval, which is
+all this package runs.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: torch.Tensor | None) -> torch.Tensor:
+    """y = x @ W.T + b, fp32 accumulation, output in x's dtype."""
+    return F.linear(x, weight, bias)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """torch ``nn.LayerNorm`` over the last dim with fp32 statistics."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    out = (x32 - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's QuickGELU: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
+def mlp2(x: torch.Tensor, mlp: nn.Module) -> torch.Tensor:
+    """Linear -> ReLU -> Linear over an ``MLP2`` (children '0' and '2')."""
+    h = torch.relu(linear(x, mlp[0].weight, mlp[0].bias))
+    return linear(h, mlp[2].weight, mlp[2].bias)
+
+
+class Linear(nn.Module):
+    """Parameters ``weight [out, in]`` and ``bias [out]``.
+
+    ``init="torch"`` is nn.Linear's default (uniform +-1/sqrt(fan_in) on
+    both); ``init="kaiming"`` is kaiming-normal (fan_in, gain sqrt 2) with a
+    zero bias, the reference's explicit init for its own layers.
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: torch.Generator, init: str = "kaiming"):
+        super().__init__()
+        if init == "kaiming":
+            std = math.sqrt(2.0 / in_features)
+            w = torch.randn(out_features, in_features, generator=generator) * std
+            b = torch.zeros(out_features)
+        elif init == "torch":
+            bound = 1.0 / math.sqrt(in_features)
+            w = (torch.rand(out_features, in_features, generator=generator)
+                 * 2 - 1) * bound
+            b = (torch.rand(out_features, generator=generator) * 2 - 1) * bound
+        else:
+            raise ValueError(f"unknown init {init!r}")
+        self.weight = nn.Parameter(w)
+        self.bias = nn.Parameter(b)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias)
+
+
+class MLP2(nn.Sequential):
+    """Linear -> ReLU -> Linear, children '0' and '2' as in the reference's
+    ``nn.Sequential``."""
+
+    def __init__(self, in_features: int, hidden: int, out_features: int,
+                 generator: torch.Generator, init: str = "kaiming"):
+        super().__init__(Linear(in_features, hidden, generator, init),
+                         nn.ReLU(),
+                         Linear(hidden, out_features, generator, init))

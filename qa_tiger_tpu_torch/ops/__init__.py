@@ -1,0 +1,31 @@
+"""Operations of the eval path: the four CUDA kernels with their plain
+PyTorch versions, and the TempMoE routing math.
+
+``KERNELS`` lists every kernel wrapper; each carries an integer
+``launches`` counter that it bumps only when it launches its kernel.
+"""
+from qa_tiger_tpu_torch.ops.attention import attention_wide
+from qa_tiger_tpu_torch.ops.gaussian_moe import fused_gaussian_moe
+from qa_tiger_tpu_torch.ops.patch_select import fused_patch_select
+from qa_tiger_tpu_torch.ops.resblock import fused_attn_ln2
+
+KERNELS = {
+    "fused_attn_ln2": fused_attn_ln2,
+    "attention_wide": attention_wide,
+    "fused_patch_select": fused_patch_select,
+    "fused_gaussian_moe": fused_gaussian_moe,
+}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+__all__ = ["KERNELS", "attention_wide", "fused_attn_ln2",
+           "fused_gaussian_moe", "fused_patch_select", "launch_counts",
+           "reset_launches"]

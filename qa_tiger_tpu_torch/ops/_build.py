@@ -1,0 +1,156 @@
+"""Build and load the package's CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface. At the first launch on
+a CUDA tensor they are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc``
+per source, all started together, then one link) into one shared library
+under ``build/kernels/<hash>/`` at the repository root, and loaded with
+``ctypes``. The hash covers the sources, the headers and the flags, so an
+edited kernel is rebuilt and an unchanged one is reused. Importing this
+module builds nothing.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LIB_NAME = "libqa_tiger_kernels.so"
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# argument types of every exported C function (csrc/*.cu); each returns the
+# launch's cudaError_t as an int
+SIGNATURES = {
+    "qt_attention": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
+                     _I, _I, _I, _I, _I, _F, _P],
+    "qt_gaussian_moe": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _P],
+    "qt_attn_ln2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _I, _I, _I, _I, _P],
+    "qt_patch_select": [_I] + [_P] * 30 + [_I] * 4 + [_P],
+}
+
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of this process's build
+build_log: Path | None = None       # nvcc's output (-Xptxas -v) of the build
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit on PATH or under CUDA_HOME")
+
+
+def _compile(out_dir: Path) -> None:
+    nvcc = _nvcc()
+    tmp = Path(tempfile.mkdtemp(dir=out_dir.parent, prefix=".tmp-"))
+    try:
+        procs = []
+        for src in sources():
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        log, failed = [], []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {src.name} (rc {proc.returncode})\n"
+                       + out.decode(errors="replace"))
+            if proc.returncode:
+                failed.append(src.name)
+        (tmp / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp / LIB_NAME),
+             *[str(obj) for _, obj, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if link.returncode:
+            raise RuntimeError("nvcc link failed:\n"
+                               + link.stdout.decode(errors="replace"))
+        try:
+            os.replace(tmp, out_dir)
+        except OSError:
+            # another process finished the same build first
+            if not (out_dir / LIB_NAME).exists():
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this source hash has no
+    build yet."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    out_dir = BUILD_ROOT / _digest()
+    if not (out_dir / LIB_NAME).exists():
+        BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+        start = time.perf_counter()
+        _compile(out_dir)
+        build_seconds = time.perf_counter() - start
+    build_log = out_dir / "build.log"
+    lib = ctypes.CDLL(str(out_dir / LIB_NAME))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.qt_error_string.argtypes = [ctypes.c_int]
+    lib.qt_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one exported C launcher on PyTorch's current CUDA stream; raise
+    if it reports a CUDA error (``cudaGetLastError`` after its launches)."""
+    import torch
+
+    lib = library()
+    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err} "
+                           f"({lib.qt_error_string(err).decode()})")
+
+
+def dtype_code(t) -> int:
+    """0 for float32, 1 for bfloat16; the kernels take no other type."""
+    import torch
+
+    if t.dtype == torch.float32:
+        return 0
+    if t.dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"CUDA kernels take float32 or bfloat16, got {t.dtype}")
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
