@@ -7,24 +7,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device — a CUDA card is required; prints its name and power limit;
 2. build  — builds the CUDA kernels from qa_tiger_tpu_torch/csrc;
-3. kernels — each kernel at the main path's shapes (B=256, bf16) against
-   its plain PyTorch version on the same inputs, and again at a small fp32
-   shape; prints kernel, plain and library times beside the card's bound;
-4. slice  — the Predictor at configs/qa-tiger/vitl14.py with weights from a
-   seed: (a) fp32 logits at B=4 against the same state_dict run through the
-   plain versions on the CPU; (b) the bf16 B=256 main path through
+3. kernels — each serving kernel at the serving path's shapes (B=256,
+   bf16) against its plain PyTorch version on the same inputs, and again at
+   a small fp32 shape; their gradients (the plain-recompute backward) at
+   B=2 and B=32 fp32; each train kernel pair's outputs and every input and
+   parameter gradient at a small fp32 shape and at the recipe shape (B=32)
+   in fp32 and bf16; prints kernel, plain and library times beside the
+   card's bound;
+4. serving — the Predictor at configs/qa-tiger/vitl14.py with weights from
+   a seed: (a) fp32 logits at B=4 against the same state_dict run through
+   the plain versions on the CPU; (b) the bf16 B=256 path through
    ``answer``, with every launch counter reset just before and read just
    after, then qa/s from the median of timed forwards; (c) 8 requests
    answered, their top-5 answer names printed;
-5. the kernel table as one JSON line, then the device's JSON line last.
+5. training — AVQARunner at the same config: (a) one fp32 B=4 step with
+   dropout off, card against CPU (loss, updated parameters, gradients);
+   (b) the recipe, fp32 B=32 with dropout: 3 warm-up steps, the launch
+   counters reset around one step, 10 timed steps, losses, peak memory;
+   (c) ``evaluate`` over two batches, with its accuracy report;
+6. the kernel table as one JSON line, then the device's JSON line last.
 
-``--profile DIR`` also writes a torch.profiler table of one bf16 forward
-to DIR. All inputs come from numpy with fixed seeds. TF32 is off.
+``--profile DIR`` also writes torch.profiler tables of one bf16 forward and
+one train step to DIR. All inputs come from numpy with fixed seeds. TF32 is
+off.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -45,6 +56,9 @@ BF16_TOL = 3e-2   # max|k - p| <= BF16_TOL * max(1, max|p|): bf16 rounding
 FP32_TOL = 1e-4   # the same at fp32: summation order only
 LOGITS_TOL = dict(rtol=2e-3, atol=5e-4)  # fp32 card vs CPU, as the JAX parity tests
 T, P, S, VOCAB = 60, 14, 77, 49408
+# the serving path's kernels: their "launches" in the kernel table are that
+# path's, the train kernels' those of one train step
+EVAL_KERNELS = ("fused_attn_ln2", "attention_wide", "fused_patch_select", "fused_gaussian_moe")
 CONFIG = ROOT / "configs" / "qa-tiger" / "vitl14.py"
 # where each kernel's Pallas original makes its pl.pallas_call
 REPLACES = {
@@ -52,12 +66,20 @@ REPLACES = {
     "attention_wide": "qa_tiger_tpu/ops/pallas/attention.py:351",
     "fused_patch_select": "qa_tiger_tpu/ops/pallas/patch_select.py:738",
     "fused_gaussian_moe": "qa_tiger_tpu/ops/pallas/gaussian_moe.py:107",
+    "fused_avq_train": "qa_tiger_tpu/ops/pallas/avq.py:532",
+    "fused_avq_train_bwd": "qa_tiger_tpu/ops/pallas/avq.py:558",
+    "fused_patch_select_train": "qa_tiger_tpu/ops/pallas/patch_select.py:827",
+    "fused_patch_select_train_bwd": "qa_tiger_tpu/ops/pallas/patch_select.py:880",
 }
 SOURCES = {
     "fused_attn_ln2": "qa_tiger_tpu_torch/csrc/resblock.cu",
     "attention_wide": "qa_tiger_tpu_torch/csrc/attention.cu",
     "fused_patch_select": "qa_tiger_tpu_torch/csrc/patch_select.cu",
     "fused_gaussian_moe": "qa_tiger_tpu_torch/csrc/gaussian_moe.cu",
+    "fused_avq_train": "qa_tiger_tpu_torch/csrc/avq.cu",
+    "fused_avq_train_bwd": "qa_tiger_tpu_torch/csrc/avq.cu",
+    "fused_patch_select_train": "qa_tiger_tpu_torch/csrc/patch_select_train.cu",
+    "fused_patch_select_train_bwd": "qa_tiger_tpu_torch/csrc/patch_select_train.cu",
 }
 
 
@@ -230,8 +252,249 @@ def check_kernels(rng, gen) -> dict:
     return entries
 
 
+def _grads(outs, inputs, cots):
+    """Outputs followed by d(sum_i <outs_i, cots_i>)/d(inputs)."""
+    import torch
+
+    outs = [outs] if torch.is_tensor(outs) else list(outs)
+    return outs + list(torch.autograd.grad(outs, inputs, cots))
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+def train_kernel_cases(dtype, B: int, rng, gen, T_: int = T):
+    """One dict per train kernel pair at batch B (N = 2B AVQ rows, B*T
+    frames): names, shape label, kernel and plain forward, the
+    differentiated inputs (activations, then parameters), cotangents, an
+    fp32 copy of the plain version on the same values (``plain32``: outputs
+    and gradients), and the bytes and flops of forward and backward."""
+    import copy
+
+    import torch
+
+    from qa_tiger_tpu_torch.models.modules import (
+        AVQCrossAttn,
+        PatchSelecter,
+        make_avq_dropout_masks,
+        make_patch_dropout_masks,
+    )
+    from qa_tiger_tpu_torch.ops import avq as AV
+    from qa_tiger_tpu_torch.ops import patch_select as PS
+
+    dev, D, heads = "cuda", 512, 8
+    isz = torch.tensor([], dtype=dtype).element_size()
+    mgen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+
+    def rn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+
+    def plain32(fn, module, acts, masks, cots):
+        """fn's outputs and gradients in fp32 on the same (rounded) values."""
+        m32 = copy.deepcopy(module).float()
+        a32 = [_leaf(a.detach().float()) for a in acts]
+        mk32 = {k: v.float() for k, v in masks.items()}
+        outs = fn(m32, a32, mk32)
+        return _grads(outs, a32 + list(m32.parameters()), [c.float() for c in cots])
+
+    def case(fname, shape, module, acts, masks, cots, kernel, plain, gemm, attn, act_elems):
+        params = list(module.parameters())
+        wbytes = sum(p.numel() for p in params) * isz
+        mbytes = sum(m.numel() for m in masks.values()) * isz
+        fwd_bytes = act_elems * isz + wbytes + mbytes
+        ins = acts + params
+        return {"fwd": fname, "bwd": fname + "_bwd", "shape": shape,
+                "kernel": lambda: kernel(module, acts, masks),
+                "plain": lambda: plain(module, acts, masks),
+                "ins": ins, "cots": cots,
+                "plain32": lambda: plain32(plain, module, acts, masks, cots),
+                # fwd: inputs, masks, weights read and the outputs written;
+                # bwd: those again with the cotangents, the input gradients
+                # and the fp32 parameter gradients written
+                "fwd_bytes": fwd_bytes, "fwd_flops": gemm + attn,
+                "bwd_bytes": 2 * fwd_bytes + sum(p.numel() for p in params) * 4,
+                "bwd_flops": 2 * gemm + 2 * attn}
+
+    N, R, RS = 2 * B, 2 * B * T_, 2 * B * S
+    avq = AVQCrossAttn(D, gen).to(dev, dtype)
+    acts = [_leaf(rn(N, T_, D)), _leaf(rn(N, T_, D)), _leaf(rn(N, S, D))]
+    masks = make_avq_dropout_masks(mgen, N, T_, S, D, nhead=heads, dropout_p=0.1, dtype=dtype)
+    cases = [case("fused_avq_train", f"N{N} T{T_} S{S} D{D} h{heads}", avq, acts, masks,
+                  [rn(N, T_, D)],
+                  lambda m, a, mk: AV.fused_avq_train(*a, m, mk, heads),
+                  lambda m, a, mk: AV.avq_sub_forward_masked(m, *a, mk, nhead=heads),
+                  2 * R * D * D * 12 + 4 * RS * D * D, 4 * R * D * (S + 2 * T_),
+                  3 * R * D + RS * D)]
+
+    BT = B * T_
+    Rp, Q2 = BT * P, 2 * BT
+    ps = PatchSelecter(D, gen).to(dev, dtype)
+    acts = [_leaf(rn(B, T_, P, D)), _leaf(rn(B, T_, D)), _leaf(rn(B, T_, D))]
+    masks = make_patch_dropout_masks(mgen, BT, P, D, nhead=heads, dropout_p=0.1, dtype=dtype)
+    cases.append(case("fused_patch_select_train", f"patch[{B},{T_},{P},{D}] h{heads}", ps, acts,
+                      masks, [rn(B, T_, D), rn(B, T_, D)],
+                      lambda m, a, mk: PS.fused_patch_select_train(*a, m, mk, heads),
+                      lambda m, a, mk: tuple(PS.patch_selecter_plain(m, *a, nhead=heads,
+                                                                     masks=mk)),
+                      2 * Rp * D * D * 6 + 2 * Q2 * D * D * 3,
+                      4 * BT * P * P * D + 4 * Q2 * P * D, Rp * D + 4 * BT * D))
+    return cases
+
+
+def backward_ms(fwd, ins, cots) -> float:
+    """Device time of one backward through ``fwd``'s graph (built once and
+    retained): for a train kernel its backward kernel and the Function
+    around it, for a plain version autograd's kernels."""
+    import torch
+
+    outs = fwd()
+    outs = [outs] if torch.is_tensor(outs) else list(outs)
+    return cuda_ms(lambda: torch.autograd.grad(outs, ins, cots, retain_graph=True))
+
+
+def check_train_kernels(rng, gen, entries: dict):
+    """The train kernels: forward outputs and every input and parameter
+    gradient against autograd of the plain version on the same masks, at a
+    small fp32 shape and at the recipe shape in fp32 and in bf16; forward
+    and backward timed at the recipe shape.
+
+    Tolerances: fp32, and bf16 forward outputs, max|k - p| <= tol *
+    max(1, max|p|) as for the other kernels. bf16 gradients: both the kernel
+    and the plain version in bf16 are held to the plain version in fp32 on
+    the same values, and the kernel's error may not exceed the larger of
+    twice the plain version's own and BF16_TOL * max(1, max|ref|): bf16
+    rounding inside sums over thousands of rows moves both by up to ~20%
+    of a gradient's largest element (PERF.md)."""
+    import torch
+
+    for dtype, B, T_, label in ((torch.float32, 2, 6, "small"), (torch.float32, 32, T, "recipe"),
+                                (torch.bfloat16, 32, T, "recipe")):
+        bf16 = dtype == torch.bfloat16
+        tol = BF16_TOL if bf16 else FP32_TOL
+        dname = str(dtype).replace("torch.", "")
+        for c in train_kernel_cases(dtype, B, rng, gen, T_=T_):
+            ins, cots = c["ins"], c["cots"]
+            got, want = _grads(c["kernel"](), ins, cots), _grads(c["plain"](), ins, cots)
+            ref = c["plain32"]() if bf16 else None
+            torch.cuda.synchronize()
+            n_out = len(got) - len(ins)
+            rows, ok = [], True
+            for i, (gt, wt) in enumerate(zip(got, want)):
+                err, scale = max_err(gt, wt)
+                if bf16 and i >= n_out:
+                    err, scale = max_err(gt, ref[i])
+                    plain_err = max_err(wt, ref[i])[0]
+                    limit = max(2 * plain_err, tol * max(1.0, scale))
+                else:
+                    plain_err, limit = None, tol * max(1.0, scale)
+                rows.append((err / limit, i, err, scale, plain_err))
+                ok &= err <= limit
+            worst = max(rows)
+            line = {"kernel": f"{c['fwd']}+bwd", "dtype": dname, "shape": c["shape"],
+                    "tensors_compared": len(got), "worst_tensor": worst[1],
+                    "max_abs_err": worst[2], "max_abs_ref": worst[3],
+                    "plain_bf16_err": worst[4], "worst_err_over_limit": worst[0], "ok": ok}
+            if label == "recipe":
+                fwd_err = max(r[2] for r in rows[:n_out])
+                bwd_err = max(r[2] for r in rows[n_out:])
+                with torch.no_grad():
+                    f_ms, pf_ms = cuda_ms(c["kernel"]), cuda_ms(c["plain"])
+                b_ms = backward_ms(c["kernel"], ins, cots)
+                pb_ms = backward_ms(c["plain"], ins, cots)
+                fb, fby = bound(c["fwd_bytes"], c["fwd_flops"], dname)
+                bb, bby = bound(c["bwd_bytes"], c["bwd_flops"], dname)
+                line.update(ms=f_ms, plain_ms=pf_ms, bound_ms=fb, bound_by=fby, bwd_ms=b_ms,
+                            plain_bwd_ms=pb_ms, bwd_bound_ms=bb, bwd_bound_by=bby)
+                if not bf16:  # the recipe's dtype names the table entries
+                    for name, ms, pms, bms, bby_, err in (
+                            (c["fwd"], f_ms, pf_ms, fb, fby, fwd_err),
+                            (c["bwd"], b_ms, pb_ms, bb, bby, bwd_err)):
+                        entries[name] = {
+                            "name": name, "route": "cuda", "source": SOURCES[name],
+                            "replaces": REPLACES[name], "launches": 0, "shape": c["shape"],
+                            "dtype": dname, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                            "bound_ms": bms, "bound_by": bby_, "library_ms": None}
+            print(json.dumps(line), flush=True)
+            require(ok, f"{c['fwd']} {dname} {c['shape']}: tensor {worst[1]} max|k-p| "
+                        f"{worst[2]:.3e} over its limit")
+            del got, want, ref
+        torch.cuda.empty_cache()
+
+
+def slice1_grad_cases(dtype, B: int, rng, gen):
+    """(name, shape label, kernel fwd, plain fwd, differentiated inputs,
+    cotangents) for the four slice-1 kernels, whose gradient on the card is
+    the plain version's, recomputed."""
+    import torch
+
+    from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock, causal_mask
+    from qa_tiger_tpu_torch.models.modules import PatchSelecter
+    from qa_tiger_tpu_torch.ops import attention as A
+    from qa_tiger_tpu_torch.ops import gaussian_moe as G
+    from qa_tiger_tpu_torch.ops import patch_select as PS
+    from qa_tiger_tpu_torch.ops import resblock as R
+
+    dev = "cuda"
+
+    def rn(*shape, scale=1.0):
+        return _leaf(torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32))
+                     .to(dev, dtype))
+
+    cases = []
+    blk = ResidualAttentionBlock(768, 12, gen).to(dev, dtype)
+    x, mask = rn(B, S, 768), causal_mask(S, device=dev)
+    cases.append(("fused_attn_ln2", f"x[{B},{S},768]",
+                  lambda: R.fused_attn_ln2(x, blk, mask, 12),
+                  lambda: R._attn_ln2_plain(blk, x, heads=12, mask=mask),
+                  [x] + R._block_params(blk), [rn(B, S, 768), rn(B, S, 768)]))
+    q, k, v = rn(2 * B, T, 512), rn(2 * B, S, 512), rn(2 * B, S, 512)
+    cases.append(("attention_wide", f"q[{2 * B},{T},512] kv[{2 * B},{S},512]",
+                  lambda: A.attention_wide(q, k, v, None, 0.125, 8),
+                  lambda: A._wide_reference(q, k, v, None, 0.125, 8),
+                  [q, k, v], [rn(2 * B, T, 512)]))
+    ps = PatchSelecter(512, gen).to(dev, dtype)
+    patch, audio, video = rn(B, T, P, 512), rn(B, T, 512), rn(B, T, 512)
+    cases.append(("fused_patch_select", f"patch[{B},{T},{P},512]",
+                  lambda: PS.fused_patch_select(patch, audio, video, ps, 8),
+                  lambda: tuple(PS.patch_selecter_plain(ps, patch, audio, video, nhead=8)),
+                  [patch, audio, video] + list(ps.parameters()),
+                  [rn(B, T, 512), rn(B, T, 512)]))
+    xm = rn(2 * B, T, 512)
+    w1t, b1 = rn(7, 512, 256, scale=0.05), rn(7, 256, scale=0.1)
+    w2t, b2 = rn(7, 256, 512, scale=0.05), rn(7, 512, scale=0.1)
+    w = _leaf(torch.from_numpy(0.05 * rng.random((2 * B, 7, T), dtype=np.float32)).to(dev, dtype))
+    cases.append(("fused_gaussian_moe", f"x[{2 * B},{T},512] E7 H256",
+                  lambda: G.fused_gaussian_moe(xm, w1t, b1, w2t, b2, w),
+                  lambda: G._reference_impl(xm, w1t, b1, w2t, b2, w),
+                  [xm, w1t, b1, w2t, b2, w], [rn(2 * B, 512)]))
+    return cases
+
+
+def check_slice1_grads(rng, gen) -> None:
+    """The slice-1 kernels' gradients on the card: every input and
+    parameter gradient through the kernel's autograd Function against
+    autograd of the plain version, at a small and at the train recipe's
+    batch, fp32."""
+    import torch
+
+    for B in (2, 32):
+        for name, shape, kernel, plain, ins, cots in slice1_grad_cases(torch.float32, B, rng,
+                                                                       gen):
+            got, want = _grads(kernel(), ins, cots), _grads(plain(), ins, cots)
+            torch.cuda.synchronize()
+            errs = [max_err(g_, w_) for g_, w_ in zip(got, want)]
+            ok = all(e <= FP32_TOL * max(1.0, sc) for e, sc in errs)
+            err, scale = max(errs, key=lambda es: es[0] / max(1.0, es[1]))
+            print(json.dumps({"kernel": f"{name} grad", "dtype": "float32", "shape": shape,
+                              "tensors_compared": len(got), "max_abs_err": err,
+                              "max_abs_plain": scale, "ok": ok}), flush=True)
+            require(ok, f"{name} gradient at {shape}: max|k-p| {err:.3e} over tolerance")
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the slice
+# phase 4: serving
 # ---------------------------------------------------------------------------
 
 def make_batch(rng, b: int) -> dict:
@@ -281,14 +544,15 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> None:
     answers = pred.answer(batch, topk=5)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    expected = {"fused_attn_ln2": 12, "fused_gaussian_moe": 2, "fused_patch_select": 1}
+    expected = {"fused_attn_ln2": 12, "fused_gaussian_moe": 2, "fused_patch_select": 1,
+                "fused_avq_train": 0, "fused_avq_train_bwd": 0, "fused_patch_select_train": 0,
+                "fused_patch_select_train_bwd": 0}
     print(json.dumps({"phase": "main_path_launches", **counts}), flush=True)
     for name, n in expected.items():
         require(counts[name] == n, f"{name}: {counts[name]} launches, expected {n}")
     require(counts["attention_wide"] >= 3, "attention_wide: fewer than 3 launches")
-    for name, n in counts.items():
-        require(n > 0, f"{name} was never launched on the main path")
-        entries[name]["launches"] = n
+    for name in EVAL_KERNELS:
+        entries[name]["launches"] = counts[name]
     require(len(answers) == 256, "answer() returned the wrong number of rows")
 
     logits = pred.logits(batch)
@@ -308,25 +572,8 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> None:
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
 
     if profile_dir is not None:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        profile_dir.mkdir(parents=True, exist_ok=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            pred.logits(batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - start
-        events = prof.key_averages()
-        table = events.table(sort_by="self_cuda_time_total", row_limit=40)
-        (profile_dir / "forward_bf16_b256.txt").write_text(table)
-        print(table, flush=True)
-        # kernel time only, as the table's "Self CUDA time total" counts it
-        busy = sum(e.self_device_time_total for e in events
-                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
-        print(json.dumps({"phase": "profile", "wall_ms": wall * 1e3, "device_busy_ms": busy,
-                          "idle_share": 1 - busy / (wall * 1e3)}), flush=True)
+        profile_step(lambda: pred.logits(batch), profile_dir / "forward_bf16_b256.txt",
+                     "profile")
 
     # (c) eight requests answered
     served = pred.answer(make_batch(rng, 8), topk=5)
@@ -334,6 +581,169 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> None:
     for i, row in enumerate(served):
         print(json.dumps({"request": i, "top5": [t["answer"] for t in row["topk"]],
                           "probs": [t["prob"] for t in row["topk"]]}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+TRAIN_LR = 1e-4
+TRAIN_KERNELS = {"fused_attn_ln2": 12, "fused_avq_train": 1, "fused_avq_train_bwd": 1,
+                 "fused_patch_select_train": 1, "fused_patch_select_train_bwd": 1,
+                 "fused_gaussian_moe": 2, "attention_wide": 0, "fused_patch_select": 0}
+
+
+class Batches:
+    """The loader contract AVQARunner reads: len, iter, set_epoch."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def set_epoch(self, epoch):
+        pass
+
+
+def make_train_batch(rng, b: int) -> dict:
+    batch = make_batch(rng, b)
+    batch.update(label=rng.integers(0, 42, b), qtype_label=rng.integers(0, 9, b),
+                 valid=np.ones(b, bool))
+    return batch
+
+
+def train_setup(**model_extra):
+    """(the runner's config, the model's hyperparameters) of the recipe:
+    configs/qa-tiger/vitl14.py, Adam at its betas, lr 1e-4."""
+    from qa_tiger_tpu_torch.models import qa_tiger_config
+    from qa_tiger_tpu_torch.utils.config import load_config_module
+
+    conf = load_config_module(str(CONFIG))
+    hp = conf["hyper_params"]
+    cfg = {"log_interval": 1, "debug": False,
+           "hyper_params": {"optim": dict(hp["optim"]), "sched": dict(hp["sched"])}}
+    return cfg, qa_tiger_config(num_labels=42, **hp["model"], **model_extra)
+
+
+def check_train(rng, entries: dict, profile_dir: Path | None) -> None:
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.training import AVQARunner
+
+    # (a) one fp32 B=4 step with dropout off: the card against the CPU from
+    # the same weights and batch (the tower in fp32 on both)
+    cfg, mcfg = train_setup(encoder_dtype="float32")
+    card = AVQARunner(cfg, mcfg, device="cuda", seed=0)
+    state = {k: v.detach().cpu() for k, v in card.params.items()}
+    cpu = AVQARunner(cfg, mcfg, device="cpu", init_params=state)
+    batch = make_train_batch(rng, 4)
+    loss_card = card.train_step(batch, TRAIN_LR)["total_loss"].item()
+    loss_cpu = cpu.train_step(batch, TRAIN_LR)["total_loss"].item()
+    card_params = dict(card.trainable())
+    compared, worst_param, worst_grad = 0, 0.0, 0.0
+    params_ok = True
+    for name, p in cpu.trainable():
+        g_cpu = p.grad.numpy()
+        g_card = card_params[name].grad.float().cpu().numpy()
+        worst_grad = max(worst_grad, float(np.abs(g_card - g_cpu).max()
+                                           / max(np.abs(g_cpu).max(), 1e-12)))
+        keep = np.abs(g_cpu) > 1e-6
+        if not keep.any():
+            continue
+        got = card_params[name].detach().cpu().numpy()[keep]
+        want = p.detach().numpy()[keep]
+        params_ok &= bool(np.allclose(got, want, **LOGITS_TOL))
+        worst_param = max(worst_param, float(np.abs(got - want).max()))
+        compared += 1
+    loss_ok = bool(np.isclose(loss_card, loss_cpu, **LOGITS_TOL))
+    print(json.dumps({"phase": "train_fp32_b4", "loss_card": loss_card, "loss_cpu": loss_cpu,
+                      "params_compared": compared, "params_max_abs_err": worst_param,
+                      "grads_max_rel_err": worst_grad, **LOGITS_TOL,
+                      "ok": loss_ok and params_ok}), flush=True)
+    require(loss_ok and params_ok and compared > 50,
+            f"the fp32 train step on the card differs from the CPU run (loss {loss_card} vs "
+            f"{loss_cpu}, params max err {worst_param:.3e})")
+    require(worst_grad < 1e-2, f"a gradient on the card differs from the CPU run by "
+                               f"{worst_grad:.3e} of its largest element")
+    del card, cpu, state, card_params
+    torch.cuda.empty_cache()
+
+    # (b) the recipe: fp32 B=32, dropout on, token ids through the bf16 tower
+    cfg, mcfg = train_setup()
+    runner = AVQARunner(cfg, mcfg, device="cuda", seed=0)
+    batch = runner._device_batch(make_train_batch(rng, 32))
+    gen = torch.Generator().manual_seed(1)  # seeds the dropout sites' generators on the card
+    before = {n: p.detach().clone() for n, p in runner.trainable()}
+    losses = [runner.train_step(batch, TRAIN_LR, gen)["total_loss"].item() for _ in range(3)]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    losses.append(runner.train_step(batch, TRAIN_LR, gen)["total_loss"].item())
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(json.dumps({"phase": "train_step_launches", **counts}), flush=True)
+    for name, n in TRAIN_KERNELS.items():
+        require(counts[name] == n, f"train step: {name} launched {counts[name]} times, "
+                                   f"expected {n}")
+        if name not in EVAL_KERNELS:
+            entries[name]["launches"] = n
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = runner.train_step(batch, TRAIN_LR, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+        losses.append(out["total_loss"].item())
+    median = statistics.median(times)
+    changed = sum(int(not torch.equal(before[n], p.detach())) for n, p in runner.trainable())
+    print(json.dumps({"phase": "train_fp32_b32", "step_ms_median": median * 1e3,
+                      "step_ms_all": [t * 1e3 for t in times],
+                      "train_qa_pairs_per_s": 32 / median, "losses": losses,
+                      "params_changed": changed, "params": len(before),
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+    require(all(np.isfinite(losses)), "a train loss is not finite")
+    require(changed == len(before), f"only {changed} of {len(before)} parameters changed")
+
+    if profile_dir is not None:
+        profile_step(lambda: runner.train_step(batch, TRAIN_LR, gen),
+                     profile_dir / "train_step_fp32_b32.txt", "profile_train")
+
+    # (c) an evaluation pass over two batches, with the 9-way report
+    loader = Batches([make_train_batch(rng, 32) for _ in range(2)])
+    acc, loss = runner.evaluate(1, loader)
+    print(json.dumps({"phase": "evaluate", "accuracy": acc, "loss": loss}), flush=True)
+    require(np.isfinite(loss) and 0.0 <= acc <= 100.0, "evaluate returned no valid numbers")
+
+
+def profile_step(fn, path: Path, phase: str) -> None:
+    """A torch.profiler table of one call of ``fn`` written to ``path``, and
+    its wall time, device busy time and idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    events = prof.key_averages()
+    table = events.table(sort_by="self_cuda_time_total", row_limit=40)
+    path.write_text(table)
+    print(table, flush=True)
+    # kernel time only, as the table's "Self CUDA time total" counts it
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+    print(json.dumps({"phase": phase, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+                      "idle_share": 1 - busy / (wall * 1e3)}), flush=True)
 
 
 def main() -> int:
@@ -355,6 +765,7 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
 
     try:
         card = gpu_line()
@@ -370,7 +781,10 @@ def main() -> int:
         rng = np.random.default_rng(0)
         gen = torch.Generator().manual_seed(0)
         entries = check_kernels(rng, gen)
+        check_slice1_grads(rng, gen)
+        check_train_kernels(rng, gen, entries)
         check_slice(rng, entries, args.profile)
+        check_train(rng, entries, args.profile)
         require(set(entries) == set(ops.KERNELS), "a kernel is missing from the table")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

@@ -1,6 +1,7 @@
 // Device code shared by the kernels of this package: type conversion, warp
-// reductions, a block-level tiled GEMM with a pluggable A loader, the
-// multi-head attention kernel and the row LayerNorm kernels.
+// reductions, a block-level tiled GEMM with a pluggable A loader (and the
+// weight-gradient GEMM built on it), the multi-head attention kernel and its
+// backward, the row LayerNorm kernels and LayerNorm backward, column sums.
 //
 // Conventions: activations and parameters arrive in one type T (float or
 // __nv_bfloat16); every sum is taken in fp32; a value is rounded to T where
@@ -48,6 +49,14 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// A loader may declare `static constexpr bool kColMajor = true` when A(m, k)
+// lies at a[k * lda + m] (a weight gradient's transposed operand): the tile
+// load then walks m fastest so that neighbouring threads read neighbouring
+// addresses.
+template <class L, class = void> struct a_col_major : std::false_type {};
+template <class L>
+struct a_col_major<L, std::void_t<decltype(L::kColMajor)>> : std::bool_constant<L::kColMajor> {};
+
 // ---------------------------------------------------------------------------
 // Tiled GEMM: C[m, n] = sum_k A(m, k) * B(k, n) for one BM x BN output tile,
 // fp32 accumulation, result left in shared memory for the caller's epilogue.
@@ -86,7 +95,12 @@ __device__ void gemm_tile(GemmSmem& sm, const ALoad& aload, const T* __restrict_
     wmma::fill_fragment(acc[1], 0.0f);
     for (int k0 = 0; k0 < K; k0 += BK) {
       for (int i = tid; i < BM * BK; i += GEMM_THREADS) {
-        const int m = i / BK, k = i % BK;
+        int m, k;
+        if constexpr (a_col_major<ALoad>::value) {
+          k = i / BM; m = i % BM;
+        } else {
+          m = i / BK; k = i % BK;
+        }
         const int gm = m0 + m, gk = k0 + k;
         As[m * LDS + k] = __float2bfloat16(gm < M && gk < K ? aload(gm, gk) : 0.0f);
       }
@@ -129,7 +143,12 @@ __device__ void gemm_tile(GemmSmem& sm, const ALoad& aload, const T* __restrict_
       for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
     for (int k0 = 0; k0 < K; k0 += BK) {
       for (int i = tid; i < BM * BK; i += GEMM_THREADS) {
-        const int m = i / BK, k = i % BK;
+        int m, k;
+        if constexpr (a_col_major<ALoad>::value) {
+          k = i / BM; m = i % BM;
+        } else {
+          m = i / BK; k = i % BK;
+        }
         const int gm = m0 + m, gk = k0 + k;
         As[k * (BM + 4) + m] = gm < M && gk < K ? aload(gm, gk) : 0.0f;
       }
@@ -185,28 +204,78 @@ template <typename T> struct LnRowLoad {  // A = round_T(LayerNorm(x)) from row 
   }
 };
 
+template <typename TA> struct ColLoad {  // A(m, k) = a[k * lda + m]
+  static constexpr bool kColMajor = true;
+  const TA* a;
+  long long lda;
+  __device__ float operator()(int m, int k) const { return to_f<TA>(a[(long long)k * lda + m]); }
+};
+
+template <typename T> struct RoundRowLoad {  // A(m, k) = round_T(a[m * lda + k]), a fp32
+  const float* a;
+  long long lda;
+  __device__ float operator()(int m, int k) const { return round_t<T>(a[(long long)m * lda + k]); }
+};
+
+template <typename T> struct RoundColLoad {  // A(m, k) = round_T(a[k * lda + m]), a fp32
+  static constexpr bool kColMajor = true;
+  const float* a;
+  long long lda;
+  __device__ float operator()(int m, int k) const { return round_t<T>(a[(long long)k * lda + m]); }
+};
+
 // Epilogues ---------------------------------------------------------------
-template <typename T> struct EpiBias {  // out = round_T(act(acc + bias))
+template <typename T> struct EpiBias {  // out = round_T(act(acc + bias)); bias may be null
   T* out;
   long long ldo;
   const T* bias;
   bool relu;
   __device__ void operator()(int m, int n, float acc) const {
-    float v = acc + to_f<T>(bias[n]);
+    float v = bias ? acc + to_f<T>(bias[n]) : acc;
     if (relu) v = fmaxf(v, 0.0f);
     out[(long long)m * ldo + n] = from_f<T>(v);
   }
 };
 
-template <typename T> struct EpiResidual {  // out = res + round_T(acc + bias)
+template <typename T> struct EpiResidual {  // out = res + round_T(acc + bias); bias may be null
   T* out;
   long long ldo;
   const T* bias;
   const T* res;
   long long ldr;
   __device__ void operator()(int m, int n, float acc) const {
-    const float v = round_t<T>(acc + to_f<T>(bias[n]));
+    const float v = round_t<T>(bias ? acc + to_f<T>(bias[n]) : acc);
     out[(long long)m * ldo + n] = from_f<T>(to_f<T>(res[(long long)m * ldr + n]) + v);
+  }
+};
+
+struct EpiStoreF32 {  // out (fp32) = acc, or += acc: a parameter gradient
+  float* out;
+  long long ldo;
+  bool accumulate;
+  __device__ void operator()(int m, int n, float acc) const {
+    float* o = out + (long long)m * ldo + n;
+    *o = accumulate ? *o + acc : acc;
+  }
+};
+
+struct EpiAddF32 {  // out (fp32) = base + acc; out may alias base
+  float* out;
+  const float* base;
+  long long ld;
+  __device__ void operator()(int m, int n, float acc) const {
+    const long long i = (long long)m * ld + n;
+    out[i] = base[i] + acc;
+  }
+};
+
+template <typename T> struct EpiAddRound {  // out = round_T(base + acc), base fp32
+  T* out;
+  const float* base;
+  long long ld;
+  __device__ void operator()(int m, int n, float acc) const {
+    const long long i = (long long)m * ld + n;
+    out[i] = from_f<T>(base[i] + acc);
   }
 };
 
@@ -250,8 +319,22 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 // warp per query row computes the scores, an fp32 softmax with max
 // subtraction, the probabilities rounded to T (as the JAX kernels cast p to
 // v's dtype), and the context. mask is an optional additive fp32 [Sq, Sk].
+//
+// keep is an optional multiplicative post-softmax dropout mask in T, already
+// scaled by 1/(1-p): row b*Sq + query, lane h*Sk + key, row stride keep_ld
+// (the geometry of the port's mask samplers). With it the probability that
+// multiplies v is round_T(p' * keep), where p' is the fp32 probability
+// (round_p_first false: the AVQ kernels) or round_T(p) (true: the
+// PatchSelecter kernels), as in the Pallas kernels each one replaces.
 // ---------------------------------------------------------------------------
 constexpr int ATT_WARPS = 4, ATT_QROWS = 32;
+
+template <typename T>
+__device__ __forceinline__ float dropped_prob(float p, const T* keep_row, int j,
+                                              bool round_p_first) {
+  if (!keep_row) return round_t<T>(p);
+  return round_t<T>((round_p_first ? round_t<T>(p) : p) * to_f<T>(keep_row[j]));
+}
 
 inline size_t attention_smem_bytes(int Sk, int hd) {
   return sizeof(float) * ((size_t)Sk * (hd + 1) + (size_t)Sk * hd + ATT_WARPS * (size_t)(hd + Sk));
@@ -263,7 +346,8 @@ attention_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
                  const T* __restrict__ k, long long k_bs, long long k_ss,
                  const T* __restrict__ v, long long v_bs, long long v_ss,
                  T* __restrict__ out, long long o_bs, long long o_ss,
-                 const float* __restrict__ mask, int Sq, int Sk, int hd, float scale) {
+                 const float* __restrict__ mask, int Sq, int Sk, int hd, float scale,
+                 const T* __restrict__ keep, long long keep_ld, bool round_p_first) {
   extern __shared__ float smem[];
   float* Ks = smem;                       // [Sk][hd + 1]
   float* Vs = Ks + (size_t)Sk * (hd + 1);  // [Sk][hd]
@@ -305,7 +389,8 @@ attention_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
       sum += e;
     }
     const float inv = 1.0f / warp_sum(sum);
-    for (int j = lane; j < Sk; j += 32) ps[j] = round_t<T>(ps[j] * inv);
+    const T* kr = keep ? keep + (long long)(b * Sq + qi) * keep_ld + col / hd * Sk : nullptr;
+    for (int j = lane; j < Sk; j += 32) ps[j] = dropped_prob<T>(ps[j] * inv, kr, j, round_p_first);
     __syncwarp();
     for (int d = lane; d < hd; d += 32) {
       float acc = 0.0f;
@@ -321,7 +406,8 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
                              long long k_bs, long long k_ss, const T* v, long long v_bs,
                              long long v_ss, T* out, long long o_bs, long long o_ss,
                              const float* mask, int B, int Sq, int Sk, int heads, int hd,
-                             float scale, cudaStream_t stream) {
+                             float scale, cudaStream_t stream, const T* keep = nullptr,
+                             long long keep_ld = 0, bool round_p_first = false) {
   const size_t smem = attention_smem_bytes(Sk, hd);
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -329,7 +415,150 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
   const int ntiles = (Sq + ATT_QROWS - 1) / ATT_QROWS;
   const dim3 grid((unsigned)(B * ntiles), heads);
   attention_kernel<T><<<grid, ATT_WARPS * 32, smem, stream>>>(
-      q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, Sq, Sk, hd, scale);
+      q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, Sq, Sk, hd, scale,
+      keep, keep_ld, round_p_first);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward of attention_kernel under a keep mask: given g = dL/dctx, writes
+// dL/dq, dL/dk, dL/dv (in T, strided like the forward's operands). One block
+// per (batch element, head) owns all of that head's queries and keys, so
+// dk and dv are complete inside the block: no atomics, no second pass. The
+// probabilities are recomputed from q and k with the forward's arithmetic
+// (scores, max, exp, sum in the same order), then, as the Pallas backward
+// bodies do:
+//   dPd = g v^T;  dP = dPd * keep;  dS = round_T(P (dP - rowsum(dP P)))
+//   dq = round_T(scale dS k);  dk = round_T(scale dS^T q);  dv = round_T(Pd^T g)
+// with P the fp32 probability (AVQ) or its T rounding (PatchSelecter), as
+// round_p_first says. accumulate_kv adds dk and dv to what the outputs hold:
+// out = round_T(out + round_T(new)), the PatchSelecter's sum of its two
+// query streams' key/value gradients.
+// ---------------------------------------------------------------------------
+inline size_t attention_bwd_smem_bytes(int Sq, int Sk, int hd) {
+  return sizeof(float) * ((size_t)(2 * Sq + 2 * Sk) * (hd + 1) + 2 * (size_t)Sq * Sk
+                          + ATT_WARPS * (size_t)Sk);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ATT_WARPS * 32)
+attention_bwd_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
+                     const T* __restrict__ k, long long k_bs, long long k_ss,
+                     const T* __restrict__ v, long long v_bs, long long v_ss,
+                     const T* __restrict__ g, long long g_bs, long long g_ss,
+                     T* gq, long long gq_bs, long long gq_ss,
+                     T* gk, long long gk_bs, long long gk_ss,
+                     T* gv, long long gv_bs, long long gv_ss,
+                     const T* __restrict__ keep, long long keep_ld, int Sq, int Sk, int hd,
+                     float scale, bool round_p_first, bool accumulate_kv) {
+  extern __shared__ float smem[];
+  const int L = hd + 1;
+  float* Qs = smem;                       // [Sq][L]
+  float* Gs = Qs + (size_t)Sq * L;        // [Sq][L]
+  float* Ks = Gs + (size_t)Sq * L;        // [Sk][L]
+  float* Vs = Ks + (size_t)Sk * L;        // [Sk][L]
+  float* Ps = Vs + (size_t)Sk * L;        // [Sq][Sk]: P, then dS
+  float* Pd = Ps + (size_t)Sq * Sk;       // [Sq][Sk]: the dropped, rounded probabilities
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* row = Pd + (size_t)Sq * Sk + (size_t)warp * Sk;  // per-warp scratch [Sk]
+  const long long b = blockIdx.x;
+  const int h = blockIdx.y;
+  const long long col = (long long)h * hd;
+
+  for (int i = threadIdx.x; i < Sq * hd; i += blockDim.x) {
+    const int r = i / hd, d = i % hd;
+    Qs[r * L + d] = to_f<T>(q[b * q_bs + r * q_ss + col + d]);
+    Gs[r * L + d] = to_f<T>(g[b * g_bs + r * g_ss + col + d]);
+  }
+  for (int i = threadIdx.x; i < Sk * hd; i += blockDim.x) {
+    const int j = i / hd, d = i % hd;
+    Ks[j * L + d] = to_f<T>(k[b * k_bs + j * k_ss + col + d]);
+    Vs[j * L + d] = to_f<T>(v[b * v_bs + j * v_ss + col + d]);
+  }
+  __syncthreads();
+
+  for (int i = warp; i < Sq; i += ATT_WARPS) {
+    const T* kr = keep ? keep + (b * Sq + i) * keep_ld + (long long)h * Sk : nullptr;
+    float mx = -INFINITY;
+    for (int j = lane; j < Sk; j += 32) {
+      float s = 0.0f;
+      for (int d = 0; d < hd; ++d) s = fmaf(Qs[i * L + d], Ks[j * L + d], s);
+      s *= scale;
+      row[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int j = lane; j < Sk; j += 32) {
+      const float e = expf(row[j] - mx);
+      row[j] = e;
+      sum += e;
+    }
+    const float inv = 1.0f / warp_sum(sum);
+    float dot = 0.0f;
+    for (int j = lane; j < Sk; j += 32) {
+      const float p = row[j] * inv;
+      const float pr = (kr && round_p_first) ? round_t<T>(p) : p;
+      Pd[i * Sk + j] = dropped_prob<T>(p, kr, j, round_p_first);
+      float dp = 0.0f;
+      for (int d = 0; d < hd; ++d) dp = fmaf(Gs[i * L + d], Vs[j * L + d], dp);
+      if (kr) dp *= to_f<T>(kr[j]);
+      row[j] = dp;
+      Ps[i * Sk + j] = pr;
+      dot = fmaf(dp, pr, dot);
+    }
+    dot = warp_sum(dot);
+    for (int j = lane; j < Sk; j += 32)
+      Ps[i * Sk + j] = round_t<T>(Ps[i * Sk + j] * (row[j] - dot));
+    __syncwarp();
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < Sq * hd; i += blockDim.x) {
+    const int r = i / hd, d = i % hd;
+    float acc = 0.0f;
+    for (int j = 0; j < Sk; ++j) acc = fmaf(Ps[r * Sk + j], Ks[j * L + d], acc);
+    gq[b * gq_bs + r * gq_ss + col + d] = from_f<T>(acc * scale);
+  }
+  for (int i = threadIdx.x; i < Sk * hd; i += blockDim.x) {
+    const int j = i / hd, d = i % hd;
+    float ak = 0.0f, av = 0.0f;
+    for (int r = 0; r < Sq; ++r) {
+      ak = fmaf(Ps[r * Sk + j], Qs[r * L + d], ak);
+      av = fmaf(Pd[r * Sk + j], Gs[r * L + d], av);
+    }
+    float nk = round_t<T>(ak * scale), nv = round_t<T>(av);
+    T* pk = gk + b * gk_bs + j * gk_ss + col + d;
+    T* pv = gv + b * gv_bs + j * gv_ss + col + d;
+    if (accumulate_kv) {
+      nk += to_f<T>(*pk);
+      nv += to_f<T>(*pv);
+    }
+    *pk = from_f<T>(nk);
+    *pv = from_f<T>(nv);
+  }
+}
+
+// q/k/v/g and gq/gk/gv as (pointer, batch stride, row stride).
+template <typename T> struct Strided {
+  T* p;
+  long long bs, ss;
+};
+
+template <typename T>
+inline cudaError_t attention_bwd(Strided<const T> q, Strided<const T> k, Strided<const T> v,
+                                 Strided<const T> g, Strided<T> gq, Strided<T> gk, Strided<T> gv,
+                                 const T* keep, long long keep_ld, int B, int Sq, int Sk,
+                                 int heads, int hd, float scale, bool round_p_first,
+                                 bool accumulate_kv, cudaStream_t stream) {
+  const size_t smem = attention_bwd_smem_bytes(Sq, Sk, hd);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attention_bwd_kernel<T><<<dim3((unsigned)B, heads), ATT_WARPS * 32, smem, stream>>>(
+      q.p, q.bs, q.ss, k.p, k.bs, k.ss, v.p, v.bs, v.ss, g.p, g.bs, g.ss, gq.p, gq.bs, gq.ss,
+      gk.p, gk.bs, gk.ss, gv.p, gv.bs, gv.ss, keep, keep_ld, Sq, Sk, hd, scale, round_p_first,
+      accumulate_kv);
   return cudaGetLastError();
 }
 
@@ -382,6 +611,99 @@ __global__ void layer_norm_kernel(const TI* __restrict__ in, int rows, int D, in
 }
 
 inline unsigned ln_blocks(int rows) { return (unsigned)((rows + LN_WARPS - 1) / LN_WARPS); }
+
+// Backward of LayerNorm(x) * w + b over rows of width D, one warp per row,
+// given the upstream g (the Pallas kernels' _ln_bwd):
+//   gx = rstd (g w - mean(g w) - xhat mean(g w xhat))      (fp32)
+// It also writes the row's mean and 1/std (for the w and b gradients, which
+// col_sum forms) and, for each non-null (mask_i, out_i), out_i =
+// round_T(gx * mask_i): the dropout sites that feed the normalised sum.
+// gx may alias g.
+template <typename T, typename TX, typename TG>
+__global__ void layer_norm_bwd_kernel(const TX* __restrict__ x, const T* __restrict__ w,
+                                      const TG* g, int rows, int D, float* gx,
+                                      float* __restrict__ mean, float* __restrict__ rstd,
+                                      const T* m0, T* o0, const T* m1, T* o1, const T* m2, T* o2) {
+  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const long long base = (long long)row * D;
+  float mu, rs;
+  row_moments<TX>(x + base, D, lane, mu, rs);
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int i = lane; i < D; i += 32) {
+    const float gxh = to_f<TG>(g[base + i]) * to_f<T>(w[i]);
+    s1 += gxh;
+    s2 = fmaf(gxh, (to_f<TX>(x[base + i]) - mu) * rs, s2);
+  }
+  s1 = warp_sum(s1) / D;
+  s2 = warp_sum(s2) / D;
+  for (int i = lane; i < D; i += 32) {
+    const float xh = (to_f<TX>(x[base + i]) - mu) * rs;
+    const float v = rs * (to_f<TG>(g[base + i]) * to_f<T>(w[i]) - s1 - xh * s2);
+    gx[base + i] = v;
+    if (o0) o0[base + i] = from_f<T>(v * to_f<T>(m0[base + i]));
+    if (o1) o1[base + i] = from_f<T>(v * to_f<T>(m1[base + i]));
+    if (o2) o2[base + i] = from_f<T>(v * to_f<T>(m2[base + i]));
+  }
+  if (lane == 0) {
+    mean[row] = mu;
+    rstd[row] = rs;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Column sums out[n] (= or +=) sum_m f(m, n) over M rows: bias and
+// LayerNorm-parameter gradients. A block owns 32 columns; its 32 x 32
+// threads stride the rows, then one row of threads adds the 32 partial sums
+// in a fixed order. Deterministic, no atomics.
+// ---------------------------------------------------------------------------
+template <class F>
+__global__ void col_sum_kernel(F f, int M, int N, float* out, bool accumulate) {
+  __shared__ float part[32][33];
+  const int n = blockIdx.x * 32 + threadIdx.x;
+  float s = 0.0f;
+  if (n < N)
+    for (int m = threadIdx.y; m < M; m += 32) s += f(m, n);
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && n < N) {
+    float t = 0.0f;
+    for (int r = 0; r < 32; ++r) t += part[r][threadIdx.x];
+    out[n] = accumulate ? out[n] + t : t;
+  }
+}
+
+template <class F>
+inline void col_sum(const F& f, int M, int N, float* out, bool accumulate, cudaStream_t stream) {
+  col_sum_kernel<F><<<(unsigned)((N + 31) / 32), dim3(32, 32), 0, stream>>>(f, M, N, out,
+                                                                            accumulate);
+}
+
+template <typename TA> struct Val {  // f(m, n) = a[m * ld + n]
+  const TA* a;
+  long long ld;
+  __device__ float operator()(int m, int n) const { return to_f<TA>(a[(long long)m * ld + n]); }
+};
+
+template <typename TX, typename TG> struct LnWeightTerm {  // f(m, n) = g * xhat
+  const TX* x;
+  const TG* g;
+  const float* mean;
+  const float* rstd;
+  long long ld;
+  __device__ float operator()(int m, int n) const {
+    const long long i = (long long)m * ld + n;
+    return to_f<TG>(g[i]) * ((to_f<TX>(x[i]) - mean[m]) * rstd[m]);
+  }
+};
+
+// dW (torch layout [O, I], fp32) = sum over rows of G[r, o] * X[r, i]: one GEMM
+// whose K dimension is the rows; G is read through a column-major loader.
+template <typename T, class GLoad>
+inline void weight_grad(const GLoad& gload, const T* X, long long ldx, float* dW, int O, int I,
+                        int rows, bool accumulate, cudaStream_t stream) {
+  gemm<T, false>(gload, X, ldx, O, I, rows, EpiStoreF32{dW, (long long)I, accumulate}, stream);
+}
 
 }  // namespace
 }  // namespace qt

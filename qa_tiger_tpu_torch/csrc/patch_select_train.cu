@@ -1,0 +1,262 @@
+// fused_patch_select_train: the PatchSelecter forward under its three
+// explicit dropout masks, and its hand-derived backward.
+//
+//   x1  = patch + out(attn(patch Wq, patch Wk, patch Wv) . keep_slf)
+//   per query stream s in (video, audio), each one row per frame:
+//     ctx_s = attn(s Wq, x1 Wk, x1 Wv) . keep_crs_s
+//     rel_s = W2 relu(W1 (out_s * crs_out(ctx_s)))
+//   v = vnorm(rel_video),  a = anorm(rel_audio)
+//
+// Replaces qa_tiger_tpu/ops/pallas/patch_select.py:_kernel_train
+// (pallas_call :827) and _kernel_bwd (pallas_call :880).
+//
+// Bound on the H100: operations. At B=32, T=60, P=14, D=512 (BT=1920
+// frames, 26,880 patch rows) the patch-row projections (qkv, out_proj,
+// k|v) are ~85 GFLOP of the forward's ~91; the backward is about twice
+// that. The TPU kernel packs 16 frames block-diagonally into 224-row
+// tiles and recomputes the forward in VMEM in its backward. Here a block of
+// the attention kernels owns one frame and head, so no score crosses
+// frames; each step is one launch, and the forward writes the
+// intermediates the backward needs (qkv, the self context, x1, k|v, the
+// stacked queries, the cross context, the dropped out_proj output, the MLP
+// hidden and fp32 output) once, for the autograd Function to keep. The
+// backward recomputes only the attention probabilities.
+//
+// The two query streams run as one stacked [2BT, D] batch (video rows
+// first) through every GEMM, which sums the streams' shared weight
+// gradients in the GEMM's K loop; the cross attention and its backward
+// run once per stream with that stream's mask, the audio stream's key and
+// value gradients added to the video stream's after rounding each, as the
+// Pallas kernel does. Parameter gradients are one GEMM (K = rows) or one
+// column sum each: deterministic, no atomics, fp32.
+#include "common.cuh"
+
+namespace {
+
+// Indices into the pointer table the wrapper passes (ops/patch_select.py
+// TRAIN_BUFFERS lists the same names in the same order).
+enum Buf {
+  PATCH, VIDEO, AUDIO,
+  M_SLF, M_CRS_V, M_CRS_A, M_OUT_V, M_OUT_A,
+  SLF_W, SLF_B, SLF_OW, SLF_OB, CRS_W, CRS_B, CRS_OW, CRS_OB,
+  MLP_W1, MLP_B1, MLP_W2, MLP_B2, AN_W, AN_B, VN_W, VN_B,
+  A_OUT, V_OUT,
+  // forward intermediates kept for the backward
+  QKV, SCTX, X1, KV, SRC2, Q, CTX, CRS_D, HID, OUTF,
+  // backward: upstream gradients, input gradients, 16 parameter gradients
+  GA, GV, GPATCH, GVIDEO, GAUDIO,
+  G_SLF_W, G_SLF_B, G_SLF_OW, G_SLF_OB, G_CRS_W, G_CRS_B, G_CRS_OW, G_CRS_OB,
+  G_MLP_W1, G_MLP_B1, G_MLP_W2, G_MLP_B2, G_AN_W, G_AN_B, G_VN_W, G_VN_B,
+  // backward scratch
+  G_REL, STATS, G_PRE1, G_CRS_O, G_CTX, G_QC, G_KV, G_X1, G_SLF, G_QKV,
+  NBUF
+};
+
+// out = round(round(acc + b) * mask) (mask null: round(acc)), mask rows
+// [0, split) from m0 and [split, 2 split) from m1: the per-stream dropout.
+template <typename T> struct EpiMaskSplit {
+  T* out;
+  const T* bias;
+  const T* m0;
+  const T* m1;
+  int split;
+  long long ld;
+  __device__ void operator()(int m, int n, float acc) const {
+    const float y = bias ? qt::round_t<T>(acc + qt::to_f<T>(bias[n])) : acc;
+    const T* mk = m < split ? m0 + (long long)m * ld : m1 + (long long)(m - split) * ld;
+    out[(long long)m * ld + n] = qt::from_f<T>(y * qt::to_f<T>(mk[n]));
+  }
+};
+
+template <typename T> struct EpiSplitRows {  // rows [0, split) -> out0, the rest -> out1
+  T* out0;
+  T* out1;
+  int split;
+  long long ld;
+  __device__ void operator()(int m, int n, float acc) const {
+    T* o = m < split ? out0 + (long long)m * ld : out1 + (long long)(m - split) * ld;
+    o[n] = qt::from_f<T>(acc);
+  }
+};
+
+template <typename T> struct EpiReluGradF32 {  // out (fp32) = hid > 0 ? acc : 0
+  float* out;
+  const T* hid;
+  long long ld;
+  __device__ void operator()(int m, int n, float acc) const {
+    const long long i = (long long)m * ld + n;
+    out[i] = qt::to_f<T>(hid[i]) > 0.0f ? acc : 0.0f;
+  }
+};
+
+inline int pad128(int n) { return (n + 127) / 128 * 128; }
+
+#define QT_CHECK()                                   \
+  if ((err = cudaGetLastError()) != cudaSuccess) return err
+
+template <typename T>
+cudaError_t forward(void* const* b, int BT, int P, int D, int heads, cudaStream_t st) {
+  auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
+  auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
+  const int R = BT * P, Q2 = 2 * BT, Dh = D / 2, hd = D / heads;
+  const float scale = 1.0f / sqrtf((float)hd);
+  const long long lk = pad128(heads * P), D2 = 2LL * D, D3 = 3LL * D, DD = (long long)D * D;
+  const long long BD = (long long)BT * D;
+  cudaError_t err;
+  using qt::EpiBias;
+  using qt::RowLoad;
+
+  // self-attention over each frame's patches, out_proj + residual
+  qt::gemm<T, true>(RowLoad<T>{c(PATCH), D}, c(SLF_W), D, R, 3 * D, D,
+                    EpiBias<T>{w(QKV), D3, c(SLF_B), false}, st);
+  QT_CHECK();
+  err = qt::attention<T>(c(QKV), P * D3, D3, c(QKV) + D, P * D3, D3, c(QKV) + 2 * D, P * D3, D3,
+                         w(SCTX), (long long)P * D, D, nullptr, BT, P, P, heads, hd, scale, st,
+                         c(M_SLF), lk, true);
+  if (err != cudaSuccess) return err;
+  qt::gemm<T, true>(RowLoad<T>{c(SCTX), D}, c(SLF_OW), D, R, D, D,
+                    qt::EpiResidual<T>{w(X1), D, c(SLF_OB), c(PATCH), D}, st);
+  QT_CHECK();
+  // cross attention: k|v from the patches, one query row per frame and stream
+  qt::gemm<T, true>(RowLoad<T>{c(X1), D}, c(CRS_W) + DD, D, R, 2 * D, D,
+                    EpiBias<T>{w(KV), D2, c(CRS_B) + D, false}, st);
+  QT_CHECK();
+  if ((err = cudaMemcpyAsync(w(SRC2), c(VIDEO), BD * sizeof(T), cudaMemcpyDeviceToDevice, st)))
+    return err;
+  if ((err = cudaMemcpyAsync(w(SRC2) + BD, c(AUDIO), BD * sizeof(T), cudaMemcpyDeviceToDevice,
+                             st)))
+    return err;
+  qt::gemm<T, true>(RowLoad<T>{c(SRC2), D}, c(CRS_W), D, Q2, D, D,
+                    EpiBias<T>{w(Q), D, c(CRS_B), false}, st);
+  QT_CHECK();
+  for (int s = 0; s < 2; ++s) {
+    err = qt::attention<T>(c(Q) + s * BD, D, D, c(KV), P * D2, D2, c(KV) + D, P * D2, D2,
+                           w(CTX) + s * BD, D, D, nullptr, BT, 1, P, heads, hd, scale, st,
+                           c(s ? M_CRS_A : M_CRS_V), lk, true);
+    if (err != cudaSuccess) return err;
+  }
+  qt::gemm<T, true>(RowLoad<T>{c(CTX), D}, c(CRS_OW), D, Q2, D, D,
+                    EpiMaskSplit<T>{w(CRS_D), c(CRS_OB), c(M_OUT_V), c(M_OUT_A), BT, D}, st);
+  QT_CHECK();
+  // MLP; its output stays fp32 into the per-stream LayerNorm
+  qt::gemm<T, true>(RowLoad<T>{c(CRS_D), D}, c(MLP_W1), D, Q2, Dh, D,
+                    EpiBias<T>{w(HID), Dh, c(MLP_B1), true}, st);
+  QT_CHECK();
+  float* outf = static_cast<float*>(b[OUTF]);
+  qt::gemm<T, true>(RowLoad<T>{c(HID), Dh}, c(MLP_W2), Dh, Q2, D, Dh,
+                    qt::EpiF32<T>{outf, D, c(MLP_B2)}, st);
+  QT_CHECK();
+  qt::layer_norm_kernel<float, T><<<qt::ln_blocks(BT), qt::LN_WARPS * 32, 0, st>>>(
+      outf, BT, D, 1, c(VN_W), c(VN_B), w(V_OUT), nullptr, nullptr, nullptr);
+  qt::layer_norm_kernel<float, T><<<qt::ln_blocks(BT), qt::LN_WARPS * 32, 0, st>>>(
+      outf + BD, BT, D, 1, c(AN_W), c(AN_B), w(A_OUT), nullptr, nullptr, nullptr);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t backward(void* const* b, int BT, int P, int D, int heads, cudaStream_t st) {
+  auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
+  auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
+  auto f = [&](Buf i) { return static_cast<float*>(b[i]); };
+  const int R = BT * P, Q2 = 2 * BT, Dh = D / 2, hd = D / heads;
+  const float scale = 1.0f / sqrtf((float)hd);
+  const long long lk = pad128(heads * P), D2 = 2LL * D, D3 = 3LL * D, DD = (long long)D * D;
+  const long long BD = (long long)BT * D;
+  float* mean = f(STATS);
+  float* rstd = f(STATS) + Q2;
+  cudaError_t err;
+  using qt::ColLoad;
+  using qt::RowLoad;
+  using qt::Val;
+
+  // per-stream LayerNorms: video rows first, then audio
+  const T* g_up[2] = {c(GV), c(GA)};
+  const T* norm_w[2] = {c(VN_W), c(AN_W)};
+  float* g_nw[2] = {f(G_VN_W), f(G_AN_W)};
+  float* g_nb[2] = {f(G_VN_B), f(G_AN_B)};
+  for (int s = 0; s < 2; ++s) {
+    const float* x = f(OUTF) + s * BD;
+    qt::layer_norm_bwd_kernel<T, float, T><<<qt::ln_blocks(BT), qt::LN_WARPS * 32, 0, st>>>(
+        x, norm_w[s], g_up[s], BT, D, f(G_REL) + s * BD, mean + s * BT, rstd + s * BT, nullptr,
+        nullptr, nullptr, nullptr, nullptr, nullptr);
+    qt::col_sum(qt::LnWeightTerm<float, T>{x, g_up[s], mean + s * BT, rstd + s * BT, D}, BT, D,
+                g_nw[s], false, st);
+    qt::col_sum(Val<T>{g_up[s], D}, BT, D, g_nb[s], false, st);
+  }
+  QT_CHECK();
+  // MLP backward over both streams
+  qt::gemm<T, false>(qt::RoundRowLoad<T>{f(G_REL), D}, c(MLP_W2), Dh, Q2, Dh, D,
+                     EpiReluGradF32<T>{f(G_PRE1), c(HID), Dh}, st);
+  QT_CHECK();
+  qt::weight_grad<T>(qt::RoundColLoad<T>{f(G_REL), D}, c(HID), Dh, f(G_MLP_W2), D, Dh, Q2, false,
+                     st);
+  qt::col_sum(Val<float>{f(G_REL), D}, Q2, D, f(G_MLP_B2), false, st);
+  qt::gemm<T, false>(qt::RoundRowLoad<T>{f(G_PRE1), Dh}, c(MLP_W1), D, Q2, D, Dh,
+                     EpiMaskSplit<T>{w(G_CRS_O), nullptr, c(M_OUT_V), c(M_OUT_A), BT, D}, st);
+  QT_CHECK();
+  qt::weight_grad<T>(qt::RoundColLoad<T>{f(G_PRE1), Dh}, c(CRS_D), D, f(G_MLP_W1), Dh, D, Q2,
+                     false, st);
+  qt::col_sum(Val<float>{f(G_PRE1), Dh}, Q2, Dh, f(G_MLP_B1), false, st);
+  // cross out_proj and attention, one stream at a time
+  qt::gemm<T, false>(RowLoad<T>{c(G_CRS_O), D}, c(CRS_OW), D, Q2, D, D,
+                     qt::EpiBias<T>{w(G_CTX), D, nullptr, false}, st);
+  QT_CHECK();
+  qt::weight_grad<T>(ColLoad<T>{c(G_CRS_O), D}, c(CTX), D, f(G_CRS_OW), D, D, Q2, false, st);
+  qt::col_sum(Val<T>{c(G_CRS_O), D}, Q2, D, f(G_CRS_OB), false, st);
+  for (int s = 0; s < 2; ++s) {
+    err = qt::attention_bwd<T>({c(Q) + s * BD, D, D}, {c(KV), P * D2, D2},
+                               {c(KV) + D, P * D2, D2}, {c(G_CTX) + s * BD, D, D},
+                               {w(G_QC) + s * BD, D, D}, {w(G_KV), P * D2, D2},
+                               {w(G_KV) + D, P * D2, D2}, c(s ? M_CRS_A : M_CRS_V), lk, BT, 1, P,
+                               heads, hd, scale, true, s == 1, st);
+    if (err != cudaSuccess) return err;
+  }
+  // cross in_proj: the query half over both streams, the k|v half over patches
+  qt::weight_grad<T>(ColLoad<T>{c(G_QC), D}, c(SRC2), D, f(G_CRS_W), D, D, Q2, false, st);
+  qt::col_sum(Val<T>{c(G_QC), D}, Q2, D, f(G_CRS_B), false, st);
+  qt::gemm<T, false>(RowLoad<T>{c(G_QC), D}, c(CRS_W), D, Q2, D, D,
+                     EpiSplitRows<T>{w(GVIDEO), w(GAUDIO), BT, D}, st);
+  qt::gemm<T, false>(RowLoad<T>{c(G_KV), D2}, c(CRS_W) + DD, D, R, D, 2 * D,
+                     qt::EpiBias<T>{w(G_X1), D, nullptr, false}, st);
+  QT_CHECK();
+  qt::weight_grad<T>(ColLoad<T>{c(G_KV), D2}, c(X1), D, f(G_CRS_W) + DD, 2 * D, D, R, false, st);
+  qt::col_sum(Val<T>{c(G_KV), D2}, R, 2 * D, f(G_CRS_B) + D, false, st);
+  // self out_proj and attention
+  qt::gemm<T, false>(RowLoad<T>{c(G_X1), D}, c(SLF_OW), D, R, D, D,
+                     qt::EpiBias<T>{w(G_SLF), D, nullptr, false}, st);
+  QT_CHECK();
+  qt::weight_grad<T>(ColLoad<T>{c(G_X1), D}, c(SCTX), D, f(G_SLF_OW), D, D, R, false, st);
+  qt::col_sum(Val<T>{c(G_X1), D}, R, D, f(G_SLF_OB), false, st);
+  err = qt::attention_bwd<T>({c(QKV), P * D3, D3}, {c(QKV) + D, P * D3, D3},
+                             {c(QKV) + 2 * D, P * D3, D3}, {c(G_SLF), (long long)P * D, D},
+                             {w(G_QKV), P * D3, D3}, {w(G_QKV) + D, P * D3, D3},
+                             {w(G_QKV) + 2 * D, P * D3, D3}, c(M_SLF), lk, BT, P, P, heads, hd,
+                             scale, true, false, st);
+  if (err != cudaSuccess) return err;
+  qt::weight_grad<T>(ColLoad<T>{c(G_QKV), D3}, c(PATCH), D, f(G_SLF_W), 3 * D, D, R, false, st);
+  qt::col_sum(Val<T>{c(G_QKV), D3}, R, 3 * D, f(G_SLF_B), false, st);
+  // gpatch = g_x1 + round(g_qkv W_slf)
+  qt::gemm<T, false>(RowLoad<T>{c(G_QKV), D3}, c(SLF_W), D, R, D, 3 * D,
+                     qt::EpiResidual<T>{w(GPATCH), D, nullptr, c(G_X1), D}, st);
+  return cudaGetLastError();
+}
+
+#undef QT_CHECK
+
+}  // namespace
+
+extern "C" int qt_patch_select_train_fwd(int dtype, void* const* bufs, int BT, int P, int D,
+                                         int heads, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return forward<float>(bufs, BT, P, D, heads, st);
+  return forward<__nv_bfloat16>(bufs, BT, P, D, heads, st);
+}
+
+extern "C" int qt_patch_select_train_bwd(int dtype, void* const* bufs, int BT, int P, int D,
+                                         int heads, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return backward<float>(bufs, BT, P, D, heads, st);
+  return backward<__nv_bfloat16>(bufs, BT, P, D, heads, st);
+}
+
+extern "C" int qt_patch_select_train_num_buffers() { return NBUF; }

@@ -1,9 +1,9 @@
-"""QA-TIGER building blocks, eval paths, PyTorch edition.
+"""QA-TIGER building blocks, PyTorch edition.
 
 Port of ``qa_tiger_tpu/models/modules.py``. Each module's parameters carry
 the JAX pytree's names (``qst_attn.in_proj_weight``, ``experts.0.0.weight``,
 ``norm1.bias``, ...), and each forward computes what the JAX function
-computes with ``train=False`` (dropout is the identity):
+computes:
 
 - ``Projection``    — ``projection``
 - ``AVQCrossAttn``  — ``avq_cross_attn``: both directions as one 2B batch
@@ -12,22 +12,108 @@ computes with ``train=False`` (dropout is the identity):
                       2B ``fused_gaussian_moe`` launch
 - ``PatchSelecter`` — ``patch_selecter``: one ``fused_patch_select`` call
 
-The train-mode dropout-mask samplers come with the training slice.
+Dropout follows the JAX routing. It is active when a ``torch.Generator`` is
+given and the rate is above 0 (JAX: ``train`` with a key); without one every
+module computes its eval function. Under dropout AVQCrossAttn and
+PatchSelecter sample their realization once as explicit masks
+(``make_avq_dropout_masks``, ``make_patch_dropout_masks``) and run the
+fused train kernels (``fused_avq_train``, ``fused_patch_select_train``); a
+``masks=`` argument feeds a given realization instead. QstGrounding and
+TempMoE drop attention probabilities at the hard-coded p=0.1 of the
+reference, whatever the configured rate, on the plain ``mha`` path.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from qa_tiger_tpu_torch.nn.attention import MultiheadAttention, mha
-from qa_tiger_tpu_torch.nn.core import MLP2, LayerNorm, Linear, layer_norm, linear, mlp2
+from qa_tiger_tpu_torch.nn.core import MLP2, LayerNorm, Linear, dropout, layer_norm, mlp2
+from qa_tiger_tpu_torch.ops.avq import avq_sub_forward_masked, fused_avq_train
 from qa_tiger_tpu_torch.ops.gaussian_moe import fused_gaussian_moe
-from qa_tiger_tpu_torch.ops.patch_select import fused_patch_select
+from qa_tiger_tpu_torch.ops.patch_select import (
+    fused_patch_select,
+    fused_patch_select_train,
+    patch_selecter_plain,
+)
 from qa_tiger_tpu_torch.ops.tempmoe import (
     combined_expert_weights,
     gaussian_weights,
     topk_renormalized,
 )
+
+
+# QstGrounding's and TempMoE's attention dropout, fixed whatever the configured
+# rate (qa_tiger_tpu/models/modules.py:296, :359)
+ATTN_DROPOUT = 0.1
+
+__all__ = ["AVQCrossAttn", "PatchSelecter", "Projection", "QstGrounding", "TempMoE",
+           "avq_sub_forward_masked", "make_avq_dropout_masks", "make_patch_dropout_masks",
+           "patch_selecter_plain"]
+
+
+def _pad128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _bernoulli(generator: torch.Generator, shape, keep: float, dtype,
+               pad_to: int | None = None) -> torch.Tensor:
+    """A Bernoulli(keep) mask scaled by 1/keep, on the generator's device, its
+    lanes zero-padded to ``pad_to``."""
+    m = (torch.rand(shape, generator=generator, device=generator.device) < keep).to(dtype)
+    m = m * (1.0 / keep)
+    if pad_to and pad_to != shape[1]:
+        m = F.pad(m, (0, pad_to - shape[1]))
+    return m
+
+
+def make_avq_dropout_masks(generator: torch.Generator, N: int, T: int, S: int, D: int, *,
+                           nhead: int, dropout_p: float, dtype=torch.float32) -> dict:
+    """The AVQ sub-forward's eight dropout realizations, sampled once per
+    step in the fused kernels' 2D geometry, pre-scaled by 1/(1-p)
+    (``make_avq_dropout_masks`` :198):
+
+    - ``qst``/``slf``/``crs`` [N*T, pad128(H*Sk)]: attention-probability
+      masks, row n*T+t, lane h*Sk+key (Sk is S for qst, T for the others);
+      the padded lanes are zero and never read;
+    - ``d_slf``/``d_crs``/``d_qst`` [N*T, D]: the residual dropouts;
+    - ``ffn1`` [N*T, D] after the FFN's ReLU, ``ffn2`` [N*T, D] on its output.
+
+    Drawn in that order from ``generator``, on its device."""
+    keep = 1.0 - dropout_p
+    masks = {"qst": _bernoulli(generator, (N * T, nhead * S), keep, dtype, _pad128(nhead * S))}
+    for key in ("slf", "crs"):
+        masks[key] = _bernoulli(generator, (N * T, nhead * T), keep, dtype, _pad128(nhead * T))
+    for key in ("d_slf", "d_crs", "d_qst", "ffn1", "ffn2"):
+        masks[key] = _bernoulli(generator, (N * T, D), keep, dtype)
+    return masks
+
+
+def make_patch_dropout_masks(generator: torch.Generator, BT: int, P: int, D: int, *,
+                             nhead: int, dropout_p: float, dtype=torch.float32) -> dict:
+    """The PatchSelecter's dropout realizations, sampled once per step in the
+    fused kernels' 2D geometry, pre-scaled by 1/(1-p)
+    (``make_patch_dropout_masks`` :469):
+
+    - ``slf`` [BT*P, pad128(H*P)]: entry (bt*P+qi, h*P+ki) masks the
+      self-attention probability of frame bt, head h, query qi, key ki;
+    - ``crs_v``/``crs_a`` [BT, pad128(H*P)]: the cross-attention
+      probability masks of the video- and audio-query streams;
+    - ``out_v``/``out_a`` [BT, D]: the pre-MLP dropout per stream.
+
+    Drawn in that order from ``generator``, on its device."""
+    keep = 1.0 - dropout_p
+    L = nhead * P
+    return {"slf": _bernoulli(generator, (BT * P, L), keep, dtype, _pad128(L)),
+            "crs_v": _bernoulli(generator, (BT, L), keep, dtype, _pad128(L)),
+            "crs_a": _bernoulli(generator, (BT, L), keep, dtype, _pad128(L)),
+            "out_v": _bernoulli(generator, (BT, D), keep, dtype),
+            "out_a": _bernoulli(generator, (BT, D), keep, dtype)}
+
+
+def _dropping(generator, dropout_p: float) -> bool:
+    return generator is not None and dropout_p > 0.0
 
 
 class Projection(nn.Module):
@@ -53,14 +139,24 @@ class AVQCrossAttn(nn.Module):
         self.norm2 = LayerNorm(d_model)
 
     def forward(self, src_q: torch.Tensor, src_v: torch.Tensor,
-                query: torch.Tensor, *, nhead: int = 8):
+                query: torch.Tensor, *, nhead: int = 8, dropout_p: float = 0.0,
+                generator: torch.Generator | None = None, masks: dict | None = None):
         """Both directions share the parameters, so they run as one pass
         over a 2B batch: rows [:B] attend from src_q, rows [B:] from src_v.
-        Returns (src1, src2), each [B, T, D]."""
+        Returns (src1, src2), each [B, T, D]. Under dropout (or with
+        ``masks``) the pass is ``fused_avq_train``."""
         B = src_q.shape[0]
         q_cat = torch.cat([src_q, src_v], dim=0)
         v_cat = torch.cat([src_v, src_q], dim=0)
         query_cat = torch.cat([query, query], dim=0)
+        if masks is None and _dropping(generator, dropout_p):
+            N, T, D = q_cat.shape
+            masks = make_avq_dropout_masks(generator, N, T, query_cat.shape[1], D,
+                                           nhead=nhead, dropout_p=dropout_p,
+                                           dtype=q_cat.dtype)
+        if masks is not None:
+            out = fused_avq_train(q_cat, v_cat, query_cat, self, masks, nhead)
+            return out[:B], out[B:]
         qst_out, _ = mha(self.qst_attn, q_cat, query_cat, query_cat,
                          num_heads=nhead, need_weights=False)
         slf, _ = mha(self.slf_attn, q_cat, q_cat, q_cat, num_heads=nhead,
@@ -81,14 +177,15 @@ class QstGrounding(nn.Module):
         self.mlp = MLP2(d_model, d_model // 2, d_model, generator)
         self.norm = LayerNorm(d_model)
 
-    def forward(self, qst: torch.Tensor, data, *, nhead: int = 8) -> torch.Tensor:
-        """out = LayerNorm(mean_seq(data) + MLP(attn(qst, data, data))).
+    def forward(self, qst: torch.Tensor, data, *, nhead: int = 8, dropout_p: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """out = LayerNorm(mean_seq(data) + dropout(MLP(attn(qst, data, data)))).
         ``data`` may be a list of [B, S_i, D] streams joined along seq."""
         if isinstance(data, (list, tuple)):
             data = torch.cat(list(data), dim=1)
-        attn_out, _ = mha(self.attn, qst[:, None, :], data, data,
-                          num_heads=nhead, need_weights=False)
-        feat = data.mean(dim=1) + mlp2(attn_out[:, 0], self.mlp)
+        attn_out, _ = mha(self.attn, qst[:, None, :], data, data, num_heads=nhead,
+                          need_weights=False, dropout_p=ATTN_DROPOUT, generator=generator)
+        feat = data.mean(dim=1) + dropout(mlp2(attn_out[:, 0], self.mlp), dropout_p, generator)
         return layer_norm(feat, self.norm.weight, self.norm.bias)
 
 
@@ -121,7 +218,7 @@ class TempMoE(nn.Module):
 
     def forward(self, qst: torch.Tensor, data: torch.Tensor, sub_data=None, *,
                 nhead: int = 8, topK: int = 5, sigma: float = 9.0,
-                gather_mode: str = "reference"):
+                gather_mode: str = "reference", generator: torch.Generator | None = None):
         """[B, 1, D], or a pair of them for the visual branch (``sub_data``
         = [a_patch, v_patch]). The base centres are re-derived from
         ``n_experts``; they are never a parameter."""
@@ -130,8 +227,8 @@ class TempMoE(nn.Module):
         margin = 1.0 / (E * 2)
         base_centers = torch.linspace(margin, 1.0 - margin, E,
                                       dtype=torch.float32, device=data.device)
-        temp_w, _ = mha(self.qst_attn, qst[:, None, :], data, data,
-                        num_heads=nhead, need_weights=False)
+        temp_w, _ = mha(self.qst_attn, qst[:, None, :], data, data, num_heads=nhead,
+                        need_weights=False, dropout_p=ATTN_DROPOUT, generator=generator)
         temp_w = temp_w[:, 0]
         router_probs = torch.softmax(self.router(temp_w).float(), dim=-1)
         topk_probs, topk_inds = topk_renormalized(router_probs, topK)
@@ -167,7 +264,15 @@ class PatchSelecter(nn.Module):
         self.vnorm = LayerNorm(d_model)
 
     def forward(self, patch: torch.Tensor, audio: torch.Tensor,
-                video: torch.Tensor, *, nhead: int = 8):
+                video: torch.Tensor, *, nhead: int = 8, dropout_p: float = 0.0,
+                generator: torch.Generator | None = None, masks: dict | None = None):
         """Per-frame audio/video-guided patch summary -> [a_patch, v_patch],
-        each [B, T, D]."""
+        each [B, T, D]. Under dropout (or with ``masks``) the pass is
+        ``fused_patch_select_train``."""
+        if masks is None and _dropping(generator, dropout_p):
+            B, T, P, D = patch.shape
+            masks = make_patch_dropout_masks(generator, B * T, P, D, nhead=nhead,
+                                             dropout_p=dropout_p, dtype=patch.dtype)
+        if masks is not None:
+            return list(fused_patch_select_train(patch, audio, video, self, masks, nhead))
         return list(fused_patch_select(patch, audio, video, self, nhead))

@@ -1,9 +1,10 @@
-"""The QA-TIGER network, eval forward, PyTorch edition.
+"""The QA-TIGER network, PyTorch edition.
 
 Port of ``qa_tiger_tpu/models/qa_tiger.py``: five input projections ->
 question-guided AV cross attention -> patch selection -> audio and visual
 temporal Gaussian MoE aggregation -> two stacked question groundings ->
-ReLU -> Linear head. The frozen CLIP text tower encodes token ids online.
+ReLU -> Linear head. The frozen CLIP text tower encodes token ids online,
+under ``torch.no_grad()`` (JAX: ``stop_gradient``), in its own dtype.
 """
 from __future__ import annotations
 
@@ -82,7 +83,8 @@ class QATiger(nn.Module):
             ctx = self.cfg.get("text_ctx")
             if ctx and ctx < quest.shape[1]:
                 quest = quest[:, :ctx]
-            pooled, words = self.quest_encoder(quest)
+            with torch.no_grad():
+                pooled, words = self.quest_encoder(quest)
             return pooled.to(tgt), words.to(tgt)
         if quest.dim() == 3:
             quest = quest[:, 0]
@@ -90,12 +92,17 @@ class QATiger(nn.Module):
             return quest.to(tgt), words.to(tgt)
         return quest, None
 
-    def forward(self, batch: dict) -> dict:
+    def forward(self, batch: dict, *, train: bool = False,
+                generator: torch.Generator | None = None) -> dict:
         """batch: quest [B, 77] token ids (or a float question, with
         ``quest_words``), audio [B, T, audio_dim], video [B, T, video_dim],
-        patch [B, T, P, patch_dim] -> {'out': logits [B, num_labels]}."""
+        patch [B, T, P, patch_dim] -> {'out': logits [B, num_labels]}.
+
+        Dropout is active when ``train`` and a ``generator`` are given (JAX:
+        ``train=True`` with a key); its six sites draw from sub-generators
+        on the activations' device seeded from ``generator``."""
         cfg = self.cfg
-        nhead = cfg["nhead"]
+        nhead, dp = cfg["nhead"], cfg["dropout"]
         quest, words = self.encode_question(batch["quest"], batch.get("quest_words"))
         if words is None:
             raise ValueError("the words projection needs word features: pass "
@@ -105,14 +112,28 @@ class QATiger(nn.Module):
         patch = self.patch_proj(batch["patch"])
         words = self.words_proj(words)
         quest = self.quest_proj(quest)
+        gens = split_generator(generator, 6, audio.device) if train and generator is not None \
+            else [None] * 6
 
-        audio, video = self.crs_attn(audio, video, words, nhead=nhead)
-        patch_pair = self.patch_selecter(patch, audio, video, nhead=nhead)
+        audio, video = self.crs_attn(audio, video, words, nhead=nhead, dropout_p=dp,
+                                     generator=gens[0])
+        patch_pair = self.patch_selecter(patch, audio, video, nhead=nhead, dropout_p=dp,
+                                         generator=gens[1])
         moe = dict(nhead=nhead, topK=cfg["topK"], sigma=cfg["sigma"],
                    gather_mode=cfg["gather_mode"])
-        a_global = self.at_aggregator(quest, audio, None, **moe)
-        ap_global, vp_global = self.vt_aggregator(quest, video, patch_pair, **moe)
-        fusion = self.quest_grounding(quest, [ap_global, vp_global], nhead=nhead)
-        fusion = self.quest_grounding(quest, [fusion[:, None, :], a_global],
-                                      nhead=nhead)
+        a_global = self.at_aggregator(quest, audio, None, generator=gens[2], **moe)
+        ap_global, vp_global = self.vt_aggregator(quest, video, patch_pair, generator=gens[3],
+                                                  **moe)
+        fusion = self.quest_grounding(quest, [ap_global, vp_global], nhead=nhead,
+                                      dropout_p=dp, generator=gens[4])
+        fusion = self.quest_grounding(quest, [fusion[:, None, :], a_global], nhead=nhead,
+                                      dropout_p=dp, generator=gens[5])
         return {"out": self.head(torch.relu(fusion))}
+
+
+def split_generator(generator: torch.Generator, n: int, device) -> list:
+    """n generators on ``device``, seeded from ``generator``: a deterministic
+    split of one dropout stream into one per site. The seeds are read on the
+    host, so a host generator costs no wait for the card (a CUDA one does)."""
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=generator, device=generator.device)
+    return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds.tolist()]

@@ -3,6 +3,7 @@ from qa_tiger_tpu_torch.nn.core import (
     MLP2,
     LayerNorm,
     Linear,
+    dropout,
     layer_norm,
     linear,
     mlp2,
@@ -13,6 +14,7 @@ __all__ = [
     "MLP2",
     "LayerNorm",
     "Linear",
+    "dropout",
     "MultiheadAttention",
     "layer_norm",
     "linear",

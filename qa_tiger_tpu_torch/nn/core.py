@@ -7,8 +7,8 @@ carries the same dotted names as the JAX parameter pytree flattened
 
 Numerics follow ``qa_tiger_tpu.nn.core``: matrix products accumulate in fp32
 (``F.linear``), LayerNorm takes its statistics in fp32 with eps 1e-5 and
-casts back to the activation dtype. Dropout is the identity in eval, which is
-all this package runs.
+casts back to the activation dtype. ``dropout`` is inverted dropout drawn
+from an explicit ``torch.Generator``, the identity without one.
 """
 from __future__ import annotations
 
@@ -33,6 +33,19 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     var = (x32 - mean).square().mean(dim=-1, keepdim=True)
     out = (x32 - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()
     return out.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, p: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout, ``nn.Dropout``'s semantics: each element is kept
+    with probability 1 - p and then divided by it. The identity when the
+    generator is None or p is 0, as the JAX package's ``dropout`` is when
+    its key is None. The generator must live on x's device."""
+    if generator is None or p <= 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,19 @@
-"""Operations of the eval path: the four CUDA kernels with their plain
+"""Operations of the eval and train paths: the CUDA kernels with their plain
 PyTorch versions, and the TempMoE routing math.
 
 ``KERNELS`` lists every kernel wrapper; each carries an integer
-``launches`` counter that it bumps only when it launches its kernel.
+``launches`` counter that it bumps only when it launches its kernel. The
+train kernels' backward launchers (``*_bwd``) are listed beside them: they
+run under autograd, from the ``torch.autograd.Function`` of their forward.
 """
 from qa_tiger_tpu_torch.ops.attention import attention_wide
+from qa_tiger_tpu_torch.ops.avq import fused_avq_train, fused_avq_train_bwd
 from qa_tiger_tpu_torch.ops.gaussian_moe import fused_gaussian_moe
-from qa_tiger_tpu_torch.ops.patch_select import fused_patch_select
+from qa_tiger_tpu_torch.ops.patch_select import (
+    fused_patch_select,
+    fused_patch_select_train,
+    fused_patch_select_train_bwd,
+)
 from qa_tiger_tpu_torch.ops.resblock import fused_attn_ln2
 
 KERNELS = {
@@ -14,6 +21,10 @@ KERNELS = {
     "attention_wide": attention_wide,
     "fused_patch_select": fused_patch_select,
     "fused_gaussian_moe": fused_gaussian_moe,
+    "fused_avq_train": fused_avq_train,
+    "fused_avq_train_bwd": fused_avq_train_bwd,
+    "fused_patch_select_train": fused_patch_select_train,
+    "fused_patch_select_train_bwd": fused_patch_select_train_bwd,
 }
 
 
@@ -26,6 +37,7 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "attention_wide", "fused_attn_ln2",
-           "fused_gaussian_moe", "fused_patch_select", "launch_counts",
+__all__ = ["KERNELS", "attention_wide", "fused_attn_ln2", "fused_avq_train",
+           "fused_avq_train_bwd", "fused_gaussian_moe", "fused_patch_select",
+           "fused_patch_select_train", "fused_patch_select_train_bwd", "launch_counts",
            "reset_launches"]

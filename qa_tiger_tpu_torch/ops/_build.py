@@ -36,6 +36,15 @@ SIGNATURES = {
     "qt_attn_ln2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _P, _P, _I, _I, _I, _I, _P],
     "qt_patch_select": [_I] + [_P] * 30 + [_I] * 4 + [_P],
+    # the train kernels take one table of device pointers (index order: the
+    # Buf enum of their source, the BUFFERS lists of ops/avq.py and
+    # ops/patch_select.py)
+    "qt_avq_train_fwd": [_I, _P, _I, _I, _I, _I, _I, _P],
+    "qt_avq_train_bwd": [_I, _P, _I, _I, _I, _I, _I, _P],
+    "qt_patch_select_train_fwd": [_I, _P, _I, _I, _I, _I, _P],
+    "qt_patch_select_train_bwd": [_I, _P, _I, _I, _I, _I, _P],
+    "qt_avq_num_buffers": [],
+    "qt_patch_select_train_num_buffers": [],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -139,6 +148,23 @@ def launch(name: str, *args) -> None:
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({lib.qt_error_string(err).decode()})")
+
+
+def launch_table(name: str, count_fn: str, names: list[str], bufs: dict, *args) -> None:
+    """Call a C launcher that takes ``(dtype, pointer table, *args, stream)``.
+
+    ``names`` orders the table as the source's enum does; a name missing from
+    ``bufs`` passes a null pointer (a buffer the launcher does not touch).
+    ``count_fn`` names the exported function that returns the enum's length,
+    checked here against ``len(names)``. The first name is the activation
+    input, whose dtype selects the kernel."""
+    lib = library()
+    n = getattr(lib, count_fn)()
+    if n != len(names):
+        raise RuntimeError(f"{name}: the kernel takes {n} buffers, the wrapper names "
+                           f"{len(names)}")
+    table = (ctypes.c_void_p * n)(*[ptr(bufs.get(key)) for key in names])
+    launch(name, dtype_code(bufs[names[0]]), ctypes.addressof(table), *args)
 
 
 def dtype_code(t) -> int:

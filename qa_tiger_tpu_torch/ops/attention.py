@@ -2,13 +2,14 @@
 
 Port of ``qa_tiger_tpu/ops/pallas/attention.py:attention_wide``: the CUDA
 kernel in ``csrc/attention.cu`` for CUDA tensors, the plain version
-``_wide_reference`` for CPU tensors.
+``_wide_reference`` for CPU tensors. On CUDA its gradient is that of the plain
+version, recomputed (``ops/_grad.py``), the JAX ``custom_vjp`` rule.
 """
 from __future__ import annotations
 
 import torch
 
-from qa_tiger_tpu_torch.ops import _build
+from qa_tiger_tpu_torch.ops import _build, _grad
 
 
 def _wide_reference(q, k, v, mask, scale, heads):
@@ -67,6 +68,12 @@ def attention_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if tuple(mask.shape) != (Sq, Sk):
             raise ValueError(f"mask must be [{Sq}, {Sk}], got {tuple(mask.shape)}")
         mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
+    return _grad.KernelWithPlainGrad.apply(
+        _launch, _wide_reference, dict(mask=mask, scale=scale, heads=heads), q, k, v)
+
+
+def _launch(q, k, v, *, mask, scale, heads):
+    B, Sq, W = q.shape
     out = torch.empty(B, Sq, W, dtype=q.dtype, device=q.device)
     _build.launch(
         "qt_attention", _build.dtype_code(q),
@@ -74,7 +81,7 @@ def attention_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k.data_ptr(), k.stride(0), k.stride(1),
         v.data_ptr(), v.stride(0), v.stride(1),
         out.data_ptr(), out.stride(0), out.stride(1),
-        _build.ptr(mask), B, Sq, Sk, heads, W // heads, float(scale))
+        _build.ptr(mask), B, Sq, k.shape[1], heads, W // heads, float(scale))
     attention_wide.launches += 1
     return out
 

@@ -6,13 +6,15 @@ Port of ``qa_tiger_tpu/ops/pallas/gaussian_moe.py:fused_gaussian_moe``:
 
 with T contracted before the second Linear. The CUDA kernel in
 ``csrc/gaussian_moe.cu`` runs for CUDA tensors, the plain version
-``_reference_impl`` for CPU tensors.
+``_reference_impl`` for CPU tensors. On CUDA its gradient is that of the
+plain version, recomputed (``ops/_grad.py``), as the JAX ``custom_vjp``
+(gaussian_moe.py:183) recomputes through its reference.
 """
 from __future__ import annotations
 
 import torch
 
-from qa_tiger_tpu_torch.ops import _build
+from qa_tiger_tpu_torch.ops import _build, _grad
 
 
 def _reference_impl(x, w1t, b1, w2t, b2, w):
@@ -49,6 +51,12 @@ def fused_gaussian_moe(x: torch.Tensor,    # [B, T, D]
             raise ValueError(f"{name} must be contiguous")
         if t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"{name} must match x's dtype and device")
+    return _grad.KernelWithPlainGrad.apply(_launch, _reference_impl, {}, x, w1t, b1, w2t, b2, w)
+
+
+def _launch(x, w1t, b1, w2t, b2, w):
+    B, T, D = x.shape
+    E, _, H = w1t.shape
     s = torch.empty(B, E, H, dtype=torch.float32, device=x.device)
     wsum = torch.empty(B, E, dtype=torch.float32, device=x.device)
     out = torch.empty(B, D, dtype=x.dtype, device=x.device)

@@ -1,48 +1,79 @@
-"""The whole eval PatchSelecter as one fused operation.
+"""The whole PatchSelecter as one fused operation, eval and train.
 
-Port of ``qa_tiger_tpu/ops/pallas/patch_select.py:fused_patch_select``:
-per frame, self-attention over its P patches with residual, then the
-frame's video and audio vectors as two queries attending those patches,
-out_proj, MLP and one LayerNorm per stream. The CUDA kernel in
-``csrc/patch_select.cu`` runs for CUDA tensors, the plain version
-``patch_selecter_plain`` (the port of ``patch_selecter_jnp``) for CPU
-tensors.
+Port of ``qa_tiger_tpu/ops/pallas/patch_select.py``: per frame,
+self-attention over its P patches with residual, then the frame's video and
+audio vectors as two queries attending those patches, out_proj, MLP and one
+LayerNorm per stream.
+
+- ``fused_patch_select`` (eval, ``fused_patch_select`` :1022): the CUDA
+  kernel in ``csrc/patch_select.cu``; its gradient is the plain version's,
+  recomputed, as the JAX ``custom_vjp`` does.
+- ``fused_patch_select_train`` (``fused_patch_select_train`` :961): the
+  same module under three explicit dropout masks
+  (``models.modules.make_patch_dropout_masks``), a CUDA forward and a CUDA
+  backward kernel (``csrc/patch_select_train.cu``) in one
+  ``torch.autograd.Function``.
+
+A CPU tensor takes the plain version ``patch_selecter_plain`` (the port of
+``patch_selecter_jnp``, its ``masks=`` path included), which autograd
+differentiates.
 """
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 
 from qa_tiger_tpu_torch.nn.core import layer_norm, linear, mlp2
-from qa_tiger_tpu_torch.ops import _build
+from qa_tiger_tpu_torch.ops import _build, _grad
 from qa_tiger_tpu_torch.ops.attention import _wide_reference
 
 
-def patch_selecter_plain(params, patch, audio, video, *, nhead: int = 8):
+def patch_selecter_plain(params, patch, audio, video, *, nhead: int = 8,
+                         masks: dict | None = None):
     """All B*T frames as one batch of attention problems -> [a, v], each
     [B, T, D]. ``params`` holds slf_attn, crs_attn, mlp, anorm, vnorm.
 
-    The port of ``patch_selecter_jnp``: its two ``mha`` calls are written out
-    (packed qkv for the self-attention, q and fused kv for the cross one) so
-    that this version reaches no kernel."""
+    The port of ``patch_selecter_jnp``. Without ``masks`` its two ``mha``
+    calls are written out (packed qkv for the self-attention, q and fused kv
+    for the cross one) so that this version reaches no kernel. With
+    ``masks`` (``make_patch_dropout_masks``) it is the masked oracle: the
+    probability masks enter ``mha`` as ``prob_mask`` (its plain path) and the
+    pre-MLP masks multiply the cross output."""
+    # nn.attention imports ops.attention, so ops imports it when called
+    from qa_tiger_tpu_torch.nn.attention import mha
+
     B, T, P, D = patch.shape
     BT = B * T
-    scale = 1.0 / math.sqrt(D // nhead)
-    slf_p, crs_p = params.slf_attn, params.crs_attn
     patch_bt = patch.reshape(BT, P, D)
-    q, k, v = linear(patch_bt, slf_p.in_proj_weight,
-                     slf_p.in_proj_bias).chunk(3, dim=-1)
-    slf = linear(_wide_reference(q, k, v, None, scale, nhead),
-                 slf_p.out_proj.weight, slf_p.out_proj.bias)
-    patch_bt = patch_bt + slf
-    query = torch.cat([video.reshape(BT, 1, D), audio.reshape(BT, 1, D)],
-                      dim=1)  # video first
-    w, b = crs_p.in_proj_weight, crs_p.in_proj_bias
-    q = linear(query, w[:D], b[:D])
-    k, v = linear(patch_bt, w[D:], b[D:]).chunk(2, dim=-1)
-    crs = linear(_wide_reference(q, k, v, None, scale, nhead),
-                 crs_p.out_proj.weight, crs_p.out_proj.bias)
+    if masks is None:
+        scale = 1.0 / math.sqrt(D // nhead)
+        slf_p, crs_p = params.slf_attn, params.crs_attn
+        q, k, v = linear(patch_bt, slf_p.in_proj_weight,
+                         slf_p.in_proj_bias).chunk(3, dim=-1)
+        slf = linear(_wide_reference(q, k, v, None, scale, nhead),
+                     slf_p.out_proj.weight, slf_p.out_proj.bias)
+        patch_bt = patch_bt + slf
+        query = torch.cat([video.reshape(BT, 1, D), audio.reshape(BT, 1, D)],
+                          dim=1)  # video first
+        w, b = crs_p.in_proj_weight, crs_p.in_proj_bias
+        q = linear(query, w[:D], b[:D])
+        k, v = linear(patch_bt, w[D:], b[D:]).chunk(2, dim=-1)
+        crs = linear(_wide_reference(q, k, v, None, scale, nhead),
+                     crs_p.out_proj.weight, crs_p.out_proj.bias)
+    else:
+        L = nhead * P
+        pm_slf = masks["slf"][:, :L].reshape(BT, P, nhead, P).transpose(1, 2)
+        pm_crs = torch.stack([masks["crs_v"][:, :L].reshape(BT, nhead, P),
+                              masks["crs_a"][:, :L].reshape(BT, nhead, P)], dim=2)
+        slf, _ = mha(params.slf_attn, patch_bt, patch_bt, patch_bt, num_heads=nhead,
+                     need_weights=False, prob_mask=pm_slf)
+        patch_bt = patch_bt + slf
+        query = torch.cat([video.reshape(BT, 1, D), audio.reshape(BT, 1, D)], dim=1)
+        crs, _ = mha(params.crs_attn, query, patch_bt, patch_bt, num_heads=nhead,
+                     need_weights=False, prob_mask=pm_crs)
+        crs = crs * torch.stack([masks["out_v"], masks["out_a"]], dim=1).to(crs.dtype)
     out = mlp2(crs, params.mlp)
     v_rel, a_rel = out[:, 0], out[:, 1]
     return [layer_norm(a_rel.reshape(B, T, D), params.anorm.weight,
@@ -60,19 +91,31 @@ def _weights(params):
             params.anorm.bias, params.vnorm.weight, params.vnorm.bias]
 
 
-def fused_patch_select(patch: torch.Tensor, audio: torch.Tensor,
-                       video: torch.Tensor, params, nhead: int = 8):
-    """(a_final, v_final) = PatchSelecter(patch [B,T,P,D], audio/video
-    [B,T,D]); returns two [B, T, D]."""
-    if patch.device.type == "cpu":
-        return tuple(patch_selecter_plain(params, patch, audio, video,
-                                          nhead=nhead))
+def _params(w):
+    """The 16 tensors of ``_weights`` as the attribute tree the plain
+    version reads."""
+    ns = SimpleNamespace
+
+    def attn(i):
+        return ns(in_proj_weight=w[i], in_proj_bias=w[i + 1],
+                  out_proj=ns(weight=w[i + 2], bias=w[i + 3]))
+
+    return ns(slf_attn=attn(0), crs_attn=attn(4),
+              mlp={0: ns(weight=w[8], bias=w[9]), 2: ns(weight=w[10], bias=w[11])},
+              anorm=ns(weight=w[12], bias=w[13]), vnorm=ns(weight=w[14], bias=w[15]))
+
+
+def _plain_flat(patch, audio, video, *weights, nhead, masks=None):
+    return tuple(patch_selecter_plain(_params(weights), patch, audio, video,
+                                      nhead=nhead, masks=masks))
+
+
+def _check(patch, audio, video, weights, nhead):
     if patch.device.type != "cuda":
-        raise ValueError(f"fused_patch_select runs on cpu or cuda, not {patch.device}")
+        raise ValueError(f"the PatchSelecter kernels run on cpu or cuda, not {patch.device}")
     B, T, P, D = patch.shape
     if D % nhead or D % 2:
         raise ValueError(f"width {D} does not split into {nhead} heads")
-    weights = _weights(params)
     shapes = [(3 * D, D), (3 * D,), (D, D), (D,), (3 * D, D), (3 * D,),
               (D, D), (D,), (D // 2, D), (D // 2,), (D, D // 2), (D,),
               (D,), (D,), (D,), (D,)]
@@ -84,6 +127,23 @@ def fused_patch_select(patch: torch.Tensor, audio: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous {shape}, got {tuple(t.shape)}")
         if t.dtype != patch.dtype or t.device != patch.device:
             raise ValueError(f"{name} must match patch's dtype and device")
+
+
+def fused_patch_select(patch: torch.Tensor, audio: torch.Tensor,
+                       video: torch.Tensor, params, nhead: int = 8):
+    """(a_final, v_final) = PatchSelecter(patch [B,T,P,D], audio/video
+    [B,T,D]); returns two [B, T, D]."""
+    if patch.device.type == "cpu":
+        return tuple(patch_selecter_plain(params, patch, audio, video,
+                                          nhead=nhead))
+    weights = _weights(params)
+    _check(patch, audio, video, weights, nhead)
+    return _grad.KernelWithPlainGrad.apply(_launch_eval, _plain_flat, dict(nhead=nhead),
+                                           patch, audio, video, *weights)
+
+
+def _launch_eval(patch, audio, video, *weights, nhead):
+    B, T, P, D = patch.shape
     BT = B * T
     dev, dt = patch.device, patch.dtype
     a_out = torch.empty(B, T, D, dtype=dt, device=dev)
@@ -107,3 +167,116 @@ def fused_patch_select(patch: torch.Tensor, audio: torch.Tensor,
 
 
 fused_patch_select.launches = 0
+
+# ---------------------------------------------------------------------------
+# train mode
+# ---------------------------------------------------------------------------
+
+MASK_KEYS = ("slf", "crs_v", "crs_a", "out_v", "out_a")
+WEIGHT_NAMES = ("slf_w", "slf_b", "slf_ow", "slf_ob", "crs_w", "crs_b", "crs_ow", "crs_ob",
+                "mlp_w1", "mlp_b1", "mlp_w2", "mlp_b2", "an_w", "an_b", "vn_w", "vn_b")
+SAVED = ("qkv", "sctx", "x1", "kv", "src2", "q", "ctx", "crs_d", "hid", "outf")
+# the pointer table of csrc/patch_select_train.cu, in its enum's order
+TRAIN_BUFFERS = (("patch", "video", "audio") + tuple(f"m_{k}" for k in MASK_KEYS)
+                 + WEIGHT_NAMES + ("a_out", "v_out") + SAVED
+                 + ("ga", "gv", "gpatch", "gvideo", "gaudio")
+                 + tuple(f"g_{n}" for n in WEIGHT_NAMES)
+                 + ("g_rel", "stats", "g_pre1", "g_crs_o", "g_ctx", "g_qc", "g_kv", "g_x1",
+                    "g_slf", "g_qkv"))
+
+
+class _PatchSelectTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, nhead, masks, patch, audio, video, *weights):
+        B, T, P, D = patch.shape
+        BT, R = B * T, B * T * P
+        dev, dt = patch.device, patch.dtype
+
+        def e(*shape, dtype=dt):
+            return torch.empty(*shape, dtype=dtype, device=dev)
+
+        bufs = dict(patch=patch, video=video, audio=audio, a_out=e(B, T, D), v_out=e(B, T, D),
+                    qkv=e(R, 3 * D), sctx=e(R, D), x1=e(R, D), kv=e(R, 2 * D), src2=e(2 * BT, D),
+                    q=e(2 * BT, D), ctx=e(2 * BT, D), crs_d=e(2 * BT, D),
+                    hid=e(2 * BT, D // 2), outf=e(2 * BT, D, dtype=torch.float32))
+        bufs.update({f"m_{k}": masks[k] for k in MASK_KEYS})
+        bufs.update(zip(WEIGHT_NAMES, weights))
+        _build.launch_table("qt_patch_select_train_fwd", "qt_patch_select_train_num_buffers",
+                            TRAIN_BUFFERS, bufs, BT, P, D, nhead)
+        fused_patch_select_train.launches += 1
+        ctx.nhead, ctx.masks = nhead, masks
+        ctx.save_for_backward(patch, audio, video, *weights, *[bufs[k] for k in SAVED])
+        return bufs["a_out"], bufs["v_out"]
+
+    @staticmethod
+    def backward(ctx, ga, gv):
+        saved = ctx.saved_tensors
+        patch, audio, video = saved[:3]
+        weights = saved[3:3 + len(WEIGHT_NAMES)]
+        bufs = dict(zip(SAVED, saved[3 + len(WEIGHT_NAMES):]))
+        gpatch, gaudio, gvideo, gws = fused_patch_select_train_bwd(
+            patch, audio, video, weights, bufs, ctx.masks, ga, gv, ctx.nhead)
+        return (None, None, gpatch, gaudio, gvideo,
+                *[g.to(w.dtype) for g, w in zip(gws, weights)])
+
+
+def fused_patch_select_train_bwd(patch, audio, video, weights, saved: dict, masks: dict,
+                                 ga, gv, nhead: int):
+    """Launch the backward kernel: (gpatch, gaudio, gvideo, 16 fp32
+    parameter gradients in the module's [out, in] layout)."""
+    B, T, P, D = patch.shape
+    BT, R = B * T, B * T * P
+    dev, dt = patch.device, patch.dtype
+
+    def e(*shape, dtype=dt):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    f32 = torch.float32
+    grads = [torch.empty(w.shape, dtype=f32, device=dev) for w in weights]
+    bufs = dict(patch=patch, video=video, audio=audio, **saved,
+                ga=ga.to(dt).contiguous(), gv=gv.to(dt).contiguous(),
+                gpatch=e(B, T, P, D), gvideo=e(B, T, D), gaudio=e(B, T, D),
+                g_rel=e(2 * BT, D, dtype=f32), stats=e(2, 2 * BT, dtype=f32),
+                g_pre1=e(2 * BT, D // 2, dtype=f32), g_crs_o=e(2 * BT, D), g_ctx=e(2 * BT, D),
+                g_qc=e(2 * BT, D), g_kv=e(R, 2 * D), g_x1=e(R, D), g_slf=e(R, D),
+                g_qkv=e(R, 3 * D))
+    bufs.update({f"m_{k}": masks[k] for k in MASK_KEYS})
+    bufs.update(zip(WEIGHT_NAMES, weights))
+    bufs.update(zip((f"g_{n}" for n in WEIGHT_NAMES), grads))
+    _build.launch_table("qt_patch_select_train_bwd", "qt_patch_select_train_num_buffers",
+                        TRAIN_BUFFERS, bufs, BT, P, D, nhead)
+    fused_patch_select_train_bwd.launches += 1
+    return bufs["gpatch"], bufs["gaudio"], bufs["gvideo"], grads
+
+
+fused_patch_select_train_bwd.launches = 0
+
+
+def fused_patch_select_train(patch: torch.Tensor, audio: torch.Tensor, video: torch.Tensor,
+                             params, masks: dict, nhead: int = 8):
+    """Train-mode PatchSelecter under explicit dropout masks -> (a, v), each
+    [B, T, D]. ``masks`` holds ``slf`` [B*T*P, Lp], ``crs_v``/``crs_a``
+    [B*T, Lp] (lane h*P + key, Lp = H*P padded to 128) and ``out_v``/``out_a``
+    [B*T, D], pre-scaled by 1/(1-p) (``make_patch_dropout_masks``).
+
+    On CUDA one forward kernel and, under autograd, one backward kernel,
+    which returns the input gradients and fp32 parameter gradients."""
+    if patch.device.type == "cpu":
+        return tuple(patch_selecter_plain(params, patch, audio, video, nhead=nhead,
+                                          masks=masks))
+    weights = _weights(params)
+    _check(patch, audio, video, weights, nhead)
+    B, T, P, D = patch.shape
+    Lp = -(-nhead * P // 128) * 128
+    want = {"slf": (B * T * P, Lp), "crs_v": (B * T, Lp), "crs_a": (B * T, Lp),
+            "out_v": (B * T, D), "out_a": (B * T, D)}
+    dev_masks = {}
+    for key, shape in want.items():
+        m = masks[key]
+        if tuple(m.shape) != shape:
+            raise ValueError(f"mask {key} must be {shape}, got {tuple(m.shape)}")
+        dev_masks[key] = m.to(patch.device, patch.dtype).contiguous()
+    return _PatchSelectTrain.apply(nhead, dev_masks, patch, audio, video, *weights)
+
+
+fused_patch_select_train.launches = 0

@@ -5,7 +5,9 @@ Port of ``qa_tiger_tpu/ops/pallas/resblock.py:fused_attn_ln2``:
     y = x + out_proj(attn(ln_1(x)))      h = ln_2(y)
 
 The CUDA kernel in ``csrc/resblock.cu`` runs for CUDA tensors, the plain
-version ``_attn_ln2_plain`` for CPU tensors.
+version ``_attn_ln2_plain`` for CPU tensors. On CUDA its gradient is that of
+the plain version, recomputed (``ops/_grad.py``), the JAX ``custom_vjp`` rule
+(resblock.py:649-682).
 """
 from __future__ import annotations
 
@@ -14,20 +16,28 @@ import math
 import torch
 
 from qa_tiger_tpu_torch.nn.core import layer_norm, linear
-from qa_tiger_tpu_torch.ops import _build
+from qa_tiger_tpu_torch.ops import _build, _grad
 from qa_tiger_tpu_torch.ops.attention import _wide_reference
 
 
-def _attn_ln2_plain(block, x, *, heads, mask):
+def _block_params(block) -> list:
+    return [block.ln_1.weight, block.ln_1.bias, block.attn.in_proj_weight,
+            block.attn.in_proj_bias, block.attn.out_proj.weight,
+            block.attn.out_proj.bias, block.ln_2.weight, block.ln_2.bias]
+
+
+def _attn_ln2_flat(x, ln1w, ln1b, wqkv, bqkv, wout, bout, ln2w, ln2b, *, heads, mask):
     """Plain version: ln_1, the packed qkv projection, ``_wide_reference``,
     out_proj, residual, ln_2 (the JAX package's ``_attn_ln2_jnp``)."""
-    attn = block.attn
-    h = layer_norm(x, block.ln_1.weight, block.ln_1.bias)
-    q, k, v = linear(h, attn.in_proj_weight, attn.in_proj_bias).chunk(3, dim=-1)
-    ctx = _wide_reference(q, k, v, mask, 1.0 / math.sqrt(x.shape[-1] // heads),
-                          heads)
-    y = x + linear(ctx, attn.out_proj.weight, attn.out_proj.bias)
-    return y, layer_norm(y, block.ln_2.weight, block.ln_2.bias)
+    h = layer_norm(x, ln1w, ln1b)
+    q, k, v = linear(h, wqkv, bqkv).chunk(3, dim=-1)
+    ctx = _wide_reference(q, k, v, mask, 1.0 / math.sqrt(x.shape[-1] // heads), heads)
+    y = x + linear(ctx, wout, bout)
+    return y, layer_norm(y, ln2w, ln2b)
+
+
+def _attn_ln2_plain(block, x, *, heads, mask):
+    return _attn_ln2_flat(x, *_block_params(block), heads=heads, mask=mask)
 
 
 def fused_attn_ln2(x: torch.Tensor, block, mask: torch.Tensor | None,
@@ -42,9 +52,7 @@ def fused_attn_ln2(x: torch.Tensor, block, mask: torch.Tensor | None,
     B, S, W = x.shape
     if W % heads:
         raise ValueError(f"width {W} does not split into {heads} heads")
-    params = [block.ln_1.weight, block.ln_1.bias, block.attn.in_proj_weight,
-              block.attn.in_proj_bias, block.attn.out_proj.weight,
-              block.attn.out_proj.bias, block.ln_2.weight, block.ln_2.bias]
+    params = _block_params(block)
     shapes = [(W,), (W,), (3 * W, W), (3 * W,), (W, W), (W,), (W,), (W,)]
     for p, shape in zip([x] + params, [(B, S, W)] + shapes):
         if tuple(p.shape) != shape or not p.is_contiguous():
@@ -55,6 +63,12 @@ def fused_attn_ln2(x: torch.Tensor, block, mask: torch.Tensor | None,
         if tuple(mask.shape) != (S, S):
             raise ValueError(f"mask must be [{S}, {S}], got {tuple(mask.shape)}")
         mask = mask.to(device=x.device, dtype=torch.float32).contiguous()
+    return _grad.KernelWithPlainGrad.apply(_launch, _attn_ln2_flat,
+                                           dict(heads=heads, mask=mask), x, *params)
+
+
+def _launch(x, *params, heads, mask):
+    B, S, W = x.shape
     y = torch.empty_like(x)
     h = torch.empty_like(x)
     qkv = torch.empty(B * S, 3 * W, dtype=x.dtype, device=x.device)

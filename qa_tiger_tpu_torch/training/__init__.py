@@ -1,0 +1,30 @@
+"""Training: metrics, optimizer and schedules, and the AVQARunner.
+
+Port of ``qa_tiger_tpu/training`` (checkpoints are a later slice,
+ROADMAP.md)."""
+from qa_tiger_tpu_torch.training.loop import AVQARunner
+from qa_tiger_tpu_torch.training.metrics import (
+    accuracy_report,
+    masked_cross_entropy,
+    qtype_counters,
+)
+from qa_tiger_tpu_torch.training.optim import (
+    PlateauScheduler,
+    lr_multipliers,
+    make_lr_schedule,
+    make_optimizer,
+)
+from qa_tiger_tpu_torch.training.qtypes import NUM_QTYPES, idx2qtype
+
+__all__ = [
+    "AVQARunner",
+    "NUM_QTYPES",
+    "PlateauScheduler",
+    "accuracy_report",
+    "idx2qtype",
+    "lr_multipliers",
+    "make_lr_schedule",
+    "make_optimizer",
+    "masked_cross_entropy",
+    "qtype_counters",
+]

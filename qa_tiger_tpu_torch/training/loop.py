@@ -1,0 +1,373 @@
+"""Training and evaluation runner.
+
+Port of ``qa_tiger_tpu/training/loop.py`` (the reference's
+src/trainutils.py:253-462) for one card:
+
+- the frozen text tower is split off the trained parameters
+  (``requires_grad_(False)``, no Adam state), runs under ``no_grad`` in its
+  own ``encoder_dtype`` (bf16 on the card unless the config says otherwise,
+  fp32 on the CPU, as the JAX runner does on its accelerator), and its
+  outputs reach the trainable projections in their dtype;
+- ``train_step``: forward with dropout drawn from a ``torch.Generator``, CE
+  plus any ``*loss*`` outputs, backward, Adam with the scheduled LR times
+  each group's multiplier; ``grad_accum`` microbatches weighted by their
+  valid rows; opt-in ``train_dtype`` computes in that dtype from fp32
+  master weights;
+- eval accumulates the loss and the 9-way counters on the device;
+- ``train_epoch`` and ``evaluate``/``test`` take any loader with
+  ``__len__``, ``__iter__`` and ``set_epoch`` and read the device once per
+  log window;
+- ``debug`` stops each loop at batch 10 like the reference's smoke mode.
+
+The JAX runner's ``steps_per_dispatch`` (K steps in one scanned call) is not
+here: PyTorch dispatches eagerly (ROADMAP.md says what its counterpart is).
+"""
+from __future__ import annotations
+
+import time
+from collections.abc import Mapping
+from typing import Any
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from qa_tiger_tpu_torch.convert import params_from_jax
+from qa_tiger_tpu_torch.models.qa_tiger import FROZEN_PREFIXES, QATiger, split_generator
+from qa_tiger_tpu_torch.models.registry import resolve_device
+from qa_tiger_tpu_torch.training.metrics import (
+    accuracy_report,
+    masked_cross_entropy,
+    qtype_counters,
+)
+from qa_tiger_tpu_torch.training.optim import lr_multipliers, make_optimizer
+from qa_tiger_tpu_torch.utils.logging import get_logger
+
+BATCH_KEYS = ("quest", "audio", "video", "patch", "prompt", "label", "qtype_label", "valid")
+EVAL_CAST_KEYS = ("audio", "video", "patch", "quest", "prompt", "quest_words")
+
+
+def _dtype(name: str | None) -> torch.dtype | None:
+    return getattr(torch, name) if name else None
+
+
+def _frozen(name: str) -> bool:
+    return name.split(".")[0] in FROZEN_PREFIXES
+
+
+def _as_state(params: Mapping) -> dict[str, torch.Tensor]:
+    """A state_dict (flat names -> tensors) as it is; a JAX parameter pytree
+    or a flat dict of numpy arrays through ``params_from_jax``."""
+    if all(torch.is_tensor(v) for v in params.values()):
+        return dict(params)
+    return params_from_jax(params)
+
+
+class AVQARunner:
+    """Owns the model, the optimizer and the step functions.
+
+    ``cfg``: the config dict (``hyper_params.optim``: lr, betas,
+    weight_decay, encoder_lr, grad_accum; ``hyper_params.train_dtype`` /
+    ``eval_dtype``; ``log_interval``; ``debug``). ``model_cfg``: the model's
+    hyperparameters (``models.qa_tiger_config``). The model runs on
+    ``device`` (``cuda`` unless given, no fallback). Weights come from
+    ``seed``, or from ``init_params`` (a state_dict or a JAX pytree).
+    """
+
+    def __init__(self, cfg: Mapping, model_cfg: Mapping, *,
+                 device: str | torch.device | None = None, seed: int = 0,
+                 init_params: Mapping | None = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.logger = get_logger()
+        self.model_cfg = dict(model_cfg)
+        enc_dt = self.model_cfg.get("encoder_dtype")
+        if enc_dt is None and self.device.type == "cuda":
+            enc_dt = "bfloat16"
+        self.model_cfg["encoder_dtype"] = enc_dt
+        self._encoder_dtype = _dtype(enc_dt)
+        self.model = QATiger(self.model_cfg, seed=seed)
+        self.model.quest_encoder.requires_grad_(False)
+        self.model.to(self.device)
+        hp = cfg["hyper_params"]
+        self._optim_cfg = dict(hp["optim"])
+        self._train_dtype = _dtype(hp.get("train_dtype"))
+        self._eval_dtype = _dtype(hp.get("eval_dtype"))
+        self._grad_accum = int(self._optim_cfg.get("grad_accum", 1) or 1)
+        if init_params is not None:
+            self.load_params(init_params)
+        else:
+            self._cast_frozen()
+            self._make_optimizer()
+        # the dropout stream of train_epoch; on the host, as it only seeds the
+        # per-site generators on the device (split_generator), so drawing from
+        # it never waits for the card
+        self._step_generator = torch.Generator().manual_seed(seed + 1)
+        # opt-in question cache: per-dataset (pooled, words) tables on the
+        # device, keyed by the dataset's id(); see build_question_cache_from_tokens
+        self._qst_caches: dict[Any, tuple[torch.Tensor, torch.Tensor]] = {}
+        self._active_qst_cache: tuple[torch.Tensor, torch.Tensor] | None = None
+
+    # ------------------------------------------------------------------
+    def trainable(self) -> list[tuple[str, torch.nn.Parameter]]:
+        return [(n, p) for n, p in self.model.named_parameters() if not _frozen(n)]
+
+    def _make_optimizer(self) -> None:
+        oc = self._optim_cfg
+        names = [n for n, _ in self.trainable()]
+        self.optimizer = make_optimizer(
+            self.trainable(), betas=tuple(oc.get("betas", (0.9, 0.999))),
+            weight_decay=oc.get("weight_decay", 0.0) or 0.0,
+            lr_mults=lr_multipliers(names, oc.get("encoder_lr"), oc.get("lr", 1e-4)))
+
+    def _cast_frozen(self) -> None:
+        if self._encoder_dtype is not None:
+            self.model.quest_encoder.to(self._encoder_dtype)
+
+    @property
+    def params(self) -> dict[str, torch.Tensor]:
+        """Every parameter, trainable and frozen, by its dotted name."""
+        return self.model.state_dict()
+
+    def load_params(self, params: Mapping) -> None:
+        """Load a state_dict or a JAX pytree: every trainable parameter must
+        be there; the frozen tower may be left out (it keeps its weights).
+        Adam's state starts afresh."""
+        missing, unexpected = self.model.load_state_dict(_as_state(params), strict=False)
+        missing = [n for n in missing if not _frozen(n)]
+        if missing or unexpected:
+            raise KeyError(f"load_params: missing {missing}, unexpected {unexpected}")
+        self._cast_frozen()
+        self._make_optimizer()
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def build_question_cache_from_tokens(self, tokens, key: Any, chunk: int = 512) -> None:
+        """Encode token ids [N, L] through the frozen tower once and keep
+        (pooled [N, Dq], words [N, L, W]) on the device under ``key``, in
+        the tower's dtype; a batch that carries ``ds_idx`` then gathers rows
+        of the active table instead of running the tower."""
+        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64)
+        ctx = self.model_cfg.get("text_ctx")
+        if ctx and ctx < toks.shape[1]:
+            toks = toks[:, :ctx]
+        pooled, words = [], []
+        for i in range(0, toks.shape[0], chunk):
+            p, w = self.model.quest_encoder(toks[i:i + chunk].to(self.device))
+            pooled.append(p)
+            words.append(w)
+        cache = (torch.cat(pooled), torch.cat(words))
+        self._qst_caches[key] = cache
+        self.logger.info(
+            f"question cache built: {toks.shape[0]} questions, words "
+            f"{tuple(cache[1].shape)} {cache[1].dtype} "
+            f"({cache[1].numel() * cache[1].element_size() / 1e6:.1f} MB resident)")
+
+    def _select_qst_cache(self, loader) -> None:
+        self._active_qst_cache = self._qst_caches.get(id(getattr(loader, "dataset", None)))
+
+    def _device_batch(self, batch: Mapping) -> dict[str, torch.Tensor]:
+        """numpy arrays or tensors -> tensors on the device (floats keep
+        their dtype; token ids, labels and qtypes as int64; valid as bool)."""
+        ctx = self.model_cfg.get("text_ctx")
+        quest = batch.get("quest")
+        if ctx and quest is not None and not torch.is_floating_point(torch.as_tensor(quest)):
+            eot = torch.as_tensor(quest).argmax(-1)
+            if bool((eot >= ctx).any()):
+                raise ValueError(
+                    f"text_ctx={ctx} but a question's EOT sits at position "
+                    f"{int(eot.max())}; raise text_ctx (tokenized questions "
+                    "must fit, including SOT/EOT)")
+        out = {}
+        cache = self._active_qst_cache
+        if cache is not None and "ds_idx" in batch:
+            idx = torch.as_tensor(np.asarray(batch["ds_idx"]), dtype=torch.int64).to(self.device)
+            out["quest"], out["quest_words"] = cache[0][idx], cache[1][idx]
+        for key in BATCH_KEYS:
+            if key in batch and batch[key] is not None and key not in out:
+                t = torch.as_tensor(batch[key])
+                if key == "valid":
+                    t = t.bool()
+                elif not torch.is_floating_point(t):
+                    t = t.long()
+                out[key] = t.to(self.device)
+        return out
+
+    # ------------------------------------------------------------------
+    def _forward(self, batch: dict, dtype: torch.dtype | None, include_frozen: bool,
+                 **kwargs) -> dict:
+        """The model's forward, computed in ``dtype`` when given: the
+        parameters (the trainable ones, or all) and the float inputs are cast
+        copies, so gradients flow back to the fp32 masters."""
+        if dtype is None:
+            return self.model(batch, **kwargs)
+        named = self.model.named_parameters() if include_frozen else self.trainable()
+        params = {n: p.to(dtype) for n, p in named}
+        keys = EVAL_CAST_KEYS if include_frozen else batch.keys()
+        batch = {k: v.to(dtype) if k in keys and torch.is_floating_point(v) else v
+                 for k, v in batch.items()}
+        return functional_call(self.model, params, (batch,), kwargs)
+
+    def _losses(self, batch: dict, generator) -> dict[str, torch.Tensor]:
+        out = self._forward(batch, self._train_dtype, False, train=True, generator=generator)
+        ce = masked_cross_entropy(out["out"], batch["label"], batch["valid"])
+        losses = {"ce_loss": ce}
+        total = ce
+        for key, value in out.items():
+            if "loss" in key:
+                losses[key] = value
+                total = total + value
+        losses["total_loss"] = total
+        return losses
+
+    def train_step(self, batch: Mapping, lr: float,
+                   generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        """One optimizer step; returns the losses as device scalars. Dropout
+        draws from ``generator`` (none without one). The parameter gradients
+        stay in ``.grad`` until the next step."""
+        batch = self._device_batch(batch)
+        self.optimizer.zero_grad(set_to_none=True)
+        accum = self._grad_accum
+        if accum <= 1:
+            losses = self._losses(batch, generator)
+            losses["total_loss"].backward()
+        else:
+            losses = self._accumulated_backward(batch, generator, accum)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr * group["lr_mult"]
+        self.optimizer.step()
+        return {k: v.detach() for k, v in losses.items()}
+
+    def _accumulated_backward(self, batch: dict, generator, accum: int) -> dict:
+        """``accum`` sequential microbatches, each gradient weighted by its
+        valid-row count and the sum divided by the total: for the CE loss
+        exactly the full-batch gradient, where the forward does not mix rows
+        (``gather_mode="paper"``; the reference gather rotates routing across
+        the batch, so microbatches change it, as in the JAX runner)."""
+        mbs = [dict(zip(batch, parts)) for parts in
+               zip(*(v.chunk(accum) for v in batch.values()))]
+        gens = split_generator(generator, accum, self.device) if generator is not None \
+            else [None] * accum
+        sums: dict[str, torch.Tensor] = {}
+        w_sum = torch.zeros((), device=self.device)
+        for mb, gen in zip(mbs, gens):
+            w = mb["valid"].float().sum()
+            losses = self._losses(mb, gen)
+            (w * losses["total_loss"]).backward()
+            for k, v in losses.items():
+                sums[k] = sums.get(k, 0.0) + w * v.detach()
+            w_sum = w_sum + w
+        denom = w_sum.clamp(min=1.0)
+        for _, p in self.trainable():
+            if p.grad is not None:
+                p.grad.div_(denom)
+        return {k: v / denom for k, v in sums.items()}
+
+    @torch.no_grad()
+    def eval_step(self, batch: Mapping):
+        """(ce, correct, total, correct_per_type, total_per_type), on the
+        device."""
+        batch = self._device_batch(batch)
+        out = self._forward(batch, self._eval_dtype, True)
+        ce = masked_cross_entropy(out["out"], batch["label"], batch["valid"])
+        return (ce, *qtype_counters(out["out"], batch["label"], batch["qtype_label"],
+                                    batch["valid"]))
+
+    # ------------------------------------------------------------------
+    def train_epoch(self, epoch: int, loader, lr: float, writer=None) -> None:
+        cfg = self.cfg
+        logger = self.logger
+        log_interval = cfg.get("log_interval", 100)
+        self._select_qst_cache(loader)
+        loader.set_epoch(epoch)
+        tot_batch = len(loader) - 1
+        sums: dict[str, float] = {}
+        count = 0
+        epoch_time = time.time()
+        pending: list = []  # (batch_idx, device losses) awaiting one host read
+
+        def drain() -> dict[str, float]:
+            if not pending:
+                return {}
+            keys = list(pending[0][1])
+            host = torch.stack([torch.stack([ld[k].float() for k in keys])
+                                for _, ld in pending]).tolist()
+            last: dict[str, float] = {}
+            for (bi, _), row in zip(pending, host):
+                last = dict(zip(keys, row))
+                for k, v in last.items():
+                    sums[k] = sums.get(k, 0.0) + v
+                    if writer is not None:
+                        writer.add_scalar(f"train/loss/{k}", v,
+                                          (epoch - 1) * (tot_batch + 1) + bi)
+            pending.clear()
+            return last
+
+        for batch_idx, host_batch in enumerate(loader):
+            start_time = time.time()
+            pending.append((batch_idx, self.train_step(host_batch, lr, self._step_generator)))
+            count += 1
+            if batch_idx % log_interval == 0 or batch_idx == tot_batch:
+                last = drain()
+                batch_t = time.time() - start_time
+                elapsed = time.time() - epoch_time
+                avg_time = elapsed / (batch_idx + 1)
+                est = (tot_batch - batch_idx) * avg_time / 60
+                cur = str(batch_idx).zfill(len(str(max(tot_batch, 1))))
+                ratio = 100.0 * batch_idx / max(tot_batch, 1)
+                loss_str = " ".join(f"{k}-{v:.4f}({sums[k] / count:.4f})"
+                                    for k, v in last.items())
+                logger.info(
+                    f"[EST: {est:7.2f}m][Process Time: {batch_t:7.2f}s]"
+                    f"- Epoch: {epoch} [{cur}/{tot_batch} ({ratio:3.0f}%)]"
+                    f"\tLosses: {loss_str}")
+            if cfg.get("debug") and batch_idx == 10:
+                break
+        drain()
+
+    def _run_eval(self, loader, debug: bool):
+        self._select_qst_cache(loader)
+        ce_sum, cor, tot, n_batches = 0.0, 0, 0, 0
+        cor9 = np.zeros(9, np.int64)
+        tot9 = np.zeros(9, np.int64)
+        pending: list = []
+        log_interval = self.cfg.get("log_interval", 100)
+
+        def drain() -> None:
+            nonlocal ce_sum, cor, tot, cor9, tot9, n_batches
+            if not pending:
+                return
+            rows = torch.stack([torch.cat([ce.double().reshape(1), c.reshape(1).double(),
+                                           t.reshape(1).double(), c9.double(), t9.double()])
+                                for ce, c, t, c9, t9 in pending]).cpu().numpy()
+            for row in rows:
+                ce_sum += float(row[0])
+                cor += int(row[1])
+                tot += int(row[2])
+                cor9 += row[3:12].astype(np.int64)
+                tot9 += row[12:21].astype(np.int64)
+                n_batches += 1
+            pending.clear()
+
+        for batch_idx, host_batch in enumerate(loader):
+            pending.append(self.eval_step(host_batch))
+            if batch_idx % log_interval == 0 or batch_idx == len(loader) - 1:
+                drain()
+                self.logger.info(f"Test progress: {batch_idx:3.0f}/{len(loader) - 1}")
+            if debug and batch_idx == 10:
+                break
+        drain()
+        return ce_sum / max(n_batches, 1), cor, tot, cor9, tot9
+
+    def evaluate(self, epoch: int, loader, writer=None) -> tuple[float, float]:
+        loss, cor, tot, cor9, tot9 = self._run_eval(loader, bool(self.cfg.get("debug")))
+        if writer is not None:
+            writer.add_scalar("valid/acc/Total", cor / max(tot, 1) * 100.0, epoch)
+        report = accuracy_report(cor, tot, cor9, tot9, self.logger.info, epoch=epoch,
+                                 writer=writer)
+        return report["Total"], loss
+
+    def test(self, loader) -> float:
+        _, cor, tot, cor9, tot9 = self._run_eval(loader, bool(self.cfg.get("debug")))
+        report = accuracy_report(cor, tot, cor9, tot9, self.logger.info, prefix="Test")
+        return report["Total"]

@@ -7,13 +7,25 @@ Marked ``gpu``: without a CUDA device every test here skips. On the card
 
 Tolerances: fp32 max|k - p| <= 1e-4 * max(1, max|p|) (summation order);
 bf16 3e-2 * max(1, max|p|) (bf16 rounding of outputs and intermediates).
+bf16 gradients of the train kernels: the kernel and the plain version in
+bf16 are both held to the plain version in fp32 on the same values, and the
+kernel may be off by at most max(2 x the plain version's error,
+3e-2 * max(1, max|ref|)): bf16 rounding in sums over many rows moves both.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
 from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock, causal_mask
-from qa_tiger_tpu_torch.models.modules import PatchSelecter
+from qa_tiger_tpu_torch.models.modules import (
+    AVQCrossAttn,
+    PatchSelecter,
+    make_avq_dropout_masks,
+    make_patch_dropout_masks,
+)
+from qa_tiger_tpu_torch.ops import avq as AV
 from qa_tiger_tpu_torch.ops import attention as A
 from qa_tiger_tpu_torch.ops import gaussian_moe as G
 from qa_tiger_tpu_torch.ops import patch_select as PS
@@ -98,3 +110,125 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     y = torch.zeros(2, 5, 64, device=cuda)
     with pytest.raises(ValueError, match="mask"):
         A.attention_wide(y, y, y, torch.zeros(3, 3, device=cuda), 1.0, 4)
+
+
+# ---------------------------------------------------------------------------
+# gradients: the slice-1 kernels' autograd Functions, the train kernel pairs
+# ---------------------------------------------------------------------------
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+def _outs_and_grads(outs, ins, cots):
+    outs = [outs] if torch.is_tensor(outs) else list(outs)
+    for o in outs:
+        assert o.grad_fn is not None, "the kernel's output carries no gradient"
+    return outs + list(torch.autograd.grad(outs, ins, cots))
+
+
+def _slice1_case(name, rng, cuda):
+    dt = torch.float32
+    gen = torch.Generator().manual_seed(0)
+    if name == "fused_attn_ln2":
+        blk = ResidualAttentionBlock(768, 12, gen).to(cuda, dt)
+        x, mask = _leaf(_rn(rng, 2, 13, 768, dtype=dt)), causal_mask(13, device=cuda)
+        return (lambda: R.fused_attn_ln2(x, blk, mask, 12),
+                lambda: R._attn_ln2_plain(blk, x, heads=12, mask=mask),
+                [x] + R._block_params(blk), [_rn(rng, 2, 13, 768, dtype=dt)] * 2)
+    if name == "attention_wide":
+        q, k, v = (_leaf(_rn(rng, 3, s, 512, dtype=dt)) for s in (60, 77, 77))
+        return (lambda: A.attention_wide(q, k, v, None, 0.125, 8),
+                lambda: A._wide_reference(q, k, v, None, 0.125, 8), [q, k, v],
+                [_rn(rng, 3, 60, 512, dtype=dt)])
+    if name == "fused_patch_select":
+        ps = PatchSelecter(512, gen).to(cuda, dt)
+        patch = _leaf(_rn(rng, 2, 5, 14, 512, dtype=dt))
+        audio, video = _leaf(_rn(rng, 2, 5, 512, dtype=dt)), _leaf(_rn(rng, 2, 5, 512, dtype=dt))
+        return (lambda: PS.fused_patch_select(patch, audio, video, ps, 8),
+                lambda: tuple(PS.patch_selecter_plain(ps, patch, audio, video, nhead=8)),
+                [patch, audio, video] + list(ps.parameters()),
+                [_rn(rng, 2, 5, 512, dtype=dt), _rn(rng, 2, 5, 512, dtype=dt)])
+    x = _leaf(_rn(rng, 4, 60, 512, dtype=dt))
+    w1t, b1 = _leaf(_rn(rng, 7, 512, 256, dtype=dt, scale=0.05)), _leaf(_rn(rng, 7, 256, dtype=dt))
+    w2t, b2 = _leaf(_rn(rng, 7, 256, 512, dtype=dt, scale=0.05)), _leaf(_rn(rng, 7, 512, dtype=dt))
+    w = _leaf(torch.from_numpy(0.05 * rng.random((4, 7, 60), dtype=np.float32)).to(cuda))
+    ins = [x, w1t, b1, w2t, b2, w]
+    return (lambda: G.fused_gaussian_moe(*ins), lambda: G._reference_impl(*ins), ins,
+            [_rn(rng, 4, 512, dtype=dt)])
+
+
+@pytest.mark.parametrize("name", ["fused_attn_ln2", "attention_wide", "fused_patch_select",
+                                  "fused_gaussian_moe"])
+def test_slice1_kernel_gradients(cuda, name):
+    """On the card the kernels' outputs carry the plain version's gradient
+    (the JAX custom_vjp rule): every input and parameter gradient equals
+    autograd's through the plain version."""
+    kernel, plain, ins, cots = _slice1_case(name, np.random.default_rng(5), cuda)
+    got, want = _outs_and_grads(kernel(), ins, cots), _outs_and_grads(plain(), ins, cots)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= TOL[torch.float32] * max(1.0, w.float().abs().max().item()), err
+
+
+def _train_case(kind, dtype, cuda, rng):
+    gen = torch.Generator().manual_seed(0)
+    mgen = torch.Generator(device=cuda).manual_seed(1)
+    D, H = 512, 8
+    if kind == "avq":
+        N, T, S = 4, 6, 9
+        mod = AVQCrossAttn(D, gen).to(cuda, dtype)
+        acts = [_leaf(_rn(rng, N, T, D, dtype=dtype)), _leaf(_rn(rng, N, T, D, dtype=dtype)),
+                _leaf(_rn(rng, N, S, D, dtype=dtype))]
+        masks = make_avq_dropout_masks(mgen, N, T, S, D, nhead=H, dropout_p=0.1, dtype=dtype)
+        cots = [_rn(rng, N, T, D, dtype=dtype)]
+        kernel = lambda m, a, mk: AV.fused_avq_train(*a, m, mk, H)  # noqa: E731
+        plain = lambda m, a, mk: AV.avq_sub_forward_masked(m, *a, mk, nhead=H)  # noqa: E731
+        counters = (AV.fused_avq_train, AV.fused_avq_train_bwd)
+    else:
+        B, T, P = 2, 4, 14
+        mod = PatchSelecter(D, gen).to(cuda, dtype)
+        acts = [_leaf(_rn(rng, B, T, P, D, dtype=dtype)), _leaf(_rn(rng, B, T, D, dtype=dtype)),
+                _leaf(_rn(rng, B, T, D, dtype=dtype))]
+        masks = make_patch_dropout_masks(mgen, B * T, P, D, nhead=H, dropout_p=0.1, dtype=dtype)
+        cots = [_rn(rng, B, T, D, dtype=dtype), _rn(rng, B, T, D, dtype=dtype)]
+        kernel = lambda m, a, mk: PS.fused_patch_select_train(*a, m, mk, H)  # noqa: E731
+        plain = lambda m, a, mk: tuple(PS.patch_selecter_plain(m, *a, nhead=H,  # noqa: E731
+                                                               masks=mk))
+        counters = (PS.fused_patch_select_train, PS.fused_patch_select_train_bwd)
+    return mod, acts, masks, cots, kernel, plain, counters
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["avq", "patch_select"])
+def test_train_kernels_forward_and_backward(cuda, kind, dtype):
+    """One forward and one backward launch; the outputs, the input
+    gradients and the (fp32) parameter gradients against the plain version
+    on the same masks."""
+    mod, acts, masks, cots, kernel, plain, (fwd, bwd) = _train_case(
+        kind, dtype, cuda, np.random.default_rng(6))
+    ins = acts + list(mod.parameters())
+    n_fwd, n_bwd = fwd.launches, bwd.launches
+    got = _outs_and_grads(kernel(mod, acts, masks), ins, cots)
+    assert (fwd.launches, bwd.launches) == (n_fwd + 1, n_bwd + 1)
+    want = _outs_and_grads(plain(mod, acts, masks), ins, cots)
+    n_out = len(got) - len(ins)
+    if dtype == torch.float32:
+        ref, plain_err = want, [0.0] * len(want)
+    else:
+        m32 = copy.deepcopy(mod).float()
+        a32 = [_leaf(a.detach().float()) for a in acts]
+        ref = _outs_and_grads(plain(m32, a32, {k: v.float() for k, v in masks.items()}),
+                              a32 + list(m32.parameters()), [c.float() for c in cots])
+        plain_err = [(w.float() - r).abs().max().item() for w, r in zip(want, ref)]
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.device.type == "cuda" and torch.isfinite(g).all()
+        assert g.dtype == (dtype if i < len(acts) + n_out else w.dtype), i
+        target = w if i < n_out else ref[i]
+        err = (g.float() - target.float()).abs().max().item()
+        limit = TOL[dtype] * max(1.0, target.float().abs().max().item())
+        if i >= n_out:
+            limit = max(limit, 2 * plain_err[i])
+        assert err <= limit, (i, err, limit)
