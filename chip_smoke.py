@@ -9,11 +9,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. build  — builds the CUDA kernels from qa_tiger_tpu_torch/csrc;
 3. kernels — each serving kernel at the serving path's shapes (B=256,
    bf16) against its plain PyTorch version on the same inputs, and again at
-   a small fp32 shape; their gradients (the plain-recompute backward) at
-   B=2 and B=32 fp32; each train kernel pair's outputs and every input and
-   parameter gradient at a small fp32 shape and at the recipe shape (B=32)
-   in fp32 and bf16; prints kernel, plain and library times beside the
-   card's bound;
+   a small fp32 shape; at the raw-media shapes (B*T=120 frames, fp32 and
+   bf16) the key-bias attention at ToMe layers 1 and 22, attention over 577
+   keys and the CLIP image block; their gradients (the plain-recompute
+   backward, the key bias's included) at small fp32 shapes; each train
+   kernel pair's outputs and every input and parameter gradient at a small
+   fp32 shape and at the recipe shape (B=32) in fp32 and bf16; prints
+   kernel, plain and library times beside the card's bound;
 4. serving — the Predictor at configs/qa-tiger/vitl14.py with weights from
    a seed: (a) fp32 logits at B=4 against the same state_dict run through
    the plain versions on the CPU; (b) the bf16 B=256 path through
@@ -25,11 +27,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (b) the recipe, fp32 B=32 with dropout: 3 warm-up steps, the launch
    counters reset around one step, 10 timed steps, losses, peak memory;
    (c) ``evaluate`` over two batches, with its accuracy report;
-6. the kernel table as one JSON line, then the device's JSON line last.
+6. raw media — ``pipeline.e2e`` at full width (CLIP ViT-L/14@336px, ToMe
+   vit_large_patch16_384 at r=[25]*23, VGGish, the QA-TIGER config):
+   (a) fp32 B=1 x T=2 card against CPU (streams, logits, every ToMe
+   matching); (b) bf16 B=2 x T=60 through ``e2e_forward`` with the launch
+   counters reset around one forward, then videos/s from the median of 10;
+   (c) the extraction stages' per-video encoders on one 60-frame video;
+7. the kernel table as one JSON line (each entry's ``launches`` from its
+   own path, ``launches_by_path`` from all three), then the device's JSON
+   line last.
 
-``--profile DIR`` also writes torch.profiler tables of one bf16 forward and
-one train step to DIR. All inputs come from numpy with fixed seeds. TF32 is
-off.
+``--profile DIR`` also writes torch.profiler tables of one bf16 serving
+forward, one train step and one raw-media forward to DIR. All inputs come
+from fixed seeds. TF32 is off.
 """
 from __future__ import annotations
 
@@ -59,11 +69,15 @@ T, P, S, VOCAB = 60, 14, 77, 49408
 # the serving path's kernels: their "launches" in the kernel table are that
 # path's, the train kernels' those of one train step
 EVAL_KERNELS = ("fused_attn_ln2", "attention_wide", "fused_patch_select", "fused_gaussian_moe")
+# launched by the raw-media forward only: its "launches" are that path's
+E2E_ONLY_KERNELS = ("attention_wide_key_bias",)
 CONFIG = ROOT / "configs" / "qa-tiger" / "vitl14.py"
 # where each kernel's Pallas original makes its pl.pallas_call
 REPLACES = {
     "fused_attn_ln2": "qa_tiger_tpu/ops/pallas/resblock.py:391",
     "attention_wide": "qa_tiger_tpu/ops/pallas/attention.py:351",
+    # _wide_kb_kernel (:247) / _wide_nomask_kb_kernel (:253) of the same call
+    "attention_wide_key_bias": "qa_tiger_tpu/ops/pallas/attention.py:351",
     "fused_patch_select": "qa_tiger_tpu/ops/pallas/patch_select.py:738",
     "fused_gaussian_moe": "qa_tiger_tpu/ops/pallas/gaussian_moe.py:107",
     "fused_avq_train": "qa_tiger_tpu/ops/pallas/avq.py:532",
@@ -74,6 +88,7 @@ REPLACES = {
 SOURCES = {
     "fused_attn_ln2": "qa_tiger_tpu_torch/csrc/resblock.cu",
     "attention_wide": "qa_tiger_tpu_torch/csrc/attention.cu",
+    "attention_wide_key_bias": "qa_tiger_tpu_torch/csrc/attention.cu",
     "fused_patch_select": "qa_tiger_tpu_torch/csrc/patch_select.cu",
     "fused_gaussian_moe": "qa_tiger_tpu_torch/csrc/gaussian_moe.cu",
     "fused_avq_train": "qa_tiger_tpu_torch/csrc/avq.cu",
@@ -215,6 +230,38 @@ def kernel_cases(dtype, B: int, rng, gen):
     return cases
 
 
+def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) -> None:
+    """One kernel against its plain version on the same inputs; with
+    ``timed``, kernel, plain and library times beside the bound. ``entries``
+    keeps each kernel's JSON entry at its largest-bound call."""
+    import torch
+
+    name, shape, kernel, plain, library, nbytes, flops = case
+    dname = str(dtype).replace("torch.", "")
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err, scale = max_err(got, want)
+    del got, want
+    ok = err <= tol * max(1.0, scale)
+    line = {"kernel": name, "dtype": dname, "shape": shape,
+            "max_abs_err": err, "max_abs_plain": scale,
+            "tolerance": tol * max(1.0, scale), "ok": ok}
+    if timed:
+        b_ms, b_by = bound(nbytes, flops, dname)
+        line.update(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
+                    library_ms=cuda_ms(library) if library else None,
+                    bound_ms=b_ms, bound_by=b_by)
+        if entries is not None and (name not in entries or b_ms > entries[name]["bound_ms"]):
+            entries[name] = {
+                "name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": 0, "shape": shape,
+                "dtype": dname, "max_abs_err": err, "ms": line["ms"],
+                "plain_ms": line["plain_ms"], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": line["library_ms"]}
+    print(json.dumps(line), flush=True)
+    require(ok, f"{name} {dname} {shape}: max|k-p| {err:.3e} over tolerance")
+
+
 def check_kernels(rng, gen) -> dict:
     """Phase 3. Returns the JSON entry of each kernel at its largest
     main-path call."""
@@ -224,32 +271,75 @@ def check_kernels(rng, gen) -> dict:
     with torch.inference_mode():
         for dtype, B, tol, timed in ((torch.float32, 2, FP32_TOL, False),
                                      (torch.bfloat16, 256, BF16_TOL, True)):
-            dname = str(dtype).replace("torch.", "")
-            for name, shape, kernel, plain, library, nbytes, flops in kernel_cases(
-                    dtype, B, rng, gen):
-                got, want = kernel(), plain()
-                torch.cuda.synchronize()
-                err, scale = max_err(got, want)
-                ok = err <= tol * max(1.0, scale)
-                line = {"kernel": name, "dtype": dname, "shape": shape,
-                        "max_abs_err": err, "max_abs_plain": scale,
-                        "tolerance": tol * max(1.0, scale), "ok": ok}
-                if timed:
-                    b_ms, b_by = bound(nbytes, flops, dname)
-                    line.update(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
-                                library_ms=cuda_ms(library) if library else None,
-                                bound_ms=b_ms, bound_by=b_by)
-                    first = name not in entries
-                    if first or b_ms > entries[name]["bound_ms"]:
-                        entries[name] = {
-                            "name": name, "route": "cuda", "source": SOURCES[name],
-                            "replaces": REPLACES[name], "launches": 0, "shape": shape,
-                            "max_abs_err": err, "ms": line["ms"],
-                            "plain_ms": line["plain_ms"], "bound_ms": b_ms,
-                            "bound_by": b_by, "library_ms": line["library_ms"]}
-                print(json.dumps(line), flush=True)
-                require(ok, f"{name} {dname} {shape}: max|k-p| {err:.3e} over tolerance")
+            for case in kernel_cases(dtype, B, rng, gen):
+                run_kernel_case(case, dtype, tol, timed, entries)
     return entries
+
+
+def e2e_kernel_cases(dtype, rng, gen):
+    """The kernel cases at the raw-media forward's shapes, B*T = 120
+    frames: ToMe's key-bias attention at layer 1 (552 tokens) and layer 22
+    (27 tokens), its bias-free layer 0 (577 tokens), q, k and v as column
+    slices of one packed qkv, 16 heads of 64, the bias the log of integer
+    sizes 1-40; and one CLIP ViT-L/14@336px block (577 tokens, no mask)."""
+    import torch
+    from torch.nn import functional as F
+
+    from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock
+    from qa_tiger_tpu_torch.ops import attention as A
+    from qa_tiger_tpu_torch.ops import resblock as R
+
+    dev, BT, W, H = "cuda", 2 * T, 1024, 16
+    isz = torch.tensor([], dtype=dtype).element_size()
+
+    def rn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+
+    cases = []
+    for n, bias in ((552, True), (27, True), (577, False)):
+        qkv = rn(BT, n, 3 * W)
+        q, k, v = qkv[..., :W], qkv[..., W:2 * W], qkv[..., 2 * W:]
+        kb = torch.from_numpy(np.log(rng.integers(1, 41, (BT, n))).astype(np.float32)).to(dev) \
+            if bias else None
+
+        def sdpa(q=q, k=k, v=v, kb=kb, n=n):
+            heads = [t.view(BT, n, H, 64).transpose(1, 2) for t in (q, k, v)]
+            bias4 = None if kb is None else kb[:, None, None, :].to(dtype)
+            return F.scaled_dot_product_attention(*heads, attn_mask=bias4, scale=0.125)
+
+        cases.append(("attention_wide_key_bias" if bias else "attention_wide",
+                      f"qkv[{BT},{n},{3 * W}] h{H}" + (" key_bias" if bias else ""),
+                      lambda q=q, k=k, v=v, kb=kb: A.attention_wide(q, k, v, None, 0.125, H,
+                                                                     key_bias=kb),
+                      lambda q=q, k=k, v=v, kb=kb: A._wide_reference(q, k, v, None, 0.125, H,
+                                                                      kb),
+                      sdpa, 4 * BT * n * W * isz + (BT * n * 4 if bias else 0),
+                      4 * BT * n * n * W))
+    S_ = 577
+    blk = ResidualAttentionBlock(W, 24, gen).to(dev, dtype)
+    x = rn(BT, S_, W)
+    cases.append(("fused_attn_ln2", f"x[{BT},{S_},{W}] h{H}",
+                  lambda: R.fused_attn_ln2(x, blk, None, H),
+                  lambda: R._attn_ln2_plain(blk, x, heads=H, mask=None), None,
+                  (3 * BT * S_ * W + 4 * W * W + 8 * W) * isz,
+                  2 * BT * S_ * W * 4 * W + 4 * BT * S_ * S_ * W))
+    return cases
+
+
+def check_e2e_kernels(rng, gen, entries: dict) -> None:
+    """Phase 3, at the raw-media shapes, fp32 and bf16, each timed. The
+    key-bias kernel's table entry is its bf16 layer-1 call (the bf16
+    forward's largest); the other kernels keep their serving entries."""
+    import torch
+
+    e2e_entries = {}
+    with torch.inference_mode():
+        for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+            bf16 = dtype == torch.bfloat16
+            for case in e2e_kernel_cases(dtype, rng, gen):
+                run_kernel_case(case, dtype, tol, True, e2e_entries if bf16 else None)
+            torch.cuda.empty_cache()
+    entries["attention_wide_key_bias"] = e2e_entries["attention_wide_key_bias"]
 
 
 def _grads(outs, inputs, cots):
@@ -424,8 +514,9 @@ def check_train_kernels(rng, gen, entries: dict):
 
 def slice1_grad_cases(dtype, B: int, rng, gen):
     """(name, shape label, kernel fwd, plain fwd, differentiated inputs,
-    cotangents) for the four slice-1 kernels, whose gradient on the card is
-    the plain version's, recomputed."""
+    cotangents) for the four slice-1 kernels and the key-bias attention
+    (dq, dk, dv and dkey_bias; 150 keys, the tiled kernel), whose gradient
+    on the card is the plain version's, recomputed."""
     import torch
 
     from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock, causal_mask
@@ -468,12 +559,19 @@ def slice1_grad_cases(dtype, B: int, rng, gen):
                   lambda: G.fused_gaussian_moe(xm, w1t, b1, w2t, b2, w),
                   lambda: G._reference_impl(xm, w1t, b1, w2t, b2, w),
                   [xm, w1t, b1, w2t, b2, w], [rn(2 * B, 512)]))
+    qb, kb, vb = rn(2, 40, 512), rn(2, 150, 512), rn(2, 150, 512)
+    bias = _leaf(torch.from_numpy(np.log(rng.integers(1, 41, (2, 150))).astype(np.float32))
+                 .to(dev))
+    cases.append(("attention_wide_key_bias", "q[2,40,512] kv[2,150,512] key_bias",
+                  lambda: A.attention_wide_key_bias(qb, kb, vb, bias, 0.125, 8),
+                  lambda: A._wide_reference(qb, kb, vb, None, 0.125, 8, bias),
+                  [qb, kb, vb, bias], [rn(2, 40, 512)]))
     return cases
 
 
 def check_slice1_grads(rng, gen) -> None:
-    """The slice-1 kernels' gradients on the card: every input and
-    parameter gradient through the kernel's autograd Function against
+    """The slice-1 and key-bias kernels' gradients on the card: every input
+    and parameter gradient through the kernel's autograd Function against
     autograd of the plain version, at a small and at the train recipe's
     batch, fp32."""
     import torch
@@ -497,22 +595,27 @@ def check_slice1_grads(rng, gen) -> None:
 # phase 4: serving
 # ---------------------------------------------------------------------------
 
-def make_batch(rng, b: int) -> dict:
-    """Token rows (SOT, ids, EOT = the largest id, zero pad) and features at
-    the shipped widths, T=60 frames of P=14 patches."""
+def make_tokens(rng, b: int) -> np.ndarray:
+    """Token rows: SOT, ids, EOT (the largest id), zero pad."""
     quest = np.zeros((b, S), dtype=np.int64)
     for i in range(b):
         n = int(rng.integers(5, 30))
         quest[i, 0] = VOCAB - 2
         quest[i, 1:n] = rng.integers(1, VOCAB - 2, n - 1)
         quest[i, n] = VOCAB - 1
-    return {"quest": quest,
+    return quest
+
+
+def make_batch(rng, b: int) -> dict:
+    """Token rows and features at the shipped widths, T=60 frames of P=14
+    patches."""
+    return {"quest": make_tokens(rng, b),
             "audio": rng.standard_normal((b, T, 128), dtype=np.float32),
             "video": rng.standard_normal((b, T, 768), dtype=np.float32),
             "patch": rng.standard_normal((b, T, P, 1024), dtype=np.float32)}
 
 
-def check_slice(rng, entries: dict, profile_dir: Path | None) -> None:
+def check_slice(rng, entries: dict, profile_dir: Path | None) -> dict:
     import torch
 
     from qa_tiger_tpu_torch import ops
@@ -545,8 +648,8 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> None:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     expected = {"fused_attn_ln2": 12, "fused_gaussian_moe": 2, "fused_patch_select": 1,
-                "fused_avq_train": 0, "fused_avq_train_bwd": 0, "fused_patch_select_train": 0,
-                "fused_patch_select_train_bwd": 0}
+                "attention_wide_key_bias": 0, "fused_avq_train": 0, "fused_avq_train_bwd": 0,
+                "fused_patch_select_train": 0, "fused_patch_select_train_bwd": 0}
     print(json.dumps({"phase": "main_path_launches", **counts}), flush=True)
     for name, n in expected.items():
         require(counts[name] == n, f"{name}: {counts[name]} launches, expected {n}")
@@ -581,6 +684,7 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> None:
     for i, row in enumerate(served):
         print(json.dumps({"request": i, "top5": [t["answer"] for t in row["topk"]],
                           "probs": [t["prob"] for t in row["topk"]]}), flush=True)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -590,7 +694,8 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> None:
 TRAIN_LR = 1e-4
 TRAIN_KERNELS = {"fused_attn_ln2": 12, "fused_avq_train": 1, "fused_avq_train_bwd": 1,
                  "fused_patch_select_train": 1, "fused_patch_select_train_bwd": 1,
-                 "fused_gaussian_moe": 2, "attention_wide": 0, "fused_patch_select": 0}
+                 "fused_gaussian_moe": 2, "attention_wide": 0, "attention_wide_key_bias": 0,
+                 "fused_patch_select": 0}
 
 
 class Batches:
@@ -629,7 +734,7 @@ def train_setup(**model_extra):
     return cfg, qa_tiger_config(num_labels=42, **hp["model"], **model_extra)
 
 
-def check_train(rng, entries: dict, profile_dir: Path | None) -> None:
+def check_train(rng, entries: dict, profile_dir: Path | None) -> dict:
     import torch
 
     from qa_tiger_tpu_torch import ops
@@ -689,7 +794,7 @@ def check_train(rng, entries: dict, profile_dir: Path | None) -> None:
     for name, n in TRAIN_KERNELS.items():
         require(counts[name] == n, f"train step: {name} launched {counts[name]} times, "
                                    f"expected {n}")
-        if name not in EVAL_KERNELS:
+        if name not in EVAL_KERNELS + E2E_ONLY_KERNELS:
             entries[name]["launches"] = n
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -719,6 +824,214 @@ def check_train(rng, entries: dict, profile_dir: Path | None) -> None:
     acc, loss = runner.evaluate(1, loader)
     print(json.dumps({"phase": "evaluate", "accuracy": acc, "loss": loss}), flush=True)
     require(np.isfinite(loss) and 0.0 <= acc <= 100.0, "evaluate returned no valid numbers")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6: raw media to answer, and the extraction stages
+# ---------------------------------------------------------------------------
+
+SR = 16000
+# one bf16 forward over B=2 videos of 60 frames: 24 CLIP image + 12 text
+# blocks; 24 ToMe layers (23 with a key bias) + 7 in the QA-TIGER head
+E2E_KERNELS = {"fused_attn_ln2": 36, "attention_wide": 31, "attention_wide_key_bias": 23,
+               "fused_patch_select": 1, "fused_gaussian_moe": 2, "fused_avq_train": 0,
+               "fused_avq_train_bwd": 0, "fused_patch_select_train": 0,
+               "fused_patch_select_train_bwd": 0}
+
+
+def e2e_setup() -> dict:
+    """The raw-media configuration: configs/qa-tiger/vitl14.py's model with
+    CLIP ViT-L/14@336px, the ToMe vit_large_patch16_384 at r = [25]*23 and
+    VGGish, as scripts/bench_e2e.py sets it up."""
+    from qa_tiger_tpu_torch.models import qa_tiger_config
+    from qa_tiger_tpu_torch.pipeline.e2e import e2e_config
+    from qa_tiger_tpu_torch.utils.config import load_config_module
+
+    hp = load_config_module(str(CONFIG))["hyper_params"]
+    return e2e_config(qa_tiger_config(num_labels=42, **hp["model"]))
+
+
+def _same_merge(a: dict, b: dict, i: int) -> list[int]:
+    """Frame i's matching on two sides: [] when the unmerged set, the
+    merged set and each merged token's destination agree, else the tokens
+    where they differ."""
+    import torch
+
+    src_a, src_b = a["src"][i], b["src"][i]
+    only = sorted(set(src_a.tolist()) ^ set(src_b.tolist()))
+    if only or not torch.equal(a["unm"][i], b["unm"][i]):
+        return only or sorted(set(a["unm"][i].tolist()) ^ set(b["unm"][i].tolist()))
+    oa, ob = src_a.argsort(), src_b.argsort()
+    differ = a["dst"][i][oa] != b["dst"][i][ob]
+    return src_a[oa][differ].tolist()
+
+
+def check_e2e_fp32(rng) -> None:
+    """e2e_fp32_b1: the full-width towers with weights from seed 0, B=1
+    video of T=2 frames from numpy, on the card against the same state on
+    the CPU: the three feature streams and the logits within rtol 2e-3 /
+    atol 5e-4, and every ToMe layer's matching equal. Also the size of the
+    card's unordered scatter_add in a ToMe merge."""
+    import copy
+
+    import torch
+
+    from qa_tiger_tpu_torch.models.vit import vit_forward
+    from qa_tiger_tpu_torch.ops.tome import bipartite_soft_matching, merge_wavg
+    from qa_tiger_tpu_torch.pipeline.e2e import e2e_forward, e2e_init, encode_media
+
+    cfg = e2e_setup()
+    cpu = e2e_init(cfg, seed=0, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    B, T_ = 1, 2
+    media = [rng.standard_normal((B, T_, 336, 336, 3), dtype=np.float32),
+             rng.standard_normal((B, T_, 384, 384, 3), dtype=np.float32),
+             (0.1 * rng.standard_normal((B, T_, SR))).astype(np.float32)]
+    toks = make_tokens(rng, B)
+
+    @torch.inference_mode()
+    def run(model, dev):
+        clip, tome, pcm = (torch.from_numpy(a).to(dev) for a in media)
+        feats = encode_media(model, clip, tome, pcm, cfg)
+        feats["logits"] = e2e_forward(model, clip, tome, pcm, torch.from_numpy(toks).to(dev), cfg)
+        merges = vit_forward(model.tome_vit, tome.flatten(0, 1), tome_r=cfg["tome_r"])["merges"]
+        return ({k: v.float().cpu() for k, v in feats.items()},
+                [{k: v.cpu() for k, v in m.items()} for m in merges])
+
+    (got, got_m), (want, want_m) = run(card, "cuda"), run(cpu, "cpu")
+    errs = {k: (got[k] - want[k]).abs().max().item() for k in want}
+    close = {k: bool(torch.allclose(got[k], want[k], **LOGITS_TOL)) for k in want}
+    flips, gaps = [], []
+    for layer, (gm, wm) in enumerate(zip(got_m, want_m)):
+        r = wm["src"].shape[1]
+        top = wm["score"].sort(dim=-1, descending=True).values
+        gaps.append((top[:, r - 1] - top[:, r]).min().item())
+        for i in range(wm["src"].shape[0]):
+            tokens = _same_merge(gm, wm, i)
+            if tokens:
+                flips.append({"layer": layer, "frame": i, "a_tokens": tokens,
+                              "card_scores": gm["score"][i, tokens].tolist(),
+                              "cpu_scores": wm["score"][i, tokens].tolist()})
+
+    # one ToMe merge at layer 1's shape: card twice, and card against CPU
+    x = torch.from_numpy(rng.standard_normal((2 * T, 577, 1024), dtype=np.float32))
+    metric = torch.from_numpy(rng.standard_normal((2 * T, 577, 64), dtype=np.float32))
+
+    def merged(dev):
+        merge, _ = bipartite_soft_matching(metric.to(dev), 25, class_token=True)
+        return merge_wavg(merge, x.to(dev))[0].cpu()
+
+    m1, m2, m_cpu = merged("cuda"), merged("cuda"), merged("cpu")
+    ok = all(close.values()) and not flips and len(want_m) == 23
+    print(json.dumps({"phase": "e2e_fp32_b1", "max_abs_err": errs, "allclose": close,
+                      "max_abs_logit": want["logits"].abs().max().item(), **LOGITS_TOL,
+                      "tome_layers_compared": len(want_m), "merge_flips": flips,
+                      "min_boundary_score_gap": min(gaps),
+                      "merge_scatter_add_card_run_to_run": (m1 - m2).abs().max().item(),
+                      "merge_scatter_add_card_vs_cpu": (m1 - m_cpu).abs().max().item(),
+                      "ok": ok}), flush=True)
+    require(not flips, f"a ToMe matching differs between the card and the CPU: {flips[:3]}")
+    require(ok, f"the fp32 raw-media forward on the card differs from the CPU run: {errs}")
+
+
+def check_e2e_bf16(rng, profile_dir: Path | None) -> dict:
+    """e2e_bf16_b2: scripts/bench_e2e.py's setting, B=2 videos x T=60
+    frames, bf16 weights and pixels, fp32 PCM, one question per video,
+    inputs made on the card from a seed. The launch counters are reset
+    around one forward; then videos/s from the median of 10 forwards."""
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.pipeline.e2e import e2e_forward, e2e_init
+
+    cfg = e2e_setup()
+    model = e2e_init(cfg, seed=0, dtype=torch.bfloat16)
+    B, T_, bf = 2, T, torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    clip = torch.randn(B, T_, 336, 336, 3, generator=g, device="cuda", dtype=bf)
+    tome = torch.randn(B, T_, 384, 384, 3, generator=g, device="cuda", dtype=bf)
+    pcm = 0.1 * torch.randn(B, T_, SR, generator=g, device="cuda")
+    toks = torch.from_numpy(make_tokens(rng, B)).cuda()
+
+    @torch.inference_mode()
+    def forward():
+        return e2e_forward(model, clip, tome, pcm, toks, cfg)
+
+    forward()  # allocator and library warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    logits = forward()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(json.dumps({"phase": "e2e_launches", **counts}), flush=True)
+    for name, n in E2E_KERNELS.items():
+        require(counts[name] == n, f"raw-media forward: {name} launched {counts[name]} times, "
+                                   f"expected {n}")
+    require(tuple(logits.shape) == (B, 42) and bool(torch.isfinite(logits).all()),
+            "the bf16 raw-media logits are not finite [2, 42]")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        forward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    median = statistics.median(times)
+    print(json.dumps({"phase": "e2e_bf16_b2", "forward_ms_median": median * 1e3,
+                      "forward_ms_all": [t * 1e3 for t in times],
+                      "videos_per_s": B / median, "frames_per_s": B * T_ / median,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+    if profile_dir is not None:
+        profile_step(forward, profile_dir / "e2e_bf16_b2.txt", "profile_e2e")
+    return counts
+
+
+def check_extract(rng) -> None:
+    """The extraction stages' per-video encoders on one video, through the
+    stages' own model loading (random weights, the card, fp32): a
+    [60, 384, 384, 3] ToMe array, a [60, 336, 336, 3] CLIP array and 60 s of
+    PCM written to and read back from a wav."""
+    import argparse
+    import tempfile
+
+    import torch
+    from scipy.io import wavfile
+
+    from qa_tiger_tpu_torch.models.clip_image import CLIPVisionTower
+    from qa_tiger_tpu_torch.models.vit import VisionTransformer
+    from qa_tiger_tpu_torch.pipeline import extract as E
+    from qa_tiger_tpu_torch.pipeline.vggish import VGGish, vggish_embed_seconds
+
+    args = argparse.Namespace(weights=None, random_weights=True, device=None)
+    stages = {"tome": (VisionTransformer, (T, 14, 1024)), "clip": (CLIPVisionTower, (T, 768)),
+              "vggish": (VGGish, (T, 128))}
+    line = {"phase": "extract"}
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = Path(tmp) / "video.wav"
+        wavfile.write(wav, SR, (3000 * rng.standard_normal(SR * T)).astype(np.int16))
+        inputs = {
+            "tome": lambda: rng.standard_normal((T, 384, 384, 3), dtype=np.float32),
+            "clip": lambda: rng.standard_normal((T, 336, 336, 3), dtype=np.float32),
+            "vggish": lambda: E.read_seconds(wav, T)}
+        encoders = {"tome": lambda m, x: E.encode_tome(m, x, [25] * 23),
+                    "clip": E.encode_clip, "vggish": vggish_embed_seconds}
+        for name, (build, shape) in stages.items():
+            model = E._load_params(args, build)
+            x = torch.from_numpy(inputs[name]()).cuda()
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                out = encoders[name](model, x)
+                torch.cuda.synchronize()
+            line[name] = {"shape": list(out.shape), "ms": (time.perf_counter() - start) * 1e3,
+                          "finite": bool(torch.isfinite(out).all())}
+            require(tuple(out.shape) == shape and line[name]["finite"],
+                    f"extract {name}: {line[name]}, expected {shape}, finite")
+            del model, x, out
+            torch.cuda.empty_cache()
+    print(json.dumps(line), flush=True)
 
 
 def profile_step(fn, path: Path, phase: str) -> None:
@@ -781,10 +1094,21 @@ def main() -> int:
         rng = np.random.default_rng(0)
         gen = torch.Generator().manual_seed(0)
         entries = check_kernels(rng, gen)
+        check_e2e_kernels(rng, gen, entries)
         check_slice1_grads(rng, gen)
         check_train_kernels(rng, gen, entries)
-        check_slice(rng, entries, args.profile)
-        check_train(rng, entries, args.profile)
+        paths = {"serving": check_slice(rng, entries, args.profile),
+                 "train": check_train(rng, entries, args.profile)}
+        torch.cuda.empty_cache()
+        check_e2e_fp32(rng)
+        torch.cuda.empty_cache()
+        paths["e2e"] = check_e2e_bf16(rng, args.profile)
+        torch.cuda.empty_cache()
+        check_extract(rng)
+        for name in E2E_ONLY_KERNELS:
+            entries[name]["launches"] = paths["e2e"][name]
+        for name, entry in entries.items():
+            entry["launches_by_path"] = {path: c[name] for path, c in paths.items()}
         require(set(entries) == set(ops.KERNELS), "a kernel is missing from the table")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

@@ -1,5 +1,6 @@
-"""qa_tiger_tpu_torch — QA-TIGER serving and training in PyTorch for an
-NVIDIA H100, with hand-written CUDA kernels for the hot operations.
+"""qa_tiger_tpu_torch — QA-TIGER serving, training and raw-media inference
+in PyTorch for an NVIDIA H100, with hand-written CUDA kernels for the hot
+operations.
 
 It mirrors the layout of the JAX package ``qa_tiger_tpu`` so that every
 module has an obvious counterpart there, and it imports nothing from it:
@@ -7,13 +8,17 @@ module has an obvious counterpart there, and it imports nothing from it:
 - ``nn``:       Linear / LayerNorm / torch-semantics multi-head attention and
                 dropout; ``state_dict`` names equal the JAX parameter
                 pytree's flattened names.
-- ``ops``:      the kernels (``attention_wide``, ``fused_attn_ln2``,
-                ``fused_gaussian_moe``, ``fused_patch_select``, and the train
-                pairs ``fused_avq_train``, ``fused_patch_select_train``),
-                each beside its plain PyTorch version and differentiable,
-                and the TempMoE routing math.
-- ``models``:   the CLIP text tower, the QA-TIGER blocks (eval and train
-                paths, dropout-mask samplers) and network, ``build_model``.
+- ``ops``:      the kernels (``attention_wide`` with its ToMe key bias,
+                ``fused_attn_ln2``, ``fused_gaussian_moe``,
+                ``fused_patch_select``, and the train pairs
+                ``fused_avq_train``, ``fused_patch_select_train``), each
+                beside its plain PyTorch version and differentiable; the
+                TempMoE routing math, ToMe merging, the log-mel frontend.
+- ``models``:   the CLIP text and image towers, the ToMe ViT, the QA-TIGER
+                blocks (eval and train paths, dropout-mask samplers) and
+                network, ``build_model``.
+- ``pipeline``: VGGish, the raw-media forward (``e2e``) and the offline
+                extraction stages (``extract``).
 - ``training``: metrics, Adam and the LR schedules, ``AVQARunner``.
 - ``convert``:  JAX parameter pytrees and ``best.npz`` dicts -> state_dict.
 - ``predict``:  ``Predictor``, the batch serving entry point.
@@ -23,4 +28,4 @@ a CPU tensor goes through the plain versions. Importing the package builds
 nothing.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

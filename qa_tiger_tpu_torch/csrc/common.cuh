@@ -314,11 +314,25 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 //
 // q [B, Sq, H*hd], k/v [B, Sk, H*hd] given by base pointer, batch stride and
 // row stride (so q, k and v may be column slices of one packed qkv buffer);
-// out [B, Sq, H*hd] likewise. One block per (batch element, head, tile of
-// ATT_QROWS queries): K_h and V_h are staged in shared memory as fp32, one
-// warp per query row computes the scores, an fp32 softmax with max
-// subtraction, the probabilities rounded to T (as the JAX kernels cast p to
-// v's dtype), and the context. mask is an optional additive fp32 [Sq, Sk].
+// out [B, Sq, H*hd] likewise. Scores are s = q_h k_h^T * scale + mask +
+// key_bias[b, key]; an fp32 softmax with max subtraction; the probabilities
+// rounded to T (as the JAX kernels cast p to v's dtype); the context summed
+// in fp32. mask is an optional additive fp32 [Sq, Sk]; key_bias an optional
+// fp32 [B, Sk] (ToMe's proportional attention, log of the token sizes).
+//
+// Two kernels, chosen by the key length:
+// - Sk <= ATT_STAGED_MAX_SK (every call of the text tower, AVQ, TempMoE,
+//   QstGrounding, PatchSelecter and the last ToMe layers): one block per
+//   (batch element, head, tile of ATT_QROWS queries) stages all of K_h and
+//   V_h in shared memory as fp32, one warp per query row.
+// - longer keys (the CLIP image tower and the first ToMe layers, Sk up to
+//   577): one block per (batch element, head, tile of AT_Q queries) streams
+//   K_h and V_h through shared memory in tiles of AT_K keys, so its shared
+//   memory does not grow with Sk. Two passes keep the JAX kernels' rounding
+//   point (p = round_T(exp(s - max) / sum), then p v in fp32): the first
+//   takes each row's max and sum over the key tiles (an online rescaled sum),
+//   the second recomputes the scores, forms the rounded p and accumulates
+//   p v. Head sizes 32, 64 and 128.
 //
 // keep is an optional multiplicative post-softmax dropout mask in T, already
 // scaled by 1/(1-p): row b*Sq + query, lane h*Sk + key, row stride keep_ld
@@ -327,7 +341,7 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 // (round_p_first false: the AVQ kernels) or round_T(p) (true: the
 // PatchSelecter kernels), as in the Pallas kernels each one replaces.
 // ---------------------------------------------------------------------------
-constexpr int ATT_WARPS = 4, ATT_QROWS = 32;
+constexpr int ATT_WARPS = 4, ATT_QROWS = 32, ATT_STAGED_MAX_SK = 128;
 
 template <typename T>
 __device__ __forceinline__ float dropped_prob(float p, const T* keep_row, int j,
@@ -346,8 +360,9 @@ attention_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
                  const T* __restrict__ k, long long k_bs, long long k_ss,
                  const T* __restrict__ v, long long v_bs, long long v_ss,
                  T* __restrict__ out, long long o_bs, long long o_ss,
-                 const float* __restrict__ mask, int Sq, int Sk, int hd, float scale,
-                 const T* __restrict__ keep, long long keep_ld, bool round_p_first) {
+                 const float* __restrict__ mask, const float* __restrict__ key_bias, int Sq,
+                 int Sk, int hd, float scale, const T* __restrict__ keep, long long keep_ld,
+                 bool round_p_first) {
   extern __shared__ float smem[];
   float* Ks = smem;                       // [Sk][hd + 1]
   float* Vs = Ks + (size_t)Sk * (hd + 1);  // [Sk][hd]
@@ -359,6 +374,7 @@ attention_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
   const int b = blockIdx.x / ntiles, tile = blockIdx.x % ntiles;
   const int h = blockIdx.y;
   const long long col = (long long)h * hd;
+  const float* kb = key_bias ? key_bias + (long long)b * Sk : nullptr;
 
   for (int i = threadIdx.x; i < Sk * hd; i += blockDim.x) {
     const int j = i / hd, d = i % hd;
@@ -378,6 +394,7 @@ attention_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
       for (int d = 0; d < hd; ++d) s = fmaf(qs[d], kr[d], s);
       s *= scale;
       if (mask) s += mask[(long long)qi * Sk + j];
+      if (kb) s += kb[j];
       ps[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -401,13 +418,218 @@ attention_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
   }
 }
 
+// The key-tiled kernel. 128 threads own a 64 x 64 score tile as a 16 x 8
+// grid: thread (tr, tc) holds rows tr + 16i (i < 4) and keys tc + 8j (j < 8)
+// in registers, and in the context product the same rows by lanes tc + 8c.
+// The 8 threads of a row group are 8 neighbouring lanes of one warp, so a
+// row's max and sum are shuffles within the group.
+constexpr int AT_Q = 64, AT_K = 64, AT_THREADS = 128;
+
+template <int HD>
+constexpr size_t attention_tiled_smem_bytes() {
+  return sizeof(float) * ((size_t)(AT_Q + AT_K) * (HD + 1) + (size_t)AT_K * HD
+                          + (size_t)AT_Q * (AT_K + 1));
+}
+
+__device__ __forceinline__ float group8_max(float v) {
+  for (int o = 4; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float group8_sum(float v) {
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(AT_THREADS)
+attention_tiled_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
+                       const T* __restrict__ k, long long k_bs, long long k_ss,
+                       const T* __restrict__ v, long long v_bs, long long v_ss,
+                       T* __restrict__ out, long long o_bs, long long o_ss,
+                       const float* __restrict__ mask, const float* __restrict__ key_bias,
+                       int Sq, int Sk, float scale, const T* __restrict__ keep,
+                       long long keep_ld, bool round_p_first) {
+  constexpr int LD = HD + 1, LDP = AT_K + 1, NC = HD / 8;
+  extern __shared__ float smem[];
+  float* Qs = smem;              // [AT_Q][LD]
+  float* Ks = Qs + AT_Q * LD;    // [AT_K][LD]
+  float* Vs = Ks + AT_K * LD;    // [AT_K][HD]
+  float* Ps = Vs + AT_K * HD;    // [AT_Q][LDP]: the rounded probabilities of one key tile
+  const int tid = threadIdx.x, tr = tid >> 3, tc = tid & 7;
+  const int ntiles = (Sq + AT_Q - 1) / AT_Q;
+  const long long b = blockIdx.x / ntiles;
+  const int q0 = (blockIdx.x % ntiles) * AT_Q, h = blockIdx.y;
+  const long long col = (long long)h * HD;
+  const float* kb = key_bias ? key_bias + b * Sk : nullptr;
+
+  for (int i = tid; i < AT_Q * HD; i += AT_THREADS) {
+    const int r = i / HD, d = i % HD, qi = q0 + r;
+    Qs[r * LD + d] = qi < Sq ? to_f<T>(q[b * q_bs + qi * q_ss + col + d]) : 0.0f;
+  }
+  auto load_tile = [&](int k0, bool with_v) {
+    for (int i = tid; i < AT_K * HD; i += AT_THREADS) {
+      const int j = i / HD, d = i % HD, kj = k0 + j;
+      const bool in = kj < Sk;
+      Ks[j * LD + d] = in ? to_f<T>(k[b * k_bs + kj * k_ss + col + d]) : 0.0f;
+      if (with_v) Vs[j * HD + d] = in ? to_f<T>(v[b * v_bs + kj * v_ss + col + d]) : 0.0f;
+    }
+  };
+  // s[i][j] = the score of row q0 + tr + 16i and key k0 + tc + 8j; -inf
+  // past the last key
+  auto scores = [&](int k0, float (&s)[4][8]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float a[4], c[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = Qs[(tr + 16 * i) * LD + d];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) c[j] = Ks[(tc + 8 * j) * LD + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + tr + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kj = k0 + tc + 8 * j;
+        float x = s[i][j] * scale;
+        if (kj >= Sk) {
+          x = -INFINITY;
+        } else {
+          if (mask && qi < Sq) x += mask[(long long)qi * Sk + kj];
+          if (kb) x += kb[kj];
+        }
+        s[i][j] = x;
+      }
+    }
+  };
+
+  // pass 1: each row's max and sum of exp(s - max) over all key tiles; each
+  // thread rescales its own partial sum whenever the row's max grows
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) { m[i] = -INFINITY; l[i] = 0.0f; }
+  float s[4][8];
+  for (int k0 = 0; k0 < Sk; k0 += AT_K) {
+    __syncthreads();
+    load_tile(k0, false);
+    __syncthreads();
+    scores(k0, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float tmax = s[i][0];
+#pragma unroll
+      for (int j = 1; j < 8; ++j) tmax = fmaxf(tmax, s[i][j]);
+      const float mn = fmaxf(m[i], group8_max(tmax));
+      if (mn == -INFINITY) continue;  // every key so far masked out
+      float part = l[i] * expf(m[i] - mn);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part += expf(s[i][j] - mn);
+      l[i] = part;
+      m[i] = mn;
+    }
+  }
+  float inv[4];
+  const T* krow[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    inv[i] = 1.0f / group8_sum(l[i]);
+    const int qi = q0 + tr + 16 * i;
+    krow[i] = keep && qi < Sq ? keep + (b * Sq + qi) * keep_ld + (long long)h * Sk : nullptr;
+  }
+
+  // pass 2: the scores again, p = round_T(exp(s - max) / sum), ctx += p v
+  float acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
+  for (int k0 = 0; k0 < Sk; k0 += AT_K) {
+    __syncthreads();
+    load_tile(k0, true);
+    __syncthreads();
+    scores(k0, s);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int kj = k0 + tc + 8 * j;
+        float p = 0.0f;
+        if (kj < Sk) p = dropped_prob<T>(expf(s[i][j] - m[i]) * inv[i], krow[i], kj, round_p_first);
+        Ps[(tr + 16 * i) * LDP + tc + 8 * j] = p;
+      }
+    __syncthreads();
+    const int kn = min(AT_K, Sk - k0);
+    for (int j = 0; j < kn; ++j) {
+      float a[4], c[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = Ps[(tr + 16 * i) * LDP + j];
+#pragma unroll
+      for (int cc = 0; cc < NC; ++cc) c[cc] = Vs[j * HD + tc + 8 * cc];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int cc = 0; cc < NC; ++cc) acc[i][cc] = fmaf(a[i], c[cc], acc[i][cc]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + tr + 16 * i;
+    if (qi >= Sq) continue;
+    T* o = out + b * o_bs + qi * o_ss + col;
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) o[tc + 8 * cc] = from_f<T>(acc[i][cc]);
+  }
+}
+
+template <typename T, int HD>
+inline cudaError_t attention_tiled(const T* q, long long q_bs, long long q_ss, const T* k,
+                                   long long k_bs, long long k_ss, const T* v, long long v_bs,
+                                   long long v_ss, T* out, long long o_bs, long long o_ss,
+                                   const float* mask, const float* key_bias, int B, int Sq,
+                                   int Sk, int heads, float scale, cudaStream_t stream,
+                                   const T* keep, long long keep_ld, bool round_p_first) {
+  constexpr size_t smem = attention_tiled_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(attention_tiled_kernel<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (Sq + AT_Q - 1) / AT_Q;
+  const dim3 grid((unsigned)(B * ntiles), heads);
+  attention_tiled_kernel<T, HD><<<grid, AT_THREADS, smem, stream>>>(
+      q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, Sq, Sk,
+      scale, keep, keep_ld, round_p_first);
+  return cudaGetLastError();
+}
+
 template <typename T>
 inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T* k,
                              long long k_bs, long long k_ss, const T* v, long long v_bs,
                              long long v_ss, T* out, long long o_bs, long long o_ss,
                              const float* mask, int B, int Sq, int Sk, int heads, int hd,
                              float scale, cudaStream_t stream, const T* keep = nullptr,
-                             long long keep_ld = 0, bool round_p_first = false) {
+                             long long keep_ld = 0, bool round_p_first = false,
+                             const float* key_bias = nullptr) {
+  if (Sk > ATT_STAGED_MAX_SK) {
+#define QT_TILED(HD)                                                                        \
+  attention_tiled<T, HD>(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, \
+                         key_bias, B, Sq, Sk, heads, scale, stream, keep, keep_ld,         \
+                         round_p_first)
+    switch (hd) {
+      case 32: return QT_TILED(32);
+      case 64: return QT_TILED(64);
+      case 128: return QT_TILED(128);
+      default: return cudaErrorInvalidValue;
+    }
+#undef QT_TILED
+  }
   const size_t smem = attention_smem_bytes(Sk, hd);
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -415,8 +637,8 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
   const int ntiles = (Sq + ATT_QROWS - 1) / ATT_QROWS;
   const dim3 grid((unsigned)(B * ntiles), heads);
   attention_kernel<T><<<grid, ATT_WARPS * 32, smem, stream>>>(
-      q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, Sq, Sk, hd, scale,
-      keep, keep_ld, round_p_first);
+      q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, Sq, Sk, hd,
+      scale, keep, keep_ld, round_p_first);
   return cudaGetLastError();
 }
 

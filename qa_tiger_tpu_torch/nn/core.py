@@ -48,6 +48,14 @@ def dropout(x: torch.Tensor, p: float,
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def trunc_normal(shape, generator: torch.Generator, std: float = 0.02) -> torch.Tensor:
+    """std * a normal truncated to [-2, 2], by the inverse CDF."""
+    hi = (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2
+    u = (1.0 - hi) + (2.0 * hi - 1.0) * torch.rand(shape, generator=generator,
+                                                   dtype=torch.float64)
+    return (std * math.sqrt(2.0) * torch.erfinv(2 * u - 1)).float()
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP's QuickGELU: x * sigmoid(1.702 x)."""
     return x * torch.sigmoid(1.702 * x)

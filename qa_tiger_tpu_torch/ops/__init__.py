@@ -5,8 +5,10 @@ PyTorch versions, and the TempMoE routing math.
 ``launches`` counter that it bumps only when it launches its kernel. The
 train kernels' backward launchers (``*_bwd``) are listed beside them: they
 run under autograd, from the ``torch.autograd.Function`` of their forward.
+``attention_wide_key_bias`` counts the key-bias launches of
+``attention_wide`` (ToMe), which ``attention_wide`` counts as well.
 """
-from qa_tiger_tpu_torch.ops.attention import attention_wide
+from qa_tiger_tpu_torch.ops.attention import attention_wide, attention_wide_key_bias
 from qa_tiger_tpu_torch.ops.avq import fused_avq_train, fused_avq_train_bwd
 from qa_tiger_tpu_torch.ops.gaussian_moe import fused_gaussian_moe
 from qa_tiger_tpu_torch.ops.patch_select import (
@@ -19,6 +21,7 @@ from qa_tiger_tpu_torch.ops.resblock import fused_attn_ln2
 KERNELS = {
     "fused_attn_ln2": fused_attn_ln2,
     "attention_wide": attention_wide,
+    "attention_wide_key_bias": attention_wide_key_bias,
     "fused_patch_select": fused_patch_select,
     "fused_gaussian_moe": fused_gaussian_moe,
     "fused_avq_train": fused_avq_train,
@@ -37,7 +40,7 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "attention_wide", "fused_attn_ln2", "fused_avq_train",
-           "fused_avq_train_bwd", "fused_gaussian_moe", "fused_patch_select",
+__all__ = ["KERNELS", "attention_wide", "attention_wide_key_bias", "fused_attn_ln2",
+           "fused_avq_train", "fused_avq_train_bwd", "fused_gaussian_moe", "fused_patch_select",
            "fused_patch_select_train", "fused_patch_select_train_bwd", "launch_counts",
            "reset_launches"]

@@ -30,7 +30,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # launch's cudaError_t as an int
 SIGNATURES = {
     "qt_attention": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
-                     _I, _I, _I, _I, _I, _F, _P],
+                     _P, _I, _I, _I, _I, _I, _F, _P],
     "qt_gaussian_moe": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _P],
     "qt_attn_ln2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

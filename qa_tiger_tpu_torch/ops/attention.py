@@ -1,9 +1,12 @@
 """Multi-head attention on dense heads-in-lanes [B, S, W] tensors.
 
-Port of ``qa_tiger_tpu/ops/pallas/attention.py:attention_wide``: the CUDA
-kernel in ``csrc/attention.cu`` for CUDA tensors, the plain version
-``_wide_reference`` for CPU tensors. On CUDA its gradient is that of the plain
-version, recomputed (``ops/_grad.py``), the JAX ``custom_vjp`` rule.
+Port of ``qa_tiger_tpu/ops/pallas/attention.py:attention_wide``, with its
+optional per-(batch element, key) bias (ToMe's proportional attention): the
+CUDA kernels in ``csrc/attention.cu`` for CUDA tensors (whole keys staged in
+shared memory up to 128 keys, 64-key tiles in two passes beyond), the plain
+version ``_wide_reference`` for CPU tensors. On CUDA its gradient is that of
+the plain version, recomputed (``ops/_grad.py``), the JAX ``custom_vjp``
+rule: q, k, v and ``key_bias`` get real cotangents, the mask none.
 """
 from __future__ import annotations
 
@@ -11,10 +14,14 @@ import torch
 
 from qa_tiger_tpu_torch.ops import _build, _grad
 
+# over this many keys the kernel streams them in tiles, for head sizes 32,
+# 64 and 128 only (csrc/common.cuh, ATT_STAGED_MAX_SK)
+STAGED_MAX_SK = 128
 
-def _wide_reference(q, k, v, mask, scale, heads):
-    """Plain version: fp32 scores, fp32 softmax, probabilities cast to v's
-    dtype, context in q's dtype."""
+
+def _wide_reference(q, k, v, mask, scale, heads, key_bias=None):
+    """Plain version: fp32 scores (plus mask and key bias), fp32 softmax,
+    probabilities cast to v's dtype, context in q's dtype."""
     B, Sq, W = q.shape
     Sk = k.shape[1]
     hd = W // heads
@@ -24,6 +31,8 @@ def _wide_reference(q, k, v, mask, scale, heads):
     logits = torch.einsum("bqhd,bkhd->bhqk", q4, k4) * scale
     if mask is not None:
         logits = logits + mask.float()
+    if key_bias is not None:
+        logits = logits + key_bias.float()[:, None, None, :]
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v4.float())
     return ctx.to(q.dtype).reshape(B, Sq, W)
@@ -39,19 +48,16 @@ def _check_rows(name: str, t: torch.Tensor, B: int, W: int) -> None:
 def attention_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: torch.Tensor | None, scale: float, heads: int,
                    key_bias: torch.Tensor | None = None) -> torch.Tensor:
-    """softmax(q_h k_h^T * scale + mask) v_h for every head h, concatenated
-    back along lanes -> [B, Sq, W].
+    """softmax(q_h k_h^T * scale + mask + key_bias[:, None, :]) v_h for every
+    head h, concatenated back along lanes -> [B, Sq, W].
 
     q [B, Sq, W], k/v [B, Sk, W]; each may be a column slice of a packed
     projection (rows strided, last dim contiguous). ``mask`` is an additive
-    [Sq, Sk] mask or None.
+    [Sq, Sk] mask or None; ``key_bias`` a [B, Sk] bias (taken in fp32) or
+    None.
     """
-    if key_bias is not None:
-        raise NotImplementedError(
-            "attention_wide(key_bias=) is ToMe's proportional attention; it "
-            "comes with the offline-pipeline slice (ROADMAP.md)")
     if q.device.type == "cpu":
-        return _wide_reference(q, k, v, mask, scale, heads)
+        return _wide_reference(q, k, v, mask, scale, heads, key_bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_wide runs on cpu or cuda, not {q.device}")
     B, Sq, W = q.shape
@@ -64,15 +70,38 @@ def attention_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("k and v need the same length")
     if W % heads:
         raise ValueError(f"width {W} does not split into {heads} heads")
+    if Sk > STAGED_MAX_SK and W // heads not in (32, 64, 128):
+        raise ValueError(f"over {STAGED_MAX_SK} keys the kernel takes head sizes 32, 64 "
+                         f"and 128, not {W // heads}")
     if mask is not None:
         if tuple(mask.shape) != (Sq, Sk):
             raise ValueError(f"mask must be [{Sq}, {Sk}], got {tuple(mask.shape)}")
         mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
-    return _grad.KernelWithPlainGrad.apply(
-        _launch, _wide_reference, dict(mask=mask, scale=scale, heads=heads), q, k, v)
+    consts = dict(mask=mask, scale=scale, heads=heads)
+    if key_bias is None:
+        return _grad.KernelWithPlainGrad.apply(_launch, _wide_reference, consts, q, k, v)
+    if tuple(key_bias.shape) != (B, Sk) or key_bias.device != q.device:
+        raise ValueError(f"key_bias must be [{B}, {Sk}] on {q.device}, got "
+                         f"{tuple(key_bias.shape)} on {key_bias.device}")
+    key_bias = key_bias.float().contiguous()
+    return _grad.KernelWithPlainGrad.apply(_launch, _wide_reference_kb, consts, q, k, v,
+                                           key_bias)
 
 
-def _launch(q, k, v, *, mask, scale, heads):
+def attention_wide_key_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            key_bias: torch.Tensor, scale: float, heads: int,
+                            mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``attention_wide`` with a key bias: ToMe's proportional attention
+    (``models/vit.py``). Its ``launches`` counts the key-bias launches,
+    which ``attention_wide.launches`` counts too."""
+    return attention_wide(q, k, v, mask, scale, heads, key_bias=key_bias)
+
+
+def _wide_reference_kb(q, k, v, key_bias, *, mask, scale, heads):
+    return _wide_reference(q, k, v, mask, scale, heads, key_bias)
+
+
+def _launch(q, k, v, key_bias=None, *, mask, scale, heads):
     B, Sq, W = q.shape
     out = torch.empty(B, Sq, W, dtype=q.dtype, device=q.device)
     _build.launch(
@@ -81,9 +110,13 @@ def _launch(q, k, v, *, mask, scale, heads):
         k.data_ptr(), k.stride(0), k.stride(1),
         v.data_ptr(), v.stride(0), v.stride(1),
         out.data_ptr(), out.stride(0), out.stride(1),
-        _build.ptr(mask), B, Sq, k.shape[1], heads, W // heads, float(scale))
+        _build.ptr(mask), _build.ptr(key_bias), B, Sq, k.shape[1], heads, W // heads,
+        float(scale))
     attention_wide.launches += 1
+    if key_bias is not None:
+        attention_wide_key_bias.launches += 1
     return out
 
 
 attention_wide.launches = 0
+attention_wide_key_bias.launches = 0

@@ -72,6 +72,38 @@ def test_attention_wide(cuda, dtype, sq, sk, masked):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,bias,masked", [(552, True, False), (27, True, False),
+                                           (577, False, False), (300, True, True)])
+def test_attention_wide_long_keys_and_key_bias(cuda, dtype, n, bias, masked):
+    """The ToMe and CLIP image shapes: q, k and v column slices of one
+    packed qkv [B, N, 3W], 16 heads of 64, a key bias of log integer sizes
+    1-40. Over 128 keys the tiled kernel runs, at 27 the staged one."""
+    rng = np.random.default_rng(7)
+    W = 1024
+    qkv = _rn(rng, 2, n, 3 * W, dtype=dtype)
+    q, k, v = qkv[..., :W], qkv[..., W:2 * W], qkv[..., 2 * W:]
+    kb = torch.from_numpy(np.log(rng.integers(1, 41, (2, n))).astype(np.float32)).to(cuda) \
+        if bias else None
+    mask = causal_mask(n, device=cuda) if masked else None
+    n_all, n_kb = A.attention_wide.launches, A.attention_wide_key_bias.launches
+    _check(lambda: A.attention_wide(q, k, v, mask, 0.125, 16, key_bias=kb),
+           lambda: A._wide_reference(q, k, v, mask, 0.125, 16, kb), dtype)
+    assert A.attention_wide.launches == n_all + 1
+    assert A.attention_wide_key_bias.launches == n_kb + int(bias)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_attn_ln2_clip_image_shape(cuda, dtype):
+    """The CLIP ViT-L/14@336px block: 577 tokens, width 1024, 16 heads, no
+    mask (the tiled attention inside)."""
+    rng = np.random.default_rng(8)
+    blk = ResidualAttentionBlock(1024, 24, torch.Generator().manual_seed(0)).to(cuda, dtype)
+    x = _rn(rng, 2, 577, 1024, dtype=dtype)
+    _check(lambda: R.fused_attn_ln2(x, blk, None, 16),
+           lambda: R._attn_ln2_plain(blk, x, heads=16, mask=None), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_gaussian_moe(cuda, dtype):
     rng = np.random.default_rng(1)
     E, D, H, B, T = 7, 512, 256, 5, 60
@@ -141,6 +173,14 @@ def _slice1_case(name, rng, cuda):
         return (lambda: A.attention_wide(q, k, v, None, 0.125, 8),
                 lambda: A._wide_reference(q, k, v, None, 0.125, 8), [q, k, v],
                 [_rn(rng, 3, 60, 512, dtype=dt)])
+    if name == "attention_wide_key_bias":
+        q = _leaf(_rn(rng, 2, 40, 512, dtype=dt))
+        k, v = (_leaf(_rn(rng, 2, 150, 512, dtype=dt)) for _ in range(2))
+        kb = _leaf(torch.from_numpy(np.log(rng.integers(1, 41, (2, 150))).astype(np.float32))
+                   .to(cuda))
+        return (lambda: A.attention_wide_key_bias(q, k, v, kb, 0.125, 8),
+                lambda: A._wide_reference(q, k, v, None, 0.125, 8, kb), [q, k, v, kb],
+                [_rn(rng, 2, 40, 512, dtype=dt)])
     if name == "fused_patch_select":
         ps = PatchSelecter(512, gen).to(cuda, dt)
         patch = _leaf(_rn(rng, 2, 5, 14, 512, dtype=dt))
@@ -158,12 +198,12 @@ def _slice1_case(name, rng, cuda):
             [_rn(rng, 4, 512, dtype=dt)])
 
 
-@pytest.mark.parametrize("name", ["fused_attn_ln2", "attention_wide", "fused_patch_select",
-                                  "fused_gaussian_moe"])
+@pytest.mark.parametrize("name", ["fused_attn_ln2", "attention_wide", "attention_wide_key_bias",
+                                  "fused_patch_select", "fused_gaussian_moe"])
 def test_slice1_kernel_gradients(cuda, name):
     """On the card the kernels' outputs carry the plain version's gradient
     (the JAX custom_vjp rule): every input and parameter gradient equals
-    autograd's through the plain version."""
+    autograd's through the plain version, the key bias's included."""
     kernel, plain, ins, cots = _slice1_case(name, np.random.default_rng(5), cuda)
     got, want = _outs_and_grads(kernel(), ins, cots), _outs_and_grads(plain(), ins, cots)
     torch.cuda.synchronize()

@@ -68,26 +68,27 @@ def test_fused_gaussian_moe(gather_mode):
     _close(got, want)
 
 
-@pytest.mark.parametrize("sq,sk,masked", [(12, 17, False), (9, 9, True), (1, 11, False)])
-def test_attention_wide(sq, sk, masked):
+@pytest.mark.parametrize("sq,sk,masked,key_bias", [(12, 17, False, False), (9, 9, True, False),
+                                                   (1, 11, False, False), (12, 17, False, True),
+                                                   (9, 9, True, True)])
+def test_attention_wide(sq, sk, masked, key_bias):
+    """With ``key_bias`` (ToMe's proportional attention: the log of integer
+    token sizes) against the JAX wrapper's key-bias kernels in interpret
+    mode."""
     rng = np.random.default_rng(1)
     B, W, heads = 4, 64, 4
     q = rng.standard_normal((B, sq, W)).astype(np.float32)
     k = rng.standard_normal((B, sk, W)).astype(np.float32)
     v = rng.standard_normal((B, sk, W)).astype(np.float32)
     mask = np.triu(np.full((sq, sk), -np.inf, np.float32), 1) if masked else None
+    kb = np.log(rng.integers(1, 40, (B, sk))).astype(np.float32) if key_bias else None
     want = j_attention_wide(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                             None if mask is None else jnp.asarray(mask), 0.25, heads,
-                            interpret=True)
+                            interpret=True, key_bias=None if kb is None else jnp.asarray(kb))
     got = attention_wide(torch.tensor(q), torch.tensor(k), torch.tensor(v),
-                         None if mask is None else torch.tensor(mask), 0.25, heads)
+                         None if mask is None else torch.tensor(mask), 0.25, heads,
+                         key_bias=None if kb is None else torch.tensor(kb))
     _close(got, want)
-
-
-def test_attention_wide_key_bias_waits_for_tome():
-    x = torch.zeros(2, 3, 8)
-    with pytest.raises(NotImplementedError, match="ToMe"):
-        attention_wide(x, x, x, None, 1.0, 2, key_bias=torch.zeros(2, 3))
 
 
 def _resblock_params(width, seed=0):
