@@ -14,8 +14,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    keys and the CLIP image block; their gradients (the plain-recompute
    backward, the key bias's included) at small fp32 shapes; each train
    kernel pair's outputs and every input and parameter gradient at a small
-   fp32 shape and at the recipe shape (B=32) in fp32 and bf16; prints
-   kernel, plain and library times beside the card's bound;
+   fp32 shape and at the recipe shape (B=32) in fp32 and bf16; the
+   op-level kernels (``fused_attention`` at the text tower's head-split
+   [3072, 77, 64] causal and the packed route's [122880, 14, 64], and
+   ``fused_attn_half`` and ``fused_resblock`` at [256, 77, 768] causal) in
+   bf16 and at a small fp32 shape, with their gradients and the mask
+   cotangents of the four wrappers that give one; prints kernel, plain and
+   library times beside the card's bound;
 4. serving — the Predictor at configs/qa-tiger/vitl14.py with weights from
    a seed: (a) fp32 logits at B=4 against the same state_dict run through
    the plain versions on the CPU; (b) the bf16 B=256 path through
@@ -33,8 +38,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    matching); (b) bf16 B=2 x T=60 through ``e2e_forward`` with the launch
    counters reset around one forward, then videos/s from the median of 10;
    (c) the extraction stages' per-video encoders on one 60-frame video;
-7. the kernel table as one JSON line (each entry's ``launches`` from its
-   own path, ``launches_by_path`` from all three), then the device's JSON
+7. bench_resblock — ``python -m qa_tiger_tpu_torch.bench_resblock`` at its
+   defaults (B=256, S=77, W=768, bf16, causal) for ``attn_half`` and
+   ``attn_ln2``, the launch counters reset around each, both JSON lines;
+8. the kernel table as one JSON line (each entry's ``launches`` from its
+   own path, ``launches_by_path`` from all four), then the device's JSON
    line last.
 
 ``--profile DIR`` also writes torch.profiler tables of one bf16 serving
@@ -71,6 +79,10 @@ T, P, S, VOCAB = 60, 14, 77, 49408
 EVAL_KERNELS = ("fused_attn_ln2", "attention_wide", "fused_patch_select", "fused_gaussian_moe")
 # launched by the raw-media forward only: its "launches" are that path's
 E2E_ONLY_KERNELS = ("attention_wide_key_bias",)
+# the op-level kernels: no model path of the JAX package runs them, and their
+# "launches" are those of the bench_resblock path (0 for fused_attention and
+# fused_resblock, whose only callers are the kernel checks)
+OP_KERNELS = ("fused_attention", "fused_attn_half", "fused_resblock")
 CONFIG = ROOT / "configs" / "qa-tiger" / "vitl14.py"
 # where each kernel's Pallas original makes its pl.pallas_call
 REPLACES = {
@@ -84,6 +96,11 @@ REPLACES = {
     "fused_avq_train_bwd": "qa_tiger_tpu/ops/pallas/avq.py:558",
     "fused_patch_select_train": "qa_tiger_tpu/ops/pallas/patch_select.py:827",
     "fused_patch_select_train_bwd": "qa_tiger_tpu/ops/pallas/patch_select.py:880",
+    # _kernel / _no_mask_kernel; the packed route's case names :116
+    "fused_attention": "qa_tiger_tpu/ops/pallas/attention.py:165",
+    "fused_attn_half": "qa_tiger_tpu/ops/pallas/resblock.py:329",
+    # the MLP half's call; the attention half's is fused_attn_half's
+    "fused_resblock": "qa_tiger_tpu/ops/pallas/resblock.py:508",
 }
 SOURCES = {
     "fused_attn_ln2": "qa_tiger_tpu_torch/csrc/resblock.cu",
@@ -95,6 +112,9 @@ SOURCES = {
     "fused_avq_train_bwd": "qa_tiger_tpu_torch/csrc/avq.cu",
     "fused_patch_select_train": "qa_tiger_tpu_torch/csrc/patch_select_train.cu",
     "fused_patch_select_train_bwd": "qa_tiger_tpu_torch/csrc/patch_select_train.cu",
+    "fused_attention": "qa_tiger_tpu_torch/csrc/attention.cu",
+    "fused_attn_half": "qa_tiger_tpu_torch/csrc/resblock.cu",
+    "fused_resblock": "qa_tiger_tpu_torch/csrc/resblock.cu",
 }
 
 
@@ -230,13 +250,74 @@ def kernel_cases(dtype, B: int, rng, gen):
     return cases
 
 
+def op_kernel_cases(dtype, B: int, rng, gen):
+    """The kernel cases of the op-level kernels, with the Pallas call each
+    replaces as an eighth item. ``fused_attention`` at the text tower's
+    head-split attention, [12B, 77, 64] causal (Pallas :165), and at the
+    packed route's PatchSelecter self-attention, [8 B T, 14, 64] unmasked
+    (:116); ``fused_attn_half`` and ``fused_resblock`` at the text tower's
+    block, [B, 77, 768] causal, 12 heads. Flops as the Pallas cost
+    estimates count them, the causal scores halved as for fused_attn_ln2;
+    bytes: inputs, parameters and the mask read once, the output written
+    once."""
+    import torch
+    from torch.nn import functional as F
+
+    from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock, causal_mask
+    from qa_tiger_tpu_torch.ops import attention as A
+    from qa_tiger_tpu_torch.ops import resblock as R
+
+    dev, dh = "cuda", 64
+    isz = torch.tensor([], dtype=dtype).element_size()
+
+    def rn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+
+    cases = []
+    # SDPA sees [BH / heads, heads, S, dh], so that neither its batch nor its
+    # heads pass 65535, the limit of a grid's y and z dimensions
+    for bh, s, masked, site, heads in ((12 * B, S, True, ":165", 12),
+                                       (8 * B * T, P, False, ":116", 8)):
+        q, k, v = rn(bh, s, dh), rn(bh, s, dh), rn(bh, s, dh)
+        mask = causal_mask(s, device=dev) if masked else None
+        pairs = s * (s + 1) // 2 if masked else s * s
+
+        def sdpa(q=q, k=k, v=v, mask=mask, s=s, heads=heads):
+            return F.scaled_dot_product_attention(
+                *(t.view(-1, heads, s, dh) for t in (q, k, v)),
+                attn_mask=None if mask is None else mask.to(dtype), scale=0.125)
+
+        cases.append(("fused_attention", f"[{bh},{s},{dh}]" + (" causal" if masked else ""),
+                      lambda q=q, k=k, v=v, mask=mask: A.fused_attention(q, k, v, mask, 0.125),
+                      lambda q=q, k=k, v=v, mask=mask: A._fused_attention_plain(
+                          q, k, v, mask=mask, scale=0.125),
+                      sdpa, 4 * bh * s * dh * isz + (s * s * 4 if masked else 0),
+                      4 * bh * pairs * dh, "qa_tiger_tpu/ops/pallas/attention.py" + site))
+
+    W, H = 768, 12
+    blk = ResidualAttentionBlock(W, 12, gen).to(dev, dtype)
+    x = rn(B, S, W)
+    mask = causal_mask(S, device=dev)
+    attn_flops = 2 * B * S * W * 4 * W + 2 * B * W * S * (S + 1)
+    cases.append(("fused_attn_half", f"x[{B},{S},{W}] causal h{H}",
+                  lambda: R.fused_attn_half(x, blk, mask, H),
+                  lambda: R._attn_half_flat(x, *R._attn_params(blk), heads=H, mask=mask), None,
+                  (2 * B * S * W + 4 * W * W + 6 * W) * isz + S * S * 4, attn_flops))
+    cases.append(("fused_resblock", f"x[{B},{S},{W}] causal h{H}",
+                  lambda: R.fused_resblock(x, blk, mask, H),
+                  lambda: R._resblock_flat(x, *R._resblock_params(blk), heads=H, mask=mask),
+                  None, (2 * B * S * W + 12 * W * W + 13 * W) * isz + S * S * 4,
+                  attn_flops + 16 * B * S * W * W))
+    return cases
+
+
 def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) -> None:
     """One kernel against its plain version on the same inputs; with
     ``timed``, kernel, plain and library times beside the bound. ``entries``
     keeps each kernel's JSON entry at its largest-bound call."""
     import torch
 
-    name, shape, kernel, plain, library, nbytes, flops = case
+    name, shape, kernel, plain, library, nbytes, flops, *replaces = case
     dname = str(dtype).replace("torch.", "")
     got, want = kernel(), plain()
     torch.cuda.synchronize()
@@ -254,8 +335,8 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
         if entries is not None and (name not in entries or b_ms > entries[name]["bound_ms"]):
             entries[name] = {
                 "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": 0, "shape": shape,
-                "dtype": dname, "max_abs_err": err, "ms": line["ms"],
+                "replaces": replaces[0] if replaces else REPLACES[name], "launches": 0,
+                "shape": shape, "dtype": dname, "max_abs_err": err, "ms": line["ms"],
                 "plain_ms": line["plain_ms"], "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": line["library_ms"]}
     print(json.dumps(line), flush=True)
@@ -274,6 +355,21 @@ def check_kernels(rng, gen) -> dict:
             for case in kernel_cases(dtype, B, rng, gen):
                 run_kernel_case(case, dtype, tol, timed, entries)
     return entries
+
+
+def check_op_kernels(entries: dict) -> None:
+    """Phase 3 for the op-level kernels, small fp32 (B=2) and bf16 at the
+    text tower's B=256, timed, from seeds of their own (the earlier checks
+    draw what they drew before)."""
+    import torch
+
+    rng, gen = np.random.default_rng(4), torch.Generator().manual_seed(4)
+    with torch.inference_mode():
+        for dtype, B, tol, timed in ((torch.float32, 2, FP32_TOL, False),
+                                     (torch.bfloat16, 256, BF16_TOL, True)):
+            for case in op_kernel_cases(dtype, B, rng, gen):
+                run_kernel_case(case, dtype, tol, timed, entries)
+            torch.cuda.empty_cache()
 
 
 def e2e_kernel_cases(dtype, rng, gen):
@@ -569,16 +665,71 @@ def slice1_grad_cases(dtype, B: int, rng, gen):
     return cases
 
 
-def check_slice1_grads(rng, gen) -> None:
-    """The slice-1 and key-bias kernels' gradients on the card: every input
-    and parameter gradient through the kernel's autograd Function against
-    autograd of the plain version, at a small and at the train recipe's
-    batch, fp32."""
+def op_grad_cases(dtype, B: int, rng, gen):
+    """The same for the op-level kernels, whose gradient on the card is the
+    JAX rule's plain version, recomputed (for fused_attention and
+    fused_resblock not the forward's, from which it differs in bf16 only),
+    and for a mask that requires grad: "mask" cases give the additive mask
+    a finite value, and attention_wide, fused_attn_ln2, fused_attention and
+    fused_attn_half give it a cotangent."""
     import torch
 
+    from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock, causal_mask
+    from qa_tiger_tpu_torch.ops import attention as A
+    from qa_tiger_tpu_torch.ops import resblock as R
+
+    dev = "cuda"
+
+    def rn(*shape):
+        return _leaf(torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                     .to(dev, dtype))
+
+    cases = []
+    blk = ResidualAttentionBlock(768, 12, gen).to(dev, dtype)
+    mask = causal_mask(S, device=dev)
+    qm, km, vm, mm = rn(2 * B, T, 512), rn(2 * B, S, 512), rn(2 * B, S, 512), rn(T, S)
+    cases.append(("attention_wide mask", f"q[{2 * B},{T},512] kv[{2 * B},{S},512] mask",
+                  lambda: A.attention_wide(qm, km, vm, mm, 0.125, 8),
+                  lambda: A._wide_reference(qm, km, vm, mm, 0.125, 8),
+                  [qm, km, vm, mm], [rn(2 * B, T, 512)]))
+    xl, m77 = rn(B, S, 768), rn(S, S)
+    cases.append(("fused_attn_ln2 mask", f"x[{B},{S},768] mask",
+                  lambda: R.fused_attn_ln2(xl, blk, m77, 12),
+                  lambda: R._attn_ln2_plain(blk, xl, heads=12, mask=m77),
+                  [xl, m77] + R._block_params(blk), [rn(B, S, 768), rn(B, S, 768)]))
+    for label, bh, s_, m in (("", 12 * B, S, mask), (" mask", 8 * B * 6, P, rn(P, P))):
+        qa, ka, va = rn(bh, s_, 64), rn(bh, s_, 64), rn(bh, s_, 64)
+        cases.append(("fused_attention" + label, f"[{bh},{s_},64]" + (label or " causal"),
+                      lambda qa=qa, ka=ka, va=va, m=m: A.fused_attention(qa, ka, va, m, 0.125),
+                      lambda qa=qa, ka=ka, va=va, m=m: A._fused_attention_rule(
+                          qa, ka, va, mask=m, scale=0.125),
+                      [qa, ka, va] + ([m] if label else []), [rn(bh, s_, 64)]))
+    xh = rn(B, S, 768)
+    cases.append(("fused_attn_half mask", f"x[{B},{S},768] mask",
+                  lambda: R.fused_attn_half(xh, blk, m77, 12),
+                  lambda: R._attn_half_flat(xh, *R._attn_params(blk), heads=12, mask=m77),
+                  [xh, m77] + R._attn_params(blk), [rn(B, S, 768)]))
+    xr = rn(B, S, 768)
+    cases.append(("fused_resblock", f"x[{B},{S},768] causal",
+                  lambda: R.fused_resblock(xr, blk, mask, 12),
+                  lambda: R._resblock_rule(xr, *R._resblock_params(blk), heads=12, mask=mask),
+                  [xr] + R._resblock_params(blk), [rn(B, S, 768)]))
+    return cases
+
+
+def check_slice1_grads(rng, gen) -> None:
+    """The slice-1, key-bias and op-level kernels' gradients on the card:
+    every input and parameter gradient (and a mask's, where it requires
+    grad) through the kernel's autograd Function against autograd of the
+    plain version, at a small and at the train recipe's batch, fp32. The
+    op-level cases draw from seeds of their own."""
+    import torch
+
+    op_rng, op_gen = np.random.default_rng(5), torch.Generator().manual_seed(5)
     for B in (2, 32):
-        for name, shape, kernel, plain, ins, cots in slice1_grad_cases(torch.float32, B, rng,
-                                                                       gen):
+        for name, shape, kernel, plain, ins, cots in (
+                slice1_grad_cases(torch.float32, B, rng, gen)
+                + op_grad_cases(torch.float32, B, op_rng, op_gen)):
             got, want = _grads(kernel(), ins, cots), _grads(plain(), ins, cots)
             torch.cuda.synchronize()
             errs = [max_err(g_, w_) for g_, w_ in zip(got, want)]
@@ -649,7 +800,8 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> dict:
     counts = ops.launch_counts()
     expected = {"fused_attn_ln2": 12, "fused_gaussian_moe": 2, "fused_patch_select": 1,
                 "attention_wide_key_bias": 0, "fused_avq_train": 0, "fused_avq_train_bwd": 0,
-                "fused_patch_select_train": 0, "fused_patch_select_train_bwd": 0}
+                "fused_patch_select_train": 0, "fused_patch_select_train_bwd": 0,
+                **dict.fromkeys(OP_KERNELS, 0)}
     print(json.dumps({"phase": "main_path_launches", **counts}), flush=True)
     for name, n in expected.items():
         require(counts[name] == n, f"{name}: {counts[name]} launches, expected {n}")
@@ -695,7 +847,7 @@ TRAIN_LR = 1e-4
 TRAIN_KERNELS = {"fused_attn_ln2": 12, "fused_avq_train": 1, "fused_avq_train_bwd": 1,
                  "fused_patch_select_train": 1, "fused_patch_select_train_bwd": 1,
                  "fused_gaussian_moe": 2, "attention_wide": 0, "attention_wide_key_bias": 0,
-                 "fused_patch_select": 0}
+                 "fused_patch_select": 0, **dict.fromkeys(OP_KERNELS, 0)}
 
 
 class Batches:
@@ -794,7 +946,7 @@ def check_train(rng, entries: dict, profile_dir: Path | None) -> dict:
     for name, n in TRAIN_KERNELS.items():
         require(counts[name] == n, f"train step: {name} launched {counts[name]} times, "
                                    f"expected {n}")
-        if name not in EVAL_KERNELS + E2E_ONLY_KERNELS:
+        if name not in EVAL_KERNELS + E2E_ONLY_KERNELS + OP_KERNELS:
             entries[name]["launches"] = n
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -837,7 +989,7 @@ SR = 16000
 E2E_KERNELS = {"fused_attn_ln2": 36, "attention_wide": 31, "attention_wide_key_bias": 23,
                "fused_patch_select": 1, "fused_gaussian_moe": 2, "fused_avq_train": 0,
                "fused_avq_train_bwd": 0, "fused_patch_select_train": 0,
-               "fused_patch_select_train_bwd": 0}
+               "fused_patch_select_train_bwd": 0, **dict.fromkeys(OP_KERNELS, 0)}
 
 
 def e2e_setup() -> dict:
@@ -1034,6 +1186,41 @@ def check_extract(rng) -> None:
     print(json.dumps(line), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the resblock micro-bench
+# ---------------------------------------------------------------------------
+
+BENCH_FNS = {"attn_half": "fused_attn_half", "attn_ln2": "fused_attn_ln2"}
+
+
+def check_bench_resblock() -> dict:
+    """``bench_resblock.main`` at its defaults for each ``--fn``, the launch
+    counters reset just before and read just after each: its kernel
+    launched once per layer of the warm-up chain and the timed ones, no
+    other kernel. Returns the two runs' counts summed."""
+    import torch
+
+    from qa_tiger_tpu_torch import bench_resblock, ops
+
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for fn, kernel in BENCH_FNS.items():
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        line = bench_resblock.main(["--fn", fn])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        expected = dict.fromkeys(ops.KERNELS, 0)
+        expected[kernel] = (line["repeats"] + 1) * line["iters"]
+        print(json.dumps({"phase": f"bench_resblock_{fn}_launches", **counts}), flush=True)
+        require(counts == expected, f"bench_resblock --fn {fn}: launches {counts}, "
+                                    f"expected {expected}")
+        require(np.isfinite(line["value"]) and line["value"] > 0,
+                f"bench_resblock --fn {fn}: no valid time")
+        for name, n in counts.items():
+            total[name] += n
+    return total
+
+
 def profile_step(fn, path: Path, phase: str) -> None:
     """A torch.profiler table of one call of ``fn`` written to ``path``, and
     its wall time, device busy time and idle share."""
@@ -1095,6 +1282,7 @@ def main() -> int:
         gen = torch.Generator().manual_seed(0)
         entries = check_kernels(rng, gen)
         check_e2e_kernels(rng, gen, entries)
+        check_op_kernels(entries)
         check_slice1_grads(rng, gen)
         check_train_kernels(rng, gen, entries)
         paths = {"serving": check_slice(rng, entries, args.profile),
@@ -1105,8 +1293,12 @@ def main() -> int:
         paths["e2e"] = check_e2e_bf16(rng, args.profile)
         torch.cuda.empty_cache()
         check_extract(rng)
+        torch.cuda.empty_cache()
+        paths["bench_resblock"] = check_bench_resblock()
         for name in E2E_ONLY_KERNELS:
             entries[name]["launches"] = paths["e2e"][name]
+        for name in OP_KERNELS:
+            entries[name]["launches"] = paths["bench_resblock"][name]
         for name, entry in entries.items():
             entry["launches_by_path"] = {path: c[name] for path, c in paths.items()}
         require(set(entries) == set(ops.KERNELS), "a kernel is missing from the table")

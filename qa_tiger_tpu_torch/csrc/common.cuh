@@ -237,6 +237,18 @@ template <typename T> struct EpiBias {  // out = round_T(act(acc + bias)); bias 
   }
 };
 
+// out = round_T(QuickGELU(acc + bias)): CLIP's x * sigmoid(1.702 x) on the
+// unrounded fp32 value, as the Pallas MLP body takes it
+template <typename T> struct EpiBiasQuickGelu {
+  T* out;
+  long long ldo;
+  const T* bias;
+  __device__ void operator()(int m, int n, float acc) const {
+    const float v = acc + to_f<T>(bias[n]);
+    out[(long long)m * ldo + n] = from_f<T>(v / (1.0f + expf(-1.702f * v)));
+  }
+};
+
 template <typename T> struct EpiResidual {  // out = res + round_T(acc + bias); bias may be null
   T* out;
   long long ldo;

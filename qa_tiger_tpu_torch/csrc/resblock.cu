@@ -1,33 +1,48 @@
-// fused_attn_ln2: y = x + out_proj(causal_attn(ln_1(x))) and h = ln_2(y) for
-// one CLIP pre-LN block.
+// The two residual halves of one CLIP pre-LN block:
 //
-// Replaces qa_tiger_tpu/ops/pallas/resblock.py:_attn_ln2_impl
-// (_attn_ln2_kernel -> _attn_core).
+//   attention half  y = x + out_proj(attn(ln_1(x)))      (h = ln_2(y))
+//   MLP half        y = x + c_proj(QuickGELU(c_fc(ln_2(x))))
+//
+// qt_attn_ln2 (fused_attn_ln2) replaces qa_tiger_tpu/ops/pallas/resblock.py:
+// _attn_ln2_impl (_attn_ln2_kernel -> _attn_core); qt_attn_half
+// (fused_attn_half, and the first half of fused_resblock) replaces
+// _attn_impl (_attn_kernel -> _attn_core), the same body without h;
+// qt_mlp_half (the second half of fused_resblock) replaces _mlp_impl
+// (_mlp_kernel).
 //
 // Bound on the H100: operations. Per text-tower layer at B=256, S=77,
 // W=768 the qkv and output projections are 8*B*S*W^2 = 93 GFLOP against
-// ~100 MB of x, y, h and weights. Five launches, all written here:
+// ~100 MB of x, y, h and weights; the MLP half's two GEMMs 16*B*S*W^2 =
+// 186 GFLOP against ~70 MB of x, y and weights. The attention half is four
+// launches (five with h), all written here:
 //   1. row statistics of x (fp32 mean and 1/std);
 //   2. GEMM against in_proj [3W, W] on bf16 tensor cores whose A load applies
 //      ln_1 and rounds to the activation type, plus bias -> qkv;
 //   3. the causal attention of attention.cu's device code, reading q, k and
 //      v as column slices of qkv -> ctx;
 //   4. GEMM against out_proj plus bias plus the residual -> y;
-//   5. ln_2 over y -> h.
-// The Pallas kernel kept qkv and ctx in VMEM; here they make one round trip
-// through HBM each (2 x 3W + 2 x W values per row, ~240 MB per layer at
-// B=256 in bf16). At the card's peak rates that traffic would take about as
-// long as the projections themselves, so keeping them on chip is the first
-// thing a faster version needs; against this version's GEMM time it is small.
+//   5. (qt_attn_ln2 only) ln_2 over y -> h.
+// The MLP half is three:
+//   1. row statistics of x;
+//   2. GEMM against c_fc [4W, W] whose A load applies ln_2 and rounds, with
+//      the epilogue bias, QuickGELU on the fp32 value, round -> hidden;
+//   3. GEMM against c_proj [W, 4W] plus bias plus the residual -> y.
+// The Pallas kernels kept qkv, ctx and the MLP hidden [rows, 4W] in VMEM;
+// here each makes one round trip through HBM (2 x 3W + 2 x W values per row
+// in the attention half, ~240 MB per layer at B=256 in bf16; 2 x 4W in the
+// MLP half, ~240 MB). At the card's peak rates that traffic would take about
+// as long as the GEMMs themselves, so keeping it on chip is the first thing
+// a faster version needs; against this version's GEMM time it is small.
 #include "common.cuh"
 
 namespace {
 
+// h, ln2w and ln2b null: the attention half alone (no fifth launch)
 template <typename T>
-cudaError_t run(const T* x, const T* ln1w, const T* ln1b, const T* wqkv, const T* bqkv,
-                const T* wout, const T* bout, const T* ln2w, const T* ln2b, const float* mask,
-                T* y, T* h, T* qkv, T* ctx, float* stats, int B, int S, int W, int heads,
-                cudaStream_t stream) {
+cudaError_t attn(const T* x, const T* ln1w, const T* ln1b, const T* wqkv, const T* bqkv,
+                 const T* wout, const T* bout, const T* ln2w, const T* ln2b, const float* mask,
+                 T* y, T* h, T* qkv, T* ctx, float* stats, int B, int S, int W, int heads,
+                 cudaStream_t stream) {
   const int M = B * S, hd = W / heads;
   float* mean = stats;
   float* rstd = stats + M;
@@ -46,28 +61,72 @@ cudaError_t run(const T* x, const T* ln1w, const T* ln1b, const T* wqkv, const T
   qt::gemm<T, true>(qt::RowLoad<T>{ctx, W}, wout, W, M, W, W,
                     qt::EpiResidual<T>{y, W, bout, x, W}, stream);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (!h) return cudaSuccess;
   qt::layer_norm_kernel<T, T><<<qt::ln_blocks(M), qt::LN_WARPS * 32, 0, stream>>>(
       y, M, W, 1, ln2w, ln2b, h, nullptr, nullptr, nullptr);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t mlp(const T* x, const T* ln2w, const T* ln2b, const T* wfc, const T* bfc,
+                const T* wpj, const T* bpj, T* y, T* hidden, float* stats, int M, int W,
+                int Hd, cudaStream_t stream) {
+  float* mean = stats;
+  float* rstd = stats + M;
+  qt::row_stats_kernel<T><<<qt::ln_blocks(M), qt::LN_WARPS * 32, 0, stream>>>(x, W, M, W, mean,
+                                                                               rstd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  qt::gemm<T, true>(qt::LnRowLoad<T>{x, W, mean, rstd, ln2w, ln2b}, wfc, W, M, Hd, W,
+                    qt::EpiBiasQuickGelu<T>{hidden, Hd, bfc}, stream);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  qt::gemm<T, true>(qt::RowLoad<T>{hidden, Hd}, wpj, Hd, M, W, Hd,
+                    qt::EpiResidual<T>{y, W, bpj, x, W}, stream);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+#define QT_P(T, p) static_cast<const T*>(p)
+#define QT_DISPATCH(CALL)                   \
+  if (dtype == 0) {                         \
+    using T = float;                        \
+    return CALL;                            \
+  } else {                                  \
+    using T = __nv_bfloat16;                \
+    return CALL;                            \
+  }
 
 extern "C" int qt_attn_ln2(int dtype, const void* x, const void* ln1w, const void* ln1b,
                            const void* wqkv, const void* bqkv, const void* wout,
                            const void* bout, const void* ln2w, const void* ln2b,
                            const void* mask, void* y, void* h, void* qkv, void* ctx,
                            void* stats, int B, int S, int W, int heads, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* m = static_cast<const float*>(mask);
-  float* sp = static_cast<float*>(stats);
-#define QT_ARGS(T)                                                                          \
-  static_cast<const T*>(x), static_cast<const T*>(ln1w), static_cast<const T*>(ln1b),      \
-      static_cast<const T*>(wqkv), static_cast<const T*>(bqkv), static_cast<const T*>(wout), \
-      static_cast<const T*>(bout), static_cast<const T*>(ln2w), static_cast<const T*>(ln2b), \
-      m, static_cast<T*>(y), static_cast<T*>(h), static_cast<T*>(qkv), static_cast<T*>(ctx), \
-      sp, B, S, W, heads, st
-  if (dtype == 0) return run<float>(QT_ARGS(float));
-  return run<__nv_bfloat16>(QT_ARGS(__nv_bfloat16));
-#undef QT_ARGS
+  QT_DISPATCH(attn<T>(QT_P(T, x), QT_P(T, ln1w), QT_P(T, ln1b), QT_P(T, wqkv), QT_P(T, bqkv),
+                      QT_P(T, wout), QT_P(T, bout), QT_P(T, ln2w), QT_P(T, ln2b),
+                      static_cast<const float*>(mask), static_cast<T*>(y), static_cast<T*>(h),
+                      static_cast<T*>(qkv), static_cast<T*>(ctx), static_cast<float*>(stats), B,
+                      S, W, heads, static_cast<cudaStream_t>(stream)))
+}
+
+extern "C" int qt_attn_half(int dtype, const void* x, const void* ln1w, const void* ln1b,
+                            const void* wqkv, const void* bqkv, const void* wout,
+                            const void* bout, const void* mask, void* y, void* qkv, void* ctx,
+                            void* stats, int B, int S, int W, int heads, void* stream) {
+  QT_DISPATCH(attn<T>(QT_P(T, x), QT_P(T, ln1w), QT_P(T, ln1b), QT_P(T, wqkv), QT_P(T, bqkv),
+                      QT_P(T, wout), QT_P(T, bout), nullptr, nullptr,
+                      static_cast<const float*>(mask), static_cast<T*>(y), nullptr,
+                      static_cast<T*>(qkv), static_cast<T*>(ctx), static_cast<float*>(stats), B,
+                      S, W, heads, static_cast<cudaStream_t>(stream)))
+}
+
+// x and y [rows, W], hidden [rows, Hd] scratch, stats [2, rows] fp32 scratch;
+// c_fc [Hd, W] and c_proj [W, Hd] in torch's Linear layout
+extern "C" int qt_mlp_half(int dtype, const void* x, const void* ln2w, const void* ln2b,
+                           const void* wfc, const void* bfc, const void* wpj, const void* bpj,
+                           void* y, void* hidden, void* stats, int rows, int W, int Hd,
+                           void* stream) {
+  QT_DISPATCH(mlp<T>(QT_P(T, x), QT_P(T, ln2w), QT_P(T, ln2b), QT_P(T, wfc), QT_P(T, bfc),
+                     QT_P(T, wpj), QT_P(T, bpj), static_cast<T*>(y), static_cast<T*>(hidden),
+                     static_cast<float*>(stats), rows, W, Hd, static_cast<cudaStream_t>(stream)))
 }

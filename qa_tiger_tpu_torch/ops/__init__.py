@@ -7,8 +7,15 @@ train kernels' backward launchers (``*_bwd``) are listed beside them: they
 run under autograd, from the ``torch.autograd.Function`` of their forward.
 ``attention_wide_key_bias`` counts the key-bias launches of
 ``attention_wide`` (ToMe), which ``attention_wide`` counts as well.
+``fused_attn_half`` counts every attention-half launch, those that
+``fused_resblock`` makes included; ``fused_resblock`` counts its MLP-half
+launches.
 """
-from qa_tiger_tpu_torch.ops.attention import attention_wide, attention_wide_key_bias
+from qa_tiger_tpu_torch.ops.attention import (
+    attention_wide,
+    attention_wide_key_bias,
+    fused_attention,
+)
 from qa_tiger_tpu_torch.ops.avq import fused_avq_train, fused_avq_train_bwd
 from qa_tiger_tpu_torch.ops.gaussian_moe import fused_gaussian_moe
 from qa_tiger_tpu_torch.ops.patch_select import (
@@ -16,7 +23,7 @@ from qa_tiger_tpu_torch.ops.patch_select import (
     fused_patch_select_train,
     fused_patch_select_train_bwd,
 )
-from qa_tiger_tpu_torch.ops.resblock import fused_attn_ln2
+from qa_tiger_tpu_torch.ops.resblock import fused_attn_half, fused_attn_ln2, fused_resblock
 
 KERNELS = {
     "fused_attn_ln2": fused_attn_ln2,
@@ -28,6 +35,9 @@ KERNELS = {
     "fused_avq_train_bwd": fused_avq_train_bwd,
     "fused_patch_select_train": fused_patch_select_train,
     "fused_patch_select_train_bwd": fused_patch_select_train_bwd,
+    "fused_attention": fused_attention,
+    "fused_attn_half": fused_attn_half,
+    "fused_resblock": fused_resblock,
 }
 
 
@@ -40,7 +50,8 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-__all__ = ["KERNELS", "attention_wide", "attention_wide_key_bias", "fused_attn_ln2",
-           "fused_avq_train", "fused_avq_train_bwd", "fused_gaussian_moe", "fused_patch_select",
-           "fused_patch_select_train", "fused_patch_select_train_bwd", "launch_counts",
+__all__ = ["KERNELS", "attention_wide", "attention_wide_key_bias", "fused_attention",
+           "fused_attn_half", "fused_attn_ln2", "fused_avq_train", "fused_avq_train_bwd",
+           "fused_gaussian_moe", "fused_patch_select", "fused_patch_select_train",
+           "fused_patch_select_train_bwd", "fused_resblock", "launch_counts",
            "reset_launches"]

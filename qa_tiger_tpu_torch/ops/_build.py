@@ -31,10 +31,14 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "qt_attention": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
                      _P, _I, _I, _I, _I, _I, _F, _P],
+    "qt_fused_attention": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
+                           _I, _I, _I, _I, _F, _P],
     "qt_gaussian_moe": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _P],
     "qt_attn_ln2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _P, _P, _I, _I, _I, _I, _P],
+    "qt_attn_half": [_I] + [_P] * 12 + [_I] * 4 + [_P],
+    "qt_mlp_half": [_I] + [_P] * 10 + [_I] * 3 + [_P],
     "qt_patch_select": [_I] + [_P] * 30 + [_I] * 4 + [_P],
     # the train kernels take one table of device pointers (index order: the
     # Buf enum of their source, the BUFFERS lists of ops/avq.py and

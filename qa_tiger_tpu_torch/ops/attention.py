@@ -1,12 +1,14 @@
-"""Multi-head attention on dense heads-in-lanes [B, S, W] tensors.
+"""Softmax attention: multi-head on dense heads-in-lanes [B, S, W] tensors
+(``attention_wide``) and classic head-split [BH, S, dh] (``fused_attention``).
 
-Port of ``qa_tiger_tpu/ops/pallas/attention.py:attention_wide``, with its
-optional per-(batch element, key) bias (ToMe's proportional attention): the
-CUDA kernels in ``csrc/attention.cu`` for CUDA tensors (whole keys staged in
-shared memory up to 128 keys, 64-key tiles in two passes beyond), the plain
-version ``_wide_reference`` for CPU tensors. On CUDA its gradient is that of
-the plain version, recomputed (``ops/_grad.py``), the JAX ``custom_vjp``
-rule: q, k, v and ``key_bias`` get real cotangents, the mask none.
+Port of ``qa_tiger_tpu/ops/pallas/attention.py``: ``attention_wide``, with
+its optional per-(batch element, key) bias (ToMe's proportional attention),
+and ``fused_attention``. The CUDA kernels in ``csrc/attention.cu`` run for
+CUDA tensors (whole keys staged in shared memory up to 128 keys, 64-key
+tiles in two passes beyond), the plain versions for CPU tensors. On CUDA
+the gradient is that of the plain version, recomputed (``ops/_grad.py``),
+the JAX ``custom_vjp`` rules: q, k, v, ``key_bias`` and a mask that
+requires grad get real cotangents.
 """
 from __future__ import annotations
 
@@ -45,6 +47,31 @@ def _check_rows(name: str, t: torch.Tensor, B: int, W: int) -> None:
         raise ValueError(f"{name} needs unit stride along its last dim")
 
 
+def _check_qkv(q, k, v, heads: int) -> None:
+    """What the kernels take: q [B, Sq, W], k/v [B, Sk, W] of one dtype on
+    one device, unit stride along W, W // heads a head size they run."""
+    B, Sq, W = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_rows(name, t, B, W)
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q's dtype and device")
+    if v.shape[1] != k.shape[1]:
+        raise ValueError("k and v need the same length")
+    if W % heads:
+        raise ValueError(f"width {W} does not split into {heads} heads")
+    if k.shape[1] > STAGED_MAX_SK and W // heads not in (32, 64, 128):
+        raise ValueError(f"over {STAGED_MAX_SK} keys the kernel takes head sizes 32, 64 "
+                         f"and 128, not {W // heads}")
+
+
+def _device_mask(mask, Sq: int, Sk: int, device):
+    if mask is None:
+        return None
+    if tuple(mask.shape) != (Sq, Sk):
+        raise ValueError(f"mask must be [{Sq}, {Sk}], got {tuple(mask.shape)}")
+    return mask.to(device=device, dtype=torch.float32).contiguous()
+
+
 def attention_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: torch.Tensor | None, scale: float, heads: int,
                    key_bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -60,32 +87,18 @@ def attention_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _wide_reference(q, k, v, mask, scale, heads, key_bias)
     if q.device.type != "cuda":
         raise ValueError(f"attention_wide runs on cpu or cuda, not {q.device}")
-    B, Sq, W = q.shape
+    _check_qkv(q, k, v, heads)
+    B, Sq, _ = q.shape
     Sk = k.shape[1]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_rows(name, t, B, W)
-        if t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} must match q's dtype and device")
-    if v.shape[1] != Sk:
-        raise ValueError("k and v need the same length")
-    if W % heads:
-        raise ValueError(f"width {W} does not split into {heads} heads")
-    if Sk > STAGED_MAX_SK and W // heads not in (32, 64, 128):
-        raise ValueError(f"over {STAGED_MAX_SK} keys the kernel takes head sizes 32, 64 "
-                         f"and 128, not {W // heads}")
-    if mask is not None:
-        if tuple(mask.shape) != (Sq, Sk):
-            raise ValueError(f"mask must be [{Sq}, {Sk}], got {tuple(mask.shape)}")
-        mask = mask.to(device=q.device, dtype=torch.float32).contiguous()
-    consts = dict(mask=mask, scale=scale, heads=heads)
+    mask = _device_mask(mask, Sq, Sk, q.device)
+    consts = dict(scale=scale, heads=heads)
     if key_bias is None:
-        return _grad.KernelWithPlainGrad.apply(_launch, _wide_reference, consts, q, k, v)
+        return _grad.apply_masked(_launch, _wide_reference, consts, q, k, v, mask=mask)
     if tuple(key_bias.shape) != (B, Sk) or key_bias.device != q.device:
         raise ValueError(f"key_bias must be [{B}, {Sk}] on {q.device}, got "
                          f"{tuple(key_bias.shape)} on {key_bias.device}")
     key_bias = key_bias.float().contiguous()
-    return _grad.KernelWithPlainGrad.apply(_launch, _wide_reference_kb, consts, q, k, v,
-                                           key_bias)
+    return _grad.apply_masked(_launch, _wide_reference_kb, consts, q, k, v, key_bias, mask=mask)
 
 
 def attention_wide_key_bias(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,3 +133,70 @@ def _launch(q, k, v, key_bias=None, *, mask, scale, heads):
 
 attention_wide.launches = 0
 attention_wide_key_bias.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused_attention: [BH, S, dh], one head per batch row
+# ---------------------------------------------------------------------------
+
+def _softmax_pv(qs, k, v, mask):
+    """fp32 scores of the already scaled fp32 queries ``qs``, + mask, fp32
+    softmax, p cast to v's dtype, p v summed in fp32."""
+    s = torch.einsum("bqd,bkd->bqk", qs, k.float())
+    if mask is not None:
+        s = s + mask.float()
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bqk,bkd->bqd", p.float(), v.float())
+
+
+def _fused_attention_plain(q, k, v, *, mask, scale):
+    """The forward's plain version, the Pallas ``_kernel``'s arithmetic: q
+    cast to fp32 and scaled, then the fp32 dot with k."""
+    return _softmax_pv(q.float() * scale, k, v, mask).to(q.dtype)
+
+
+def _fused_attention_rule(q, k, v, *, mask, scale):
+    """The gradient's plain version, ``_reference_impl``, which the JAX
+    ``custom_vjp`` recomputes: q scaled in its own dtype, then the fp32 dot.
+    The two agree in fp32; in bf16 ``q * scale`` is rounded here."""
+    return _softmax_pv((q * scale).float(), k, v, mask).to(q.dtype)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor | None, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale + mask) v for q [BH, Sq, dh], k/v [BH, Sk, dh];
+    ``mask`` is an additive [Sq, Sk] mask or None.
+
+    On the card ``qt_fused_attention`` takes both Pallas routes (the
+    per-row ``_kernel`` and the packed ``_packed_kernel`` for tiny unmasked
+    sequences): packing was a layout for the TPU's matrix unit and computes
+    the same function. The kernel scales the fp32 dot rather than q, which
+    differs from ``_fused_attention_plain`` by fp32 rounding only. On either
+    device the gradient is that of ``_fused_attention_rule``; a mask that
+    requires grad gets its cotangent.
+    """
+    if q.device.type == "cpu":
+        return _grad.apply_masked(_fused_attention_plain, _fused_attention_rule,
+                                  dict(scale=scale), q, k, v, mask=mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention runs on cpu or cuda, not {q.device}")
+    _check_qkv(q, k, v, 1)
+    mask = _device_mask(mask, q.shape[1], k.shape[1], q.device)
+    return _grad.apply_masked(_launch_fused, _fused_attention_rule, dict(scale=scale),
+                              q, k, v, mask=mask)
+
+
+def _launch_fused(q, k, v, *, mask, scale):
+    BH, Sq, dh = q.shape
+    out = torch.empty(BH, Sq, dh, dtype=q.dtype, device=q.device)
+    _build.launch(
+        "qt_fused_attention", _build.dtype_code(q),
+        q.data_ptr(), q.stride(0), q.stride(1),
+        k.data_ptr(), k.stride(0), k.stride(1),
+        v.data_ptr(), v.stride(0), v.stride(1),
+        out.data_ptr(), _build.ptr(mask), BH, Sq, k.shape[1], dh, float(scale))
+    fused_attention.launches += 1
+    return out
+
+
+fused_attention.launches = 0

@@ -1,13 +1,20 @@
-"""The attention half of a CLIP pre-LN block plus the MLP half's ln_2 input.
+"""The residual halves of a CLIP pre-LN block:
 
-Port of ``qa_tiger_tpu/ops/pallas/resblock.py:fused_attn_ln2``:
+    y = x + out_proj(attn(ln_1(x)))                  attention half
+    y = x + c_proj(QuickGELU(c_fc(ln_2(x))))         MLP half
 
-    y = x + out_proj(attn(ln_1(x)))      h = ln_2(y)
+Port of ``qa_tiger_tpu/ops/pallas/resblock.py``: ``fused_attn_ln2`` (the
+attention half and the MLP half's input ``ln_2(y)``), ``fused_attn_half``
+(the attention half alone) and ``fused_resblock`` (both halves). The CUDA
+kernels in ``csrc/resblock.cu`` run for CUDA tensors, the plain versions for
+CPU tensors. On CUDA the gradient is that of the plain version, recomputed
+(``ops/_grad.py``), the JAX ``custom_vjp`` rules (resblock.py:574-682): a
+mask that requires grad gets its cotangent from ``fused_attn_ln2`` and
+``fused_attn_half``, none from ``fused_resblock``.
 
-The CUDA kernel in ``csrc/resblock.cu`` runs for CUDA tensors, the plain
-version ``_attn_ln2_plain`` for CPU tensors. On CUDA its gradient is that of
-the plain version, recomputed (``ops/_grad.py``), the JAX ``custom_vjp`` rule
-(resblock.py:649-682).
+The JAX package admits a shape to its kernels by TPU memory and launch
+overhead (``_usable``, ``_attn_sizes``, ``_mlp_sizes``); here a CUDA tensor
+always launches the kernel, and a shape the kernel does not take raises.
 """
 from __future__ import annotations
 
@@ -15,29 +22,97 @@ import math
 
 import torch
 
-from qa_tiger_tpu_torch.nn.core import layer_norm, linear
+from qa_tiger_tpu_torch.nn.core import layer_norm, linear, quick_gelu
 from qa_tiger_tpu_torch.ops import _build, _grad
 from qa_tiger_tpu_torch.ops.attention import _wide_reference
 
 
-def _block_params(block) -> list:
+def _attn_params(block) -> list:
     return [block.ln_1.weight, block.ln_1.bias, block.attn.in_proj_weight,
-            block.attn.in_proj_bias, block.attn.out_proj.weight,
-            block.attn.out_proj.bias, block.ln_2.weight, block.ln_2.bias]
+            block.attn.in_proj_bias, block.attn.out_proj.weight, block.attn.out_proj.bias]
 
 
-def _attn_ln2_flat(x, ln1w, ln1b, wqkv, bqkv, wout, bout, ln2w, ln2b, *, heads, mask):
-    """Plain version: ln_1, the packed qkv projection, ``_wide_reference``,
-    out_proj, residual, ln_2 (the JAX package's ``_attn_ln2_jnp``)."""
+def _block_params(block) -> list:
+    """The attention half's parameters and ln_2's."""
+    return _attn_params(block) + [block.ln_2.weight, block.ln_2.bias]
+
+
+def _resblock_params(block) -> list:
+    return _block_params(block) + [block.mlp.c_fc.weight, block.mlp.c_fc.bias,
+                                   block.mlp.c_proj.weight, block.mlp.c_proj.bias]
+
+
+def _param_shapes(W: int, n: int) -> list:
+    """The shapes of the first n of ``_resblock_params``."""
+    return [(W,), (W,), (3 * W, W), (3 * W,), (W, W), (W,), (W,), (W,),
+            (4 * W, W), (4 * W,), (W, 4 * W), (W,)][:n]
+
+
+def _attn_half_flat(x, ln1w, ln1b, wqkv, bqkv, wout, bout, *, heads, mask):
+    """Plain version of the attention half: ln_1, the packed qkv
+    projection, ``_wide_reference``, out_proj, residual (the JAX package's
+    ``_attn_half_jnp``)."""
     h = layer_norm(x, ln1w, ln1b)
     q, k, v = linear(h, wqkv, bqkv).chunk(3, dim=-1)
     ctx = _wide_reference(q, k, v, mask, 1.0 / math.sqrt(x.shape[-1] // heads), heads)
-    y = x + linear(ctx, wout, bout)
+    return x + linear(ctx, wout, bout)
+
+
+def _attn_ln2_flat(x, ln1w, ln1b, wqkv, bqkv, wout, bout, ln2w, ln2b, *, heads, mask):
+    """Plain version of ``fused_attn_ln2`` (the JAX ``_attn_ln2_jnp``)."""
+    y = _attn_half_flat(x, ln1w, ln1b, wqkv, bqkv, wout, bout, heads=heads, mask=mask)
     return y, layer_norm(y, ln2w, ln2b)
 
 
 def _attn_ln2_plain(block, x, *, heads, mask):
     return _attn_ln2_flat(x, *_block_params(block), heads=heads, mask=mask)
+
+
+def _mlp_half_flat(x, ln2w, ln2b, wfc, bfc, wpj, bpj):
+    """Plain version of the MLP half as the Pallas ``_mlp_kernel`` computes
+    it: ln_2 rounded to x's dtype; c_fc plus bias in fp32 and QuickGELU on
+    that unrounded value, then rounded; c_proj plus bias in fp32, rounded;
+    x plus that in x's dtype."""
+    h = layer_norm(x, ln2w, ln2b)
+    hid = quick_gelu(linear(h.float(), wfc.float(), bfc.float())).to(x.dtype)
+    return x + linear(hid.float(), wpj.float(), bpj.float()).to(x.dtype)
+
+
+def _resblock_flat(x, *params, heads, mask):
+    """The forward's plain version of ``fused_resblock``: the attention
+    half, then ``_mlp_half_flat`` (the Pallas bodies)."""
+    y = _attn_half_flat(x, *params[:6], heads=heads, mask=mask)
+    return _mlp_half_flat(y, *params[6:])
+
+
+def _resblock_rule(x, *params, heads, mask):
+    """The gradient's plain version, ``resblock_jnp``, which the JAX
+    ``custom_vjp`` recomputes: its ``linear`` rounds the c_fc output to x's
+    dtype before QuickGELU. The two agree in fp32; in bf16 they do not."""
+    ln2w, ln2b, wfc, bfc, wpj, bpj = params[6:]
+    y = _attn_half_flat(x, *params[:6], heads=heads, mask=mask)
+    h = quick_gelu(linear(layer_norm(y, ln2w, ln2b), wfc, bfc))
+    return y + linear(h, wpj, bpj)
+
+
+def _checked_mask(x, params, heads: int, mask):
+    """Raise on what the kernels do not take; the mask as a contiguous fp32
+    [S, S] on x's device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the resblock kernels run on cpu or cuda, not {x.device}")
+    B, S, W = x.shape
+    if W % heads:
+        raise ValueError(f"width {W} does not split into {heads} heads")
+    for p, shape in zip([x] + params, [(B, S, W)] + _param_shapes(W, len(params))):
+        if tuple(p.shape) != shape or not p.is_contiguous():
+            raise ValueError(f"expected a contiguous {shape}, got {tuple(p.shape)}")
+        if p.dtype != x.dtype or p.device != x.device:
+            raise ValueError("parameters must match x's dtype and device")
+    if mask is None:
+        return None
+    if tuple(mask.shape) != (S, S):
+        raise ValueError(f"mask must be [{S}, {S}], got {tuple(mask.shape)}")
+    return mask.to(device=x.device, dtype=torch.float32).contiguous()
 
 
 def fused_attn_ln2(x: torch.Tensor, block, mask: torch.Tensor | None,
@@ -47,33 +122,50 @@ def fused_attn_ln2(x: torch.Tensor, block, mask: torch.Tensor | None,
     mask or None."""
     if x.device.type == "cpu":
         return _attn_ln2_plain(block, x, heads=heads, mask=mask)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attn_ln2 runs on cpu or cuda, not {x.device}")
-    B, S, W = x.shape
-    if W % heads:
-        raise ValueError(f"width {W} does not split into {heads} heads")
     params = _block_params(block)
-    shapes = [(W,), (W,), (3 * W, W), (3 * W,), (W, W), (W,), (W,), (W,)]
-    for p, shape in zip([x] + params, [(B, S, W)] + shapes):
-        if tuple(p.shape) != shape or not p.is_contiguous():
-            raise ValueError(f"expected a contiguous {shape}, got {tuple(p.shape)}")
-        if p.dtype != x.dtype or p.device != x.device:
-            raise ValueError("parameters must match x's dtype and device")
-    if mask is not None:
-        if tuple(mask.shape) != (S, S):
-            raise ValueError(f"mask must be [{S}, {S}], got {tuple(mask.shape)}")
-        mask = mask.to(device=x.device, dtype=torch.float32).contiguous()
-    return _grad.KernelWithPlainGrad.apply(_launch, _attn_ln2_flat,
+    mask = _checked_mask(x, params, heads, mask)
+    return _grad.apply_masked(_launch_ln2, _attn_ln2_flat, dict(heads=heads), x, *params,
+                              mask=mask)
+
+
+def fused_attn_half(x: torch.Tensor, block, mask: torch.Tensor | None,
+                    heads: int) -> torch.Tensor:
+    """y = x + out_proj(attn(ln_1(x))) for x [B, S, W]; ``block`` holds
+    ``ln_1`` and ``attn``; ``mask`` is an additive [S, S] mask or None."""
+    params = _attn_params(block)
+    if x.device.type == "cpu":
+        return _attn_half_flat(x, *params, heads=heads, mask=mask)
+    mask = _checked_mask(x, params, heads, mask)
+    return _grad.apply_masked(_launch_half, _attn_half_flat, dict(heads=heads), x, *params,
+                              mask=mask)
+
+
+def fused_resblock(x: torch.Tensor, block, mask: torch.Tensor | None,
+                   heads: int) -> torch.Tensor:
+    """One CLIP block, x [B, S, W] -> [B, S, W]: the attention half's
+    kernel, then the MLP half's. The forward is ``_resblock_flat``'s
+    arithmetic, the gradient ``_resblock_rule``'s on either device; the mask
+    is a constant, as in the JAX rule."""
+    params = _resblock_params(block)
+    if x.device.type == "cpu":
+        return _grad.KernelWithPlainGrad.apply(_resblock_flat, _resblock_rule,
+                                               dict(heads=heads, mask=mask), x, *params)
+    mask = _checked_mask(x, params, heads, mask)
+    return _grad.KernelWithPlainGrad.apply(_launch_resblock, _resblock_rule,
                                            dict(heads=heads, mask=mask), x, *params)
 
 
-def _launch(x, *params, heads, mask):
+def _attn_scratch(x):
     B, S, W = x.shape
-    y = torch.empty_like(x)
-    h = torch.empty_like(x)
-    qkv = torch.empty(B * S, 3 * W, dtype=x.dtype, device=x.device)
-    ctx = torch.empty(B * S, W, dtype=x.dtype, device=x.device)
-    stats = torch.empty(2, B * S, dtype=torch.float32, device=x.device)
+    return (torch.empty(B * S, 3 * W, dtype=x.dtype, device=x.device),
+            torch.empty(B * S, W, dtype=x.dtype, device=x.device),
+            torch.empty(2, B * S, dtype=torch.float32, device=x.device))
+
+
+def _launch_ln2(x, *params, heads, mask):
+    B, S, W = x.shape
+    y, h = torch.empty_like(x), torch.empty_like(x)
+    qkv, ctx, stats = _attn_scratch(x)
     _build.launch("qt_attn_ln2", _build.dtype_code(x), x.data_ptr(),
                   *[p.data_ptr() for p in params], _build.ptr(mask),
                   y.data_ptr(), h.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
@@ -82,4 +174,34 @@ def _launch(x, *params, heads, mask):
     return y, h
 
 
+def _launch_half(x, *params, heads, mask):
+    B, S, W = x.shape
+    y = torch.empty_like(x)
+    qkv, ctx, stats = _attn_scratch(x)
+    _build.launch("qt_attn_half", _build.dtype_code(x), x.data_ptr(),
+                  *[p.data_ptr() for p in params], _build.ptr(mask),
+                  y.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), stats.data_ptr(),
+                  B, S, W, heads)
+    fused_attn_half.launches += 1
+    return y
+
+
+def _launch_mlp(x, *params):
+    B, S, W = x.shape
+    y = torch.empty_like(x)
+    hidden = torch.empty(B * S, 4 * W, dtype=x.dtype, device=x.device)
+    stats = torch.empty(2, B * S, dtype=torch.float32, device=x.device)
+    _build.launch("qt_mlp_half", _build.dtype_code(x), x.data_ptr(),
+                  *[p.data_ptr() for p in params], y.data_ptr(), hidden.data_ptr(),
+                  stats.data_ptr(), B * S, W, 4 * W)
+    fused_resblock.launches += 1
+    return y
+
+
+def _launch_resblock(x, *params, heads, mask):
+    return _launch_mlp(_launch_half(x, *params[:6], heads=heads, mask=mask), *params[6:])
+
+
 fused_attn_ln2.launches = 0
+fused_attn_half.launches = 0
+fused_resblock.launches = 0

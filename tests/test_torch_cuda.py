@@ -135,6 +135,37 @@ def test_fused_patch_select(cuda, dtype):
            lambda: PS.patch_selecter_plain(ps, patch, audio, video, nhead=8), dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,sq,sk,masked", [(24, 77, 77, True), (512, 14, 14, False),
+                                             (6, 150, 150, False)])
+def test_fused_attention(cuda, dtype, bh, sq, sk, masked):
+    """The text tower's head-split shape (causal), the packed route's tiny
+    unmasked one, and keys past 128 (the tiled kernel)."""
+    rng = np.random.default_rng(9)
+    q, k, v = (_rn(rng, bh, s, 64, dtype=dtype) for s in (sq, sk, sk))
+    mask = causal_mask(sq, device=cuda) if masked else None
+    n = A.fused_attention.launches
+    _check(lambda: A.fused_attention(q, k, v, mask, 0.125),
+           lambda: A._fused_attention_plain(q, k, v, mask=mask, scale=0.125), dtype)
+    assert A.fused_attention.launches == n + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_attn_half_and_resblock(cuda, dtype):
+    """The text tower's block at B=3: ``fused_attn_half`` launches its
+    kernel once, ``fused_resblock`` the attention half and the MLP half."""
+    rng = np.random.default_rng(10)
+    blk = ResidualAttentionBlock(768, 12, torch.Generator().manual_seed(0)).to(cuda, dtype)
+    x = _rn(rng, 3, 77, 768, dtype=dtype)
+    mask = causal_mask(77, device=cuda)
+    half, res = R.fused_attn_half.launches, R.fused_resblock.launches
+    _check(lambda: R.fused_attn_half(x, blk, mask, 12),
+           lambda: R._attn_half_flat(x, *R._attn_params(blk), heads=12, mask=mask), dtype)
+    _check(lambda: R.fused_resblock(x, blk, mask, 12),
+           lambda: R._resblock_flat(x, *R._resblock_params(blk), heads=12, mask=mask), dtype)
+    assert (R.fused_attn_half.launches, R.fused_resblock.launches) == (half + 2, res + 1)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(2, 5, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -173,6 +204,24 @@ def _slice1_case(name, rng, cuda):
         return (lambda: A.attention_wide(q, k, v, None, 0.125, 8),
                 lambda: A._wide_reference(q, k, v, None, 0.125, 8), [q, k, v],
                 [_rn(rng, 3, 60, 512, dtype=dt)])
+    if name == "fused_attention":
+        q, k, v = (_leaf(_rn(rng, 36, 77, 64, dtype=dt)) for _ in range(3))
+        mask = causal_mask(77, device=cuda)
+        return (lambda: A.fused_attention(q, k, v, mask, 0.125),
+                lambda: A._fused_attention_rule(q, k, v, mask=mask, scale=0.125), [q, k, v],
+                [_rn(rng, 36, 77, 64, dtype=dt)])
+    if name in ("fused_attn_half", "fused_resblock"):
+        blk = ResidualAttentionBlock(768, 12, gen).to(cuda, dt)
+        x, mask = _leaf(_rn(rng, 2, 13, 768, dtype=dt)), causal_mask(13, device=cuda)
+        if name == "fused_attn_half":
+            params = R._attn_params(blk)
+            return (lambda: R.fused_attn_half(x, blk, mask, 12),
+                    lambda: R._attn_half_flat(x, *params, heads=12, mask=mask),
+                    [x] + params, [_rn(rng, 2, 13, 768, dtype=dt)])
+        params = R._resblock_params(blk)
+        return (lambda: R.fused_resblock(x, blk, mask, 12),
+                lambda: R._resblock_rule(x, *params, heads=12, mask=mask),
+                [x] + params, [_rn(rng, 2, 13, 768, dtype=dt)])
     if name == "attention_wide_key_bias":
         q = _leaf(_rn(rng, 2, 40, 512, dtype=dt))
         k, v = (_leaf(_rn(rng, 2, 150, 512, dtype=dt)) for _ in range(2))
@@ -199,17 +248,60 @@ def _slice1_case(name, rng, cuda):
 
 
 @pytest.mark.parametrize("name", ["fused_attn_ln2", "attention_wide", "attention_wide_key_bias",
-                                  "fused_patch_select", "fused_gaussian_moe"])
+                                  "fused_patch_select", "fused_gaussian_moe", "fused_attention",
+                                  "fused_attn_half", "fused_resblock"])
 def test_slice1_kernel_gradients(cuda, name):
     """On the card the kernels' outputs carry the plain version's gradient
     (the JAX custom_vjp rule): every input and parameter gradient equals
-    autograd's through the plain version, the key bias's included."""
+    autograd's through the plain version, the key bias's included
+    (``fused_resblock``: through ``_resblock_rule``, the JAX rule's)."""
     kernel, plain, ins, cots = _slice1_case(name, np.random.default_rng(5), cuda)
     got, want = _outs_and_grads(kernel(), ins, cots), _outs_and_grads(plain(), ins, cots)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         err = (g.float() - w.float()).abs().max().item()
         assert err <= TOL[torch.float32] * max(1.0, w.float().abs().max().item()), err
+
+
+def _mask_case(name, rng, dev):
+    """(kernel call, differentiated inputs, cotangents) of each wrapper that
+    gives an additive mask its cotangent, the mask a finite [Sq, Sk] leaf,
+    built on ``dev`` from the same seed on either device."""
+    dt = torch.float32
+
+    def rn(*shape):
+        return _leaf(torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev))
+
+    if name == "attention_wide":
+        q, k, v, mask = rn(3, 12, 256), rn(3, 20, 256), rn(3, 20, 256), rn(12, 20)
+        return lambda: A.attention_wide(q, k, v, mask, 0.125, 4), [q, k, v, mask], \
+            [rn(3, 12, 256).detach()]
+    if name == "fused_attention":
+        q, k, v, mask = rn(8, 14, 64), rn(8, 14, 64), rn(8, 14, 64), rn(14, 14)
+        return lambda: A.fused_attention(q, k, v, mask, 0.125), [q, k, v, mask], \
+            [rn(8, 14, 64).detach()]
+    blk = ResidualAttentionBlock(256, 4, torch.Generator().manual_seed(0)).to(dev, dt)
+    x, mask = rn(2, 13, 256), rn(13, 13)
+    if name == "fused_attn_ln2":
+        return lambda: R.fused_attn_ln2(x, blk, mask, 4), [x, mask] + R._block_params(blk), \
+            [rn(2, 13, 256).detach(), rn(2, 13, 256).detach()]
+    return lambda: R.fused_attn_half(x, blk, mask, 4), [x, mask] + R._attn_params(blk), \
+        [rn(2, 13, 256).detach()]
+
+
+@pytest.mark.parametrize("name", ["attention_wide", "fused_attn_ln2", "fused_attention",
+                                  "fused_attn_half"])
+def test_mask_cotangent_card_equals_cpu(cuda, name):
+    """A mask that requires grad gets the same gradient through the kernel
+    on the card as through the plain version on the CPU (the JAX rules give
+    it a real cotangent), and so does every other input."""
+    got, want = ([g.float().cpu() for g in _outs_and_grads(call(), ins, cots)]
+                 for call, ins, cots in (_mask_case(name, np.random.default_rng(11), dev)
+                                         for dev in (cuda, "cpu")))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        err = (g - w).abs().max().item()
+        assert err <= TOL[torch.float32] * max(1.0, w.abs().max().item()), err
 
 
 def _train_case(kind, dtype, cuda, rng):
