@@ -20,7 +20,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``fused_attn_half`` and ``fused_resblock`` at [256, 77, 768] causal) in
    bf16 and at a small fp32 shape, with their gradients and the mask
    cotangents of the four wrappers that give one; prints kernel, plain and
-   library times beside the card's bound;
+   library times beside the card's bound, the kernel's achieved TFLOP/s,
+   and, for each kernel that runs ``qt::attention``, the route its
+   dispatch took ("mma": bf16 tensor cores, "fma": fp32 FMAs);
 4. serving — the Predictor at configs/qa-tiger/vitl14.py with weights from
    a seed: (a) fp32 logits at B=4 against the same state_dict run through
    the plain versions on the CPU; (b) the bf16 B=256 path through
@@ -202,7 +204,8 @@ def kernel_cases(dtype, B: int, rng, gen):
     flops = 2 * B * S * W * 4 * W + 2 * B * W * S * (S + 1)  # causal: keys <= query
     cases.append(("fused_attn_ln2", f"x[{B},{S},{W}] causal h{H}",
                   lambda: R.fused_attn_ln2(x, blk, mask, H),
-                  lambda: R._attn_ln2_plain(blk, x, heads=H, mask=mask), None, nbytes, flops))
+                  lambda: R._attn_ln2_plain(blk, x, heads=H, mask=mask), None, nbytes, flops,
+                  {"attn": (S, S, W // H)}))
 
     # attention: AVQ question (60 x 77), self and cross (60 x 60) over the 2B
     # batch; TempMoE (1 x 60) and QstGrounding (1 x 2) over B
@@ -219,7 +222,8 @@ def kernel_cases(dtype, B: int, rng, gen):
         cases.append(("attention_wide", f"q[{b},{sq},{D}] kv[{b},{sk},{D}] h{heads}",
                       lambda q=q, k=k, v=v: A.attention_wide(q, k, v, None, sc, heads),
                       lambda q=q, k=k, v=v: A._wide_reference(q, k, v, None, sc, heads),
-                      sdpa, (2 * b * sq * D + 2 * b * sk * D) * isz, 4 * b * sq * sk * D))
+                      sdpa, (2 * b * sq * D + 2 * b * sk * D) * isz, 4 * b * sq * sk * D,
+                      {"attn": (sq, sk, D // heads)}))
 
     # PatchSelecter: patch [B, 60, 14, 512], audio/video [B, 60, 512]
     ps = PatchSelecter(D, gen).to(dev, dtype)
@@ -252,7 +256,7 @@ def kernel_cases(dtype, B: int, rng, gen):
 
 def op_kernel_cases(dtype, B: int, rng, gen):
     """The kernel cases of the op-level kernels, with the Pallas call each
-    replaces as an eighth item. ``fused_attention`` at the text tower's
+    replaces in the eighth item. ``fused_attention`` at the text tower's
     head-split attention, [12B, 77, 64] causal (Pallas :165), and at the
     packed route's PatchSelecter self-attention, [8 B T, 14, 64] unmasked
     (:116); ``fused_attn_half`` and ``fused_resblock`` at the text tower's
@@ -292,7 +296,9 @@ def op_kernel_cases(dtype, B: int, rng, gen):
                       lambda q=q, k=k, v=v, mask=mask: A._fused_attention_plain(
                           q, k, v, mask=mask, scale=0.125),
                       sdpa, 4 * bh * s * dh * isz + (s * s * 4 if masked else 0),
-                      4 * bh * pairs * dh, "qa_tiger_tpu/ops/pallas/attention.py" + site))
+                      4 * bh * pairs * dh,
+                      {"replaces": "qa_tiger_tpu/ops/pallas/attention.py" + site,
+                       "attn": (s, s, dh)}))
 
     W, H = 768, 12
     blk = ResidualAttentionBlock(W, 12, gen).to(dev, dtype)
@@ -302,22 +308,32 @@ def op_kernel_cases(dtype, B: int, rng, gen):
     cases.append(("fused_attn_half", f"x[{B},{S},{W}] causal h{H}",
                   lambda: R.fused_attn_half(x, blk, mask, H),
                   lambda: R._attn_half_flat(x, *R._attn_params(blk), heads=H, mask=mask), None,
-                  (2 * B * S * W + 4 * W * W + 6 * W) * isz + S * S * 4, attn_flops))
+                  (2 * B * S * W + 4 * W * W + 6 * W) * isz + S * S * 4, attn_flops,
+                  {"attn": (S, S, W // H)}))
     cases.append(("fused_resblock", f"x[{B},{S},{W}] causal h{H}",
                   lambda: R.fused_resblock(x, blk, mask, H),
                   lambda: R._resblock_flat(x, *R._resblock_params(blk), heads=H, mask=mask),
                   None, (2 * B * S * W + 12 * W * W + 13 * W) * isz + S * S * 4,
-                  attn_flops + 16 * B * S * W * W))
+                  attn_flops + 16 * B * S * W * W, {"attn": (S, S, W // H)}))
     return cases
 
 
 def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) -> None:
     """One kernel against its plain version on the same inputs; with
-    ``timed``, kernel, plain and library times beside the bound. ``entries``
-    keeps each kernel's JSON entry at its largest-bound call."""
+    ``timed``, kernel, plain and library times beside the bound and the
+    kernel's achieved TFLOP/s on the bound's flop count. ``entries`` keeps
+    each kernel's JSON entry at its largest-bound call.
+
+    A case's optional eighth item is a dict: ``replaces`` (the Pallas call,
+    where it is not the kernel's own in REPLACES) and ``attn`` ((Sq, Sk, hd)
+    of the ``qt::attention`` call inside the kernel, whose route, "mma" or
+    "fma", the line then names)."""
     import torch
 
-    name, shape, kernel, plain, library, nbytes, flops, *replaces = case
+    from qa_tiger_tpu_torch.ops import attention as A
+
+    name, shape, kernel, plain, library, nbytes, flops, *rest = case
+    extra = rest[0] if rest else {}
     dname = str(dtype).replace("torch.", "")
     got, want = kernel(), plain()
     torch.cuda.synchronize()
@@ -327,15 +343,18 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
     line = {"kernel": name, "dtype": dname, "shape": shape,
             "max_abs_err": err, "max_abs_plain": scale,
             "tolerance": tol * max(1.0, scale), "ok": ok}
+    if "attn" in extra:
+        line["route"] = A.attention_route(dtype, *extra["attn"])
     if timed:
         b_ms, b_by = bound(nbytes, flops, dname)
         line.update(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
                     library_ms=cuda_ms(library) if library else None,
                     bound_ms=b_ms, bound_by=b_by)
+        line["tflops"] = flops / line["ms"] * 1e-9
         if entries is not None and (name not in entries or b_ms > entries[name]["bound_ms"]):
             entries[name] = {
                 "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": replaces[0] if replaces else REPLACES[name], "launches": 0,
+                "replaces": extra.get("replaces", REPLACES[name]), "launches": 0,
                 "shape": shape, "dtype": dname, "max_abs_err": err, "ms": line["ms"],
                 "plain_ms": line["plain_ms"], "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": line["library_ms"]}
@@ -410,7 +429,7 @@ def e2e_kernel_cases(dtype, rng, gen):
                       lambda q=q, k=k, v=v, kb=kb: A._wide_reference(q, k, v, None, 0.125, H,
                                                                       kb),
                       sdpa, 4 * BT * n * W * isz + (BT * n * 4 if bias else 0),
-                      4 * BT * n * n * W))
+                      4 * BT * n * n * W, {"attn": (n, n, W // H)}))
     S_ = 577
     blk = ResidualAttentionBlock(W, 24, gen).to(dev, dtype)
     x = rn(BT, S_, W)
@@ -418,7 +437,7 @@ def e2e_kernel_cases(dtype, rng, gen):
                   lambda: R.fused_attn_ln2(x, blk, None, H),
                   lambda: R._attn_ln2_plain(blk, x, heads=H, mask=None), None,
                   (3 * BT * S_ * W + 4 * W * W + 8 * W) * isz,
-                  2 * BT * S_ * W * 4 * W + 4 * BT * S_ * S_ * W))
+                  2 * BT * S_ * W * 4 * W + 4 * BT * S_ * S_ * W, {"attn": (S_, S_, W // H)}))
     return cases
 
 
@@ -1236,7 +1255,9 @@ def profile_step(fn, path: Path, phase: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
     events = prof.key_averages()
-    table = events.table(sort_by="self_cuda_time_total", row_limit=40)
+    # names wide enough to tell a kernel's template instances apart
+    table = events.table(sort_by="self_cuda_time_total", row_limit=60,
+                         max_name_column_width=110)
     path.write_text(table)
     print(table, flush=True)
     # kernel time only, as the table's "Self CUDA time total" counts it

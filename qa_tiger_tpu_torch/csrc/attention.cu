@@ -26,13 +26,20 @@
 // at the packed route's [122880, 14, 64] about 7; at the ToMe and CLIP
 // image shapes (Sq = Sk up to 577) about 280. The design reads q, k and v
 // once per query tile and writes the context once, and never writes scores
-// or probabilities to device memory. Keys up to 128 are staged whole in
-// shared memory (one warp per query row); longer ones stream through shared
-// memory in 64-key tiles in two passes over the keys (row max and sum, then
-// the rounded probabilities and the context), register-tiled 64 x 64 per
-// block. Both run on fp32 FMAs out of shared memory; that instruction
-// stream, not HBM, is what limits this first version (PERF.md has its time
-// beside the bound).
+// or probabilities to device memory. qt_attention_route names the kernel a
+// call takes:
+// - bf16 without a keep mask, head size 32, 64 or 128, at least 16 queries
+//   and 16 keys (every bf16 call of the text tower, AVQ, the CLIP image tower
+//   and ToMe but its last layers): the tensor-core kernel, q·kᵀ and p·v on
+//   mma.sync with fp32 accumulation, K and V streamed by cp.async through a
+//   two-stage shared-memory ring in 64-key tiles; one pass up to 128 keys,
+//   two beyond (row max and sum, then the rounded probabilities and the
+//   context);
+// - every other call (fp32, the keep-masked train calls, PatchSelecter's
+//   14-key problems, the one-query calls): fp32 FMAs out of shared memory,
+//   keys up to 128 staged whole (one warp per query row), longer ones in
+//   64-key tiles in the same two passes, register-tiled 64 x 64 per block.
+// PERF.md has each route's time beside the bound.
 #include "common.cuh"
 
 namespace {
@@ -53,6 +60,12 @@ int run(const void* q, long long q_bs, long long q_ss, const void* k, long long 
 
 extern "C" const char* qt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// 1 where qt::attention takes the tensor-core kernel for such a call, 0
+// where it takes an FMA kernel; dtype 0 is float32, 1 bfloat16
+extern "C" int qt_attention_route(int dtype, int Sq, int Sk, int hd, int has_keep) {
+  return qt::attention_route(dtype == 1, Sq, Sk, hd, has_keep != 0);
 }
 
 extern "C" int qt_attention(int dtype, const void* q, long long q_bs, long long q_ss,

@@ -332,7 +332,10 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 // in fp32. mask is an optional additive fp32 [Sq, Sk]; key_bias an optional
 // fp32 [B, Sk] (ToMe's proportional attention, log of the token sizes).
 //
-// Two kernels, chosen by the key length:
+// Three kernels. bf16 calls without a keep mask, at head sizes 32, 64 and 128
+// and at least 16 queries and 16 keys, take the tensor-core kernel
+// (attention_mma_kernel, below; attention_route decides). Every other call
+// runs on fp32 FMAs, in one of two kernels chosen by the key length:
 // - Sk <= ATT_STAGED_MAX_SK (every call of the text tower, AVQ, TempMoE,
 //   QstGrounding, PatchSelecter and the last ToMe layers): one block per
 //   (batch element, head, tile of ATT_QROWS queries) stages all of K_h and
@@ -621,6 +624,393 @@ inline cudaError_t attention_tiled(const T* q, long long q_bs, long long q_ss, c
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core kernel (the mma route): q·kᵀ and p·v on
+// mma.sync.m16n8k16 (bf16 operands, fp32 accumulation), the same function
+// as the two FMA kernels above without a keep mask.
+//
+// One block of 4 warps owns 64 query rows of one (batch element, head); each
+// warp owns 16 rows, one m16 tile, whose Q fragments it reads once with
+// ldmatrix and keeps in registers. K and V stream through a two-stage ring
+// of 64-key tiles in shared memory: cp.async brings the next tile while the
+// current one computes. Rows are padded by 8 bf16 (16 bytes), so the eight
+// rows an ldmatrix phase reads fall in eight distinct 16-byte bank groups.
+//
+// The scores' epilogue runs on the accumulator fragments in registers, in the
+// FMA kernels' order: s * scale, + mask, + key_bias, -inf past Sk. The
+// softmax runs in base 2: scale * log2(e) is folded into one multiply of the
+// accumulator, mask and key_bias are added times log2(e), and exp(s - max)
+// is exp2f(s' - max'); that differs from the FMA kernels' expf by fp32
+// rounding only.
+//
+// The JAX rounding point is kept, p = round_bf16(exp(s - max) / sum) with the
+// row's global max and sum, so p is exactly a bf16 A operand: the fp32 score
+// fragment of m16n8k16's C layout is packed straight into the A layout of
+// the p·v product and never touches shared memory.
+//
+// Up to 128 keys (two tiles) one pass suffices: a warp's 16 x 128 scores stay
+// in registers, the row max and sum are shuffles over the 4 lanes that share
+// a row. Longer keys take two passes, as the tiled FMA kernel does: the first
+// computes the scores and each row's running max and rescaled sum; the
+// second recomputes the scores, forms the rounded p and accumulates p·v, so
+// q·kᵀ runs twice (1.5x the tensor work of a single-pass kernel; the price of
+// keeping the rounding point without rescaling rounded values).
+//
+// Needs 16-byte aligned q, k, v and out and batch and row strides that are
+// multiples of 8 elements (cp.async moves 16 bytes); a call that breaks that
+// returns cudaErrorInvalidValue.
+// ---------------------------------------------------------------------------
+constexpr int AM_Q = 64, AM_K = 64, AM_THREADS = 128, AM_PAD = 8;
+constexpr int ATT_MMA_MIN_SQ = 16, ATT_MMA_MIN_SK = 16;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The kernel qt::attention takes: the mma kernel for bf16 without a keep mask
+// at a head size it is built for and at least ATT_MMA_MIN_SQ queries and
+// ATT_MMA_MIN_SK keys; the FMA kernels otherwise.
+enum AttentionRoute { ATT_ROUTE_FMA = 0, ATT_ROUTE_MMA = 1 };
+
+inline AttentionRoute attention_route(bool bf16, int Sq, int Sk, int hd, bool has_keep) {
+  const bool head = hd == 32 || hd == 64 || hd == 128;
+  return bf16 && !has_keep && head && Sq >= ATT_MMA_MIN_SQ && Sk >= ATT_MMA_MIN_SK
+             ? ATT_ROUTE_MMA
+             : ATT_ROUTE_FMA;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled where !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a b for one m16n8k16 tile: bf16 a (16 x 16) and b (16 x 8), fp32 c
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 values rounded to bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int HD>
+constexpr size_t attention_mma_smem_bytes() {
+  // Q tile, then two stages of K and two of V
+  return sizeof(__nv_bfloat16) * (size_t)(AM_Q + 4 * AM_K) * (HD + AM_PAD);
+}
+
+// A thread's fragments, with g = lane / 4 and t = lane % 4: score s[j][e] is
+// row g + 8 (e / 2) of the warp's 16 and key 8 j + 2 t + e % 2 of the tile;
+// context o[n][e] is the same row and lane 8 n + 2 t + e % 2 of the head.
+template <int HD, bool ONE_PASS>
+__global__ void __launch_bounds__(AM_THREADS)
+attention_mma_kernel(const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_ss,
+                     const __nv_bfloat16* __restrict__ k, long long k_bs, long long k_ss,
+                     const __nv_bfloat16* __restrict__ v, long long v_bs, long long v_ss,
+                     __nv_bfloat16* __restrict__ out, long long o_bs, long long o_ss,
+                     const float* __restrict__ mask, const float* __restrict__ key_bias, int Sq,
+                     int Sk, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = HD + AM_PAD, KD = HD / 16, ND = HD / 8, CHUNKS = HD / 8;
+  static_assert(AM_Q == 64 && AM_K == 64 && (64 * CHUNKS) % AM_THREADS == 0,
+                "4 warps of 16 rows, 64-key tiles");
+  extern __shared__ __align__(16) unsigned char am_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(am_smem);  // [AM_Q][LD]
+  bf16* Ks = Qs + AM_Q * LD;                     // [2][AM_K][LD]
+  bf16* Vs = Ks + 2 * AM_K * LD;                 // [2][AM_K][LD]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ntiles = (Sq + AM_Q - 1) / AM_Q, nkt = (Sk + AM_K - 1) / AM_K;
+  const long long b = blockIdx.x / ntiles;
+  const int q0 = (blockIdx.x % ntiles) * AM_Q, h = blockIdx.y;
+  const long long col = (long long)h * HD;
+  const bf16* qh = q + b * q_bs + col;  // this head's columns
+  const bf16* kh = k + b * k_bs + col;
+  const bf16* vh = v + b * v_bs + col;
+  const float* kbias = key_bias ? key_bias + b * Sk : nullptr;
+  const int row0 = q0 + warp * 16 + g;  // this thread's first row; the second is row0 + 8
+  // a warp whose 16 rows all lie past Sq loads its share of the tiles and
+  // computes nothing
+  const bool live = q0 + warp * 16 < Sq;
+
+  // rows r0 .. r0 + 63 of one head's [*, HD] slice into a tile, zero past n
+  auto load_rows = [&](bf16* dst, const bf16* src, long long ss, int r0, int n) {
+#pragma unroll
+    for (int it = 0; it < 64 * CHUNKS / AM_THREADS; ++it) {
+      const int i = tid + it * AM_THREADS, r = i / CHUNKS, c = (i % CHUNKS) * 8;
+      const bool in = r0 + r < n;
+      cp_async16(dst + r * LD + c, in ? src + (long long)(r0 + r) * ss + c : src, in);
+    }
+  };
+
+  uint32_t qf[KD][4];
+  auto load_q_frags = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+  };
+
+  // the scores of key tile k0 (K in Kt) in base 2, -inf past Sk; only the
+  // last tile can pass Sk, so the others skip the bounds test
+  const float scale2 = scale * LOG2E;
+  auto scores = [&](const bf16* Kt, int k0, float (&s)[8][4]) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, Kt + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * jp], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], bk[2], bk[3]);
+      }
+    auto epilogue = [&](auto bounded) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = row0 + (e >> 1) * 8, kj = k0 + 8 * j + 2 * t4 + (e & 1);
+          float x = s[j][e] * scale2;
+          if (decltype(bounded)::value && kj >= Sk) {
+            x = -INFINITY;
+          } else {
+            if (mask && qi < Sq) x = fmaf(mask[(long long)qi * Sk + kj], LOG2E, x);
+            if (kbias) x = fmaf(kbias[kj], LOG2E, x);
+          }
+          s[j][e] = x;
+        }
+    };
+    if (k0 + AM_K <= Sk)
+      epilogue(std::false_type{});
+    else
+      epilogue(std::true_type{});
+  };
+
+  // o += p v over one key tile (V in Vt), p the tile's fp32 probabilities
+  // rounded to bf16 as they are packed into A fragments
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  auto pv = [&](const bf16* Vt, const float (&p)[8][4]) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint32_t pa[4] = {pack_bf16(p[2 * ks][0], p[2 * ks][1]),
+                              pack_bf16(p[2 * ks][2], p[2 * ks][3]),
+                              pack_bf16(p[2 * ks + 1][0], p[2 * ks + 1][1]),
+                              pack_bf16(p[2 * ks + 1][2], p[2 * ks + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, Vt + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+      }
+    }
+  };
+
+  if constexpr (ONE_PASS) {
+    // at most two key tiles: tile t in stage t, both resident at once
+    load_rows(Qs, qh, q_ss, q0, Sq);
+    load_rows(Ks, kh, k_ss, 0, Sk);
+    load_rows(Vs, vh, v_ss, 0, Sk);
+    cp_async_commit();
+    if (nkt > 1) {
+      load_rows(Ks + AM_K * LD, kh, k_ss, AM_K, Sk);
+      load_rows(Vs + AM_K * LD, vh, v_ss, AM_K, Sk);
+    }
+    cp_async_commit();
+    float s[2][8][4];
+    cp_async_wait<1>();
+    __syncthreads();
+    if (live) {
+      load_q_frags();
+      scores(Ks, 0, s[0]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!live) return;
+    if (nkt > 1) {
+      scores(Ks + AM_K * LD, AM_K, s[1]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[1][j][e] = -INFINITY;
+    }
+    float m[2], inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[tt][j][2 * r], s[tt][j][2 * r + 1]));
+      m[r] = quad_max(mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            const float p = exp2f(s[tt][j][e] - m[r]);
+            s[tt][j][e] = p;
+            sum += p;
+          }
+      inv[r] = 1.0f / quad_sum(sum);
+    }
+#pragma unroll
+    for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[tt][j][e] *= inv[e >> 1];
+    pv(Vs, s[0]);
+    if (nkt > 1) pv(Vs + AM_K * LD, s[1]);
+  } else {
+    // item i of 2 nkt: key tile i (pass 1: K only), then key tile i - nkt
+    // (pass 2: K and V), into stage i % 2
+    const int items = 2 * nkt;
+    auto fetch = [&](int i) {
+      const int st = (i & 1) * AM_K * LD, k0 = (i < nkt ? i : i - nkt) * AM_K;
+      load_rows(Ks + st, kh, k_ss, k0, Sk);
+      if (i >= nkt) load_rows(Vs + st, vh, v_ss, k0, Sk);
+    };
+    load_rows(Qs, qh, q_ss, q0, Sq);
+    fetch(0);
+    cp_async_commit();
+    // pass 1 keeps, per row, the running max and this thread's part of the
+    // sum rescaled to it; the row's sum is the 4 parts' total
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, inv[2] = {0.0f, 0.0f};
+    for (int i = 0; i < items; ++i) {
+      if (i + 1 < items) {
+        fetch(i + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (live) {
+        if (i == 0) load_q_frags();
+        const int st = (i & 1) * AM_K * LD, k0 = (i < nkt ? i : i - nkt) * AM_K;
+        float s[8][4];
+        scores(Ks + st, k0, s);
+        if (i < nkt) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+            const float mn = fmaxf(m[r], quad_max(mx));
+            if (mn == -INFINITY) continue;  // every key so far masked out
+            float part = l[r] * exp2f(m[r] - mn);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              part += exp2f(s[j][2 * r] - mn) + exp2f(s[j][2 * r + 1] - mn);
+            l[r] = part;
+            m[r] = mn;
+          }
+          if (i == nkt - 1) {
+            inv[0] = 1.0f / quad_sum(l[0]);
+            inv[1] = 1.0f / quad_sum(l[1]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = exp2f(s[j][e] - m[e >> 1]) * inv[e >> 1];
+          pv(Vs + st, s);
+        }
+      }
+      __syncthreads();  // stage i % 2 is refilled by the next iteration's fetch
+    }
+    if (!live) return;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= Sq) continue;
+    bf16* orow = out + b * o_bs + (long long)qi * o_ss + col + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+          __floats2bfloat162_rn(o[n][2 * r], o[n][2 * r + 1]);
+  }
+}
+
+template <int HD>
+inline cudaError_t attention_mma(const __nv_bfloat16* q, long long q_bs, long long q_ss,
+                                 const __nv_bfloat16* k, long long k_bs, long long k_ss,
+                                 const __nv_bfloat16* v, long long v_bs, long long v_ss,
+                                 __nv_bfloat16* out, long long o_bs, long long o_ss,
+                                 const float* mask, const float* key_bias, int B, int Sq, int Sk,
+                                 int heads, float scale, cudaStream_t stream) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  const long long strides = q_bs | q_ss | k_bs | k_ss | v_bs | v_ss | o_bs | o_ss;
+  if ((ptrs & 15) || (strides & 7)) return cudaErrorInvalidValue;
+  constexpr size_t smem = attention_mma_smem_bytes<HD>();
+  const bool one_pass = Sk <= 2 * AM_K;
+  auto kernel = one_pass ? attention_mma_kernel<HD, true> : attention_mma_kernel<HD, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (Sq + AM_Q - 1) / AM_Q;
+  kernel<<<dim3((unsigned)(B * ntiles), heads), AM_THREADS, smem, stream>>>(
+      q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, Sq, Sk,
+      scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T* k,
                              long long k_bs, long long k_ss, const T* v, long long v_bs,
@@ -629,6 +1019,20 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
                              float scale, cudaStream_t stream, const T* keep = nullptr,
                              long long keep_ld = 0, bool round_p_first = false,
                              const float* key_bias = nullptr) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  if constexpr (kBf16) {
+    if (attention_route(true, Sq, Sk, hd, keep != nullptr) == ATT_ROUTE_MMA) {
+#define QT_MMA(HD)                                                                            \
+  attention_mma<HD>(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask,      \
+                    key_bias, B, Sq, Sk, heads, scale, stream)
+      switch (hd) {
+        case 32: return QT_MMA(32);
+        case 64: return QT_MMA(64);
+        default: return QT_MMA(128);
+      }
+#undef QT_MMA
+    }
+  }
   if (Sk > ATT_STAGED_MAX_SK) {
 #define QT_TILED(HD)                                                                        \
   attention_tiled<T, HD>(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, \

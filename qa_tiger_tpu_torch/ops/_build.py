@@ -33,6 +33,8 @@ SIGNATURES = {
                      _P, _I, _I, _I, _I, _I, _F, _P],
     "qt_fused_attention": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
                            _I, _I, _I, _I, _F, _P],
+    # not a launcher: 1 where qt::attention takes the tensor-core kernel
+    "qt_attention_route": [_I, _I, _I, _I, _I],
     "qt_gaussian_moe": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _P],
     "qt_attn_ln2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -172,14 +174,16 @@ def launch_table(name: str, count_fn: str, names: list[str], bufs: dict, *args) 
 
 
 def dtype_code(t) -> int:
-    """0 for float32, 1 for bfloat16; the kernels take no other type."""
+    """0 for float32, 1 for bfloat16 (of a tensor or a dtype); the kernels
+    take no other type."""
     import torch
 
-    if t.dtype == torch.float32:
+    dtype = t if isinstance(t, torch.dtype) else t.dtype
+    if dtype == torch.float32:
         return 0
-    if t.dtype == torch.bfloat16:
+    if dtype == torch.bfloat16:
         return 1
-    raise TypeError(f"CUDA kernels take float32 or bfloat16, got {t.dtype}")
+    raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")
 
 
 def ptr(t) -> int | None:

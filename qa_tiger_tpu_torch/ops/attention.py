@@ -4,8 +4,11 @@
 Port of ``qa_tiger_tpu/ops/pallas/attention.py``: ``attention_wide``, with
 its optional per-(batch element, key) bias (ToMe's proportional attention),
 and ``fused_attention``. The CUDA kernels in ``csrc/attention.cu`` run for
-CUDA tensors (whole keys staged in shared memory up to 128 keys, 64-key
-tiles in two passes beyond), the plain versions for CPU tensors. On CUDA
+CUDA tensors, the plain versions for CPU tensors. On the card bf16 calls of
+at least 16 queries and 16 keys at head sizes 32, 64 and 128 take the
+tensor-core kernel, every other call an fp32 FMA kernel (whole keys staged
+in shared memory up to 128 keys, 64-key tiles in two passes beyond);
+``attention_route`` names the one a call takes. On CUDA
 the gradient is that of the plain version, recomputed (``ops/_grad.py``),
 the JAX ``custom_vjp`` rules: q, k, v, ``key_bias`` and a mask that
 requires grad get real cotangents.
@@ -19,6 +22,16 @@ from qa_tiger_tpu_torch.ops import _build, _grad
 # over this many keys the kernel streams them in tiles, for head sizes 32,
 # 64 and 128 only (csrc/common.cuh, ATT_STAGED_MAX_SK)
 STAGED_MAX_SK = 128
+
+
+def attention_route(dtype: torch.dtype, sq: int, sk: int, hd: int,
+                    has_keep: bool = False) -> str:
+    """The kernel the card's dispatch (``qt::attention``) takes for a call of
+    this dtype and shape: "mma" (tensor cores) or "fma". Asks the kernel
+    library, so it builds it on first use."""
+    code = _build.library().qt_attention_route(_build.dtype_code(dtype), sq, sk, hd,
+                                               int(has_keep))
+    return "mma" if code == 1 else "fma"
 
 
 def _wide_reference(q, k, v, mask, scale, heads, key_bias=None):

@@ -77,7 +77,8 @@ def test_attention_wide(cuda, dtype, sq, sk, masked):
 def test_attention_wide_long_keys_and_key_bias(cuda, dtype, n, bias, masked):
     """The ToMe and CLIP image shapes: q, k and v column slices of one
     packed qkv [B, N, 3W], 16 heads of 64, a key bias of log integer sizes
-    1-40. Over 128 keys the tiled kernel runs, at 27 the staged one."""
+    1-40. In fp32 the tiled FMA kernel runs over 128 keys, the staged one at
+    27; in bf16 the tensor-core kernel runs at all four."""
     rng = np.random.default_rng(7)
     W = 1024
     qkv = _rn(rng, 2, n, 3 * W, dtype=dtype)
@@ -95,12 +96,96 @@ def test_attention_wide_long_keys_and_key_bias(cuda, dtype, n, bias, masked):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_attn_ln2_clip_image_shape(cuda, dtype):
     """The CLIP ViT-L/14@336px block: 577 tokens, width 1024, 16 heads, no
-    mask (the tiled attention inside)."""
+    mask (the tensor-core attention inside in bf16, the tiled FMA kernel in
+    fp32)."""
     rng = np.random.default_rng(8)
     blk = ResidualAttentionBlock(1024, 24, torch.Generator().manual_seed(0)).to(cuda, dtype)
     x = _rn(rng, 2, 577, 1024, dtype=dtype)
+    assert A.attention_route(dtype, 577, 577, 64) == ("mma" if dtype == torch.bfloat16
+                                                      else "fma")
     _check(lambda: R.fused_attn_ln2(x, blk, None, 16),
            lambda: R._attn_ln2_plain(blk, x, heads=16, mask=None), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core route of qt::attention (bf16, no keep mask, Sq, Sk >= 16)
+# ---------------------------------------------------------------------------
+
+def _packed_qkv(rng, B, sq, sk, W, dtype, cuda, pad=0):
+    """q, k and v as column slices of one packed [B, max(sq, sk), 3W + pad]
+    buffer, as the models' fused projections give them."""
+    buf = _rn(rng, B, max(sq, sk), 3 * W + pad, dtype=dtype)
+    return buf[:, :sq, :W], buf[:, :sk, W:2 * W], buf[:, :sk, 2 * W:3 * W]
+
+
+def _causal(sq, sk, cuda):
+    return torch.triu(torch.full((sq, sk), float("-inf"), device=cuda), 1)
+
+
+@pytest.mark.parametrize("sq", [16, 17, 63, 65, 577])
+@pytest.mark.parametrize("sk", [16, 65, 127, 128, 129, 552, 577])
+@pytest.mark.parametrize("bias,masked", [(False, False), (True, False), (False, True),
+                                         (True, True)])
+def test_attention_mma_route(cuda, sq, sk, bias, masked):
+    """bf16 against the plain version at query and key lengths around the
+    64-row tiles, the one-pass limit (128 keys) and the raw-media shapes;
+    2 heads of 64, a key bias of log integer sizes, a causal mask."""
+    rng = np.random.default_rng(sq * 1000 + sk)
+    dt, B, H = torch.bfloat16, 2, 2
+    q, k, v = _packed_qkv(rng, B, sq, sk, 64 * H, dt, cuda)
+    kb = torch.from_numpy(np.log(rng.integers(1, 41, (B, sk))).astype(np.float32)).to(cuda) \
+        if bias else None
+    mask = _causal(sq, sk, cuda) if masked else None
+    assert A.attention_route(dt, sq, sk, 64) == "mma"
+    n = A.attention_wide.launches
+    _check(lambda: A.attention_wide(q, k, v, mask, 0.125, H, key_bias=kb),
+           lambda: A._wide_reference(q, k, v, mask, 0.125, H, kb), dt)
+    assert A.attention_wide.launches == n + 1
+
+
+@pytest.mark.parametrize("hd,sk", [(32, 77), (32, 300), (128, 77), (128, 300)])
+def test_attention_mma_route_head_sizes(cuda, hd, sk):
+    rng = np.random.default_rng(hd + sk)
+    dt, B, H, sq = torch.bfloat16, 2, 3, 70
+    q, k, v = _packed_qkv(rng, B, sq, sk, hd * H, dt, cuda)
+    assert A.attention_route(dt, sq, sk, hd) == "mma"
+    _check(lambda: A.attention_wide(q, k, v, None, hd ** -0.5, H),
+           lambda: A._wide_reference(q, k, v, None, hd ** -0.5, H), dt)
+
+
+def test_attention_route_rule(cuda):
+    """The route is a function of dtype, shape and a keep mask only."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert A.attention_route(bf, 16, 16, 64) == "mma"
+    assert A.attention_route(bf, 60, 77, 64) == "mma"
+    assert A.attention_route(bf, 577, 577, 64) == "mma"
+    assert A.attention_route(f32, 577, 577, 64) == "fma"          # fp32 parity route
+    assert A.attention_route(bf, 60, 77, 64, has_keep=True) == "fma"  # train dropout
+    assert A.attention_route(bf, 14, 14, 64) == "fma"   # PatchSelecter, packed route
+    assert A.attention_route(bf, 2, 14, 64) == "fma"
+    assert A.attention_route(bf, 1, 60, 64) == "fma"    # TempMoE, QstGrounding
+    assert A.attention_route(bf, 60, 15, 64) == "fma"
+    assert A.attention_route(bf, 60, 77, 48) == "fma"   # no mma build for hd 48
+
+
+def test_attention_mma_route_raises_on_misaligned_rows(cuda):
+    """A row stride that is not a multiple of 8 elements, or a base pointer
+    off 16 bytes, cannot feed cp.async: the mma route raises and does not
+    fall back to an FMA kernel; the fp32 route takes the same geometry."""
+    rng = np.random.default_rng(11)
+    q, k, v = _packed_qkv(rng, 2, 64, 64, 128, torch.bfloat16, cuda, pad=4)
+    assert q.stride(1) % 8 == 4
+    n = A.attention_wide.launches
+    with pytest.raises(RuntimeError, match="qt_attention"):
+        A.attention_wide(q, k, v, None, 0.125, 2)
+    buf = _rn(rng, 2, 64, 3 * 128 + 8, dtype=torch.bfloat16)
+    q2 = buf[..., 4:132]  # 8 bytes past a 16-byte boundary
+    with pytest.raises(RuntimeError, match="qt_attention"):
+        A.attention_wide(q2, buf[..., 132:260], buf[..., 260:388], None, 0.125, 2)
+    assert A.attention_wide.launches == n
+    q, k, v = _packed_qkv(rng, 2, 64, 64, 128, torch.float32, cuda, pad=4)
+    _check(lambda: A.attention_wide(q, k, v, None, 0.125, 2),
+           lambda: A._wide_reference(q, k, v, None, 0.125, 2), torch.float32)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -140,7 +225,8 @@ def test_fused_patch_select(cuda, dtype):
                                              (6, 150, 150, False)])
 def test_fused_attention(cuda, dtype, bh, sq, sk, masked):
     """The text tower's head-split shape (causal), the packed route's tiny
-    unmasked one, and keys past 128 (the tiled kernel)."""
+    unmasked one (an FMA kernel in both dtypes), and keys past 128 (the
+    tiled FMA kernel in fp32, the tensor-core kernel in bf16)."""
     rng = np.random.default_rng(9)
     q, k, v = (_rn(rng, bh, s, 64, dtype=dtype) for s in (sq, sk, sk))
     mask = causal_mask(sq, device=cuda) if masked else None
