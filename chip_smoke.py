@@ -21,13 +21,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bf16 and at a small fp32 shape, with their gradients and the mask
    cotangents of the four wrappers that give one; prints kernel, plain and
    library times beside the card's bound, the kernel's achieved TFLOP/s,
-   and, for each kernel that runs ``qt::attention``, the route its
-   dispatch took ("mma": bf16 tensor cores, "fma": fp32 FMAs);
+   for each kernel that runs ``qt::attention`` the route its dispatch took
+   ("mma": bf16 tensor cores, "fma": fp32 FMAs), and for fused_attn_ln2,
+   fused_attn_half and fused_patch_select the GEMM routine of their
+   products ("wgmma": gemm_sm90, "wmma"/"fma": gemm_tile); then the Hopper
+   GEMM alone at every distinct product shape of the four paths, against
+   its plain version, timed beside its bound and ``torch.matmul``;
 4. serving — the Predictor at configs/qa-tiger/vitl14.py with weights from
    a seed: (a) fp32 logits at B=4 against the same state_dict run through
    the plain versions on the CPU; (b) the bf16 B=256 path through
    ``answer``, with every launch counter reset just before and read just
-   after, then qa/s from the median of timed forwards; (c) 8 requests
+   after (every product of fused_attn_ln2 and fused_patch_select on
+   gemm_sm90), then qa/s from the median of timed forwards; (c) 8 requests
    answered, their top-5 answer names printed;
 5. training — AVQARunner at the same config: (a) one fp32 B=4 step with
    dropout off, card against CPU (loss, updated parameters, gradients);
@@ -38,7 +43,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    vit_large_patch16_384 at r=[25]*23, VGGish, the QA-TIGER config):
    (a) fp32 B=1 x T=2 card against CPU (streams, logits, every ToMe
    matching); (b) bf16 B=2 x T=60 through ``e2e_forward`` with the launch
-   counters reset around one forward, then videos/s from the median of 10;
+   counters reset around one forward (every product of fused_attn_ln2 and
+   fused_patch_select on gemm_sm90), then videos/s from the median of 10;
    (c) the extraction stages' per-video encoders on one 60-frame video;
 7. bench_resblock — ``python -m qa_tiger_tpu_torch.bench_resblock`` at its
    defaults (B=256, S=77, W=768, bf16, causal) for ``attn_half`` and
@@ -183,6 +189,7 @@ def kernel_cases(dtype, B: int, rng, gen):
     from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock, causal_mask
     from qa_tiger_tpu_torch.models.modules import PatchSelecter
     from qa_tiger_tpu_torch.ops import attention as A
+    from qa_tiger_tpu_torch.ops import gemm as GM
     from qa_tiger_tpu_torch.ops import gaussian_moe as G
     from qa_tiger_tpu_torch.ops import patch_select as PS
     from qa_tiger_tpu_torch.ops import resblock as R
@@ -205,7 +212,7 @@ def kernel_cases(dtype, B: int, rng, gen):
     cases.append(("fused_attn_ln2", f"x[{B},{S},{W}] causal h{H}",
                   lambda: R.fused_attn_ln2(x, blk, mask, H),
                   lambda: R._attn_ln2_plain(blk, x, heads=H, mask=mask), None, nbytes, flops,
-                  {"attn": (S, S, W // H)}))
+                  {"attn": (S, S, W // H), "gemm": GM.attn_gemm_shapes(B * S, W)}))
 
     # attention: AVQ question (60 x 77), self and cross (60 x 60) over the 2B
     # batch; TempMoE (1 x 60) and QstGrounding (1 x 2) over B
@@ -236,7 +243,7 @@ def kernel_cases(dtype, B: int, rng, gen):
     cases.append(("fused_patch_select", f"patch[{B},{T},{P},{D}] h{heads}",
                   lambda: PS.fused_patch_select(patch, audio, video, ps, heads),
                   lambda: PS.patch_selecter_plain(ps, patch, audio, video, nhead=heads),
-                  None, nbytes, flops))
+                  None, nbytes, flops, {"gemm": GM.patch_select_gemm_shapes(BT, P, D)}))
 
     # TempMoE: audio over B rows, both visual streams over 2B rows
     E, Hd = 7, D // 2
@@ -269,6 +276,7 @@ def op_kernel_cases(dtype, B: int, rng, gen):
 
     from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock, causal_mask
     from qa_tiger_tpu_torch.ops import attention as A
+    from qa_tiger_tpu_torch.ops import gemm as GM
     from qa_tiger_tpu_torch.ops import resblock as R
 
     dev, dh = "cuda", 64
@@ -309,7 +317,7 @@ def op_kernel_cases(dtype, B: int, rng, gen):
                   lambda: R.fused_attn_half(x, blk, mask, H),
                   lambda: R._attn_half_flat(x, *R._attn_params(blk), heads=H, mask=mask), None,
                   (2 * B * S * W + 4 * W * W + 6 * W) * isz + S * S * 4, attn_flops,
-                  {"attn": (S, S, W // H)}))
+                  {"attn": (S, S, W // H), "gemm": GM.attn_gemm_shapes(B * S, W)}))
     cases.append(("fused_resblock", f"x[{B},{S},{W}] causal h{H}",
                   lambda: R.fused_resblock(x, blk, mask, H),
                   lambda: R._resblock_flat(x, *R._resblock_params(blk), heads=H, mask=mask),
@@ -327,10 +335,13 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
     A case's optional eighth item is a dict: ``replaces`` (the Pallas call,
     where it is not the kernel's own in REPLACES) and ``attn`` ((Sq, Sk, hd)
     of the ``qt::attention`` call inside the kernel, whose route, "mma" or
-    "fma", the line then names)."""
+    "fma", the line then names) and ``gemm`` ((M, N, K) of the kernel's
+    products, whose GEMM routine, "wgmma", "wmma" or "fma", the line and the
+    table entry name)."""
     import torch
 
     from qa_tiger_tpu_torch.ops import attention as A
+    from qa_tiger_tpu_torch.ops import gemm as GM
 
     name, shape, kernel, plain, library, nbytes, flops, *rest = case
     extra = rest[0] if rest else {}
@@ -345,6 +356,9 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
             "tolerance": tol * max(1.0, scale), "ok": ok}
     if "attn" in extra:
         line["route"] = A.attention_route(dtype, *extra["attn"])
+    if "gemm" in extra:
+        routes = sorted({GM.gemm_route(dtype, *mnk) for mnk in extra["gemm"]})
+        line["gemm_route"] = routes[0] if len(routes) == 1 else routes
     if timed:
         b_ms, b_by = bound(nbytes, flops, dname)
         line.update(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
@@ -358,6 +372,8 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
                 "shape": shape, "dtype": dname, "max_abs_err": err, "ms": line["ms"],
                 "plain_ms": line["plain_ms"], "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": line["library_ms"]}
+            if "gemm" in extra:
+                entries[name].update(gemm_route=line["gemm_route"], tflops=line["tflops"])
     print(json.dumps(line), flush=True)
     require(ok, f"{name} {dname} {shape}: max|k-p| {err:.3e} over tolerance")
 
@@ -391,6 +407,86 @@ def check_op_kernels(entries: dict) -> None:
             torch.cuda.empty_cache()
 
 
+def path_gemm_shapes() -> dict:
+    """Every distinct (M, N, K) product of fused_attn_ln2, fused_attn_half
+    and fused_patch_select on the four paths, with the paths that launch it:
+    the text tower at B=256 (serving, bench_resblock), 32 (train, the bf16
+    tower) and 2 (raw media), the CLIP image tower over 120 frames, and
+    PatchSelecter over 256 x 60 (serving) and 2 x 60 (raw media) frames."""
+    from qa_tiger_tpu_torch.ops import gemm as GM
+
+    shapes = {}
+    for path, mnks in (
+            ("serving", GM.attn_gemm_shapes(256 * S, 768)
+             + GM.patch_select_gemm_shapes(256 * T, P, 512)),
+            ("train", GM.attn_gemm_shapes(32 * S, 768)),
+            ("e2e", GM.attn_gemm_shapes(2 * T * 577, 1024) + GM.attn_gemm_shapes(2 * S, 768)
+             + GM.patch_select_gemm_shapes(2 * T, P, 512)),
+            ("bench_resblock", GM.attn_gemm_shapes(256 * S, 768))):
+        for mnk in mnks:
+            paths = shapes.setdefault(mnk, [])
+            if path not in paths:
+                paths.append(path)
+    return shapes
+
+
+def check_gemms() -> list:
+    """Phase 3 for the Hopper GEMM under the fused bf16 kernels: at each
+    distinct product shape of the paths, ``gemm_sm90`` (through the bias
+    epilogue, bf16 out) against its plain version (the fp32 product of the
+    same bf16 operands, rounded), timed beside its bound and beside
+    ``torch.matmul`` on the same operands (``library_ms``, a yardstick the
+    port never calls). One line per shape; returns them."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import gemm as GM
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    lines = []
+    with torch.inference_mode():
+        for (m, n, k), paths in sorted(path_gemm_shapes().items()):
+            a = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+            b = (torch.randn(n, k, device="cuda", generator=gen) * k ** -0.5).bfloat16()
+            bias = torch.randn(n, device="cuda", generator=gen).bfloat16()
+            route = GM.gemm_route(torch.bfloat16, m, n, k)
+            got, want = GM.gemm_sm90(a, b, bias=bias), GM.gemm_plain(a, b, bias=bias)
+            torch.cuda.synchronize()
+            err, scale = max_err(got, want)
+            del got, want
+            flops = 2 * m * n * k
+            b_ms, b_by = bound((m * k + n * k + n + m * n) * 2, flops, "bfloat16")
+            line = {"gemm": f"{m}x{n}x{k}", "paths": paths, "route": route,
+                    "max_abs_err": err, "max_abs_plain": scale,
+                    "tolerance": BF16_TOL * max(1.0, scale),
+                    "ms": cuda_ms(lambda a=a, b=b, bias=bias: GM.gemm_sm90(a, b, bias=bias)),
+                    "plain_ms": cuda_ms(lambda a=a, b=b, bias=bias: GM.gemm_plain(a, b,
+                                                                                 bias=bias)),
+                    "library_ms": cuda_ms(lambda a=a, b=b: torch.matmul(a, b.t())),
+                    "bound_ms": b_ms, "bound_by": b_by}
+            line["tflops"] = flops / line["ms"] * 1e-9
+            line["ok"] = err <= line["tolerance"]
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            require(route == "wgmma", f"gemm {m}x{n}x{k}: route {route}, expected wgmma")
+            require(line["ok"], f"gemm_sm90 {m}x{n}x{k}: max|k-p| {err:.3e} over tolerance")
+            del a, b
+        torch.cuda.empty_cache()
+    return lines
+
+
+def require_wgmma(counts_phase: str) -> None:
+    """Every product the bf16 calls of fused_attn_ln2 and fused_patch_select
+    launched since the counters were reset went through gemm_sm90."""
+    from qa_tiger_tpu_torch import ops
+
+    routes = {name: dict(ops.KERNELS[name].gemm_routes)
+              for name in ("fused_attn_ln2", "fused_patch_select")}
+    print(json.dumps({"phase": counts_phase, **routes}), flush=True)
+    for name, tally in routes.items():
+        require(bool(tally) and set(tally) == {"wgmma"},
+                f"{counts_phase}: {name}'s products took {tally}, expected wgmma only")
+
+
 def e2e_kernel_cases(dtype, rng, gen):
     """The kernel cases at the raw-media forward's shapes, B*T = 120
     frames: ToMe's key-bias attention at layer 1 (552 tokens) and layer 22
@@ -402,6 +498,7 @@ def e2e_kernel_cases(dtype, rng, gen):
 
     from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock
     from qa_tiger_tpu_torch.ops import attention as A
+    from qa_tiger_tpu_torch.ops import gemm as GM
     from qa_tiger_tpu_torch.ops import resblock as R
 
     dev, BT, W, H = "cuda", 2 * T, 1024, 16
@@ -437,7 +534,8 @@ def e2e_kernel_cases(dtype, rng, gen):
                   lambda: R.fused_attn_ln2(x, blk, None, H),
                   lambda: R._attn_ln2_plain(blk, x, heads=H, mask=None), None,
                   (3 * BT * S_ * W + 4 * W * W + 8 * W) * isz,
-                  2 * BT * S_ * W * 4 * W + 4 * BT * S_ * S_ * W, {"attn": (S_, S_, W // H)}))
+                  2 * BT * S_ * W * 4 * W + 4 * BT * S_ * S_ * W,
+                  {"attn": (S_, S_, W // H), "gemm": GM.attn_gemm_shapes(BT * S_, W)}))
     return cases
 
 
@@ -824,6 +922,7 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> dict:
     print(json.dumps({"phase": "main_path_launches", **counts}), flush=True)
     for name, n in expected.items():
         require(counts[name] == n, f"{name}: {counts[name]} launches, expected {n}")
+    require_wgmma("main_path_gemm_routes")
     require(counts["attention_wide"] >= 3, "attention_wide: fewer than 3 launches")
     for name in EVAL_KERNELS:
         entries[name]["launches"] = counts[name]
@@ -962,6 +1061,9 @@ def check_train(rng, entries: dict, profile_dir: Path | None) -> dict:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     print(json.dumps({"phase": "train_step_launches", **counts}), flush=True)
+    print(json.dumps({"phase": "train_step_gemm_routes",
+                      "fused_attn_ln2": dict(ops.KERNELS["fused_attn_ln2"].gemm_routes)}),
+          flush=True)
     for name, n in TRAIN_KERNELS.items():
         require(counts[name] == n, f"train step: {name} launched {counts[name]} times, "
                                    f"expected {n}")
@@ -1139,6 +1241,7 @@ def check_e2e_bf16(rng, profile_dir: Path | None) -> dict:
     for name, n in E2E_KERNELS.items():
         require(counts[name] == n, f"raw-media forward: {name} launched {counts[name]} times, "
                                    f"expected {n}")
+    require_wgmma("e2e_gemm_routes")
     require(tuple(logits.shape) == (B, 42) and bool(torch.isfinite(logits).all()),
             "the bf16 raw-media logits are not finite [2, 42]")
     torch.cuda.reset_peak_memory_stats()
@@ -1304,6 +1407,7 @@ def main() -> int:
         entries = check_kernels(rng, gen)
         check_e2e_kernels(rng, gen, entries)
         check_op_kernels(entries)
+        check_gemms()
         check_slice1_grads(rng, gen)
         check_train_kernels(rng, gen, entries)
         paths = {"serving": check_slice(rng, entries, args.profile),

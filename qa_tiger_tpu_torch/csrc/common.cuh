@@ -225,15 +225,20 @@ template <typename T> struct RoundColLoad {  // A(m, k) = round_T(a[k * lda + m]
 };
 
 // Epilogues ---------------------------------------------------------------
+// EpiBias, EpiResidual and EpiF32 also give value(m, n, acc), the fp32 value
+// that operator() rounds into out[m * ldo + n], so that gemm_sm90 can store
+// two adjacent columns at once with the same arithmetic.
 template <typename T> struct EpiBias {  // out = round_T(act(acc + bias)); bias may be null
   T* out;
   long long ldo;
   const T* bias;
   bool relu;
-  __device__ void operator()(int m, int n, float acc) const {
+  __device__ float value(int m, int n, float acc) const {
     float v = bias ? acc + to_f<T>(bias[n]) : acc;
-    if (relu) v = fmaxf(v, 0.0f);
-    out[(long long)m * ldo + n] = from_f<T>(v);
+    return relu ? fmaxf(v, 0.0f) : v;
+  }
+  __device__ void operator()(int m, int n, float acc) const {
+    out[(long long)m * ldo + n] = from_f<T>(value(m, n, acc));
   }
 };
 
@@ -255,9 +260,12 @@ template <typename T> struct EpiResidual {  // out = res + round_T(acc + bias); 
   const T* bias;
   const T* res;
   long long ldr;
-  __device__ void operator()(int m, int n, float acc) const {
+  __device__ float value(int m, int n, float acc) const {
     const float v = round_t<T>(bias ? acc + to_f<T>(bias[n]) : acc);
-    out[(long long)m * ldo + n] = from_f<T>(to_f<T>(res[(long long)m * ldr + n]) + v);
+    return to_f<T>(res[(long long)m * ldr + n]) + v;
+  }
+  __device__ void operator()(int m, int n, float acc) const {
+    out[(long long)m * ldo + n] = from_f<T>(value(m, n, acc));
   }
 };
 
@@ -295,8 +303,9 @@ template <typename T> struct EpiF32 {  // out (fp32) = acc + bias
   float* out;
   long long ldo;
   const T* bias;
+  __device__ float value(int, int n, float acc) const { return acc + to_f<T>(bias[n]); }
   __device__ void operator()(int m, int n, float acc) const {
-    out[(long long)m * ldo + n] = acc + to_f<T>(bias[n]);
+    out[(long long)m * ldo + n] = value(m, n, acc);
   }
 };
 

@@ -7,17 +7,21 @@
 //
 // Bound on the H100: operations. At B=256, T=60, P=14, D=512 the patch-row
 // projections (qkv, out_proj, kv) are 12*BT*P*D^2 = 677 GFLOP of the
-// module's ~731; attention over 14 keys is under 1% of it. Nine
-// launches, all written here: five GEMMs on bf16 tensor cores over the
-// BT*P patch rows and 2*BT query rows (fp32 FMAs for fp32), two launches of
-// attention.cu's device code (self: 14 queries x 14 keys per frame and head;
-// cross: 2 queries x 14 keys), and one LayerNorm launch that splits the
-// interleaved (video, audio) rows into the two outputs. The TPU kernel's
+// module's ~731; attention over 14 keys is under 1% of it. Eleven
+// launches in bf16 (ten in fp32), all written here: seven GEMMs over the BT*P patch rows and 2*BT
+// query rows (in bf16 gemm_sm90 of gemm_sm90.cuh, TMA + wgmma, where
+// gemm_route gives it; in fp32 gemm_tile's FMA loop), one copy that
+// interleaves the (video, audio) query rows into the ctx2 scratch for the
+// query GEMM's TMA loads (in fp32 the GEMM's loader interleaves them), two
+// launches of attention.cu's device code (self: 14 queries x 14 keys per
+// frame and head; cross: 2 queries x 14 keys, which overwrites ctx2 only
+// after the query GEMM has read it), and one LayerNorm launch that splits
+// the interleaved (video, audio) rows into the two outputs. The TPU kernel's
 // block-diagonal frame packing is not needed: a block owns one frame and
 // head, so no score is computed across frames. Intermediates make one HBM
 // round trip each, which the Pallas kernel avoided; fusing them is later
 // work.
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -45,37 +49,45 @@ cudaError_t run(const T* patch, const T* video, const T* audio, const T* slf_w,
 #define QT_CHECK()                                   \
   if ((err = cudaGetLastError()) != cudaSuccess) return err
   // self-attention over each frame's P patches, out_proj + residual
-  qt::gemm<T, true>(qt::RowLoad<T>{patch, D}, slf_w, D, M, 3 * D, D,
-                    qt::EpiBias<T>{qkv, 3LL * D, slf_b, false}, stream);
-  QT_CHECK();
+  err = qt::gemm_rows<T>(patch, D, slf_w, D, M, 3 * D, D,
+                         qt::EpiBias<T>{qkv, 3LL * D, slf_b, false}, stream);
+  if (err != cudaSuccess) return err;
   const long long fs = 3LL * P * D;
   err = qt::attention<T>(qkv, fs, 3LL * D, qkv + D, fs, 3LL * D, qkv + 2 * D, fs, 3LL * D, ctx,
                          (long long)P * D, D, nullptr, BT, P, P, heads, hd, scale, stream);
   if (err != cudaSuccess) return err;
-  qt::gemm<T, true>(qt::RowLoad<T>{ctx, D}, slf_ow, D, M, D, D,
-                    qt::EpiResidual<T>{x1, D, slf_ob, patch, D}, stream);
-  QT_CHECK();
+  err = qt::gemm_rows<T>(ctx, D, slf_ow, D, M, D, D,
+                         qt::EpiResidual<T>{x1, D, slf_ob, patch, D}, stream);
+  if (err != cudaSuccess) return err;
   // cross-attention: keys/values from the patches, 2 queries per frame
-  qt::gemm<T, true>(qt::RowLoad<T>{x1, D}, crs_w + (long long)D * D, D, M, 2 * D, D,
-                    qt::EpiBias<T>{kv, 2LL * D, crs_b + D, false}, stream);
-  QT_CHECK();
-  qt::gemm<T, true>(PairLoad<T>{video, audio, D}, crs_w, D, Q, D, D,
-                    qt::EpiBias<T>{q, D, crs_b, false}, stream);
-  QT_CHECK();
+  err = qt::gemm_rows<T>(x1, D, crs_w + (long long)D * D, D, M, 2 * D, D,
+                         qt::EpiBias<T>{kv, 2LL * D, crs_b + D, false}, stream);
+  if (err != cudaSuccess) return err;
+  const qt::EpiBias<T> to_q{q, D, crs_b, false};
+  if (qt::gemm_route(std::is_same<T, __nv_bfloat16>::value, Q, D, D) == qt::GEMM_ROUTE_WGMMA) {
+    const long long n = 2LL * BT * D;
+    qt::interleave_rows_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        video, audio, ctx2, BT, D);
+    QT_CHECK();
+    err = qt::gemm_rows<T>(ctx2, D, crs_w, D, Q, D, D, to_q, stream);
+    if (err != cudaSuccess) return err;
+  } else {
+    qt::gemm<T, true>(PairLoad<T>{video, audio, D}, crs_w, D, Q, D, D, to_q, stream);
+    QT_CHECK();
+  }
   const long long ks = 2LL * P * D;
   err = qt::attention<T>(q, 2LL * D, D, kv, ks, 2LL * D, kv + D, ks, 2LL * D, ctx2, 2LL * D, D,
                          nullptr, BT, 2, P, heads, hd, scale, stream);
   if (err != cudaSuccess) return err;
-  qt::gemm<T, true>(qt::RowLoad<T>{ctx2, D}, crs_ow, D, Q, D, D,
-                    qt::EpiBias<T>{crs, D, crs_ob, false}, stream);
-  QT_CHECK();
+  err = qt::gemm_rows<T>(ctx2, D, crs_ow, D, Q, D, D, qt::EpiBias<T>{crs, D, crs_ob, false},
+                         stream);
+  if (err != cudaSuccess) return err;
   // MLP; its output stays fp32 into the per-stream LayerNorm
-  qt::gemm<T, true>(qt::RowLoad<T>{crs, D}, mlp_w1, D, Q, Dh, D,
-                    qt::EpiBias<T>{hid, Dh, mlp_b1, true}, stream);
-  QT_CHECK();
-  qt::gemm<T, true>(qt::RowLoad<T>{hid, Dh}, mlp_w2, Dh, Q, D, Dh,
-                    qt::EpiF32<T>{outf, D, mlp_b2}, stream);
-  QT_CHECK();
+  err = qt::gemm_rows<T>(crs, D, mlp_w1, D, Q, Dh, D, qt::EpiBias<T>{hid, Dh, mlp_b1, true},
+                         stream);
+  if (err != cudaSuccess) return err;
+  err = qt::gemm_rows<T>(hid, Dh, mlp_w2, Dh, Q, D, Dh, qt::EpiF32<T>{outf, D, mlp_b2}, stream);
+  if (err != cudaSuccess) return err;
   qt::layer_norm_kernel<float, T><<<qt::ln_blocks(Q), qt::LN_WARPS * 32, 0, stream>>>(
       outf, Q, D, 2, vnorm_w, vnorm_b, v_out, anorm_w, anorm_b, a_out);
   return cudaGetLastError();

@@ -15,12 +15,16 @@
 // ~100 MB of x, y, h and weights; the MLP half's two GEMMs 16*B*S*W^2 =
 // 186 GFLOP against ~70 MB of x, y and weights. The attention half is four
 // launches (five with h), all written here:
-//   1. row statistics of x (fp32 mean and 1/std);
-//   2. GEMM against in_proj [3W, W] on bf16 tensor cores whose A load applies
-//      ln_1 and rounds to the activation type, plus bias -> qkv;
+//   1. ln_1: in bf16 (the wgmma route of gemm_route) round_T(ln_1(x)) written
+//      to the ctx scratch, which the attention overwrites only after step 2
+//      has read it; in fp32 the row statistics of x (mean and 1/std);
+//   2. GEMM against in_proj [3W, W], plus bias -> qkv: in bf16 gemm_sm90
+//      (gemm_sm90.cuh: TMA + wgmma) on the staged rows; in fp32 gemm_tile's
+//      FMA loop, whose A load applies ln_1 (the same expression, rounded);
 //   3. the causal attention of attention.cu's device code, reading q, k and
 //      v as column slices of qkv -> ctx;
-//   4. GEMM against out_proj plus bias plus the residual -> y;
+//   4. GEMM against out_proj plus bias plus the residual -> y (gemm_sm90 in
+//      bf16, gemm_tile in fp32);
 //   5. (qt_attn_ln2 only) ln_2 over y -> h.
 // The MLP half is three:
 //   1. row statistics of x;
@@ -33,7 +37,7 @@
 // MLP half, ~240 MB). At the card's peak rates that traffic would take about
 // as long as the GEMMs themselves, so keeping it on chip is the first thing
 // a faster version needs; against this version's GEMM time it is small.
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -44,23 +48,32 @@ cudaError_t attn(const T* x, const T* ln1w, const T* ln1b, const T* wqkv, const 
                  T* y, T* h, T* qkv, T* ctx, float* stats, int B, int S, int W, int heads,
                  cudaStream_t stream) {
   const int M = B * S, hd = W / heads;
-  float* mean = stats;
-  float* rstd = stats + M;
-  qt::row_stats_kernel<T><<<qt::ln_blocks(M), qt::LN_WARPS * 32, 0, stream>>>(x, W, M, W, mean,
-                                                                               rstd);
-  cudaError_t err = cudaGetLastError();
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  const qt::EpiBias<T> to_qkv{qkv, 3LL * W, bqkv, false};
+  cudaError_t err;
+  if (qt::gemm_route(kBf16, M, 3 * W, W) == qt::GEMM_ROUTE_WGMMA) {
+    qt::layer_norm_kernel<T, T><<<qt::ln_blocks(M), qt::LN_WARPS * 32, 0, stream>>>(
+        x, M, W, 1, ln1w, ln1b, ctx, nullptr, nullptr, nullptr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = qt::gemm_rows<T>(ctx, W, wqkv, W, M, 3 * W, W, to_qkv, stream);
+  } else {
+    float* mean = stats;
+    float* rstd = stats + M;
+    qt::row_stats_kernel<T><<<qt::ln_blocks(M), qt::LN_WARPS * 32, 0, stream>>>(x, W, M, W,
+                                                                                 mean, rstd);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    qt::gemm<T, true>(qt::LnRowLoad<T>{x, W, mean, rstd, ln1w, ln1b}, wqkv, W, M, 3 * W, W,
+                      to_qkv, stream);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
-  qt::gemm<T, true>(qt::LnRowLoad<T>{x, W, mean, rstd, ln1w, ln1b}, wqkv, W, M, 3 * W, W,
-                    qt::EpiBias<T>{qkv, 3LL * W, bqkv, false}, stream);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const long long bs = 3LL * S * W;
   err = qt::attention<T>(qkv, bs, 3LL * W, qkv + W, bs, 3LL * W, qkv + 2 * W, bs, 3LL * W, ctx,
                          (long long)S * W, W, mask, B, S, S, heads, hd,
                          1.0f / sqrtf((float)hd), stream);
   if (err != cudaSuccess) return err;
-  qt::gemm<T, true>(qt::RowLoad<T>{ctx, W}, wout, W, M, W, W,
-                    qt::EpiResidual<T>{y, W, bout, x, W}, stream);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = qt::gemm_rows<T>(ctx, W, wout, W, M, W, W, qt::EpiResidual<T>{y, W, bout, x, W}, stream);
+  if (err != cudaSuccess) return err;
   if (!h) return cudaSuccess;
   qt::layer_norm_kernel<T, T><<<qt::ln_blocks(M), qt::LN_WARPS * 32, 0, stream>>>(
       y, M, W, 1, ln2w, ln2b, h, nullptr, nullptr, nullptr);
@@ -129,4 +142,41 @@ extern "C" int qt_mlp_half(int dtype, const void* x, const void* ln2w, const voi
   QT_DISPATCH(mlp<T>(QT_P(T, x), QT_P(T, ln2w), QT_P(T, ln2b), QT_P(T, wfc), QT_P(T, bfc),
                      QT_P(T, wpj), QT_P(T, bpj), static_cast<T*>(y), static_cast<T*>(hidden),
                      static_cast<float*>(stats), rows, W, Hd, static_cast<cudaStream_t>(stream)))
+}
+
+// which GEMM routine a fused kernel takes for one [M, K] x [N, K] product:
+// 0 gemm_tile's fp32 FMA loop, 1 gemm_tile's WMMA loop, 2 gemm_sm90; dtype 0
+// is float32, 1 bfloat16 (gemm_sm90.cuh, gemm_route)
+extern "C" int qt_gemm_route(int dtype, int M, int N, int K) {
+  return qt::gemm_route(dtype == 1, M, N, K);
+}
+
+// gemm_sm90 alone, bf16: C = A B^T, A [M, K] (row stride lda), B [N, K]
+// (row stride ldb), through one epilogue: 0 EpiBias (out bf16 [M, N] row
+// stride ldo, bias may be null, relu 0/1), 1 EpiResidual (out = res +
+// round(acc + bias)), 2 EpiF32 (out fp32 = acc + bias)
+extern "C" int qt_gemm_sm90(int epilogue, const void* a, long long lda, const void* b,
+                            long long ldb, void* out, long long ldo, const void* bias,
+                            const void* res, long long ldr, int relu, int M, int N, int K,
+                            void* stream) {
+  using bf16 = __nv_bfloat16;
+  const bf16* A = static_cast<const bf16*>(a);
+  const bf16* B = static_cast<const bf16*>(b);
+  const bf16* bi = static_cast<const bf16*>(bias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (epilogue) {
+    case 0:
+      return qt::gemm_sm90(A, lda, B, ldb, M, N, K,
+                           qt::EpiBias<bf16>{static_cast<bf16*>(out), ldo, bi, relu != 0}, st);
+    case 1:
+      return qt::gemm_sm90(A, lda, B, ldb, M, N, K,
+                           qt::EpiResidual<bf16>{static_cast<bf16*>(out), ldo, bi,
+                                                 static_cast<const bf16*>(res), ldr},
+                           st);
+    case 2:
+      return qt::gemm_sm90(A, lda, B, ldb, M, N, K,
+                           qt::EpiF32<bf16>{static_cast<float*>(out), ldo, bi}, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

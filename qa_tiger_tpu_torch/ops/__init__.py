@@ -9,7 +9,10 @@ run under autograd, from the ``torch.autograd.Function`` of their forward.
 ``attention_wide`` (ToMe), which ``attention_wide`` counts as well.
 ``fused_attn_half`` counts every attention-half launch, those that
 ``fused_resblock`` makes included; ``fused_resblock`` counts its MLP-half
-launches.
+launches. ``gemm_route`` names the GEMM routine (``gemm_sm90`` or
+``gemm_tile``) a fused kernel's product takes on the card;
+``fused_attn_ln2``, ``fused_attn_half`` and ``fused_patch_select`` tally
+the route of each product they launch in ``gemm_routes``.
 """
 from qa_tiger_tpu_torch.ops.attention import (
     attention_wide,
@@ -18,6 +21,7 @@ from qa_tiger_tpu_torch.ops.attention import (
 )
 from qa_tiger_tpu_torch.ops.avq import fused_avq_train, fused_avq_train_bwd
 from qa_tiger_tpu_torch.ops.gaussian_moe import fused_gaussian_moe
+from qa_tiger_tpu_torch.ops.gemm import gemm_route
 from qa_tiger_tpu_torch.ops.patch_select import (
     fused_patch_select,
     fused_patch_select_train,
@@ -42,8 +46,12 @@ KERNELS = {
 
 
 def reset_launches() -> None:
+    """Sets every ``launches`` counter to 0 and clears the ``gemm_routes``
+    tallies of the kernels that keep one."""
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "gemm_routes"):
+            fn.gemm_routes = {}
 
 
 def launch_counts() -> dict:
@@ -53,5 +61,5 @@ def launch_counts() -> dict:
 __all__ = ["KERNELS", "attention_wide", "attention_wide_key_bias", "fused_attention",
            "fused_attn_half", "fused_attn_ln2", "fused_avq_train", "fused_avq_train_bwd",
            "fused_gaussian_moe", "fused_patch_select", "fused_patch_select_train",
-           "fused_patch_select_train_bwd", "fused_resblock", "launch_counts",
+           "fused_patch_select_train_bwd", "fused_resblock", "gemm_route", "launch_counts",
            "reset_launches"]

@@ -35,6 +35,11 @@ SIGNATURES = {
                            _I, _I, _I, _I, _F, _P],
     # not a launcher: 1 where qt::attention takes the tensor-core kernel
     "qt_attention_route": [_I, _I, _I, _I, _I],
+    # not a launcher: the GEMM routine of a fused kernel's product (0 fma,
+    # 1 wmma, 2 wgmma)
+    "qt_gemm_route": [_I, _I, _I, _I],
+    # the Hopper GEMM alone (ops/gemm.py), for its checks and timing
+    "qt_gemm_sm90": [_I, _P, _L, _P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I, _P],
     "qt_gaussian_moe": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _P],
     "qt_attn_ln2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -8,7 +8,11 @@ CUDA tensors, the plain versions for CPU tensors. On the card bf16 calls of
 at least 16 queries and 16 keys at head sizes 32, 64 and 128 take the
 tensor-core kernel, every other call an fp32 FMA kernel (whole keys staged
 in shared memory up to 128 keys, 64-key tiles in two passes beyond);
-``attention_route`` names the one a call takes. On CUDA
+``attention_route`` names the one a call takes. The wrappers take any
+layout the plain version takes: over 128 keys a head smaller than 128 is
+zero-padded to the next built size, and a bf16 operand the tensor-core
+kernel cannot read with 16-byte copies is copied to a contiguous tensor
+first; neither changes the route. On CUDA
 the gradient is that of the plain version, recomputed (``ops/_grad.py``),
 the JAX ``custom_vjp`` rules: q, k, v, ``key_bias`` and a mask that
 requires grad get real cotangents.
@@ -19,18 +23,21 @@ import torch
 
 from qa_tiger_tpu_torch.ops import _build, _grad
 
-# over this many keys the kernel streams them in tiles, for head sizes 32,
-# 64 and 128 only (csrc/common.cuh, ATT_STAGED_MAX_SK)
+# over this many keys the kernel streams them in tiles, for the head sizes
+# it is built for only (csrc/common.cuh, ATT_STAGED_MAX_SK); the wrapper
+# zero-pads any smaller head to the next of them
 STAGED_MAX_SK = 128
+KERNEL_HEAD_SIZES = (32, 64, 128)
 
 
 def attention_route(dtype: torch.dtype, sq: int, sk: int, hd: int,
                     has_keep: bool = False) -> str:
     """The kernel the card's dispatch (``qt::attention``) takes for a call of
-    this dtype and shape: "mma" (tensor cores) or "fma". Asks the kernel
-    library, so it builds it on first use."""
-    code = _build.library().qt_attention_route(_build.dtype_code(dtype), sq, sk, hd,
-                                               int(has_keep))
+    this dtype and shape: "mma" (tensor cores) or "fma", at the head size the
+    wrapper launches (``_kernel_head``). Asks the kernel library, so it
+    builds it on first use."""
+    code = _build.library().qt_attention_route(_build.dtype_code(dtype), sq, sk,
+                                               _kernel_head(hd, sk), int(has_keep))
     return "mma" if code == 1 else "fma"
 
 
@@ -72,9 +79,37 @@ def _check_qkv(q, k, v, heads: int) -> None:
         raise ValueError("k and v need the same length")
     if W % heads:
         raise ValueError(f"width {W} does not split into {heads} heads")
-    if k.shape[1] > STAGED_MAX_SK and W // heads not in (32, 64, 128):
-        raise ValueError(f"over {STAGED_MAX_SK} keys the kernel takes head sizes 32, 64 "
-                         f"and 128, not {W // heads}")
+    _kernel_head(W // heads, k.shape[1])
+
+
+def _kernel_head(hd: int, sk: int) -> int:
+    """The head size the kernel runs a call at: ``hd`` itself, or, over
+    ``STAGED_MAX_SK`` keys, the next size the kernels are built for. Zero
+    columns add nothing to q·kᵀ and give zero context columns, which the
+    wrapper drops, so the padded call computes the same function."""
+    if sk <= STAGED_MAX_SK or hd in KERNEL_HEAD_SIZES:
+        return hd
+    for size in KERNEL_HEAD_SIZES:
+        if hd < size:
+            return size
+    raise ValueError(f"over {STAGED_MAX_SK} keys the kernel takes head sizes up to "
+                     f"{KERNEL_HEAD_SIZES[-1]}, not {hd}")
+
+
+def _kernel_operand(t: torch.Tensor, heads: int, hd: int, hdp: int) -> torch.Tensor:
+    """``t`` [B, S, heads * hd] as the kernel reads it: each head zero-padded
+    to ``hdp`` lanes where ``hdp > hd``; in bf16, a contiguous copy where the
+    tensor-core kernel's 16-byte ``cp.async`` could not read it (a base off
+    16 bytes, a batch or row stride not a multiple of 8 elements). Neither
+    changes the route, which depends on dtype and shape alone."""
+    if hdp != hd:
+        B, S, _ = t.shape
+        return torch.nn.functional.pad(t.reshape(B, S, heads, hd),
+                                       (0, hdp - hd)).reshape(B, S, heads * hdp)
+    if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or t.stride(0) % 8
+                                      or t.stride(1) % 8):
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
 
 
 def _device_mask(mask, Sq: int, Sk: int, device):
@@ -129,18 +164,23 @@ def _wide_reference_kb(q, k, v, key_bias, *, mask, scale, heads):
 
 def _launch(q, k, v, key_bias=None, *, mask, scale, heads):
     B, Sq, W = q.shape
-    out = torch.empty(B, Sq, W, dtype=q.dtype, device=q.device)
+    hd = W // heads
+    hdp = _kernel_head(hd, k.shape[1])
+    q, k, v = (_kernel_operand(t, heads, hd, hdp) for t in (q, k, v))
+    out = torch.empty(B, Sq, heads * hdp, dtype=q.dtype, device=q.device)
     _build.launch(
         "qt_attention", _build.dtype_code(q),
         q.data_ptr(), q.stride(0), q.stride(1),
         k.data_ptr(), k.stride(0), k.stride(1),
         v.data_ptr(), v.stride(0), v.stride(1),
         out.data_ptr(), out.stride(0), out.stride(1),
-        _build.ptr(mask), _build.ptr(key_bias), B, Sq, k.shape[1], heads, W // heads,
+        _build.ptr(mask), _build.ptr(key_bias), B, Sq, k.shape[1], heads, hdp,
         float(scale))
     attention_wide.launches += 1
     if key_bias is not None:
         attention_wide_key_bias.launches += 1
+    if hdp != hd:
+        out = out.reshape(B, Sq, heads, hdp)[..., :hd].reshape(B, Sq, W)
     return out
 
 
@@ -201,15 +241,17 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_fused(q, k, v, *, mask, scale):
     BH, Sq, dh = q.shape
-    out = torch.empty(BH, Sq, dh, dtype=q.dtype, device=q.device)
+    dhp = _kernel_head(dh, k.shape[1])
+    q, k, v = (_kernel_operand(t, 1, dh, dhp) for t in (q, k, v))
+    out = torch.empty(BH, Sq, dhp, dtype=q.dtype, device=q.device)
     _build.launch(
         "qt_fused_attention", _build.dtype_code(q),
         q.data_ptr(), q.stride(0), q.stride(1),
         k.data_ptr(), k.stride(0), k.stride(1),
         v.data_ptr(), v.stride(0), v.stride(1),
-        out.data_ptr(), _build.ptr(mask), BH, Sq, k.shape[1], dh, float(scale))
+        out.data_ptr(), _build.ptr(mask), BH, Sq, k.shape[1], dhp, float(scale))
     fused_attention.launches += 1
-    return out
+    return out[..., :dh].contiguous() if dhp != dh else out
 
 
 fused_attention.launches = 0

@@ -28,6 +28,7 @@ import torch
 from qa_tiger_tpu_torch.nn.core import layer_norm, linear, mlp2
 from qa_tiger_tpu_torch.ops import _build, _grad
 from qa_tiger_tpu_torch.ops.attention import _wide_reference
+from qa_tiger_tpu_torch.ops.gemm import note_routes, patch_select_gemm_shapes, tma_ready
 
 
 def patch_selecter_plain(params, patch, audio, video, *, nhead: int = 8,
@@ -144,6 +145,8 @@ def fused_patch_select(patch: torch.Tensor, audio: torch.Tensor,
 
 def _launch_eval(patch, audio, video, *weights, nhead):
     B, T, P, D = patch.shape
+    # the operands the bf16 GEMMs read by TMA
+    patch, weights = tma_ready(patch), [tma_ready(w) for w in weights]
     BT = B * T
     dev, dt = patch.device, patch.dtype
     a_out = torch.empty(B, T, D, dtype=dt, device=dev)
@@ -163,10 +166,12 @@ def _launch_eval(patch, audio, video, *weights, nhead):
                   a_out.data_ptr(), v_out.data_ptr(),
                   *[s.data_ptr() for s in scratch], BT, P, D, nhead)
     fused_patch_select.launches += 1
+    note_routes(fused_patch_select, dt, patch_select_gemm_shapes(BT, P, D))
     return a_out, v_out
 
 
 fused_patch_select.launches = 0
+fused_patch_select.gemm_routes = {}  # the GEMM routine of each product launched
 
 # ---------------------------------------------------------------------------
 # train mode

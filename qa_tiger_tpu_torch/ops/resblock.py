@@ -25,6 +25,7 @@ import torch
 from qa_tiger_tpu_torch.nn.core import layer_norm, linear, quick_gelu
 from qa_tiger_tpu_torch.ops import _build, _grad
 from qa_tiger_tpu_torch.ops.attention import _wide_reference
+from qa_tiger_tpu_torch.ops.gemm import attn_gemm_shapes, note_routes, tma_ready
 
 
 def _attn_params(block) -> list:
@@ -164,6 +165,7 @@ def _attn_scratch(x):
 
 def _launch_ln2(x, *params, heads, mask):
     B, S, W = x.shape
+    params = [tma_ready(p) for p in params]  # the GEMMs' B operands
     y, h = torch.empty_like(x), torch.empty_like(x)
     qkv, ctx, stats = _attn_scratch(x)
     _build.launch("qt_attn_ln2", _build.dtype_code(x), x.data_ptr(),
@@ -171,11 +173,13 @@ def _launch_ln2(x, *params, heads, mask):
                   y.data_ptr(), h.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
                   stats.data_ptr(), B, S, W, heads)
     fused_attn_ln2.launches += 1
+    note_routes(fused_attn_ln2, x.dtype, attn_gemm_shapes(B * S, W))
     return y, h
 
 
 def _launch_half(x, *params, heads, mask):
     B, S, W = x.shape
+    params = [tma_ready(p) for p in params]  # the GEMMs' B operands
     y = torch.empty_like(x)
     qkv, ctx, stats = _attn_scratch(x)
     _build.launch("qt_attn_half", _build.dtype_code(x), x.data_ptr(),
@@ -183,6 +187,7 @@ def _launch_half(x, *params, heads, mask):
                   y.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), stats.data_ptr(),
                   B, S, W, heads)
     fused_attn_half.launches += 1
+    note_routes(fused_attn_half, x.dtype, attn_gemm_shapes(B * S, W))
     return y
 
 
@@ -205,3 +210,6 @@ def _launch_resblock(x, *params, heads, mask):
 fused_attn_ln2.launches = 0
 fused_attn_half.launches = 0
 fused_resblock.launches = 0
+# the GEMM routine of each product the attention halves launched
+fused_attn_ln2.gemm_routes = {}
+fused_attn_half.gemm_routes = {}

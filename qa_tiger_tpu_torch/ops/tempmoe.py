@@ -76,8 +76,14 @@ def combined_expert_weights(gauss_weight: torch.Tensor,  # [B, K, T]
 
 
 def topk_renormalized(router_probs: torch.Tensor, k: int):
-    """Top-K gates in descending order, renormalised to sum 1."""
-    topk_probs, topk_inds = torch.topk(router_probs, k, dim=-1, sorted=True)
+    """Top-K gates in descending order, renormalised to sum 1.
+
+    Ties go to the lower expert index, as ``jax.lax.top_k`` orders them
+    (``torch.topk`` does not promise an order among equal values, and can
+    pick a different set at the k-th edge): a stable descending sort, then
+    the first k."""
+    sorted_probs, order = torch.sort(router_probs, dim=-1, descending=True, stable=True)
+    topk_probs, topk_inds = sorted_probs[..., :k], order[..., :k]
     return topk_probs / topk_probs.sum(dim=-1, keepdim=True), topk_inds
 
 

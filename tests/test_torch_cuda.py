@@ -28,6 +28,7 @@ from qa_tiger_tpu_torch.models.modules import (
 from qa_tiger_tpu_torch.ops import avq as AV
 from qa_tiger_tpu_torch.ops import attention as A
 from qa_tiger_tpu_torch.ops import gaussian_moe as G
+from qa_tiger_tpu_torch.ops import gemm as GM
 from qa_tiger_tpu_torch.ops import patch_select as PS
 from qa_tiger_tpu_torch.ops import resblock as R
 
@@ -168,24 +169,64 @@ def test_attention_route_rule(cuda):
     assert A.attention_route(bf, 60, 77, 48) == "fma"   # no mma build for hd 48
 
 
-def test_attention_mma_route_raises_on_misaligned_rows(cuda):
+def test_attention_mma_route_copies_misaligned_rows(cuda):
     """A row stride that is not a multiple of 8 elements, or a base pointer
-    off 16 bytes, cannot feed cp.async: the mma route raises and does not
-    fall back to an FMA kernel; the fp32 route takes the same geometry."""
+    off 16 bytes, cannot feed cp.async: the wrapper copies such an operand
+    to a contiguous tensor and launches the same tensor-core kernel (the
+    route depends on dtype and shape alone), which gives the plain result;
+    the fp32 route takes the same geometry as it is."""
     rng = np.random.default_rng(11)
     q, k, v = _packed_qkv(rng, 2, 64, 64, 128, torch.bfloat16, cuda, pad=4)
     assert q.stride(1) % 8 == 4
+    assert A.attention_route(torch.bfloat16, 64, 64, 64) == "mma"
     n = A.attention_wide.launches
-    with pytest.raises(RuntimeError, match="qt_attention"):
-        A.attention_wide(q, k, v, None, 0.125, 2)
+    _check(lambda: A.attention_wide(q, k, v, None, 0.125, 2),
+           lambda: A._wide_reference(q, k, v, None, 0.125, 2), torch.bfloat16)
+    assert A.attention_wide.launches == n + 1
     buf = _rn(rng, 2, 64, 3 * 128 + 8, dtype=torch.bfloat16)
-    q2 = buf[..., 4:132]  # 8 bytes past a 16-byte boundary
-    with pytest.raises(RuntimeError, match="qt_attention"):
-        A.attention_wide(q2, buf[..., 132:260], buf[..., 260:388], None, 0.125, 2)
-    assert A.attention_wide.launches == n
+    q2, k2, v2 = buf[..., 4:132], buf[..., 132:260], buf[..., 260:388]
+    assert q2.data_ptr() % 16 == 8  # 8 bytes past a 16-byte boundary
+    _check(lambda: A.attention_wide(q2, k2, v2, None, 0.125, 2),
+           lambda: A._wide_reference(q2, k2, v2, None, 0.125, 2), torch.bfloat16)
+    assert A.attention_wide.launches == n + 2
     q, k, v = _packed_qkv(rng, 2, 64, 64, 128, torch.float32, cuda, pad=4)
     _check(lambda: A.attention_wide(q, k, v, None, 0.125, 2),
            lambda: A._wide_reference(q, k, v, None, 0.125, 2), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sk", [129, 577])
+@pytest.mark.parametrize("hd", [48, 80])
+def test_attention_odd_head_sizes_over_128_keys(cuda, hd, sk, dtype):
+    """Head sizes the kernels are not built for, over 128 keys: the wrapper
+    zero-pads each head to the next built size (64, 128) and drops the
+    padded context columns; in bf16 the padded call takes the tensor-core
+    kernel. Also through fused_attention (one head per row) and the
+    gradient (the plain version's, on the unpadded inputs)."""
+    rng = np.random.default_rng(hd * 1000 + sk)
+    H, sq = 3, 70
+    q, k, v = _packed_qkv(rng, 2, sq, sk, hd * H, dtype, cuda)
+    kb = torch.from_numpy(np.log(rng.integers(1, 41, (2, sk))).astype(np.float32)).to(cuda)
+    scale = hd ** -0.5
+    want_route = "mma" if dtype == torch.bfloat16 else "fma"
+    assert A.attention_route(dtype, sq, sk, hd) == want_route
+    n = A.attention_wide.launches
+    _check(lambda: A.attention_wide(q, k, v, None, scale, H, key_bias=kb),
+           lambda: A._wide_reference(q, k, v, None, scale, H, kb), dtype)
+    assert A.attention_wide.launches == n + 1
+    qf, kf, vf = (_rn(rng, 4, s, hd, dtype=dtype) for s in (sq, sk, sk))
+    nf = A.fused_attention.launches
+    _check(lambda: A.fused_attention(qf, kf, vf, None, scale),
+           lambda: A._fused_attention_plain(qf, kf, vf, mask=None, scale=scale), dtype)
+    assert A.fused_attention.launches == nf + 1
+    if dtype == torch.float32:
+        ins = [_leaf(t) for t in (q, k, v)]
+        cot = [_rn(rng, 2, sq, hd * H, dtype=dtype)]
+        got = torch.autograd.grad(A.attention_wide(*ins, None, scale, H), ins, cot)
+        want = torch.autograd.grad(A._wide_reference(*ins, None, scale, H), ins, cot)
+        for g, w in zip(got, want):
+            err = (g - w).abs().max().item()
+            assert err <= TOL[dtype] * max(1.0, w.abs().max().item()), err
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -450,3 +491,98 @@ def test_train_kernels_forward_and_backward(cuda, kind, dtype):
         if i >= n_out:
             limit = max(limit, 2 * plain_err[i])
         assert err <= limit, (i, err, limit)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper GEMM (gemm_sm90: TMA + wgmma) under the fused bf16 kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("epilogue", ["bias", "residual", "f32"])
+@pytest.mark.parametrize("k", [256, 512, 768, 1024])
+@pytest.mark.parametrize("n", [256, 512, 768, 2304, 3072])
+@pytest.mark.parametrize("m", [1, 127, 129, 2464, 69240])
+def test_gemm_sm90(cuda, m, n, k, epilogue):
+    """gemm_sm90 against the fp32 product of the same bf16 operands, through
+    each epilogue the fused kernels use, at ragged M (no M of the paths is a
+    multiple of 128) and the paths' widths (N >= 2304 takes 128 x 256 tiles).
+    The bf16 epilogues are held to bf16 rounding, the fp32 one to the sum's
+    order."""
+    rng = np.random.default_rng(m + 7 * n + 13 * k)
+    dt = torch.bfloat16
+    a, b = _rn(rng, m, k, dtype=dt), _rn(rng, n, k, dtype=dt, scale=k ** -0.5)
+    bias, res = _rn(rng, n, dtype=dt), _rn(rng, m, n, dtype=dt)
+    kw = dict(epilogue=epilogue, bias=bias, res=res if epilogue == "residual" else None,
+              relu=epilogue == "bias" and k % 512 == 0)
+    launches = GM.gemm_sm90.launches
+    got, want = GM.gemm_sm90(a, b, **kw), GM.gemm_plain(a, b, **kw)
+    torch.cuda.synchronize()
+    assert GM.gemm_sm90.launches == launches + 1
+    assert got.dtype == want.dtype and tuple(got.shape) == (m, n)
+    assert torch.isfinite(got).all()
+    tol = TOL[torch.float32 if epilogue == "f32" else dt]
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(1.0, want.float().abs().max().item()), err
+
+
+# (M, N, K) of every product the two fused kernels launch on the four paths:
+# the text tower at B = 256 (serving, bench_resblock), 32 (train) and 2 (raw
+# media); the CLIP image tower at 120 frames; PatchSelecter at B*T = 15360
+# (serving) and 120 (raw media)
+PATH_GEMMS = sorted({(r, n, k) for r in (256 * 77, 32 * 77, 2 * 77) for n, k in
+                     ((2304, 768), (768, 768))}
+                    | {(120 * 577, n, 1024) for n in (3072, 1024)}
+                    | {(bt * 14, n, 512) for bt in (15360, 120) for n in (1536, 512, 1024)}
+                    | {(2 * bt, n, k) for bt in (15360, 120) for n, k in
+                       ((512, 512), (256, 512), (512, 256))})
+
+
+@pytest.mark.parametrize("m,n,k", PATH_GEMMS)
+def test_gemm_route_on_path_shapes(cuda, m, n, k):
+    assert GM.gemm_route(torch.bfloat16, m, n, k) == "wgmma"
+    assert GM.gemm_route(torch.float32, m, n, k) == "fma"
+    assert GM.gemm_route(torch.bfloat16, m, n + 4, k) == "wmma"
+    assert GM.gemm_route(torch.bfloat16, m, n, k + 4) == "wmma"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,b,s,w,heads", [("text", 256, 77, 768, 12),
+                                              ("clip_image", 24, 577, 1024, 16)])
+def test_fused_attn_kernels_on_the_gemm_route(cuda, kind, b, s, w, heads, dtype):
+    """fused_attn_ln2 and fused_attn_half at the text tower's serving shape
+    (causal) and the CLIP image tower's (577 tokens, no mask) against their
+    plain versions; both products on gemm_sm90 in bf16, gemm_tile's FMA loop
+    in fp32."""
+    rng = np.random.default_rng(b + s)
+    blk = ResidualAttentionBlock(w, heads, torch.Generator().manual_seed(0)).to(cuda, dtype)
+    x = _rn(rng, b, s, w, dtype=dtype)
+    mask = causal_mask(s, device=cuda) if kind == "text" else None
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    assert GM.gemm_route(dtype, b * s, 3 * w, w) == route
+    assert GM.gemm_route(dtype, b * s, w, w) == route
+    n_ln2, n_half = R.fused_attn_ln2.launches, R.fused_attn_half.launches
+    _check(lambda: R.fused_attn_ln2(x, blk, mask, heads),
+           lambda: R._attn_ln2_plain(blk, x, heads=heads, mask=mask), dtype)
+    _check(lambda: R.fused_attn_half(x, blk, mask, heads),
+           lambda: R._attn_half_flat(x, *R._attn_params(blk), heads=heads, mask=mask), dtype)
+    assert (R.fused_attn_ln2.launches, R.fused_attn_half.launches) == (n_ln2 + 1, n_half + 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t", [(256, 60), (2, 60)])
+def test_fused_patch_select_on_the_gemm_route(cuda, b, t, dtype):
+    """fused_patch_select at the serving shape (B=256, T=60) and the raw
+    media one (B=2) against its plain version; its seven products on
+    gemm_sm90 in bf16."""
+    rng = np.random.default_rng(b)
+    D = 512
+    ps = PatchSelecter(D, torch.Generator().manual_seed(0)).to(cuda, dtype)
+    patch = _rn(rng, b, t, 14, D, dtype=dtype)
+    audio, video = _rn(rng, b, t, D, dtype=dtype), _rn(rng, b, t, D, dtype=dtype)
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"
+    for m, n, k in ((b * t * 14, 3 * D, D), (b * t * 14, D, D), (b * t * 14, 2 * D, D),
+                    (2 * b * t, D, D), (2 * b * t, D // 2, D), (2 * b * t, D, D // 2)):
+        assert GM.gemm_route(dtype, m, n, k) == route
+    n = PS.fused_patch_select.launches
+    _check(lambda: PS.fused_patch_select(patch, audio, video, ps, 8),
+           lambda: PS.patch_selecter_plain(ps, patch, audio, video, nhead=8), dtype)
+    assert PS.fused_patch_select.launches == n + 1
