@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""The train phase of ``chip_smoke.py`` for two checkouts on one GPU, each run
+alone in fresh processes, in alternating order.
+
+    python3 chip_ab.py DIR_A DIR_B [--pairs 6] [--out build/ab]
+
+Each process starts in one checkout and runs that checkout's
+``chip_smoke.check_train`` (phase 5: the fp32 B=4 step against the CPU, the
+fp32 B=32 recipe with 10 timed steps and one profiled, ``evaluate``), with
+TF32 off, as ``chip_smoke.py`` runs it; the first process of a checkout
+builds its kernels, the others reuse the build under its ``build/``. The
+order is A B B A, repeated ``--pairs`` / 2 times (A B for an odd last
+pair), so that neither checkout always runs first. One JSON line per
+process (the recipe's step times and the profiled step's device time and
+idle share; the profile tables go to ``--out``), then one summary line per
+checkout: the median of the step medians and of the device times.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+TRAIN = r"""
+import collections, sys
+from pathlib import Path
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+chip_smoke.check_train(np.random.default_rng(0), collections.defaultdict(dict), Path({out!r}))
+"""
+
+
+def run_one(tree: Path, out: Path) -> dict:
+    out.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([sys.executable, "-c", TRAIN.format(out=str(out))], cwd=tree,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode:
+        raise SystemExit(f"chip_ab: {tree}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+    phases = {}
+    for text in proc.stdout.splitlines():
+        if text.startswith("{"):
+            line = json.loads(text)
+            phases[line.get("phase")] = line
+    step, prof = phases["train_fp32_b32"], phases["profile_train"]
+    return {"tree": str(tree), "step_ms_median": step["step_ms_median"],
+            "step_ms_all": step["step_ms_all"], "device_busy_ms": prof["device_busy_ms"],
+            "profiled_wall_ms": prof["wall_ms"], "idle_share": prof["idle_share"]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs=2, type=Path)
+    ap.add_argument("--pairs", type=int, default=6)
+    ap.add_argument("--out", type=Path, default=Path("build/ab"))
+    args = ap.parse_args()
+    out = args.out.resolve()
+    a, b = (t.resolve() for t in args.trees)
+    order = []
+    for i in range(args.pairs):
+        order += [a, b] if i % 2 == 0 else [b, a]
+    results = {str(a): [], str(b): []}
+    for i, tree in enumerate(order):
+        res = run_one(tree, out / f"train_{i:02d}_{tree.name}")
+        res["run"] = i
+        print(json.dumps(res), flush=True)
+        results[str(tree)].append(res)
+    for tree, runs in results.items():
+        meds = [r["step_ms_median"] for r in runs]
+        busy = [r["device_busy_ms"] for r in runs]
+        print(json.dumps({"tree": tree, "runs": len(runs),
+                          "step_ms_median_of_medians": statistics.median(meds),
+                          "step_ms_medians": meds,
+                          "device_busy_ms_median": statistics.median(busy),
+                          "device_busy_ms": busy}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,7 +26,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    fused_attn_half and fused_patch_select the GEMM routine of their
    products ("wgmma": gemm_sm90, "wmma"/"fma": gemm_tile); then the Hopper
    GEMM alone at every distinct product shape of the four paths, against
-   its plain version, timed beside its bound and ``torch.matmul``;
+   its plain version, timed beside its bound and ``torch.matmul``; then the
+   train backwards' fp32 GEMM (``gemm_tf32x3``: 3xTF32 on tensor cores,
+   split-K) alone at every product shape of the two backwards at B=32,
+   against its plain version and the fp64 product, timed beside its bound
+   and fp32 ``torch.matmul``; the fp32 recipe-shape train kernels run twice
+   and must repeat bitwise;
 4. serving — the Predictor at configs/qa-tiger/vitl14.py with weights from
    a seed: (a) fp32 logits at B=4 against the same state_dict run through
    the plain versions on the CPU; (b) the bf16 B=256 path through
@@ -37,7 +42,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
 5. training — AVQARunner at the same config: (a) one fp32 B=4 step with
    dropout off, card against CPU (loss, updated parameters, gradients);
    (b) the recipe, fp32 B=32 with dropout: 3 warm-up steps, the launch
-   counters reset around one step, 10 timed steps, losses, peak memory;
+   counters reset around one step (every product of the two train
+   backwards on gemm_tf32x3), 10 timed steps, losses, peak memory;
    (c) ``evaluate`` over two batches, with its accuracy report;
 6. raw media — ``pipeline.e2e`` at full width (CLIP ViT-L/14@336px, ToMe
    vit_large_patch16_384 at r=[25]*23, VGGish, the QA-TIGER config):
@@ -77,7 +83,10 @@ sys.path.insert(0, str(ROOT))
 # is the larger of its bytes over the memory rate and its operations over
 # the peak of its type.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# "tf32x3": the dense TF32 tensor-core peak over the three passes of the
+# train backwards' fp32 products (gemm_tf32x3), the least time an fp32 sum
+# of products can take on this card
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 494.7e12 / 3}
 BF16_TOL = 3e-2   # max|k - p| <= BF16_TOL * max(1, max|p|): bf16 rounding
 FP32_TOL = 1e-4   # the same at fp32: summation order only
 LOGITS_TOL = dict(rtol=2e-3, atol=5e-4)  # fp32 card vs CPU, as the JAX parity tests
@@ -474,6 +483,82 @@ def check_gemms() -> list:
     return lines
 
 
+def train_bwd_gemm_shapes() -> dict:
+    """Every distinct (M, N, K) product of the two train backwards at the
+    recipe (B = 32: 32 x 60 PatchSelecter frames of 14 patches, 64 AVQ rows
+    of 60 frames and 77 words, width 512), with the backwards that launch
+    it and whether A is read column-major: a weight gradient, whose K is a
+    row count (26,880 patch rows, 3,840 query or AVQ rows, 4,928 words);
+    a dgrad reads its A row-major. B is [K, N] in both."""
+    from qa_tiger_tpu_torch.ops import gemm as GM
+
+    rows = {32 * T * P, 2 * 32 * T, 64 * T, 64 * S}
+    shapes = {}
+    for kernel, mnks in (
+            ("fused_patch_select_train_bwd",
+             GM.patch_select_train_bwd_gemm_shapes(32 * T, P, 512)),
+            ("fused_avq_train_bwd", GM.avq_train_bwd_gemm_shapes(64, T, S, 512))):
+        for m, n, k in mnks:
+            kernels = shapes.setdefault((m, n, k, k in rows), [])
+            if kernel not in kernels:
+                kernels.append(kernel)
+    return shapes
+
+
+def check_tf32x3_gemms() -> list:
+    """The train backwards' fp32 GEMM alone (``gemm_tf32x3``, 3xTF32 on
+    mma.sync, the backwards' split-K plan) at each distinct product shape
+    and A layout of the two backwards at the recipe: against its plain
+    version (the same split, three fp32 products) and against the fp64
+    product, both at FP32_TOL; timed beside its bound (operations over the
+    tf32x3 peak; bytes: A, B and C once) and beside ``torch.matmul`` on the
+    same fp32 operands with TF32 off (``library_ms``, a yardstick the port
+    never calls). One line per shape; returns them."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import gemm as GM
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    sms = GM.sm_count(torch.device("cuda"))
+    lines = []
+    with torch.inference_mode():
+        for (m, n, k, col), kernels in sorted(train_bwd_gemm_shapes().items()):
+            a = torch.randn(*((k, m) if col else (m, k)), device="cuda", generator=gen)
+            b = torch.randn(k, n, device="cuda", generator=gen)
+            a_mat = a.t() if col else a
+            got = GM.gemm_tf32x3(a, b, a_col_major=col)
+            want = GM.gemm_tf32x3_plain(a, b, a_col_major=col)
+            ref = a_mat.double() @ b.double()
+            torch.cuda.synchronize()
+            err, scale = max_err(got, want)
+            err64 = (got.double() - ref).abs().max().item()
+            scale64 = ref.abs().max().item()
+            del got, want, ref
+            flops = 2 * m * n * k
+            b_ms, b_by = bound((m * k + k * n + m * n) * 4, flops, "tf32x3")
+            line = {"gemm_tf32x3": f"{m}x{n}x{k}", "used_by": kernels,
+                    "a": "col" if col else "row",
+                    "splits": GM.splitk_plan(m, n, k, sms).splits,
+                    "max_abs_err": err, "max_abs_plain": scale, "max_abs_err_fp64": err64,
+                    "max_abs_fp64": scale64, "tolerance": FP32_TOL * max(1.0, scale),
+                    "ms": cuda_ms(lambda a=a, b=b: GM.gemm_tf32x3(a, b, a_col_major=col)),
+                    "plain_ms": cuda_ms(lambda a=a, b=b: GM.gemm_tf32x3_plain(
+                        a, b, a_col_major=col)),
+                    "library_ms": cuda_ms(lambda a=a_mat, b=b: torch.matmul(a, b)),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_fma_ms": bound((m * k + k * n + m * n) * 4, flops, "float32")[0]}
+            line["tflops"] = flops / line["ms"] * 1e-9
+            line["ok"] = (err <= line["tolerance"]
+                          and err64 <= FP32_TOL * max(1.0, scale64))
+            print(json.dumps(line), flush=True)
+            lines.append(line)
+            require(line["ok"], f"gemm_tf32x3 {m}x{n}x{k}: max|k-p| {err:.3e}, against fp64 "
+                                f"{err64:.3e}, over tolerance")
+            del a, b, a_mat
+        torch.cuda.empty_cache()
+    return lines
+
+
 def require_wgmma(counts_phase: str) -> None:
     """Every product the bf16 calls of fused_attn_ln2 and fused_patch_select
     launched since the counters were reset went through gemm_sm90."""
@@ -662,6 +747,11 @@ def check_train_kernels(rng, gen, entries: dict):
     small fp32 shape and at the recipe shape in fp32 and in bf16; forward
     and backward timed at the recipe shape.
 
+    The fp32 backward's bound is its operations over the tf32x3 peak (its
+    products run on gemm_tf32x3), with the fp32 FMA peak's figure beside it
+    (``bwd_bound_fma_ms``); at the recipe shape in fp32 each kernel pair runs
+    twice and every output and gradient must be bitwise the same.
+
     Tolerances: fp32, and bf16 forward outputs, max|k - p| <= tol *
     max(1, max|p|) as for the other kernels. bf16 gradients: both the kernel
     and the plain version in bf16 are held to the plain version in fp32 on
@@ -680,6 +770,8 @@ def check_train_kernels(rng, gen, entries: dict):
             ins, cots = c["ins"], c["cots"]
             got, want = _grads(c["kernel"](), ins, cots), _grads(c["plain"](), ins, cots)
             ref = c["plain32"]() if bf16 else None
+            repeat = (all(torch.equal(g, h) for g, h in zip(got, _grads(c["kernel"](), ins, cots)))
+                      if label == "recipe" and not bf16 else None)
             torch.cuda.synchronize()
             n_out = len(got) - len(ins)
             rows, ok = [], True
@@ -697,7 +789,8 @@ def check_train_kernels(rng, gen, entries: dict):
             line = {"kernel": f"{c['fwd']}+bwd", "dtype": dname, "shape": c["shape"],
                     "tensors_compared": len(got), "worst_tensor": worst[1],
                     "max_abs_err": worst[2], "max_abs_ref": worst[3],
-                    "plain_bf16_err": worst[4], "worst_err_over_limit": worst[0], "ok": ok}
+                    "plain_bf16_err": worst[4], "worst_err_over_limit": worst[0],
+                    "bitwise_repeat": repeat, "ok": ok}
             if label == "recipe":
                 fwd_err = max(r[2] for r in rows[:n_out])
                 bwd_err = max(r[2] for r in rows[n_out:])
@@ -706,10 +799,11 @@ def check_train_kernels(rng, gen, entries: dict):
                 b_ms = backward_ms(c["kernel"], ins, cots)
                 pb_ms = backward_ms(c["plain"], ins, cots)
                 fb, fby = bound(c["fwd_bytes"], c["fwd_flops"], dname)
-                bb, bby = bound(c["bwd_bytes"], c["bwd_flops"], dname)
+                bb, bby = bound(c["bwd_bytes"], c["bwd_flops"], "bfloat16" if bf16 else "tf32x3")
                 line.update(ms=f_ms, plain_ms=pf_ms, bound_ms=fb, bound_by=fby, bwd_ms=b_ms,
                             plain_bwd_ms=pb_ms, bwd_bound_ms=bb, bwd_bound_by=bby)
                 if not bf16:  # the recipe's dtype names the table entries
+                    line["bwd_bound_fma_ms"] = bound(c["bwd_bytes"], c["bwd_flops"], dname)[0]
                     for name, ms, pms, bms, bby_, err in (
                             (c["fwd"], f_ms, pf_ms, fb, fby, fwd_err),
                             (c["bwd"], b_ms, pb_ms, bb, bby, bwd_err)):
@@ -718,9 +812,13 @@ def check_train_kernels(rng, gen, entries: dict):
                             "replaces": REPLACES[name], "launches": 0, "shape": c["shape"],
                             "dtype": dname, "max_abs_err": err, "ms": ms, "plain_ms": pms,
                             "bound_ms": bms, "bound_by": bby_, "library_ms": None}
+                    entries[c["bwd"]].update(bound_peak="tf32x3",
+                                             bound_ms_fp32_fma=line["bwd_bound_fma_ms"])
             print(json.dumps(line), flush=True)
             require(ok, f"{c['fwd']} {dname} {c['shape']}: tensor {worst[1]} max|k-p| "
                         f"{worst[2]:.3e} over its limit")
+            require(repeat is not False, f"{c['fwd']} {dname} {c['shape']}: two runs of the "
+                                         "kernel pair are not bitwise the same")
             del got, want, ref
         torch.cuda.empty_cache()
 
@@ -962,6 +1060,7 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_LR = 1e-4
+TRAIN_BWD_KERNELS = ("fused_patch_select_train_bwd", "fused_avq_train_bwd")
 TRAIN_KERNELS = {"fused_attn_ln2": 12, "fused_avq_train": 1, "fused_avq_train_bwd": 1,
                  "fused_patch_select_train": 1, "fused_patch_select_train_bwd": 1,
                  "fused_gaussian_moe": 2, "attention_wide": 0, "attention_wide_key_bias": 0,
@@ -1061,9 +1160,12 @@ def check_train(rng, entries: dict, profile_dir: Path | None) -> dict:
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     print(json.dumps({"phase": "train_step_launches", **counts}), flush=True)
-    print(json.dumps({"phase": "train_step_gemm_routes",
-                      "fused_attn_ln2": dict(ops.KERNELS["fused_attn_ln2"].gemm_routes)}),
-          flush=True)
+    routes = {name: dict(ops.KERNELS[name].gemm_routes)
+              for name in ("fused_attn_ln2",) + TRAIN_BWD_KERNELS}
+    print(json.dumps({"phase": "train_step_gemm_routes", **routes}), flush=True)
+    for name in TRAIN_BWD_KERNELS:  # the fp32 backwards' products on gemm_tf32x3 only
+        require(bool(routes[name]) and set(routes[name]) == {"tf32x3"},
+                f"train step: {name}'s products took {routes[name]}, expected tf32x3 only")
     for name, n in TRAIN_KERNELS.items():
         require(counts[name] == n, f"train step: {name} launched {counts[name]} times, "
                                    f"expected {n}")
@@ -1408,6 +1510,7 @@ def main() -> int:
         check_e2e_kernels(rng, gen, entries)
         check_op_kernels(entries)
         check_gemms()
+        check_tf32x3_gemms()
         check_slice1_grads(rng, gen)
         check_train_kernels(rng, gen, entries)
         paths = {"serving": check_slice(rng, entries, args.profile),

@@ -22,14 +22,19 @@
 // Parameter gradients: Pallas sums them over a sequential grid into
 // constant-index blocks. Here the backward writes each per-row gradient
 // (g_ffn, g_pre, g_out, g_qkv, ...) to device memory once, and each weight
-// gradient is one GEMM whose K dimension is the rows (weight_grad), each
+// gradient is one GEMM whose K dimension is the rows (bwd_weight_grad), each
 // bias or LayerNorm gradient one column sum. Deterministic, no atomics. All
 // parameter gradients are fp32; activation gradients are in T.
+//
+// The backward's 20 products go through qt::bwd_gemm (gemm_tf32x3.cuh): in
+// fp32 the 3xTF32 tensor-core routine, the weight gradients split along
+// their K (the rows) into a workspace (WS) and summed in a fixed order; in
+// bf16 gemm_tile's WMMA loop. The forward keeps gemm_tile.
 //
 // Rounding: every value the Pallas bodies cast to the activation type is
 // rounded to T at the same place (round_t), so the bf16 kernels agree with
 // their plain PyTorch versions to bf16 rounding; at fp32 it is the identity.
-#include "common.cuh"
+#include "gemm_tf32x3.cuh"
 
 namespace {
 
@@ -52,6 +57,8 @@ enum Buf {
   // backward scratch
   GF, GSRC32, STATS, G_FFN, G_PRE, G_OUT_S, G_OUT_C, G_OUT_Q, G_CTX, G_QQ, G_KVQ, G_QKV, G_QC,
   G_KVC,
+  // the split-K partials of the fp32 products (ws_floats floats)
+  WS,
   NBUF
 };
 
@@ -99,6 +106,8 @@ inline int pad128(int n) { return (n + 127) / 128 * 128; }
 
 #define QT_CHECK()                                   \
   if ((err = cudaGetLastError()) != cudaSuccess) return err
+#define QT_TRY(call)                                 \
+  if ((err = (call)) != cudaSuccess) return err
 
 template <typename T>
 cudaError_t forward(void* const* b, int N, int T_, int S, int D, int heads, cudaStream_t st) {
@@ -175,14 +184,12 @@ cudaError_t attn_block_bwd(const T* g_out, const T* ctx, const T* ow, float* g_o
                            T* g_ctx, qt::Strided<const T> q, qt::Strided<const T> k,
                            qt::Strided<const T> v, qt::Strided<T> gq, qt::Strided<T> gk,
                            qt::Strided<T> gv, const T* keep, long long keep_ld, int N, int T_,
-                           int Sk, int D, int heads, cudaStream_t st) {
+                           int Sk, int D, int heads, qt::BwdPlan& plan, cudaStream_t st) {
   const int R = N * T_, hd = D / heads;
   cudaError_t err;
-  qt::gemm<T, false>(qt::RowLoad<T>{g_out, D}, ow, D, R, D, D,
-                     qt::EpiBias<T>{g_ctx, D, nullptr, false}, st);
-  QT_CHECK();
-  qt::weight_grad<T>(qt::ColLoad<T>{g_out, D}, ctx, D, g_ow, D, D, R, false, st);
-  QT_CHECK();
+  QT_TRY((qt::bwd_gemm<T, false>(qt::RowLoad<T>{g_out, D}, ow, D, R, D, D,
+                                 qt::EpiBias<T>{g_ctx, D, nullptr, false}, plan, st)));
+  QT_TRY(qt::bwd_weight_grad<T>(qt::ColLoad<T>{g_out, D}, ctx, D, g_ow, D, D, R, plan, st));
   qt::col_sum(qt::Val<T>{g_out, D}, R, D, g_ob, false, st);
   QT_CHECK();
   return qt::attention_bwd<T>(q, k, v, {g_ctx, (long long)T_ * D, D}, gq, gk, gv, keep, keep_ld,
@@ -190,7 +197,8 @@ cudaError_t attn_block_bwd(const T* g_out, const T* ctx, const T* ow, float* g_o
 }
 
 template <typename T>
-cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, cudaStream_t st) {
+cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, qt::BwdPlan plan,
+                     cudaStream_t st) {
   auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
   auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
   auto f = [&](Buf i) { return static_cast<float*>(b[i]); };
@@ -199,7 +207,10 @@ cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, cud
   const long long D2 = 2LL * D, D3 = 3LL * D, DD = (long long)D * D;
   float* mean = f(STATS);
   float* rstd = f(STATS) + R;
+  plan.ws = f(WS);
   cudaError_t err;
+  using qt::bwd_gemm;
+  using qt::bwd_weight_grad;
   using qt::ColLoad;
   using qt::RowLoad;
   using qt::Val;
@@ -212,15 +223,13 @@ cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, cud
   qt::col_sum(qt::LnWeightTerm<T, T>{c(X2), c(G), mean, rstd, D}, R, D, f(G_N2_W), false, st);
   qt::col_sum(Val<T>{c(G), D}, R, D, f(G_N2_B), false, st);
   // FFN: linear2, the dropped relu, linear1; g_h1 = g_x2 + g_pre W1 (in GF)
-  qt::gemm<T, false>(RowLoad<T>{c(G_FFN), D}, c(L2_W), D, R, D, D,
-                     EpiReluGradDrop<T>{w(G_PRE), c(HR), c(M_FFN1), D}, st);
-  QT_CHECK();
-  qt::weight_grad<T>(ColLoad<T>{c(G_FFN), D}, c(HDP), D, f(G_L2_W), D, D, R, false, st);
+  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_FFN), D}, c(L2_W), D, R, D, D,
+                             EpiReluGradDrop<T>{w(G_PRE), c(HR), c(M_FFN1), D}, plan, st)));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_FFN), D}, c(HDP), D, f(G_L2_W), D, D, R, plan, st));
   qt::col_sum(Val<T>{c(G_FFN), D}, R, D, f(G_L2_B), false, st);
-  qt::gemm<T, false>(RowLoad<T>{c(G_PRE), D}, c(L1_W), D, R, D, D,
-                     qt::EpiAddF32{f(GF), f(GF), D}, st);
-  QT_CHECK();
-  qt::weight_grad<T>(ColLoad<T>{c(G_PRE), D}, c(H1), D, f(G_L1_W), D, D, R, false, st);
+  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_PRE), D}, c(L1_W), D, R, D, D,
+                             qt::EpiAddF32{f(GF), f(GF), D}, plan, st)));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_PRE), D}, c(H1), D, f(G_L1_W), D, D, R, plan, st));
   qt::col_sum(Val<T>{c(G_PRE), D}, R, D, f(G_L1_B), false, st);
   // LN1: g_x1 (fp32, GSRC32: the residual path into x0) and the three
   // dropped residual gradients; the LN1 parameter grads read g_h1 (GF)
@@ -238,49 +247,50 @@ cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, cud
   err = attn_block_bwd<T>(c(G_OUT_Q), c(QCTX), c(QST_OW), f(G_QST_OW), f(G_QST_OB), w(G_CTX),
                           {c(QQ), TD, D}, {c(KVQ), S * D2, D2}, {c(KVQ) + D, S * D2, D2},
                           {w(G_QQ), TD, D}, {w(G_KVQ), S * D2, D2}, {w(G_KVQ) + D, S * D2, D2},
-                          c(M_QST), ldq, N, T_, S, D, heads, st);
+                          c(M_QST), ldq, N, T_, S, D, heads, plan, st);
   if (err != cudaSuccess) return err;
-  qt::weight_grad<T>(ColLoad<T>{c(G_QQ), D}, c(SRC), D, f(G_QST_W), D, D, R, false, st);
-  qt::weight_grad<T>(ColLoad<T>{c(G_KVQ), D2}, c(WRD), D, f(G_QST_W) + DD, 2 * D, D, RS, false,
-                     st);
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_QQ), D}, c(SRC), D, f(G_QST_W), D, D, R, plan, st));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_KVQ), D2}, c(WRD), D, f(G_QST_W) + DD, 2 * D, D, RS,
+                            plan, st));
   qt::col_sum(Val<T>{c(G_QQ), D}, R, D, f(G_QST_B), false, st);
   qt::col_sum(Val<T>{c(G_KVQ), D2}, RS, 2 * D, f(G_QST_B) + D, false, st);
-  qt::gemm<T, false>(RowLoad<T>{c(G_QQ), D}, c(QST_W), D, R, D, D,
-                     qt::EpiAddF32{f(GSRC32), f(GSRC32), D}, st);
-  qt::gemm<T, false>(RowLoad<T>{c(G_KVQ), D2}, c(QST_W) + DD, D, RS, D, 2 * D,
-                     qt::EpiBias<T>{w(GWRD), D, nullptr, false}, st);
-  QT_CHECK();
+  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_QQ), D}, c(QST_W), D, R, D, D,
+                             qt::EpiAddF32{f(GSRC32), f(GSRC32), D}, plan, st)));
+  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_KVQ), D2}, c(QST_W) + DD, D, RS, D, 2 * D,
+                             qt::EpiBias<T>{w(GWRD), D, nullptr, false}, plan, st)));
   // self attention
   err = attn_block_bwd<T>(c(G_OUT_S), c(SCTX), c(SLF_OW), f(G_SLF_OW), f(G_SLF_OB), w(G_CTX),
                           {c(QKV), T_ * D3, D3}, {c(QKV) + D, T_ * D3, D3},
                           {c(QKV) + 2 * D, T_ * D3, D3}, {w(G_QKV), T_ * D3, D3},
                           {w(G_QKV) + D, T_ * D3, D3}, {w(G_QKV) + 2 * D, T_ * D3, D3},
-                          c(M_SLF), lds, N, T_, T_, D, heads, st);
+                          c(M_SLF), lds, N, T_, T_, D, heads, plan, st);
   if (err != cudaSuccess) return err;
-  qt::weight_grad<T>(ColLoad<T>{c(G_QKV), D3}, c(SRC), D, f(G_SLF_W), 3 * D, D, R, false, st);
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_QKV), D3}, c(SRC), D, f(G_SLF_W), 3 * D, D, R,
+                            plan, st));
   qt::col_sum(Val<T>{c(G_QKV), D3}, R, 3 * D, f(G_SLF_B), false, st);
-  qt::gemm<T, false>(RowLoad<T>{c(G_QKV), D3}, c(SLF_W), D, R, D, 3 * D,
-                     qt::EpiAddF32{f(GSRC32), f(GSRC32), D}, st);
-  QT_CHECK();
+  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_QKV), D3}, c(SLF_W), D, R, D, 3 * D,
+                             qt::EpiAddF32{f(GSRC32), f(GSRC32), D}, plan, st)));
   // cross attention; its q part ends the residual sum and rounds gsrc
   err = attn_block_bwd<T>(c(G_OUT_C), c(CCTX), c(CRS_OW), f(G_CRS_OW), f(G_CRS_OB), w(G_CTX),
                           {c(QC), TD, D}, {c(KVC), T_ * D2, D2}, {c(KVC) + D, T_ * D2, D2},
                           {w(G_QC), TD, D}, {w(G_KVC), T_ * D2, D2}, {w(G_KVC) + D, T_ * D2, D2},
-                          c(M_CRS), lds, N, T_, T_, D, heads, st);
+                          c(M_CRS), lds, N, T_, T_, D, heads, plan, st);
   if (err != cudaSuccess) return err;
-  qt::weight_grad<T>(ColLoad<T>{c(G_QC), D}, c(SRC), D, f(G_CRS_W), D, D, R, false, st);
-  qt::weight_grad<T>(ColLoad<T>{c(G_KVC), D2}, c(VAL), D, f(G_CRS_W) + DD, 2 * D, D, R, false,
-                     st);
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_QC), D}, c(SRC), D, f(G_CRS_W), D, D, R, plan, st));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_KVC), D2}, c(VAL), D, f(G_CRS_W) + DD, 2 * D, D, R,
+                            plan, st));
   qt::col_sum(Val<T>{c(G_QC), D}, R, D, f(G_CRS_B), false, st);
   qt::col_sum(Val<T>{c(G_KVC), D2}, R, 2 * D, f(G_CRS_B) + D, false, st);
-  qt::gemm<T, false>(RowLoad<T>{c(G_QC), D}, c(CRS_W), D, R, D, D,
-                     qt::EpiAddRound<T>{w(GSRC), f(GSRC32), D}, st);
-  qt::gemm<T, false>(RowLoad<T>{c(G_KVC), D2}, c(CRS_W) + DD, D, R, D, 2 * D,
-                     qt::EpiBias<T>{w(GVAL), D, nullptr, false}, st);
-  return cudaGetLastError();
+  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_QC), D}, c(CRS_W), D, R, D, D,
+                             qt::EpiAddRound<T>{w(GSRC), f(GSRC32), D}, plan, st)));
+  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_KVC), D2}, c(CRS_W) + DD, D, R, D, 2 * D,
+                             qt::EpiBias<T>{w(GVAL), D, nullptr, false}, plan, st)));
+  QT_CHECK();
+  return plan.done();
 }
 
 #undef QT_CHECK
+#undef QT_TRY
 
 }  // namespace
 
@@ -291,11 +301,16 @@ extern "C" int qt_avq_train_fwd(int dtype, void* const* bufs, int N, int T, int 
   return forward<__nv_bfloat16>(bufs, N, T, S, D, heads, st);
 }
 
+// plan: `products` rows of (M, N, K, chunk, route), the backward's products
+// in launch order (ops/gemm.py backward_plan), route written here; ws_floats:
+// the room of the WS buffer (fp32 only)
 extern "C" int qt_avq_train_bwd(int dtype, void* const* bufs, int N, int T, int S, int D,
-                                int heads, void* stream) {
+                                int heads, int* plan, int products, long long ws_floats,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return backward<float>(bufs, N, T, S, D, heads, st);
-  return backward<__nv_bfloat16>(bufs, N, T, S, D, heads, st);
+  const qt::BwdPlan bp{plan, products, 0, nullptr, ws_floats};
+  if (dtype == 0) return backward<float>(bufs, N, T, S, D, heads, bp, st);
+  return backward<__nv_bfloat16>(bufs, N, T, S, D, heads, bp, st);
 }
 
 extern "C" int qt_avq_num_buffers() { return NBUF; }

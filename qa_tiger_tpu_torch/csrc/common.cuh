@@ -1,7 +1,7 @@
 // Device code shared by the kernels of this package: type conversion, warp
-// reductions, a block-level tiled GEMM with a pluggable A loader (and the
-// weight-gradient GEMM built on it), the multi-head attention kernel and its
-// backward, the row LayerNorm kernels and LayerNorm backward, column sums.
+// reductions, a block-level tiled GEMM with a pluggable A loader (row- and
+// column-major), the multi-head attention kernel and its backward, the row
+// LayerNorm kernels and LayerNorm backward, column sums.
 //
 // Conventions: activations and parameters arrive in one type T (float or
 // __nv_bfloat16); every sum is taken in fp32; a value is rounded to T where
@@ -1343,14 +1343,6 @@ template <typename TX, typename TG> struct LnWeightTerm {  // f(m, n) = g * xhat
     return to_f<TG>(g[i]) * ((to_f<TX>(x[i]) - mean[m]) * rstd[m]);
   }
 };
-
-// dW (torch layout [O, I], fp32) = sum over rows of G[r, o] * X[r, i]: one GEMM
-// whose K dimension is the rows; G is read through a column-major loader.
-template <typename T, class GLoad>
-inline void weight_grad(const GLoad& gload, const T* X, long long ldx, float* dW, int O, int I,
-                        int rows, bool accumulate, cudaStream_t stream) {
-  gemm<T, false>(gload, X, ldx, O, I, rows, EpiStoreF32{dW, (long long)I, accumulate}, stream);
-}
 
 }  // namespace
 }  // namespace qt

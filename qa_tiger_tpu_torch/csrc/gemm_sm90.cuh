@@ -52,8 +52,15 @@ namespace {
 // The GEMM routine a fused kernel takes for one product: fp32 stays on
 // gemm_tile's FMA loop, bf16 takes gemm_sm90 where N and K are multiples of
 // 8 (TMA's 16-byte rows) and gemm_tile's WMMA loop otherwise. A function of
-// dtype and shape only; nothing falls back at run time.
-enum GemmRoute { GEMM_ROUTE_FMA = 0, GEMM_ROUTE_WMMA = 1, GEMM_ROUTE_WGMMA = 2 };
+// dtype and shape only; nothing falls back at run time. GEMM_ROUTE_TF32X3 is
+// the fp32 tensor-core routine of the train backwards (gemm_tf32x3.cuh,
+// bwd_gemm).
+enum GemmRoute {
+  GEMM_ROUTE_FMA = 0,
+  GEMM_ROUTE_WMMA = 1,
+  GEMM_ROUTE_WGMMA = 2,
+  GEMM_ROUTE_TF32X3 = 3
+};
 
 inline GemmRoute gemm_route(bool bf16, int M, int N, int K) {
   if (!bf16) return GEMM_ROUTE_FMA;

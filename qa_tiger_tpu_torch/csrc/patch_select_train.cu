@@ -29,7 +29,12 @@
 // value gradients added to the video stream's after rounding each, as the
 // Pallas kernel does. Parameter gradients are one GEMM (K = rows) or one
 // column sum each: deterministic, no atomics, fp32.
-#include "common.cuh"
+//
+// The backward's 14 products go through qt::bwd_gemm (gemm_tf32x3.cuh): in
+// fp32 the 3xTF32 tensor-core routine, the weight gradients split along
+// their K (the rows) into a workspace (WS) and summed in a fixed order; in
+// bf16 gemm_tile's WMMA loop. The forward keeps gemm_tile.
+#include "gemm_tf32x3.cuh"
 
 namespace {
 
@@ -49,6 +54,8 @@ enum Buf {
   G_MLP_W1, G_MLP_B1, G_MLP_W2, G_MLP_B2, G_AN_W, G_AN_B, G_VN_W, G_VN_B,
   // backward scratch
   G_REL, STATS, G_PRE1, G_CRS_O, G_CTX, G_QC, G_KV, G_X1, G_SLF, G_QKV,
+  // the split-K partials of the fp32 products (ws_floats floats)
+  WS,
   NBUF
 };
 
@@ -93,6 +100,8 @@ inline int pad128(int n) { return (n + 127) / 128 * 128; }
 
 #define QT_CHECK()                                   \
   if ((err = cudaGetLastError()) != cudaSuccess) return err
+#define QT_TRY(call)                                 \
+  if ((err = (call)) != cudaSuccess) return err
 
 template <typename T>
 cudaError_t forward(void* const* b, int BT, int P, int D, int heads, cudaStream_t st) {
@@ -154,7 +163,8 @@ cudaError_t forward(void* const* b, int BT, int P, int D, int heads, cudaStream_
 }
 
 template <typename T>
-cudaError_t backward(void* const* b, int BT, int P, int D, int heads, cudaStream_t st) {
+cudaError_t backward(void* const* b, int BT, int P, int D, int heads, qt::BwdPlan plan,
+                     cudaStream_t st) {
   auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
   auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
   auto f = [&](Buf i) { return static_cast<float*>(b[i]); };
@@ -164,7 +174,10 @@ cudaError_t backward(void* const* b, int BT, int P, int D, int heads, cudaStream
   const long long BD = (long long)BT * D;
   float* mean = f(STATS);
   float* rstd = f(STATS) + Q2;
+  plan.ws = f(WS);
   cudaError_t err;
+  using qt::bwd_gemm;
+  using qt::bwd_weight_grad;
   using qt::ColLoad;
   using qt::RowLoad;
   using qt::Val;
@@ -185,23 +198,22 @@ cudaError_t backward(void* const* b, int BT, int P, int D, int heads, cudaStream
   }
   QT_CHECK();
   // MLP backward over both streams
-  qt::gemm<T, false>(qt::RoundRowLoad<T>{f(G_REL), D}, c(MLP_W2), Dh, Q2, Dh, D,
-                     EpiReluGradF32<T>{f(G_PRE1), c(HID), Dh}, st);
-  QT_CHECK();
-  qt::weight_grad<T>(qt::RoundColLoad<T>{f(G_REL), D}, c(HID), Dh, f(G_MLP_W2), D, Dh, Q2, false,
-                     st);
+  QT_TRY((bwd_gemm<T, false>(qt::RoundRowLoad<T>{f(G_REL), D}, c(MLP_W2), Dh, Q2, Dh, D,
+                             EpiReluGradF32<T>{f(G_PRE1), c(HID), Dh}, plan, st)));
+  QT_TRY(bwd_weight_grad<T>(qt::RoundColLoad<T>{f(G_REL), D}, c(HID), Dh, f(G_MLP_W2), D, Dh,
+                            Q2, plan, st));
   qt::col_sum(Val<float>{f(G_REL), D}, Q2, D, f(G_MLP_B2), false, st);
-  qt::gemm<T, false>(qt::RoundRowLoad<T>{f(G_PRE1), Dh}, c(MLP_W1), D, Q2, D, Dh,
-                     EpiMaskSplit<T>{w(G_CRS_O), nullptr, c(M_OUT_V), c(M_OUT_A), BT, D}, st);
-  QT_CHECK();
-  qt::weight_grad<T>(qt::RoundColLoad<T>{f(G_PRE1), Dh}, c(CRS_D), D, f(G_MLP_W1), Dh, D, Q2,
-                     false, st);
+  QT_TRY((bwd_gemm<T, false>(qt::RoundRowLoad<T>{f(G_PRE1), Dh}, c(MLP_W1), D, Q2, D, Dh,
+                             EpiMaskSplit<T>{w(G_CRS_O), nullptr, c(M_OUT_V), c(M_OUT_A), BT, D},
+                             plan, st)));
+  QT_TRY(bwd_weight_grad<T>(qt::RoundColLoad<T>{f(G_PRE1), Dh}, c(CRS_D), D, f(G_MLP_W1), Dh,
+                            D, Q2, plan, st));
   qt::col_sum(Val<float>{f(G_PRE1), Dh}, Q2, Dh, f(G_MLP_B1), false, st);
   // cross out_proj and attention, one stream at a time
-  qt::gemm<T, false>(RowLoad<T>{c(G_CRS_O), D}, c(CRS_OW), D, Q2, D, D,
-                     qt::EpiBias<T>{w(G_CTX), D, nullptr, false}, st);
-  QT_CHECK();
-  qt::weight_grad<T>(ColLoad<T>{c(G_CRS_O), D}, c(CTX), D, f(G_CRS_OW), D, D, Q2, false, st);
+  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_CRS_O), D}, c(CRS_OW), D, Q2, D, D,
+                             qt::EpiBias<T>{w(G_CTX), D, nullptr, false}, plan, st)));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_CRS_O), D}, c(CTX), D, f(G_CRS_OW), D, D, Q2,
+                            plan, st));
   qt::col_sum(Val<T>{c(G_CRS_O), D}, Q2, D, f(G_CRS_OB), false, st);
   for (int s = 0; s < 2; ++s) {
     err = qt::attention_bwd<T>({c(Q) + s * BD, D, D}, {c(KV), P * D2, D2},
@@ -212,20 +224,19 @@ cudaError_t backward(void* const* b, int BT, int P, int D, int heads, cudaStream
     if (err != cudaSuccess) return err;
   }
   // cross in_proj: the query half over both streams, the k|v half over patches
-  qt::weight_grad<T>(ColLoad<T>{c(G_QC), D}, c(SRC2), D, f(G_CRS_W), D, D, Q2, false, st);
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_QC), D}, c(SRC2), D, f(G_CRS_W), D, D, Q2, plan, st));
   qt::col_sum(Val<T>{c(G_QC), D}, Q2, D, f(G_CRS_B), false, st);
-  qt::gemm<T, false>(RowLoad<T>{c(G_QC), D}, c(CRS_W), D, Q2, D, D,
-                     EpiSplitRows<T>{w(GVIDEO), w(GAUDIO), BT, D}, st);
-  qt::gemm<T, false>(RowLoad<T>{c(G_KV), D2}, c(CRS_W) + DD, D, R, D, 2 * D,
-                     qt::EpiBias<T>{w(G_X1), D, nullptr, false}, st);
-  QT_CHECK();
-  qt::weight_grad<T>(ColLoad<T>{c(G_KV), D2}, c(X1), D, f(G_CRS_W) + DD, 2 * D, D, R, false, st);
+  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_QC), D}, c(CRS_W), D, Q2, D, D,
+                             EpiSplitRows<T>{w(GVIDEO), w(GAUDIO), BT, D}, plan, st)));
+  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_KV), D2}, c(CRS_W) + DD, D, R, D, 2 * D,
+                             qt::EpiBias<T>{w(G_X1), D, nullptr, false}, plan, st)));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_KV), D2}, c(X1), D, f(G_CRS_W) + DD, 2 * D, D, R,
+                            plan, st));
   qt::col_sum(Val<T>{c(G_KV), D2}, R, 2 * D, f(G_CRS_B) + D, false, st);
   // self out_proj and attention
-  qt::gemm<T, false>(RowLoad<T>{c(G_X1), D}, c(SLF_OW), D, R, D, D,
-                     qt::EpiBias<T>{w(G_SLF), D, nullptr, false}, st);
-  QT_CHECK();
-  qt::weight_grad<T>(ColLoad<T>{c(G_X1), D}, c(SCTX), D, f(G_SLF_OW), D, D, R, false, st);
+  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_X1), D}, c(SLF_OW), D, R, D, D,
+                             qt::EpiBias<T>{w(G_SLF), D, nullptr, false}, plan, st)));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_X1), D}, c(SCTX), D, f(G_SLF_OW), D, D, R, plan, st));
   qt::col_sum(Val<T>{c(G_X1), D}, R, D, f(G_SLF_OB), false, st);
   err = qt::attention_bwd<T>({c(QKV), P * D3, D3}, {c(QKV) + D, P * D3, D3},
                              {c(QKV) + 2 * D, P * D3, D3}, {c(G_SLF), (long long)P * D, D},
@@ -233,15 +244,18 @@ cudaError_t backward(void* const* b, int BT, int P, int D, int heads, cudaStream
                              {w(G_QKV) + 2 * D, P * D3, D3}, c(M_SLF), lk, BT, P, P, heads, hd,
                              scale, true, false, st);
   if (err != cudaSuccess) return err;
-  qt::weight_grad<T>(ColLoad<T>{c(G_QKV), D3}, c(PATCH), D, f(G_SLF_W), 3 * D, D, R, false, st);
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_QKV), D3}, c(PATCH), D, f(G_SLF_W), 3 * D, D, R,
+                            plan, st));
   qt::col_sum(Val<T>{c(G_QKV), D3}, R, 3 * D, f(G_SLF_B), false, st);
   // gpatch = g_x1 + round(g_qkv W_slf)
-  qt::gemm<T, false>(RowLoad<T>{c(G_QKV), D3}, c(SLF_W), D, R, D, 3 * D,
-                     qt::EpiResidual<T>{w(GPATCH), D, nullptr, c(G_X1), D}, st);
-  return cudaGetLastError();
+  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_QKV), D3}, c(SLF_W), D, R, D, 3 * D,
+                             qt::EpiResidual<T>{w(GPATCH), D, nullptr, c(G_X1), D}, plan, st)));
+  QT_CHECK();
+  return plan.done();
 }
 
 #undef QT_CHECK
+#undef QT_TRY
 
 }  // namespace
 
@@ -252,11 +266,16 @@ extern "C" int qt_patch_select_train_fwd(int dtype, void* const* bufs, int BT, i
   return forward<__nv_bfloat16>(bufs, BT, P, D, heads, st);
 }
 
+// plan: `products` rows of (M, N, K, chunk, route), the backward's products
+// in launch order (ops/gemm.py backward_plan), route written here; ws_floats:
+// the room of the WS buffer (fp32 only)
 extern "C" int qt_patch_select_train_bwd(int dtype, void* const* bufs, int BT, int P, int D,
-                                         int heads, void* stream) {
+                                         int heads, int* plan, int products, long long ws_floats,
+                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return backward<float>(bufs, BT, P, D, heads, st);
-  return backward<__nv_bfloat16>(bufs, BT, P, D, heads, st);
+  const qt::BwdPlan bp{plan, products, 0, nullptr, ws_floats};
+  if (dtype == 0) return backward<float>(bufs, BT, P, D, heads, bp, st);
+  return backward<__nv_bfloat16>(bufs, BT, P, D, heads, bp, st);
 }
 
 extern "C" int qt_patch_select_train_num_buffers() { return NBUF; }

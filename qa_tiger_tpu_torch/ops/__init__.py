@@ -11,8 +11,10 @@ run under autograd, from the ``torch.autograd.Function`` of their forward.
 ``fused_resblock`` makes included; ``fused_resblock`` counts its MLP-half
 launches. ``gemm_route`` names the GEMM routine (``gemm_sm90`` or
 ``gemm_tile``) a fused kernel's product takes on the card;
-``fused_attn_ln2``, ``fused_attn_half`` and ``fused_patch_select`` tally
-the route of each product they launch in ``gemm_routes``.
+``fused_attn_ln2``, ``fused_attn_half`` and ``fused_patch_select`` tally the
+route of each product they launch in ``gemm_routes``, and the two train
+backwards tally the routine each of their products reported as it launched
+(``gemm_tf32x3`` in fp32, ``gemm_tile``'s WMMA loop in bf16).
 """
 from qa_tiger_tpu_torch.ops.attention import (
     attention_wide,

@@ -9,7 +9,8 @@ masks (``models.modules.make_avq_dropout_masks``).
 A CUDA tensor runs the forward kernel and, under autograd, the backward
 kernel of ``csrc/avq.cu`` inside one ``torch.autograd.Function``; a CPU
 tensor runs the plain version ``avq_sub_forward_masked``, which autograd
-differentiates.
+differentiates. The backward's fp32 products run on ``gemm_tf32x3``
+(``ops.gemm``), whose routes it tallies in ``fused_avq_train_bwd.gemm_routes``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,14 @@ import torch
 
 from qa_tiger_tpu_torch.nn.core import layer_norm, linear
 from qa_tiger_tpu_torch.ops import _build
+from qa_tiger_tpu_torch.ops.gemm import (
+    aligned16,
+    avq_train_bwd_gemm_shapes,
+    backward_plan,
+    backward_workspace,
+    note_plan_routes,
+    sm_count,
+)
 
 MASK_KEYS = ("qst", "slf", "crs", "d_slf", "d_crs", "d_qst", "ffn1", "ffn2")
 
@@ -74,7 +83,7 @@ BUFFERS = (("src", "val", "wrd") + tuple(f"m_{k}" for k in MASK_KEYS) + WEIGHT_N
            + ("out",) + SAVED + ("g", "gsrc", "gval", "gwrd")
            + tuple(f"g_{n}" for n in WEIGHT_NAMES)
            + ("gf", "gsrc32", "stats", "g_ffn", "g_pre", "g_out_s", "g_out_c", "g_out_q",
-              "g_ctx", "g_qq", "g_kvq", "g_qkv", "g_qc", "g_kvc"))
+              "g_ctx", "g_qq", "g_kvq", "g_qkv", "g_qc", "g_kvc", "ws"))
 
 
 def _shapes(N, T, S, D):
@@ -124,23 +133,33 @@ def fused_avq_train_bwd(src, val, wrd, weights, saved: dict, masks: dict, g, nhe
     def e(*shape, dtype=dt):
         return torch.empty(*shape, dtype=dtype, device=dev)
 
+    shapes = avq_train_bwd_gemm_shapes(N, T, S, D)
+    sms = sm_count(dev)
+    plan = backward_plan(dt, shapes, sms)
+    ws_floats = backward_workspace(dt, shapes, sms)
+    if dt == f32:  # the operands gemm_tf32x3 reads in 16-byte chunks
+        src, val, wrd = aligned16(src), aligned16(val), aligned16(wrd)
+        weights = [aligned16(w) for w in weights]
     grads = [torch.empty(w.shape, dtype=f32, device=dev) for w in weights]
     bufs = dict(src=src, val=val, wrd=wrd, **saved, g=g.to(dt).contiguous(),
                 gsrc=torch.empty_like(src), gval=torch.empty_like(val), gwrd=torch.empty_like(wrd),
                 gf=e(R, D, dtype=f32), gsrc32=e(R, D, dtype=f32), stats=e(2, R, dtype=f32),
                 g_ffn=e(R, D), g_pre=e(R, D), g_out_s=e(R, D), g_out_c=e(R, D), g_out_q=e(R, D),
                 g_ctx=e(R, D), g_qq=e(R, D), g_kvq=e(N * S, 2 * D), g_qkv=e(R, 3 * D),
-                g_qc=e(R, D), g_kvc=e(R, 2 * D))
+                g_qc=e(R, D), g_kvc=e(R, 2 * D),
+                ws=e(ws_floats, dtype=f32) if ws_floats else None)
     bufs.update({f"m_{k}": masks[k] for k in MASK_KEYS})
     bufs.update(zip(WEIGHT_NAMES, weights))
     bufs.update(zip((f"g_{n}" for n in WEIGHT_NAMES), grads))
     _build.launch_table("qt_avq_train_bwd", "qt_avq_num_buffers", BUFFERS, bufs,
-                        N, T, S, D, nhead)
+                        N, T, S, D, nhead, plan.data_ptr(), len(shapes), ws_floats)
     fused_avq_train_bwd.launches += 1
+    note_plan_routes(fused_avq_train_bwd, plan)
     return bufs["gsrc"], bufs["gval"], bufs["gwrd"], grads
 
 
 fused_avq_train_bwd.launches = 0
+fused_avq_train_bwd.gemm_routes = {}  # the GEMM routine of each product launched
 
 
 def fused_avq_train(src: torch.Tensor, val: torch.Tensor, wrd: torch.Tensor, params,

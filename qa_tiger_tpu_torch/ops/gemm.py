@@ -5,27 +5,37 @@ projections on one of two device routines (``csrc/gemm_sm90.cuh``):
 ``gemm_sm90``, a bf16 Hopper GEMM (TMA loads into a ring of shared-memory
 stages, ``wgmma`` products), for every bf16 product whose N and K are
 multiples of 8; ``gemm_tile`` (``csrc/common.cuh``) otherwise, on WMMA in
-bf16 and on an FMA loop in fp32. ``gemm_route`` names the routine a product
-takes. ``gemm_sm90`` here calls the Hopper GEMM alone, through one of the
-epilogues the fused kernels use, so that it can be checked and timed by
-itself; no model path calls it.
+bf16 and on an FMA loop in fp32. The backwards of the two train kernels run
+their fp32 products on ``gemm_tf32x3`` (``csrc/gemm_tf32x3.cuh``: 3xTF32 on
+``mma.sync``, split-K for the weight gradients) and their bf16 ones on
+``gemm_tile``'s WMMA loop. ``gemm_route`` names the routine a fused
+kernel's product takes; a train backward reports its own, product by product,
+in the plan it is launched with (``backward_plan``).
+``gemm_sm90`` and ``gemm_tf32x3`` here call a routine alone, so that it can
+be checked and timed by itself; no model path calls them.
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
 from qa_tiger_tpu_torch.ops import _build
 
-ROUTES = {0: "fma", 1: "wmma", 2: "wgmma"}
+ROUTES = {0: "fma", 1: "wmma", 2: "wgmma", 3: "tf32x3"}
 EPILOGUES = {"bias": 0, "residual": 1, "f32": 2}
+# gemm_tf32x3's output tile (BM, BN) and K slab (csrc/gemm_tf32x3.cuh TF_BM,
+# TF_BN, TF_BK; the routine refuses a chunk that is not a multiple of the
+# slab), and the fewest slabs a split-K chunk holds
+TF32X3_TILE = (128, 128, 32)
+MIN_SPLIT_SLABS = 16
 
 
 def gemm_route(dtype: torch.dtype, m: int, n: int, k: int) -> str:
     """The routine a fused kernel's [m, k] x [n, k] product takes on the
-    card: "wgmma" (``gemm_sm90``), "wmma" or "fma" (``gemm_tile``). Asks
-    the kernel library, so it builds it on first use."""
+    card: "wgmma" (``gemm_sm90``), "wmma" or "fma" (``gemm_tile``). Asks the
+    kernel library, so it builds it on first use."""
     return _route(_build.dtype_code(dtype), m, n, k)
 
 
@@ -51,22 +61,140 @@ def patch_select_gemm_shapes(frames: int, patches: int, width: int) -> list:
             (queries, width // 2, width), (queries, width, width // 2)]
 
 
+def patch_select_train_bwd_gemm_shapes(frames: int, patches: int, width: int) -> list:
+    """(M, N, K) of the 14 products of one ``fused_patch_select_train``
+    backward (``csrc/patch_select_train.cu``), in launch order, a weight
+    gradient's M its output rows and K the rows it sums over: the MLP's
+    two layers (dgrad, dW each), the cross out_proj (dgrad, dW), the cross
+    in_proj's query half (dW, dgrad into video and audio) and k|v half
+    (dgrad into x1, dW) over the 2 query rows per frame and the patch rows,
+    the self out_proj (dgrad, dW) and in_proj (dW, dgrad into the patches)."""
+    rows, queries, d, dh = frames * patches, 2 * frames, width, width // 2
+    return [(queries, dh, d), (d, dh, queries), (queries, d, dh), (dh, d, queries),
+            (queries, d, d), (d, d, queries), (d, d, queries), (queries, d, d),
+            (rows, d, 2 * d), (2 * d, d, rows), (rows, d, d), (d, d, rows),
+            (3 * d, d, rows), (rows, d, 3 * d)]
+
+
+def avq_train_bwd_gemm_shapes(n: int, t: int, s: int, width: int) -> list:
+    """(M, N, K) of the 20 products of one ``fused_avq_train`` backward
+    (``csrc/avq.cu``) over n batch rows of t frames and s words, in launch
+    order: linear2 and linear1 (dgrad, dW each); then per attention block
+    (question-guided, self, cross) its out_proj (dgrad, dW) and in_proj
+    (the question block: q dW, k|v dW over the words, dgrads into src and
+    the words; self: qkv dW, dgrad into src; cross: q dW, k|v dW, dgrads
+    into src and the other stream)."""
+    rows, words, d = n * t, n * s, width
+    out_proj = [(rows, d, d), (d, d, rows)]
+    return ([(rows, d, d), (d, d, rows), (rows, d, d), (d, d, rows)]
+            + out_proj + [(d, d, rows), (2 * d, d, words), (rows, d, d), (words, d, 2 * d)]
+            + out_proj + [(3 * d, d, rows), (rows, d, 3 * d)]
+            + out_proj + [(d, d, rows), (2 * d, d, rows), (rows, d, d), (rows, d, 2 * d)])
+
+
 def note_routes(kernel, dtype: torch.dtype, shapes) -> None:
     """Adds one to ``kernel.gemm_routes[route]`` for the route each of a
     launch's products takes, so that a run can show which routine its
     calls went through (``ops.reset_launches`` clears it)."""
-    for m, n, k in shapes:
-        route = gemm_route(dtype, m, n, k)
+    _tally(kernel, (gemm_route(dtype, m, n, k) for m, n, k in shapes))
+
+
+def note_plan_routes(kernel, plan: torch.Tensor) -> None:
+    """``note_routes`` for a train backward: the routes it wrote into its
+    plan (``backward_plan``) as it launched each product."""
+    _tally(kernel, (ROUTES[code] for code in plan[:, 4].tolist()))
+
+
+def _tally(kernel, routes) -> None:
+    for route in routes:
         kernel.gemm_routes[route] = kernel.gemm_routes.get(route, 0) + 1
+
+
+class SplitK(NamedTuple):
+    """How ``gemm_tf32x3`` cuts K: ``splits`` chunks of ``chunk`` rows (a
+    multiple of the K slab; the last may be shorter), ``workspace`` fp32
+    partials [splits, M, N] (0 without a split)."""
+    splits: int
+    chunk: int
+    workspace: int
+
+
+def splitk_request(m: int, n: int, k: int, sms: int) -> int:
+    """The chunks the train backwards ask for on a card of ``sms`` SMs: 1
+    where the output's 128 x 128 tiles fill the SMs once; else, counting up
+    over the counts that leave each chunk at least MIN_SPLIT_SLABS K slabs,
+    each count whose waves of blocks (one per SM) per chunk,
+    ceil(tiles S / sms) / S, are at least 5% fewer than the last one taken:
+    1536 x 512 (48 tiles) over 26,880 rows takes 8 chunks in 3 waves (0.375
+    of K per SM), not 2 in one wave of 96 blocks (0.5), and 512 x 512 takes
+    8 in one wave, not 33 in 4 for 3% less."""
+    bm, bn, bk = TF32X3_TILE
+    tiles = -(-m // bm) * -(-n // bn)
+    if sms <= 0 or tiles >= sms:
+        return 1
+    best, best_waves = 1, 1
+    for s in range(2, -(-k // bk) // MIN_SPLIT_SLABS + 1):
+        waves = -(-tiles * s // sms)
+        if waves * best * 20 < best_waves * s * 19:
+            best, best_waves = s, waves
+    return best
+
+
+def splitk_plan(m: int, n: int, k: int, sms: int, want: int | None = None) -> SplitK:
+    """K cut into at most ``want`` chunks of whole slabs (default: the
+    backwards' ``splitk_request``), as the routine cuts it."""
+    bk = TF32X3_TILE[2]
+    want = splitk_request(m, n, k, sms) if want is None else want
+    slabs = -(-k // bk)
+    want = max(1, min(want, slabs))
+    per = -(-slabs // want)
+    splits = -(-slabs // per)
+    return SplitK(splits, per * bk, splits * m * n if splits > 1 else 0)
+
+
+def backward_plan(dtype: torch.dtype, shapes, sms: int) -> torch.Tensor:
+    """The plan a train backward is launched with: one int32 row (M, N, K,
+    chunk, route) per product, in launch order; chunk from ``splitk_plan``
+    in fp32 (0 in bf16, whose products do not split), route -1 until the
+    backward writes the ``ROUTES`` code of the routine it launched. The
+    backward refuses a product the plan does not name and a plan with rows
+    left over."""
+    rows, _ = _backward_plan(dtype == torch.float32, tuple(shapes), sms)
+    return torch.tensor(rows, dtype=torch.int32).reshape(-1, 5)
+
+
+def backward_workspace(dtype: torch.dtype, shapes, sms: int) -> int:
+    """Floats of split-K workspace one train backward needs: the largest
+    plan of its products (they run in order on one stream and share it);
+    0 in bf16, whose products do not split."""
+    return _backward_plan(dtype == torch.float32, tuple(shapes), sms)[1]
+
+
+@functools.lru_cache(maxsize=64)
+def _backward_plan(fp32: bool, shapes: tuple, sms: int) -> tuple:
+    """(rows, workspace floats) of ``backward_plan``, computed once per
+    backward shape: a launch adds no planning to the host's share."""
+    plans = [splitk_plan(m, n, k, sms) for m, n, k in shapes]
+    rows = [(m, n, k, plan.chunk if fp32 else 0, -1) for (m, n, k), plan in zip(shapes, plans)]
+    return rows, (max((plan.workspace for plan in plans), default=0) if fp32 else 0)
+
+
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where a 16-byte load (TMA, cp.async) can read it (a 16-byte
+    aligned base), else an aligned contiguous copy: alignment never decides
+    a route or makes a fused kernel or a train backward raise."""
+    return t.clone(memory_format=torch.contiguous_format) if t.data_ptr() % 16 else t
 
 
 def tma_ready(t: torch.Tensor) -> torch.Tensor:
     """``t`` where TMA can read it (a 16-byte aligned base), else an
     aligned contiguous copy: alignment never decides a route or makes a call
     raise. Only bf16 tensors feed TMA."""
-    if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-        return t.clone(memory_format=torch.contiguous_format)
-    return t
+    return aligned16(t) if t.dtype == torch.bfloat16 else t
 
 
 def gemm_plain(a, b, *, epilogue: str = "bias", bias=None, res=None, relu: bool = False):
@@ -120,3 +248,67 @@ def gemm_sm90(a: torch.Tensor, b: torch.Tensor, *, epilogue: str = "bias",
 
 
 gemm_sm90.launches = 0
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo as ``gemm_tf32x3`` splits an fp32 operand: hi = x with
+    its 13 low mantissa bits rounded away (to nearest, ties away from zero,
+    as cvt.rna.tf32.f32), lo = the same rounding of x - hi. hi + lo is x to
+    within 2^-22 of |x|; ±0 and ±inf keep their value in hi (lo of ±inf is
+    NaN, inf - inf, as on the card)."""
+    hi = _round_tf32(x.float())
+    return hi, _round_tf32(x.float() - hi)
+
+
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    bits = x.contiguous().view(torch.int32)
+    # half of the lowest kept bit added to the magnitude, the 13 bits cleared
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isnan(x), x, rounded)
+
+
+def gemm_tf32x3_plain(a: torch.Tensor, b: torch.Tensor, *, a_col_major: bool = False,
+                      b_nk: bool = False) -> torch.Tensor:
+    """Plain version of ``gemm_tf32x3``: both operands split by
+    ``tf32_split``, then lo·hi + hi·lo + hi·hi as three fp32 products (each
+    hi·hi or lo·hi term is exact in fp32; TF32 off)."""
+    am = a.t() if a_col_major else a
+    bm = b.t() if b_nk else b
+    ah, al = tf32_split(am)
+    bh, bl = tf32_split(bm)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def gemm_tf32x3(a: torch.Tensor, b: torch.Tensor, *, a_col_major: bool = False,
+                b_nk: bool = False, splits: int | None = None) -> torch.Tensor:
+    """C [M, N] = A B in fp32 on ``gemm_tf32x3`` for CUDA tensors and
+    ``gemm_tf32x3_plain`` for CPU tensors. ``a`` holds A as [M, K] or, with
+    ``a_col_major``, as [K, M] (A = a^T); ``b`` holds B as [K, N] or, with
+    ``b_nk``, as [N, K]. Both need unit stride along their last dimension;
+    the routine also needs 16-byte aligned bases and row strides that are
+    multiples of 4, and raises on others. K is cut into at most ``splits``
+    chunks (default: the backwards' ``splitk_request``), as ``splitk_plan``
+    plans them."""
+    if a.device.type == "cpu":
+        return gemm_tf32x3_plain(a, b, a_col_major=a_col_major, b_nk=b_nk)
+    if b.device != a.device:
+        raise ValueError(f"gemm_tf32x3: a is on {a.device}, b on {b.device}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError("gemm_tf32x3 takes float32 operands")
+    if a.dim() != 2 or b.dim() != 2 or a.stride(1) != 1 or b.stride(1) != 1:
+        raise ValueError("gemm_tf32x3 takes 2-d operands with unit stride along the last dim")
+    m, k = (a.shape[1], a.shape[0]) if a_col_major else tuple(a.shape)
+    n, kb = tuple(b.shape) if b_nk else (b.shape[1], b.shape[0])
+    if kb != k:
+        raise ValueError(f"gemm_tf32x3: A has K = {k}, B has {kb}")
+    plan = splitk_plan(m, n, k, sm_count(a.device), splits)
+    ws = torch.empty(plan.workspace, device=a.device) if plan.workspace else None
+    out = torch.empty(m, n, device=a.device)
+    _build.launch("qt_gemm_tf32x3", a.data_ptr(), a.stride(0), int(a_col_major), b.data_ptr(),
+                  b.stride(0), int(b_nk), out.data_ptr(), n, m, n, k, plan.chunk,
+                  _build.ptr(ws), plan.workspace)
+    gemm_tf32x3.launches += 1
+    return out
+
+
+gemm_tf32x3.launches = 0

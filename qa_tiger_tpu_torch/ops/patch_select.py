@@ -12,7 +12,9 @@ LayerNorm per stream.
   same module under three explicit dropout masks
   (``models.modules.make_patch_dropout_masks``), a CUDA forward and a CUDA
   backward kernel (``csrc/patch_select_train.cu``) in one
-  ``torch.autograd.Function``.
+  ``torch.autograd.Function``. The backward's fp32 products run on
+  ``gemm_tf32x3`` (``ops.gemm``); it tallies their routes in
+  ``fused_patch_select_train_bwd.gemm_routes``.
 
 A CPU tensor takes the plain version ``patch_selecter_plain`` (the port of
 ``patch_selecter_jnp``, its ``masks=`` path included), which autograd
@@ -28,7 +30,17 @@ import torch
 from qa_tiger_tpu_torch.nn.core import layer_norm, linear, mlp2
 from qa_tiger_tpu_torch.ops import _build, _grad
 from qa_tiger_tpu_torch.ops.attention import _wide_reference
-from qa_tiger_tpu_torch.ops.gemm import note_routes, patch_select_gemm_shapes, tma_ready
+from qa_tiger_tpu_torch.ops.gemm import (
+    aligned16,
+    backward_plan,
+    backward_workspace,
+    note_plan_routes,
+    note_routes,
+    patch_select_gemm_shapes,
+    patch_select_train_bwd_gemm_shapes,
+    sm_count,
+    tma_ready,
+)
 
 
 def patch_selecter_plain(params, patch, audio, video, *, nhead: int = 8,
@@ -187,7 +199,7 @@ TRAIN_BUFFERS = (("patch", "video", "audio") + tuple(f"m_{k}" for k in MASK_KEYS
                  + ("ga", "gv", "gpatch", "gvideo", "gaudio")
                  + tuple(f"g_{n}" for n in WEIGHT_NAMES)
                  + ("g_rel", "stats", "g_pre1", "g_crs_o", "g_ctx", "g_qc", "g_kv", "g_x1",
-                    "g_slf", "g_qkv"))
+                    "g_slf", "g_qkv", "ws"))
 
 
 class _PatchSelectTrain(torch.autograd.Function):
@@ -237,6 +249,13 @@ def fused_patch_select_train_bwd(patch, audio, video, weights, saved: dict, mask
         return torch.empty(*shape, dtype=dtype, device=dev)
 
     f32 = torch.float32
+    shapes = patch_select_train_bwd_gemm_shapes(BT, P, D)
+    sms = sm_count(dev)
+    plan = backward_plan(dt, shapes, sms)
+    ws_floats = backward_workspace(dt, shapes, sms)
+    if dt == f32:  # the operands gemm_tf32x3 reads in 16-byte chunks
+        patch = aligned16(patch)
+        weights = [aligned16(w) for w in weights]
     grads = [torch.empty(w.shape, dtype=f32, device=dev) for w in weights]
     bufs = dict(patch=patch, video=video, audio=audio, **saved,
                 ga=ga.to(dt).contiguous(), gv=gv.to(dt).contiguous(),
@@ -244,17 +263,20 @@ def fused_patch_select_train_bwd(patch, audio, video, weights, saved: dict, mask
                 g_rel=e(2 * BT, D, dtype=f32), stats=e(2, 2 * BT, dtype=f32),
                 g_pre1=e(2 * BT, D // 2, dtype=f32), g_crs_o=e(2 * BT, D), g_ctx=e(2 * BT, D),
                 g_qc=e(2 * BT, D), g_kv=e(R, 2 * D), g_x1=e(R, D), g_slf=e(R, D),
-                g_qkv=e(R, 3 * D))
+                g_qkv=e(R, 3 * D), ws=e(ws_floats, dtype=f32) if ws_floats else None)
     bufs.update({f"m_{k}": masks[k] for k in MASK_KEYS})
     bufs.update(zip(WEIGHT_NAMES, weights))
     bufs.update(zip((f"g_{n}" for n in WEIGHT_NAMES), grads))
     _build.launch_table("qt_patch_select_train_bwd", "qt_patch_select_train_num_buffers",
-                        TRAIN_BUFFERS, bufs, BT, P, D, nhead)
+                        TRAIN_BUFFERS, bufs, BT, P, D, nhead, plan.data_ptr(), len(shapes),
+                        ws_floats)
     fused_patch_select_train_bwd.launches += 1
+    note_plan_routes(fused_patch_select_train_bwd, plan)
     return bufs["gpatch"], bufs["gaudio"], bufs["gvideo"], grads
 
 
 fused_patch_select_train_bwd.launches = 0
+fused_patch_select_train_bwd.gemm_routes = {}  # the GEMM routine of each product launched
 
 
 def fused_patch_select_train(patch: torch.Tensor, audio: torch.Tensor, video: torch.Tensor,

@@ -431,12 +431,21 @@ def test_mask_cotangent_card_equals_cpu(cuda, name):
         assert err <= TOL[torch.float32] * max(1.0, w.abs().max().item()), err
 
 
-def _train_case(kind, dtype, cuda, rng):
+# a train kernel pair's (N, T, S) for "avq", (B, T, P) for "patch_select":
+# the train recipe's (B = 32: N = 64 AVQ rows, 32 x 60 PatchSelecter
+# frames), and row counts that are not multiples of 4 (AVQ: 15 rows over
+# 231 words; PatchSelecter: 6 query rows over 42 patch rows)
+RECIPE_DIMS = {"avq": (64, 60, 77), "patch_select": (32, 60, 14)}
+RAGGED_DIMS = {"avq": (3, 5, 77), "patch_select": (1, 3, 14)}
+
+
+def _train_case(kind, dtype, cuda, rng, dims=None):
+    """A train kernel pair's inputs at a small shape, or at ``dims``."""
     gen = torch.Generator().manual_seed(0)
     mgen = torch.Generator(device=cuda).manual_seed(1)
     D, H = 512, 8
     if kind == "avq":
-        N, T, S = 4, 6, 9
+        N, T, S = dims or (4, 6, 9)
         mod = AVQCrossAttn(D, gen).to(cuda, dtype)
         acts = [_leaf(_rn(rng, N, T, D, dtype=dtype)), _leaf(_rn(rng, N, T, D, dtype=dtype)),
                 _leaf(_rn(rng, N, S, D, dtype=dtype))]
@@ -446,7 +455,7 @@ def _train_case(kind, dtype, cuda, rng):
         plain = lambda m, a, mk: AV.avq_sub_forward_masked(m, *a, mk, nhead=H)  # noqa: E731
         counters = (AV.fused_avq_train, AV.fused_avq_train_bwd)
     else:
-        B, T, P = 2, 4, 14
+        B, T, P = dims or (2, 4, 14)
         mod = PatchSelecter(D, gen).to(cuda, dtype)
         acts = [_leaf(_rn(rng, B, T, P, D, dtype=dtype)), _leaf(_rn(rng, B, T, D, dtype=dtype)),
                 _leaf(_rn(rng, B, T, D, dtype=dtype))]
@@ -586,3 +595,147 @@ def test_fused_patch_select_on_the_gemm_route(cuda, b, t, dtype):
     _check(lambda: PS.fused_patch_select(patch, audio, video, ps, 8),
            lambda: PS.patch_selecter_plain(ps, patch, audio, video, nhead=8), dtype)
     assert PS.fused_patch_select.launches == n + 1
+
+
+# ---------------------------------------------------------------------------
+# the fp32 tensor-core GEMM of the train backwards (gemm_tf32x3: 3xTF32)
+# ---------------------------------------------------------------------------
+
+# ragged extents, the AVQ rows (3,840) and the patch rows (26,880); M x K is
+# kept to the largest backward operand
+TF32X3_SHAPES = [(m, n, k) for m in (1, 127, 129, 3840, 26880) for n in (1, 127, 512)
+                 for k in (1, 129, 3840, 26880) if m * k <= 26880 * 1536]
+
+
+def _padded(rng, rows, cols, cuda):
+    """A [rows, cols] fp32 view with unit column stride and a row stride of
+    cols rounded up to a multiple of 4, plus 4 (a 16-byte aligned base)."""
+    ld = -(-cols // 4) * 4 + 4
+    buf = torch.from_numpy(rng.standard_normal((rows, ld), dtype=np.float32)).to(cuda)
+    return buf[:, :cols]
+
+
+@pytest.mark.parametrize("splits", [None, 1])
+@pytest.mark.parametrize("a_col_major,b_nk", [(False, False), (True, False), (False, True),
+                                              (True, True)])
+@pytest.mark.parametrize("m,n,k", TF32X3_SHAPES)
+def test_gemm_tf32x3(cuda, m, n, k, a_col_major, b_nk, splits):
+    """gemm_tf32x3 against its plain version (the same split, three fp32
+    products) and against the fp64 product, both within 1e-4 * max(1,
+    max|ref|), in both A and both B layouts, with the backwards' split-K
+    plan and with K whole."""
+    rng = np.random.default_rng(m + 3 * n + 7 * k)
+    a = _padded(rng, k, m, cuda) if a_col_major else _padded(rng, m, k, cuda)
+    b = _padded(rng, n, k, cuda) if b_nk else _padded(rng, k, n, cuda)
+    kw = dict(a_col_major=a_col_major, b_nk=b_nk)
+    launches = GM.gemm_tf32x3.launches
+    got = GM.gemm_tf32x3(a, b, splits=splits, **kw)
+    want = GM.gemm_tf32x3_plain(a, b, **kw)
+    ref = (a.double().t() if a_col_major else a.double()) @ (b.double().t() if b_nk
+                                                              else b.double())
+    torch.cuda.synchronize()
+    assert GM.gemm_tf32x3.launches == launches + 1
+    assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
+    assert torch.isfinite(got).all()
+    for target in (want.double(), ref):
+        err = (got.double() - target).abs().max().item()
+        assert err <= TOL[torch.float32] * max(1.0, target.abs().max().item()), err
+
+
+@pytest.mark.parametrize("splits", [2, 3, 8, 50])
+def test_gemm_tf32x3_forced_splits_are_deterministic(cuda, splits):
+    """An explicit split-K: the same result as K whole to fp32 summation
+    order, and bitwise the same from call to call (a fixed-order sum of the
+    partials, no atomics)."""
+    rng = np.random.default_rng(splits)
+    a, b = _padded(rng, 26880, 512, cuda), _padded(rng, 26880, 512, cuda)
+    one = GM.gemm_tf32x3(a, b, a_col_major=True, splits=1)
+    first = GM.gemm_tf32x3(a, b, a_col_major=True, splits=splits)
+    second = GM.gemm_tf32x3(a, b, a_col_major=True, splits=splits)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    err = (first - one).abs().max().item()
+    assert err <= TOL[torch.float32] * max(1.0, one.abs().max().item()), err
+
+
+def test_gemm_tf32x3_raises_on_misaligned_operands(cuda):
+    """The routine reads 16-byte chunks: a base off 16 bytes or a row
+    stride not a multiple of 4 floats is refused (cudaErrorInvalidValue),
+    never rerouted; operands on two devices are refused before a launch."""
+    buf = torch.randn(257 * 132, device=cuda)
+    good = buf[:256 * 132].view(256, 132)[:, :128]
+    off = buf[1:1 + 256 * 132].view(256, 132)[:, :128]  # base 4 bytes off
+    odd = buf[:256 * 129].view(256, 129)[:, :128]       # row stride 129
+    GM.gemm_tf32x3(good, good, b_nk=True)
+    with pytest.raises(ValueError, match="on cpu"):
+        GM.gemm_tf32x3(good, good.cpu(), b_nk=True)
+    for a, b in ((off, good), (good, off), (odd, good), (good, odd)):
+        n = GM.gemm_tf32x3.launches
+        with pytest.raises(RuntimeError, match="qt_gemm_tf32x3"):
+            GM.gemm_tf32x3(a, b, b_nk=True)
+        assert GM.gemm_tf32x3.launches == n
+
+
+@pytest.mark.parametrize("fault", ["short", "long", "wrong"])
+@pytest.mark.parametrize("kind", ["avq", "patch_select"])
+def test_train_backward_refuses_a_plan_it_does_not_launch(cuda, kind, fault, monkeypatch):
+    """A backward checks each product against its plan (``backward_plan``):
+    a plan one product short, one product long, or with a wrong M is
+    refused (cudaErrorInvalidValue) and the wrapper raises."""
+    mod, acts, masks, cots, kernel, _, _ = _train_case(
+        kind, torch.float32, cuda, np.random.default_rng(9))
+    owner, name = (AV, "avq_train_bwd_gemm_shapes") if kind == "avq" else (
+        PS, "patch_select_train_bwd_gemm_shapes")
+    shapes = getattr(owner, name)
+
+    def faulty(*args):
+        got = shapes(*args)
+        if fault == "short":
+            return got[:-1]
+        if fault == "long":
+            return got + got[-1:]
+        return [(got[0][0] + 4,) + tuple(got[0][1:])] + got[1:]
+
+    monkeypatch.setattr(owner, name, faulty)
+    outs = kernel(mod, acts, masks)
+    with pytest.raises(RuntimeError, match="train_bwd"):
+        torch.autograd.grad(outs, acts + list(mod.parameters()), cots)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["avq", "patch_select"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_train_backward_routes(cuda, kind, dtype, ragged):
+    """The routes one backward launch reports: all 14 or 20 products on
+    tf32x3 in fp32, on gemm_tile's WMMA loop in bf16, at row counts that
+    are multiples of 4 and at ones that are not."""
+    mod, acts, masks, cots, kernel, _, (_, bwd) = _train_case(
+        kind, dtype, cuda, np.random.default_rng(7), RAGGED_DIMS[kind] if ragged else None)
+    bwd.gemm_routes = {}
+    outs = kernel(mod, acts, masks)
+    torch.autograd.grad(outs, acts + list(mod.parameters()), cots)
+    torch.cuda.synchronize()
+    count = 20 if kind == "avq" else 14
+    assert bwd.gemm_routes == {"tf32x3" if dtype == torch.float32 else "wmma": count}
+
+
+@pytest.mark.parametrize("dims", [RECIPE_DIMS, RAGGED_DIMS], ids=["recipe", "ragged"])
+@pytest.mark.parametrize("kind", ["avq", "patch_select"])
+def test_train_backward_bitwise_deterministic(cuda, kind, dims):
+    """Two backward launches of each train kernel in fp32, at the recipe
+    shape and at row counts that are not multiples of 4, give bitwise the
+    same input and parameter gradients, and agree with the plain version at
+    1e-4 * max(1, max|p|)."""
+    mod, acts, masks, cots, kernel, plain, _ = _train_case(
+        kind, torch.float32, cuda, np.random.default_rng(8), dims[kind])
+    ins = acts + list(mod.parameters())
+    outs = kernel(mod, acts, masks)
+    first = torch.autograd.grad(outs, ins, cots, retain_graph=True)
+    second = torch.autograd.grad(outs, ins, cots)
+    want = torch.autograd.grad(plain(mod, acts, masks), ins, cots)
+    torch.cuda.synchronize()
+    for i, (g1, g2, w) in enumerate(zip(first, second, want)):
+        assert torch.equal(g1, g2), i
+        err = (g1.float() - w.float()).abs().max().item()
+        assert err <= TOL[torch.float32] * max(1.0, w.float().abs().max().item()), (i, err)
