@@ -19,31 +19,37 @@ Phases, in order; any failure ends the run with a non-zero exit:
    [3072, 77, 64] causal and the packed route's [122880, 14, 64], and
    ``fused_attn_half`` and ``fused_resblock`` at [256, 77, 768] causal) in
    bf16 and at a small fp32 shape, with their gradients and the mask
-   cotangents of the four wrappers that give one; prints kernel, plain and
+   cotangents of the four wrappers that give one; ``fused_gaussian_moe``
+   also in fp32 at the train step's shapes (x[32], x[64]), timed, and at
+   every timed shape twice, bitwise the same; prints kernel, plain and
    library times beside the card's bound, the kernel's achieved TFLOP/s,
    for each kernel that runs ``qt::attention`` the route its dispatch took
    ("mma": bf16 tensor cores, "fma": fp32 FMAs), and for fused_attn_ln2,
-   fused_attn_half and fused_patch_select the GEMM routine of their
-   products ("wgmma": gemm_sm90, "wmma"/"fma": gemm_tile); then the Hopper
+   fused_attn_half, fused_patch_select and fused_gaussian_moe the GEMM
+   routines of their products ("wgmma": gemm_sm90 or the MoE's wgmma
+   kernel, "tf32x3": 3xTF32, "wmma"/"fma": gemm_tile); then the Hopper
    GEMM alone at every distinct product shape of the four paths, against
    its plain version, timed beside its bound and ``torch.matmul``; then the
    train backwards' fp32 GEMM (``gemm_tf32x3``: 3xTF32 on tensor cores,
    split-K) alone at every product shape of the two backwards at B=32,
    against its plain version and the fp64 product, timed beside its bound
    and fp32 ``torch.matmul``; the fp32 recipe-shape train kernels run twice
-   and must repeat bitwise;
+   and must repeat bitwise, and the PatchSelecter train forward's seven
+   products must take tf32x3 in fp32 and wgmma in bf16;
 4. serving — the Predictor at configs/qa-tiger/vitl14.py with weights from
    a seed: (a) fp32 logits at B=4 against the same state_dict run through
    the plain versions on the CPU; (b) the bf16 B=256 path through
    ``answer``, with every launch counter reset just before and read just
    after (every product of fused_attn_ln2 and fused_patch_select on
-   gemm_sm90), then qa/s from the median of timed forwards; (c) 8 requests
+   gemm_sm90, each fused_gaussian_moe call's on wgmma and tf32x3), then
+   qa/s from the median of timed forwards; (c) 8 requests
    answered, their top-5 answer names printed;
 5. training — AVQARunner at the same config: (a) one fp32 B=4 step with
    dropout off, card against CPU (loss, updated parameters, gradients);
    (b) the recipe, fp32 B=32 with dropout: 3 warm-up steps, the launch
    counters reset around one step (every product of the two train
-   backwards on gemm_tf32x3), 10 timed steps, losses, peak memory;
+   backwards, the PatchSelecter train forward and the two MoE calls on
+   gemm_tf32x3), 10 timed steps, losses, peak memory;
    (c) ``evaluate`` over two batches, with its accuracy report;
 6. raw media — ``pipeline.e2e`` at full width (CLIP ViT-L/14@336px, ToMe
    vit_large_patch16_384 at r=[25]*23, VGGish, the QA-TIGER config):
@@ -199,7 +205,6 @@ def kernel_cases(dtype, B: int, rng, gen):
     from qa_tiger_tpu_torch.models.modules import PatchSelecter
     from qa_tiger_tpu_torch.ops import attention as A
     from qa_tiger_tpu_torch.ops import gemm as GM
-    from qa_tiger_tpu_torch.ops import gaussian_moe as G
     from qa_tiger_tpu_torch.ops import patch_select as PS
     from qa_tiger_tpu_torch.ops import resblock as R
 
@@ -253,11 +258,31 @@ def kernel_cases(dtype, B: int, rng, gen):
                   lambda: PS.fused_patch_select(patch, audio, video, ps, heads),
                   lambda: PS.patch_selecter_plain(ps, patch, audio, video, nhead=heads),
                   None, nbytes, flops, {"gemm": GM.patch_select_gemm_shapes(BT, P, D)}))
+    return cases + moe_cases(dtype, B, rng)
 
-    # TempMoE: audio over B rows, both visual streams over 2B rows
-    E, Hd = 7, D // 2
+
+def moe_cases(dtype, B: int, rng):
+    """fused_gaussian_moe's two calls per TempMoE forward: the audio stream
+    over B rows, both visual streams stacked over 2B rows. The line names
+    the routes of its two products (``moe_route``'s for the hidden product,
+    tf32x3 for the second); an fp32 call's bound is its operations over the
+    3xTF32 peak, the FMA peak's beside it."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import gaussian_moe as G
+
+    dev, D, E = "cuda", 512, 7
+    Hd = D // 2
+    isz = torch.tensor([], dtype=dtype).element_size()
+
+    def rn(*shape, scale=1.0):
+        return torch.from_numpy(
+            (scale * rng.standard_normal(shape, dtype=np.float32))).to(dev, dtype)
+
     w1t, b1 = rn(E, D, Hd, scale=0.05), rn(E, Hd, scale=0.1)
     w2t, b2 = rn(E, Hd, D, scale=0.05), rn(E, D, scale=0.1)
+    routes = sorted({G.moe_route(dtype, D), "tf32x3"})
+    cases = []
     for b in (B, 2 * B):
         xm = rn(b, T, D)
         w = torch.from_numpy(0.05 * rng.random((b, E, T), dtype=np.float32)).to(dev, dtype)
@@ -266,7 +291,9 @@ def kernel_cases(dtype, B: int, rng, gen):
         cases.append(("fused_gaussian_moe", f"x[{b},{T},{D}] E{E} H{Hd}",
                       lambda xm=xm, w=w: G.fused_gaussian_moe(xm, w1t, b1, w2t, b2, w),
                       lambda xm=xm, w=w: G._reference_impl(xm, w1t, b1, w2t, b2, w),
-                      None, nbytes, flops))
+                      None, nbytes, flops,
+                      {"routes": routes,
+                       "peak": "tf32x3" if dtype == torch.float32 else "bfloat16"}))
     return cases
 
 
@@ -335,7 +362,7 @@ def op_kernel_cases(dtype, B: int, rng, gen):
     return cases
 
 
-def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) -> None:
+def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) -> dict:
     """One kernel against its plain version on the same inputs; with
     ``timed``, kernel, plain and library times beside the bound and the
     kernel's achieved TFLOP/s on the bound's flop count. ``entries`` keeps
@@ -346,7 +373,9 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
     of the ``qt::attention`` call inside the kernel, whose route, "mma" or
     "fma", the line then names) and ``gemm`` ((M, N, K) of the kernel's
     products, whose GEMM routine, "wgmma", "wmma" or "fma", the line and the
-    table entry name)."""
+    table entry name) or ``routes`` (the routines' names themselves), and
+    ``peak`` (the peak the bound divides by, where it is not the dtype's;
+    at "tf32x3" the FMA peak's bound stands beside it). Returns the line."""
     import torch
 
     from qa_tiger_tpu_torch.ops import attention as A
@@ -365,14 +394,18 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
             "tolerance": tol * max(1.0, scale), "ok": ok}
     if "attn" in extra:
         line["route"] = A.attention_route(dtype, *extra["attn"])
-    if "gemm" in extra:
-        routes = sorted({GM.gemm_route(dtype, *mnk) for mnk in extra["gemm"]})
+    routes = extra.get("routes") or sorted({GM.gemm_route(dtype, *mnk)
+                                             for mnk in extra.get("gemm", ())})
+    if routes:
         line["gemm_route"] = routes[0] if len(routes) == 1 else routes
+    peak = extra.get("peak", dname)
     if timed:
-        b_ms, b_by = bound(nbytes, flops, dname)
+        b_ms, b_by = bound(nbytes, flops, peak)
         line.update(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain),
                     library_ms=cuda_ms(library) if library else None,
                     bound_ms=b_ms, bound_by=b_by)
+        if peak == "tf32x3":
+            line["bound_fma_ms"] = bound(nbytes, flops, "float32")[0]
         line["tflops"] = flops / line["ms"] * 1e-9
         if entries is not None and (name not in entries or b_ms > entries[name]["bound_ms"]):
             entries[name] = {
@@ -381,24 +414,53 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
                 "shape": shape, "dtype": dname, "max_abs_err": err, "ms": line["ms"],
                 "plain_ms": line["plain_ms"], "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": line["library_ms"]}
-            if "gemm" in extra:
+            if routes:
                 entries[name].update(gemm_route=line["gemm_route"], tflops=line["tflops"])
     print(json.dumps(line), flush=True)
     require(ok, f"{name} {dname} {shape}: max|k-p| {err:.3e} over tolerance")
+    return line
 
 
 def check_kernels(rng, gen) -> dict:
     """Phase 3. Returns the JSON entry of each kernel at its largest
-    main-path call."""
+    main-path call. fused_gaussian_moe runs at two shapes on each path, so
+    its entry also lists its timed lines by path (``by_path``: the serving
+    forward's x[256] and x[512] in bf16, the train step's x[32] and x[64]
+    in fp32 and the raw-media forward's x[2] and x[4] in bf16, these two
+    pairs from seeds of their own) and their sums per path; each call runs
+    twice and must repeat bitwise."""
     import torch
 
-    entries = {}
+    entries, moe = {}, {"serving": [], "train": [], "e2e": []}
     with torch.inference_mode():
         for dtype, B, tol, timed in ((torch.float32, 2, FP32_TOL, False),
                                      (torch.bfloat16, 256, BF16_TOL, True)):
             for case in kernel_cases(dtype, B, rng, gen):
-                run_kernel_case(case, dtype, tol, timed, entries)
+                line = run_kernel_case(case, dtype, tol, timed, entries)
+                if case[0] == "fused_gaussian_moe" and timed:
+                    moe["serving"].append(line)
+                    require_repeat(case)
+        for path, dtype, B, tol, seed in (("train", torch.float32, 32, FP32_TOL, 8),
+                                          ("e2e", torch.bfloat16, 2, BF16_TOL, 9)):
+            for case in moe_cases(dtype, B, np.random.default_rng(seed)):
+                moe[path].append(run_kernel_case(case, dtype, tol, True, None))
+                require_repeat(case)
+    keys = ("shape", "dtype", "gemm_route", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_fma_ms", "tflops")
+    entry = entries["fused_gaussian_moe"]
+    entry["by_path"] = {path: [{k: ln[k] for k in keys if k in ln} for ln in lines]
+                        for path, lines in moe.items()}
+    for path, lines in moe.items():
+        for k in ("ms", "plain_ms", "bound_ms"):
+            entry[f"{k}_per_{path}_path"] = sum(ln[k] for ln in lines)
     return entries
+
+
+def require_repeat(case) -> None:
+    """Two launches of a case's kernel give bitwise the same result."""
+    import torch
+
+    require(torch.equal(case[2](), case[2]()), f"{case[0]} {case[1]}: two launches differ")
 
 
 def check_op_kernels(entries: dict) -> None:
@@ -561,15 +623,20 @@ def check_tf32x3_gemms() -> list:
 
 def require_wgmma(counts_phase: str) -> None:
     """Every product the bf16 calls of fused_attn_ln2 and fused_patch_select
-    launched since the counters were reset went through gemm_sm90."""
+    launched since the counters were reset went through gemm_sm90, and the
+    two fused_gaussian_moe calls of the forward each took wgmma for their
+    hidden product and tf32x3 for the second."""
     from qa_tiger_tpu_torch import ops
 
     routes = {name: dict(ops.KERNELS[name].gemm_routes)
-              for name in ("fused_attn_ln2", "fused_patch_select")}
+              for name in ("fused_attn_ln2", "fused_patch_select", "fused_gaussian_moe")}
     print(json.dumps({"phase": counts_phase, **routes}), flush=True)
-    for name, tally in routes.items():
-        require(bool(tally) and set(tally) == {"wgmma"},
-                f"{counts_phase}: {name}'s products took {tally}, expected wgmma only")
+    for name in ("fused_attn_ln2", "fused_patch_select"):
+        require(bool(routes[name]) and set(routes[name]) == {"wgmma"},
+                f"{counts_phase}: {name}'s products took {routes[name]}, expected wgmma only")
+    require(routes["fused_gaussian_moe"] == {"wgmma": 2, "tf32x3": 2},
+            f"{counts_phase}: fused_gaussian_moe's products took {routes['fused_gaussian_moe']}, "
+            "expected wgmma and tf32x3 twice each")
 
 
 def e2e_kernel_cases(dtype, rng, gen):
@@ -657,7 +724,10 @@ def train_kernel_cases(dtype, B: int, rng, gen, T_: int = T):
     frames): names, shape label, kernel and plain forward, the
     differentiated inputs (activations, then parameters), cotangents, an
     fp32 copy of the plain version on the same values (``plain32``: outputs
-    and gradients), and the bytes and flops of forward and backward."""
+    and gradients), the bytes and flops of forward and backward, the peak an
+    fp32 forward's bound divides by (``fwd_peak``: tf32x3 where its products
+    run on gemm_tf32x3, the FMA peak where they do not), and the routes one
+    forward launch must tally (``fwd_routes``, where it tallies them)."""
     import copy
 
     import torch
@@ -686,7 +756,8 @@ def train_kernel_cases(dtype, B: int, rng, gen, T_: int = T):
         outs = fn(m32, a32, mk32)
         return _grads(outs, a32 + list(m32.parameters()), [c.float() for c in cots])
 
-    def case(fname, shape, module, acts, masks, cots, kernel, plain, gemm, attn, act_elems):
+    def case(fname, shape, module, acts, masks, cots, kernel, plain, gemm, attn, act_elems,
+             fwd_peak, fwd_routes=None):
         params = list(module.parameters())
         wbytes = sum(p.numel() for p in params) * isz
         mbytes = sum(m.numel() for m in masks.values()) * isz
@@ -700,7 +771,8 @@ def train_kernel_cases(dtype, B: int, rng, gen, T_: int = T):
                 # fwd: inputs, masks, weights read and the outputs written;
                 # bwd: those again with the cotangents, the input gradients
                 # and the fp32 parameter gradients written
-                "fwd_bytes": fwd_bytes, "fwd_flops": gemm + attn,
+                "fwd_bytes": fwd_bytes, "fwd_flops": gemm + attn, "fwd_peak": fwd_peak,
+                "fwd_routes": fwd_routes,
                 "bwd_bytes": 2 * fwd_bytes + sum(p.numel() for p in params) * 4,
                 "bwd_flops": 2 * gemm + 2 * attn}
 
@@ -713,7 +785,7 @@ def train_kernel_cases(dtype, B: int, rng, gen, T_: int = T):
                   lambda m, a, mk: AV.fused_avq_train(*a, m, mk, heads),
                   lambda m, a, mk: AV.avq_sub_forward_masked(m, *a, mk, nhead=heads),
                   2 * R * D * D * 12 + 4 * RS * D * D, 4 * R * D * (S + 2 * T_),
-                  3 * R * D + RS * D)]
+                  3 * R * D + RS * D, "float32")]
 
     BT = B * T_
     Rp, Q2 = BT * P, 2 * BT
@@ -726,7 +798,8 @@ def train_kernel_cases(dtype, B: int, rng, gen, T_: int = T):
                       lambda m, a, mk: tuple(PS.patch_selecter_plain(m, *a, nhead=heads,
                                                                      masks=mk)),
                       2 * Rp * D * D * 6 + 2 * Q2 * D * D * 3,
-                      4 * BT * P * P * D + 4 * Q2 * P * D, Rp * D + 4 * BT * D))
+                      4 * BT * P * P * D + 4 * Q2 * P * D, Rp * D + 4 * BT * D, "tf32x3",
+                      {"wgmma" if dtype == torch.bfloat16 else "tf32x3": 7}))
     return cases
 
 
@@ -749,7 +822,8 @@ def check_train_kernels(rng, gen, entries: dict):
 
     The fp32 backward's bound is its operations over the tf32x3 peak (its
     products run on gemm_tf32x3), with the fp32 FMA peak's figure beside it
-    (``bwd_bound_fma_ms``); at the recipe shape in fp32 each kernel pair runs
+    (``bwd_bound_fma_ms``), and so is the PatchSelecter forward's
+    (``bound_fma_ms``); at the recipe shape in fp32 each kernel pair runs
     twice and every output and gradient must be bitwise the same.
 
     Tolerances: fp32, and bf16 forward outputs, max|k - p| <= tol *
@@ -761,6 +835,8 @@ def check_train_kernels(rng, gen, entries: dict):
     of a gradient's largest element (PERF.md)."""
     import torch
 
+    from qa_tiger_tpu_torch import ops
+
     for dtype, B, T_, label in ((torch.float32, 2, 6, "small"), (torch.float32, 32, T, "recipe"),
                                 (torch.bfloat16, 32, T, "recipe")):
         bf16 = dtype == torch.bfloat16
@@ -768,7 +844,12 @@ def check_train_kernels(rng, gen, entries: dict):
         dname = str(dtype).replace("torch.", "")
         for c in train_kernel_cases(dtype, B, rng, gen, T_=T_):
             ins, cots = c["ins"], c["cots"]
-            got, want = _grads(c["kernel"](), ins, cots), _grads(c["plain"](), ins, cots)
+            fwd_fn = ops.KERNELS[c["fwd"]]
+            if c["fwd_routes"]:
+                fwd_fn.gemm_routes = {}
+            got = _grads(c["kernel"](), ins, cots)
+            fwd_routes = dict(fwd_fn.gemm_routes) if c["fwd_routes"] else None
+            want = _grads(c["plain"](), ins, cots)
             ref = c["plain32"]() if bf16 else None
             repeat = (all(torch.equal(g, h) for g, h in zip(got, _grads(c["kernel"](), ins, cots)))
                       if label == "recipe" and not bf16 else None)
@@ -790,7 +871,7 @@ def check_train_kernels(rng, gen, entries: dict):
                     "tensors_compared": len(got), "worst_tensor": worst[1],
                     "max_abs_err": worst[2], "max_abs_ref": worst[3],
                     "plain_bf16_err": worst[4], "worst_err_over_limit": worst[0],
-                    "bitwise_repeat": repeat, "ok": ok}
+                    "bitwise_repeat": repeat, "fwd_gemm_routes": fwd_routes, "ok": ok}
             if label == "recipe":
                 fwd_err = max(r[2] for r in rows[:n_out])
                 bwd_err = max(r[2] for r in rows[n_out:])
@@ -798,12 +879,13 @@ def check_train_kernels(rng, gen, entries: dict):
                     f_ms, pf_ms = cuda_ms(c["kernel"]), cuda_ms(c["plain"])
                 b_ms = backward_ms(c["kernel"], ins, cots)
                 pb_ms = backward_ms(c["plain"], ins, cots)
-                fb, fby = bound(c["fwd_bytes"], c["fwd_flops"], dname)
+                fb, fby = bound(c["fwd_bytes"], c["fwd_flops"], dname if bf16 else c["fwd_peak"])
                 bb, bby = bound(c["bwd_bytes"], c["bwd_flops"], "bfloat16" if bf16 else "tf32x3")
                 line.update(ms=f_ms, plain_ms=pf_ms, bound_ms=fb, bound_by=fby, bwd_ms=b_ms,
                             plain_bwd_ms=pb_ms, bwd_bound_ms=bb, bwd_bound_by=bby)
                 if not bf16:  # the recipe's dtype names the table entries
                     line["bwd_bound_fma_ms"] = bound(c["bwd_bytes"], c["bwd_flops"], dname)[0]
+                    line["bound_fma_ms"] = bound(c["fwd_bytes"], c["fwd_flops"], dname)[0]
                     for name, ms, pms, bms, bby_, err in (
                             (c["fwd"], f_ms, pf_ms, fb, fby, fwd_err),
                             (c["bwd"], b_ms, pb_ms, bb, bby, bwd_err)):
@@ -814,11 +896,17 @@ def check_train_kernels(rng, gen, entries: dict):
                             "bound_ms": bms, "bound_by": bby_, "library_ms": None}
                     entries[c["bwd"]].update(bound_peak="tf32x3",
                                              bound_ms_fp32_fma=line["bwd_bound_fma_ms"])
+                    if c["fwd_peak"] == "tf32x3":
+                        entries[c["fwd"]].update(bound_peak="tf32x3",
+                                                 bound_ms_fp32_fma=line["bound_fma_ms"])
             print(json.dumps(line), flush=True)
             require(ok, f"{c['fwd']} {dname} {c['shape']}: tensor {worst[1]} max|k-p| "
                         f"{worst[2]:.3e} over its limit")
             require(repeat is not False, f"{c['fwd']} {dname} {c['shape']}: two runs of the "
                                          "kernel pair are not bitwise the same")
+            require(fwd_routes == c["fwd_routes"],
+                    f"{c['fwd']} {dname} {c['shape']}: its products took {fwd_routes}, "
+                    f"expected {c['fwd_routes']}")
             del got, want, ref
         torch.cuda.empty_cache()
 
@@ -1060,7 +1148,11 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_LR = 1e-4
-TRAIN_BWD_KERNELS = ("fused_patch_select_train_bwd", "fused_avq_train_bwd")
+# the kernels whose every fp32 product takes gemm_tf32x3, and their products
+# per train step: the two backwards, the PatchSelecter forward and the two
+# TempMoE calls (each a hidden and an output product)
+TRAIN_TF32X3_KERNELS = {"fused_patch_select_train_bwd": 14, "fused_avq_train_bwd": 20,
+                        "fused_patch_select_train": 7, "fused_gaussian_moe": 4}
 TRAIN_KERNELS = {"fused_attn_ln2": 12, "fused_avq_train": 1, "fused_avq_train_bwd": 1,
                  "fused_patch_select_train": 1, "fused_patch_select_train_bwd": 1,
                  "fused_gaussian_moe": 2, "attention_wide": 0, "attention_wide_key_bias": 0,
@@ -1161,11 +1253,11 @@ def check_train(rng, entries: dict, profile_dir: Path | None) -> dict:
     counts = ops.launch_counts()
     print(json.dumps({"phase": "train_step_launches", **counts}), flush=True)
     routes = {name: dict(ops.KERNELS[name].gemm_routes)
-              for name in ("fused_attn_ln2",) + TRAIN_BWD_KERNELS}
+              for name in ("fused_attn_ln2", *TRAIN_TF32X3_KERNELS)}
     print(json.dumps({"phase": "train_step_gemm_routes", **routes}), flush=True)
-    for name in TRAIN_BWD_KERNELS:  # the fp32 backwards' products on gemm_tf32x3 only
-        require(bool(routes[name]) and set(routes[name]) == {"tf32x3"},
-                f"train step: {name}'s products took {routes[name]}, expected tf32x3 only")
+    for name, n in TRAIN_TF32X3_KERNELS.items():  # every fp32 product on gemm_tf32x3
+        require(routes[name] == {"tf32x3": n},
+                f"train step: {name}'s products took {routes[name]}, expected tf32x3 x {n}")
     for name, n in TRAIN_KERNELS.items():
         require(counts[name] == n, f"train step: {name} launched {counts[name]} times, "
                                    f"expected {n}")

@@ -26,7 +26,7 @@
 // bias or LayerNorm gradient one column sum. Deterministic, no atomics. All
 // parameter gradients are fp32; activation gradients are in T.
 //
-// The backward's 20 products go through qt::bwd_gemm (gemm_tf32x3.cuh): in
+// The backward's 20 products go through qt::planned_gemm (gemm_tf32x3.cuh): in
 // fp32 the 3xTF32 tensor-core routine, the weight gradients split along
 // their K (the rows) into a workspace (WS) and summed in a fixed order; in
 // bf16 gemm_tile's WMMA loop. The forward keeps gemm_tile.
@@ -184,11 +184,11 @@ cudaError_t attn_block_bwd(const T* g_out, const T* ctx, const T* ow, float* g_o
                            T* g_ctx, qt::Strided<const T> q, qt::Strided<const T> k,
                            qt::Strided<const T> v, qt::Strided<T> gq, qt::Strided<T> gk,
                            qt::Strided<T> gv, const T* keep, long long keep_ld, int N, int T_,
-                           int Sk, int D, int heads, qt::BwdPlan& plan, cudaStream_t st) {
+                           int Sk, int D, int heads, qt::GemmPlan& plan, cudaStream_t st) {
   const int R = N * T_, hd = D / heads;
   cudaError_t err;
-  QT_TRY((qt::bwd_gemm<T, false>(qt::RowLoad<T>{g_out, D}, ow, D, R, D, D,
-                                 qt::EpiBias<T>{g_ctx, D, nullptr, false}, plan, st)));
+  QT_TRY((qt::planned_gemm<T, false>(qt::RowLoad<T>{g_out, D}, ow, D, R, D, D,
+                                     qt::EpiBias<T>{g_ctx, D, nullptr, false}, plan, st)));
   QT_TRY(qt::bwd_weight_grad<T>(qt::ColLoad<T>{g_out, D}, ctx, D, g_ow, D, D, R, plan, st));
   qt::col_sum(qt::Val<T>{g_out, D}, R, D, g_ob, false, st);
   QT_CHECK();
@@ -197,7 +197,7 @@ cudaError_t attn_block_bwd(const T* g_out, const T* ctx, const T* ow, float* g_o
 }
 
 template <typename T>
-cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, qt::BwdPlan plan,
+cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, qt::GemmPlan plan,
                      cudaStream_t st) {
   auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
   auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
@@ -209,7 +209,7 @@ cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, qt:
   float* rstd = f(STATS) + R;
   plan.ws = f(WS);
   cudaError_t err;
-  using qt::bwd_gemm;
+  using qt::planned_gemm;
   using qt::bwd_weight_grad;
   using qt::ColLoad;
   using qt::RowLoad;
@@ -223,12 +223,12 @@ cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, qt:
   qt::col_sum(qt::LnWeightTerm<T, T>{c(X2), c(G), mean, rstd, D}, R, D, f(G_N2_W), false, st);
   qt::col_sum(Val<T>{c(G), D}, R, D, f(G_N2_B), false, st);
   // FFN: linear2, the dropped relu, linear1; g_h1 = g_x2 + g_pre W1 (in GF)
-  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_FFN), D}, c(L2_W), D, R, D, D,
-                             EpiReluGradDrop<T>{w(G_PRE), c(HR), c(M_FFN1), D}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_FFN), D}, c(L2_W), D, R, D, D,
+                                 EpiReluGradDrop<T>{w(G_PRE), c(HR), c(M_FFN1), D}, plan, st)));
   QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_FFN), D}, c(HDP), D, f(G_L2_W), D, D, R, plan, st));
   qt::col_sum(Val<T>{c(G_FFN), D}, R, D, f(G_L2_B), false, st);
-  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_PRE), D}, c(L1_W), D, R, D, D,
-                             qt::EpiAddF32{f(GF), f(GF), D}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_PRE), D}, c(L1_W), D, R, D, D,
+                                 qt::EpiAddF32{f(GF), f(GF), D}, plan, st)));
   QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_PRE), D}, c(H1), D, f(G_L1_W), D, D, R, plan, st));
   qt::col_sum(Val<T>{c(G_PRE), D}, R, D, f(G_L1_B), false, st);
   // LN1: g_x1 (fp32, GSRC32: the residual path into x0) and the three
@@ -254,10 +254,10 @@ cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, qt:
                             plan, st));
   qt::col_sum(Val<T>{c(G_QQ), D}, R, D, f(G_QST_B), false, st);
   qt::col_sum(Val<T>{c(G_KVQ), D2}, RS, 2 * D, f(G_QST_B) + D, false, st);
-  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_QQ), D}, c(QST_W), D, R, D, D,
-                             qt::EpiAddF32{f(GSRC32), f(GSRC32), D}, plan, st)));
-  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_KVQ), D2}, c(QST_W) + DD, D, RS, D, 2 * D,
-                             qt::EpiBias<T>{w(GWRD), D, nullptr, false}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_QQ), D}, c(QST_W), D, R, D, D,
+                                 qt::EpiAddF32{f(GSRC32), f(GSRC32), D}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_KVQ), D2}, c(QST_W) + DD, D, RS, D, 2 * D,
+                                 qt::EpiBias<T>{w(GWRD), D, nullptr, false}, plan, st)));
   // self attention
   err = attn_block_bwd<T>(c(G_OUT_S), c(SCTX), c(SLF_OW), f(G_SLF_OW), f(G_SLF_OB), w(G_CTX),
                           {c(QKV), T_ * D3, D3}, {c(QKV) + D, T_ * D3, D3},
@@ -268,8 +268,8 @@ cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, qt:
   QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_QKV), D3}, c(SRC), D, f(G_SLF_W), 3 * D, D, R,
                             plan, st));
   qt::col_sum(Val<T>{c(G_QKV), D3}, R, 3 * D, f(G_SLF_B), false, st);
-  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_QKV), D3}, c(SLF_W), D, R, D, 3 * D,
-                             qt::EpiAddF32{f(GSRC32), f(GSRC32), D}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_QKV), D3}, c(SLF_W), D, R, D, 3 * D,
+                                 qt::EpiAddF32{f(GSRC32), f(GSRC32), D}, plan, st)));
   // cross attention; its q part ends the residual sum and rounds gsrc
   err = attn_block_bwd<T>(c(G_OUT_C), c(CCTX), c(CRS_OW), f(G_CRS_OW), f(G_CRS_OB), w(G_CTX),
                           {c(QC), TD, D}, {c(KVC), T_ * D2, D2}, {c(KVC) + D, T_ * D2, D2},
@@ -281,10 +281,10 @@ cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, qt:
                             plan, st));
   qt::col_sum(Val<T>{c(G_QC), D}, R, D, f(G_CRS_B), false, st);
   qt::col_sum(Val<T>{c(G_KVC), D2}, R, 2 * D, f(G_CRS_B) + D, false, st);
-  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_QC), D}, c(CRS_W), D, R, D, D,
-                             qt::EpiAddRound<T>{w(GSRC), f(GSRC32), D}, plan, st)));
-  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_KVC), D2}, c(CRS_W) + DD, D, R, D, 2 * D,
-                             qt::EpiBias<T>{w(GVAL), D, nullptr, false}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_QC), D}, c(CRS_W), D, R, D, D,
+                                 qt::EpiAddRound<T>{w(GSRC), f(GSRC32), D}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_KVC), D2}, c(CRS_W) + DD, D, R, D, 2 * D,
+                                 qt::EpiBias<T>{w(GVAL), D, nullptr, false}, plan, st)));
   QT_CHECK();
   return plan.done();
 }
@@ -302,13 +302,13 @@ extern "C" int qt_avq_train_fwd(int dtype, void* const* bufs, int N, int T, int 
 }
 
 // plan: `products` rows of (M, N, K, chunk, route), the backward's products
-// in launch order (ops/gemm.py backward_plan), route written here; ws_floats:
+// in launch order (ops/gemm.py gemm_plan), route written here; ws_floats:
 // the room of the WS buffer (fp32 only)
 extern "C" int qt_avq_train_bwd(int dtype, void* const* bufs, int N, int T, int S, int D,
                                 int heads, int* plan, int products, long long ws_floats,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const qt::BwdPlan bp{plan, products, 0, nullptr, ws_floats};
+  const qt::GemmPlan bp{plan, products, 0, nullptr, ws_floats};
   if (dtype == 0) return backward<float>(bufs, N, T, S, D, heads, bp, st);
   return backward<__nv_bfloat16>(bufs, N, T, S, D, heads, bp, st);
 }

@@ -54,7 +54,7 @@ namespace {
 // 8 (TMA's 16-byte rows) and gemm_tile's WMMA loop otherwise. A function of
 // dtype and shape only; nothing falls back at run time. GEMM_ROUTE_TF32X3 is
 // the fp32 tensor-core routine of the train backwards (gemm_tf32x3.cuh,
-// bwd_gemm).
+// planned_gemm).
 enum GemmRoute {
   GEMM_ROUTE_FMA = 0,
   GEMM_ROUTE_WMMA = 1,

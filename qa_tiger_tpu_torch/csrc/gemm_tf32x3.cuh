@@ -43,7 +43,7 @@
 //   workspace [S, M, N], and a second pass adds the S partials in a fixed
 //   order and applies the epilogue. No atomics: bitwise deterministic.
 //   The caller plans the chunks (ops/gemm.py splitk_plan, handed to a train
-//   backward in its BwdPlan) and allocates the workspace; the routine
+//   backward in its GemmPlan) and allocates the workspace; the routine
 //   allocates nothing.
 //
 // Needs 16-byte aligned A and B and leading dimensions that are multiples of
@@ -126,6 +126,61 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// One K slab (TF_BK deep) of a warp's 64 x 32 share of a 128 x 128 tile:
+// the slab's 3xTF32 sums on the tensor cores into a fresh fragment, folded
+// into the fp32 accumulator acc with IEEE adds. As and Bs hold the slab's
+// A rows (m) and B columns (n) in the layouts TA and TB; warp offsets wm, wn,
+// g = lane / 4, t = lane % 4.
+template <class TA, class TB>
+__device__ __forceinline__ void tf32x3_slab(float (&acc)[4][4][4], const float* As,
+                                            const float* Bs, int wm, int wn, int g, int t) {
+  float part[4][4][4];  // this slab's sums, on the tensor cores
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < TF_BK; kk += 8) {
+    uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = wm + i * 16 + g;
+      split_tf32(As[TA::at(r, kk + t)], ah[i][0], al[i][0]);
+      split_tf32(As[TA::at(r + 8, kk + t)], ah[i][1], al[i][1]);
+      split_tf32(As[TA::at(r, kk + t + 4)], ah[i][2], al[i][2]);
+      split_tf32(As[TA::at(r + 8, kk + t + 4)], ah[i][3], al[i][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = wn + j * 8 + g;
+      split_tf32(Bs[TB::at(c, kk + t)], bh[j][0], bl[j][0]);
+      split_tf32(Bs[TB::at(c, kk + t + 4)], bh[j][1], bl[j][1]);
+    }
+    // one pass over all 16 fragments at a time, so that two products on
+    // the same accumulator are 16 instructions apart, not back to back
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], al[i], bh[j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], ah[i], bl[j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], ah[i], bh[j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+}
+
 template <bool A_COL, bool B_NK> struct TfSmem {
   using TA = TfTile<!A_COL>;
   using TB = TfTile<B_NK>;
@@ -177,52 +232,7 @@ gemm_tf32x3_kernel(const float* __restrict__ A, long long lda, const float* __re
     if (kt + TF_STAGES - 1 < nk) load((kt + TF_STAGES - 1) % TF_STAGES, kt + TF_STAGES - 1);
     cp_async_commit();
     const float* As = tf_smem + (kt % TF_STAGES) * Sm::STAGE;
-    const float* Bs = As + TA::FLOATS;
-    float part[4][4][4];  // this slab's sums, on the tensor cores
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < TF_BK; kk += 8) {
-      uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm + i * 16 + g;
-        split_tf32(As[TA::at(r, kk + t)], ah[i][0], al[i][0]);
-        split_tf32(As[TA::at(r + 8, kk + t)], ah[i][1], al[i][1]);
-        split_tf32(As[TA::at(r, kk + t + 4)], ah[i][2], al[i][2]);
-        split_tf32(As[TA::at(r + 8, kk + t + 4)], ah[i][3], al[i][3]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = wn + j * 8 + g;
-        split_tf32(Bs[TB::at(c, kk + t)], bh[j][0], bl[j][0]);
-        split_tf32(Bs[TB::at(c, kk + t + 4)], bh[j][1], bl[j][1]);
-      }
-      // one pass over all 16 fragments at a time, so that two products on
-      // the same accumulator are 16 instructions apart, not back to back
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], al[i], bh[j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], ah[i], bl[j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], ah[i], bh[j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+    tf32x3_slab<TA, TB>(acc, As, As + TA::FLOATS, wm, wn, g, t);
   }
   cp_async_wait<0>();
 
@@ -304,11 +314,11 @@ template <> struct PlainF32A<ColLoad<float>> { static constexpr bool ok = true, 
 template <> struct PlainF32A<RoundRowLoad<float>> { static constexpr bool ok = true, col = false; };
 template <> struct PlainF32A<RoundColLoad<float>> { static constexpr bool ok = true, col = true; };
 
-// The products of one train backward as its wrapper planned them
-// (ops/gemm.py backward_plan): row i of `rows` is (M, N, K, chunk, route)
-// of the i-th product launched, and the backward writes route (a GemmRoute)
-// as it launches it; ws holds the split-K partials (ws_floats floats).
-struct BwdPlan {
+// The products of one train kernel launch as its wrapper planned them
+// (ops/gemm.py gemm_plan): row i of `rows` is (M, N, K, chunk, route) of the
+// i-th product launched, and the kernel writes route (a GemmRoute) as it
+// launches it; ws holds the split-K partials (ws_floats floats).
+struct GemmPlan {
   int* rows;
   int count;
   int next;
@@ -318,20 +328,25 @@ struct BwdPlan {
   cudaError_t done() const { return next == count ? cudaSuccess : cudaErrorInvalidValue; }
 };
 
-// One product of a train backward, C = A B through epi: fp32 on
-// gemm_tf32x3, in the plan's chunks; bf16 on gemm_tile's WMMA loop. A
-// product the plan does not name (M, N, K) is refused.
+// One product of a train kernel, C = A B through epi: fp32 on gemm_tf32x3,
+// in the plan's chunks; bf16 with a plain row-major A and an [N, K] B (the
+// forward's projections) on gemm_rows (gemm_sm90 where gemm_route gives
+// wgmma), any other bf16 product (the backwards') on gemm_tile's WMMA loop.
+// A product the plan does not name (M, N, K) is refused.
 template <typename T, bool B_NK, class ALoad, class Epi>
-inline cudaError_t bwd_gemm(const ALoad& a, const T* B, long long ldb, int M, int N, int K,
-                            const Epi& epi, BwdPlan& plan, cudaStream_t stream) {
+inline cudaError_t planned_gemm(const ALoad& a, const T* B, long long ldb, int M, int N, int K,
+                                const Epi& epi, GemmPlan& plan, cudaStream_t stream) {
   if (plan.next >= plan.count) return cudaErrorInvalidValue;
   int* row = plan.rows + 5 * plan.next++;
   if (row[0] != M || row[1] != N || row[2] != K) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
-    static_assert(PlainF32A<ALoad>::ok, "an fp32 backward product needs a plain A");
+    static_assert(PlainF32A<ALoad>::ok, "an fp32 planned product needs a plain A");
     row[4] = GEMM_ROUTE_TF32X3;
     return gemm_tf32x3<PlainF32A<ALoad>::col, B_NK>(a.a, a.lda, B, ldb, M, N, K, epi, row[3],
                                                    plan.ws, plan.ws_floats, stream);
+  } else if constexpr (B_NK && std::is_same<ALoad, RowLoad<T>>::value) {
+    row[4] = gemm_route(true, M, N, K);
+    return gemm_rows<T>(a.a, a.lda, B, ldb, M, N, K, epi, stream);
   } else {
     row[4] = GEMM_ROUTE_WMMA;
     gemm<T, B_NK>(a, B, ldb, M, N, K, epi, stream);
@@ -340,12 +355,12 @@ inline cudaError_t bwd_gemm(const ALoad& a, const T* B, long long ldb, int M, in
 }
 
 // dW (torch layout [O, I], fp32) = sum over rows of G[r, o] X[r, i]: one
-// bwd_gemm whose K dimension is the rows, G read column-major
+// planned_gemm whose K dimension is the rows, G read column-major
 template <typename T, class GLoad>
 inline cudaError_t bwd_weight_grad(const GLoad& gload, const T* X, long long ldx, float* dW,
-                                   int O, int I, int rows, BwdPlan& plan, cudaStream_t stream) {
-  return bwd_gemm<T, false>(gload, X, ldx, O, I, rows, EpiStoreF32{dW, (long long)I, false},
-                            plan, stream);
+                                   int O, int I, int rows, GemmPlan& plan, cudaStream_t stream) {
+  return planned_gemm<T, false>(gload, X, ldx, O, I, rows, EpiStoreF32{dW, (long long)I, false},
+                                plan, stream);
 }
 
 }  // namespace

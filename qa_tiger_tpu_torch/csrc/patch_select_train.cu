@@ -11,12 +11,14 @@
 // (pallas_call :827) and _kernel_bwd (pallas_call :880).
 //
 // Bound on the H100: operations. At B=32, T=60, P=14, D=512 (BT=1920
-// frames, 26,880 patch rows) the patch-row projections (qkv, out_proj,
-// k|v) are ~85 GFLOP of the forward's ~91; the backward is about twice
-// that. The TPU kernel packs 16 frames block-diagonally into 224-row
-// tiles and recomputes the forward in VMEM in its backward. Here a block of
-// the attention kernels owns one frame and head, so no score crosses
-// frames; each step is one launch, and the forward writes the
+// frames, 26,880 patch rows) the forward's seven products are ~85.5 GFLOP
+// of its ~91 (the patch-row projections qkv, out_proj, k|v ~82.6); the
+// backward is about twice that. In fp32 the card's FMA peak (67 TFLOP/s)
+// puts the forward at >= 1.37 ms, the 3xTF32 tensor-core rate (494.7 / 3
+// TFLOP/s) at >= 0.55 ms. The TPU kernel packs 16 frames block-diagonally
+// into 224-row tiles and recomputes the forward in VMEM in its backward.
+// Here a block of the attention kernels owns one frame and head, so no
+// score crosses frames; each step is one launch, and the forward writes the
 // intermediates the backward needs (qkv, the self context, x1, k|v, the
 // stacked queries, the cross context, the dropped out_proj output, the MLP
 // hidden and fp32 output) once, for the autograd Function to keep. The
@@ -30,10 +32,13 @@
 // Pallas kernel does. Parameter gradients are one GEMM (K = rows) or one
 // column sum each: deterministic, no atomics, fp32.
 //
-// The backward's 14 products go through qt::bwd_gemm (gemm_tf32x3.cuh): in
-// fp32 the 3xTF32 tensor-core routine, the weight gradients split along
-// their K (the rows) into a workspace (WS) and summed in a fixed order; in
-// bf16 gemm_tile's WMMA loop. The forward keeps gemm_tile.
+// Every product, the forward's seven and the backward's 14, goes through
+// qt::planned_gemm (gemm_tf32x3.cuh) against the plan its wrapper built: in
+// fp32 the 3xTF32 tensor-core routine (the backward's weight gradients
+// split along their K, the rows, into a workspace WS and summed in a fixed
+// order); in bf16 the forward's products on gemm_sm90 (TMA + wgmma), the
+// backward's on gemm_tile's WMMA loop. The attention over 14 patches and
+// the cross attention stay on qt::attention's keep-masked FMA kernels.
 #include "gemm_tf32x3.cuh"
 
 namespace {
@@ -61,17 +66,21 @@ enum Buf {
 
 // out = round(round(acc + b) * mask) (mask null: round(acc)), mask rows
 // [0, split) from m0 and [split, 2 split) from m1: the per-stream dropout.
+// value() is the fp32 value operator() rounds, for gemm_sm90's paired stores.
 template <typename T> struct EpiMaskSplit {
   T* out;
   const T* bias;
   const T* m0;
   const T* m1;
   int split;
-  long long ld;
-  __device__ void operator()(int m, int n, float acc) const {
+  long long ldo;
+  __device__ float value(int m, int n, float acc) const {
     const float y = bias ? qt::round_t<T>(acc + qt::to_f<T>(bias[n])) : acc;
-    const T* mk = m < split ? m0 + (long long)m * ld : m1 + (long long)(m - split) * ld;
-    out[(long long)m * ld + n] = qt::from_f<T>(y * qt::to_f<T>(mk[n]));
+    const T* mk = m < split ? m0 + (long long)m * ldo : m1 + (long long)(m - split) * ldo;
+    return y * qt::to_f<T>(mk[n]);
+  }
+  __device__ void operator()(int m, int n, float acc) const {
+    out[(long long)m * ldo + n] = qt::from_f<T>(value(m, n, acc));
   }
 };
 
@@ -104,66 +113,64 @@ inline int pad128(int n) { return (n + 127) / 128 * 128; }
   if ((err = (call)) != cudaSuccess) return err
 
 template <typename T>
-cudaError_t forward(void* const* b, int BT, int P, int D, int heads, cudaStream_t st) {
+cudaError_t forward(void* const* b, int BT, int P, int D, int heads, qt::GemmPlan plan,
+                    cudaStream_t st) {
   auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
   auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
   const int R = BT * P, Q2 = 2 * BT, Dh = D / 2, hd = D / heads;
   const float scale = 1.0f / sqrtf((float)hd);
   const long long lk = pad128(heads * P), D2 = 2LL * D, D3 = 3LL * D, DD = (long long)D * D;
   const long long BD = (long long)BT * D;
+  plan.ws = static_cast<float*>(b[WS]);
   cudaError_t err;
   using qt::EpiBias;
+  using qt::planned_gemm;
   using qt::RowLoad;
 
   // self-attention over each frame's patches, out_proj + residual
-  qt::gemm<T, true>(RowLoad<T>{c(PATCH), D}, c(SLF_W), D, R, 3 * D, D,
-                    EpiBias<T>{w(QKV), D3, c(SLF_B), false}, st);
-  QT_CHECK();
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(PATCH), D}, c(SLF_W), D, R, 3 * D, D,
+                                EpiBias<T>{w(QKV), D3, c(SLF_B), false}, plan, st)));
   err = qt::attention<T>(c(QKV), P * D3, D3, c(QKV) + D, P * D3, D3, c(QKV) + 2 * D, P * D3, D3,
                          w(SCTX), (long long)P * D, D, nullptr, BT, P, P, heads, hd, scale, st,
                          c(M_SLF), lk, true);
   if (err != cudaSuccess) return err;
-  qt::gemm<T, true>(RowLoad<T>{c(SCTX), D}, c(SLF_OW), D, R, D, D,
-                    qt::EpiResidual<T>{w(X1), D, c(SLF_OB), c(PATCH), D}, st);
-  QT_CHECK();
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SCTX), D}, c(SLF_OW), D, R, D, D,
+                                qt::EpiResidual<T>{w(X1), D, c(SLF_OB), c(PATCH), D}, plan, st)));
   // cross attention: k|v from the patches, one query row per frame and stream
-  qt::gemm<T, true>(RowLoad<T>{c(X1), D}, c(CRS_W) + DD, D, R, 2 * D, D,
-                    EpiBias<T>{w(KV), D2, c(CRS_B) + D, false}, st);
-  QT_CHECK();
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(X1), D}, c(CRS_W) + DD, D, R, 2 * D, D,
+                                EpiBias<T>{w(KV), D2, c(CRS_B) + D, false}, plan, st)));
   if ((err = cudaMemcpyAsync(w(SRC2), c(VIDEO), BD * sizeof(T), cudaMemcpyDeviceToDevice, st)))
     return err;
   if ((err = cudaMemcpyAsync(w(SRC2) + BD, c(AUDIO), BD * sizeof(T), cudaMemcpyDeviceToDevice,
                              st)))
     return err;
-  qt::gemm<T, true>(RowLoad<T>{c(SRC2), D}, c(CRS_W), D, Q2, D, D,
-                    EpiBias<T>{w(Q), D, c(CRS_B), false}, st);
-  QT_CHECK();
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SRC2), D}, c(CRS_W), D, Q2, D, D,
+                                EpiBias<T>{w(Q), D, c(CRS_B), false}, plan, st)));
   for (int s = 0; s < 2; ++s) {
     err = qt::attention<T>(c(Q) + s * BD, D, D, c(KV), P * D2, D2, c(KV) + D, P * D2, D2,
                            w(CTX) + s * BD, D, D, nullptr, BT, 1, P, heads, hd, scale, st,
                            c(s ? M_CRS_A : M_CRS_V), lk, true);
     if (err != cudaSuccess) return err;
   }
-  qt::gemm<T, true>(RowLoad<T>{c(CTX), D}, c(CRS_OW), D, Q2, D, D,
-                    EpiMaskSplit<T>{w(CRS_D), c(CRS_OB), c(M_OUT_V), c(M_OUT_A), BT, D}, st);
-  QT_CHECK();
+  QT_TRY((planned_gemm<T, true>(
+      RowLoad<T>{c(CTX), D}, c(CRS_OW), D, Q2, D, D,
+      EpiMaskSplit<T>{w(CRS_D), c(CRS_OB), c(M_OUT_V), c(M_OUT_A), BT, D}, plan, st)));
   // MLP; its output stays fp32 into the per-stream LayerNorm
-  qt::gemm<T, true>(RowLoad<T>{c(CRS_D), D}, c(MLP_W1), D, Q2, Dh, D,
-                    EpiBias<T>{w(HID), Dh, c(MLP_B1), true}, st);
-  QT_CHECK();
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(CRS_D), D}, c(MLP_W1), D, Q2, Dh, D,
+                                EpiBias<T>{w(HID), Dh, c(MLP_B1), true}, plan, st)));
   float* outf = static_cast<float*>(b[OUTF]);
-  qt::gemm<T, true>(RowLoad<T>{c(HID), Dh}, c(MLP_W2), Dh, Q2, D, Dh,
-                    qt::EpiF32<T>{outf, D, c(MLP_B2)}, st);
-  QT_CHECK();
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(HID), Dh}, c(MLP_W2), Dh, Q2, D, Dh,
+                                qt::EpiF32<T>{outf, D, c(MLP_B2)}, plan, st)));
   qt::layer_norm_kernel<float, T><<<qt::ln_blocks(BT), qt::LN_WARPS * 32, 0, st>>>(
       outf, BT, D, 1, c(VN_W), c(VN_B), w(V_OUT), nullptr, nullptr, nullptr);
   qt::layer_norm_kernel<float, T><<<qt::ln_blocks(BT), qt::LN_WARPS * 32, 0, st>>>(
       outf + BD, BT, D, 1, c(AN_W), c(AN_B), w(A_OUT), nullptr, nullptr, nullptr);
-  return cudaGetLastError();
+  QT_CHECK();
+  return plan.done();
 }
 
 template <typename T>
-cudaError_t backward(void* const* b, int BT, int P, int D, int heads, qt::BwdPlan plan,
+cudaError_t backward(void* const* b, int BT, int P, int D, int heads, qt::GemmPlan plan,
                      cudaStream_t st) {
   auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
   auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
@@ -176,7 +183,7 @@ cudaError_t backward(void* const* b, int BT, int P, int D, int heads, qt::BwdPla
   float* rstd = f(STATS) + Q2;
   plan.ws = f(WS);
   cudaError_t err;
-  using qt::bwd_gemm;
+  using qt::planned_gemm;
   using qt::bwd_weight_grad;
   using qt::ColLoad;
   using qt::RowLoad;
@@ -198,20 +205,20 @@ cudaError_t backward(void* const* b, int BT, int P, int D, int heads, qt::BwdPla
   }
   QT_CHECK();
   // MLP backward over both streams
-  QT_TRY((bwd_gemm<T, false>(qt::RoundRowLoad<T>{f(G_REL), D}, c(MLP_W2), Dh, Q2, Dh, D,
-                             EpiReluGradF32<T>{f(G_PRE1), c(HID), Dh}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(qt::RoundRowLoad<T>{f(G_REL), D}, c(MLP_W2), Dh, Q2, Dh, D,
+                                 EpiReluGradF32<T>{f(G_PRE1), c(HID), Dh}, plan, st)));
   QT_TRY(bwd_weight_grad<T>(qt::RoundColLoad<T>{f(G_REL), D}, c(HID), Dh, f(G_MLP_W2), D, Dh,
                             Q2, plan, st));
   qt::col_sum(Val<float>{f(G_REL), D}, Q2, D, f(G_MLP_B2), false, st);
-  QT_TRY((bwd_gemm<T, false>(qt::RoundRowLoad<T>{f(G_PRE1), Dh}, c(MLP_W1), D, Q2, D, Dh,
-                             EpiMaskSplit<T>{w(G_CRS_O), nullptr, c(M_OUT_V), c(M_OUT_A), BT, D},
-                             plan, st)));
+  QT_TRY((planned_gemm<T, false>(
+      qt::RoundRowLoad<T>{f(G_PRE1), Dh}, c(MLP_W1), D, Q2, D, Dh,
+      EpiMaskSplit<T>{w(G_CRS_O), nullptr, c(M_OUT_V), c(M_OUT_A), BT, D}, plan, st)));
   QT_TRY(bwd_weight_grad<T>(qt::RoundColLoad<T>{f(G_PRE1), Dh}, c(CRS_D), D, f(G_MLP_W1), Dh,
                             D, Q2, plan, st));
   qt::col_sum(Val<float>{f(G_PRE1), Dh}, Q2, Dh, f(G_MLP_B1), false, st);
   // cross out_proj and attention, one stream at a time
-  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_CRS_O), D}, c(CRS_OW), D, Q2, D, D,
-                             qt::EpiBias<T>{w(G_CTX), D, nullptr, false}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_CRS_O), D}, c(CRS_OW), D, Q2, D, D,
+                                 qt::EpiBias<T>{w(G_CTX), D, nullptr, false}, plan, st)));
   QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_CRS_O), D}, c(CTX), D, f(G_CRS_OW), D, D, Q2,
                             plan, st));
   qt::col_sum(Val<T>{c(G_CRS_O), D}, Q2, D, f(G_CRS_OB), false, st);
@@ -226,16 +233,16 @@ cudaError_t backward(void* const* b, int BT, int P, int D, int heads, qt::BwdPla
   // cross in_proj: the query half over both streams, the k|v half over patches
   QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_QC), D}, c(SRC2), D, f(G_CRS_W), D, D, Q2, plan, st));
   qt::col_sum(Val<T>{c(G_QC), D}, Q2, D, f(G_CRS_B), false, st);
-  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_QC), D}, c(CRS_W), D, Q2, D, D,
-                             EpiSplitRows<T>{w(GVIDEO), w(GAUDIO), BT, D}, plan, st)));
-  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_KV), D2}, c(CRS_W) + DD, D, R, D, 2 * D,
-                             qt::EpiBias<T>{w(G_X1), D, nullptr, false}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_QC), D}, c(CRS_W), D, Q2, D, D,
+                                 EpiSplitRows<T>{w(GVIDEO), w(GAUDIO), BT, D}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_KV), D2}, c(CRS_W) + DD, D, R, D, 2 * D,
+                                 qt::EpiBias<T>{w(G_X1), D, nullptr, false}, plan, st)));
   QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_KV), D2}, c(X1), D, f(G_CRS_W) + DD, 2 * D, D, R,
                             plan, st));
   qt::col_sum(Val<T>{c(G_KV), D2}, R, 2 * D, f(G_CRS_B) + D, false, st);
   // self out_proj and attention
-  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_X1), D}, c(SLF_OW), D, R, D, D,
-                             qt::EpiBias<T>{w(G_SLF), D, nullptr, false}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_X1), D}, c(SLF_OW), D, R, D, D,
+                                 qt::EpiBias<T>{w(G_SLF), D, nullptr, false}, plan, st)));
   QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_X1), D}, c(SCTX), D, f(G_SLF_OW), D, D, R, plan, st));
   qt::col_sum(Val<T>{c(G_X1), D}, R, D, f(G_SLF_OB), false, st);
   err = qt::attention_bwd<T>({c(QKV), P * D3, D3}, {c(QKV) + D, P * D3, D3},
@@ -248,8 +255,8 @@ cudaError_t backward(void* const* b, int BT, int P, int D, int heads, qt::BwdPla
                             plan, st));
   qt::col_sum(Val<T>{c(G_QKV), D3}, R, 3 * D, f(G_SLF_B), false, st);
   // gpatch = g_x1 + round(g_qkv W_slf)
-  QT_TRY((bwd_gemm<T, false>(RowLoad<T>{c(G_QKV), D3}, c(SLF_W), D, R, D, 3 * D,
-                             qt::EpiResidual<T>{w(GPATCH), D, nullptr, c(G_X1), D}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_QKV), D3}, c(SLF_W), D, R, D, 3 * D,
+                                 qt::EpiResidual<T>{w(GPATCH), D, nullptr, c(G_X1), D}, plan, st)));
   QT_CHECK();
   return plan.done();
 }
@@ -259,21 +266,23 @@ cudaError_t backward(void* const* b, int BT, int P, int D, int heads, qt::BwdPla
 
 }  // namespace
 
+// plan: `products` rows of (M, N, K, chunk, route), the launch's products
+// in launch order (ops/gemm.py gemm_plan), route written here; ws_floats:
+// the room of the WS buffer (fp32 only)
 extern "C" int qt_patch_select_train_fwd(int dtype, void* const* bufs, int BT, int P, int D,
-                                         int heads, void* stream) {
+                                         int heads, int* plan, int products, long long ws_floats,
+                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return forward<float>(bufs, BT, P, D, heads, st);
-  return forward<__nv_bfloat16>(bufs, BT, P, D, heads, st);
+  const qt::GemmPlan fp{plan, products, 0, nullptr, ws_floats};
+  if (dtype == 0) return forward<float>(bufs, BT, P, D, heads, fp, st);
+  return forward<__nv_bfloat16>(bufs, BT, P, D, heads, fp, st);
 }
 
-// plan: `products` rows of (M, N, K, chunk, route), the backward's products
-// in launch order (ops/gemm.py backward_plan), route written here; ws_floats:
-// the room of the WS buffer (fp32 only)
 extern "C" int qt_patch_select_train_bwd(int dtype, void* const* bufs, int BT, int P, int D,
                                          int heads, int* plan, int products, long long ws_floats,
                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const qt::BwdPlan bp{plan, products, 0, nullptr, ws_floats};
+  const qt::GemmPlan bp{plan, products, 0, nullptr, ws_floats};
   if (dtype == 0) return backward<float>(bufs, BT, P, D, heads, bp, st);
   return backward<__nv_bfloat16>(bufs, BT, P, D, heads, bp, st);
 }

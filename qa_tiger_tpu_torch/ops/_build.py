@@ -42,8 +42,8 @@ SIGNATURES = {
     "qt_gemm_sm90": [_I, _P, _L, _P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I, _P],
     # the train backwards' fp32 tensor-core GEMM alone (ops/gemm.py)
     "qt_gemm_tf32x3": [_P, _L, _I, _P, _L, _I, _P, _L, _I, _I, _I, _I, _P, _L, _P],
-    "qt_gaussian_moe": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _P],
+    "qt_gaussian_moe": [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _P, _L,
+                        _I, _I, _I, _I, _I, _I, _I, _P],
     "qt_attn_ln2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _P, _P, _I, _I, _I, _I, _P],
     "qt_attn_half": [_I] + [_P] * 12 + [_I] * 4 + [_P],
@@ -54,7 +54,7 @@ SIGNATURES = {
     # ops/patch_select.py)
     "qt_avq_train_fwd": [_I, _P, _I, _I, _I, _I, _I, _P],
     "qt_avq_train_bwd": [_I, _P, _I, _I, _I, _I, _I, _P, _I, _L, _P],
-    "qt_patch_select_train_fwd": [_I, _P, _I, _I, _I, _I, _P],
+    "qt_patch_select_train_fwd": [_I, _P, _I, _I, _I, _I, _P, _I, _L, _P],
     "qt_patch_select_train_bwd": [_I, _P, _I, _I, _I, _I, _P, _I, _L, _P],
     "qt_avq_num_buffers": [],
     "qt_patch_select_train_num_buffers": [],

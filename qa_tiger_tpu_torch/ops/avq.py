@@ -21,9 +21,9 @@ from qa_tiger_tpu_torch.ops import _build
 from qa_tiger_tpu_torch.ops.gemm import (
     aligned16,
     avq_train_bwd_gemm_shapes,
-    backward_plan,
-    backward_workspace,
+    gemm_plan,
     note_plan_routes,
+    plan_workspace,
     sm_count,
 )
 
@@ -135,8 +135,8 @@ def fused_avq_train_bwd(src, val, wrd, weights, saved: dict, masks: dict, g, nhe
 
     shapes = avq_train_bwd_gemm_shapes(N, T, S, D)
     sms = sm_count(dev)
-    plan = backward_plan(dt, shapes, sms)
-    ws_floats = backward_workspace(dt, shapes, sms)
+    plan = gemm_plan(dt, shapes, sms)
+    ws_floats = plan_workspace(dt, shapes, sms)
     if dt == f32:  # the operands gemm_tf32x3 reads in 16-byte chunks
         src, val, wrd = aligned16(src), aligned16(val), aligned16(wrd)
         weights = [aligned16(w) for w in weights]

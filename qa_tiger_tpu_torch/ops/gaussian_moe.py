@@ -9,12 +9,27 @@ with T contracted before the second Linear. The CUDA kernel in
 ``_reference_impl`` for CPU tensors. On CUDA its gradient is that of the
 plain version, recomputed (``ops/_grad.py``), as the JAX ``custom_vjp``
 (gaussian_moe.py:183) recomputes through its reference.
+
+The kernel computes the first Linear of every expert as one [B*T, E*H]
+product whose 64-row tiles are one sample's T chunk each (rows past T
+weigh 0; the weighted sum over t carried over the chunks), on ``wgmma``
+(bf16, D <= 512) or on ``gemm_tf32x3``'s 3xTF32 tile (fp32, and bf16 at
+wider D on fp32 copies): ``moe_route`` names which. The second Linear is
+one ``gemm_tf32x3`` product over K = E*H. Each launch tallies the routes of
+its two products in ``fused_gaussian_moe.gemm_routes``.
 """
 from __future__ import annotations
 
 import torch
+from torch.nn import functional as F
 
 from qa_tiger_tpu_torch.ops import _build, _grad
+from qa_tiger_tpu_torch.ops.gemm import ROUTES, aligned16, sm_count, splitk_plan, tally_routes
+
+# csrc/gaussian_moe.cu MOE_MAX_D: the widest D whose two samples' x chunks
+# stay in shared memory on the wgmma route
+MOE_WGMMA_MAX_D = 512
+ROUTE_CODES = {name: code for code, name in ROUTES.items()}
 
 
 def _reference_impl(x, w1t, b1, w2t, b2, w):
@@ -26,6 +41,14 @@ def _reference_impl(x, w1t, b1, w2t, b2, w):
     out = torch.einsum("beh,ehd->bd", s, w2t.float())
     out = out + torch.einsum("bet,ed->bd", wf, b2.float())
     return out.to(x.dtype)
+
+
+def moe_route(dtype: torch.dtype, d: int) -> str:
+    """The routine of the kernel's first product: "wgmma" for bf16 where
+    both samples' [64, D] x chunks fit in shared memory, "tf32x3" otherwise
+    (fp32, and bf16 at wider D on widened copies). A function of dtype and
+    width only; the second product is always "tf32x3"."""
+    return "wgmma" if dtype == torch.bfloat16 and d <= MOE_WGMMA_MAX_D else "tf32x3"
 
 
 def fused_gaussian_moe(x: torch.Tensor,    # [B, T, D]
@@ -54,18 +77,40 @@ def fused_gaussian_moe(x: torch.Tensor,    # [B, T, D]
     return _grad.KernelWithPlainGrad.apply(_launch, _reference_impl, {}, x, w1t, b1, w2t, b2, w)
 
 
+def _pad_cols(t: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``t`` with its last dimension zero-padded to a multiple of
+    ``multiple``, contiguous and 16-byte aligned (zero columns add nothing
+    to a product over that dimension)."""
+    extra = -t.shape[-1] % multiple
+    return aligned16((F.pad(t, (0, extra)) if extra else t).contiguous())
+
+
 def _launch(x, w1t, b1, w2t, b2, w):
     B, T, D = x.shape
     E, _, H = w1t.shape
-    s = torch.empty(B, E, H, dtype=torch.float32, device=x.device)
-    wsum = torch.empty(B, E, dtype=torch.float32, device=x.device)
-    out = torch.empty(B, D, dtype=x.dtype, device=x.device)
-    _build.launch("qt_gaussian_moe", _build.dtype_code(x), x.data_ptr(),
-                  w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-                  w.data_ptr(), s.data_ptr(), wsum.data_ptr(), out.data_ptr(),
-                  B, T, D, H, E)
+    N = E * H
+    route = moe_route(x.dtype, D)
+    # the first product's operands: x and W1^T [E*H, D] (K-major), bf16 for
+    # wgmma (TMA's rows: D a multiple of 8), fp32 for tf32x3 (D a multiple of 4)
+    op, multiple = (torch.bfloat16, 8) if route == "wgmma" else (torch.float32, 4)
+    xk = _pad_cols(x.to(op), multiple)
+    w1k = _pad_cols(w1t.transpose(1, 2).reshape(N, D).to(op), multiple)
+    w2 = _pad_cols(w2t.reshape(N, D).float(), 4)  # the second product's B, fp32 [E*H, D]
+    lds = -(-N // 4) * 4
+    dev = x.device
+    s = torch.empty(B, lds, dtype=torch.float32, device=dev)
+    wsum = torch.empty(B, E, dtype=torch.float32, device=dev)
+    out = torch.empty(B, D, dtype=x.dtype, device=dev)
+    plan = splitk_plan(B, D, N, sm_count(dev))
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=dev) if plan.workspace else None
+    _build.launch("qt_gaussian_moe", _build.dtype_code(x), ROUTE_CODES[route], xk.data_ptr(),
+                  w1k.data_ptr(), b1.data_ptr(), w2.data_ptr(), w2.stride(0), b2.data_ptr(),
+                  w.data_ptr(), s.data_ptr(), lds, wsum.data_ptr(), out.data_ptr(),
+                  _build.ptr(ws), plan.workspace, plan.chunk, B, T, xk.shape[-1], D, H, E)
     fused_gaussian_moe.launches += 1
+    tally_routes(fused_gaussian_moe, (route, "tf32x3"))
     return out
 
 
 fused_gaussian_moe.launches = 0
+fused_gaussian_moe.gemm_routes = {}  # the routine of each of its two products launched

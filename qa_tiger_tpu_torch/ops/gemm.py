@@ -5,12 +5,14 @@ projections on one of two device routines (``csrc/gemm_sm90.cuh``):
 ``gemm_sm90``, a bf16 Hopper GEMM (TMA loads into a ring of shared-memory
 stages, ``wgmma`` products), for every bf16 product whose N and K are
 multiples of 8; ``gemm_tile`` (``csrc/common.cuh``) otherwise, on WMMA in
-bf16 and on an FMA loop in fp32. The backwards of the two train kernels run
-their fp32 products on ``gemm_tf32x3`` (``csrc/gemm_tf32x3.cuh``: 3xTF32 on
-``mma.sync``, split-K for the weight gradients) and their bf16 ones on
-``gemm_tile``'s WMMA loop. ``gemm_route`` names the routine a fused
-kernel's product takes; a train backward reports its own, product by product,
-in the plan it is launched with (``backward_plan``).
+bf16 and on an FMA loop in fp32. The two train backwards and the
+``fused_patch_select_train`` forward run their fp32 products on
+``gemm_tf32x3`` (``csrc/gemm_tf32x3.cuh``: 3xTF32 on ``mma.sync``, split-K
+for the weight gradients); in bf16 that forward's products take
+``gemm_sm90`` as above and the backwards' ``gemm_tile``'s WMMA loop.
+``gemm_route`` names the routine a fused kernel's product takes; a planned
+launch (a train backward, the PatchSelecter train forward) reports its own,
+product by product, in the plan it is launched with (``gemm_plan``).
 ``gemm_sm90`` and ``gemm_tf32x3`` here call a routine alone, so that it can
 be checked and timed by itself; no model path calls them.
 """
@@ -51,10 +53,11 @@ def attn_gemm_shapes(rows: int, width: int) -> list:
 
 
 def patch_select_gemm_shapes(frames: int, patches: int, width: int) -> list:
-    """(M, N, K) of the seven products of one PatchSelecter launch: over the
-    patch rows the self-attention's qkv and out_proj and the cross
-    attention's k|v; over the 2 query rows per frame the query projection,
-    out_proj and the MLP's two layers."""
+    """(M, N, K) of the seven products of one PatchSelecter launch, eval or
+    train forward, in launch order: over the patch rows the
+    self-attention's qkv and out_proj and the cross attention's k|v; over
+    the 2 query rows per frame the query projection, out_proj and the MLP's
+    two layers."""
     rows, queries = frames * patches, 2 * frames
     return [(rows, 3 * width, width), (rows, width, width), (rows, 2 * width, width),
             (queries, width, width), (queries, width, width),
@@ -96,16 +99,17 @@ def note_routes(kernel, dtype: torch.dtype, shapes) -> None:
     """Adds one to ``kernel.gemm_routes[route]`` for the route each of a
     launch's products takes, so that a run can show which routine its
     calls went through (``ops.reset_launches`` clears it)."""
-    _tally(kernel, (gemm_route(dtype, m, n, k) for m, n, k in shapes))
+    tally_routes(kernel, (gemm_route(dtype, m, n, k) for m, n, k in shapes))
 
 
 def note_plan_routes(kernel, plan: torch.Tensor) -> None:
-    """``note_routes`` for a train backward: the routes it wrote into its
-    plan (``backward_plan``) as it launched each product."""
-    _tally(kernel, (ROUTES[code] for code in plan[:, 4].tolist()))
+    """``note_routes`` for a planned launch: the routes it wrote into its
+    plan (``gemm_plan``) as it launched each product."""
+    tally_routes(kernel, (ROUTES[code] for code in plan[:, 4].tolist()))
 
 
-def _tally(kernel, routes) -> None:
+def tally_routes(kernel, routes) -> None:
+    """Adds one to ``kernel.gemm_routes[route]`` for each route named."""
     for route in routes:
         kernel.gemm_routes[route] = kernel.gemm_routes.get(route, 0) + 1
 
@@ -120,7 +124,7 @@ class SplitK(NamedTuple):
 
 
 def splitk_request(m: int, n: int, k: int, sms: int) -> int:
-    """The chunks the train backwards ask for on a card of ``sms`` SMs: 1
+    """The chunks a planned product asks for on a card of ``sms`` SMs: 1
     where the output's 128 x 128 tiles fill the SMs once; else, counting up
     over the counts that leave each chunk at least MIN_SPLIT_SLABS K slabs,
     each count whose waves of blocks (one per SM) per chunk,
@@ -141,8 +145,8 @@ def splitk_request(m: int, n: int, k: int, sms: int) -> int:
 
 
 def splitk_plan(m: int, n: int, k: int, sms: int, want: int | None = None) -> SplitK:
-    """K cut into at most ``want`` chunks of whole slabs (default: the
-    backwards' ``splitk_request``), as the routine cuts it."""
+    """K cut into at most ``want`` chunks of whole slabs (default:
+    ``splitk_request``), as the routine cuts it."""
     bk = TF32X3_TILE[2]
     want = splitk_request(m, n, k, sms) if want is None else want
     slabs = -(-k // bk)
@@ -152,28 +156,28 @@ def splitk_plan(m: int, n: int, k: int, sms: int, want: int | None = None) -> Sp
     return SplitK(splits, per * bk, splits * m * n if splits > 1 else 0)
 
 
-def backward_plan(dtype: torch.dtype, shapes, sms: int) -> torch.Tensor:
-    """The plan a train backward is launched with: one int32 row (M, N, K,
-    chunk, route) per product, in launch order; chunk from ``splitk_plan``
-    in fp32 (0 in bf16, whose products do not split), route -1 until the
-    backward writes the ``ROUTES`` code of the routine it launched. The
-    backward refuses a product the plan does not name and a plan with rows
-    left over."""
-    rows, _ = _backward_plan(dtype == torch.float32, tuple(shapes), sms)
+def gemm_plan(dtype: torch.dtype, shapes, sms: int) -> torch.Tensor:
+    """The plan a planned launch (a train backward, the PatchSelecter train
+    forward) takes: one int32 row (M, N, K, chunk, route) per product, in
+    launch order; chunk from ``splitk_plan`` in fp32 (0 in bf16, whose
+    products do not split), route -1 until the kernel writes the ``ROUTES``
+    code of the routine it launched. The kernel refuses a product the plan
+    does not name and a plan with rows left over."""
+    rows, _ = _gemm_plan(dtype == torch.float32, tuple(shapes), sms)
     return torch.tensor(rows, dtype=torch.int32).reshape(-1, 5)
 
 
-def backward_workspace(dtype: torch.dtype, shapes, sms: int) -> int:
-    """Floats of split-K workspace one train backward needs: the largest
+def plan_workspace(dtype: torch.dtype, shapes, sms: int) -> int:
+    """Floats of split-K workspace one planned launch needs: the largest
     plan of its products (they run in order on one stream and share it);
     0 in bf16, whose products do not split."""
-    return _backward_plan(dtype == torch.float32, tuple(shapes), sms)[1]
+    return _gemm_plan(dtype == torch.float32, tuple(shapes), sms)[1]
 
 
 @functools.lru_cache(maxsize=64)
-def _backward_plan(fp32: bool, shapes: tuple, sms: int) -> tuple:
-    """(rows, workspace floats) of ``backward_plan``, computed once per
-    backward shape: a launch adds no planning to the host's share."""
+def _gemm_plan(fp32: bool, shapes: tuple, sms: int) -> tuple:
+    """(rows, workspace floats) of ``gemm_plan``, computed once per launch
+    shape: a launch adds no planning to the host's share."""
     plans = [splitk_plan(m, n, k, sms) for m, n, k in shapes]
     rows = [(m, n, k, plan.chunk if fp32 else 0, -1) for (m, n, k), plan in zip(shapes, plans)]
     return rows, (max((plan.workspace for plan in plans), default=0) if fp32 else 0)
@@ -287,7 +291,7 @@ def gemm_tf32x3(a: torch.Tensor, b: torch.Tensor, *, a_col_major: bool = False,
     ``b_nk``, as [N, K]. Both need unit stride along their last dimension;
     the routine also needs 16-byte aligned bases and row strides that are
     multiples of 4, and raises on others. K is cut into at most ``splits``
-    chunks (default: the backwards' ``splitk_request``), as ``splitk_plan``
+    chunks (default: ``splitk_request``), as ``splitk_plan``
     plans them."""
     if a.device.type == "cpu":
         return gemm_tf32x3_plain(a, b, a_col_major=a_col_major, b_nk=b_nk)

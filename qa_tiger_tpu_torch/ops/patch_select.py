@@ -12,9 +12,10 @@ LayerNorm per stream.
   same module under three explicit dropout masks
   (``models.modules.make_patch_dropout_masks``), a CUDA forward and a CUDA
   backward kernel (``csrc/patch_select_train.cu``) in one
-  ``torch.autograd.Function``. The backward's fp32 products run on
-  ``gemm_tf32x3`` (``ops.gemm``); it tallies their routes in
-  ``fused_patch_select_train_bwd.gemm_routes``.
+  ``torch.autograd.Function``. Both launch their products against a plan
+  from ``ops.gemm.gemm_plan``: in fp32 all on ``gemm_tf32x3``, in bf16 the
+  forward's on ``gemm_sm90``; each tallies the routes its products took in
+  its own ``gemm_routes``.
 
 A CPU tensor takes the plain version ``patch_selecter_plain`` (the port of
 ``patch_selecter_jnp``, its ``masks=`` path included), which autograd
@@ -32,12 +33,12 @@ from qa_tiger_tpu_torch.ops import _build, _grad
 from qa_tiger_tpu_torch.ops.attention import _wide_reference
 from qa_tiger_tpu_torch.ops.gemm import (
     aligned16,
-    backward_plan,
-    backward_workspace,
+    gemm_plan,
     note_plan_routes,
     note_routes,
     patch_select_gemm_shapes,
     patch_select_train_bwd_gemm_shapes,
+    plan_workspace,
     sm_count,
     tma_ready,
 )
@@ -217,10 +218,20 @@ class _PatchSelectTrain(torch.autograd.Function):
                     q=e(2 * BT, D), ctx=e(2 * BT, D), crs_d=e(2 * BT, D),
                     hid=e(2 * BT, D // 2), outf=e(2 * BT, D, dtype=torch.float32))
         bufs.update({f"m_{k}": masks[k] for k in MASK_KEYS})
-        bufs.update(zip(WEIGHT_NAMES, weights))
+        # the operands gemm_tf32x3 and gemm_sm90 read in 16-byte chunks
+        patch, weights = aligned16(patch), [aligned16(w) for w in weights]
+        bufs.update(zip(WEIGHT_NAMES, weights), patch=patch)
+        shapes = patch_select_gemm_shapes(BT, P, D)
+        sms = sm_count(dev)
+        plan = gemm_plan(dt, shapes, sms)
+        ws_floats = plan_workspace(dt, shapes, sms)
+        if ws_floats:
+            bufs["ws"] = e(ws_floats, dtype=torch.float32)
         _build.launch_table("qt_patch_select_train_fwd", "qt_patch_select_train_num_buffers",
-                            TRAIN_BUFFERS, bufs, BT, P, D, nhead)
+                            TRAIN_BUFFERS, bufs, BT, P, D, nhead, plan.data_ptr(), len(shapes),
+                            ws_floats)
         fused_patch_select_train.launches += 1
+        note_plan_routes(fused_patch_select_train, plan)
         ctx.nhead, ctx.masks = nhead, masks
         ctx.save_for_backward(patch, audio, video, *weights, *[bufs[k] for k in SAVED])
         return bufs["a_out"], bufs["v_out"]
@@ -251,8 +262,8 @@ def fused_patch_select_train_bwd(patch, audio, video, weights, saved: dict, mask
     f32 = torch.float32
     shapes = patch_select_train_bwd_gemm_shapes(BT, P, D)
     sms = sm_count(dev)
-    plan = backward_plan(dt, shapes, sms)
-    ws_floats = backward_workspace(dt, shapes, sms)
+    plan = gemm_plan(dt, shapes, sms)
+    ws_floats = plan_workspace(dt, shapes, sms)
     if dt == f32:  # the operands gemm_tf32x3 reads in 16-byte chunks
         patch = aligned16(patch)
         weights = [aligned16(w) for w in weights]
@@ -307,3 +318,4 @@ def fused_patch_select_train(patch: torch.Tensor, audio: torch.Tensor, video: to
 
 
 fused_patch_select_train.launches = 0
+fused_patch_select_train.gemm_routes = {}  # the GEMM routine of each product launched

@@ -229,16 +229,49 @@ def test_attention_odd_head_sizes_over_128_keys(cuda, hd, sk, dtype):
             assert err <= TOL[dtype] * max(1.0, w.abs().max().item()), err
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_fused_gaussian_moe(cuda, dtype):
-    rng = np.random.default_rng(1)
-    E, D, H, B, T = 7, 512, 256, 5, 60
+def _moe_args(rng, B, T, E, H, D, dtype, cuda):
     x = _rn(rng, B, T, D, dtype=dtype)
     w1t, b1 = _rn(rng, E, D, H, dtype=dtype, scale=0.05), _rn(rng, E, H, dtype=dtype, scale=0.1)
     w2t, b2 = _rn(rng, E, H, D, dtype=dtype, scale=0.05), _rn(rng, E, D, dtype=dtype, scale=0.1)
     w = torch.from_numpy(0.05 * rng.random((B, E, T), dtype=np.float32)).to(cuda, dtype)
-    _check(lambda: G.fused_gaussian_moe(x, w1t, b1, w2t, b2, w),
-           lambda: G._reference_impl(x, w1t, b1, w2t, b2, w), dtype)
+    return x, w1t, b1, w2t, b2, w
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_gaussian_moe(cuda, dtype):
+    rng = np.random.default_rng(1)
+    args = _moe_args(rng, 5, 60, 7, 256, 512, dtype, cuda)
+    _check(lambda: G.fused_gaussian_moe(*args), lambda: G._reference_impl(*args), dtype)
+
+
+# (B, T, E, H, D): odd B (a pair with one sample), T on both sides of the
+# 64-row chunk (1, 7, 60, 64, 65, 130), one expert, H not a multiple of 64
+# or of 128 (expert edges inside a column tile), D not a multiple of 8 (the
+# wrapper pads it) and D = 768 (bf16 past the wgmma route's 512)
+MOE_EDGES = [(3, 1, 7, 256, 512), (5, 7, 1, 40, 512), (1, 60, 7, 256, 512),
+             (3, 64, 7, 256, 512), (3, 65, 7, 200, 512), (2, 130, 7, 256, 512),
+             (64, 60, 7, 256, 512), (3, 60, 7, 100, 36), (2, 60, 3, 256, 768)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,t,e,h,d", MOE_EDGES)
+def test_fused_gaussian_moe_edges(cuda, b, t, e, h, d, dtype):
+    """The kernel against its plain version at the T / B / E / H / D edges
+    of its tiling, the routes it tallies (``moe_route``'s for the hidden
+    product, tf32x3 for the second), and two launches bitwise the same."""
+    args = _moe_args(np.random.default_rng(b * 1000 + t), b, t, e, h, d, dtype, cuda)
+    G.fused_gaussian_moe.gemm_routes = {}
+    first = G.fused_gaussian_moe(*args)
+    second = G.fused_gaussian_moe(*args)
+    want = G._reference_impl(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    route = G.moe_route(dtype, d)
+    assert G.fused_gaussian_moe.gemm_routes == (
+        {"tf32x3": 4} if route == "tf32x3" else {route: 2, "tf32x3": 2})
+    assert first.dtype == dtype and torch.isfinite(first).all()
+    err = (first.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype] * max(1.0, want.float().abs().max().item()), err
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -679,7 +712,7 @@ def test_gemm_tf32x3_raises_on_misaligned_operands(cuda):
 @pytest.mark.parametrize("fault", ["short", "long", "wrong"])
 @pytest.mark.parametrize("kind", ["avq", "patch_select"])
 def test_train_backward_refuses_a_plan_it_does_not_launch(cuda, kind, fault, monkeypatch):
-    """A backward checks each product against its plan (``backward_plan``):
+    """A backward checks each product against its plan (``gemm_plan``):
     a plan one product short, one product long, or with a wrong M is
     refused (cudaErrorInvalidValue) and the wrapper raises."""
     mod, acts, masks, cots, kernel, _, _ = _train_case(
@@ -739,3 +772,45 @@ def test_train_backward_bitwise_deterministic(cuda, kind, dims):
         assert torch.equal(g1, g2), i
         err = (g1.float() - w.float()).abs().max().item()
         assert err <= TOL[torch.float32] * max(1.0, w.float().abs().max().item()), (i, err)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 3, 32])
+def test_patch_select_train_forward_routes(cuda, b, dtype):
+    """One ``fused_patch_select_train`` forward at B = 1, 3 and 32 (60
+    frames of 14 patches): its seven products on tf32x3 in fp32, on
+    gemm_sm90 (wgmma) in bf16, and its outputs against the plain version
+    on the same masks."""
+    mod, acts, masks, _, kernel, plain, (fwd, _) = _train_case(
+        "patch_select", dtype, cuda, np.random.default_rng(10), (b, 60, 14))
+    fwd.gemm_routes = {}
+    with torch.no_grad():
+        got, want = kernel(mod, acts, masks), plain(mod, acts, masks)
+    torch.cuda.synchronize()
+    assert fwd.gemm_routes == {"tf32x3" if dtype == torch.float32 else "wgmma": 7}
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= TOL[dtype] * max(1.0, w.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("fault", ["short", "long", "wrong"])
+def test_train_forward_refuses_a_plan_it_does_not_launch(cuda, fault, monkeypatch):
+    """The PatchSelecter train forward checks each product against its plan
+    (``gemm_plan`` of ``patch_select_gemm_shapes``): a plan one product
+    short, one long, or with a wrong M is refused and the wrapper raises."""
+    mod, acts, masks, _, kernel, _, _ = _train_case(
+        "patch_select", torch.float32, cuda, np.random.default_rng(11))
+    shapes = PS.patch_select_gemm_shapes
+
+    def faulty(*args):
+        got = shapes(*args)
+        if fault == "short":
+            return got[:-1]
+        if fault == "long":
+            return got + got[-1:]
+        return [(got[0][0] + 4,) + tuple(got[0][1:])] + got[1:]
+
+    monkeypatch.setattr(PS, "patch_select_gemm_shapes", faulty)
+    with pytest.raises(RuntimeError, match="train_fwd"):
+        kernel(mod, acts, masks)
+        torch.cuda.synchronize()

@@ -1,15 +1,15 @@
-"""The fp32 tensor-core GEMM of the train backwards (``gemm_tf32x3``), on the CPU.
+"""The fp32 tensor-core GEMM of the train kernels (``gemm_tf32x3``), on the CPU.
 
-On the card the fp32 products of ``fused_patch_select_train``'s and
-``fused_avq_train``'s backwards run as 3xTF32: each operand split as
-x = hi + lo (both tf32, round to nearest, ties away from zero), the product
-summed as lo·hi + hi·lo + hi·hi, the weight gradients cut along K
+On the card the fp32 products of ``fused_patch_select_train``'s forward and
+backward and of ``fused_avq_train``'s backward run as 3xTF32: each operand
+split as x = hi + lo (both tf32, round to nearest, ties away from zero), the
+product summed as lo·hi + hi·lo + hi·hi, the weight gradients cut along K
 (split-K). What is plain PyTorch is checked here: the split, the plain
 version of the product (against fp64 and against JAX's
 ``jnp.dot(precision=HIGHEST)``), the split-K plan the wrappers size the
-workspace from, the plan a backward is launched with, and the lists of the
-products the two CUDA backwards launch (on the card a backward also refuses a
-plan that does not name its products).
+workspace from, the plan a planned launch takes, and the lists of the
+products the CUDA forward and backwards launch (on the card a launch also
+refuses a plan that does not name its products).
 
 Tolerance of a product: max|got - ref| <= 1e-4 * max(1, max|ref|), the
 train kernels' fp32 rule (``chip_smoke.FP32_TOL``): 3xTF32 keeps each
@@ -204,10 +204,10 @@ def test_recipe_plans_and_workspace():
         assert plan(m, n, k, 132).splits == 1
     ps = GM.patch_select_train_bwd_gemm_shapes(32 * 60, 14, 512)
     avq = GM.avq_train_bwd_gemm_shapes(64, 60, 77, 512)
-    assert GM.backward_workspace(torch.float32, ps, 132) == 8 * 1536 * 512
-    assert GM.backward_workspace(torch.float32, avq, 132) == max(
+    assert GM.plan_workspace(torch.float32, ps, 132) == 8 * 1536 * 512
+    assert GM.plan_workspace(torch.float32, avq, 132) == max(
         plan(m, n, k, 132).workspace for m, n, k in avq)
-    assert GM.backward_workspace(torch.bfloat16, ps, 132) == 0
+    assert GM.plan_workspace(torch.bfloat16, ps, 132) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -219,7 +219,7 @@ def test_backward_plan_rows(b, dtype):
     routes it writes are tallied by name."""
     for shapes in (GM.patch_select_train_bwd_gemm_shapes(b * 60, 14, 512),
                    GM.avq_train_bwd_gemm_shapes(2 * b + 1, 60, 77, 512)):
-        plan = GM.backward_plan(dtype, shapes, 132)
+        plan = GM.gemm_plan(dtype, shapes, 132)
         assert plan.dtype == torch.int32 and tuple(plan.shape) == (len(shapes), 5)
         for row, (m, n, k) in zip(plan.tolist(), shapes):
             chunk = GM.splitk_plan(m, n, k, 132).chunk if dtype == torch.float32 else 0
@@ -261,12 +261,13 @@ def _args(text: str, start: int) -> list:
     raise ValueError("unbalanced call")
 
 
-def _launched_products(source: str, env: dict) -> list:
-    """(M, N, K) of every bwd_gemm / bwd_weight_grad that ``backward`` in
-    ``source`` launches, in order, an attn_block_bwd call expanded into its
-    own, evaluated with the backward's integer locals ``env``."""
+def _launched_products(source: str, env: dict, fn: str = "backward") -> list:
+    """(M, N, K) of every planned_gemm / bwd_weight_grad that ``fn`` (the
+    backward or the forward) in ``source`` launches, in order, an
+    attn_block_bwd call expanded into its own, evaluated with the function's
+    integer locals ``env``."""
     text = (CSRC / source).read_text()
-    call = re.compile(r"(bwd_gemm<T, false>|bwd_weight_grad<T>|attn_block_bwd<T>)\(")
+    call = re.compile(r"(planned_gemm<T, (?:true|false)>|bwd_weight_grad<T>|attn_block_bwd<T>)\(")
 
     def products(body):
         out = []
@@ -276,7 +277,7 @@ def _launched_products(source: str, env: dict) -> list:
                 out += block
                 continue
             args = _args(body, found.end() - 1)
-            mnk = args[3:6] if name.startswith("bwd_gemm") else args[4:7]
+            mnk = args[3:6] if name.startswith("planned_gemm") else args[4:7]
             out.append(tuple(int(eval(e, {}, dict(env))) for e in mnk))
         return out
 
@@ -284,7 +285,7 @@ def _launched_products(source: str, env: dict) -> list:
     if "attn_block_bwd" in text:
         start = text.index("cudaError_t attn_block_bwd(")
         block = products(text[start:text.index("\n}\n", start)])
-    start = text.index("cudaError_t backward(")
+    start = text.index(f"cudaError_t {fn}(")
     return products(text[start:text.index("\n}\n", start)])
 
 
@@ -304,3 +305,52 @@ def test_avq_backward_shapes_are_the_launched_ones(n, t, s):
     want = _launched_products("avq.cu", env)
     assert len(want) == 20
     assert GM.avq_train_bwd_gemm_shapes(n, t, s, d) == want
+
+
+# ---------------------------------------------------------------------------
+# the PatchSelecter train forward's plan
+# ---------------------------------------------------------------------------
+
+def _plan_accepts(rows: list, launched: list) -> bool:
+    """planned_gemm's rule (csrc/gemm_tf32x3.cuh) replayed over a launch:
+    each product takes the plan's next row, whose (M, N, K) must be its
+    own, and no row may be left over (GemmPlan::done)."""
+    for i, mnk in enumerate(launched):
+        if i >= len(rows) or tuple(rows[i][:3]) != mnk:
+            return False
+    return len(rows) == len(launched)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3, 32])
+def test_patch_select_forward_plan(b, dtype):
+    """The plan ``fused_patch_select_train``'s forward is launched with:
+    one row per product of ``forward`` in patch_select_train.cu, in launch
+    order (the seven of ``patch_select_gemm_shapes``: qkv, out_proj, k|v
+    over the B*60*14 patch rows; query, out_proj, the MLP's two layers over
+    the 2*B*60 query rows), none split at K <= 512; a plan one product short,
+    one long or with a wrong M is not accepted; the routes the forward
+    writes are tallied."""
+    bt, p, d = b * 60, 14, 512
+    env = {"R": bt * p, "Q2": 2 * bt, "Dh": d // 2, "D": d}
+    launched = _launched_products("patch_select_train.cu", env, fn="forward")
+    shapes = GM.patch_select_gemm_shapes(bt, p, d)
+    assert len(launched) == 7 and shapes == launched
+    plan = GM.gemm_plan(dtype, shapes, 132)
+    rows = plan.tolist()
+    fp32 = dtype == torch.float32
+    for row, (m, n, k) in zip(rows, shapes):
+        assert row == [m, n, k, GM.splitk_plan(m, n, k, 132).chunk if fp32 else 0, -1]
+        assert GM.splitk_plan(m, n, k, 132).splits == 1
+    assert GM.plan_workspace(dtype, shapes, 132) == 0
+    assert _plan_accepts(rows, launched)
+    assert not _plan_accepts(rows[:-1], launched)
+    assert not _plan_accepts(rows + rows[-1:], launched)
+    assert not _plan_accepts([[rows[0][0] + 4] + rows[0][1:]] + rows[1:], launched)
+    plan[:, 4] = 3 if fp32 else 2
+
+    class Kernel:
+        gemm_routes = {}
+
+    GM.note_plan_routes(Kernel, plan)
+    assert Kernel.gemm_routes == {"tf32x3" if fp32 else "wgmma": 7}
