@@ -25,17 +25,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    library times beside the card's bound, the kernel's achieved TFLOP/s,
    for each kernel that runs ``qt::attention`` the route its dispatch took
    ("mma": bf16 tensor cores, "fma": fp32 FMAs), and for fused_attn_ln2,
-   fused_attn_half, fused_patch_select and fused_gaussian_moe the GEMM
-   routines of their products ("wgmma": gemm_sm90 or the MoE's wgmma
-   kernel, "tf32x3": 3xTF32, "wmma"/"fma": gemm_tile); then the Hopper
-   GEMM alone at every distinct product shape of the four paths, against
+   fused_attn_half, fused_resblock, fused_patch_select and
+   fused_gaussian_moe the GEMM routines of their products ("wgmma":
+   gemm_sm90 or the MoE's wgmma kernel, "tf32x3": 3xTF32, "wmma"/"fma":
+   gemm_tile; fused_resblock's MLP half must tally wgmma twice per bf16
+   launch); then the Hopper GEMM alone at every distinct bf16 product shape
+   of the four paths, the bf16 AVQ train forward and the MLP half, against
    its plain version, timed beside its bound and ``torch.matmul``; then the
-   train backwards' fp32 GEMM (``gemm_tf32x3``: 3xTF32 on tensor cores,
-   split-K) alone at every product shape of the two backwards at B=32,
-   against its plain version and the fp64 product, timed beside its bound
-   and fp32 ``torch.matmul``; the fp32 recipe-shape train kernels run twice
-   and must repeat bitwise, and the PatchSelecter train forward's seven
-   products must take tf32x3 in fp32 and wgmma in bf16;
+   train kernels' fp32 GEMM (``gemm_tf32x3``: 3xTF32 on tensor cores,
+   split-K) alone at every product shape of the two backwards and the AVQ
+   forward at B=32, against its plain version and the fp64 product, timed
+   beside its bound and fp32 ``torch.matmul``; the fp32 recipe-shape train
+   kernels run twice and must repeat bitwise, and the two train forwards'
+   products (seven and ten) must take tf32x3 in fp32 and wgmma in bf16.
+   A call shorter than 0.2 ms on the card is timed behind a spin kernel,
+   so that the host's launch cost does not set its time (``cuda_ms``);
 4. serving — the Predictor at configs/qa-tiger/vitl14.py with weights from
    a seed: (a) fp32 logits at B=4 against the same state_dict run through
    the plain versions on the CPU; (b) the bf16 B=256 path through
@@ -47,9 +51,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 5. training — AVQARunner at the same config: (a) one fp32 B=4 step with
    dropout off, card against CPU (loss, updated parameters, gradients);
    (b) the recipe, fp32 B=32 with dropout: 3 warm-up steps, the launch
-   counters reset around one step (every product of the two train
-   backwards, the PatchSelecter train forward and the two MoE calls on
-   gemm_tf32x3), 10 timed steps, losses, peak memory;
+   counters reset around one step (every product of the two train kernels'
+   forwards and backwards and of the two MoE calls on gemm_tf32x3), 10
+   timed steps, losses, peak memory;
    (c) ``evaluate`` over two batches, with its accuracy report;
 6. raw media — ``pipeline.e2e`` at full width (CLIP ViT-L/14@336px, ToMe
    vit_large_patch16_384 at r=[25]*23, VGGish, the QA-TIGER config):
@@ -72,6 +76,7 @@ from fixed seeds. TF32 is off.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import statistics
@@ -158,13 +163,15 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``
-    back-to-back calls."""
+# a call that takes less than SHORT_MS on the card may take longer than
+# that to queue on the host; cuda_ms times it again over SHORT_WINDOW_MS of
+# device work (at most SHORT_MAX_ITERS calls) queued behind a spin kernel
+SHORT_MS, SHORT_WINDOW_MS, SHORT_MAX_ITERS = 0.2, 2.0, 200
+
+
+def _event_ms(fn, iters: int) -> float:
     import torch
 
-    for _ in range(warmup):
-        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -172,6 +179,47 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@functools.lru_cache(maxsize=None)
+def _spin_cycles_per_ms() -> float:
+    """Clock cycles per ms of torch.cuda._sleep, the spin kernel, measured
+    once on this card."""
+    import torch
+
+    torch.cuda._sleep(1_000_000)  # warm-up
+    return 10_000_000 / _event_ms(lambda: torch.cuda._sleep(10_000_000), 1)
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of one call, from CUDA events around ``iters``
+    back-to-back calls.
+
+    Back to back, a call that is short on the card is paced by the host's
+    launch cost: the events then time the host, not the kernel. So a call
+    under SHORT_MS is timed again over n calls, enough for SHORT_WINDOW_MS of
+    device work (at most SHORT_MAX_ITERS): the host's time to queue n calls
+    is measured first, then a spin kernel (``torch.cuda._sleep``) holds the
+    card for twice that plus 1 ms while the host queues the n calls behind
+    it; the start event is recorded after the spin, so the two events
+    bracket the n calls alone, run from a full queue with no gap between
+    them."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    ms = _event_ms(fn, iters)
+    if ms >= SHORT_MS:
+        return ms
+    n = min(SHORT_MAX_ITERS, max(iters, int(SHORT_WINDOW_MS / max(ms, 1e-3))))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_ms = (time.perf_counter() - start) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(_spin_cycles_per_ms() * (2 * host_ms + 1.0)))
+    return _event_ms(fn, n)
 
 
 def bound(bytes_moved: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -358,7 +406,9 @@ def op_kernel_cases(dtype, B: int, rng, gen):
                   lambda: R.fused_resblock(x, blk, mask, H),
                   lambda: R._resblock_flat(x, *R._resblock_params(blk), heads=H, mask=mask),
                   None, (2 * B * S * W + 12 * W * W + 13 * W) * isz + S * S * 4,
-                  attn_flops + 16 * B * S * W * W, {"attn": (S, S, W // H)}))
+                  attn_flops + 16 * B * S * W * W,
+                  {"attn": (S, S, W // H),
+                   "gemm": GM.attn_gemm_shapes(B * S, W) + GM.mlp_gemm_shapes(B * S, W)}))
     return cases
 
 
@@ -466,46 +516,70 @@ def require_repeat(case) -> None:
 def check_op_kernels(entries: dict) -> None:
     """Phase 3 for the op-level kernels, small fp32 (B=2) and bf16 at the
     text tower's B=256, timed, from seeds of their own (the earlier checks
-    draw what they drew before)."""
+    draw what they drew before). One launch of ``fused_resblock`` must
+    tally its MLP half's two products on gemm_sm90 in bf16 (gemm_tile's FMA
+    loop in fp32)."""
     import torch
+
+    from qa_tiger_tpu_torch.ops import resblock as R
 
     rng, gen = np.random.default_rng(4), torch.Generator().manual_seed(4)
     with torch.inference_mode():
         for dtype, B, tol, timed in ((torch.float32, 2, FP32_TOL, False),
                                      (torch.bfloat16, 256, BF16_TOL, True)):
             for case in op_kernel_cases(dtype, B, rng, gen):
+                if case[0] == "fused_resblock":
+                    R.fused_resblock.gemm_routes = {}
+                    case[2]()
+                    routes = dict(R.fused_resblock.gemm_routes)
+                    want = {"wgmma" if dtype == torch.bfloat16 else "fma": 2}
+                    print(json.dumps({"phase": "resblock_mlp_gemm_routes", "shape": case[1],
+                                      "dtype": str(dtype).replace("torch.", ""),
+                                      "fused_resblock": routes}), flush=True)
+                    require(routes == want, f"fused_resblock {case[1]}: its MLP half's "
+                                            f"products took {routes}, expected {want}")
                 run_kernel_case(case, dtype, tol, timed, entries)
             torch.cuda.empty_cache()
 
 
 def path_gemm_shapes() -> dict:
-    """Every distinct (M, N, K) product of fused_attn_ln2, fused_attn_half
-    and fused_patch_select on the four paths, with the paths that launch it:
-    the text tower at B=256 (serving, bench_resblock), 32 (train, the bf16
-    tower) and 2 (raw media), the CLIP image tower over 120 frames, and
-    PatchSelecter over 256 x 60 (serving) and 2 x 60 (raw media) frames."""
+    """Every distinct bf16 (M, N, K) product that runs on gemm_sm90, with
+    the paths that launch it (``paths``) and the kernels (``used_by``):
+    fused_attn_ln2, fused_attn_half and fused_patch_select on the four paths
+    (the text tower at B=256 for serving and bench_resblock, 32 for train,
+    2 for raw media; the CLIP image tower over 120 frames; PatchSelecter
+    over 256 x 60 and 2 x 60 frames), and, on no timed path, the bf16 AVQ
+    train forward at the recipe (N = 64 rows of 60 frames, 77 words) and
+    fused_resblock's MLP half at the text tower's B=256, which the kernel
+    checks run."""
     from qa_tiger_tpu_torch.ops import gemm as GM
 
     shapes = {}
-    for path, mnks in (
-            ("serving", GM.attn_gemm_shapes(256 * S, 768)
-             + GM.patch_select_gemm_shapes(256 * T, P, 512)),
-            ("train", GM.attn_gemm_shapes(32 * S, 768)),
-            ("e2e", GM.attn_gemm_shapes(2 * T * 577, 1024) + GM.attn_gemm_shapes(2 * S, 768)
-             + GM.patch_select_gemm_shapes(2 * T, P, 512)),
-            ("bench_resblock", GM.attn_gemm_shapes(256 * S, 768))):
+    for path, kernel, mnks in (
+            ("serving", "fused_attn_ln2", GM.attn_gemm_shapes(256 * S, 768)),
+            ("serving", "fused_patch_select", GM.patch_select_gemm_shapes(256 * T, P, 512)),
+            ("train", "fused_attn_ln2", GM.attn_gemm_shapes(32 * S, 768)),
+            ("e2e", "fused_attn_ln2", GM.attn_gemm_shapes(2 * T * 577, 1024)
+             + GM.attn_gemm_shapes(2 * S, 768)),
+            ("e2e", "fused_patch_select", GM.patch_select_gemm_shapes(2 * T, P, 512)),
+            ("bench_resblock", "fused_attn_half", GM.attn_gemm_shapes(256 * S, 768)),
+            ("bench_resblock", "fused_attn_ln2", GM.attn_gemm_shapes(256 * S, 768)),
+            (None, "fused_avq_train", GM.avq_train_fwd_gemm_shapes(64, T, S, 512)),
+            (None, "fused_resblock", GM.mlp_gemm_shapes(256 * S, 768))):
         for mnk in mnks:
-            paths = shapes.setdefault(mnk, [])
-            if path not in paths:
-                paths.append(path)
+            entry = shapes.setdefault(mnk, {"paths": [], "used_by": []})
+            if path and path not in entry["paths"]:
+                entry["paths"].append(path)
+            if kernel not in entry["used_by"]:
+                entry["used_by"].append(kernel)
     return shapes
 
 
 def check_gemms() -> list:
     """Phase 3 for the Hopper GEMM under the fused bf16 kernels: at each
-    distinct product shape of the paths, ``gemm_sm90`` (through the bias
-    epilogue, bf16 out) against its plain version (the fp32 product of the
-    same bf16 operands, rounded), timed beside its bound and beside
+    shape of ``path_gemm_shapes``, ``gemm_sm90`` (through the bias epilogue,
+    bf16 out) against its plain version (the fp32 product of the same bf16
+    operands, rounded), timed beside its bound and beside
     ``torch.matmul`` on the same operands (``library_ms``, a yardstick the
     port never calls). One line per shape; returns them."""
     import torch
@@ -515,7 +589,7 @@ def check_gemms() -> list:
     gen = torch.Generator(device="cuda").manual_seed(6)
     lines = []
     with torch.inference_mode():
-        for (m, n, k), paths in sorted(path_gemm_shapes().items()):
+        for (m, n, k), users in sorted(path_gemm_shapes().items()):
             a = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
             b = (torch.randn(n, k, device="cuda", generator=gen) * k ** -0.5).bfloat16()
             bias = torch.randn(n, device="cuda", generator=gen).bfloat16()
@@ -526,7 +600,7 @@ def check_gemms() -> list:
             del got, want
             flops = 2 * m * n * k
             b_ms, b_by = bound((m * k + n * k + n + m * n) * 2, flops, "bfloat16")
-            line = {"gemm": f"{m}x{n}x{k}", "paths": paths, "route": route,
+            line = {"gemm": f"{m}x{n}x{k}", **users, "route": route,
                     "max_abs_err": err, "max_abs_plain": scale,
                     "tolerance": BF16_TOL * max(1.0, scale),
                     "ms": cuda_ms(lambda a=a, b=b, bias=bias: GM.gemm_sm90(a, b, bias=bias)),
@@ -545,32 +619,35 @@ def check_gemms() -> list:
     return lines
 
 
-def train_bwd_gemm_shapes() -> dict:
-    """Every distinct (M, N, K) product of the two train backwards at the
-    recipe (B = 32: 32 x 60 PatchSelecter frames of 14 patches, 64 AVQ rows
-    of 60 frames and 77 words, width 512), with the backwards that launch
-    it and whether A is read column-major: a weight gradient, whose K is a
-    row count (26,880 patch rows, 3,840 query or AVQ rows, 4,928 words);
-    a dgrad reads its A row-major. B is [K, N] in both."""
+def train_tf32x3_gemm_shapes() -> dict:
+    """Every distinct fp32 (M, N, K) product of the two train backwards and
+    the AVQ train forward at the recipe (B = 32: 32 x 60 PatchSelecter
+    frames of 14 patches, 64 AVQ rows of 60 frames and 77 words, width
+    512), keyed with its operands' layouts, with the kernels that launch
+    it. A weight gradient reads A column-major (its K a row count: 26,880
+    patch rows, 3,840 query or AVQ rows, 4,928 words) and B as [K, N]; a
+    backward's dgrad reads A row-major and B as [K, N]; a forward product A
+    row-major and B (a weight) as [N, K]."""
     from qa_tiger_tpu_torch.ops import gemm as GM
 
     rows = {32 * T * P, 2 * 32 * T, 64 * T, 64 * S}
     shapes = {}
-    for kernel, mnks in (
+    for kernel, mnks, b_nk in (
             ("fused_patch_select_train_bwd",
-             GM.patch_select_train_bwd_gemm_shapes(32 * T, P, 512)),
-            ("fused_avq_train_bwd", GM.avq_train_bwd_gemm_shapes(64, T, S, 512))):
+             GM.patch_select_train_bwd_gemm_shapes(32 * T, P, 512), False),
+            ("fused_avq_train_bwd", GM.avq_train_bwd_gemm_shapes(64, T, S, 512), False),
+            ("fused_avq_train", GM.avq_train_fwd_gemm_shapes(64, T, S, 512), True)):
         for m, n, k in mnks:
-            kernels = shapes.setdefault((m, n, k, k in rows), [])
+            kernels = shapes.setdefault((m, n, k, not b_nk and k in rows, b_nk), [])
             if kernel not in kernels:
                 kernels.append(kernel)
     return shapes
 
 
 def check_tf32x3_gemms() -> list:
-    """The train backwards' fp32 GEMM alone (``gemm_tf32x3``, 3xTF32 on
-    mma.sync, the backwards' split-K plan) at each distinct product shape
-    and A layout of the two backwards at the recipe: against its plain
+    """The train kernels' fp32 GEMM alone (``gemm_tf32x3``, 3xTF32 on
+    mma.sync, the split-K plan) at each distinct product shape and layout
+    of ``train_tf32x3_gemm_shapes``: against its plain
     version (the same split, three fp32 products) and against the fp64
     product, both at FP32_TOL; timed beside its bound (operations over the
     tf32x3 peak; bytes: A, B and C once) and beside ``torch.matmul`` on the
@@ -584,13 +661,14 @@ def check_tf32x3_gemms() -> list:
     sms = GM.sm_count(torch.device("cuda"))
     lines = []
     with torch.inference_mode():
-        for (m, n, k, col), kernels in sorted(train_bwd_gemm_shapes().items()):
+        for (m, n, k, col, b_nk), kernels in sorted(train_tf32x3_gemm_shapes().items()):
             a = torch.randn(*((k, m) if col else (m, k)), device="cuda", generator=gen)
-            b = torch.randn(k, n, device="cuda", generator=gen)
+            b = torch.randn(*((n, k) if b_nk else (k, n)), device="cuda", generator=gen)
             a_mat = a.t() if col else a
-            got = GM.gemm_tf32x3(a, b, a_col_major=col)
-            want = GM.gemm_tf32x3_plain(a, b, a_col_major=col)
-            ref = a_mat.double() @ b.double()
+            b_mat = b.t() if b_nk else b
+            got = GM.gemm_tf32x3(a, b, a_col_major=col, b_nk=b_nk)
+            want = GM.gemm_tf32x3_plain(a, b, a_col_major=col, b_nk=b_nk)
+            ref = a_mat.double() @ b_mat.double()
             torch.cuda.synchronize()
             err, scale = max_err(got, want)
             err64 = (got.double() - ref).abs().max().item()
@@ -599,14 +677,15 @@ def check_tf32x3_gemms() -> list:
             flops = 2 * m * n * k
             b_ms, b_by = bound((m * k + k * n + m * n) * 4, flops, "tf32x3")
             line = {"gemm_tf32x3": f"{m}x{n}x{k}", "used_by": kernels,
-                    "a": "col" if col else "row",
+                    "a": "col" if col else "row", "b": "nk" if b_nk else "kn",
                     "splits": GM.splitk_plan(m, n, k, sms).splits,
                     "max_abs_err": err, "max_abs_plain": scale, "max_abs_err_fp64": err64,
                     "max_abs_fp64": scale64, "tolerance": FP32_TOL * max(1.0, scale),
-                    "ms": cuda_ms(lambda a=a, b=b: GM.gemm_tf32x3(a, b, a_col_major=col)),
+                    "ms": cuda_ms(lambda a=a, b=b: GM.gemm_tf32x3(a, b, a_col_major=col,
+                                                                   b_nk=b_nk)),
                     "plain_ms": cuda_ms(lambda a=a, b=b: GM.gemm_tf32x3_plain(
-                        a, b, a_col_major=col)),
-                    "library_ms": cuda_ms(lambda a=a_mat, b=b: torch.matmul(a, b)),
+                        a, b, a_col_major=col, b_nk=b_nk)),
+                    "library_ms": cuda_ms(lambda a=a_mat, b=b_mat: torch.matmul(a, b)),
                     "bound_ms": b_ms, "bound_by": b_by,
                     "bound_fma_ms": bound((m * k + k * n + m * n) * 4, flops, "float32")[0]}
             line["tflops"] = flops / line["ms"] * 1e-9
@@ -616,7 +695,7 @@ def check_tf32x3_gemms() -> list:
             lines.append(line)
             require(line["ok"], f"gemm_tf32x3 {m}x{n}x{k}: max|k-p| {err:.3e}, against fp64 "
                                 f"{err64:.3e}, over tolerance")
-            del a, b, a_mat
+            del a, b, a_mat, b_mat
         torch.cuda.empty_cache()
     return lines
 
@@ -724,10 +803,9 @@ def train_kernel_cases(dtype, B: int, rng, gen, T_: int = T):
     frames): names, shape label, kernel and plain forward, the
     differentiated inputs (activations, then parameters), cotangents, an
     fp32 copy of the plain version on the same values (``plain32``: outputs
-    and gradients), the bytes and flops of forward and backward, the peak an
-    fp32 forward's bound divides by (``fwd_peak``: tf32x3 where its products
-    run on gemm_tf32x3, the FMA peak where they do not), and the routes one
-    forward launch must tally (``fwd_routes``, where it tallies them)."""
+    and gradients), the bytes and flops of forward and backward, and the
+    routes one forward launch must tally (``fwd_routes``: every product on
+    gemm_tf32x3 in fp32, on gemm_sm90 in bf16)."""
     import copy
 
     import torch
@@ -757,7 +835,7 @@ def train_kernel_cases(dtype, B: int, rng, gen, T_: int = T):
         return _grads(outs, a32 + list(m32.parameters()), [c.float() for c in cots])
 
     def case(fname, shape, module, acts, masks, cots, kernel, plain, gemm, attn, act_elems,
-             fwd_peak, fwd_routes=None):
+             products):
         params = list(module.parameters())
         wbytes = sum(p.numel() for p in params) * isz
         mbytes = sum(m.numel() for m in masks.values()) * isz
@@ -771,8 +849,8 @@ def train_kernel_cases(dtype, B: int, rng, gen, T_: int = T):
                 # fwd: inputs, masks, weights read and the outputs written;
                 # bwd: those again with the cotangents, the input gradients
                 # and the fp32 parameter gradients written
-                "fwd_bytes": fwd_bytes, "fwd_flops": gemm + attn, "fwd_peak": fwd_peak,
-                "fwd_routes": fwd_routes,
+                "fwd_bytes": fwd_bytes, "fwd_flops": gemm + attn,
+                "fwd_routes": {"wgmma" if dtype == torch.bfloat16 else "tf32x3": products},
                 "bwd_bytes": 2 * fwd_bytes + sum(p.numel() for p in params) * 4,
                 "bwd_flops": 2 * gemm + 2 * attn}
 
@@ -785,7 +863,7 @@ def train_kernel_cases(dtype, B: int, rng, gen, T_: int = T):
                   lambda m, a, mk: AV.fused_avq_train(*a, m, mk, heads),
                   lambda m, a, mk: AV.avq_sub_forward_masked(m, *a, mk, nhead=heads),
                   2 * R * D * D * 12 + 4 * RS * D * D, 4 * R * D * (S + 2 * T_),
-                  3 * R * D + RS * D, "float32")]
+                  3 * R * D + RS * D, 10)]
 
     BT = B * T_
     Rp, Q2 = BT * P, 2 * BT
@@ -798,8 +876,7 @@ def train_kernel_cases(dtype, B: int, rng, gen, T_: int = T):
                       lambda m, a, mk: tuple(PS.patch_selecter_plain(m, *a, nhead=heads,
                                                                      masks=mk)),
                       2 * Rp * D * D * 6 + 2 * Q2 * D * D * 3,
-                      4 * BT * P * P * D + 4 * Q2 * P * D, Rp * D + 4 * BT * D, "tf32x3",
-                      {"wgmma" if dtype == torch.bfloat16 else "tf32x3": 7}))
+                      4 * BT * P * P * D + 4 * Q2 * P * D, Rp * D + 4 * BT * D, 7))
     return cases
 
 
@@ -822,9 +899,10 @@ def check_train_kernels(rng, gen, entries: dict):
 
     The fp32 backward's bound is its operations over the tf32x3 peak (its
     products run on gemm_tf32x3), with the fp32 FMA peak's figure beside it
-    (``bwd_bound_fma_ms``), and so is the PatchSelecter forward's
-    (``bound_fma_ms``); at the recipe shape in fp32 each kernel pair runs
-    twice and every output and gradient must be bitwise the same.
+    (``bwd_bound_fma_ms``), and so is each forward's (``bound_fma_ms``);
+    each forward's products must take the routes ``fwd_routes`` names; at
+    the recipe shape in fp32 each kernel pair runs twice and every output
+    and gradient must be bitwise the same.
 
     Tolerances: fp32, and bf16 forward outputs, max|k - p| <= tol *
     max(1, max|p|) as for the other kernels. bf16 gradients: both the kernel
@@ -845,10 +923,9 @@ def check_train_kernels(rng, gen, entries: dict):
         for c in train_kernel_cases(dtype, B, rng, gen, T_=T_):
             ins, cots = c["ins"], c["cots"]
             fwd_fn = ops.KERNELS[c["fwd"]]
-            if c["fwd_routes"]:
-                fwd_fn.gemm_routes = {}
+            fwd_fn.gemm_routes = {}
             got = _grads(c["kernel"](), ins, cots)
-            fwd_routes = dict(fwd_fn.gemm_routes) if c["fwd_routes"] else None
+            fwd_routes = dict(fwd_fn.gemm_routes)
             want = _grads(c["plain"](), ins, cots)
             ref = c["plain32"]() if bf16 else None
             repeat = (all(torch.equal(g, h) for g, h in zip(got, _grads(c["kernel"](), ins, cots)))
@@ -879,7 +956,7 @@ def check_train_kernels(rng, gen, entries: dict):
                     f_ms, pf_ms = cuda_ms(c["kernel"]), cuda_ms(c["plain"])
                 b_ms = backward_ms(c["kernel"], ins, cots)
                 pb_ms = backward_ms(c["plain"], ins, cots)
-                fb, fby = bound(c["fwd_bytes"], c["fwd_flops"], dname if bf16 else c["fwd_peak"])
+                fb, fby = bound(c["fwd_bytes"], c["fwd_flops"], "bfloat16" if bf16 else "tf32x3")
                 bb, bby = bound(c["bwd_bytes"], c["bwd_flops"], "bfloat16" if bf16 else "tf32x3")
                 line.update(ms=f_ms, plain_ms=pf_ms, bound_ms=fb, bound_by=fby, bwd_ms=b_ms,
                             plain_bwd_ms=pb_ms, bwd_bound_ms=bb, bwd_bound_by=bby)
@@ -896,9 +973,8 @@ def check_train_kernels(rng, gen, entries: dict):
                             "bound_ms": bms, "bound_by": bby_, "library_ms": None}
                     entries[c["bwd"]].update(bound_peak="tf32x3",
                                              bound_ms_fp32_fma=line["bwd_bound_fma_ms"])
-                    if c["fwd_peak"] == "tf32x3":
-                        entries[c["fwd"]].update(bound_peak="tf32x3",
-                                                 bound_ms_fp32_fma=line["bound_fma_ms"])
+                    entries[c["fwd"]].update(bound_peak="tf32x3",
+                                             bound_ms_fp32_fma=line["bound_fma_ms"])
             print(json.dumps(line), flush=True)
             require(ok, f"{c['fwd']} {dname} {c['shape']}: tensor {worst[1]} max|k-p| "
                         f"{worst[2]:.3e} over its limit")
@@ -1149,10 +1225,11 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> dict:
 
 TRAIN_LR = 1e-4
 # the kernels whose every fp32 product takes gemm_tf32x3, and their products
-# per train step: the two backwards, the PatchSelecter forward and the two
+# per train step: the two train kernels' backwards and forwards and the two
 # TempMoE calls (each a hidden and an output product)
 TRAIN_TF32X3_KERNELS = {"fused_patch_select_train_bwd": 14, "fused_avq_train_bwd": 20,
-                        "fused_patch_select_train": 7, "fused_gaussian_moe": 4}
+                        "fused_patch_select_train": 7, "fused_avq_train": 10,
+                        "fused_gaussian_moe": 4}
 TRAIN_KERNELS = {"fused_attn_ln2": 12, "fused_avq_train": 1, "fused_avq_train_bwd": 1,
                  "fused_patch_select_train": 1, "fused_patch_select_train_bwd": 1,
                  "fused_gaussian_moe": 2, "attention_wide": 0, "attention_wide_key_bias": 0,

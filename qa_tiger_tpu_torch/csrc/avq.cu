@@ -11,13 +11,15 @@
 // body _fwd_body :270) and _kernel_bwd (pallas_call :558, body :356).
 //
 // Bound on the H100: operations. At N=64 rows of T=60, S=77, D=512 the
-// projections are ~29 GFLOP of the forward's ~31 and the attentions ~1; the
-// backward is about twice that. The Pallas kernels keep every intermediate
-// in VMEM and recompute the forward in the backward; here each step is one
-// launch and the intermediates the backward needs (the projections, the
-// three contexts, x1, h1, relu(.), its dropped copy, x2) are written once by
-// the forward and kept by the autograd Function, so the backward recomputes
-// only the attention probabilities (inside attention_bwd_kernel).
+// forward's ten projections are 29.3 GFLOP of its ~31 and the attentions
+// ~1.5; the backward is about twice that. In fp32 the 3xTF32 rate (494.7 / 3
+// TFLOP/s) puts the forward at >= 0.19 ms, the FMA peak (67) at >= 0.46.
+// The Pallas kernels keep every intermediate in VMEM and recompute the
+// forward in the backward; here each step is one launch and the
+// intermediates the backward needs (the projections, the three contexts,
+// x1, h1, relu(.), its dropped copy, x2) are written once by the forward
+// and kept by the autograd Function, so the backward recomputes only the
+// attention probabilities (inside attention_bwd_kernel).
 //
 // Parameter gradients: Pallas sums them over a sequential grid into
 // constant-index blocks. Here the backward writes each per-row gradient
@@ -26,10 +28,17 @@
 // bias or LayerNorm gradient one column sum. Deterministic, no atomics. All
 // parameter gradients are fp32; activation gradients are in T.
 //
-// The backward's 20 products go through qt::planned_gemm (gemm_tf32x3.cuh): in
-// fp32 the 3xTF32 tensor-core routine, the weight gradients split along
-// their K (the rows) into a workspace (WS) and summed in a fixed order; in
-// bf16 gemm_tile's WMMA loop. The forward keeps gemm_tile.
+// Every product, the forward's ten and the backward's 20, goes through
+// qt::planned_gemm (gemm_tf32x3.cuh) against the plan its wrapper built. In
+// fp32 all of them take the 3xTF32 tensor-core routine; the forward's have
+// K = D = 512 (16 slabs), so none splits and the forward needs no
+// workspace, while the backward's weight gradients split along their K
+// (the rows) into a workspace (WS) summed in a fixed order. In bf16 the
+// forward's products (row-major A, [N, K] weights) take gemm_sm90 (TMA +
+// wgmma), the backward's gemm_tile's WMMA loop. The forward's epilogues
+// give gemm_sm90's paired stores the values they round (EpiMaskAdd::value)
+// or store their own pair (EpiReluDrop::store2, two tensors). The three
+// keep-masked attentions stay on qt::attention's FMA kernels.
 //
 // Rounding: every value the Pallas bodies cast to the activation type is
 // rounded to T at the same place (round_t), so the bf16 kernels agree with
@@ -62,31 +71,49 @@ enum Buf {
   NBUF
 };
 
-template <typename T> struct EpiMaskAdd {  // out = round(base + round(mask * round(acc + b)))
+// out = round(base + round(mask * round(acc + b))); out may alias base (the
+// x1 chain: each element is read and written by one thread, once). value()
+// is the fp32 value operator() rounds, for gemm_sm90's paired stores.
+template <typename T> struct EpiMaskAdd {
   T* out;
   const T* base;
   const T* mask;
   const T* bias;
-  long long ld;
-  __device__ void operator()(int m, int n, float acc) const {
-    const long long i = (long long)m * ld + n;
+  long long ldo;
+  __device__ float value(int m, int n, float acc) const {
+    const long long i = (long long)m * ldo + n;
     const float y = qt::round_t<T>(acc + qt::to_f<T>(bias[n]));
     const float d = qt::round_t<T>(qt::to_f<T>(mask[i]) * y);
-    out[i] = qt::from_f<T>(qt::to_f<T>(base[i]) + d);
+    return qt::to_f<T>(base[i]) + d;
+  }
+  __device__ void operator()(int m, int n, float acc) const {
+    out[(long long)m * ldo + n] = qt::from_f<T>(value(m, n, acc));
   }
 };
 
-template <typename T> struct EpiReluDrop {  // hr = round(relu(acc + b)); hdp = round(hr * mask)
-  T* hr;
-  T* hdp;
+// out (hr) = round(relu(acc + b)); out2 (hdp) = round(hr * mask). Two
+// tensors, so gemm_sm90 stores its column pairs through store2.
+template <typename T> struct EpiReluDrop {
+  static constexpr bool kStore2 = true;
+  T* out;
+  T* out2;
   const T* mask;
   const T* bias;
-  long long ld;
+  long long ldo;
+  __device__ float relu(int n, float acc) const {
+    return qt::round_t<T>(fmaxf(acc + qt::to_f<T>(bias[n]), 0.0f));
+  }
   __device__ void operator()(int m, int n, float acc) const {
-    const long long i = (long long)m * ld + n;
-    const float r = qt::round_t<T>(fmaxf(acc + qt::to_f<T>(bias[n]), 0.0f));
-    hr[i] = qt::from_f<T>(r);
-    hdp[i] = qt::from_f<T>(r * qt::to_f<T>(mask[i]));
+    const long long i = (long long)m * ldo + n;
+    const float r = relu(n, acc);
+    out[i] = qt::from_f<T>(r);
+    out2[i] = qt::from_f<T>(r * qt::to_f<T>(mask[i]));
+  }
+  __device__ void store2(int m, int n, float a0, float a1) const {
+    const long long i = (long long)m * ldo + n;
+    const float r0 = relu(n, a0), r1 = relu(n + 1, a1);
+    qt::store_pair(out + i, r0, r1);
+    qt::store_pair(out2 + i, r0 * qt::to_f<T>(mask[i]), r1 * qt::to_f<T>(mask[i + 1]));
   }
 };
 
@@ -110,70 +137,64 @@ inline int pad128(int n) { return (n + 127) / 128 * 128; }
   if ((err = (call)) != cudaSuccess) return err
 
 template <typename T>
-cudaError_t forward(void* const* b, int N, int T_, int S, int D, int heads, cudaStream_t st) {
+cudaError_t forward(void* const* b, int N, int T_, int S, int D, int heads, qt::GemmPlan plan,
+                    cudaStream_t st) {
   auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
   auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
   const int R = N * T_, RS = N * S, hd = D / heads;
   const float scale = 1.0f / sqrtf((float)hd);
   const long long ldq = pad128(heads * S), lds = pad128(heads * T_);
   const long long D2 = 2LL * D, D3 = 3LL * D, DD = (long long)D * D;
+  plan.ws = static_cast<float*>(b[WS]);
   cudaError_t err;
   using qt::EpiBias;
+  using qt::planned_gemm;
   using qt::RowLoad;
 
   // question-guided attention: q from x0, k|v from the words
-  qt::gemm<T, true>(RowLoad<T>{c(SRC), D}, c(QST_W), D, R, D, D,
-                    EpiBias<T>{w(QQ), D, c(QST_B), false}, st);
-  QT_CHECK();
-  qt::gemm<T, true>(RowLoad<T>{c(WRD), D}, c(QST_W) + DD, D, RS, 2 * D, D,
-                    EpiBias<T>{w(KVQ), D2, c(QST_B) + D, false}, st);
-  QT_CHECK();
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SRC), D}, c(QST_W), D, R, D, D,
+                                EpiBias<T>{w(QQ), D, c(QST_B), false}, plan, st)));
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(WRD), D}, c(QST_W) + DD, D, RS, 2 * D, D,
+                                EpiBias<T>{w(KVQ), D2, c(QST_B) + D, false}, plan, st)));
   err = qt::attention<T>(c(QQ), (long long)T_ * D, D, c(KVQ), S * D2, D2, c(KVQ) + D, S * D2, D2,
                          w(QCTX), (long long)T_ * D, D, nullptr, N, T_, S, heads, hd, scale, st,
                          c(M_QST), ldq, false);
   if (err != cudaSuccess) return err;
   // self attention: packed q|k|v from x0
-  qt::gemm<T, true>(RowLoad<T>{c(SRC), D}, c(SLF_W), D, R, 3 * D, D,
-                    EpiBias<T>{w(QKV), D3, c(SLF_B), false}, st);
-  QT_CHECK();
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SRC), D}, c(SLF_W), D, R, 3 * D, D,
+                                EpiBias<T>{w(QKV), D3, c(SLF_B), false}, plan, st)));
   err = qt::attention<T>(c(QKV), T_ * D3, D3, c(QKV) + D, T_ * D3, D3, c(QKV) + 2 * D, T_ * D3,
                          D3, w(SCTX), (long long)T_ * D, D, nullptr, N, T_, T_, heads, hd, scale,
                          st, c(M_SLF), lds, false);
   if (err != cudaSuccess) return err;
   // cross attention: q from x0, k|v from the other stream
-  qt::gemm<T, true>(RowLoad<T>{c(SRC), D}, c(CRS_W), D, R, D, D,
-                    EpiBias<T>{w(QC), D, c(CRS_B), false}, st);
-  QT_CHECK();
-  qt::gemm<T, true>(RowLoad<T>{c(VAL), D}, c(CRS_W) + DD, D, R, 2 * D, D,
-                    EpiBias<T>{w(KVC), D2, c(CRS_B) + D, false}, st);
-  QT_CHECK();
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SRC), D}, c(CRS_W), D, R, D, D,
+                                EpiBias<T>{w(QC), D, c(CRS_B), false}, plan, st)));
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(VAL), D}, c(CRS_W) + DD, D, R, 2 * D, D,
+                                EpiBias<T>{w(KVC), D2, c(CRS_B) + D, false}, plan, st)));
   err = qt::attention<T>(c(QC), (long long)T_ * D, D, c(KVC), T_ * D2, D2, c(KVC) + D, T_ * D2,
                          D2, w(CCTX), (long long)T_ * D, D, nullptr, N, T_, T_, heads, hd, scale,
                          st, c(M_CRS), lds, false);
   if (err != cudaSuccess) return err;
   // x1 = x0 + d_slf*slf + d_crs*crs + d_qst*qst, summed in that order
-  qt::gemm<T, true>(RowLoad<T>{c(SCTX), D}, c(SLF_OW), D, R, D, D,
-                    EpiMaskAdd<T>{w(X1), c(SRC), c(M_DSLF), c(SLF_OB), D}, st);
-  QT_CHECK();
-  qt::gemm<T, true>(RowLoad<T>{c(CCTX), D}, c(CRS_OW), D, R, D, D,
-                    EpiMaskAdd<T>{w(X1), c(X1), c(M_DCRS), c(CRS_OB), D}, st);
-  QT_CHECK();
-  qt::gemm<T, true>(RowLoad<T>{c(QCTX), D}, c(QST_OW), D, R, D, D,
-                    EpiMaskAdd<T>{w(X1), c(X1), c(M_DQST), c(QST_OB), D}, st);
-  QT_CHECK();
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SCTX), D}, c(SLF_OW), D, R, D, D,
+                                EpiMaskAdd<T>{w(X1), c(SRC), c(M_DSLF), c(SLF_OB), D}, plan, st)));
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(CCTX), D}, c(CRS_OW), D, R, D, D,
+                                EpiMaskAdd<T>{w(X1), c(X1), c(M_DCRS), c(CRS_OB), D}, plan, st)));
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(QCTX), D}, c(QST_OW), D, R, D, D,
+                                EpiMaskAdd<T>{w(X1), c(X1), c(M_DQST), c(QST_OB), D}, plan, st)));
   // LN1, FFN with its two dropouts, LN2
   qt::layer_norm_kernel<T, T><<<qt::ln_blocks(R), qt::LN_WARPS * 32, 0, st>>>(
       c(X1), R, D, 1, c(N1_W), c(N1_B), w(H1), nullptr, nullptr, nullptr);
   QT_CHECK();
-  qt::gemm<T, true>(RowLoad<T>{c(H1), D}, c(L1_W), D, R, D, D,
-                    EpiReluDrop<T>{w(HR), w(HDP), c(M_FFN1), c(L1_B), D}, st);
-  QT_CHECK();
-  qt::gemm<T, true>(RowLoad<T>{c(HDP), D}, c(L2_W), D, R, D, D,
-                    EpiMaskAdd<T>{w(X2), c(H1), c(M_FFN2), c(L2_B), D}, st);
-  QT_CHECK();
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(H1), D}, c(L1_W), D, R, D, D,
+                                EpiReluDrop<T>{w(HR), w(HDP), c(M_FFN1), c(L1_B), D}, plan, st)));
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(HDP), D}, c(L2_W), D, R, D, D,
+                                EpiMaskAdd<T>{w(X2), c(H1), c(M_FFN2), c(L2_B), D}, plan, st)));
   qt::layer_norm_kernel<T, T><<<qt::ln_blocks(R), qt::LN_WARPS * 32, 0, st>>>(
       c(X2), R, D, 1, c(N2_W), c(N2_B), w(OUT), nullptr, nullptr, nullptr);
-  return cudaGetLastError();
+  QT_CHECK();
+  return plan.done();
 }
 
 // The backward of one attention block: g_out = round(g_x1 * d) is given;
@@ -294,16 +315,18 @@ cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, qt:
 
 }  // namespace
 
-extern "C" int qt_avq_train_fwd(int dtype, void* const* bufs, int N, int T, int S, int D,
-                                int heads, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return forward<float>(bufs, N, T, S, D, heads, st);
-  return forward<__nv_bfloat16>(bufs, N, T, S, D, heads, st);
-}
-
-// plan: `products` rows of (M, N, K, chunk, route), the backward's products
+// plan: `products` rows of (M, N, K, chunk, route), the launch's products
 // in launch order (ops/gemm.py gemm_plan), route written here; ws_floats:
 // the room of the WS buffer (fp32 only)
+extern "C" int qt_avq_train_fwd(int dtype, void* const* bufs, int N, int T, int S, int D,
+                                int heads, int* plan, int products, long long ws_floats,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const qt::GemmPlan fp{plan, products, 0, nullptr, ws_floats};
+  if (dtype == 0) return forward<float>(bufs, N, T, S, D, heads, fp, st);
+  return forward<__nv_bfloat16>(bufs, N, T, S, D, heads, fp, st);
+}
+
 extern "C" int qt_avq_train_bwd(int dtype, void* const* bufs, int N, int T, int S, int D,
                                 int heads, int* plan, int products, long long ws_floats,
                                 void* stream) {

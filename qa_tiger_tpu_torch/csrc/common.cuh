@@ -225,9 +225,9 @@ template <typename T> struct RoundColLoad {  // A(m, k) = round_T(a[k * lda + m]
 };
 
 // Epilogues ---------------------------------------------------------------
-// EpiBias, EpiResidual and EpiF32 also give value(m, n, acc), the fp32 value
-// that operator() rounds into out[m * ldo + n], so that gemm_sm90 can store
-// two adjacent columns at once with the same arithmetic.
+// EpiBias, EpiBiasQuickGelu, EpiResidual and EpiF32 also give value(m, n,
+// acc), the fp32 value that operator() rounds into out[m * ldo + n], so that
+// gemm_sm90 can store two adjacent columns at once with the same arithmetic.
 template <typename T> struct EpiBias {  // out = round_T(act(acc + bias)); bias may be null
   T* out;
   long long ldo;
@@ -248,9 +248,12 @@ template <typename T> struct EpiBiasQuickGelu {
   T* out;
   long long ldo;
   const T* bias;
-  __device__ void operator()(int m, int n, float acc) const {
+  __device__ float value(int, int n, float acc) const {
     const float v = acc + to_f<T>(bias[n]);
-    out[(long long)m * ldo + n] = from_f<T>(v / (1.0f + expf(-1.702f * v)));
+    return v / (1.0f + expf(-1.702f * v));
+  }
+  __device__ void operator()(int m, int n, float acc) const {
+    out[(long long)m * ldo + n] = from_f<T>(value(m, n, acc));
   }
 };
 

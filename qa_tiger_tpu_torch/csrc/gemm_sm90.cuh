@@ -4,11 +4,15 @@
 // every rounding point stays where gemm_tile put it. A is [M, K] row-major
 // and B [N, K] (torch's Linear layout): both K-major, as wgmma reads them.
 //
-// Serves the bf16 GEMMs of two fused kernels: resblock.cu attn<T> (the qkv
+// Serves the bf16 GEMMs of the fused kernels: resblock.cu attn<T> (the qkv
 // projection and the out_proj + residual of the pre-LN attention half,
 // replacing the matmuls of _attn_ln2_kernel / _attn_core in
-// qa_tiger_tpu/ops/pallas/resblock.py) and patch_select.cu run<T> (the seven
-// projections of _kernel in qa_tiger_tpu/ops/pallas/patch_select.py).
+// qa_tiger_tpu/ops/pallas/resblock.py) and mlp<T> (c_fc + QuickGELU and
+// c_proj + residual of the MLP half, _mlp_kernel there), patch_select.cu
+// run<T> (the seven projections of _kernel in
+// qa_tiger_tpu/ops/pallas/patch_select.py), and through planned_gemm
+// (gemm_tf32x3.cuh) the forward products of the two train kernels
+// (patch_select_train.cu and avq.cu forward<T>).
 //
 // Bound on the H100: operations. The largest call, the CLIP image tower's
 // qkv projection at M = 120 * 577 = 69,240, N = 3072, K = 1024, is 436 GFLOP
@@ -227,16 +231,39 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t desc_a, 
     wgmma_m64n128k16(d, desc_a, desc_b, scale_d);
 }
 
+// two adjacent values stored together: an 8-byte fp32 pair or a 4-byte
+// bf16 pair, each value rounded to nearest as from_f rounds it
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// A functor that declares `static constexpr bool kStore2 = true` stores its
+// own column pair through store2(m, n, a0, a1) (avq.cu's EpiReluDrop, which
+// writes two tensors, out and out2); every other functor gives
+// value(m, n, acc), which epi_store2 stores into out.
+template <class Epi, class = void> struct has_store2 : std::false_type {};
+template <class Epi>
+struct has_store2<Epi, std::void_t<decltype(Epi::kStore2)>> : std::bool_constant<Epi::kStore2> {};
+
 // the epilogue of columns n and n + 1 of row m, stored together (n even,
-// the functor's ldo even: a 4-byte bf16 pair or an 8-byte fp32 pair)
+// the functor's ldo even)
 template <class Epi>
 __device__ __forceinline__ void epi_store2(const Epi& epi, int m, int n, float a0, float a1) {
-  auto* p = epi.out + (long long)m * epi.ldo + n;
-  const float v0 = epi.value(m, n, a0), v1 = epi.value(m, n + 1, a1);
-  if constexpr (std::is_same<std::remove_pointer_t<decltype(epi.out)>, float>::value)
-    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  if constexpr (has_store2<Epi>::value)
+    epi.store2(m, n, a0, a1);
   else
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+    store_pair(epi.out + (long long)m * epi.ldo + n, epi.value(m, n, a0),
+               epi.value(m, n + 1, a1));
+}
+
+// the paired stores' rule: 8-byte aligned outputs, an even row stride
+template <class Epi> inline bool pair_stores_ok(const Epi& epi) {
+  uintptr_t out = reinterpret_cast<uintptr_t>(epi.out);
+  if constexpr (has_store2<Epi>::value) out |= reinterpret_cast<uintptr_t>(epi.out2);
+  return !(out & 7) && !(epi.ldo & 1);
 }
 
 // A persistent kernel: each block walks the 128 x BN tiles of C from
@@ -426,9 +453,8 @@ inline cudaError_t gemm_sm90(const __nv_bfloat16* A, long long lda, const __nv_b
                              long long ldb, int M, int N, int K, const Epi& epi,
                              cudaStream_t stream) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B);
-  const uintptr_t out = reinterpret_cast<uintptr_t>(epi.out);
   if (gemm_route(true, M, N, K) != GEMM_ROUTE_WGMMA || (ptrs & 15) || ((lda | ldb) & 7) ||
-      (out & 7) || (epi.ldo & 1))
+      !pair_stores_ok(epi))
     return cudaErrorInvalidValue;
   if (N >= 2304) return gemm_sm90_launch<256>(A, lda, B, ldb, M, N, K, epi, stream);
   return gemm_sm90_launch<128>(A, lda, B, ldb, M, N, K, epi, stream);

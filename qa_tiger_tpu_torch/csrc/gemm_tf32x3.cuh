@@ -4,10 +4,11 @@
 // common.cuh (EpiStoreF32, EpiBias, ...), so every rounding point stays where
 // gemm_tile put it.
 //
-// Replaces the fp32 products of the two train backwards: _kernel_bwd of
-// qa_tiger_tpu/ops/pallas/patch_select.py (pallas_call :880) and _kernel_bwd
-// of qa_tiger_tpu/ops/pallas/avq.py (pallas_call :558), which run on
-// patch_select_train.cu backward<float> and avq.cu backward<float>.
+// Replaces the fp32 products of the two train kernels, forward and
+// backward: _kernel_train / _kernel_bwd of qa_tiger_tpu/ops/pallas/
+// patch_select.py (pallas_call :827, :880) and _kernel_fwd / _kernel_bwd of
+// qa_tiger_tpu/ops/pallas/avq.py (pallas_call :532, :558), which run on
+// patch_select_train.cu and avq.cu forward<float> and backward<float>.
 //
 // Bound on the H100: operations. At B=32 the PatchSelecter backward's 14
 // products are ~181 GFLOP against ~0.5 GB of operands and the AVQ
@@ -50,8 +51,8 @@
 // 4 floats (the 16-byte chunks); M, N and K may be ragged (chunks past an
 // edge are zero-filled). A call that breaks that, or whose split-K plan needs
 // more workspace than it was given, returns cudaErrorInvalidValue; nothing
-// falls back to gemm_tile. Every fp32 product of the two backwards takes
-// this routine: their leading dimensions are D, 2D, 3D and D/2.
+// falls back to gemm_tile. Every fp32 product of the two train kernels
+// takes this routine: their leading dimensions are D, 2D, 3D and D/2.
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -330,7 +331,7 @@ struct GemmPlan {
 
 // One product of a train kernel, C = A B through epi: fp32 on gemm_tf32x3,
 // in the plan's chunks; bf16 with a plain row-major A and an [N, K] B (the
-// forward's projections) on gemm_rows (gemm_sm90 where gemm_route gives
+// forwards' projections) on gemm_rows (gemm_sm90 where gemm_route gives
 // wgmma), any other bf16 product (the backwards') on gemm_tile's WMMA loop.
 // A product the plan does not name (M, N, K) is refused.
 template <typename T, bool B_NK, class ALoad, class Epi>

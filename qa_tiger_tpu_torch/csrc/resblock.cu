@@ -26,17 +26,23 @@
 //   4. GEMM against out_proj plus bias plus the residual -> y (gemm_sm90 in
 //      bf16, gemm_tile in fp32);
 //   5. (qt_attn_ln2 only) ln_2 over y -> h.
-// The MLP half is three:
-//   1. row statistics of x;
-//   2. GEMM against c_fc [4W, W] whose A load applies ln_2 and rounds, with
-//      the epilogue bias, QuickGELU on the fp32 value, round -> hidden;
-//   3. GEMM against c_proj [W, 4W] plus bias plus the residual -> y.
+// The MLP half is three launches, all written here, laid out as the
+// attention half's:
+//   1. ln_2: in bf16 (the wgmma route) round_T(ln_2(x)) written to y, which
+//      step 3 overwrites only after step 2 has read it; in fp32 the row
+//      statistics of x;
+//   2. GEMM against c_fc [4W, W] plus bias, QuickGELU on the fp32 value,
+//      rounded once -> hidden: in bf16 gemm_sm90 on the staged rows; in
+//      fp32 gemm_tile's FMA loop, whose A load applies ln_2 (the same
+//      expression, rounded);
+//   3. GEMM against c_proj [W, 4W] plus bias plus the residual -> y
+//      (gemm_sm90 in bf16, gemm_tile in fp32).
 // The Pallas kernels kept qkv, ctx and the MLP hidden [rows, 4W] in VMEM;
 // here each makes one round trip through HBM (2 x 3W + 2 x W values per row
 // in the attention half, ~240 MB per layer at B=256 in bf16; 2 x 4W in the
 // MLP half, ~240 MB). At the card's peak rates that traffic would take about
 // as long as the GEMMs themselves, so keeping it on chip is the first thing
-// a faster version needs; against this version's GEMM time it is small.
+// a faster version needs.
 #include "gemm_sm90.cuh"
 
 namespace {
@@ -80,22 +86,32 @@ cudaError_t attn(const T* x, const T* ln1w, const T* ln1b, const T* wqkv, const 
   return cudaGetLastError();
 }
 
+// y doubles as the bf16 route's ln_2 scratch; stats serves the fp32 route
 template <typename T>
 cudaError_t mlp(const T* x, const T* ln2w, const T* ln2b, const T* wfc, const T* bfc,
                 const T* wpj, const T* bpj, T* y, T* hidden, float* stats, int M, int W,
                 int Hd, cudaStream_t stream) {
-  float* mean = stats;
-  float* rstd = stats + M;
-  qt::row_stats_kernel<T><<<qt::ln_blocks(M), qt::LN_WARPS * 32, 0, stream>>>(x, W, M, W, mean,
-                                                                               rstd);
-  cudaError_t err = cudaGetLastError();
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  const qt::EpiBiasQuickGelu<T> to_hidden{hidden, Hd, bfc};
+  cudaError_t err;
+  if (qt::gemm_route(kBf16, M, Hd, W) == qt::GEMM_ROUTE_WGMMA) {
+    qt::layer_norm_kernel<T, T><<<qt::ln_blocks(M), qt::LN_WARPS * 32, 0, stream>>>(
+        x, M, W, 1, ln2w, ln2b, y, nullptr, nullptr, nullptr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = qt::gemm_rows<T>(y, W, wfc, W, M, Hd, W, to_hidden, stream);
+  } else {
+    float* mean = stats;
+    float* rstd = stats + M;
+    qt::row_stats_kernel<T><<<qt::ln_blocks(M), qt::LN_WARPS * 32, 0, stream>>>(x, W, M, W,
+                                                                                 mean, rstd);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    qt::gemm<T, true>(qt::LnRowLoad<T>{x, W, mean, rstd, ln2w, ln2b}, wfc, W, M, Hd, W,
+                      to_hidden, stream);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
-  qt::gemm<T, true>(qt::LnRowLoad<T>{x, W, mean, rstd, ln2w, ln2b}, wfc, W, M, Hd, W,
-                    qt::EpiBiasQuickGelu<T>{hidden, Hd, bfc}, stream);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  qt::gemm<T, true>(qt::RowLoad<T>{hidden, Hd}, wpj, Hd, M, W, Hd,
-                    qt::EpiResidual<T>{y, W, bpj, x, W}, stream);
-  return cudaGetLastError();
+  return qt::gemm_rows<T>(hidden, Hd, wpj, Hd, M, W, Hd, qt::EpiResidual<T>{y, W, bpj, x, W},
+                          stream);
 }
 
 }  // namespace

@@ -11,12 +11,12 @@ run under autograd, from the ``torch.autograd.Function`` of their forward.
 ``fused_resblock`` makes included; ``fused_resblock`` counts its MLP-half
 launches. ``gemm_route`` names the GEMM routine (``gemm_sm90`` or
 ``gemm_tile``) a fused kernel's product takes on the card;
-``fused_attn_ln2``, ``fused_attn_half`` and ``fused_patch_select`` tally the
-route of each product they launch in ``gemm_routes``; the two train
-backwards and the PatchSelecter train forward tally the routine each of
-their products reported as it launched (``gemm_tf32x3`` in fp32; in bf16
-``gemm_sm90`` for the forward, ``gemm_tile``'s WMMA loop for the
-backwards); ``fused_gaussian_moe`` tallies its two products' (its own
+``fused_attn_ln2``, ``fused_attn_half``, ``fused_resblock`` (its MLP half's
+two) and ``fused_patch_select`` tally the route of each product they launch
+in ``gemm_routes``; the two train kernels' forwards and backwards tally the
+routine each of their products reported as it launched (``gemm_tf32x3`` in
+fp32; in bf16 ``gemm_sm90`` for the forwards, ``gemm_tile``'s WMMA loop for
+the backwards); ``fused_gaussian_moe`` tallies its two products' (its own
 ``wgmma`` kernel or 3xTF32 for the first, ``gemm_tf32x3`` for the second).
 """
 from qa_tiger_tpu_torch.ops.attention import (

@@ -52,7 +52,7 @@ SIGNATURES = {
     # the train kernels take one table of device pointers (index order: the
     # Buf enum of their source, the BUFFERS lists of ops/avq.py and
     # ops/patch_select.py)
-    "qt_avq_train_fwd": [_I, _P, _I, _I, _I, _I, _I, _P],
+    "qt_avq_train_fwd": [_I, _P, _I, _I, _I, _I, _I, _P, _I, _L, _P],
     "qt_avq_train_bwd": [_I, _P, _I, _I, _I, _I, _I, _P, _I, _L, _P],
     "qt_patch_select_train_fwd": [_I, _P, _I, _I, _I, _I, _P, _I, _L, _P],
     "qt_patch_select_train_bwd": [_I, _P, _I, _I, _I, _I, _P, _I, _L, _P],

@@ -9,8 +9,11 @@ masks (``models.modules.make_avq_dropout_masks``).
 A CUDA tensor runs the forward kernel and, under autograd, the backward
 kernel of ``csrc/avq.cu`` inside one ``torch.autograd.Function``; a CPU
 tensor runs the plain version ``avq_sub_forward_masked``, which autograd
-differentiates. The backward's fp32 products run on ``gemm_tf32x3``
-(``ops.gemm``), whose routes it tallies in ``fused_avq_train_bwd.gemm_routes``.
+differentiates. Both launches are planned (``ops.gemm.gemm_plan``): the
+forward's ten products run on ``gemm_tf32x3`` in fp32 and ``gemm_sm90`` in
+bf16, the backward's 20 on ``gemm_tf32x3`` in fp32; each tallies the routes
+its products took in ``fused_avq_train.gemm_routes`` /
+``fused_avq_train_bwd.gemm_routes``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from qa_tiger_tpu_torch.ops import _build
 from qa_tiger_tpu_torch.ops.gemm import (
     aligned16,
     avq_train_bwd_gemm_shapes,
+    avq_train_fwd_gemm_shapes,
     gemm_plan,
     note_plan_routes,
     plan_workspace,
@@ -97,15 +101,25 @@ class _AVQTrain(torch.autograd.Function):
         N, T, D = src.shape
         S = wrd.shape[1]
         dev, dt = src.device, src.dtype
+        # the operands gemm_tf32x3 and gemm_sm90 read in 16-byte chunks
+        src, val, wrd = aligned16(src), aligned16(val), aligned16(wrd)
+        weights = [aligned16(w) for w in weights]
         bufs = dict(src=src, val=val, wrd=wrd, out=torch.empty_like(src))
         for key in SAVED:
             shape = _shapes(N, T, S, D).get(key, (N * T, D))
             bufs[key] = torch.empty(shape, dtype=dt, device=dev)
         bufs.update({f"m_{k}": masks[k] for k in MASK_KEYS})
         bufs.update(zip(WEIGHT_NAMES, weights))
+        shapes = avq_train_fwd_gemm_shapes(N, T, S, D)
+        sms = sm_count(dev)
+        plan = gemm_plan(dt, shapes, sms)
+        ws_floats = plan_workspace(dt, shapes, sms)
+        if ws_floats:
+            bufs["ws"] = torch.empty(ws_floats, dtype=torch.float32, device=dev)
         _build.launch_table("qt_avq_train_fwd", "qt_avq_num_buffers", BUFFERS, bufs,
-                            N, T, S, D, nhead)
+                            N, T, S, D, nhead, plan.data_ptr(), len(shapes), ws_floats)
         fused_avq_train.launches += 1
+        note_plan_routes(fused_avq_train, plan)
         ctx.nhead, ctx.masks = nhead, masks
         ctx.save_for_backward(src, val, wrd, *weights, *[bufs[k] for k in SAVED])
         return bufs["out"]
@@ -203,3 +217,4 @@ def fused_avq_train(src: torch.Tensor, val: torch.Tensor, wrd: torch.Tensor, par
 
 
 fused_avq_train.launches = 0
+fused_avq_train.gemm_routes = {}  # the GEMM routine of each product launched

@@ -1,18 +1,19 @@
 """The GEMM routines under the fused kernels, as the card's dispatch picks them.
 
-``fused_attn_ln2``, ``fused_attn_half`` and ``fused_patch_select`` run their
-projections on one of two device routines (``csrc/gemm_sm90.cuh``):
-``gemm_sm90``, a bf16 Hopper GEMM (TMA loads into a ring of shared-memory
-stages, ``wgmma`` products), for every bf16 product whose N and K are
-multiples of 8; ``gemm_tile`` (``csrc/common.cuh``) otherwise, on WMMA in
-bf16 and on an FMA loop in fp32. The two train backwards and the
-``fused_patch_select_train`` forward run their fp32 products on
+``fused_attn_ln2``, ``fused_attn_half``, ``fused_resblock`` and
+``fused_patch_select`` run their projections on one of two device routines
+(``csrc/gemm_sm90.cuh``): ``gemm_sm90``, a bf16 Hopper GEMM (TMA loads into
+a ring of shared-memory stages, ``wgmma`` products), for every bf16 product
+whose N and K are multiples of 8; ``gemm_tile`` (``csrc/common.cuh``)
+otherwise, on WMMA in bf16 and on an FMA loop in fp32. The planned launches
+are the forward and the backward of both train kernels
+(``fused_avq_train``, ``fused_patch_select_train``): each checks its
+products against the plan its wrapper built (``gemm_plan``) and writes into
+it, product by product, the routine it took. Their fp32 products all run on
 ``gemm_tf32x3`` (``csrc/gemm_tf32x3.cuh``: 3xTF32 on ``mma.sync``, split-K
-for the weight gradients); in bf16 that forward's products take
+for the backwards' weight gradients); in bf16 the forwards' products take
 ``gemm_sm90`` as above and the backwards' ``gemm_tile``'s WMMA loop.
-``gemm_route`` names the routine a fused kernel's product takes; a planned
-launch (a train backward, the PatchSelecter train forward) reports its own,
-product by product, in the plan it is launched with (``gemm_plan``).
+``gemm_route`` names the routine an unplanned product takes.
 ``gemm_sm90`` and ``gemm_tf32x3`` here call a routine alone, so that it can
 be checked and timed by itself; no model path calls them.
 """
@@ -52,6 +53,13 @@ def attn_gemm_shapes(rows: int, width: int) -> list:
     return [(rows, 3 * width, width), (rows, width, width)]
 
 
+def mlp_gemm_shapes(rows: int, width: int) -> list:
+    """(M, N, K) of the two products of one MLP half (``fused_resblock``)
+    over ``rows`` token rows of ``width``: c_fc (ln_2 staged or in the A
+    load), c_proj."""
+    return [(rows, 4 * width, width), (rows, width, 4 * width)]
+
+
 def patch_select_gemm_shapes(frames: int, patches: int, width: int) -> list:
     """(M, N, K) of the seven products of one PatchSelecter launch, eval or
     train forward, in launch order: over the patch rows the
@@ -77,6 +85,18 @@ def patch_select_train_bwd_gemm_shapes(frames: int, patches: int, width: int) ->
             (queries, d, d), (d, d, queries), (d, d, queries), (queries, d, d),
             (rows, d, 2 * d), (2 * d, d, rows), (rows, d, d), (d, d, rows),
             (3 * d, d, rows), (rows, d, 3 * d)]
+
+
+def avq_train_fwd_gemm_shapes(n: int, t: int, s: int, width: int) -> list:
+    """(M, N, K) of the ten products of one ``fused_avq_train`` forward
+    (``csrc/avq.cu``) over n batch rows of t frames and s words, in launch
+    order: the question block's q over the rows and k|v over the words, the
+    self block's packed qkv, the cross block's q and k|v (over the other
+    stream's rows), the three out_projs (self, cross, question), linear1 and
+    linear2."""
+    rows, words, d = n * t, n * s, width
+    return ([(rows, d, d), (words, 2 * d, d), (rows, 3 * d, d), (rows, d, d), (rows, 2 * d, d)]
+            + [(rows, d, d)] * 5)
 
 
 def avq_train_bwd_gemm_shapes(n: int, t: int, s: int, width: int) -> list:
@@ -157,8 +177,8 @@ def splitk_plan(m: int, n: int, k: int, sms: int, want: int | None = None) -> Sp
 
 
 def gemm_plan(dtype: torch.dtype, shapes, sms: int) -> torch.Tensor:
-    """The plan a planned launch (a train backward, the PatchSelecter train
-    forward) takes: one int32 row (M, N, K, chunk, route) per product, in
+    """The plan a planned launch (a train kernel's forward or backward)
+    takes: one int32 row (M, N, K, chunk, route) per product, in
     launch order; chunk from ``splitk_plan`` in fp32 (0 in bf16, whose
     products do not split), route -1 until the kernel writes the ``ROUTES``
     code of the routine it launched. The kernel refuses a product the plan

@@ -25,7 +25,7 @@ import torch
 from qa_tiger_tpu_torch.nn.core import layer_norm, linear, quick_gelu
 from qa_tiger_tpu_torch.ops import _build, _grad
 from qa_tiger_tpu_torch.ops.attention import _wide_reference
-from qa_tiger_tpu_torch.ops.gemm import attn_gemm_shapes, note_routes, tma_ready
+from qa_tiger_tpu_torch.ops.gemm import attn_gemm_shapes, mlp_gemm_shapes, note_routes, tma_ready
 
 
 def _attn_params(block) -> list:
@@ -193,13 +193,15 @@ def _launch_half(x, *params, heads, mask):
 
 def _launch_mlp(x, *params):
     B, S, W = x.shape
-    y = torch.empty_like(x)
+    params = [tma_ready(p) for p in params]  # the GEMMs' B operands
+    y = torch.empty_like(x)  # also the bf16 route's ln_2 scratch
     hidden = torch.empty(B * S, 4 * W, dtype=x.dtype, device=x.device)
     stats = torch.empty(2, B * S, dtype=torch.float32, device=x.device)
     _build.launch("qt_mlp_half", _build.dtype_code(x), x.data_ptr(),
                   *[p.data_ptr() for p in params], y.data_ptr(), hidden.data_ptr(),
                   stats.data_ptr(), B * S, W, 4 * W)
     fused_resblock.launches += 1
+    note_routes(fused_resblock, x.dtype, mlp_gemm_shapes(B * S, W))
     return y
 
 
@@ -210,6 +212,8 @@ def _launch_resblock(x, *params, heads, mask):
 fused_attn_ln2.launches = 0
 fused_attn_half.launches = 0
 fused_resblock.launches = 0
-# the GEMM routine of each product the attention halves launched
+# the GEMM routine of each product the attention halves and the MLP half
+# launched
 fused_attn_ln2.gemm_routes = {}
 fused_attn_half.gemm_routes = {}
+fused_resblock.gemm_routes = {}

@@ -94,10 +94,16 @@ def test_gemm_plain_is_the_epilogue_arithmetic(epilogue):
 
 def test_gemm_shape_helpers_name_every_product():
     """The products the fused kernels launch, as chip_smoke.py and the
-    route tally count them: two per attention half, seven per
-    PatchSelecter."""
+    route tally count them: two per attention half, two per MLP half, seven
+    per PatchSelecter, ten per AVQ train forward (chip_smoke.py's flop
+    count: twelve D x D products over the rows, k|v over the words)."""
     assert GM.attn_gemm_shapes(19712, 768) == [(19712, 2304, 768), (19712, 768, 768)]
+    assert GM.mlp_gemm_shapes(19712, 768) == [(19712, 3072, 768), (19712, 768, 3072)]
     shapes = GM.patch_select_gemm_shapes(15360, 14, 512)
     assert len(shapes) == 7
     assert sum(2 * m * n * k for m, n, k in shapes) == \
         2 * 15360 * 14 * 512 * 512 * 6 + 2 * 30720 * 512 * 512 * 3
+    shapes = GM.avq_train_fwd_gemm_shapes(64, 60, 77, 512)
+    assert len(shapes) == 10
+    assert sum(2 * m * n * k for m, n, k in shapes) == \
+        2 * 3840 * 512 * 512 * 12 + 4 * 4928 * 512 * 512

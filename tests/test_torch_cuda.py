@@ -311,19 +311,24 @@ def test_fused_attention(cuda, dtype, bh, sq, sk, masked):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_fused_attn_half_and_resblock(cuda, dtype):
-    """The text tower's block at B=3: ``fused_attn_half`` launches its
-    kernel once, ``fused_resblock`` the attention half and the MLP half."""
+@pytest.mark.parametrize("b", [1, 3, 256])
+def test_fused_attn_half_and_resblock(cuda, b, dtype):
+    """The text tower's block at B = 1, 3 and 256: ``fused_attn_half``
+    launches its kernel once, ``fused_resblock`` the attention half and the
+    MLP half, whose two products take gemm_sm90 (wgmma) in bf16 and
+    gemm_tile's FMA loop in fp32."""
     rng = np.random.default_rng(10)
     blk = ResidualAttentionBlock(768, 12, torch.Generator().manual_seed(0)).to(cuda, dtype)
-    x = _rn(rng, 3, 77, 768, dtype=dtype)
+    x = _rn(rng, b, 77, 768, dtype=dtype)
     mask = causal_mask(77, device=cuda)
     half, res = R.fused_attn_half.launches, R.fused_resblock.launches
     _check(lambda: R.fused_attn_half(x, blk, mask, 12),
            lambda: R._attn_half_flat(x, *R._attn_params(blk), heads=12, mask=mask), dtype)
+    R.fused_resblock.gemm_routes = {}
     _check(lambda: R.fused_resblock(x, blk, mask, 12),
            lambda: R._resblock_flat(x, *R._resblock_params(blk), heads=12, mask=mask), dtype)
     assert (R.fused_attn_half.launches, R.fused_resblock.launches) == (half + 2, res + 1)
+    assert R.fused_resblock.gemm_routes == {"wgmma" if dtype == torch.bfloat16 else "fma": 2}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -575,7 +580,9 @@ PATH_GEMMS = sorted({(r, n, k) for r in (256 * 77, 32 * 77, 2 * 77) for n, k in
                     | {(120 * 577, n, 1024) for n in (3072, 1024)}
                     | {(bt * 14, n, 512) for bt in (15360, 120) for n in (1536, 512, 1024)}
                     | {(2 * bt, n, k) for bt in (15360, 120) for n, k in
-                       ((512, 512), (256, 512), (512, 256))})
+                       ((512, 512), (256, 512), (512, 256))}
+                    | set(GM.mlp_gemm_shapes(256 * 77, 768))
+                    | set(GM.avq_train_fwd_gemm_shapes(64, 60, 77, 512)))
 
 
 @pytest.mark.parametrize("m,n,k", PATH_GEMMS)
@@ -774,33 +781,49 @@ def test_train_backward_bitwise_deterministic(cuda, kind, dims):
         assert err <= TOL[torch.float32] * max(1.0, w.float().abs().max().item()), (i, err)
 
 
+# (kind, dims) of the train forwards' route checks: the PatchSelecter at
+# B = 1, 3, 32 (60 frames of 14 patches), the AVQ block at N = 2, 6, 64
+# rows of 60 frames and 77 words
+FORWARD_DIMS = [("patch_select", (b, 60, 14)) for b in (1, 3, 32)] + [
+    ("avq", (n, 60, 77)) for n in (2, 6, 64)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b", [1, 3, 32])
-def test_patch_select_train_forward_routes(cuda, b, dtype):
-    """One ``fused_patch_select_train`` forward at B = 1, 3 and 32 (60
-    frames of 14 patches): its seven products on tf32x3 in fp32, on
-    gemm_sm90 (wgmma) in bf16, and its outputs against the plain version
-    on the same masks."""
+@pytest.mark.parametrize("kind,dims", FORWARD_DIMS)
+def test_train_forward_routes(cuda, kind, dims, dtype):
+    """One train forward: its products (seven for the PatchSelecter, ten
+    for the AVQ block) on tf32x3 in fp32 and on gemm_sm90 (wgmma) in bf16;
+    its outputs against the plain version on the same masks; a second
+    launch bitwise the same."""
     mod, acts, masks, _, kernel, plain, (fwd, _) = _train_case(
-        "patch_select", dtype, cuda, np.random.default_rng(10), (b, 60, 14))
+        kind, dtype, cuda, np.random.default_rng(10), dims)
     fwd.gemm_routes = {}
     with torch.no_grad():
         got, want = kernel(mod, acts, masks), plain(mod, acts, masks)
+        routes = dict(fwd.gemm_routes)
+        again = kernel(mod, acts, masks)
     torch.cuda.synchronize()
-    assert fwd.gemm_routes == {"tf32x3" if dtype == torch.float32 else "wgmma": 7}
-    for g, w in zip(got, want):
+    count = 10 if kind == "avq" else 7
+    assert routes == {"tf32x3" if dtype == torch.float32 else "wgmma": count}
+    got, want, again = ([t] if torch.is_tensor(t) else list(t) for t in (got, want, again))
+    for g, w, a in zip(got, want, again):
+        assert torch.equal(g, a)
         err = (g.float() - w.float()).abs().max().item()
         assert err <= TOL[dtype] * max(1.0, w.float().abs().max().item()), err
 
 
 @pytest.mark.parametrize("fault", ["short", "long", "wrong"])
-def test_train_forward_refuses_a_plan_it_does_not_launch(cuda, fault, monkeypatch):
-    """The PatchSelecter train forward checks each product against its plan
-    (``gemm_plan`` of ``patch_select_gemm_shapes``): a plan one product
-    short, one long, or with a wrong M is refused and the wrapper raises."""
+@pytest.mark.parametrize("kind", ["avq", "patch_select"])
+def test_train_forward_refuses_a_plan_it_does_not_launch(cuda, kind, fault, monkeypatch):
+    """A train forward checks each product against its plan (``gemm_plan``
+    of ``avq_train_fwd_gemm_shapes`` / ``patch_select_gemm_shapes``): a plan
+    one product short, one long, or with a wrong M is refused and the
+    wrapper raises."""
     mod, acts, masks, _, kernel, _, _ = _train_case(
-        "patch_select", torch.float32, cuda, np.random.default_rng(11))
-    shapes = PS.patch_select_gemm_shapes
+        kind, torch.float32, cuda, np.random.default_rng(11))
+    owner, name = (AV, "avq_train_fwd_gemm_shapes") if kind == "avq" else (
+        PS, "patch_select_gemm_shapes")
+    shapes = getattr(owner, name)
 
     def faulty(*args):
         got = shapes(*args)
@@ -810,7 +833,7 @@ def test_train_forward_refuses_a_plan_it_does_not_launch(cuda, fault, monkeypatc
             return got + got[-1:]
         return [(got[0][0] + 4,) + tuple(got[0][1:])] + got[1:]
 
-    monkeypatch.setattr(PS, "patch_select_gemm_shapes", faulty)
+    monkeypatch.setattr(owner, name, faulty)
     with pytest.raises(RuntimeError, match="train_fwd"):
         kernel(mod, acts, masks)
         torch.cuda.synchronize()

@@ -1,15 +1,16 @@
 """The fp32 tensor-core GEMM of the train kernels (``gemm_tf32x3``), on the CPU.
 
-On the card the fp32 products of ``fused_patch_select_train``'s forward and
-backward and of ``fused_avq_train``'s backward run as 3xTF32: each operand
+On the card the fp32 products of the forwards and backwards of
+``fused_patch_select_train`` and ``fused_avq_train`` run as 3xTF32: each operand
 split as x = hi + lo (both tf32, round to nearest, ties away from zero), the
 product summed as lo·hi + hi·lo + hi·hi, the weight gradients cut along K
 (split-K). What is plain PyTorch is checked here: the split, the plain
 version of the product (against fp64 and against JAX's
 ``jnp.dot(precision=HIGHEST)``), the split-K plan the wrappers size the
 workspace from, the plan a planned launch takes, and the lists of the
-products the CUDA forward and backwards launch (on the card a launch also
-refuses a plan that does not name its products).
+products the CUDA train forwards and backwards launch (on the card a launch
+also refuses a plan that does not name its products), and of the two that
+the resblock MLP half launches.
 
 Tolerance of a product: max|got - ref| <= 1e-4 * max(1, max|ref|), the
 train kernels' fp32 rule (``chip_smoke.FP32_TOL``): 3xTF32 keeps each
@@ -354,3 +355,74 @@ def test_patch_select_forward_plan(b, dtype):
 
     GM.note_plan_routes(Kernel, plan)
     assert Kernel.gemm_routes == {"tf32x3" if fp32 else "wgmma": 7}
+
+
+# ---------------------------------------------------------------------------
+# the AVQ train forward's plan, and the MLP half's products
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,t,s", [(2, 3, 5), (4, 6, 7), (64, 60, 77)])
+def test_avq_forward_shapes_are_the_launched_ones(n, t, s):
+    d = 512
+    env = {"R": n * t, "RS": n * s, "D": d}
+    want = _launched_products("avq.cu", env, fn="forward")
+    assert len(want) == 10
+    assert GM.avq_train_fwd_gemm_shapes(n, t, s, d) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 6, 64])
+def test_avq_forward_plan(n, dtype):
+    """The plan ``fused_avq_train``'s forward is launched with: one row per
+    product of ``forward`` in avq.cu, in launch order (the ten of
+    ``avq_train_fwd_gemm_shapes`` over n*60 rows and n*77 words), none split
+    at K = 512, so no workspace; a plan one product short, one long or with
+    a wrong M is not accepted; the routes the forward writes are
+    tallied."""
+    t, s, d = 60, 77, 512
+    launched = _launched_products("avq.cu", {"R": n * t, "RS": n * s, "D": d}, fn="forward")
+    shapes = GM.avq_train_fwd_gemm_shapes(n, t, s, d)
+    assert len(launched) == 10 and shapes == launched
+    plan = GM.gemm_plan(dtype, shapes, 132)
+    rows = plan.tolist()
+    fp32 = dtype == torch.float32
+    for row, (m, nn, k) in zip(rows, shapes):
+        assert row == [m, nn, k, GM.splitk_plan(m, nn, k, 132).chunk if fp32 else 0, -1]
+        assert GM.splitk_plan(m, nn, k, 132).splits == 1
+    assert GM.plan_workspace(dtype, shapes, 132) == 0
+    assert _plan_accepts(rows, launched)
+    assert not _plan_accepts(rows[:-1], launched)
+    assert not _plan_accepts(rows + rows[-1:], launched)
+    assert not _plan_accepts([[rows[0][0] + 4] + rows[0][1:]] + rows[1:], launched)
+    plan[:, 4] = 3 if fp32 else 2
+
+    class Kernel:
+        gemm_routes = {}
+
+    GM.note_plan_routes(Kernel, plan)
+    assert Kernel.gemm_routes == {"tf32x3" if fp32 else "wgmma": 10}
+
+
+def _gemm_calls(source: str, fn: str, callee: str, first: int, env: dict) -> list:
+    """(M, N, K) of every call of ``callee`` in ``fn`` of ``source``, in
+    order: the three arguments from index ``first``, evaluated with ``env``."""
+    text = (CSRC / source).read_text()
+    start = text.index(f"cudaError_t {fn}(")
+    body = text[start:text.index("\n}\n", start)]
+    out = []
+    for found in re.finditer(re.escape(callee) + r"\(", body):
+        args = _args(body, found.end() - 1)
+        out.append(tuple(int(eval(e, {}, dict(env))) for e in args[first:first + 3]))
+    return out
+
+
+@pytest.mark.parametrize("rows,width", [(77, 64), (3 * 77, 768), (256 * 77, 768)])
+def test_mlp_half_shapes_are_the_launched_ones(rows, width):
+    """``mlp`` in resblock.cu launches c_fc then c_proj through gemm_rows
+    (gemm_sm90 on the bf16 wgmma route), and its fp32 route's c_fc through
+    gemm_tile with ln_2 in the A load: the shapes the wrapper tallies in
+    ``fused_resblock.gemm_routes`` (``mlp_gemm_shapes``)."""
+    env = {"M": rows, "W": width, "Hd": 4 * width}
+    shapes = GM.mlp_gemm_shapes(rows, width)
+    assert _gemm_calls("resblock.cu", "mlp", "qt::gemm_rows<T>", 4, env) == shapes
+    assert _gemm_calls("resblock.cu", "mlp", "qt::gemm<T, true>", 3, env) == shapes[:1]

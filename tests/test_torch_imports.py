@@ -10,7 +10,8 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "qa_tiger_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "qa_tiger_tpu_torch").rglob("*.py")) + [
+    REPO / name for name in ("chip_smoke.py", "chip_ab.py", "sass_diff.py")]
 
 
 def _imported_modules(path: Path):
