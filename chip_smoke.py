@@ -24,7 +24,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    every timed shape twice, bitwise the same; prints kernel, plain and
    library times beside the card's bound, the kernel's achieved TFLOP/s,
    for each kernel that runs ``qt::attention`` the route its dispatch took
-   ("mma": bf16 tensor cores, "fma": fp32 FMAs), and for fused_attn_ln2,
+   ("mma_short": bf16 tensor cores, a warp per problem of at most 16
+   queries and keys, which the packed [122880, 14, 64] case and
+   fused_patch_select in bf16 must take; "mma": bf16 tensor cores, 64 query
+   rows per block; "fma": fp32 FMAs), PatchSelecter's self-attention in its
+   own strided layout (column slices of one packed qkv) beside SDPA, and
+   for fused_attn_ln2,
    fused_attn_half, fused_resblock, fused_patch_select and
    fused_gaussian_moe the GEMM routines of their products ("wgmma":
    gemm_sm90 or the MoE's wgmma kernel, "tf32x3": 3xTF32, "wmma"/"fma":
@@ -55,6 +60,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    forwards and backwards and of the two MoE calls on gemm_tf32x3), 10
    timed steps, losses, peak memory;
    (c) ``evaluate`` over two batches, with its accuracy report;
+   (d) resume: two fp32 B=4 steps with dropout, the train state saved and
+   restored into a fresh runner whose weights and dropout stream were
+   scrambled, one more step on each: every parameter bitwise equal; then
+   the weights through ``best.npz`` into a Predictor, whose fp32 logits
+   must equal those of a Predictor given the same weights directly,
+   bitwise; the launch counters reset around the phase;
 6. raw media — ``pipeline.e2e`` at full width (CLIP ViT-L/14@336px, ToMe
    vit_large_patch16_384 at r=[25]*23, VGGish, the QA-TIGER config):
    (a) fp32 B=1 x T=2 card against CPU (streams, logits, every ToMe
@@ -66,7 +77,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    defaults (B=256, S=77, W=768, bf16, causal) for ``attn_half`` and
    ``attn_ln2``, the launch counters reset around each, both JSON lines;
 8. the kernel table as one JSON line (each entry's ``launches`` from its
-   own path, ``launches_by_path`` from all four), then the device's JSON
+   own path, ``launches_by_path`` from all five), then the device's JSON
    line last.
 
 ``--profile DIR`` also writes torch.profiler tables of one bf16 serving
@@ -305,8 +316,46 @@ def kernel_cases(dtype, B: int, rng, gen):
     cases.append(("fused_patch_select", f"patch[{B},{T},{P},{D}] h{heads}",
                   lambda: PS.fused_patch_select(patch, audio, video, ps, heads),
                   lambda: PS.patch_selecter_plain(ps, patch, audio, video, nhead=heads),
-                  None, nbytes, flops, {"gemm": GM.patch_select_gemm_shapes(BT, P, D)}))
+                  None, nbytes, flops, {"gemm": GM.patch_select_gemm_shapes(BT, P, D),
+                                        "attn": (P, P, D // heads),
+                                        "want_route": short_route(dtype)}))
     return cases + moe_cases(dtype, B, rng)
+
+
+def short_route(dtype) -> str | None:
+    """The attention route a 14-key problem must take: the short
+    tensor-core kernel in bf16; fp32 is not held to one."""
+    import torch
+
+    return "mma_short" if dtype == torch.bfloat16 else None
+
+
+def patch_attention_case(dtype, B: int, rng):
+    """PatchSelecter's self-attention in its own layout (csrc/patch_select.cu
+    launches qt::attention on it): the column slices of one packed qkv
+    [B T, 14, 3 x 512], 8 heads of 64, unmasked, here through
+    attention_wide's entry to the same dispatch; SDPA on the same views.
+    Bytes: q, k and v read once, the context written once."""
+    import torch
+    from torch.nn import functional as F
+
+    from qa_tiger_tpu_torch.ops import attention as A
+
+    BT, D, heads, hd = B * T, 512, 8, 64
+    isz = torch.tensor([], dtype=dtype).element_size()
+    qkv = torch.from_numpy(rng.standard_normal((BT, P, 3 * D), dtype=np.float32)).to("cuda", dtype)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            *(t.view(BT, P, heads, hd).transpose(1, 2) for t in (q, k, v)), scale=0.125)
+
+    return ("attention_wide", f"PatchSelecter self-attention qkv[{BT},{P},{3 * D}] h{heads}",
+            lambda: A.attention_wide(q, k, v, None, 0.125, heads),
+            lambda: A._wide_reference(q, k, v, None, 0.125, heads), sdpa,
+            4 * BT * P * D * isz, 4 * BT * P * P * D,
+            {"replaces": "qa_tiger_tpu/ops/pallas/patch_select.py:738",
+             "attn": (P, P, hd), "want_route": short_route(dtype)})
 
 
 def moe_cases(dtype, B: int, rng):
@@ -390,7 +439,8 @@ def op_kernel_cases(dtype, B: int, rng, gen):
                       sdpa, 4 * bh * s * dh * isz + (s * s * 4 if masked else 0),
                       4 * bh * pairs * dh,
                       {"replaces": "qa_tiger_tpu/ops/pallas/attention.py" + site,
-                       "attn": (s, s, dh)}))
+                       "attn": (s, s, dh),
+                       "want_route": short_route(dtype) if site == ":116" else None}))
 
     W, H = 768, 12
     blk = ResidualAttentionBlock(W, 12, gen).to(dev, dtype)
@@ -420,8 +470,10 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
 
     A case's optional eighth item is a dict: ``replaces`` (the Pallas call,
     where it is not the kernel's own in REPLACES) and ``attn`` ((Sq, Sk, hd)
-    of the ``qt::attention`` call inside the kernel, whose route, "mma" or
-    "fma", the line then names) and ``gemm`` ((M, N, K) of the kernel's
+    of the ``qt::attention`` call inside the kernel, whose route,
+    "mma_short", "mma" or "fma", the line and the table entry then name;
+    ``want_route``, where not None, the route it must be) and ``gemm``
+    ((M, N, K) of the kernel's
     products, whose GEMM routine, "wgmma", "wmma" or "fma", the line and the
     table entry name) or ``routes`` (the routines' names themselves), and
     ``peak`` (the peak the bound divides by, where it is not the dtype's;
@@ -444,6 +496,7 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
             "tolerance": tol * max(1.0, scale), "ok": ok}
     if "attn" in extra:
         line["route"] = A.attention_route(dtype, *extra["attn"])
+        ok = line["ok"] = ok and extra.get("want_route") in (None, line["route"])
     routes = extra.get("routes") or sorted({GM.gemm_route(dtype, *mnk)
                                              for mnk in extra.get("gemm", ())})
     if routes:
@@ -466,8 +519,12 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
                 "bound_by": b_by, "library_ms": line["library_ms"]}
             if routes:
                 entries[name].update(gemm_route=line["gemm_route"], tflops=line["tflops"])
+            if "route" in line:
+                entries[name]["attn_route"] = line["route"]
     print(json.dumps(line), flush=True)
-    require(ok, f"{name} {dname} {shape}: max|k-p| {err:.3e} over tolerance")
+    require(ok, f"{name} {dname} {shape}: max|k-p| {err:.3e} over tolerance"
+                + (f" or route {line['route']}, expected {extra['want_route']}"
+                   if extra.get("want_route") else ""))
     return line
 
 
@@ -518,7 +575,8 @@ def check_op_kernels(entries: dict) -> None:
     text tower's B=256, timed, from seeds of their own (the earlier checks
     draw what they drew before). One launch of ``fused_resblock`` must
     tally its MLP half's two products on gemm_sm90 in bf16 (gemm_tile's FMA
-    loop in fp32)."""
+    loop in fp32). Then PatchSelecter's self-attention in its own layout at
+    the same B, from a seed of its own, which stays out of the table."""
     import torch
 
     from qa_tiger_tpu_torch.ops import resblock as R
@@ -539,6 +597,8 @@ def check_op_kernels(entries: dict) -> None:
                     require(routes == want, f"fused_resblock {case[1]}: its MLP half's "
                                             f"products took {routes}, expected {want}")
                 run_kernel_case(case, dtype, tol, timed, entries)
+            run_kernel_case(patch_attention_case(dtype, B, np.random.default_rng(6)), dtype, tol,
+                            timed, None)
             torch.cuda.empty_cache()
 
 
@@ -1371,6 +1431,79 @@ def check_train(rng, entries: dict, profile_dir: Path | None) -> dict:
     return counts
 
 
+def check_resume(rng) -> dict:
+    """Phase 5(d): a train state and a best.npz written and read back on the
+    card. Two fp32 B=4 steps with dropout from the runner's step generator;
+    the state saved, then restored into a fresh runner (the same seed, so
+    the same frozen tower) whose trainable weights and generator were
+    scrambled; one more step on each: every trainable parameter must be
+    bitwise equal. Then the stepped weights through best.npz into a
+    Predictor: its fp32 logits on a B=4 batch bitwise equal to those of a
+    Predictor given the same weights as a state_dict. The launch counters
+    are reset just before and read just after; the train kernels must have
+    run. Returns the counts."""
+    import tempfile
+
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.predict import Predictor
+    from qa_tiger_tpu_torch.training import (
+        AVQARunner,
+        load_train_state,
+        save_checkpoint,
+        save_train_state,
+    )
+
+    cfg, mcfg = train_setup()
+    batch = make_train_batch(rng, 4)
+    query = make_batch(rng, 4)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    first = AVQARunner(cfg, mcfg, device="cuda", seed=0)
+    for _ in range(2):
+        first.train_step(batch, TRAIN_LR, first._step_generator)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_train_state(first.train_state(epoch=1, best_acc=12.5), Path(tmp) / "state")
+        second = AVQARunner(cfg, mcfg, device="cuda", seed=0)
+        with torch.no_grad():
+            for _, p in second.trainable():
+                p.add_(1.0)
+        second._step_generator.manual_seed(12345)
+        scalars = second.restore_train_state(load_train_state(Path(tmp) / "state"))
+        for r in (first, second):
+            r.train_step(batch, TRAIN_LR, r._step_generator)
+        torch.cuda.synchronize()
+        pairs = list(zip(first.trainable(), second.trainable()))
+        differ = [n for (n, a), (_, b) in pairs if not torch.equal(a, b)]
+        worst = max((a - b).abs().max().item() for (_, a), (_, b) in pairs)
+
+        save_checkpoint(first.params, Path(tmp) / "best.npz")
+        weights = {k: v.detach().float().cpu() for k, v in first.params.items()}
+        direct = Predictor(CONFIG, device="cuda", dtype=torch.float32, weights=weights)
+        loaded = Predictor(CONFIG, device="cuda", dtype=torch.float32,
+                           weights=Path(tmp) / "best.npz")
+        want, got = direct.logits(query), loaded.logits(query)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    logits_equal = bool(torch.equal(got, want)) and bool(torch.isfinite(got).all())
+    print(json.dumps({"phase": "resume", "scalars": scalars, "params": len(pairs),
+                      "params_differing": differ[:5], "max_abs_diff": worst,
+                      "best_npz_logits_bitwise": logits_equal,
+                      "logits_max_abs_diff": (got - want).abs().max().item(),
+                      "ok": not differ and logits_equal}), flush=True)
+    print(json.dumps({"phase": "resume_launches", **counts}), flush=True)
+    require(scalars == {"epoch": 1, "best_acc": 12.5}, f"resume: scalars came back as {scalars}")
+    require(not differ, f"resume: {len(differ)} parameters differ from the uninterrupted run "
+                        f"(max {worst:.3e}), e.g. {differ[:3]}")
+    require(logits_equal, "resume: logits through best.npz differ from the same weights given "
+                          "directly")
+    for name in ("fused_avq_train", "fused_avq_train_bwd", "fused_patch_select_train",
+                 "fused_patch_select_train_bwd", *EVAL_KERNELS):
+        require(counts[name] > 0, f"resume: {name} did not launch")
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # phase 6: raw media to answer, and the extraction stages
 # ---------------------------------------------------------------------------
@@ -1684,6 +1817,8 @@ def main() -> int:
         check_train_kernels(rng, gen, entries)
         paths = {"serving": check_slice(rng, entries, args.profile),
                  "train": check_train(rng, entries, args.profile)}
+        torch.cuda.empty_cache()
+        paths["resume"] = check_resume(np.random.default_rng(10))
         torch.cuda.empty_cache()
         check_e2e_fp32(rng)
         torch.cuda.empty_cache()

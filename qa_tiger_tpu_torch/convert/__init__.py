@@ -1,4 +1,5 @@
-"""JAX parameter pytrees and ``best.npz`` dicts -> PyTorch ``state_dict``.
+"""JAX parameter pytrees, ``best.npz`` dicts and torch ``.pt`` files ->
+PyTorch ``state_dict``.
 
 The JAX package's parameter pytrees mirror torch ``state_dict`` names (dots
 become nesting levels), so the port's modules load them after a flatten:
@@ -6,8 +7,10 @@ become nesting levels), so the port's modules load them after a flatten:
     params['at_aggregator']['experts']['0']['0']['weight']
         -> 'at_aggregator.experts.0.0.weight'
 
-``nested_to_flat`` is this package's own copy of
-``qa_tiger_tpu/convert/torch_import.py:nested_to_flat``.
+``nested_to_flat`` and ``load_torch_checkpoint`` are this package's own
+copies of those in ``qa_tiger_tpu/convert/torch_import.py``;
+``state_dict_to_flat`` is its ``state_dict_to_pytree`` without the
+nesting. ``clip_import`` reads OpenAI CLIP checkpoints.
 """
 from __future__ import annotations
 
@@ -52,3 +55,26 @@ def load_npz(path: str | Path) -> dict[str, torch.Tensor]:
     """Read a ``best.npz`` checkpoint (flat dotted names) as a state_dict."""
     with np.load(path) as data:
         return params_from_jax({k: data[k] for k in data.files})
+
+
+def state_dict_to_flat(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A torch state_dict (tensors or arrays) -> dotted names -> CPU tensors,
+    the ``module.`` prefixes of DataParallel stripped and floating values
+    cast to fp32 (fp16 checkpoints widened)."""
+    out = {}
+    for key, value in state_dict.items():
+        while key.startswith("module."):
+            key = key[len("module."):]
+        t = value.detach().cpu() if torch.is_tensor(value) else torch.as_tensor(np.asarray(value))
+        out[key] = t.float() if t.is_floating_point() else t
+    return out
+
+
+def load_torch_checkpoint(path: str | Path) -> dict[str, torch.Tensor]:
+    """A torch ``.pt`` state_dict (or a dict holding one under
+    ``state_dict``), read with ``weights_only=True``, through
+    ``state_dict_to_flat``."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, Mapping) and "state_dict" in state:
+        state = state["state_dict"]
+    return state_dict_to_flat(state)

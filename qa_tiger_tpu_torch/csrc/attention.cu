@@ -13,11 +13,11 @@
 // tensors. Replaces both pl.pallas_calls of _pallas_impl in the same file:
 // _kernel / _no_mask_kernel and _packed_kernel. That layout is
 // attention_wide's with one head of width dh, so it runs the same device
-// code with heads = 1: every BH row is a block of gridDim.x (122880 rows at
-// PatchSelecter's B=256 x T=60 x 8 heads, past the 65535 that y and z
-// allow). The packed route grouped 16 tiny problems into one block-diagonal
-// score matrix to fill the TPU's 128 x 128 matrix unit; here each problem
-// is its own block and computes the same function.
+// code with heads = 1 and BH batch elements. The packed route grouped 16
+// tiny problems into one block-diagonal score matrix to fill the TPU's
+// 128 x 128 matrix unit; in bf16 its problems (at most 16 queries and keys)
+// take the short tensor-core kernel, one warp per problem and a 16 x 16
+// score tile, which computes the same function without the masked blocks.
 //
 // Bound on the H100: bytes at the short shapes, operations at the long ones.
 // At the AVQ shapes (q [512, 60, 512], k/v [512, 77, 512], hd 64) one head
@@ -28,15 +28,20 @@
 // once per query tile and writes the context once, and never writes scores
 // or probabilities to device memory. qt_attention_route names the kernel a
 // call takes:
-// - bf16 without a keep mask, head size 32, 64 or 128, at least 16 queries
-//   and 16 keys (every bf16 call of the text tower, AVQ, the CLIP image tower
-//   and ToMe but its last layers): the tensor-core kernel, q·kᵀ and p·v on
-//   mma.sync with fp32 accumulation, K and V streamed by cp.async through a
-//   two-stage shared-memory ring in 64-key tiles; one pass up to 128 keys,
-//   two beyond (row max and sum, then the rounded probabilities and the
-//   context);
-// - every other call (fp32, the keep-masked train calls, PatchSelecter's
-//   14-key problems, the one-query calls): fp32 FMAs out of shared memory,
+// - bf16 without a keep mask, head size 32, 64 or 128, at most 16 queries
+//   and 16 keys (PatchSelecter's 14-key self- and cross-attention, the
+//   packed route's [BH, 14, 64], QstGrounding's one query over 2 keys, the
+//   last ToMe layers): route 2, "mma_short", one warp per (batch element,
+//   head) problem on mma.sync, q, k and v brought in by cp.async through a
+//   two-stage ring per warp, the context stored 16 bytes a lane;
+// - the same at least 16 queries and 16 keys otherwise (every bf16 call of
+//   the text tower, AVQ, the CLIP image tower and ToMe but its last layers):
+//   route 1, "mma", q·kᵀ and p·v on mma.sync with fp32 accumulation, K and
+//   V streamed by cp.async through a two-stage shared-memory ring in 64-key
+//   tiles; one pass up to 128 keys, two beyond (row max and sum, then the
+//   rounded probabilities and the context);
+// - every other call (fp32, the keep-masked train calls, one query over
+//   more than 16 keys): route 0, "fma", fp32 FMAs out of shared memory,
 //   keys up to 128 staged whole (one warp per query row), longer ones in
 //   64-key tiles in the same two passes, register-tiled 64 x 64 per block.
 // PERF.md has each route's time beside the bound.
@@ -62,8 +67,8 @@ extern "C" const char* qt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// 1 where qt::attention takes the tensor-core kernel for such a call, 0
-// where it takes an FMA kernel; dtype 0 is float32, 1 bfloat16
+// the kernel qt::attention takes for such a call: 2 the short tensor-core
+// kernel, 1 the mma kernel, 0 an FMA kernel; dtype 0 is float32, 1 bfloat16
 extern "C" int qt_attention_route(int dtype, int Sq, int Sk, int hd, int has_keep) {
   return qt::attention_route(dtype == 1, Sq, Sk, hd, has_keep != 0);
 }

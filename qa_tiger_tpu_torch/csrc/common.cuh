@@ -11,6 +11,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
@@ -344,14 +345,21 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 // in fp32. mask is an optional additive fp32 [Sq, Sk]; key_bias an optional
 // fp32 [B, Sk] (ToMe's proportional attention, log of the token sizes).
 //
-// Three kernels. bf16 calls without a keep mask, at head sizes 32, 64 and 128
-// and at least 16 queries and 16 keys, take the tensor-core kernel
-// (attention_mma_kernel, below; attention_route decides). Every other call
-// runs on fp32 FMAs, in one of two kernels chosen by the key length:
-// - Sk <= ATT_STAGED_MAX_SK (every call of the text tower, AVQ, TempMoE,
-//   QstGrounding, PatchSelecter and the last ToMe layers): one block per
-//   (batch element, head, tile of ATT_QROWS queries) stages all of K_h and
-//   V_h in shared memory as fp32, one warp per query row.
+// Four kernels; attention_route decides. bf16 calls without a keep mask, at
+// head sizes 32, 64 and 128, take one of two tensor-core kernels:
+// - at most ATT_SHORT_MAX queries and keys (PatchSelecter's 14-key self- and
+//   cross-attention, fused_attention's packed [BH, 14, 64], QstGrounding's
+//   one query over 2 keys, the last ToMe layers): attention_short_kernel,
+//   one warp per (batch element, head) problem, a 16 x 16 score tile;
+// - at least 16 queries and 16 keys otherwise: attention_mma_kernel, 64
+//   query rows per block, keys streamed in 64-key tiles.
+// Every other call (fp32, the keep-masked train calls, one query over more
+// than 16 keys) runs on fp32 FMAs, in one of two kernels chosen by the key
+// length:
+// - Sk <= ATT_STAGED_MAX_SK (every such call of the text tower, AVQ,
+//   TempMoE and PatchSelecter): one block per (batch element, head, tile of
+//   ATT_QROWS queries) stages all of K_h and V_h in shared memory as fp32,
+//   one warp per query row.
 // - longer keys (the CLIP image tower and the first ToMe layers, Sk up to
 //   577): one block per (batch element, head, tile of AT_Q queries) streams
 //   K_h and V_h through shared memory in tiles of AT_K keys, so its shared
@@ -673,19 +681,20 @@ inline cudaError_t attention_tiled(const T* q, long long q_bs, long long q_ss, c
 // returns cudaErrorInvalidValue.
 // ---------------------------------------------------------------------------
 constexpr int AM_Q = 64, AM_K = 64, AM_THREADS = 128, AM_PAD = 8;
-constexpr int ATT_MMA_MIN_SQ = 16, ATT_MMA_MIN_SK = 16;
+constexpr int ATT_MMA_MIN_SQ = 16, ATT_MMA_MIN_SK = 16, ATT_SHORT_MAX = 16;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The kernel qt::attention takes: the mma kernel for bf16 without a keep mask
-// at a head size it is built for and at least ATT_MMA_MIN_SQ queries and
-// ATT_MMA_MIN_SK keys; the FMA kernels otherwise.
-enum AttentionRoute { ATT_ROUTE_FMA = 0, ATT_ROUTE_MMA = 1 };
+// The kernel qt::attention takes. For bf16 without a keep mask at a head size
+// the tensor-core kernels are built for: the short kernel when both lengths
+// are at most ATT_SHORT_MAX, else the mma kernel when there are at least
+// ATT_MMA_MIN_SQ queries and ATT_MMA_MIN_SK keys. The FMA kernels otherwise.
+enum AttentionRoute { ATT_ROUTE_FMA = 0, ATT_ROUTE_MMA = 1, ATT_ROUTE_MMA_SHORT = 2 };
 
 inline AttentionRoute attention_route(bool bf16, int Sq, int Sk, int hd, bool has_keep) {
   const bool head = hd == 32 || hd == 64 || hd == 128;
-  return bf16 && !has_keep && head && Sq >= ATT_MMA_MIN_SQ && Sk >= ATT_MMA_MIN_SK
-             ? ATT_ROUTE_MMA
-             : ATT_ROUTE_FMA;
+  if (!bf16 || has_keep || !head) return ATT_ROUTE_FMA;
+  if (Sq <= ATT_SHORT_MAX && Sk <= ATT_SHORT_MAX) return ATT_ROUTE_MMA_SHORT;
+  return Sq >= ATT_MMA_MIN_SQ && Sk >= ATT_MMA_MIN_SK ? ATT_ROUTE_MMA : ATT_ROUTE_FMA;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -1023,6 +1032,219 @@ inline cudaError_t attention_mma(const __nv_bfloat16* q, long long q_bs, long lo
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The short-problem tensor-core kernel (route mma_short): bf16 without a keep
+// mask, at most ATT_SHORT_MAX queries and keys. It replaces, for this card,
+// the packed route of qa_tiger_tpu/ops/pallas/attention.py (_packed_kernel),
+// which stacked 16 problems of 14 keys into one block-diagonal 128 x 128
+// score matrix to fill the TPU's matrix unit.
+//
+// Such a problem is one m16n8k16 tile: its queries are the 16 rows of the A
+// operand, its keys two n-tiles of 8. So one warp owns one (batch element,
+// head) problem whole, and a block of AS_WARPS warps grid-strides over
+// B * heads problems (122,880 at PatchSelecter's B=256 x T=60 x 8 heads, past
+// the 65,535 that a grid's y and z allow). mma.sync and not wgmma: wgmma's
+// 64-row minimum would force block-diagonal packing of four problems, with
+// 75% of every score tile masked out, the waste the TPU layout paid and this
+// card does not need.
+//
+// Bound: bytes. At [122880, 14, 64] a problem does 2 x 14 x 14 x 64 MACs on
+// 4 x 14 x 64 bf16 values, about 7 operations per byte. So the design reads
+// q, k and v once and writes the context once, all in 16-byte accesses:
+// - each warp brings its problem's rows into shared memory with cp.async,
+//   rows past Sq or Sk zero-filled (no address past them is read), through
+//   a two-stage ring of its own, so the next problem's copies overlap this
+//   one's math;
+// - S = Q K^T on mma.sync (hd / 16 k-steps x 2 n-tiles); the epilogue in
+//   registers in the FMA kernel's order and arithmetic: s * scale, + mask,
+//   + key_bias, -inf past Sk; row max and sum over the 4 lanes of a row;
+//   p = round_bf16(exp(s - max) / sum), the JAX rounding point;
+// - p's C fragments are packed in registers as the A operand of P V (V
+//   through ldmatrix.trans), hd / 8 n-tiles in fp32;
+// - the context goes through the problem's Q rows in shared memory (read
+//   into registers by then) so that rows < Sq leave as 16-byte stores.
+// No score or probability reaches device memory.
+//
+// Needs the alignment of the mma kernel (16-byte pointers, strides that are
+// multiples of 8 elements); a call that breaks it returns
+// cudaErrorInvalidValue.
+// ---------------------------------------------------------------------------
+constexpr int AS_WARPS = 4, AS_ROWS = 16;
+
+template <int HD>
+constexpr size_t attention_short_smem_bytes() {
+  // per warp two stages, each the Q, K and V rows of one problem
+  return sizeof(__nv_bfloat16) * (size_t)AS_WARPS * 2 * 3 * AS_ROWS * (HD + AM_PAD);
+}
+
+// A lane's fragments, with g = lane / 4 and t = lane % 4: score s[j][e] is
+// query g + 8 (e / 2) and key 8 j + 2 t + e % 2; context o[n][e] the same
+// query and lane 8 n + 2 t + e % 2 of the head.
+template <int HD>
+__global__ void __launch_bounds__(AS_WARPS * 32)
+attention_short_kernel(const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_ss,
+                       const __nv_bfloat16* __restrict__ k, long long k_bs, long long k_ss,
+                       const __nv_bfloat16* __restrict__ v, long long v_bs, long long v_ss,
+                       __nv_bfloat16* __restrict__ out, long long o_bs, long long o_ss,
+                       const float* __restrict__ mask, const float* __restrict__ key_bias,
+                       int problems, int heads, int Sq, int Sk, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = HD + AM_PAD, KD = HD / 16, ND = HD / 8, CHUNKS = HD / 8;
+  constexpr int STAGE = 3 * AS_ROWS * LD, PER_LANE = AS_ROWS * CHUNKS / 32;
+  static_assert(ATT_SHORT_MAX == AS_ROWS && (AS_ROWS * CHUNKS) % 32 == 0,
+                "one m16 tile of queries, two n8 tiles of keys");
+  extern __shared__ __align__(16) unsigned char as_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  bf16* const ring = reinterpret_cast<bf16*>(as_smem) + (size_t)warp * 2 * STAGE;
+  const int stride = gridDim.x * AS_WARPS;
+
+  // n rows of one head's [*, HD] slice into dst, zero past them
+  auto load_rows = [&](bf16* dst, const bf16* src, long long ss, int n) {
+#pragma unroll
+    for (int it = 0; it < PER_LANE; ++it) {
+      const int i = lane + it * 32, r = i / CHUNKS, c = (i % CHUNKS) * 8;
+      const bool in = r < n;
+      cp_async16(dst + r * LD + c, in ? src + r * ss + c : src, in);
+    }
+  };
+  auto fetch = [&](int pr, int st) {
+    const long long b = pr / heads, col = (long long)(pr % heads) * HD;
+    bf16* dst = ring + st * STAGE;
+    load_rows(dst, q + b * q_bs + col, q_ss, Sq);
+    load_rows(dst + AS_ROWS * LD, k + b * k_bs + col, k_ss, Sk);
+    load_rows(dst + 2 * AS_ROWS * LD, v + b * v_bs + col, v_ss, Sk);
+  };
+
+  int pr = blockIdx.x * AS_WARPS + warp;
+  if (pr < problems) fetch(pr, 0);
+  cp_async_commit();
+  for (int it = 0; pr < problems; ++it, pr += stride) {
+    const int st = it & 1;
+    if (pr + stride < problems) fetch(pr + stride, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this problem's group has landed
+    __syncwarp();
+    bf16* const Qs = ring + st * STAGE;
+    const bf16* Ks = Qs + AS_ROWS * LD;
+    const bf16* Vs = Ks + AS_ROWS * LD;
+    const long long b = pr / heads, col = (long long)(pr % heads) * HD;
+
+    float s[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4], bk[4];
+      ldmatrix_x4(a, Qs + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(bk, Ks + ((lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                          ((lane >> 3) & 1) * 8);
+      mma_bf16(s[0], a, bk[0], bk[1]);
+      mma_bf16(s[1], a, bk[2], bk[3]);
+    }
+    const float* kb = key_bias ? key_bias + b * Sk : nullptr;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = g + 8 * (e >> 1), kj = 8 * j + 2 * t4 + (e & 1);
+        float x = s[j][e] * scale;
+        if (kj >= Sk) {
+          x = -INFINITY;
+        } else {
+          if (mask && qi < Sq) x += mask[(long long)qi * Sk + kj];
+          if (kb) x += kb[kj];
+        }
+        s[j][e] = x;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mx =
+          quad_max(fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]), fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[j][e] = expf(s[j][e] - mx);
+          sum += s[j][e];
+        }
+      const float inv = 1.0f / quad_sum(sum);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[j][2 * r] *= inv;
+        s[j][2 * r + 1] *= inv;
+      }
+    }
+
+    // o = p v: p rounded to bf16 as its C fragments become the A operand
+    const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                            pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+    float o[ND][4] = {};
+#pragma unroll
+    for (int dp = 0; dp < ND / 2; ++dp) {
+      uint32_t bv[4];
+      ldmatrix_x4_trans(bv, Vs + ((lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
+                                (lane >> 4) * 8);
+      mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+      mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+    }
+
+    // the context through the Q rows (in registers since the scores), then
+    // rows < Sq to device memory 16 bytes a lane
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<__nv_bfloat162*>(Qs + (g + 8 * r) * LD + 8 * n + 2 * t4) =
+            __floats2bfloat162_rn(o[n][2 * r], o[n][2 * r + 1]);
+    __syncwarp();
+    bf16* const ob = out + b * o_bs + col;
+#pragma unroll
+    for (int it = 0; it < PER_LANE; ++it) {
+      const int i = lane + it * 32, r = i / CHUNKS, c = (i % CHUNKS) * 8;
+      if (r < Sq)
+        *reinterpret_cast<uint4*>(ob + r * o_ss + c) =
+            *reinterpret_cast<const uint4*>(Qs + r * LD + c);
+    }
+    __syncwarp();  // the next iteration's fetch refills the other stage; this
+                   // one is refilled only after it
+  }
+}
+
+template <int HD>
+inline cudaError_t attention_short(const __nv_bfloat16* q, long long q_bs, long long q_ss,
+                                   const __nv_bfloat16* k, long long k_bs, long long k_ss,
+                                   const __nv_bfloat16* v, long long v_bs, long long v_ss,
+                                   __nv_bfloat16* out, long long o_bs, long long o_ss,
+                                   const float* mask, const float* key_bias, int B, int Sq,
+                                   int Sk, int heads, float scale, cudaStream_t stream) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  const long long strides = q_bs | q_ss | k_bs | k_ss | v_bs | v_ss | o_bs | o_ss;
+  if ((ptrs & 15) || (strides & 7)) return cudaErrorInvalidValue;
+  constexpr size_t smem = attention_short_smem_bytes<HD>();
+  auto kernel = attention_short_kernel<HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // as many blocks as the card holds at once; each warp then strides over
+  // problems, so its ring overlaps one problem's copies with another's math
+  static const int resident = [&] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, AS_WARPS * 32, smem);
+    return sms * (per_sm > 0 ? per_sm : 1);
+  }();
+  const long long problems = (long long)B * heads;
+  if (problems > INT_MAX) return cudaErrorInvalidValue;
+  const long long needed = (problems + AS_WARPS - 1) / AS_WARPS;
+  const int blocks = needed < resident ? (int)needed : resident;
+  kernel<<<blocks, AS_WARPS * 32, smem, stream>>>(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss,
+                                                  out, o_bs, o_ss, mask, key_bias,
+                                                  (int)problems, heads, Sq, Sk, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T* k,
                              long long k_bs, long long k_ss, const T* v, long long v_bs,
@@ -1033,17 +1255,25 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
                              const float* key_bias = nullptr) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   if constexpr (kBf16) {
-    if (attention_route(true, Sq, Sk, hd, keep != nullptr) == ATT_ROUTE_MMA) {
-#define QT_MMA(HD)                                                                            \
-  attention_mma<HD>(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask,      \
-                    key_bias, B, Sq, Sk, heads, scale, stream)
+    const AttentionRoute route = attention_route(true, Sq, Sk, hd, keep != nullptr);
+#define QT_TC(KERNEL, HD)                                                                   \
+  KERNEL<HD>(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, \
+             B, Sq, Sk, heads, scale, stream)
+    if (route == ATT_ROUTE_MMA_SHORT) {
       switch (hd) {
-        case 32: return QT_MMA(32);
-        case 64: return QT_MMA(64);
-        default: return QT_MMA(128);
+        case 32: return QT_TC(attention_short, 32);
+        case 64: return QT_TC(attention_short, 64);
+        default: return QT_TC(attention_short, 128);
       }
-#undef QT_MMA
     }
+    if (route == ATT_ROUTE_MMA) {
+      switch (hd) {
+        case 32: return QT_TC(attention_mma, 32);
+        case 64: return QT_TC(attention_mma, 64);
+        default: return QT_TC(attention_mma, 128);
+      }
+    }
+#undef QT_TC
   }
   if (Sk > ATT_STAGED_MAX_SK) {
 #define QT_TILED(HD)                                                                        \

@@ -17,8 +17,10 @@
 // frame and head; cross: 2 queries x 14 keys, which overwrites ctx2 only
 // after the query GEMM has read it), and one LayerNorm launch that splits
 // the interleaved (video, audio) rows into the two outputs. The TPU kernel's
-// block-diagonal frame packing is not needed: a block owns one frame and
-// head, so no score is computed across frames. Intermediates make one HBM
+// block-diagonal frame packing is not needed: in bf16 both attentions take
+// the short tensor-core kernel (a warp owns one frame and head, a 16 x 16
+// score tile), in fp32 a block owns one, so no score is computed across
+// frames. Intermediates make one HBM
 // round trip each, which the Pallas kernel avoided; fusing them is later
 // work.
 #include "gemm_sm90.cuh"

@@ -33,7 +33,7 @@ SIGNATURES = {
                      _P, _I, _I, _I, _I, _I, _F, _P],
     "qt_fused_attention": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
                            _I, _I, _I, _I, _F, _P],
-    # not a launcher: 1 where qt::attention takes the tensor-core kernel
+    # not a launcher: the kernel qt::attention takes (0 fma, 1 mma, 2 mma_short)
     "qt_attention_route": [_I, _I, _I, _I, _I],
     # not a launcher: the GEMM routine of a fused kernel's product (0 fma,
     # 1 wmma, 2 wgmma)

@@ -4,10 +4,11 @@
 Port of ``qa_tiger_tpu/ops/pallas/attention.py``: ``attention_wide``, with
 its optional per-(batch element, key) bias (ToMe's proportional attention),
 and ``fused_attention``. The CUDA kernels in ``csrc/attention.cu`` run for
-CUDA tensors, the plain versions for CPU tensors. On the card bf16 calls of
-at least 16 queries and 16 keys at head sizes 32, 64 and 128 take the
-tensor-core kernel, every other call an fp32 FMA kernel (whole keys staged
-in shared memory up to 128 keys, 64-key tiles in two passes beyond);
+CUDA tensors, the plain versions for CPU tensors. On the card bf16 calls at
+head sizes 32, 64 and 128 take a tensor-core kernel: the short one (a warp
+per problem) at most 16 queries and 16 keys, the mma one at least 16 of
+each; every other call an fp32 FMA kernel (whole keys staged in shared
+memory up to 128 keys, 64-key tiles in two passes beyond);
 ``attention_route`` names the one a call takes. The wrappers take any
 layout the plain version takes: over 128 keys a head smaller than 128 is
 zero-padded to the next built size, and a bf16 operand the tensor-core
@@ -28,17 +29,20 @@ from qa_tiger_tpu_torch.ops import _build, _grad
 # zero-pads any smaller head to the next of them
 STAGED_MAX_SK = 128
 KERNEL_HEAD_SIZES = (32, 64, 128)
+# qt_attention_route's codes (csrc/common.cuh, AttentionRoute)
+ROUTES = ("fma", "mma", "mma_short")
 
 
 def attention_route(dtype: torch.dtype, sq: int, sk: int, hd: int,
                     has_keep: bool = False) -> str:
     """The kernel the card's dispatch (``qt::attention``) takes for a call of
-    this dtype and shape: "mma" (tensor cores) or "fma", at the head size the
-    wrapper launches (``_kernel_head``). Asks the kernel library, so it
-    builds it on first use."""
+    this dtype and shape: "mma_short" (tensor cores, a warp per problem of at
+    most 16 queries and keys), "mma" (tensor cores, 64 query rows per block)
+    or "fma", at the head size the wrapper launches (``_kernel_head``). Asks
+    the kernel library, so it builds it on first use."""
     code = _build.library().qt_attention_route(_build.dtype_code(dtype), sq, sk,
                                                _kernel_head(hd, sk), int(has_keep))
-    return "mma" if code == 1 else "fma"
+    return ROUTES[code]
 
 
 def _wide_reference(q, k, v, mask, scale, heads, key_bias=None):
@@ -223,8 +227,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card ``qt_fused_attention`` takes both Pallas routes (the
     per-row ``_kernel`` and the packed ``_packed_kernel`` for tiny unmasked
     sequences): packing was a layout for the TPU's matrix unit and computes
-    the same function. The kernel scales the fp32 dot rather than q, which
-    differs from ``_fused_attention_plain`` by fp32 rounding only. On either
+    the same function; in bf16 such tiny problems take the short
+    tensor-core kernel, one warp each (``attention_route`` "mma_short").
+    The kernel scales the fp32 dot rather than q, which differs from
+    ``_fused_attention_plain`` by fp32 rounding only. On either
     device the gradient is that of ``_fused_attention_rule``; a mask that
     requires grad gets its cotangent.
     """

@@ -17,7 +17,11 @@ src/trainutils.py:253-462) for one card:
 - ``train_epoch`` and ``evaluate``/``test`` take any loader with
   ``__len__``, ``__iter__`` and ``set_epoch`` and read the device once per
   log window;
-- ``debug`` stops each loop at batch 10 like the reference's smoke mode.
+- ``debug`` stops each loop at batch 10 like the reference's smoke mode;
+- ``train_state`` / ``restore_train_state`` snapshot and restore what a
+  bitwise resume needs (``training/checkpoint.py`` writes it), and
+  ``load_clip_text_weights`` loads OpenAI CLIP text weights into the frozen
+  tower.
 
 The JAX runner's ``steps_per_dispatch`` (K steps in one scanned call) is not
 here: PyTorch dispatches eagerly (ROADMAP.md says what its counterpart is).
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import time
 from collections.abc import Mapping
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -33,8 +38,10 @@ import torch
 from torch.func import functional_call
 
 from qa_tiger_tpu_torch.convert import params_from_jax
+from qa_tiger_tpu_torch.convert.clip_import import convert_clip_checkpoint
 from qa_tiger_tpu_torch.models.qa_tiger import FROZEN_PREFIXES, QATiger, split_generator
 from qa_tiger_tpu_torch.models.registry import resolve_device
+from qa_tiger_tpu_torch.training.checkpoint import TENSOR_ENTRIES, load_checkpoint
 from qa_tiger_tpu_torch.training.metrics import (
     accuracy_report,
     masked_cross_entropy,
@@ -139,6 +146,47 @@ class AVQARunner:
             raise KeyError(f"load_params: missing {missing}, unexpected {unexpected}")
         self._cast_frozen()
         self._make_optimizer()
+
+    def load_clip_text_weights(self, path: str | Path) -> None:
+        """Load OpenAI CLIP text weights into the frozen ``quest_encoder``:
+        a CLIP ``.pt`` (TorchScript archive or state_dict, its text keys
+        through ``convert.clip_import``) or an ``.npz`` of the text tower
+        (bare names, or under ``quest_encoder.``). The load is strict, into
+        the tower only, which is then cast to ``encoder_dtype``: the
+        counterpart of the reference's clip.load() inside CLIP_TEncoder
+        (src/models/encoders.py:13)."""
+        if str(path).endswith(".pt"):
+            text, _, _ = convert_clip_checkpoint(path)
+        else:
+            text, _, _ = load_checkpoint(path)
+            prefix = "quest_encoder."
+            if any(k.startswith(prefix) for k in text):
+                text = {k[len(prefix):]: v for k, v in text.items() if k.startswith(prefix)}
+        self.model.quest_encoder.load_state_dict(text, strict=True)
+        self._cast_frozen()
+        self.logger.info(f"loaded frozen CLIP text tower from {path}")
+
+    def train_state(self, **scalars) -> dict[str, Any]:
+        """What a mid-training resume needs: the trainable parameters,
+        Adam's state (``optimizer.state_dict()``), the state of the dropout
+        stream ``train_epoch`` draws from, and the caller's host scalars
+        (epoch, best accuracy, ...). With the generator state a resumed run
+        draws the dropout an uninterrupted one would have, so resume is
+        bitwise. The tensors are the live ones: ``save_train_state`` writes
+        them at once, ``save_train_state_async`` copies them first."""
+        return {"params": {n: p.detach() for n, p in self.trainable()},
+                "opt_state": self.optimizer.state_dict(),
+                "step_rng": self._step_generator.get_state(), **scalars}
+
+    def restore_train_state(self, state: Mapping[str, Any]) -> dict[str, Any]:
+        """Takes what ``train_state`` gave (every trainable parameter must
+        be there), Adam's state and the dropout stream included; returns the
+        host scalars."""
+        self.load_params(state["params"])
+        self.optimizer.load_state_dict(state["opt_state"])
+        if state.get("step_rng") is not None:
+            self._step_generator.set_state(state["step_rng"])
+        return {k: v for k, v in state.items() if k not in TENSOR_ENTRIES}
 
     # ------------------------------------------------------------------
     @torch.no_grad()

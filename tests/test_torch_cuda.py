@@ -130,14 +130,16 @@ def _causal(sq, sk, cuda):
 def test_attention_mma_route(cuda, sq, sk, bias, masked):
     """bf16 against the plain version at query and key lengths around the
     64-row tiles, the one-pass limit (128 keys) and the raw-media shapes;
-    2 heads of 64, a key bias of log integer sizes, a causal mask."""
+    2 heads of 64, a key bias of log integer sizes, a causal mask (16 x 16
+    runs on the short kernel)."""
     rng = np.random.default_rng(sq * 1000 + sk)
     dt, B, H = torch.bfloat16, 2, 2
     q, k, v = _packed_qkv(rng, B, sq, sk, 64 * H, dt, cuda)
     kb = torch.from_numpy(np.log(rng.integers(1, 41, (B, sk))).astype(np.float32)).to(cuda) \
         if bias else None
     mask = _causal(sq, sk, cuda) if masked else None
-    assert A.attention_route(dt, sq, sk, 64) == "mma"
+    # 16 x 16 is also a short problem, which the one-warp kernel takes
+    assert A.attention_route(dt, sq, sk, 64) == ("mma_short" if max(sq, sk) <= 16 else "mma")
     n = A.attention_wide.launches
     _check(lambda: A.attention_wide(q, k, v, mask, 0.125, H, key_bias=kb),
            lambda: A._wide_reference(q, k, v, mask, 0.125, H, kb), dt)
@@ -157,16 +159,102 @@ def test_attention_mma_route_head_sizes(cuda, hd, sk):
 def test_attention_route_rule(cuda):
     """The route is a function of dtype, shape and a keep mask only."""
     bf, f32 = torch.bfloat16, torch.float32
-    assert A.attention_route(bf, 16, 16, 64) == "mma"
+    assert A.attention_route(bf, 16, 16, 64) == "mma_short"   # one m16 tile, two n8 tiles
+    assert A.attention_route(bf, 17, 16, 64) == "mma"
+    assert A.attention_route(bf, 16, 17, 64) == "mma"
     assert A.attention_route(bf, 60, 77, 64) == "mma"
     assert A.attention_route(bf, 577, 577, 64) == "mma"
     assert A.attention_route(f32, 577, 577, 64) == "fma"          # fp32 parity route
     assert A.attention_route(bf, 60, 77, 64, has_keep=True) == "fma"  # train dropout
-    assert A.attention_route(bf, 14, 14, 64) == "fma"   # PatchSelecter, packed route
-    assert A.attention_route(bf, 2, 14, 64) == "fma"
-    assert A.attention_route(bf, 1, 60, 64) == "fma"    # TempMoE, QstGrounding
+    assert A.attention_route(bf, 14, 14, 64) == "mma_short"   # PatchSelecter, packed route
+    assert A.attention_route(bf, 2, 14, 64) == "mma_short"    # PatchSelecter cross
+    assert A.attention_route(bf, 1, 2, 64) == "mma_short"     # QstGrounding
+    assert A.attention_route(f32, 14, 14, 64) == "fma"
+    assert A.attention_route(bf, 14, 14, 64, has_keep=True) == "fma"  # train kernels
+    assert A.attention_route(bf, 1, 60, 64) == "fma"    # TempMoE
     assert A.attention_route(bf, 60, 15, 64) == "fma"
     assert A.attention_route(bf, 60, 77, 48) == "fma"   # no mma build for hd 48
+    assert A.attention_route(bf, 14, 14, 48) == "fma"
+
+
+# ---------------------------------------------------------------------------
+# the short tensor-core route (bf16, no keep mask, Sq, Sk <= 16): one warp
+# per (batch element, head) problem
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("sk", [2, 14, 16])
+@pytest.mark.parametrize("sq", [1, 2, 13, 14, 16])
+def test_attention_short_route(cuda, sq, sk, hd):
+    """fused_attention's [BH, S, hd] layout against its plain version, at
+    BH = 75 problems (not a multiple of the block's 4 warps), and a second
+    launch bitwise the same."""
+    rng = np.random.default_rng(sq * 10000 + sk * 100 + hd)
+    q, k, v = (_rn(rng, 75, s, hd, dtype=torch.bfloat16) for s in (sq, sk, sk))
+    assert A.attention_route(torch.bfloat16, sq, sk, hd) == "mma_short"
+    n = A.fused_attention.launches
+    scale = hd ** -0.5
+    _check(lambda: A.fused_attention(q, k, v, None, scale),
+           lambda: A._fused_attention_plain(q, k, v, mask=None, scale=scale), torch.bfloat16)
+    assert torch.equal(A.fused_attention(q, k, v, None, scale),
+                       A.fused_attention(q, k, v, None, scale))
+    assert A.fused_attention.launches == n + 3
+
+
+@pytest.mark.parametrize("sq", [14, 2])
+@pytest.mark.parametrize("bias,masked", [(False, False), (True, False), (False, True),
+                                         (True, True)])
+def test_attention_short_route_patch_select_layout(cuda, sq, bias, masked):
+    """PatchSelecter's own operands (csrc/patch_select.cu): q, k and v column
+    slices of one packed qkv [BT, 14, 3 * 512], 8 heads of 64 (sq = 14, the
+    self-attention), or 2 query rows over the slices of a packed kv (sq = 2,
+    the cross-attention); an additive mask [sq, 14] and a key bias [BT, 14]
+    of log integer sizes; BT = 37 frames."""
+    rng = np.random.default_rng(100 * sq + 10 * bias + masked)
+    BT, P, W, H = 37, 14, 512, 8
+    qkv = _rn(rng, BT, P, 3 * W, dtype=torch.bfloat16)
+    q, k, v = qkv[:, :sq, :W], qkv[..., W:2 * W], qkv[..., 2 * W:]
+    kb = torch.from_numpy(np.log(rng.integers(1, 41, (BT, P))).astype(np.float32)).to(cuda) \
+        if bias else None
+    mask = torch.from_numpy(rng.standard_normal((sq, P), dtype=np.float32)).to(cuda) \
+        if masked else None
+    assert A.attention_route(torch.bfloat16, sq, P, W // H) == "mma_short"
+    n = A.attention_wide.launches
+    _check(lambda: A.attention_wide(q, k, v, mask, 0.125, H, key_bias=kb),
+           lambda: A._wide_reference(q, k, v, mask, 0.125, H, kb), torch.bfloat16)
+    assert A.attention_wide.launches == n + 1
+
+
+def test_attention_short_route_copies_misaligned_rows(cuda):
+    """A row stride that is not a multiple of 8 elements or a base off 16
+    bytes: the wrapper copies the operand and launches the same short
+    kernel, which gives the plain result."""
+    rng = np.random.default_rng(12)
+    q, k, v = _packed_qkv(rng, 5, 14, 14, 128, torch.bfloat16, cuda, pad=4)
+    assert q.stride(1) % 8 == 4
+    assert A.attention_route(torch.bfloat16, 14, 14, 64) == "mma_short"
+    n = A.attention_wide.launches
+    _check(lambda: A.attention_wide(q, k, v, None, 0.125, 2),
+           lambda: A._wide_reference(q, k, v, None, 0.125, 2), torch.bfloat16)
+    buf = _rn(rng, 5, 14, 3 * 128 + 8, dtype=torch.bfloat16)
+    q2, k2, v2 = buf[..., 4:132], buf[..., 132:260], buf[..., 260:388]
+    assert q2.data_ptr() % 16 == 8
+    _check(lambda: A.attention_wide(q2, k2, v2, None, 0.125, 2),
+           lambda: A._wide_reference(q2, k2, v2, None, 0.125, 2), torch.bfloat16)
+    assert A.attention_wide.launches == n + 2
+
+
+def test_attention_short_route_grid_stride(cuda):
+    """More problems than the card holds warps at once (each warp strides
+    over several, through its two-stage ring) with a ragged tail: 10,001
+    problems of 14 x 14 x 64 against the plain version, and two launches
+    bitwise the same."""
+    rng = np.random.default_rng(13)
+    q, k, v = (_rn(rng, 10001, 14, 64, dtype=torch.bfloat16) for _ in range(3))
+    first = A.fused_attention(q, k, v, None, 0.125)
+    _check(lambda: first, lambda: A._fused_attention_plain(q, k, v, mask=None, scale=0.125),
+           torch.bfloat16)
+    assert torch.equal(first, A.fused_attention(q, k, v, None, 0.125))
 
 
 def test_attention_mma_route_copies_misaligned_rows(cuda):
@@ -299,8 +387,9 @@ def test_fused_patch_select(cuda, dtype):
                                              (6, 150, 150, False)])
 def test_fused_attention(cuda, dtype, bh, sq, sk, masked):
     """The text tower's head-split shape (causal), the packed route's tiny
-    unmasked one (an FMA kernel in both dtypes), and keys past 128 (the
-    tiled FMA kernel in fp32, the tensor-core kernel in bf16)."""
+    unmasked one (the short tensor-core kernel in bf16, an FMA kernel in
+    fp32), and keys past 128 (the tiled FMA kernel in fp32, the tensor-core
+    kernel in bf16)."""
     rng = np.random.default_rng(9)
     q, k, v = (_rn(rng, bh, s, 64, dtype=dtype) for s in (sq, sk, sk))
     mask = causal_mask(sq, device=cuda) if masked else None
