@@ -66,6 +66,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the weights through ``best.npz`` into a Predictor, whose fp32 logits
    must equal those of a Predictor given the same weights directly,
    bitwise; the launch counters reset around the phase;
+   (e) cli: ``python -m qa_tiger_tpu_torch.train`` and ``.test`` through
+   their ``main(argv)`` at the same config's widths (batch 32) over a
+   corpus written to a temporary directory: the first 110 questions of
+   music_avqa_val.json (70 train, 20 val, 20 test) with fp32 features at
+   the real shapes from a seed and a merges file learned from them; train
+   1 epoch with the counters reset around it (each train kernel 3 times,
+   the MoE 2 per step and 2 per eval forward, the eval kernels in evaluate
+   and the final test, every feature file read natively), test on its
+   best.npz (the same report lines as the train run's final test), then a
+   resume for epoch 2 with the question cache (one per split, the tower 12
+   launches per split), then 6 epochs afresh, the rate read over epochs
+   2-6; steps, epoch seconds, qa-pairs/s beside the recipe's rate of (b),
+   the seconds spent waiting on the loader, the native reader's build time;
 6. raw media — ``pipeline.e2e`` at full width (CLIP ViT-L/14@336px, ToMe
    vit_large_patch16_384 at r=[25]*23, VGGish, the QA-TIGER config):
    (a) fp32 B=1 x T=2 card against CPU (streams, logits, every ToMe
@@ -77,7 +90,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    defaults (B=256, S=77, W=768, bf16, causal) for ``attn_half`` and
    ``attn_ln2``, the launch counters reset around each, both JSON lines;
 8. the kernel table as one JSON line (each entry's ``launches`` from its
-   own path, ``launches_by_path`` from all five), then the device's JSON
+   own path, ``launches_by_path`` from all six), then the device's JSON
    line last.
 
 ``--profile DIR`` also writes torch.profiler tables of one bf16 serving
@@ -88,8 +101,10 @@ from __future__ import annotations
 
 import argparse
 import functools
+import importlib.util
 import json
 import logging
+import re
 import statistics
 import subprocess
 import sys
@@ -1428,7 +1443,7 @@ def check_train(rng, entries: dict, profile_dir: Path | None) -> dict:
     acc, loss = runner.evaluate(1, loader)
     print(json.dumps({"phase": "evaluate", "accuracy": acc, "loss": loss}), flush=True)
     require(np.isfinite(loss) and 0.0 <= acc <= 100.0, "evaluate returned no valid numbers")
-    return counts
+    return counts, 32 / median
 
 
 def check_resume(rng) -> dict:
@@ -1501,6 +1516,238 @@ def check_resume(rng) -> dict:
     for name in ("fused_avq_train", "fused_avq_train_bwd", "fused_patch_select_train",
                  "fused_patch_select_train_bwd", *EVAL_KERNELS):
         require(counts[name] > 0, f"resume: {name} did not launch")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5(e): the train and test entry points over a corpus on disk
+# ---------------------------------------------------------------------------
+
+CLI_SPLITS = {"train": (0, 70), "val": (70, 90), "test": (90, 110)}
+CLI_FEATURES = {"vggish": (T, 128), "clip": (T, 768), "tome": (T, P, 1024)}
+CLI_BATCH = 32
+CLI_WARM_EPOCHS = 5
+CLI_REPORT = re.compile(r"\]:(Test .* accuracy: .*)$")
+
+
+def write_cli_corpus(root: Path) -> dict:
+    """The first 110 questions of music_avqa_val.json in file order (70
+    train, 20 val, 20 test: real text, types and answers, the real 42-answer
+    vocabulary), fp32 features at the real shapes for each of their videos
+    from numpy seed 0, and a merges file learned from the questions: the
+    corpus the port's CLI tests write (tests/torch_corpus.py), at full size."""
+    spec = importlib.util.spec_from_file_location("torch_corpus",
+                                                  ROOT / "tests" / "torch_corpus.py")
+    corpus = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(corpus)
+    corpus.write_corpus(root, CLI_SPLITS, CLI_FEATURES)
+    questions = corpus.val_questions()[:CLI_SPLITS["test"][1]]
+    corpus.write_merges(root / "vocab.txt.gz", [q["question_content"] for q in questions])
+    videos = {q["video_id"] for q in questions}
+    nbytes = sum((root / sub / f"{vid}.npy").stat().st_size
+                 for sub in CLI_FEATURES for vid in videos)
+    return {"questions": len(questions), "videos": len(videos), "feature_bytes": nbytes}
+
+
+def write_cli_config(path: Path, root: Path, **top) -> Path:
+    """configs/qa-tiger/vitl14.py over the corpus: its model at full width,
+    batch and eval batch 32, no platform (the card); ``top`` sets top-level
+    keys, ``cache_qst_features`` goes into hyper_params."""
+    from qa_tiger_tpu_torch.utils.config import load_config_module
+
+    cfg = load_config_module(str(CONFIG)).to_dict()
+    cfg["data"].update(root=str(root), batch_size=CLI_BATCH, eval_batch_size=CLI_BATCH,
+                       num_workers=0, train_annot="train.json", valid_annot="val.json",
+                       test_annot="test.json", ans_quelen="answer2idx.json",
+                       audio_feat="vggish", video_feat="clip", patch_feat="tome")
+    cfg["hyper_params"]["cache_qst_features"] = top.pop("cache_qst_features", False)
+    cfg.update({"epochs": 1, "output_dir": str(root / "out"), **top})
+    path.write_text(f"config = {cfg!r}\n")
+    return path
+
+
+def report_lines(path: Path) -> list[str]:
+    """A log's test report lines (per qtype, per modality, total) without
+    their time and source prefix."""
+    return [m.group(1) for line in path.read_text().splitlines()
+            if (m := CLI_REPORT.search(line.rstrip()))]
+
+
+def check_cli(recipe_rate: float) -> dict:
+    """Phase 5(e): ``python -m qa_tiger_tpu_torch.train`` / ``.test``
+    through their ``main(argv)`` over a corpus written to a temporary
+    directory. (a) train, 1 epoch, no question cache, the launch counters
+    reset just before and read just after: each train kernel 3 times (70 =
+    32 + 32 + 6), the MoE 2 per step and 2 per eval forward, the eval
+    kernels in evaluate and the final test; best.npz and last_state/
+    written; every feature file read by the native loader. (b) test on
+    (a)'s best.npz: its report lines equal (a)'s final test's. (c) train
+    resumed from (a)'s last_state for epoch 2 with the question cache: one
+    cache per split (the tower 12 launches per split, none per step), the
+    best checkpoint carried over. (d) train for 1 + CLI_WARM_EPOCHS epochs
+    and report the rate over the warm ones. Returns (a)'s counts."""
+    import os
+    import tempfile
+
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch import test as test_entry
+    from qa_tiger_tpu_torch import train as train_entry
+    from qa_tiger_tpu_torch.data import native_loader
+
+    avqa = logging.getLogger("AVQA")
+    propagate = avqa.propagate
+    avqa.propagate = False  # the entry points log to stderr and their run files
+    old_vocab = os.environ.get("QA_TIGER_BPE_VOCAB")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            start = time.perf_counter()
+            corpus = write_cli_corpus(root)
+            corpus["write_s"] = time.perf_counter() - start
+            print(json.dumps({"phase": "cli_corpus", **corpus}), flush=True)
+            os.environ["QA_TIGER_BPE_VOCAB"] = str(root / "vocab.txt.gz")
+            n_steps = -(-(CLI_SPLITS["train"][1] - CLI_SPLITS["train"][0]) // CLI_BATCH)
+
+            # the native reader's g++ build, once per checkout, outside every
+            # timed epoch
+            start = time.perf_counter()
+            require(native_loader.native_available(), "cli: the native .npy loader did not build")
+            print(json.dumps({"phase": "cli_native_build",
+                              "seconds": time.perf_counter() - start}), flush=True)
+
+            # (a) train
+            cfg_a = write_cli_config(root / "train.py", root)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            native_loader.reset_counts()
+            start = time.perf_counter()
+            summary = train_entry.main(["--config", str(cfg_a)])
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - start
+            counts = ops.launch_counts()
+            routes = {name: dict(ops.KERNELS[name].gemm_routes)
+                      for name in ("fused_attn_ln2", "fused_patch_select", *TRAIN_TF32X3_KERNELS)}
+            files = dict(native_loader.counts)
+            epoch = summary["epochs"][0]
+            run_a = Path(summary["run_dir"])
+            n_train = CLI_SPLITS["train"][1] - CLI_SPLITS["train"][0]
+            print(json.dumps({
+                "phase": "cli_train", "steps": epoch["steps"], "epoch_wall_s": epoch["wall_s"],
+                "train_qa_pairs_per_s": n_train / epoch["wall_s"],
+                "recipe_train_qa_pairs_per_s": recipe_rate,
+                "loader_wait_s": epoch["loader_wait_s"], "main_s": total_s,
+                "val_accuracy": epoch["val_acc"], "test_accuracy": summary["tests"],
+                "files_read": files, "native_available": native_loader.native_available(),
+                "launches": counts}), flush=True)
+            print(json.dumps({"phase": "cli_train_gemm_routes", **routes}), flush=True)
+            for name, n in TRAIN_TF32X3_KERNELS.items():  # the routes of train_fp32_b32
+                if name != "fused_gaussian_moe":
+                    require(routes[name] == {"tf32x3": n * counts[name]},
+                            f"cli train: {name}'s products took {routes[name]}, expected "
+                            f"tf32x3 x {n} per launch")
+            require(routes["fused_gaussian_moe"] == {"tf32x3": 2 * counts["fused_gaussian_moe"]},
+                    f"cli train: fused_gaussian_moe's products took "
+                    f"{routes['fused_gaussian_moe']}, expected tf32x3 x 2 per launch")
+            require(epoch["steps"] == n_steps, f"cli train: {epoch['steps']} steps, expected "
+                                               f"{n_steps}")
+            for name in ("fused_avq_train", "fused_avq_train_bwd", "fused_patch_select_train",
+                         "fused_patch_select_train_bwd"):
+                require(counts[name] == n_steps, f"cli train: {name} launched {counts[name]} "
+                                                 f"times, expected {n_steps}")
+            eval_forwards = 2  # one val batch, one test batch
+            require(counts["fused_gaussian_moe"] == 2 * n_steps + 2 * eval_forwards,
+                    f"cli train: fused_gaussian_moe launched {counts['fused_gaussian_moe']} "
+                    f"times, expected {2 * n_steps + 2 * eval_forwards}")
+            for name in ("fused_attn_ln2", "attention_wide", "fused_patch_select"):
+                require(counts[name] > 0, f"cli train: {name} did not launch")
+            require((run_a / "best.npz").exists() and (run_a / "last_state" / "state.pt").exists(),
+                    "cli train: best.npz or last_state/ not written")
+            require(native_loader.native_available() and files["native"] > 0
+                    and files["numpy"] == 0, f"cli train: the loader read {files}, not natively")
+
+            # (b) test on (a)'s best.npz
+            start = time.perf_counter()
+            accs = test_entry.main(["--config", str(cfg_a), "--weight", str(run_a / "best.npz"),
+                                    "--output_path", str(root / "eval")])
+            torch.cuda.synchronize()
+            want = report_lines(run_a / "log.txt")
+            got = report_lines(root / "eval" / "best_result.txt")
+            print(json.dumps({"phase": "cli_test", "seconds": time.perf_counter() - start,
+                              "accuracy": accs, "report": got, "equal_to_train": got == want}),
+                  flush=True)
+            require(len(got) == 13 and got == want,
+                    f"cli test: the report differs from the train run's final test: {got} vs "
+                    f"{want}")
+
+            # (c) resume for epoch 2, with the question cache
+            cfg_c = write_cli_config(root / "resume.py", root, epochs=2, cache_qst_features=True,
+                                     resume=str(run_a / "last_state"),
+                                     output_dir=str(root / "out_resume"))
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            start = time.perf_counter()
+            resumed = train_entry.main(["--config", str(cfg_c)])
+            torch.cuda.synchronize()
+            rcounts = ops.launch_counts()
+            epoch = resumed["epochs"][0] if resumed["epochs"] else {}
+            print(json.dumps({
+                "phase": "cli_resume", "start_epoch": resumed["start_epoch"],
+                "steps": epoch.get("steps"), "epoch_wall_s": epoch.get("wall_s"),
+                "train_qa_pairs_per_s": n_train / epoch["wall_s"] if epoch else None,
+                "loader_wait_s": epoch.get("loader_wait_s"),
+                "main_s": time.perf_counter() - start, "val_accuracy": epoch.get("val_acc"),
+                "test_accuracy": resumed["tests"], "question_caches": resumed["question_caches"],
+                "carried_over": resumed["carried_over"], "launches": rcounts}), flush=True)
+            require(resumed["start_epoch"] == 2 and [e["epoch"] for e in resumed["epochs"]] == [2],
+                    f"cli resume: started at epoch {resumed['start_epoch']}, expected 2")
+            require(resumed["question_caches"] == 3,
+                    f"cli resume: {resumed['question_caches']} question caches, expected 3")
+            require(rcounts["fused_attn_ln2"] == 12 * 3, f"cli resume: the tower launched "
+                    f"{rcounts['fused_attn_ln2']} times, expected 12 per split and none per step")
+            require(resumed["carried_over"] == str(run_a / "best.npz")
+                    and (Path(resumed["run_dir"]) / "best.npz").exists(),
+                    "cli resume: best.npz was not carried over")
+
+            # (d) the rate through the entry point on warm epochs: (a)'s
+            # config for 1 + CLI_WARM_EPOCHS epochs, the first of them (a new
+            # runner's, Adam's state allocated in its first step) left out
+            cfg_d = write_cli_config(root / "warm.py", root, epochs=1 + CLI_WARM_EPOCHS,
+                                     save_state=False, output_dir=str(root / "out_warm"))
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            warm = train_entry.main(["--config", str(cfg_d)])
+            torch.cuda.synchronize()
+            wcounts = ops.launch_counts()
+            epochs = warm["epochs"][1:]
+            steps = sum(e["steps"] for e in epochs)
+            wall_s = sum(e["wall_s"] for e in epochs)
+            print(json.dumps({
+                "phase": "cli_warm", "epochs": len(epochs), "steps": steps, "epoch_wall_s": wall_s,
+                "train_qa_pairs_per_s": n_train * len(epochs) / wall_s,
+                "recipe_train_qa_pairs_per_s": recipe_rate,
+                "loader_wait_s": sum(e["loader_wait_s"] for e in epochs),
+                "per_epoch": [{k: e[k] for k in ("epoch", "steps", "wall_s", "loader_wait_s")}
+                              for e in warm["epochs"]],
+                "val_accuracy": [e["val_acc"] for e in epochs], "test_accuracy": warm["tests"],
+                "launches": wcounts}), flush=True)
+            require(steps == n_steps * CLI_WARM_EPOCHS, f"cli warm: {steps} steps, expected "
+                                                        f"{n_steps * CLI_WARM_EPOCHS}")
+            for name in ("fused_avq_train", "fused_avq_train_bwd", "fused_patch_select_train",
+                         "fused_patch_select_train_bwd"):
+                require(wcounts[name] == n_steps * (1 + CLI_WARM_EPOCHS),
+                        f"cli warm: {name} launched {wcounts[name]} times, expected "
+                        f"{n_steps * (1 + CLI_WARM_EPOCHS)}")
+    finally:
+        for handler in avqa.handlers:
+            handler.close()
+        avqa.handlers.clear()
+        avqa.propagate = propagate
+        if old_vocab is None:
+            os.environ.pop("QA_TIGER_BPE_VOCAB", None)
+        else:
+            os.environ["QA_TIGER_BPE_VOCAB"] = old_vocab
     return counts
 
 
@@ -1815,10 +2062,12 @@ def main() -> int:
         check_tf32x3_gemms()
         check_slice1_grads(rng, gen)
         check_train_kernels(rng, gen, entries)
-        paths = {"serving": check_slice(rng, entries, args.profile),
-                 "train": check_train(rng, entries, args.profile)}
+        paths = {"serving": check_slice(rng, entries, args.profile)}
+        paths["train"], recipe_rate = check_train(rng, entries, args.profile)
         torch.cuda.empty_cache()
         paths["resume"] = check_resume(np.random.default_rng(10))
+        torch.cuda.empty_cache()
+        paths["cli"] = check_cli(recipe_rate)
         torch.cuda.empty_cache()
         check_e2e_fp32(rng)
         torch.cuda.empty_cache()

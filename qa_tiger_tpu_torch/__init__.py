@@ -17,11 +17,18 @@ module has an obvious counterpart there, and it imports nothing from it:
 - ``models``:   the CLIP text and image towers, the ToMe ViT, the QA-TIGER
                 blocks (eval and train paths, dropout-mask samplers) and
                 network, ``build_model``.
-- ``pipeline``: VGGish, the raw-media forward (``e2e``) and the offline
-                extraction stages (``extract``).
-- ``training``: metrics, Adam and the LR schedules, ``AVQARunner``.
-- ``convert``:  JAX parameter pytrees and ``best.npz`` dicts -> state_dict.
+- ``pipeline``: VGGish, the raw-media forward (``e2e``), the offline
+                extraction stages (``extract``) and feature shards
+                (``consolidate``).
+- ``training``: metrics, Adam and the LR schedules, checkpoints,
+                ``AVQARunner``.
+- ``data``:     annotations, the CLIP tokenizer, QA prompts, the feature
+                dataset, its batch loader and the native .npy reader.
+- ``convert``:  JAX parameter pytrees and ``best.npz`` dicts -> state_dict,
+                torch ``.pt`` files both ways, CLIP checkpoints.
+- ``utils``:    configs and command-line overrides, seeding, run logging.
 - ``predict``:  ``Predictor``, the batch serving entry point.
+- ``train``, ``test``: ``python -m qa_tiger_tpu_torch.train|test``.
 
 A CUDA tensor goes through the kernels (built from ``csrc/`` at first use);
 a CPU tensor goes through the plain versions. Importing the package builds

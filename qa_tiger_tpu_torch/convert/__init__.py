@@ -10,11 +10,13 @@ become nesting levels), so the port's modules load them after a flatten:
 ``nested_to_flat`` and ``load_torch_checkpoint`` are this package's own
 copies of those in ``qa_tiger_tpu/convert/torch_import.py``;
 ``state_dict_to_flat`` is its ``state_dict_to_pytree`` without the
-nesting. ``clip_import`` reads OpenAI CLIP checkpoints.
+nesting; ``save_torch_checkpoint`` writes the ``.pt`` files the JAX
+package's ``load_torch_checkpoint`` reads. ``clip_import`` reads OpenAI
+CLIP checkpoints.
 """
 from __future__ import annotations
 
-from collections.abc import Mapping
+from collections.abc import Iterable, Mapping
 from pathlib import Path
 from typing import Any
 
@@ -23,14 +25,18 @@ import torch
 
 
 def nested_to_flat(nested: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
-    """Flatten a nested dict pytree into dotted keys."""
-    flat: dict[str, np.ndarray] = {}
+    """Flatten a nested dict pytree into dotted keys, leaves as numpy arrays."""
+    return {k: np.asarray(v) for k, v in _flatten(nested, prefix).items()}
+
+
+def _flatten(nested: Mapping[str, Any], prefix: str = "") -> dict[str, Any]:
+    """Flatten a nested dict pytree into dotted keys, leaves as they are."""
+    flat: dict[str, Any] = {}
     for key, value in nested.items():
-        name = f"{prefix}{key}"
         if isinstance(value, Mapping):
-            flat.update(nested_to_flat(value, prefix=name + "."))
+            flat.update(_flatten(value, prefix=f"{prefix}{key}."))
         else:
-            flat[name] = np.asarray(value)
+            flat[f"{prefix}{key}"] = value
     return flat
 
 
@@ -78,3 +84,24 @@ def load_torch_checkpoint(path: str | Path) -> dict[str, torch.Tensor]:
     if isinstance(state, Mapping) and "state_dict" in state:
         state = state["state_dict"]
     return state_dict_to_flat(state)
+
+
+def save_torch_checkpoint(params: Mapping[str, Any], path: str | Path,
+                          exclude_prefixes: Iterable[str] = ()) -> None:
+    """Write a state_dict (tensors or arrays, flat or nested) as a torch
+    ``.pt`` file of CPU tensors, names under ``exclude_prefixes`` left out:
+    the port's counterpart of ``qa_tiger_tpu/convert/torch_import.py``
+    ``save_torch_checkpoint``, whose ``load_torch_checkpoint`` reads it back.
+    bf16 values (a frozen tower on the card) are widened to fp32, which
+    numpy, and so the JAX reader, can hold."""
+    exclude = tuple(exclude_prefixes)
+    state = {}
+    for key, value in _flatten(params).items():
+        if exclude and key.startswith(exclude):
+            continue
+        # np.array, not np.ascontiguousarray (which the JAX writer uses): the
+        # latter makes a 0-d value (logit_scale) 1-d
+        t = value.detach().cpu() if torch.is_tensor(value) else torch.from_numpy(np.array(value))
+        state[key] = (t.float() if t.dtype == torch.bfloat16 else t).contiguous()
+    torch.save(state, path)
+

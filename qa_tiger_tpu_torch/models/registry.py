@@ -2,7 +2,7 @@
 
 Port of ``qa_tiger_tpu/models/registry.py`` for the models this package
 has: names starting with 'QA-TIGER' build ``QATiger``. The TSPM baseline is
-a later slice of the port (ROADMAP.md, queue A item 10).
+a later slice of the port (ROADMAP.md, A6).
 """
 from __future__ import annotations
 
@@ -21,20 +21,26 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return device
 
 
+def model_config(model_type: str, model_kwargs: dict, num_labels: int = 42) -> dict:
+    """The model hyperparameters of ``model_type`` (what ``AVQARunner``
+    takes), dispatched on its prefix like the JAX package's
+    ``build_model``."""
+    if model_type.startswith("QA-TIGER"):
+        return qa_tiger_config(num_labels=num_labels, **dict(model_kwargs))
+    if model_type.startswith("TSPM"):
+        raise NotImplementedError(
+            "TSPM is not ported yet (ROADMAP.md, A6: "
+            "models/tspm.py)")
+    raise NotImplementedError(
+        f"Model type {model_type} is not implemented; known prefixes: "
+        f"['QA-TIGER']")
+
+
 def build_model(model_type: str, model_kwargs: dict, num_labels: int = 42, *,
                 device: str | torch.device | None = None, seed: int = 0) -> QATiger:
     """The eval-mode model for ``model_type``, its weights drawn from
     ``seed`` on the CPU and then moved to ``device`` (``cuda`` unless
     given)."""
     device = resolve_device(device)
-    if model_type.startswith("QA-TIGER"):
-        cfg = qa_tiger_config(num_labels=num_labels, **dict(model_kwargs))
-        model = QATiger(cfg, seed=seed)
-        return model.eval().requires_grad_(False).to(device)
-    if model_type.startswith("TSPM"):
-        raise NotImplementedError(
-            "TSPM is not ported yet (ROADMAP.md, queue A item 8: "
-            "models/tspm.py)")
-    raise NotImplementedError(
-        f"Model type {model_type} is not implemented; known prefixes: "
-        f"['QA-TIGER']")
+    model = QATiger(model_config(model_type, model_kwargs, num_labels), seed=seed)
+    return model.eval().requires_grad_(False).to(device)

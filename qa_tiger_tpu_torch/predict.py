@@ -7,8 +7,8 @@ dtype as ``bench.py`` casts it, and each call to ``answer`` runs one forward
 over the batch and names the top-k answers from the config's
 ``answer2idx.json``.
 
-Questions arrive as CLIP token ids [N, 77]; the tokenizer waits for the BPE
-vocabulary file to be in the repository (ROADMAP.md).
+Questions arrive as CLIP token ids [N, 77], e.g. from
+``data.ClipTokenizer`` (which reads the CLIP BPE merges file).
 """
 from __future__ import annotations
 

@@ -2,6 +2,7 @@
 AVQARunner.
 
 Port of ``qa_tiger_tpu/training``."""
+from qa_tiger_tpu_torch.data.annotations import NUM_QTYPES, idx2qtype
 from qa_tiger_tpu_torch.training.checkpoint import (
     load_checkpoint,
     load_train_state,
@@ -22,7 +23,6 @@ from qa_tiger_tpu_torch.training.optim import (
     make_lr_schedule,
     make_optimizer,
 )
-from qa_tiger_tpu_torch.training.qtypes import NUM_QTYPES, idx2qtype
 
 __all__ = [
     "AVQARunner",

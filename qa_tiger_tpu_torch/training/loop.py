@@ -16,7 +16,11 @@ src/trainutils.py:253-462) for one card:
 - eval accumulates the loss and the 9-way counters on the device;
 - ``train_epoch`` and ``evaluate``/``test`` take any loader with
   ``__len__``, ``__iter__`` and ``set_epoch`` and read the device once per
-  log window;
+  log window; ``train_epoch`` keeps its steps, wall seconds and the seconds
+  it waited on the loader in ``epoch_stats``;
+- ``build_question_cache(dataset)`` runs every question of a tokenizing
+  dataset through the frozen tower once, and its batches then gather rows
+  by ``ds_idx``;
 - ``debug`` stops each loop at batch 10 like the reference's smoke mode;
 - ``train_state`` / ``restore_train_state`` snapshot and restore what a
   bitwise resume needs (``training/checkpoint.py`` writes it), and
@@ -70,6 +74,20 @@ def _as_state(params: Mapping) -> dict[str, torch.Tensor]:
     return params_from_jax(params)
 
 
+def _timed(loader, waited: list):
+    """Iterate ``loader``, adding to ``waited[0]`` the seconds each batch
+    took to arrive."""
+    it = iter(loader)
+    while True:
+        start = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        waited[0] += time.perf_counter() - start
+        yield batch
+
+
 class AVQARunner:
     """Owns the model, the optimizer and the step functions.
 
@@ -114,6 +132,8 @@ class AVQARunner:
         # device, keyed by the dataset's id(); see build_question_cache_from_tokens
         self._qst_caches: dict[Any, tuple[torch.Tensor, torch.Tensor]] = {}
         self._active_qst_cache: tuple[torch.Tensor, torch.Tensor] | None = None
+        # steps, wall seconds and loader wait of the last train_epoch
+        self.epoch_stats: dict[str, float] | None = None
 
     # ------------------------------------------------------------------
     def trainable(self) -> list[tuple[str, torch.nn.Parameter]]:
@@ -210,6 +230,27 @@ class AVQARunner:
             f"question cache built: {toks.shape[0]} questions, words "
             f"{tuple(cache[1].shape)} {cache[1].dtype} "
             f"({cache[1].numel() * cache[1].element_size() / 1e6:.1f} MB resident)")
+
+    def build_question_cache(self, dataset, chunk: int = 512) -> bool:
+        """The question cache of ``dataset``: every ``question_content``
+        through the dataset's tokenizer, then
+        ``build_question_cache_from_tokens`` under ``id(dataset)``. A
+        dataset that serves precomputed question features has no tower to
+        skip. Returns True if a cache was built or exists."""
+        key = id(dataset)
+        if key in self._qst_caches:
+            return True
+        if getattr(dataset, "tokenizer", None) is None:
+            self.logger.info("question cache skipped: dataset serves "
+                             "precomputed question features")
+            return False
+        if not any(_frozen(n) for n, _ in self.model.named_parameters()):
+            self.logger.info("question cache skipped: no frozen text tower")
+            return False
+        texts = [s["question_content"] for s in dataset.samples]
+        tokens = dataset.tokenizer(texts, truncate=True)
+        self.build_question_cache_from_tokens(tokens, key, chunk=chunk)
+        return True
 
     def _select_qst_cache(self, loader) -> None:
         self._active_qst_cache = self._qst_caches.get(id(getattr(loader, "dataset", None)))
@@ -351,7 +392,8 @@ class AVQARunner:
             pending.clear()
             return last
 
-        for batch_idx, host_batch in enumerate(loader):
+        waited = [0.0]
+        for batch_idx, host_batch in enumerate(_timed(loader, waited)):
             start_time = time.time()
             pending.append((batch_idx, self.train_step(host_batch, lr, self._step_generator)))
             count += 1
@@ -372,6 +414,10 @@ class AVQARunner:
             if cfg.get("debug") and batch_idx == 10:
                 break
         drain()
+        self.epoch_stats = {"epoch": epoch, "steps": count,
+                            "wall_s": time.time() - epoch_time, "loader_wait_s": waited[0]}
+        logger.info(f"Epoch {epoch}: {count} steps in {self.epoch_stats['wall_s']:.2f}s, "
+                    f"{waited[0]:.2f}s of it waiting on the loader")
 
     def _run_eval(self, loader, debug: bool):
         self._select_qst_cache(loader)

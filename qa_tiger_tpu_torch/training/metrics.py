@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
-from qa_tiger_tpu_torch.training.qtypes import NUM_QTYPES, idx2qtype
+from qa_tiger_tpu_torch.data.annotations import NUM_QTYPES, idx2qtype
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

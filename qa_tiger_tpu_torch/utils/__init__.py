@@ -1,4 +1,24 @@
-from qa_tiger_tpu_torch.utils.config import load_config_module
-from qa_tiger_tpu_torch.utils.logging import get_logger
+"""Config, seeding and run logging. Port of ``qa_tiger_tpu/utils`` (its
+compilation cache, benchmark and profiling helpers excepted: ROADMAP A9)."""
+from qa_tiger_tpu_torch.utils.config import Box, arg_parse, build_config, load_config_module
+from qa_tiger_tpu_torch.utils.logging import (
+    calculate_parameters,
+    get_logger,
+    logging_config,
+    save_code_snapshot,
+    set_logger,
+)
+from qa_tiger_tpu_torch.utils.seed import seed_everything
 
-__all__ = ["get_logger", "load_config_module"]
+__all__ = [
+    "Box",
+    "arg_parse",
+    "build_config",
+    "load_config_module",
+    "seed_everything",
+    "get_logger",
+    "set_logger",
+    "save_code_snapshot",
+    "logging_config",
+    "calculate_parameters",
+]

@@ -13,6 +13,7 @@ kernel may be off by at most max(2 x the plain version's error,
 3e-2 * max(1, max|ref|)): bf16 rounding in sums over many rows moves both.
 """
 import copy
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -926,3 +927,52 @@ def test_train_forward_refuses_a_plan_it_does_not_launch(cuda, kind, fault, monk
     with pytest.raises(RuntimeError, match="train_fwd"):
         kernel(mod, acts, masks)
         torch.cuda.synchronize()
+
+
+def test_train_then_test_entry_points(cuda, tmp_path, monkeypatch):
+    """``train`` then ``test`` of tests/test_torch_cli.py on the card (no
+    ``platform`` in the config): the parameters on the card, the features
+    read by the native loader, ``best.npz`` and the result file written,
+    the test entry's report equal to the train run's final test."""
+    from qa_tiger_tpu_torch import test as t_test
+    from qa_tiger_tpu_torch import train as t_train
+    from qa_tiger_tpu_torch.data import native_loader
+    from qa_tiger_tpu_torch.models import clip_text
+    from torch_corpus import val_questions, write_config, write_corpus, write_merges
+
+    monkeypatch.setitem(clip_text.CLIP_TEXT_CONFIGS, "tiny-gpu",
+                        dict(width=64, heads=2, layers=2, embed_dim=64))
+    write_merges(tmp_path / "vocab.txt.gz", [q["question_content"] for q in val_questions()])
+    monkeypatch.setenv("QA_TIGER_BPE_VOCAB", str(tmp_path / "vocab.txt.gz"))
+    write_corpus(tmp_path / "data", {"train": (0, 40), "val": (40, 56), "test": (56, 72)},
+                 {"vggish": (12, 16), "clip": (12, 64), "tome": (12, 4, 24)})
+    model = dict(d_model=64, video_dim=64, patch_dim=24, audio_dim=16, topK=2, num_experts=4,
+                 encoder_type="tiny-gpu")
+    cfg = write_config(tmp_path / "tiny.py", tmp_path / "data", tmp_path / "out", model)
+    runners, real = [], t_train.build_runner
+
+    def spy(cfg, device):
+        runners.append(real(cfg, device))
+        return runners[-1]
+
+    monkeypatch.setattr(t_train, "build_runner", spy)
+    monkeypatch.setattr(t_test, "build_runner", spy)
+    native_loader.reset_counts()
+    summary = t_train.main(["--config", str(cfg)])
+    assert native_loader.native_available()
+    assert native_loader.counts["native"] > 0 and native_loader.counts["numpy"] == 0
+    run = Path(summary["run_dir"])
+    assert (run / "best.npz").exists() and (run / "last_state" / "state.pt").exists()
+    t_test.main(["--config", str(cfg), "--weight", str(run / "best.npz"),
+                 "--output_path", str(tmp_path / "eval")])
+    assert len(runners) == 2
+    for r in runners:
+        assert r.device.type == "cuda"
+        assert all(p.device.type == "cuda" for p in r.model.parameters())
+
+    def report(path):
+        return [line.split("]:", 1)[1].strip() for line in path.read_text().splitlines()
+                if "]:Test " in line and "accuracy:" in line]
+
+    got = report(tmp_path / "eval" / "best_result.txt")
+    assert len(got) == 13 and got == report(run / "log.txt")
