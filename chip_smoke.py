@@ -53,7 +53,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    gemm_sm90, each fused_gaussian_moe call's on wgmma and tf32x3), then
    qa/s from the median of timed forwards; (c) 8 requests
    answered, their top-5 answer names printed;
-5. training — AVQARunner at the same config: (a) one fp32 B=4 step with
+5. serve — the serving surface (``qa_tiger_tpu_torch.serve``) over
+   bench_serve's corpus (8 videos at the real shapes, a merges file learned
+   from its questions), bf16, B=256, seed weights: (a) a full and a padded
+   (100-row) batch through ``Service._dispatch`` on the device-cache path
+   and on the host path, the two bitwise equal and within BF16_TOL of the
+   Predictor on the same rows assembled and padded the same way (the same
+   top-1), one dispatch of each path under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no hidden host sync), and
+   a full batch's features staged to the card both ways (fp32 pageable,
+   bf16 pinned), timed; (b) the launch counters reset around two served
+   batches: per batch fused_attn_ln2 12, attention_wide 7,
+   fused_patch_select 1, fused_gaussian_moe 2, every product of the first
+   and third on wgmma; (c) bench_serve's protocol in-process at its
+   defaults (4096 requests, 4 client threads, device cache 8:
+   ``serve_cached``), then with the cache off over 1024 (``serve_host``),
+   qa/s beside ``slice_bf16_b256``'s; (d) ``python -m
+   qa_tiger_tpu_torch.serve`` as a subprocess on a free port (/health 200,
+   8 concurrent /predict, one /predict_batch, /stats counting them, 404 for
+   an unknown video, exit 0 on SIGTERM; its start-up seconds) and
+   ``python -m qa_tiger_tpu_torch.predict`` once, against the Predictor in
+   fp32 on the same row;
+6. training — AVQARunner at the same config: (a) one fp32 B=4 step with
    dropout off, card against CPU (loss, updated parameters, gradients);
    (b) the recipe, fp32 B=32 with dropout: 3 warm-up steps, the launch
    counters reset around one step (every product of the two train kernels'
@@ -79,22 +100,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    launches per split), then 6 epochs afresh, the rate read over epochs
    2-6; steps, epoch seconds, qa-pairs/s beside the recipe's rate of (b),
    the seconds spent waiting on the loader, the native reader's build time;
-6. raw media — ``pipeline.e2e`` at full width (CLIP ViT-L/14@336px, ToMe
+7. raw media — ``pipeline.e2e`` at full width (CLIP ViT-L/14@336px, ToMe
    vit_large_patch16_384 at r=[25]*23, VGGish, the QA-TIGER config):
    (a) fp32 B=1 x T=2 card against CPU (streams, logits, every ToMe
    matching); (b) bf16 B=2 x T=60 through ``e2e_forward`` with the launch
    counters reset around one forward (every product of fused_attn_ln2 and
    fused_patch_select on gemm_sm90), then videos/s from the median of 10;
    (c) the extraction stages' per-video encoders on one 60-frame video;
-7. bench_resblock — ``python -m qa_tiger_tpu_torch.bench_resblock`` at its
+8. bench_resblock — ``python -m qa_tiger_tpu_torch.bench_resblock`` at its
    defaults (B=256, S=77, W=768, bf16, causal) for ``attn_half`` and
    ``attn_ln2``, the launch counters reset around each, both JSON lines;
-8. the kernel table as one JSON line (each entry's ``launches`` from its
-   own path, ``launches_by_path`` from all six), then the device's JSON
-   line last.
+9. the kernel table as one JSON line (each entry's ``launches`` from its
+   own path, ``launches_by_path`` from all seven, ``serve`` per served
+   batch), then the device's JSON line last.
 
 ``--profile DIR`` also writes torch.profiler tables of one bf16 serving
-forward, one train step and one raw-media forward to DIR. All inputs come
+forward, a window of 1024 served requests under 4 client threads (its
+device idle share: ``profile_serve``), one train step and one raw-media
+forward to DIR. All inputs come
 from fixed seeds. TF32 is off.
 """
 from __future__ import annotations
@@ -1220,7 +1243,7 @@ def make_batch(rng, b: int) -> dict:
             "patch": rng.standard_normal((b, T, P, 1024), dtype=np.float32)}
 
 
-def check_slice(rng, entries: dict, profile_dir: Path | None) -> dict:
+def check_slice(rng, entries: dict, profile_dir: Path | None) -> tuple[dict, float]:
     import torch
 
     from qa_tiger_tpu_torch import ops
@@ -1291,11 +1314,322 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> dict:
     for i, row in enumerate(served):
         print(json.dumps({"request": i, "top5": [t["answer"] for t in row["topk"]],
                           "probs": [t["prob"] for t in row["topk"]]}), flush=True)
-    return counts
+    return counts, 256 / median
 
 
 # ---------------------------------------------------------------------------
-# phase 5: training
+# phase 5: the serving surface
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH, SERVE_PADDED = 256, 100
+# one served bf16 batch: the text tower's 12 blocks, AVQ's 7 attentions
+SERVE_KERNELS = {"fused_attn_ln2": 12, "attention_wide": 7, "fused_patch_select": 1,
+                 "fused_gaussian_moe": 2, "attention_wide_key_bias": 0, "fused_avq_train": 0,
+                 "fused_avq_train_bwd": 0, "fused_patch_select_train": 0,
+                 "fused_patch_select_train_bwd": 0, **dict.fromkeys(OP_KERNELS, 0)}
+
+
+def host_batch(svc, rows) -> dict:
+    """``rows`` assembled as the server assembles them, on the host in fp32:
+    token ids and features stacked, padded to the batch with the first
+    row's."""
+    pad = svc.batch_size - len(rows)
+    feats = [r["feats"] or svc.store.get(r["video"]) for r in rows] + \
+        [rows[0]["feats"] or svc.store.get(rows[0]["video"])] * pad
+    batch = {k: np.stack([f[k] for f in feats]) for k in feats[0]}
+    batch["quest"] = np.stack([r["tokens"] for r in rows] + [rows[0]["tokens"]] * pad)
+    return batch
+
+
+def staging_ms(svc, rows) -> dict:
+    """A full uncached batch's features to the card two ways, each ended by
+    a synchronize: stacked in fp32 with numpy, copied from pageable memory
+    and cast on the card (the JAX server's way); staged in bf16 into pinned
+    memory and copied without waiting (the port's ``_dispatch``)."""
+    import torch
+
+    feats = [r["feats"] for r in rows]
+
+    def pageable():
+        for k in feats[0]:
+            torch.from_numpy(np.stack([f[k] for f in feats])).to("cuda").to(svc.dtype)
+        torch.cuda.synchronize()
+
+    def pinned():
+        for k in feats[0]:
+            stage = torch.empty((len(feats), *feats[0][k].shape), dtype=svc.dtype,
+                                pin_memory=True)
+            for i, f in enumerate(feats):
+                stage[i].copy_(torch.from_numpy(f[k]))
+            stage.to("cuda", non_blocking=True)
+        torch.cuda.synchronize()
+
+    out = {}
+    for name, fn in (("pageable_fp32_ms", pageable), ("pinned_bf16_ms", pinned)):
+        fn()
+        times = []
+        for _ in range(3):
+            start = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - start) * 1e3)
+        out[name] = statistics.median(times)
+    return out
+
+
+def _reader(stream, lines: list) -> None:
+    for line in stream:
+        lines.append((time.perf_counter(), line.rstrip("\n")))
+
+
+def _http(base: str, path: str, payload=None, timeout: float = 120.0):
+    """(status, JSON body) of a GET, or of a POST when ``payload`` is given."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read() or b"{}")
+
+
+def check_serve_http(config: Path, vocab: Path) -> dict:
+    """(d) ``python -m qa_tiger_tpu_torch.serve`` as a subprocess on a free
+    port: /health reaches 200, 8 concurrent /predict and one /predict_batch
+    are answered, /stats counts them, an unknown video answers 404, SIGTERM
+    ends it (exit 0). Returns its start-up seconds."""
+    import os
+    import signal
+    import socket
+    import threading
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, QA_TIGER_BPE_VOCAB=str(vocab), PYTHONPATH=str(ROOT))
+    start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "qa_tiger_tpu_torch.serve", "--config", str(config),
+         "--port", str(port), "--batch-size", str(SERVE_BATCH), "--dtype", "bfloat16",
+         "--device-cache", "8"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    reader = threading.Thread(target=_reader, args=(proc.stdout, lines), daemon=True)
+    reader.start()
+    base = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            require(proc.poll() is None, "serve: the server died: "
+                    + "\n".join(line for _, line in lines[-30:]))
+            require(time.monotonic() < deadline, "serve: /health never answered 200")
+            try:
+                status, _ = _http(base, "/health", timeout=5)
+            except OSError:
+                status = None
+            if status == 200:
+                break
+            time.sleep(0.1)
+        healthy = time.perf_counter()
+        items = [{"question": q, "video": f"v{i:02d}"} for i, q in
+                 enumerate(["How many instruments are playing in the video?",
+                            "Is the ukulele louder than the cello?"] * 4)]
+        results = [None] * len(items)
+
+        def worker(i):
+            results[i] = _http(base, "/predict", {**items[i], "topk": 3})
+
+        workers = [threading.Thread(target=worker, args=(i,)) for i in range(len(items))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=120)
+        status, batch = _http(base, "/predict_batch", {"items": items, "topk": 3})
+        _, stats = _http(base, "/stats")
+        missing, _ = _http(base, "/predict", {"question": "q", "video": "nope"})
+        ok = (all(r is not None and r[0] == 200 and len(r[1]["topk"]) == 3 for r in results)
+              and status == 200 and len(batch["results"]) == len(items)
+              and stats["served"] == 2 * len(items) and stats["batches"] >= 2
+              and missing == 404)
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=60)
+        serving_line = next((t for t, line in lines if line.startswith('{"serving"')), None)
+        out = {"phase": "serve_http", "requests": len(items), "batch_items": len(items),
+               "stats": stats, "unknown_video_status": missing,
+               "answers": [r[1]["answer"] for r in results if r is not None],
+               "to_serving_line_s": None if serving_line is None else serving_line - start,
+               "to_health_200_s": healthy - start, "sigterm_exit": code, "ok": ok}
+        print(json.dumps(out), flush=True)
+        require(ok and code == 0 and serving_line is not None,
+                f"serve: the HTTP round trip failed: {out}")
+        return out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        reader.join(timeout=10)
+        proc.stdout.close()
+
+
+def check_predict_cli(config: Path, vocab: Path) -> dict:
+    """(d) ``python -m qa_tiger_tpu_torch.predict`` once (fp32, the card),
+    against ``Predictor`` in fp32 on the same row in this process."""
+    import os
+
+    import torch
+
+    from qa_tiger_tpu_torch.data.tokenizer import ClipTokenizer
+    from qa_tiger_tpu_torch.predict import Predictor, load_features
+    from qa_tiger_tpu_torch.utils.config import load_config_module
+
+    question = "Where is the first sounding instrument?"
+    env = dict(os.environ, QA_TIGER_BPE_VOCAB=str(vocab), PYTHONPATH=str(ROOT))
+    start = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "qa_tiger_tpu_torch.predict", "--config",
+                          str(config), "--video", "v03", "--question", question, "--topk", "5"],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - start
+    require(out.returncode == 0, f"predict: exit {out.returncode}: {out.stderr[-3000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    cfg = load_config_module(str(config))
+    pred = Predictor.from_config(cfg, "cuda", torch.float32)
+    batch = load_features(cfg, "v03")
+    batch["quest"] = ClipTokenizer(vocab)(question, truncate=True)
+    want = pred.answer(batch, topk=5)[0]
+    err = max(abs(a["prob"] - b["prob"]) for a, b in zip(got["topk"], want["topk"]))
+    ok = (got["answer"] == want["answer"] and err <= 1e-4
+          and [t["answer"] for t in got["topk"]] == [t["answer"] for t in want["topk"]])
+    print(json.dumps({"phase": "predict_cli", "seconds": seconds, "answer": got["answer"],
+                      "topk": got["topk"], "max_prob_diff": err, "ok": ok}), flush=True)
+    require(ok, f"predict: {got} differs from Predictor's {want}")
+    del pred
+    torch.cuda.empty_cache()
+    return {"seconds": seconds}
+
+
+def check_serve(slice_rate: float, profile_dir: Path | None) -> dict:
+    """Phase 5: the serving surface over bench_serve's corpus (8 videos at
+    the real shapes, fp32 features from a seed, a merges file learned from
+    its questions) at configs/qa-tiger/vitl14.py's widths, bf16, B=256,
+    seed weights. (a) a full and a padded batch through ``Service._dispatch``
+    on the device-cache path and on the host path: the two bitwise equal,
+    each within BF16_TOL of ``Predictor`` on the same rows assembled and
+    padded the same way, the same top-1; one dispatch of each path under
+    ``torch.cuda.set_sync_debug_mode("error")``; (b) the launch counters
+    reset around two served batches: per batch 12 / 7 / 1 / 2 launches of the
+    eval kernels, every product of fused_attn_ln2 and fused_patch_select on
+    wgmma; (c) bench_serve's protocol at its defaults (4096 requests, 4
+    threads, device cache 8), then over 1024 requests with the cache off;
+    (d) the entry points as subprocesses. Returns (b)'s counts per batch."""
+    import tempfile
+
+    import torch
+
+    from qa_tiger_tpu_torch import bench_serve, ops
+
+    phase_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        config, vocab = bench_serve.build_corpus(Path(tmp))
+        start = time.perf_counter()
+        svc = bench_serve.start_service(config, vocab, SERVE_BATCH, "bfloat16", 8)
+        print(json.dumps({"phase": "serve_start", "seconds": time.perf_counter() - start,
+                          **svc.timings}), flush=True)
+        try:
+            # (a) the two paths against the Predictor
+            items = bench_serve.requests(SERVE_BATCH)
+            cached = [svc._make_row(it["question"], it["video"]) for it in items]
+            require(all(r["slot"] is not None for r in cached), "serve: a row has no slot")
+            host = [dict(r, slot=None, feats=svc.store.get(r["video"])) for r in cached]
+            print(json.dumps({"phase": "serve_staging", "rows": SERVE_BATCH,
+                              **staging_ms(svc, host)}), flush=True)
+            for n in (SERVE_BATCH, SERVE_PADDED):
+                before = svc.stats["cached_batches"]
+                got_c = svc._step(cached[:n])
+                got_h = svc._step(host[:n])
+                want = torch.softmax(svc.predictor.logits(host_batch(svc, host[:n])).float(),
+                                     -1).cpu().numpy()[:n]
+                err = float(np.abs(got_h - want).max())
+                same = bool(np.array_equal(got_c, got_h))
+                top1 = bool((got_h.argmax(1) == want.argmax(1)).all())
+                print(json.dumps({"phase": "serve_paths", "rows": n,
+                                  "cached_batches": svc.stats["cached_batches"] - before,
+                                  "cached_equals_host": same, "max_abs_err_vs_predictor": err,
+                                  "top1_equal": top1}), flush=True)
+                require(svc.stats["cached_batches"] == before + 1,
+                        "serve: the cached path was not taken exactly once")
+                require(same, f"serve: the cached and host paths differ at {n} rows")
+                require(err <= BF16_TOL and top1,
+                        f"serve: {n} rows differ from the Predictor (max {err:.3e})")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                handles = [svc._dispatch(cached[:SERVE_PADDED]), svc._dispatch(host)]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            require(all(np.isfinite(np.asarray(h)).all() for h in handles),
+                    "serve: a dispatch under the sync check gave non-finite values")
+            print(json.dumps({"phase": "serve_sync_check", "dispatches": len(handles),
+                              "ok": True}), flush=True)
+
+            # (b) launches per served batch
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            before = dict(svc.stats)
+            svc.predict_many(bench_serve.requests(2 * SERVE_BATCH), topk=1)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            routes = {name: dict(ops.KERNELS[name].gemm_routes)
+                      for name in ("fused_attn_ln2", "fused_patch_select", "fused_gaussian_moe")}
+            n = svc.stats["batches"] - before["batches"]
+            per_batch = {k: v // max(n, 1) for k, v in counts.items()}
+            print(json.dumps({"phase": "serve_launches", "batches": n, "launches": counts,
+                              "per_batch": per_batch, "gemm_routes": routes}), flush=True)
+            require(n == 2, f"serve: {n} batches for 2 x {SERVE_BATCH} requests")
+            for name, want_n in SERVE_KERNELS.items():
+                require(counts[name] == want_n * n, f"serve: {name} launched {counts[name]} "
+                        f"times in {n} batches, expected {want_n} per batch")
+            for name in ("fused_attn_ln2", "fused_patch_select"):
+                require(bool(routes[name]) and set(routes[name]) == {"wgmma"},
+                        f"serve: {name}'s products took {routes[name]}, expected wgmma only")
+            require(routes["fused_gaussian_moe"] == {"wgmma": 2 * n, "tf32x3": 2 * n},
+                    f"serve: fused_gaussian_moe's products took {routes['fused_gaussian_moe']}")
+
+            # (c) the rates, bench_serve's protocol
+            rate = bench_serve.drive(svc, bench_serve.requests(4096), 4)
+            print(json.dumps({"phase": "serve_cached", "qa_per_s": rate["value"],
+                              "slice_bf16_b256_qa_per_s": slice_rate, **rate}), flush=True)
+            if profile_dir is not None:
+                window = bench_serve.requests(1024)
+                profile_step(lambda: bench_serve.drive(svc, window, 4, server_side=False),
+                             profile_dir / "serve_b256.txt", "profile_serve")
+        finally:
+            svc.shutdown()
+        del svc
+        torch.cuda.empty_cache()
+        svc = bench_serve.start_service(config, vocab, SERVE_BATCH, "bfloat16", 0)
+        try:
+            rate = bench_serve.drive(svc, bench_serve.requests(1024), 4)
+        finally:
+            svc.shutdown()
+        del svc
+        torch.cuda.empty_cache()
+        print(json.dumps({"phase": "serve_host", "qa_per_s": rate["value"],
+                          "slice_bf16_b256_qa_per_s": slice_rate, **rate}), flush=True)
+        require(rate["cached_batches"] == 0, "serve: the host path took the cache")
+
+        # (d) the entry points as a user runs them
+        check_serve_http(config, vocab)
+        check_predict_cli(config, vocab)
+    print(json.dumps({"phase": "serve_seconds", "seconds": time.perf_counter() - phase_start}),
+          flush=True)
+    return per_batch
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training
 # ---------------------------------------------------------------------------
 
 TRAIN_LR = 1e-4
@@ -1447,7 +1781,7 @@ def check_train(rng, entries: dict, profile_dir: Path | None) -> dict:
 
 
 def check_resume(rng) -> dict:
-    """Phase 5(d): a train state and a best.npz written and read back on the
+    """Phase 6(d): a train state and a best.npz written and read back on the
     card. Two fp32 B=4 steps with dropout from the runner's step generator;
     the state saved, then restored into a fresh runner (the same seed, so
     the same frozen tower) whose trainable weights and generator were
@@ -1520,7 +1854,7 @@ def check_resume(rng) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5(e): the train and test entry points over a corpus on disk
+# phase 6(e): the train and test entry points over a corpus on disk
 # ---------------------------------------------------------------------------
 
 CLI_SPLITS = {"train": (0, 70), "val": (70, 90), "test": (90, 110)}
@@ -1574,7 +1908,7 @@ def report_lines(path: Path) -> list[str]:
 
 
 def check_cli(recipe_rate: float) -> dict:
-    """Phase 5(e): ``python -m qa_tiger_tpu_torch.train`` / ``.test``
+    """Phase 6(e): ``python -m qa_tiger_tpu_torch.train`` / ``.test``
     through their ``main(argv)`` over a corpus written to a temporary
     directory. (a) train, 1 epoch, no question cache, the launch counters
     reset just before and read just after: each train kernel 3 times (70 =
@@ -1752,7 +2086,7 @@ def check_cli(recipe_rate: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: raw media to answer, and the extraction stages
+# phase 7: raw media to answer, and the extraction stages
 # ---------------------------------------------------------------------------
 
 SR = 16000
@@ -1960,7 +2294,7 @@ def check_extract(rng) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the resblock micro-bench
+# phase 8: the resblock micro-bench
 # ---------------------------------------------------------------------------
 
 BENCH_FNS = {"attn_half": "fused_attn_half", "attn_ln2": "fused_attn_ln2"}
@@ -2062,7 +2396,11 @@ def main() -> int:
         check_tf32x3_gemms()
         check_slice1_grads(rng, gen)
         check_train_kernels(rng, gen, entries)
-        paths = {"serving": check_slice(rng, entries, args.profile)}
+        paths = {}
+        paths["serving"], slice_rate = check_slice(rng, entries, args.profile)
+        torch.cuda.empty_cache()
+        paths["serve"] = check_serve(slice_rate, args.profile)
+        torch.cuda.empty_cache()
         paths["train"], recipe_rate = check_train(rng, entries, args.profile)
         torch.cuda.empty_cache()
         paths["resume"] = check_resume(np.random.default_rng(10))

@@ -18,6 +18,24 @@ from qa_tiger_tpu_torch.nn.core import Linear
 FROZEN_PREFIXES = ("quest_encoder",)
 
 
+def check_text_ctx(quest, ctx: int | None) -> None:
+    """Raise ``ValueError`` when ``ctx`` is set and a row of token ids
+    ``quest`` (numpy or a tensor, [N, L]) has its EOT (the largest id) at or
+    past it: the ``text_ctx`` trim would pool at a wrong position. Float
+    questions (cached features) pass."""
+    if not ctx or quest is None:
+        return
+    quest = torch.as_tensor(quest)
+    if torch.is_floating_point(quest):
+        return
+    eot = quest.argmax(-1)
+    if bool((eot >= ctx).any()):
+        raise ValueError(
+            f"text_ctx={ctx} but a question's EOT sits at position "
+            f"{int(eot.max())}; raise text_ctx (tokenized questions "
+            "must fit, including SOT/EOT)")
+
+
 def qa_tiger_config(d_model: int = 512, video_dim: int = 512,
                     patch_dim: int = 768, audio_dim: int = 128,
                     topK: int = 3, num_experts: int = 10,

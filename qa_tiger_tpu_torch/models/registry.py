@@ -21,6 +21,17 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return device
 
 
+def select_device(cfg) -> torch.device:
+    """The device a config's ``hyper_params.platform`` names: "cpu", or the
+    card for None, "gpu" and "cuda" (raising when there is none)."""
+    platform = cfg["hyper_params"].get("platform")
+    if platform == "cpu":
+        return torch.device("cpu")
+    if platform in (None, "gpu", "cuda"):
+        return resolve_device(None)
+    raise ValueError(f"hyper_params.platform={platform!r}: expected 'cpu', 'gpu' or 'cuda'")
+
+
 def model_config(model_type: str, model_kwargs: dict, num_labels: int = 42) -> dict:
     """The model hyperparameters of ``model_type`` (what ``AVQARunner``
     takes), dispatched on its prefix like the JAX package's

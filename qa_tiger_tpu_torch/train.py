@@ -22,7 +22,7 @@ import torch
 
 from qa_tiger_tpu_torch.data import AVQADataset, BatchLoader
 from qa_tiger_tpu_torch.models.qa_tiger import FROZEN_PREFIXES
-from qa_tiger_tpu_torch.models.registry import model_config, resolve_device
+from qa_tiger_tpu_torch.models.registry import model_config, select_device
 from qa_tiger_tpu_torch.training import (
     AVQARunner,
     PlateauScheduler,
@@ -45,17 +45,6 @@ from qa_tiger_tpu_torch.utils import (
 )
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-def select_device(cfg) -> torch.device:
-    """The device ``hyper_params.platform`` names: "cpu", or the card for
-    None, "gpu" and "cuda" (raising when there is none)."""
-    platform = cfg.hyper_params.get("platform")
-    if platform == "cpu":
-        return torch.device("cpu")
-    if platform in (None, "gpu", "cuda"):
-        return resolve_device(None)
-    raise ValueError(f"hyper_params.platform={platform!r}: expected 'cpu', 'gpu' or 'cuda'")
 
 
 def setup(argv, mode: str | None = None):

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from qa_tiger_tpu_torch.convert import load_npz, load_torch_checkpoint
+from qa_tiger_tpu_torch.convert.clip_import import convert_clip_checkpoint
 
 STATE_FILE, META_FILE = "state.pt", "meta.json"
 # the entries of a train state (AVQARunner.train_state) that go to
@@ -69,6 +70,21 @@ def load_checkpoint(path: str | Path, base_params: Mapping[str, torch.Tensor] | 
             unexpected.append(key)
     missing = [key for key in base_params if key not in loaded]
     return merged, missing, unexpected
+
+
+def load_clip_text_state(path: str | Path) -> dict[str, torch.Tensor]:
+    """The CLIP text tower's state_dict (names under ``quest_encoder.``
+    without that prefix) from a CLIP ``.pt`` (TorchScript archive or
+    state_dict, its text keys through ``convert.clip_import``) or an
+    ``.npz`` of the text tower (bare names, or under ``quest_encoder.``)."""
+    if str(path).endswith(".pt"):
+        text, _, _ = convert_clip_checkpoint(path)
+        return text
+    text, _, _ = load_checkpoint(path)
+    prefix = "quest_encoder."
+    if any(k.startswith(prefix) for k in text):
+        text = {k[len(prefix):]: v for k, v in text.items() if k.startswith(prefix)}
+    return text
 
 
 def save_train_state(state: Mapping[str, Any], path: str | Path) -> None:

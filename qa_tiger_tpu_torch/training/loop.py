@@ -42,10 +42,14 @@ import torch
 from torch.func import functional_call
 
 from qa_tiger_tpu_torch.convert import params_from_jax
-from qa_tiger_tpu_torch.convert.clip_import import convert_clip_checkpoint
-from qa_tiger_tpu_torch.models.qa_tiger import FROZEN_PREFIXES, QATiger, split_generator
+from qa_tiger_tpu_torch.models.qa_tiger import (
+    FROZEN_PREFIXES,
+    QATiger,
+    check_text_ctx,
+    split_generator,
+)
 from qa_tiger_tpu_torch.models.registry import resolve_device
-from qa_tiger_tpu_torch.training.checkpoint import TENSOR_ENTRIES, load_checkpoint
+from qa_tiger_tpu_torch.training.checkpoint import TENSOR_ENTRIES, load_clip_text_state
 from qa_tiger_tpu_torch.training.metrics import (
     accuracy_report,
     masked_cross_entropy,
@@ -169,20 +173,11 @@ class AVQARunner:
 
     def load_clip_text_weights(self, path: str | Path) -> None:
         """Load OpenAI CLIP text weights into the frozen ``quest_encoder``:
-        a CLIP ``.pt`` (TorchScript archive or state_dict, its text keys
-        through ``convert.clip_import``) or an ``.npz`` of the text tower
-        (bare names, or under ``quest_encoder.``). The load is strict, into
-        the tower only, which is then cast to ``encoder_dtype``: the
-        counterpart of the reference's clip.load() inside CLIP_TEncoder
-        (src/models/encoders.py:13)."""
-        if str(path).endswith(".pt"):
-            text, _, _ = convert_clip_checkpoint(path)
-        else:
-            text, _, _ = load_checkpoint(path)
-            prefix = "quest_encoder."
-            if any(k.startswith(prefix) for k in text):
-                text = {k[len(prefix):]: v for k, v in text.items() if k.startswith(prefix)}
-        self.model.quest_encoder.load_state_dict(text, strict=True)
+        whatever ``training.checkpoint.load_clip_text_state`` reads. The
+        load is strict, into the tower only, which is then cast to
+        ``encoder_dtype``: the counterpart of the reference's clip.load()
+        inside CLIP_TEncoder (src/models/encoders.py:13)."""
+        self.model.quest_encoder.load_state_dict(load_clip_text_state(path), strict=True)
         self._cast_frozen()
         self.logger.info(f"loaded frozen CLIP text tower from {path}")
 
@@ -258,15 +253,7 @@ class AVQARunner:
     def _device_batch(self, batch: Mapping) -> dict[str, torch.Tensor]:
         """numpy arrays or tensors -> tensors on the device (floats keep
         their dtype; token ids, labels and qtypes as int64; valid as bool)."""
-        ctx = self.model_cfg.get("text_ctx")
-        quest = batch.get("quest")
-        if ctx and quest is not None and not torch.is_floating_point(torch.as_tensor(quest)):
-            eot = torch.as_tensor(quest).argmax(-1)
-            if bool((eot >= ctx).any()):
-                raise ValueError(
-                    f"text_ctx={ctx} but a question's EOT sits at position "
-                    f"{int(eot.max())}; raise text_ctx (tokenized questions "
-                    "must fit, including SOT/EOT)")
+        check_text_ctx(batch.get("quest"), self.model_cfg.get("text_ctx"))
         out = {}
         cache = self._active_qst_cache
         if cache is not None and "ds_idx" in batch:

@@ -976,3 +976,54 @@ def test_train_then_test_entry_points(cuda, tmp_path, monkeypatch):
 
     got = report(tmp_path / "eval" / "best_result.txt")
     assert len(got) == 13 and got == report(run / "log.txt")
+
+
+def test_service_on_the_card(cuda, tmp_path, monkeypatch):
+    """The serving ``Service`` on the card at a tiny config, bf16, batch 8:
+    ``_dispatch`` on the device-cache path and on the host path, bitwise
+    equal to each other and within the bf16 tolerance of the Predictor on
+    the same rows assembled and padded the same way (same top-1), on a full
+    and a padded batch; one dispatch of each path under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no hidden host sync);
+    ``predict_many`` through the batcher."""
+    from qa_tiger_tpu_torch import bench_serve
+    from qa_tiger_tpu_torch.models import clip_text
+    from torch_corpus import write_config
+
+    monkeypatch.setitem(clip_text.CLIP_TEXT_CONFIGS, "tiny-gpu",
+                        dict(width=64, heads=2, layers=2, embed_dim=64))
+    model = dict(d_model=64, video_dim=64, patch_dim=24, audio_dim=16, topK=2, num_experts=4,
+                 encoder_type="tiny-gpu")
+    base = write_config(tmp_path / "tiny.py", tmp_path / "data", tmp_path / "out", model)
+    config, vocab = bench_serve.build_corpus(tmp_path / "serve", base, frames=12, patches=4,
+                                             n_videos=3)
+    svc = bench_serve.start_service(config, vocab, batch=8, dtype="bfloat16", device_cache=3,
+                                    timeout=600)
+    try:
+        assert svc.device.type == "cuda"
+        items = bench_serve.requests(8, n_videos=3)
+        cached = [svc._make_row(it["question"], it["video"]) for it in items]
+        assert all(r["slot"] is not None for r in cached)
+        host = [dict(r, slot=None, feats=svc.store.get(r["video"])) for r in cached]
+        for n in (8, 5):
+            got_c, got_h = svc._step(cached[:n]), svc._step(host[:n])
+            assert np.array_equal(got_c, got_h), n
+            pad = svc.batch_size - n
+            feats = [r["feats"] for r in host[:n]] + [host[0]["feats"]] * pad
+            batch = {k: np.stack([f[k] for f in feats]) for k in feats[0]}
+            batch["quest"] = np.stack([r["tokens"] for r in host[:n]] + [host[0]["tokens"]] * pad)
+            want = torch.softmax(svc.predictor.logits(batch).float(), -1).cpu().numpy()[:n]
+            assert np.abs(got_h - want).max() <= TOL[torch.bfloat16]
+            assert (got_h.argmax(1) == want.argmax(1)).all()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handles = [svc._dispatch(cached[:5]), svc._dispatch(host)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for handle in handles:
+            assert np.isfinite(np.asarray(handle)).all()
+        out = svc.predict_many(items, topk=2)
+        assert len(out) == 8 and all(len(r["topk"]) == 2 for r in out)
+    finally:
+        svc.shutdown()

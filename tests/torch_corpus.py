@@ -3,19 +3,18 @@ from real MUSIC-AVQA questions, and a small corpus of those questions over
 synthetic features, with a config file for the entry points.
 
 The real merges file (``bpe_simple_vocab_16e6.txt.gz``) is not in the
-repository; the one written here has the same format (a header line, then
-one merge per line) and a few hundred merges.
+repository; ``write_merges`` (the port's ``data.bpe``) writes one in the
+same format (a header line, then one merge per line) with a few hundred
+merges.
 """
 from __future__ import annotations
 
-import collections
-import gzip
 import json
 from pathlib import Path
 
 import numpy as np
 
-from qa_tiger_tpu_torch.data.tokenizer import _clean, bytes_to_unicode, split_pattern
+from qa_tiger_tpu_torch.data.bpe import write_merges  # noqa: F401  (the tests import it here)
 
 REPO = Path(__file__).resolve().parents[1]
 ANNOTS = REPO / "data" / "annots" / "music_avqa"
@@ -25,43 +24,6 @@ ANSWERS_JSON = ANNOTS / "answer2idx.json"
 
 def val_questions() -> list[dict]:
     return json.loads(VAL_JSON.read_text())
-
-
-def write_merges(path: Path, texts, n_merges: int = 300) -> Path:
-    """Learn ``n_merges`` BPE merges from ``texts`` (their split words, byte
-    encoded, ``</w>`` on the last symbol; the most frequent pair first, ties
-    by the pair) and write them gzipped under a header line."""
-    enc = bytes_to_unicode()
-    words = collections.Counter()
-    for text in texts:
-        for token in split_pattern().findall(_clean(text).lower()):
-            chars = [enc[b] for b in token.encode("utf-8")]
-            words[tuple(chars[:-1]) + (chars[-1] + "</w>",)] += 1
-    merges = []
-    for _ in range(n_merges):
-        pairs = collections.Counter()
-        for word, n in words.items():
-            for pair in zip(word, word[1:]):
-                pairs[pair] += n
-        if not pairs:
-            break
-        best = min(pairs, key=lambda p: (-pairs[p], p))
-        merges.append(best)
-        merged = collections.Counter()
-        for word, n in words.items():
-            out, i = [], 0
-            while i < len(word):
-                if i + 1 < len(word) and (word[i], word[i + 1]) == best:
-                    out.append(word[i] + word[i + 1])
-                    i += 2
-                else:
-                    out.append(word[i])
-                    i += 1
-            merged[tuple(out)] += n
-        words = merged
-    with gzip.open(path, "wt", encoding="utf-8") as f:
-        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n")
-    return path
 
 
 def write_corpus(root: Path, splits: dict[str, tuple[int, int]], dims: dict[str, tuple],
