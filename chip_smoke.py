@@ -100,6 +100,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    launches per split), then 6 epochs afresh, the rate read over epochs
    2-6; steps, epoch seconds, qa-pairs/s beside the recipe's rate of (b),
    the seconds spent waiting on the loader, the native reader's build time;
+   then those 6 epochs again with ``steps_per_dispatch: 4``
+   (``cli_warm_graph``: every step but the first a replay of the step's
+   CUDA graph, the same launch counts, the rate and loader wait beside
+   ``cli_warm``'s);
+   (f) train_graph (run before (e)): ``steps_per_dispatch`` 4 at the recipe
+   through ``AVQARunner.train_window``: 11 batches through the train step's
+   CUDA graph (a warm-up, a capture, 10 replays) bitwise equal to the same
+   static-input step run eagerly (losses, parameters, Adam's moments, the
+   dropout stream); each replay from a default K=1 runner's state (copied
+   in place) within rtol 2e-4 / atol 2e-5 of that runner's step, beside the
+   free-running gaps; the launch counters reset around one replay (the
+   eager step's counts and GEMM routes); 10 single replays and a window of
+   8 timed, the window under ``set_sync_debug_mode("error")``, beside the
+   eager median of (b); one window each in bf16 compute and with
+   ``grad_accum`` 2 and a resume mid-run (restored into a runner that had
+   captured its own graph), bitwise;
 7. raw media — ``pipeline.e2e`` at full width (CLIP ViT-L/14@336px, ToMe
    vit_large_patch16_384 at r=[25]*23, VGGish, the QA-TIGER config):
    (a) fp32 B=1 x T=2 card against CPU (streams, logits, every ToMe
@@ -111,13 +127,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    defaults (B=256, S=77, W=768, bf16, causal) for ``attn_half`` and
    ``attn_ln2``, the launch counters reset around each, both JSON lines;
 9. the kernel table as one JSON line (each entry's ``launches`` from its
-   own path, ``launches_by_path`` from all seven, ``serve`` per served
-   batch), then the device's JSON line last.
+   own path, ``launches_by_path`` from all eight, ``serve`` per served
+   batch, ``train_graph`` per replay), then the device's JSON line last.
 
 ``--profile DIR`` also writes torch.profiler tables of one bf16 serving
 forward, a window of 1024 served requests under 4 client threads (its
-device idle share: ``profile_serve``), one train step and one raw-media
-forward to DIR. All inputs come
+device idle share: ``profile_serve``), one train step, a window of 8
+replayed train steps (``profile_train_graph``) and one raw-media forward
+to DIR. All inputs come
 from fixed seeds. TF32 is off.
 """
 from __future__ import annotations
@@ -1854,6 +1871,293 @@ def check_resume(rng) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 6(f): steps_per_dispatch, the train step as a CUDA graph
+# ---------------------------------------------------------------------------
+
+GRAPH_K = 4
+# JAX's own K-window tolerance (tests/test_training.py TestMultiStepDispatch)
+WINDOW_TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+def graph_runner(capture: bool = True, k: int = GRAPH_K, seed: int = 0, **hp):
+    """An AVQARunner at the recipe with ``steps_per_dispatch`` = k (and any
+    other ``hyper_params``); ``capture=False`` runs its static-input step
+    eagerly on the card, the graph's twin."""
+    from qa_tiger_tpu_torch.training import AVQARunner
+
+    cfg, mcfg = train_setup()
+    accum = hp.pop("grad_accum", None)
+    if accum:
+        cfg["hyper_params"]["optim"]["grad_accum"] = accum
+    cfg["hyper_params"].update(steps_per_dispatch=k, **hp)
+    runner = AVQARunner(cfg, mcfg, device="cuda", seed=seed)
+    runner.graph_capture = capture
+    return runner
+
+
+def run_windows(runner, staged: list, k: int = GRAPH_K) -> list:
+    """``staged`` through ``train_window`` in windows of k: each step's
+    losses as one device vector (its keys in sorted order)."""
+    out = []
+    for i in range(0, len(staged), k):
+        for losses in runner.train_window(staged[i:i + k], TRAIN_LR):
+            out.append(torch_stack_losses(losses))
+    return out
+
+
+def torch_stack_losses(losses: dict):
+    import torch
+
+    return torch.stack([losses[key].float() for key in sorted(losses)])
+
+
+def state_differences(a, b) -> list[str]:
+    """What differs, bitwise, between two runners: trainable parameters,
+    Adam's moments and step counts, the dropout stream's state."""
+    import torch
+
+    differ = []
+    for (name, pa), (_, pb) in zip(a.trainable(), b.trainable()):
+        if not torch.equal(pa, pb):
+            differ.append(name)
+        sa, sb = a.optimizer.state[pa], b.optimizer.state[pb]
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            if not torch.equal(sa[key], sb[key]):
+                differ.append(f"{name}:{key}")
+    if not torch.equal(a._step_generator.get_state(), b._step_generator.get_state()):
+        differ.append("_step_generator")
+    return differ
+
+
+def copy_train_state(dst, src) -> None:
+    """Copies ``src``'s trainable parameters, Adam moments and step counts
+    and dropout stream into ``dst``'s tensors in place (a captured graph of
+    ``dst`` stays valid)."""
+    import torch
+
+    with torch.no_grad():
+        for (_, pd), (_, ps) in zip(dst.trainable(), src.trainable()):
+            pd.copy_(ps)
+            sd, ss = dst.optimizer.state[pd], src.optimizer.state[ps]
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                sd[key].copy_(ss[key])
+    dst._step_generator.set_state(src._step_generator.get_state())
+
+
+def require_graph_equals_eager(label: str, graph, eager, g_losses: list, e_losses: list,
+                               replays: int) -> dict:
+    """The graph runner's losses and state bitwise those of its eager twin,
+    after ``replays`` replays."""
+    import torch
+
+    differ = state_differences(graph, eager)
+    losses_equal = all(torch.equal(a, b) for a, b in zip(g_losses, e_losses))
+    line = {"phase": f"train_graph_{label}", "steps": len(g_losses),
+            "replays": graph._step_graph.replays, "losses_bitwise": losses_equal,
+            "state_differing": differ[:5], "n_differing": len(differ),
+            "losses": [v.tolist() for v in g_losses[-2:]]}
+    print(json.dumps(line), flush=True)
+    require(graph._step_graph.replays == replays,
+            f"train_graph {label}: {graph._step_graph.replays} replays, expected {replays}")
+    require(losses_equal and not differ,
+            f"train_graph {label}: the replayed steps differ from the eager ones: losses "
+            f"{'equal' if losses_equal else 'differ'}, {len(differ)} tensors differ, e.g. "
+            f"{differ[:3]}")
+    return line
+
+
+def time_graph_steps(runner, staged: list, eager_ms: float | None,
+                     profile_dir: Path | None = None) -> dict:
+    """The replayed step's times on a warm graph runner: the median wall of
+    10 single replays, each between two synchronizes; a window of 8 replays
+    back to back, timed as a whole, per step, under
+    ``set_sync_debug_mode("error")`` (no host read inside the window);
+    with ``profile_dir``, the device idle share of such a window."""
+    import torch
+
+    times = []
+    for batch in (staged * 10)[:10]:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        runner.train_window([batch], TRAIN_LR)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    window = (staged * 8)[:8]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = runner.train_window(window, TRAIN_LR)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - start) * 1e3 / len(window)
+    median = statistics.median(times) * 1e3
+    line = {"phase": "train_graph_time", "replay_ms_median": median,
+            "replay_ms_all": [t * 1e3 for t in times], "window_ms_per_step": window_ms,
+            "eager_step_ms_median": eager_ms,
+            "train_qa_pairs_per_s": 32e3 / window_ms,
+            "last_loss": losses[-1]["total_loss"].item()}
+    print(json.dumps(line), flush=True)
+    require(np.isfinite(line["last_loss"]), "train_graph: a replayed loss is not finite")
+    if profile_dir is not None:
+        profile_step(lambda: runner.train_window(window, TRAIN_LR),
+                     profile_dir / "train_graph_window_fp32_b32.txt", "profile_train_graph")
+    return line
+
+
+def time_train_graph(rng, profile_dir: Path | None = None) -> dict:
+    """``time_graph_steps`` on a fresh recipe runner (fp32 B=32, dropout,
+    steps_per_dispatch 4) over 8 batches from ``rng``, after one window
+    that warms up and captures."""
+    runner = graph_runner()
+    staged = [runner.stage_batch(make_train_batch(rng, 32)) for _ in range(8)]
+    run_windows(runner, staged[:GRAPH_K])
+    return time_graph_steps(runner, staged, None, profile_dir)
+
+
+def check_train_graph(eager_ms: float, profile_dir: Path | None) -> dict:
+    """Phase 6(f): ``hyper_params.steps_per_dispatch`` = 4 at the recipe
+    (fp32 B=32, dropout on, token ids through the bf16 tower). (1) 11
+    batches through a graph runner (warm-up, capture, 10 replays) and its
+    eager twin (the same static-input step, capturable Adam and per-site
+    seeding, run eagerly): losses, parameters, Adam's moments and the
+    dropout stream bitwise equal; (2) against the default K=1 runner on the
+    same batches, each replay (10) from the state the K=1 runner stepped
+    from, copied in place: loss and parameters within rtol 2e-4 / atol
+    2e-5, the largest gaps printed, beside the free-running gaps of (1)'s
+    run, where the two Adams' rounding compounds; (3) the launch counters
+    reset around one replay: TRAIN_KERNELS and TRAIN_TF32X3_KERNELS, as the
+    eager step's; (4) the
+    replay's times beside ``train_fp32_b32``'s eager median; (5) one window
+    each with train_dtype bfloat16 and with grad_accum 2, bitwise against
+    their eager twins; (6) a resume mid-run: the train state saved after
+    three replays and restored into a runner that had captured a graph of
+    its own, three more steps on each, bitwise equal. Returns (3)'s counts."""
+    import tempfile
+
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.training import load_train_state, save_train_state
+
+    phase_start = time.perf_counter()
+    rng = np.random.default_rng(20)
+    host = [make_train_batch(rng, 32) for _ in range(11)]
+
+    # (1) bitwise against the eager twin
+    graph, eager = graph_runner(), graph_runner(capture=False)
+    staged = [graph.stage_batch(b) for b in host]
+    g_losses, e_losses = run_windows(graph, staged), run_windows(eager, staged)
+    torch.cuda.synchronize()
+    require_graph_equals_eager("fp32_b32", graph, eager, g_losses, e_losses, replays=10)
+    require(graph.optimizer.param_groups[0]["capturable"],
+            "train_graph: the graph runner's Adam is not capturable")
+
+    # (2) against the default K=1 path. Free-running, the two Adams' rounding
+    # compounds over the steps (printed); each replay is therefore also held
+    # to a default step taken from the same state: the graph runner's
+    # parameters, Adam state and dropout stream copied in place from the
+    # default runner's before each step, so that the graph stays valid
+    default, synced = graph_runner(k=1), graph_runner()
+    run_windows(synced, staged[:2])  # warm-up and capture
+    d_losses = [torch_stack_losses(default.train_step(staged[0], TRAIN_LR,
+                                                      default._step_generator))]
+    loss_gap, param_gap, close = 0.0, 0.0, True
+    for batch in staged[1:]:
+        copy_train_state(synced, default)
+        d_losses.append(torch_stack_losses(default.train_step(batch, TRAIN_LR,
+                                                              default._step_generator)))
+        g_loss = torch_stack_losses(synced.train_window([batch], TRAIN_LR)[0])
+        loss_gap = max(loss_gap, (g_loss - d_losses[-1]).abs().max().item())
+        close &= bool(torch.allclose(g_loss, d_losses[-1], **WINDOW_TOL))
+        for (_, pg), (_, pd) in zip(synced.trainable(), default.trainable()):
+            param_gap = max(param_gap, (pg - pd).abs().max().item())
+            close &= bool(torch.allclose(pg, pd, **WINDOW_TOL))
+    free_gaps = [(a - b).abs().max().item() for a, b in zip(g_losses, d_losses)]
+    free_params = max((pg - pd).abs().max().item()
+                      for (_, pg), (_, pd) in zip(graph.trainable(), default.trainable()))
+    print(json.dumps({"phase": "train_graph_vs_default", "steps": len(d_losses) - 1,
+                      "replays": synced._step_graph.replays, "loss_max_abs_gap": loss_gap,
+                      "params_max_abs_gap": param_gap, "within_tol": close, **WINDOW_TOL,
+                      "free_running_loss_gaps": free_gaps,
+                      "free_running_params_max_abs_gap": free_params}), flush=True)
+    require(synced._step_graph.replays == len(staged),
+            f"train_graph: {synced._step_graph.replays} replays against the K=1 path")
+    require(close, f"train_graph: a replay differs from the K=1 path's step from the same "
+                   f"state: loss by {loss_gap:.3e}, parameters by {param_gap:.3e}")
+    del default, synced, d_losses
+
+    # (3) launch counts and routes of one replay, beside one eager twin step
+    counted = {}
+    for label, runner in (("replay", graph), ("eager", eager)):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        runner.train_window([staged[0]], TRAIN_LR)
+        torch.cuda.synchronize()
+        counted[label] = (ops.launch_counts(),
+                          {name: dict(ops.KERNELS[name].gemm_routes)
+                           for name in ("fused_attn_ln2", *TRAIN_TF32X3_KERNELS)})
+    counts, routes = counted["replay"]
+    print(json.dumps({"phase": "train_graph_launches", **counts}), flush=True)
+    print(json.dumps({"phase": "train_graph_gemm_routes", **routes}), flush=True)
+    require(counted["replay"] == counted["eager"],
+            f"train_graph: a replay counted {counted['replay']}, an eager step "
+            f"{counted['eager']}")
+    for name, n in TRAIN_TF32X3_KERNELS.items():
+        require(routes[name] == {"tf32x3": n},
+                f"train_graph: {name}'s products took {routes[name]}, expected tf32x3 x {n}")
+    for name, n in TRAIN_KERNELS.items():
+        require(counts[name] == n, f"train_graph: {name} launched {counts[name]} times per "
+                                   f"replay, expected {n}")
+    del eager
+    torch.cuda.empty_cache()
+
+    # (4) times
+    time_graph_steps(graph, staged[:8], eager_ms, profile_dir)
+    del graph
+    torch.cuda.empty_cache()
+
+    # (5) bf16 compute and gradient accumulation, one window each
+    for label, hp in (("bf16_b32", {"train_dtype": "bfloat16"}),
+                      ("accum2_b32", {"grad_accum": 2})):
+        graph, eager = graph_runner(**hp), graph_runner(capture=False, **hp)
+        g_losses = run_windows(graph, staged[:GRAPH_K + 1])
+        e_losses = run_windows(eager, staged[:GRAPH_K + 1])
+        torch.cuda.synchronize()
+        require_graph_equals_eager(label, graph, eager, g_losses, e_losses, replays=GRAPH_K)
+        del graph, eager
+        torch.cuda.empty_cache()
+
+    # (6) resume mid-run: saved after 3 replays, restored into a runner with
+    # a graph of its own, which restore_train_state must drop
+    first, second = graph_runner(), graph_runner()
+    run_windows(first, staged[:GRAPH_K])
+    run_windows(second, staged[GRAPH_K:GRAPH_K + 2])
+    require(second._step_graph is not None and second._step_graph.graph is not None,
+            "train_graph resume: the second runner captured no graph")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_train_state(first.train_state(epoch=1), Path(tmp) / "state")
+        second.restore_train_state(load_train_state(Path(tmp) / "state"))
+    require(second._step_graph is None, "train_graph resume: restore kept the captured graph")
+    a = run_windows(first, staged[GRAPH_K:GRAPH_K + 3])
+    b = run_windows(second, staged[GRAPH_K:GRAPH_K + 3])
+    torch.cuda.synchronize()
+    differ = state_differences(first, second)
+    losses_equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    print(json.dumps({"phase": "train_graph_resume", "replays": [first._step_graph.replays,
+                                                                 second._step_graph.replays],
+                      "losses_bitwise": losses_equal, "state_differing": differ[:5],
+                      "ok": losses_equal and not differ}), flush=True)
+    require(losses_equal and not differ,
+            f"train_graph resume: {len(differ)} tensors differ after the resume, e.g. "
+            f"{differ[:3]}")
+    print(json.dumps({"phase": "train_graph_seconds",
+                      "seconds": time.perf_counter() - phase_start}), flush=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 6(e): the train and test entry points over a corpus on disk
 # ---------------------------------------------------------------------------
 
@@ -1886,7 +2190,8 @@ def write_cli_corpus(root: Path) -> dict:
 def write_cli_config(path: Path, root: Path, **top) -> Path:
     """configs/qa-tiger/vitl14.py over the corpus: its model at full width,
     batch and eval batch 32, no platform (the card); ``top`` sets top-level
-    keys, ``cache_qst_features`` goes into hyper_params."""
+    keys, ``cache_qst_features`` and ``steps_per_dispatch`` go into
+    hyper_params."""
     from qa_tiger_tpu_torch.utils.config import load_config_module
 
     cfg = load_config_module(str(CONFIG)).to_dict()
@@ -1895,6 +2200,8 @@ def write_cli_config(path: Path, root: Path, **top) -> Path:
                        test_annot="test.json", ans_quelen="answer2idx.json",
                        audio_feat="vggish", video_feat="clip", patch_feat="tome")
     cfg["hyper_params"]["cache_qst_features"] = top.pop("cache_qst_features", False)
+    if "steps_per_dispatch" in top:
+        cfg["hyper_params"]["steps_per_dispatch"] = top.pop("steps_per_dispatch")
     cfg.update({"epochs": 1, "output_dir": str(root / "out"), **top})
     path.write_text(f"config = {cfg!r}\n")
     return path
@@ -1919,7 +2226,10 @@ def check_cli(recipe_rate: float) -> dict:
     resumed from (a)'s last_state for epoch 2 with the question cache: one
     cache per split (the tower 12 launches per split, none per step), the
     best checkpoint carried over. (d) train for 1 + CLI_WARM_EPOCHS epochs
-    and report the rate over the warm ones. Returns (a)'s counts."""
+    and report the rate over the warm ones. (e) (d) again with
+    ``steps_per_dispatch: 4``: every step but the first (the warm-up) a
+    replay of the step's CUDA graph, the same launch counts as (d), the
+    warm rate and loader wait beside (d)'s. Returns (a)'s counts."""
     import os
     import tempfile
 
@@ -2073,6 +2383,45 @@ def check_cli(recipe_rate: float) -> dict:
                 require(wcounts[name] == n_steps * (1 + CLI_WARM_EPOCHS),
                         f"cli warm: {name} launched {wcounts[name]} times, expected "
                         f"{n_steps * (1 + CLI_WARM_EPOCHS)}")
+
+            # (e) (d) through the step's CUDA graph, counting its replays
+            cfg_e = write_cli_config(root / "graph.py", root, epochs=1 + CLI_WARM_EPOCHS,
+                                     save_state=False, output_dir=str(root / "out_graph"),
+                                     steps_per_dispatch=GRAPH_K)
+            replays = [0]
+            replay = torch.cuda.CUDAGraph.replay
+
+            def counted_replay(graph):
+                replays[0] += 1
+                return replay(graph)
+
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            torch.cuda.CUDAGraph.replay = counted_replay
+            try:
+                graphed = train_entry.main(["--config", str(cfg_e)])
+            finally:
+                torch.cuda.CUDAGraph.replay = replay
+            torch.cuda.synchronize()
+            gcounts = ops.launch_counts()
+            g_epochs = graphed["epochs"][1:]
+            g_wall = sum(e["wall_s"] for e in g_epochs)
+            total = n_steps * (1 + CLI_WARM_EPOCHS)
+            print(json.dumps({
+                "phase": "cli_warm_graph", "steps_per_dispatch": GRAPH_K, "epochs": len(g_epochs),
+                "steps": sum(e["steps"] for e in g_epochs), "replays": replays[0],
+                "epoch_wall_s": g_wall, "train_qa_pairs_per_s": n_train * len(g_epochs) / g_wall,
+                "cli_warm_train_qa_pairs_per_s": n_train * len(epochs) / wall_s,
+                "loader_wait_s": sum(e["loader_wait_s"] for e in g_epochs),
+                "cli_warm_loader_wait_s": sum(e["loader_wait_s"] for e in epochs),
+                "per_epoch": [{k: e[k] for k in ("epoch", "steps", "wall_s", "loader_wait_s")}
+                              for e in graphed["epochs"]],
+                "val_accuracy": [e["val_acc"] for e in g_epochs],
+                "test_accuracy": graphed["tests"], "launches": gcounts}), flush=True)
+            require(replays[0] == total - 1, f"cli graph: {replays[0]} replays, expected "
+                                             f"{total - 1} (every step but the warm-up)")
+            require(gcounts == wcounts, f"cli graph: launches {gcounts}, the eager run's "
+                                        f"{wcounts}")
     finally:
         for handler in avqa.handlers:
             handler.close()
@@ -2404,6 +2753,8 @@ def main() -> int:
         paths["train"], recipe_rate = check_train(rng, entries, args.profile)
         torch.cuda.empty_cache()
         paths["resume"] = check_resume(np.random.default_rng(10))
+        torch.cuda.empty_cache()
+        paths["train_graph"] = check_train_graph(32e3 / recipe_rate, args.profile)
         torch.cuda.empty_cache()
         paths["cli"] = check_cli(recipe_rate)
         torch.cuda.empty_cache()

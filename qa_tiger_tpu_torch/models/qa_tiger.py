@@ -16,6 +16,8 @@ from qa_tiger_tpu_torch.models.clip_text import CLIPTextTower
 from qa_tiger_tpu_torch.nn.core import Linear
 
 FROZEN_PREFIXES = ("quest_encoder",)
+# the dropout sites of one forward, each with its own generator
+SITES = 6
 
 
 def check_text_ctx(quest, ctx: int | None) -> None:
@@ -111,14 +113,18 @@ class QATiger(nn.Module):
         return quest, None
 
     def forward(self, batch: dict, *, train: bool = False,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                sites: list | None = None) -> dict:
         """batch: quest [B, 77] token ids (or a float question, with
         ``quest_words``), audio [B, T, audio_dim], video [B, T, video_dim],
         patch [B, T, P, patch_dim] -> {'out': logits [B, num_labels]}.
 
         Dropout is active when ``train`` and a ``generator`` are given (JAX:
         ``train=True`` with a key); its six sites draw from sub-generators
-        on the activations' device seeded from ``generator``."""
+        on the activations' device seeded from ``generator``
+        (``split_generator``). ``sites`` gives those six generators ready
+        seeded instead (the train step's CUDA graph owns persistent ones and
+        reseeds them before each replay)."""
         cfg = self.cfg
         nhead, dp = cfg["nhead"], cfg["dropout"]
         quest, words = self.encode_question(batch["quest"], batch.get("quest_words"))
@@ -130,8 +136,12 @@ class QATiger(nn.Module):
         patch = self.patch_proj(batch["patch"])
         words = self.words_proj(words)
         quest = self.quest_proj(quest)
-        gens = split_generator(generator, 6, audio.device) if train and generator is not None \
-            else [None] * 6
+        if train and sites is not None:
+            gens = sites
+        elif train and generator is not None:
+            gens = split_generator(generator, SITES, audio.device)
+        else:
+            gens = [None] * SITES
 
         audio, video = self.crs_attn(audio, video, words, nhead=nhead, dropout_p=dp,
                                      generator=gens[0])
@@ -149,9 +159,15 @@ class QATiger(nn.Module):
         return {"out": self.head(torch.relu(fusion))}
 
 
+def split_seeds(generator: torch.Generator, n: int) -> list[int]:
+    """The n seeds ``split_generator`` draws from ``generator``, in order.
+    They are read on the host, so a host generator costs no wait for the
+    card (a CUDA one does)."""
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=generator, device=generator.device)
+    return [int(s) for s in seeds.tolist()]
+
+
 def split_generator(generator: torch.Generator, n: int, device) -> list:
     """n generators on ``device``, seeded from ``generator``: a deterministic
-    split of one dropout stream into one per site. The seeds are read on the
-    host, so a host generator costs no wait for the card (a CUDA one does)."""
-    seeds = torch.randint(0, 2 ** 62, (n,), generator=generator, device=generator.device)
-    return [torch.Generator(device=device).manual_seed(int(s)) for s in seeds.tolist()]
+    split of one dropout stream into one per site."""
+    return [torch.Generator(device=device).manual_seed(s) for s in split_seeds(generator, n)]

@@ -18,6 +18,13 @@ routine each of their products reported as it launched (``gemm_tf32x3`` in
 fp32; in bf16 ``gemm_sm90`` for the forwards, ``gemm_tile``'s WMMA loop for
 the backwards); ``fused_gaussian_moe`` tallies its two products' (its own
 ``wgmma`` kernel or 3xTF32 for the first, ``gemm_tf32x3`` for the second).
+
+A CUDA graph runs the wrappers' Python once, while it is captured, and
+launches their kernels at every replay. So the graph's owner takes the
+counters' difference across the capture (``launch_state`` before and after,
+``launch_delta``), puts the counters back (``restore_launches``: a capture
+launches nothing) and adds the difference once per replay
+(``add_launches``).
 """
 from qa_tiger_tpu_torch.ops.attention import (
     attention_wide,
@@ -63,8 +70,44 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def launch_state() -> dict:
+    """Every kernel's (launches, gemm_routes copy) as they stand."""
+    return {name: (fn.launches, dict(getattr(fn, "gemm_routes", {})))
+            for name, fn in KERNELS.items()}
+
+
+def restore_launches(state: dict) -> None:
+    """Sets the counters and route tallies back to a ``launch_state``."""
+    for name, (launches, routes) in state.items():
+        KERNELS[name].launches = launches
+        if hasattr(KERNELS[name], "gemm_routes"):
+            KERNELS[name].gemm_routes = dict(routes)
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    """What ran between two ``launch_state``s: {name: (launches, routes)}
+    for each kernel that launched."""
+    delta = {}
+    for name, (n, routes) in after.items():
+        n0, routes0 = before[name]
+        added = {r: c - routes0.get(r, 0) for r, c in routes.items() if c != routes0.get(r, 0)}
+        if n != n0 or added:
+            delta[name] = (n - n0, added)
+    return delta
+
+
+def add_launches(delta: dict) -> None:
+    """Adds a ``launch_delta`` to the counters and route tallies: once per
+    replay of the graph it was taken across."""
+    for name, (n, routes) in delta.items():
+        fn = KERNELS[name]
+        fn.launches += n
+        for route, count in routes.items():
+            fn.gemm_routes[route] = fn.gemm_routes.get(route, 0) + count
+
+
 __all__ = ["KERNELS", "attention_wide", "attention_wide_key_bias", "fused_attention",
            "fused_attn_half", "fused_attn_ln2", "fused_avq_train", "fused_avq_train_bwd",
            "fused_gaussian_moe", "fused_patch_select", "fused_patch_select_train",
-           "fused_patch_select_train_bwd", "fused_resblock", "gemm_route", "launch_counts",
-           "reset_launches"]
+           "fused_patch_select_train_bwd", "fused_resblock", "gemm_route", "add_launches",
+           "launch_counts", "launch_delta", "launch_state", "reset_launches", "restore_launches"]

@@ -25,13 +25,22 @@ src/trainutils.py:253-462) for one card:
 - ``train_state`` / ``restore_train_state`` snapshot and restore what a
   bitwise resume needs (``training/checkpoint.py`` writes it), and
   ``load_clip_text_weights`` loads OpenAI CLIP text weights into the frozen
-  tower.
-
-The JAX runner's ``steps_per_dispatch`` (K steps in one scanned call) is not
-here: PyTorch dispatches eagerly (ROADMAP.md says what its counterpart is).
+  tower;
+- ``hyper_params.steps_per_dispatch = K`` > 1 (the JAX runner's K steps in
+  one scanned call): ``train_epoch`` stages K batches on the device and
+  steps them as one window (``train_window``) through a CUDA graph of the
+  whole step (``training/step_graph.py``), flushing at K, at a log boundary
+  and at the epoch tail as the JAX runner does; a batch of another shape
+  takes the eager step. The dropout stream, and so ``_step_generator``
+  after a window, is the K=1 run's. On the CPU, which has no graphs, the
+  same static-input step runs eagerly. ``debug`` and ``profile_dir`` keep
+  K=1;
+- ``profile_dir`` (config key, or ``QA_TIGER_PROFILE_DIR``): a
+  ``torch.profiler`` trace of steps 1-3 of epoch 1 written there.
 """
 from __future__ import annotations
 
+import os
 import time
 from collections.abc import Mapping
 from pathlib import Path
@@ -55,11 +64,19 @@ from qa_tiger_tpu_torch.training.metrics import (
     masked_cross_entropy,
     qtype_counters,
 )
-from qa_tiger_tpu_torch.training.optim import lr_multipliers, make_optimizer
+from qa_tiger_tpu_torch.training.optim import (
+    lr_multipliers,
+    make_optimizer,
+    set_capturable,
+    set_lr,
+)
+from qa_tiger_tpu_torch.training.step_graph import StepGraph, batch_key
 from qa_tiger_tpu_torch.utils.logging import get_logger
 
 BATCH_KEYS = ("quest", "audio", "video", "patch", "prompt", "label", "qtype_label", "valid")
 EVAL_CAST_KEYS = ("audio", "video", "patch", "quest", "prompt", "quest_words")
+# train_epoch's profile_dir trace, in that directory
+TRACE_FILE = "train_steps_1-3.json"
 
 
 def _dtype(name: str | None) -> torch.dtype | None:
@@ -97,7 +114,8 @@ class AVQARunner:
 
     ``cfg``: the config dict (``hyper_params.optim``: lr, betas,
     weight_decay, encoder_lr, grad_accum; ``hyper_params.train_dtype`` /
-    ``eval_dtype``; ``log_interval``; ``debug``). ``model_cfg``: the model's
+    ``eval_dtype`` / ``steps_per_dispatch``; ``log_interval``; ``debug``;
+    ``profile_dir``). ``model_cfg``: the model's
     hyperparameters (``models.qa_tiger_config``). The model runs on
     ``device`` (``cuda`` unless given, no fallback). Weights come from
     ``seed``, or from ``init_params`` (a state_dict or a JAX pytree).
@@ -123,6 +141,16 @@ class AVQARunner:
         self._train_dtype = _dtype(hp.get("train_dtype"))
         self._eval_dtype = _dtype(hp.get("eval_dtype"))
         self._grad_accum = int(self._optim_cfg.get("grad_accum", 1) or 1)
+        self.steps_per_dispatch = int(hp.get("steps_per_dispatch", 1) or 1)
+        # K > 1 on the card steps through a CUDA graph, whose Adam must be
+        # the capturable form; K = 1 and the CPU (where torch refuses it)
+        # keep the eager form (training/optim.py)
+        self._capturable = self.device.type == "cuda" and self.steps_per_dispatch > 1
+        # on the card a window's steps are captured and replayed; False runs
+        # the same static-input step eagerly (the CPU has no graphs; a card
+        # run sets it to hold the graph against that step)
+        self.graph_capture = self.device.type == "cuda"
+        self._step_graph: StepGraph | None = None
         if init_params is not None:
             self.load_params(init_params)
         else:
@@ -149,7 +177,10 @@ class AVQARunner:
         self.optimizer = make_optimizer(
             self.trainable(), betas=tuple(oc.get("betas", (0.9, 0.999))),
             weight_decay=oc.get("weight_decay", 0.0) or 0.0,
-            lr_mults=lr_multipliers(names, oc.get("encoder_lr"), oc.get("lr", 1e-4)))
+            lr_mults=lr_multipliers(names, oc.get("encoder_lr"), oc.get("lr", 1e-4)),
+            capturable=self._capturable)
+        # a captured step would update the old optimizer's state
+        self._step_graph = None
 
     def _cast_frozen(self) -> None:
         if self._encoder_dtype is not None:
@@ -179,6 +210,7 @@ class AVQARunner:
         inside CLIP_TEncoder (src/models/encoders.py:13)."""
         self.model.quest_encoder.load_state_dict(load_clip_text_state(path), strict=True)
         self._cast_frozen()
+        self._step_graph = None  # the cast may have replaced the tower's tensors
         self.logger.info(f"loaded frozen CLIP text tower from {path}")
 
     def train_state(self, **scalars) -> dict[str, Any]:
@@ -188,9 +220,14 @@ class AVQARunner:
         (epoch, best accuracy, ...). With the generator state a resumed run
         draws the dropout an uninterrupted one would have, so resume is
         bitwise. The tensors are the live ones: ``save_train_state`` writes
-        them at once, ``save_train_state_async`` copies them first."""
+        them at once, ``save_train_state_async`` copies them first. Adam's
+        groups are saved in the eager form (float LRs), whatever
+        ``steps_per_dispatch`` the run used."""
+        opt_state = self.optimizer.state_dict()
+        for group in opt_state["param_groups"]:
+            group["lr"], group["capturable"] = float(group["lr"]), False
         return {"params": {n: p.detach() for n, p in self.trainable()},
-                "opt_state": self.optimizer.state_dict(),
+                "opt_state": opt_state,
                 "step_rng": self._step_generator.get_state(), **scalars}
 
     def restore_train_state(self, state: Mapping[str, Any]) -> dict[str, Any]:
@@ -199,6 +236,8 @@ class AVQARunner:
         host scalars."""
         self.load_params(state["params"])
         self.optimizer.load_state_dict(state["opt_state"])
+        set_capturable(self.optimizer, self._capturable)
+        self._step_graph = None
         if state.get("step_rng") is not None:
             self._step_generator.set_state(state["step_rng"])
         return {k: v for k, v in state.items() if k not in TENSOR_ENTRIES}
@@ -250,17 +289,19 @@ class AVQARunner:
     def _select_qst_cache(self, loader) -> None:
         self._active_qst_cache = self._qst_caches.get(id(getattr(loader, "dataset", None)))
 
-    def _device_batch(self, batch: Mapping) -> dict[str, torch.Tensor]:
+    def stage_batch(self, batch: Mapping) -> dict[str, torch.Tensor]:
         """numpy arrays or tensors -> tensors on the device (floats keep
-        their dtype; token ids, labels and qtypes as int64; valid as bool)."""
+        their dtype; token ids, labels and qtypes as int64; valid as bool).
+        With a question cache active a batch's ``ds_idx`` comes along as an
+        int64 index in place of its token ids (``_gather_questions``)."""
         check_text_ctx(batch.get("quest"), self.model_cfg.get("text_ctx"))
         out = {}
-        cache = self._active_qst_cache
-        if cache is not None and "ds_idx" in batch:
-            idx = torch.as_tensor(np.asarray(batch["ds_idx"]), dtype=torch.int64).to(self.device)
-            out["quest"], out["quest_words"] = cache[0][idx], cache[1][idx]
+        if self._active_qst_cache is not None and "ds_idx" in batch:
+            out["ds_idx"] = torch.as_tensor(batch["ds_idx"], dtype=torch.int64).to(self.device)
         for key in BATCH_KEYS:
-            if key in batch and batch[key] is not None and key not in out:
+            if key == "quest" and "ds_idx" in out:
+                continue
+            if key in batch and batch[key] is not None:
                 t = torch.as_tensor(batch[key])
                 if key == "valid":
                     t = t.bool()
@@ -268,6 +309,20 @@ class AVQARunner:
                     t = t.long()
                 out[key] = t.to(self.device)
         return out
+
+    @staticmethod
+    def _gather_questions(batch: dict, cache) -> dict:
+        """A staged batch with its ``ds_idx`` replaced by the cache rows
+        (pooled question, words) it names."""
+        if "ds_idx" not in batch:
+            return batch
+        batch = dict(batch)
+        idx = batch.pop("ds_idx")
+        batch["quest"], batch["quest_words"] = cache[0][idx], cache[1][idx]
+        return batch
+
+    def _device_batch(self, batch: Mapping) -> dict[str, torch.Tensor]:
+        return self._gather_questions(self.stage_batch(batch), self._active_qst_cache)
 
     # ------------------------------------------------------------------
     def _forward(self, batch: dict, dtype: torch.dtype | None, include_frozen: bool,
@@ -284,8 +339,9 @@ class AVQARunner:
                  for k, v in batch.items()}
         return functional_call(self.model, params, (batch,), kwargs)
 
-    def _losses(self, batch: dict, generator) -> dict[str, torch.Tensor]:
-        out = self._forward(batch, self._train_dtype, False, train=True, generator=generator)
+    def _losses(self, batch: dict, generator, sites=None) -> dict[str, torch.Tensor]:
+        out = self._forward(batch, self._train_dtype, False, train=True, generator=generator,
+                            sites=sites)
         ce = masked_cross_entropy(out["out"], batch["label"], batch["valid"])
         losses = {"ce_loss": ce}
         total = ce
@@ -302,19 +358,58 @@ class AVQARunner:
         draws from ``generator`` (none without one). The parameter gradients
         stay in ``.grad`` until the next step."""
         batch = self._device_batch(batch)
+        set_lr(self.optimizer, lr)
+        return self._step(batch, generator)
+
+    def _step(self, batch: dict, generator=None, sites=None) -> dict[str, torch.Tensor]:
+        """Forward, backward and Adam on a device batch at the LR already
+        set; dropout from ``generator`` (split per site) or from ``sites``
+        (one list of per-site generators per microbatch, seeded: the step
+        graph's)."""
         self.optimizer.zero_grad(set_to_none=True)
         accum = self._grad_accum
         if accum <= 1:
-            losses = self._losses(batch, generator)
+            losses = self._losses(batch, generator, None if sites is None else sites[0])
             losses["total_loss"].backward()
         else:
-            losses = self._accumulated_backward(batch, generator, accum)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr * group["lr_mult"]
+            losses = self._accumulated_backward(batch, generator, accum, sites)
         self.optimizer.step()
         return {k: v.detach() for k, v in losses.items()}
 
-    def _accumulated_backward(self, batch: dict, generator, accum: int) -> dict:
+    def train_window(self, batches: list[dict], lr: float) -> list[dict[str, torch.Tensor]]:
+        """Steps over staged batches (``stage_batch``) in order, dropout from
+        ``_step_generator`` as ``train_step`` draws it; returns each step's
+        losses as device scalars and reads nothing back. A batch of the step
+        graph's shapes goes through it (``StepGraph``: captured on the card
+        at its second batch, replayed from then on); one of other shapes
+        through the eager step."""
+        set_lr(self.optimizer, lr)
+        out = []
+        for batch in batches:
+            graph = self._graph_for(batch)
+            if graph is None:
+                batch = self._gather_questions(batch, self._active_qst_cache)
+                out.append(self._step(batch, self._step_generator))
+            else:
+                out.append(graph(batch, self._step_generator))
+        return out
+
+    def _graph_for(self, batch: dict) -> StepGraph | None:
+        """The step graph that takes ``batch``: made at the first batch
+        after it was dropped or the question cache changed; None for a batch
+        of other shapes."""
+        cache = self._active_qst_cache
+        graph = self._step_graph
+        if graph is None or graph.cache is not cache:
+            def step(static: dict, sites) -> dict[str, torch.Tensor]:
+                return self._step(self._gather_questions(static, cache), sites=sites)
+
+            graph = self._step_graph = StepGraph(step, batch, accum=self._grad_accum,
+                                                 device=self.device,
+                                                 capture=self.graph_capture, cache=cache)
+        return graph if graph.key == batch_key(batch) else None
+
+    def _accumulated_backward(self, batch: dict, generator, accum: int, sites=None) -> dict:
         """``accum`` sequential microbatches, each gradient weighted by its
         valid-row count and the sum divided by the total: for the CE loss
         exactly the full-batch gradient, where the forward does not mix rows
@@ -322,13 +417,17 @@ class AVQARunner:
         the batch, so microbatches change it, as in the JAX runner)."""
         mbs = [dict(zip(batch, parts)) for parts in
                zip(*(v.chunk(accum) for v in batch.values()))]
-        gens = split_generator(generator, accum, self.device) if generator is not None \
-            else [None] * accum
+        if sites is not None:
+            draws = [(None, site) for site in sites]
+        elif generator is not None:
+            draws = [(gen, None) for gen in split_generator(generator, accum, self.device)]
+        else:
+            draws = [(None, None)] * accum
         sums: dict[str, torch.Tensor] = {}
         w_sum = torch.zeros((), device=self.device)
-        for mb, gen in zip(mbs, gens):
+        for mb, (gen, site) in zip(mbs, draws):
             w = mb["valid"].float().sum()
-            losses = self._losses(mb, gen)
+            losses = self._losses(mb, gen, site)
             (w * losses["total_loss"]).backward()
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + w * v.detach()
@@ -379,32 +478,86 @@ class AVQARunner:
             pending.clear()
             return last
 
+        # profile_dir (config key or QA_TIGER_PROFILE_DIR): a torch.profiler
+        # trace of steps 1-3 of epoch 1 (step 0 builds and warms up)
+        prof_dir = cfg.get("profile_dir") or os.environ.get("QA_TIGER_PROFILE_DIR")
+        trace = None
+        # steps_per_dispatch: staged batches wait in a window that is stepped
+        # at K, at a log boundary and at the epoch tail (train_window); debug
+        # and profiling keep one step per batch, so that steps stay visible
+        k_steps = 1 if cfg.get("debug") or prof_dir else self.steps_per_dispatch
+        window: list = []  # (batch_idx, staged batch) awaiting dispatch
+
+        def flush() -> None:
+            if window:
+                losses = self.train_window([b for _, b in window], lr)
+                pending.extend((bi, ld) for (bi, _), ld in zip(window, losses))
+                window.clear()
+
         waited = [0.0]
-        for batch_idx, host_batch in enumerate(_timed(loader, waited)):
-            start_time = time.time()
-            pending.append((batch_idx, self.train_step(host_batch, lr, self._step_generator)))
-            count += 1
-            if batch_idx % log_interval == 0 or batch_idx == tot_batch:
-                last = drain()
-                batch_t = time.time() - start_time
-                elapsed = time.time() - epoch_time
-                avg_time = elapsed / (batch_idx + 1)
-                est = (tot_batch - batch_idx) * avg_time / 60
-                cur = str(batch_idx).zfill(len(str(max(tot_batch, 1))))
-                ratio = 100.0 * batch_idx / max(tot_batch, 1)
-                loss_str = " ".join(f"{k}-{v:.4f}({sums[k] / count:.4f})"
-                                    for k, v in last.items())
-                logger.info(
-                    f"[EST: {est:7.2f}m][Process Time: {batch_t:7.2f}s]"
-                    f"- Epoch: {epoch} [{cur}/{tot_batch} ({ratio:3.0f}%)]"
-                    f"\tLosses: {loss_str}")
-            if cfg.get("debug") and batch_idx == 10:
-                break
+        try:
+            for batch_idx, host_batch in enumerate(_timed(loader, waited)):
+                if prof_dir and epoch == 1 and batch_idx == 1:
+                    trace = self._start_trace()
+                start_time = time.time()
+                if k_steps > 1:
+                    window.append((batch_idx, self.stage_batch(host_batch)))
+                    if len(window) == k_steps:
+                        flush()
+                else:
+                    pending.append((batch_idx,
+                                    self.train_step(host_batch, lr, self._step_generator)))
+                count += 1
+                if trace is not None and batch_idx == 3:
+                    self._stop_trace(trace, prof_dir)
+                    trace = None
+                if batch_idx % log_interval == 0 or batch_idx == tot_batch:
+                    flush()
+                    last = drain()
+                    batch_t = time.time() - start_time
+                    elapsed = time.time() - epoch_time
+                    avg_time = elapsed / (batch_idx + 1)
+                    est = (tot_batch - batch_idx) * avg_time / 60
+                    cur = str(batch_idx).zfill(len(str(max(tot_batch, 1))))
+                    ratio = 100.0 * batch_idx / max(tot_batch, 1)
+                    loss_str = " ".join(f"{k}-{v:.4f}({sums[k] / count:.4f})"
+                                        for k, v in last.items())
+                    logger.info(
+                        f"[EST: {est:7.2f}m][Process Time: {batch_t:7.2f}s]"
+                        f"- Epoch: {epoch} [{cur}/{tot_batch} ({ratio:3.0f}%)]"
+                        f"\tLosses: {loss_str}")
+                if cfg.get("debug") and batch_idx == 10:
+                    break
+        finally:
+            if trace is not None:
+                self._stop_trace(trace, prof_dir)
+        flush()
         drain()
         self.epoch_stats = {"epoch": epoch, "steps": count,
                             "wall_s": time.time() - epoch_time, "loader_wait_s": waited[0]}
         logger.info(f"Epoch {epoch}: {count} steps in {self.epoch_stats['wall_s']:.2f}s, "
                     f"{waited[0]:.2f}s of it waiting on the loader")
+
+    def _start_trace(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_trace(self, prof, prof_dir: str) -> None:
+        """Ends the trace once the traced steps are done on the device and
+        writes it as a Chrome trace (chrome://tracing, Perfetto)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        path = Path(prof_dir)
+        path.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path / TRACE_FILE))
+        self.logger.info(f"Profiler trace written to {path / TRACE_FILE}")
 
     def _run_eval(self, loader, debug: bool):
         self._select_qst_cache(loader)

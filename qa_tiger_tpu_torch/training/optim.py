@@ -6,10 +6,19 @@ decay, an optional separate encoder learning rate, and three schedules —
 StepLR, timm-style cosine with warmup, and ReduceLROnPlateau.
 
 ``torch.optim.Adam`` adds the weight decay to the gradient before the
-moments and puts eps outside the square root of the bias-corrected second
 moment: exactly optax ``add_decayed_weights`` -> ``scale_by_adam``. The
 schedules are host-side functions of the epoch, as in the JAX package; the
-runner writes ``lr * lr_mult`` into each parameter group before a step.
+runner writes ``lr * lr_mult`` into each parameter group before a step
+(``set_lr``).
+
+Two forms of the same Adam: the eager train step's (``capturable=False``:
+float LRs, step counts on the host, the bias correction on the host) and the
+CUDA graph's (``capturable=True``, ``set_capturable``: each group's LR a
+device tensor that ``set_lr`` fills, step counts and the bias correction on
+the device, so a captured step reads nothing from the host). The two round
+the bias correction differently, so their updates agree to rounding, not
+bitwise. torch refuses ``capturable=True`` on the CPU, where the runner
+keeps the eager form.
 """
 from __future__ import annotations
 
@@ -37,17 +46,51 @@ def lr_multipliers(names: Iterable[str], encoder_lr: float | None,
 
 def make_optimizer(named_params: Iterable[tuple[str, torch.nn.Parameter]],
                    betas: tuple[float, float] = (0.95, 0.999), weight_decay: float = 0.0,
-                   eps: float = 1e-8, lr_mults: dict[str, float] | None = None
-                   ) -> torch.optim.Adam:
+                   eps: float = 1e-8, lr_mults: dict[str, float] | None = None,
+                   capturable: bool = False) -> torch.optim.Adam:
     """Adam over the given parameters, one parameter group per LR
     multiplier; each group carries its ``lr_mult``. The group LR is set by
-    the caller before each step (lr * lr_mult)."""
+    the caller before each step (lr * lr_mult, ``set_lr``). ``capturable``
+    builds the CUDA graph's form (``set_capturable``)."""
     groups: dict[float, list] = {}
     for name, p in named_params:
         groups.setdefault(1.0 if lr_mults is None else lr_mults[name], []).append(p)
-    return torch.optim.Adam(
+    optimizer = torch.optim.Adam(
         [{"params": ps, "lr_mult": mult, "lr": mult} for mult, ps in groups.items()],
         lr=1.0, betas=tuple(betas), eps=eps, weight_decay=weight_decay)
+    if capturable:
+        set_capturable(optimizer, True)
+    return optimizer
+
+
+def set_capturable(optimizer: torch.optim.Adam, capturable: bool) -> None:
+    """Puts ``optimizer`` into the graph's form (``capturable``: each
+    group's LR a 0-d tensor on its parameters' device, step counts there as
+    fp32) or the eager one (float LRs, step counts on the host), whatever
+    form a ``load_state_dict`` gave it. Reads a device LR once; call it
+    outside a captured region."""
+    for group in optimizer.param_groups:
+        device = group["params"][0].device
+        lr = float(group["lr"])
+        group["capturable"] = capturable
+        group["lr"] = torch.tensor(lr, device=device) if capturable else lr
+        for p in group["params"]:
+            state = optimizer.state.get(p)
+            if state and "step" in state:
+                state["step"] = state["step"].to(device if capturable else "cpu",
+                                                 torch.float32)
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Each group's LR to ``lr * lr_mult``: a float written, or a device
+    tensor filled in place (the graph's form, whose captured update reads
+    that tensor)."""
+    for group in optimizer.param_groups:
+        value = lr * group["lr_mult"]
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(value)
+        else:
+            group["lr"] = value
 
 
 def make_lr_schedule(name: str, base_lr: float, *, epochs: int = 15,

@@ -1027,3 +1027,62 @@ def test_service_on_the_card(cuda, tmp_path, monkeypatch):
         assert len(out) == 8 and all(len(r["topk"]) == 2 for r in out)
     finally:
         svc.shutdown()
+
+
+RECIPE_MODEL = dict(d_model=512, video_dim=768, patch_dim=1024, audio_dim=128, topK=7,
+                    num_experts=7, num_labels=42, encoder_type="ViT-L/14@336px")
+
+
+def _recipe_batch(rng, b, t=60, p=14):
+    quest = rng.integers(1, 49406, (b, 77)).astype(np.int64)
+    quest[:, 20] = 49407  # the EOT, where the tower pools
+    return {"quest": quest,
+            "audio": rng.standard_normal((b, t, 128), dtype=np.float32),
+            "video": rng.standard_normal((b, t, 768), dtype=np.float32),
+            "patch": rng.standard_normal((b, t, p, 1024), dtype=np.float32),
+            "label": rng.integers(0, 42, b), "qtype_label": rng.integers(0, 9, b),
+            "valid": np.ones(b, bool)}
+
+
+@pytest.mark.parametrize("train_dtype", [None, "bfloat16"])
+def test_train_graph_matches_eager(cuda, train_dtype):
+    """``steps_per_dispatch`` 2 at the recipe's widths, B=4, dropout on: 5
+    batches through the train step's CUDA graph (a warm-up, a capture, four
+    replays) and through the same static-input step run eagerly: every
+    loss, parameter, Adam moment and step count and the dropout stream
+    bitwise equal, and a replay counts the eager step's launches."""
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.models import qa_tiger_config
+    from qa_tiger_tpu_torch.training import AVQARunner
+
+    hp = {"optim": dict(lr=1e-4, betas=(0.95, 0.999), weight_decay=0.0, encoder_lr=None),
+          "steps_per_dispatch": 2}
+    if train_dtype:
+        hp["train_dtype"] = train_dtype
+    cfg = {"log_interval": 1, "debug": False, "hyper_params": hp}
+    graph, eager = (AVQARunner(cfg, qa_tiger_config(**RECIPE_MODEL), device=cuda, seed=0)
+                    for _ in range(2))
+    eager.graph_capture = False
+    rng = np.random.default_rng(0)
+    batches = [graph.stage_batch(_recipe_batch(rng, 4)) for _ in range(5)]
+    losses, counts = [], []
+    for r in (graph, eager):
+        out = []
+        for i in range(0, 4, 2):
+            out += r.train_window(batches[i:i + 2], 1e-4)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out += r.train_window(batches[4:], 1e-4)
+        torch.cuda.synchronize()
+        counts.append((ops.launch_counts(), dict(ops.fused_avq_train_bwd.gemm_routes)))
+        losses.append(out)
+    assert graph._step_graph.replays == 4 and graph._step_graph.graph is not None
+    assert counts[0] == counts[1] and counts[0][0]["fused_avq_train"] == 1
+    for a, b in zip(*losses):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert torch.equal(graph._step_generator.get_state(), eager._step_generator.get_state())
+    for (name, pa), (_, pb) in zip(graph.trainable(), eager.trainable()):
+        assert torch.equal(pa, pb), name
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(graph.optimizer.state[pa][key],
+                               eager.optimizer.state[pb][key]), (name, key)
