@@ -27,7 +27,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ("mma_short": bf16 tensor cores, a warp per problem of at most 16
    queries and keys, which the packed [122880, 14, 64] case and
    fused_patch_select in bf16 must take; "mma": bf16 tensor cores, 64 query
-   rows per block; "fma": fp32 FMAs), PatchSelecter's self-attention in its
+   rows per block; "fma": fp32 FMAs) and the kernel and shared memory of
+   its plan (the library's ``qt_attention_plan`` equal to
+   ``ops.attention.attention_plan``), PatchSelecter's self-attention in its
    own strided layout (column slices of one packed qkv) beside SDPA, and
    for fused_attn_ln2,
    fused_attn_half, fused_resblock, fused_patch_select and
@@ -123,18 +125,44 @@ Phases, in order; any failure ends the run with a non-zero exit:
    counters reset around one forward (every product of fused_attn_ln2 and
    fused_patch_select on gemm_sm90), then videos/s from the median of 10;
    (c) the extraction stages' per-video encoders on one 60-frame video;
-8. bench_resblock — ``python -m qa_tiger_tpu_torch.bench_resblock`` at its
+8. TSPM — ``configs/tspm/vitl14.py`` (hidden 512, topK 10, audio 128,
+   vis 768, patch 1024, qst 768; T=60 frames of P=14 patches): (a)
+   ``tspm_attention``: ``attention_wide`` at TSPM's calls (AV_Attn's one
+   head of 512 over 60 frames, TokensAttn's over 14 patches, the
+   four-head one-query attn_ffn calls over 14 and 10 keys) and a 256-lane
+   head over 577 keys, bf16 and fp32, against its plain version, timed
+   beside its bound and SDPA, each line naming its route and kernel
+   (``attn_kernel``: staged, wide, mma_short; the library's plan held to
+   ``ops.attention.attention_plan``), and one masked, key-biased fp32 call
+   of the wide-head kernel twice, bitwise the same; (b) ``tspm_fp32_b4``:
+   the eval forward card against CPU (LOGITS_TOL, the top-K frames equal,
+   the seed's smallest top-K weight gap printed); (c) ``tspm_bf16_b256``:
+   ``bench``'s protocol, the counters reset around one forward
+   (attention_wide 6, nothing else), profiled with ``--profile``
+   (``profile_tspm``); (d) ``tspm_train_fp32_b32``: the recipe (fp32,
+   B=32, Adam, dropout on: no kernel launches, every attention on the
+   plain path as in the JAX package), the median of 10 steps, then
+   ``steps_per_dispatch`` 2 over 5 batches through the step's CUDA graph,
+   bitwise its eager twin (``train_graph_tspm``); (e) ``tspm_cli``: the ``questions`` and
+   ``prompts`` extraction stages over the cli corpus (random text weights,
+   a second run writing nothing), ``train.main`` one epoch, ``test.main``
+   on its best.npz with the same accuracy, the counters reset around all
+   three;
+9. bench_resblock — ``python -m qa_tiger_tpu_torch.bench_resblock`` at its
    defaults (B=256, S=77, W=768, bf16, causal) for ``attn_half`` and
    ``attn_ln2``, the launch counters reset around each, both JSON lines;
-9. the kernel table as one JSON line (each entry's ``launches`` from its
-   own path, ``launches_by_path`` from all eight, ``serve`` per served
-   batch, ``train_graph`` per replay), then the device's JSON line last.
+10. the kernel table as one JSON line (each entry's ``launches`` from its
+   own path, ``launches_by_path`` from all eleven, ``serve`` per served
+   batch, ``train_graph`` per replay, ``tspm`` per bf16 forward,
+   ``tspm_train`` per step, ``tspm_cli`` the whole phase;
+   ``attention_wide``'s entry also lists the ``tspm`` lines), then the
+   device's JSON line last.
 
 ``--profile DIR`` also writes torch.profiler tables of one bf16 serving
 forward, a window of 1024 served requests under 4 client threads (its
 device idle share: ``profile_serve``), one train step, a window of 8
-replayed train steps (``profile_train_graph``) and one raw-media forward
-to DIR. All inputs come
+replayed train steps (``profile_train_graph``), one raw-media forward and
+one TSPM bf16 B=256 forward (``profile_tspm``) to DIR. All inputs come
 from fixed seeds. TF32 is off.
 """
 from __future__ import annotations
@@ -550,8 +578,13 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
             "max_abs_err": err, "max_abs_plain": scale,
             "tolerance": tol * max(1.0, scale), "ok": ok}
     if "attn" in extra:
-        line["route"] = A.attention_route(dtype, *extra["attn"])
-        ok = line["ok"] = ok and extra.get("want_route") in (None, line["route"])
+        attn = extra["attn"]
+        line["route"] = A.attention_route(dtype, *attn)
+        plan = A.attention_plan(dtype, *attn, limit=A.smem_limit("cuda"))
+        line.update(attn_kernel=plan.kernel, smem_bytes=plan.smem_bytes)
+        planned = A.library_plan(dtype, attn[0], attn[1], plan.head, *attn[3:])
+        ok = line["ok"] = (ok and extra.get("want_route") in (None, line["route"])
+                           and planned == (plan.kernel, plan.smem_bytes))
     routes = extra.get("routes") or sorted({GM.gemm_route(dtype, *mnk)
                                              for mnk in extra.get("gemm", ())})
     if routes:
@@ -578,8 +611,10 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
                 entries[name]["attn_route"] = line["route"]
     print(json.dumps(line), flush=True)
     require(ok, f"{name} {dname} {shape}: max|k-p| {err:.3e} over tolerance"
-                + (f" or route {line['route']}, expected {extra['want_route']}"
-                   if extra.get("want_route") else ""))
+                + (f", or route {line['route']}, expected {extra['want_route']}"
+                   if extra.get("want_route") else "")
+                + (", or the library's attention plan is not the Python one"
+                   if "attn" in extra else ""))
     return line
 
 
@@ -1922,7 +1957,8 @@ def state_differences(a, b) -> list[str]:
             differ.append(name)
         sa, sb = a.optimizer.state[pa], b.optimizer.state[pb]
         for key in ("exp_avg", "exp_avg_sq", "step"):
-            if not torch.equal(sa[key], sb[key]):
+            # a parameter no step gave a gradient has no state (TSPM's unused norms)
+            if (key in sa) != (key in sb) or (key in sa and not torch.equal(sa[key], sb[key])):
                 differ.append(f"{name}:{key}")
     if not torch.equal(a._step_generator.get_state(), b._step_generator.get_state()):
         differ.append("_step_generator")
@@ -2643,6 +2679,373 @@ def check_extract(rng) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: TSPM (configs/tspm/vitl14.py)
+# ---------------------------------------------------------------------------
+
+TSPM_CONFIG = ROOT / "configs" / "tspm" / "vitl14.py"
+# attention_wide's calls per TSPM eval forward: AV_Attn's cross- and
+# self-attention (one head of 512 over 60 frames, both directions as 2B
+# rows), TokensAttn's self-attention (one head of 512 over 14 patches of the
+# B x K selected frames), SpatioPerception's and QstTempGrd's two attn_ffn
+# calls (4 heads of 128, one query); TemporalPerception asks for weights and
+# runs the plain path
+TSPM_ATTN_CALLS = 6
+# (label, batch, Sq, Sk, width, heads) of those calls at B=256, and a
+# 256-lane head over 577 keys
+TSPM_ATTN_SHAPES = [("AV_Attn cross/self", 512, T, T, 512, 1),
+                    ("TokensAttn self", 2560, P, P, 512, 1),
+                    ("SpatioPerception attn_ffn", 2560, 1, P, 512, 4),
+                    ("QstTempGrd attn_ffn", 256, 1, 10, 512, 4),
+                    ("hd 256 over 577 keys", 120, 577, 577, 1024, 4)]
+TSPM_LR = 1e-4
+
+
+def tspm_attention_cases(dtype, rng):
+    """attention_wide at TSPM's shapes: q, k and v as the model gives them
+    (column slices of one packed qkv for the self-attentions, of a packed
+    kv otherwise); SDPA on the same views. Bytes: q, k and v read once, the
+    context written once."""
+    import torch
+    from torch.nn import functional as F
+
+    from qa_tiger_tpu_torch.ops import attention as A
+
+    isz = torch.tensor([], dtype=dtype).element_size()
+
+    def rn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
+
+    cases = []
+    for label, b, sq, sk, W, heads in TSPM_ATTN_SHAPES:
+        hd = W // heads
+        if sq == sk:
+            buf = rn(b, sq, 3 * W)
+            q, k, v = buf[..., :W], buf[..., W:2 * W], buf[..., 2 * W:]
+        else:
+            q, kv = rn(b, sq, W), rn(b, sk, 2 * W)
+            k, v = kv[..., :W], kv[..., W:]
+        sc = hd ** -0.5
+
+        def sdpa(q=q, k=k, v=v, b=b, sq=sq, sk=sk, heads=heads, hd=hd, sc=sc):
+            return F.scaled_dot_product_attention(
+                q.view(b, sq, heads, hd).transpose(1, 2), k.view(b, sk, heads, hd).transpose(1, 2),
+                v.view(b, sk, heads, hd).transpose(1, 2), scale=sc)
+
+        cases.append(("attention_wide", f"{label}: q[{b},{sq},{W}] kv[{b},{sk},{W}] h{heads}",
+                      lambda q=q, k=k, v=v, sc=sc, h=heads: A.attention_wide(q, k, v, None, sc, h),
+                      lambda q=q, k=k, v=v, sc=sc, h=heads: A._wide_reference(q, k, v, None, sc, h),
+                      sdpa, (2 * b * sq * W + 2 * b * sk * W) * isz, 4 * b * sq * sk * W,
+                      {"attn": (sq, sk, hd)}))
+    return cases
+
+
+def check_tspm_attention(entries: dict) -> None:
+    """Phase 9(a): attention_wide at TSPM's shapes in bf16 and fp32 against
+    its plain version, timed beside its bound and SDPA, each line with the
+    route and kernel (staged, wide-head, mma_short) the card's dispatch took
+    and the library's plan held to the Python one; plus one fp32 call of the
+    wide-head kernel with a causal mask and a key bias. The lines go into
+    attention_wide's table entry under ``tspm``."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import attention as A
+
+    rng = np.random.default_rng(14)
+    keys = ("shape", "dtype", "route", "attn_kernel", "smem_bytes", "max_abs_err", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "tflops")
+    lines = []
+    with torch.inference_mode():
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            for case in tspm_attention_cases(dtype, rng):
+                line = run_kernel_case(case, dtype, tol, True, None)
+                lines.append({k: line[k] for k in keys if k in line})
+        b, sq, sk, W = 8, T, T, 512
+        q, k, v = (torch.from_numpy(rng.standard_normal((b, s, W), dtype=np.float32)).cuda()
+                   for s in (sq, sk, sk))
+        mask = torch.triu(torch.full((sq, sk), float("-inf"), device="cuda"), 1)
+        kb = torch.from_numpy(np.log(rng.integers(1, 41, (b, sk))).astype(np.float32)).cuda()
+        case = ("attention_wide", f"masked, key bias: q[{b},{sq},{W}] kv[{b},{sk},{W}] h1",
+                lambda: A.attention_wide(q, k, v, mask, W ** -0.5, 1, key_bias=kb),
+                lambda: A._wide_reference(q, k, v, mask, W ** -0.5, 1, kb), None, 0, 0,
+                {"attn": (sq, sk, W)})
+        run_kernel_case(case, torch.float32, FP32_TOL, False, None)
+        require_repeat(case)
+    kernels = {ln["attn_kernel"] for ln in lines}
+    require({"wide", "staged", "mma_short"} <= kernels,
+            f"tspm attention: the kernels taken were {kernels}")
+    entries["attention_wide"]["tspm"] = lines
+
+
+def tspm_setup():
+    """(the runner's config, TSPM's hyperparameters) of
+    configs/tspm/vitl14.py: Adam at its betas, lr 1e-4."""
+    from qa_tiger_tpu_torch.models import model_config
+    from qa_tiger_tpu_torch.utils.config import load_config_module
+
+    conf = load_config_module(str(TSPM_CONFIG))
+    hp = conf["hyper_params"]
+    cfg = {"log_interval": 1, "debug": False,
+           "hyper_params": {"optim": dict(hp["optim"]), "sched": dict(hp["sched"])}}
+    return cfg, model_config(hp["model_type"], hp["model"], num_labels=42)
+
+
+def make_tspm_batch(rng, b: int, train: bool = False) -> dict:
+    """Features at TSPM's widths: T=60 frames of P=14 patches, the question
+    [B, 1, 768] and QA prompt [B, 768] as the text stages write them."""
+    batch = {"audio": rng.standard_normal((b, T, 128), dtype=np.float32),
+             "video": rng.standard_normal((b, T, 768), dtype=np.float32),
+             "patch": rng.standard_normal((b, T, P, 1024), dtype=np.float32),
+             "quest": rng.standard_normal((b, 1, 768), dtype=np.float32),
+             "prompt": rng.standard_normal((b, 768), dtype=np.float32)}
+    if train:
+        batch.update(label=rng.integers(0, 42, b), qtype_label=rng.integers(0, 9, b),
+                     valid=np.ones(b, bool))
+    return batch
+
+
+def check_tspm(profile_dir: Path | None) -> tuple[dict, dict]:
+    """Phase 9(b)-(d). (b) tspm_fp32_b4: the eval forward at
+    configs/tspm/vitl14.py's widths (weights from seed 0) on the card
+    against the same state_dict through the plain versions on the CPU:
+    logits within LOGITS_TOL, the top-K frames equal, and the smallest gap
+    between the K-th and K+1-th temporal weight over the batch printed.
+    (c) tspm_bf16_b256: ``bench``'s protocol (bf16, B=256, seed 0 weights
+    and inputs, 3 warm-up calls, median of 3 repeats of 20 calls), the
+    launch counters reset around one forward (attention_wide TSPM_ATTN_CALLS
+    times, nothing else), the forward profiled with ``--profile``. (d)
+    tspm_train_fp32_b32: the recipe (fp32, B=32, Adam, dropout on), the
+    counters reset around one step (dropout sends every attention to the
+    plain path: no kernel launches, as in the JAX package), the median of 10
+    steps; then ``steps_per_dispatch`` 2 over 5 batches through the step's
+    CUDA graph, bitwise the same static-input step run eagerly. Returns the
+    counts of (c) and (d)."""
+    import torch
+
+    from qa_tiger_tpu_torch import bench, ops
+    from qa_tiger_tpu_torch.models import TSPM
+    from qa_tiger_tpu_torch.training import AVQARunner
+
+    # (b) fp32 B=4, card against CPU
+    cfg, mcfg = tspm_setup()
+    card = TSPM(mcfg, seed=0).eval().cuda()
+    cpu = TSPM(mcfg, seed=0).eval()
+    batch = make_tspm_batch(np.random.default_rng(15), 4)
+    with torch.inference_mode():
+        got = card({k: torch.from_numpy(v).cuda() for k, v in batch.items()}, aux=True)
+        want = cpu({k: torch.from_numpy(v) for k, v in batch.items()}, aux=True)
+    logits, ref = got["out"].float().cpu(), want["out"]
+    err = (logits - ref).abs().max().item()
+    idx_equal = torch.equal(got["topk_idx"].cpu(), want["topk_idx"])
+    w = want["temporal_weights"][:, 0].sort(dim=-1, descending=True).values
+    k = mcfg["topK"]
+    gap = (w[:, k - 1] - w[:, k]).min().item()
+    ok = bool(torch.allclose(logits, ref, **LOGITS_TOL)) and idx_equal
+    print(json.dumps({"phase": "tspm_fp32_b4", "logits_max_abs_err": err,
+                      "max_abs_logit": ref.abs().max().item(), **LOGITS_TOL,
+                      "topk_equal": idx_equal, "smallest_topk_weight_gap": gap,
+                      "argmax_equal": bool((logits.argmax(1) == ref.argmax(1)).all()),
+                      "ok": ok}), flush=True)
+    require(ok, f"tspm fp32: logits differ by {err:.3e} or the top-K frames differ "
+                f"({idx_equal})")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+    # (c) bf16 B=256: bench's protocol, the counters around one forward
+    net, dev_batch = bench.setup("tspm", "cuda")
+    with torch.inference_mode():
+        net(dev_batch)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        out = net(dev_batch)["out"]
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(json.dumps({"phase": "tspm_launches", **counts}), flush=True)
+    expected = dict.fromkeys(ops.KERNELS, 0)
+    expected["attention_wide"] = TSPM_ATTN_CALLS
+    require(counts == expected, f"tspm forward: launches {counts}, expected {expected}")
+    require(tuple(out.shape) == (256, 42) and bool(torch.isfinite(out).all()),
+            "tspm bf16 logits are not finite [256, 42]")
+    torch.cuda.reset_peak_memory_stats()
+    rate = bench.measure(net, dev_batch)
+    print(json.dumps({"phase": "tspm_bf16_b256", "qa_per_s": rate["median"],
+                      "qa_per_s_repeats": rate["rates"],
+                      "forward_ms": 256 / rate["median"] * 1e3,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+    if profile_dir is not None:
+        with torch.inference_mode():
+            profile_step(lambda: net(dev_batch), profile_dir / "tspm_forward_bf16_b256.txt",
+                         "profile_tspm")
+    del net, dev_batch, out
+    torch.cuda.empty_cache()
+
+    # (d) the train recipe, fp32 B=32
+    runner = AVQARunner(cfg, mcfg, device="cuda", seed=0)
+    rng = np.random.default_rng(16)
+    batch = runner.stage_batch(make_tspm_batch(rng, 32, train=True))
+    gen = torch.Generator().manual_seed(1)
+    before = {n: p.detach().clone() for n, p in runner.trainable()}
+    losses = [runner.train_step(batch, TSPM_LR, gen)["total_loss"].item() for _ in range(3)]
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    losses.append(runner.train_step(batch, TSPM_LR, gen)["total_loss"].item())
+    torch.cuda.synchronize()
+    train_counts = ops.launch_counts()
+    print(json.dumps({"phase": "tspm_train_step_launches", **train_counts}), flush=True)
+    require(not any(train_counts.values()),
+            f"tspm train step: kernel launches {train_counts}; dropout keeps every attention "
+            "on the plain path")
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = runner.train_step(batch, TSPM_LR, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+        losses.append(out["total_loss"].item())
+    median = statistics.median(times)
+    changed = sum(int(not torch.equal(before[n], p.detach())) for n, p in runner.trainable())
+    # no gradient reaches AV_Attn's two norms (no forward reads them), nor
+    # TemporalPerception and input_qst_prompt (they only feed the discrete
+    # top-K), as in the JAX model
+    no_grad = sorted({n.rsplit(".", 1)[0] for n, p in runner.trainable() if p.grad is None})
+    print(json.dumps({"phase": "tspm_train_fp32_b32", "step_ms_median": median * 1e3,
+                      "step_ms_all": [t * 1e3 for t in times],
+                      "train_qa_pairs_per_s": 32 / median, "losses": losses,
+                      "params_changed": changed, "params": len(before),
+                      "modules_without_gradient": no_grad,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+    require(all(np.isfinite(losses)), "a tspm train loss is not finite")
+    n_no_grad = sum(p.grad is None for _, p in runner.trainable())
+    require(changed == len(before) - n_no_grad and all(
+        m.startswith(("AV_Attn.norm", "TemporalPerception.", "input_qst_prompt")) for m in no_grad),
+        f"tspm: {changed} of {len(before)} parameters changed; without a gradient: {no_grad}")
+    del runner, batch
+    torch.cuda.empty_cache()
+
+    # steps_per_dispatch 2: the graph against its eager twin, bitwise
+    cfg["hyper_params"]["steps_per_dispatch"] = 2
+    graph, eager = (AVQARunner(cfg, mcfg, device="cuda", seed=0) for _ in range(2))
+    eager.graph_capture = False
+    staged = [graph.stage_batch(make_tspm_batch(rng, 32, train=True)) for _ in range(5)]
+    g_losses = run_windows(graph, staged, 2)
+    e_losses = run_windows(eager, staged, 2)
+    torch.cuda.synchronize()
+    require_graph_equals_eager("tspm", graph, eager, g_losses, e_losses, len(staged) - 1)
+    return counts, train_counts
+
+
+def write_tspm_cli_config(path: Path, root: Path) -> Path:
+    """configs/tspm/vitl14.py over the cli corpus and the features its text
+    stages wrote: batch and eval batch 32, one epoch, no platform (the
+    card)."""
+    from qa_tiger_tpu_torch.utils.config import load_config_module
+
+    cfg = load_config_module(str(TSPM_CONFIG)).to_dict()
+    cfg["data"].update(root=str(root), batch_size=CLI_BATCH, eval_batch_size=CLI_BATCH,
+                       num_workers=0, train_annot="train.json", valid_annot="val.json",
+                       test_annot="test.json", ans_quelen="answer2idx.json",
+                       audio_feat="vggish", video_feat="clip", patch_feat="tome",
+                       quest_feat="qst", prompt_feat="prompt")
+    cfg.update(epochs=1, output_dir=str(root / "out"))
+    path.write_text(f"config = {cfg!r}\n")
+    return path
+
+
+def check_tspm_cli() -> dict:
+    """Phase 9(e) tspm_cli, over the cli phase's corpus (the first 110 val
+    questions, features at the real shapes, its learned merges file) in a
+    temporary directory: the ``questions`` and ``prompts`` extraction stages
+    (``python -m qa_tiger_tpu_torch.pipeline.extract`` through its
+    ``main``, random CLIP-L/14@336px text weights, fp32 on the card) over
+    each split's annotations, one [1, 768] feature per question_id, a
+    second run writing nothing; then ``train.main`` for one epoch of TSPM
+    and ``test.main`` on its best.npz, whose accuracy must be the train
+    run's final test's. The launch counters are reset around the whole:
+    fused_attn_ln2 12 per chunk of texts, attention_wide TSPM_ATTN_CALLS per
+    eval forward (no train step launches one). Returns the counts."""
+    import os
+    import tempfile
+
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch import test as test_entry
+    from qa_tiger_tpu_torch import train as train_entry
+    from qa_tiger_tpu_torch.pipeline import extract as E
+
+    avqa = logging.getLogger("AVQA")
+    propagate = avqa.propagate
+    avqa.propagate = False
+    old_vocab = os.environ.get("QA_TIGER_BPE_VOCAB")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            write_cli_corpus(root)
+            os.environ["QA_TIGER_BPE_VOCAB"] = str(root / "vocab.txt.gz")
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            line = {"phase": "tspm_cli"}
+            start = time.perf_counter()
+            chunks = 0
+            for split, (lo, hi) in CLI_SPLITS.items():
+                for stage, sub in (("questions", "qst"), ("prompts", "prompt")):
+                    E.main([stage, "--annot", str(root / f"{split}.json"), "--dst",
+                            str(root / sub), "--random-weights"])
+                    chunks += -(-(hi - lo) // E.TEXT_CHUNK)
+            torch.cuda.synchronize()
+            line["stages_s"] = time.perf_counter() - start
+            n_q = CLI_SPLITS["test"][1]
+            for sub in ("qst", "prompt"):
+                files = sorted((root / sub).glob("*.npy"))
+                require(len(files) == n_q, f"tspm_cli: {len(files)} {sub} features, "
+                                           f"expected {n_q}")
+                arr = np.load(files[0])
+                require(arr.shape == (1, 768) and bool(np.isfinite(arr).all()),
+                        f"tspm_cli: a {sub} feature is {arr.shape}, expected finite [1, 768]")
+            stamp = (root / "qst" / files[0].name).stat().st_mtime_ns
+            E.main(["questions", "--annot", str(root / "train.json"), "--dst", str(root / "qst"),
+                    "--random-weights"])
+            require((root / "qst" / files[0].name).stat().st_mtime_ns == stamp,
+                    "tspm_cli: the questions stage rewrote a feature it had written")
+
+            cfg = write_tspm_cli_config(root / "tspm.py", root)
+            start = time.perf_counter()
+            summary = train_entry.main(["--config", str(cfg)])
+            torch.cuda.synchronize()
+            line["train_main_s"] = time.perf_counter() - start
+            run = Path(summary["run_dir"])
+            start = time.perf_counter()
+            accs = test_entry.main(["--config", str(cfg), "--weight", str(run / "best.npz"),
+                                    "--output_path", str(root / "eval")])
+            torch.cuda.synchronize()
+            line["test_main_s"] = time.perf_counter() - start
+            counts = ops.launch_counts()
+            epoch = summary["epochs"][0]
+            n_steps = -(-(CLI_SPLITS["train"][1] - CLI_SPLITS["train"][0]) // CLI_BATCH)
+            evals = 3  # validation, the final test, test.main
+            line.update(chunks=chunks, steps=epoch["steps"], epoch_wall_s=epoch["wall_s"],
+                        val_accuracy=epoch["val_acc"], test_accuracy=summary["tests"],
+                        test_main_accuracy=accs, question_caches=summary["question_caches"],
+                        launches=counts)
+            print(json.dumps(line), flush=True)
+            expected = dict.fromkeys(ops.KERNELS, 0)
+            expected.update(fused_attn_ln2=12 * chunks,
+                            attention_wide=TSPM_ATTN_CALLS * evals)
+            require(counts == expected, f"tspm_cli: launches {counts}, expected {expected}")
+            require(epoch["steps"] == n_steps, f"tspm_cli: {epoch['steps']} steps, expected "
+                                               f"{n_steps}")
+            require(accs == summary["tests"], f"tspm_cli: test.main gave {accs}, the train run's "
+                                              f"final test {summary['tests']}")
+    finally:
+        avqa.propagate = propagate
+        if old_vocab is None:
+            os.environ.pop("QA_TIGER_BPE_VOCAB", None)
+        else:
+            os.environ["QA_TIGER_BPE_VOCAB"] = old_vocab
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the resblock micro-bench
 # ---------------------------------------------------------------------------
 
@@ -2763,6 +3166,12 @@ def main() -> int:
         paths["e2e"] = check_e2e_bf16(rng, args.profile)
         torch.cuda.empty_cache()
         check_extract(rng)
+        torch.cuda.empty_cache()
+        check_tspm_attention(entries)
+        torch.cuda.empty_cache()
+        paths["tspm"], paths["tspm_train"] = check_tspm(args.profile)
+        torch.cuda.empty_cache()
+        paths["tspm_cli"] = check_tspm_cli()
         torch.cuda.empty_cache()
         paths["bench_resblock"] = check_bench_resblock()
         for name in E2E_ONLY_KERNELS:

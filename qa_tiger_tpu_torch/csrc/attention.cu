@@ -41,9 +41,12 @@
 //   tiles; one pass up to 128 keys, two beyond (row max and sum, then the
 //   rounded probabilities and the context);
 // - every other call (fp32, the keep-masked train calls, one query over
-//   more than 16 keys): route 0, "fma", fp32 FMAs out of shared memory,
-//   keys up to 128 staged whole (one warp per query row), longer ones in
-//   64-key tiles in the same two passes, register-tiled 64 x 64 per block.
+//   more than 16 keys, head sizes past 128): route 0, "fma", fp32 FMAs out
+//   of shared memory: keys up to 128 staged whole where they fit the
+//   block's shared memory (one warp per query row); else, at head sizes up
+//   to 128, 64-key tiles in the same two passes, register-tiled 64 x 64 per
+//   block; at head sizes 256 and 512 (TSPM's one-head attentions) the
+//   wide-head kernel, 16 or 32-key tiles in the same two passes.
 // PERF.md has each route's time beside the bound.
 #include "common.cuh"
 
@@ -72,6 +75,21 @@ extern "C" const char* qt_error_string(int err) {
 extern "C" int qt_attention_route(int dtype, int Sq, int Sk, int hd, int has_keep) {
   return qt::attention_route(dtype == 1, Sq, Sk, hd, has_keep != 0);
 }
+
+// the kernel of qt::attention_plan on the current device (-1 none, 0 staged,
+// 1 tiled, 2 wide-head, 3 mma, 4 mma_short), its shared memory in *smem;
+// ops/attention.py holds its own plan (attention_plan) against this one
+extern "C" int qt_attention_plan(int dtype, int Sq, int Sk, int hd, int has_keep,
+                                 long long* smem) {
+  size_t bytes = 0;
+  const int kernel =
+      qt::attention_plan(dtype == 1, Sq, Sk, hd, has_keep != 0, qt::smem_optin(), &bytes);
+  if (smem) *smem = (long long)bytes;
+  return kernel;
+}
+
+// the current device's opt-in shared memory per block, in bytes
+extern "C" int qt_smem_optin() { return (int)qt::smem_optin(); }
 
 extern "C" int qt_attention(int dtype, const void* q, long long q_bs, long long q_ss,
                             const void* k, long long k_bs, long long k_ss, const void* v,

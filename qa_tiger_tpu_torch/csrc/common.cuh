@@ -345,7 +345,7 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 // in fp32. mask is an optional additive fp32 [Sq, Sk]; key_bias an optional
 // fp32 [B, Sk] (ToMe's proportional attention, log of the token sizes).
 //
-// Four kernels; attention_route decides. bf16 calls without a keep mask, at
+// Five kernels; attention_plan decides. bf16 calls without a keep mask, at
 // head sizes 32, 64 and 128, take one of two tensor-core kernels:
 // - at most ATT_SHORT_MAX queries and keys (PatchSelecter's 14-key self- and
 //   cross-attention, fused_attention's packed [BH, 14, 64], QstGrounding's
@@ -354,12 +354,16 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 // - at least 16 queries and 16 keys otherwise: attention_mma_kernel, 64
 //   query rows per block, keys streamed in 64-key tiles.
 // Every other call (fp32, the keep-masked train calls, one query over more
-// than 16 keys) runs on fp32 FMAs, in one of two kernels chosen by the key
-// length:
-// - Sk <= ATT_STAGED_MAX_SK (every such call of the text tower, AVQ,
-//   TempMoE and PatchSelecter): one block per (batch element, head, tile of
+// than 16 keys, head sizes past 128) runs on fp32 FMAs, in one of three
+// kernels chosen by the shared memory each needs against the device's
+// opt-in limit per block:
+// - Sk <= ATT_STAGED_MAX_SK where K_h and V_h fit (every such call of the
+//   text tower, AVQ, TempMoE and PatchSelecter; TSPM's TokensAttn, one head
+//   of 512 over 14 keys): one block per (batch element, head, tile of
 //   ATT_QROWS queries) stages all of K_h and V_h in shared memory as fp32,
 //   one warp per query row.
+// - head sizes 256 and 512 otherwise (TSPM's AV_Attn, one head of 512 over
+//   60 keys): the wide-head kernel below, keys in tiles.
 // - longer keys (the CLIP image tower and the first ToMe layers, Sk up to
 //   577): one block per (batch element, head, tile of AT_Q queries) streams
 //   K_h and V_h through shared memory in tiles of AT_K keys, so its shared
@@ -639,6 +643,218 @@ inline cudaError_t attention_tiled(const T* q, long long q_bs, long long q_ss, c
   const int ntiles = (Sq + AT_Q - 1) / AT_Q;
   const dim3 grid((unsigned)(B * ntiles), heads);
   attention_tiled_kernel<T, HD><<<grid, AT_THREADS, smem, stream>>>(
+      q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, Sq, Sk,
+      scale, keep, keep_ld, round_p_first);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The wide-head kernel: head sizes 256 and 512, any key length, fp32 FMAs.
+// It takes the FMA calls whose head is too wide for the other two: the
+// staged kernel's fp32 K_h and V_h outgrow a block's shared memory (at head
+// size 512 past 54 keys: TSPM's one-head AV_Attn over 60 frames), and the
+// 64 x 64 register tile of the tiled kernel does not fit a 256- or 512-lane
+// context row. The TPU kernel it stands in for is the same fused_attention_wide
+// (qa_tiger_tpu/ops/pallas/attention.py), which takes one head of 512 lanes.
+//
+// One block of AW_THREADS threads owns AW_Q query rows of one (batch
+// element, head) and streams the keys through shared memory in tiles of
+// AW_KEYS<HD> keys (16 at 512 lanes, 32 at 256), so its shared memory is
+// fixed by HD (99,904 bytes at 512, 84,800 at 256) and not by Sk. The same
+// two passes as the tiled kernel keep the JAX rounding point: the first takes
+// each row's max and rescaled sum of exp over the key tiles, the second
+// recomputes the scores, forms p = round_T(exp(s - max) / sum) and
+// accumulates p v in fp32. Scores: thread (r, c) of the 16 x 16 grid holds
+// row r and keys c + 16 j, its dot products read q and k as float4 out of
+// fp32 shared memory into four partial sums; a row's max and sum are
+// shuffles over the 16 lanes that share it. Context: each thread holds 4
+// rows by HD / 64 lanes (c + 64 n) in registers.
+//
+// Bound on the card: bytes in bf16 at TSPM's AV_Attn shape ([512, 60, 512],
+// one head: 4 x 60 x 60 x 512 operations on 4 x 60 x 512 bf16 values per
+// problem, 60 per byte, under the bf16 ridge) and at hd 256 over 577 keys;
+// operations in fp32 at the latter. The design is the simple one, FMAs
+// out of shared memory: it is bound by
+// the shared memory's bandwidth (three 16-byte reads per eight FMAs in the
+// score loop, the scores computed twice), far above either bound. PERF.md
+// has its time beside the bound and SDPA's; a tensor-core route for these
+// head sizes is ROADMAP B9.
+// ---------------------------------------------------------------------------
+constexpr int AW_Q = 16, AW_THREADS = 256;
+
+// keys per tile of the wide-head kernel
+template <int HD> constexpr int AW_KEYS = HD >= 512 ? 16 : 32;
+
+template <int HD>
+constexpr size_t attention_wide_smem_bytes() {
+  constexpr int KT = AW_KEYS<HD>;
+  return sizeof(float) * ((size_t)(AW_Q + KT) * (HD + 4) + (size_t)KT * HD
+                          + (size_t)AW_Q * (KT + 1));
+}
+
+__device__ __forceinline__ float group16_max(float v) {
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float group16_sum(float v) {
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(AW_THREADS)
+attention_wide_head_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
+                           const T* __restrict__ k, long long k_bs, long long k_ss,
+                           const T* __restrict__ v, long long v_bs, long long v_ss,
+                           T* __restrict__ out, long long o_bs, long long o_ss,
+                           const float* __restrict__ mask, const float* __restrict__ key_bias,
+                           int Sq, int Sk, float scale, const T* __restrict__ keep,
+                           long long keep_ld, bool round_p_first) {
+  // rows padded by 4 floats: 16-byte aligned for float4 reads, and the 8
+  // rows a quarter-warp reads start 4 banks apart
+  constexpr int KT = AW_KEYS<HD>, NK = KT / 16, LD = HD + 4, LDP = KT + 1, NC = HD / 64;
+  static_assert(AW_THREADS == 16 * AW_Q && AW_THREADS / 64 * 4 == AW_Q && KT % 16 == 0,
+                "the thread grids cover the tiles");
+  extern __shared__ __align__(16) float aw_smem[];
+  float* Qs = aw_smem;          // [AW_Q][LD]
+  float* Ks = Qs + AW_Q * LD;   // [KT][LD]
+  float* Vs = Ks + KT * LD;     // [KT][HD]
+  float* Ps = Vs + KT * HD;     // [AW_Q][LDP]: the rounded probabilities of one key tile
+  const int tid = threadIdx.x;
+  const int sr = tid >> 4, sc = tid & 15;        // scores: row sr, keys sc + 16 j
+  const int cr = (tid >> 6) * 4, cc = tid & 63;  // context: rows cr + i, lanes cc + 64 n
+  const int ntiles = (Sq + AW_Q - 1) / AW_Q;
+  const long long b = blockIdx.x / ntiles;
+  const int q0 = (blockIdx.x % ntiles) * AW_Q, h = blockIdx.y;
+  const int qi = q0 + sr;
+  const long long col = (long long)h * HD;
+  const float* kb = key_bias ? key_bias + b * Sk : nullptr;
+
+  for (int i = tid; i < AW_Q * HD; i += AW_THREADS) {
+    const int r = i / HD, d = i % HD, qr = q0 + r;
+    Qs[r * LD + d] = qr < Sq ? to_f<T>(q[b * q_bs + (long long)qr * q_ss + col + d]) : 0.0f;
+  }
+  auto load_tile = [&](int k0, bool with_v) {
+    for (int i = tid; i < KT * HD; i += AW_THREADS) {
+      const int j = i / HD, d = i % HD, kj = k0 + j;
+      const bool in = kj < Sk;
+      Ks[j * LD + d] = in ? to_f<T>(k[b * k_bs + (long long)kj * k_ss + col + d]) : 0.0f;
+      if (with_v) Vs[j * HD + d] = in ? to_f<T>(v[b * v_bs + (long long)kj * v_ss + col + d]) : 0.0f;
+    }
+  };
+  // s[j] = the score of row qi and key k0 + sc + 16 j; -inf past the last key.
+  // Each dot product runs as four independent partial sums (lanes d = 4i +
+  // 0..3), so a thread keeps 4 NK FMA chains in flight instead of one
+  // chain HD long.
+  auto scores = [&](int k0, float (&s)[NK]) {
+    float4 part[NK];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) part[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4* qrow = reinterpret_cast<const float4*>(Qs + sr * LD);
+#pragma unroll 4
+    for (int d4 = 0; d4 < HD / 4; ++d4) {
+      const float4 a = qrow[d4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const float4 c = reinterpret_cast<const float4*>(Ks + (sc + 16 * j) * LD)[d4];
+        part[j].x = fmaf(a.x, c.x, part[j].x);
+        part[j].y = fmaf(a.y, c.y, part[j].y);
+        part[j].z = fmaf(a.z, c.z, part[j].z);
+        part[j].w = fmaf(a.w, c.w, part[j].w);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const int kj = k0 + sc + 16 * j;
+      float x = ((part[j].x + part[j].y) + (part[j].z + part[j].w)) * scale;
+      if (kj >= Sk) {
+        x = -INFINITY;
+      } else {
+        if (mask && qi < Sq) x += mask[(long long)qi * Sk + kj];
+        if (kb) x += kb[kj];
+      }
+      s[j] = x;
+    }
+  };
+
+  // pass 1: the row's max and sum of exp(s - max) over all key tiles
+  float m = -INFINITY, l = 0.0f, s[NK];
+  for (int k0 = 0; k0 < Sk; k0 += KT) {
+    __syncthreads();
+    load_tile(k0, false);
+    __syncthreads();
+    scores(k0, s);
+    float tmax = s[0];
+#pragma unroll
+    for (int j = 1; j < NK; ++j) tmax = fmaxf(tmax, s[j]);
+    const float mn = fmaxf(m, group16_max(tmax));
+    if (mn == -INFINITY) continue;  // every key so far masked out
+    float part = l * expf(m - mn);
+#pragma unroll
+    for (int j = 0; j < NK; ++j) part += expf(s[j] - mn);
+    l = part;
+    m = mn;
+  }
+  const float inv = 1.0f / group16_sum(l);
+  const T* krow = keep && qi < Sq ? keep + (b * Sq + qi) * keep_ld + (long long)h * Sk : nullptr;
+
+  // pass 2: the scores again, p = round_T(exp(s - max) / sum), ctx += p v
+  float acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) acc[i][n] = 0.0f;
+  for (int k0 = 0; k0 < Sk; k0 += KT) {
+    __syncthreads();
+    load_tile(k0, true);
+    __syncthreads();
+    scores(k0, s);
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      const int kj = k0 + sc + 16 * j;
+      Ps[sr * LDP + sc + 16 * j] =
+          kj < Sk ? dropped_prob<T>(expf(s[j] - m) * inv, krow, kj, round_p_first) : 0.0f;
+    }
+    __syncthreads();
+    const int kn = min(KT, Sk - k0);
+    for (int j = 0; j < kn; ++j) {
+      float a[4], c[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = Ps[(cr + i) * LDP + j];
+#pragma unroll
+      for (int n = 0; n < NC; ++n) c[n] = Vs[j * HD + cc + 64 * n];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < NC; ++n) acc[i][n] = fmaf(a[i], c[n], acc[i][n]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qr = q0 + cr + i;
+    if (qr >= Sq) continue;
+    T* o = out + b * o_bs + (long long)qr * o_ss + col;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) o[cc + 64 * n] = from_f<T>(acc[i][n]);
+  }
+}
+
+template <typename T, int HD>
+inline cudaError_t attention_wide_head(const T* q, long long q_bs, long long q_ss, const T* k,
+                                       long long k_bs, long long k_ss, const T* v,
+                                       long long v_bs, long long v_ss, T* out, long long o_bs,
+                                       long long o_ss, const float* mask,
+                                       const float* key_bias, int B, int Sq, int Sk, int heads,
+                                       float scale, cudaStream_t stream, const T* keep,
+                                       long long keep_ld, bool round_p_first) {
+  constexpr size_t smem = attention_wide_smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(attention_wide_head_kernel<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (Sq + AW_Q - 1) / AW_Q;
+  const dim3 grid((unsigned)(B * ntiles), heads);
+  attention_wide_head_kernel<T, HD><<<grid, AW_THREADS, smem, stream>>>(
       q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, Sq, Sk,
       scale, keep, keep_ld, round_p_first);
   return cudaGetLastError();
@@ -1245,6 +1461,65 @@ inline cudaError_t attention_short(const __nv_bfloat16* q, long long q_bs, long 
   return cudaGetLastError();
 }
 
+// Which kernel qt::attention launches, with the shared memory it asks for.
+// The tensor-core routes come first (attention_route). An FMA call takes the
+// staged kernel up to ATT_STAGED_MAX_SK keys when its Sk-sized shared memory
+// fits the device's opt-in limit per block, else the tiled kernel (head
+// sizes 32, 64, 128) or the wide-head one (256, 512), each if its fixed
+// shared memory fits. Any other call has no kernel (ATT_KERNEL_NONE) and
+// returns cudaErrorInvalidValue; ops/attention.py plans the same rule in
+// Python (attention_plan) and zero-pads a head to the next size that has one.
+enum AttentionKernel {
+  ATT_KERNEL_NONE = -1,
+  ATT_KERNEL_STAGED = 0,
+  ATT_KERNEL_TILED = 1,
+  ATT_KERNEL_WIDE = 2,
+  ATT_KERNEL_MMA = 3,
+  ATT_KERNEL_SHORT = 4,
+};
+
+inline AttentionKernel attention_plan(bool bf16, int Sq, int Sk, int hd, bool has_keep,
+                                      size_t limit, size_t* smem) {
+  const AttentionRoute route = attention_route(bf16, Sq, Sk, hd, has_keep);
+  size_t bytes = 0;
+  AttentionKernel kernel = ATT_KERNEL_NONE;
+  if (route != ATT_ROUTE_FMA) {
+    const bool shrt = route == ATT_ROUTE_MMA_SHORT;
+    kernel = shrt ? ATT_KERNEL_SHORT : ATT_KERNEL_MMA;
+    switch (hd) {
+      case 32: bytes = shrt ? attention_short_smem_bytes<32>() : attention_mma_smem_bytes<32>(); break;
+      case 64: bytes = shrt ? attention_short_smem_bytes<64>() : attention_mma_smem_bytes<64>(); break;
+      default: bytes = shrt ? attention_short_smem_bytes<128>() : attention_mma_smem_bytes<128>();
+    }
+  } else if (Sk <= ATT_STAGED_MAX_SK && attention_smem_bytes(Sk, hd) <= limit) {
+    kernel = ATT_KERNEL_STAGED;
+    bytes = attention_smem_bytes(Sk, hd);
+  } else {
+    switch (hd) {
+      case 32: kernel = ATT_KERNEL_TILED; bytes = attention_tiled_smem_bytes<32>(); break;
+      case 64: kernel = ATT_KERNEL_TILED; bytes = attention_tiled_smem_bytes<64>(); break;
+      case 128: kernel = ATT_KERNEL_TILED; bytes = attention_tiled_smem_bytes<128>(); break;
+      case 256: kernel = ATT_KERNEL_WIDE; bytes = attention_wide_smem_bytes<256>(); break;
+      case 512: kernel = ATT_KERNEL_WIDE; bytes = attention_wide_smem_bytes<512>(); break;
+      default: break;
+    }
+  }
+  if (bytes > limit) kernel = ATT_KERNEL_NONE;
+  if (smem) *smem = bytes;
+  return kernel;
+}
+
+// The current device's opt-in shared memory per block (232,448 bytes on an
+// H100), read once per device.
+inline size_t smem_optin() {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 0;
+  if (!cached[dev]) cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (size_t)cached[dev];
+}
+
 template <typename T>
 inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T* k,
                              long long k_bs, long long k_ss, const T* v, long long v_bs,
@@ -1254,19 +1529,21 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
                              long long keep_ld = 0, bool round_p_first = false,
                              const float* key_bias = nullptr) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  size_t smem = 0;
+  const AttentionKernel kernel =
+      attention_plan(kBf16, Sq, Sk, hd, keep != nullptr, smem_optin(), &smem);
   if constexpr (kBf16) {
-    const AttentionRoute route = attention_route(true, Sq, Sk, hd, keep != nullptr);
 #define QT_TC(KERNEL, HD)                                                                   \
   KERNEL<HD>(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, \
              B, Sq, Sk, heads, scale, stream)
-    if (route == ATT_ROUTE_MMA_SHORT) {
+    if (kernel == ATT_KERNEL_SHORT) {
       switch (hd) {
         case 32: return QT_TC(attention_short, 32);
         case 64: return QT_TC(attention_short, 64);
         default: return QT_TC(attention_short, 128);
       }
     }
-    if (route == ATT_ROUTE_MMA) {
+    if (kernel == ATT_KERNEL_MMA) {
       switch (hd) {
         case 32: return QT_TC(attention_mma, 32);
         case 64: return QT_TC(attention_mma, 64);
@@ -1275,20 +1552,21 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
     }
 #undef QT_TC
   }
-  if (Sk > ATT_STAGED_MAX_SK) {
-#define QT_TILED(HD)                                                                        \
-  attention_tiled<T, HD>(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, \
-                         key_bias, B, Sq, Sk, heads, scale, stream, keep, keep_ld,         \
-                         round_p_first)
+#define QT_FMA(KERNEL, HD)                                                                  \
+  KERNEL<T, HD>(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, \
+                B, Sq, Sk, heads, scale, stream, keep, keep_ld, round_p_first)
+  if (kernel == ATT_KERNEL_TILED) {
     switch (hd) {
-      case 32: return QT_TILED(32);
-      case 64: return QT_TILED(64);
-      case 128: return QT_TILED(128);
-      default: return cudaErrorInvalidValue;
+      case 32: return QT_FMA(attention_tiled, 32);
+      case 64: return QT_FMA(attention_tiled, 64);
+      default: return QT_FMA(attention_tiled, 128);
     }
-#undef QT_TILED
   }
-  const size_t smem = attention_smem_bytes(Sk, hd);
+  if (kernel == ATT_KERNEL_WIDE) {
+    return hd == 256 ? QT_FMA(attention_wide_head, 256) : QT_FMA(attention_wide_head, 512);
+  }
+#undef QT_FMA
+  if (kernel != ATT_KERNEL_STAGED) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

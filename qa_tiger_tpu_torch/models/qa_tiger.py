@@ -67,6 +67,9 @@ class QATiger(nn.Module):
     Initialised on the CPU from ``seed`` with the JAX package's init
     statistics (the numbers differ: the generators differ)."""
 
+    FROZEN_PREFIXES = FROZEN_PREFIXES
+    SITES = SITES
+
     def __init__(self, cfg: dict, seed: int = 0):
         super().__init__()
         self.cfg = dict(cfg)

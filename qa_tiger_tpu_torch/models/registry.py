@@ -1,14 +1,18 @@
 """Model factory: dispatch on the config's ``model_type`` prefix.
 
-Port of ``qa_tiger_tpu/models/registry.py`` for the models this package
-has: names starting with 'QA-TIGER' build ``QATiger``. The TSPM baseline is
-a later slice of the port (ROADMAP.md, A6).
+Port of ``qa_tiger_tpu/models/registry.py``: names starting with
+'QA-TIGER' build ``QATiger``, 'TSPM' the baseline ``TSPM``. A model's
+hyperparameters (``model_config``) name their class: ``tspm_config`` sets
+``arch="TSPM"``, and a config without ``arch`` is QA-TIGER's.
 """
 from __future__ import annotations
 
 import torch
 
 from qa_tiger_tpu_torch.models.qa_tiger import QATiger, qa_tiger_config
+from qa_tiger_tpu_torch.models.tspm import TSPM, tspm_config
+
+MODEL_REGISTRY = {"QA-TIGER": qa_tiger_config, "TSPM": tspm_config}
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -36,22 +40,25 @@ def model_config(model_type: str, model_kwargs: dict, num_labels: int = 42) -> d
     """The model hyperparameters of ``model_type`` (what ``AVQARunner``
     takes), dispatched on its prefix like the JAX package's
     ``build_model``."""
-    if model_type.startswith("QA-TIGER"):
-        return qa_tiger_config(num_labels=num_labels, **dict(model_kwargs))
-    if model_type.startswith("TSPM"):
-        raise NotImplementedError(
-            "TSPM is not ported yet (ROADMAP.md, A6: "
-            "models/tspm.py)")
+    for prefix, config in MODEL_REGISTRY.items():
+        if model_type.startswith(prefix):
+            return config(num_labels=num_labels, **dict(model_kwargs))
     raise NotImplementedError(
         f"Model type {model_type} is not implemented; known prefixes: "
-        f"['QA-TIGER']")
+        f"{sorted(MODEL_REGISTRY)}")
+
+
+def model_class(model_cfg: dict) -> type[QATiger] | type[TSPM]:
+    """The module class ``model_cfg`` (a ``model_config``) builds."""
+    return TSPM if model_cfg.get("arch") == "TSPM" else QATiger
 
 
 def build_model(model_type: str, model_kwargs: dict, num_labels: int = 42, *,
-                device: str | torch.device | None = None, seed: int = 0) -> QATiger:
+                device: str | torch.device | None = None, seed: int = 0) -> QATiger | TSPM:
     """The eval-mode model for ``model_type``, its weights drawn from
     ``seed`` on the CPU and then moved to ``device`` (``cuda`` unless
     given)."""
     device = resolve_device(device)
-    model = QATiger(model_config(model_type, model_kwargs, num_labels), seed=seed)
+    cfg = model_config(model_type, model_kwargs, num_labels)
+    model = model_class(cfg)(cfg, seed=seed)
     return model.eval().requires_grad_(False).to(device)

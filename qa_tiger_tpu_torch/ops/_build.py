@@ -35,6 +35,10 @@ SIGNATURES = {
                            _I, _I, _I, _I, _F, _P],
     # not a launcher: the kernel qt::attention takes (0 fma, 1 mma, 2 mma_short)
     "qt_attention_route": [_I, _I, _I, _I, _I],
+    # not a launcher: the kernel and shared memory of qt::attention_plan
+    # (ops/attention.py KERNEL_NAMES), and the device's opt-in limit per block
+    "qt_attention_plan": [_I, _I, _I, _I, _I, _P],
+    "qt_smem_optin": [],
     # not a launcher: the GEMM routine of a fused kernel's product (0 fma,
     # 1 wmma, 2 wgmma)
     "qt_gemm_route": [_I, _I, _I, _I],

@@ -7,30 +7,140 @@ and ``fused_attention``. The CUDA kernels in ``csrc/attention.cu`` run for
 CUDA tensors, the plain versions for CPU tensors. On the card bf16 calls at
 head sizes 32, 64 and 128 take a tensor-core kernel: the short one (a warp
 per problem) at most 16 queries and 16 keys, the mma one at least 16 of
-each; every other call an fp32 FMA kernel (whole keys staged in shared
-memory up to 128 keys, 64-key tiles in two passes beyond);
-``attention_route`` names the one a call takes. The wrappers take any
-layout the plain version takes: over 128 keys a head smaller than 128 is
-zero-padded to the next built size, and a bf16 operand the tensor-core
-kernel cannot read with 16-byte copies is copied to a contiguous tensor
-first; neither changes the route. On CUDA
+each; every other call an fp32 FMA kernel: whole keys staged in shared
+memory up to 128 keys where they fit the block's opt-in shared memory, else
+key tiles in two passes (64-key tiles at head sizes up to 128, the
+wide-head kernel's 16 or 32-key tiles at 256 and 512). ``attention_plan``
+says in Python which kernel a call takes, at which head size and with how
+much shared memory, by the rule ``qt::attention_plan`` applies on the card
+(``csrc/common.cuh``); ``attention_route`` asks the library for the route.
+A call no kernel takes at its own head size is zero-padded to the next
+size one takes; one that no size fits raises, naming its shape. A bf16
+operand the tensor-core kernel cannot read with 16-byte copies is copied to
+a contiguous tensor first; neither changes the route. On CUDA
 the gradient is that of the plain version, recomputed (``ops/_grad.py``),
 the JAX ``custom_vjp`` rules: q, k, v, ``key_bias`` and a mask that
 requires grad get real cotangents.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from qa_tiger_tpu_torch.ops import _build, _grad
 
-# over this many keys the kernel streams them in tiles, for the head sizes
-# it is built for only (csrc/common.cuh, ATT_STAGED_MAX_SK); the wrapper
-# zero-pads any smaller head to the next of them
+# the staged kernel takes at most this many keys (csrc/common.cuh,
+# ATT_STAGED_MAX_SK); the tiled kernels take the head sizes below
 STAGED_MAX_SK = 128
-KERNEL_HEAD_SIZES = (32, 64, 128)
+KERNEL_HEAD_SIZES = (32, 64, 128, 256, 512)
+TC_HEAD_SIZES = (32, 64, 128)
 # qt_attention_route's codes (csrc/common.cuh, AttentionRoute)
 ROUTES = ("fma", "mma", "mma_short")
+# qt_attention_plan's codes (csrc/common.cuh, AttentionKernel), from 0
+KERNEL_NAMES = ("staged", "tiled", "wide", "mma", "mma_short")
+# an H100's opt-in shared memory per block, the plan's limit for a call on
+# the CPU; on the card the device's own (qt_smem_optin)
+H100_SMEM_OPTIN = 232_448
+# the kernels' tiles (csrc/common.cuh): ATT_WARPS; AT_Q, AT_K; AW_Q; AM_Q,
+# AM_K, AM_PAD; AS_WARPS, AS_ROWS
+_ATT_WARPS, _AT_Q, _AT_K, _AW_Q = 4, 64, 64, 16
+_AM_Q, _AM_K, _AM_PAD, _AS_WARPS, _AS_ROWS = 64, 64, 8, 4, 16
+
+
+class AttentionPlan(NamedTuple):
+    route: str       # "fma", "mma" or "mma_short"
+    kernel: str      # one of KERNEL_NAMES
+    head: int        # the head size the kernel runs at (zero-padded past hd)
+    smem_bytes: int  # the kernel's dynamic shared memory per block
+
+
+def _smem_bytes(kernel: str, sk: int, hd: int) -> int:
+    """Each kernel's dynamic shared memory, as its launcher computes it."""
+    if kernel == "staged":
+        return 4 * (sk * (hd + 1) + sk * hd + _ATT_WARPS * (hd + sk))
+    if kernel == "tiled":
+        return 4 * ((_AT_Q + _AT_K) * (hd + 1) + _AT_K * hd + _AT_Q * (_AT_K + 1))
+    if kernel == "wide":
+        kt = 16 if hd >= 512 else 32
+        return 4 * ((_AW_Q + kt) * (hd + 4) + kt * hd + _AW_Q * (kt + 1))
+    if kernel == "mma":
+        return 2 * (_AM_Q + 4 * _AM_K) * (hd + _AM_PAD)
+    return 2 * _AS_WARPS * 2 * 3 * _AS_ROWS * (hd + _AM_PAD)
+
+
+def _kernel_at(bf16: bool, sq: int, sk: int, hd: int, has_keep: bool,
+               limit: int) -> tuple[str | None, int]:
+    """``qt::attention_plan`` at one head size: (kernel or None, bytes)."""
+    if bf16 and not has_keep and hd in TC_HEAD_SIZES:
+        if sq <= 16 and sk <= 16:
+            kernel = "mma_short"
+        elif sq >= 16 and sk >= 16:
+            kernel = "mma"
+        else:
+            kernel = None
+        if kernel is not None:
+            nbytes = _smem_bytes(kernel, sk, hd)
+            return (kernel if nbytes <= limit else None), nbytes
+    if sk <= STAGED_MAX_SK and _smem_bytes("staged", sk, hd) <= limit:
+        return "staged", _smem_bytes("staged", sk, hd)
+    kernel = "tiled" if hd in TC_HEAD_SIZES else "wide" if hd in (256, 512) else None
+    if kernel is None:
+        return None, 0
+    nbytes = _smem_bytes(kernel, sk, hd)
+    return (kernel if nbytes <= limit else None), nbytes
+
+
+_DEVICE_LIMITS: dict[int, int] = {}
+
+
+def smem_limit(device: torch.device | None = None) -> int:
+    """The opt-in shared memory per block that plans a call on ``device``:
+    the card's own (asked of the kernel library once per card), an H100's
+    for the CPU."""
+    if device is None or torch.device(device).type != "cuda":
+        return H100_SMEM_OPTIN
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _DEVICE_LIMITS:
+        with torch.cuda.device(index):
+            _DEVICE_LIMITS[index] = int(_build.library().qt_smem_optin())
+    return _DEVICE_LIMITS[index]
+
+
+def attention_plan(dtype: torch.dtype, sq: int, sk: int, hd: int, has_keep: bool = False,
+                   limit: int = H100_SMEM_OPTIN) -> AttentionPlan:
+    """The kernel the card's ``qt::attention`` takes for a call of this dtype
+    and shape, in pure Python: the tensor-core routes for bf16 at head sizes
+    32/64/128 without a keep mask, else the staged FMA kernel where its
+    shared memory fits ``limit``, else the tiled (head sizes 32/64/128) or
+    wide-head (256/512) kernel. A call no kernel takes at head size ``hd``
+    runs zero-padded at the next size one takes (zero lanes add nothing to
+    q·kᵀ and give zero context lanes, which the wrapper drops). Raises
+    ``ValueError`` naming the shape when no size fits."""
+    bf16 = dtype == torch.bfloat16
+    for head in (hd, *(s for s in KERNEL_HEAD_SIZES if s > hd)):
+        kernel, nbytes = _kernel_at(bf16, sq, sk, head, has_keep, limit)
+        if kernel is not None:
+            route = kernel if kernel in ("mma", "mma_short") else "fma"
+            return AttentionPlan(route, kernel, head, nbytes)
+    raise ValueError(
+        f"no attention kernel takes Sq={sq}, Sk={sk}, head size {hd} ({dtype}): its shared "
+        f"memory would pass the {limit}-byte limit per block, and head sizes past "
+        f"{KERNEL_HEAD_SIZES[-1]} have no key-tiled kernel")
+
+
+def library_plan(dtype: torch.dtype, sq: int, sk: int, hd: int,
+                 has_keep: bool = False) -> tuple[str | None, int]:
+    """(kernel, shared memory bytes) that the library's
+    ``qt_attention_plan`` gives at head size ``hd`` on the current card: the
+    card's answer that ``attention_plan`` is held to. Builds the library."""
+    import ctypes
+
+    nbytes = ctypes.c_longlong(0)
+    code = _build.library().qt_attention_plan(_build.dtype_code(dtype), sq, sk, hd,
+                                              int(has_keep), ctypes.byref(nbytes))
+    return (KERNEL_NAMES[code] if code >= 0 else None), nbytes.value
 
 
 def attention_route(dtype: torch.dtype, sq: int, sk: int, hd: int,
@@ -38,10 +148,11 @@ def attention_route(dtype: torch.dtype, sq: int, sk: int, hd: int,
     """The kernel the card's dispatch (``qt::attention``) takes for a call of
     this dtype and shape: "mma_short" (tensor cores, a warp per problem of at
     most 16 queries and keys), "mma" (tensor cores, 64 query rows per block)
-    or "fma", at the head size the wrapper launches (``_kernel_head``). Asks
-    the kernel library, so it builds it on first use."""
-    code = _build.library().qt_attention_route(_build.dtype_code(dtype), sq, sk,
-                                               _kernel_head(hd, sk), int(has_keep))
+    or "fma", at the head size the wrapper launches (``attention_plan``).
+    Asks the kernel library, so it builds it on first use."""
+    head = attention_plan(dtype, sq, sk, hd, has_keep).head
+    code = _build.library().qt_attention_route(_build.dtype_code(dtype), sq, sk, head,
+                                               int(has_keep))
     return ROUTES[code]
 
 
@@ -83,21 +194,15 @@ def _check_qkv(q, k, v, heads: int) -> None:
         raise ValueError("k and v need the same length")
     if W % heads:
         raise ValueError(f"width {W} does not split into {heads} heads")
-    _kernel_head(W // heads, k.shape[1])
+    _kernel_head(W // heads, k.shape[1], q.dtype, Sq, smem_limit(q.device))
 
 
-def _kernel_head(hd: int, sk: int) -> int:
-    """The head size the kernel runs a call at: ``hd`` itself, or, over
-    ``STAGED_MAX_SK`` keys, the next size the kernels are built for. Zero
-    columns add nothing to q·kᵀ and give zero context columns, which the
-    wrapper drops, so the padded call computes the same function."""
-    if sk <= STAGED_MAX_SK or hd in KERNEL_HEAD_SIZES:
-        return hd
-    for size in KERNEL_HEAD_SIZES:
-        if hd < size:
-            return size
-    raise ValueError(f"over {STAGED_MAX_SK} keys the kernel takes head sizes up to "
-                     f"{KERNEL_HEAD_SIZES[-1]}, not {hd}")
+def _kernel_head(hd: int, sk: int, dtype: torch.dtype = torch.float32, sq: int = 1,
+                 limit: int = H100_SMEM_OPTIN) -> int:
+    """The head size the card's kernel runs a call at (``attention_plan``):
+    ``hd`` itself, or the next size a kernel takes; raises naming the shape
+    when none does."""
+    return attention_plan(dtype, sq, sk, hd, limit=limit).head
 
 
 def _kernel_operand(t: torch.Tensor, heads: int, hd: int, hdp: int) -> torch.Tensor:
@@ -169,7 +274,7 @@ def _wide_reference_kb(q, k, v, key_bias, *, mask, scale, heads):
 def _launch(q, k, v, key_bias=None, *, mask, scale, heads):
     B, Sq, W = q.shape
     hd = W // heads
-    hdp = _kernel_head(hd, k.shape[1])
+    hdp = _kernel_head(hd, k.shape[1], q.dtype, Sq, smem_limit(q.device))
     q, k, v = (_kernel_operand(t, heads, hd, hdp) for t in (q, k, v))
     out = torch.empty(B, Sq, heads * hdp, dtype=q.dtype, device=q.device)
     _build.launch(
@@ -247,7 +352,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_fused(q, k, v, *, mask, scale):
     BH, Sq, dh = q.shape
-    dhp = _kernel_head(dh, k.shape[1])
+    dhp = _kernel_head(dh, k.shape[1], q.dtype, Sq, smem_limit(q.device))
     q, k, v = (_kernel_operand(t, 1, dh, dhp) for t in (q, k, v))
     out = torch.empty(BH, Sq, dhp, dtype=q.dtype, device=q.device)
     _build.launch(

@@ -9,8 +9,12 @@ layer). One CLI, one subcommand per stage:
   clip         frame dirs -> [60, 768] CLIP CLS features
   clip-tokens  frame dirs -> [60, grid*grid, width] CLIP patch tokens
   tome         frame dirs -> [60, 14, 1024] ToMe-merged tokens
+  questions    annotations -> one [1, 768] question feature per question_id
+  prompts      annotations -> one [1, 768] QA-prompt feature per question_id
 
     python -m qa_tiger_tpu_torch.pipeline.extract tome --src F --dst O --random-weights
+    python -m qa_tiger_tpu_torch.pipeline.extract questions --annot A.json --dst O \
+        --weights clip_text.npz
 
 Each model stage is two parts: a function that encodes one video's decoded
 array on the model's device (``encode_clip``, ``encode_clip_tokens``,
@@ -19,11 +23,17 @@ decodes, encodes and saves one ``.npy`` per video, skipping videos whose
 output exists (the reference's resumability rule). A whole video's 60
 frames or seconds go through one forward.
 
+The ``questions`` and ``prompts`` stages feed TSPM: each question's text
+with its template slots filled (``data.annotations.substitute_template``)
+or its QA prompt (``data.prompts.match_prompt``), tokenized by
+``data.ClipTokenizer`` (the merges file ``QA_TIGER_BPE_VOCAB`` names), runs
+through the CLIP text tower (``models.clip_text``) in chunks of 256 texts,
+and its pooled feature is saved as ``<question_id>.npy`` [1, embed_dim];
+ids already written are skipped.
+
 Weights: ``--weights model.npz`` (a state_dict of the stage's module, as
 ``convert.load_npz`` reads it) or ``--random-weights`` (seed 0). The models
-run on ``--device`` (cuda unless given) in fp32. The question and prompt
-stages wait for the CLIP tokenizer's vocabulary, ``consolidate`` for its
-port (ROADMAP.md).
+run on ``--device`` (cuda unless given) in fp32.
 """
 from __future__ import annotations
 
@@ -37,13 +47,18 @@ import numpy as np
 import torch
 
 from qa_tiger_tpu_torch.convert import load_npz
+from qa_tiger_tpu_torch.data.annotations import load_annotations, substitute_template
+from qa_tiger_tpu_torch.data.prompts import match_prompt
+from qa_tiger_tpu_torch.data.tokenizer import ClipTokenizer
 from qa_tiger_tpu_torch.models import clip_image as CI
+from qa_tiger_tpu_torch.models import clip_text as CT
 from qa_tiger_tpu_torch.models import vit as VT
 from qa_tiger_tpu_torch.models.registry import resolve_device
 from qa_tiger_tpu_torch.ops.mel import SAMPLE_RATE
 from qa_tiger_tpu_torch.pipeline import vggish as V
 
 TARGET_FRAMES = 60
+TEXT_CHUNK = 256  # texts per text-tower forward
 VIDEO_SUFFIXES = (".mp4", ".avi", ".mkv", ".webm")
 # timm vit_large_patch16_384 normalises inception-style
 TOME_MEAN = TOME_STD = (0.5, 0.5, 0.5)
@@ -211,6 +226,43 @@ def run_tome(args) -> None:
                 lambda m, x: encode_tome(m, x, rs))
 
 
+@torch.inference_mode()
+def encode_texts(model, texts: Sequence[str], chunk: int = TEXT_CHUNK) -> np.ndarray:
+    """Texts -> [N, embed_dim] pooled text-tower features (fp32 numpy),
+    ``chunk`` texts per forward on the model's device."""
+    device = next(model.parameters()).device
+    tok = ClipTokenizer()
+    out = [np.zeros((0, model.cfg["embed_dim"]), np.float32)]
+    for i in range(0, len(texts), chunk):
+        ids = torch.from_numpy(tok(list(texts[i:i + chunk]), truncate=True)).to(device)
+        out.append(model(ids)[0].float().cpu().numpy())
+    return np.concatenate(out)
+
+
+def stage_texts(samples: Sequence[dict], use_prompt: bool) -> list[str]:
+    """Each annotation's question with its slots filled, or its QA prompt."""
+    fill = match_prompt if use_prompt else substitute_template
+    return [fill(s["question_content"], s["templ_values"]) for s in samples]
+
+
+def run_questions(args, use_prompt: bool = False) -> None:
+    """The ``questions`` / ``prompts`` stage over ``--annot``: one
+    ``<question_id>.npy`` [1, embed_dim] in ``--dst`` per question not
+    written yet."""
+    samples = load_annotations(args.annot)
+    dst = Path(args.dst)
+    dst.mkdir(parents=True, exist_ok=True)
+    todo = [s for s in samples if not (dst / f"{int(s['question_id'])}.npy").exists()]
+    feats = np.zeros((0,))
+    if todo:
+        model = _load_params(args, lambda: CT.CLIPTextTower(
+            args.encoder, torch.Generator().manual_seed(0)))
+        feats = encode_texts(model, stage_texts(todo, use_prompt))
+    for s, f in zip(todo, feats):
+        np.save(dst / f"{int(s['question_id'])}.npy", f[None])
+    print(f"encoded {len(todo)} texts -> {dst}")
+
+
 def _ffmpeg_stage(src: Path, dst: Path, fps_or_sr: int, wav: bool) -> None:
     for video_file in sorted(src.iterdir()):
         if video_file.suffix not in VIDEO_SUFFIXES:
@@ -252,12 +304,22 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--model", default="vit_large_patch16_384")
     p.add_argument("--r", type=int, default=25)
     p.add_argument("--layers", type=int, default=23)
+    for name in ("questions", "prompts"):
+        p = sub.add_parser(name)
+        p.add_argument("--annot", required=True)
+        p.add_argument("--dst", required=True)
+        p.add_argument("--encoder", default="ViT-L/14@336px")
+        p.add_argument("--weights", default=None)
+        p.add_argument("--random-weights", action="store_true")
+        p.add_argument("--device", default=None, help="cuda unless given")
 
     args = parser.parse_args(argv)
     if args.cmd == "frames":
         _ffmpeg_stage(Path(args.src), Path(args.dst), args.fps, wav=False)
     elif args.cmd == "audio":
         _ffmpeg_stage(Path(args.src), Path(args.dst), args.sr, wav=True)
+    elif args.cmd in ("questions", "prompts"):
+        run_questions(args, use_prompt=args.cmd == "prompts")
     else:
         {"vggish": run_vggish, "clip": run_clip_frames, "clip-tokens": run_clip_tokens,
          "tome": run_tome}[args.cmd](args)

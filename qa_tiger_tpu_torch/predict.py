@@ -37,6 +37,7 @@ from qa_tiger_tpu_torch.data.dataset import load_video_features
 from qa_tiger_tpu_torch.data.tokenizer import ClipTokenizer
 from qa_tiger_tpu_torch.models.qa_tiger import check_text_ctx
 from qa_tiger_tpu_torch.models.registry import build_model, resolve_device, select_device
+from qa_tiger_tpu_torch.models.tspm import TOKEN_IDS_REFUSED, TSPM
 from qa_tiger_tpu_torch.training.checkpoint import load_checkpoint, load_clip_text_state
 from qa_tiger_tpu_torch.utils.config import load_config_module
 
@@ -78,6 +79,10 @@ class Predictor:
     ``dtype``. ``weights`` is None (random weights from ``seed``), a path to
     a ``best.npz``, or a mapping: a ``state_dict`` or a JAX parameter pytree
     of numpy arrays. Loading is strict.
+
+    A TSPM config raises ``NotImplementedError``, the JAX entry point's
+    error: questions arrive as token ids, and TSPM reads precomputed
+    question and prompt features only.
     """
 
     def __init__(self, config, device: str | torch.device | None = None,
@@ -91,6 +96,8 @@ class Predictor:
         model = build_model(hp["model_type"], hp["model"],
                             num_labels=len(self.ix2ans), device="cpu",
                             seed=seed)
+        if isinstance(model, TSPM):
+            raise NotImplementedError(TOKEN_IDS_REFUSED)
         if weights is not None:
             state = load_npz(weights) if isinstance(weights, (str, Path)) \
                 else params_from_jax(weights)

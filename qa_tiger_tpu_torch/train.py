@@ -21,7 +21,6 @@ from pathlib import Path
 import torch
 
 from qa_tiger_tpu_torch.data import AVQADataset, BatchLoader
-from qa_tiger_tpu_torch.models.qa_tiger import FROZEN_PREFIXES
 from qa_tiger_tpu_torch.models.registry import model_config, select_device
 from qa_tiger_tpu_torch.training import (
     AVQARunner,
@@ -107,7 +106,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     loaders = make_loaders(cfg)
     runner = build_runner(cfg, device)
-    calculate_parameters(runner.params, frozen_prefixes=FROZEN_PREFIXES)
+    calculate_parameters(runner.params, frozen_prefixes=runner.model.FROZEN_PREFIXES)
     cache = cfg.hyper_params.get("cache_qst_features")
     if cache:
         # every split's questions through the (now loaded) frozen tower once;

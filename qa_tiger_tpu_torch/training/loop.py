@@ -51,13 +51,8 @@ import torch
 from torch.func import functional_call
 
 from qa_tiger_tpu_torch.convert import params_from_jax
-from qa_tiger_tpu_torch.models.qa_tiger import (
-    FROZEN_PREFIXES,
-    QATiger,
-    check_text_ctx,
-    split_generator,
-)
-from qa_tiger_tpu_torch.models.registry import resolve_device
+from qa_tiger_tpu_torch.models.qa_tiger import check_text_ctx, split_generator
+from qa_tiger_tpu_torch.models.registry import model_class, resolve_device
 from qa_tiger_tpu_torch.training.checkpoint import TENSOR_ENTRIES, load_clip_text_state
 from qa_tiger_tpu_torch.training.metrics import (
     accuracy_report,
@@ -81,10 +76,6 @@ TRACE_FILE = "train_steps_1-3.json"
 
 def _dtype(name: str | None) -> torch.dtype | None:
     return getattr(torch, name) if name else None
-
-
-def _frozen(name: str) -> bool:
-    return name.split(".")[0] in FROZEN_PREFIXES
 
 
 def _as_state(params: Mapping) -> dict[str, torch.Tensor]:
@@ -116,9 +107,11 @@ class AVQARunner:
     weight_decay, encoder_lr, grad_accum; ``hyper_params.train_dtype`` /
     ``eval_dtype`` / ``steps_per_dispatch``; ``log_interval``; ``debug``;
     ``profile_dir``). ``model_cfg``: the model's
-    hyperparameters (``models.qa_tiger_config``). The model runs on
-    ``device`` (``cuda`` unless given, no fallback). Weights come from
-    ``seed``, or from ``init_params`` (a state_dict or a JAX pytree).
+    hyperparameters (``models.model_config``: QA-TIGER's, or TSPM's, whose
+    model has no frozen tower and reads precomputed question and prompt
+    features). The model runs on ``device`` (``cuda`` unless given, no
+    fallback). Weights come from ``seed``, or from ``init_params`` (a
+    state_dict or a JAX pytree).
     """
 
     def __init__(self, cfg: Mapping, model_cfg: Mapping, *,
@@ -133,8 +126,11 @@ class AVQARunner:
             enc_dt = "bfloat16"
         self.model_cfg["encoder_dtype"] = enc_dt
         self._encoder_dtype = _dtype(enc_dt)
-        self.model = QATiger(self.model_cfg, seed=seed)
-        self.model.quest_encoder.requires_grad_(False)
+        self.model = model_class(self.model_cfg)(self.model_cfg, seed=seed)
+        self._frozen_prefixes = self.model.FROZEN_PREFIXES
+        for name, p in self.model.named_parameters():
+            if self._frozen(name):
+                p.requires_grad_(False)
         self.model.to(self.device)
         hp = cfg["hyper_params"]
         self._optim_cfg = dict(hp["optim"])
@@ -168,8 +164,11 @@ class AVQARunner:
         self.epoch_stats: dict[str, float] | None = None
 
     # ------------------------------------------------------------------
+    def _frozen(self, name: str) -> bool:
+        return name.split(".")[0] in self._frozen_prefixes
+
     def trainable(self) -> list[tuple[str, torch.nn.Parameter]]:
-        return [(n, p) for n, p in self.model.named_parameters() if not _frozen(n)]
+        return [(n, p) for n, p in self.model.named_parameters() if not self._frozen(n)]
 
     def _make_optimizer(self) -> None:
         oc = self._optim_cfg
@@ -183,8 +182,11 @@ class AVQARunner:
         self._step_graph = None
 
     def _cast_frozen(self) -> None:
-        if self._encoder_dtype is not None:
-            self.model.quest_encoder.to(self._encoder_dtype)
+        """The frozen tower in ``encoder_dtype``; a model without one (TSPM)
+        has nothing to cast."""
+        tower = getattr(self.model, "quest_encoder", None)
+        if tower is not None and self._encoder_dtype is not None:
+            tower.to(self._encoder_dtype)
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
@@ -196,7 +198,7 @@ class AVQARunner:
         be there; the frozen tower may be left out (it keeps its weights).
         Adam's state starts afresh."""
         missing, unexpected = self.model.load_state_dict(_as_state(params), strict=False)
-        missing = [n for n in missing if not _frozen(n)]
+        missing = [n for n in missing if not self._frozen(n)]
         if missing or unexpected:
             raise KeyError(f"load_params: missing {missing}, unexpected {unexpected}")
         self._cast_frozen()
@@ -207,8 +209,16 @@ class AVQARunner:
         whatever ``training.checkpoint.load_clip_text_state`` reads. The
         load is strict, into the tower only, which is then cast to
         ``encoder_dtype``: the counterpart of the reference's clip.load()
-        inside CLIP_TEncoder (src/models/encoders.py:13)."""
-        self.model.quest_encoder.load_state_dict(load_clip_text_state(path), strict=True)
+        inside CLIP_TEncoder (src/models/encoders.py:13). A model without
+        the tower (TSPM) reads the file and keeps nothing: the JAX runner
+        adds the weights to its frozen parameters, which its forward never
+        reads."""
+        state = load_clip_text_state(path)
+        if getattr(self.model, "quest_encoder", None) is None:
+            self.logger.info(f"loaded frozen CLIP text tower from {path} (unused: the model "
+                             "reads precomputed question features)")
+            return
+        self.model.quest_encoder.load_state_dict(state, strict=True)
         self._cast_frozen()
         self._step_graph = None  # the cast may have replaced the tower's tensors
         self.logger.info(f"loaded frozen CLIP text tower from {path}")
@@ -278,7 +288,7 @@ class AVQARunner:
             self.logger.info("question cache skipped: dataset serves "
                              "precomputed question features")
             return False
-        if not any(_frozen(n) for n, _ in self.model.named_parameters()):
+        if not any(self._frozen(n) for n, _ in self.model.named_parameters()):
             self.logger.info("question cache skipped: no frozen text tower")
             return False
         texts = [s["question_content"] for s in dataset.samples]
@@ -405,7 +415,7 @@ class AVQARunner:
                 return self._step(self._gather_questions(static, cache), sites=sites)
 
             graph = self._step_graph = StepGraph(step, batch, accum=self._grad_accum,
-                                                 device=self.device,
+                                                 sites=self.model.SITES, device=self.device,
                                                  capture=self.graph_capture, cache=cache)
         return graph if graph.key == batch_key(batch) else None
 

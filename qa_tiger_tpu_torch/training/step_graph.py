@@ -46,16 +46,17 @@ def batch_key(batch: dict) -> tuple:
     return tuple((k, tuple(v.shape), v.dtype) for k, v in batch.items())
 
 
-def site_seeds(generator: torch.Generator, accum: int, device) -> list[list[int]]:
-    """The seeds of one step's dropout sites, one row of SITES per
-    microbatch, drawn from ``generator`` in the order an eager step draws
-    them: SITES seeds (``QATiger.forward``'s ``split_generator``), or with
-    ``accum`` > 1 first ``accum`` microbatch generators on ``device`` (as
-    ``AVQARunner._accumulated_backward`` splits the stream) and then SITES
-    seeds from each."""
+def site_seeds(generator: torch.Generator, accum: int, device,
+               sites: int = SITES) -> list[list[int]]:
+    """The seeds of one step's dropout sites, one row of ``sites`` (the
+    model's ``SITES``, QA-TIGER's by default) per microbatch, drawn from ``generator`` in the order
+    an eager step draws them: ``sites`` seeds (the forward's
+    ``split_generator``), or with ``accum`` > 1 first ``accum`` microbatch
+    generators on ``device`` (as ``AVQARunner._accumulated_backward`` splits
+    the stream) and then ``sites`` seeds from each."""
     if accum <= 1:
-        return [split_seeds(generator, SITES)]
-    return [split_seeds(g, SITES) for g in split_generator(generator, accum, device)]
+        return [split_seeds(generator, sites)]
+    return [split_seeds(g, sites) for g in split_generator(generator, accum, device)]
 
 
 class StepGraph:
@@ -63,14 +64,14 @@ class StepGraph:
     ``capture``.
 
     ``step(batch, sites)`` is the step on device tensors: it reads the
-    batch, draws dropout from ``sites`` (one list of SITES generators per
-    microbatch), updates the parameters and returns the losses as device
-    scalars. ``batch`` is a staged batch whose key the graph takes;
-    ``cache`` the question cache the step gathers from, kept so that its
-    owner can tell when the cache changed."""
+    batch, draws dropout from ``sites`` (one list of ``sites`` generators,
+    the model's SITES, per microbatch), updates the parameters and returns
+    the losses as device scalars. ``batch`` is a staged batch whose key the
+    graph takes; ``cache`` the question cache the step gathers from, kept so
+    that its owner can tell when the cache changed."""
 
     def __init__(self, step: Callable, batch: dict, *, accum: int, device: torch.device,
-                 capture: bool, cache=None):
+                 capture: bool, cache=None, sites: int = SITES):
         self.step = step
         self.key = batch_key(batch)
         self.cache = cache
@@ -78,7 +79,8 @@ class StepGraph:
         self.device = device
         self.capture = capture
         self.static = {k: torch.empty_like(v) for k, v in batch.items()}
-        self.sites = [[torch.Generator(device=device) for _ in range(SITES)]
+        self.n_sites = sites
+        self.sites = [[torch.Generator(device=device) for _ in range(sites)]
                       for _ in range(self.accum)]
         self.side = torch.cuda.Stream(device) if capture else None
         self.graph: torch.cuda.CUDAGraph | None = None
@@ -114,7 +116,7 @@ class StepGraph:
         # waits for no step in flight
         stream = torch.cuda.stream(self.side) if self.accum > 1 and self.side else nullcontext()
         with stream:
-            return site_seeds(generator, self.accum, self.device)
+            return site_seeds(generator, self.accum, self.device, self.n_sites)
 
     def _on_side(self, fn: Callable):
         main = torch.cuda.current_stream(self.device)

@@ -1,7 +1,7 @@
 """What the attention wrappers hand the CUDA kernels, checked on the CPU.
 
-On the card ``attention_wide`` and ``fused_attention`` zero-pad a head the
-kernels are not built for (over 128 keys) to the next built size and copy a
+On the card ``attention_wide`` and ``fused_attention`` zero-pad a head no
+kernel takes at its own size to the next size one takes and copy a
 bf16 operand that the tensor-core kernel cannot read with 16-byte copies.
 Both are plain PyTorch, so they are checked here: the padded operands give
 the same attention (to fp32 rounding: the sums gain zero terms only), the
@@ -23,8 +23,12 @@ def test_kernel_head_sizes(hd, sk, want):
 
 
 def test_kernel_head_refuses_heads_over_128_with_long_keys():
-    with pytest.raises(ValueError, match="head sizes up to 128"):
-        A._kernel_head(160, 129)
+    """Over 128 keys a head past 128 lanes runs on the wide-head kernel,
+    zero-padded to 256 or 512; past 512 no kernel takes it, and the error
+    names the shape."""
+    assert A._kernel_head(160, 129) == 256 and A._kernel_head(512, 577) == 512
+    with pytest.raises(ValueError, match="Sk=129, head size 640"):
+        A._kernel_head(640, 129)
 
 
 @pytest.mark.parametrize("key_bias", [False, True])

@@ -1086,3 +1086,125 @@ def test_train_graph_matches_eager(cuda, train_dtype):
         for key in ("exp_avg", "exp_avg_sq", "step"):
             assert torch.equal(graph.optimizer.state[pa][key],
                                eager.optimizer.state[pb][key]), (name, key)
+
+
+# ---------------------------------------------------------------------------
+# head sizes 256 and 512 (TSPM's one-head attentions): the staged kernel
+# where K_h and V_h fit the block's shared memory, the wide-head kernel
+# otherwise; the plan in Python is the library's
+# ---------------------------------------------------------------------------
+
+WIDE_HEAD_CASES = [(60, 60, 512, 1), (14, 14, 512, 1), (60, 54, 512, 1), (60, 55, 512, 1),
+                   (33, 100, 512, 2), (1, 60, 512, 1), (70, 577, 256, 2), (17, 129, 256, 3),
+                   (70, 300, 200, 2)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sq,sk,hd,heads", WIDE_HEAD_CASES)
+@pytest.mark.parametrize("bias,masked", [(False, False), (True, False), (False, True),
+                                         (True, True)])
+def test_attention_wide_heads(cuda, sq, sk, hd, heads, bias, masked, dtype):
+    """q, k and v column slices of one packed buffer, with a key bias and a
+    causal mask or neither; the library's plan (kernel, shared memory) is
+    attention_plan's at the card's limit; a second launch bitwise the same."""
+    rng = np.random.default_rng(sq * 1000 + sk + hd)
+    q, k, v = _packed_qkv(rng, 3, sq, sk, hd * heads, dtype, cuda)
+    kb = (torch.from_numpy(np.log(rng.integers(1, 41, (3, sk))).astype(np.float32)).to(cuda)
+          if bias else None)
+    mask = _causal(sq, sk, cuda) if masked else None
+    plan = A.attention_plan(dtype, sq, sk, hd, limit=A.smem_limit(cuda))
+    assert plan.smem_bytes <= A.smem_limit(cuda)
+    assert A.library_plan(dtype, sq, sk, plan.head) == (plan.kernel, plan.smem_bytes)
+    assert A.attention_route(dtype, sq, sk, hd) == plan.route == "fma"
+    scale = hd ** -0.5
+    n = A.attention_wide.launches
+    _check(lambda: A.attention_wide(q, k, v, mask, scale, heads, key_bias=kb),
+           lambda: A._wide_reference(q, k, v, mask, scale, heads, kb), dtype)
+    assert A.attention_wide.launches == n + 1
+    assert torch.equal(A.attention_wide(q, k, v, mask, scale, heads, key_bias=kb),
+                       A.attention_wide(q, k, v, mask, scale, heads, key_bias=kb))
+
+
+def test_attention_wide_head_plans(cuda):
+    """TSPM's calls take the kernels the CPU tests plan for them."""
+    limit = A.smem_limit(cuda)
+    assert limit >= 232_448
+    f32 = torch.float32
+    assert A.attention_plan(f32, 60, 60, 512, limit=limit).kernel == "wide"
+    assert A.attention_plan(f32, 14, 14, 512, limit=limit).kernel == "staged"
+    assert A.attention_plan(f32, 577, 577, 256, limit=limit).kernel == "wide"
+    with pytest.raises(ValueError, match="head size 1024"):
+        A.attention_wide(*(torch.zeros(1, 60, 1024, device=cuda) for _ in range(3)), None,
+                         1.0, 1)
+
+
+def _tspm_batch(rng, b, T=60, N=14):
+    return {"audio": rng.standard_normal((b, T, 128), dtype=np.float32),
+            "video": rng.standard_normal((b, T, 768), dtype=np.float32),
+            "patch": rng.standard_normal((b, T, N, 1024), dtype=np.float32),
+            "quest": rng.standard_normal((b, 1, 768), dtype=np.float32),
+            "prompt": rng.standard_normal((b, 768), dtype=np.float32)}
+
+
+def test_tspm_forward_card_against_cpu(cuda):
+    """configs/tspm/vitl14.py's widths, fp32 B=2: the card's logits within
+    rtol 2e-3 / atol 5e-4 of the same weights on the CPU, the same top-K
+    frames, six attention_wide launches per forward; bf16 B=4 finite."""
+    from qa_tiger_tpu_torch.models import TSPM, tspm_config
+
+    cpu = TSPM(tspm_config(), seed=0).eval()
+    card = TSPM(tspm_config(), seed=0).eval().to(cuda)
+    batch = _tspm_batch(np.random.default_rng(0), 2)
+    with torch.no_grad():
+        want = cpu({k: torch.from_numpy(v) for k, v in batch.items()}, aux=True)
+        n = A.attention_wide.launches
+        got = card({k: torch.from_numpy(v).to(cuda) for k, v in batch.items()}, aux=True)
+        torch.cuda.synchronize()
+        assert A.attention_wide.launches == n + 6
+    torch.testing.assert_close(got["out"].cpu(), want["out"], rtol=2e-3, atol=5e-4)
+    assert torch.equal(got["topk_idx"].cpu(), want["topk_idx"])
+    card = card.to(torch.bfloat16)
+    with torch.no_grad():
+        out = card({k: torch.from_numpy(v).to(cuda, torch.bfloat16)
+                    for k, v in _tspm_batch(np.random.default_rng(1), 4).items()})["out"]
+    assert out.shape == (4, 42) and torch.isfinite(out).all()
+
+
+def test_tspm_train_graph_matches_eager(cuda):
+    """``steps_per_dispatch`` 2 with TSPM at its widths, B=4, dropout on:
+    the step's CUDA graph (its four dropout sites registered) bitwise the
+    same static-input step run eagerly over 5 batches."""
+    from qa_tiger_tpu_torch.models import tspm_config
+    from qa_tiger_tpu_torch.training import AVQARunner
+
+    hp = {"optim": dict(lr=1e-4, betas=(0.95, 0.999), weight_decay=0.0, encoder_lr=None),
+          "steps_per_dispatch": 2}
+    cfg = {"log_interval": 1, "debug": False, "hyper_params": hp}
+    graph, eager = (AVQARunner(cfg, tspm_config(), device=cuda, seed=0) for _ in range(2))
+    eager.graph_capture = False
+    rng = np.random.default_rng(0)
+
+    def batch():
+        b = _tspm_batch(rng, 4)
+        b.update(label=rng.integers(0, 42, 4), qtype_label=rng.integers(0, 9, 4),
+                 valid=np.ones(4, bool))
+        return graph.stage_batch(b)
+
+    batches = [batch() for _ in range(5)]
+    losses = []
+    for r in (graph, eager):
+        out = []
+        for i in range(0, 5, 2):
+            out += r.train_window(batches[i:i + 2], 1e-4)
+        losses.append(out)
+    torch.cuda.synchronize()
+    assert graph._step_graph.replays == 4 and graph._step_graph.graph is not None
+    for a, b in zip(*losses):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert torch.equal(graph._step_generator.get_state(), eager._step_generator.get_state())
+    for (name, pa), (_, pb) in zip(graph.trainable(), eager.trainable()):
+        assert torch.equal(pa, pb), name
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            if key in graph.optimizer.state[pa]:
+                assert torch.equal(graph.optimizer.state[pa][key],
+                                   eager.optimizer.state[pb][key]), (name, key)

@@ -257,3 +257,92 @@ def test_tome_stage_with_weights(tiny, media, tmp_path):
                              name="tiny-vit", tome_r=[3] * 3)["tokens"]
     np.testing.assert_allclose(np.load(tmp_path / "o" / "vid2.npy"), np.asarray(want),
                                **NET_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the question and prompt stages (TSPM's features)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def text_corpus(tiny, tmp_path, monkeypatch):
+    """The first 12 val questions (their templates, slot values and ids), a
+    merges file learned from their filled questions and prompts through
+    QA_TIGER_BPE_VOCAB, and one --weights .npz of JAX's clip_text_init for
+    the tiny tower (perturbed), which both packages read."""
+    from torch_corpus import val_questions, write_merges
+
+    from qa_tiger_tpu.data.annotations import substitute_template
+    from qa_tiger_tpu.data.prompts import match_prompt
+
+    samples = val_questions()[:12]
+    annot = tmp_path / "annot.json"
+    annot.write_text(json.dumps(samples))
+    texts = [f(s["question_content"], s["templ_values"]) for s in samples
+             for f in (substitute_template, match_prompt)]
+    write_merges(tmp_path / "vocab.txt.gz", texts)
+    monkeypatch.setenv("QA_TIGER_BPE_VOCAB", str(tmp_path / "vocab.txt.gz"))
+    params = _perturbed(j_clip_text.clip_text_init(jax.random.PRNGKey(0), "tiny-vis"), 1)
+    flat = {k: v.numpy() for k, v in params_from_jax(params).items()}
+    np.savez(tmp_path / "text.npz", **flat)
+    return samples, annot, tmp_path / "text.npz"
+
+
+@pytest.mark.parametrize("stage", ["questions", "prompts"])
+def test_text_stages_match_jax(text_corpus, tmp_path, stage):
+    """Both packages' stage over the same annotations, merges file and
+    weights: one [1, 48] .npy per question_id, equal at the text tower's
+    tolerance (fp32 through 2 blocks); the port's texts are JAX's. A second
+    run writes nothing (ids already written are skipped), and a new id in
+    the annotations is the only one encoded."""
+    samples, annot, weights = text_corpus
+    common = ["--annot", str(annot), "--encoder", "tiny-vis", "--weights", str(weights)]
+    j_extract.main([stage, "--dst", str(tmp_path / "jax"), *common])
+    E.main([stage, "--dst", str(tmp_path / "port"), "--device", "cpu", *common])
+    ids = [int(s["question_id"]) for s in samples]
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) == \
+        sorted(f"{i}.npy" for i in ids)
+    for i in ids:
+        got, want = np.load(tmp_path / "port" / f"{i}.npy"), np.load(tmp_path / "jax" / f"{i}.npy")
+        assert got.shape == want.shape == (1, 48)
+        np.testing.assert_allclose(got, want, **NET_TOL)
+
+    from qa_tiger_tpu.data.annotations import substitute_template
+    from qa_tiger_tpu.data.prompts import match_prompt
+
+    fill = match_prompt if stage == "prompts" else substitute_template
+    assert E.stage_texts(samples, stage == "prompts") == \
+        [fill(s["question_content"], s["templ_values"]) for s in samples]
+
+    first = tmp_path / "port" / f"{ids[0]}.npy"
+    before = first.stat().st_mtime_ns
+    (tmp_path / "port" / f"{ids[1]}.npy").unlink()
+    encoded = []
+    real = E.encode_texts
+    import qa_tiger_tpu_torch.pipeline.extract as extract_mod
+
+    def counting(model, texts, chunk=E.TEXT_CHUNK):
+        encoded.extend(texts)
+        return real(model, texts, chunk)
+
+    extract_mod.encode_texts = counting
+    try:
+        E.main([stage, "--dst", str(tmp_path / "port"), "--device", "cpu", *common])
+    finally:
+        extract_mod.encode_texts = real
+    assert first.stat().st_mtime_ns == before and len(encoded) == 1
+    np.testing.assert_allclose(np.load(tmp_path / "port" / f"{ids[1]}.npy"),
+                               np.load(tmp_path / "jax" / f"{ids[1]}.npy"), **NET_TOL)
+
+
+def test_text_stage_chunks(text_corpus, tmp_path):
+    """Chunked encoding (3 texts per forward) gives the one-chunk features;
+    a stage with texts to encode and no weights exits as the others do."""
+    samples, annot, weights = text_corpus
+    model = clip_text.CLIPTextTower("tiny-vis", torch.Generator().manual_seed(0))
+    model.load_state_dict(E.load_npz(weights), strict=True)
+    texts = E.stage_texts(samples, False)
+    np.testing.assert_allclose(E.encode_texts(model.eval(), texts, chunk=3),
+                               E.encode_texts(model, texts), rtol=1e-6, atol=1e-6)
+    with pytest.raises(SystemExit, match="random-weights"):
+        E.main(["questions", "--annot", str(annot), "--dst", str(tmp_path / "y"),
+                "--device", "cpu"])

@@ -273,7 +273,7 @@ def test_train_epoch_is_a_sequence_of_steps(tiny_tower, caplog):
     assert len(lines) == 2 and "ce_loss-" in lines[1] and "[1/1 (100%)]" in lines[1]
 
 
-def test_evaluate_matches_jax(tiny_tower):
+def test_evaluate_matches_jax(tiny_tower, monkeypatch):
     """evaluate over a two-batch loader: the loss, the 9-way counters and
     the report text equal JAX's eval of the same weights (loss at rtol
     1e-5)."""
@@ -295,7 +295,9 @@ def test_evaluate_matches_jax(tiny_tower):
 
     runner = AVQARunner(runner_cfg(), qa_tiger_config(**TOY), device="cpu", init_params=params)
     lines = Lines()
-    runner.logger.info = lines
+    # through monkeypatch: the "AVQA" logger outlives the test, and later
+    # tests in the process read the run logs it writes
+    monkeypatch.setattr(runner.logger, "info", lines)
     acc, loss = runner.evaluate(2, loader)
     np.testing.assert_allclose(loss, ce_sum / 2, rtol=1e-5)
     assert acc == want["Total"]
