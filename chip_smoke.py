@@ -132,9 +132,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    four-head one-query attn_ffn calls over 14 and 10 keys) and a 256-lane
    head over 577 keys, bf16 and fp32, against its plain version, timed
    beside its bound and SDPA, each line naming its route and kernel
-   (``attn_kernel``: staged, wide, mma_short; the library's plan held to
-   ``ops.attention.attention_plan``), and one masked, key-biased fp32 call
-   of the wide-head kernel twice, bitwise the same; (b) ``tspm_fp32_b4``:
+   (``attn_kernel``: in bf16 mma_wide, mma_wide_short and mma_short, in
+   fp32 wide and staged; the library's plan held to
+   ``ops.attention.attention_plan``), and one masked, key-biased call of
+   the wide-head kernel (fp32) and of the wide mma kernel (bf16) twice,
+   bitwise the same; (b) ``tspm_fp32_b4``:
    the eval forward card against CPU (LOGITS_TOL, the top-K frames equal,
    the seed's smallest top-K weight gap printed); (c) ``tspm_bf16_b256``:
    ``bench``'s protocol, the counters reset around one forward
@@ -2739,12 +2741,21 @@ def tspm_attention_cases(dtype, rng):
     return cases
 
 
+# the kernels TSPM's attention calls must take, by dtype: in bf16 the wide
+# tensor-core kernels (AV_Attn, the 577-key head: mma_wide; TokensAttn:
+# mma_wide_short) and the short route (the four-head attn_ffn calls); in
+# fp32 the FMA kernels
+TSPM_ATTN_KERNELS = {"bfloat16": {"mma_wide", "mma_wide_short", "mma_short"},
+                     "float32": {"wide", "staged"}}
+
+
 def check_tspm_attention(entries: dict) -> None:
     """Phase 9(a): attention_wide at TSPM's shapes in bf16 and fp32 against
     its plain version, timed beside its bound and SDPA, each line with the
-    route and kernel (staged, wide-head, mma_short) the card's dispatch took
-    and the library's plan held to the Python one; plus one fp32 call of the
-    wide-head kernel with a causal mask and a key bias. The lines go into
+    route and kernel the card's dispatch took (``TSPM_ATTN_KERNELS``) and
+    the library's plan held to the Python one; plus one call with a causal
+    mask and a key bias in each dtype (the wide-head kernel in fp32, the
+    wide mma kernel in bf16), twice, bitwise the same. The lines go into
     attention_wide's table entry under ``tspm``."""
     import torch
 
@@ -2760,19 +2771,25 @@ def check_tspm_attention(entries: dict) -> None:
                 line = run_kernel_case(case, dtype, tol, True, None)
                 lines.append({k: line[k] for k in keys if k in line})
         b, sq, sk, W = 8, T, T, 512
-        q, k, v = (torch.from_numpy(rng.standard_normal((b, s, W), dtype=np.float32)).cuda()
-                   for s in (sq, sk, sk))
         mask = torch.triu(torch.full((sq, sk), float("-inf"), device="cuda"), 1)
         kb = torch.from_numpy(np.log(rng.integers(1, 41, (b, sk))).astype(np.float32)).cuda()
-        case = ("attention_wide", f"masked, key bias: q[{b},{sq},{W}] kv[{b},{sk},{W}] h1",
-                lambda: A.attention_wide(q, k, v, mask, W ** -0.5, 1, key_bias=kb),
-                lambda: A._wide_reference(q, k, v, mask, W ** -0.5, 1, kb), None, 0, 0,
-                {"attn": (sq, sk, W)})
-        run_kernel_case(case, torch.float32, FP32_TOL, False, None)
-        require_repeat(case)
-    kernels = {ln["attn_kernel"] for ln in lines}
-    require({"wide", "staged", "mma_short"} <= kernels,
-            f"tspm attention: the kernels taken were {kernels}")
+        for dtype, tol, want in ((torch.float32, FP32_TOL, "wide"),
+                                 (torch.bfloat16, BF16_TOL, "mma_wide")):
+            q, k, v = (torch.from_numpy(rng.standard_normal((b, s, W), dtype=np.float32))
+                       .to("cuda", dtype) for s in (sq, sk, sk))
+            case = ("attention_wide", f"masked, key bias: q[{b},{sq},{W}] kv[{b},{sk},{W}] h1",
+                    lambda q=q, k=k, v=v: A.attention_wide(q, k, v, mask, W ** -0.5, 1,
+                                                           key_bias=kb),
+                    lambda q=q, k=k, v=v: A._wide_reference(q, k, v, mask, W ** -0.5, 1, kb),
+                    None, 0, 0, {"attn": (sq, sk, W)})
+            line = run_kernel_case(case, dtype, tol, False, None)
+            require(line["attn_kernel"] == want,
+                    f"tspm attention, masked: kernel {line['attn_kernel']}, expected {want}")
+            require_repeat(case)
+    for dname, want in TSPM_ATTN_KERNELS.items():
+        kernels = {ln["attn_kernel"] for ln in lines if ln["dtype"] == dname}
+        require(want <= kernels, f"tspm attention {dname}: the kernels taken were {kernels}, "
+                                 f"expected {sorted(want)}")
     entries["attention_wide"]["tspm"] = lines
 
 
@@ -3082,19 +3099,32 @@ def check_bench_resblock() -> dict:
 
 def profile_step(fn, path: Path, phase: str) -> None:
     """A torch.profiler table of one call of ``fn`` written to ``path``, and
-    its wall time, device busy time and idle share."""
+    its wall time, device busy time and idle share. A line before them
+    (``<phase>_kernels``) sets the profiler's count of each device kernel
+    by name beside the wrappers' launch counts over the same call
+    (``ops.launch_delta``): whether the table holds every launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from qa_tiger_tpu_torch import ops
+
     path.parent.mkdir(parents=True, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
+        before = ops.launch_state()
         start = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
+        launched = ops.launch_delta(before, ops.launch_state())
     events = prof.key_averages()
+    kernel_counts = {e.key: e.count for e in events
+                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
+    print(json.dumps({"phase": f"{phase}_kernels", "wrapper_launches":
+                      {name: n for name, (n, _) in launched.items()},
+                      "profiler_kernels": kernel_counts,
+                      "profiler_kernel_events": sum(kernel_counts.values())}), flush=True)
     # names wide enough to tell a kernel's template instances apart
     table = events.table(sort_by="self_cuda_time_total", row_limit=60,
                          max_name_column_width=110)

@@ -40,13 +40,22 @@
 //   V streamed by cp.async through a two-stage shared-memory ring in 64-key
 //   tiles; one pass up to 128 keys, two beyond (row max and sum, then the
 //   rounded probabilities and the context);
+// - bf16 without a keep mask at head sizes 256 and 512 (TSPM's one-head
+//   attentions; heads between 128 and 512 lanes zero-padded to them), both
+//   streaming the head in 64-lane slabs through a cp.async ring: at most 16
+//   queries and keys (TokensAttn) route 2, kernel "mma_wide_short", a warp
+//   per problem; any other length (AV_Attn, 577 keys) route 1, kernel
+//   "mma_wide", 64 query rows per block, the rounded probabilities in
+//   shared memory (one pass up to 128 keys, two beyond), the context by
+//   64-lane chunks;
 // - every other call (fp32, the keep-masked train calls, one query over
-//   more than 16 keys, head sizes past 128): route 0, "fma", fp32 FMAs out
+//   more than 16 keys at head sizes up to 128, a wide head past ~1,500 keys
+//   in bf16): route 0, "fma", fp32 FMAs out
 //   of shared memory: keys up to 128 staged whole where they fit the
 //   block's shared memory (one warp per query row); else, at head sizes up
 //   to 128, 64-key tiles in the same two passes, register-tiled 64 x 64 per
-//   block; at head sizes 256 and 512 (TSPM's one-head attentions) the
-//   wide-head kernel, 16 or 32-key tiles in the same two passes.
+//   block; at head sizes 256 and 512 the wide-head kernel, 16 or 32-key
+//   tiles in the same two passes.
 // PERF.md has each route's time beside the bound.
 #include "common.cuh"
 
@@ -70,15 +79,19 @@ extern "C" const char* qt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// the kernel qt::attention takes for such a call: 2 the short tensor-core
-// kernel, 1 the mma kernel, 0 an FMA kernel; dtype 0 is float32, 1 bfloat16
+// the kernel family qt::attention takes for such a call on the current
+// device: 2 a tensor-core kernel with a warp per problem (mma_short,
+// mma_wide_short), 1 one with 64 query rows per block (mma, mma_wide), 0 an
+// FMA kernel; dtype 0 is float32, 1 bfloat16
 extern "C" int qt_attention_route(int dtype, int Sq, int Sk, int hd, int has_keep) {
-  return qt::attention_route(dtype == 1, Sq, Sk, hd, has_keep != 0);
+  return qt::attention_kernel_route(
+      qt::attention_plan(dtype == 1, Sq, Sk, hd, has_keep != 0, qt::smem_optin(), nullptr));
 }
 
 // the kernel of qt::attention_plan on the current device (-1 none, 0 staged,
-// 1 tiled, 2 wide-head, 3 mma, 4 mma_short), its shared memory in *smem;
-// ops/attention.py holds its own plan (attention_plan) against this one
+// 1 tiled, 2 wide-head, 3 mma, 4 mma_short, 5 mma_wide, 6 mma_wide_short),
+// its shared memory in *smem; ops/attention.py holds its own plan
+// (attention_plan) against this one
 extern "C" int qt_attention_plan(int dtype, int Sq, int Sk, int hd, int has_keep,
                                  long long* smem) {
   size_t bytes = 0;

@@ -345,7 +345,7 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 // in fp32. mask is an optional additive fp32 [Sq, Sk]; key_bias an optional
 // fp32 [B, Sk] (ToMe's proportional attention, log of the token sizes).
 //
-// Five kernels; attention_plan decides. bf16 calls without a keep mask, at
+// Seven kernels; attention_plan decides. bf16 calls without a keep mask, at
 // head sizes 32, 64 and 128, take one of two tensor-core kernels:
 // - at most ATT_SHORT_MAX queries and keys (PatchSelecter's 14-key self- and
 //   cross-attention, fused_attention's packed [BH, 14, 64], QstGrounding's
@@ -353,17 +353,26 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 //   one warp per (batch element, head) problem, a 16 x 16 score tile;
 // - at least 16 queries and 16 keys otherwise: attention_mma_kernel, 64
 //   query rows per block, keys streamed in 64-key tiles.
+// At head sizes 256 and 512 they take one of two tensor-core kernels that
+// stream the head in 64-lane slabs (TSPM's one-head attentions):
+// - at most ATT_SHORT_MAX queries and keys (TokensAttn, 14 over 14 keys):
+//   attention_wide_short_kernel, one warp per problem;
+// - any other length (AV_Attn, 60 over 60 keys; 577 keys) whose
+//   probabilities fit the block's shared memory: attention_mma_wide_kernel,
+//   64 query rows per block.
+// A bf16 head between 128 and 512 lanes has no kernel at its own size: the
+// wrapper zero-pads it to 256 or 512.
 // Every other call (fp32, the keep-masked train calls, one query over more
-// than 16 keys, head sizes past 128) runs on fp32 FMAs, in one of three
-// kernels chosen by the shared memory each needs against the device's
-// opt-in limit per block:
+// than 16 keys at head sizes up to 128, a wide head past ~1,500 keys in
+// bf16) runs on fp32 FMAs, in one of three kernels chosen by the shared
+// memory each needs against the device's opt-in limit per block:
 // - Sk <= ATT_STAGED_MAX_SK where K_h and V_h fit (every such call of the
-//   text tower, AVQ, TempMoE and PatchSelecter; TSPM's TokensAttn, one head
-//   of 512 over 14 keys): one block per (batch element, head, tile of
-//   ATT_QROWS queries) stages all of K_h and V_h in shared memory as fp32,
-//   one warp per query row.
-// - head sizes 256 and 512 otherwise (TSPM's AV_Attn, one head of 512 over
-//   60 keys): the wide-head kernel below, keys in tiles.
+//   text tower, AVQ, TempMoE and PatchSelecter; TSPM's TokensAttn in fp32,
+//   one head of 512 over 14 keys): one block per (batch element, head, tile
+//   of ATT_QROWS queries) stages all of K_h and V_h in shared memory as
+//   fp32, one warp per query row.
+// - head sizes 256 and 512 otherwise (TSPM's AV_Attn in fp32, one head of
+//   512 over 60 keys): the wide-head kernel below, keys in tiles.
 // - longer keys (the CLIP image tower and the first ToMe layers, Sk up to
 //   577): one block per (batch element, head, tile of AT_Q queries) streams
 //   K_h and V_h through shared memory in tiles of AT_K keys, so its shared
@@ -652,9 +661,13 @@ inline cudaError_t attention_tiled(const T* q, long long q_bs, long long q_ss, c
 // The wide-head kernel: head sizes 256 and 512, any key length, fp32 FMAs.
 // It takes the FMA calls whose head is too wide for the other two: the
 // staged kernel's fp32 K_h and V_h outgrow a block's shared memory (at head
-// size 512 past 54 keys: TSPM's one-head AV_Attn over 60 frames), and the
-// 64 x 64 register tile of the tiled kernel does not fit a 256- or 512-lane
-// context row. The TPU kernel it stands in for is the same fused_attention_wide
+// size 512 past 54 keys: TSPM's one-head AV_Attn over 60 frames, in fp32),
+// and the 64 x 64 register tile of the tiled kernel does not fit a 256- or
+// 512-lane context row. Since the tensor-core kernels for these head sizes
+// (attention_mma_wide_kernel, attention_wide_short_kernel) it runs only
+// fp32 calls, keep-masked calls, and bf16 calls whose probabilities would
+// pass the mma kernel's shared memory (far past 577 keys). The TPU kernel it
+// stands in for is the same fused_attention_wide
 // (qa_tiger_tpu/ops/pallas/attention.py), which takes one head of 512 lanes.
 //
 // One block of AW_THREADS threads owns AW_Q query rows of one (batch
@@ -677,8 +690,8 @@ inline cudaError_t attention_tiled(const T* q, long long q_bs, long long q_ss, c
 // out of shared memory: it is bound by
 // the shared memory's bandwidth (three 16-byte reads per eight FMAs in the
 // score loop, the scores computed twice), far above either bound. PERF.md
-// has its time beside the bound and SDPA's; a tensor-core route for these
-// head sizes is ROADMAP B9.
+// has its time beside the bound and SDPA's; bf16 without a keep mask takes
+// the tensor-core kernels instead.
 // ---------------------------------------------------------------------------
 constexpr int AW_Q = 16, AW_THREADS = 256;
 
@@ -900,17 +913,23 @@ constexpr int AM_Q = 64, AM_K = 64, AM_THREADS = 128, AM_PAD = 8;
 constexpr int ATT_MMA_MIN_SQ = 16, ATT_MMA_MIN_SK = 16, ATT_SHORT_MAX = 16;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The kernel qt::attention takes. For bf16 without a keep mask at a head size
-// the tensor-core kernels are built for: the short kernel when both lengths
-// are at most ATT_SHORT_MAX, else the mma kernel when there are at least
-// ATT_MMA_MIN_SQ queries and ATT_MMA_MIN_SK keys. The FMA kernels otherwise.
+// The kernel family qt::attention takes. For bf16 without a keep mask at a
+// head size the tensor-core kernels are built for: a warp per problem when
+// both lengths are at most ATT_SHORT_MAX, else 64 query rows per block when
+// there are at least ATT_MMA_MIN_SQ queries and ATT_MMA_MIN_SK keys or the
+// head is 256 or 512 lanes wide (the wide kernels mask any length). The FMA
+// kernels otherwise. attention_plan has the last word: a wide head whose
+// probabilities pass the shared memory goes to the FMA kernels.
 enum AttentionRoute { ATT_ROUTE_FMA = 0, ATT_ROUTE_MMA = 1, ATT_ROUTE_MMA_SHORT = 2 };
 
+inline bool wide_head(int hd) { return hd == 256 || hd == 512; }
+
 inline AttentionRoute attention_route(bool bf16, int Sq, int Sk, int hd, bool has_keep) {
-  const bool head = hd == 32 || hd == 64 || hd == 128;
+  const bool head = hd == 32 || hd == 64 || hd == 128 || wide_head(hd);
   if (!bf16 || has_keep || !head) return ATT_ROUTE_FMA;
   if (Sq <= ATT_SHORT_MAX && Sk <= ATT_SHORT_MAX) return ATT_ROUTE_MMA_SHORT;
-  return Sq >= ATT_MMA_MIN_SQ && Sk >= ATT_MMA_MIN_SK ? ATT_ROUTE_MMA : ATT_ROUTE_FMA;
+  return wide_head(hd) || (Sq >= ATT_MMA_MIN_SQ && Sk >= ATT_MMA_MIN_SK) ? ATT_ROUTE_MMA
+                                                                          : ATT_ROUTE_FMA;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -968,6 +987,16 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// the tensor-core kernels' operands: 16-byte aligned pointers and strides
+// (or'ed together) that are multiples of 8 elements, as cp.async moves 16
+// bytes
+inline bool tc_aligned(const void* q, const void* k, const void* v, const void* out,
+                       long long strides) {
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  return !(ptrs & 15) && !(strides & 7);
 }
 
 template <int HD>
@@ -1231,10 +1260,8 @@ inline cudaError_t attention_mma(const __nv_bfloat16* q, long long q_bs, long lo
                                  __nv_bfloat16* out, long long o_bs, long long o_ss,
                                  const float* mask, const float* key_bias, int B, int Sq, int Sk,
                                  int heads, float scale, cudaStream_t stream) {
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
-  const long long strides = q_bs | q_ss | k_bs | k_ss | v_bs | v_ss | o_bs | o_ss;
-  if ((ptrs & 15) || (strides & 7)) return cudaErrorInvalidValue;
+  if (!tc_aligned(q, k, v, out, q_bs | q_ss | k_bs | k_ss | v_bs | v_ss | o_bs | o_ss))
+    return cudaErrorInvalidValue;
   constexpr size_t smem = attention_mma_smem_bytes<HD>();
   const bool one_pass = Sk <= 2 * AM_K;
   auto kernel = one_pass ? attention_mma_kernel<HD, true> : attention_mma_kernel<HD, false>;
@@ -1286,6 +1313,23 @@ inline cudaError_t attention_mma(const __nv_bfloat16* q, long long q_bs, long lo
 // cudaErrorInvalidValue.
 // ---------------------------------------------------------------------------
 constexpr int AS_WARPS = 4, AS_ROWS = 16;
+
+// The grid of a kernel with a warp per problem (AS_WARPS warps a block): as
+// many blocks as the card holds at once, at most one per AS_WARPS problems;
+// each warp then strides over problems, so its ring overlaps one problem's
+// copies with another's math. Read once per kernel.
+template <auto Kernel>
+inline int warp_problem_blocks(size_t smem, long long problems) {
+  static const int resident = [&] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, AS_WARPS * 32, smem);
+    return sms * (per_sm > 0 ? per_sm : 1);
+  }();
+  const long long needed = (problems + AS_WARPS - 1) / AS_WARPS;
+  return needed < resident ? (int)needed : resident;
+}
 
 template <int HD>
 constexpr size_t attention_short_smem_bytes() {
@@ -1433,28 +1477,544 @@ inline cudaError_t attention_short(const __nv_bfloat16* q, long long q_bs, long 
                                    __nv_bfloat16* out, long long o_bs, long long o_ss,
                                    const float* mask, const float* key_bias, int B, int Sq,
                                    int Sk, int heads, float scale, cudaStream_t stream) {
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
-  const long long strides = q_bs | q_ss | k_bs | k_ss | v_bs | v_ss | o_bs | o_ss;
-  if ((ptrs & 15) || (strides & 7)) return cudaErrorInvalidValue;
+  if (!tc_aligned(q, k, v, out, q_bs | q_ss | k_bs | k_ss | v_bs | v_ss | o_bs | o_ss))
+    return cudaErrorInvalidValue;
   constexpr size_t smem = attention_short_smem_bytes<HD>();
   auto kernel = attention_short_kernel<HD>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  // as many blocks as the card holds at once; each warp then strides over
-  // problems, so its ring overlaps one problem's copies with another's math
-  static const int resident = [&] {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, AS_WARPS * 32, smem);
-    return sms * (per_sm > 0 ? per_sm : 1);
-  }();
   const long long problems = (long long)B * heads;
   if (problems > INT_MAX) return cudaErrorInvalidValue;
-  const long long needed = (problems + AS_WARPS - 1) / AS_WARPS;
-  const int blocks = needed < resident ? (int)needed : resident;
+  const int blocks = warp_problem_blocks<attention_short_kernel<HD>>(smem, problems);
+  kernel<<<blocks, AS_WARPS * 32, smem, stream>>>(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss,
+                                                  out, o_bs, o_ss, mask, key_bias,
+                                                  (int)problems, heads, Sq, Sk, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The wide-head tensor-core kernels (kernels "mma_wide" and
+// "mma_wide_short"): bf16 without a keep mask at head sizes 256 and 512.
+// They replace, for this card, the body of fused_attention_wide's
+// pl.pallas_call at those head sizes (_wide_body,
+// qa_tiger_tpu/ops/pallas/attention.py), which TSPM calls with one head of
+// 512 lanes: AV_Attn over 60 frames and TokensAttn over 14 patches.
+//
+// Bound: bytes. AV_Attn ([512, 60, 512], one head) does 4 x 60 x 60 x 512
+// operations on 4 x 60 x 512 bf16 values per problem, 30 per byte against a
+// ridge of ~295; TokensAttn about 7. So the design reads q, k and v once per
+// block (per problem at the short shapes) and writes the context once, with
+// 16-byte cp.async copies, and keeps the scores and probabilities on chip.
+// The other mma kernels hold a warp's Q fragments in registers and whole
+// 64-key tiles of K and V in shared memory: at 512 lanes that is 128
+// registers a thread and, for a two-stage ring, more than a block's shared
+// memory. So here the head streams in slabs of AWM_SLAB = 64 lanes:
+// - q·kᵀ: each ring stage holds a 64-lane slab of Q's rows and of K's keys;
+//   ldmatrix reads the fragments and mma.sync.m16n8k16 (bf16 in, fp32 out)
+//   sums each warp's 16 x 64 score tile over the HD / 64 slabs in registers;
+// - the epilogue runs on the fragments, as in attention_mma_kernel (base 2,
+//   s * scale, + mask, + key_bias, -inf past Sk), then p = round_bf16(exp(s
+//   - max) / sum) with the row's global max and sum;
+// - p·v by lane chunks: V streams through the same ring in 64-lane chunks,
+//   read with ldmatrix.trans; each warp sums a 16 x 64 fp32 context chunk
+//   and stores it before the next, so registers stay bounded whatever HD is.
+// The mma kernel (64 query rows of one (batch element, head) per block of 4
+// warps, rows past Sq masked, so any Sq works) keeps up to 128 keys' scores
+// in registers (one pass) and packs p from their C fragments straight into
+// the A fragments of p·v; its shared memory is then the ring alone (36,864
+// bytes), so five blocks share an SM and AV_Attn's 512 blocks run in one
+// wave. Past 128 keys it takes two passes, as the tiled kernels do, to keep
+// the JAX rounding point: the first takes each row's max and rescaled sum,
+// the second recomputes the scores and writes p to shared memory, 64 rows x
+// Sk rounded up to 16 (74 KB at 577 keys), which the lane chunks read with
+// ldmatrix; a call whose p would not fit (past 1,520 keys) is planned onto
+// the FMA wide-head kernel. The short kernel (at most 16 queries and keys)
+// gives each warp one problem and a ring of its own, and keeps p in
+// registers.
+//
+// Needs the alignment of the mma kernel (16-byte pointers, strides that are
+// multiples of 8 elements); a call that breaks it returns
+// cudaErrorInvalidValue.
+// ---------------------------------------------------------------------------
+// AWM_MIN_BLOCKS: blocks per SM the one-pass mma kernel is compiled for
+// (registers; its ring of 36,864 bytes fits six): five ran AV_Attn fastest
+// of four, five and six (PERF.md §6)
+constexpr int AWM_SLAB = 64, AWM_LD = AWM_SLAB + AM_PAD, AWM_STAGES = 2, AWM_MIN_BLOCKS = 5;
+constexpr int AWM_STAGE_ROWS = AM_Q + AM_K;  // a Q slab and a K slab; a V chunk uses AM_K rows
+
+// the columns of the mma kernel's probability rows: Sk rounded up to a k-step
+inline __host__ __device__ int attention_mma_wide_pcols(int Sk) { return (Sk + 15) / 16 * 16; }
+
+// the ring; in two passes (past 2 AM_K keys) also p
+inline size_t attention_mma_wide_smem_bytes(int Sk) {
+  const size_t p = Sk > 2 * AM_K ? (size_t)AM_Q * (attention_mma_wide_pcols(Sk) + AM_PAD) : 0;
+  return sizeof(__nv_bfloat16) * ((size_t)AWM_STAGES * AWM_STAGE_ROWS * AWM_LD + p);
+}
+
+constexpr size_t attention_wide_short_smem_bytes() {
+  // per warp AWM_STAGES stages, each a Q and a K slab of one problem
+  return sizeof(__nv_bfloat16) * (size_t)AS_WARPS * AWM_STAGES * 2 * AS_ROWS * AWM_LD;
+}
+
+// rows r0 .. r0 + ROWS - 1 of a bf16 source with row stride ss, lanes
+// c0 .. c0 + 63, into a [ROWS][AWM_LD] slab, zero past row n; THREADS
+// threads share the copy, this one being thread tid of them. Each copy asks
+// L2 for the 256 bytes around it, so the row's next slab is there when its
+// turn comes (a DRAM burst per two slabs).
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_slab(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          long long ss, int r0, int n, int c0, int tid) {
+  static_assert(ROWS * 8 % THREADS == 0, "whole 16-byte chunks per thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * 8 / THREADS; ++it) {
+    const int i = tid + it * THREADS, r = i >> 3, c = (i & 7) * 8;
+    const bool in = r0 + r < n;
+    const void* from = in ? src + (long long)(r0 + r) * ss + c0 + c : src;
+    asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
+                 ::"r"(smem_addr(dst + r * AWM_LD + c)), "l"(from), "r"(in ? 16 : 0)
+                 : "memory");
+  }
+}
+
+// s += the 16 x 8 NJ scores of one slab: a warp's 16 Q rows (Qw) against
+// 8 NJ keys (Kt), both [*][AWM_LD]
+template <int NJ>
+__device__ __forceinline__ void qk_slab(float (&s)[NJ][4], const __nv_bfloat16* Qw,
+                                        const __nv_bfloat16* Kt, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < AWM_SLAB / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, Qw + (lane & 15) * AWM_LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int jp = 0; jp < NJ / 2; ++jp) {
+      uint32_t bk[4];
+      ldmatrix_x4(bk, Kt + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * AWM_LD + kk * 16 +
+                          ((lane >> 3) & 1) * 8);
+      mma_bf16(s[2 * jp], a, bk[0], bk[1]);
+      mma_bf16(s[2 * jp + 1], a, bk[2], bk[3]);
+    }
+  }
+}
+
+// o += p v over one 16-key step: p the A fragment, V 16 keys x 64 lanes
+// ([*][AWM_LD], key 0 at Vt) read transposed
+__device__ __forceinline__ void pv_step(float (&o)[8][4], const uint32_t (&pa)[4],
+                                        const __nv_bfloat16* Vt, int lane) {
+#pragma unroll
+  for (int dp = 0; dp < AWM_SLAB / 16; ++dp) {
+    uint32_t bv[4];
+    ldmatrix_x4_trans(bv, Vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * AWM_LD + dp * 16 +
+                              (lane >> 4) * 8);
+    mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+    mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+  }
+}
+
+// A thread's fragments, with g = lane / 4 and t = lane % 4: score s[.][j][e]
+// is row g + 8 (e / 2) of the warp's 16 and key 8 j + 2 t + e % 2 of the
+// tile; context o[n][e] the same row and lane 8 n + 2 t + e % 2 of the chunk.
+template <int HD, int NT>
+__global__ void __launch_bounds__(AM_THREADS, NT == 1 ? AWM_MIN_BLOCKS : 2)
+attention_mma_wide_kernel(const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_ss,
+                          const __nv_bfloat16* __restrict__ k, long long k_bs, long long k_ss,
+                          const __nv_bfloat16* __restrict__ v, long long v_bs, long long v_ss,
+                          __nv_bfloat16* __restrict__ out, long long o_bs, long long o_ss,
+                          const float* __restrict__ mask, const float* __restrict__ key_bias,
+                          int Sq, int Sk, float scale) {
+  using bf16 = __nv_bfloat16;
+  // NT > 0: one pass, the scores of all NT key tiles held at once; 0: two
+  constexpr bool ONE_PASS = NT > 0;
+  constexpr int ND = HD / AWM_SLAB, STAGE = AWM_STAGE_ROWS * AWM_LD, NS = ONE_PASS ? NT : 1;
+  static_assert(AM_Q == 4 * 16 && AM_K == 64 && HD % AWM_SLAB == 0 && NT <= 2,
+                "4 warps of 16 rows");
+  extern __shared__ __align__(16) unsigned char awm_smem[];
+  bf16* const ring = reinterpret_cast<bf16*>(awm_smem);  // [AWM_STAGES][STAGE]
+  const int pcols = attention_mma_wide_pcols(Sk), pld = pcols + AM_PAD;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  // two passes: the warp's 16 rows of p, [16][pld], after the ring; a row
+  // stride of an odd number of 16-byte groups, so ldmatrix and the bf16x2
+  // stores hit distinct banks
+  bf16* const Pw = ring + AWM_STAGES * STAGE + (size_t)warp * 16 * pld;
+  const int ntiles = (Sq + AM_Q - 1) / AM_Q, nkt = ONE_PASS ? NT : (Sk + AM_K - 1) / AM_K;
+  const long long b = blockIdx.x / ntiles;
+  const int q0 = (blockIdx.x % ntiles) * AM_Q, h = blockIdx.y;
+  const long long col = (long long)h * HD;
+  const bf16* qh = q + b * q_bs + col;  // this head's columns
+  const bf16* kh = k + b * k_bs + col;
+  const bf16* vh = v + b * v_bs + col;
+  const float* kbias = key_bias ? key_bias + b * Sk : nullptr;
+  const int row0 = q0 + warp * 16 + g;  // this thread's first row; the second is row0 + 8
+  // a warp whose 16 rows all lie past Sq loads its share of the slabs and
+  // computes nothing
+  const bool live = q0 + warp * 16 < Sq;
+
+  // items: the score slabs (key tile t, lanes d), once or, in two passes,
+  // twice; then the V chunks (lanes c, key tile t); item i in stage i % 2
+  const int nqk = (ONE_PASS ? 1 : 2) * nkt * ND, items = nqk + ND * nkt;
+  auto fetch = [&](int i) {
+    bf16* st = ring + (i % AWM_STAGES) * STAGE;
+    if (i < nqk) {
+      const int t = (i / ND) % nkt, d = i % ND;
+      load_slab<AM_Q, AM_THREADS>(st, qh, q_ss, q0, Sq, d * AWM_SLAB, tid);
+      load_slab<AM_K, AM_THREADS>(st + AM_Q * AWM_LD, kh, k_ss, t * AM_K, Sk, d * AWM_SLAB, tid);
+    } else {
+      const int c = (i - nqk) / nkt, t = (i - nqk) % nkt;
+      load_slab<AM_K, AM_THREADS>(st, vh, v_ss, t * AM_K, Sk, c * AWM_SLAB, tid);
+    }
+  };
+
+  // the scores of key tile k0 in base 2, -inf past Sk
+  const float scale2 = scale * LOG2E;
+  auto finish_scores = [&](float (&s)[8][4], int k0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = row0 + (e >> 1) * 8, kj = k0 + 8 * j + 2 * t4 + (e & 1);
+        float x = s[j][e] * scale2;
+        if (kj >= Sk) {
+          x = -INFINITY;
+        } else {
+          if (mask && qi < Sq) x = fmaf(mask[(long long)qi * Sk + kj], LOG2E, x);
+          if (kbias) x = fmaf(kbias[kj], LOG2E, x);
+        }
+        s[j][e] = x;
+      }
+  };
+  // p = round_bf16(exp(s - max) / sum) of key tile k0 into the warp's rows
+  // of p, the columns below pcols (p is 0 from Sk on)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, inv[2] = {0.0f, 0.0f};
+  auto store_p = [&](const float (&s)[8][4], int k0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int kj = k0 + 8 * j + 2 * t4;
+      if (kj >= pcols) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<__nv_bfloat162*>(Pw + (g + 8 * r) * pld + kj) =
+            __floats2bfloat162_rn(exp2f(s[j][2 * r] - m[r]) * inv[r],
+                                  exp2f(s[j][2 * r + 1] - m[r]) * inv[r]);
+    }
+  };
+
+  // item i: its copies land (the next item's start behind them), then every
+  // thread may read stage i % 2
+  auto arrive = [&](int i) {
+    if (i + 1 < items) {
+      fetch(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    return ring + (i % AWM_STAGES) * STAGE;
+  };
+  fetch(0);
+  cp_async_commit();
+
+  // the scores and p, then the context: two loops, so that the scores and
+  // the context are never held in registers at once. In one pass p stays in
+  // registers as the A fragments of p·v: pa[t][ks] holds keys 64 t + 16 ks
+  // .. + 15 of the warp's 16 rows.
+  float s[NS][8][4];
+  uint32_t pa[ONE_PASS ? NS : 1][AM_K / 16][4];
+  for (int i = 0; i < nqk; ++i) {
+    const bf16* st = arrive(i);
+    if (live) {
+      const int t = (i / ND) % nkt, d = i % ND;
+      auto slab = [&](float (&sc)[8][4]) {
+        if (d == 0) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+        }
+        qk_slab<8>(sc, st + warp * 16 * AWM_LD, st + AM_Q * AWM_LD, lane);
+        if (d == ND - 1) finish_scores(sc, t * AM_K);
+      };
+      if constexpr (ONE_PASS) {
+        // nkt == NT key tiles, each in its own registers
+        if (NS == 1 || t == 0)
+          slab(s[0]);
+        else
+          slab(s[NS - 1]);
+        if (d == ND - 1 && t == NT - 1) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int tt = 0; tt < NS; ++tt)
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                mx = fmaxf(mx, fmaxf(s[tt][j][2 * r], s[tt][j][2 * r + 1]));
+            m[r] = quad_max(mx);
+            float sum = 0.0f;
+#pragma unroll
+            for (int tt = 0; tt < NS; ++tt)
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                sum += exp2f(s[tt][j][2 * r] - m[r]) + exp2f(s[tt][j][2 * r + 1] - m[r]);
+            inv[r] = 1.0f / quad_sum(sum);
+          }
+#pragma unroll
+          for (int tt = 0; tt < NS; ++tt)
+#pragma unroll
+            for (int ks = 0; ks < AM_K / 16; ++ks) {
+              auto p = [&](int j, int e) { return exp2f(s[tt][j][e] - m[e >> 1]) * inv[e >> 1]; };
+              pa[tt][ks][0] = pack_bf16(p(2 * ks, 0), p(2 * ks, 1));
+              pa[tt][ks][1] = pack_bf16(p(2 * ks, 2), p(2 * ks, 3));
+              pa[tt][ks][2] = pack_bf16(p(2 * ks + 1, 0), p(2 * ks + 1, 1));
+              pa[tt][ks][3] = pack_bf16(p(2 * ks + 1, 2), p(2 * ks + 1, 3));
+            }
+        }
+      } else {
+        slab(s[0]);
+        if (d == ND - 1 && i < nkt * ND) {
+          // pass 1: per row the running max and this thread's part of the
+          // sum rescaled to it; the row's sum is the 4 parts' total
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float mx = -INFINITY;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[0][j][2 * r], s[0][j][2 * r + 1]));
+            const float mn = fmaxf(m[r], quad_max(mx));
+            if (mn == -INFINITY) continue;  // every key so far masked out
+            float part = l[r] * exp2f(m[r] - mn);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              part += exp2f(s[0][j][2 * r] - mn) + exp2f(s[0][j][2 * r + 1] - mn);
+            l[r] = part;
+            m[r] = mn;
+          }
+          if (t == nkt - 1) {
+            inv[0] = 1.0f / quad_sum(l[0]);
+            inv[1] = 1.0f / quad_sum(l[1]);
+          }
+        } else if (d == ND - 1) {
+          store_p(s[0], t * AM_K);  // pass 2
+        }
+      }
+    }
+    __syncthreads();  // stage i % 2 is refilled by the next item's fetch
+  }
+
+  // o += p v over key tile t of lane chunk c; the chunk's context leaves
+  // after its last tile. The warp reads only the rows of p it wrote.
+  float o[8][4];
+  for (int i = nqk; i < items; ++i) {
+    const bf16* st = arrive(i);
+    if (live) {
+      const int c = (i - nqk) / nkt, t = (i - nqk) % nkt;
+      if (t == 0) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+      }
+      const int ksn = min(AM_K, pcols - t * AM_K) / 16;
+      if constexpr (ONE_PASS) {
+        auto tile = [&](const uint32_t (&pt)[AM_K / 16][4]) {
+#pragma unroll
+          for (int ks = 0; ks < AM_K / 16; ++ks) {
+            if (ks >= ksn) break;
+            pv_step(o, pt[ks], st + ks * 16 * AWM_LD, lane);
+          }
+        };
+        if (NS == 1 || t == 0)
+          tile(pa[0]);
+        else
+          tile(pa[NS - 1]);
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < AM_K / 16; ++ks) {
+          if (ks >= ksn) break;
+          uint32_t pf[4];
+          ldmatrix_x4(pf, Pw + (lane & 15) * pld + t * AM_K + ks * 16 + (lane >> 4) * 8);
+          pv_step(o, pf, st + ks * 16 * AWM_LD, lane);
+        }
+      }
+      if (t == nkt - 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qi = row0 + 8 * r;
+          if (qi >= Sq) continue;
+          bf16* orow = out + b * o_bs + (long long)qi * o_ss + col + c * AWM_SLAB + 2 * t4;
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+                __floats2bfloat162_rn(o[n][2 * r], o[n][2 * r + 1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int HD>
+inline cudaError_t attention_mma_wide(const __nv_bfloat16* q, long long q_bs, long long q_ss,
+                                      const __nv_bfloat16* k, long long k_bs, long long k_ss,
+                                      const __nv_bfloat16* v, long long v_bs, long long v_ss,
+                                      __nv_bfloat16* out, long long o_bs, long long o_ss,
+                                      const float* mask, const float* key_bias, int B, int Sq,
+                                      int Sk, int heads, float scale, cudaStream_t stream) {
+  if (!tc_aligned(q, k, v, out, q_bs | q_ss | k_bs | k_ss | v_bs | v_ss | o_bs | o_ss))
+    return cudaErrorInvalidValue;
+  const size_t smem = attention_mma_wide_smem_bytes(Sk);
+  // one pass holding one or two 64-key tiles of scores, else two passes
+  const int nkt = (Sk + AM_K - 1) / AM_K;
+  auto kernel = nkt == 1   ? attention_mma_wide_kernel<HD, 1>
+                : nkt == 2 ? attention_mma_wide_kernel<HD, 2>
+                           : attention_mma_wide_kernel<HD, 0>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (Sq + AM_Q - 1) / AM_Q;
+  kernel<<<dim3((unsigned)(B * ntiles), heads), AM_THREADS, smem, stream>>>(
+      q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, Sq, Sk,
+      scale);
+  return cudaGetLastError();
+}
+
+// The short wide-head kernel: one warp per (batch element, head) problem of
+// at most 16 queries and keys, blocks grid-striding over the problems as in
+// attention_short_kernel. Each warp walks its problem's items, the HD / 64
+// Q and K slabs and then the HD / 64 V chunks, through a two-stage ring of
+// its own, the next problem's first slab fetched behind this one's last
+// chunk. The scores and p stay in registers (one m16 tile, two n8 tiles);
+// the epilogue is attention_short_kernel's (natural base).
+template <int HD>
+__global__ void __launch_bounds__(AS_WARPS * 32)
+attention_wide_short_kernel(const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_ss,
+                            const __nv_bfloat16* __restrict__ k, long long k_bs, long long k_ss,
+                            const __nv_bfloat16* __restrict__ v, long long v_bs, long long v_ss,
+                            __nv_bfloat16* __restrict__ out, long long o_bs, long long o_ss,
+                            const float* __restrict__ mask, const float* __restrict__ key_bias,
+                            int problems, int heads, int Sq, int Sk, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int ND = HD / AWM_SLAB, ITEMS = 2 * ND, STAGE = 2 * AS_ROWS * AWM_LD;
+  static_assert(ATT_SHORT_MAX == AS_ROWS && HD % AWM_SLAB == 0,
+                "one m16 tile of queries, two n8 tiles of keys");
+  extern __shared__ __align__(16) unsigned char aws_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  bf16* const ring = reinterpret_cast<bf16*>(aws_smem) + (size_t)warp * AWM_STAGES * STAGE;
+  const int stride = gridDim.x * AS_WARPS;
+
+  // item it of problem pr into stage st: the Q and K slab it (it < ND), else
+  // the V chunk it - ND
+  auto fetch = [&](int pr, int it, int st) {
+    const long long b = pr / heads, col = (long long)(pr % heads) * HD;
+    bf16* dst = ring + st * STAGE;
+    if (it < ND) {
+      load_slab<AS_ROWS, 32>(dst, q + b * q_bs + col, q_ss, 0, Sq, it * AWM_SLAB, lane);
+      load_slab<AS_ROWS, 32>(dst + AS_ROWS * AWM_LD, k + b * k_bs + col, k_ss, 0, Sk,
+                             it * AWM_SLAB, lane);
+    } else {
+      load_slab<AS_ROWS, 32>(dst, v + b * v_bs + col, v_ss, 0, Sk, (it - ND) * AWM_SLAB, lane);
+    }
+  };
+
+  int pr = blockIdx.x * AS_WARPS + warp, it = 0;
+  if (pr < problems) fetch(pr, 0, 0);
+  cp_async_commit();
+  float s[2][4];
+  uint32_t pa[4];
+  for (int n = 0; pr < problems; ++n) {
+    const int npr = it + 1 < ITEMS ? pr : pr + stride, nit = it + 1 < ITEMS ? it + 1 : 0;
+    if (npr < problems) fetch(npr, nit, (n + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this item's group has landed
+    __syncwarp();
+    const bf16* st = ring + (n & 1) * STAGE;
+    const long long b = pr / heads, col = (long long)(pr % heads) * HD;
+    if (it < ND) {
+      if (it == 0) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+      }
+      qk_slab<2>(s, st, st + AS_ROWS * AWM_LD, lane);
+      if (it == ND - 1) {
+        const float* kb = key_bias ? key_bias + b * Sk : nullptr;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = g + 8 * (e >> 1), kj = 8 * j + 2 * t4 + (e & 1);
+            float x = s[j][e] * scale;
+            if (kj >= Sk) {
+              x = -INFINITY;
+            } else {
+              if (mask && qi < Sq) x += mask[(long long)qi * Sk + kj];
+              if (kb) x += kb[kj];
+            }
+            s[j][e] = x;
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float mx = quad_max(
+              fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]), fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+          float sum = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 2 * r; e < 2 * r + 2; ++e) {
+              s[j][e] = expf(s[j][e] - mx);
+              sum += s[j][e];
+            }
+          const float inv = 1.0f / quad_sum(sum);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            s[j][2 * r] *= inv;
+            s[j][2 * r + 1] *= inv;
+          }
+        }
+        // p rounded to bf16 as its C fragments become the A operand of p·v
+        pa[0] = pack_bf16(s[0][0], s[0][1]);
+        pa[1] = pack_bf16(s[0][2], s[0][3]);
+        pa[2] = pack_bf16(s[1][0], s[1][1]);
+        pa[3] = pack_bf16(s[1][2], s[1][3]);
+      }
+    } else {
+      float o[8][4] = {};
+      pv_step(o, pa, st, lane);
+      bf16* const oc = out + b * o_bs + col + (it - ND) * AWM_SLAB + 2 * t4;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = g + 8 * r;
+        if (qi >= Sq) continue;
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          *reinterpret_cast<__nv_bfloat162*>(oc + (long long)qi * o_ss + 8 * c) =
+              __floats2bfloat162_rn(o[c][2 * r], o[c][2 * r + 1]);
+      }
+    }
+    __syncwarp();  // the next iteration's fetch refills the other stage; this
+                   // one is refilled only after it
+    pr = npr;
+    it = nit;
+  }
+}
+
+template <int HD>
+inline cudaError_t attention_wide_short(const __nv_bfloat16* q, long long q_bs, long long q_ss,
+                                        const __nv_bfloat16* k, long long k_bs, long long k_ss,
+                                        const __nv_bfloat16* v, long long v_bs, long long v_ss,
+                                        __nv_bfloat16* out, long long o_bs, long long o_ss,
+                                        const float* mask, const float* key_bias, int B, int Sq,
+                                        int Sk, int heads, float scale, cudaStream_t stream) {
+  if (!tc_aligned(q, k, v, out, q_bs | q_ss | k_bs | k_ss | v_bs | v_ss | o_bs | o_ss))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = attention_wide_short_smem_bytes();
+  auto kernel = attention_wide_short_kernel<HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long problems = (long long)B * heads;
+  if (problems > INT_MAX) return cudaErrorInvalidValue;
+  const int blocks = warp_problem_blocks<attention_wide_short_kernel<HD>>(smem, problems);
   kernel<<<blocks, AS_WARPS * 32, smem, stream>>>(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss,
                                                   out, o_bs, o_ss, mask, key_bias,
                                                   (int)problems, heads, Sq, Sk, scale);
@@ -1462,13 +2022,17 @@ inline cudaError_t attention_short(const __nv_bfloat16* q, long long q_bs, long 
 }
 
 // Which kernel qt::attention launches, with the shared memory it asks for.
-// The tensor-core routes come first (attention_route). An FMA call takes the
-// staged kernel up to ATT_STAGED_MAX_SK keys when its Sk-sized shared memory
-// fits the device's opt-in limit per block, else the tiled kernel (head
-// sizes 32, 64, 128) or the wide-head one (256, 512), each if its fixed
-// shared memory fits. Any other call has no kernel (ATT_KERNEL_NONE) and
-// returns cudaErrorInvalidValue; ops/attention.py plans the same rule in
-// Python (attention_plan) and zero-pads a head to the next size that has one.
+// The tensor-core routes come first (attention_route); a wide head whose
+// probabilities pass the limit in the mma kernel (far past 577 keys) falls
+// to the FMA kernels, and a bf16 head between 128 and 512 lanes that no
+// tensor-core kernel is built for has none (the wrapper pads it). An FMA
+// call takes the staged kernel up to ATT_STAGED_MAX_SK keys when its
+// Sk-sized shared memory fits the device's opt-in limit per block, else the
+// tiled kernel (head sizes 32, 64, 128) or the wide-head one (256, 512),
+// each if its fixed shared memory fits. Any other call has no kernel
+// (ATT_KERNEL_NONE) and returns cudaErrorInvalidValue; ops/attention.py
+// plans the same rule in Python (attention_plan) and zero-pads a head to the
+// next size that has one.
 enum AttentionKernel {
   ATT_KERNEL_NONE = -1,
   ATT_KERNEL_STAGED = 0,
@@ -1476,6 +2040,8 @@ enum AttentionKernel {
   ATT_KERNEL_WIDE = 2,
   ATT_KERNEL_MMA = 3,
   ATT_KERNEL_SHORT = 4,
+  ATT_KERNEL_MMA_WIDE = 5,
+  ATT_KERNEL_WIDE_SHORT = 6,
 };
 
 inline AttentionKernel attention_plan(bool bf16, int Sq, int Sk, int hd, bool has_keep,
@@ -1485,16 +2051,28 @@ inline AttentionKernel attention_plan(bool bf16, int Sq, int Sk, int hd, bool ha
   AttentionKernel kernel = ATT_KERNEL_NONE;
   if (route != ATT_ROUTE_FMA) {
     const bool shrt = route == ATT_ROUTE_MMA_SHORT;
-    kernel = shrt ? ATT_KERNEL_SHORT : ATT_KERNEL_MMA;
-    switch (hd) {
-      case 32: bytes = shrt ? attention_short_smem_bytes<32>() : attention_mma_smem_bytes<32>(); break;
-      case 64: bytes = shrt ? attention_short_smem_bytes<64>() : attention_mma_smem_bytes<64>(); break;
-      default: bytes = shrt ? attention_short_smem_bytes<128>() : attention_mma_smem_bytes<128>();
+    if (wide_head(hd)) {
+      kernel = shrt ? ATT_KERNEL_WIDE_SHORT : ATT_KERNEL_MMA_WIDE;
+      bytes = shrt ? attention_wide_short_smem_bytes() : attention_mma_wide_smem_bytes(Sk);
+    } else {
+      kernel = shrt ? ATT_KERNEL_SHORT : ATT_KERNEL_MMA;
+      switch (hd) {
+        case 32: bytes = shrt ? attention_short_smem_bytes<32>() : attention_mma_smem_bytes<32>(); break;
+        case 64: bytes = shrt ? attention_short_smem_bytes<64>() : attention_mma_smem_bytes<64>(); break;
+        default: bytes = shrt ? attention_short_smem_bytes<128>() : attention_mma_smem_bytes<128>();
+      }
     }
-  } else if (Sk <= ATT_STAGED_MAX_SK && attention_smem_bytes(Sk, hd) <= limit) {
+  }
+  const bool to_fma = route == ATT_ROUTE_FMA || (wide_head(hd) && bytes > limit);
+  if (to_fma && bf16 && !has_keep && hd > 128 && hd < 512 && !wide_head(hd)) {
+    kernel = ATT_KERNEL_NONE;
+    bytes = 0;
+  } else if (to_fma && Sk <= ATT_STAGED_MAX_SK && attention_smem_bytes(Sk, hd) <= limit) {
     kernel = ATT_KERNEL_STAGED;
     bytes = attention_smem_bytes(Sk, hd);
-  } else {
+  } else if (to_fma) {
+    kernel = ATT_KERNEL_NONE;
+    bytes = 0;
     switch (hd) {
       case 32: kernel = ATT_KERNEL_TILED; bytes = attention_tiled_smem_bytes<32>(); break;
       case 64: kernel = ATT_KERNEL_TILED; bytes = attention_tiled_smem_bytes<64>(); break;
@@ -1507,6 +2085,17 @@ inline AttentionKernel attention_plan(bool bf16, int Sq, int Sk, int hd, bool ha
   if (bytes > limit) kernel = ATT_KERNEL_NONE;
   if (smem) *smem = bytes;
   return kernel;
+}
+
+// The route of a planned kernel: what qt_attention_route reports
+inline AttentionRoute attention_kernel_route(AttentionKernel kernel) {
+  switch (kernel) {
+    case ATT_KERNEL_MMA:
+    case ATT_KERNEL_MMA_WIDE: return ATT_ROUTE_MMA;
+    case ATT_KERNEL_SHORT:
+    case ATT_KERNEL_WIDE_SHORT: return ATT_ROUTE_MMA_SHORT;
+    default: return ATT_ROUTE_FMA;
+  }
 }
 
 // The current device's opt-in shared memory per block (232,448 bytes on an
@@ -1550,6 +2139,10 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
         default: return QT_TC(attention_mma, 128);
       }
     }
+    if (kernel == ATT_KERNEL_MMA_WIDE)
+      return hd == 256 ? QT_TC(attention_mma_wide, 256) : QT_TC(attention_mma_wide, 512);
+    if (kernel == ATT_KERNEL_WIDE_SHORT)
+      return hd == 256 ? QT_TC(attention_wide_short, 256) : QT_TC(attention_wide_short, 512);
 #undef QT_TC
   }
 #define QT_FMA(KERNEL, HD)                                                                  \

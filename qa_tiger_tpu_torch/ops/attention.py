@@ -4,13 +4,16 @@
 Port of ``qa_tiger_tpu/ops/pallas/attention.py``: ``attention_wide``, with
 its optional per-(batch element, key) bias (ToMe's proportional attention),
 and ``fused_attention``. The CUDA kernels in ``csrc/attention.cu`` run for
-CUDA tensors, the plain versions for CPU tensors. On the card bf16 calls at
-head sizes 32, 64 and 128 take a tensor-core kernel: the short one (a warp
-per problem) at most 16 queries and 16 keys, the mma one at least 16 of
-each; every other call an fp32 FMA kernel: whole keys staged in shared
-memory up to 128 keys where they fit the block's opt-in shared memory, else
-key tiles in two passes (64-key tiles at head sizes up to 128, the
-wide-head kernel's 16 or 32-key tiles at 256 and 512). ``attention_plan``
+CUDA tensors, the plain versions for CPU tensors. On the card bf16 calls
+without a keep mask take a tensor-core kernel: at head sizes 32, 64 and 128
+the short one (a warp per problem) at most 16 queries and 16 keys, the mma
+one at least 16 of each; at 256 and 512 (and, zero-padded, any head between
+128 and 512 lanes) the wide short one at most 16 of each, the wide mma one
+at any other length whose probabilities fit its shared memory. Every other
+call takes an fp32 FMA kernel: whole keys staged in shared memory up to 128
+keys where they fit the block's opt-in shared memory, else key tiles in two
+passes (64-key tiles at head sizes up to 128, the wide-head kernel's 16 or
+32-key tiles at 256 and 512). ``attention_plan``
 says in Python which kernel a call takes, at which head size and with how
 much shared memory, by the rule ``qt::attention_plan`` applies on the card
 (``csrc/common.cuh``); ``attention_route`` asks the library for the route.
@@ -34,18 +37,25 @@ from qa_tiger_tpu_torch.ops import _build, _grad
 # ATT_STAGED_MAX_SK); the tiled kernels take the head sizes below
 STAGED_MAX_SK = 128
 KERNEL_HEAD_SIZES = (32, 64, 128, 256, 512)
-TC_HEAD_SIZES = (32, 64, 128)
+# bf16 without a keep mask: the head sizes of the tensor-core kernels; the
+# wide ones stream the head in 64-lane slabs
+TC_HEAD_SIZES = (32, 64, 128, 256, 512)
+WIDE_HEAD_SIZES = (256, 512)
 # qt_attention_route's codes (csrc/common.cuh, AttentionRoute)
 ROUTES = ("fma", "mma", "mma_short")
 # qt_attention_plan's codes (csrc/common.cuh, AttentionKernel), from 0
-KERNEL_NAMES = ("staged", "tiled", "wide", "mma", "mma_short")
+KERNEL_NAMES = ("staged", "tiled", "wide", "mma", "mma_short", "mma_wide", "mma_wide_short")
+# each tensor-core kernel's route; every other kernel's is "fma"
+KERNEL_ROUTES = {"mma": "mma", "mma_wide": "mma", "mma_short": "mma_short",
+                 "mma_wide_short": "mma_short"}
 # an H100's opt-in shared memory per block, the plan's limit for a call on
 # the CPU; on the card the device's own (qt_smem_optin)
 H100_SMEM_OPTIN = 232_448
 # the kernels' tiles (csrc/common.cuh): ATT_WARPS; AT_Q, AT_K; AW_Q; AM_Q,
-# AM_K, AM_PAD; AS_WARPS, AS_ROWS
+# AM_K, AM_PAD; AS_WARPS, AS_ROWS; AWM_SLAB, AWM_STAGES
 _ATT_WARPS, _AT_Q, _AT_K, _AW_Q = 4, 64, 64, 16
 _AM_Q, _AM_K, _AM_PAD, _AS_WARPS, _AS_ROWS = 64, 64, 8, 4, 16
+_AWM_SLAB, _AWM_STAGES = 64, 2
 
 
 class AttentionPlan(NamedTuple):
@@ -66,25 +76,37 @@ def _smem_bytes(kernel: str, sk: int, hd: int) -> int:
         return 4 * ((_AW_Q + kt) * (hd + 4) + kt * hd + _AW_Q * (kt + 1))
     if kernel == "mma":
         return 2 * (_AM_Q + 4 * _AM_K) * (hd + _AM_PAD)
+    slab_row = _AWM_SLAB + _AM_PAD
+    if kernel == "mma_wide":
+        # the ring of Q and K slabs (V chunks); in two passes (past 128
+        # keys) also p: 64 rows of Sk rounded up to 16, padded
+        p_bytes = _AM_Q * (-(-sk // 16) * 16 + _AM_PAD) if sk > 2 * _AM_K else 0
+        return 2 * (_AWM_STAGES * (_AM_Q + _AM_K) * slab_row + p_bytes)
+    if kernel == "mma_wide_short":
+        return 2 * _AS_WARPS * _AWM_STAGES * 2 * _AS_ROWS * slab_row
     return 2 * _AS_WARPS * 2 * 3 * _AS_ROWS * (hd + _AM_PAD)
 
 
 def _kernel_at(bf16: bool, sq: int, sk: int, hd: int, has_keep: bool,
                limit: int) -> tuple[str | None, int]:
     """``qt::attention_plan`` at one head size: (kernel or None, bytes)."""
+    wide = hd in WIDE_HEAD_SIZES
     if bf16 and not has_keep and hd in TC_HEAD_SIZES:
-        if sq <= 16 and sk <= 16:
-            kernel = "mma_short"
-        elif sq >= 16 and sk >= 16:
-            kernel = "mma"
+        short = sq <= 16 and sk <= 16
+        if wide:
+            kernel = "mma_wide_short" if short else "mma_wide"
         else:
-            kernel = None
+            kernel = "mma_short" if short else "mma" if sq >= 16 and sk >= 16 else None
         if kernel is not None:
             nbytes = _smem_bytes(kernel, sk, hd)
-            return (kernel if nbytes <= limit else None), nbytes
+            if nbytes <= limit or not wide:
+                return (kernel if nbytes <= limit else None), nbytes
+            # a wide head whose probabilities pass the limit: the FMA kernels
+    elif bf16 and not has_keep and 128 < hd < 512:
+        return None, 0  # zero-padded to a wide tensor-core head
     if sk <= STAGED_MAX_SK and _smem_bytes("staged", sk, hd) <= limit:
         return "staged", _smem_bytes("staged", sk, hd)
-    kernel = "tiled" if hd in TC_HEAD_SIZES else "wide" if hd in (256, 512) else None
+    kernel = "tiled" if hd in (32, 64, 128) else "wide" if wide else None
     if kernel is None:
         return None, 0
     nbytes = _smem_bytes(kernel, sk, hd)
@@ -111,8 +133,9 @@ def smem_limit(device: torch.device | None = None) -> int:
 def attention_plan(dtype: torch.dtype, sq: int, sk: int, hd: int, has_keep: bool = False,
                    limit: int = H100_SMEM_OPTIN) -> AttentionPlan:
     """The kernel the card's ``qt::attention`` takes for a call of this dtype
-    and shape, in pure Python: the tensor-core routes for bf16 at head sizes
-    32/64/128 without a keep mask, else the staged FMA kernel where its
+    and shape, in pure Python: the tensor-core routes for bf16 without a
+    keep mask at head sizes 32/64/128 and 256/512 (there while the
+    probabilities fit ``limit``), else the staged FMA kernel where its
     shared memory fits ``limit``, else the tiled (head sizes 32/64/128) or
     wide-head (256/512) kernel. A call no kernel takes at head size ``hd``
     runs zero-padded at the next size one takes (zero lanes add nothing to
@@ -122,8 +145,7 @@ def attention_plan(dtype: torch.dtype, sq: int, sk: int, hd: int, has_keep: bool
     for head in (hd, *(s for s in KERNEL_HEAD_SIZES if s > hd)):
         kernel, nbytes = _kernel_at(bf16, sq, sk, head, has_keep, limit)
         if kernel is not None:
-            route = kernel if kernel in ("mma", "mma_short") else "fma"
-            return AttentionPlan(route, kernel, head, nbytes)
+            return AttentionPlan(KERNEL_ROUTES.get(kernel, "fma"), kernel, head, nbytes)
     raise ValueError(
         f"no attention kernel takes Sq={sq}, Sk={sk}, head size {hd} ({dtype}): its shared "
         f"memory would pass the {limit}-byte limit per block, and head sizes past "
@@ -145,10 +167,12 @@ def library_plan(dtype: torch.dtype, sq: int, sk: int, hd: int,
 
 def attention_route(dtype: torch.dtype, sq: int, sk: int, hd: int,
                     has_keep: bool = False) -> str:
-    """The kernel the card's dispatch (``qt::attention``) takes for a call of
-    this dtype and shape: "mma_short" (tensor cores, a warp per problem of at
-    most 16 queries and keys), "mma" (tensor cores, 64 query rows per block)
-    or "fma", at the head size the wrapper launches (``attention_plan``).
+    """The kernel family the card's dispatch (``qt::attention``) takes for a
+    call of this dtype and shape: "mma_short" (tensor cores, a warp per
+    problem of at most 16 queries and keys: kernels mma_short and
+    mma_wide_short), "mma" (tensor cores, 64 query rows per block: mma and
+    mma_wide) or "fma", at the head size the wrapper launches
+    (``attention_plan``).
     Asks the kernel library, so it builds it on first use."""
     head = attention_plan(dtype, sq, sk, hd, has_keep).head
     code = _build.library().qt_attention_route(_build.dtype_code(dtype), sq, sk, head,

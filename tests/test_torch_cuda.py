@@ -176,6 +176,16 @@ def test_attention_route_rule(cuda):
     assert A.attention_route(bf, 60, 15, 64) == "fma"
     assert A.attention_route(bf, 60, 77, 48) == "fma"   # no mma build for hd 48
     assert A.attention_route(bf, 14, 14, 48) == "fma"
+    # head sizes 256 and 512: the wide tensor-core kernels at any length
+    # whose probabilities fit the block's shared memory
+    assert A.attention_route(bf, 60, 60, 512) == "mma"        # TSPM AV_Attn
+    assert A.attention_route(bf, 14, 14, 512) == "mma_short"  # TSPM TokensAttn
+    assert A.attention_route(bf, 1, 60, 512) == "mma"
+    assert A.attention_route(bf, 577, 577, 256) == "mma"
+    assert A.attention_route(bf, 60, 300, 200) == "mma"       # padded to 256
+    assert A.attention_route(bf, 60, 2000, 512) == "fma"      # p past the limit
+    assert A.attention_route(f32, 60, 60, 512) == "fma"
+    assert A.attention_route(bf, 60, 60, 512, has_keep=True) == "fma"
 
 
 # ---------------------------------------------------------------------------
@@ -1089,7 +1099,9 @@ def test_train_graph_matches_eager(cuda, train_dtype):
 
 
 # ---------------------------------------------------------------------------
-# head sizes 256 and 512 (TSPM's one-head attentions): the staged kernel
+# head sizes 256 and 512 (TSPM's one-head attentions): in bf16 without a keep
+# mask the wide tensor-core kernels (a warp per problem at most 16 queries
+# and keys, 64 query rows per block otherwise); in fp32 the staged kernel
 # where K_h and V_h fit the block's shared memory, the wide-head kernel
 # otherwise; the plan in Python is the library's
 # ---------------------------------------------------------------------------
@@ -1099,14 +1111,24 @@ WIDE_HEAD_CASES = [(60, 60, 512, 1), (14, 14, 512, 1), (60, 54, 512, 1), (60, 55
                    (70, 300, 200, 2)]
 
 
+def _wide_want(dtype, sq, sk):
+    """(route, kernel) of a wide-head call: the tensor-core kernels in bf16,
+    an FMA kernel (staged or wide) in fp32."""
+    if dtype == torch.bfloat16:
+        return ("mma_short", "mma_wide_short") if sq <= 16 and sk <= 16 else ("mma", "mma_wide")
+    return ("fma", None)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("sq,sk,hd,heads", WIDE_HEAD_CASES)
 @pytest.mark.parametrize("bias,masked", [(False, False), (True, False), (False, True),
                                          (True, True)])
 def test_attention_wide_heads(cuda, sq, sk, hd, heads, bias, masked, dtype):
     """q, k and v column slices of one packed buffer, with a key bias and a
-    causal mask or neither; the library's plan (kernel, shared memory) is
-    attention_plan's at the card's limit; a second launch bitwise the same."""
+    causal mask or neither; the route and kernel (the tensor-core kernels in
+    bf16, the FMA ones in fp32); the library's plan (kernel, shared memory)
+    is attention_plan's at the card's limit; a second launch bitwise the
+    same."""
     rng = np.random.default_rng(sq * 1000 + sk + hd)
     q, k, v = _packed_qkv(rng, 3, sq, sk, hd * heads, dtype, cuda)
     kb = (torch.from_numpy(np.log(rng.integers(1, 41, (3, sk))).astype(np.float32)).to(cuda)
@@ -1115,7 +1137,9 @@ def test_attention_wide_heads(cuda, sq, sk, hd, heads, bias, masked, dtype):
     plan = A.attention_plan(dtype, sq, sk, hd, limit=A.smem_limit(cuda))
     assert plan.smem_bytes <= A.smem_limit(cuda)
     assert A.library_plan(dtype, sq, sk, plan.head) == (plan.kernel, plan.smem_bytes)
-    assert A.attention_route(dtype, sq, sk, hd) == plan.route == "fma"
+    route, kernel = _wide_want(dtype, sq, sk)
+    assert A.attention_route(dtype, sq, sk, hd) == plan.route == route
+    assert plan.kernel == kernel if kernel else plan.kernel in ("staged", "wide")
     scale = hd ** -0.5
     n = A.attention_wide.launches
     _check(lambda: A.attention_wide(q, k, v, mask, scale, heads, key_bias=kb),
@@ -1125,14 +1149,73 @@ def test_attention_wide_heads(cuda, sq, sk, hd, heads, bias, masked, dtype):
                        A.attention_wide(q, k, v, mask, scale, heads, key_bias=kb))
 
 
+@pytest.mark.parametrize("hd", [256, 512])
+@pytest.mark.parametrize("sk", [16, 17, 64, 65, 128, 129, 577])
+@pytest.mark.parametrize("sq", [1, 14, 16, 17, 60, 64, 65])
+@pytest.mark.parametrize("extras", [False, True])
+def test_attention_wide_tc_edges(cuda, sq, sk, hd, extras):
+    """The wide tensor-core kernels in bf16 at their edges: query counts
+    around the 16-row tile and the 64-row block, key counts around the
+    short kernel's 16, the 64-key tiles and the mma kernel's one-pass limit
+    (128), and 577; 2 heads as column slices of a packed buffer, with a
+    causal mask and a key bias or neither; against the plain version, the
+    library's plan equal to attention_plan's, and a second launch bitwise
+    the same."""
+    dt, B, H = torch.bfloat16, 3, 2
+    rng = np.random.default_rng(sq * 10000 + sk * 10 + hd + extras)
+    q, k, v = _packed_qkv(rng, B, sq, sk, hd * H, dt, cuda)
+    kb = mask = None
+    if extras:
+        kb = torch.from_numpy(np.log(rng.integers(1, 41, (B, sk))).astype(np.float32)).to(cuda)
+        mask = _causal(sq, sk, cuda)
+    plan = A.attention_plan(dt, sq, sk, hd, limit=A.smem_limit(cuda))
+    assert (plan.route, plan.kernel) == _wide_want(dt, sq, sk) and plan.head == hd
+    assert A.library_plan(dt, sq, sk, hd) == (plan.kernel, plan.smem_bytes)
+    scale = hd ** -0.5
+    n = A.attention_wide.launches
+    first = A.attention_wide(q, k, v, mask, scale, H, key_bias=kb)
+    _check(lambda: first, lambda: A._wide_reference(q, k, v, mask, scale, H, kb), dt)
+    assert torch.equal(first, A.attention_wide(q, k, v, mask, scale, H, key_bias=kb))
+    assert A.attention_wide.launches == n + 2
+
+
+@pytest.mark.parametrize("sq,sk", [(14, 14), (60, 60)])
+def test_attention_wide_tc_copies_misaligned_rows(cuda, sq, sk):
+    """A row stride that is not a multiple of 8 elements, or a base off 16
+    bytes, at 512 lanes: the wrapper copies the operand and launches the
+    same wide tensor-core kernel, which gives the plain result, the same as
+    on aligned copies of the operands."""
+    rng = np.random.default_rng(sq + sk)
+    dt = torch.bfloat16
+    q, k, v = _packed_qkv(rng, 3, sq, sk, 512, dt, cuda, pad=4)
+    assert q.stride(1) % 8 == 4
+    buf = _rn(rng, 3, max(sq, sk), 3 * 512 + 8, dtype=dt)
+    q2, k2, v2 = buf[:, :sq, 4:516], buf[:, :sk, 516:1028], buf[:, :sk, 1028:1540]
+    assert q2.data_ptr() % 16 == 8
+    assert A.attention_plan(dt, sq, sk, 512).kernel == _wide_want(dt, sq, sk)[1]
+    n = A.attention_wide.launches
+    for a, b_, c in ((q, k, v), (q2, k2, v2)):
+        got = A.attention_wide(a, b_, c, None, 512 ** -0.5, 1)
+        _check(lambda: got, lambda: A._wide_reference(a, b_, c, None, 512 ** -0.5, 1), dt)
+        aligned = A.attention_wide(*(t.contiguous() for t in (a, b_, c)), None, 512 ** -0.5, 1)
+        assert torch.equal(got, aligned)
+    assert A.attention_wide.launches == n + 4
+
+
 def test_attention_wide_head_plans(cuda):
     """TSPM's calls take the kernels the CPU tests plan for them."""
     limit = A.smem_limit(cuda)
     assert limit >= 232_448
-    f32 = torch.float32
+    f32, bf = torch.float32, torch.bfloat16
     assert A.attention_plan(f32, 60, 60, 512, limit=limit).kernel == "wide"
     assert A.attention_plan(f32, 14, 14, 512, limit=limit).kernel == "staged"
     assert A.attention_plan(f32, 577, 577, 256, limit=limit).kernel == "wide"
+    assert A.attention_plan(bf, 60, 60, 512, limit=limit).kernel == "mma_wide"
+    assert A.attention_plan(bf, 14, 14, 512, limit=limit).kernel == "mma_wide_short"
+    assert A.attention_plan(bf, 577, 577, 256, limit=limit).kernel == "mma_wide"
+    for args in ((60, 60, 512), (14, 14, 512), (577, 577, 256), (60, 2000, 512)):
+        plan = A.attention_plan(bf, *args, limit=limit)
+        assert A.library_plan(bf, *args) == (plan.kernel, plan.smem_bytes)
     with pytest.raises(ValueError, match="head size 1024"):
         A.attention_wide(*(torch.zeros(1, 60, 1024, device=cuda) for _ in range(3)), None,
                          1.0, 1)

@@ -471,19 +471,29 @@ TSPM_CALLS = [((512, 60, 60), 1, 512), ((2560, 14, 14), 1, 512), ((2560, 1, 14),
 def test_wide_head_plan(dtype, shape, heads, hd):
     """The plan the card's dispatch follows (``qt::attention_plan``): the
     kernel, the head size it runs at and its shared memory, each under an
-    H100's 232,448-byte opt-in limit. The staged kernel holds K_h and V_h
-    in fp32 whatever the dtype: 255,152 bytes at 60 keys of 512 lanes,
-    which takes the wide-head kernel; 14 keys still fit it."""
+    H100's 232,448-byte opt-in limit. bf16 takes the tensor-core kernels at
+    head sizes 256 and 512: the wide short one (a warp per problem, a
+    two-stage ring of 64-lane Q and K slabs per warp: 36,864 bytes) at 14
+    keys, the wide mma one (a two-stage ring of 64-lane slabs, 36,864 bytes;
+    past 128 keys, in two passes, also p, 64 rows of Sk rounded up to 16
+    plus 8) otherwise: 36,864 bytes at 60 keys, 113,664 at 577. fp32 keeps
+    the FMA kernels: the staged kernel
+    holds K_h and V_h in fp32, 255,152 bytes at 60 keys of 512 lanes, which
+    takes the wide-head kernel; 14 keys still fit it."""
     _, sq, sk = shape
     plan = A.attention_plan(dtype, sq, sk, hd)
-    want = {(60, 512): ("fma", "wide", 99_904), (14, 512): ("fma", "staged", 65_816),
-            (577, 256): ("fma", "wide", 84_800)}
+    want = {(torch.float32, 60, 512): ("fma", "wide", 99_904),
+            (torch.float32, 14, 512): ("fma", "staged", 65_816),
+            (torch.float32, 577, 256): ("fma", "wide", 84_800),
+            (torch.bfloat16, 60, 512): ("mma", "mma_wide", 36_864),
+            (torch.bfloat16, 14, 512): ("mma_short", "mma_wide_short", 36_864),
+            (torch.bfloat16, 577, 256): ("mma", "mma_wide", 113_664)}
     if hd == 128:
         want_plan = (("mma_short", "mma_short", 2 * 4 * 2 * 3 * 16 * 136)
                      if dtype == torch.bfloat16 else ("fma", "staged", A._smem_bytes(
                          "staged", sk, 128)))
     else:
-        want_plan = want[(sk, hd)]
+        want_plan = want[(dtype, sk, hd)]
     assert (plan.route, plan.kernel, plan.smem_bytes) == want_plan and plan.head == hd
     assert plan.smem_bytes <= 232_448 == A.H100_SMEM_OPTIN
     assert A._smem_bytes("staged", 60, 512) == 255_152 > A.H100_SMEM_OPTIN
@@ -492,7 +502,10 @@ def test_wide_head_plan(dtype, shape, heads, hd):
 def test_wide_head_plan_limits():
     """The staged kernel at 512 lanes fits up to 54 keys; a smaller limit
     moves a call to the tiled kernels; past 512 lanes over many keys
-    nothing fits and the error names the shape."""
+    nothing fits and the error names the shape. In bf16 the wide mma
+    kernel's p fits up to 1,520 keys (232,448 bytes); past that, or with a
+    keep mask, the call takes the FMA wide-head kernel; a bf16 head between
+    128 and 512 lanes runs zero-padded on the tensor-core kernels."""
     assert A.attention_plan(torch.float32, 60, 54, 512).kernel == "staged"
     assert A.attention_plan(torch.float32, 60, 55, 512).kernel == "wide"
     assert A.attention_plan(torch.float32, 60, 54, 512, limit=200_000).kernel == "wide"
@@ -500,6 +513,60 @@ def test_wide_head_plan_limits():
     assert A.attention_plan(torch.bfloat16, 60, 300, 100).head == 128
     with pytest.raises(ValueError, match=r"Sq=60, Sk=60, head size 1024"):
         A.attention_plan(torch.float32, 60, 60, 1024)
+    bf = torch.bfloat16
+    assert A.attention_plan(bf, 60, 1520, 512) == ("mma", "mma_wide", 512, 232_448)
+    assert A.attention_plan(bf, 60, 1521, 512) == ("fma", "wide", 512, 99_904)
+    assert A.attention_plan(bf, 577, 577, 256, limit=100_000) == ("fma", "wide", 256, 84_800)
+    assert A.attention_plan(bf, 60, 60, 512, has_keep=True) == ("fma", "wide", 512, 99_904)
+    assert A.attention_plan(bf, 14, 14, 512, has_keep=True) == ("fma", "staged", 512, 65_816)
+    assert A.attention_plan(bf, 60, 300, 200) == ("mma", "mma_wide", 256, 76_800)
+    assert A.attention_plan(bf, 14, 14, 200) == ("mma_short", "mma_wide_short", 256, 36_864)
+    assert A.attention_plan(bf, 1, 60, 300) == ("mma", "mma_wide", 512, 36_864)
+    assert A.attention_plan(bf, 60, 128, 512) == ("mma", "mma_wide", 512, 36_864)
+    assert A.attention_plan(bf, 60, 129, 512) == ("mma", "mma_wide", 512, 56_320)
+    assert A.attention_plan(bf, 1, 1, 512) == ("mma_short", "mma_wide_short", 512, 36_864)
+    with pytest.raises(ValueError, match=r"Sq=60, Sk=60, head size 1024"):
+        A.attention_plan(bf, 60, 60, 1024)
+
+
+# the plans of head sizes 32, 64 and 128 (and 48, which runs at its own size
+# or padded to 64), pinned: the QA-TIGER, raw-media and op-level paths'
+# calls keep the kernels they had before the wide-head tensor-core kernels
+PINNED_PLANS = [
+    ("bfloat16", 1, 2, 32, ("mma_short", "mma_short", 32, 30720)),
+    ("bfloat16", 16, 17, 32, ("mma", "mma", 32, 25600)),
+    ("bfloat16", 1, 60, 32, ("fma", "staged", 32, 17072)),
+    ("bfloat16", 577, 577, 32, ("mma", "mma", 32, 25600)),
+    ("bfloat16", 14, 14, 64, ("mma_short", "mma_short", 64, 55296)),
+    ("bfloat16", 60, 77, 64, ("mma", "mma", 64, 46080)),
+    ("bfloat16", 1, 60, 64, ("fma", "staged", 64, 32944)),
+    ("bfloat16", 60, 15, 64, ("fma", "staged", 64, 9004)),
+    ("bfloat16", 577, 577, 64, ("mma", "mma", 64, 46080)),
+    ("bfloat16", 1, 2, 128, ("mma_short", "mma_short", 128, 104448)),
+    ("bfloat16", 16, 17, 128, ("mma", "mma", 128, 87040)),
+    ("bfloat16", 1, 60, 128, ("fma", "staged", 128, 64688)),
+    ("bfloat16", 60, 15, 128, ("fma", "staged", 128, 17708)),
+    ("bfloat16", 577, 577, 128, ("mma", "mma", 128, 87040)),
+    ("bfloat16", 60, 77, 48, ("fma", "staged", 48, 31876)),
+    ("bfloat16", 577, 577, 48, ("mma", "mma", 64, 46080)),
+    ("float32", 14, 14, 32, ("fma", "staged", 32, 4376)),
+    ("float32", 577, 577, 32, ("fma", "tiled", 32, 41728)),
+    ("float32", 60, 77, 64, ("fma", "staged", 64, 41988)),
+    ("float32", 577, 577, 64, ("fma", "tiled", 64, 66304)),
+    ("float32", 1, 60, 128, ("fma", "staged", 128, 64688)),
+    ("float32", 60, 77, 128, ("fma", "staged", 128, 82436)),
+    ("float32", 577, 577, 128, ("fma", "tiled", 128, 115456)),
+    ("float32", 577, 577, 48, ("fma", "tiled", 64, 66304)),
+]
+
+
+@pytest.mark.parametrize("dtype,sq,sk,hd,want", PINNED_PLANS)
+def test_plan_head_sizes_up_to_128_pinned(dtype, sq, sk, hd, want):
+    """Head sizes up to 128 plan as before the wide tensor-core kernels;
+    with a keep mask every one of them takes an FMA kernel."""
+    dt = getattr(torch, dtype)
+    assert tuple(A.attention_plan(dt, sq, sk, hd)) == want
+    assert A.attention_plan(dt, sq, sk, hd, has_keep=True).route == "fma"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -531,6 +598,48 @@ def test_wide_head_plain_against_pallas(dtype, masked, shape, heads):
                            scale, heads, key_bias=None if kb is None else t(kb))
     tol = dict(rtol=1e-5, atol=1e-6) if dtype == "float32" else dict(rtol=2e-2, atol=2e-2)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), **tol)
+
+
+# the edges of the wide tensor-core kernels, bf16 (B, Sq, Sk, W, heads): one
+# and two 64-key tiles and past them (the mma kernel's one pass ends at 128
+# keys), the short kernel's 16 and one past it, one query, and a head of 200
+# lanes that the card pads to 256
+WIDE_TC_EDGES = ([(2, 17, sk, 512, h) for h in (1, 2) for sk in (16, 17, 64, 65, 128, 129)]
+                 + [(3, 1, sk, 512, h) for h in (1, 2) for sk in (14, 60, 129)]
+                 + [(2, 16, 16, 512, 1), (2, 20, 65, 400, 2), (3, 14, 14, 400, 2)])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("shape", WIDE_TC_EDGES)
+def test_wide_head_tc_edges_plain_against_pallas(masked, shape):
+    """The plain version the card's wide tensor-core kernels are held to
+    against the Pallas op (``fused_attention_wide`` in interpret mode) at
+    their edges, bf16, with a mask and a key bias or neither, at the
+    tolerance of ``test_wide_head_plain_against_pallas`` (one bf16 step of
+    the context, 2e-2 relative); and the plan each shape takes on the card
+    (the wide short kernel at most 16 queries and keys, the wide mma kernel
+    otherwise)."""
+    B, sq, sk, W, heads = shape
+    hd = W // heads
+    plan = A.attention_plan(torch.bfloat16, sq, sk, hd)
+    assert plan.kernel == ("mma_wide_short" if sq <= 16 and sk <= 16 else "mma_wide")
+    assert plan.head == (256 if hd <= 256 else 512)
+    rng = np.random.default_rng(1000 * sq + sk + W + heads)
+    q, k, v = rn(rng, B, sq, W), rn(rng, B, sk, W), rn(rng, B, sk, W)
+    mask = kb = None
+    if masked:
+        mask = np.where(rng.random((sq, sk)) < 0.2, -1e9, 0.0).astype(np.float32)
+        kb = np.log(rng.integers(1, 9, (B, sk))).astype(np.float32)
+    scale = hd ** -0.5
+    want = j_attention.attention_wide(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        None if mask is None else jnp.asarray(mask), scale, heads, interpret=True,
+        key_bias=None if kb is None else jnp.asarray(kb))
+    got = A.attention_wide(*(t(a).to(torch.bfloat16) for a in (q, k, v)),
+                           None if mask is None else t(mask), scale, heads,
+                           key_bias=None if kb is None else t(kb))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
 
 
 # ---------------------------------------------------------------------------
