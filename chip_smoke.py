@@ -153,10 +153,39 @@ Phases, in order; any failure ends the run with a non-zero exit:
 9. bench_resblock — ``python -m qa_tiger_tpu_torch.bench_resblock`` at its
    defaults (B=256, S=77, W=768, bf16, causal) for ``attn_half`` and
    ``attn_ln2``, the launch counters reset around each, both JSON lines;
-10. the kernel table as one JSON line (each entry's ``launches`` from its
-   own path, ``launches_by_path`` from all eleven, ``serve`` per served
+10. data parallelism (``qa_tiger_tpu_torch.parallel``) and the v2
+   config: (a) ``dp_eval`` and ``dp_train``: two ranks spawned on the card
+   over gloo (NCCL refuses two ranks on one card; gloo reduces CUDA
+   tensors through the host, so their times are no figure for NCCL) at
+   the recipe's widths, fp32, ``gather_mode="paper"``, dropout off with
+   the train kernels on (p = 1e-300 at the AVQ and PatchSelecter sites,
+   whose masks are then all ones; the attention-dropout sites at 0),
+   against one process on the same global batches: ``_run_eval`` over 65
+   rows (16 per rank and batch; rank 1's third batch all padding), the
+   all-reduced counters equal to one process's, integers exactly; then 3
+   train steps at global B=32 (16 per rank), the ranks' parameters bitwise
+   equal, their losses and parameters (where the last gradient is above
+   1e-6) within rtol 2e-3 / atol 5e-4 of one process's, each rank's
+   launches per step those of one train step; (b) ``dp_graph``: the
+   recipe's graph step (``steps_per_dispatch`` 4) in this process under
+   an NCCL group of world 1 (the replay holds its all-reduces) against
+   the plain graph step: losses over 10 steps bitwise, windows of 8
+   replays timed plain / group / plain; (c) ``dp_cli``: ``python -m
+   torch.distributed.run --nproc-per-node 1 -m qa_tiger_tpu_torch.train
+   --distributed`` over the cli corpus with ``steps_per_dispatch`` 4
+   (NCCL), ``test --distributed`` on its best.npz, and the same train
+   without ``--distributed`` (in this process): equal final reports, one
+   best.npz;
+   (d) ``cli_v2``: ``test.main`` with configs/qa-tiger/vitl14_v2.py as
+   shipped (full width, batch 32, seed weights) over the first 64
+   questions of each of its two test splits with features at the real
+   shapes: each split's accuracy and the seconds;
+11. the kernel table as one JSON line (each entry's ``launches`` from its
+   own path, ``launches_by_path`` from all of them, ``serve`` per served
    batch, ``train_graph`` per replay, ``tspm`` per bf16 forward,
-   ``tspm_train`` per step, ``tspm_cli`` the whole phase;
+   ``tspm_train`` per step, ``tspm_cli`` the whole phase, ``dp_eval``
+   rank 0's eval, ``dp_train`` rank 0's last step, ``dp_graph`` one
+   replay under the group, ``cli_v2`` the whole phase;
    ``attention_wide``'s entry also lists the ``tspm`` lines), then the
    device's JSON line last.
 
@@ -3097,6 +3126,461 @@ def check_bench_resblock() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data parallelism over torch.distributed, and the v2 config
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_STEPS = 3
+DP_BATCH = 32      # the global batch, DP_BATCH // DP_WORLD rows per rank
+# the eval set: 33 rows for rank 0 (batches of 16, 16, 1) and 32 for rank 1,
+# whose third batch is all padding
+DP_EVAL_N = 2 * 16 * 2 + 1
+# dropout "off" with the train kernels on: keep = 1 - 1e-300 rounds to 1.0,
+# so every mask of the AVQ and PatchSelecter sites is all ones (the two
+# attention-dropout sites of QstGrounding and TempMoE are set to 0 apart)
+DROPOUT_OFF = 1e-300
+DP_TRAIN_KERNELS = ("fused_avq_train", "fused_avq_train_bwd", "fused_patch_select_train",
+                    "fused_patch_select_train_bwd")
+V2_CONFIG = ROOT / "configs" / "qa-tiger" / "vitl14_v2.py"
+V2_SPLITS = ("test_balance.json", "test_bias.json")
+V2_QUESTIONS = 64  # the first of each split
+
+
+def _dp_entry(rank: int, world: int, tmp: str, fn, args) -> None:
+    """A spawned rank: card 0 (NCCL refuses two ranks on one card, so the
+    ranks share it over gloo), ``fn(rank, *args)``, its result saved for
+    the parent."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
+                            world_size=world)
+    try:
+        out = fn(rank, *args)
+    except Exception:
+        out = {"error": traceback.format_exc()}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+
+
+def dp_spawn(fn, *args) -> list:
+    """``fn(rank, *args)`` on DP_WORLD ranks spawned on the card; their
+    results in rank order. A rank that raised fails the phase."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_dp_entry, args=(DP_WORLD, tmp, fn, args), nprocs=DP_WORLD, join=True)
+        outs = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+    for r, out in enumerate(outs):
+        error = out.get("error") if isinstance(out, dict) else None
+        require(error is None, f"data-parallel rank {r} failed:\n{error}")
+    return outs
+
+
+class ArrayDataset:
+    """Rows of host arrays: what BatchLoader reads from a dataset, without
+    files."""
+
+    def __init__(self, arrays: dict):
+        self.arrays = arrays
+
+    def __len__(self):
+        return len(self.arrays["label"])
+
+    def __getitem__(self, i: int) -> dict:
+        return {k: v[i] for k, v in self.arrays.items()}
+
+
+def dp_data() -> tuple[list, dict]:
+    """DP_STEPS global train batches of DP_BATCH rows and the DP_EVAL_N eval
+    rows, at the shipped widths, from numpy seed 20 (every process draws
+    the same)."""
+    rng = np.random.default_rng(20)
+    train = [make_train_batch(rng, DP_BATCH) for _ in range(DP_STEPS)]
+    evals = make_train_batch(rng, DP_EVAL_N)
+    del evals["valid"]
+    return train, evals
+
+
+def dp_runner():
+    """The recipe's runner (configs/qa-tiger/vitl14.py, fp32, the tower in
+    bf16) from seed 0, ``gather_mode="paper"`` (no row's forward reads
+    another's), dropout off with the train kernels on (DROPOUT_OFF)."""
+    from qa_tiger_tpu_torch.models import modules
+    from qa_tiger_tpu_torch.training import AVQARunner
+
+    modules.ATTN_DROPOUT = 0.0
+    cfg, mcfg = train_setup(gather_mode="paper")
+    return AVQARunner(cfg, {**mcfg, "dropout": DROPOUT_OFF}, device="cuda", seed=0)
+
+
+def dp_run(rank: int | None) -> dict:
+    """``_run_eval`` over the eval rows (this rank's shard at 16 rows per
+    batch, or the whole set at 32), then DP_STEPS train steps (this rank's
+    rows of each global batch, or all of them) with the counters reset
+    around each step: the eval counters, the losses, the per-step launches
+    and milliseconds, the trainable parameters and their last gradients on
+    the host. ``rank`` None: one process."""
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.data import BatchLoader
+
+    world = 1 if rank is None else DP_WORLD
+    shard = 0 if rank is None else rank
+    train, evals = dp_data()
+    runner = dp_runner()
+    loader = BatchLoader(ArrayDataset(evals), 2 * 16 // world, shard_id=shard, num_shards=world)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    loss, cor, tot, cor9, tot9 = runner._run_eval(loader, debug=False)
+    torch.cuda.synchronize()
+    out = {"eval": [loss, cor, tot, [int(x) for x in cor9], [int(x) for x in tot9]],
+           "eval_batches": len(loader), "eval_launches": ops.launch_counts(),
+           "losses": [], "launches": [], "step_ms": []}
+    for batch in train:
+        rows = {k: v[shard::world] for k, v in batch.items()}
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        start = time.perf_counter()
+        losses = runner.train_step(rows, TRAIN_LR, runner._step_generator)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - start) * 1e3)
+        out["launches"].append(ops.launch_counts())
+        out["losses"].append(losses["total_loss"].item())
+    out["params"] = {n: p.detach().cpu() for n, p in runner.trainable()}
+    out["grads"] = {n: p.grad.detach().cpu() for n, p in runner.trainable() if p.grad is not None}
+    return out
+
+
+def check_dp() -> tuple[dict, dict]:
+    """Phases ``dp_eval`` and ``dp_train``: two ranks spawned on the card
+    over gloo (which reduces CUDA tensors through the host: their times are
+    no figure for NCCL) against one process on the same global batches.
+    dp_eval: the all-reduced counters equal one process's, integers exactly,
+    the loss within LOGITS_TOL, rank 1's last batch all padding. dp_train:
+    the ranks' parameters bitwise equal; their losses and parameters (where
+    the last gradient is above 1e-6) within LOGITS_TOL of the one process's
+    3 steps; each rank's launches per step those of the one process's
+    step, each train kernel once (with the attention dropout off,
+    QstGrounding's and TempMoE's attentions take ``attention_wide``: 4 per
+    step where the dropout-on step of ``train_step_launches`` has 0).
+    Returns (rank 0's eval counts, its last step's)."""
+    import torch
+
+    from qa_tiger_tpu_torch.models import modules
+
+    start = time.perf_counter()
+    ranks = dp_spawn(dp_run)
+    dp_s = time.perf_counter() - start
+    attn_dropout = modules.ATTN_DROPOUT
+    try:
+        single = dp_run(None)
+    finally:
+        modules.ATTN_DROPOUT = attn_dropout
+    torch.cuda.empty_cache()
+
+    evals = [r["eval"] for r in ranks]
+    loss, cor, tot, cor9, tot9 = single["eval"]
+    eval_ok = all(e[1:] == [cor, tot, cor9, tot9] for e in evals) and tot == DP_EVAL_N
+    loss_ok = all(np.isclose(e[0], loss, **LOGITS_TOL) for e in evals)
+    print(json.dumps({"phase": "dp_eval", "world": DP_WORLD, "backend": "gloo",
+                      "rows": DP_EVAL_N, "batches_per_rank": [r["eval_batches"] for r in ranks],
+                      "ranks": evals, "single": single["eval"], "counters_equal": eval_ok,
+                      "loss_close": loss_ok, **LOGITS_TOL}), flush=True)
+    require(eval_ok and loss_ok, f"dp_eval: the ranks' counters {evals} differ from one "
+                                 f"process's {single['eval']}")
+    require(all(r["eval_batches"] == 3 for r in ranks), "dp_eval: the ranks' batch counts differ")
+
+    r0, r1 = ranks
+    bitwise = all(torch.equal(v, r1["params"][n]) for n, v in r0["params"].items())
+    compared, worst = 0, 0.0
+    params_ok = True
+    for name, value in r0["params"].items():
+        keep = single["grads"][name].abs() > 1e-6 if name in single["grads"] else None
+        if keep is None or not keep.any():
+            continue
+        got, want = value[keep].numpy(), single["params"][name][keep].numpy()
+        params_ok &= bool(np.allclose(got, want, **LOGITS_TOL))
+        worst = max(worst, float(np.abs(got - want).max()))
+        compared += 1
+    losses_ok = all(np.allclose(r["losses"], single["losses"], **LOGITS_TOL) for r in ranks)
+    print(json.dumps({"phase": "dp_train", "world": DP_WORLD, "backend": "gloo",
+                      "global_batch": DP_BATCH, "steps": DP_STEPS,
+                      "losses": [r["losses"] for r in ranks], "single_losses": single["losses"],
+                      "ranks_bitwise_equal": bitwise, "params_compared": compared,
+                      "params_max_abs_err": worst, **LOGITS_TOL,
+                      "step_ms": [r["step_ms"] for r in ranks],
+                      "single_step_ms": single["step_ms"], "spawn_and_run_s": dp_s}), flush=True)
+    for rank, r in enumerate(ranks):
+        print(json.dumps({"phase": "dp_train_launches", "rank": rank,
+                          "per_step": r["launches"]}), flush=True)
+        require(r["launches"] == single["launches"],
+                f"dp_train: rank {rank} launched {r['launches']} per step, one process "
+                f"{single['launches']}")
+    for name in DP_TRAIN_KERNELS:
+        require(all(c[name] == 1 for c in single["launches"]),
+                f"dp_train: {name} did not launch once per step")
+    require(bitwise, "dp_train: the ranks' parameters differ")
+    require(losses_ok and params_ok and compared > 50,
+            f"dp_train: the ranks differ from one process (losses {r0['losses']} vs "
+            f"{single['losses']}, params max err {worst:.3e} over {compared})")
+    return r0["eval_launches"], r0["launches"][-1]
+
+
+def check_dp_graph() -> dict:
+    """Phase ``dp_graph``: the recipe's graph step (``steps_per_dispatch``
+    4, fp32 B=32, dropout on) in this process, plain and under an NCCL
+    process group of world 1 (its graph holds the count and gradient
+    all-reduces): two runners from seed 0 over the same staged batches, a
+    warm-up window of 2 (the eager step, the capture) and then windows of 8
+    replays timed per step, plain / group / plain; the two runners' losses
+    over their first 10 steps bitwise equal. Returns the group runner's
+    launches over one replay."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from qa_tiger_tpu_torch import ops, parallel
+
+    rng = np.random.default_rng(21)
+    plain = graph_runner()
+    staged = [plain.stage_batch(make_train_batch(rng, 32)) for _ in range(10)]
+
+    def window(runner, batches) -> tuple[float, list]:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        losses = runner.train_window(batches, TRAIN_LR)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) * 1e3 / len(batches), losses
+
+    _, p_losses = window(plain, staged[:2])
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1, device_id=torch.device("cuda", 0))
+        try:
+            require(parallel.backend() == "nccl", "dp_graph: no NCCL process group")
+            grouped = graph_runner()
+            _, g_losses = window(grouped, staged[:2])
+            ms = {"plain": [], "nccl_world1": []}
+            for runner, key, out in ((plain, "plain", p_losses), (grouped, "nccl_world1", g_losses),
+                                     (plain, "plain", None)):
+                t, losses = window(runner, staged[2:])
+                ms[key].append(t)
+                if out is not None:
+                    out += losses
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            grouped.train_window(staged[:1], TRAIN_LR)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    bitwise = all(torch.equal(a[k], b[k]) for a, b in zip(p_losses, g_losses) for k in a)
+    print(json.dumps({"phase": "dp_graph", "steps_per_dispatch": GRAPH_K,
+                      "window_ms_per_step": ms, "replays": grouped._step_graph.replays,
+                      "losses_bitwise_equal": bitwise, "steps_compared": len(g_losses),
+                      "launches": counts}), flush=True)
+    require(bitwise and len(g_losses) == 10, "dp_graph: the group's graph step differs from "
+                                             "the plain one")
+    for name, n in TRAIN_KERNELS.items():
+        require(counts[name] == n, f"dp_graph: a replay launched {name} {counts[name]} times, "
+                                   f"expected {n}")
+    del plain, grouped
+    return counts
+
+
+def run_entry(args: list, env: dict, timeout: float = 600) -> float:
+    """One entry point in a process of its own from the checkout's root;
+    its seconds. Fails the phase on a non-zero exit, with its stderr's
+    end."""
+    import os
+
+    start = time.perf_counter()
+    out = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout, env={**os.environ, "PYTHONPATH": str(ROOT), **env})
+    require(out.returncode == 0, f"{' '.join(args[:4])} exited {out.returncode}:\n"
+                                 f"{out.stderr[-3000:]}")
+    return time.perf_counter() - start
+
+
+def run_main(main, argv: list, env: dict) -> float:
+    """An entry point's ``main(argv)`` in this process with ``env`` set, its
+    log kept off this script's output; its seconds."""
+    import os
+
+    avqa = logging.getLogger("AVQA")
+    propagate, saved = avqa.propagate, {k: os.environ.get(k) for k in env}
+    avqa.propagate = False
+    os.environ.update(env)
+    start = time.perf_counter()
+    try:
+        main(argv)
+    finally:
+        for handler in avqa.handlers:
+            handler.close()
+        avqa.handlers.clear()
+        avqa.propagate = propagate
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    return time.perf_counter() - start
+
+
+def check_dp_cli() -> None:
+    """Phase ``dp_cli``: over the cli corpus at the recipe's widths and
+    ``steps_per_dispatch`` 4, ``python -m torch.distributed.run
+    --nproc-per-node 1 -m qa_tiger_tpu_torch.train --distributed`` (NCCL at
+    world 1: the captured step holds the NCCL all-reduces), then ``test
+    --distributed`` on its best.npz, then the same train without
+    ``--distributed`` through ``train.main`` in this process (no process
+    group): the final test's report lines of all three equal, and the
+    data-parallel run wrote exactly one best.npz."""
+    import socket
+    import tempfile
+
+    from qa_tiger_tpu_torch import train as train_entry
+
+    def torchrun(module: str, *args: str) -> list:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        return ["-m", "torch.distributed.run", "--nproc-per-node", "1", "--master-addr",
+                "localhost", "--master-port", str(port), "-m", module, *args, "--distributed"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_cli_corpus(root)
+        env = {"QA_TIGER_BPE_VOCAB": str(root / "vocab.txt.gz")}
+        seconds = {}
+        cfg_dp = write_cli_config(root / "dp.py", root, steps_per_dispatch=GRAPH_K,
+                                  output_dir=str(root / "out_dp"))
+        seconds["train_dp"] = run_entry(torchrun("qa_tiger_tpu_torch.train", "--config",
+                                                 str(cfg_dp)), env)
+        bests = sorted((root / "out_dp").rglob("best.npz"))
+        require(len(bests) == 1, f"dp_cli: {len(bests)} best.npz written, expected 1")
+        seconds["test_dp"] = run_entry(torchrun(
+            "qa_tiger_tpu_torch.test", "--config", str(cfg_dp), "--weight", str(bests[0]),
+            "--output_path", str(root / "eval_dp")), env)
+        cfg_one = write_cli_config(root / "one.py", root, steps_per_dispatch=GRAPH_K,
+                                   output_dir=str(root / "out_one"))
+        seconds["train_single_in_process"] = run_main(train_entry.main, ["--config", str(cfg_one)],
+                                                      env)
+        dp_lines = report_lines(bests[0].parent / "log.txt")
+        test_lines = report_lines(root / "eval_dp" / "best_result.txt")
+        one_lines = report_lines(next((root / "out_one").rglob("log.txt")))
+        print(json.dumps({"phase": "dp_cli", "world": 1, "backend": "nccl",
+                          "steps_per_dispatch": GRAPH_K, "seconds": seconds,
+                          "report": dp_lines[-1:], "test_report": test_lines[-1:],
+                          "single_report": one_lines[-1:],
+                          "equal": dp_lines == test_lines == one_lines}), flush=True)
+        require(len(dp_lines) == 13 and dp_lines == test_lines == one_lines,
+                f"dp_cli: the reports differ: {dp_lines[-1:]}, {test_lines[-1:]}, "
+                f"{one_lines[-1:]}")
+
+
+def write_v2_corpus(root: Path) -> list[str]:
+    """The first V2_QUESTIONS of each MUSIC-AVQA-v2.0 test split with its
+    own answer vocabulary, fp32 features at the real shapes for their videos
+    from numpy seed 0, a merges file learned from the questions; returns the
+    video ids."""
+    spec = importlib.util.spec_from_file_location("torch_corpus",
+                                                  ROOT / "tests" / "torch_corpus.py")
+    corpus = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(corpus)
+    src, dst = ROOT / "data" / "annots" / "music_avqa_v2", root / "annots" / "music_avqa_v2"
+    dst.mkdir(parents=True)
+    questions = []
+    for name in V2_SPLITS:
+        part = json.loads((src / name).read_text())[:V2_QUESTIONS]
+        (dst / name).write_text(json.dumps(part))
+        questions += part
+    (dst / "answer2idx.json").write_text((src / "answer2idx.json").read_text())
+    corpus.write_merges(root / "vocab.txt.gz", [q["question_content"] for q in questions])
+    rng = np.random.default_rng(0)
+    videos = sorted({q["video_id"] for q in questions})
+    shapes = {"feats/vggish": (T, 128), "feats/clip_feats/1fps": (T, 768),
+              "feats/visual_tome14_60": (T, P, 1024)}
+    for rel, shape in shapes.items():
+        (root / rel).mkdir(parents=True)
+        for vid in videos:
+            np.save(root / rel / f"{vid}.npy", rng.standard_normal(shape, dtype=np.float32))
+    return videos
+
+
+def check_cli_v2() -> dict:
+    """Phase ``cli_v2``: the port's ``test`` entry point with
+    configs/qa-tiger/vitl14_v2.py as shipped (its model at full width, batch
+    32, weights from the seed), over the first V2_QUESTIONS of both of its
+    test splits, the counters reset around it: each split's accuracy, the
+    seconds; every eval kernel launched."""
+    import os
+    import tempfile
+
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch import test as test_entry
+
+    avqa = logging.getLogger("AVQA")
+    propagate = avqa.propagate
+    avqa.propagate = False
+    old_vocab = os.environ.get("QA_TIGER_BPE_VOCAB")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            videos = write_v2_corpus(root)
+            os.environ["QA_TIGER_BPE_VOCAB"] = str(root / "vocab.txt.gz")
+            cfg = root / "v2.py"
+            cfg.write_text(
+                "import importlib.util\n"
+                f"_spec = importlib.util.spec_from_file_location('v2', {str(V2_CONFIG)!r})\n"
+                "_mod = importlib.util.module_from_spec(_spec)\n"
+                "_spec.loader.exec_module(_mod)\n"
+                "config = _mod.config\n"
+                f"config['data'].update(root={str(root)!r}, num_workers=0)\n")
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            start = time.perf_counter()
+            accs = test_entry.main(["--config", str(cfg), "--output_path", str(root / "eval")])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+            counts = ops.launch_counts()
+            lines = report_lines(root / "eval" / "_result.txt")
+    finally:
+        for handler in avqa.handlers:
+            handler.close()
+        avqa.handlers.clear()
+        avqa.propagate = propagate
+        if old_vocab is None:
+            os.environ.pop("QA_TIGER_BPE_VOCAB", None)
+        else:
+            os.environ["QA_TIGER_BPE_VOCAB"] = old_vocab
+    print(json.dumps({"phase": "cli_v2", "config": str(V2_CONFIG.relative_to(ROOT)),
+                      "splits": list(V2_SPLITS), "questions_per_split": V2_QUESTIONS,
+                      "videos": len(videos), "accuracy": accs, "seconds": seconds,
+                      "launches": counts}), flush=True)
+    require(len(accs) == len(V2_SPLITS) and len(lines) == 13 * len(V2_SPLITS)
+            and all(np.isfinite(a) and 0 <= a <= 100 for a in accs),
+            f"cli_v2: {len(accs)} splits and {len(lines)} report lines")
+    for name in EVAL_KERNELS:
+        require(counts[name] > 0, f"cli_v2: {name} did not launch")
+    return counts
+
+
 def profile_step(fn, path: Path, phase: str) -> None:
     """A torch.profiler table of one call of ``fn`` written to ``path``, and
     its wall time, device busy time and idle share. A line before them
@@ -3204,6 +3688,14 @@ def main() -> int:
         paths["tspm_cli"] = check_tspm_cli()
         torch.cuda.empty_cache()
         paths["bench_resblock"] = check_bench_resblock()
+        torch.cuda.empty_cache()
+        paths["dp_eval"], paths["dp_train"] = check_dp()
+        torch.cuda.empty_cache()
+        paths["dp_graph"] = check_dp_graph()
+        torch.cuda.empty_cache()
+        check_dp_cli()
+        torch.cuda.empty_cache()
+        paths["cli_v2"] = check_cli_v2()
         for name in E2E_ONLY_KERNELS:
             entries[name]["launches"] = paths["e2e"][name]
         for name in OP_KERNELS:

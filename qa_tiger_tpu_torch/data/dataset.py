@@ -214,7 +214,10 @@ class BatchLoader:
 
     Multi-host: pass (shard_id, num_shards) to iterate a disjoint strided
     shard of the dataset (the DistributedSampler equivalent,
-    src/trainutils.py:191-198).
+    src/trainutils.py:191-198). Every shard counts the batches of the
+    largest, ``ceil(ceil(n / num_shards) / batch_size)``, so that every rank
+    takes the same number of steps (and reaches every collective): a shard
+    that runs out first yields batches of padding, ``valid`` all False.
     """
 
     def __init__(self, dataset: AVQADataset, batch_size: int, *,
@@ -242,11 +245,14 @@ class BatchLoader:
         return order[self.shard_id:: self.num_shards]
 
     def __len__(self) -> int:
-        n = len(self._indices())
-        return (n + self.batch_size - 1) // self.batch_size
+        per_shard = -(-len(self.dataset) // self.num_shards)
+        return -(-per_shard // self.batch_size)
 
     def _make_batch(self, idxs: np.ndarray) -> dict[str, np.ndarray]:
+        """The batch of dataset rows ``idxs``, padded to ``batch_size`` with
+        its first row, or with the dataset's row 0 when ``idxs`` is empty."""
         ds = self.dataset
+        fill = int(idxs[0]) if len(idxs) else 0
         native = getattr(ds, "use_native", False)
         if native:
             # metadata per sample in python; features via one native batched
@@ -254,7 +260,7 @@ class BatchLoader:
             samples = [ds.samples[int(i)] for i in idxs]
             n_pad = self.batch_size - len(samples)
             if n_pad:
-                samples.extend([samples[0]] * n_pad)
+                samples.extend([ds.samples[fill]] * n_pad)
             names = [s["video_id"] for s in samples]
             batch: dict[str, np.ndarray] = dict(ds.load_feature_batch(names))
             batch["label"] = np.array(
@@ -280,13 +286,13 @@ class BatchLoader:
             batch["valid"] = np.concatenate(
                 [np.ones(len(idxs), bool), np.zeros(n_pad, bool)])
             batch["ds_idx"] = np.asarray(
-                list(idxs) + [int(idxs[0])] * n_pad, np.int32)
+                list(idxs) + [fill] * n_pad, np.int32)
             return batch
 
         items = [ds[int(i)] for i in idxs]
         n_pad = self.batch_size - len(items)
         if n_pad:
-            items.extend([items[0]] * n_pad)
+            items.extend([items[0] if items else ds[fill]] * n_pad)
         batch = {}
         for key in items[0]:
             if key == "name":
@@ -299,13 +305,15 @@ class BatchLoader:
         # the sample padding above) — lets the runner's question cache gather
         # precomputed tower features by row instead of re-encoding tokens
         batch["ds_idx"] = np.asarray(
-            list(idxs) + [int(idxs[0])] * n_pad, np.int32)
+            list(idxs) + [fill] * n_pad, np.int32)
         return batch
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         order = self._indices()
-        chunks = [order[i: i + self.batch_size]
-                  for i in range(0, len(order), self.batch_size)]
+        # len(self) chunks; those past the end of a short shard are empty
+        # and become batches of padding
+        chunks = [order[i * self.batch_size: (i + 1) * self.batch_size]
+                  for i in range(len(self))]
         if self.prefetch <= 0:
             for chunk in chunks:
                 yield self._make_batch(chunk)

@@ -11,6 +11,7 @@ import torch
 
 from qa_tiger_tpu_torch.models.qa_tiger import QATiger, qa_tiger_config
 from qa_tiger_tpu_torch.models.tspm import TSPM, tspm_config
+from qa_tiger_tpu_torch.parallel import distributed, local_rank
 
 MODEL_REGISTRY = {"QA-TIGER": qa_tiger_config, "TSPM": tspm_config}
 
@@ -27,12 +28,14 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 def select_device(cfg) -> torch.device:
     """The device a config's ``hyper_params.platform`` names: "cpu", or the
-    card for None, "gpu" and "cuda" (raising when there is none)."""
+    card for None, "gpu" and "cuda" (raising when there is none): under a
+    process group the card of this rank, ``cuda:LOCAL_RANK``."""
     platform = cfg["hyper_params"].get("platform")
     if platform == "cpu":
         return torch.device("cpu")
     if platform in (None, "gpu", "cuda"):
-        return resolve_device(None)
+        device = resolve_device(None)
+        return torch.device("cuda", local_rank()) if distributed() else device
     raise ValueError(f"hyper_params.platform={platform!r}: expected 'cpu', 'gpu' or 'cuda'")
 
 

@@ -8,9 +8,14 @@ with the CLIP text weights and ``--weight``; the test split is evaluated,
 then each of ``data.test_annots``. The report goes to
 ``<output_path>/<weight_stem>_result.txt``. The device rule is the train
 entry point's (``hyper_params.platform``; no fallback from the card).
+
+``--distributed`` under torchrun (the train entry point's launch): each
+rank evaluates its strided shard of every split, the counters are summed
+over the ranks, and rank 0 alone writes the report (src/test.py:89-91).
 """
 from __future__ import annotations
 
+from qa_tiger_tpu_torch import parallel
 from qa_tiger_tpu_torch.data import AVQADataset
 from qa_tiger_tpu_torch.train import ROOT, build_runner, eval_loader, setup
 from qa_tiger_tpu_torch.utils import get_logger
@@ -36,3 +41,4 @@ def main(argv: list[str] | None = None) -> list[float]:
 
 if __name__ == "__main__":
     main()
+    parallel.shutdown()

@@ -9,9 +9,22 @@ final test on ``best.npz``, then on each of ``data.test_annots``.
 
 The device comes from ``hyper_params.platform``: ``"cpu"`` runs on the
 CPU; absent, ``"gpu"`` or ``"cuda"`` runs on the card and raises when there
-is none; there is no fallback. ``--distributed`` (data-parallel training)
-is not ported yet (ROADMAP.md A7), and the JAX entry point's compilation
-cache has no counterpart here (ROADMAP.md A9).
+is none; there is no fallback. The JAX entry point's compilation cache has
+no counterpart here (ROADMAP.md A9).
+
+``--distributed``: data-parallel training, one process per card, launched
+by torchrun::
+
+    python -m torch.distributed.run --nproc-per-node N \
+        -m qa_tiger_tpu_torch.train --config C --distributed
+
+Each rank joins the process group (NCCL, or gloo with ``platform='cpu'``),
+takes ``cuda:LOCAL_RANK``, reads a strided shard of every batch at
+``batch_size // world`` rows (``eval_batch_size // world`` for the eval
+loaders; the world size must divide both) and starts from rank 0's weights;
+the runner reduces the gradients, losses and counters. Only rank 0 writes
+the run directory, ``best.npz``, ``last_state/`` and the carried-over best
+checkpoint, and every rank waits for them before it reads them back.
 """
 from __future__ import annotations
 
@@ -20,6 +33,7 @@ from pathlib import Path
 
 import torch
 
+from qa_tiger_tpu_torch import parallel
 from qa_tiger_tpu_torch.data import AVQADataset, BatchLoader
 from qa_tiger_tpu_torch.models.registry import model_config, select_device
 from qa_tiger_tpu_torch.training import (
@@ -47,15 +61,16 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def setup(argv, mode: str | None = None):
-    """Parse ``argv``, build the config (``mode`` forced when given), open
-    the run's log and seed: returns (cfg, writer, timestamp, device)."""
+    """Parse ``argv``, build the config (``mode`` forced when given), join
+    the process group with ``--distributed``, open the run's log and seed:
+    returns (cfg, writer, timestamp, device)."""
     args = arg_parse(argv)
     if mode is not None:
         args.mode = mode
-    if args.distributed:
-        raise NotImplementedError("--distributed: data-parallel training is not ported yet "
-                                  "(ROADMAP.md A7, DDP)")
     cfg = build_config(args)
+    if args.distributed:
+        parallel.init_distributed(cfg.hyper_params.get("platform"))
+        check_batch_sizes(cfg, parallel.world())
     device = select_device(cfg)  # before the run directory: no card, no run
     writer, timestamp = set_logger(cfg)
     logging_config(cfg)
@@ -63,10 +78,22 @@ def setup(argv, mode: str | None = None):
     return cfg, writer, timestamp, device
 
 
+def check_batch_sizes(cfg, world: int) -> None:
+    """Each rank takes ``batch_size // world`` and ``eval_batch_size //
+    world`` rows: the world size must divide both. (The JAX entry point
+    shrinks its mesh to a divisor instead, which a process group cannot.)"""
+    sizes = {k: int(cfg.data[k]) for k in ("batch_size", "eval_batch_size")}
+    if any(v % world for v in sizes.values()):
+        raise ValueError(f"--distributed over {world} ranks: data.batch_size={sizes['batch_size']} "
+                         f"and data.eval_batch_size={sizes['eval_batch_size']} must both be "
+                         f"multiples of {world}")
+
+
 def build_runner(cfg, device: torch.device) -> AVQARunner:
     """The runner of the config's model on ``device``, with the CLIP text
     weights of ``hyper_params.model.clip_weights`` and the ``weight``
-    checkpoint loaded when the config names them."""
+    checkpoint loaded when the config names them; under a process group,
+    rank 0's weights on every rank."""
     logger = get_logger()
     mcfg = model_config(cfg.hyper_params.model_type, cfg.hyper_params.model,
                         num_labels=cfg.get("num_labels", 42))
@@ -80,18 +107,27 @@ def build_runner(cfg, device: torch.device) -> AVQARunner:
         logger.info(f"Unexpected keys: {unexpected}")
         logger.info(f"=> loaded successfully '{cfg.weight}'")
         runner.load_params(params)
+    parallel.broadcast_params(runner.model)
     return runner
 
 
 def eval_loader(dataset: AVQADataset, cfg) -> BatchLoader:
-    return BatchLoader(dataset, cfg.data.eval_batch_size, shuffle=False)
+    """This rank's shard of ``dataset`` in order, ``eval_batch_size //
+    world`` rows per batch (src/train.py:197-213)."""
+    world = parallel.world()
+    return BatchLoader(dataset, cfg.data.eval_batch_size // world, shuffle=False,
+                       shard_id=parallel.rank(), num_shards=world)
 
 
 def make_loaders(cfg) -> dict[str, BatchLoader]:
+    """The train loader (shuffled in train mode) and the validation loader,
+    each this rank's shard at the per-rank batch size (src/train.py:44-56)."""
+    world = parallel.world()
     train_ds = AVQADataset(cfg, mode=cfg.mode, repo_root=ROOT)
     val_ds = AVQADataset(cfg, mode="valid", repo_root=ROOT)
-    train_loader = BatchLoader(train_ds, cfg.data.batch_size, shuffle=(cfg.mode == "train"),
-                               seed=cfg.seed)
+    train_loader = BatchLoader(train_ds, cfg.data.batch_size // world,
+                               shuffle=(cfg.mode == "train"), seed=cfg.seed,
+                               shard_id=parallel.rank(), num_shards=world)
     return {cfg.mode: train_loader, "val": eval_loader(val_ds, cfg)}
 
 
@@ -144,10 +180,15 @@ def main(argv: list[str] | None = None) -> dict:
         # original run directory; the final test below needs it here when no
         # later epoch beats best_acc
         prev_best = Path(resume_dir).parent / "best.npz"
-        if prev_best.exists() and not (save_dir / "best.npz").exists():
-            shutil.copy2(prev_best, save_dir / "best.npz")
+        carry = prev_best.exists() and not (save_dir / "best.npz").exists()
+        # every rank decides before rank 0 copies, and reads after it has
+        parallel.sync_processes("the check for a best.npz to carry over")
+        if carry:
+            if parallel.is_main():
+                shutil.copy2(prev_best, save_dir / "best.npz")
             carried_over = str(prev_best)
             logger.info(f"carried over best checkpoint from {prev_best}")
+        parallel.sync_processes("the carried-over best.npz")
 
     summary = {"run_dir": str(save_dir), "start_epoch": start_epoch, "epochs": [],
                "carried_over": carried_over, "tests": []}
@@ -171,9 +212,10 @@ def main(argv: list[str] | None = None) -> dict:
         if acc >= best_acc and not cfg.debug:
             best_acc, best_epoch = acc, epoch
             logger.info(f"best model saved at epoch {epoch} with acc {best_acc}")
-            save_checkpoint(runner.params, save_dir / "best.npz",
-                            exclude_prefixes=("video_encoder",))
-        if not cfg.debug and cfg.get("save_state", True):
+            if parallel.is_main():
+                save_checkpoint(runner.params, save_dir / "best.npz",
+                                exclude_prefixes=("video_encoder",))
+        if not cfg.debug and cfg.get("save_state", True) and parallel.is_main():
             state = runner.train_state(epoch=epoch, best_acc=best_acc, best_epoch=best_epoch)
             if cfg.get("save_state_async"):
                 # written on a background thread while the next epoch runs
@@ -185,6 +227,7 @@ def main(argv: list[str] | None = None) -> dict:
 
     if cfg.get("save_state_async"):
         wait_for_async_saves()
+    parallel.sync_processes("rank 0's best.npz and last_state")
     summary.update(best_acc=best_acc, best_epoch=best_epoch)
 
     if not cfg.debug:
@@ -210,3 +253,4 @@ def main(argv: list[str] | None = None) -> dict:
 
 if __name__ == "__main__":
     main()
+    parallel.shutdown()

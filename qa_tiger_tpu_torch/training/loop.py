@@ -1,7 +1,8 @@
 """Training and evaluation runner.
 
 Port of ``qa_tiger_tpu/training/loop.py`` (the reference's
-src/trainutils.py:253-462) for one card:
+src/trainutils.py:253-462), on one card, or on one card per rank under a
+process group (``qa_tiger_tpu_torch.parallel``):
 
 - the frozen text tower is split off the trained parameters
   (``requires_grad_(False)``, no Adam state), runs under ``no_grad`` in its
@@ -36,7 +37,22 @@ src/trainutils.py:253-462) for one card:
   same static-input step runs eagerly. ``debug`` and ``profile_dir`` keep
   K=1;
 - ``profile_dir`` (config key, or ``QA_TIGER_PROFILE_DIR``): a
-  ``torch.profiler`` trace of steps 1-3 of epoch 1 written there.
+  ``torch.profiler`` trace of steps 1-3 of epoch 1 written there;
+- data parallelism (a process group is up; each rank steps on its strided
+  shard of the global batch): the CE is the global batch's masked mean,
+  each rank's sum of NLL over valid rows divided by the valid count summed
+  over the ranks (one collective before the forward), ``*loss*`` outputs
+  are averaged over the ranks, and the gradients and the reported losses
+  are summed over the ranks in one flat buffer after the backward
+  (``parallel.all_reduce_grads``); with ``grad_accum`` the microbatches'
+  weights are their global valid counts. Dropout draws from the step's
+  stream split by rank (``_rank_generator``): rows of different ranks never
+  share a mask, and at world 1 the stream is the single process's. Eval
+  sums the counters and the per-batch NLL over the ranks when it reads
+  them back, so ``evaluate`` and ``test`` report what one process reports
+  over the same global batches. The TempMoE gather of
+  ``gather_mode="reference"`` rotates within the batch it sees: each
+  rank's shard, as under the reference's DDP.
 """
 from __future__ import annotations
 
@@ -50,13 +66,15 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from qa_tiger_tpu_torch import parallel
 from qa_tiger_tpu_torch.convert import params_from_jax
-from qa_tiger_tpu_torch.models.qa_tiger import check_text_ctx, split_generator
+from qa_tiger_tpu_torch.models.qa_tiger import check_text_ctx, split_generator, split_seeds
 from qa_tiger_tpu_torch.models.registry import model_class, resolve_device
 from qa_tiger_tpu_torch.training.checkpoint import TENSOR_ENTRIES, load_clip_text_state
 from qa_tiger_tpu_torch.training.metrics import (
     accuracy_report,
     masked_cross_entropy,
+    masked_nll_sum,
     qtype_counters,
 )
 from qa_tiger_tpu_torch.training.optim import (
@@ -349,16 +367,26 @@ class AVQARunner:
                  for k, v in batch.items()}
         return functional_call(self.model, params, (batch,), kwargs)
 
-    def _losses(self, batch: dict, generator, sites=None) -> dict[str, torch.Tensor]:
+    def _losses(self, batch: dict, generator, sites=None,
+                count: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+        """The CE over ``batch``'s valid rows plus any ``*loss*`` output.
+        Under data parallelism ``count`` is the valid count of the global
+        batch: the CE is this rank's share of its masked mean and each
+        ``*loss*`` output is divided by the world size, so that their sums
+        over the ranks are the global batch's."""
         out = self._forward(batch, self._train_dtype, False, train=True, generator=generator,
                             sites=sites)
-        ce = masked_cross_entropy(out["out"], batch["label"], batch["valid"])
+        if count is None:
+            ce, world = masked_cross_entropy(out["out"], batch["label"], batch["valid"]), 1
+        else:
+            ce = masked_nll_sum(out["out"], batch["label"], batch["valid"]) / count.clamp(min=1.0)
+            world = parallel.world()
         losses = {"ce_loss": ce}
         total = ce
         for key, value in out.items():
             if "loss" in key:
-                losses[key] = value
-                total = total + value
+                losses[key] = value if world == 1 else value / world
+                total = total + losses[key]
         losses["total_loss"] = total
         return losses
 
@@ -373,18 +401,43 @@ class AVQARunner:
 
     def _step(self, batch: dict, generator=None, sites=None) -> dict[str, torch.Tensor]:
         """Forward, backward and Adam on a device batch at the LR already
-        set; dropout from ``generator`` (split per site) or from ``sites``
-        (one list of per-site generators per microbatch, seeded: the step
-        graph's)."""
+        set; dropout from ``generator`` (split by rank, then per site) or
+        from ``sites`` (one list of per-site generators per microbatch,
+        seeded: the step graph's). Under data parallelism the gradients and
+        the losses are summed over the ranks before Adam."""
         self.optimizer.zero_grad(set_to_none=True)
+        generator = self._rank_generator(generator)
         accum = self._grad_accum
+        dp = parallel.distributed()
         if accum <= 1:
-            losses = self._losses(batch, generator, None if sites is None else sites[0])
+            count = self._global_counts([batch])[0] if dp else None
+            losses = self._losses(batch, generator, None if sites is None else sites[0], count)
             losses["total_loss"].backward()
         else:
             losses = self._accumulated_backward(batch, generator, accum, sites)
+        losses = {k: v.detach() for k, v in losses.items()}
+        if dp:
+            losses = parallel.all_reduce_grads([p for _, p in self.trainable()], losses)
         self.optimizer.step()
-        return {k: v.detach() for k, v in losses.items()}
+        return losses
+
+    def _rank_generator(self, generator):
+        """This rank's dropout stream for one step: ``generator`` itself on
+        one process or at world 1; otherwise a generator seeded with this
+        rank's of ``world`` seeds drawn from it, so that every rank advances
+        the shared stream alike and draws masks of its own."""
+        world = parallel.world()
+        if generator is None or world <= 1:
+            return generator
+        seed = split_seeds(generator, world)[parallel.rank()]
+        return torch.Generator(device=generator.device).manual_seed(seed)
+
+    @staticmethod
+    def _global_counts(mbs: list[dict]) -> torch.Tensor:
+        """The valid-row count of each (micro)batch, summed over the ranks
+        under data parallelism: [len(mbs)] fp32, one collective."""
+        counts = torch.stack([mb["valid"].float().sum() for mb in mbs])
+        return parallel.all_reduce_sum([counts])[0]
 
     def train_window(self, batches: list[dict], lr: float) -> list[dict[str, torch.Tensor]]:
         """Steps over staged batches (``stage_batch``) in order, dropout from
@@ -401,7 +454,7 @@ class AVQARunner:
                 batch = self._gather_questions(batch, self._active_qst_cache)
                 out.append(self._step(batch, self._step_generator))
             else:
-                out.append(graph(batch, self._step_generator))
+                out.append(graph(batch, self._rank_generator(self._step_generator)))
         return out
 
     def _graph_for(self, batch: dict) -> StepGraph | None:
@@ -421,10 +474,12 @@ class AVQARunner:
 
     def _accumulated_backward(self, batch: dict, generator, accum: int, sites=None) -> dict:
         """``accum`` sequential microbatches, each gradient weighted by its
-        valid-row count and the sum divided by the total: for the CE loss
-        exactly the full-batch gradient, where the forward does not mix rows
-        (``gather_mode="paper"``; the reference gather rotates routing across
-        the batch, so microbatches change it, as in the JAX runner)."""
+        valid-row count (under data parallelism, the count of the global
+        microbatch, whose rows the ranks' microbatches hold) and the sum
+        divided by the total: for the CE loss exactly the full-batch
+        gradient, where the forward does not mix rows (``gather_mode=
+        "paper"``; the reference gather rotates routing across the batch, so
+        microbatches change it, as in the JAX runner)."""
         mbs = [dict(zip(batch, parts)) for parts in
                zip(*(v.chunk(accum) for v in batch.values()))]
         if sites is not None:
@@ -435,9 +490,11 @@ class AVQARunner:
             draws = [(None, None)] * accum
         sums: dict[str, torch.Tensor] = {}
         w_sum = torch.zeros((), device=self.device)
-        for mb, (gen, site) in zip(mbs, draws):
-            w = mb["valid"].float().sum()
-            losses = self._losses(mb, gen, site)
+        dp = parallel.distributed()
+        counts = self._global_counts(mbs) if dp else None
+        for i, (mb, (gen, site)) in enumerate(zip(mbs, draws)):
+            w = counts[i] if dp else mb["valid"].float().sum()
+            losses = self._losses(mb, gen, site, w if dp else None)
             (w * losses["total_loss"]).backward()
             for k, v in losses.items():
                 sums[k] = sums.get(k, 0.0) + w * v.detach()
@@ -449,12 +506,14 @@ class AVQARunner:
         return {k: v / denom for k, v in sums.items()}
 
     @torch.no_grad()
-    def eval_step(self, batch: Mapping):
+    def eval_step(self, batch: Mapping, nll_sum: bool = False):
         """(ce, correct, total, correct_per_type, total_per_type), on the
-        device."""
+        device; with ``nll_sum`` the first is the NLL summed over the valid
+        rows (what ranks sum before dividing by the summed total)."""
         batch = self._device_batch(batch)
         out = self._forward(batch, self._eval_dtype, True)
-        ce = masked_cross_entropy(out["out"], batch["label"], batch["valid"])
+        loss = masked_nll_sum if nll_sum else masked_cross_entropy
+        ce = loss(out["out"], batch["label"], batch["valid"])
         return (ce, *qtype_counters(out["out"], batch["label"], batch["qtype_label"],
                                     batch["valid"]))
 
@@ -570,12 +629,17 @@ class AVQARunner:
         self.logger.info(f"Profiler trace written to {path / TRACE_FILE}")
 
     def _run_eval(self, loader, debug: bool):
+        """(mean of the batches' CE, correct, total, correct and total per
+        question type) over ``loader``. Under data parallelism every rank
+        reads its shard, and the rows read back are summed over the ranks
+        first: each batch's CE is then the global batch's."""
         self._select_qst_cache(loader)
         ce_sum, cor, tot, n_batches = 0.0, 0, 0, 0
         cor9 = np.zeros(9, np.int64)
         tot9 = np.zeros(9, np.int64)
         pending: list = []
         log_interval = self.cfg.get("log_interval", 100)
+        dp = parallel.distributed()
 
         def drain() -> None:
             nonlocal ce_sum, cor, tot, cor9, tot9, n_batches
@@ -583,7 +647,11 @@ class AVQARunner:
                 return
             rows = torch.stack([torch.cat([ce.double().reshape(1), c.reshape(1).double(),
                                            t.reshape(1).double(), c9.double(), t9.double()])
-                                for ce, c, t, c9, t9 in pending]).cpu().numpy()
+                                for ce, c, t, c9, t9 in pending])
+            if dp:
+                rows = parallel.all_reduce_sum([rows])[0]
+                rows[:, 0] /= rows[:, 2].clamp(min=1.0)
+            rows = rows.cpu().numpy()
             for row in rows:
                 ce_sum += float(row[0])
                 cor += int(row[1])
@@ -594,7 +662,7 @@ class AVQARunner:
             pending.clear()
 
         for batch_idx, host_batch in enumerate(loader):
-            pending.append(self.eval_step(host_batch))
+            pending.append(self.eval_step(host_batch, nll_sum=dp))
             if batch_idx % log_interval == 0 or batch_idx == len(loader) - 1:
                 drain()
                 self.logger.info(f"Test progress: {batch_idx:3.0f}/{len(loader) - 1}")

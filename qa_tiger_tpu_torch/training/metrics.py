@@ -12,14 +12,20 @@ from torch.nn import functional as F
 from qa_tiger_tpu_torch.data.annotations import NUM_QTYPES, idx2qtype
 
 
+def masked_nll_sum(logits: torch.Tensor, labels: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """The CE summed over valid samples (padding rows contribute zero); fp32.
+    Data-parallel ranks sum it and divide by the summed valid count."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(1, labels.long()[:, None])[:, 0]
+    return (nll * valid.float()).sum()
+
+
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          valid: torch.Tensor) -> torch.Tensor:
     """Mean CE over valid samples (== nn.CrossEntropyLoss on the unpadded
     batch; padding rows contribute zero); fp32."""
-    logp = F.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(1, labels.long()[:, None])[:, 0]
-    w = valid.float()
-    return (nll * w).sum() / w.sum().clamp(min=1.0)
+    return masked_nll_sum(logits, labels, valid) / valid.float().sum().clamp(min=1.0)
 
 
 def qtype_counters(logits: torch.Tensor, labels: torch.Tensor, qtype_label: torch.Tensor,

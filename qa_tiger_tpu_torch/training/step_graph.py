@@ -28,6 +28,11 @@ The kernel wrappers count their launches in Python, which a replay does not
 run: the capture's counts are taken off again and added once per replay
 (``ops.add_launches``). A capture that fails raises; nothing falls back to
 the eager step.
+
+Under data parallelism the step's collectives (the valid count before the
+forward, the flat gradient buffer after the backward) are captured with it,
+which NCCL allows and gloo does not: a step graph under another backend
+raises, naming it.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from contextlib import nullcontext
 
 import torch
 
-from qa_tiger_tpu_torch import ops
+from qa_tiger_tpu_torch import ops, parallel
 from qa_tiger_tpu_torch.models.qa_tiger import SITES, split_generator, split_seeds
 
 
@@ -72,6 +77,12 @@ class StepGraph:
 
     def __init__(self, step: Callable, batch: dict, *, accum: int, device: torch.device,
                  capture: bool, cache=None, sites: int = SITES):
+        backend = parallel.backend()
+        if backend not in (None, "nccl"):
+            raise RuntimeError(
+                f"steps_per_dispatch > 1 captures the step's gradient all-reduce in a CUDA "
+                f"graph, which the {backend} backend cannot do: run one card per rank over "
+                "NCCL, or set steps_per_dispatch to 1")
         self.step = step
         self.key = batch_key(batch)
         self.cache = cache

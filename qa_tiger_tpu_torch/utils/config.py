@@ -96,7 +96,7 @@ def arg_parse(argv: list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--config", type=str, required=True,
                         help="Path to the config file")
     parser.add_argument("--distributed", action="store_true",
-                        help="Data-parallel training over several GPUs (not ported yet)")
+                        help="Data parallelism, one process per card, under torchrun")
     parser.add_argument("--debug", action="store_true", help="Debugging")
     parser.add_argument("--weight", type=str, default="",
                         help="Path to the model weight file (.pt or .npz)")

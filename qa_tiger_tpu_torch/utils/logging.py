@@ -104,9 +104,11 @@ def set_logger(cfg) -> tuple[Any, str]:
 
     Train mode: ``<output_dir>/<timestamp>_seed<seed>/`` with a TensorBoard
     writer, log.txt and a code snapshot zip (ref src/utils.py:159-190); with
-    ``debug`` nothing is written. Test mode: the log goes to
-    ``<output_path>/<weight_stem>_result.txt``, or beside the weight file
-    when no output path is given (ref src/utils.py:138-158). Returns
+    ``debug`` nothing is written. Under a process group rank 0 alone writes
+    them (the writer is None elsewhere) and its timestamp is every rank's.
+    Test mode: the log goes to ``<output_path>/<weight_stem>_result.txt``,
+    or beside the weight file when no output path is given (ref
+    src/utils.py:138-158); rank 0 alone writes it. Returns
     ``(writer or None, timestamp)``. Unlike the reference, it leaves the
     process's warning filters as they are.
     """
@@ -131,6 +133,11 @@ def set_logger(cfg) -> tuple[Any, str]:
         return None, ""
 
     timestamp = "{0:%Y-%m-%d-%H-%M-%S}".format(datetime.now()) + f"_seed{cfg.seed}"
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        # rank 0's: every rank reads back what rank 0 writes to the run dir
+        shared = [timestamp]
+        dist.broadcast_object_list(shared, src=0)
+        timestamp = shared[0]
     writer = None
     if not cfg.debug and _is_main_process():
         out_dir = Path(cfg.output_dir) / timestamp

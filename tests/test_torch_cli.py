@@ -190,8 +190,11 @@ def test_save_torch_checkpoint_round_trips_through_jax(tmp_path):
 
 def test_without_a_card_the_entry_points_raise(corpus, monkeypatch):
     """No platform and no CUDA device: both entry points raise before any
-    run directory exists; an unknown platform and --distributed raise."""
+    run directory exists; an unknown platform raises, and so does
+    --distributed outside torchrun (no RANK, WORLD_SIZE, ... to join)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for key in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     cfg = config(corpus, "nocard", platform=None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_train.main(["--config", str(cfg)])
@@ -200,5 +203,5 @@ def test_without_a_card_the_entry_points_raise(corpus, monkeypatch):
     assert not (corpus / "out_nocard").exists()
     with pytest.raises(ValueError, match="platform"):
         t_train.main(["--config", str(config(corpus, "tpu", platform="tpu"))])
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(RuntimeError, match="--distributed needs the environment torchrun sets"):
         t_train.main(["--config", str(cfg), "--distributed"])

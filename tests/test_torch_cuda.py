@@ -1098,6 +1098,49 @@ def test_train_graph_matches_eager(cuda, train_dtype):
                                eager.optimizer.state[pb][key]), (name, key)
 
 
+@pytest.mark.parametrize("accum", [1, 2])
+def test_nccl_step_graph_is_the_single_process(cuda, tmp_path, accum):
+    """Data parallelism at world 1 over NCCL, ``steps_per_dispatch`` 2 at the
+    recipe's widths, B=4, dropout on: the step's CUDA graph holds the count
+    and gradient all-reduces, and 5 batches through it (a warm-up, a
+    capture, four replays) are bitwise those of a runner without a process
+    group stepping the same batches eagerly: losses, parameters, the
+    dropout stream."""
+    import torch.distributed as dist
+
+    from qa_tiger_tpu_torch import parallel
+    from qa_tiger_tpu_torch.models import qa_tiger_config
+    from qa_tiger_tpu_torch.training import AVQARunner
+
+    hp = {"optim": dict(lr=1e-4, betas=(0.95, 0.999), weight_decay=0.0, encoder_lr=None,
+                        grad_accum=accum), "steps_per_dispatch": 2}
+    cfg = {"log_interval": 1, "debug": False, "hyper_params": hp}
+    graph, eager = (AVQARunner(cfg, qa_tiger_config(**RECIPE_MODEL), device=cuda, seed=0)
+                    for _ in range(2))
+    eager.graph_capture = False
+    rng = np.random.default_rng(1)
+    batches = [graph.stage_batch(_recipe_batch(rng, 4)) for _ in range(5)]
+
+    def run(runner):
+        return sum((runner.train_window(batches[i:i + 2], 1e-4) for i in (0, 2, 4)), [])
+
+    e_losses = run(eager)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        assert parallel.backend() == "nccl"
+        g_losses = run(graph)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert graph._step_graph.replays == 4 and graph._step_graph.graph is not None
+    for a, b in zip(g_losses, e_losses):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+    assert torch.equal(graph._step_generator.get_state(), eager._step_generator.get_state())
+    for (name, pa), (_, pb) in zip(graph.trainable(), eager.trainable()):
+        assert torch.equal(pa, pb), name
+
+
 # ---------------------------------------------------------------------------
 # head sizes 256 and 512 (TSPM's one-head attentions): in bf16 without a keep
 # mask the wide tensor-core kernels (a warp per problem at most 16 queries
