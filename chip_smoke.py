@@ -47,6 +47,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    products (seven and ten) must take tf32x3 in fp32 and wgmma in bf16.
    A call shorter than 0.2 ms on the card is timed behind a spin kernel,
    so that the host's launch cost does not set its time (``cuda_ms``);
+   fused_attn_ln2 also at the 512-wide text tower of RN50 (x[2, 77, 512]
+   fp32, x[42, 77, 512] bf16 timed, causal, 8 heads: attention on mma,
+   both products on gemm_sm90; ``clip_text_w512`` in its table entry);
 4. serving — the Predictor at configs/qa-tiger/vitl14.py with weights from
    a seed: (a) fp32 logits at B=4 against the same state_dict run through
    the plain versions on the CPU; (b) the bf16 B=256 path through
@@ -153,7 +156,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
 9. bench_resblock — ``python -m qa_tiger_tpu_torch.bench_resblock`` at its
    defaults (B=256, S=77, W=768, bf16, causal) for ``attn_half`` and
    ``attn_ln2``, the launch counters reset around each, both JSON lines;
-10. data parallelism (``qa_tiger_tpu_torch.parallel``) and the v2
+10. CLIP (``models.clip``) at RN50 and ViT-L/14@336px: the seed towers
+   written as a CLIP ``.pt`` (fp16, OpenAI's names, an RN tower's random
+   BatchNorm statistics and ``num_batches_tracked``), read back through
+   ``load`` and ``build_towers``; (a) ``clip_rn50_fp32`` /
+   ``clip_vitl336_fp32``: ``clip_forward`` on 2 images x 4 texts, card
+   against the CPU within LOGITS_TOL; (b) ``clip_rn50_bf16`` /
+   ``clip_vitl336_bf16``: one video's 60 frames against 42 answer prompts,
+   the launch counters reset around one forward (fused_attn_ln2 12 and 36
+   times, on gemm_sm90, nothing else), images/s from the median of 10;
+11. tools: ``profile_stages --batch 256 --trace DIR`` (the sum of its
+   stages beside FULL), ``trace_summary`` over its trace (its launches by
+   port kernel equal to the wrappers' over the traced block, each with its
+   device kernels in the trace), ``bench_avq`` and ``bench_e2e --iters 2
+   --repeats 1``;
+12. data parallelism (``qa_tiger_tpu_torch.parallel``) and the v2
    config: (a) ``dp_eval`` and ``dp_train``: two ranks spawned on the card
    over gloo (NCCL refuses two ranks on one card; gloo reduces CUDA
    tensors through the host, so their times are no figure for NCCL) at
@@ -180,12 +197,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    shipped (full width, batch 32, seed weights) over the first 64
    questions of each of its two test splits with features at the real
    shapes: each split's accuracy and the seconds;
-11. the kernel table as one JSON line (each entry's ``launches`` from its
+13. the kernel table as one JSON line (each entry's ``launches`` from its
    own path, ``launches_by_path`` from all of them, ``serve`` per served
    batch, ``train_graph`` per replay, ``tspm`` per bf16 forward,
    ``tspm_train`` per step, ``tspm_cli`` the whole phase, ``dp_eval``
    rank 0's eval, ``dp_train`` rank 0's last step, ``dp_graph`` one
-   replay under the group, ``cli_v2`` the whole phase;
+   replay under the group, ``cli_v2`` the whole phase, ``clip_rn50`` and
+   ``clip_vitl336`` one bf16 forward;
    ``attention_wide``'s entry also lists the ``tspm`` lines), then the
    device's JSON line last.
 
@@ -193,8 +211,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
 forward, a window of 1024 served requests under 4 client threads (its
 device idle share: ``profile_serve``), one train step, a window of 8
 replayed train steps (``profile_train_graph``), one raw-media forward and
-one TSPM bf16 B=256 forward (``profile_tspm``) to DIR. All inputs come
-from fixed seeds. TF32 is off.
+one TSPM bf16 B=256 forward (``profile_tspm``) and one bf16 CLIP forward
+of each config (``profile_clip_rn50``, ``profile_clip_vitl336``) to DIR,
+each through ``utils.profiling.trace``, whose Chrome trace
+``trace_summary`` reads beside the table (``<phase>_trace``). All inputs
+come from fixed seeds. TF32 is off.
 """
 from __future__ import annotations
 
@@ -388,18 +409,8 @@ def kernel_cases(dtype, B: int, rng, gen):
         return torch.from_numpy(
             (scale * rng.standard_normal(shape, dtype=np.float32))).to(dev, dtype)
 
-    cases = []
     # text tower: one launch per layer, x [B, 77, 768], causal, 12 heads
-    W, H = 768, 12
-    blk = ResidualAttentionBlock(W, 12, gen).to(dev, dtype)
-    x = rn(B, S, W)
-    mask = causal_mask(S, device=dev)
-    nbytes = (3 * B * S * W + 4 * W * W + 8 * W) * isz + S * S * 4
-    flops = 2 * B * S * W * 4 * W + 2 * B * W * S * (S + 1)  # causal: keys <= query
-    cases.append(("fused_attn_ln2", f"x[{B},{S},{W}] causal h{H}",
-                  lambda: R.fused_attn_ln2(x, blk, mask, H),
-                  lambda: R._attn_ln2_plain(blk, x, heads=H, mask=mask), None, nbytes, flops,
-                  {"attn": (S, S, W // H), "gemm": GM.attn_gemm_shapes(B * S, W)}))
+    cases = [text_block_case(dtype, B, 768, 12, rng, gen)]
 
     # attention: AVQ question (60 x 77), self and cross (60 x 60) over the 2B
     # batch; TempMoE (1 x 60) and QstGrounding (1 x 2) over B
@@ -434,6 +445,30 @@ def kernel_cases(dtype, B: int, rng, gen):
                                         "attn": (P, P, D // heads),
                                         "want_route": short_route(dtype)}))
     return cases + moe_cases(dtype, B, rng)
+
+
+def text_block_case(dtype, B: int, W: int, H: int, rng, gen, want_route: str | None = None):
+    """fused_attn_ln2 at one text-tower block, x [B, 77, W], causal, H
+    heads, against ``_attn_ln2_plain``. Bytes: x, y and h and the block's
+    weights once, the mask; flops: the two products and the causal scores
+    (keys <= query)."""
+    import torch
+
+    from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock, causal_mask
+    from qa_tiger_tpu_torch.ops import gemm as GM
+    from qa_tiger_tpu_torch.ops import resblock as R
+
+    isz = torch.tensor([], dtype=dtype).element_size()
+    blk = ResidualAttentionBlock(W, 12, gen).to("cuda", dtype)
+    x = torch.from_numpy(rng.standard_normal((B, S, W), dtype=np.float32)).to("cuda", dtype)
+    mask = causal_mask(S, device="cuda")
+    return ("fused_attn_ln2", f"x[{B},{S},{W}] causal h{H}",
+            lambda: R.fused_attn_ln2(x, blk, mask, H),
+            lambda: R._attn_ln2_plain(blk, x, heads=H, mask=mask), None,
+            (3 * B * S * W + 4 * W * W + 8 * W) * isz + S * S * 4,
+            2 * B * S * W * 4 * W + 2 * B * W * S * (S + 1),
+            {"attn": (S, S, W // H), "gemm": GM.attn_gemm_shapes(B * S, W),
+             "want_route": want_route})
 
 
 def short_route(dtype) -> str | None:
@@ -721,6 +756,48 @@ def check_op_kernels(entries: dict) -> None:
             run_kernel_case(patch_attention_case(dtype, B, np.random.default_rng(6)), dtype, tol,
                             timed, None)
             torch.cuda.empty_cache()
+
+
+# the RN50 (and ViT-B) text tower: width 512, 8 heads (clip_text.py:36-38),
+# over one video's 42 answer prompts
+CLIP_TEXT_W, CLIP_TEXT_HEADS, CLIP_PROMPTS = 512, 8, 42
+
+
+def check_clip_text_kernel(entries: dict) -> None:
+    """Phase 3 at the 512-wide text tower of clip_rn50: fused_attn_ln2 at
+    x[2, 77, 512] in fp32 and x[42, 77, 512] in bf16, causal, 8 heads, from
+    seeds of their own, against its plain version; the bf16 call timed
+    beside its bound, its attention on the mma route and its two products
+    (qkv N=1536, K=512; out N=512) on gemm_sm90, by the route rule and by
+    one launch's tally. Its bf16 line joins the kernel's table entry as
+    ``clip_text_w512``."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import resblock as R
+
+    rng, gen = np.random.default_rng(17), torch.Generator().manual_seed(17)
+    with torch.inference_mode():
+        for dtype, B, tol, timed in ((torch.float32, 2, FP32_TOL, False),
+                                     (torch.bfloat16, CLIP_PROMPTS, BF16_TOL, True)):
+            bf16 = dtype == torch.bfloat16
+            case = text_block_case(dtype, B, CLIP_TEXT_W, CLIP_TEXT_HEADS, rng, gen,
+                                   want_route="mma" if bf16 else None)
+            line = run_kernel_case(case, dtype, tol, timed, None)
+            R.fused_attn_ln2.gemm_routes = {}
+            case[2]()
+            routes = dict(R.fused_attn_ln2.gemm_routes)
+            want = {"wgmma": 2} if bf16 else {"fma": 2}
+            print(json.dumps({"phase": "clip_text_w512_gemm_routes", "shape": case[1],
+                              "dtype": line["dtype"], "fused_attn_ln2": routes}), flush=True)
+            require(routes == want and line["gemm_route"] == next(iter(want)),
+                    f"fused_attn_ln2 {case[1]}: its products took {routes} "
+                    f"(route rule: {line['gemm_route']}), expected {want}")
+            if bf16:
+                entries["fused_attn_ln2"]["clip_text_w512"] = {
+                    k: line[k] for k in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "tflops", "gemm_route",
+                                         "route")}
+        torch.cuda.empty_cache()
 
 
 def path_gemm_shapes() -> dict:
@@ -3127,7 +3204,204 @@ def check_bench_resblock() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: data parallelism over torch.distributed, and the v2 config
+# phase 10: the CLIP model surface
+# ---------------------------------------------------------------------------
+
+# path -> (encoder type, image pixels, fused_attn_ln2 launches per forward:
+# the text tower's 12 blocks, and the ViT image tower's 24)
+CLIP_CASES = {"clip_rn50": ("RN50", 224, 12), "clip_vitl336": ("ViT-L/14@336px", 336, 36)}
+CLIP_FRAMES = 60  # one video's frames against its CLIP_PROMPTS answer prompts
+
+
+def write_clip_checkpoint(encoder_type: str, path: Path, seed: int) -> None:
+    """A CLIP ``.pt`` as the released archives hold one: OpenAI's names,
+    fp16, the integer entries; the port's towers from ``seed``, an RN
+    tower's BatchNorm statistics drawn at random (mean N(0, 0.1^2), var
+    U(0.5, 1.5)) and its ``num_batches_tracked``."""
+    import torch
+
+    from qa_tiger_tpu_torch.models.clip_image import CLIPVisionTower
+    from qa_tiger_tpu_torch.models.clip_resnet import CLIPResNetTower
+    from qa_tiger_tpu_torch.models.clip_text import CLIPTextTower
+
+    g = torch.Generator().manual_seed(seed)
+    text = CLIPTextTower(encoder_type, g)
+    resnet = encoder_type.startswith("RN")
+    vision = (CLIPResNetTower if resnet else CLIPVisionTower)(encoder_type, seed=seed + 1)
+    sd = {k: v.half() for k, v in text.state_dict().items()}
+    for key, value in vision.state_dict().items():
+        if key.endswith("running_mean"):
+            value = 0.1 * torch.randn(value.shape, generator=g)
+        elif key.endswith("running_var"):
+            value = torch.rand(value.shape, generator=g) + 0.5
+            sd["visual." + key[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+        sd["visual." + key] = value.half()
+    cfg = vision.cfg
+    sd.update(input_resolution=torch.tensor(cfg["input_resolution"]),
+              context_length=torch.tensor(S), vocab_size=torch.tensor(VOCAB))
+    torch.save(sd, path)
+
+
+def check_clip(profile_dir: Path | None) -> dict:
+    """Phase 10, for RN50 (224 pixels, the 512-wide text tower) and
+    ViT-L/14@336px: the seed towers written as a CLIP ``.pt``
+    (``write_clip_checkpoint``) and read back by the entry points a user
+    calls, ``models.clip.load`` and ``build_towers``. (a)
+    ``<path>_fp32``: ``clip_forward`` on B=2 images x 4 texts on the card
+    against the same state_dicts through the plain versions on the CPU,
+    logits within LOGITS_TOL (TF32 off). (b) ``<path>_bf16``: one video's
+    60 frames (drawn on the card) against 42 answer prompts, the launch
+    counters reset around one forward (fused_attn_ln2 once per text and
+    image block, its products on gemm_sm90, no other kernel), images/s from
+    the median of 10 forwards, each between two synchronizes; profiled with
+    ``--profile``. Returns each path's counts."""
+    import tempfile
+
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.models import clip
+
+    paths = {}
+    for path, (encoder_type, px, n_ln2) in CLIP_CASES.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = Path(tmp) / "clip.pt"
+            write_clip_checkpoint(encoder_type, ckpt, seed=0)
+            text_sd, vision_sd, cfg = clip.load(str(ckpt))
+        rng = np.random.default_rng(18)
+        imgs = torch.from_numpy(rng.standard_normal((2, px, px, 3), dtype=np.float32))
+        toks = torch.from_numpy(make_tokens(rng, 4))
+        card = clip.build_towers(text_sd, vision_sd, encoder_type, device="cuda")
+        cpu = clip.build_towers(text_sd, vision_sd, encoder_type, device="cpu")
+        with torch.inference_mode():
+            got = clip.clip_forward(*card, imgs.cuda(), toks.cuda(), encoder_type=encoder_type)
+            want = clip.clip_forward(*cpu, imgs, toks, encoder_type=encoder_type)
+        got, want = got[0].float().cpu(), want[0]
+        err = (got - want).abs().max().item()
+        ok = bool(torch.allclose(got, want, **LOGITS_TOL)) and tuple(got.shape) == (2, 4)
+        print(json.dumps({"phase": f"{path}_fp32", "encoder_type": encoder_type,
+                          "checkpoint_config": cfg, "logits_max_abs_err": err,
+                          "max_abs_logit": want.abs().max().item(), **LOGITS_TOL,
+                          "argmax_equal": bool((got.argmax(1) == want.argmax(1)).all()),
+                          "ok": ok}), flush=True)
+        require(ok, f"{path}: fp32 CLIP logits on the card differ from the CPU run by {err:.3e}")
+        del card, cpu
+        torch.cuda.empty_cache()
+
+        towers = clip.build_towers(text_sd, vision_sd, encoder_type, device="cuda",
+                                   dtype=torch.bfloat16)
+        g = torch.Generator(device="cuda").manual_seed(19)
+        frames = torch.randn(CLIP_FRAMES, px, px, 3, generator=g, device="cuda",
+                             dtype=torch.bfloat16)
+        prompts = torch.from_numpy(make_tokens(rng, CLIP_PROMPTS)).cuda()
+
+        @torch.inference_mode()
+        def forward():
+            return clip.clip_forward(*towers, frames, prompts, encoder_type=encoder_type)
+
+        forward()  # allocator and library warm-up
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        logits, _ = forward()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        routes = dict(ops.KERNELS["fused_attn_ln2"].gemm_routes)
+        print(json.dumps({"phase": f"{path}_launches", **counts, "fused_attn_ln2_gemm_routes":
+                          routes}), flush=True)
+        expected = dict.fromkeys(ops.KERNELS, 0)
+        expected["fused_attn_ln2"] = n_ln2
+        require(counts == expected, f"{path}: launches {counts}, expected {expected}")
+        require(routes == {"wgmma": 2 * n_ln2},
+                f"{path}: fused_attn_ln2's products took {routes}, expected wgmma only")
+        require(tuple(logits.shape) == (CLIP_FRAMES, CLIP_PROMPTS)
+                and bool(torch.isfinite(logits).all()),
+                f"{path}: bf16 logits are not finite [{CLIP_FRAMES}, {CLIP_PROMPTS}]")
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+        median = statistics.median(times)
+        print(json.dumps({"phase": f"{path}_bf16", "forward_ms_median": median * 1e3,
+                          "forward_ms_all": [t * 1e3 for t in times],
+                          "images_per_s": CLIP_FRAMES / median,
+                          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}),
+              flush=True)
+        if profile_dir is not None:
+            profile_step(forward, profile_dir / f"{path}_bf16.txt", f"profile_{path}")
+        paths[path] = counts
+        del towers, frames
+        torch.cuda.empty_cache()
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the profiling and bench tools
+# ---------------------------------------------------------------------------
+
+def check_tools() -> None:
+    """Each profiling and bench entry point once: ``python -m
+    qa_tiger_tpu_torch.profile_stages --batch 256 --trace DIR`` in a process
+    of its own (the sum of its stages beside FULL); ``trace_summary`` over
+    that trace, whose launches by port kernel must equal the wrappers'
+    ``launch_delta`` over the traced block (its JSON line), each launch with
+    its device kernels in the trace (attention_wide's regions count the
+    key-bias launches too, so attention_wide_key_bias has no row of its
+    own); ``bench_avq`` at its defaults, the train kernels launched;
+    ``bench_e2e --iters 2 --repeats 1``, these two through their ``main``.
+    profile_stages runs apart because the profiler drops the first device
+    events of a session, more the older the process (PERF.md §7): a fresh
+    process's trace holds them all."""
+    import tempfile
+
+    import torch
+
+    from qa_tiger_tpu_torch import bench_avq, bench_e2e, ops, profile_stages, trace_summary
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seconds, out = run_entry(["-m", "qa_tiger_tpu_torch.profile_stages", "--batch", "256",
+                                  "--trace", tmp], {})
+        line = json.loads(out.strip().splitlines()[-1])
+        summary = trace_summary.summarize(Path(tmp) / profile_stages.TRACE_FILE)
+    traced = {name: [e["launches"], e["traced"]] for name, e in
+              summary["port_launches"].items()}
+    wrappers = {k: n for k, n in line["trace_launches"].items()
+                if k != "attention_wide_key_bias"}
+    print(json.dumps({"phase": "tools_profile_stages", "seconds": seconds,
+                      "full_ms": line["full_ms"],
+                      "sum_of_stages_ms": line["sum_ms"], "stages_ms": line["stages_ms"],
+                      "wrapper_launches": line["trace_launches"],
+                      "trace_summary_launches": traced,
+                      "trace_busy_ms": summary["busy_ms"], "trace_window_ms": summary["window_ms"],
+                      "trace_idle_share": summary["idle_share"]}), flush=True)
+    require(bool(wrappers), "profile_stages --trace: no kernel launched in the traced block")
+    for name in sorted(set(wrappers) | set(traced)):
+        n = wrappers.get(name, 0)
+        require(traced.get(name) == [n, n],
+                f"tools: trace_summary holds {traced.get(name, [0, 0])} (regions, regions with "
+                f"device kernels) of {name}, whose wrapper launched {n} times")
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    avq = bench_avq.main([])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(json.dumps({"phase": "tools_bench_avq", **avq,
+                      "launches": {k: n for k, n in counts.items() if n}}), flush=True)
+    require(counts["fused_avq_train"] > 0 and counts["fused_avq_train_bwd"] > 0
+            and np.isfinite(avq["value"]) and avq["value"] > 0,
+            f"bench_avq: no valid time or no train kernel launched ({counts})")
+    e2e = bench_e2e.main(["--iters", "2", "--repeats", "1"])
+    print(json.dumps({"phase": "tools_bench_e2e", **e2e}), flush=True)
+    require(np.isfinite(e2e["value"]) and e2e["value"] > 0, "bench_e2e: no valid rate")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: data parallelism over torch.distributed, and the v2 config
 # ---------------------------------------------------------------------------
 
 DP_WORLD = 2
@@ -3401,10 +3675,10 @@ def check_dp_graph() -> dict:
     return counts
 
 
-def run_entry(args: list, env: dict, timeout: float = 600) -> float:
+def run_entry(args: list, env: dict, timeout: float = 600) -> tuple[float, str]:
     """One entry point in a process of its own from the checkout's root;
-    its seconds. Fails the phase on a non-zero exit, with its stderr's
-    end."""
+    its seconds and its standard output. Fails the phase on a non-zero
+    exit, with its stderr's end."""
     import os
 
     start = time.perf_counter()
@@ -3412,7 +3686,7 @@ def run_entry(args: list, env: dict, timeout: float = 600) -> float:
                          timeout=timeout, env={**os.environ, "PYTHONPATH": str(ROOT), **env})
     require(out.returncode == 0, f"{' '.join(args[:4])} exited {out.returncode}:\n"
                                  f"{out.stderr[-3000:]}")
-    return time.perf_counter() - start
+    return time.perf_counter() - start, out.stdout
 
 
 def run_main(main, argv: list, env: dict) -> float:
@@ -3469,12 +3743,12 @@ def check_dp_cli() -> None:
         cfg_dp = write_cli_config(root / "dp.py", root, steps_per_dispatch=GRAPH_K,
                                   output_dir=str(root / "out_dp"))
         seconds["train_dp"] = run_entry(torchrun("qa_tiger_tpu_torch.train", "--config",
-                                                 str(cfg_dp)), env)
+                                                 str(cfg_dp)), env)[0]
         bests = sorted((root / "out_dp").rglob("best.npz"))
         require(len(bests) == 1, f"dp_cli: {len(bests)} best.npz written, expected 1")
         seconds["test_dp"] = run_entry(torchrun(
             "qa_tiger_tpu_torch.test", "--config", str(cfg_dp), "--weight", str(bests[0]),
-            "--output_path", str(root / "eval_dp")), env)
+            "--output_path", str(root / "eval_dp")), env)[0]
         cfg_one = write_cli_config(root / "one.py", root, steps_per_dispatch=GRAPH_K,
                                    output_dir=str(root / "out_one"))
         seconds["train_single_in_process"] = run_main(train_entry.main, ["--config", str(cfg_one)],
@@ -3586,29 +3860,47 @@ def profile_step(fn, path: Path, phase: str) -> None:
     its wall time, device busy time and idle share. A line before them
     (``<phase>_kernels``) sets the profiler's count of each device kernel
     by name beside the wrappers' launch counts over the same call
-    (``ops.launch_delta``): whether the table holds every launch."""
+    (``ops.launch_delta``): whether the table holds every launch. The
+    profiler is ``utils.profiling.trace``, whose Chrome trace (in a
+    temporary directory) ``trace_summary`` reads: a line ``<phase>_trace``
+    sets its launches by port kernel (launcher regions, and those whose
+    device kernels the trace holds), its device events and its busy time
+    beside the wrappers' and the table's."""
+    import tempfile
+
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch import ops, trace_summary
+    from qa_tiger_tpu_torch.utils.profiling import trace
 
     path.parent.mkdir(parents=True, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        before = ops.launch_state()
-        start = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - start
-        launched = ops.launch_delta(before, ops.launch_state())
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, f"{phase}.json") as prof:
+            torch.cuda.synchronize()
+            before = ops.launch_state()
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            launched = ops.launch_delta(before, ops.launch_state())
+        summary = trace_summary.summarize(Path(tmp) / f"{phase}.json")
     events = prof.key_averages()
     kernel_counts = {e.key: e.count for e in events
                      if e.device_type == DeviceType.CUDA and not e.is_user_annotation}
-    print(json.dumps({"phase": f"{phase}_kernels", "wrapper_launches":
-                      {name: n for name, (n, _) in launched.items()},
+    wrappers = {name: n for name, (n, _) in launched.items()}
+    print(json.dumps({"phase": f"{phase}_kernels", "wrapper_launches": wrappers,
                       "profiler_kernels": kernel_counts,
                       "profiler_kernel_events": sum(kernel_counts.values())}), flush=True)
+    port = summary["port_launches"]
+    print(json.dumps({
+        "phase": f"{phase}_trace", "wrapper_launches": wrappers,
+        "trace_launches": {name: [e["launches"], e["traced"]] for name, e in port.items()},
+        "trace_kernels_by_port_kernel": {name: e["kernels"] for name, e in port.items()},
+        "trace_device_events": sum(n for n, _ in summary["kernels"].values()),
+        "profiler_device_events": sum(kernel_counts.values()),
+        "trace_busy_ms": summary["busy_ms"], "trace_window_ms": summary["window_ms"],
+        "trace_idle_share": summary["idle_share"]}), flush=True)
     # names wide enough to tell a kernel's template instances apart
     table = events.table(sort_by="self_cuda_time_total", row_limit=60,
                          max_name_column_width=110)
@@ -3658,6 +3950,7 @@ def main() -> int:
         entries = check_kernels(rng, gen)
         check_e2e_kernels(rng, gen, entries)
         check_op_kernels(entries)
+        check_clip_text_kernel(entries)
         check_gemms()
         check_tf32x3_gemms()
         check_slice1_grads(rng, gen)
@@ -3689,6 +3982,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["bench_resblock"] = check_bench_resblock()
         torch.cuda.empty_cache()
+        paths.update(check_clip(args.profile))
+        check_tools()
         paths["dp_eval"], paths["dp_train"] = check_dp()
         torch.cuda.empty_cache()
         paths["dp_graph"] = check_dp_graph()

@@ -12,9 +12,10 @@ K`` > 1 steps K copies of it per window through ``train_window`` (on the
 card a CUDA graph of the step, captured at the first window's second step);
 ``--cache-qst`` runs the frozen text tower once and gathers its rows per
 step; ``--trace DIR`` writes a ``torch.profiler`` trace of 3 warm calls
-there (``bench_train.json``, Chrome trace format). One call (K steps) warms
-up, 3 more follow; then ``--repeats`` runs of ``--iters`` calls, each ended
-by reading the last loss; the median rate is reported.
+there (``bench_train.json``, Chrome trace format, through
+``utils.profiling.trace``; ``trace_summary`` reads it). One call (K steps)
+warms up, 3 more follow; then ``--repeats`` runs of ``--iters`` calls, each
+ended by reading the last loss; the median rate is reported.
 
 Prints one JSON line with the JAX script's keys (``metric``, ``value`` in
 steps/s, ``unit``, ``qa_pairs_per_sec``, ``step_ms``) and the device's
@@ -36,12 +37,14 @@ import torch
 from qa_tiger_tpu_torch.models import qa_tiger_config
 from qa_tiger_tpu_torch.models.registry import resolve_device
 from qa_tiger_tpu_torch.training import AVQARunner
+from qa_tiger_tpu_torch.utils.profiling import trace
 
 # the shipped recipe's model (configs/qa-tiger/vitl14.py) and feature shapes
 MODEL = dict(d_model=512, video_dim=768, patch_dim=1024, audio_dim=128, topK=7,
              num_experts=7, num_labels=42, encoder_type="ViT-L/14@336px")
 T, P = 60, 14
 VOCAB, CTX = 49408, 77
+TRACE_FILE = "bench_train.json"  # --trace's file, in its directory
 
 
 def make_batch(batch: int) -> dict:
@@ -111,19 +114,12 @@ def main(argv: list[str] | None = None) -> dict:
     for _ in range(3):
         force(step())
     if args.trace:
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
+        with trace(args.trace, TRACE_FILE):
             for _ in range(3):
                 losses = step()
             force(losses)
-        out = Path(args.trace)
-        out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / "bench_train.json"))
-        print(f"# trace written to {out / 'bench_train.json'}", file=sys.stderr, flush=True)
+        print(f"# trace written to {Path(args.trace) / TRACE_FILE}", file=sys.stderr,
+              flush=True)
     rates = []
     for _ in range(args.repeats):
         start = time.perf_counter()

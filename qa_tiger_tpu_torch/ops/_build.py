@@ -157,11 +157,22 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, *args) -> None:
     """Call one exported C launcher on PyTorch's current CUDA stream; raise
-    if it reports a CUDA error (``cudaGetLastError`` after its launches)."""
+    if it reports a CUDA error (``cudaGetLastError`` after its launches).
+
+    While ``torch.profiler`` records, the call runs inside a region named
+    after the launcher (``qt_attn_ln2``, ...), so that a trace ties each
+    device kernel to the launch that made it (``trace_summary``)."""
     import torch
 
     lib = library()
-    err = getattr(lib, name)(*args, torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if torch._C._autograd._profiler_enabled():
+        from torch.profiler import record_function
+
+        with record_function(name):
+            err = getattr(lib, name)(*args, stream)
+    else:
+        err = getattr(lib, name)(*args, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({lib.qt_error_string(err).decode()})")

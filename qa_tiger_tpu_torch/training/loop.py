@@ -56,6 +56,7 @@ process group (``qa_tiger_tpu_torch.parallel``):
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from collections.abc import Mapping
@@ -85,6 +86,7 @@ from qa_tiger_tpu_torch.training.optim import (
 )
 from qa_tiger_tpu_torch.training.step_graph import StepGraph, batch_key
 from qa_tiger_tpu_torch.utils.logging import get_logger
+from qa_tiger_tpu_torch.utils.profiling import trace
 
 BATCH_KEYS = ("quest", "audio", "video", "patch", "prompt", "label", "qtype_label", "valid")
 EVAL_CAST_KEYS = ("audio", "video", "patch", "quest", "prompt", "quest_words")
@@ -550,7 +552,7 @@ class AVQARunner:
         # profile_dir (config key or QA_TIGER_PROFILE_DIR): a torch.profiler
         # trace of steps 1-3 of epoch 1 (step 0 builds and warms up)
         prof_dir = cfg.get("profile_dir") or os.environ.get("QA_TIGER_PROFILE_DIR")
-        trace = None
+        tracing = contextlib.ExitStack()  # the open trace, if any
         # steps_per_dispatch: staged batches wait in a window that is stepped
         # at K, at a log boundary and at the epoch tail (train_window); debug
         # and profiling keep one step per batch, so that steps stay visible
@@ -564,10 +566,12 @@ class AVQARunner:
                 window.clear()
 
         waited = [0.0]
-        try:
+        with tracing:
             for batch_idx, host_batch in enumerate(_timed(loader, waited)):
                 if prof_dir and epoch == 1 and batch_idx == 1:
-                    trace = self._start_trace()
+                    tracing.callback(logger.info, "Profiler trace written to "
+                                     f"{Path(prof_dir) / TRACE_FILE}")
+                    tracing.enter_context(trace(prof_dir, TRACE_FILE))
                 start_time = time.time()
                 if k_steps > 1:
                     window.append((batch_idx, self.stage_batch(host_batch)))
@@ -577,9 +581,8 @@ class AVQARunner:
                     pending.append((batch_idx,
                                     self.train_step(host_batch, lr, self._step_generator)))
                 count += 1
-                if trace is not None and batch_idx == 3:
-                    self._stop_trace(trace, prof_dir)
-                    trace = None
+                if batch_idx == 3:
+                    tracing.close()
                 if batch_idx % log_interval == 0 or batch_idx == tot_batch:
                     flush()
                     last = drain()
@@ -597,36 +600,12 @@ class AVQARunner:
                         f"\tLosses: {loss_str}")
                 if cfg.get("debug") and batch_idx == 10:
                     break
-        finally:
-            if trace is not None:
-                self._stop_trace(trace, prof_dir)
         flush()
         drain()
         self.epoch_stats = {"epoch": epoch, "steps": count,
                             "wall_s": time.time() - epoch_time, "loader_wait_s": waited[0]}
         logger.info(f"Epoch {epoch}: {count} steps in {self.epoch_stats['wall_s']:.2f}s, "
                     f"{waited[0]:.2f}s of it waiting on the loader")
-
-    def _start_trace(self):
-        from torch.profiler import ProfilerActivity, profile
-
-        activities = [ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        prof = profile(activities=activities)
-        prof.start()
-        return prof
-
-    def _stop_trace(self, prof, prof_dir: str) -> None:
-        """Ends the trace once the traced steps are done on the device and
-        writes it as a Chrome trace (chrome://tracing, Perfetto)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        prof.stop()
-        path = Path(prof_dir)
-        path.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(path / TRACE_FILE))
-        self.logger.info(f"Profiler trace written to {path / TRACE_FILE}")
 
     def _run_eval(self, loader, debug: bool):
         """(mean of the batches' CE, correct, total, correct and total per

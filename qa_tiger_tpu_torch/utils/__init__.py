@@ -1,5 +1,7 @@
-"""Config, seeding and run logging. Port of ``qa_tiger_tpu/utils`` (its
-compilation cache, benchmark and profiling helpers excepted: ROADMAP A9)."""
+"""Config, seeding, run logging, and the profiling (``utils.profiling``) and
+benchmark (``utils.benchmark``) helpers. Port of ``qa_tiger_tpu/utils``;
+its persistent compilation cache (``cache.py``) has no counterpart: the
+port compiles only its kernels, once per source hash, into ``build/``."""
 from qa_tiger_tpu_torch.utils.config import Box, arg_parse, build_config, load_config_module
 from qa_tiger_tpu_torch.utils.logging import (
     calculate_parameters,
