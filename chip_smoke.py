@@ -197,15 +197,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
    shipped (full width, batch 32, seed weights) over the first 64
    questions of each of its two test splits with features at the real
    shapes: each split's accuracy and the seconds;
-13. the kernel table as one JSON line (each entry's ``launches`` from its
+13. tensor parallelism (``qa_tiger_tpu_torch.parallel.tensor``): (a) in
+   phase 3, the tensor-parallel forms of fused_attn_ln2 (x[B,77,768], 12
+   heads), fused_patch_select and fused_gaussian_moe (x[2B,60,512]) at
+   tp 2 and 4, fp32 B=2 and bf16 B=256: every stage on every rank's
+   shards against its plain version, the partials summed in rank order,
+   the post-reduce launch, and the result against the single-rank kernel
+   (``tp_chain`` lines, FP32_TOL / BF16_TOL); in bf16 each stage timed on
+   rank 0 beside its bound and the single-rank kernel's time, twice and
+   bitwise the same (the self- and cross-attention on "mma_short"), the
+   lines kept under ``tp`` in the three kernels' table entries; (b)
+   ``tp_eval``: two ranks spawned on the card over gloo (dp1 x tp2; NCCL
+   refuses two ranks on one card, and gloo's host round trips make the
+   times no figure for tensor parallelism) at the vitl14 config from seed
+   0: fp32 B=4 logits within LOGITS_TOL of one process and the ranks
+   bitwise equal; bf16 B=256 within BF16_TOL, each rank's launches those
+   of one process (12 / 7 / 1 / 2) with the stage launches beside them,
+   every bf16 stage product on gemm_sm90; (c) ``tp_grid``: dp2 x tp2, four
+   ranks, fp32, ``_run_eval`` over 65 rows, the counters equal one
+   process's exactly;
+14. the kernel table as one JSON line (each entry's ``launches`` from its
    own path, ``launches_by_path`` from all of them, ``serve`` per served
    batch, ``train_graph`` per replay, ``tspm`` per bf16 forward,
    ``tspm_train`` per step, ``tspm_cli`` the whole phase, ``dp_eval``
    rank 0's eval, ``dp_train`` rank 0's last step, ``dp_graph`` one
    replay under the group, ``cli_v2`` the whole phase, ``clip_rn50`` and
    ``clip_vitl336`` one bf16 forward;
-   ``attention_wide``'s entry also lists the ``tspm`` lines), then the
-   device's JSON line last.
+   ``attention_wide``'s entry also lists the ``tspm`` lines; ``tp_eval``
+   rank 0's bf16 forward), then the device's JSON line last.
 
 ``--profile DIR`` also writes torch.profiler tables of one bf16 serving
 forward, a window of 1024 served requests under 4 client threads (its
@@ -220,6 +239,7 @@ come from fixed seeds. TF32 is off.
 from __future__ import annotations
 
 import argparse
+import copy
 import functools
 import importlib.util
 import json
@@ -3444,20 +3464,20 @@ def _dp_entry(rank: int, world: int, tmp: str, fn, args) -> None:
     torch.save(out, f"{tmp}/rank{rank}.pt")
 
 
-def dp_spawn(fn, *args) -> list:
-    """``fn(rank, *args)`` on DP_WORLD ranks spawned on the card; their
-    results in rank order. A rank that raised fails the phase."""
+def dp_spawn(fn, *args, world: int = DP_WORLD) -> list:
+    """``fn(rank, *args)`` on ``world`` ranks spawned on the card over gloo;
+    their results in rank order. A rank that raised fails the phase."""
     import tempfile
 
     import torch
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_dp_entry, args=(DP_WORLD, tmp, fn, args), nprocs=DP_WORLD, join=True)
-        outs = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+        mp.spawn(_dp_entry, args=(world, tmp, fn, args), nprocs=world, join=True)
+        outs = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(world)]
     for r, out in enumerate(outs):
         error = out.get("error") if isinstance(out, dict) else None
-        require(error is None, f"data-parallel rank {r} failed:\n{error}")
+        require(error is None, f"rank {r} of {world} failed:\n{error}")
     return outs
 
 
@@ -3855,6 +3875,438 @@ def check_cli_v2() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tensor parallelism of the eval forward
+# ---------------------------------------------------------------------------
+
+TP_SIZES = (2, 4)
+# one rank's launches per eval forward under dp1 x tp2: one process's
+TP_KERNELS = {"fused_attn_ln2": 12, "attention_wide": 7, "fused_patch_select": 1,
+              "fused_gaussian_moe": 2}
+# per rank and forward: 12 blocks x (partial, post); PatchSelecter's six
+# stages once; the two MoE partials
+TP_STAGE_COUNTS = {"fused_attn_ln2_partial": 12, "fused_attn_ln2_post": 12,
+                   "fused_patch_select_tp_self": 1, "fused_patch_select_tp_self_post": 1,
+                   "fused_patch_select_tp_cross": 1, "fused_patch_select_tp_cross_post": 1,
+                   "fused_patch_select_tp_mlp": 1, "fused_patch_select_tp_out": 1,
+                   "fused_gaussian_moe_partial": 2}
+TP_EVAL_B = (4, 256)  # fp32, bf16
+
+
+def _repeat_equal(fn) -> bool:
+    import torch
+
+    a, b = fn(), fn()
+    a = [a] if torch.is_tensor(a) else list(a)
+    b = [b] if torch.is_tensor(b) else list(b)
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _tp_stage(case, dtype, tol, timed: bool, lines: list):
+    """One stage on one rank against its plain version (``run_kernel_case``);
+    timed on one rank per shape, where it must also repeat bitwise. Returns
+    the kernel's output."""
+    import torch
+
+    line = run_kernel_case(case, dtype, tol, timed, None)
+    if timed:
+        require(_repeat_equal(case[2]), f"{case[0]} {case[1]}: two launches differ")
+        lines.append({k: line[k] for k in ("kernel", "dtype", "shape", "max_abs_err", "ms",
+                                           "plain_ms", "bound_ms", "bound_by", "gemm_route",
+                                           "route") if k in line})
+    out = case[2]()
+    torch.cuda.synchronize()
+    return out
+
+
+def _tp_sum(parts: list):
+    """The partials summed in rank order, as a model group's all-reduce
+    leaves them."""
+    total = parts[0].clone()
+    for part in parts[1:]:
+        total += part
+    return total
+
+
+def _tp_against_tp1(name: str, tp: int, dtype, tol: float, got, want, tp1_ms: float | None,
+                    lines: list) -> None:
+    err, scale = max_err(got, want)
+    ok = err <= tol * max(1.0, scale)
+    line = {"phase": "tp_chain", "kernel": name, "tp": tp,
+            "dtype": str(dtype).replace("torch.", ""), "max_abs_err_vs_tp1": err,
+            "max_abs_tp1": scale, "tolerance": tol * max(1.0, scale), "ok": ok,
+            "tp1_ms": tp1_ms, "stages": lines}
+    print(json.dumps(line), flush=True)
+    require(ok, f"{name} tp{tp} {line['dtype']}: the summed shards differ from the single-rank "
+                f"kernel by {err:.3e}")
+
+
+def tp_attn_ln2(tp: int, dtype, B: int, tol: float, timed: bool, rng, gen) -> dict:
+    """fused_attn_ln2 at the text tower's block (x[B, 77, 768], 12 heads,
+    causal) split over tp ranks: each rank's partial against its plain
+    version, the partials summed, the post-reduce launch against its plain
+    version and then (y, h) against the single-rank kernel."""
+    import torch
+
+    from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock, causal_mask
+    from qa_tiger_tpu_torch.ops import resblock as R
+    from qa_tiger_tpu_torch.ops.epilogue import reduce_epilogue_plain
+    from qa_tiger_tpu_torch.nn.core import layer_norm
+    from qa_tiger_tpu_torch.parallel import Grid, shard_module_
+
+    W, H = 768, 12
+    Wl, heads, M = W // tp, H // tp, B * S
+    isz = torch.tensor([], dtype=dtype).element_size()
+    blk = ResidualAttentionBlock(W, 12, gen).to("cuda", dtype)
+    x = torch.from_numpy(rng.standard_normal((B, S, W), dtype=np.float32)).to("cuda", dtype)
+    mask = causal_mask(S, device="cuda")
+    want = R.fused_attn_ln2(x, blk, mask, H)
+    tp1_ms = cuda_ms(lambda: R.fused_attn_ln2(x, blk, mask, H)) if timed else None
+    lines, parts = [], []
+    for r in range(tp):
+        shard = shard_module_(copy.deepcopy(blk), Grid(model_rank=r, model_size=tp))
+        params = [shard.ln_1.weight, shard.ln_1.bias, shard.attn.in_proj_weight,
+                  shard.attn.in_proj_bias, shard.attn.out_proj.weight]
+        case = ("fused_attn_ln2_partial", f"x[{B},{S},{W}] causal tp{tp} rank{r} h{heads}",
+                lambda s=shard: R.fused_attn_ln2_partial(x, s, mask, heads),
+                lambda p=params: R._attn_partial_flat(x, *p, heads=heads, mask=mask), None,
+                (M * W + 2 * W + 4 * Wl * W + 3 * Wl) * isz + M * W * 4 + S * S * 4,
+                2 * M * 3 * Wl * W + 2 * B * Wl * S * (S + 1) + 2 * M * W * Wl,
+                {"attn": (S, S, Wl // heads), "gemm": [(M, 3 * Wl, W), (M, W, Wl)]})
+        parts.append(_tp_stage(case, dtype, tol, timed and r == 0, lines))
+    total = _tp_sum(parts)
+
+    def plain_post():
+        y = reduce_epilogue_plain(total, blk.attn.out_proj.bias, res=x, dtype=dtype)
+        return y, layer_norm(y, blk.ln_2.weight, blk.ln_2.bias)
+
+    case = ("fused_attn_ln2_post", f"x[{B},{S},{W}] tp{tp}",
+            lambda: R.fused_attn_ln2_post(x, total, blk), plain_post, None,
+            M * W * 4 + 3 * M * W * isz + 3 * W * isz, 0, {})
+    got = _tp_stage(case, dtype, tol, timed, lines)
+    _tp_against_tp1("fused_attn_ln2", tp, dtype, tol, got, want, tp1_ms, lines)
+    return {"stages": lines, "tp1_ms": tp1_ms}
+
+
+def tp_patch_select(tp: int, dtype, B: int, tol: float, timed: bool, rng, gen) -> dict:
+    """fused_patch_select (patch[B, 60, 14, 512], 8 heads) split over tp
+    ranks in its three stages and their epilogues, each against its plain
+    version, then (a, v) against the single-rank kernel."""
+    import torch
+    from torch.nn import functional as F
+
+    from qa_tiger_tpu_torch.models.modules import PatchSelecter
+    from qa_tiger_tpu_torch.nn.core import layer_norm, linear
+    from qa_tiger_tpu_torch.ops import patch_select as PS
+    from qa_tiger_tpu_torch.ops.epilogue import reduce_epilogue_plain
+    from qa_tiger_tpu_torch.parallel import Grid, shard_module_
+
+    D, H = 512, 8
+    Wl, Hl, heads = D // tp, D // 2 // tp, H // tp
+    BT = B * T
+    M, Q = BT * P, 2 * BT
+    isz = torch.tensor([], dtype=dtype).element_size()
+
+    def rn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
+
+    ps = PatchSelecter(D, gen).to("cuda", dtype)
+    patch, audio, video = rn(B, T, P, D), rn(B, T, D), rn(B, T, D)
+    want = PS.fused_patch_select(patch, audio, video, ps, H)
+    tp1_ms = cuda_ms(lambda: PS.fused_patch_select(patch, audio, video, ps, H)) if timed else None
+    shards = [shard_module_(copy.deepcopy(ps), Grid(model_rank=r, model_size=tp))
+              for r in range(tp)]
+    lines = []
+    label = f"patch[{B},{T},{P},{D}] tp{tp}"
+    attn_w = (4 * Wl * D + 3 * Wl) * isz
+
+    def stage(name, kernel, plain, nbytes, flops, extra):
+        parts = [_tp_stage((name, f"{label} rank{r} h{heads}", lambda s=s: kernel(s),
+                            lambda s=s: plain(s), None, nbytes, flops, extra),
+                           dtype, tol, timed and r == 0, lines)
+                 for r, s in enumerate(shards)]
+        return _tp_sum(parts)
+
+    def post(name, kernel, plain, nbytes):
+        return _tp_stage((name, label, kernel, plain, None, nbytes, 0, {}), dtype, tol, timed,
+                         lines)
+
+    total = stage("fused_patch_select_tp_self",
+                  lambda s: PS.fused_patch_select_tp_self(patch, s.slf_attn, heads),
+                  lambda s: PS._tp_self_plain(patch, s.slf_attn.in_proj_weight,
+                                              s.slf_attn.in_proj_bias,
+                                              s.slf_attn.out_proj.weight, heads),
+                  M * D * isz + attn_w + M * D * 4,
+                  2 * M * 3 * Wl * D + 4 * BT * P * P * Wl + 2 * M * D * Wl,
+                  {"attn": (P, P, Wl // heads), "want_route": short_route(dtype),
+                   "gemm": [(M, 3 * Wl, D), (M, D, Wl)]})
+    bias = ps.slf_attn.out_proj.bias
+    x1 = post("fused_patch_select_tp_self_post",
+              lambda: PS.fused_patch_select_tp_self_post(total, patch, bias),
+              lambda: reduce_epilogue_plain(total, bias, res=patch, dtype=dtype),
+              M * D * 4 + 2 * M * D * isz + D * isz)
+    total = stage("fused_patch_select_tp_cross",
+                  lambda s: PS.fused_patch_select_tp_cross(x1, audio, video, s.crs_attn, heads),
+                  lambda s: PS._tp_cross_plain(x1, audio, video, s.crs_attn.in_proj_weight,
+                                               s.crs_attn.in_proj_bias,
+                                               s.crs_attn.out_proj.weight, heads),
+                  (M * D + Q * D) * isz + attn_w + Q * D * 4,
+                  2 * M * 2 * Wl * D + 2 * Q * Wl * D + 4 * Q * P * Wl + 2 * Q * D * Wl,
+                  {"attn": (2, P, Wl // heads), "want_route": short_route(dtype),
+                   "gemm": [(M, 2 * Wl, D), (Q, Wl, D), (Q, D, Wl)]})
+    bias = ps.crs_attn.out_proj.bias
+    crs = post("fused_patch_select_tp_cross_post",
+               lambda: PS.fused_patch_select_tp_cross_post(total, bias, dtype),
+               lambda: reduce_epilogue_plain(total, bias, dtype=dtype),
+               Q * D * 4 + Q * D * isz + D * isz)
+    total = stage("fused_patch_select_tp_mlp",
+                  lambda s: PS.fused_patch_select_tp_mlp(crs, s.mlp),
+                  lambda s: F.linear(torch.relu(linear(crs, s.mlp[0].weight, s.mlp[0].bias))
+                                     .float(), s.mlp[2].weight.float()),
+                  (Q * D + 2 * Hl * D + Hl) * isz + Q * D * 4, 4 * Q * Hl * D,
+                  {"gemm": [(Q, Hl, D), (Q, D, Hl)]})
+
+    def plain_out():
+        out = total + ps.mlp[2].bias.float()
+        return (layer_norm(out[:, :, 1], ps.anorm.weight, ps.anorm.bias).to(dtype),
+                layer_norm(out[:, :, 0], ps.vnorm.weight, ps.vnorm.bias).to(dtype))
+
+    got = post("fused_patch_select_tp_out",
+               lambda: PS.fused_patch_select_tp_out(total.clone(), ps.mlp[2].bias, ps.anorm,
+                                                    ps.vnorm, dtype),
+               plain_out, Q * D * 4 + Q * D * isz + 5 * D * isz)
+    _tp_against_tp1("fused_patch_select", tp, dtype, tol, got, want, tp1_ms, lines)
+    return {"stages": lines, "tp1_ms": tp1_ms}
+
+
+def tp_moe(tp: int, dtype, b: int, tol: float, timed: bool, rng) -> dict:
+    """fused_gaussian_moe (x[b, 60, 512], E 7, H 256) split over tp ranks'
+    hidden columns (H/tp each; at tp 4 E*H/tp = 448 leaves a ragged
+    128-column tile): each rank's fp32 partial against its plain version,
+    b2's term on rank 0 alone, then the sum rounded once against the
+    single-rank kernel."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import gaussian_moe as G
+
+    D, E, H = 512, 7, 256
+    Hl = H // tp
+    isz = torch.tensor([], dtype=dtype).element_size()
+
+    def rn(*shape, scale=1.0):
+        return torch.from_numpy(
+            (scale * rng.standard_normal(shape, dtype=np.float32))).to("cuda", dtype)
+
+    w1t, b1 = rn(E, D, H, scale=0.05), rn(E, H, scale=0.1)
+    w2t, b2 = rn(E, H, D, scale=0.05), rn(E, D, scale=0.1)
+    xm = rn(b, T, D)
+    w = torch.from_numpy(0.05 * rng.random((b, E, T), dtype=np.float32)).to("cuda", dtype)
+    want = G.fused_gaussian_moe(xm, w1t, b1, w2t, b2, w)
+    tp1_ms = cuda_ms(lambda: G.fused_gaussian_moe(xm, w1t, b1, w2t, b2, w)) if timed else None
+    lines, parts = [], []
+    peak = "tf32x3" if dtype == torch.float32 else "bfloat16"
+    for r in range(tp):
+        cols = slice(r * Hl, (r + 1) * Hl)
+        shard = (w1t[:, :, cols].contiguous(), b1[:, cols].contiguous(),
+                 w2t[:, cols].contiguous(), b2 if r == 0 else torch.zeros_like(b2))
+        case = ("fused_gaussian_moe_partial", f"x[{b},{T},{D}] E{E} H{Hl} tp{tp} rank{r}",
+                lambda s=shard: G.fused_gaussian_moe_partial(xm, *s, w),
+                lambda s=shard: G._reference_f32(xm, *s, w), None,
+                (b * T * D + b * E * T + 2 * E * D * Hl + E * (Hl + D)) * isz + b * D * 4,
+                2 * b * T * E * D * Hl + 2 * b * E * T * Hl + 2 * b * E * Hl * D,
+                {"routes": sorted({G.moe_route(dtype, D), "tf32x3"}), "peak": peak})
+        parts.append(_tp_stage(case, dtype, tol, timed and r == 0, lines))
+    got = _tp_sum(parts).to(dtype)
+    _tp_against_tp1("fused_gaussian_moe", tp, dtype, tol, got, want, tp1_ms, lines)
+    return {"stages": lines, "tp1_ms": tp1_ms}
+
+
+def check_tp_kernels(entries: dict) -> None:
+    """The tensor-parallel forms of fused_attn_ln2, fused_patch_select and
+    fused_gaussian_moe at full width, tp 2 and 4, in bf16 at the serving
+    shapes (timed; the MoE at the visual streams' x[512]) and in fp32 at a
+    small batch: each stage on each rank against its plain version, the
+    shards summed in rank order, the epilogue, and the result against the
+    single-rank kernel (BF16_TOL / FP32_TOL). The timed lines go into each
+    kernel's table entry under ``tp``."""
+    import torch
+
+    rng = np.random.default_rng(18)
+    gen = torch.Generator().manual_seed(18)
+    with torch.inference_mode():
+        for dtype, B, tol, timed in ((torch.float32, 2, FP32_TOL, False),
+                                     (torch.bfloat16, 256, BF16_TOL, True)):
+            for tp in TP_SIZES:
+                runs = {"fused_attn_ln2": tp_attn_ln2(tp, dtype, B, tol, timed, rng, gen),
+                        "fused_patch_select": tp_patch_select(tp, dtype, B, tol, timed, rng,
+                                                              gen),
+                        "fused_gaussian_moe": tp_moe(tp, dtype, 2 * B, tol, timed, rng)}
+                if timed:
+                    for name, run in runs.items():
+                        entries[name].setdefault("tp", {})[f"tp{tp}"] = run
+            torch.cuda.empty_cache()
+
+
+def tp_model(grid, dtype):
+    """The vitl14 QA-TIGER from seed 0 (gather_mode "paper"), this rank's
+    shards under ``grid`` (whole without one), on the card in ``dtype``."""
+    import torch
+
+    from qa_tiger_tpu_torch.models import QATiger
+    from qa_tiger_tpu_torch.parallel import shard_module_
+
+    _, mcfg = train_setup(gather_mode="paper")
+    model = QATiger(mcfg, seed=0).eval()
+    if grid is not None:
+        shard_module_(model, grid)
+    return model.to("cuda", dtype)
+
+
+def tp_forward(grid) -> dict:
+    """The eval forward at fp32 B=4 and bf16 B=256 (features from numpy seed
+    21, the same in every process), the launch counters reset around each:
+    the logits on the host, the launches and the stage launches."""
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+
+    out = {}
+    for dtype, B in zip((torch.float32, torch.bfloat16), TP_EVAL_B):
+        model = tp_model(grid, dtype)
+        batch = {k: torch.from_numpy(v).to(device="cuda",
+                                            dtype=dtype if v.dtype == np.float32 else None)
+                 for k, v in make_batch(np.random.default_rng(21), B).items()}
+        kw = {} if grid is None else {"grid": grid}
+        with torch.no_grad():
+            model(batch, **kw)  # warm-up
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            start = time.perf_counter()
+            logits = model(batch, **kw)["out"]
+            torch.cuda.synchronize()
+        out[str(dtype).replace("torch.", "")] = {
+            "logits": logits.float().cpu(), "launches": ops.launch_counts(),
+            "stages": ops.stage_counts(), "ms": (time.perf_counter() - start) * 1e3,
+            "routes": {n: dict(f.gemm_routes) for n, f in ops.TP_STAGES.items()
+                       if getattr(f, "gemm_routes", None)}}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, part: str) -> dict:
+    """A spawned rank of ``tp_eval`` (``part`` "forward": dp1 x tp2) or
+    ``tp_grid`` ("grid": dp2 x tp2, ``_run_eval`` over the DP_EVAL_N rows,
+    this data rank's shard at 32 // data_size rows per batch)."""
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.data import BatchLoader
+    from qa_tiger_tpu_torch.parallel import make_grid
+
+    grid = make_grid(2)
+    if part == "forward":
+        return tp_forward(grid)
+    _, evals = dp_data()
+    cfg, mcfg = train_setup(gather_mode="paper")
+    from qa_tiger_tpu_torch.training import AVQARunner
+
+    runner = AVQARunner(cfg, mcfg, device="cuda", seed=0, grid=grid)
+    loader = BatchLoader(ArrayDataset(evals), 32 // grid.data_size, **grid.loader_shard)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    loss, cor, tot, cor9, tot9 = runner._run_eval(loader, debug=False)
+    torch.cuda.synchronize()
+    return {"eval": [loss, cor, tot, [int(x) for x in cor9], [int(x) for x in tot9]],
+            "batches": len(loader), "launches": ops.launch_counts(),
+            "grid": [grid.data_rank, grid.data_size, grid.model_rank, grid.model_size]}
+
+
+def check_tp_eval() -> dict:
+    """Phases ``tp_eval`` and ``tp_grid``: ranks spawned on the one card over
+    gloo (NCCL refuses two ranks on one card; gloo sums CUDA tensors through
+    the host, so the times say nothing of tensor parallelism's speed).
+    tp_eval, dp1 x tp2 at the vitl14 config from seed 0: (a) fp32 B=4, the
+    logits within LOGITS_TOL of one process, the two ranks bitwise equal;
+    (b) bf16 B=256, one forward, within BF16_TOL of one process, each
+    rank's launches those of one process (12 / 7 / 1 / 2) and its stage
+    launches TP_STAGE_COUNTS. tp_grid, dp2 x tp2 (four ranks), fp32:
+    ``_run_eval`` over DP_EVAL_N rows, the counters equal one process's
+    exactly. Returns rank 0's launches of (b)."""
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.data import BatchLoader
+    from qa_tiger_tpu_torch.training import AVQARunner
+
+    start = time.perf_counter()
+    ranks = dp_spawn(tp_rank, "forward", world=2)
+    spawn_s = time.perf_counter() - start
+    single = tp_forward(None)
+    for dname, tol in (("float32", None), ("bfloat16", BF16_TOL)):
+        want = single[dname]["logits"]
+        r0, r1 = (r[dname] for r in ranks)
+        err = (r0["logits"] - want).abs().max().item()
+        scale = want.abs().max().item()
+        close = (bool(torch.allclose(r0["logits"], want, **LOGITS_TOL)) if tol is None
+                 else err <= tol * max(1.0, scale))
+        bitwise = torch.equal(r0["logits"], r1["logits"])
+        line = {"phase": "tp_eval", "grid": "dp1xtp2", "backend": "gloo", "dtype": dname,
+                "batch": tuple(want.shape)[0], "logits_max_abs_err": err,
+                "max_abs_logit": scale, "ranks_bitwise_equal": bitwise, "close": close,
+                "tolerance": LOGITS_TOL if tol is None else tol * max(1.0, scale),
+                "argmax_equal": bool((r0["logits"].argmax(1) == want.argmax(1)).all()),
+                "launches": [r[dname]["launches"] for r in ranks],
+                "single_launches": single[dname]["launches"],
+                "stages": [r[dname]["stages"] for r in ranks],
+                "stage_routes": ranks[0][dname]["routes"],
+                "forward_ms": [r[dname]["ms"] for r in ranks],
+                "single_forward_ms": single[dname]["ms"], "spawn_and_run_s": spawn_s}
+        print(json.dumps(line), flush=True)
+        require(close, f"tp_eval {dname}: the ranks' logits differ from one process's by "
+                       f"{err:.3e}")
+        require(bitwise, f"tp_eval {dname}: the two ranks' logits differ")
+        for r, rank in enumerate(ranks):
+            got = rank[dname]
+            require(got["launches"] == single[dname]["launches"],
+                    f"tp_eval {dname}: rank {r} launched {got['launches']}, one process "
+                    f"{single[dname]['launches']}")
+            for name, n in TP_KERNELS.items():
+                require(got["launches"][name] == n, f"tp_eval: {name} launched "
+                                                    f"{got['launches'][name]} times, not {n}")
+            require(got["stages"] == TP_STAGE_COUNTS,
+                    f"tp_eval {dname}: rank {r}'s stage launches {got['stages']}")
+            if dname == "bfloat16":
+                require(all(set(routes) == {"wgmma"} for routes in got["routes"].values()),
+                        f"tp_eval: a bf16 stage product left gemm_sm90: {got['routes']}")
+    torch.cuda.empty_cache()
+
+    start = time.perf_counter()
+    grid_ranks = dp_spawn(tp_rank, "grid", world=4)
+    grid_s = time.perf_counter() - start
+    _, evals = dp_data()
+    cfg, mcfg = train_setup(gather_mode="paper")
+    runner = AVQARunner(cfg, mcfg, device="cuda", seed=0)
+    ops.reset_launches()
+    one = runner._run_eval(BatchLoader(ArrayDataset(evals), 32), debug=False)
+    one_launches = ops.launch_counts()
+    del runner
+    torch.cuda.empty_cache()
+    one = [one[0], one[1], one[2], [int(x) for x in one[3]], [int(x) for x in one[4]]]
+    equal = all(r["eval"][1:] == one[1:] for r in grid_ranks) and one[2] == DP_EVAL_N
+    loss_ok = all(np.isclose(r["eval"][0], one[0], **LOGITS_TOL) for r in grid_ranks)
+    print(json.dumps({"phase": "tp_grid", "grid": "dp2xtp2", "backend": "gloo", "rows": DP_EVAL_N,
+                      "ranks": [r["eval"] for r in grid_ranks], "single": one,
+                      "grids": [r["grid"] for r in grid_ranks],
+                      "batches_per_rank": [r["batches"] for r in grid_ranks],
+                      "counters_equal": equal, "loss_close": loss_ok,
+                      "launches": [r["launches"] for r in grid_ranks],
+                      "single_launches": one_launches, "spawn_and_run_s": grid_s}), flush=True)
+    require(equal and loss_ok, f"tp_grid: the ranks' counters {[r['eval'] for r in grid_ranks]} "
+                               f"differ from one process's {one}")
+    return ranks[0]["bfloat16"]["launches"]
+
+
 def profile_step(fn, path: Path, phase: str) -> None:
     """A torch.profiler table of one call of ``fn`` written to ``path``, and
     its wall time, device busy time and idle share. A line before them
@@ -3951,6 +4403,7 @@ def main() -> int:
         check_e2e_kernels(rng, gen, entries)
         check_op_kernels(entries)
         check_clip_text_kernel(entries)
+        check_tp_kernels(entries)
         check_gemms()
         check_tf32x3_gemms()
         check_slice1_grads(rng, gen)
@@ -3989,6 +4442,8 @@ def main() -> int:
         paths["dp_graph"] = check_dp_graph()
         torch.cuda.empty_cache()
         check_dp_cli()
+        torch.cuda.empty_cache()
+        paths["tp_eval"] = check_tp_eval()
         torch.cuda.empty_cache()
         paths["cli_v2"] = check_cli_v2()
         for name in E2E_ONLY_KERNELS:

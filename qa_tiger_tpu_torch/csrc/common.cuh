@@ -303,11 +303,13 @@ template <typename T> struct EpiAddRound {  // out = round_T(base + acc), base f
   }
 };
 
-template <typename T> struct EpiF32 {  // out (fp32) = acc + bias
+template <typename T> struct EpiF32 {  // out (fp32) = acc + bias; bias may be null
   float* out;
   long long ldo;
   const T* bias;
-  __device__ float value(int, int n, float acc) const { return acc + to_f<T>(bias[n]); }
+  __device__ float value(int, int n, float acc) const {
+    return bias ? acc + to_f<T>(bias[n]) : acc;
+  }
   __device__ void operator()(int m, int n, float acc) const {
     out[(long long)m * ldo + n] = value(m, n, acc);
   }
@@ -2362,6 +2364,39 @@ __global__ void layer_norm_kernel(const TI* __restrict__ in, int rows, int D, in
 }
 
 inline unsigned ln_blocks(int rows) { return (unsigned)((rows + LN_WARPS - 1) / LN_WARPS); }
+
+// The epilogue of a row-parallel product under tensor parallelism, after its
+// fp32 partial sums [rows, D] were summed over the model ranks: the value the
+// single-rank GEMM's epilogue writes, with the reduced sum in place of its
+// accumulator, so the value is rounded once, where the single-rank kernel
+// rounds it:
+//   res given:          out = res + round_T(sum + bias)   (EpiResidual)
+//   res null, TO = T:   out = round_T(sum + bias)         (EpiBias, no act)
+//   res null, TO float: out = sum + bias                  (EpiF32)
+// bias may be null; out may alias sum. With ln_w given, also h =
+// LayerNorm(out row) * ln_w + ln_b, layer_norm_kernel's arithmetic on the
+// stored row (each lane reads back only the elements it wrote). One warp
+// per row.
+template <typename T, typename TO>
+__global__ void reduce_epilogue_kernel(const float* sum, int rows, int D, const T* bias,
+                                       const T* res, TO* out, const T* ln_w, const T* ln_b,
+                                       T* h) {
+  const int row = blockIdx.x * LN_WARPS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const long long off = (long long)row * D;
+  for (int i = lane; i < D; i += 32) {
+    const float s = sum[off + i];
+    const float v = bias ? s + to_f<T>(bias[i]) : s;
+    out[off + i] = res ? from_f<TO>(to_f<T>(res[off + i]) + round_t<T>(v)) : from_f<TO>(v);
+  }
+  if (!ln_w) return;
+  __syncwarp();
+  float mu, rs;
+  row_moments<TO>(out + off, D, lane, mu, rs);
+  for (int i = lane; i < D; i += 32)
+    h[off + i] =
+        from_f<T>((to_f<TO>(out[off + i]) - mu) * rs * to_f<T>(ln_w[i]) + to_f<T>(ln_b[i]));
+}
 
 // Backward of LayerNorm(x) * w + b over rows of width D, one warp per row,
 // given the upstream g (the Pallas kernels' _ln_bwd):

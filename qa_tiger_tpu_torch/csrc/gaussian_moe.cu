@@ -37,6 +37,12 @@
 //   2. out = s W2 + sum_e wsum[b,e] b2_e: gemm_tf32x3 (fp32 A, W2 in fp32,
 //      the wrapper's split-K plan), the bias term and the cast in its
 //      epilogue.
+// Under tensor parallelism (parallel/tensor.py) each model rank holds H/tp of
+// every expert's hidden columns (w1, b1 and w2's rows) and launches the same
+// two products over N = E*H/tp with out_f32: an fp32 partial [B, D], b2's
+// term from model rank 0 only (zeros elsewhere), summed over the ranks and
+// rounded once by the caller. At tp = 4 N = 448 leaves a ragged last
+// 128-column tile: TMA zero-fills W1 past N and the epilogue masks n >= N.
 #include "gemm_tf32x3.cuh"
 
 namespace {
@@ -385,16 +391,17 @@ moe_hidden_tf32x3(const float* __restrict__ x, const float* __restrict__ w1,
     }
 }
 
-// out[b, n] = acc + sum_e wsum[b, e] b2[e, n], cast once to T
-template <typename T> struct EpiMoeOut {
-  T* out;
+// out[b, n] = acc + sum_e wsum[b, e] b2[e, n], cast once to TO (T, or fp32
+// for a tensor-parallel partial)
+template <typename T, typename TO> struct EpiMoeOut {
+  TO* out;
   const float* wsum;
   const T* b2;
   int D, E;
   __device__ void operator()(int m, int n, float acc) const {
     for (int e = 0; e < E; ++e)
       acc = fmaf(wsum[(long long)m * E + e], qt::to_f<T>(b2[(long long)e * D + n]), acc);
-    out[(long long)m * D + n] = qt::from_f<T>(acc);
+    out[(long long)m * D + n] = qt::from_f<TO>(acc);
   }
 };
 
@@ -455,10 +462,10 @@ cudaError_t hidden_tf32x3(const float* x, const float* w1, const TE* b1, const T
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TO>
 cudaError_t run(int route, const void* x, const void* w1, const T* b1, const float* w2,
                 long long ldw2, const T* b2, const T* w, float* s, long long lds, float* wsum,
-                T* out, float* ws, long long ws_floats, int chunk, int B, int T_, int D,
+                TO* out, float* ws, long long ws_floats, int chunk, int B, int T_, int D,
                 int Dout, int H, int E, int sms, cudaStream_t stream) {
   if (B <= 0 || T_ <= 0 || D <= 0 || H <= 0 || E <= 0 || lds < (long long)E * H)
     return cudaErrorInvalidValue;
@@ -489,7 +496,7 @@ cudaError_t run(int route, const void* x, const void* w1, const T* b1, const flo
   if (err != cudaSuccess) return err;
   // the second Linear of every expert as one K = E*H product, fp32 A
   return qt::gemm_tf32x3<false, false>(s, lds, w2, ldw2, B, Dout, sh.N,
-                                       EpiMoeOut<T>{out, wsum, b2, Dout, E}, chunk, ws,
+                                       EpiMoeOut<T, TO>{out, wsum, b2, Dout, E}, chunk, ws,
                                        ws_floats, stream);
 }
 
@@ -500,8 +507,10 @@ cudaError_t run(int route, const void* x, const void* w1, const T* b1, const flo
 // and a multiple of 8; GEMM_ROUTE_TF32X3 takes both in fp32, D a multiple of
 // 4. w2 [E*H, Dout] fp32, row stride ldw2; s [B, lds] and wsum [B, E] fp32
 // scratch; out [B, Dout]; the second product's split-K chunk and workspace
-// ws (ws_floats floats) from ops/gemm.py splitk_plan.
-extern "C" int qt_gaussian_moe(int dtype, int route, const void* x, const void* w1,
+// ws (ws_floats floats) from ops/gemm.py splitk_plan. out_f32: out is fp32
+// whatever dtype (the tensor-parallel partial over the rank's H columns,
+// summed over the model ranks before the one rounding).
+extern "C" int qt_gaussian_moe(int dtype, int route, int out_f32, const void* x, const void* w1,
                                const void* b1, const void* w2, long long ldw2, const void* b2,
                                const void* w, void* s, long long lds, void* wsum, void* out,
                                void* ws, long long ws_floats, int chunk, int B, int T, int D,
@@ -509,12 +518,13 @@ extern "C" int qt_gaussian_moe(int dtype, int route, const void* x, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int sms = qt::sm_count();
   if (!sms) return cudaErrorInvalidValue;
-#define QT_MOE_ARGS(TY)                                                                         \
+#define QT_MOE_ARGS(TY, TO)                                                                     \
   route, x, w1, static_cast<const TY*>(b1), static_cast<const float*>(w2), ldw2,                 \
       static_cast<const TY*>(b2), static_cast<const TY*>(w), static_cast<float*>(s), lds,        \
-      static_cast<float*>(wsum), static_cast<TY*>(out), static_cast<float*>(ws), ws_floats,      \
+      static_cast<float*>(wsum), static_cast<TO*>(out), static_cast<float*>(ws), ws_floats,      \
       chunk, B, T, D, Dout, H, E, sms, st
-  if (dtype == 0) return run<float>(QT_MOE_ARGS(float));
-  return run<bf16>(QT_MOE_ARGS(bf16));
+  if (dtype == 0) return run<float, float>(QT_MOE_ARGS(float, float));
+  if (out_f32) return run<bf16, float>(QT_MOE_ARGS(bf16, float));
+  return run<bf16, bf16>(QT_MOE_ARGS(bf16, bf16));
 #undef QT_MOE_ARGS
 }

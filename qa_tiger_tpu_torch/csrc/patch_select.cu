@@ -23,6 +23,22 @@
 // frames. Intermediates make one HBM
 // round trip each, which the Pallas kernel avoided; fusing them is later
 // work.
+//
+// Under tensor parallelism (parallel/tensor.py) the module splits at its
+// three row products' all-reduces into three partial stages per rank, each
+// followed by the caller's sum over the model ranks and a post-reduce
+// launch (qt_reduce_epilogue, resblock.cu); Wl = D / tp, heads / tp heads:
+//   1. qt_patch_select_tp_self: qkv over the rank's head rows [3 Wl, D], the
+//      self-attention (bf16: still the short tensor-core kernel, 14 x 14
+//      at head size 64), the out_proj partial over K = Wl into fp32
+//      [BT*P, D];  -> x1 = patch + round(sum + slf_ob)
+//   2. qt_patch_select_tp_cross: k|v from x1 and q from the interleaved
+//      (video, audio) rows on the rank's head rows, the cross-attention,
+//      the out_proj partial into fp32 [2 BT, D];  -> crs = round(sum + crs_ob)
+//   3. qt_patch_select_tp_mlp: mlp.0 over the rank's D/2/tp hidden columns
+//      with ReLU, the mlp.2 partial into fp32 [2 BT, D];
+//      -> qt_patch_select_tp_out: outf = sum + mlp_b2, the two LayerNorms.
+// Every value is rounded once, where the single-rank kernel rounds it.
 #include "gemm_sm90.cuh"
 
 namespace {
@@ -96,7 +112,133 @@ cudaError_t run(const T* patch, const T* video, const T* audio, const T* slf_w,
 #undef QT_CHECK
 }
 
+// q, k and v of the rank's heads (slf_w [3 Wl, D]), the self-attention,
+// part [BT*P, D] fp32 = ctx slf_ow^T (slf_ow [D, Wl]); qkv [BT*P, 3 Wl] and
+// ctx [BT*P, Wl] scratch
+template <typename T>
+cudaError_t tp_self(const T* patch, const T* slf_w, const T* slf_b, const T* slf_ow, float* part,
+                    T* qkv, T* ctx, int BT, int P, int D, int Wl, int heads,
+                    cudaStream_t stream) {
+  const int M = BT * P, hd = Wl / heads;
+  cudaError_t err = qt::gemm_rows<T>(patch, D, slf_w, D, M, 3 * Wl, D,
+                                     qt::EpiBias<T>{qkv, 3LL * Wl, slf_b, false}, stream);
+  if (err != cudaSuccess) return err;
+  const long long fs = 3LL * P * Wl;
+  err = qt::attention<T>(qkv, fs, 3LL * Wl, qkv + Wl, fs, 3LL * Wl, qkv + 2 * Wl, fs, 3LL * Wl,
+                         ctx, (long long)P * Wl, Wl, nullptr, BT, P, P, heads, hd,
+                         1.0f / sqrtf((float)hd), stream);
+  if (err != cudaSuccess) return err;
+  return qt::gemm_rows<T>(ctx, Wl, slf_ow, Wl, M, D, Wl, qt::EpiF32<T>{part, D, nullptr},
+                          stream);
+}
+
+// k|v from x1 and q from the interleaved (video, audio) rows on the rank's
+// heads (crs_w [3 Wl, D]: q rows, then k, then v), the cross-attention,
+// part [2 BT, D] fp32 = ctx2 crs_ow^T; kv [BT*P, 2 Wl], q [2 BT, Wl] and
+// ctx2 [2 BT, D] scratch (the bf16 route's interleaved query rows first)
+template <typename T>
+cudaError_t tp_cross(const T* x1, const T* video, const T* audio, const T* crs_w, const T* crs_b,
+                     const T* crs_ow, float* part, T* kv, T* q, T* ctx2, int BT, int P, int D,
+                     int Wl, int heads, cudaStream_t stream) {
+  const int M = BT * P, Q = 2 * BT, hd = Wl / heads;
+  cudaError_t err = qt::gemm_rows<T>(x1, D, crs_w + (long long)Wl * D, D, M, 2 * Wl, D,
+                                     qt::EpiBias<T>{kv, 2LL * Wl, crs_b + Wl, false}, stream);
+  if (err != cudaSuccess) return err;
+  const qt::EpiBias<T> to_q{q, Wl, crs_b, false};
+  if (qt::gemm_route(std::is_same<T, __nv_bfloat16>::value, Q, Wl, D) == qt::GEMM_ROUTE_WGMMA) {
+    const long long n = 2LL * BT * D;
+    qt::interleave_rows_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        video, audio, ctx2, BT, D);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = qt::gemm_rows<T>(ctx2, D, crs_w, D, Q, Wl, D, to_q, stream);
+  } else {
+    qt::gemm<T, true>(PairLoad<T>{video, audio, D}, crs_w, D, Q, Wl, D, to_q, stream);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  const long long ks = 2LL * P * Wl;
+  err = qt::attention<T>(q, 2LL * Wl, Wl, kv, ks, 2LL * Wl, kv + Wl, ks, 2LL * Wl, ctx2, 2LL * Wl,
+                         Wl, nullptr, BT, 2, P, heads, hd, 1.0f / sqrtf((float)hd), stream);
+  if (err != cudaSuccess) return err;
+  return qt::gemm_rows<T>(ctx2, Wl, crs_ow, Wl, Q, D, Wl, qt::EpiF32<T>{part, D, nullptr},
+                          stream);
+}
+
+// hid [2 BT, Hl] = relu(crs mlp_w1^T + mlp_b1) over the rank's hidden
+// columns, part [2 BT, D] fp32 = hid mlp_w2^T (mlp_w2 [D, Hl])
+template <typename T>
+cudaError_t tp_mlp(const T* crs, const T* mlp_w1, const T* mlp_b1, const T* mlp_w2, float* part,
+                   T* hid, int Q, int D, int Hl, cudaStream_t stream) {
+  cudaError_t err = qt::gemm_rows<T>(crs, D, mlp_w1, D, Q, Hl, D,
+                                     qt::EpiBias<T>{hid, Hl, mlp_b1, true}, stream);
+  if (err != cudaSuccess) return err;
+  return qt::gemm_rows<T>(hid, Hl, mlp_w2, Hl, Q, D, Hl, qt::EpiF32<T>{part, D, nullptr}, stream);
+}
+
+// outf [2 BT, D] fp32, the reduced MLP output: += mlp_b2 in place, then the
+// per-stream LayerNorms as the single-rank kernel's last launch
+template <typename T>
+cudaError_t tp_out(float* outf, const T* mlp_b2, const T* anorm_w, const T* anorm_b,
+                   const T* vnorm_w, const T* vnorm_b, T* a_out, T* v_out, int Q, int D,
+                   cudaStream_t stream) {
+  qt::reduce_epilogue_kernel<T, float><<<qt::ln_blocks(Q), qt::LN_WARPS * 32, 0, stream>>>(
+      outf, Q, D, mlp_b2, nullptr, outf, nullptr, nullptr, nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  qt::layer_norm_kernel<float, T><<<qt::ln_blocks(Q), qt::LN_WARPS * 32, 0, stream>>>(
+      outf, Q, D, 2, vnorm_w, vnorm_b, v_out, anorm_w, anorm_b, a_out);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+#define QT_C(T, p) static_cast<const T*>(p)
+#define QT_DISPATCH(CALL)    \
+  if (dtype == 0) {          \
+    using T = float;         \
+    return CALL;             \
+  } else {                   \
+    using T = __nv_bfloat16; \
+    return CALL;             \
+  }
+
+extern "C" int qt_patch_select_tp_self(int dtype, const void* patch, const void* slf_w,
+                                       const void* slf_b, const void* slf_ow, void* part,
+                                       void* qkv, void* ctx, int BT, int P, int D, int Wl,
+                                       int heads, void* stream) {
+  QT_DISPATCH(tp_self<T>(QT_C(T, patch), QT_C(T, slf_w), QT_C(T, slf_b), QT_C(T, slf_ow),
+                         static_cast<float*>(part), static_cast<T*>(qkv), static_cast<T*>(ctx),
+                         BT, P, D, Wl, heads, static_cast<cudaStream_t>(stream)))
+}
+
+extern "C" int qt_patch_select_tp_cross(int dtype, const void* x1, const void* video,
+                                        const void* audio, const void* crs_w, const void* crs_b,
+                                        const void* crs_ow, void* part, void* kv, void* q,
+                                        void* ctx2, int BT, int P, int D, int Wl, int heads,
+                                        void* stream) {
+  QT_DISPATCH(tp_cross<T>(QT_C(T, x1), QT_C(T, video), QT_C(T, audio), QT_C(T, crs_w),
+                          QT_C(T, crs_b), QT_C(T, crs_ow), static_cast<float*>(part),
+                          static_cast<T*>(kv), static_cast<T*>(q), static_cast<T*>(ctx2), BT, P,
+                          D, Wl, heads, static_cast<cudaStream_t>(stream)))
+}
+
+extern "C" int qt_patch_select_tp_mlp(int dtype, const void* crs, const void* mlp_w1,
+                                      const void* mlp_b1, const void* mlp_w2, void* part,
+                                      void* hid, int Q, int D, int Hl, void* stream) {
+  QT_DISPATCH(tp_mlp<T>(QT_C(T, crs), QT_C(T, mlp_w1), QT_C(T, mlp_b1), QT_C(T, mlp_w2),
+                        static_cast<float*>(part), static_cast<T*>(hid), Q, D, Hl,
+                        static_cast<cudaStream_t>(stream)))
+}
+
+extern "C" int qt_patch_select_tp_out(int dtype, void* outf, const void* mlp_b2,
+                                      const void* anorm_w, const void* anorm_b,
+                                      const void* vnorm_w, const void* vnorm_b, void* a_out,
+                                      void* v_out, int Q, int D, void* stream) {
+  QT_DISPATCH(tp_out<T>(static_cast<float*>(outf), QT_C(T, mlp_b2), QT_C(T, anorm_w),
+                        QT_C(T, anorm_b), QT_C(T, vnorm_w), QT_C(T, vnorm_b),
+                        static_cast<T*>(a_out), static_cast<T*>(v_out), Q, D,
+                        static_cast<cudaStream_t>(stream)))
+}
 
 extern "C" int qt_patch_select(int dtype, const void* patch, const void* video,
                                const void* audio, const void* slf_w, const void* slf_b,

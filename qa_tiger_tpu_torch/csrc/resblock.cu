@@ -37,6 +37,20 @@
 //      expression, rounded);
 //   3. GEMM against c_proj [W, 4W] plus bias plus the residual -> y
 //      (gemm_sm90 in bf16, gemm_tile in fp32).
+// Under tensor parallelism (parallel/tensor.py) the attention half splits at
+// its all-reduce into two launches per rank (qt_attn_ln2_partial and the
+// post-reduce qt_reduce_epilogue; JAX's GSPMD gathers around the Pallas
+// call instead, so this split has no Pallas counterpart):
+//   partial: steps 1-4 above on the rank's heads: ln_1 on the whole row,
+//     the qkv GEMM against the rank's [3 Wl, W] head rows (Wl = W / tp:
+//     q, k and v rows of its heads), the attention over heads / tp heads
+//     with q/k/v row strides 3 Wl, and the out-projection over K = Wl into
+//     an fp32 [M, W] partial (EpiF32 with no bias, no residual);
+//   post-reduce (after the caller summed the partials over the model
+//     ranks): y = x + round_T(sum + b_out), EpiResidual's rounding, and
+//     h = ln_2(y), one warp per row (common.cuh reduce_epilogue_kernel).
+// The partial moves the same x and writes an fp32 [M, W] instead of y and
+// h; its products are 1/tp of the single-rank ones.
 // The Pallas kernels kept qkv, ctx and the MLP hidden [rows, 4W] in VMEM;
 // here each makes one round trip through HBM (2 x 3W + 2 x W values per row
 // in the attention half, ~240 MB per layer at B=256 in bf16; 2 x 4W in the
@@ -84,6 +98,43 @@ cudaError_t attn(const T* x, const T* ln1w, const T* ln1b, const T* wqkv, const 
   qt::layer_norm_kernel<T, T><<<qt::ln_blocks(M), qt::LN_WARPS * 32, 0, stream>>>(
       y, M, W, 1, ln2w, ln2b, h, nullptr, nullptr, nullptr);
   return cudaGetLastError();
+}
+
+// The tensor-parallel partial of the attention half: wqkv [3 Wl, W] and bqkv
+// [3 Wl] the rank's head rows (q, k, v), wout [W, Wl] its columns of
+// out_proj; part [M, W] fp32 = ctx_rank out_proj_rank^T. qkv [M, 3 Wl] and
+// ctx [M, W] scratch (ctx holds the bf16 route's staged ln_1 rows first).
+template <typename T>
+cudaError_t attn_partial(const T* x, const T* ln1w, const T* ln1b, const T* wqkv,
+                         const T* bqkv, const T* wout, const float* mask, float* part, T* qkv,
+                         T* ctx, float* stats, int B, int S, int W, int Wl, int heads,
+                         cudaStream_t stream) {
+  const int M = B * S, hd = Wl / heads;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  const qt::EpiBias<T> to_qkv{qkv, 3LL * Wl, bqkv, false};
+  cudaError_t err;
+  if (qt::gemm_route(kBf16, M, 3 * Wl, W) == qt::GEMM_ROUTE_WGMMA) {
+    qt::layer_norm_kernel<T, T><<<qt::ln_blocks(M), qt::LN_WARPS * 32, 0, stream>>>(
+        x, M, W, 1, ln1w, ln1b, ctx, nullptr, nullptr, nullptr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    err = qt::gemm_rows<T>(ctx, W, wqkv, W, M, 3 * Wl, W, to_qkv, stream);
+  } else {
+    float* mean = stats;
+    float* rstd = stats + M;
+    qt::row_stats_kernel<T><<<qt::ln_blocks(M), qt::LN_WARPS * 32, 0, stream>>>(x, W, M, W,
+                                                                                 mean, rstd);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    qt::gemm<T, true>(qt::LnRowLoad<T>{x, W, mean, rstd, ln1w, ln1b}, wqkv, W, M, 3 * Wl, W,
+                      to_qkv, stream);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  const long long bs = 3LL * S * Wl;
+  err = qt::attention<T>(qkv, bs, 3LL * Wl, qkv + Wl, bs, 3LL * Wl, qkv + 2 * Wl, bs, 3LL * Wl,
+                         ctx, (long long)S * Wl, Wl, mask, B, S, S, heads, hd,
+                         1.0f / sqrtf((float)hd), stream);
+  if (err != cudaSuccess) return err;
+  return qt::gemm_rows<T>(ctx, Wl, wout, Wl, M, W, Wl, qt::EpiF32<T>{part, W, nullptr}, stream);
 }
 
 // y doubles as the bf16 route's ln_2 scratch; stats serves the fp32 route
@@ -147,6 +198,46 @@ extern "C" int qt_attn_half(int dtype, const void* x, const void* ln1w, const vo
                       static_cast<const float*>(mask), static_cast<T*>(y), nullptr,
                       static_cast<T*>(qkv), static_cast<T*>(ctx), static_cast<float*>(stats), B,
                       S, W, heads, static_cast<cudaStream_t>(stream)))
+}
+
+extern "C" int qt_attn_ln2_partial(int dtype, const void* x, const void* ln1w, const void* ln1b,
+                                   const void* wqkv, const void* bqkv, const void* wout,
+                                   const void* mask, void* part, void* qkv, void* ctx,
+                                   void* stats, int B, int S, int W, int Wl, int heads,
+                                   void* stream) {
+  QT_DISPATCH(attn_partial<T>(QT_P(T, x), QT_P(T, ln1w), QT_P(T, ln1b), QT_P(T, wqkv),
+                              QT_P(T, bqkv), QT_P(T, wout), static_cast<const float*>(mask),
+                              static_cast<float*>(part), static_cast<T*>(qkv),
+                              static_cast<T*>(ctx), static_cast<float*>(stats), B, S, W, Wl,
+                              heads, static_cast<cudaStream_t>(stream)))
+}
+
+// The post-reduce epilogue of a row-parallel product (common.cuh
+// reduce_epilogue_kernel): sum [rows, D] fp32 reduced over the model ranks;
+// bias [D], res [rows, D] (may be null), out [rows, D] of type T, or fp32
+// when out_f32 (then it may alias sum); ln_w/ln_b [D] and h [rows, D] (null:
+// no LayerNorm). dtype is T's.
+extern "C" int qt_reduce_epilogue(int dtype, int out_f32, const void* sum, const void* bias,
+                                  const void* res, void* out, const void* ln_w,
+                                  const void* ln_b, void* h, int rows, int D, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* s = static_cast<const float*>(sum);
+#define QT_EPI(TO)                                                                         \
+  qt::reduce_epilogue_kernel<T, TO><<<qt::ln_blocks(rows), qt::LN_WARPS * 32, 0, st>>>(    \
+      s, rows, D, QT_P(T, bias), QT_P(T, res), static_cast<TO*>(out), QT_P(T, ln_w),       \
+      QT_P(T, ln_b), static_cast<T*>(h))
+  if (dtype == 0) {
+    using T = float;
+    QT_EPI(float);
+  } else if (out_f32) {
+    using T = __nv_bfloat16;
+    QT_EPI(float);
+  } else {
+    using T = __nv_bfloat16;
+    QT_EPI(T);
+  }
+#undef QT_EPI
+  return cudaGetLastError();
 }
 
 // x and y [rows, W], hidden [rows, Hd] scratch, stats [2, rows] fp32 scratch;

@@ -5,15 +5,28 @@ Port of ``qa_tiger_tpu/models/clip_text.py``: token + positional embedding
 ln_final, and EOT pooling by ``argmax(token_ids)`` (the EOT token has the
 largest id). ``words`` is the ln_final output before ``text_projection``.
 Each block's attention half runs through ``fused_attn_ln2``.
+
+Under a ``grid`` of model size tp > 1 (``parallel/tensor.py``) each block
+holds this rank's shards and runs the tensor-parallel form:
+``fused_attn_ln2_partial`` over heads/tp heads, the model-group sum, then
+``fused_attn_ln2_post`` (y = x + round(sum + b_out), h = ln_2(y)); c_fc by
+column with QuickGELU, c_proj by row into an fp32 partial, the sum, then
+y + round(sum + b). Embeddings, ln_final and the projection stay whole.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from qa_tiger_tpu_torch.nn.attention import MultiheadAttention
 from qa_tiger_tpu_torch.nn.core import LayerNorm, Linear, linear, quick_gelu
-from qa_tiger_tpu_torch.ops.resblock import fused_attn_ln2
+from qa_tiger_tpu_torch.ops.resblock import (
+    fused_attn_ln2,
+    fused_attn_ln2_partial,
+    fused_attn_ln2_post,
+)
+from qa_tiger_tpu_torch.parallel.tensor import all_reduce_model
 
 CLIP_TEXT_CONFIGS = {
     "ViT-L/14@336px": dict(width=768, heads=12, layers=12, embed_dim=768),
@@ -62,10 +75,22 @@ class ResidualAttentionBlock(nn.Module):
                 lin.bias.zero_()
 
     def forward(self, x: torch.Tensor, *, heads: int,
-                mask: torch.Tensor | None) -> torch.Tensor:
+                mask: torch.Tensor | None, grid=None) -> torch.Tensor:
+        if grid is not None and grid.model_size > 1:
+            return self._forward_tp(x, heads, mask, grid)
         y, h = fused_attn_ln2(x, self, mask, heads)
         h = quick_gelu(linear(h, self.mlp.c_fc.weight, self.mlp.c_fc.bias))
         return y + linear(h, self.mlp.c_proj.weight, self.mlp.c_proj.bias)
+
+    def _forward_tp(self, x, heads: int, mask, grid) -> torch.Tensor:
+        tp = grid.model_size
+        if heads % tp:
+            raise ValueError(f"{heads} heads do not split over model_parallel={tp}")
+        part = all_reduce_model(fused_attn_ln2_partial(x, self, mask, heads // tp), grid)
+        y, h = fused_attn_ln2_post(x, part, self)
+        h = quick_gelu(linear(h, self.mlp.c_fc.weight, self.mlp.c_fc.bias))
+        part = all_reduce_model(F.linear(h.float(), self.mlp.c_proj.weight.float()), grid)
+        return y + (part + self.mlp.c_proj.bias.float()).to(y.dtype)
 
 
 class Transformer(nn.Module):
@@ -95,13 +120,14 @@ class CLIPTextTower(nn.Module):
             (width ** -0.5) * torch.randn(width, cfg["embed_dim"], generator=generator))
         self.logit_scale = nn.Parameter(torch.tensor(2.6592))
 
-    def forward(self, text: torch.Tensor):
-        """token ids [B, L] -> (pooled [B, embed_dim], words [B, L, width])."""
+    def forward(self, text: torch.Tensor, grid=None):
+        """token ids [B, L] -> (pooled [B, embed_dim], words [B, L, width]);
+        ``grid``: the tensor-parallel blocks on its model ranks."""
         L = text.shape[1]
         x = self.token_embedding.weight[text] + self.positional_embedding[:L]
         mask = causal_mask(L, device=x.device)
         for block in self.transformer.resblocks:
-            x = block(x, heads=self.cfg["heads"], mask=mask)
+            x = block(x, heads=self.cfg["heads"], mask=mask, grid=grid)
         x = self.ln_final(x)
         eot = text.argmax(dim=-1)
         pooled = x[torch.arange(x.shape[0], device=x.device), eot]

@@ -21,6 +21,17 @@ fused train kernels (``fused_avq_train``, ``fused_patch_select_train``); a
 ``masks=`` argument feeds a given realization instead. QstGrounding and
 TempMoE drop attention probabilities at the hard-coded p=0.1 of the
 reference, whatever the configured rate, on the plain ``mha`` path.
+
+Under a ``grid`` of model size tp > 1 (``parallel/tensor.py``) each module
+holds this rank's shards and computes its eval function in tensor-parallel
+form, every row product's partial in fp32, summed over the model group and
+rounded once where the single-rank path rounds it: AVQCrossAttn's three
+``mha`` and ``linear1`` by column / ``linear2`` by row; QstGrounding's
+``mha`` and ``mlp.0`` / ``mlp.2``; TempMoE's ``mha``, its router and
+``gauss_pred`` whole on the reduced question vector, and the experts
+through ``fused_gaussian_moe_partial``; PatchSelecter through the
+``fused_patch_select_tp_*`` stages. The train branches (dropout, masks)
+raise there: ROADMAP.md A7b.2.
 """
 from __future__ import annotations
 
@@ -31,12 +42,19 @@ from torch.nn import functional as F
 from qa_tiger_tpu_torch.nn.attention import MultiheadAttention, mha
 from qa_tiger_tpu_torch.nn.core import MLP2, LayerNorm, Linear, dropout, layer_norm, mlp2
 from qa_tiger_tpu_torch.ops.avq import avq_sub_forward_masked, fused_avq_train
-from qa_tiger_tpu_torch.ops.gaussian_moe import fused_gaussian_moe
+from qa_tiger_tpu_torch.ops.gaussian_moe import fused_gaussian_moe, fused_gaussian_moe_partial
 from qa_tiger_tpu_torch.ops.patch_select import (
     fused_patch_select,
+    fused_patch_select_tp_cross,
+    fused_patch_select_tp_cross_post,
+    fused_patch_select_tp_mlp,
+    fused_patch_select_tp_out,
+    fused_patch_select_tp_self,
+    fused_patch_select_tp_self_post,
     fused_patch_select_train,
     patch_selecter_plain,
 )
+from qa_tiger_tpu_torch.parallel.tensor import all_reduce_model
 from qa_tiger_tpu_torch.ops.tempmoe import (
     combined_expert_weights,
     gaussian_weights,
@@ -116,6 +134,29 @@ def _dropping(generator, dropout_p: float) -> bool:
     return generator is not None and dropout_p > 0.0
 
 
+def _tp(grid, train: bool) -> bool:
+    """True under a model axis; raises for a train call there."""
+    if grid is None or grid.model_size <= 1:
+        return False
+    if train:
+        raise NotImplementedError("the train forward under a model axis (dropout, masks) is "
+                                  "ROADMAP A7b.2; the grid runs the eval forward only")
+    return True
+
+
+def _row_linear(h: torch.Tensor, lin, grid) -> torch.Tensor:
+    """A row-parallel Linear on one model rank: h [.., H/tp] against the
+    rank's weight columns, the fp32 partial summed over the model group,
+    then round(sum + bias) in h's dtype."""
+    part = all_reduce_model(F.linear(h.float(), lin.weight.float()), grid)
+    return (part + lin.bias.float()).to(h.dtype)
+
+
+def _mlp2_tp(x: torch.Tensor, mlp, grid) -> torch.Tensor:
+    """``mlp2`` with mlp.0 by column and mlp.2 by row."""
+    return _row_linear(torch.relu(mlp[0](x)), mlp[2], grid)
+
+
 class Projection(nn.Module):
     """``proj``: a kaiming-initialised Linear."""
 
@@ -140,7 +181,8 @@ class AVQCrossAttn(nn.Module):
 
     def forward(self, src_q: torch.Tensor, src_v: torch.Tensor,
                 query: torch.Tensor, *, nhead: int = 8, dropout_p: float = 0.0,
-                generator: torch.Generator | None = None, masks: dict | None = None):
+                generator: torch.Generator | None = None, masks: dict | None = None,
+                grid=None):
         """Both directions share the parameters, so they run as one pass
         over a 2B batch: rows [:B] attend from src_q, rows [B:] from src_v.
         Returns (src1, src2), each [B, T, D]. Under dropout (or with
@@ -149,6 +191,7 @@ class AVQCrossAttn(nn.Module):
         q_cat = torch.cat([src_q, src_v], dim=0)
         v_cat = torch.cat([src_v, src_q], dim=0)
         query_cat = torch.cat([query, query], dim=0)
+        tp = _tp(grid, masks is not None or _dropping(generator, dropout_p))
         if masks is None and _dropping(generator, dropout_p):
             N, T, D = q_cat.shape
             masks = make_avq_dropout_masks(generator, N, T, query_cat.shape[1], D,
@@ -158,14 +201,15 @@ class AVQCrossAttn(nn.Module):
             out = fused_avq_train(q_cat, v_cat, query_cat, self, masks, nhead)
             return out[:B], out[B:]
         qst_out, _ = mha(self.qst_attn, q_cat, query_cat, query_cat,
-                         num_heads=nhead, need_weights=False)
+                         num_heads=nhead, need_weights=False, grid=grid)
         slf, _ = mha(self.slf_attn, q_cat, q_cat, q_cat, num_heads=nhead,
-                     need_weights=False)
+                     need_weights=False, grid=grid)
         crs, _ = mha(self.crs_attn, q_cat, v_cat, v_cat, num_heads=nhead,
-                     need_weights=False)
+                     need_weights=False, grid=grid)
         x = q_cat + slf + crs + qst_out
         x = layer_norm(x, self.norm1.weight, self.norm1.bias)
-        ffn = self.linear2(torch.relu(self.linear1(x)))
+        hid = torch.relu(self.linear1(x))
+        ffn = _row_linear(hid, self.linear2, grid) if tp else self.linear2(hid)
         out = layer_norm(x + ffn, self.norm2.weight, self.norm2.bias)
         return out[:B], out[B:]
 
@@ -178,11 +222,16 @@ class QstGrounding(nn.Module):
         self.norm = LayerNorm(d_model)
 
     def forward(self, qst: torch.Tensor, data, *, nhead: int = 8, dropout_p: float = 0.0,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, grid=None) -> torch.Tensor:
         """out = LayerNorm(mean_seq(data) + dropout(MLP(attn(qst, data, data)))).
         ``data`` may be a list of [B, S_i, D] streams joined along seq."""
         if isinstance(data, (list, tuple)):
             data = torch.cat(list(data), dim=1)
+        if _tp(grid, generator is not None):
+            attn_out, _ = mha(self.attn, qst[:, None, :], data, data, num_heads=nhead,
+                              need_weights=False, grid=grid)
+            feat = data.mean(dim=1) + _mlp2_tp(attn_out[:, 0], self.mlp, grid)
+            return layer_norm(feat, self.norm.weight, self.norm.bias)
         attn_out, _ = mha(self.attn, qst[:, None, :], data, data, num_heads=nhead,
                           need_weights=False, dropout_p=ATTN_DROPOUT, generator=generator)
         feat = data.mean(dim=1) + dropout(mlp2(attn_out[:, 0], self.mlp), dropout_p, generator)
@@ -218,7 +267,8 @@ class TempMoE(nn.Module):
 
     def forward(self, qst: torch.Tensor, data: torch.Tensor, sub_data=None, *,
                 nhead: int = 8, topK: int = 5, sigma: float = 9.0,
-                gather_mode: str = "reference", generator: torch.Generator | None = None):
+                gather_mode: str = "reference", generator: torch.Generator | None = None,
+                grid=None):
         """[B, 1, D], or a pair of them for the visual branch (``sub_data``
         = [a_patch, v_patch]). The base centres are re-derived from
         ``n_experts``; they are never a parameter."""
@@ -227,8 +277,10 @@ class TempMoE(nn.Module):
         margin = 1.0 / (E * 2)
         base_centers = torch.linspace(margin, 1.0 - margin, E,
                                       dtype=torch.float32, device=data.device)
+        tp = _tp(grid, generator is not None)
         temp_w, _ = mha(self.qst_attn, qst[:, None, :], data, data, num_heads=nhead,
-                        need_weights=False, dropout_p=ATTN_DROPOUT, generator=generator)
+                        need_weights=False, dropout_p=ATTN_DROPOUT, generator=generator,
+                        grid=grid)
         temp_w = temp_w[:, 0]
         router_probs = torch.softmax(self.router(temp_w).float(), dim=-1)
         topk_probs, topk_inds = topk_renormalized(router_probs, topK)
@@ -240,11 +292,16 @@ class TempMoE(nn.Module):
         w_bet = combined_expert_weights(gauss_w, topk_inds, topk_probs, E,
                                         gather_mode)
         experts = self.stacked_experts()
+        if tp and grid.model_rank:  # b2's term comes from model rank 0 alone
+            experts = (*experts[:3], torch.zeros_like(experts[3]))
 
         def aggregate(stream: torch.Tensor) -> torch.Tensor:
             # streams stacked along the batch share the per-sample weights
             reps = stream.shape[0] // B
             w = w_bet.repeat(reps, 1, 1).to(stream.dtype)
+            if tp:
+                part = all_reduce_model(fused_gaussian_moe_partial(stream, *experts, w), grid)
+                return part.to(stream.dtype)[:, None, :]
             return fused_gaussian_moe(stream, *experts, w)[:, None, :]
 
         if sub_data is not None:
@@ -265,10 +322,13 @@ class PatchSelecter(nn.Module):
 
     def forward(self, patch: torch.Tensor, audio: torch.Tensor,
                 video: torch.Tensor, *, nhead: int = 8, dropout_p: float = 0.0,
-                generator: torch.Generator | None = None, masks: dict | None = None):
+                generator: torch.Generator | None = None, masks: dict | None = None,
+                grid=None):
         """Per-frame audio/video-guided patch summary -> [a_patch, v_patch],
         each [B, T, D]. Under dropout (or with ``masks``) the pass is
         ``fused_patch_select_train``."""
+        if _tp(grid, masks is not None or _dropping(generator, dropout_p)):
+            return list(self._forward_tp(patch, audio, video, nhead, grid))
         if masks is None and _dropping(generator, dropout_p):
             B, T, P, D = patch.shape
             masks = make_patch_dropout_masks(generator, B * T, P, D, nhead=nhead,
@@ -276,3 +336,19 @@ class PatchSelecter(nn.Module):
         if masks is not None:
             return list(fused_patch_select_train(patch, audio, video, self, masks, nhead))
         return list(fused_patch_select(patch, audio, video, self, nhead))
+
+    def _forward_tp(self, patch, audio, video, nhead: int, grid):
+        """The eval pass on one model rank: three stages, each partial summed
+        over the model group before its epilogue."""
+        tp = grid.model_size
+        if nhead % tp:
+            raise ValueError(f"{nhead} heads do not split over model_parallel={tp}")
+        heads = nhead // tp
+        part = all_reduce_model(fused_patch_select_tp_self(patch, self.slf_attn, heads), grid)
+        x1 = fused_patch_select_tp_self_post(part, patch, self.slf_attn.out_proj.bias)
+        part = all_reduce_model(
+            fused_patch_select_tp_cross(x1, audio, video, self.crs_attn, heads), grid)
+        crs = fused_patch_select_tp_cross_post(part, self.crs_attn.out_proj.bias, patch.dtype)
+        part = all_reduce_model(fused_patch_select_tp_mlp(crs, self.mlp), grid)
+        return fused_patch_select_tp_out(part, self.mlp[2].bias, self.anorm, self.vnorm,
+                                         patch.dtype)

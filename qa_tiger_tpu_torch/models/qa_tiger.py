@@ -5,6 +5,11 @@ question-guided AV cross attention -> patch selection -> audio and visual
 temporal Gaussian MoE aggregation -> two stacked question groundings ->
 ReLU -> Linear head. The frozen CLIP text tower encodes token ids online,
 under ``torch.no_grad()`` (JAX: ``stop_gradient``), in its own dtype.
+
+Under a ``grid`` of model size tp > 1 (``parallel/tensor.py``) the eval
+forward runs each module's tensor-parallel form on the rank's shards
+(``parallel.shard_module_``); projections, norms, embeddings and the head
+stay whole. ``check_model_parallel`` says whether a config splits.
 """
 from __future__ import annotations
 
@@ -90,8 +95,20 @@ class QATiger(nn.Module):
         self.head = Linear(d, cfg["num_labels"], g)
         self.quest_encoder = CLIPTextTower(cfg["encoder_type"], g)
 
+    def check_model_parallel(self, tp: int) -> None:
+        """Raise ``ValueError`` unless every split of this config divides
+        by ``tp``: heads (AVQ, the tower), d_model, its MLP halves, the
+        tower's width and its MLP."""
+        cfg, tower = self.cfg, self.quest_encoder.cfg
+        dims = {"nhead": cfg["nhead"], "d_model": cfg["d_model"],
+                "d_model // 2": cfg["d_model"] // 2, "text heads": tower["heads"],
+                "text width": tower["width"]}
+        bad = {k: v for k, v in dims.items() if v % tp}
+        if bad:
+            raise ValueError(f"model_parallel={tp} does not divide {bad}")
+
     def encode_question(self, quest: torch.Tensor,
-                        words: torch.Tensor | None = None):
+                        words: torch.Tensor | None = None, grid=None):
         """(quest [B, Dq], words [B, L, W] or None) from one of three forms:
 
         - integer token ids [B, L] -> the frozen CLIP text tower, after the
@@ -107,7 +124,7 @@ class QATiger(nn.Module):
             if ctx and ctx < quest.shape[1]:
                 quest = quest[:, :ctx]
             with torch.no_grad():
-                pooled, words = self.quest_encoder(quest)
+                pooled, words = self.quest_encoder(quest, grid=grid)
             return pooled.to(tgt), words.to(tgt)
         if quest.dim() == 3:
             quest = quest[:, 0]
@@ -117,7 +134,7 @@ class QATiger(nn.Module):
 
     def forward(self, batch: dict, *, train: bool = False,
                 generator: torch.Generator | None = None,
-                sites: list | None = None) -> dict:
+                sites: list | None = None, grid=None) -> dict:
         """batch: quest [B, 77] token ids (or a float question, with
         ``quest_words``), audio [B, T, audio_dim], video [B, T, video_dim],
         patch [B, T, P, patch_dim] -> {'out': logits [B, num_labels]}.
@@ -127,10 +144,14 @@ class QATiger(nn.Module):
         on the activations' device seeded from ``generator``
         (``split_generator``). ``sites`` gives those six generators ready
         seeded instead (the train step's CUDA graph owns persistent ones and
-        reseeds them before each replay)."""
+        reseeds them before each replay). ``grid``: the eval forward's
+        tensor-parallel form on its model ranks (train raises there: ROADMAP
+        A7b.2)."""
         cfg = self.cfg
         nhead, dp = cfg["nhead"], cfg["dropout"]
-        quest, words = self.encode_question(batch["quest"], batch.get("quest_words"))
+        if train and grid is not None and grid.model_size > 1:
+            raise NotImplementedError("the train forward under a model axis is ROADMAP A7b.2")
+        quest, words = self.encode_question(batch["quest"], batch.get("quest_words"), grid)
         if words is None:
             raise ValueError("the words projection needs word features: pass "
                              "token ids, or a float question with quest_words")
@@ -147,18 +168,18 @@ class QATiger(nn.Module):
             gens = [None] * SITES
 
         audio, video = self.crs_attn(audio, video, words, nhead=nhead, dropout_p=dp,
-                                     generator=gens[0])
+                                     generator=gens[0], grid=grid)
         patch_pair = self.patch_selecter(patch, audio, video, nhead=nhead, dropout_p=dp,
-                                         generator=gens[1])
+                                         generator=gens[1], grid=grid)
         moe = dict(nhead=nhead, topK=cfg["topK"], sigma=cfg["sigma"],
-                   gather_mode=cfg["gather_mode"])
+                   gather_mode=cfg["gather_mode"], grid=grid)
         a_global = self.at_aggregator(quest, audio, None, generator=gens[2], **moe)
         ap_global, vp_global = self.vt_aggregator(quest, video, patch_pair, generator=gens[3],
                                                   **moe)
         fusion = self.quest_grounding(quest, [ap_global, vp_global], nhead=nhead,
-                                      dropout_p=dp, generator=gens[4])
+                                      dropout_p=dp, generator=gens[4], grid=grid)
         fusion = self.quest_grounding(quest, [fusion[:, None, :], a_global], nhead=nhead,
-                                      dropout_p=dp, generator=gens[5])
+                                      dropout_p=dp, generator=gens[5], grid=grid)
         return {"out": self.head(torch.relu(fusion))}
 
 

@@ -19,6 +19,14 @@ fp32; in bf16 ``gemm_sm90`` for the forwards, ``gemm_tile``'s WMMA loop for
 the backwards); ``fused_gaussian_moe`` tallies its two products' (its own
 ``wgmma`` kernel or 3xTF32 for the first, ``gemm_tf32x3`` for the second).
 
+``TP_STAGES`` lists the stages of the tensor-parallel forms
+(``parallel/tensor.py``), each with its own ``launches`` counter; a stage
+that launches a kernel's TP form also counts one launch of that kernel
+(``fused_attn_ln2_partial``, ``fused_patch_select_tp_self``,
+``fused_gaussian_moe_partial``), so a rank's ``launch_counts`` equal a
+single process's. ``reset_launches`` clears them too; ``stage_counts``
+reads them.
+
 A CUDA graph runs the wrappers' Python once, while it is captured, and
 launches their kernels at every replay. So the graph's owner takes the
 counters' difference across the capture (``launch_state`` before and after,
@@ -32,14 +40,26 @@ from qa_tiger_tpu_torch.ops.attention import (
     fused_attention,
 )
 from qa_tiger_tpu_torch.ops.avq import fused_avq_train, fused_avq_train_bwd
-from qa_tiger_tpu_torch.ops.gaussian_moe import fused_gaussian_moe
+from qa_tiger_tpu_torch.ops.gaussian_moe import fused_gaussian_moe, fused_gaussian_moe_partial
 from qa_tiger_tpu_torch.ops.gemm import gemm_route
 from qa_tiger_tpu_torch.ops.patch_select import (
     fused_patch_select,
+    fused_patch_select_tp_cross,
+    fused_patch_select_tp_cross_post,
+    fused_patch_select_tp_mlp,
+    fused_patch_select_tp_out,
+    fused_patch_select_tp_self,
+    fused_patch_select_tp_self_post,
     fused_patch_select_train,
     fused_patch_select_train_bwd,
 )
-from qa_tiger_tpu_torch.ops.resblock import fused_attn_half, fused_attn_ln2, fused_resblock
+from qa_tiger_tpu_torch.ops.resblock import (
+    fused_attn_half,
+    fused_attn_ln2,
+    fused_attn_ln2_partial,
+    fused_attn_ln2_post,
+    fused_resblock,
+)
 
 KERNELS = {
     "fused_attn_ln2": fused_attn_ln2,
@@ -56,11 +76,17 @@ KERNELS = {
     "fused_resblock": fused_resblock,
 }
 
+TP_STAGES = {fn.__name__: fn for fn in (
+    fused_attn_ln2_partial, fused_attn_ln2_post, fused_patch_select_tp_self,
+    fused_patch_select_tp_self_post, fused_patch_select_tp_cross,
+    fused_patch_select_tp_cross_post, fused_patch_select_tp_mlp, fused_patch_select_tp_out,
+    fused_gaussian_moe_partial)}
+
 
 def reset_launches() -> None:
     """Sets every ``launches`` counter to 0 and clears the ``gemm_routes``
-    tallies of the kernels that keep one."""
-    for fn in KERNELS.values():
+    tallies of the kernels and stages that keep one."""
+    for fn in [*KERNELS.values(), *TP_STAGES.values()]:
         fn.launches = 0
         if hasattr(fn, "gemm_routes"):
             fn.gemm_routes = {}
@@ -68,6 +94,11 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def stage_counts() -> dict:
+    """The tensor-parallel stages' ``launches``, by name."""
+    return {name: fn.launches for name, fn in TP_STAGES.items()}
 
 
 def launch_state() -> dict:
@@ -106,7 +137,7 @@ def add_launches(delta: dict) -> None:
             fn.gemm_routes[route] = fn.gemm_routes.get(route, 0) + count
 
 
-__all__ = ["KERNELS", "attention_wide", "attention_wide_key_bias", "fused_attention",
+__all__ = ["KERNELS", "TP_STAGES", "stage_counts", "attention_wide", "attention_wide_key_bias", "fused_attention",
            "fused_attn_half", "fused_attn_ln2", "fused_avq_train", "fused_avq_train_bwd",
            "fused_gaussian_moe", "fused_patch_select", "fused_patch_select_train",
            "fused_patch_select_train_bwd", "fused_resblock", "gemm_route", "add_launches",

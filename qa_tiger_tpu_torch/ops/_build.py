@@ -46,13 +46,20 @@ SIGNATURES = {
     "qt_gemm_sm90": [_I, _P, _L, _P, _L, _P, _L, _P, _P, _L, _I, _I, _I, _I, _P],
     # the train backwards' fp32 tensor-core GEMM alone (ops/gemm.py)
     "qt_gemm_tf32x3": [_P, _L, _I, _P, _L, _I, _P, _L, _I, _I, _I, _I, _P, _L, _P],
-    "qt_gaussian_moe": [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _P, _L,
+    "qt_gaussian_moe": [_I, _I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _P, _L,
                         _I, _I, _I, _I, _I, _I, _I, _P],
     "qt_attn_ln2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                     _P, _P, _I, _I, _I, _I, _P],
     "qt_attn_half": [_I] + [_P] * 12 + [_I] * 4 + [_P],
     "qt_mlp_half": [_I] + [_P] * 10 + [_I] * 3 + [_P],
     "qt_patch_select": [_I] + [_P] * 30 + [_I] * 4 + [_P],
+    # the tensor-parallel stages (parallel/tensor.py): partials and epilogues
+    "qt_attn_ln2_partial": [_I] + [_P] * 11 + [_I] * 5 + [_P],
+    "qt_reduce_epilogue": [_I, _I] + [_P] * 7 + [_I, _I, _P],
+    "qt_patch_select_tp_self": [_I] + [_P] * 7 + [_I] * 5 + [_P],
+    "qt_patch_select_tp_cross": [_I] + [_P] * 10 + [_I] * 5 + [_P],
+    "qt_patch_select_tp_mlp": [_I] + [_P] * 6 + [_I] * 3 + [_P],
+    "qt_patch_select_tp_out": [_I] + [_P] * 8 + [_I] * 2 + [_P],
     # the train kernels take one table of device pointers (index order: the
     # Buf enum of their source, the BUFFERS lists of ops/avq.py and
     # ops/patch_select.py)

@@ -17,6 +17,12 @@ weigh 0; the weighted sum over t carried over the chunks), on ``wgmma``
 wider D on fp32 copies): ``moe_route`` names which. The second Linear is
 one ``gemm_tf32x3`` product over K = E*H. Each launch tallies the routes of
 its two products in ``fused_gaussian_moe.gemm_routes``.
+
+Under tensor parallelism (``parallel/tensor.py``) each model rank runs
+``fused_gaussian_moe_partial`` on its H/tp hidden columns of every expert:
+the same two launches with an fp32 output, b2's term from model rank 0
+only; the caller sums the partials over the ranks and rounds once. It
+counts as a ``fused_gaussian_moe`` launch and takes no gradient.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 from torch.nn import functional as F
 
 from qa_tiger_tpu_torch.ops import _build, _grad
+from qa_tiger_tpu_torch.ops.epilogue import no_grad_stage
 from qa_tiger_tpu_torch.ops.gemm import ROUTES, aligned16, sm_count, splitk_plan, tally_routes
 
 # csrc/gaussian_moe.cu MOE_MAX_D: the widest D whose two samples' x chunks
@@ -32,15 +39,20 @@ MOE_WGMMA_MAX_D = 512
 ROUTE_CODES = {name: code for code, name in ROUTES.items()}
 
 
-def _reference_impl(x, w1t, b1, w2t, b2, w):
-    """Plain version, fp32 throughout; never builds the [B, T, E, D] tensor."""
+def _reference_f32(x, w1t, b1, w2t, b2, w):
+    """Plain version, fp32 throughout and returned unrounded; never builds
+    the [B, T, E, D] tensor."""
     h = torch.relu(torch.einsum("btd,edh->bteh", x.float(), w1t.float())
                    + b1.float())
     wf = w.float()
     s = torch.einsum("bet,bteh->beh", wf, h)
     out = torch.einsum("beh,ehd->bd", s, w2t.float())
-    out = out + torch.einsum("bet,ed->bd", wf, b2.float())
-    return out.to(x.dtype)
+    return out + torch.einsum("bet,ed->bd", wf, b2.float())
+
+
+def _reference_impl(x, w1t, b1, w2t, b2, w):
+    """Plain version: ``_reference_f32`` rounded once to x's dtype."""
+    return _reference_f32(x, w1t, b1, w2t, b2, w).to(x.dtype)
 
 
 def moe_route(dtype: torch.dtype, d: int) -> str:
@@ -61,6 +73,26 @@ def fused_gaussian_moe(x: torch.Tensor,    # [B, T, D]
     """sum_{e,t} w[b,e,t] * MLP_e(x[b,t]) -> [B, D]."""
     if x.device.type == "cpu":
         return _reference_impl(x, w1t, b1, w2t, b2, w)
+    _check(x, w1t, b1, w2t, b2, w)
+    return _grad.KernelWithPlainGrad.apply(_launch, _reference_impl, {}, x, w1t, b1, w2t, b2, w)
+
+
+def fused_gaussian_moe_partial(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor,
+                               w2t: torch.Tensor, b2: torch.Tensor,
+                               w: torch.Tensor) -> torch.Tensor:
+    """One model rank's share of ``fused_gaussian_moe``: w1t [E, D, Hl],
+    b1 [E, Hl] and w2t [E, Hl, D] its hidden columns of every expert, b2
+    the experts' output bias on model rank 0 and zeros on the others ->
+    the fp32 [B, D] partial, unrounded."""
+    no_grad_stage("fused_gaussian_moe_partial", x, w1t, b1, w2t, b2, w)
+    if x.device.type == "cpu":
+        return _reference_f32(x, w1t, b1, w2t, b2, w)
+    _check(x, w1t, b1, w2t, b2, w)
+    fused_gaussian_moe_partial.launches += 1
+    return _launch(x, w1t, b1, w2t, b2, w, out_f32=True)
+
+
+def _check(x, w1t, b1, w2t, b2, w) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"fused_gaussian_moe runs on cpu or cuda, not {x.device}")
     B, T, D = x.shape
@@ -74,7 +106,6 @@ def fused_gaussian_moe(x: torch.Tensor,    # [B, T, D]
             raise ValueError(f"{name} must be contiguous")
         if t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"{name} must match x's dtype and device")
-    return _grad.KernelWithPlainGrad.apply(_launch, _reference_impl, {}, x, w1t, b1, w2t, b2, w)
 
 
 def _pad_cols(t: torch.Tensor, multiple: int) -> torch.Tensor:
@@ -85,7 +116,7 @@ def _pad_cols(t: torch.Tensor, multiple: int) -> torch.Tensor:
     return aligned16((F.pad(t, (0, extra)) if extra else t).contiguous())
 
 
-def _launch(x, w1t, b1, w2t, b2, w):
+def _launch(x, w1t, b1, w2t, b2, w, out_f32: bool = False):
     B, T, D = x.shape
     E, _, H = w1t.shape
     N = E * H
@@ -100,10 +131,11 @@ def _launch(x, w1t, b1, w2t, b2, w):
     dev = x.device
     s = torch.empty(B, lds, dtype=torch.float32, device=dev)
     wsum = torch.empty(B, E, dtype=torch.float32, device=dev)
-    out = torch.empty(B, D, dtype=x.dtype, device=dev)
+    out = torch.empty(B, D, dtype=torch.float32 if out_f32 else x.dtype, device=dev)
     plan = splitk_plan(B, D, N, sm_count(dev))
     ws = torch.empty(plan.workspace, dtype=torch.float32, device=dev) if plan.workspace else None
-    _build.launch("qt_gaussian_moe", _build.dtype_code(x), ROUTE_CODES[route], xk.data_ptr(),
+    _build.launch("qt_gaussian_moe", _build.dtype_code(x), ROUTE_CODES[route], int(out_f32),
+                  xk.data_ptr(),
                   w1k.data_ptr(), b1.data_ptr(), w2.data_ptr(), w2.stride(0), b2.data_ptr(),
                   w.data_ptr(), s.data_ptr(), lds, wsum.data_ptr(), out.data_ptr(),
                   _build.ptr(ws), plan.workspace, plan.chunk, B, T, xk.shape[-1], D, H, E)
@@ -114,3 +146,4 @@ def _launch(x, w1t, b1, w2t, b2, w):
 
 fused_gaussian_moe.launches = 0
 fused_gaussian_moe.gemm_routes = {}  # the routine of each of its two products launched
+fused_gaussian_moe_partial.launches = 0

@@ -20,6 +20,15 @@ LayerNorm per stream.
 A CPU tensor takes the plain version ``patch_selecter_plain`` (the port of
 ``patch_selecter_jnp``, its ``masks=`` path included), which autograd
 differentiates.
+
+Under tensor parallelism (``parallel/tensor.py``) the eval module splits at
+its three row products into stages (``csrc/patch_select.cu``), each rank's
+partial summed over the model ranks by the caller between them:
+``fused_patch_select_tp_self`` -> ``_tp_self_post`` (x1), ``_tp_cross`` ->
+``_tp_cross_post`` (the cross output), ``_tp_mlp`` -> ``_tp_out`` (the two
+normalised streams). ``fused_patch_select`` counts one launch per such
+forward (at its first stage); each stage counts its own. They take no
+gradient.
 """
 from __future__ import annotations
 
@@ -27,9 +36,11 @@ import math
 from types import SimpleNamespace
 
 import torch
+from torch.nn import functional as F
 
 from qa_tiger_tpu_torch.nn.core import layer_norm, linear, mlp2
 from qa_tiger_tpu_torch.ops import _build, _grad
+from qa_tiger_tpu_torch.ops.epilogue import launch_epilogue, no_grad_stage, reduce_epilogue_plain
 from qa_tiger_tpu_torch.ops.attention import _wide_reference
 from qa_tiger_tpu_torch.ops.gemm import (
     aligned16,
@@ -185,6 +196,185 @@ def _launch_eval(patch, audio, video, *weights, nhead):
 
 fused_patch_select.launches = 0
 fused_patch_select.gemm_routes = {}  # the GEMM routine of each product launched
+
+# ---------------------------------------------------------------------------
+# tensor-parallel stages of the eval module
+# ---------------------------------------------------------------------------
+
+
+def _stage_check(name: str, acts: list, weights: list, shapes: list) -> None:
+    """Raise on what a stage kernel does not take: activations and weights
+    contiguous on one CUDA device, of one type (``acts[0]``'s), weights of
+    the given shapes."""
+    x = acts[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    for t in acts + weights:
+        if not t.is_contiguous() or t.device != x.device or t.dtype != x.dtype:
+            raise ValueError(f"{name}: every input must be contiguous, of x's dtype and device")
+    for w, shape in zip(weights, shapes):
+        if tuple(w.shape) != shape:
+            raise ValueError(f"{name}: expected a weight of {shape}, got {tuple(w.shape)}")
+
+
+def _tp_self_plain(patch, w, b, ow, nhead):
+    B, T, P, D = patch.shape
+    q, k, v = linear(patch.reshape(B * T, P, D), w, b).chunk(3, dim=-1)
+    ctx = _wide_reference(q, k, v, None, 1.0 / math.sqrt(w.shape[0] // 3 // nhead), nhead)
+    return F.linear(ctx.float(), ow.float()).reshape(B, T, P, D)
+
+
+def fused_patch_select_tp_self(patch: torch.Tensor, slf, nhead: int) -> torch.Tensor:
+    """Stage 1 on one model rank: patch [B, T, P, D] -> the fp32 [B, T, P,
+    D] partial of the self-attention's out_proj over the rank's ``nhead``
+    heads (``slf`` holds its in_proj rows [3 Wl, D] and out_proj columns
+    [D, Wl]), no bias."""
+    w, b, ow = slf.in_proj_weight, slf.in_proj_bias, slf.out_proj.weight
+    no_grad_stage("fused_patch_select_tp_self", patch, w, b, ow)
+    if patch.device.type == "cpu":
+        return _tp_self_plain(patch, w, b, ow, nhead)
+    B, T, P, D = patch.shape
+    Wl = w.shape[0] // 3
+    _stage_check("fused_patch_select_tp_self", [patch], [w, b, ow],
+                 [(3 * Wl, D), (3 * Wl,), (D, Wl)])
+    patch, w, b, ow = (tma_ready(t) for t in (patch, w, b, ow))
+    BT, dev, dt = B * T, patch.device, patch.dtype
+    part = torch.empty(B, T, P, D, dtype=torch.float32, device=dev)
+    qkv = torch.empty(BT * P, 3 * Wl, dtype=dt, device=dev)
+    ctx = torch.empty(BT * P, Wl, dtype=dt, device=dev)
+    _build.launch("qt_patch_select_tp_self", _build.dtype_code(patch), patch.data_ptr(),
+                  w.data_ptr(), b.data_ptr(), ow.data_ptr(), part.data_ptr(), qkv.data_ptr(),
+                  ctx.data_ptr(), BT, P, D, Wl, nhead)
+    fused_patch_select.launches += 1
+    fused_patch_select_tp_self.launches += 1
+    note_routes(fused_patch_select_tp_self, dt, [(BT * P, 3 * Wl, D), (BT * P, D, Wl)])
+    return part
+
+
+def fused_patch_select_tp_self_post(total: torch.Tensor, patch: torch.Tensor,
+                                    bias: torch.Tensor) -> torch.Tensor:
+    """x1 = patch + round(total + slf out_proj.bias), ``total`` the stage-1
+    partials summed over the model ranks."""
+    no_grad_stage("fused_patch_select_tp_self_post", total, patch, bias)
+    if patch.device.type == "cpu":
+        return reduce_epilogue_plain(total, bias, res=patch, dtype=patch.dtype)
+    x1 = torch.empty_like(patch)
+    launch_epilogue(total, bias, patch, x1)
+    fused_patch_select_tp_self_post.launches += 1
+    return x1
+
+
+def _tp_cross_plain(x1, audio, video, w, b, ow, nhead):
+    B, T, P, D = x1.shape
+    Wl = w.shape[0] // 3
+    query = torch.cat([video.reshape(B * T, 1, D), audio.reshape(B * T, 1, D)], dim=1)
+    q = linear(query, w[:Wl], b[:Wl])
+    k, v = linear(x1.reshape(B * T, P, D), w[Wl:], b[Wl:]).chunk(2, dim=-1)
+    ctx = _wide_reference(q, k, v, None, 1.0 / math.sqrt(Wl // nhead), nhead)
+    return F.linear(ctx.float(), ow.float()).reshape(B, T, 2, D)
+
+
+def fused_patch_select_tp_cross(x1: torch.Tensor, audio: torch.Tensor, video: torch.Tensor,
+                                crs, nhead: int) -> torch.Tensor:
+    """Stage 2 on one model rank: keys and values from x1 [B, T, P, D], the
+    (video, audio) queries [B, T, D] -> the fp32 [B, T, 2, D] partial of
+    the cross-attention's out_proj (video row first) over the rank's heads,
+    no bias."""
+    w, b, ow = crs.in_proj_weight, crs.in_proj_bias, crs.out_proj.weight
+    no_grad_stage("fused_patch_select_tp_cross", x1, audio, video, w, b, ow)
+    if x1.device.type == "cpu":
+        return _tp_cross_plain(x1, audio, video, w, b, ow, nhead)
+    B, T, P, D = x1.shape
+    Wl = w.shape[0] // 3
+    _stage_check("fused_patch_select_tp_cross", [x1, audio, video], [w, b, ow],
+                 [(3 * Wl, D), (3 * Wl,), (D, Wl)])
+    if audio.shape != video.shape or tuple(video.shape) != (B, T, D):
+        raise ValueError(f"audio and video must be [{B}, {T}, {D}]")
+    x1, w, ow = tma_ready(x1), tma_ready(w), tma_ready(ow)
+    BT, dev, dt = B * T, x1.device, x1.dtype
+    part = torch.empty(B, T, 2, D, dtype=torch.float32, device=dev)
+    kv = torch.empty(BT * P, 2 * Wl, dtype=dt, device=dev)
+    q = torch.empty(2 * BT, Wl, dtype=dt, device=dev)
+    ctx2 = torch.empty(2 * BT, D, dtype=dt, device=dev)
+    _build.launch("qt_patch_select_tp_cross", _build.dtype_code(x1), x1.data_ptr(),
+                  video.data_ptr(), audio.data_ptr(), w.data_ptr(), b.data_ptr(),
+                  ow.data_ptr(), part.data_ptr(), kv.data_ptr(), q.data_ptr(), ctx2.data_ptr(),
+                  BT, P, D, Wl, nhead)
+    fused_patch_select_tp_cross.launches += 1
+    note_routes(fused_patch_select_tp_cross, dt,
+                [(BT * P, 2 * Wl, D), (2 * BT, Wl, D), (2 * BT, D, Wl)])
+    return part
+
+
+def fused_patch_select_tp_cross_post(total: torch.Tensor, bias: torch.Tensor,
+                                     dtype: torch.dtype) -> torch.Tensor:
+    """The cross output round(total + crs out_proj.bias) in ``dtype``,
+    ``total`` the stage-2 partials summed over the model ranks."""
+    no_grad_stage("fused_patch_select_tp_cross_post", total, bias)
+    if total.device.type == "cpu":
+        return reduce_epilogue_plain(total, bias, dtype=dtype)
+    out = torch.empty(total.shape, dtype=dtype, device=total.device)
+    launch_epilogue(total, bias, None, out)
+    fused_patch_select_tp_cross_post.launches += 1
+    return out
+
+
+def fused_patch_select_tp_mlp(crs: torch.Tensor, mlp) -> torch.Tensor:
+    """Stage 3 on one model rank: the cross output [B, T, 2, D] -> the fp32
+    partial of mlp.2 over the rank's hidden columns (mlp.0 rows [Hl, D]
+    with ReLU, mlp.2 columns [D, Hl]), no bias."""
+    w1, b1, w2 = mlp[0].weight, mlp[0].bias, mlp[2].weight
+    no_grad_stage("fused_patch_select_tp_mlp", crs, w1, b1, w2)
+    if crs.device.type == "cpu":
+        return F.linear(torch.relu(linear(crs, w1, b1)).float(), w2.float())
+    B, T, _, D = crs.shape
+    Hl = w1.shape[0]
+    _stage_check("fused_patch_select_tp_mlp", [crs], [w1, b1, w2], [(Hl, D), (Hl,), (D, Hl)])
+    crs, w1, w2 = tma_ready(crs), tma_ready(w1), tma_ready(w2)
+    Q = 2 * B * T
+    part = torch.empty(B, T, 2, D, dtype=torch.float32, device=crs.device)
+    hid = torch.empty(Q, Hl, dtype=crs.dtype, device=crs.device)
+    _build.launch("qt_patch_select_tp_mlp", _build.dtype_code(crs), crs.data_ptr(),
+                  w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), part.data_ptr(), hid.data_ptr(),
+                  Q, D, Hl)
+    fused_patch_select_tp_mlp.launches += 1
+    note_routes(fused_patch_select_tp_mlp, crs.dtype, [(Q, Hl, D), (Q, D, Hl)])
+    return part
+
+
+def fused_patch_select_tp_out(total: torch.Tensor, bias: torch.Tensor, anorm, vnorm,
+                              dtype: torch.dtype) -> tuple:
+    """(a, v), each [B, T, D] in ``dtype``: LayerNorm of total + mlp.2's
+    bias in fp32 per stream, ``total`` [B, T, 2, D] the stage-3 partials
+    summed over the model ranks (overwritten on the card)."""
+    no_grad_stage("fused_patch_select_tp_out", total, bias, anorm.weight, vnorm.weight)
+    if total.device.type == "cpu":
+        out = total + bias.float()
+        return (layer_norm(out[:, :, 1], anorm.weight, anorm.bias).to(dtype),
+                layer_norm(out[:, :, 0], vnorm.weight, vnorm.bias).to(dtype))
+    B, T, _, D = total.shape
+    params = [bias, anorm.weight, anorm.bias, vnorm.weight, vnorm.bias]
+    if total.dtype != torch.float32 or not total.is_contiguous() or any(
+            tuple(p.shape) != (D,) or p.dtype != dtype or p.device != total.device
+            for p in params):
+        raise ValueError("fused_patch_select_tp_out takes a contiguous fp32 sum and [D] "
+                         "parameters of the output dtype")
+    a_out = torch.empty(B, T, D, dtype=dtype, device=total.device)
+    v_out = torch.empty(B, T, D, dtype=dtype, device=total.device)
+    _build.launch("qt_patch_select_tp_out", _build.dtype_code(dtype), total.data_ptr(),
+                  *[p.data_ptr() for p in params], a_out.data_ptr(), v_out.data_ptr(),
+                  2 * B * T, D)
+    fused_patch_select_tp_out.launches += 1
+    return a_out, v_out
+
+
+for _stage in (fused_patch_select_tp_self, fused_patch_select_tp_self_post,
+               fused_patch_select_tp_cross, fused_patch_select_tp_cross_post,
+               fused_patch_select_tp_mlp, fused_patch_select_tp_out):
+    _stage.launches = 0
+for _stage in (fused_patch_select_tp_self, fused_patch_select_tp_cross,
+               fused_patch_select_tp_mlp):
+    _stage.gemm_routes = {}
 
 # ---------------------------------------------------------------------------
 # train mode

@@ -15,6 +15,13 @@ mask that requires grad gets its cotangent from ``fused_attn_ln2`` and
 The JAX package admits a shape to its kernels by TPU memory and launch
 overhead (``_usable``, ``_attn_sizes``, ``_mlp_sizes``); here a CUDA tensor
 always launches the kernel, and a shape the kernel does not take raises.
+
+Under tensor parallelism (``parallel/tensor.py``) ``fused_attn_ln2`` splits
+at its all-reduce into two stages: ``fused_attn_ln2_partial`` (ln_1, the
+rank's heads, its out_proj columns into an fp32 [B, S, W] partial; it
+counts as one ``fused_attn_ln2`` launch) and, after the caller's sum over
+the model ranks, ``fused_attn_ln2_post`` (y = x + round(sum + b_out), h =
+ln_2(y)). They take no gradient.
 """
 from __future__ import annotations
 
@@ -22,8 +29,11 @@ import math
 
 import torch
 
+from torch.nn import functional as F
+
 from qa_tiger_tpu_torch.nn.core import layer_norm, linear, quick_gelu
 from qa_tiger_tpu_torch.ops import _build, _grad
+from qa_tiger_tpu_torch.ops.epilogue import launch_epilogue, no_grad_stage, reduce_epilogue_plain
 from qa_tiger_tpu_torch.ops.attention import _wide_reference
 from qa_tiger_tpu_torch.ops.gemm import attn_gemm_shapes, mlp_gemm_shapes, note_routes, tma_ready
 
@@ -156,6 +166,70 @@ def fused_resblock(x: torch.Tensor, block, mask: torch.Tensor | None,
                                            dict(heads=heads, mask=mask), x, *params)
 
 
+def _attn_partial_flat(x, ln1w, ln1b, wqkv, bqkv, wout, *, heads, mask):
+    """Plain version of ``fused_attn_ln2_partial``: ln_1, the rank's qkv
+    rows [3 Wl, W], ``_wide_reference`` over its ``heads`` heads, and the
+    out-projection over its Wl columns in fp32 with no bias."""
+    h = layer_norm(x, ln1w, ln1b)
+    q, k, v = linear(h, wqkv, bqkv).chunk(3, dim=-1)
+    ctx = _wide_reference(q, k, v, mask, 1.0 / math.sqrt(wqkv.shape[0] // 3 // heads), heads)
+    return F.linear(ctx.float(), wout.float())
+
+
+def fused_attn_ln2_partial(x: torch.Tensor, block, mask: torch.Tensor | None,
+                           heads: int) -> torch.Tensor:
+    """One model rank's share of ``fused_attn_ln2``'s attention half: x [B,
+    S, W] -> the fp32 [B, S, W] partial of out_proj(attn(ln_1 x)) over this
+    rank's ``heads`` heads, without out_proj's bias. ``block`` holds ln_1
+    and the rank's shards: in_proj [3 Wl, W] (its q, k and v head rows) and
+    out_proj.weight [W, Wl]. The partials summed over the ranks go to
+    ``fused_attn_ln2_post``."""
+    params = [block.ln_1.weight, block.ln_1.bias, block.attn.in_proj_weight,
+              block.attn.in_proj_bias, block.attn.out_proj.weight]
+    no_grad_stage("fused_attn_ln2_partial", x, *params)
+    if x.device.type == "cpu":
+        return _attn_partial_flat(x, *params, heads=heads, mask=mask)
+    B, S, W = x.shape
+    Wl = params[2].shape[0] // 3
+    if Wl % heads:
+        raise ValueError(f"{Wl} lanes do not split into {heads} heads")
+    mask = _checked_mask(x, params[:2], heads, mask)
+    for p, shape in zip(params[2:], [(3 * Wl, W), (3 * Wl,), (W, Wl)]):
+        if tuple(p.shape) != shape or not p.is_contiguous():
+            raise ValueError(f"expected a contiguous {shape}, got {tuple(p.shape)}")
+        if p.dtype != x.dtype or p.device != x.device:
+            raise ValueError("parameters must match x's dtype and device")
+    params = [tma_ready(p) for p in params]  # the GEMMs' B operands
+    part = torch.empty(B, S, W, dtype=torch.float32, device=x.device)
+    qkv = torch.empty(B * S, 3 * Wl, dtype=x.dtype, device=x.device)
+    ctx = torch.empty(B * S, W, dtype=x.dtype, device=x.device)
+    stats = torch.empty(2, B * S, dtype=torch.float32, device=x.device)
+    _build.launch("qt_attn_ln2_partial", _build.dtype_code(x), x.data_ptr(),
+                  *[p.data_ptr() for p in params], _build.ptr(mask), part.data_ptr(),
+                  qkv.data_ptr(), ctx.data_ptr(), stats.data_ptr(), B, S, W, Wl, heads)
+    fused_attn_ln2.launches += 1
+    fused_attn_ln2_partial.launches += 1
+    note_routes(fused_attn_ln2_partial, x.dtype,
+                [(B * S, 3 * Wl, W), (B * S, W, Wl)])
+    return part
+
+
+def fused_attn_ln2_post(x: torch.Tensor, total: torch.Tensor, block) -> tuple:
+    """(y, ln_2(y)) from x [B, S, W] and ``total``, the fp32 partials of
+    ``fused_attn_ln2_partial`` summed over the model ranks: y = x +
+    round(total + out_proj.bias), the one rounding the single-rank kernel
+    makes there."""
+    bias, ln2 = block.attn.out_proj.bias, block.ln_2
+    no_grad_stage("fused_attn_ln2_post", x, total, bias, ln2.weight, ln2.bias)
+    if x.device.type == "cpu":
+        y = reduce_epilogue_plain(total, bias, res=x, dtype=x.dtype)
+        return y, layer_norm(y, ln2.weight, ln2.bias)
+    y, h = torch.empty_like(x), torch.empty_like(x)
+    launch_epilogue(total, bias, x, y, (ln2.weight, ln2.bias, h))
+    fused_attn_ln2_post.launches += 1
+    return y, h
+
+
 def _attn_scratch(x):
     B, S, W = x.shape
     return (torch.empty(B * S, 3 * W, dtype=x.dtype, device=x.device),
@@ -210,10 +284,13 @@ def _launch_resblock(x, *params, heads, mask):
 
 
 fused_attn_ln2.launches = 0
+fused_attn_ln2_partial.launches = 0
+fused_attn_ln2_post.launches = 0
 fused_attn_half.launches = 0
 fused_resblock.launches = 0
 # the GEMM routine of each product the attention halves and the MLP half
 # launched
 fused_attn_ln2.gemm_routes = {}
+fused_attn_ln2_partial.gemm_routes = {}
 fused_attn_half.gemm_routes = {}
 fused_resblock.gemm_routes = {}

@@ -1,6 +1,7 @@
-"""Data parallelism over ``torch.distributed``. Port of
-``qa_tiger_tpu/parallel`` (its tensor-parallel layout hints excepted:
-ROADMAP.md A7b)."""
+"""Data and tensor parallelism over ``torch.distributed``. Port of
+``qa_tiger_tpu/parallel``: ``dist`` (one process per card, the data axis)
+and ``tensor`` (the data x model grid of the eval forward's tensor-parallel
+forms)."""
 from qa_tiger_tpu_torch.parallel.dist import (
     all_reduce_grads,
     all_reduce_sum,
@@ -15,8 +16,24 @@ from qa_tiger_tpu_torch.parallel.dist import (
     sync_processes,
     world,
 )
+from qa_tiger_tpu_torch.parallel.tensor import (
+    Grid,
+    all_reduce_model,
+    gather_state_dict,
+    make_grid,
+    shard_module_,
+    shard_state_dict,
+    tp_spec,
+)
 
 __all__ = [
+    "Grid",
+    "all_reduce_model",
+    "gather_state_dict",
+    "make_grid",
+    "shard_module_",
+    "shard_state_dict",
+    "tp_spec",
     "all_reduce_grads",
     "all_reduce_sum",
     "backend",

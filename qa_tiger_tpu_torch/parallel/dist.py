@@ -26,9 +26,10 @@ its own strided shard of every batch, and the runner reduces explicitly:
 - ``broadcast_params(module)``: rank 0's parameters and buffers to every
   rank, at start-up.
 
-The tensor-parallel layout hints of ``mesh.py:74-114`` (``param_shardings``,
-``model_parallel``) have no counterpart: no entry point uses them
-(ROADMAP.md A7b).
+The tensor-parallel layout of ``mesh.py:38-114`` (``make_mesh(n,
+model_parallel=tp)``, ``param_shardings``) is ``parallel/tensor.py``'s:
+``make_grid``, ``tp_spec``, the state-dict sharding and the model-group
+all-reduce of the eval forward's tensor-parallel forms.
 """
 from __future__ import annotations
 
@@ -140,11 +141,12 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter],
     return out
 
 
-def all_reduce_sum(tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-    """``tensors`` (on one device) summed over the ranks in one float64
-    buffer, one collective; returned in their shapes and dtypes."""
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group=None) -> list[torch.Tensor]:
+    """``tensors`` (on one device) summed over the ranks of ``group`` (all
+    of them by default) in one float64 buffer, one collective; returned in
+    their shapes and dtypes."""
     flat = torch.cat([t.reshape(-1).double() for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     out, offset = [], 0
     for t in tensors:
         out.append(flat[offset:offset + t.numel()].view(t.shape).to(t.dtype))

@@ -1,0 +1,221 @@
+"""Tensor parallelism over a data x model process grid.
+
+The counterpart of ``qa_tiger_tpu/parallel/mesh.py:38-114``: JAX builds a
+``('data', 'model')`` mesh (``make_mesh(n, model_parallel=tp)``) and lets
+GSPMD split Megatron-style (``param_shardings``): column splits of
+``in_proj_*``, ``linear1``, ``c_fc`` and Sequential index ``0``, row splits
+of ``out_proj``, ``linear2``, ``c_proj`` and index ``2``. GSPMD gathers
+whatever a Pallas call cannot split, so there the layout is a hint and the
+numbers do not change. This package has no GSPMD: each fused kernel is
+split at the point where the all-reduce falls (the ``*_partial`` /
+``*_tp_*`` stages of ``ops``), each rank computes an fp32 partial over its
+shard, the model group sums the partials, and one epilogue rounds the
+value once, where the single-rank kernel rounds it:
+
+- ``make_grid(model_parallel)``: the process grid of an initialised process
+  group, ``mesh.py:50``'s layout (global rank = data_rank * tp +
+  model_rank), one ``data_group`` and one ``model_group`` per rank;
+- ``tp_spec(name, shape, tp)``: this package's copy of ``_spec_for``
+  (``mesh.py:68-96``) with two deliberate differences (ROADMAP.md §C):
+  ``in_proj_weight`` / ``in_proj_bias`` split by head (``QKV``: each rank
+  takes rows [r D/tp, (r+1) D/tp) of each of q, k and v, so it can run its
+  heads' attention alone; JAX's ``P('model', None)`` on the stacked [3D, D]
+  would give rank 0 all of q and half of k), and a column Linear with no
+  row partner stays replicated (``gauss_pred.0`` and ``router.0``, the
+  single-Linear Sequentials whose outputs feed the router math whole);
+- ``shard_state_dict`` / ``gather_state_dict`` / ``shard_module_``: a
+  rank's shard of a whole state dict, the whole one back from the shards
+  and the whole shapes (bitwise), and a module's parameters replaced by
+  their shards;
+- ``all_reduce_model(t, grid)``: the sum over the model group, in place.
+
+The eval counters are summed over the data group only (``Grid.reduce_data``):
+every model rank of a data rank holds the same rows.
+"""
+from __future__ import annotations
+
+from collections.abc import Mapping
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from qa_tiger_tpu_torch.parallel.dist import all_reduce_sum, distributed
+
+# the specs: per dimension, "model" (split over the model axis) or None;
+# QKV splits dimension 0 of a stacked [q; k; v] by head
+COL = ("model", None)
+ROW = (None, "model")
+VEC = ("model",)
+QKV = ("model:qkv", None)
+QKV_VEC = ("model:qkv",)
+REPLICATED = ()
+
+_COL_KEYS = ("linear1", "c_fc", "0")  # leaf parent names, as mesh.py:65
+_ROW_KEYS = ("linear2", "c_proj", "2")
+# single-Linear Sequentials: their "0" has no row partner
+_SOLO = ("gauss_pred", "router")
+
+
+@dataclass(frozen=True, eq=False)
+class Grid:
+    """This rank's place in the data x model grid and its two groups.
+    ``Grid()`` is one process (no groups). A subclass may reduce and gather
+    by other means (the tests simulate ranks as threads)."""
+
+    data_rank: int = 0
+    data_size: int = 1
+    model_rank: int = 0
+    model_size: int = 1
+    data_group: Any = None
+    model_group: Any = None
+
+    def reduce_model(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the model group, in place."""
+        dist.all_reduce(t, group=self.model_group)
+        return t
+
+    def gather_model(self, t: torch.Tensor) -> list[torch.Tensor]:
+        """Every model rank's ``t`` (same shape on each), in rank order, on
+        ``t``'s device (gloo gathers on the host)."""
+        on_host = dist.get_backend(self.model_group) != "nccl"
+        src = (t.cpu() if on_host else t).contiguous()
+        parts = [torch.empty_like(src) for _ in range(self.model_size)]
+        dist.all_gather(parts, src, group=self.model_group)
+        return [p.to(t.device) for p in parts]
+
+    def reduce_data(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """``tensors`` summed over the data group (``all_reduce_sum``)."""
+        return all_reduce_sum(tensors, group=self.data_group)
+
+    @property
+    def loader_shard(self) -> dict:
+        """``BatchLoader``'s sharding for this rank: over the data axis, so
+        the model ranks of one data rank read the same rows."""
+        return {"shard_id": self.data_rank, "num_shards": self.data_size}
+
+
+def make_grid(model_parallel: int = 1) -> Grid:
+    """The grid of the process group that is up: ``world // model_parallel``
+    data ranks of ``model_parallel`` model ranks each, global rank =
+    data_rank * model_parallel + model_rank. Every rank must call it (the
+    groups are made in the same order on each). Without a process group,
+    ``Grid()`` at model_parallel 1; raises when the world is not a multiple
+    of ``model_parallel`` (``mesh.py:46-48``)."""
+    tp = int(model_parallel)
+    if tp < 1:
+        raise ValueError(f"model_parallel must be >= 1, got {model_parallel}")
+    if not distributed():
+        if tp != 1:
+            raise RuntimeError(f"model_parallel={tp} needs a process group of at least "
+                               f"{tp} ranks")
+        return Grid()
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world % tp:
+        raise ValueError(f"{world} ranks not divisible by model_parallel={tp}")
+    data_size = world // tp
+    model_groups = [dist.new_group(list(range(d * tp, (d + 1) * tp))) for d in range(data_size)]
+    data_groups = [dist.new_group(list(range(m, world, tp))) for m in range(tp)]
+    return Grid(data_rank=rank // tp, data_size=data_size, model_rank=rank % tp,
+                model_size=tp, data_group=data_groups[rank % tp],
+                model_group=model_groups[rank // tp])
+
+
+def all_reduce_model(t: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """``t`` summed over ``grid``'s model group, in place; ``t`` itself at
+    model size 1."""
+    return grid.reduce_model(t) if grid.model_size > 1 else t
+
+
+def tp_spec(name: str, shape, tp: int) -> tuple:
+    """How the parameter ``name`` (a dotted state_dict name) of ``shape`` is
+    split over ``tp`` model ranks: COL, ROW, VEC, QKV, QKV_VEC or
+    REPLICATED. ``mesh.py``'s ``_spec_for`` but for the head-aligned
+    ``in_proj_*`` (QKV, QKV_VEC: D = shape[0] / 3 must divide by tp) and
+    the replicated ``gauss_pred.0`` / ``router.0``. A dimension that does
+    not divide by tp is replicated, as in JAX."""
+    shape = tuple(shape)
+    parts = name.split(".")
+    if tp <= 1 or len(parts) < 2:
+        return REPLICATED
+    parent, leaf = parts[-2], parts[-1]
+    if leaf in ("in_proj_weight", "in_proj_bias") and shape[0] % (3 * tp) == 0:
+        return QKV if leaf == "in_proj_weight" else QKV_VEC
+    if parent in _COL_KEYS and not (parent == "0" and len(parts) >= 3 and parts[-3] in _SOLO):
+        if leaf == "weight" and len(shape) == 2 and shape[0] % tp == 0:
+            return COL
+        if leaf == "bias" and len(shape) == 1 and shape[0] % tp == 0:
+            return VEC
+    if (parent in _ROW_KEYS or parent == "out_proj") and leaf == "weight" \
+            and len(shape) == 2 and shape[1] % tp == 0:
+        return ROW
+    return REPLICATED
+
+
+def take_shard(t: torch.Tensor, spec: tuple, rank: int, tp: int) -> torch.Tensor:
+    """Model rank ``rank``'s shard of ``t`` under ``spec``, contiguous."""
+    if spec in (COL, VEC):
+        return t.chunk(tp, dim=0)[rank].contiguous()
+    if spec == ROW:
+        return t.chunk(tp, dim=1)[rank].contiguous()
+    if spec in (QKV, QKV_VEC):
+        d = t.shape[0] // 3
+        return t.reshape(3, d, *t.shape[1:]).chunk(tp, dim=1)[rank] \
+            .reshape(3 * d // tp, *t.shape[1:]).contiguous()
+    return t
+
+
+def merge_shards(shards: list[torch.Tensor], spec: tuple) -> torch.Tensor:
+    """The whole tensor from every model rank's shard, in rank order (the
+    inverse of ``take_shard``)."""
+    if spec in (COL, VEC):
+        return torch.cat(shards, dim=0)
+    if spec == ROW:
+        return torch.cat(shards, dim=1)
+    if spec in (QKV, QKV_VEC):
+        rest = shards[0].shape[1:]
+        d = shards[0].shape[0] // 3
+        return torch.cat([s.reshape(3, d, *rest) for s in shards], dim=1) \
+            .reshape(3 * d * len(shards), *rest)
+    return shards[0]
+
+
+def shard_state_dict(sd: Mapping[str, torch.Tensor], grid: Grid) -> dict[str, torch.Tensor]:
+    """``grid``'s rank's shard of the whole state dict ``sd`` (names as
+    ``tp_spec`` reads them); ``sd`` itself at model size 1."""
+    tp = grid.model_size
+    if tp <= 1:
+        return dict(sd)
+    return {n: take_shard(t, tp_spec(n, t.shape, tp), grid.model_rank, tp)
+            for n, t in sd.items()}
+
+
+def gather_state_dict(local: Mapping[str, torch.Tensor], grid: Grid,
+                      shapes: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The whole state dict from every model rank's ``local`` shard (a
+    collective over the model group), bitwise the one sharded; ``shapes``
+    gives each parameter's whole shape, which decides its spec (a shard's
+    own shape cannot: a dimension that does not divide stays whole).
+    ``local`` itself at model size 1."""
+    tp = grid.model_size
+    if tp <= 1:
+        return dict(local)
+    out = {}
+    for name, t in local.items():
+        spec = tp_spec(name, shapes[name], tp)
+        out[name] = merge_shards(grid.gather_model(t), spec) if spec else t
+    return out
+
+
+@torch.no_grad()
+def shard_module_(module: torch.nn.Module, grid: Grid) -> torch.nn.Module:
+    """Replace each parameter of ``module`` (whole, as built) by ``grid``'s
+    rank's shard, in place; the module at model size 1."""
+    tp = grid.model_size
+    if tp > 1:
+        for name, p in module.named_parameters():
+            spec = tp_spec(name, p.shape, tp)
+            if spec:
+                p.data = take_shard(p.data, spec, grid.model_rank, tp).clone()
+    return module

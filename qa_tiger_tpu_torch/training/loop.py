@@ -52,7 +52,16 @@ process group (``qa_tiger_tpu_torch.parallel``):
   them back, so ``evaluate`` and ``test`` report what one process reports
   over the same global batches. The TempMoE gather of
   ``gather_mode="reference"`` rotates within the batch it sees: each
-  rank's shard, as under the reference's DDP.
+  rank's shard, as under the reference's DDP;
+- tensor parallelism (``grid=``, ``parallel.make_grid(tp)``: the
+  counterpart of the JAX runner's ``mesh=`` with a ``model`` axis): the
+  model holds this rank's shards (``parallel.shard_module_``), the eval
+  forward runs the modules' tensor-parallel forms, ``load_params`` shards
+  what it is given and ``params`` gathers the whole state dict back (so
+  ``best.npz`` keeps its format and loads at any grid); a loader shards
+  over the data axis (``grid.loader_shard``), and eval sums its counters
+  over the data group only. The train step under a model axis raises
+  (ROADMAP.md A7b.2).
 """
 from __future__ import annotations
 
@@ -71,6 +80,12 @@ from qa_tiger_tpu_torch import parallel
 from qa_tiger_tpu_torch.convert import params_from_jax
 from qa_tiger_tpu_torch.models.qa_tiger import check_text_ctx, split_generator, split_seeds
 from qa_tiger_tpu_torch.models.registry import model_class, resolve_device
+from qa_tiger_tpu_torch.parallel.tensor import (
+    Grid,
+    gather_state_dict,
+    shard_module_,
+    shard_state_dict,
+)
 from qa_tiger_tpu_torch.training.checkpoint import TENSOR_ENTRIES, load_clip_text_state
 from qa_tiger_tpu_torch.training.metrics import (
     accuracy_report,
@@ -131,12 +146,14 @@ class AVQARunner:
     model has no frozen tower and reads precomputed question and prompt
     features). The model runs on ``device`` (``cuda`` unless given, no
     fallback). Weights come from ``seed``, or from ``init_params`` (a
-    state_dict or a JAX pytree).
+    state_dict or a JAX pytree). ``grid`` (``parallel.make_grid``): this
+    rank's place in a data x model grid; a model size above 1 shards the
+    model and allows the eval path only.
     """
 
     def __init__(self, cfg: Mapping, model_cfg: Mapping, *,
                  device: str | torch.device | None = None, seed: int = 0,
-                 init_params: Mapping | None = None):
+                 init_params: Mapping | None = None, grid: Grid | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.logger = get_logger()
@@ -147,6 +164,16 @@ class AVQARunner:
         self.model_cfg["encoder_dtype"] = enc_dt
         self._encoder_dtype = _dtype(enc_dt)
         self.model = model_class(self.model_cfg)(self.model_cfg, seed=seed)
+        self.grid = grid
+        if self._model_axis:
+            # the whole state dict's shapes, which gather_state_dict reads
+            self._whole_shapes = {n: tuple(t.shape) for n, t in self.model.state_dict().items()}
+            check = getattr(self.model, "check_model_parallel", None)
+            if check is None:
+                raise NotImplementedError(f"{type(self.model).__name__} under a model axis is "
+                                          "ROADMAP A7b.2")
+            check(grid.model_size)
+            shard_module_(self.model, grid)
         self._frozen_prefixes = self.model.FROZEN_PREFIXES
         for name, p in self.model.named_parameters():
             if self._frozen(name):
@@ -184,6 +211,16 @@ class AVQARunner:
         self.epoch_stats: dict[str, float] | None = None
 
     # ------------------------------------------------------------------
+    @property
+    def _model_axis(self) -> bool:
+        return self.grid is not None and self.grid.model_size > 1
+
+    def _no_model_axis(self, what: str) -> None:
+        if self._model_axis:
+            raise NotImplementedError(
+                f"{what} under a model axis (model_parallel={self.grid.model_size}) is ROADMAP "
+                "A7b.2: the grid runs the eval forward only")
+
     def _frozen(self, name: str) -> bool:
         return name.split(".")[0] in self._frozen_prefixes
 
@@ -210,14 +247,20 @@ class AVQARunner:
 
     @property
     def params(self) -> dict[str, torch.Tensor]:
-        """Every parameter, trainable and frozen, by its dotted name."""
+        """Every parameter, trainable and frozen, by its dotted name; under a
+        model axis the whole tensors, gathered from the model ranks."""
+        if self._model_axis:
+            return gather_state_dict(self.model.state_dict(), self.grid, self._whole_shapes)
         return self.model.state_dict()
 
     def load_params(self, params: Mapping) -> None:
         """Load a state_dict or a JAX pytree: every trainable parameter must
         be there; the frozen tower may be left out (it keeps its weights).
         Adam's state starts afresh."""
-        missing, unexpected = self.model.load_state_dict(_as_state(params), strict=False)
+        state = _as_state(params)
+        if self._model_axis:
+            state = shard_state_dict(state, self.grid)
+        missing, unexpected = self.model.load_state_dict(state, strict=False)
         missing = [n for n in missing if not self._frozen(n)]
         if missing or unexpected:
             raise KeyError(f"load_params: missing {missing}, unexpected {unexpected}")
@@ -238,6 +281,9 @@ class AVQARunner:
             self.logger.info(f"loaded frozen CLIP text tower from {path} (unused: the model "
                              "reads precomputed question features)")
             return
+        if self._model_axis:
+            state = {n[len("quest_encoder."):]: t for n, t in shard_state_dict(
+                {f"quest_encoder.{n}": t for n, t in state.items()}, self.grid).items()}
         self.model.quest_encoder.load_state_dict(state, strict=True)
         self._cast_frozen()
         self._step_graph = None  # the cast may have replaced the tower's tensors
@@ -285,7 +331,7 @@ class AVQARunner:
             toks = toks[:, :ctx]
         pooled, words = [], []
         for i in range(0, toks.shape[0], chunk):
-            p, w = self.model.quest_encoder(toks[i:i + chunk].to(self.device))
+            p, w = self.model.quest_encoder(toks[i:i + chunk].to(self.device), grid=self.grid)
             pooled.append(p)
             words.append(w)
         cache = (torch.cat(pooled), torch.cat(words))
@@ -397,6 +443,7 @@ class AVQARunner:
         """One optimizer step; returns the losses as device scalars. Dropout
         draws from ``generator`` (none without one). The parameter gradients
         stay in ``.grad`` until the next step."""
+        self._no_model_axis("train_step")
         batch = self._device_batch(batch)
         set_lr(self.optimizer, lr)
         return self._step(batch, generator)
@@ -448,6 +495,7 @@ class AVQARunner:
         graph's shapes goes through it (``StepGraph``: captured on the card
         at its second batch, replayed from then on); one of other shapes
         through the eager step."""
+        self._no_model_axis("train_window")
         set_lr(self.optimizer, lr)
         out = []
         for batch in batches:
@@ -513,7 +561,8 @@ class AVQARunner:
         device; with ``nll_sum`` the first is the NLL summed over the valid
         rows (what ranks sum before dividing by the summed total)."""
         batch = self._device_batch(batch)
-        out = self._forward(batch, self._eval_dtype, True)
+        extra = {"grid": self.grid} if self._model_axis else {}
+        out = self._forward(batch, self._eval_dtype, True, **extra)
         loss = masked_nll_sum if nll_sum else masked_cross_entropy
         ce = loss(out["out"], batch["label"], batch["valid"])
         return (ce, *qtype_counters(out["out"], batch["label"], batch["qtype_label"],
@@ -521,6 +570,7 @@ class AVQARunner:
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int, loader, lr: float, writer=None) -> None:
+        self._no_model_axis("train_epoch")
         cfg = self.cfg
         logger = self.logger
         log_interval = cfg.get("log_interval", 100)
@@ -611,14 +661,17 @@ class AVQARunner:
         """(mean of the batches' CE, correct, total, correct and total per
         question type) over ``loader``. Under data parallelism every rank
         reads its shard, and the rows read back are summed over the ranks
-        first: each batch's CE is then the global batch's."""
+        first (under a grid, over its data group: every model rank of a
+        data rank holds the same rows): each batch's CE is then the global
+        batch's."""
         self._select_qst_cache(loader)
         ce_sum, cor, tot, n_batches = 0.0, 0, 0, 0
         cor9 = np.zeros(9, np.int64)
         tot9 = np.zeros(9, np.int64)
         pending: list = []
         log_interval = self.cfg.get("log_interval", 100)
-        dp = parallel.distributed()
+        grid = self.grid
+        dp = grid.data_size > 1 if grid is not None else parallel.distributed()
 
         def drain() -> None:
             nonlocal ce_sum, cor, tot, cor9, tot9, n_batches
@@ -628,7 +681,8 @@ class AVQARunner:
                                            t.reshape(1).double(), c9.double(), t9.double()])
                                 for ce, c, t, c9, t9 in pending])
             if dp:
-                rows = parallel.all_reduce_sum([rows])[0]
+                rows = (grid.reduce_data([rows]) if grid is not None
+                        else parallel.all_reduce_sum([rows]))[0]
                 rows[:, 0] /= rows[:, 2].clamp(min=1.0)
             rows = rows.cpu().numpy()
             for row in rows:
