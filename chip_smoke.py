@@ -102,10 +102,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and the final test, every feature file read natively), test on its
    best.npz (the same report lines as the train run's final test), then a
    resume for epoch 2 with the question cache (one per split, the tower 12
-   launches per split), then 6 epochs afresh, the rate read over epochs
-   2-6; steps, epoch seconds, qa-pairs/s beside the recipe's rate of (b),
+   launches per split), then 4 epochs afresh, the rate read over epochs
+   2-4; steps, epoch seconds, qa-pairs/s beside the recipe's rate of (b),
    the seconds spent waiting on the loader, the native reader's build time;
-   then those 6 epochs again with ``steps_per_dispatch: 4``
+   then those 4 epochs again with ``steps_per_dispatch: 4``
    (``cli_warm_graph``: every step but the first a replay of the step's
    CUDA graph, the same launch counts, the rate and loader wait beside
    ``cli_warm``'s);
@@ -215,7 +215,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    of one process (12 / 7 / 1 / 2) with the stage launches beside them,
    every bf16 stage product on gemm_sm90; (c) ``tp_grid``: dp2 x tp2, four
    ranks, fp32, ``_run_eval`` over 65 rows, the counters equal one
-   process's exactly;
+   process's exactly; (d) ``tp_train_chain`` (in phase 3, after the train
+   kernels): the tensor-parallel stages of ``fused_avq_train`` (five: three
+   forward, two backward) and ``fused_patch_select_train`` (four forward,
+   three backward) at the recipe's widths and B=32, tp 2 and 4, fp32 and
+   bf16: every stage on every rank against its plain version on the card
+   (bf16 gradients against the fp32 plain version, as for the train
+   kernels), the partials summed in rank order between stages, then the
+   output and every input and parameter gradient against the single-rank
+   kernel pair on the same inputs and masks, the replicated parameters'
+   gradients bitwise equal on the ranks; the fp32 stages on rank 0 timed
+   beside their 3xTF32 bounds and the single-rank kernels' times, kept
+   under ``tp`` in the four train kernels' table entries; (e)
+   ``tp_train``: dp1 x tp2, two ranks spawned on the card over gloo (no
+   figure for tensor parallelism's speed), three fp32 B=32 ``train_step``
+   calls with dropout on against one process's from the same step
+   generator (the tower in fp32 too): each step's losses within rtol
+   1e-5, the first step's gradients gathered within 1e-4 of the step's
+   largest gradient element, the replicated parameters bitwise equal on
+   the ranks after the last step, a rank's launches per step one
+   process's and its stage launches printed;
 14. the kernel table as one JSON line (each entry's ``launches`` from its
    own path, ``launches_by_path`` from all of them, ``serve`` per served
    batch, ``train_graph`` per replay, ``tspm`` per bf16 forward,
@@ -224,7 +243,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    replay under the group, ``cli_v2`` the whole phase, ``clip_rn50`` and
    ``clip_vitl336`` one bf16 forward;
    ``attention_wide``'s entry also lists the ``tspm`` lines; ``tp_eval``
-   rank 0's bf16 forward), then the device's JSON line last.
+   rank 0's bf16 forward; ``tp_train`` rank 0's last step), then the
+   device's JSON line last.
+
+Every phase prints its wall seconds (``phase_seconds`` lines), and one line
+before the card's sums them by phase (``"phase": "seconds"``).
 
 ``--profile DIR`` also writes torch.profiler tables of one bf16 serving
 forward, a window of 1024 served requests under 4 client threads (its
@@ -239,6 +262,7 @@ come from fixed seeds. TF32 is off.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import importlib.util
@@ -2328,7 +2352,7 @@ def check_train_graph(eager_ms: float, profile_dir: Path | None) -> dict:
 CLI_SPLITS = {"train": (0, 70), "val": (70, 90), "test": (90, 110)}
 CLI_FEATURES = {"vggish": (T, 128), "clip": (T, 768), "tome": (T, P, 1024)}
 CLI_BATCH = 32
-CLI_WARM_EPOCHS = 5
+CLI_WARM_EPOCHS = 3
 CLI_REPORT = re.compile(r"\]:(Test .* accuracy: .*)$")
 
 
@@ -4082,8 +4106,8 @@ def tp_patch_select(tp: int, dtype, B: int, tol: float, timed: bool, rng, gen) -
 def tp_moe(tp: int, dtype, b: int, tol: float, timed: bool, rng) -> dict:
     """fused_gaussian_moe (x[b, 60, 512], E 7, H 256) split over tp ranks'
     hidden columns (H/tp each; at tp 4 E*H/tp = 448 leaves a ragged
-    128-column tile): each rank's fp32 partial against its plain version,
-    b2's term on rank 0 alone, then the sum rounded once against the
+    128-column tile): each rank's fp32 partial (no b2 term) against its
+    plain version, then the sum plus b2's term rounded once against the
     single-rank kernel."""
     import torch
 
@@ -4108,15 +4132,16 @@ def tp_moe(tp: int, dtype, b: int, tol: float, timed: bool, rng) -> dict:
     for r in range(tp):
         cols = slice(r * Hl, (r + 1) * Hl)
         shard = (w1t[:, :, cols].contiguous(), b1[:, cols].contiguous(),
-                 w2t[:, cols].contiguous(), b2 if r == 0 else torch.zeros_like(b2))
+                 w2t[:, cols].contiguous())
         case = ("fused_gaussian_moe_partial", f"x[{b},{T},{D}] E{E} H{Hl} tp{tp} rank{r}",
                 lambda s=shard: G.fused_gaussian_moe_partial(xm, *s, w),
-                lambda s=shard: G._reference_f32(xm, *s, w), None,
-                (b * T * D + b * E * T + 2 * E * D * Hl + E * (Hl + D)) * isz + b * D * 4,
+                lambda s=shard: G._partial_f32(xm, *s, w), None,
+                (b * T * D + b * E * T + 2 * E * D * Hl + E * Hl) * isz + b * D * 4,
                 2 * b * T * E * D * Hl + 2 * b * E * T * Hl + 2 * b * E * Hl * D,
                 {"routes": sorted({G.moe_route(dtype, D), "tf32x3"}), "peak": peak})
         parts.append(_tp_stage(case, dtype, tol, timed and r == 0, lines))
-    got = _tp_sum(parts).to(dtype)
+    # b2's term added after the sum, on every rank alike
+    got = (_tp_sum(parts) + G.bias_term(b2, w)).to(dtype)
     _tp_against_tp1("fused_gaussian_moe", tp, dtype, tol, got, want, tp1_ms, lines)
     return {"stages": lines, "tp1_ms": tp1_ms}
 
@@ -4274,8 +4299,9 @@ def check_tp_eval() -> dict:
             for name, n in TP_KERNELS.items():
                 require(got["launches"][name] == n, f"tp_eval: {name} launched "
                                                     f"{got['launches'][name]} times, not {n}")
-            require(got["stages"] == TP_STAGE_COUNTS,
-                    f"tp_eval {dname}: rank {r}'s stage launches {got['stages']}")
+            stages = {k: v for k, v in got["stages"].items() if v}
+            require(stages == TP_STAGE_COUNTS,
+                    f"tp_eval {dname}: rank {r}'s stage launches {stages}")
             if dname == "bfloat16":
                 require(all(set(routes) == {"wgmma"} for routes in got["routes"].values()),
                         f"tp_eval: a bf16 stage product left gemm_sm90: {got['routes']}")
@@ -4305,6 +4331,645 @@ def check_tp_eval() -> dict:
     require(equal and loss_ok, f"tp_grid: the ranks' counters {[r['eval'] for r in grid_ranks]} "
                                f"differ from one process's {one}")
     return ranks[0]["bfloat16"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# the train step under a data x model grid (A7b.2)
+# ---------------------------------------------------------------------------
+
+TP_TRAIN_B = 32  # the recipe's batch, fp32 and bf16
+# per stage of each train op: the buffers it reads and writes (the bound's
+# bytes: each once), by the names of ops.avq.BUFFERS / patch_select's
+AVQ_STAGE_IO = {
+    "tp_attn": ("src", "val", "wrd", "m_qst", "m_slf", "m_crs", "qst_w", "qst_b", "qst_ow",
+                "slf_w", "slf_b", "slf_ow", "crs_w", "crs_b", "crs_ow", "qq", "kvq", "qkv",
+                "qc", "kvc", "qctx", "sctx", "cctx", "part"),
+    "tp_mid": ("total", "src", "m_d_slf", "m_d_crs", "m_d_qst", "m_ffn1", "slf_ob", "crs_ob",
+               "qst_ob", "n1_w", "n1_b", "l1_w", "l1_b", "l2_w", "x1", "h1", "hr", "hdp",
+               "part"),
+    "tp_out": ("total", "h1", "m_ffn2", "l2_b", "n2_w", "n2_b", "x2", "out"),
+    "bwd_tp_ffn": ("g", "x2", "n2_w", "m_ffn2", "l2_w", "hr", "hdp", "m_ffn1", "l1_w", "h1",
+                   "gf", "g_ffn", "g_pre", "part", "g_l1_w", "g_l1_b", "g_l2_w", "g_l2_b",
+                   "g_n2_w", "g_n2_b"),
+    "bwd_tp_attn": ("total", "x1", "n1_w", "m_d_slf", "m_d_crs", "m_d_qst", "m_qst", "m_slf",
+                    "m_crs", "qq", "kvq", "qkv", "qc", "kvc", "qctx", "sctx", "cctx", "src",
+                    "val", "wrd", "qst_w", "qst_ow", "slf_w", "slf_ow", "crs_w", "crs_ow",
+                    "g_out_s", "g_out_c", "g_out_q", "g_ctx", "g_qq", "g_kvq", "g_qkv", "g_qc",
+                    "g_kvc", "part", "g_qst_w", "g_qst_b", "g_qst_ow", "g_qst_ob", "g_slf_w",
+                    "g_slf_b", "g_slf_ow", "g_slf_ob", "g_crs_w", "g_crs_b", "g_crs_ow",
+                    "g_crs_ob", "g_n1_w", "g_n1_b"),
+}
+PS_STAGE_IO = {
+    "tp_self": ("patch", "m_slf", "slf_w", "slf_b", "slf_ow", "qkv", "sctx", "part"),
+    "tp_cross": ("total", "patch", "video", "audio", "m_crs_v", "m_crs_a", "slf_ob", "crs_w",
+                 "crs_b", "crs_ow", "x1", "kv", "src2", "q", "ctx", "part"),
+    "tp_mlp": ("total", "crs_ob", "m_out_v", "m_out_a", "mlp_w1", "mlp_b1", "mlp_w2", "crs_d",
+               "hid", "part"),
+    "tp_out": ("total", "mlp_b2", "an_w", "an_b", "vn_w", "vn_b", "outf", "a_out", "v_out"),
+    "bwd_tp_mlp": ("ga", "gv", "outf", "an_w", "vn_w", "mlp_w2", "hid", "mlp_w1", "crs_d",
+                   "g_rel", "g_pre1", "part", "g_mlp_w1", "g_mlp_b1", "g_mlp_w2", "g_mlp_b2",
+                   "g_an_w", "g_an_b", "g_vn_w", "g_vn_b"),
+    "bwd_tp_cross": ("total", "m_out_v", "m_out_a", "crs_ow", "ctx", "q", "kv", "m_crs_v",
+                     "m_crs_a", "src2", "x1", "crs_w", "g_crs_o", "g_ctx", "g_qc", "g_kv", "part",
+                     "g_crs_w", "g_crs_b", "g_crs_ow", "g_crs_ob"),
+    "bwd_tp_self": ("total", "slf_ow", "sctx", "qkv", "m_slf", "patch", "slf_w", "g_x1",
+                    "gvideo", "gaudio", "g_slf", "g_qkv", "part", "g_slf_w", "g_slf_b",
+                    "g_slf_ow", "g_slf_ob"),
+}
+
+
+def _flat(out) -> list:
+    """A stage's result as a list of tensors: a tensor, a tuple of tensors
+    and {index: gradient} dicts (in index order)."""
+    import torch
+
+    if torch.is_tensor(out):
+        return [out]
+    flat = []
+    for item in out:
+        flat += [item[k] for k in sorted(item)] if isinstance(item, dict) else _flat(item)
+    return flat
+
+
+def _io_bytes(bufs: dict, keys) -> int:
+    return sum(bufs[k].numel() * bufs[k].element_size() for k in keys
+               if bufs.get(k) is not None)
+
+
+def _stage_flops(shapes, attn: float = 0.0) -> float:
+    return sum(2.0 * m * n * k for m, n, k in shapes) + attn
+
+
+class TrainChain:
+    """One train op's tensor-parallel stages on every rank of tp, three
+    states per rank: the kernels (``k``), the plain versions (each stage's
+    ``plain``) in the same dtype (``p``) and, in bf16, the plain versions in
+    fp32 on the same values (``p32``). Each stage runs on each rank in all
+    three, fed the same summed partials (the kernels', in rank order);
+    ``stage`` holds the
+    kernel to its plain version as ``check_train_kernels`` does (bf16
+    gradients: against the fp32 plain version, within the larger of twice
+    the bf16 plain version's own error and BF16_TOL) and times the fp32
+    stage on rank 0."""
+
+    def __init__(self, op: str, tp: int, dtype, make_state, timed: bool, lines: list):
+        import torch
+
+        self.op, self.tp, self.dtype, self.timed, self.lines = op, tp, dtype, timed, lines
+        self.bf16 = dtype == torch.bfloat16
+        self.tol = BF16_TOL if self.bf16 else FP32_TOL
+        self.k = [make_state(r, dtype) for r in range(tp)]
+        self.p = [make_state(r, dtype) for r in range(tp)]
+        self.p32 = [make_state(r, torch.float32) for r in range(tp)] if self.bf16 else None
+
+    def stage(self, fn, name: str, args, backward: bool, io: dict, flops: float,
+              scale_args=None):
+        """``fn(state, *args(r, dtype))`` on every rank; returns the kernel's
+        results by rank."""
+        import torch
+
+        outs = []
+        for r in range(self.tp):
+            got = fn(self.k[r], *args(r, self.dtype))
+            want = fn.plain(self.p[r], *args(r, self.dtype))
+            torch.cuda.synchronize()
+            g, w = _flat(got), _flat(want)
+            if self.bf16 and backward:
+                ref = _flat(fn.plain(self.p32[r], *args(r, torch.float32)))
+                err, scale = max_err(g, ref)
+                limit = max(2 * max_err(w, ref)[0], self.tol * max(1.0, scale))
+            else:
+                if self.bf16:
+                    fn.plain(self.p32[r], *args(r, torch.float32))  # its state follows the chain
+                err, scale = max_err(g, w)
+                limit = self.tol * max(1.0, scale)
+            line = {"phase": "tp_train_chain", "kernel": f"{self.op}_{name}", "tp": self.tp,
+                    "rank": r, "dtype": str(self.dtype).replace("torch.", ""),
+                    "tensors": len(g), "max_abs_err": err, "max_abs_ref": scale,
+                    "limit": limit, "ok": err <= limit}
+            if self.timed and r == 0:
+                nbytes = _io_bytes(self.k[0].bufs, io[name])
+                b_ms, b_by = bound(nbytes, flops, "tf32x3")
+                line.update(ms=cuda_ms(lambda: fn(self.k[0], *args(0, self.dtype))),
+                            plain_ms=cuda_ms(lambda: fn.plain(self.p[0], *args(0, self.dtype))),
+                            bound_ms=b_ms, bound_by=b_by,
+                            gemm_routes=dict(getattr(fn, "gemm_routes", {})))
+            print(json.dumps(line), flush=True)
+            require(line["ok"], f"{self.op} {name} tp{self.tp} rank {r} "
+                                f"{line['dtype']}: {err:.3e} over {limit:.3e}")
+            self.lines.append(line)
+            outs.append(got)
+        return outs
+
+
+def _against_tp1(op: str, tp: int, dtype, got: list, want: list, ref32: list | None,
+                 tp1: dict, lines: list, n_out: int) -> None:
+    """The summed shards (output, then every input and parameter gradient)
+    against the single-rank train kernel's on the same inputs and masks:
+    fp32 within FP32_TOL; bf16 outputs within BF16_TOL, bf16 gradients
+    against the fp32 plain version within the larger of twice the
+    single-rank kernel's own error and BF16_TOL."""
+    worst, ok = (0.0, -1, 0.0, 0.0), True
+    for i, (g, w) in enumerate(zip(got, want)):
+        if ref32 is not None and i >= n_out:
+            err, scale = max_err(g, ref32[i])
+            limit = max(2 * max_err(w, ref32[i])[0], BF16_TOL * max(1.0, scale))
+        else:
+            err, scale = max_err(g, w)
+            limit = (BF16_TOL if ref32 is not None else FP32_TOL) * max(1.0, scale)
+        ok &= err <= limit
+        worst = max(worst, (err / limit, i, err, scale))
+    line = {"phase": "tp_train_chain", "kernel": op, "tp": tp,
+            "dtype": str(dtype).replace("torch.", ""), "tensors_compared": len(got),
+            "worst_tensor": worst[1], "max_abs_err_vs_tp1": worst[2], "max_abs_ref": worst[3],
+            "worst_err_over_limit": worst[0], "ok": ok, **tp1,
+            "stages": [{k: v for k, v in ln.items() if k not in ("phase", "tp")}
+                       for ln in lines if "ms" in ln]}
+    print(json.dumps(line), flush=True)
+    require(ok, f"{op} tp{tp} {line['dtype']}: tensor {worst[1]} of the summed shards differs "
+                f"from the single-rank kernel by {worst[2]:.3e}")
+
+
+def tp_train_avq(tp: int, dtype, rng, gen, tp1: dict) -> list:
+    """fused_avq_train's five stages at the recipe (N = 2 x 32 rows, T 60,
+    S 77, D 512, 8 heads) on tp ranks; the output and every gradient
+    against the single-rank kernel pair. Returns the timed stage lines."""
+    import torch
+
+    from qa_tiger_tpu_torch.models.modules import AVQCrossAttn, make_avq_dropout_masks
+    from qa_tiger_tpu_torch.ops import avq as AV
+    from qa_tiger_tpu_torch.parallel import Grid, shard_module_
+    from qa_tiger_tpu_torch.parallel.tensor import merge_shards, tp_spec
+
+    D, H, N = 512, 8, 2 * TP_TRAIN_B
+    R, heads = N * T, H // tp
+
+    def rn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
+
+    avq = AVQCrossAttn(D, gen).to("cuda", dtype)
+    acts = [_leaf(rn(N, T, D)), _leaf(rn(N, T, D)), _leaf(rn(N, S, D))]
+    mgen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    masks = make_avq_dropout_masks(mgen, N, T, S, D, nhead=H, dropout_p=0.1, dtype=dtype)
+    cot = rn(N, T, D)
+    params = list(avq.parameters())
+    want = _grads(AV.fused_avq_train(*acts, avq, masks, H), acts + params, [cot])
+    ref32 = None
+    if dtype == torch.bfloat16:
+        m32 = copy.deepcopy(avq).float()
+        a32 = [_leaf(a.detach().float()) for a in acts]
+        ref32 = _grads(AV.avq_sub_forward_masked(m32, *a32, {k: v.float() for k, v in
+                                                               masks.items()}, nhead=H),
+                       a32 + list(m32.parameters()), [cot.float()])
+    shards = [shard_module_(copy.deepcopy(avq), Grid(model_rank=r, model_size=tp))
+              for r in range(tp)]
+    shares = [AV.shard_avq_masks(masks, H, S, T, r, tp) for r in range(tp)]
+
+    def make_state(r, dt):
+        ws = [w.detach().to(dt).contiguous() for w in AV._weights(shards[r])]
+        return AV._AVQState(*[a.detach().to(dt) for a in acts], ws,
+                            {k: v.to(dt).contiguous() for k, v in shares[r].items()}, heads)
+
+    lines = []
+    ch = TrainChain("fused_avq_train", tp, dtype, make_state, dtype == torch.float32, lines)
+    shapes = ch.k[0].shapes
+    hd = D // H
+    attn = 4.0 * N * heads * hd * T * (S + 2 * T)
+    none = lambda r, dt: ()  # noqa: E731
+    parts = ch.stage(AV.fused_avq_train_tp_attn, "tp_attn", none, False, AVQ_STAGE_IO,
+                     _stage_flops(shapes["tp_attn"], attn))
+    totals = _tp_sum(parts)
+    parts = ch.stage(AV.fused_avq_train_tp_mid, "tp_mid", lambda r, dt: (totals,), False,
+                     AVQ_STAGE_IO, _stage_flops(shapes["tp_mid"]))
+    total2 = _tp_sum(parts)
+    outs = ch.stage(AV.fused_avq_train_tp_out, "tp_out", lambda r, dt: (total2,), False,
+                    AVQ_STAGE_IO, 0.0)
+    ffn = ch.stage(AV.fused_avq_train_bwd_tp_ffn, "bwd_tp_ffn",
+                   lambda r, dt: (cot.to(dt), r == 0), True, AVQ_STAGE_IO,
+                   _stage_flops(shapes["bwd_tp_ffn"]))
+    gh1 = _tp_sum([part for part, _ in ffn])
+    attn_b = ch.stage(AV.fused_avq_train_bwd_tp_attn, "bwd_tp_attn",
+                      lambda r, dt: (gh1, r == 0), True, AVQ_STAGE_IO,
+                      _stage_flops(shapes["bwd_tp_attn"], 2 * attn))
+    g_in = AV.round_sum(_tp_sum([part for part, _ in attn_b]), dtype)
+    got = [outs[0], g_in[:R].reshape(N, T, D), g_in[R:2 * R].reshape(N, T, D),
+           g_in[2 * R:].reshape(N, S, D)]
+    for pname, p in avq.named_parameters():
+        widx = [j for j, w in enumerate(AV._weights(avq)) if w is p][0]
+        rank_grads = [{**f[1], **a[1]}[widx] for f, a in zip(ffn, attn_b)]
+        spec = tp_spec(pname, p.shape, tp)
+        if not spec:
+            require(all(torch.equal(g, rank_grads[0]) for g in rank_grads),
+                    f"fused_avq_train tp{tp}: the ranks' {pname} gradients differ")
+        got.append((merge_shards(rank_grads, spec) if spec else rank_grads[0]).to(dtype))
+    _against_tp1("fused_avq_train", tp, dtype, got, want, ref32, tp1, lines, 1)
+    return [ln for ln in lines if "ms" in ln]
+
+
+def tp_train_patch(tp: int, dtype, rng, gen, tp1: dict) -> list:
+    """fused_patch_select_train's seven stages at the recipe (patch[32, 60,
+    14, 512], 8 heads) on tp ranks; the outputs and every gradient against
+    the single-rank kernel pair. Returns the timed stage lines."""
+    import torch
+
+    from qa_tiger_tpu_torch.models.modules import PatchSelecter, make_patch_dropout_masks
+    from qa_tiger_tpu_torch.ops import patch_select as PS
+    from qa_tiger_tpu_torch.parallel import Grid, shard_module_
+    from qa_tiger_tpu_torch.parallel.tensor import merge_shards, tp_spec
+
+    D, H, B = 512, 8, TP_TRAIN_B
+    BT, heads = B * T, H // tp
+
+    def rn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
+
+    ps = PatchSelecter(D, gen).to("cuda", dtype)
+    acts = [_leaf(rn(B, T, P, D)), _leaf(rn(B, T, D)), _leaf(rn(B, T, D))]
+    mgen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
+    masks = make_patch_dropout_masks(mgen, BT, P, D, nhead=H, dropout_p=0.1, dtype=dtype)
+    cots = [rn(B, T, D), rn(B, T, D)]
+    params = list(ps.parameters())
+    want = _grads(PS.fused_patch_select_train(*acts, ps, masks, H), acts + params, cots)
+    ref32 = None
+    if dtype == torch.bfloat16:
+        m32 = copy.deepcopy(ps).float()
+        a32 = [_leaf(a.detach().float()) for a in acts]
+        ref32 = _grads(tuple(PS.patch_selecter_plain(
+            m32, *a32, nhead=H, masks={k: v.float() for k, v in masks.items()})),
+            a32 + list(m32.parameters()), [c.float() for c in cots])
+    shards = [shard_module_(copy.deepcopy(ps), Grid(model_rank=r, model_size=tp))
+              for r in range(tp)]
+    shares = [PS.shard_patch_masks(masks, H, P, r, tp) for r in range(tp)]
+
+    def make_state(r, dt):
+        ws = [w.detach().to(dt).contiguous() for w in PS._weights(shards[r])]
+        return PS._PSState(*[a.detach().to(dt) for a in acts], ws,
+                           {k: v.to(dt).contiguous() for k, v in shares[r].items()}, heads)
+
+    lines = []
+    ch = TrainChain("fused_patch_select_train", tp, dtype, make_state, dtype == torch.float32,
+                    lines)
+    shapes = ch.k[0].shapes
+    hd = D // H
+    self_attn, cross_attn = 4.0 * BT * heads * hd * P * P, 4.0 * 2 * BT * heads * hd * P
+    none = lambda r, dt: ()  # noqa: E731
+    total1 = _tp_sum(ch.stage(PS.fused_patch_select_train_tp_self, "tp_self", none, False,
+                              PS_STAGE_IO, _stage_flops(shapes["tp_self"], self_attn)))
+    total2 = _tp_sum(ch.stage(PS.fused_patch_select_train_tp_cross, "tp_cross",
+                              lambda r, dt: (total1,), False, PS_STAGE_IO,
+                              _stage_flops(shapes["tp_cross"], cross_attn)))
+    total3 = _tp_sum(ch.stage(PS.fused_patch_select_train_tp_mlp, "tp_mlp",
+                              lambda r, dt: (total2,), False, PS_STAGE_IO,
+                              _stage_flops(shapes["tp_mlp"])))
+    outs = ch.stage(PS.fused_patch_select_train_tp_out, "tp_out", lambda r, dt: (total3,),
+                    False, PS_STAGE_IO, 0.0)
+    mlp = ch.stage(PS.fused_patch_select_train_bwd_tp_mlp, "bwd_tp_mlp",
+                   lambda r, dt: (cots[0].to(dt), cots[1].to(dt)), True, PS_STAGE_IO,
+                   _stage_flops(shapes["bwd_tp_mlp"]))
+    t_mlp = _tp_sum([m[0] for m in mlp])
+    cross = ch.stage(PS.fused_patch_select_train_bwd_tp_cross, "bwd_tp_cross",
+                     lambda r, dt: (t_mlp,), True, PS_STAGE_IO,
+                     _stage_flops(shapes["bwd_tp_cross"], 2 * cross_attn))
+    t_cross = _tp_sum([c[0] for c in cross])
+    selves = ch.stage(PS.fused_patch_select_train_bwd_tp_self, "bwd_tp_self",
+                      lambda r, dt: (t_cross,), True, PS_STAGE_IO,
+                      _stage_flops(shapes["bwd_tp_self"], 2 * self_attn))
+    g_x1, g_video, g_audio = selves[0][:3]
+    gpatch = PS.patch_grad_epilogue(_tp_sum([s_[3] for s_ in selves]), g_x1)
+    got = [*outs[0], gpatch, g_audio, g_video]
+    for pname, p in ps.named_parameters():
+        widx = [j for j, w in enumerate(PS._weights(ps)) if w is p][0]
+        rank_grads = [{**m[1], **c[1], **s_[4]}[widx] for m, c, s_ in zip(mlp, cross, selves)]
+        spec = tp_spec(pname, p.shape, tp)
+        if not spec:
+            require(all(torch.equal(g, rank_grads[0]) for g in rank_grads),
+                    f"fused_patch_select_train tp{tp}: the ranks' {pname} gradients differ")
+        got.append((merge_shards(rank_grads, spec) if spec else rank_grads[0]).to(dtype))
+    _against_tp1("fused_patch_select_train", tp, dtype, got, want, ref32, tp1, lines, 2)
+    return [ln for ln in lines if "ms" in ln]
+
+
+def check_tp_train_chain(entries: dict) -> None:
+    """Phase ``tp_train_chain``: the tensor-parallel stages of the two train
+    kernels, forward and backward, at the recipe's widths and batch (B=32)
+    at tp 2 and 4, in fp32 and bf16 (``TrainChain``, ``_against_tp1``); the
+    fp32 stages on rank 0 timed beside their bounds (3xTF32 peak) and the
+    single-rank kernels' times of ``check_train_kernels``, the timed lines
+    kept under ``tp`` in the four train kernels' table entries."""
+    import torch
+
+    rng = np.random.default_rng(19)
+    gen = torch.Generator().manual_seed(19)
+    tp1 = {op: {"tp1_ms": entries[op]["ms"], "tp1_bwd_ms": entries[op + "_bwd"]["ms"]}
+           for op in ("fused_avq_train", "fused_patch_select_train")}
+    for dtype in (torch.float32, torch.bfloat16):
+        for tp in TP_SIZES:
+            for op, fn in (("fused_avq_train", tp_train_avq),
+                           ("fused_patch_select_train", tp_train_patch)):
+                lines = fn(tp, dtype, rng, gen, tp1[op])
+                if dtype == torch.float32:
+                    for name in (op, op + "_bwd"):
+                        entries[name].setdefault("tp", {})[f"tp{tp}"] = [
+                            {k: ln[k] for k in ("kernel", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "max_abs_err")}
+                            for ln in lines if ("_bwd_" in ln["kernel"]) == name.endswith("_bwd")]
+                torch.cuda.empty_cache()
+
+
+TP_TRAIN_STEPS = 3
+# the tower's dtype in the two tp_train runs: fp32, where the first step's
+# gradients are compared, and the recipe's bf16
+TP_TRAIN_TOWERS = ("float32", "bfloat16")
+# the most hidden units of TempMoE's experts whose ReLU may fall on the other
+# side of its kink in the ranks' first step (each shown to lie within the
+# rounding bound of 0 in both runs)
+TP_TRAIN_MAX_KINKS = 8
+# the bf16 tower's losses against one process's, relative: the first step's
+# (the same weights; measured 7.6e-5 on the H100) and the later steps'
+# (measured 1.9e-3)
+TP_TRAIN_BF16_LOSS_RTOL = (5e-4, 1e-2)
+# one rank's train-step launches under dp1 x tp2 (dropout on): one process's
+TP_TRAIN_STAGE_COUNTS = {"fused_attn_ln2_partial": 12, "fused_attn_ln2_post": 12,
+                         "fused_gaussian_moe_partial": 2, "fused_avq_train_tp_attn": 1,
+                         "fused_avq_train_tp_mid": 1, "fused_avq_train_tp_out": 1,
+                         "fused_avq_train_bwd_tp_ffn": 1, "fused_avq_train_bwd_tp_attn": 1,
+                         "fused_patch_select_train_tp_self": 1,
+                         "fused_patch_select_train_tp_cross": 1,
+                         "fused_patch_select_train_tp_mlp": 1,
+                         "fused_patch_select_train_tp_out": 1,
+                         "fused_patch_select_train_bwd_tp_mlp": 1,
+                         "fused_patch_select_train_bwd_tp_cross": 1,
+                         "fused_patch_select_train_bwd_tp_self": 1}
+
+
+@contextlib.contextmanager
+def step_probe(model, record: dict, kinks: list | None = None):
+    """While open: the frozen tower's output (``record["tower"]``: pooled,
+    words) and each MoE call's stream and first Linear (``record["moe"]``:
+    x, w1t, b1, in call order) recorded on the host, the MoE entry points
+    (``modules.fused_gaussian_moe`` / ``_partial``) wrapped for that. With
+    ``kinks`` (per call a [B, T, E, H] tensor of -1, 0 or +1) the call's
+    hidden ReLU takes the other side of its kink where the entry is not 0:
+    the output is unchanged, and the backward adds (+1) or drops (-1) those
+    hidden units' gradient, as a run whose ReLU fell on that side would."""
+    import torch
+
+    from qa_tiger_tpu_torch.models import modules
+
+    saved = modules.fused_gaussian_moe, modules.fused_gaussian_moe_partial
+    record["moe"] = []
+
+    def wrap(fn):
+        def call(x, w1t, b1, w2t, *rest):
+            i = len(record["moe"])
+            record["moe"].append([t.detach().cpu() for t in (x, w1t, b1)])
+            out = fn(x, w1t, b1, w2t, *rest)
+            if kinks is not None and kinks[i].any():
+                side = kinks[i].to(x.device)
+                pre = torch.einsum("btd,edh->bteh", x.float(), w1t.float()) + b1.float()
+                s = torch.einsum("bet,bteh->beh", rest[-1].float(), side * pre)
+                extra = torch.einsum("beh,ehd->bd", s, w2t.float())
+                out = out + (extra - extra.detach()).to(out.dtype)
+            return out
+        return call
+
+    hook = model.quest_encoder.register_forward_hook(
+        lambda _m, _a, out: record.__setitem__("tower", [t.detach().cpu() for t in out]))
+    modules.fused_gaussian_moe, modules.fused_gaussian_moe_partial = map(wrap, saved)
+    try:
+        yield
+    finally:
+        modules.fused_gaussian_moe, modules.fused_gaussian_moe_partial = saved
+        hook.remove()
+
+
+def tp_train_run(rank: int | None, tower: str = "float32", kinks: list | None = None,
+                 steps: int = TP_TRAIN_STEPS) -> dict:
+    """``steps`` ``train_step`` calls at the recipe (fp32, the tower in
+    ``tower``, B=32, dropout on, the global batches of ``dp_data``) from
+    seed 0 and the runner's own step generator, on a dp1 x tp2 grid
+    (``rank``) or in one process (None), the launch counters reset around
+    each step: the losses, the per-step launches, stage launches and
+    milliseconds, the first step's gradients gathered whole and its
+    ``step_probe`` record (``kinks`` passed to it), and after the last step
+    the replicated parameters as this rank holds them."""
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.parallel import gather_state_dict, make_grid, tp_spec
+    from qa_tiger_tpu_torch.training import AVQARunner
+
+    grid = None if rank is None else make_grid(2)
+    train, _ = dp_data()
+    cfg, mcfg = train_setup(gather_mode="paper", encoder_dtype=tower)
+    runner = AVQARunner(cfg, mcfg, device="cuda", seed=0, grid=grid)
+    out = {"losses": [], "launches": [], "stages": [], "step_ms": [], "probe": {}}
+    for i, batch in enumerate(train[:steps]):
+        probe = (step_probe(runner.model, out["probe"], kinks) if i == 0
+                 else contextlib.nullcontext())
+        with probe:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            start = time.perf_counter()
+            losses = runner.train_step(batch, TRAIN_LR, runner._step_generator)
+            torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - start) * 1e3)
+        out["launches"].append(ops.launch_counts())
+        out["stages"].append(ops.stage_counts())
+        out["losses"].append({k: v.item() for k, v in losses.items()})
+        if i == 0:
+            grads = {n: p.grad.detach() for n, p in runner.trainable() if p.grad is not None}
+            if grid is not None:
+                grads = gather_state_dict(grads, grid, runner._whole_shapes)
+            out["grads"] = {n: g.cpu() for n, g in grads.items()}
+    if grid is not None:
+        out["replicated"] = {n: p.detach().cpu() for n, p in runner.trainable()
+                             if not tp_spec(n, runner._whole_shapes[n], 2)}
+        out["sharded"] = sum(1 for n, _ in runner.trainable()
+                             if tp_spec(n, runner._whole_shapes[n], 2))
+    return out
+
+
+def tp_train_rank(rank: int) -> dict:
+    """One rank of ``check_tp_train``: ``tp_train_run`` with each tower."""
+    return {tower: tp_train_run(rank, tower) for tower in TP_TRAIN_TOWERS}
+
+
+def relu_kinks(single: list, ranks: list) -> tuple[list, list]:
+    """The hidden units of TempMoE's experts whose ReLU the ranks' backward
+    and one process's take on different sides: each recomputes x W1 + b1 in
+    fp32 from its own recorded stream, as the plain versions it
+    differentiates (``_reference_f32``, ``_partial_f32``) do, a rank over
+    its hidden columns. Returns (per MoE call the [B, T, E, H] tensor of the
+    ranks' mask minus one process's; each such unit with its fp64
+    pre-activation in both runs beside ``bound``: gamma_D (sum |x w| + |b|)
+    for one process's stream plus sum |dx| |w| for the streams' difference,
+    the most that fp32 rounding of a D-term dot product and the runs'
+    inputs can move it)."""
+    import torch
+
+    def pre(x, w1t, b1):
+        return (torch.einsum("btd,edh->bteh", x.cuda().float(), w1t.cuda().float())
+                + b1.cuda().float())
+
+    sides, kinks = [], []
+    for c, (xs, w1t, b1) in enumerate(single):
+        m_one = pre(xs, w1t, b1) > 0
+        m_tp = torch.cat([pre(*r[c]) > 0 for r in ranks], dim=-1)
+        side = (m_tp.float() - m_one.float()).cpu()
+        sides.append(side)
+        cols = w1t.shape[-1] // len(ranks)
+        d = xs.shape[-1]
+        gamma = d * 2.0 ** -24 / (1 - d * 2.0 ** -24)
+        for b, t, e, h in side.nonzero().tolist():
+            w = w1t[e, :, h].double()
+            bias = float(b1[e, h])
+            x1, xt = xs[b, t].double(), ranks[h // cols][c][0][b, t].double()
+            p_one, p_tp = float(x1 @ w) + bias, float(xt @ w) + bias
+            bound = (gamma * (float(x1.abs() @ w.abs()) + abs(bias))
+                     + float((x1 - xt).abs() @ w.abs()))
+            kinks.append({"call": c, "sample": b, "t": t, "expert": e, "unit": h,
+                          "ranks_side": int(side[b, t, e, h]), "pre_one": p_one,
+                          "pre_ranks": p_tp, "terms_abs": float(x1.abs() @ w.abs()) + abs(bias),
+                          "bound": bound,
+                          "within": max(abs(p_one), abs(p_tp)) <= bound})
+    return sides, kinks
+
+
+def grad_rows(got: dict, want: dict) -> list:
+    """Per tensor of ``want``: (error over its own largest element, name,
+    that largest element, the error, the count of elements past 1e-4 of
+    it, its size), the worst first."""
+    rows = []
+    for name, w in want.items():
+        diff = (got[name] - w).abs()
+        err, own = float(diff.max()), max(float(w.abs().max()), 1e-30)
+        rows.append((err / own, name, own, err, int((diff > 1e-4 * own).sum()), w.numel()))
+    return sorted(rows, reverse=True)
+
+
+def tower_diff(one: list, ranks: list) -> dict:
+    """The frozen tower's output (pooled, words) on a rank against one
+    process's: the elements that differ and the largest difference."""
+    out = {}
+    for name, a, b in zip(("pooled", "words"), one, ranks):
+        diff = (a.float() - b.float()).abs()
+        out[name] = {"differing": int((diff > 0).sum()), "elements": a.numel(),
+                     "max_abs": float(diff.max()), "max_abs_ref": float(a.float().abs().max())}
+    return out
+
+
+def check_tp_train() -> dict:
+    """Phase ``tp_train``: dp1 x tp2, two ranks spawned on the card over gloo
+    (NCCL refuses two ranks on one card, and gloo's host round trips make
+    the times no figure for tensor parallelism's speed), against one
+    process: TP_TRAIN_STEPS B=32 steps with dropout on from the same step
+    generator, with the tower in fp32 and in the recipe's bf16. In both, the
+    ranks' replicated parameters bitwise equal after the last step, each
+    rank's launches per step one process's and its stage launches
+    TP_TRAIN_STAGE_COUNTS. fp32 tower: each step's losses within rtol 1e-5;
+    the first step's gradients, gathered whole, within 1e-4 of each tensor's
+    own largest element against one process's first step with TempMoE's
+    hidden ReLUs on the ranks' side at the units where the two runs' sides
+    differ (``relu_kinks``: at most TP_TRAIN_MAX_KINKS, each within the
+    rounding bound of 0 in both runs; ``step_probe``). bf16 tower: the
+    losses within TP_TRAIN_BF16_LOSS_RTOL. Both print the first step's
+    tower output against one process's (``tower_diff``). Returns rank 0's
+    launches of its last fp32-tower step."""
+    import torch
+
+    start = time.perf_counter()
+    ranks = dp_spawn(tp_train_rank, world=2)
+    spawn_s = time.perf_counter() - start
+    single = {tower: tp_train_run(None, tower) for tower in TP_TRAIN_TOWERS}
+    one, tps = single["float32"], [r["float32"] for r in ranks]
+    sides, kinks = relu_kinks(one["probe"]["moe"], [r["probe"]["moe"] for r in tps])
+    aligned = tp_train_run(None, "float32", kinks=sides, steps=1)
+    torch.cuda.empty_cache()
+    lines = []
+    for tower in TP_TRAIN_TOWERS:
+        one, tps = single[tower], [r[tower] for r in ranks]
+        rtol = (1e-5, 1e-5) if tower == "float32" else TP_TRAIN_BF16_LOSS_RTOL
+        loss_err = [max(abs(r["losses"][i][k] - want[k]) / abs(want[k])
+                        for r in tps for k in want) for i, want in enumerate(one["losses"])]
+        loss_ok = all(err <= rtol[min(i, 1)] for i, err in enumerate(loss_err))
+        r0, r1 = tps
+        bitwise = (set(r0["replicated"]) == set(r1["replicated"])
+                   and all(torch.equal(v, r1["replicated"][n])
+                           for n, v in r0["replicated"].items()))
+        line = {"phase": "tp_train", "grid": "dp1xtp2", "backend": "gloo", "dtype": "float32",
+                "tower": tower, "batch": DP_BATCH, "steps": TP_TRAIN_STEPS,
+                "losses": [[ln["total_loss"] for ln in r["losses"]] for r in tps],
+                "single_losses": [ln["total_loss"] for ln in one["losses"]],
+                "loss_max_rel_err_by_step": loss_err, "loss_rtol_first_later": rtol,
+                "losses_close": loss_ok,
+                "tower_diff": [tower_diff(one["probe"]["tower"], r["probe"]["tower"])
+                               for r in tps],
+                "replicated_params": len(r0["replicated"]), "sharded_params": r0["sharded"],
+                "replicated_bitwise_equal": bitwise,
+                "step_ms": [r["step_ms"] for r in tps], "single_step_ms": one["step_ms"]}
+        if tower == "float32":
+            rows = [grad_rows(r["grads"], aligned["grads"]) for r in tps]
+            worst = max(row[0][0] for row in rows)
+            line.update(
+                relu_kinks=kinks, kinks_within_bound=all(k["within"] for k in kinks),
+                grads_compared=len(aligned["grads"]), grad_max_err_over_own_max=worst,
+                grads_close=worst <= 1e-4,
+                grad_worst=[{"param": n, "err_over_own_max": q, "own_max_abs": m, "err": e,
+                             "elements_past_1e-4_of_own_max": k, "elements": numel}
+                            for q, n, m, e, k, numel in sorted(set(sum(rows, [])),
+                                                               reverse=True)[:6]],
+                grad_worst_unaligned=[
+                    {"param": n, "err_over_own_max": q, "elements_past_1e-4_of_own_max": k}
+                    for q, n, _, _, k, _ in sorted(set(sum(
+                        [grad_rows(r["grads"], one["grads"]) for r in tps], [])),
+                        reverse=True)[:6]],
+                aligned_losses=[ln["total_loss"] for ln in aligned["losses"]])
+        line.update(spawn_and_run_s=spawn_s,
+                    note="gloo through the host on one card: no figure for tensor parallelism")
+        print(json.dumps(line), flush=True)
+        lines.append(line)
+        for rank, r in enumerate(tps):
+            print(json.dumps({"phase": "tp_train_launches", "tower": tower, "rank": rank,
+                              "per_step": r["launches"], "stages_per_step": r["stages"]}),
+                  flush=True)
+            require(r["launches"] == one["launches"],
+                    f"tp_train ({tower} tower): rank {rank} launched {r['launches']}, one "
+                    f"process {one['launches']}")
+            for stages in r["stages"]:
+                got = {k: v for k, v in stages.items() if v}
+                require(got == TP_TRAIN_STAGE_COUNTS,
+                        f"tp_train ({tower} tower): rank {rank}'s stages {got}")
+        for name in DP_TRAIN_KERNELS:
+            require(all(c[name] == 1 for c in one["launches"]),
+                    f"tp_train: {name} did not launch once per step")
+        require(line["losses_close"], f"tp_train ({tower} tower): the ranks' losses "
+                                      f"{line['losses']} differ from one process's "
+                                      f"{line['single_losses']} by {loss_err}")
+        require(bitwise, f"tp_train ({tower} tower): the ranks' replicated parameters differ")
+    fp32 = lines[0]
+    require(len(kinks) <= TP_TRAIN_MAX_KINKS,
+            f"tp_train: {len(kinks)} hidden ReLUs of TempMoE fall on other sides")
+    require(fp32["kinks_within_bound"], "tp_train: a hidden ReLU whose side differs is not "
+                                        f"within the rounding bound of 0: {kinks}")
+    require(fp32["grads_close"], f"tp_train: a first-step gradient differs by "
+                                 f"{fp32['grad_max_err_over_own_max']:.3e} of its own largest "
+                                 "element")
+    return ranks[0]["float32"]["launches"][-1]
+
+
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds printed as a line of their own and
+    kept in PHASE_SECONDS under ``name``."""
+    start = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - start
+        print(json.dumps({"phase_seconds": name, "seconds": PHASE_SECONDS[name]}), flush=True)
 
 
 def profile_step(fn, path: Path, phase: str) -> None:
@@ -4386,6 +5051,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
 
+    run_start = time.perf_counter()
     try:
         card = gpu_line()
         print(card, flush=True)
@@ -4394,58 +5060,63 @@ def main() -> int:
                           "device": torch.cuda.get_device_name(0)}), flush=True)
         start = time.perf_counter()
         _build.library()
-        print(json.dumps({"phase": "build", "seconds": time.perf_counter() - start,
+        PHASE_SECONDS["build"] = time.perf_counter() - start
+        print(json.dumps({"phase": "build", "seconds": PHASE_SECONDS["build"],
                           "log": str(_build.build_log)}), flush=True)
 
         rng = np.random.default_rng(0)
         gen = torch.Generator().manual_seed(0)
-        entries = check_kernels(rng, gen)
-        check_e2e_kernels(rng, gen, entries)
-        check_op_kernels(entries)
-        check_clip_text_kernel(entries)
-        check_tp_kernels(entries)
-        check_gemms()
-        check_tf32x3_gemms()
-        check_slice1_grads(rng, gen)
-        check_train_kernels(rng, gen, entries)
+        entries = timed("kernels", check_kernels, rng, gen)
+        timed("e2e_kernels", check_e2e_kernels, rng, gen, entries)
+        timed("op_kernels", check_op_kernels, entries)
+        timed("clip_text_kernel", check_clip_text_kernel, entries)
+        timed("tp_chain", check_tp_kernels, entries)
+        timed("gemms", check_gemms)
+        timed("tf32x3_gemms", check_tf32x3_gemms)
+        timed("slice1_grads", check_slice1_grads, rng, gen)
+        timed("train_kernels", check_train_kernels, rng, gen, entries)
+        timed("tp_train_chain", check_tp_train_chain, entries)
         paths = {}
-        paths["serving"], slice_rate = check_slice(rng, entries, args.profile)
+        paths["serving"], slice_rate = timed("serving", check_slice, rng, entries, args.profile)
         torch.cuda.empty_cache()
-        paths["serve"] = check_serve(slice_rate, args.profile)
+        paths["serve"] = timed("serve", check_serve, slice_rate, args.profile)
         torch.cuda.empty_cache()
-        paths["train"], recipe_rate = check_train(rng, entries, args.profile)
+        paths["train"], recipe_rate = timed("train", check_train, rng, entries, args.profile)
         torch.cuda.empty_cache()
-        paths["resume"] = check_resume(np.random.default_rng(10))
+        paths["resume"] = timed("resume", check_resume, np.random.default_rng(10))
         torch.cuda.empty_cache()
-        paths["train_graph"] = check_train_graph(32e3 / recipe_rate, args.profile)
+        paths["train_graph"] = timed("train_graph", check_train_graph, 32e3 / recipe_rate,
+                                     args.profile)
         torch.cuda.empty_cache()
-        paths["cli"] = check_cli(recipe_rate)
+        paths["cli"] = timed("cli", check_cli, recipe_rate)
         torch.cuda.empty_cache()
-        check_e2e_fp32(rng)
+        timed("e2e_fp32", check_e2e_fp32, rng)
         torch.cuda.empty_cache()
-        paths["e2e"] = check_e2e_bf16(rng, args.profile)
+        paths["e2e"] = timed("e2e_bf16", check_e2e_bf16, rng, args.profile)
         torch.cuda.empty_cache()
-        check_extract(rng)
+        timed("extract", check_extract, rng)
         torch.cuda.empty_cache()
-        check_tspm_attention(entries)
+        timed("tspm_attention", check_tspm_attention, entries)
         torch.cuda.empty_cache()
-        paths["tspm"], paths["tspm_train"] = check_tspm(args.profile)
+        paths["tspm"], paths["tspm_train"] = timed("tspm", check_tspm, args.profile)
         torch.cuda.empty_cache()
-        paths["tspm_cli"] = check_tspm_cli()
+        paths["tspm_cli"] = timed("tspm_cli", check_tspm_cli)
         torch.cuda.empty_cache()
-        paths["bench_resblock"] = check_bench_resblock()
+        paths["bench_resblock"] = timed("bench_resblock", check_bench_resblock)
         torch.cuda.empty_cache()
-        paths.update(check_clip(args.profile))
-        check_tools()
-        paths["dp_eval"], paths["dp_train"] = check_dp()
+        paths.update(timed("clip", check_clip, args.profile))
+        timed("tools", check_tools)
+        paths["dp_eval"], paths["dp_train"] = timed("dp", check_dp)
         torch.cuda.empty_cache()
-        paths["dp_graph"] = check_dp_graph()
+        paths["dp_graph"] = timed("dp_graph", check_dp_graph)
         torch.cuda.empty_cache()
-        check_dp_cli()
+        timed("dp_cli", check_dp_cli)
         torch.cuda.empty_cache()
-        paths["tp_eval"] = check_tp_eval()
+        paths["tp_eval"] = timed("tp_eval", check_tp_eval)
         torch.cuda.empty_cache()
-        paths["cli_v2"] = check_cli_v2()
+        paths["tp_train"] = timed("tp_train", check_tp_train)
+        torch.cuda.empty_cache()
+        paths["cli_v2"] = timed("cli_v2", check_cli_v2)
         for name in E2E_ONLY_KERNELS:
             entries[name]["launches"] = paths["e2e"][name]
         for name in OP_KERNELS:
@@ -4456,6 +5127,8 @@ def main() -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
+    print(json.dumps({"phase": "seconds", "total": time.perf_counter() - run_start,
+                      "by_phase": PHASE_SECONDS}), flush=True)
     print(card)
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -43,6 +43,34 @@
 // Rounding: every value the Pallas bodies cast to the activation type is
 // rounded to T at the same place (round_t), so the bf16 kernels agree with
 // their plain PyTorch versions to bf16 rounding; at fp32 it is the identity.
+//
+// Under tensor parallelism (parallel/tensor.py) each model rank holds Wl =
+// D / tp columns: its heads' q, k and v rows of the three in_proj, the
+// matching columns of the out_projs, linear1's rows and linear2's columns.
+// The forward and the backward split where their all-reduces fall (JAX's
+// GSPMD partitions the step around the Pallas calls instead, so the split
+// has no Pallas counterpart); between two stages the caller sums the fp32
+// partials over the model ranks, and the next stage rounds the sum where
+// the single-rank kernel rounds its accumulator:
+//   forward  qt_avq_train_tp_attn: the rank's heads of the three attentions
+//              (keep masks cut to its heads' lanes), the three out_proj
+//              partials [3, R, D] (self, cross, question: each is rounded
+//              and masked apart before the residual sum);
+//            qt_avq_train_tp_mid: the residual chain x1 in the single
+//              kernel's order and rounding (mask_chain_kernel), LN1,
+//              linear1's column shard with ReLU and ffn1's columns,
+//              linear2's partial [R, D];
+//            qt_avq_train_tp_out: x2 = h1 + ffn2 * round(sum + b2), LN2;
+//   backward qt_avq_train_bwd_tp_ffn: LN2, linear2's row backward, the
+//              masked ReLU, linear1's column backward; its dgrad is the
+//              fp32 partial of g_h1 (model rank 0 adds the residual g_x2);
+//            qt_avq_train_bwd_tp_attn: LN1 on the summed g_h1, the three
+//              blocks' backward on the rank's heads; the fp32 partials of
+//              gsrc (rank 0 adds the residual g_x1), gval and gwrd in one
+//              [2R + RS, D] buffer, which the caller sums and rounds once.
+// The gradients of the sharded weights stay on their rank; those of the
+// replicated ones (the norms, the out_proj and linear2 biases) come from
+// replicated upstream gradients and are the same on every rank.
 #include "gemm_tf32x3.cuh"
 
 namespace {
@@ -68,6 +96,9 @@ enum Buf {
   G_KVC,
   // the split-K partials of the fp32 products (ws_floats floats)
   WS,
+  // tensor-parallel stages: the reduced fp32 sum a stage starts from, the
+  // fp32 partial it ends in
+  TOTAL, PART,
   NBUF
 };
 
@@ -130,6 +161,38 @@ template <typename T> struct EpiReluGradDrop {  // g_pre = hr > 0 ? round(round(
 };
 
 inline int pad128(int n) { return (n + 127) / 128 * 128; }
+
+// The residual chain of the tensor-parallel forward after the reduce: for
+// each term i in order, out = round(out + round(mask_i * round(sum_i +
+// bias_i))), out starting at base: EpiMaskAdd's arithmetic with the
+// reduced sum in place of the accumulator. One thread per element.
+template <typename T> struct MaskTerms {
+  const float* sum[3];
+  const T* bias[3];
+  const T* mask[3];
+};
+
+template <typename T>
+__global__ void mask_chain_kernel(MaskTerms<T> terms, int count, const T* base, T* out,
+                                  long long n, int D) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int col = (int)(i % D);
+  float x = qt::to_f<T>(base[i]);
+  for (int t = 0; t < count; ++t) {
+    const float y = qt::round_t<T>(terms.sum[t][i] + qt::to_f<T>(terms.bias[t][col]));
+    x = qt::round_t<T>(x + qt::round_t<T>(qt::to_f<T>(terms.mask[t][i]) * y));
+  }
+  out[i] = qt::from_f<T>(x);
+}
+
+template <typename T>
+cudaError_t mask_chain(const MaskTerms<T>& terms, int count, const T* base, T* out, long long n,
+                       int D, cudaStream_t st) {
+  mask_chain_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(terms, count, base, out, n,
+                                                                    D);
+  return cudaGetLastError();
+}
 
 #define QT_CHECK()                                   \
   if ((err = cudaGetLastError()) != cudaSuccess) return err
@@ -310,6 +373,236 @@ cudaError_t backward(void* const* b, int N, int T_, int S, int D, int heads, qt:
   return plan.done();
 }
 
+// ---------------------------------------------------------------------------
+// tensor-parallel stages (Wl = D / tp columns, heads = H / tp heads)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+cudaError_t tp_attn(void* const* b, int N, int T_, int S, int D, int Wl, int heads,
+                    qt::GemmPlan plan, cudaStream_t st) {
+  auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
+  auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
+  const int R = N * T_, RS = N * S, hd = Wl / heads;
+  const float scale = 1.0f / sqrtf((float)hd);
+  const long long ldq = pad128(heads * S), lds = pad128(heads * T_);
+  const long long W2 = 2LL * Wl, W3 = 3LL * Wl, WD = (long long)Wl * D, RD = (long long)R * D;
+  float* part = static_cast<float*>(b[PART]);
+  plan.ws = static_cast<float*>(b[WS]);
+  cudaError_t err;
+  using qt::EpiBias;
+  using qt::planned_gemm;
+  using qt::RowLoad;
+
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SRC), D}, c(QST_W), D, R, Wl, D,
+                                EpiBias<T>{w(QQ), Wl, c(QST_B), false}, plan, st)));
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(WRD), D}, c(QST_W) + WD, D, RS, 2 * Wl, D,
+                                EpiBias<T>{w(KVQ), W2, c(QST_B) + Wl, false}, plan, st)));
+  QT_TRY(qt::attention<T>(c(QQ), (long long)T_ * Wl, Wl, c(KVQ), S * W2, W2, c(KVQ) + Wl, S * W2,
+                          W2, w(QCTX), (long long)T_ * Wl, Wl, nullptr, N, T_, S, heads, hd,
+                          scale, st, c(M_QST), ldq, false));
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SRC), D}, c(SLF_W), D, R, 3 * Wl, D,
+                                EpiBias<T>{w(QKV), W3, c(SLF_B), false}, plan, st)));
+  QT_TRY(qt::attention<T>(c(QKV), T_ * W3, W3, c(QKV) + Wl, T_ * W3, W3, c(QKV) + 2 * Wl,
+                          T_ * W3, W3, w(SCTX), (long long)T_ * Wl, Wl, nullptr, N, T_, T_,
+                          heads, hd, scale, st, c(M_SLF), lds, false));
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SRC), D}, c(CRS_W), D, R, Wl, D,
+                                EpiBias<T>{w(QC), Wl, c(CRS_B), false}, plan, st)));
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(VAL), D}, c(CRS_W) + WD, D, R, 2 * Wl, D,
+                                EpiBias<T>{w(KVC), W2, c(CRS_B) + Wl, false}, plan, st)));
+  QT_TRY(qt::attention<T>(c(QC), (long long)T_ * Wl, Wl, c(KVC), T_ * W2, W2, c(KVC) + Wl,
+                          T_ * W2, W2, w(CCTX), (long long)T_ * Wl, Wl, nullptr, N, T_, T_,
+                          heads, hd, scale, st, c(M_CRS), lds, false));
+  // the three out_proj partials, fp32 [3, R, D]: self, cross, question
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SCTX), Wl}, c(SLF_OW), Wl, R, D, Wl,
+                                qt::EpiF32<T>{part, D, nullptr}, plan, st)));
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(CCTX), Wl}, c(CRS_OW), Wl, R, D, Wl,
+                                qt::EpiF32<T>{part + RD, D, nullptr}, plan, st)));
+  QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(QCTX), Wl}, c(QST_OW), Wl, R, D, Wl,
+                                qt::EpiF32<T>{part + 2 * RD, D, nullptr}, plan, st)));
+  return plan.done();
+}
+
+template <typename T>
+cudaError_t tp_mid(void* const* b, int N, int T_, int D, int Wl, qt::GemmPlan plan,
+                   cudaStream_t st) {
+  auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
+  auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
+  const int R = N * T_;
+  const long long RD = (long long)R * D;
+  const float* total = static_cast<const float*>(b[TOTAL]);
+  plan.ws = static_cast<float*>(b[WS]);
+  cudaError_t err;
+  // x1 = x0 + d_slf*slf + d_crs*crs + d_qst*qst, summed in that order
+  const MaskTerms<T> terms{{total, total + RD, total + 2 * RD},
+                           {c(SLF_OB), c(CRS_OB), c(QST_OB)},
+                           {c(M_DSLF), c(M_DCRS), c(M_DQST)}};
+  QT_TRY(mask_chain<T>(terms, 3, c(SRC), w(X1), RD, D, st));
+  qt::layer_norm_kernel<T, T><<<qt::ln_blocks(R), qt::LN_WARPS * 32, 0, st>>>(
+      c(X1), R, D, 1, c(N1_W), c(N1_B), w(H1), nullptr, nullptr, nullptr);
+  QT_CHECK();
+  QT_TRY((qt::planned_gemm<T, true>(qt::RowLoad<T>{c(H1), D}, c(L1_W), D, R, Wl, D,
+                                    EpiReluDrop<T>{w(HR), w(HDP), c(M_FFN1), c(L1_B), Wl}, plan,
+                                    st)));
+  QT_TRY((qt::planned_gemm<T, true>(qt::RowLoad<T>{c(HDP), Wl}, c(L2_W), Wl, R, D, Wl,
+                                    qt::EpiF32<T>{static_cast<float*>(b[PART]), D, nullptr},
+                                    plan, st)));
+  return plan.done();
+}
+
+template <typename T>
+cudaError_t tp_out(void* const* b, int N, int T_, int D, cudaStream_t st) {
+  auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
+  auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
+  const int R = N * T_;
+  cudaError_t err;
+  const MaskTerms<T> terms{{static_cast<const float*>(b[TOTAL])}, {c(L2_B)}, {c(M_FFN2)}};
+  QT_TRY(mask_chain<T>(terms, 1, c(H1), w(X2), (long long)R * D, D, st));
+  qt::layer_norm_kernel<T, T><<<qt::ln_blocks(R), qt::LN_WARPS * 32, 0, st>>>(
+      c(X2), R, D, 1, c(N2_W), c(N2_B), w(OUT), nullptr, nullptr, nullptr);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t bwd_tp_ffn(void* const* b, int N, int T_, int D, int Wl, bool residual,
+                       qt::GemmPlan plan, cudaStream_t st) {
+  auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
+  auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
+  auto f = [&](Buf i) { return static_cast<float*>(b[i]); };
+  const int R = N * T_;
+  float* mean = f(STATS);
+  float* rstd = f(STATS) + R;
+  plan.ws = f(WS);
+  cudaError_t err;
+  using qt::planned_gemm;
+  using qt::bwd_weight_grad;
+  using qt::ColLoad;
+  using qt::RowLoad;
+  using qt::Val;
+
+  qt::layer_norm_bwd_kernel<T, T, T><<<qt::ln_blocks(R), qt::LN_WARPS * 32, 0, st>>>(
+      c(X2), c(N2_W), c(G), R, D, f(GF), mean, rstd, c(M_FFN2), w(G_FFN), nullptr, nullptr,
+      nullptr, nullptr);
+  QT_CHECK();
+  qt::col_sum(qt::LnWeightTerm<T, T>{c(X2), c(G), mean, rstd, D}, R, D, f(G_N2_W), false, st);
+  qt::col_sum(Val<T>{c(G), D}, R, D, f(G_N2_B), false, st);
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_FFN), D}, c(L2_W), Wl, R, Wl, D,
+                                 EpiReluGradDrop<T>{w(G_PRE), c(HR), c(M_FFN1), Wl}, plan, st)));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_FFN), D}, c(HDP), Wl, f(G_L2_W), D, Wl, R, plan, st));
+  qt::col_sum(Val<T>{c(G_FFN), D}, R, D, f(G_L2_B), false, st);
+  // the partial of g_h1 = g_x2 + g_pre W1 over the rank's columns; g_x2 on
+  // model rank 0 only
+  if (residual) {
+    QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_PRE), Wl}, c(L1_W), D, R, D, Wl,
+                                   qt::EpiAddF32{f(PART), f(GF), D}, plan, st)));
+  } else {
+    QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_PRE), Wl}, c(L1_W), D, R, D, Wl,
+                                   qt::EpiStoreF32{f(PART), D, false}, plan, st)));
+  }
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_PRE), Wl}, c(H1), D, f(G_L1_W), Wl, D, R, plan, st));
+  qt::col_sum(Val<T>{c(G_PRE), Wl}, R, Wl, f(G_L1_B), false, st);
+  QT_CHECK();
+  return plan.done();
+}
+
+// attn_block_bwd over the rank's heads: out_proj's columns [D, Wl]
+template <typename T>
+cudaError_t attn_block_bwd_tp(const T* g_out, const T* ctx, const T* ow, float* g_ow, float* g_ob,
+                              T* g_ctx, qt::Strided<const T> q, qt::Strided<const T> k,
+                              qt::Strided<const T> v, qt::Strided<T> gq, qt::Strided<T> gk,
+                              qt::Strided<T> gv, const T* keep, long long keep_ld, int N, int T_,
+                              int Sk, int D, int Wl, int heads, qt::GemmPlan& plan,
+                              cudaStream_t st) {
+  const int R = N * T_, hd = Wl / heads;
+  cudaError_t err;
+  QT_TRY((qt::planned_gemm<T, false>(qt::RowLoad<T>{g_out, D}, ow, Wl, R, Wl, D,
+                                     qt::EpiBias<T>{g_ctx, Wl, nullptr, false}, plan, st)));
+  QT_TRY(qt::bwd_weight_grad<T>(qt::ColLoad<T>{g_out, D}, ctx, Wl, g_ow, D, Wl, R, plan, st));
+  qt::col_sum(qt::Val<T>{g_out, D}, R, D, g_ob, false, st);
+  QT_CHECK();
+  return qt::attention_bwd<T>(q, k, v, {g_ctx, (long long)T_ * Wl, Wl}, gq, gk, gv, keep,
+                              keep_ld, N, T_, Sk, heads, hd, 1.0f / sqrtf((float)hd), false, false,
+                              st);
+}
+
+template <typename T>
+cudaError_t bwd_tp_attn(void* const* b, int N, int T_, int S, int D, int Wl, int heads,
+                        bool residual, qt::GemmPlan plan, cudaStream_t st) {
+  auto c = [&](Buf i) { return static_cast<const T*>(b[i]); };
+  auto w = [&](Buf i) { return static_cast<T*>(b[i]); };
+  auto f = [&](Buf i) { return static_cast<float*>(b[i]); };
+  const int R = N * T_, RS = N * S;
+  const long long ldq = pad128(heads * S), lds = pad128(heads * T_);
+  const long long W2 = 2LL * Wl, W3 = 3LL * Wl, WD = (long long)Wl * D, RD = (long long)R * D;
+  const long long TW = (long long)T_ * Wl;
+  const float* gh1 = f(TOTAL);
+  float* gsrc = f(PART);  // [2R + RS, D]: gsrc, gval, gwrd partials
+  float* gval = gsrc + RD;
+  float* gwrd = gsrc + 2 * RD;
+  float* mean = f(STATS);
+  float* rstd = f(STATS) + R;
+  plan.ws = f(WS);
+  cudaError_t err;
+  using qt::planned_gemm;
+  using qt::bwd_weight_grad;
+  using qt::ColLoad;
+  using qt::RowLoad;
+  using qt::Val;
+
+  // LN1: g_x1 (the residual into x0, rank 0's share of gsrc) and the three
+  // dropped residual gradients
+  qt::layer_norm_bwd_kernel<T, T, float><<<qt::ln_blocks(R), qt::LN_WARPS * 32, 0, st>>>(
+      c(X1), c(N1_W), gh1, R, D, gsrc, mean, rstd, c(M_DSLF), w(G_OUT_S), c(M_DCRS), w(G_OUT_C),
+      c(M_DQST), w(G_OUT_Q));
+  QT_CHECK();
+  qt::col_sum(qt::LnWeightTerm<T, float>{c(X1), gh1, mean, rstd, D}, R, D, f(G_N1_W), false, st);
+  qt::col_sum(Val<float>{gh1, D}, R, D, f(G_N1_B), false, st);
+  QT_CHECK();
+  if (!residual) QT_TRY(cudaMemsetAsync(gsrc, 0, RD * sizeof(float), st));
+
+  QT_TRY(attn_block_bwd_tp<T>(c(G_OUT_Q), c(QCTX), c(QST_OW), f(G_QST_OW), f(G_QST_OB), w(G_CTX),
+                              {c(QQ), TW, Wl}, {c(KVQ), S * W2, W2}, {c(KVQ) + Wl, S * W2, W2},
+                              {w(G_QQ), TW, Wl}, {w(G_KVQ), S * W2, W2},
+                              {w(G_KVQ) + Wl, S * W2, W2}, c(M_QST), ldq, N, T_, S, D, Wl, heads,
+                              plan, st));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_QQ), Wl}, c(SRC), D, f(G_QST_W), Wl, D, R, plan, st));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_KVQ), W2}, c(WRD), D, f(G_QST_W) + WD, 2 * Wl, D, RS,
+                            plan, st));
+  qt::col_sum(Val<T>{c(G_QQ), Wl}, R, Wl, f(G_QST_B), false, st);
+  qt::col_sum(Val<T>{c(G_KVQ), W2}, RS, 2 * Wl, f(G_QST_B) + Wl, false, st);
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_QQ), Wl}, c(QST_W), D, R, D, Wl,
+                                 qt::EpiAddF32{gsrc, gsrc, D}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_KVQ), W2}, c(QST_W) + WD, D, RS, D, 2 * Wl,
+                                 qt::EpiStoreF32{gwrd, D, false}, plan, st)));
+
+  QT_TRY(attn_block_bwd_tp<T>(c(G_OUT_S), c(SCTX), c(SLF_OW), f(G_SLF_OW), f(G_SLF_OB), w(G_CTX),
+                              {c(QKV), T_ * W3, W3}, {c(QKV) + Wl, T_ * W3, W3},
+                              {c(QKV) + 2 * Wl, T_ * W3, W3}, {w(G_QKV), T_ * W3, W3},
+                              {w(G_QKV) + Wl, T_ * W3, W3}, {w(G_QKV) + 2 * Wl, T_ * W3, W3},
+                              c(M_SLF), lds, N, T_, T_, D, Wl, heads, plan, st));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_QKV), W3}, c(SRC), D, f(G_SLF_W), 3 * Wl, D, R, plan,
+                            st));
+  qt::col_sum(Val<T>{c(G_QKV), W3}, R, 3 * Wl, f(G_SLF_B), false, st);
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_QKV), W3}, c(SLF_W), D, R, D, 3 * Wl,
+                                 qt::EpiAddF32{gsrc, gsrc, D}, plan, st)));
+
+  QT_TRY(attn_block_bwd_tp<T>(c(G_OUT_C), c(CCTX), c(CRS_OW), f(G_CRS_OW), f(G_CRS_OB), w(G_CTX),
+                              {c(QC), TW, Wl}, {c(KVC), T_ * W2, W2}, {c(KVC) + Wl, T_ * W2, W2},
+                              {w(G_QC), TW, Wl}, {w(G_KVC), T_ * W2, W2},
+                              {w(G_KVC) + Wl, T_ * W2, W2}, c(M_CRS), lds, N, T_, T_, D, Wl,
+                              heads, plan, st));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_QC), Wl}, c(SRC), D, f(G_CRS_W), Wl, D, R, plan, st));
+  QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_KVC), W2}, c(VAL), D, f(G_CRS_W) + WD, 2 * Wl, D, R,
+                            plan, st));
+  qt::col_sum(Val<T>{c(G_QC), Wl}, R, Wl, f(G_CRS_B), false, st);
+  qt::col_sum(Val<T>{c(G_KVC), W2}, R, 2 * Wl, f(G_CRS_B) + Wl, false, st);
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_QC), Wl}, c(CRS_W), D, R, D, Wl,
+                                 qt::EpiAddF32{gsrc, gsrc, D}, plan, st)));
+  QT_TRY((planned_gemm<T, false>(RowLoad<T>{c(G_KVC), W2}, c(CRS_W) + WD, D, R, D, 2 * Wl,
+                                 qt::EpiStoreF32{gval, D, false}, plan, st)));
+  QT_CHECK();
+  return plan.done();
+}
+
 #undef QT_CHECK
 #undef QT_TRY
 
@@ -335,5 +628,33 @@ extern "C" int qt_avq_train_bwd(int dtype, void* const* bufs, int N, int T, int 
   if (dtype == 0) return backward<float>(bufs, N, T, S, D, heads, bp, st);
   return backward<__nv_bfloat16>(bufs, N, T, S, D, heads, bp, st);
 }
+
+// the tensor-parallel stages: the same pointer table; Wl = D / tp, heads
+// the rank's; residual: this rank adds the residual gradient (model rank 0)
+#define QT_AVQ_TP(NAME, CALL)                                                         \
+  extern "C" int NAME(int dtype, void* const* bufs, int N, int T, int S, int D, int Wl, \
+                      int heads, int residual, int* plan, int products,                 \
+                      long long ws_floats, void* stream) {                              \
+    cudaStream_t st = static_cast<cudaStream_t>(stream);                                \
+    const qt::GemmPlan gp{plan, products, 0, nullptr, ws_floats};                       \
+    (void)S;                                                                            \
+    (void)heads;                                                                        \
+    (void)residual;                                                                     \
+    (void)gp;                                                                           \
+    if (dtype == 0) {                                                                   \
+      using T_ = float;                                                                 \
+      return CALL;                                                                      \
+    }                                                                                   \
+    using T_ = __nv_bfloat16;                                                           \
+    return CALL;                                                                        \
+  }
+
+QT_AVQ_TP(qt_avq_train_tp_attn, (tp_attn<T_>(bufs, N, T, S, D, Wl, heads, gp, st)))
+QT_AVQ_TP(qt_avq_train_tp_mid, (tp_mid<T_>(bufs, N, T, D, Wl, gp, st)))
+QT_AVQ_TP(qt_avq_train_tp_out, (tp_out<T_>(bufs, N, T, D, st)))
+QT_AVQ_TP(qt_avq_train_bwd_tp_ffn, (bwd_tp_ffn<T_>(bufs, N, T, D, Wl, residual != 0, gp, st)))
+QT_AVQ_TP(qt_avq_train_bwd_tp_attn,
+          (bwd_tp_attn<T_>(bufs, N, T, S, D, Wl, heads, residual != 0, gp, st)))
+#undef QT_AVQ_TP
 
 extern "C" int qt_avq_num_buffers() { return NBUF; }

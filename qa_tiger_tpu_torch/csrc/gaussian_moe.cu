@@ -39,9 +39,9 @@
 //      epilogue.
 // Under tensor parallelism (parallel/tensor.py) each model rank holds H/tp of
 // every expert's hidden columns (w1, b1 and w2's rows) and launches the same
-// two products over N = E*H/tp with out_f32: an fp32 partial [B, D], b2's
-// term from model rank 0 only (zeros elsewhere), summed over the ranks and
-// rounded once by the caller. At tp = 4 N = 448 leaves a ragged last
+// two products over N = E*H/tp with out_f32: an fp32 partial [B, D] with a
+// zero b2 (the caller adds b2's term to the sum over the ranks, on every
+// rank alike, and rounds once). At tp = 4 N = 448 leaves a ragged last
 // 128-column tile: TMA zero-fills W1 past N and the epilogue masks n >= N.
 #include "gemm_tf32x3.cuh"
 

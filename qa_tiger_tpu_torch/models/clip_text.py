@@ -26,7 +26,7 @@ from qa_tiger_tpu_torch.ops.resblock import (
     fused_attn_ln2_partial,
     fused_attn_ln2_post,
 )
-from qa_tiger_tpu_torch.parallel.tensor import all_reduce_model
+from qa_tiger_tpu_torch.parallel.tensor import reduce_from_model
 
 CLIP_TEXT_CONFIGS = {
     "ViT-L/14@336px": dict(width=768, heads=12, layers=12, embed_dim=768),
@@ -86,10 +86,10 @@ class ResidualAttentionBlock(nn.Module):
         tp = grid.model_size
         if heads % tp:
             raise ValueError(f"{heads} heads do not split over model_parallel={tp}")
-        part = all_reduce_model(fused_attn_ln2_partial(x, self, mask, heads // tp), grid)
+        part = reduce_from_model(fused_attn_ln2_partial(x, self, mask, heads // tp), grid)
         y, h = fused_attn_ln2_post(x, part, self)
         h = quick_gelu(linear(h, self.mlp.c_fc.weight, self.mlp.c_fc.bias))
-        part = all_reduce_model(F.linear(h.float(), self.mlp.c_proj.weight.float()), grid)
+        part = reduce_from_model(F.linear(h.float(), self.mlp.c_proj.weight.float()), grid)
         return y + (part + self.mlp.c_proj.bias.float()).to(y.dtype)
 
 

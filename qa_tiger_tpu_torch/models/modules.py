@@ -23,15 +23,24 @@ TempMoE drop attention probabilities at the hard-coded p=0.1 of the
 reference, whatever the configured rate, on the plain ``mha`` path.
 
 Under a ``grid`` of model size tp > 1 (``parallel/tensor.py``) each module
-holds this rank's shards and computes its eval function in tensor-parallel
+holds this rank's shards and computes its function in tensor-parallel
 form, every row product's partial in fp32, summed over the model group and
 rounded once where the single-rank path rounds it: AVQCrossAttn's three
 ``mha`` and ``linear1`` by column / ``linear2`` by row; QstGrounding's
 ``mha`` and ``mlp.0`` / ``mlp.2``; TempMoE's ``mha``, its router and
 ``gauss_pred`` whole on the reduced question vector, and the experts
-through ``fused_gaussian_moe_partial``; PatchSelecter through the
-``fused_patch_select_tp_*`` stages. The train branches (dropout, masks)
-raise there: ROADMAP.md A7b.2.
+through ``fused_gaussian_moe_partial`` (b2's term added after the sum, on
+every rank alike); PatchSelecter through the ``fused_patch_select_tp_*``
+stages. A replicated input enters a split block through ``copy_to_model``
+and a partial leaves it through ``reduce_from_model``, so the backward
+sums the partial input gradients over the model group and every
+replicated parameter gets the same gradient on every rank. Under dropout
+(or with ``masks``) AVQCrossAttn and PatchSelecter draw their whole
+realization, as one process draws it, take the rank's share
+(``shard_avq_masks``, ``shard_patch_masks``) and run the train kernels'
+tensor-parallel forms (``fused_avq_train_tp``,
+``fused_patch_select_train_tp``); the attention dropout of QstGrounding
+and TempMoE draws the whole mask and keeps the rank's heads (``mha``).
 """
 from __future__ import annotations
 
@@ -41,8 +50,17 @@ from torch.nn import functional as F
 
 from qa_tiger_tpu_torch.nn.attention import MultiheadAttention, mha
 from qa_tiger_tpu_torch.nn.core import MLP2, LayerNorm, Linear, dropout, layer_norm, mlp2
-from qa_tiger_tpu_torch.ops.avq import avq_sub_forward_masked, fused_avq_train
-from qa_tiger_tpu_torch.ops.gaussian_moe import fused_gaussian_moe, fused_gaussian_moe_partial
+from qa_tiger_tpu_torch.ops.avq import (
+    avq_sub_forward_masked,
+    fused_avq_train,
+    fused_avq_train_tp,
+    shard_avq_masks,
+)
+from qa_tiger_tpu_torch.ops.gaussian_moe import (
+    bias_term,
+    fused_gaussian_moe,
+    fused_gaussian_moe_partial,
+)
 from qa_tiger_tpu_torch.ops.patch_select import (
     fused_patch_select,
     fused_patch_select_tp_cross,
@@ -52,9 +70,11 @@ from qa_tiger_tpu_torch.ops.patch_select import (
     fused_patch_select_tp_self,
     fused_patch_select_tp_self_post,
     fused_patch_select_train,
+    fused_patch_select_train_tp,
     patch_selecter_plain,
+    shard_patch_masks,
 )
-from qa_tiger_tpu_torch.parallel.tensor import all_reduce_model
+from qa_tiger_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 from qa_tiger_tpu_torch.ops.tempmoe import (
     combined_expert_weights,
     gaussian_weights,
@@ -134,27 +154,28 @@ def _dropping(generator, dropout_p: float) -> bool:
     return generator is not None and dropout_p > 0.0
 
 
-def _tp(grid, train: bool) -> bool:
-    """True under a model axis; raises for a train call there."""
-    if grid is None or grid.model_size <= 1:
-        return False
-    if train:
-        raise NotImplementedError("the train forward under a model axis (dropout, masks) is "
-                                  "ROADMAP A7b.2; the grid runs the eval forward only")
-    return True
+def _tp(grid) -> bool:
+    """True under a model axis."""
+    return grid is not None and grid.model_size > 1
+
+
+def _heads(nhead: int, grid) -> int:
+    if nhead % grid.model_size:
+        raise ValueError(f"{nhead} heads do not split over model_parallel={grid.model_size}")
+    return nhead // grid.model_size
 
 
 def _row_linear(h: torch.Tensor, lin, grid) -> torch.Tensor:
     """A row-parallel Linear on one model rank: h [.., H/tp] against the
     rank's weight columns, the fp32 partial summed over the model group,
     then round(sum + bias) in h's dtype."""
-    part = all_reduce_model(F.linear(h.float(), lin.weight.float()), grid)
+    part = reduce_from_model(F.linear(h.float(), lin.weight.float()), grid)
     return (part + lin.bias.float()).to(h.dtype)
 
 
 def _mlp2_tp(x: torch.Tensor, mlp, grid) -> torch.Tensor:
     """``mlp2`` with mlp.0 by column and mlp.2 by row."""
-    return _row_linear(torch.relu(mlp[0](x)), mlp[2], grid)
+    return _row_linear(torch.relu(mlp[0](copy_to_model(x, grid))), mlp[2], grid)
 
 
 class Projection(nn.Module):
@@ -191,12 +212,17 @@ class AVQCrossAttn(nn.Module):
         q_cat = torch.cat([src_q, src_v], dim=0)
         v_cat = torch.cat([src_v, src_q], dim=0)
         query_cat = torch.cat([query, query], dim=0)
-        tp = _tp(grid, masks is not None or _dropping(generator, dropout_p))
+        tp = _tp(grid)
+        N, T, D = q_cat.shape
+        S = query_cat.shape[1]
         if masks is None and _dropping(generator, dropout_p):
-            N, T, D = q_cat.shape
-            masks = make_avq_dropout_masks(generator, N, T, query_cat.shape[1], D,
-                                           nhead=nhead, dropout_p=dropout_p,
-                                           dtype=q_cat.dtype)
+            masks = make_avq_dropout_masks(generator, N, T, S, D, nhead=nhead,
+                                           dropout_p=dropout_p, dtype=q_cat.dtype)
+        if masks is not None and tp:
+            mine = shard_avq_masks(masks, nhead, S, T, grid.model_rank, grid.model_size)
+            out = fused_avq_train_tp(q_cat, v_cat, query_cat, self, mine,
+                                     _heads(nhead, grid), grid)
+            return out[:B], out[B:]
         if masks is not None:
             out = fused_avq_train(q_cat, v_cat, query_cat, self, masks, nhead)
             return out[:B], out[B:]
@@ -208,7 +234,7 @@ class AVQCrossAttn(nn.Module):
                      need_weights=False, grid=grid)
         x = q_cat + slf + crs + qst_out
         x = layer_norm(x, self.norm1.weight, self.norm1.bias)
-        hid = torch.relu(self.linear1(x))
+        hid = torch.relu(self.linear1(copy_to_model(x, grid) if tp else x))
         ffn = _row_linear(hid, self.linear2, grid) if tp else self.linear2(hid)
         out = layer_norm(x + ffn, self.norm2.weight, self.norm2.bias)
         return out[:B], out[B:]
@@ -227,14 +253,12 @@ class QstGrounding(nn.Module):
         ``data`` may be a list of [B, S_i, D] streams joined along seq."""
         if isinstance(data, (list, tuple)):
             data = torch.cat(list(data), dim=1)
-        if _tp(grid, generator is not None):
-            attn_out, _ = mha(self.attn, qst[:, None, :], data, data, num_heads=nhead,
-                              need_weights=False, grid=grid)
-            feat = data.mean(dim=1) + _mlp2_tp(attn_out[:, 0], self.mlp, grid)
-            return layer_norm(feat, self.norm.weight, self.norm.bias)
         attn_out, _ = mha(self.attn, qst[:, None, :], data, data, num_heads=nhead,
-                          need_weights=False, dropout_p=ATTN_DROPOUT, generator=generator)
-        feat = data.mean(dim=1) + dropout(mlp2(attn_out[:, 0], self.mlp), dropout_p, generator)
+                          need_weights=False, dropout_p=ATTN_DROPOUT, generator=generator,
+                          grid=grid)
+        mlp = _mlp2_tp(attn_out[:, 0], self.mlp, grid) if _tp(grid) else mlp2(attn_out[:, 0],
+                                                                              self.mlp)
+        feat = data.mean(dim=1) + dropout(mlp, dropout_p, generator)
         return layer_norm(feat, self.norm.weight, self.norm.bias)
 
 
@@ -277,7 +301,7 @@ class TempMoE(nn.Module):
         margin = 1.0 / (E * 2)
         base_centers = torch.linspace(margin, 1.0 - margin, E,
                                       dtype=torch.float32, device=data.device)
-        tp = _tp(grid, generator is not None)
+        tp = _tp(grid)
         temp_w, _ = mha(self.qst_attn, qst[:, None, :], data, data, num_heads=nhead,
                         need_weights=False, dropout_p=ATTN_DROPOUT, generator=generator,
                         grid=grid)
@@ -292,16 +316,17 @@ class TempMoE(nn.Module):
         w_bet = combined_expert_weights(gauss_w, topk_inds, topk_probs, E,
                                         gather_mode)
         experts = self.stacked_experts()
-        if tp and grid.model_rank:  # b2's term comes from model rank 0 alone
-            experts = (*experts[:3], torch.zeros_like(experts[3]))
 
         def aggregate(stream: torch.Tensor) -> torch.Tensor:
             # streams stacked along the batch share the per-sample weights
             reps = stream.shape[0] // B
             w = w_bet.repeat(reps, 1, 1).to(stream.dtype)
-            if tp:
-                part = all_reduce_model(fused_gaussian_moe_partial(stream, *experts, w), grid)
-                return part.to(stream.dtype)[:, None, :]
+            if tp:  # the hidden columns split; b2's term added whole after the sum
+                w1t, b1, w2t, b2 = experts
+                part = fused_gaussian_moe_partial(copy_to_model(stream, grid), w1t, b1, w2t,
+                                                  copy_to_model(w, grid))
+                total = reduce_from_model(part, grid) + bias_term(b2, w)
+                return total.to(stream.dtype)[:, None, :]
             return fused_gaussian_moe(stream, *experts, w)[:, None, :]
 
         if sub_data is not None:
@@ -327,28 +352,33 @@ class PatchSelecter(nn.Module):
         """Per-frame audio/video-guided patch summary -> [a_patch, v_patch],
         each [B, T, D]. Under dropout (or with ``masks``) the pass is
         ``fused_patch_select_train``."""
-        if _tp(grid, masks is not None or _dropping(generator, dropout_p)):
-            return list(self._forward_tp(patch, audio, video, nhead, grid))
+        B, T, P, D = patch.shape
         if masks is None and _dropping(generator, dropout_p):
-            B, T, P, D = patch.shape
             masks = make_patch_dropout_masks(generator, B * T, P, D, nhead=nhead,
                                              dropout_p=dropout_p, dtype=patch.dtype)
+        if masks is not None and _tp(grid):
+            mine = shard_patch_masks(masks, nhead, P, grid.model_rank, grid.model_size)
+            return list(fused_patch_select_train_tp(patch, audio, video, self, mine,
+                                                    _heads(nhead, grid), grid))
         if masks is not None:
             return list(fused_patch_select_train(patch, audio, video, self, masks, nhead))
+        if _tp(grid):
+            return list(self._forward_tp(patch, audio, video, nhead, grid))
         return list(fused_patch_select(patch, audio, video, self, nhead))
 
     def _forward_tp(self, patch, audio, video, nhead: int, grid):
         """The eval pass on one model rank: three stages, each partial summed
-        over the model group before its epilogue."""
-        tp = grid.model_size
-        if nhead % tp:
-            raise ValueError(f"{nhead} heads do not split over model_parallel={tp}")
-        heads = nhead // tp
-        part = all_reduce_model(fused_patch_select_tp_self(patch, self.slf_attn, heads), grid)
+        over the model group before its epilogue (differentiable: a train
+        step without dropout takes it)."""
+        heads = _heads(nhead, grid)
+        copy = lambda t: copy_to_model(t, grid)  # noqa: E731
+        part = reduce_from_model(fused_patch_select_tp_self(copy(patch), self.slf_attn, heads),
+                                 grid)
         x1 = fused_patch_select_tp_self_post(part, patch, self.slf_attn.out_proj.bias)
-        part = all_reduce_model(
-            fused_patch_select_tp_cross(x1, audio, video, self.crs_attn, heads), grid)
+        part = reduce_from_model(
+            fused_patch_select_tp_cross(copy(x1), copy(audio), copy(video), self.crs_attn,
+                                        heads), grid)
         crs = fused_patch_select_tp_cross_post(part, self.crs_attn.out_proj.bias, patch.dtype)
-        part = all_reduce_model(fused_patch_select_tp_mlp(crs, self.mlp), grid)
+        part = reduce_from_model(fused_patch_select_tp_mlp(copy(crs), self.mlp), grid)
         return fused_patch_select_tp_out(part, self.mlp[2].bias, self.anorm, self.vnorm,
                                          patch.dtype)

@@ -7,9 +7,11 @@ ReLU -> Linear head. The frozen CLIP text tower encodes token ids online,
 under ``torch.no_grad()`` (JAX: ``stop_gradient``), in its own dtype.
 
 Under a ``grid`` of model size tp > 1 (``parallel/tensor.py``) the eval
-forward runs each module's tensor-parallel form on the rank's shards
-(``parallel.shard_module_``); projections, norms, embeddings and the head
-stay whole. ``check_model_parallel`` says whether a config splits.
+and the train forward run each module's tensor-parallel form on the rank's
+shards (``parallel.shard_module_``); projections, norms, embeddings and the
+head stay whole. Every model rank of a data rank draws the same dropout
+stream, and each module takes its share of the whole realization.
+``check_model_parallel`` says whether a config splits.
 """
 from __future__ import annotations
 
@@ -144,13 +146,10 @@ class QATiger(nn.Module):
         on the activations' device seeded from ``generator``
         (``split_generator``). ``sites`` gives those six generators ready
         seeded instead (the train step's CUDA graph owns persistent ones and
-        reseeds them before each replay). ``grid``: the eval forward's
-        tensor-parallel form on its model ranks (train raises there: ROADMAP
-        A7b.2)."""
+        reseeds them before each replay). ``grid``: the tensor-parallel form
+        on its model ranks, eval or train."""
         cfg = self.cfg
         nhead, dp = cfg["nhead"], cfg["dropout"]
-        if train and grid is not None and grid.model_size > 1:
-            raise NotImplementedError("the train forward under a model axis is ROADMAP A7b.2")
         quest, words = self.encode_question(batch["quest"], batch.get("quest_words"), grid)
         if words is None:
             raise ValueError("the words projection needs word features: pass "

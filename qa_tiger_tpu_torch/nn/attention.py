@@ -20,9 +20,14 @@ this rank's shards: in_proj [3 D/tp, D] (its heads' q, k and v rows) and
 out_proj.weight [D, D/tp]. The rank projects its num_heads/tp heads (the
 same head size and scale), runs ``attention_wide`` on D/tp lanes, and
 forms the out-projection without its bias as an fp32 partial; the model
-group sums the partials, then the bias is added and the value rounded once,
-where the single-rank path rounds it. Only the eval call exists there:
-``need_weights``, ``prob_mask`` and dropout raise (ROADMAP.md A7b.2).
+group sums the partials (``reduce_from_model``), then the bias is added and
+the value rounded once, where the single-rank path rounds it. The inputs
+enter through ``copy_to_model``, so the rank's partial input gradients are
+summed over the model group in the backward. Dropout draws the whole
+[B, H, Sq, Sk] mask, as the single-rank path draws it, and keeps the rank's
+heads, so the generator advances alike on every rank; a given
+``prob_mask`` is whole too and sliced the same way. ``need_weights`` raises
+there: no caller under a grid asks for them.
 """
 from __future__ import annotations
 
@@ -32,9 +37,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from qa_tiger_tpu_torch.nn.core import Linear, dropout, linear
+from qa_tiger_tpu_torch.nn.core import Linear, attend, dropout, linear
 from qa_tiger_tpu_torch.ops.attention import attention_wide
-from qa_tiger_tpu_torch.parallel.tensor import all_reduce_model
+from qa_tiger_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
 class MultiheadAttention(nn.Module):
@@ -69,70 +74,71 @@ def mha(p: MultiheadAttention, query: torch.Tensor, key: torch.Tensor,
     """
     sampling = generator is not None and dropout_p > 0.0
     if grid is not None and grid.model_size > 1:
-        if need_weights or prob_mask is not None or sampling:
-            raise NotImplementedError(
-                "mha under a model axis is the eval call only (no weights, prob_mask or "
-                "dropout): the train step under the grid is ROADMAP A7b.2")
-        return _mha_tp(p, query, key, value, num_heads, attn_mask, grid), None
-    B, Sq, D = query.shape
-    Sk = key.shape[1]
-    head_dim = D // num_heads
-    if head_dim * num_heads != D:
+        if need_weights:
+            raise NotImplementedError("mha under a model axis returns no weights")
+        return _mha_tp(p, query, key, value, num_heads, attn_mask, grid,
+                       dropout_p if sampling else 0.0, generator, prob_mask), None
+    D = query.shape[-1]
+    if (D // num_heads) * num_heads != D:
         raise ValueError(f"d_model {D} must divide into {num_heads} heads")
-    w, b = p.in_proj_weight, p.in_proj_bias
-    if query is key and key is value:
-        q, k, v = linear(query, w, b).split(D, dim=-1)
-    elif key is value:
-        q = linear(query, w[:D], b[:D])
-        k, v = linear(key, w[D:], b[D:]).split(D, dim=-1)
-    else:
-        q = linear(query, w[:D], b[:D])
-        k = linear(key, w[D:2 * D], b[D:2 * D])
-        v = linear(value, w[2 * D:], b[2 * D:])
-    scale = 1.0 / math.sqrt(head_dim)
-
+    q, k, v = _project(p, query, key, value, D)
     if not need_weights and prob_mask is None and not sampling:
-        ctx = attention_wide(q, k, v, attn_mask, scale, num_heads)
+        ctx = attention_wide(q, k, v, attn_mask, 1.0 / math.sqrt(D // num_heads), num_heads)
         return linear(ctx, p.out_proj.weight, p.out_proj.bias), None
 
-    q4 = q.reshape(B, Sq, num_heads, head_dim)
-    k4 = k.reshape(B, Sk, num_heads, head_dim)
-    v4 = v.reshape(B, Sk, num_heads, head_dim)
-    logits = torch.einsum("bqhd,bkhd->bhqk", (q4 * scale).float(), k4.float())
-    if attn_mask is not None:
-        logits = logits + attn_mask.float()
-    probs = torch.softmax(logits, dim=-1)
-    if prob_mask is not None:
-        dropped = probs * prob_mask.float()
-    else:
-        dropped = dropout(probs, dropout_p, generator)
-    ctx = torch.einsum("bhqk,bkhd->bqhd", dropped.to(v.dtype).float(),
-                       v4.float()).to(q.dtype).reshape(B, Sq, D)
+    def drop(probs):
+        if prob_mask is not None:
+            return probs * prob_mask.float()
+        return dropout(probs, dropout_p, generator)
+
+    ctx, probs = attend(q, k, v, num_heads, attn_mask=attn_mask, drop=drop)
     out = linear(ctx, p.out_proj.weight, p.out_proj.bias)
     return out, probs.mean(dim=1).to(query.dtype) if need_weights else None
 
 
-def _mha_tp(p: MultiheadAttention, query, key, value, num_heads: int, attn_mask, grid):
-    """The eval ``mha`` on one model rank of ``grid``: out [B, Sq, D]."""
+def _project(p: MultiheadAttention, query, key, value, width: int):
+    """q, k, v from ``p``'s packed in_proj, ``width`` rows each: one fused
+    product for self-attention, a fused key/value product when key is
+    value, three otherwise."""
+    w, b = p.in_proj_weight, p.in_proj_bias
+    if query is key and key is value:
+        return linear(query, w, b).split(width, dim=-1)
+    q = linear(query, w[:width], b[:width])
+    if key is value:
+        return (q, *linear(key, w[width:], b[width:]).split(width, dim=-1))
+    return (q, linear(key, w[width:2 * width], b[width:2 * width]),
+            linear(value, w[2 * width:], b[2 * width:]))
+
+
+def _mha_tp(p: MultiheadAttention, query, key, value, num_heads: int, attn_mask, grid,
+            dropout_p: float = 0.0, generator=None, prob_mask=None):
+    """``mha`` on one model rank of ``grid``: out [B, Sq, D]. Dropout (or a
+    whole ``prob_mask``) sends it to the plain path, as at tp 1."""
     tp = grid.model_size
-    D = query.shape[-1]
+    B, Sq, D = query.shape
+    Sk = key.shape[1]
     if num_heads % tp or D % num_heads:
         raise ValueError(f"{num_heads} heads of d_model {D} do not split over "
                          f"model_parallel={tp}")
-    w, b = p.in_proj_weight, p.in_proj_bias
-    Dl = w.shape[0] // 3
+    Dl = p.in_proj_weight.shape[0] // 3
     if Dl * tp != D:
         raise ValueError(f"in_proj holds {Dl} rows per head group, not d_model/{tp}: "
                          "load the rank's shard (parallel.shard_state_dict)")
-    if query is key and key is value:
-        q, k, v = linear(query, w, b).split(Dl, dim=-1)
-    elif key is value:
-        q = linear(query, w[:Dl], b[:Dl])
-        k, v = linear(key, w[Dl:], b[Dl:]).split(Dl, dim=-1)
+    heads = num_heads // tp
+    q_in = copy_to_model(query, grid)
+    k_in = q_in if key is query else copy_to_model(key, grid)
+    v_in = k_in if value is key else copy_to_model(value, grid)
+    q, k, v = _project(p, q_in, k_in, v_in, Dl)
+    if dropout_p == 0.0 and prob_mask is None:
+        ctx = attention_wide(q, k, v, attn_mask, 1.0 / math.sqrt(D // num_heads), heads)
     else:
-        q = linear(query, w[:Dl], b[:Dl])
-        k = linear(key, w[Dl:2 * Dl], b[Dl:2 * Dl])
-        v = linear(value, w[2 * Dl:], b[2 * Dl:])
-    ctx = attention_wide(q, k, v, attn_mask, 1.0 / math.sqrt(D // num_heads), num_heads // tp)
-    part = all_reduce_model(F.linear(ctx.float(), p.out_proj.weight.float()), grid)
+        mine = (slice(None), slice(grid.model_rank * heads, (grid.model_rank + 1) * heads))
+
+        def drop(probs):
+            if prob_mask is not None:
+                return probs * prob_mask[mine].float()
+            return dropout(probs, dropout_p, generator, share=((B, num_heads, Sq, Sk), mine))
+
+        ctx, _ = attend(q, k, v, heads, attn_mask=attn_mask, drop=drop)
+    part = reduce_from_model(F.linear(ctx.float(), p.out_proj.weight.float()), grid)
     return (part + p.out_proj.bias.float()).to(query.dtype)

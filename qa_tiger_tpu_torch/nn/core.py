@@ -35,17 +35,44 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return out.to(x.dtype)
 
 
-def dropout(x: torch.Tensor, p: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
+            share: tuple | None = None) -> torch.Tensor:
     """Inverted dropout, ``nn.Dropout``'s semantics: each element is kept
     with probability 1 - p and then divided by it. The identity when the
     generator is None or p is 0, as the JAX package's ``dropout`` is when
-    its key is None. The generator must live on x's device."""
+    its key is None. The generator must live on x's device. ``share`` =
+    (whole shape, index): x is that share of a tensor of the whole shape;
+    the mask is drawn over the whole shape, as for the whole tensor, and
+    indexed, so every holder of a share advances the generator alike."""
     if generator is None or p <= 0.0:
         return x
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape, index = share if share is not None else (x.shape, ...)
+    mask = torch.rand(shape, generator=generator, device=x.device)[index] < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, *,
+           attn_mask: torch.Tensor | None = None, drop=None) -> tuple:
+    """Plain multi-head attention from projections q [B, Sq, W], k/v [B, Sk,
+    W] of ``heads`` heads: the 1/sqrt(head_dim) scale, an fp32 softmax
+    (after the additive ``attn_mask``), ``drop(probs)`` on the [B, heads,
+    Sq, Sk] probabilities (dropout or a keep mask; none when None), and the
+    context from them cast to v's dtype -> (ctx [B, Sq, W] in q's dtype,
+    the probabilities before ``drop``)."""
+    B, Sq, W = q.shape
+    Sk, head_dim = k.shape[1], W // heads
+    q4 = q.reshape(B, Sq, heads, head_dim)
+    k4 = k.reshape(B, Sk, heads, head_dim)
+    v4 = v.reshape(B, Sk, heads, head_dim)
+    scale = 1.0 / math.sqrt(head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", (q4 * scale).float(), k4.float())
+    if attn_mask is not None:
+        logits = logits + attn_mask.float()
+    probs = torch.softmax(logits, dim=-1)
+    dropped = probs if drop is None else drop(probs)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", dropped.to(v.dtype).float(), v4.float())
+    return ctx.to(q.dtype).reshape(B, Sq, W), probs
 
 
 def trunc_normal(shape, generator: torch.Generator, std: float = 0.02) -> torch.Tensor:

@@ -20,12 +20,16 @@ the backwards); ``fused_gaussian_moe`` tallies its two products' (its own
 ``wgmma`` kernel or 3xTF32 for the first, ``gemm_tf32x3`` for the second).
 
 ``TP_STAGES`` lists the stages of the tensor-parallel forms
-(``parallel/tensor.py``), each with its own ``launches`` counter; a stage
-that launches a kernel's TP form also counts one launch of that kernel
-(``fused_attn_ln2_partial``, ``fused_patch_select_tp_self``,
-``fused_gaussian_moe_partial``), so a rank's ``launch_counts`` equal a
-single process's. ``reset_launches`` clears them too; ``stage_counts``
-reads them.
+(``parallel/tensor.py``), eval and train, each with its own ``launches``
+counter; a stage that launches a kernel's TP form also counts one launch of
+that kernel (``fused_attn_ln2_partial``, ``fused_patch_select_tp_self``,
+``fused_gaussian_moe_partial``; the train kernels' first forward and first
+backward stages, ``fused_avq_train_tp_attn``,
+``fused_avq_train_bwd_tp_ffn``, ``fused_patch_select_train_tp_self`` and
+``fused_patch_select_train_bwd_tp_mlp``), so a rank's ``launch_counts``
+equal a single process's. The train stages tally their products' routes in
+their own ``gemm_routes``. ``reset_launches`` clears them too;
+``stage_counts`` reads them.
 
 A CUDA graph runs the wrappers' Python once, while it is captured, and
 launches their kernels at every replay. So the graph's owner takes the
@@ -39,9 +43,11 @@ from qa_tiger_tpu_torch.ops.attention import (
     attention_wide_key_bias,
     fused_attention,
 )
+from qa_tiger_tpu_torch.ops.avq import TP_STAGES as AVQ_TP_STAGES
 from qa_tiger_tpu_torch.ops.avq import fused_avq_train, fused_avq_train_bwd
 from qa_tiger_tpu_torch.ops.gaussian_moe import fused_gaussian_moe, fused_gaussian_moe_partial
 from qa_tiger_tpu_torch.ops.gemm import gemm_route
+from qa_tiger_tpu_torch.ops.patch_select import TP_TRAIN_STAGES as PATCH_TP_TRAIN_STAGES
 from qa_tiger_tpu_torch.ops.patch_select import (
     fused_patch_select,
     fused_patch_select_tp_cross,
@@ -80,7 +86,7 @@ TP_STAGES = {fn.__name__: fn for fn in (
     fused_attn_ln2_partial, fused_attn_ln2_post, fused_patch_select_tp_self,
     fused_patch_select_tp_self_post, fused_patch_select_tp_cross,
     fused_patch_select_tp_cross_post, fused_patch_select_tp_mlp, fused_patch_select_tp_out,
-    fused_gaussian_moe_partial)}
+    fused_gaussian_moe_partial, *AVQ_TP_STAGES, *PATCH_TP_TRAIN_STAGES)}
 
 
 def reset_launches() -> None:

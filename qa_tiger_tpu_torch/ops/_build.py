@@ -67,6 +67,16 @@ SIGNATURES = {
     "qt_avq_train_bwd": [_I, _P, _I, _I, _I, _I, _I, _P, _I, _L, _P],
     "qt_patch_select_train_fwd": [_I, _P, _I, _I, _I, _I, _P, _I, _L, _P],
     "qt_patch_select_train_bwd": [_I, _P, _I, _I, _I, _I, _P, _I, _L, _P],
+    # the train kernels' tensor-parallel stages: the same pointer tables,
+    # then the rank's dimensions and whether it adds the residual gradient
+    **{name: [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _L, _P] for name in (
+        "qt_avq_train_tp_attn", "qt_avq_train_tp_mid", "qt_avq_train_tp_out",
+        "qt_avq_train_bwd_tp_ffn", "qt_avq_train_bwd_tp_attn")},
+    **{name: [_I, _P, _I, _I, _I, _I, _I, _I, _P, _I, _L, _P] for name in (
+        "qt_patch_select_train_tp_self", "qt_patch_select_train_tp_cross",
+        "qt_patch_select_train_tp_mlp", "qt_patch_select_train_tp_out",
+        "qt_patch_select_train_bwd_tp_mlp", "qt_patch_select_train_bwd_tp_cross",
+        "qt_patch_select_train_bwd_tp_self")},
     "qt_avq_num_buffers": [],
     "qt_patch_select_train_num_buffers": [],
 }

@@ -14,17 +14,35 @@ forward's ten products run on ``gemm_tf32x3`` in fp32 and ``gemm_sm90`` in
 bf16, the backward's 20 on ``gemm_tf32x3`` in fp32; each tallies the routes
 its products took in ``fused_avq_train.gemm_routes`` /
 ``fused_avq_train_bwd.gemm_routes``.
+
+Under tensor parallelism (``parallel/tensor.py``) ``fused_avq_train_tp``
+runs the op on one model rank's shards in five stages, split where the
+all-reduces fall (``csrc/avq.cu``): forward ``fused_avq_train_tp_attn``
+(three fp32 out_proj partials), ``_tp_mid`` (the residual chain, LN1, the
+FFN's partial), ``_tp_out`` (LN2); backward ``fused_avq_train_bwd_tp_ffn``
+(the partial of g_h1) and ``_bwd_tp_attn`` (the partials of the three input
+gradients). One ``torch.autograd.Function`` sums each partial over the
+model group between two stages (``Grid.reduce_model``) and rounds the input
+gradients once after the last sum. Each stage has a plain version, which a
+CPU tensor runs: the forward stages written out, the backward stages as
+the vjp of their forward part recomputed under autograd. The first forward
+stage counts a ``fused_avq_train`` launch and the first backward stage a
+``fused_avq_train_bwd`` launch, so a rank counts what one process counts;
+each stage counts its own and tallies its products' routes.
 """
 from __future__ import annotations
 
 import torch
+from torch.nn import functional as F
 
-from qa_tiger_tpu_torch.nn.core import layer_norm, linear
+from qa_tiger_tpu_torch.nn.core import attend, layer_norm, linear
 from qa_tiger_tpu_torch.ops import _build
+from qa_tiger_tpu_torch.ops.epilogue import launch_epilogue, tp_stage
 from qa_tiger_tpu_torch.ops.gemm import (
     aligned16,
     avq_train_bwd_gemm_shapes,
     avq_train_fwd_gemm_shapes,
+    avq_train_tp_gemm_shapes,
     gemm_plan,
     note_plan_routes,
     plan_workspace,
@@ -87,7 +105,7 @@ BUFFERS = (("src", "val", "wrd") + tuple(f"m_{k}" for k in MASK_KEYS) + WEIGHT_N
            + ("out",) + SAVED + ("g", "gsrc", "gval", "gwrd")
            + tuple(f"g_{n}" for n in WEIGHT_NAMES)
            + ("gf", "gsrc32", "stats", "g_ffn", "g_pre", "g_out_s", "g_out_c", "g_out_q",
-              "g_ctx", "g_qq", "g_kvq", "g_qkv", "g_qc", "g_kvc", "ws"))
+              "g_ctx", "g_qq", "g_kvq", "g_qkv", "g_qc", "g_kvc", "ws", "total", "part"))
 
 
 def _shapes(N, T, S, D):
@@ -218,3 +236,356 @@ def fused_avq_train(src: torch.Tensor, val: torch.Tensor, wrd: torch.Tensor, par
 
 fused_avq_train.launches = 0
 fused_avq_train.gemm_routes = {}  # the GEMM routine of each product launched
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel stages (one model rank's shards; Wl = D / tp columns)
+# ---------------------------------------------------------------------------
+
+# the masks cut to a rank's share: by heads (the probability masks), by
+# linear1's columns (ffn1); the others are whole on every rank
+HEAD_MASKS = ("qst", "slf", "crs")
+
+
+def shard_avq_masks(masks: dict, nhead: int, S: int, T: int, rank: int, tp: int) -> dict:
+    """Model rank ``rank``'s share of ``make_avq_dropout_masks``' whole
+    realization: the probability masks' lanes of its nhead/tp heads
+    (re-padded to 128 lanes), ffn1's columns of its linear1 shard, the
+    others whole."""
+    from qa_tiger_tpu_torch.parallel.tensor import column_shard, head_lanes
+
+    keys = {"qst": S, "slf": T, "crs": T}
+    out = {k: head_lanes(masks[k], nhead, keys[k], rank, tp) for k in HEAD_MASKS}
+    out["ffn1"] = column_shard(masks["ffn1"], rank, tp)
+    out.update({k: masks[k] for k in ("d_slf", "d_crs", "d_qst", "ffn2")})
+    return out
+
+
+def keep_attention(q, k, v, keep, heads: int):
+    """``mha``'s plain path from its projections: q [N, Sq, W], k/v [N, Sk,
+    W], the fp32 softmax times ``keep`` [N*Sq, Lp] (lane h*Sk + key) ->
+    ctx [N, Sq, W] in q's dtype."""
+    N, Sq, _ = q.shape
+    Sk = k.shape[1]
+    pm = keep[:, :heads * Sk].reshape(N, Sq, heads, Sk).transpose(1, 2)
+    return attend(q, k, v, heads, drop=lambda probs: probs * pm.float())[0]
+
+
+def _tp_attn_plain(src, val, wrd, w, masks, nhead):
+    """Plain ``fused_avq_train_tp_attn``: fp32 [3, N, T, D] out_proj
+    partials (self, cross, question) over the rank's heads, no bias."""
+    Wl = w[0].shape[0] // 3
+
+    def proj(x, wi, bi, rows):
+        return linear(x, w[wi][rows], w[bi][rows])
+
+    qq = proj(src, 0, 1, slice(0, Wl))
+    kq, vq = proj(wrd, 0, 1, slice(Wl, 3 * Wl)).split(Wl, dim=-1)
+    qs, ks, vs = proj(src, 4, 5, slice(None)).split(Wl, dim=-1)
+    qc = proj(src, 8, 9, slice(0, Wl))
+    kc, vc = proj(val, 8, 9, slice(Wl, 3 * Wl)).split(Wl, dim=-1)
+    ctx = {"qst": keep_attention(qq, kq, vq, masks["qst"], nhead),
+           "slf": keep_attention(qs, ks, vs, masks["slf"], nhead),
+           "crs": keep_attention(qc, kc, vc, masks["crs"], nhead)}
+    return torch.stack([F.linear(ctx["slf"].float(), w[6].float()),
+                        F.linear(ctx["crs"].float(), w[10].float()),
+                        F.linear(ctx["qst"].float(), w[2].float())])
+
+
+def _tp_mid_plain(total, src, w, masks):
+    """Plain ``fused_avq_train_tp_mid``: (linear2's fp32 partial, h1)."""
+    N, T, D = src.shape
+    dt = src.dtype
+
+    def rd(m):
+        return m.reshape(N, T, -1).to(dt)
+
+    x = src
+    for i, (key, ob) in enumerate((("d_slf", 7), ("d_crs", 11), ("d_qst", 3))):
+        x = x + rd(masks[key]) * (total[i] + w[ob].float()).to(dt)
+    h1 = layer_norm(x, w[16], w[17])
+    h = torch.relu(linear(h1, w[12], w[13])) * rd(masks["ffn1"])
+    return F.linear(h.float(), w[14].float()), h1
+
+
+def _tp_out_plain(total, h1, w, masks):
+    """Plain ``fused_avq_train_tp_out``: LN2(h1 + ffn2 * round(total + b2))."""
+    ffn = (total + w[15].float()).to(h1.dtype)
+    return layer_norm(h1 + masks["ffn2"].reshape(h1.shape).to(h1.dtype) * ffn, w[18], w[19])
+
+
+def _leaves(*tensors):
+    return [t.detach().requires_grad_(True) for t in tensors]
+
+
+def _bwd_tp_ffn_plain(g, h1, total2, w, masks, residual: bool):
+    """Plain ``fused_avq_train_bwd_tp_ffn``: (the fp32 partial of g_h1, the
+    gradients of l1, l2 and n2 by weight index), the vjp of the stages
+    after LN1 recomputed on the rank's shards."""
+    with torch.enable_grad():
+        t2, res = _leaves(total2, h1)
+        wl = dict(zip((15, 18, 19), _leaves(w[15], w[18], w[19])))
+        wo = [wl.get(i, x) for i, x in enumerate(w)]
+        out = _tp_out_plain(t2, res, wo, masks)
+        g_t2, g_res, *g_out = torch.autograd.grad(out, [t2, res, *wl.values()], g)
+        h, l1w, l1b, l2w = _leaves(h1, w[12], w[13], w[14])
+        hid = torch.relu(linear(h, l1w, l1b)) * masks["ffn1"].reshape(*h.shape[:2], -1).to(h.dtype)
+        part = F.linear(hid.float(), l2w.float())
+        g_h, *g_ffn = torch.autograd.grad(part, [h, l1w, l1b, l2w], g_t2)
+    partial = g_h.float() + g_res.float() if residual else g_h.float()
+    return partial, dict(zip((15, 18, 19, 12, 13, 14), g_out + g_ffn))
+
+
+_ATTN_WEIGHTS = (0, 1, 2, 4, 5, 6, 8, 9, 10)  # in_proj_weight, in_proj_bias, out_proj.weight
+_OUT_BIASES = (7, 11, 3)  # slf, crs, qst out_proj.bias: the residual order
+
+
+def _bwd_tp_attn_plain(gh1, src, val, wrd, totals, w, masks, nhead: int, residual: bool):
+    """Plain ``fused_avq_train_bwd_tp_attn``: (the fp32 partials of gsrc,
+    gval and gwrd, rows stacked [2R + RS, D]; the gradients of the three
+    blocks' weights, the out_proj biases and n1 by weight index)."""
+    D = src.shape[-1]
+    with torch.enable_grad():
+        tot, res = _leaves(totals, src)
+        wl = dict(zip(_OUT_BIASES + (16, 17), _leaves(*[w[i] for i in _OUT_BIASES + (16, 17)])))
+        wo = [wl.get(i, x) for i, x in enumerate(w)]
+        x = res
+        for i, (key, ob) in enumerate(zip(("d_slf", "d_crs", "d_qst"), _OUT_BIASES)):
+            x = x + masks[key].reshape(src.shape).to(src.dtype) * (tot[i] + wo[ob].float()).to(
+                src.dtype)
+        h1 = layer_norm(x, wo[16], wo[17])
+        g_tot, g_res, *g_ln = torch.autograd.grad(h1, [tot, res, *wl.values()],
+                                                  gh1.reshape(h1.shape).to(h1.dtype))
+        ins = _leaves(src, val, wrd)
+        wa = dict(zip(_ATTN_WEIGHTS, _leaves(*[w[i] for i in _ATTN_WEIGHTS])))
+        parts = _tp_attn_plain(*ins, [wa.get(i, x) for i, x in enumerate(w)], masks, nhead)
+        g_src, g_val, g_wrd, *g_attn = torch.autograd.grad(parts, [*ins, *wa.values()], g_tot)
+    g_src = g_src.float() + g_res.float() if residual else g_src.float()
+    partial = torch.cat([g_src.reshape(-1, D), g_val.float().reshape(-1, D),
+                         g_wrd.float().reshape(-1, D)])
+    return partial, dict(zip(_OUT_BIASES + (16, 17) + _ATTN_WEIGHTS, g_ln + g_attn))
+
+
+def _stage_launch(stage, name: str, bufs: dict, dims: tuple, products, residual: bool = False):
+    """One tensor-parallel stage's launch (``qt_avq_train_<name>``) against
+    the plan of its products; counts it and tallies their routes."""
+    dev, dt = bufs["src"].device, bufs["src"].dtype
+    sms = sm_count(dev)
+    plan = gemm_plan(dt, products, sms)
+    ws_floats = plan_workspace(dt, products, sms)
+    bufs["ws"] = torch.empty(ws_floats, dtype=torch.float32, device=dev) if ws_floats else None
+    _build.launch_table(f"qt_avq_train_{name}", "qt_avq_num_buffers", BUFFERS, bufs, *dims,
+                        int(residual), plan.data_ptr(), len(products), ws_floats)
+    stage.launches += 1
+    note_plan_routes(stage, plan)
+
+
+class _AVQState:
+    """What the stages of one tensor-parallel forward share and keep for the
+    backward: the inputs, the rank's weights and masks, the reduced sums
+    and, on the card, the pointer table's intermediates."""
+
+    def __init__(self, src, val, wrd, weights, masks, nhead):
+        self.src, self.val, self.wrd = src, val, wrd
+        self.weights, self.masks, self.nhead = list(weights), masks, nhead
+        N, T, D = src.shape
+        self.Wl = weights[0].shape[0] // 3
+        self.dims = (N, T, wrd.shape[1], D, self.Wl, nhead)
+        self.shapes = avq_train_tp_gemm_shapes(N, T, wrd.shape[1], D, self.Wl)
+        self.bufs: dict = {}
+        if self.cuda:
+            self.bufs = dict(src=src, val=val, wrd=wrd, **{f"m_{k}": masks[k] for k in MASK_KEYS})
+            self.bufs.update(zip(WEIGHT_NAMES, self.weights))
+
+    @property
+    def cuda(self) -> bool:
+        return self.src.device.type == "cuda"
+
+    def empty(self, *shape, dtype=None):
+        return torch.empty(*shape, dtype=dtype or self.src.dtype, device=self.src.device)
+
+
+def _attn_plain(st: _AVQState) -> torch.Tensor:
+    return _tp_attn_plain(st.src, st.val, st.wrd, st.weights, st.masks, st.nhead)
+
+
+def _mid_plain(st: _AVQState, totals: torch.Tensor) -> torch.Tensor:
+    st.totals = totals
+    part, st.h1 = _tp_mid_plain(totals, st.src, st.weights, st.masks)
+    return part
+
+
+def _out_plain(st: _AVQState, total2: torch.Tensor) -> torch.Tensor:
+    st.total2 = total2
+    return _tp_out_plain(total2, st.h1, st.weights, st.masks)
+
+
+def _bwd_ffn_plain(st: _AVQState, g: torch.Tensor, residual: bool):
+    return _bwd_tp_ffn_plain(g, st.h1, st.total2, st.weights, st.masks, residual)
+
+
+def _bwd_attn_plain(st: _AVQState, gh1: torch.Tensor, residual: bool):
+    return _bwd_tp_attn_plain(gh1, st.src, st.val, st.wrd, st.totals, st.weights, st.masks,
+                              st.nhead, residual)
+
+
+@tp_stage(_attn_plain)
+def fused_avq_train_tp_attn(st: _AVQState) -> torch.Tensor:
+    """Forward stage 1: the fp32 [3, N, T, D] out_proj partials of the
+    self, cross and question attentions over the rank's heads."""
+    N, T, S, D, Wl, _ = st.dims
+    R, RS = N * T, N * S
+    widths = {"qq": Wl, "qkv": 3 * Wl, "qc": Wl, "kvc": 2 * Wl, "qctx": Wl, "sctx": Wl,
+              "cctx": Wl}
+    st.bufs.update({k: st.empty(R, n) for k, n in widths.items()}, kvq=st.empty(RS, 2 * Wl),
+                   part=st.empty(3, N, T, D, dtype=torch.float32))
+    _stage_launch(fused_avq_train_tp_attn, "tp_attn", st.bufs, st.dims,
+                  st.shapes["tp_attn"])
+    fused_avq_train.launches += 1
+    return st.bufs["part"]
+
+
+@tp_stage(_mid_plain)
+def fused_avq_train_tp_mid(st: _AVQState, totals: torch.Tensor) -> torch.Tensor:
+    """Forward stage 2 on the summed partials ``totals`` [3, N, T, D]: x1,
+    LN1, the FFN over the rank's linear1 columns -> linear2's fp32 [N, T, D]
+    partial."""
+    st.totals = totals
+    N, T, _, D, Wl, _ = st.dims
+    R = N * T
+    st.bufs.update(total=totals, x1=st.empty(R, D), h1=st.empty(R, D), hr=st.empty(R, Wl),
+                   hdp=st.empty(R, Wl), part=st.empty(N, T, D, dtype=torch.float32))
+    _stage_launch(fused_avq_train_tp_mid, "tp_mid", st.bufs, st.dims, st.shapes["tp_mid"])
+    return st.bufs["part"]
+
+
+@tp_stage(_out_plain)
+def fused_avq_train_tp_out(st: _AVQState, total2: torch.Tensor) -> torch.Tensor:
+    """Forward stage 3 on linear2's summed partial: x2 and LN2 -> [N, T, D]."""
+    st.total2 = total2
+    N, T, _, D, _, _ = st.dims
+    st.bufs.update(total=total2, x2=st.empty(N * T, D), out=st.empty(N, T, D))
+    _stage_launch(fused_avq_train_tp_out, "tp_out", st.bufs, st.dims, [])
+    return st.bufs["out"]
+
+
+def _weight_grads(st: _AVQState, names) -> None:
+    for n in names:
+        st.bufs[f"g_{n}"] = torch.empty(st.bufs[n].shape, dtype=torch.float32,
+                                        device=st.src.device)
+
+
+@tp_stage(_bwd_ffn_plain)
+def fused_avq_train_bwd_tp_ffn(st: _AVQState, g: torch.Tensor, residual: bool):
+    """Backward stage 1 on the output's gradient: (the fp32 [N, T, D]
+    partial of g_h1, model rank 0's with the residual g_x2; {weight index:
+    gradient} of linear1, linear2 and norm2)."""
+    N, T, _, D, Wl, _ = st.dims
+    R = N * T
+    names = ("l1_w", "l1_b", "l2_w", "l2_b", "n2_w", "n2_b")
+    _weight_grads(st, names)
+    st.bufs.update(g=g.to(st.src.dtype).contiguous(), gf=st.empty(R, D, dtype=torch.float32),
+                   stats=st.empty(2, R, dtype=torch.float32), g_ffn=st.empty(R, D),
+                   g_pre=st.empty(R, Wl), part=st.empty(N, T, D, dtype=torch.float32))
+    _stage_launch(fused_avq_train_bwd_tp_ffn, "bwd_tp_ffn", st.bufs, st.dims,
+                  st.shapes["bwd_tp_ffn"], residual)
+    fused_avq_train_bwd.launches += 1
+    return st.bufs["part"], {WEIGHT_NAMES.index(n): st.bufs[f"g_{n}"] for n in names}
+
+
+@tp_stage(_bwd_attn_plain)
+def fused_avq_train_bwd_tp_attn(st: _AVQState, gh1: torch.Tensor, residual: bool):
+    """Backward stage 2 on the summed g_h1: (the fp32 partials of gsrc,
+    gval and gwrd as rows [2R + RS, D], model rank 0's gsrc with the
+    residual g_x1; {weight index: gradient} of the three blocks, their
+    out_proj biases and norm1)."""
+    N, T, S, D, Wl, _ = st.dims
+    R, RS = N * T, N * S
+    names = [n for i, n in enumerate(WEIGHT_NAMES) if i in _ATTN_WEIGHTS + _OUT_BIASES + (16, 17)]
+    _weight_grads(st, names)
+    st.bufs.update(total=gh1, stats=st.empty(2, R, dtype=torch.float32),
+                   g_out_s=st.empty(R, D), g_out_c=st.empty(R, D), g_out_q=st.empty(R, D),
+                   g_ctx=st.empty(R, Wl), g_qq=st.empty(R, Wl), g_kvq=st.empty(RS, 2 * Wl),
+                   g_qkv=st.empty(R, 3 * Wl), g_qc=st.empty(R, Wl), g_kvc=st.empty(R, 2 * Wl),
+                   part=st.empty(2 * R + RS, D, dtype=torch.float32))
+    _stage_launch(fused_avq_train_bwd_tp_attn, "bwd_tp_attn", st.bufs, st.dims,
+                  st.shapes["bwd_tp_attn"], residual)
+    return st.bufs["part"], {WEIGHT_NAMES.index(n): st.bufs[f"g_{n}"] for n in names}
+
+
+TP_STAGES = (fused_avq_train_tp_attn, fused_avq_train_tp_mid, fused_avq_train_tp_out,
+             fused_avq_train_bwd_tp_ffn, fused_avq_train_bwd_tp_attn)
+for _stage in TP_STAGES:
+    _stage.launches = 0
+    _stage.gemm_routes = {}
+
+
+def round_sum(total: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A reduced fp32 sum rounded once to ``dtype`` (``qt_reduce_epilogue``
+    without bias or residual on the card)."""
+    if total.device.type == "cpu" or dtype == torch.float32:
+        return total.to(dtype)
+    out = torch.empty(total.shape, dtype=dtype, device=total.device)
+    launch_epilogue(total, None, None, out, dtype=dtype)
+    return out
+
+
+class _AVQTrainTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, grid, nhead, masks, src, val, wrd, *weights):
+        st = _AVQState(src, val, wrd, weights, masks, nhead)
+        totals = grid.reduce_model(fused_avq_train_tp_attn(st))
+        total2 = grid.reduce_model(fused_avq_train_tp_mid(st, totals))
+        out = fused_avq_train_tp_out(st, total2)
+        ctx.st, ctx.grid = st, grid
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        st, grid = ctx.st, ctx.grid
+        residual = grid.model_rank == 0
+        part, grads = fused_avq_train_bwd_tp_ffn(st, g, residual)
+        gh1 = grid.reduce_model(part)
+        parts, more = fused_avq_train_bwd_tp_attn(st, gh1, residual)
+        grads.update(more)
+        g_in = round_sum(grid.reduce_model(parts), st.src.dtype)
+        N, T, S, D = *st.src.shape[:2], st.wrd.shape[1], st.src.shape[2]
+        R = N * T
+        gsrc, gval, gwrd = g_in[:R], g_in[R:2 * R], g_in[2 * R:]
+        return (None, None, None, gsrc.reshape(N, T, D), gval.reshape(N, T, D),
+                gwrd.reshape(N, S, D),
+                *[grads[i].to(w.dtype) for i, w in enumerate(st.weights)])
+
+
+def fused_avq_train_tp(src: torch.Tensor, val: torch.Tensor, wrd: torch.Tensor, params,
+                       masks: dict, nhead: int, grid) -> torch.Tensor:
+    """``fused_avq_train`` on one model rank of ``grid``: ``params`` holds
+    the rank's shards (in_proj rows [3 Wl, D] of its heads, out_proj columns
+    [D, Wl], linear1 rows [Wl, D], linear2 columns [D, Wl]; biases and
+    norms whole), ``masks`` its share (``shard_avq_masks``), ``nhead`` its
+    heads. src/val/wrd and the output are whole on every rank, and so are
+    their gradients: the stages' partials are summed over the model group
+    between them."""
+    if src.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_avq_train_tp runs on cpu or cuda, not {src.device}")
+    weights = _weights(params)
+    if src.device.type == "cuda":
+        N, T, D = src.shape
+        S = wrd.shape[1]
+        Wl = weights[0].shape[0] // 3
+        if Wl % nhead or Wl * grid.model_size != D:
+            raise ValueError(f"the rank's {Wl} columns do not hold {nhead} heads of d_model {D}")
+        weights = [aligned16(w.contiguous()) for w in weights]
+        pad = lambda n: -(-n // 128) * 128  # noqa: E731
+        want = {"qst": (N * T, pad(nhead * S)), "slf": (N * T, pad(nhead * T)),
+                "crs": (N * T, pad(nhead * T)), "ffn1": (N * T, Wl)}
+        dev_masks = {}
+        for key in MASK_KEYS:
+            m = masks[key]
+            shape = want.get(key, (N * T, D))
+            if tuple(m.shape) != shape:
+                raise ValueError(f"mask {key} must be {shape}, got {tuple(m.shape)}")
+            dev_masks[key] = m.to(src.device, src.dtype).contiguous()
+        masks = dev_masks
+        src, val, wrd = (aligned16(t.contiguous()) for t in (src, val, wrd))
+    return _AVQTrainTP.apply(grid, nhead, masks, src, val, wrd, *weights)

@@ -20,9 +20,10 @@ its two products in ``fused_gaussian_moe.gemm_routes``.
 
 Under tensor parallelism (``parallel/tensor.py``) each model rank runs
 ``fused_gaussian_moe_partial`` on its H/tp hidden columns of every expert:
-the same two launches with an fp32 output, b2's term from model rank 0
-only; the caller sums the partials over the ranks and rounds once. It
-counts as a ``fused_gaussian_moe`` launch and takes no gradient.
+the same two launches with an fp32 output and no b2 term; the caller sums
+the partials over the ranks, adds b2's term (``bias_term``) on every rank
+alike and rounds once. It counts as a ``fused_gaussian_moe`` launch; its
+gradient is its plain version's, recomputed, as the whole kernel's is.
 """
 from __future__ import annotations
 
@@ -30,7 +31,6 @@ import torch
 from torch.nn import functional as F
 
 from qa_tiger_tpu_torch.ops import _build, _grad
-from qa_tiger_tpu_torch.ops.epilogue import no_grad_stage
 from qa_tiger_tpu_torch.ops.gemm import ROUTES, aligned16, sm_count, splitk_plan, tally_routes
 
 # csrc/gaussian_moe.cu MOE_MAX_D: the widest D whose two samples' x chunks
@@ -77,18 +77,34 @@ def fused_gaussian_moe(x: torch.Tensor,    # [B, T, D]
     return _grad.KernelWithPlainGrad.apply(_launch, _reference_impl, {}, x, w1t, b1, w2t, b2, w)
 
 
+def _partial_f32(x, w1t, b1, w2t, w):
+    """Plain version of the partial: ``_reference_f32`` without b2's term."""
+    h = torch.relu(torch.einsum("btd,edh->bteh", x.float(), w1t.float()) + b1.float())
+    s = torch.einsum("bet,bteh->beh", w.float(), h)
+    return torch.einsum("beh,ehd->bd", s, w2t.float())
+
+
+def bias_term(b2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """b2's term of ``fused_gaussian_moe``, sum_{e,t} w[b,e,t] b2[e] -> fp32
+    [B, D]: what the ranks' partials leave out."""
+    return torch.einsum("bet,ed->bd", w.float(), b2.float())
+
+
 def fused_gaussian_moe_partial(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor,
-                               w2t: torch.Tensor, b2: torch.Tensor,
-                               w: torch.Tensor) -> torch.Tensor:
-    """One model rank's share of ``fused_gaussian_moe``: w1t [E, D, Hl],
-    b1 [E, Hl] and w2t [E, Hl, D] its hidden columns of every expert, b2
-    the experts' output bias on model rank 0 and zeros on the others ->
-    the fp32 [B, D] partial, unrounded."""
-    no_grad_stage("fused_gaussian_moe_partial", x, w1t, b1, w2t, b2, w)
+                               w2t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One model rank's share of ``fused_gaussian_moe`` without b2's term:
+    w1t [E, D, Hl], b1 [E, Hl] and w2t [E, Hl, D] its hidden columns of
+    every expert -> the fp32 [B, D] partial, unrounded."""
     if x.device.type == "cpu":
-        return _reference_f32(x, w1t, b1, w2t, b2, w)
-    _check(x, w1t, b1, w2t, b2, w)
+        return _partial_f32(x, w1t, b1, w2t, w)
+    _check(x, w1t, b1, w2t, None, w)
+    return _grad.KernelWithPlainGrad.apply(_launch_partial, _partial_f32, {}, x, w1t, b1, w2t,
+                                           w)
+
+
+def _launch_partial(x, w1t, b1, w2t, w):
     fused_gaussian_moe_partial.launches += 1
+    b2 = torch.zeros(w1t.shape[0], x.shape[-1], dtype=x.dtype, device=x.device)
     return _launch(x, w1t, b1, w2t, b2, w, out_f32=True)
 
 
@@ -100,6 +116,8 @@ def _check(x, w1t, b1, w2t, b2, w) -> None:
     shapes = {"x": (x, (B, T, D)), "w1t": (w1t, (E, D, H)), "b1": (b1, (E, H)),
               "w2t": (w2t, (E, H, D)), "b2": (b2, (E, D)), "w": (w, (B, E, T))}
     for name, (t, shape) in shapes.items():
+        if t is None:  # the partial's absent b2
+            continue
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():

@@ -115,6 +115,63 @@ def avq_train_bwd_gemm_shapes(n: int, t: int, s: int, width: int) -> list:
             + out_proj + [(d, d, rows), (2 * d, d, rows), (rows, d, d), (rows, d, 2 * d)])
 
 
+def avq_train_tp_gemm_shapes(n: int, t: int, s: int, width: int, local: int) -> dict:
+    """(M, N, K) of the products of each tensor-parallel stage of
+    ``fused_avq_train`` (``csrc/avq.cu``) on one model rank, in launch
+    order, ``local`` = width / tp the rank's head columns and its share of
+    linear1 / linear2:
+
+    - ``tp_attn``: the question block's q and k|v, the self block's qkv,
+      the cross block's q and k|v over the rank's heads, then the three
+      out_proj partials (self, cross, question) over K = local;
+    - ``tp_mid``: linear1's column shard, linear2's row partial;
+    - ``bwd_tp_ffn``: linear2's dgrad and dW, linear1's dgrad partial and
+      dW;
+    - ``bwd_tp_attn``: per block (question, self, cross) its out_proj
+      dgrad and dW, then its in_proj's dW and the dgrad partials into src,
+      the words and the other stream, as ``avq_train_bwd_gemm_shapes``
+      orders them."""
+    rows, words, d, w = n * t, n * s, width, local
+    out_proj = [(rows, w, d), (d, w, rows)]
+    return {"tp_attn": [(rows, w, d), (words, 2 * w, d), (rows, 3 * w, d), (rows, w, d),
+                        (rows, 2 * w, d)] + [(rows, d, w)] * 3,
+            "tp_mid": [(rows, w, d), (rows, d, w)],
+            "bwd_tp_ffn": [(rows, w, d), (d, w, rows), (rows, d, w), (w, d, rows)],
+            "bwd_tp_attn": (out_proj + [(w, d, rows), (2 * w, d, words), (rows, d, w),
+                                        (words, d, 2 * w)]
+                            + out_proj + [(3 * w, d, rows), (rows, d, 3 * w)]
+                            + out_proj + [(w, d, rows), (2 * w, d, rows), (rows, d, w),
+                                          (rows, d, 2 * w)])}
+
+
+def patch_select_train_tp_gemm_shapes(frames: int, patches: int, width: int,
+                                      local: int) -> dict:
+    """(M, N, K) of the products of each tensor-parallel stage of
+    ``fused_patch_select_train`` (``csrc/patch_select_train.cu``) on one
+    model rank, in launch order, ``local`` = width / tp the rank's head
+    columns (its MLP hidden share is local / 2):
+
+    - ``tp_self``: the self-attention's qkv over the rank's heads, its
+      out_proj partial;
+    - ``tp_cross``: the cross k|v over the patch rows, the query
+      projection, the out_proj partial;
+    - ``tp_mlp``: mlp.0's column shard, mlp.2's row partial;
+    - ``bwd_tp_mlp``: mlp.2's dgrad and dW, mlp.0's dgrad partial and dW;
+    - ``bwd_tp_cross``: the cross out_proj's dgrad and dW, the query
+      half's dW and dgrad partial into the two streams, the k|v half's
+      dgrad partial into x1 and dW;
+    - ``bwd_tp_self``: the self out_proj's dgrad and dW, the qkv dW and
+      the dgrad partial into the patches."""
+    rows, queries, d, w, h = frames * patches, 2 * frames, width, local, local // 2
+    return {"tp_self": [(rows, 3 * w, d), (rows, d, w)],
+            "tp_cross": [(rows, 2 * w, d), (queries, w, d), (queries, d, w)],
+            "tp_mlp": [(queries, h, d), (queries, d, h)],
+            "bwd_tp_mlp": [(queries, h, d), (d, h, queries), (queries, d, h), (h, d, queries)],
+            "bwd_tp_cross": [(queries, w, d), (d, w, queries), (w, d, queries), (queries, d, w),
+                             (rows, d, 2 * w), (2 * w, d, rows)],
+            "bwd_tp_self": [(rows, w, d), (d, w, rows), (3 * w, d, rows), (rows, d, 3 * w)]}
+
+
 def note_routes(kernel, dtype: torch.dtype, shapes) -> None:
     """Adds one to ``kernel.gemm_routes[route]`` for the route each of a
     launch's products takes, so that a run can show which routine its

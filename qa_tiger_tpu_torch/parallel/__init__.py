@@ -1,7 +1,7 @@
 """Data and tensor parallelism over ``torch.distributed``. Port of
 ``qa_tiger_tpu/parallel``: ``dist`` (one process per card, the data axis)
-and ``tensor`` (the data x model grid of the eval forward's tensor-parallel
-forms)."""
+and ``tensor`` (the data x model grid of the tensor-parallel forms, eval
+and train)."""
 from qa_tiger_tpu_torch.parallel.dist import (
     all_reduce_grads,
     all_reduce_sum,
@@ -18,9 +18,12 @@ from qa_tiger_tpu_torch.parallel.dist import (
 )
 from qa_tiger_tpu_torch.parallel.tensor import (
     Grid,
-    all_reduce_model,
+    column_shard,
+    copy_to_model,
     gather_state_dict,
+    head_lanes,
     make_grid,
+    reduce_from_model,
     shard_module_,
     shard_state_dict,
     tp_spec,
@@ -28,9 +31,12 @@ from qa_tiger_tpu_torch.parallel.tensor import (
 
 __all__ = [
     "Grid",
-    "all_reduce_model",
+    "column_shard",
+    "copy_to_model",
     "gather_state_dict",
+    "head_lanes",
     "make_grid",
+    "reduce_from_model",
     "shard_module_",
     "shard_state_dict",
     "tp_spec",

@@ -16,8 +16,9 @@ its own strided shard of every batch, and the runner reduces explicitly:
   without a process group;
 - ``sync_processes(name)``: a barrier, a no-op on one process
   (``mesh.py:29-35``); ``shutdown()`` leaves the process group;
-- ``all_reduce_grads(params, extra)``: every gradient of ``params`` and the
-  scalars of ``extra`` summed over the ranks in one flat fp32 buffer, one
+- ``all_reduce_grads(params, extra, group=)``: every gradient of ``params``
+  and the scalars of ``extra`` summed over the ranks (of ``group``: under a
+  data x model grid its data group) in one flat fp32 buffer, one
   collective per call, the parameters in the order given (the same on
   every rank); the gradients become views of the reduced buffer;
 - ``all_reduce_sum(tensors)``: tensors of any dtype summed over the ranks
@@ -116,9 +117,13 @@ def sync_processes(name: str = "barrier") -> None:
 
 
 def all_reduce_grads(params: Iterable[torch.nn.Parameter],
-                     extra: Mapping[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
+                     extra: Mapping[str, torch.Tensor] | None = None,
+                     group=None) -> dict[str, torch.Tensor]:
     """Sum the gradients of ``params`` and the scalars of ``extra`` over the
-    ranks in one fp32 buffer: one collective, its layout the order of
+    ranks of ``group`` (all of them by default; under a grid its data group:
+    every model rank of a data rank holds the same rows, and a sharded
+    parameter's gradient belongs to its model rank) in one fp32 buffer: one
+    collective, its layout the order of
     ``params``, which every rank must give alike. A parameter without a
     gradient is left out (which parameters have one is the model's, the
     same on every rank). Each gradient becomes its view of the reduced
@@ -128,7 +133,7 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter],
     extra = dict(extra or {})
     flat = torch.cat([p.grad.reshape(-1).float() for p in with_grad]
                      + [v.reshape(1).float() for v in extra.values()])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     offset = 0
     for p in with_grad:
         n = p.numel()

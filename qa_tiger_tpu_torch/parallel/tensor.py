@@ -27,10 +27,21 @@ value once, where the single-rank kernel rounds it:
   rank's shard of a whole state dict, the whole one back from the shards
   and the whole shapes (bitwise), and a module's parameters replaced by
   their shards;
-- ``all_reduce_model(t, grid)``: the sum over the model group, in place.
+- ``reduce_from_model`` / ``copy_to_model``: the model group's collectives
+  made differentiable (Megatron's pair). ``reduce_from_model`` sums a
+  partial over the model group (in place without autograd) and passes the
+  gradient through; ``copy_to_model``
+  passes a replicated input through and sums its gradient over the model
+  group, so that every model rank ends with the whole input gradient and
+  every replicated parameter upstream gets the same gradient on each rank;
+- ``head_lanes`` / ``column_shard``: a rank's share of a dropout mask drawn
+  whole (its heads' lanes of a probability mask, re-padded to the kernels'
+  128-lane width; its columns of a hidden activation's mask), so that every
+  rank draws the same realization from the same stream.
 
-The eval counters are summed over the data group only (``Grid.reduce_data``):
-every model rank of a data rank holds the same rows.
+The counters and the train step's valid counts and gradients are summed
+over the data group only (``Grid.reduce_data``): every model rank of a data
+rank holds the same rows.
 """
 from __future__ import annotations
 
@@ -122,10 +133,66 @@ def make_grid(model_parallel: int = 1) -> Grid:
                 model_group=model_groups[rank // tp])
 
 
-def all_reduce_model(t: torch.Tensor, grid: Grid) -> torch.Tensor:
-    """``t`` summed over ``grid``'s model group, in place; ``t`` itself at
-    model size 1."""
-    return grid.reduce_model(t) if grid.model_size > 1 else t
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid):
+        return grid.reduce_model(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, grid):
+        ctx.grid = grid
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.grid.reduce_model(g.clone()), None
+
+
+def reduce_from_model(t: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """A partial summed over the model group; its gradient passes through
+    unchanged (every rank's partial gets the whole, replicated gradient).
+    Without autograd it sums ``t`` in place; ``t`` itself at model size 1."""
+    if grid.model_size <= 1:
+        return t
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _ReduceFromModel.apply(t, grid)
+    return grid.reduce_model(t)
+
+
+def copy_to_model(t: torch.Tensor, grid: Grid) -> torch.Tensor:
+    """A replicated input of a model-parallel block: ``t`` itself forward;
+    backward, its gradient (each rank's partial: the block's column shards)
+    summed over the model group. ``t`` itself at model size 1 or without
+    autograd."""
+    if grid.model_size <= 1 or not (torch.is_grad_enabled() and t.requires_grad):
+        return t
+    return _CopyToModel.apply(t, grid)
+
+
+def _pad128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def head_lanes(mask: torch.Tensor, heads: int, keys: int, rank: int, tp: int) -> torch.Tensor:
+    """Model rank ``rank``'s share of a probability mask [rows, pad128(heads
+    keys)] (lane h keys + key): the lanes of its heads/tp heads,
+    [r heads/tp keys, (r+1) heads/tp keys), zero-padded again to
+    pad128(heads/tp keys), contiguous."""
+    width = heads // tp * keys
+    part = mask[:, rank * width:(rank + 1) * width]
+    return torch.nn.functional.pad(part, (0, _pad128(width) - width)).contiguous()
+
+
+def column_shard(t: torch.Tensor, rank: int, tp: int) -> torch.Tensor:
+    """Model rank ``rank``'s columns of ``t`` [..., C] (a column split's
+    activation or its mask), contiguous."""
+    return t.chunk(tp, dim=-1)[rank].contiguous()
 
 
 def tp_spec(name: str, shape, tp: int) -> tuple:

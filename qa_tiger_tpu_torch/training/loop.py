@@ -60,8 +60,18 @@ process group (``qa_tiger_tpu_torch.parallel``):
   what it is given and ``params`` gathers the whole state dict back (so
   ``best.npz`` keeps its format and loads at any grid); a loader shards
   over the data axis (``grid.loader_shard``), and eval sums its counters
-  over the data group only. The train step under a model axis raises
-  (ROADMAP.md A7b.2).
+  over the data group only. ``train_step`` and ``train_epoch`` (one step
+  per dispatch) run the train forward's tensor-parallel form: the valid
+  counts are summed over the data group, ``*loss*`` outputs divided by the
+  data size, the gradients all-reduced over the data group (every model
+  rank of a data rank holds the same rows; a sharded parameter's gradient
+  is its rank's), and the dropout stream is split by data rank, so every
+  model rank of a data rank draws the same masks and at one data rank the
+  stream is the single process's. ``train_state`` gathers the trainable
+  parameters and Adam's moments to whole tensors and
+  ``restore_train_state`` shards them back, so a checkpoint resumes at any
+  grid. ``train_window`` (``steps_per_dispatch`` > 1) raises under a model
+  axis (ROADMAP.md A7b.3).
 """
 from __future__ import annotations
 
@@ -148,8 +158,10 @@ class AVQARunner:
     fallback). Weights come from ``seed``, or from ``init_params`` (a
     state_dict or a JAX pytree). ``grid`` (``parallel.make_grid``): this
     rank's place in a data x model grid; a model size above 1 shards the
-    model and allows the eval path only.
+    model.
     """
+
+    grid: Grid | None = None
 
     def __init__(self, cfg: Mapping, model_cfg: Mapping, *,
                  device: str | torch.device | None = None, seed: int = 0,
@@ -171,7 +183,7 @@ class AVQARunner:
             check = getattr(self.model, "check_model_parallel", None)
             if check is None:
                 raise NotImplementedError(f"{type(self.model).__name__} under a model axis is "
-                                          "ROADMAP A7b.2")
+                                          "ROADMAP A7b.3")
             check(grid.model_size)
             shard_module_(self.model, grid)
         self._frozen_prefixes = self.model.FROZEN_PREFIXES
@@ -215,11 +227,35 @@ class AVQARunner:
     def _model_axis(self) -> bool:
         return self.grid is not None and self.grid.model_size > 1
 
-    def _no_model_axis(self, what: str) -> None:
-        if self._model_axis:
-            raise NotImplementedError(
-                f"{what} under a model axis (model_parallel={self.grid.model_size}) is ROADMAP "
-                "A7b.2: the grid runs the eval forward only")
+    @property
+    def _data_parallel(self) -> bool:
+        """Whether the step sums over data ranks: under a model axis, more
+        than one data rank; otherwise a process group of any size (the
+        data-parallel step without a grid, kept bitwise)."""
+        return self.grid.data_size > 1 if self._model_axis else parallel.distributed()
+
+    @property
+    def _data_size(self) -> int:
+        return self.grid.data_size if self._model_axis else parallel.world()
+
+    @property
+    def _data_rank(self) -> int:
+        return self.grid.data_rank if self._model_axis else parallel.rank()
+
+    def _map_moments(self, opt_state: dict, fn) -> dict:
+        """``optimizer.state_dict()`` with each parameter's Adam moments
+        replaced by ``fn(name, moment)``."""
+        names = self._state_names()
+        state = {i: {**entry, **{k: fn(names[i], entry[k]) for k in ("exp_avg", "exp_avg_sq")}}
+                 for i, entry in opt_state["state"].items()}
+        return {**opt_state, "state": state}
+
+    def _state_names(self) -> dict[int, str]:
+        """The parameter name of each index of Adam's ``state_dict``: its
+        groups' parameters in order."""
+        by_id = {id(p): n for n, p in self.trainable()}
+        ps = [p for group in self.optimizer.param_groups for p in group["params"]]
+        return {i: by_id[id(p)] for i, p in enumerate(ps)}
 
     def _frozen(self, name: str) -> bool:
         return name.split(".")[0] in self._frozen_prefixes
@@ -302,8 +338,12 @@ class AVQARunner:
         opt_state = self.optimizer.state_dict()
         for group in opt_state["param_groups"]:
             group["lr"], group["capturable"] = float(group["lr"]), False
-        return {"params": {n: p.detach() for n, p in self.trainable()},
-                "opt_state": opt_state,
+        params = {n: p.detach() for n, p in self.trainable()}
+        if self._model_axis:  # whole tensors, as one process saves them
+            params = gather_state_dict(params, self.grid, self._whole_shapes)
+            opt_state = self._map_moments(opt_state, lambda n, t: gather_state_dict(
+                {n: t}, self.grid, self._whole_shapes)[n])
+        return {"params": params, "opt_state": opt_state,
                 "step_rng": self._step_generator.get_state(), **scalars}
 
     def restore_train_state(self, state: Mapping[str, Any]) -> dict[str, Any]:
@@ -311,7 +351,11 @@ class AVQARunner:
         be there), Adam's state and the dropout stream included; returns the
         host scalars."""
         self.load_params(state["params"])
-        self.optimizer.load_state_dict(state["opt_state"])
+        opt_state = state["opt_state"]
+        if self._model_axis:
+            opt_state = self._map_moments(
+                opt_state, lambda n, t: shard_state_dict({n: t}, self.grid)[n])
+        self.optimizer.load_state_dict(opt_state)
         set_capturable(self.optimizer, self._capturable)
         self._step_graph = None
         if state.get("step_rng") is not None:
@@ -420,15 +464,16 @@ class AVQARunner:
         """The CE over ``batch``'s valid rows plus any ``*loss*`` output.
         Under data parallelism ``count`` is the valid count of the global
         batch: the CE is this rank's share of its masked mean and each
-        ``*loss*`` output is divided by the world size, so that their sums
-        over the ranks are the global batch's."""
+        ``*loss*`` output is divided by the number of data ranks, so that
+        their sums over the data ranks are the global batch's."""
+        extra = {"grid": self.grid} if self._model_axis else {}
         out = self._forward(batch, self._train_dtype, False, train=True, generator=generator,
-                            sites=sites)
+                            sites=sites, **extra)
         if count is None:
             ce, world = masked_cross_entropy(out["out"], batch["label"], batch["valid"]), 1
         else:
             ce = masked_nll_sum(out["out"], batch["label"], batch["valid"]) / count.clamp(min=1.0)
-            world = parallel.world()
+            world = self._data_size
         losses = {"ce_loss": ce}
         total = ce
         for key, value in out.items():
@@ -443,7 +488,6 @@ class AVQARunner:
         """One optimizer step; returns the losses as device scalars. Dropout
         draws from ``generator`` (none without one). The parameter gradients
         stay in ``.grad`` until the next step."""
-        self._no_model_axis("train_step")
         batch = self._device_batch(batch)
         set_lr(self.optimizer, lr)
         return self._step(batch, generator)
@@ -453,11 +497,11 @@ class AVQARunner:
         set; dropout from ``generator`` (split by rank, then per site) or
         from ``sites`` (one list of per-site generators per microbatch,
         seeded: the step graph's). Under data parallelism the gradients and
-        the losses are summed over the ranks before Adam."""
+        the losses are summed over the data ranks before Adam."""
         self.optimizer.zero_grad(set_to_none=True)
         generator = self._rank_generator(generator)
         accum = self._grad_accum
-        dp = parallel.distributed()
+        dp = self._data_parallel
         if accum <= 1:
             count = self._global_counts([batch])[0] if dp else None
             losses = self._losses(batch, generator, None if sites is None else sites[0], count)
@@ -466,26 +510,30 @@ class AVQARunner:
             losses = self._accumulated_backward(batch, generator, accum, sites)
         losses = {k: v.detach() for k, v in losses.items()}
         if dp:
-            losses = parallel.all_reduce_grads([p for _, p in self.trainable()], losses)
+            group = self.grid.data_group if self._model_axis else None
+            losses = parallel.all_reduce_grads([p for _, p in self.trainable()], losses,
+                                               group=group)
         self.optimizer.step()
         return losses
 
     def _rank_generator(self, generator):
         """This rank's dropout stream for one step: ``generator`` itself on
-        one process or at world 1; otherwise a generator seeded with this
-        rank's of ``world`` seeds drawn from it, so that every rank advances
-        the shared stream alike and draws masks of its own."""
-        world = parallel.world()
-        if generator is None or world <= 1:
+        one process or at one data rank; otherwise a generator seeded with
+        this data rank's of ``data_size`` seeds drawn from it, so that every
+        rank advances the shared stream alike, every data rank draws masks
+        of its own and the model ranks of one data rank draw the same."""
+        size = self._data_size
+        if generator is None or size <= 1:
             return generator
-        seed = split_seeds(generator, world)[parallel.rank()]
+        seed = split_seeds(generator, size)[self._data_rank]
         return torch.Generator(device=generator.device).manual_seed(seed)
 
-    @staticmethod
-    def _global_counts(mbs: list[dict]) -> torch.Tensor:
-        """The valid-row count of each (micro)batch, summed over the ranks
-        under data parallelism: [len(mbs)] fp32, one collective."""
+    def _global_counts(self, mbs: list[dict]) -> torch.Tensor:
+        """The valid-row count of each (micro)batch, summed over the data
+        ranks under data parallelism: [len(mbs)] fp32, one collective."""
         counts = torch.stack([mb["valid"].float().sum() for mb in mbs])
+        if self._model_axis:
+            return self.grid.reduce_data([counts])[0]
         return parallel.all_reduce_sum([counts])[0]
 
     def train_window(self, batches: list[dict], lr: float) -> list[dict[str, torch.Tensor]]:
@@ -495,7 +543,11 @@ class AVQARunner:
         graph's shapes goes through it (``StepGraph``: captured on the card
         at its second batch, replayed from then on); one of other shapes
         through the eager step."""
-        self._no_model_axis("train_window")
+        if self._model_axis:
+            raise NotImplementedError(
+                f"steps_per_dispatch > 1 under a model axis (model_parallel="
+                f"{self.grid.model_size}) is ROADMAP A7b.3: the step graph would have to "
+                "capture the model group's all-reduces; run one step per dispatch")
         set_lr(self.optimizer, lr)
         out = []
         for batch in batches:
@@ -540,7 +592,7 @@ class AVQARunner:
             draws = [(None, None)] * accum
         sums: dict[str, torch.Tensor] = {}
         w_sum = torch.zeros((), device=self.device)
-        dp = parallel.distributed()
+        dp = self._data_parallel
         counts = self._global_counts(mbs) if dp else None
         for i, (mb, (gen, site)) in enumerate(zip(mbs, draws)):
             w = counts[i] if dp else mb["valid"].float().sum()
@@ -570,7 +622,6 @@ class AVQARunner:
 
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int, loader, lr: float, writer=None) -> None:
-        self._no_model_axis("train_epoch")
         cfg = self.cfg
         logger = self.logger
         log_interval = cfg.get("log_interval", 100)
