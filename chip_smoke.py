@@ -234,7 +234,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
    1e-5, the first step's gradients gathered within 1e-4 of the step's
    largest gradient element, the replicated parameters bitwise equal on
    the ranks after the last step, a rank's launches per step one
-   process's and its stage launches printed;
+   process's and its stage launches printed; (b), (e), (g) and 12(a)
+   share one spawn of two ranks (``pair_spawn``: data parallelism at world
+   2, then a dp1 x tp2 grid), one process's runs of the same parts made
+   while the ranks run;
+   (f) ``tp_tspm_chain`` (in phase 3, after ``tp_chain``): one-head
+   attention_wide split by lanes (``attention_wide_tp_scores``,
+   ``attention_wide_tp_pv``) at TSPM's AV_Attn [512, 60, 512] and
+   TokensAttn [2560, 14, 512], tp 2 and 4, bf16 and fp32: each rank's
+   stages against their plain versions, the partial scores summed in rank
+   order, the ranks' lanes against the single-rank kernel on the whole
+   head (FP32_TOL / BF16_TOL), rank 0's stages timed beside their bounds,
+   the lines under ``tp`` in attention_wide's table entry; (g)
+   ``tp_tspm``: TSPM (configs/tspm/vitl14.py, seed 0) on the shared
+   dp1 x tp2 ranks against one process: the bf16 B=256 forward's logits
+   within BF16_TOL, the top-K frames one process's (a sample whose frames
+   differ only at a K-th / (K+1)-th tie within 2 bf16 ulps, at most 4),
+   the smallest gap printed, a rank's launches one process's and its stage
+   launches 3 and 3; the fp32 B=32 recipe, dropout on, 3 steps: losses
+   within rtol 1e-5, first-step gradients within 1e-4 of each tensor's
+   own largest, replicated parameters bitwise, no launch; (h)
+   ``tp_graph``: the model-axis step under a CUDA graph on the one card
+   (NCCL refuses two ranks on one card): the train stage chain of (d) at
+   tp 2 in fp32 and the two one-head stages in bf16, every rank in this
+   process, captured in one graph, each of 3 replays bitwise the eager
+   chain; and, where PyTorch has its fake process group (collectives that
+   do nothing), one process at dp1 x tp2 whose ``train_window`` at K = 4
+   captures rank 0's whole QA-TIGER step, 8 replays bitwise the eager
+   static-input step (the capture, not a TP step's numbers);
 14. the kernel table as one JSON line (each entry's ``launches`` from its
    own path, ``launches_by_path`` from all of them, ``serve`` per served
    batch, ``train_graph`` per replay, ``tspm`` per bf16 forward,
@@ -243,8 +270,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    replay under the group, ``cli_v2`` the whole phase, ``clip_rn50`` and
    ``clip_vitl336`` one bf16 forward;
    ``attention_wide``'s entry also lists the ``tspm`` lines; ``tp_eval``
-   rank 0's bf16 forward; ``tp_train`` rank 0's last step), then the
-   device's JSON line last.
+   rank 0's bf16 forward; ``tp_train`` rank 0's last step; ``tp_tspm`` rank
+   0's TSPM bf16 forward; ``tp_graph`` one replay of (h)'s captured step),
+   then the device's JSON line last.
 
 Every phase prints its wall seconds (``phase_seconds`` lines), and one line
 before the card's sums them by phase (``"phase": "seconds"``).
@@ -2066,10 +2094,10 @@ GRAPH_K = 4
 WINDOW_TOL = dict(rtol=2e-4, atol=2e-5)
 
 
-def graph_runner(capture: bool = True, k: int = GRAPH_K, seed: int = 0, **hp):
+def graph_runner(capture: bool = True, k: int = GRAPH_K, seed: int = 0, grid=None, **hp):
     """An AVQARunner at the recipe with ``steps_per_dispatch`` = k (and any
-    other ``hyper_params``); ``capture=False`` runs its static-input step
-    eagerly on the card, the graph's twin."""
+    other ``hyper_params``), on ``grid`` where given; ``capture=False`` runs
+    its static-input step eagerly on the card, the graph's twin."""
     from qa_tiger_tpu_torch.training import AVQARunner
 
     cfg, mcfg = train_setup()
@@ -2077,7 +2105,7 @@ def graph_runner(capture: bool = True, k: int = GRAPH_K, seed: int = 0, **hp):
     if accum:
         cfg["hyper_params"]["optim"]["grad_accum"] = accum
     cfg["hyper_params"].update(steps_per_dispatch=k, **hp)
-    runner = AVQARunner(cfg, mcfg, device="cuda", seed=seed)
+    runner = AVQARunner(cfg, mcfg, device="cuda", seed=seed, grid=grid)
     runner.graph_capture = capture
     return runner
 
@@ -3488,21 +3516,31 @@ def _dp_entry(rank: int, world: int, tmp: str, fn, args) -> None:
     torch.save(out, f"{tmp}/rank{rank}.pt")
 
 
-def dp_spawn(fn, *args, world: int = DP_WORLD) -> list:
+def dp_spawn(fn, *args, world: int = DP_WORLD, meanwhile=None):
     """``fn(rank, *args)`` on ``world`` ranks spawned on the card over gloo;
-    their results in rank order. A rank that raised fails the phase."""
+    their results in rank order. A rank that raised fails the phase. With
+    ``meanwhile``, this process calls it while the ranks run (their
+    collectives go through the host, so the card has room) and returns
+    (the ranks' results, its result)."""
     import tempfile
 
     import torch
     import torch.multiprocessing as mp
 
+    side = None
     with tempfile.TemporaryDirectory() as tmp:
-        mp.spawn(_dp_entry, args=(world, tmp, fn, args), nprocs=world, join=True)
+        ctx = mp.start_processes(_dp_entry, args=(world, tmp, fn, args), nprocs=world,
+                                 join=False, start_method="spawn")
+        try:
+            side = meanwhile() if meanwhile is not None else None
+        finally:
+            while not ctx.join():
+                pass
         outs = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False) for r in range(world)]
     for r, out in enumerate(outs):
         error = out.get("error") if isinstance(out, dict) else None
         require(error is None, f"rank {r} of {world} failed:\n{error}")
-    return outs
+    return outs if meanwhile is None else (outs, side)
 
 
 class ArrayDataset:
@@ -3581,7 +3619,7 @@ def dp_run(rank: int | None) -> dict:
     return out
 
 
-def check_dp() -> tuple[dict, dict]:
+def check_dp(pair: dict) -> tuple[dict, dict]:
     """Phases ``dp_eval`` and ``dp_train``: two ranks spawned on the card
     over gloo (which reduces CUDA tensors through the host: their times are
     no figure for NCCL) against one process on the same global batches.
@@ -3593,20 +3631,11 @@ def check_dp() -> tuple[dict, dict]:
     step, each train kernel once (with the attention dropout off,
     QstGrounding's and TempMoE's attentions take ``attention_wide``: 4 per
     step where the dropout-on step of ``train_step_launches`` has 0).
-    Returns (rank 0's eval counts, its last step's)."""
+    Returns (rank 0's eval counts, its last step's). The ranks' runs and
+    one process's come from ``pair`` (``check_pair``)."""
     import torch
 
-    from qa_tiger_tpu_torch.models import modules
-
-    start = time.perf_counter()
-    ranks = dp_spawn(dp_run)
-    dp_s = time.perf_counter() - start
-    attn_dropout = modules.ATTN_DROPOUT
-    try:
-        single = dp_run(None)
-    finally:
-        modules.ATTN_DROPOUT = attn_dropout
-    torch.cuda.empty_cache()
+    ranks, single, dp_s = [r["dp"] for r in pair["ranks"]], pair["single"]["dp"], pair["seconds"]
 
     evals = [r["eval"] for r in ranks]
     loss, cor, tot, cor9, tot9 = single["eval"]
@@ -3936,8 +3965,8 @@ def _tp_stage(case, dtype, tol, timed: bool, lines: list):
     if timed:
         require(_repeat_equal(case[2]), f"{case[0]} {case[1]}: two launches differ")
         lines.append({k: line[k] for k in ("kernel", "dtype", "shape", "max_abs_err", "ms",
-                                           "plain_ms", "bound_ms", "bound_by", "gemm_route",
-                                           "route") if k in line})
+                                           "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                           "gemm_route", "route") if k in line})
     out = case[2]()
     torch.cuda.synchronize()
     return out
@@ -4188,16 +4217,18 @@ def tp_model(grid, dtype):
 
 
 def tp_forward(grid) -> dict:
-    """The eval forward at fp32 B=4 and bf16 B=256 (features from numpy seed
-    21, the same in every process), the launch counters reset around each:
-    the logits on the host, the launches and the stage launches."""
+    """The eval forward at fp32 B=4 and bf16 B=256 (one model, cast to bf16
+    after the fp32 forward; features from numpy seed 21, the same in every
+    process), the launch counters reset around each: the logits on the
+    host, the launches and the stage launches."""
     import torch
 
     from qa_tiger_tpu_torch import ops
 
     out = {}
+    model = tp_model(grid, torch.float32)
     for dtype, B in zip((torch.float32, torch.bfloat16), TP_EVAL_B):
-        model = tp_model(grid, dtype)
+        model = model.to(dtype)
         batch = {k: torch.from_numpy(v).to(device="cuda",
                                             dtype=dtype if v.dtype == np.float32 else None)
                  for k, v in make_batch(np.random.default_rng(21), B).items()}
@@ -4214,15 +4245,15 @@ def tp_forward(grid) -> dict:
             "stages": ops.stage_counts(), "ms": (time.perf_counter() - start) * 1e3,
             "routes": {n: dict(f.gemm_routes) for n, f in ops.TP_STAGES.items()
                        if getattr(f, "gemm_routes", None)}}
-        del model
-        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
-def tp_rank(rank: int, part: str) -> dict:
-    """A spawned rank of ``tp_eval`` (``part`` "forward": dp1 x tp2) or
-    ``tp_grid`` ("grid": dp2 x tp2, ``_run_eval`` over the DP_EVAL_N rows,
-    this data rank's shard at 32 // data_size rows per batch)."""
+def tp_grid_rank(rank: int) -> dict:
+    """A spawned rank of ``tp_grid``: dp2 x tp2, ``_run_eval`` over the
+    DP_EVAL_N rows, this data rank's shard at 32 // data_size rows per
+    batch."""
     import torch
 
     from qa_tiger_tpu_torch import ops
@@ -4230,8 +4261,6 @@ def tp_rank(rank: int, part: str) -> dict:
     from qa_tiger_tpu_torch.parallel import make_grid
 
     grid = make_grid(2)
-    if part == "forward":
-        return tp_forward(grid)
     _, evals = dp_data()
     cfg, mcfg = train_setup(gather_mode="paper")
     from qa_tiger_tpu_torch.training import AVQARunner
@@ -4247,11 +4276,12 @@ def tp_rank(rank: int, part: str) -> dict:
             "grid": [grid.data_rank, grid.data_size, grid.model_rank, grid.model_size]}
 
 
-def check_tp_eval() -> dict:
+def check_tp_eval(pair: dict) -> dict:
     """Phases ``tp_eval`` and ``tp_grid``: ranks spawned on the one card over
     gloo (NCCL refuses two ranks on one card; gloo sums CUDA tensors through
     the host, so the times say nothing of tensor parallelism's speed).
-    tp_eval, dp1 x tp2 at the vitl14 config from seed 0: (a) fp32 B=4, the
+    tp_eval, dp1 x tp2 (the ``eval`` part of ``pair``, ``check_pair``'s
+    ranks and one process) at the vitl14 config from seed 0: (a) fp32 B=4, the
     logits within LOGITS_TOL of one process, the two ranks bitwise equal;
     (b) bf16 B=256, one forward, within BF16_TOL of one process, each
     rank's launches those of one process (12 / 7 / 1 / 2) and its stage
@@ -4264,10 +4294,8 @@ def check_tp_eval() -> dict:
     from qa_tiger_tpu_torch.data import BatchLoader
     from qa_tiger_tpu_torch.training import AVQARunner
 
-    start = time.perf_counter()
-    ranks = dp_spawn(tp_rank, "forward", world=2)
-    spawn_s = time.perf_counter() - start
-    single = tp_forward(None)
+    ranks, spawn_s = [r["eval"] for r in pair["ranks"]], pair["seconds"]
+    single = pair["single"]["eval"]
     for dname, tol in (("float32", None), ("bfloat16", BF16_TOL)):
         want = single[dname]["logits"]
         r0, r1 = (r[dname] for r in ranks)
@@ -4308,17 +4336,19 @@ def check_tp_eval() -> dict:
     torch.cuda.empty_cache()
 
     start = time.perf_counter()
-    grid_ranks = dp_spawn(tp_rank, "grid", world=4)
+    def single_eval():
+        _, evals = dp_data()
+        cfg, mcfg = train_setup(gather_mode="paper")
+        runner = AVQARunner(cfg, mcfg, device="cuda", seed=0)
+        ops.reset_launches()
+        one = runner._run_eval(BatchLoader(ArrayDataset(evals), 32), debug=False)
+        torch.cuda.synchronize()
+        return ([one[0], one[1], one[2], [int(x) for x in one[3]], [int(x) for x in one[4]]],
+                ops.launch_counts())
+
+    grid_ranks, (one, one_launches) = dp_spawn(tp_grid_rank, world=4, meanwhile=single_eval)
     grid_s = time.perf_counter() - start
-    _, evals = dp_data()
-    cfg, mcfg = train_setup(gather_mode="paper")
-    runner = AVQARunner(cfg, mcfg, device="cuda", seed=0)
-    ops.reset_launches()
-    one = runner._run_eval(BatchLoader(ArrayDataset(evals), 32), debug=False)
-    one_launches = ops.launch_counts()
-    del runner
     torch.cuda.empty_cache()
-    one = [one[0], one[1], one[2], [int(x) for x in one[3]], [int(x) for x in one[4]]]
     equal = all(r["eval"][1:] == one[1:] for r in grid_ranks) and one[2] == DP_EVAL_N
     loss_ok = all(np.isclose(r["eval"][0], one[0], **LOGITS_TOL) for r in grid_ranks)
     print(json.dumps({"phase": "tp_grid", "grid": "dp2xtp2", "backend": "gloo", "rows": DP_EVAL_N,
@@ -4490,19 +4520,18 @@ def _against_tp1(op: str, tp: int, dtype, got: list, want: list, ref32: list | N
                 f"from the single-rank kernel by {worst[2]:.3e}")
 
 
-def tp_train_avq(tp: int, dtype, rng, gen, tp1: dict) -> list:
-    """fused_avq_train's five stages at the recipe (N = 2 x 32 rows, T 60,
-    S 77, D 512, 8 heads) on tp ranks; the output and every gradient
-    against the single-rank kernel pair. Returns the timed stage lines."""
+def avq_tp_setup(tp: int, dtype, rng, gen):
+    """fused_avq_train at the recipe (N = 2 x 32 rows, T 60, S 77, D 512, 8
+    heads): the module, its activations (leaves), a dropout realization, a
+    cotangent, and ``make_state(rank, dtype)``: a rank's stage state over
+    its shards and its share of the masks."""
     import torch
 
     from qa_tiger_tpu_torch.models.modules import AVQCrossAttn, make_avq_dropout_masks
     from qa_tiger_tpu_torch.ops import avq as AV
     from qa_tiger_tpu_torch.parallel import Grid, shard_module_
-    from qa_tiger_tpu_torch.parallel.tensor import merge_shards, tp_spec
 
     D, H, N = 512, 8, 2 * TP_TRAIN_B
-    R, heads = N * T, H // tp
 
     def rn(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
@@ -4512,6 +4541,30 @@ def tp_train_avq(tp: int, dtype, rng, gen, tp1: dict) -> list:
     mgen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
     masks = make_avq_dropout_masks(mgen, N, T, S, D, nhead=H, dropout_p=0.1, dtype=dtype)
     cot = rn(N, T, D)
+    shards = [shard_module_(copy.deepcopy(avq), Grid(model_rank=r, model_size=tp))
+              for r in range(tp)]
+    shares = [AV.shard_avq_masks(masks, H, S, T, r, tp) for r in range(tp)]
+
+    def make_state(r, dt):
+        ws = [w.detach().to(dt).contiguous() for w in AV._weights(shards[r])]
+        return AV._AVQState(*[a.detach().to(dt) for a in acts], ws,
+                            {k: v.to(dt).contiguous() for k, v in shares[r].items()}, H // tp)
+
+    return avq, acts, masks, cot, make_state
+
+
+def tp_train_avq(tp: int, dtype, rng, gen, tp1: dict) -> list:
+    """fused_avq_train's five stages at the recipe (``avq_tp_setup``) on tp
+    ranks; the output and every gradient against the single-rank kernel
+    pair. Returns the timed stage lines."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import avq as AV
+    from qa_tiger_tpu_torch.parallel.tensor import merge_shards, tp_spec
+
+    D, H, N = 512, 8, 2 * TP_TRAIN_B
+    R, heads = N * T, H // tp
+    avq, acts, masks, cot, make_state = avq_tp_setup(tp, dtype, rng, gen)
     params = list(avq.parameters())
     want = _grads(AV.fused_avq_train(*acts, avq, masks, H), acts + params, [cot])
     ref32 = None
@@ -4521,14 +4574,6 @@ def tp_train_avq(tp: int, dtype, rng, gen, tp1: dict) -> list:
         ref32 = _grads(AV.avq_sub_forward_masked(m32, *a32, {k: v.float() for k, v in
                                                                masks.items()}, nhead=H),
                        a32 + list(m32.parameters()), [cot.float()])
-    shards = [shard_module_(copy.deepcopy(avq), Grid(model_rank=r, model_size=tp))
-              for r in range(tp)]
-    shares = [AV.shard_avq_masks(masks, H, S, T, r, tp) for r in range(tp)]
-
-    def make_state(r, dt):
-        ws = [w.detach().to(dt).contiguous() for w in AV._weights(shards[r])]
-        return AV._AVQState(*[a.detach().to(dt) for a in acts], ws,
-                            {k: v.to(dt).contiguous() for k, v in shares[r].items()}, heads)
 
     lines = []
     ch = TrainChain("fused_avq_train", tp, dtype, make_state, dtype == torch.float32, lines)
@@ -4566,19 +4611,17 @@ def tp_train_avq(tp: int, dtype, rng, gen, tp1: dict) -> list:
     return [ln for ln in lines if "ms" in ln]
 
 
-def tp_train_patch(tp: int, dtype, rng, gen, tp1: dict) -> list:
-    """fused_patch_select_train's seven stages at the recipe (patch[32, 60,
-    14, 512], 8 heads) on tp ranks; the outputs and every gradient against
-    the single-rank kernel pair. Returns the timed stage lines."""
+def patch_tp_setup(tp: int, dtype, rng, gen):
+    """fused_patch_select_train at the recipe (patch[32, 60, 14, 512], 8
+    heads): the module, its activations (leaves), a dropout realization,
+    the two outputs' cotangents and ``make_state(rank, dtype)``."""
     import torch
 
     from qa_tiger_tpu_torch.models.modules import PatchSelecter, make_patch_dropout_masks
     from qa_tiger_tpu_torch.ops import patch_select as PS
     from qa_tiger_tpu_torch.parallel import Grid, shard_module_
-    from qa_tiger_tpu_torch.parallel.tensor import merge_shards, tp_spec
 
     D, H, B = 512, 8, TP_TRAIN_B
-    BT, heads = B * T, H // tp
 
     def rn(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
@@ -4586,8 +4629,32 @@ def tp_train_patch(tp: int, dtype, rng, gen, tp1: dict) -> list:
     ps = PatchSelecter(D, gen).to("cuda", dtype)
     acts = [_leaf(rn(B, T, P, D)), _leaf(rn(B, T, D)), _leaf(rn(B, T, D))]
     mgen = torch.Generator(device="cuda").manual_seed(int(rng.integers(1 << 30)))
-    masks = make_patch_dropout_masks(mgen, BT, P, D, nhead=H, dropout_p=0.1, dtype=dtype)
+    masks = make_patch_dropout_masks(mgen, B * T, P, D, nhead=H, dropout_p=0.1, dtype=dtype)
     cots = [rn(B, T, D), rn(B, T, D)]
+    shards = [shard_module_(copy.deepcopy(ps), Grid(model_rank=r, model_size=tp))
+              for r in range(tp)]
+    shares = [PS.shard_patch_masks(masks, H, P, r, tp) for r in range(tp)]
+
+    def make_state(r, dt):
+        ws = [w.detach().to(dt).contiguous() for w in PS._weights(shards[r])]
+        return PS._PSState(*[a.detach().to(dt) for a in acts], ws,
+                           {k: v.to(dt).contiguous() for k, v in shares[r].items()}, H // tp)
+
+    return ps, acts, masks, cots, make_state
+
+
+def tp_train_patch(tp: int, dtype, rng, gen, tp1: dict) -> list:
+    """fused_patch_select_train's seven stages at the recipe
+    (``patch_tp_setup``) on tp ranks; the outputs and every gradient
+    against the single-rank kernel pair. Returns the timed stage lines."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import patch_select as PS
+    from qa_tiger_tpu_torch.parallel.tensor import merge_shards, tp_spec
+
+    D, H, B = 512, 8, TP_TRAIN_B
+    BT, heads = B * T, H // tp
+    ps, acts, masks, cots, make_state = patch_tp_setup(tp, dtype, rng, gen)
     params = list(ps.parameters())
     want = _grads(PS.fused_patch_select_train(*acts, ps, masks, H), acts + params, cots)
     ref32 = None
@@ -4597,14 +4664,6 @@ def tp_train_patch(tp: int, dtype, rng, gen, tp1: dict) -> list:
         ref32 = _grads(tuple(PS.patch_selecter_plain(
             m32, *a32, nhead=H, masks={k: v.float() for k, v in masks.items()})),
             a32 + list(m32.parameters()), [c.float() for c in cots])
-    shards = [shard_module_(copy.deepcopy(ps), Grid(model_rank=r, model_size=tp))
-              for r in range(tp)]
-    shares = [PS.shard_patch_masks(masks, H, P, r, tp) for r in range(tp)]
-
-    def make_state(r, dt):
-        ws = [w.detach().to(dt).contiguous() for w in PS._weights(shards[r])]
-        return PS._PSState(*[a.detach().to(dt) for a in acts], ws,
-                           {k: v.to(dt).contiguous() for k, v in shares[r].items()}, heads)
 
     lines = []
     ch = TrainChain("fused_patch_select_train", tp, dtype, make_state, dtype == torch.float32,
@@ -4790,11 +4849,6 @@ def tp_train_run(rank: int | None, tower: str = "float32", kinks: list | None = 
     return out
 
 
-def tp_train_rank(rank: int) -> dict:
-    """One rank of ``check_tp_train``: ``tp_train_run`` with each tower."""
-    return {tower: tp_train_run(rank, tower) for tower in TP_TRAIN_TOWERS}
-
-
 def relu_kinks(single: list, ranks: list) -> tuple[list, list]:
     """The hidden units of TempMoE's experts whose ReLU the ranks' backward
     and one process's take on different sides: each recomputes x W1 + b1 in
@@ -4859,10 +4913,11 @@ def tower_diff(one: list, ranks: list) -> dict:
     return out
 
 
-def check_tp_train() -> dict:
+def check_tp_train(pair: dict) -> dict:
     """Phase ``tp_train``: dp1 x tp2, two ranks spawned on the card over gloo
-    (NCCL refuses two ranks on one card, and gloo's host round trips make
-    the times no figure for tensor parallelism's speed), against one
+    (the ``train`` part of ``pair``; NCCL refuses two ranks on one card, and
+    gloo's host round trips make the times no figure for tensor
+    parallelism's speed), against one
     process: TP_TRAIN_STEPS B=32 steps with dropout on from the same step
     generator, with the tower in fp32 and in the recipe's bf16. In both, the
     ranks' replicated parameters bitwise equal after the last step, each
@@ -4878,10 +4933,8 @@ def check_tp_train() -> dict:
     launches of its last fp32-tower step."""
     import torch
 
-    start = time.perf_counter()
-    ranks = dp_spawn(tp_train_rank, world=2)
-    spawn_s = time.perf_counter() - start
-    single = {tower: tp_train_run(None, tower) for tower in TP_TRAIN_TOWERS}
+    ranks, spawn_s = [r["train"] for r in pair["ranks"]], pair["seconds"]
+    single = pair["single"]["train"]
     one, tps = single["float32"], [r["float32"] for r in ranks]
     sides, kinks = relu_kinks(one["probe"]["moe"], [r["probe"]["moe"] for r in tps])
     aligned = tp_train_run(None, "float32", kinks=sides, steps=1)
@@ -4956,6 +5009,579 @@ def check_tp_train() -> dict:
                                  f"{fp32['grad_max_err_over_own_max']:.3e} of its own largest "
                                  "element")
     return ranks[0]["float32"]["launches"][-1]
+
+
+# ---------------------------------------------------------------------------
+# TSPM under the grid and the model-axis step graph (A7b.3)
+# ---------------------------------------------------------------------------
+
+# the one-head calls of TSPM split by lanes, at B=256: (label, problems, Sq, Sk)
+TP_TSPM_SHAPES = (("AV_Attn", 2 * 256, T, T), ("TokensAttn", 256 * 10, P, P))
+# per rank and TSPM bf16 forward: AV_Attn's two and TokensAttn's one
+# one-head calls split by lanes (the four-head calls keep attention_wide)
+TP_TSPM_STAGE_COUNTS = {"attention_wide_tp_scores": 3, "attention_wide_tp_pv": 3}
+TP_TSPM_EVAL_B, TP_TSPM_TRAIN_B = 256, 32
+# the most samples of the bf16 B=256 forward whose top-K frames may differ
+# from one process's, each with its K-th / (K+1)-th weight gap within
+# TP_TSPM_GAP_ULPS bf16 ulps of the K-th weight
+TP_TSPM_MAX_FLIPS, TP_TSPM_GAP_ULPS = 4, 2
+# the ranks' bf16 B=256 logits against one process's, in bf16 ulps of the
+# largest logit: set from the readings of 1 ulp (0.001953125 of 0.314453125)
+TP_TSPM_LOGIT_ULPS = 4
+
+
+def bmm_f32(a, b):
+    """The library yardstick of a product with an fp32 output: ``torch.bmm``
+    (fp32 operands; TF32 is off), for bf16 its ``out_dtype`` overload; None
+    where this PyTorch has no such overload on the card."""
+    import torch
+
+    if a.dtype == torch.float32:
+        return lambda: torch.bmm(a, b)
+    try:
+        torch.bmm(a[:1], b[:1], out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return None
+    return lambda: torch.bmm(a, b, out_dtype=torch.float32)
+
+
+def tp_tspm_lanes(tp: int, dtype, label: str, b: int, sq: int, sk: int, tol: float,
+                  rng) -> dict:
+    """One-head attention_wide over a 512-lane head split over tp ranks (q,
+    k and v the rank's lanes of one packed [q; k; v], as the model projects
+    them): each rank's partial scores against their plain version, the
+    partials summed in rank order, each rank's context lanes against their
+    plain version, and the ranks' lanes against the single-rank kernel on
+    the whole head. Rank 0's stages timed beside their bounds."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import attention as A
+
+    W, wl = 512, 512 // tp
+    isz = torch.tensor([], dtype=dtype).element_size()
+    dname = str(dtype).replace("torch.", "")
+    buf = torch.from_numpy(rng.standard_normal((b, sq, 3 * W), dtype=np.float32)).to("cuda",
+                                                                                   dtype)
+    q, k, v = buf[..., :W], buf[..., W:2 * W], buf[..., 2 * W:]
+    scale = W ** -0.5
+    want = A.attention_wide(q, k, v, None, scale, 1)
+    tp1_ms = cuda_ms(lambda: A.attention_wide(q, k, v, None, scale, 1))
+    lanes = [slice(r * wl, (r + 1) * wl) for r in range(tp)]
+    lines, parts = [], []
+    for r, c in enumerate(lanes):
+        case = ("attention_wide_tp_scores", f"{label}: q[{b},{sq},{wl}] k[{b},{sk},{wl}] "
+                f"tp{tp} rank{r}",
+                lambda c=c: A.attention_wide_tp_scores(q[..., c], k[..., c]),
+                lambda c=c: A.tp_partial_scores(q[..., c], k[..., c]),
+                bmm_f32(q[..., c], k[..., c].mT),
+                b * (sq + sk) * wl * isz + b * sq * sk * 4, 2 * b * sq * sk * wl, {})
+        parts.append(_tp_stage(case, dtype, FP32_TOL, r == 0, lines))
+        if r == 0:
+            lines[-1]["route"] = A.tp_scores_route(dtype, sq, sk)
+    scores = _tp_sum(parts)
+    outs = []
+    for r, c in enumerate(lanes):
+        case = ("attention_wide_tp_pv", f"{label}: scores[{b},{sq},{sk}] v[{b},{sk},{wl}] "
+                f"tp{tp} rank{r}",
+                lambda c=c: A.attention_wide_tp_pv(scores, v[..., c], None, scale),
+                lambda c=c: A._tp_pv_plain(scores, v[..., c], mask=None, scale=scale), None,
+                b * sq * sk * 4 + b * sk * wl * isz + b * sq * wl * isz, 2 * b * sq * sk * wl,
+                {})
+        outs.append(_tp_stage(case, dtype, tol, r == 0, lines))
+        if r == 0:
+            lines[-1]["route"] = "fma"
+    got = torch.cat(outs, dim=-1)
+    _tp_against_tp1(f"attention_wide {label} (one head by lanes)", tp, dtype, tol, got, want,
+                    tp1_ms, lines)
+    return {"shape": label, "dtype": dname, "stages": lines, "tp1_ms": tp1_ms}
+
+
+def check_tp_tspm_chain(entries: dict) -> None:
+    """Phase ``tp_tspm_chain``: attention_wide's two stages for one head
+    split by lanes (``attention_wide_tp_scores``, ``attention_wide_tp_pv``)
+    at TSPM's one-head shapes (AV_Attn q/k/v [512, 60, 512], TokensAttn
+    [2560, 14, 512]), tp 2 and 4, bf16 and fp32 (``tp_tspm_lanes``): fp32
+    within FP32_TOL, bf16 within BF16_TOL, as ``check_tspm_attention``
+    holds the single-rank kernel. The lines go into attention_wide's table
+    entry under ``tp``."""
+    import torch
+
+    rng = np.random.default_rng(20)
+    runs: dict = {}
+    with torch.inference_mode():
+        for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, FP32_TOL)):
+            for tp in TP_SIZES:
+                for label, b, sq, sk in TP_TSPM_SHAPES:
+                    runs.setdefault(f"tp{tp}", []).append(
+                        tp_tspm_lanes(tp, dtype, label, b, sq, sk, tol, rng))
+            torch.cuda.empty_cache()
+    entries["attention_wide"]["tp"] = runs
+
+
+def tspm_tp_forward(grid) -> dict:
+    """TSPM at configs/tspm/vitl14.py from seed 0 (this rank's shards under
+    ``grid``, whole without one), bf16, one B=256 eval forward (features
+    from numpy seed 22) after a warm-up, the launch counters reset around
+    it: the logits, the temporal weights and top-K frames, the launches and
+    the stage launches."""
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.models import TSPM
+    from qa_tiger_tpu_torch.parallel import shard_module_
+
+    _, mcfg = tspm_setup()
+    model = TSPM(mcfg, seed=0).eval()
+    if grid is not None:
+        shard_module_(model, grid)
+    model = model.to("cuda", torch.bfloat16)
+    batch = {k: torch.from_numpy(v).to("cuda", torch.bfloat16)
+             for k, v in make_tspm_batch(np.random.default_rng(22), TP_TSPM_EVAL_B).items()}
+    kw = {} if grid is None else {"grid": grid}
+    with torch.no_grad():
+        model(batch, **kw)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        start = time.perf_counter()
+        out = model(batch, aux=True, **kw)
+        torch.cuda.synchronize()
+    result = {"logits": out["out"].float().cpu(), "weights": out["temporal_weights"].float().cpu(),
+              "topk": out["topk_idx"].cpu(), "launches": ops.launch_counts(),
+              "stages": ops.stage_counts(), "ms": (time.perf_counter() - start) * 1e3}
+    del model, batch, out
+    torch.cuda.empty_cache()
+    return result
+
+
+@contextlib.contextmanager
+def ffn_probe(record: dict, kinks: list | None = None):
+    """While open: each TSPM FFN call (``models.tspm._ffn``, five per
+    forward) recorded on the host in call order (``record["ffn"]``: its
+    input, its first Linear's pre-activation as the call computes it (under
+    a grid the rank's columns), that Linear's weight and bias). With
+    ``kinks`` (one process only; per call a tensor of -1, 0 or +1 shaped as
+    the pre-activation) the hidden ReLU takes the other side of its kink
+    where the entry is not 0: the output is unchanged, and the backward
+    adds (+1) or drops (-1) those hidden units' gradient, as a run whose
+    ReLU fell on that side would."""
+    import torch
+
+    from qa_tiger_tpu_torch.models import tspm
+    from qa_tiger_tpu_torch.nn.core import dropout
+
+    saved = tspm._ffn
+    record["ffn"] = []
+
+    def call(x, lin1, lin2, dp, gen, grid=None):
+        i = len(record["ffn"])
+        with torch.no_grad():
+            pre = lin1(x)
+        record["ffn"].append([t.detach().cpu() for t in (x, pre, lin1.weight, lin1.bias)])
+        if kinks is None:
+            return saved(x, lin1, lin2, dp, gen, grid)
+        pre = lin1(x)
+        hid = torch.relu(pre)
+        side = kinks[i].to(pre.device)
+        if side.any():
+            extra = side * pre
+            hid = hid + (extra - extra.detach())
+        return lin2(dropout(hid, dp, gen))
+
+    tspm._ffn = call
+    try:
+        yield
+    finally:
+        tspm._ffn = saved
+
+
+def ffn_kinks(single: list, ranks: list) -> tuple[list, list]:
+    """The hidden units of TSPM's FFNs whose ReLU the ranks' step and one
+    process's take on different sides, from the ``ffn_probe`` records: per
+    call the ranks' pre-activation (concatenated over their columns where
+    the call's linear1 splits, rank 0's where it is whole) against one
+    process's. Returns (per call the tensor of the ranks' side minus one
+    process's; each such unit with both pre-activations beside ``bound``:
+    gamma_D (sum |x w| + |b|) for one process's input plus sum |dx| |w| for
+    the inputs' difference, the most fp32 rounding of a D-term dot product
+    and the runs' inputs can move it)."""
+    import torch
+
+    sides, kinks = [], []
+    for c, (x1, pre1, w, b) in enumerate(single):
+        pres = [r[c][1] for r in ranks]
+        pre_tp = pres[0] if pres[0].shape[-1] == pre1.shape[-1] else torch.cat(pres, dim=-1)
+        side = (pre_tp > 0).float() - (pre1 > 0).float()
+        sides.append(side)
+        xt = ranks[0][c][0]
+        d = x1.shape[-1]
+        gamma = d * 2.0 ** -24 / (1 - d * 2.0 ** -24)
+        for *row, h in side.nonzero().tolist():
+            wh = w[h].double()
+            a, t = x1[tuple(row)].double(), xt[tuple(row)].double()
+            terms = float(a.abs() @ wh.abs()) + abs(float(b[h]))
+            bound = gamma * terms + float((a - t).abs() @ wh.abs())
+            p1, pt = float(pre1[tuple(row)][h]), float(pre_tp[tuple(row)][h])
+            kinks.append({"call": c, "row": row, "unit": h, "ranks_side": int(side[tuple(row)][h]),
+                          "pre_one": p1, "pre_ranks": pt, "terms_abs": terms, "bound": bound,
+                          "within": max(abs(p1), abs(pt)) <= bound})
+    return sides, kinks
+
+
+def tspm_tp_train(grid, kinks: list | None = None, steps: int = TP_TRAIN_STEPS) -> dict:
+    """TSPM's recipe (fp32, B=32, Adam, dropout on) from seed 0 on ``grid``
+    or in one process: ``steps`` ``train_step`` calls from the runner's step
+    generator over batches from numpy seed 23, the launch counters reset
+    around each: the losses, launches and stage launches per step, the
+    first step's gradients gathered whole and its ``ffn_probe`` record
+    (``kinks`` passed to it), and the replicated parameters after the last
+    step."""
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.parallel import gather_state_dict, tp_spec
+    from qa_tiger_tpu_torch.training import AVQARunner
+
+    cfg, mcfg = tspm_setup()
+    runner = AVQARunner(cfg, mcfg, device="cuda", seed=0, grid=grid)
+    rng = np.random.default_rng(23)
+    batches = [make_tspm_batch(rng, TP_TSPM_TRAIN_B, train=True) for _ in range(steps)]
+    out = {"losses": [], "launches": [], "stages": [], "step_ms": [], "probe": {}}
+    for i, batch in enumerate(batches):
+        probe = ffn_probe(out["probe"], kinks) if i == 0 else contextlib.nullcontext()
+        with probe:
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            start = time.perf_counter()
+            losses = runner.train_step(batch, TSPM_LR, runner._step_generator)
+            torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - start) * 1e3)
+        out["launches"].append(ops.launch_counts())
+        out["stages"].append(ops.stage_counts())
+        out["losses"].append({k: v.item() for k, v in losses.items()})
+        if i == 0:
+            grads = {n: p.grad.detach() for n, p in runner.trainable() if p.grad is not None}
+            if grid is not None:
+                grads = gather_state_dict(grads, grid, runner._whole_shapes)
+            out["grads"] = {n: g.cpu() for n, g in grads.items()}
+    if grid is not None:
+        out["replicated"] = {n: p.detach().cpu() for n, p in runner.trainable()
+                             if not tp_spec(n, runner._whole_shapes[n], 2)}
+        out["sharded"] = sum(1 for n, _ in runner.trainable()
+                             if tp_spec(n, runner._whole_shapes[n], 2))
+    del runner
+    torch.cuda.empty_cache()
+    return out
+
+
+def pair_parts(rank: int | None) -> dict:
+    """The runs of ``check_pair`` on one of its two ranks, or (``rank``
+    None) in one process: ``dp_run`` (world 2 of data parallelism, the
+    attention dropout off and then back), then on a dp1 x tp2 grid (none in
+    one process) QA-TIGER's eval forwards (``tp_forward``), its train steps
+    with each tower (``tp_train_run``), TSPM's bf16 forward and its train
+    recipe."""
+    import torch
+
+    from qa_tiger_tpu_torch.models import modules
+    from qa_tiger_tpu_torch.parallel import make_grid
+
+    attn_dropout = modules.ATTN_DROPOUT
+    try:
+        out = {"dp": dp_run(rank)}
+    finally:
+        modules.ATTN_DROPOUT = attn_dropout
+    torch.cuda.empty_cache()
+    grid = None if rank is None else make_grid(2)
+    out["eval"] = tp_forward(grid)
+    torch.cuda.empty_cache()
+    out["train"] = {tower: tp_train_run(rank, tower) for tower in TP_TRAIN_TOWERS}
+    torch.cuda.empty_cache()
+    out["tspm"] = {"forward": tspm_tp_forward(grid), "train": tspm_tp_train(grid)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_pair() -> dict:
+    """Phase ``pair_spawn``: the one spawn of two ranks on the card over
+    gloo that ``dp``, ``tp_eval``, ``tp_train`` and ``tp_tspm`` share
+    (``pair_parts``), with one process's runs of the same parts made here
+    while the ranks run: {"ranks", "single", "seconds"}."""
+    start = time.perf_counter()
+    ranks, single = dp_spawn(pair_parts, world=2, meanwhile=lambda: pair_parts(None))
+    return {"ranks": ranks, "single": single, "seconds": time.perf_counter() - start}
+
+
+def topk_gaps(weights, k: int):
+    """Per sample the K-th and (K+1)-th largest temporal weight [B, 2]."""
+    w = weights[:, 0].sort(dim=-1, descending=True).values
+    return w[:, k - 1:k + 1]
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 bits of significand)."""
+    return float(2.0 ** (np.floor(np.log2(abs(x))) - 7)) if x else 2.0 ** -133
+
+
+def check_tp_tspm(pair: dict) -> dict:
+    """Phase ``tp_tspm``: TSPM under dp1 x tp2 (the ``tspm`` part of
+    ``pair``) against one process. (a) The bf16 B=256 eval forward: the
+    ranks' logits, weights and frames bitwise equal; the top-K frames one
+    process's, but for at most TP_TSPM_MAX_FLIPS samples whose K-th /
+    (K+1)-th weight gap in one process is within TP_TSPM_GAP_ULPS bf16
+    ulps (the weights' rounding; the smallest gap over the batch printed);
+    the logits of the other samples within TP_TSPM_LOGIT_ULPS bf16 ulps of
+    one process's largest logit; each rank's launches one process's
+    (attention_wide 6) and its stage launches TP_TSPM_STAGE_COUNTS. (b) The fp32 B=32 recipe, dropout on, 3 steps:
+    losses within rtol 1e-5; the first step's gradients within 1e-4 of each
+    tensor's own largest element against one process's first step with the
+    FFNs' hidden ReLUs on the ranks' side at the units where the two runs'
+    sides differ (``ffn_kinks``: at most TP_TRAIN_MAX_KINKS, each within
+    the rounding bound of 0 in both runs; ``ffn_probe``); the replicated
+    parameters bitwise equal on the ranks; no kernel launch (dropout keeps
+    TSPM's attention on the plain path, as in the JAX package). Returns
+    rank 0's launches of (a)."""
+    import torch
+
+    ranks, spawn_s = [r["tspm"] for r in pair["ranks"]], pair["seconds"]
+    one = pair["single"]["tspm"]
+    k = tspm_setup()[1]["topK"]
+    fwd, r0 = one["forward"], ranks[0]["forward"]
+    ranks_equal = all(torch.equal(r["forward"][key], r0[key]) for r in ranks[1:]
+                      for key in ("logits", "weights", "topk"))
+    same = (r0["topk"] == fwd["topk"]).all(dim=1)
+    gaps = topk_gaps(fwd["weights"], k)
+    flips = []
+    for i in (~same).nonzero().flatten().tolist():
+        kth, nxt = gaps[i].tolist()
+        flips.append({"sample": i, "kth": kth, "next": nxt, "gap": kth - nxt,
+                      "bound": TP_TSPM_GAP_ULPS * bf16_ulp(kth),
+                      "within": kth - nxt <= TP_TSPM_GAP_ULPS * bf16_ulp(kth)})
+    err = (r0["logits"][same] - fwd["logits"][same]).abs().max().item()
+    scale = fwd["logits"].abs().max().item()
+    tol = TP_TSPM_LOGIT_ULPS * bf16_ulp(scale)
+    close = err <= tol
+    stages = [{n: c for n, c in r["forward"]["stages"].items() if c} for r in ranks]
+    line = {"phase": "tp_tspm", "grid": "dp1xtp2", "backend": "gloo", "dtype": "bfloat16",
+            "batch": TP_TSPM_EVAL_B, "logits_max_abs_err": err, "max_abs_logit": scale,
+            "tolerance": tol, "close": close,
+            "ranks_bitwise_equal": ranks_equal, "topk_equal_samples": int(same.sum()),
+            "topk_flips": flips, "smallest_topk_weight_gap": (gaps[:, 0] - gaps[:, 1]).min().item(),
+            "weights_max_abs_err": (r0["weights"] - fwd["weights"]).abs().max().item(),
+            "launches": [r["forward"]["launches"] for r in ranks],
+            "single_launches": fwd["launches"], "stages": stages,
+            "forward_ms": [r["forward"]["ms"] for r in ranks], "single_forward_ms": fwd["ms"],
+            "spawn_and_run_s": spawn_s}
+    print(json.dumps(line), flush=True)
+    require(ranks_equal, "tp_tspm: the two ranks' logits, weights or frames differ")
+    require(len(flips) <= TP_TSPM_MAX_FLIPS and all(f["within"] for f in flips),
+            f"tp_tspm: top-K frames differ from one process's beyond the weights' rounding: "
+            f"{flips}")
+    require(close, f"tp_tspm: the ranks' logits differ from one process's by {err:.3e}")
+    for rank, r in enumerate(ranks):
+        require(r["forward"]["launches"] == fwd["launches"],
+                f"tp_tspm: rank {rank} launched {r['forward']['launches']}, one process "
+                f"{fwd['launches']}")
+        require(stages[rank] == TP_TSPM_STAGE_COUNTS,
+                f"tp_tspm: rank {rank}'s stage launches {stages[rank]}")
+    require(fwd["launches"]["attention_wide"] == TSPM_ATTN_CALLS,
+            f"tp_tspm: one process launched attention_wide {fwd['launches']['attention_wide']} "
+            f"times, not {TSPM_ATTN_CALLS}")
+
+    tr, trs = one["train"], [r["train"] for r in ranks]
+    loss_err = [max(abs(r["losses"][i][key] - want[key]) / abs(want[key])
+                    for r in trs for key in want) for i, want in enumerate(tr["losses"])]
+    sides, kinks = ffn_kinks(tr["probe"]["ffn"], [r["probe"]["ffn"] for r in trs])
+    aligned = tspm_tp_train(None, kinks=sides, steps=1)
+    rows = [grad_rows(r["grads"], aligned["grads"]) for r in trs]
+    worst = max(row[0][0] for row in rows)
+    unaligned = sorted(set(sum([grad_rows(r["grads"], tr["grads"]) for r in trs], [])),
+                       reverse=True)
+    bitwise = all(torch.equal(v, trs[1]["replicated"][n]) for n, v in trs[0]["replicated"].items())
+    launched = [sum(sum(c.values()) for c in r["launches"]) for r in trs + [tr]]
+    line = {"phase": "tp_tspm_train", "grid": "dp1xtp2", "backend": "gloo", "dtype": "float32",
+            "batch": TP_TSPM_TRAIN_B, "steps": TP_TRAIN_STEPS,
+            "losses": [[ln["total_loss"] for ln in r["losses"]] for r in trs],
+            "single_losses": [ln["total_loss"] for ln in tr["losses"]],
+            "loss_max_rel_err_by_step": loss_err, "grads_compared": len(tr["grads"]),
+            "grad_max_err_over_own_max": worst,
+            "relu_kinks": kinks, "kinks_within_bound": all(k["within"] for k in kinks),
+            "aligned_losses": [ln["total_loss"] for ln in aligned["losses"]],
+            "grad_worst": [{"param": n, "err_over_own_max": q, "own_max_abs": m}
+                           for q, n, m, *_ in sorted(set(sum(rows, [])), reverse=True)[:4]],
+            "grad_worst_unaligned": [{"param": n, "err_over_own_max": q, "own_max_abs": m}
+                                     for q, n, m, *_ in unaligned[:4]],
+            "replicated_params": len(trs[0]["replicated"]), "sharded_params": trs[0]["sharded"],
+            "replicated_bitwise_equal": bitwise, "kernel_launches": launched,
+            "step_ms": [r["step_ms"] for r in trs], "single_step_ms": tr["step_ms"]}
+    print(json.dumps(line), flush=True)
+    require(all(e <= 1e-5 for e in loss_err), f"tp_tspm train: losses differ by {loss_err}")
+    require(len(kinks) <= TP_TRAIN_MAX_KINKS and all(k["within"] for k in kinks),
+            f"tp_tspm train: FFN ReLUs on other sides beyond the rounding bound of 0: {kinks}")
+    require(worst <= 1e-4, f"tp_tspm train: a first-step gradient differs by {worst:.3e} of its "
+                           "own largest element")
+    require(bitwise, "tp_tspm train: the ranks' replicated parameters differ")
+    require(not any(launched), f"tp_tspm train: kernel launches {launched}; dropout keeps "
+                               "TSPM's attention on the plain path")
+    return r0["launches"]
+
+
+def tp_graph_chain(rng, gen):
+    """The chain of ``tp_graph`` (a) on the card, tp 2, every rank in this
+    process, the partials summed by local adds in rank order: the train
+    stages of ``tp_train_chain`` at the recipe in fp32 (fused_avq_train's
+    five, fused_patch_select_train's seven, forward then backward) and the
+    two one-head stages split by lanes at AV_Attn's bf16 shape. Returns a
+    function that runs it and returns its outputs, flat."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import attention as A
+    from qa_tiger_tpu_torch.ops import avq as AV
+    from qa_tiger_tpu_torch.ops import patch_select as PS
+
+    tp, f32 = 2, torch.float32
+    _, _, _, cot, make_avq = avq_tp_setup(tp, f32, rng, gen)
+    av = [make_avq(r, f32) for r in range(tp)]
+    _, _, _, cots, make_ps = patch_tp_setup(tp, f32, rng, gen)
+    ps = [make_ps(r, f32) for r in range(tp)]
+    b, W, wl = TP_TSPM_SHAPES[0][1], 512, 512 // tp
+    qkv = torch.from_numpy(rng.standard_normal((b, T, 3 * W), dtype=np.float32)).to(
+        "cuda", torch.bfloat16)
+    lanes = [slice(r * wl, (r + 1) * wl) for r in range(tp)]
+
+    def chain() -> list:
+        outs = []
+        t1 = _tp_sum([AV.fused_avq_train_tp_attn(st) for st in av])
+        t2 = _tp_sum([AV.fused_avq_train_tp_mid(st, t1) for st in av])
+        outs += [AV.fused_avq_train_tp_out(st, t2) for st in av]
+        ffn = [AV.fused_avq_train_bwd_tp_ffn(st, cot, r == 0) for r, st in enumerate(av)]
+        gh1 = _tp_sum([part for part, _ in ffn])
+        att = [AV.fused_avq_train_bwd_tp_attn(st, gh1, r == 0) for r, st in enumerate(av)]
+        outs += [_tp_sum([part for part, _ in att])] + _flat([g for _, g in ffn + att])
+        s1 = _tp_sum([PS.fused_patch_select_train_tp_self(st) for st in ps])
+        s2 = _tp_sum([PS.fused_patch_select_train_tp_cross(st, s1) for st in ps])
+        s3 = _tp_sum([PS.fused_patch_select_train_tp_mlp(st, s2) for st in ps])
+        outs += _flat([PS.fused_patch_select_train_tp_out(st, s3) for st in ps])
+        mlp = [PS.fused_patch_select_train_bwd_tp_mlp(st, *cots) for st in ps]
+        m = _tp_sum([x[0] for x in mlp])
+        crs = [PS.fused_patch_select_train_bwd_tp_cross(st, m) for st in ps]
+        c = _tp_sum([x[0] for x in crs])
+        slf = [PS.fused_patch_select_train_bwd_tp_self(st, c) for st in ps]
+        outs += _flat(mlp) + _flat(crs) + _flat(slf)
+        scores = _tp_sum([A.attention_wide_tp_scores(qkv[..., c], qkv[..., W + c.start:W + c.stop])
+                          for c in lanes])
+        outs += [scores] + [A.attention_wide_tp_pv(scores, qkv[..., 2 * W + c.start:2 * W + c.stop],
+                                                   None, W ** -0.5) for c in lanes]
+        return outs
+
+    return chain
+
+
+def tp_graph_fake(rng) -> dict | None:
+    """``tp_graph`` (b): one process at dp1 x tp2 over PyTorch's fake
+    process group (``torch.testing._internal.distributed.fake_pg``: its
+    collectives do nothing, so rank 0's sums are its own partials: the
+    capture is shown, not a tensor-parallel step's numbers). Two QA-TIGER
+    runners from seed 0 at the recipe with ``steps_per_dispatch`` GRAPH_K
+    over the same 9 staged batches: the graph runner's windows (a warm-up,
+    a capture, 8 replays of rank 0's whole step) bitwise its eager twin's
+    static-input step; the launch counters reset around one more eager step
+    (its stages the TP step's, TP_TRAIN_STAGE_COUNTS) and one more replay
+    (the same launches). None where this PyTorch has no fake process
+    group."""
+    import torch
+    import torch.distributed as dist
+
+    from qa_tiger_tpu_torch import ops, parallel
+    from qa_tiger_tpu_torch.parallel import make_grid
+
+    if importlib.util.find_spec("torch.testing._internal.distributed.fake_pg") is None:
+        return None
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        require(parallel.backend() == "fake", "tp_graph: no fake process group")
+        grid = make_grid(2)
+        graph, eager = (graph_runner(capture, grid=grid) for capture in (True, False))
+        staged = [graph.stage_batch(make_train_batch(rng, 32)) for _ in range(9)]
+        g_losses = run_windows(graph, staged)
+        e_losses = run_windows(eager, staged)
+        torch.cuda.synchronize()
+        line = require_graph_equals_eager("tp_fake", graph, eager, g_losses, e_losses,
+                                          len(staged) - 1)
+        ops.reset_launches()
+        eager.train_window(staged[:1], TRAIN_LR)
+        torch.cuda.synchronize()
+        eager_counts, stages = ops.launch_counts(), ops.stage_counts()
+        ops.reset_launches()
+        graph.train_window(staged[:1], TRAIN_LR)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    line.update(launches=counts, eager_launches=eager_counts,
+                eager_stages={n: c for n, c in stages.items() if c})
+    return line
+
+
+def check_tp_graph() -> dict | None:
+    """Phase ``tp_graph``: the model-axis step under a CUDA graph on the one
+    card (NCCL refuses two ranks on one card, so the capture of the model
+    group across ranks cannot run here). (a) ``tp_graph_chain`` run eagerly,
+    then warmed up on a side stream, captured in one CUDA graph and
+    replayed 3 times: each replay bitwise the eager run; the eager chain and
+    a replay timed. (b) ``tp_graph_fake``. Returns (b)'s launches over one
+    replay, or None without a fake process group."""
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+
+    rng = np.random.default_rng(24)
+    gen = torch.Generator().manual_seed(24)
+    chain = tp_graph_chain(rng, gen)
+    with torch.no_grad():
+        eager = [t.clone() for t in chain()]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            chain()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_state()
+        with torch.cuda.graph(graph):
+            static = chain()
+        delta = ops.launch_delta(before, ops.launch_state())
+        ops.restore_launches(before)
+        equal = []
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            equal.append(all(torch.equal(a, b) for a, b in zip(static, eager)))
+        eager_ms, replay_ms = cuda_ms(chain, iters=5), cuda_ms(graph.replay, iters=5)
+    line = {"phase": "tp_graph_chain", "tp": 2, "tensors": len(eager),
+            "replays_bitwise_equal": equal, "launches_per_replay": {n: c for n, (c, _) in
+                                                                    delta.items()},
+            "eager_ms": eager_ms, "replay_ms": replay_ms}
+    print(json.dumps(line), flush=True)
+    require(len(eager) == len(static) and all(equal),
+            f"tp_graph: a replay of the captured stage chain differs from the eager chain "
+            f"({equal})")
+    del graph, static, eager, chain
+    torch.cuda.empty_cache()
+    fake = tp_graph_fake(rng)
+    print(json.dumps({"phase": "tp_graph_fake", **(fake or {"skipped": "no fake process "
+                                                                        "group in this PyTorch"}),
+                      "note": "collectives do nothing: the capture, not a TP step's numbers"}),
+          flush=True)
+    if fake is None:
+        return None
+    require(fake["eager_stages"] == TP_TRAIN_STAGE_COUNTS,
+            f"tp_graph: the eager twin's step ran the stages {fake['eager_stages']}, not the "
+            "TP step's")
+    require(fake["launches"] == fake["eager_launches"],
+            f"tp_graph: a replay launched {fake['launches']}, the eager step "
+            f"{fake['eager_launches']}")
+    return fake["launches"]
 
 
 PHASE_SECONDS: dict[str, float] = {}
@@ -5071,6 +5697,7 @@ def main() -> int:
         timed("op_kernels", check_op_kernels, entries)
         timed("clip_text_kernel", check_clip_text_kernel, entries)
         timed("tp_chain", check_tp_kernels, entries)
+        timed("tp_tspm_chain", check_tp_tspm_chain, entries)
         timed("gemms", check_gemms)
         timed("tf32x3_gemms", check_tf32x3_gemms)
         timed("slice1_grads", check_slice1_grads, rng, gen)
@@ -5106,15 +5733,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths.update(timed("clip", check_clip, args.profile))
         timed("tools", check_tools)
-        paths["dp_eval"], paths["dp_train"] = timed("dp", check_dp)
+        pair = timed("pair_spawn", check_pair)
+        paths["dp_eval"], paths["dp_train"] = timed("dp", check_dp, pair)
         torch.cuda.empty_cache()
         paths["dp_graph"] = timed("dp_graph", check_dp_graph)
         torch.cuda.empty_cache()
         timed("dp_cli", check_dp_cli)
         torch.cuda.empty_cache()
-        paths["tp_eval"] = timed("tp_eval", check_tp_eval)
+        paths["tp_eval"] = timed("tp_eval", check_tp_eval, pair)
         torch.cuda.empty_cache()
-        paths["tp_train"] = timed("tp_train", check_tp_train)
+        paths["tp_train"] = timed("tp_train", check_tp_train, pair)
+        torch.cuda.empty_cache()
+        paths["tp_tspm"] = timed("tp_tspm", check_tp_tspm, pair)
+        torch.cuda.empty_cache()
+        tp_graph = timed("tp_graph", check_tp_graph)
+        if tp_graph is not None:
+            paths["tp_graph"] = tp_graph
         torch.cuda.empty_cache()
         paths["cli_v2"] = timed("cli_v2", check_cli_v2)
         for name in E2E_ONLY_KERNELS:

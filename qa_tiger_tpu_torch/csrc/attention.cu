@@ -123,3 +123,38 @@ extern "C" int qt_fused_attention(int dtype, const void* q, long long q_bs, long
   return fn(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, (long long)Sq * dh, dh, mask,
             nullptr, BH, Sq, Sk, 1, dh, scale, stream);
 }
+
+// attention_wide's tensor-parallel stages for one head split by lanes
+// (qt::attention_tp_scores and qt::attention_tp_pv in common.cuh; the
+// wrappers attention_wide_tp_scores and attention_wide_tp_pv in
+// ops/attention.py). s is a contiguous fp32 [B, Sq, Sk]; q, k and v need
+// unit stride along their W lanes.
+extern "C" int qt_attention_tp_scores(int dtype, const void* q, long long q_bs, long long q_ss,
+                                      const void* k, long long k_bs, long long k_ss, void* s,
+                                      int B, int Sq, int Sk, int W, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(s);
+  if (dtype == 0)
+    return qt::attention_tp_scores<float>(static_cast<const float*>(q), q_bs, q_ss,
+                                          static_cast<const float*>(k), k_bs, k_ss, out, B, Sq,
+                                          Sk, W, st);
+  return qt::attention_tp_scores<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(q), q_bs, q_ss,
+                                                static_cast<const __nv_bfloat16*>(k), k_bs, k_ss,
+                                                out, B, Sq, Sk, W, st);
+}
+
+extern "C" int qt_attention_tp_pv(int dtype, const void* s, const void* v, long long v_bs,
+                                  long long v_ss, const void* mask, void* out, long long o_bs,
+                                  long long o_ss, int B, int Sq, int Sk, int W, float scale,
+                                  void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(s);
+  const float* m = static_cast<const float*>(mask);
+  if (dtype == 0)
+    return qt::attention_tp_pv<float>(sc, static_cast<const float*>(v), v_bs, v_ss, m,
+                                      static_cast<float*>(out), o_bs, o_ss, B, Sq, Sk, W, scale,
+                                      st);
+  return qt::attention_tp_pv<__nv_bfloat16>(sc, static_cast<const __nv_bfloat16*>(v), v_bs, v_ss,
+                                            m, static_cast<__nv_bfloat16*>(out), o_bs, o_ss, B, Sq,
+                                            Sk, W, scale, st);
+}

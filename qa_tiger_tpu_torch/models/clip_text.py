@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from qa_tiger_tpu_torch.nn.attention import MultiheadAttention
 from qa_tiger_tpu_torch.nn.core import LayerNorm, Linear, linear, quick_gelu
@@ -26,7 +25,7 @@ from qa_tiger_tpu_torch.ops.resblock import (
     fused_attn_ln2_partial,
     fused_attn_ln2_post,
 )
-from qa_tiger_tpu_torch.parallel.tensor import reduce_from_model
+from qa_tiger_tpu_torch.parallel.tensor import reduce_from_model, row_linear
 
 CLIP_TEXT_CONFIGS = {
     "ViT-L/14@336px": dict(width=768, heads=12, layers=12, embed_dim=768),
@@ -89,8 +88,7 @@ class ResidualAttentionBlock(nn.Module):
         part = reduce_from_model(fused_attn_ln2_partial(x, self, mask, heads // tp), grid)
         y, h = fused_attn_ln2_post(x, part, self)
         h = quick_gelu(linear(h, self.mlp.c_fc.weight, self.mlp.c_fc.bias))
-        part = reduce_from_model(F.linear(h.float(), self.mlp.c_proj.weight.float()), grid)
-        return y + (part + self.mlp.c_proj.bias.float()).to(y.dtype)
+        return y + row_linear(h, self.mlp.c_proj, grid)
 
 
 class Transformer(nn.Module):

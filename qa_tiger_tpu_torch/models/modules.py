@@ -74,7 +74,7 @@ from qa_tiger_tpu_torch.ops.patch_select import (
     patch_selecter_plain,
     shard_patch_masks,
 )
-from qa_tiger_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
+from qa_tiger_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model, row_linear
 from qa_tiger_tpu_torch.ops.tempmoe import (
     combined_expert_weights,
     gaussian_weights,
@@ -165,17 +165,9 @@ def _heads(nhead: int, grid) -> int:
     return nhead // grid.model_size
 
 
-def _row_linear(h: torch.Tensor, lin, grid) -> torch.Tensor:
-    """A row-parallel Linear on one model rank: h [.., H/tp] against the
-    rank's weight columns, the fp32 partial summed over the model group,
-    then round(sum + bias) in h's dtype."""
-    part = reduce_from_model(F.linear(h.float(), lin.weight.float()), grid)
-    return (part + lin.bias.float()).to(h.dtype)
-
-
 def _mlp2_tp(x: torch.Tensor, mlp, grid) -> torch.Tensor:
     """``mlp2`` with mlp.0 by column and mlp.2 by row."""
-    return _row_linear(torch.relu(mlp[0](copy_to_model(x, grid))), mlp[2], grid)
+    return row_linear(torch.relu(mlp[0](copy_to_model(x, grid))), mlp[2], grid)
 
 
 class Projection(nn.Module):
@@ -235,7 +227,7 @@ class AVQCrossAttn(nn.Module):
         x = q_cat + slf + crs + qst_out
         x = layer_norm(x, self.norm1.weight, self.norm1.bias)
         hid = torch.relu(self.linear1(copy_to_model(x, grid) if tp else x))
-        ffn = _row_linear(hid, self.linear2, grid) if tp else self.linear2(hid)
+        ffn = row_linear(hid, self.linear2, grid) if tp else self.linear2(hid)
         out = layer_norm(x + ffn, self.norm2.weight, self.norm2.bias)
         return out[:B], out[B:]
 

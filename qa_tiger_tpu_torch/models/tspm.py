@@ -25,6 +25,19 @@ time (``topk_time_indices``); on ties the higher frame index wins the last
 slot. Dropout (p 0.1, fixed as in the reference) draws from one
 ``torch.Generator`` per site (``SITES``), as QA-TIGER's does, so that the
 train step's CUDA graph can own and reseed them.
+
+Under a ``grid`` of model size tp > 1 (``parallel/tensor.py``) the model
+holds this rank's shards (``tp_spec``: every ``in_proj_*`` by lanes of q,
+k and v, ``out_proj.weight`` by row, AVHanLayer's and TokensSelfAttn's
+``linear1`` by column and ``linear2`` by row; the rest whole) and every
+block runs its tensor-parallel form: the one-head attentions split by
+lanes and the four-head ones by head (``mha``), each FFN as a column
+``linear1``, ReLU, dropout on the rank's columns of the whole mask and a
+row ``linear2`` summed over the group (``_ffn``). TemporalPerception's
+weights are summed over the group before the top-K, so every rank selects
+the same frames. Each dropout site draws its whole realization from its
+generator in the single process's order and keeps the rank's share.
+``TSPM.check_model_parallel`` says whether a tp splits the config.
 """
 from __future__ import annotations
 
@@ -34,11 +47,15 @@ from torch import nn
 from qa_tiger_tpu_torch.models.qa_tiger import split_generator
 from qa_tiger_tpu_torch.nn.attention import MultiheadAttention, mha
 from qa_tiger_tpu_torch.nn.core import LayerNorm, Linear, dropout
+from qa_tiger_tpu_torch.parallel.tensor import copy_to_model, row_linear
 
 TSPM_FROZEN_PREFIXES: tuple[str, ...] = ()
 # the dropout sites of one forward (AV_Attn, TemporalPerception,
 # SpatioPerception, QstTempGrd_Module), each with its own generator
 SITES = 4
+# the heads of the AttnFFN attentions (TemporalPerception, SpatioPerception's
+# query, QstTempGrd_Module); AV_Attn and TokensAttn are one head
+ATTN_FFN_HEADS = 4
 TOKEN_IDS_REFUSED = (
     "TSPM requires precomputed question/prompt features (the reference's token path "
     "references a nonexistent quest_encoder, src/models/tspm.py:375)")
@@ -112,31 +129,40 @@ class SpatioPerception(AttnFFN):
         self.TokensAttn = TokensSelfAttn(d, g)
 
 
-def _ffn(x, lin1: Linear, lin2: Linear, dp: float, gen) -> torch.Tensor:
-    return lin2(dropout(torch.relu(lin1(x)), dp, gen))
+def _ffn(x, lin1: Linear, lin2: Linear, dp: float, gen, grid=None) -> torch.Tensor:
+    """lin2(dropout(relu(lin1(x)))); under a model axis lin1 by column and
+    lin2 by row, the hidden dropout the rank's columns of the whole mask."""
+    if grid is None or grid.model_size <= 1:
+        return lin2(dropout(torch.relu(lin1(x)), dp, gen))
+    hid = torch.relu(lin1(copy_to_model(x, grid)))
+    cols = hid.shape[-1]
+    mine = (..., slice(grid.model_rank * cols, (grid.model_rank + 1) * cols))
+    hid = dropout(hid, dp, gen, share=((*hid.shape[:-1], cols * grid.model_size), mine))
+    return row_linear(hid, lin2, grid)
 
 
 def av_han_layer(p: AVHanLayer, src_q: torch.Tensor, src_v: torch.Tensor, *, nhead: int,
-                 dp: float, generator: torch.Generator | None = None) -> torch.Tensor:
+                 dp: float, generator: torch.Generator | None = None,
+                 grid=None) -> torch.Tensor:
     """The block (ref src/models/tspm.py:35-47): src_q + cross + self, norm1,
     the FFN, norm2."""
     crs, _ = mha(p.cm_attn, src_q, src_v, src_v, num_heads=nhead, need_weights=False,
-                 dropout_p=dp, generator=generator)
+                 dropout_p=dp, generator=generator, grid=grid)
     slf, _ = mha(p.self_attn, src_q, src_q, src_q, num_heads=nhead, need_weights=False,
-                 dropout_p=dp, generator=generator)
+                 dropout_p=dp, generator=generator, grid=grid)
     x = src_q + dropout(crs, dp, generator) + dropout(slf, dp, generator)
     x = p.norm1(x)
-    x = x + dropout(_ffn(x, p.linear1, p.linear2, dp, generator), dp, generator)
+    x = x + dropout(_ffn(x, p.linear1, p.linear2, dp, generator, grid), dp, generator)
     return p.norm2(x)
 
 
 def attn_ffn(p: AttnFFN, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor, *,
              nhead: int, dp: float, generator: torch.Generator | None = None,
-             need_weights: bool = False):
+             need_weights: bool = False, grid=None):
     """query [B, Sq, D] -> (out [B, Sq, D], head-averaged weights [B, Sq, Sk]
     or None): the JAX ``_attn_ffn``."""
     attn, weights = mha(p.attn_qst_query, query, key, value, num_heads=nhead,
-                        need_weights=need_weights, dropout_p=dp, generator=generator)
+                        need_weights=need_weights, dropout_p=dp, generator=generator, grid=grid)
     src = dropout(_ffn(attn, p.qst_query_linear1, p.qst_query_linear2, dp, generator), dp,
                   generator)
     return p.qst_query_visual_norm(attn + src), weights
@@ -159,57 +185,59 @@ def _take_frames(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def temporal_weights(p: AttnFFN, visual: torch.Tensor, qst_prompt: torch.Tensor, *,
-                     dp: float, generator=None) -> torch.Tensor:
+                     dp: float, generator=None, grid=None) -> torch.Tensor:
     """The prompt-as-query attention's head-averaged weights over the frames
     [B, 1, T]. The JAX ``temporal_perception`` runs the whole ``_attn_ffn``
     and uses only these weights; its output is dead code, left out here."""
-    _, weights = mha(p.attn_qst_query, qst_prompt[:, None, :], visual, visual, num_heads=4,
-                     need_weights=True, dropout_p=dp, generator=generator)
+    _, weights = mha(p.attn_qst_query, qst_prompt[:, None, :], visual, visual, num_heads=ATTN_FFN_HEADS,
+                     need_weights=True, dropout_p=dp, generator=generator, grid=grid)
     return weights
 
 
 def temporal_perception(p: AttnFFN, audio: torch.Tensor, visual: torch.Tensor,
                         qst_prompt: torch.Tensor, *, topK: int, dp: float,
-                        generator=None):
+                        generator=None, grid=None):
     """(audio [B, K, D], visual [B, K, D], indices [B, K]) of the top-K
     frames (ref TemporalPerception, src/models/tspm.py:77-143), and the
     weights [B, 1, T] they were taken from."""
-    weights = temporal_weights(p, visual, qst_prompt, dp=dp, generator=generator)
+    weights = temporal_weights(p, visual, qst_prompt, dp=dp, generator=generator, grid=grid)
     idx = topk_time_indices(weights, topK)
     return _take_frames(audio, idx), _take_frames(visual, idx), idx, weights
 
 
 def tokens_self_attn(p: TokensSelfAttn, x: torch.Tensor, *, nhead: int, dp: float,
-                     generator=None) -> torch.Tensor:
+                     generator=None, grid=None) -> torch.Tensor:
     """The patch-token block (ref TokensSelfAttn, 189-222)."""
     slf, _ = mha(p.self_attn, x, x, x, num_heads=nhead, need_weights=False, dropout_p=dp,
-                 generator=generator)
+                 generator=generator, grid=grid)
     x = p.norm1(x + dropout(slf, dp, generator))
-    x = x + dropout(_ffn(x, p.linear1, p.linear2, dp, generator), dp, generator)
+    x = x + dropout(_ffn(x, p.linear1, p.linear2, dp, generator, grid), dp, generator)
     return p.norm2(x)
 
 
 def spatio_perception(p: SpatioPerception, audio_topk: torch.Tensor, patch: torch.Tensor,
                       topk_idx: torch.Tensor | None, *, dp: float,
-                      generator=None) -> torch.Tensor:
+                      generator=None, grid=None) -> torch.Tensor:
     """The selected frames' patches [B, K, N, C] under their own audio as
     the query -> [B, K, C] (ref SpatioPerceptionModule, 225-306)."""
     if topk_idx is not None:
         patch = _take_frames(patch, topk_idx)
     B, K, N, C = patch.shape
     patch_bt = tokens_self_attn(p.TokensAttn, patch.reshape(B * K, N, C), nhead=1, dp=dp,
-                                generator=generator)
-    out, _ = attn_ffn(p, audio_topk.reshape(B * K, 1, C), patch_bt, patch_bt, nhead=4, dp=dp,
-                      generator=generator)
+                                generator=generator, grid=grid)
+    out, _ = attn_ffn(p, audio_topk.reshape(B * K, 1, C), patch_bt, patch_bt, nhead=ATTN_FFN_HEADS, dp=dp,
+                      generator=generator, grid=grid)
     return out.reshape(B, K, C)
 
 
 def qst_temporal_grounding(p: AttnFFN, qst: torch.Tensor, audio: torch.Tensor,
-                           visual: torch.Tensor, *, dp: float, generator=None):
+                           visual: torch.Tensor, *, dp: float, generator=None, grid=None):
     """The question as the query over each stream, one parameter set for
     both (ref 146-186) -> (audio [B, D], visual [B, D])."""
-    a, _ = attn_ffn(p, qst[:, None, :], audio, audio, nhead=4, dp=dp, generator=generator)
-    v, _ = attn_ffn(p, qst[:, None, :], visual, visual, nhead=4, dp=dp, generator=generator)
+    a, _ = attn_ffn(p, qst[:, None, :], audio, audio, nhead=ATTN_FFN_HEADS, dp=dp, generator=generator,
+                    grid=grid)
+    v, _ = attn_ffn(p, qst[:, None, :], visual, visual, nhead=ATTN_FFN_HEADS, dp=dp, generator=generator,
+                    grid=grid)
     return a[:, 0], v[:, 0]
 
 
@@ -238,9 +266,18 @@ class TSPM(nn.Module):
         self.av_fusion_fc = _linear(6 * h, h, g)
         self.answer_pred_fc = _linear(h, cfg["num_labels"], g)
 
+    def check_model_parallel(self, tp: int) -> None:
+        """Raise ``ValueError`` unless every split of this config divides by
+        ``tp``: the hidden width (the one-head attentions' lanes and the
+        FFNs' width, which equals it) and the AttnFFN attentions' heads."""
+        dims = {"hidden_size": self.cfg["hidden_size"], "the attn_ffn heads": ATTN_FFN_HEADS}
+        bad = {k: v for k, v in dims.items() if v % tp}
+        if bad:
+            raise ValueError(f"model_parallel={tp} does not divide {bad}")
+
     def forward(self, batch: dict, *, train: bool = False,
                 generator: torch.Generator | None = None, sites: list | None = None,
-                aux: bool = False) -> dict:
+                aux: bool = False, grid=None) -> dict:
         """batch: quest and prompt [B, Dq] or [B, 1, Dq] features, audio
         [B, T, audio_dim], video [B, T, vis_dim], patch [B, T, P, patch_dim]
         -> {'out': logits [B, num_labels]}, with ``aux`` also the temporal
@@ -249,7 +286,8 @@ class TSPM(nn.Module):
         Dropout is active when ``train`` and a ``generator`` are given; its
         SITES sites draw from sub-generators seeded from ``generator``
         (``split_generator``), or from ``sites`` given ready seeded (the
-        train step's CUDA graph)."""
+        train step's CUDA graph). ``grid``: this rank's place in a data x
+        model grid, the model holding its shards."""
         cfg = self.cfg
         dp, topK = cfg["dropout"], cfg["topK"]
         question, prompt = batch["quest"], batch["prompt"]
@@ -274,16 +312,18 @@ class TSPM(nn.Module):
 
         B = audio.shape[0]
         both = av_han_layer(self.AV_Attn.layers["0"], torch.cat([audio, visual]),
-                            torch.cat([visual, audio]), nhead=1, dp=dp, generator=gens[0])
+                            torch.cat([visual, audio]), nhead=1, dp=dp, generator=gens[0],
+                            grid=grid)
         audio_avattn, visual_avattn = both[:B], both[B:]
 
         audio_tssm, visual_tssm, idx, weights = temporal_perception(
             self.TemporalPerception, audio, visual, qst_prompt, topK=topK, dp=dp,
-            generator=gens[1])
+            generator=gens[1], grid=grid)
         visual_sp = spatio_perception(self.SpatioPerception, audio_tssm, patch, idx, dp=dp,
-                                      generator=gens[2])
+                                      generator=gens[2], grid=grid)
         audio_qtgm, visual_qtgm = qst_temporal_grounding(
-            self.QstTempGrd_Module, qst, audio_tssm, visual_sp, dp=dp, generator=gens[3])
+            self.QstTempGrd_Module, qst, audio_tssm, visual_sp, dp=dp, generator=gens[3],
+            grid=grid)
 
         av = torch.cat([audio_qtgm, audio_avattn.mean(-2), audio_tssm.mean(-2),
                         visual_qtgm, visual_avattn.mean(-2), visual_sp.mean(-2)], dim=-1)

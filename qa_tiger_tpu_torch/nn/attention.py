@@ -16,18 +16,33 @@ CPU tensor, whatever the sequence lengths (Sq=1 included). Every other call
 runs the plain PyTorch path.
 
 Under a ``grid`` of model size tp > 1 (``parallel/tensor.py``) ``p`` holds
-this rank's shards: in_proj [3 D/tp, D] (its heads' q, k and v rows) and
-out_proj.weight [D, D/tp]. The rank projects its num_heads/tp heads (the
-same head size and scale), runs ``attention_wide`` on D/tp lanes, and
-forms the out-projection without its bias as an fp32 partial; the model
-group sums the partials (``reduce_from_model``), then the bias is added and
-the value rounded once, where the single-rank path rounds it. The inputs
-enter through ``copy_to_model``, so the rank's partial input gradients are
-summed over the model group in the backward. Dropout draws the whole
-[B, H, Sq, Sk] mask, as the single-rank path draws it, and keeps the rank's
-heads, so the generator advances alike on every rank; a given
-``prob_mask`` is whole too and sliced the same way. ``need_weights`` raises
-there: no caller under a grid asks for them.
+this rank's shards: in_proj [3 D/tp, D] (its q, k and v rows) and
+out_proj.weight [D, D/tp]. The inputs enter through ``copy_to_model``, so
+the rank's partial input gradients are summed over the model group in the
+backward; the out-projection is row-parallel (``row_linear``): an fp32
+partial without the bias, summed over the model group, then the bias added
+and the value rounded once, where the single-rank path rounds it. Between the two, by head count:
+
+- num_heads divisible by tp: the rank projects its num_heads/tp heads (the
+  same head size and scale) and runs ``attention_wide`` on them;
+- one head (TSPM's 512-lane AV_Attn and TokensAttn): the head's lanes are
+  split, [r D/tp, (r+1) D/tp) on rank r. ``attention_wide_tp_scores`` gives
+  the rank's fp32 partial of q kᵀ, the model group sums it, and
+  ``attention_wide_tp_pv`` scales, masks and normalises the whole scores
+  and forms the rank's context lanes. The summed scores enter the second
+  stage through ``copy_to_model``: each rank's context lanes give only a
+  partial of their gradient, which the backward sums over the group;
+- any other count raises.
+
+Dropout, a ``prob_mask`` or ``need_weights`` sends either form to the
+plain path (the same split, the plain stages). Dropout draws the whole
+[B, H, Sq, Sk] mask, as the single-rank path draws it, and keeps the
+rank's heads (one head: the whole mask, the probabilities being whole
+after the score sum), so the generator advances alike on every rank; a
+given ``prob_mask`` is whole too and sliced the same way. The weights are
+the pre-dropout probabilities summed over the rank's heads in fp32, summed
+over the model group, divided by num_heads and cast (one head: the whole
+probabilities), so every rank holds the same weights, bitwise.
 """
 from __future__ import annotations
 
@@ -35,11 +50,17 @@ import math
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from qa_tiger_tpu_torch.nn.core import Linear, attend, dropout, linear
-from qa_tiger_tpu_torch.ops.attention import attention_wide
-from qa_tiger_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
+from qa_tiger_tpu_torch.ops.attention import (
+    attention_wide,
+    attention_wide_tp_pv,
+    attention_wide_tp_scores,
+    tp_context,
+    tp_partial_scores,
+    tp_probs,
+)
+from qa_tiger_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model, row_linear
 
 
 class MultiheadAttention(nn.Module):
@@ -74,10 +95,8 @@ def mha(p: MultiheadAttention, query: torch.Tensor, key: torch.Tensor,
     """
     sampling = generator is not None and dropout_p > 0.0
     if grid is not None and grid.model_size > 1:
-        if need_weights:
-            raise NotImplementedError("mha under a model axis returns no weights")
         return _mha_tp(p, query, key, value, num_heads, attn_mask, grid,
-                       dropout_p if sampling else 0.0, generator, prob_mask), None
+                       dropout_p if sampling else 0.0, generator, prob_mask, need_weights)
     D = query.shape[-1]
     if (D // num_heads) * num_heads != D:
         raise ValueError(f"d_model {D} must divide into {num_heads} heads")
@@ -111,27 +130,46 @@ def _project(p: MultiheadAttention, query, key, value, width: int):
 
 
 def _mha_tp(p: MultiheadAttention, query, key, value, num_heads: int, attn_mask, grid,
-            dropout_p: float = 0.0, generator=None, prob_mask=None):
-    """``mha`` on one model rank of ``grid``: out [B, Sq, D]. Dropout (or a
-    whole ``prob_mask``) sends it to the plain path, as at tp 1."""
+            dropout_p: float = 0.0, generator=None, prob_mask=None, need_weights: bool = False):
+    """``mha`` on one model rank of ``grid``: (out [B, Sq, D], the weights or
+    None). Dropout, a whole ``prob_mask`` or ``need_weights`` sends it to
+    the plain path, as at tp 1."""
     tp = grid.model_size
     B, Sq, D = query.shape
     Sk = key.shape[1]
-    if num_heads % tp or D % num_heads:
+    lanes = num_heads == 1
+    if (num_heads % tp and not lanes) or D % num_heads:
         raise ValueError(f"{num_heads} heads of d_model {D} do not split over "
                          f"model_parallel={tp}")
     Dl = p.in_proj_weight.shape[0] // 3
     if Dl * tp != D:
         raise ValueError(f"in_proj holds {Dl} rows per head group, not d_model/{tp}: "
                          "load the rank's shard (parallel.shard_state_dict)")
-    heads = num_heads // tp
     q_in = copy_to_model(query, grid)
     k_in = q_in if key is query else copy_to_model(key, grid)
     v_in = k_in if value is key else copy_to_model(value, grid)
     q, k, v = _project(p, q_in, k_in, v_in, Dl)
-    if dropout_p == 0.0 and prob_mask is None:
-        ctx = attention_wide(q, k, v, attn_mask, 1.0 / math.sqrt(D // num_heads), heads)
+    scale = 1.0 / math.sqrt(D // num_heads)
+    plain = dropout_p > 0.0 or prob_mask is not None or need_weights
+    weights = None
+    if lanes and not plain:
+        scores = reduce_from_model(attention_wide_tp_scores(q, k), grid)
+        ctx = attention_wide_tp_pv(copy_to_model(scores, grid), v, attn_mask, scale)
+    elif lanes:
+        probs = tp_probs(reduce_from_model(tp_partial_scores(q, k), grid), attn_mask, scale)
+        dropped = copy_to_model(probs, grid)
+        if prob_mask is not None:
+            dropped = dropped * prob_mask[:, 0].float()
+        else:
+            dropped = dropout(dropped, dropout_p, generator,
+                              share=((B, 1, Sq, Sk), (slice(None), 0)))
+        ctx = tp_context(dropped, v)
+        if need_weights:
+            weights = probs.to(query.dtype)
+    elif not plain:
+        ctx = attention_wide(q, k, v, attn_mask, scale, num_heads // tp)
     else:
+        heads = num_heads // tp
         mine = (slice(None), slice(grid.model_rank * heads, (grid.model_rank + 1) * heads))
 
         def drop(probs):
@@ -139,6 +177,8 @@ def _mha_tp(p: MultiheadAttention, query, key, value, num_heads: int, attn_mask,
                 return probs * prob_mask[mine].float()
             return dropout(probs, dropout_p, generator, share=((B, num_heads, Sq, Sk), mine))
 
-        ctx, _ = attend(q, k, v, heads, attn_mask=attn_mask, drop=drop)
-    part = reduce_from_model(F.linear(ctx.float(), p.out_proj.weight.float()), grid)
-    return (part + p.out_proj.bias.float()).to(query.dtype)
+        ctx, probs = attend(q, k, v, heads, attn_mask=attn_mask, drop=drop)
+        if need_weights:
+            total = reduce_from_model(probs.sum(dim=1), grid)
+            weights = (total / num_heads).to(query.dtype)
+    return row_linear(ctx, p.out_proj, grid), weights

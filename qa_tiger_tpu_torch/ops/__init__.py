@@ -23,8 +23,9 @@ the backwards); ``fused_gaussian_moe`` tallies its two products' (its own
 (``parallel/tensor.py``), eval and train, each with its own ``launches``
 counter; a stage that launches a kernel's TP form also counts one launch of
 that kernel (``fused_attn_ln2_partial``, ``fused_patch_select_tp_self``,
-``fused_gaussian_moe_partial``; the train kernels' first forward and first
-backward stages, ``fused_avq_train_tp_attn``,
+``fused_gaussian_moe_partial``, ``attention_wide_tp_scores`` (the first of
+one-head attention's two stages split by lanes); the train kernels' first
+forward and first backward stages, ``fused_avq_train_tp_attn``,
 ``fused_avq_train_bwd_tp_ffn``, ``fused_patch_select_train_tp_self`` and
 ``fused_patch_select_train_bwd_tp_mlp``), so a rank's ``launch_counts``
 equal a single process's. The train stages tally their products' routes in
@@ -41,6 +42,8 @@ launches nothing) and adds the difference once per replay
 from qa_tiger_tpu_torch.ops.attention import (
     attention_wide,
     attention_wide_key_bias,
+    attention_wide_tp_pv,
+    attention_wide_tp_scores,
     fused_attention,
 )
 from qa_tiger_tpu_torch.ops.avq import TP_STAGES as AVQ_TP_STAGES
@@ -86,7 +89,8 @@ TP_STAGES = {fn.__name__: fn for fn in (
     fused_attn_ln2_partial, fused_attn_ln2_post, fused_patch_select_tp_self,
     fused_patch_select_tp_self_post, fused_patch_select_tp_cross,
     fused_patch_select_tp_cross_post, fused_patch_select_tp_mlp, fused_patch_select_tp_out,
-    fused_gaussian_moe_partial, *AVQ_TP_STAGES, *PATCH_TP_TRAIN_STAGES)}
+    fused_gaussian_moe_partial, attention_wide_tp_scores, attention_wide_tp_pv, *AVQ_TP_STAGES,
+    *PATCH_TP_TRAIN_STAGES)}
 
 
 def reset_launches() -> None:

@@ -60,6 +60,9 @@ SIGNATURES = {
     "qt_patch_select_tp_cross": [_I] + [_P] * 10 + [_I] * 5 + [_P],
     "qt_patch_select_tp_mlp": [_I] + [_P] * 6 + [_I] * 3 + [_P],
     "qt_patch_select_tp_out": [_I] + [_P] * 8 + [_I] * 2 + [_P],
+    # attention_wide's two stages for a head split by lanes
+    "qt_attention_tp_scores": [_I, _P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _P],
+    "qt_attention_tp_pv": [_I, _P, _P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _I, _F, _P],
     # the train kernels take one table of device pointers (index order: the
     # Buf enum of their source, the BUFFERS lists of ops/avq.py and
     # ops/patch_select.py)

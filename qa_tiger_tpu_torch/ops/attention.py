@@ -322,6 +322,138 @@ attention_wide_key_bias.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# attention_wide's tensor-parallel form for one head split by lanes
+# ---------------------------------------------------------------------------
+
+def tp_scores_route(dtype: torch.dtype, sq: int, sk: int) -> str:
+    """The kernel family of ``attention_wide_tp_scores``: in bf16 "mma_short"
+    (a warp per problem, at most 16 queries and keys) or "mma" (64 query rows
+    a block), in fp32 "fma"."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    return "mma_short" if sq <= 16 and sk <= 16 else "mma"
+
+
+def tp_partial_scores(q, k):
+    """The first stage's plain version: the fp32 product q kᵀ [B, Sq, Sk]
+    over the given lanes, unscaled."""
+    return torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+
+
+def tp_probs(scores: torch.Tensor, mask: torch.Tensor | None, scale: float) -> torch.Tensor:
+    """The fp32 probabilities of the summed scores: scaled, then masked,
+    then the softmax."""
+    logits = scores * scale
+    if mask is not None:
+        logits = logits + mask.float()
+    return torch.softmax(logits, dim=-1)
+
+
+def tp_context(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """probs [B, Sq, Sk] cast to v's dtype, times v [B, Sk, W] summed in
+    fp32, in v's dtype."""
+    return torch.einsum("bqk,bkd->bqd", probs.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def _tp_pv_plain(scores, v, *, mask, scale):
+    """Plain version of the second stage."""
+    return tp_context(tp_probs(scores, mask, scale), v)
+
+
+def attention_wide_tp_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """One model rank's stage 1 of one-head ``attention_wide`` split by
+    lanes: q [B, Sq, W] and k [B, Sk, W], the rank's W lanes of the head ->
+    the fp32 partial scores [B, Sq, Sk], unscaled (the sum over the ranks
+    is the single-rank kernel's fp32 product; the scale comes after it, as
+    there). Counts one ``attention_wide`` launch. Its gradient is its plain
+    version's."""
+    if q.device.type == "cpu":
+        return tp_partial_scores(q, k)
+    _check_tp_rows(q, k)
+    return _grad.KernelWithPlainGrad.apply(_launch_tp_scores, tp_partial_scores, {}, q, k)
+
+
+def attention_wide_tp_pv(scores: torch.Tensor, v: torch.Tensor, mask: torch.Tensor | None,
+                         scale: float) -> torch.Tensor:
+    """Stage 2 on the summed scores [B, Sq, Sk] (fp32): scale, the additive
+    [Sq, Sk] ``mask``, the row max and sum, p cast to v's dtype, p v_r in
+    fp32 -> the rank's context lanes [B, Sq, W] in v's dtype. Its gradient
+    is its plain version's (a mask that requires grad gets one)."""
+    if scores.device.type == "cpu":
+        return _tp_pv_plain(scores, v, mask=mask, scale=scale)
+    B, Sq, Sk = scores.shape
+    if scores.dtype != torch.float32 or v.device != scores.device:
+        raise ValueError("the summed scores must be fp32 on v's device")
+    _check_rows("v", v, B, v.shape[-1])
+    if v.shape[1] != Sk:
+        raise ValueError(f"v needs the scores' {Sk} keys, got {v.shape[1]}")
+    mask = _device_mask(mask, Sq, Sk, v.device)
+    return _grad.apply_masked(_launch_tp_pv, _tp_pv_plain, dict(scale=scale),
+                              scores.contiguous(), v, mask=mask)
+
+
+def _check_tp_rows(q, k) -> None:
+    B, _, W = q.shape
+    _check_rows("q", q, B, W)
+    _check_rows("k", k, B, W)
+    if k.dtype != q.dtype or k.device != q.device:
+        raise ValueError("k must match q's dtype and device")
+    if q.dtype == torch.float32 and W > 512:
+        raise ValueError(f"the fp32 scores kernel takes at most 512 lanes, got {W}")
+
+
+def _lanes64(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 operand as the mma kernels read it: lanes zero-padded to a
+    multiple of 64 (zero lanes add nothing to q·kᵀ and give zero context),
+    a contiguous copy where 16-byte copies could not read it."""
+    extra = -t.shape[-1] % 64
+    if extra:
+        return torch.nn.functional.pad(t, (0, extra))
+    return _kernel_operand(t, 1, t.shape[-1], t.shape[-1])
+
+
+def _launch_tp_scores(q, k):
+    B, Sq, _ = q.shape
+    Sk = k.shape[1]
+    if q.dtype == torch.bfloat16:
+        q, k = _lanes64(q), _lanes64(k)
+    s = torch.empty(B, Sq, Sk, dtype=torch.float32, device=q.device)
+    _build.launch("qt_attention_tp_scores", _build.dtype_code(q), q.data_ptr(), q.stride(0),
+                  q.stride(1), k.data_ptr(), k.stride(0), k.stride(1), s.data_ptr(), B, Sq, Sk,
+                  q.shape[-1])
+    attention_wide_tp_scores.launches += 1
+    attention_wide.launches += 1
+    return s
+
+
+def _lane_pairs(t: torch.Tensor) -> torch.Tensor:
+    """v as the second stage reads it, two lanes at a time: an odd width
+    with a zero lane appended (it gives a zero context lane, dropped), a
+    base or stride off whole pairs copied to a contiguous tensor."""
+    if t.shape[-1] % 2:
+        return torch.nn.functional.pad(t, (0, 1))
+    if t.data_ptr() % (2 * t.element_size()) or t.stride(0) % 2 or t.stride(1) % 2:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def _launch_tp_pv(scores, v, *, mask, scale):
+    B, Sq, Sk = scores.shape
+    W = v.shape[-1]
+    v = _lane_pairs(v)
+    out = torch.empty(B, Sq, v.shape[-1], dtype=v.dtype, device=v.device)
+    _build.launch("qt_attention_tp_pv", _build.dtype_code(v), scores.data_ptr(), v.data_ptr(),
+                  v.stride(0), v.stride(1), _build.ptr(mask), out.data_ptr(), out.stride(0),
+                  out.stride(1), B, Sq, Sk, v.shape[-1], float(scale))
+    attention_wide_tp_pv.launches += 1
+    return out[..., :W] if v.shape[-1] != W else out
+
+
+attention_wide_tp_scores.launches = 0
+attention_wide_tp_pv.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # fused_attention: [BH, S, dh], one head per batch row
 # ---------------------------------------------------------------------------
 

@@ -19,8 +19,10 @@ value once, where the single-rank kernel rounds it:
   (``mesh.py:68-96``) with two deliberate differences (ROADMAP.md §C):
   ``in_proj_weight`` / ``in_proj_bias`` split by head (``QKV``: each rank
   takes rows [r D/tp, (r+1) D/tp) of each of q, k and v, so it can run its
-  heads' attention alone; JAX's ``P('model', None)`` on the stacked [3D, D]
-  would give rank 0 all of q and half of k), and a column Linear with no
+  heads' attention alone, or, for one head (TSPM's 512-lane attentions),
+  its lanes of the head, whose fp32 partial scores the group sums; JAX's
+  ``P('model', None)`` on the stacked [3D, D] would give rank 0 all of q
+  and half of k), and a column Linear with no
   row partner stays replicated (``gauss_pred.0`` and ``router.0``, the
   single-Linear Sequentials whose outputs feed the router math whole);
 - ``shard_state_dict`` / ``gather_state_dict`` / ``shard_module_``: a
@@ -28,9 +30,10 @@ value once, where the single-rank kernel rounds it:
   and the whole shapes (bitwise), and a module's parameters replaced by
   their shards;
 - ``reduce_from_model`` / ``copy_to_model``: the model group's collectives
-  made differentiable (Megatron's pair). ``reduce_from_model`` sums a
-  partial over the model group (in place without autograd) and passes the
-  gradient through; ``copy_to_model``
+  made differentiable (Megatron's pair); ``row_linear``, a row-parallel
+  Linear's partial summed over the group and rounded once.
+  ``reduce_from_model`` sums a partial over the model group (in place
+  without autograd) and passes the gradient through; ``copy_to_model``
   passes a replicated input through and sums its gradient over the model
   group, so that every model rank ends with the whole input gradient and
   every replicated parameter upstream gets the same gradient on each rank;
@@ -163,6 +166,14 @@ def reduce_from_model(t: torch.Tensor, grid: Grid) -> torch.Tensor:
     if torch.is_grad_enabled() and t.requires_grad:
         return _ReduceFromModel.apply(t, grid)
     return grid.reduce_model(t)
+
+
+def row_linear(h: torch.Tensor, lin, grid: Grid) -> torch.Tensor:
+    """A row-parallel Linear on one model rank: h [.., H/tp] against the
+    rank's weight columns (``lin.weight`` [out, H/tp]), the fp32 partial
+    summed over the model group, then round(sum + bias) in h's dtype."""
+    part = reduce_from_model(torch.nn.functional.linear(h.float(), lin.weight.float()), grid)
+    return (part + lin.bias.float()).to(h.dtype)
 
 
 def copy_to_model(t: torch.Tensor, grid: Grid) -> torch.Tensor:

@@ -70,8 +70,10 @@ process group (``qa_tiger_tpu_torch.parallel``):
   stream is the single process's. ``train_state`` gathers the trainable
   parameters and Adam's moments to whole tensors and
   ``restore_train_state`` shards them back, so a checkpoint resumes at any
-  grid. ``train_window`` (``steps_per_dispatch`` > 1) raises under a model
-  axis (ROADMAP.md A7b.3).
+  grid. ``train_window`` (``steps_per_dispatch`` > 1) runs the same step
+  through the step graph: the model ranks of a data rank seed their site
+  generators alike, and on the card the graph holds the model group's
+  all-reduces with the data group's (NCCL). QA-TIGER and TSPM both split.
 """
 from __future__ import annotations
 
@@ -180,11 +182,7 @@ class AVQARunner:
         if self._model_axis:
             # the whole state dict's shapes, which gather_state_dict reads
             self._whole_shapes = {n: tuple(t.shape) for n, t in self.model.state_dict().items()}
-            check = getattr(self.model, "check_model_parallel", None)
-            if check is None:
-                raise NotImplementedError(f"{type(self.model).__name__} under a model axis is "
-                                          "ROADMAP A7b.3")
-            check(grid.model_size)
+            self.model.check_model_parallel(grid.model_size)
             shard_module_(self.model, grid)
         self._frozen_prefixes = self.model.FROZEN_PREFIXES
         for name, p in self.model.named_parameters():
@@ -542,12 +540,9 @@ class AVQARunner:
         losses as device scalars and reads nothing back. A batch of the step
         graph's shapes goes through it (``StepGraph``: captured on the card
         at its second batch, replayed from then on); one of other shapes
-        through the eager step."""
-        if self._model_axis:
-            raise NotImplementedError(
-                f"steps_per_dispatch > 1 under a model axis (model_parallel="
-                f"{self.grid.model_size}) is ROADMAP A7b.3: the step graph would have to "
-                "capture the model group's all-reduces; run one step per dispatch")
+        through the eager step. Under a model axis the step is the grid's,
+        its dropout from ``_rank_generator`` (the same on every model
+        rank of a data rank)."""
         set_lr(self.optimizer, lr)
         out = []
         for batch in batches:

@@ -29,10 +29,16 @@ run: the capture's counts are taken off again and added once per replay
 (``ops.add_launches``). A capture that fails raises; nothing falls back to
 the eager step.
 
-Under data parallelism the step's collectives (the valid count before the
-forward, the flat gradient buffer after the backward) are captured with it,
-which NCCL allows and gloo does not: a step graph under another backend
-raises, naming it.
+The step's collectives are captured with it: under data parallelism the
+valid count before the forward and the flat gradient buffer after the
+backward, under a model axis also the model group's all-reduces of the
+tensor-parallel forms (``parallel/tensor.py``). NCCL allows that and gloo
+does not, so a graph that captures (``capture=True``) under any backend
+but NCCL raises, naming it; the eager static-input step (``capture=False``,
+the CPU) runs under any backend. The fake backend of PyTorch's test
+utilities (``torch.testing._internal.distributed.fake_pg``, collectives
+that do nothing) is let through too: one process can then capture one
+rank's whole step on one card, its collectives and all.
 """
 from __future__ import annotations
 
@@ -43,6 +49,10 @@ import torch
 
 from qa_tiger_tpu_torch import ops, parallel
 from qa_tiger_tpu_torch.models.qa_tiger import SITES, split_generator, split_seeds
+
+# the process-group backends whose collectives a CUDA graph can hold (None:
+# no process group)
+CAPTURABLE_BACKENDS = (None, "nccl", "fake")
 
 
 def batch_key(batch: dict) -> tuple:
@@ -78,11 +88,11 @@ class StepGraph:
     def __init__(self, step: Callable, batch: dict, *, accum: int, device: torch.device,
                  capture: bool, cache=None, sites: int = SITES):
         backend = parallel.backend()
-        if backend not in (None, "nccl"):
+        if capture and backend not in CAPTURABLE_BACKENDS:
             raise RuntimeError(
-                f"steps_per_dispatch > 1 captures the step's gradient all-reduce in a CUDA "
-                f"graph, which the {backend} backend cannot do: run one card per rank over "
-                "NCCL, or set steps_per_dispatch to 1")
+                f"steps_per_dispatch > 1 captures the step's all-reduces in a CUDA graph, "
+                f"which the {backend} backend cannot do: run one card per rank over NCCL, "
+                "or set steps_per_dispatch to 1")
         self.step = step
         self.key = batch_key(batch)
         self.cache = cache

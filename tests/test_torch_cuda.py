@@ -1334,3 +1334,45 @@ def test_tspm_train_graph_matches_eager(cuda):
             if key in graph.optimizer.state[pa]:
                 assert torch.equal(graph.optimizer.state[pa][key],
                                    eager.optimizer.state[pb][key]), (name, key)
+
+
+# attention_wide's two stages for one head split by lanes: (batch, Sq, Sk) of
+# AV_Attn and TokensAttn at B=256, and a masked call over two key tiles
+TP_LANE_CASES = [(512, 60, 60, False), (2560, 14, 14, False), (3, 70, 130, True)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("b,sq,sk,masked", TP_LANE_CASES)
+def test_attention_wide_tp_stages(cuda, b, sq, sk, masked, tp, dtype):
+    """Each rank's stages against their plain versions (q, k and v the
+    rank's lanes of one packed [q; k; v], as the model projects them), the
+    partial scores summed in rank order, and the ranks' context lanes
+    against the single-rank kernel on the whole 512-lane head."""
+    rng = np.random.default_rng(sq)
+    W, wl = 512, 512 // tp
+    if sq == sk:
+        buf = _rn(rng, b, sq, 3 * W, dtype=dtype)
+        q, k, v = buf[..., :W], buf[..., W:2 * W], buf[..., 2 * W:]
+    else:
+        q, k, v = (_rn(rng, b, s, W, dtype=dtype) for s in (sq, sk, sk))
+    mask = torch.triu(torch.full((sq, sk), float("-inf"), device=cuda), 1) if masked else None
+    scale = W ** -0.5
+    lanes = [slice(r * wl, (r + 1) * wl) for r in range(tp)]
+    n, ns = A.attention_wide.launches, A.attention_wide_tp_scores.launches
+    parts = []
+    for c in lanes:
+        _check(lambda c=c: A.attention_wide_tp_scores(q[..., c], k[..., c]),
+               lambda c=c: A.tp_partial_scores(q[..., c], k[..., c]), torch.float32)
+        parts.append(A.attention_wide_tp_scores(q[..., c], k[..., c]))
+    assert A.attention_wide.launches - n == A.attention_wide_tp_scores.launches - ns == 2 * tp
+    scores = parts[0].clone()
+    for part in parts[1:]:
+        scores += part
+    npv = A.attention_wide_tp_pv.launches
+    for c in lanes:
+        _check(lambda c=c: A.attention_wide_tp_pv(scores, v[..., c], mask, scale),
+               lambda c=c: A._tp_pv_plain(scores, v[..., c], mask=mask, scale=scale), dtype)
+    got = torch.cat([A.attention_wide_tp_pv(scores, v[..., c], mask, scale) for c in lanes], -1)
+    assert A.attention_wide_tp_pv.launches - npv == 2 * tp
+    _check(lambda: got, lambda: A.attention_wide(q, k, v, mask, scale, 1), dtype)

@@ -29,7 +29,8 @@ shards each global batch over its ``data`` axis:
     ``best.npz``, one report, accuracies equal to a single-process test of
     that ``best.npz``; a ``resume`` under ``--distributed`` restores the
     same state on both ranks;
-(f) ``steps_per_dispatch`` 2 under gloo raises, naming the backend;
+(f) ``steps_per_dispatch`` 2 under gloo: a capturing step graph raises,
+    naming the backend; the eager static-input step runs;
 and at world 1 (a one-rank gloo group in this process) the train step,
 dropout on, is bitwise the single process's.
 """
@@ -300,12 +301,20 @@ def test_rank_generator_splits_the_stream(monkeypatch):
 
 
 def test_steps_per_dispatch_under_gloo_raises(corpus, one_rank_group):
+    """A step graph that would capture under gloo raises, naming the
+    backend; the eager static-input step (``graph_capture`` False, as on
+    the CPU) runs under it."""
     cfg = cfg_dict(corpus)
     cfg["hyper_params"]["steps_per_dispatch"] = 2
     runner = AVQARunner(Box(cfg), port_model_cfg(), device="cpu", seed=0)
     batch = runner.stage_batch(next(iter(BatchLoader(AVQADataset(Box(cfg), mode="train"), 8))))
+    runner.graph_capture = True
     with pytest.raises(RuntimeError, match="gloo backend"):
         runner.train_window([batch, batch], LR)
+    runner.graph_capture = False
+    losses = runner.train_window([batch, batch], LR)
+    assert len(losses) == 2 and runner._step_graph is not None
+    assert all(np.isfinite(float(ld["total_loss"])) for ld in losses)
 
 
 # ---------------------------------------------------------------------------

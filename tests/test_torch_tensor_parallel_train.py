@@ -26,8 +26,9 @@ the CPU.
     run; restored into a fresh dp1 x tp2 runner, bitwise;
 (f) a grid of model size 1 at world 2 trains bitwise as the data-parallel
     step without a grid;
-(g) ``train_window`` (``steps_per_dispatch`` > 1) under a model axis
-    raises, naming ROADMAP A7b.3.
+(g) ``train_window`` (``steps_per_dispatch`` 2) under dp1 x tp2 gloo
+    ranks, dropout on: the epoch bitwise the K = 1 epoch; a step graph that
+    would capture under gloo raises, naming it.
 
 The dp2 x tp2 ranks against the JAX mesh are in
 ``test_torch_tensor_parallel_mesh.py``.
@@ -337,11 +338,6 @@ def model_cfg(dropout=0.1):
     return {**qa_tiger_config(num_labels=42, gather_mode="paper", **TINY), "dropout": dropout}
 
 
-def _batches(cfg, n=3):
-    loader = BatchLoader(AVQADataset(Box(cfg), mode="train"), 8, prefetch=0)
-    return [next(iter(loader)) for _ in range(n)]
-
-
 def _losses_close(got, want):
     assert set(got) == set(want)
     for key in want:
@@ -424,25 +420,34 @@ def test_model_size_one_trains_as_data_parallel(corpus, tmp_path, monkeypatch):
         assert torch.equal(ranks[1]["grid"]["params"][name], value), name
 
 
-def test_train_window_under_a_model_axis_raises(corpus, monkeypatch):
-    """(g) steps_per_dispatch > 1 under a model axis names ROADMAP A7b.3,
-    before any collective."""
+def test_train_window_under_a_model_axis_raises(corpus, tmp_path, monkeypatch):
+    """(g) steps_per_dispatch > 1 under a model axis: at dp1 x tp2 (gloo
+    ranks, dropout on) the K = 2 epoch (the step graph's eager static-input
+    step) is bitwise the K = 1 epoch; what raises is a graph that would
+    capture under gloo, naming the backend. A runner on a model axis holds
+    its shards."""
     monkeypatch.setenv("QA_TIGER_BPE_VOCAB", str(corpus / "vocab.txt.gz"))
     cfg = cfg_dict(corpus)
-    cfg["hyper_params"]["steps_per_dispatch"] = 2
+    batches = list(BatchLoader(AVQADataset(Box(cfg), mode="train"), 8, prefetch=0))
+    ranks = torch_dp.spawn(torch_tp.window_epochs, 2, tmp_path, cfg, model_cfg(), jax_params(),
+                           batches, 2)
+    for r in ranks:
+        one, k = r["k1"], r["k"]
+        assert k["graph"] and not one["graph"]
+        assert k["scalars"] == one["scalars"] and len(one["scalars"]) == 3 * 2
+        assert torch.equal(k["rng"], one["rng"])
+        for name, value in one["params"].items():
+            assert torch.equal(k["params"][name], value), name
+        assert set(k["moments"]) == set(one["moments"]) and len(one["moments"]) > 50
+        for name, (m1, v1) in one["moments"].items():
+            m2, v2 = k["moments"][name]
+            assert torch.equal(m1, m2) and torch.equal(v1, v2), name
+        assert "gloo" in r["capture_error"]
+    for name, value in ranks[0]["k"]["replicated"].items():
+        assert np.array_equal(value, ranks[1]["k"]["replicated"][name]), name
+    # the shards it holds: half of every split parameter
     runner = AVQARunner(Box(cfg), model_cfg(), device="cpu", seed=0,
                         grid=Grid(model_rank=0, model_size=2))
-    batch = runner.stage_batch(_batches(cfg, 1)[0])
-    with pytest.raises(NotImplementedError, match="A7b.3"):
-        runner.train_window([batch, batch], LR)
-
-    class Loader(list):
-        def set_epoch(self, epoch):
-            pass
-
-    with pytest.raises(NotImplementedError, match="A7b.3"):
-        runner.train_epoch(1, Loader(_batches(cfg, 2)), LR)
-    # the shards it holds: half of every split parameter
     whole = AVQARunner(Box(cfg), model_cfg(), device="cpu", seed=0)
     w = dict(whole.model.named_parameters())["crs_attn.linear1.weight"]
     got = dict(runner.model.named_parameters())["crs_attn.linear1.weight"]

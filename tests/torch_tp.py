@@ -253,3 +253,56 @@ def model_size_one(rank: int, cfg: dict, model_cfg: dict, params) -> dict:
                      "params": {n: p.detach().clone() for n, p in runner.trainable()},
                      "rng": runner._step_generator.get_state()}
     return out
+
+
+class ListLoader(list):
+    """Host batches in a list: what ``train_epoch`` takes of a loader."""
+
+    def set_epoch(self, epoch):
+        pass
+
+
+def eval_and_train(rank: int, cfg: dict, model_cfg: dict, params, tp: int) -> dict:
+    """``tp_eval`` then ``train_epoch`` on grids of ``model_parallel=tp``,
+    in one spawn."""
+    return {"eval": tp_eval(rank, cfg, model_cfg, params, tp),
+            "train": train_epoch(rank, cfg, model_cfg, params, tp)}
+
+
+def window_epochs(rank: int, cfg: dict, model_cfg: dict, params, batches: list,
+                  k: int) -> dict:
+    """dp1 x tp2, dropout on: one epoch over ``batches`` (host batches, in
+    order) at ``steps_per_dispatch`` 1 and again, from the same seed, at
+    ``k`` (the step graph's static-input step, run eagerly as on the CPU):
+    each run's logged losses, its parameters and Adam moments as this rank
+    holds them, its dropout stream and whether the window went through the
+    step graph; then the error of a ``StepGraph`` that would capture under
+    gloo."""
+    from qa_tiger_tpu_torch.training.step_graph import StepGraph
+
+    import torch_dp
+
+    grid = make_grid(2)
+    out = {}
+    for key, steps in (("k1", 1), ("k", k)):
+        run_cfg = copy.deepcopy(cfg)
+        run_cfg["hyper_params"]["steps_per_dispatch"] = steps
+        runner = _train_runner(run_cfg, model_cfg, params, grid)
+        writer = torch_dp.Writer()
+        runner.train_epoch(1, ListLoader(batches), run_cfg["hyper_params"]["optim"]["lr"],
+                           writer)
+        state = runner.optimizer.state
+        out[key] = {"scalars": writer.scalars,
+                    "params": {n: p.detach().clone() for n, p in runner.trainable()},
+                    "moments": {n: [state[p][m].clone() for m in ("exp_avg", "exp_avg_sq")]
+                                for n, p in runner.trainable() if p in state},
+                    "rng": runner._step_generator.get_state(),
+                    "graph": runner._step_graph is not None,
+                    "replicated": _replicated(runner)}
+    try:
+        StepGraph(lambda batch, sites: {}, runner.stage_batch(batches[0]), accum=1,
+                  device=torch.device("cpu"), capture=True)
+        out["capture_error"] = None
+    except RuntimeError as exc:
+        out["capture_error"] = str(exc)
+    return out
