@@ -57,7 +57,7 @@
 //   block; at head sizes 256 and 512 the wide-head kernel, 16 or 32-key
 //   tiles in the same two passes.
 // PERF.md has each route's time beside the bound.
-#include "common.cuh"
+#include "attention_tp.cuh"
 
 namespace {
 
@@ -125,7 +125,7 @@ extern "C" int qt_fused_attention(int dtype, const void* q, long long q_bs, long
 }
 
 // attention_wide's tensor-parallel stages for one head split by lanes
-// (qt::attention_tp_scores and qt::attention_tp_pv in common.cuh; the
+// (qt::attention_tp_scores and qt::attention_tp_pv in attention_tp.cuh; the
 // wrappers attention_wide_tp_scores and attention_wide_tp_pv in
 // ops/attention.py). s is a contiguous fp32 [B, Sq, Sk]; q, k and v need
 // unit stride along their W lanes.

@@ -975,6 +975,24 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// the 3xTF32 split (gemm_tf32x3.cuh, attention_tp.cuh): x = hi + lo, both
+// tf32 (fp32 bit patterns with the low 13 mantissa bits 0)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// c += a b for one m16n8k8 tile: tf32 a (16 x 8, row) and b (8 x 8, col)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // two fp32 values rounded to bf16 (round to nearest even), lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -2170,334 +2188,6 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
   attention_kernel<T><<<grid, ATT_WARPS * 32, smem, stream>>>(
       q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, Sq, Sk, hd,
       scale, keep, keep_ld, round_p_first);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// attention_wide's tensor-parallel form for one head split by lanes (TSPM's
-// one-head AV_Attn and TokensAttn under a model axis, where no rank holds a
-// whole head). It is a form of the kernel that replaces
-// fused_attention_wide's pl.pallas_call (qa_tiger_tpu/ops/pallas/
-// attention.py:351), which under a model axis JAX leaves whole on every
-// device (GSPMD gathers around it). Each model rank holds W = head/tp lanes
-// of q, k and v. Two
-// stages, the model group's sum of the fp32 partial scores between them:
-//
-//   tp_scores: s_r = q_r k_rᵀ over the rank's lanes, fp32 and unscaled (the
-//              single-rank kernels scale the whole fp32 product, so the
-//              scale waits for the sum);
-//   tp_pv:     from the summed scores, x = s * scale, then + mask, the row
-//              max and sum, p = round_T(exp(x - max) / sum), and
-//              ctx_r = p v_r summed in fp32, rounded to T.
-//
-// tp_scores in bf16 runs on mma.sync with mma_wide's 64-lane slab loaders
-// (W a multiple of 64: the wrapper zero-pads): a block per (problem,
-// 64-query tile), 4 warps of 16 rows, (key tile, lane slab) items through a
-// two-stage cp.async ring; at most 16 queries and keys, a warp per problem
-// with a ring of its own, as in attention_wide_short_kernel. In fp32 FMAs
-// (TF32 stays off): a warp per query row, the row in registers, a warp sum
-// per key. tp_pv: a block per (problem, 16 query rows), the rows' p in
-// shared memory (a warp per row), then each thread two lanes of the
-// context over every key, in FMAs, p read four keys at a time. Both are
-// bound by bytes at TSPM's shapes (≈39 MB a stage at B=256, tp 2: q_r, k_r
-// and the scores written; the scores, v_r and the context): the fp32
-// scores, Sq x Sk x 4 bytes a problem, are what the split adds to the
-// single-rank kernel's traffic.
-// ---------------------------------------------------------------------------
-constexpr int TPF_WARPS = 4, TPF_ROWS = 16, TPF_LANES = 512;
-constexpr int TPV_THREADS = 128, TPV_ROWS = 16;
-
-// the bf16 scores of a block's 64 query rows against every key, (key tile,
-// lane slab) items in turn; the scores of a key tile leave after its last
-// slab
-__global__ void __launch_bounds__(AM_THREADS)
-tp_scores_mma_kernel(const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_ss,
-                     const __nv_bfloat16* __restrict__ k, long long k_bs, long long k_ss,
-                     float* __restrict__ s, int Sq, int Sk, int W) {
-  using bf16 = __nv_bfloat16;
-  constexpr int STAGE = AWM_STAGE_ROWS * AWM_LD;
-  extern __shared__ __align__(16) unsigned char tps_smem[];
-  bf16* const ring = reinterpret_cast<bf16*>(tps_smem);  // [AWM_STAGES][STAGE]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int ntiles = (Sq + AM_Q - 1) / AM_Q, nkt = (Sk + AM_K - 1) / AM_K;
-  const int nd = W / AWM_SLAB, items = nkt * nd;
-  const long long b = blockIdx.x / ntiles;
-  const int q0 = (blockIdx.x % ntiles) * AM_Q;
-  const bf16* qb = q + b * q_bs;
-  const bf16* kb = k + b * k_bs;
-  float* sb = s + b * (long long)Sq * Sk;
-  const int row0 = q0 + warp * 16 + g;  // this thread's first row; the second is row0 + 8
-  const bool live = q0 + warp * 16 < Sq;
-  auto fetch = [&](int i) {
-    bf16* st = ring + (i % AWM_STAGES) * STAGE;
-    const int t = i / nd, d = i % nd;
-    load_slab<AM_Q, AM_THREADS>(st, qb, q_ss, q0, Sq, d * AWM_SLAB, tid);
-    load_slab<AM_K, AM_THREADS>(st + AM_Q * AWM_LD, kb, k_ss, t * AM_K, Sk, d * AWM_SLAB, tid);
-  };
-  fetch(0);
-  cp_async_commit();
-  float acc[8][4];
-  for (int i = 0; i < items; ++i) {
-    if (i + 1 < items) {
-      fetch(i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int t = i / nd, d = i % nd;
-    if (live) {
-      const bf16* st = ring + (i % AWM_STAGES) * STAGE;
-      if (d == 0) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-      }
-      qk_slab<8>(acc, st + warp * 16 * AWM_LD, st + AM_Q * AWM_LD, lane);
-      if (d == nd - 1) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qi = row0 + (e >> 1) * 8, kj = t * AM_K + 8 * j + 2 * t4 + (e & 1);
-            if (qi < Sq && kj < Sk) sb[(long long)qi * Sk + kj] = acc[j][e];
-          }
-      }
-    }
-    __syncthreads();  // stage i % 2 is refilled by the next item's fetch
-  }
-}
-
-// the bf16 scores of problems of at most 16 queries and keys, a warp per
-// problem, its lane slabs through the warp's own two-stage ring, the next
-// problem's first slab fetched behind this one's last
-__global__ void __launch_bounds__(AS_WARPS * 32)
-tp_scores_short_kernel(const __nv_bfloat16* __restrict__ q, long long q_bs, long long q_ss,
-                       const __nv_bfloat16* __restrict__ k, long long k_bs, long long k_ss,
-                       float* __restrict__ s, int problems, int Sq, int Sk, int W) {
-  using bf16 = __nv_bfloat16;
-  constexpr int STAGE = 2 * AS_ROWS * AWM_LD;
-  extern __shared__ __align__(16) unsigned char tpss_smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  bf16* const ring = reinterpret_cast<bf16*>(tpss_smem) + (size_t)warp * AWM_STAGES * STAGE;
-  const int nd = W / AWM_SLAB, stride = gridDim.x * AS_WARPS;
-  auto fetch = [&](int pr, int d, int st) {
-    bf16* dst = ring + st * STAGE;
-    load_slab<AS_ROWS, 32>(dst, q + (long long)pr * q_bs, q_ss, 0, Sq, d * AWM_SLAB, lane);
-    load_slab<AS_ROWS, 32>(dst + AS_ROWS * AWM_LD, k + (long long)pr * k_bs, k_ss, 0, Sk,
-                           d * AWM_SLAB, lane);
-  };
-  int pr = blockIdx.x * AS_WARPS + warp, d = 0;
-  if (pr < problems) fetch(pr, 0, 0);
-  cp_async_commit();
-  float acc[2][4];
-  for (int n = 0; pr < problems; ++n) {
-    const int npr = d + 1 < nd ? pr : pr + stride, nxd = d + 1 < nd ? d + 1 : 0;
-    if (npr < problems) fetch(npr, nxd, (n + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this item's group has landed
-    __syncwarp();
-    const bf16* st = ring + (n & 1) * STAGE;
-    if (d == 0) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-    }
-    qk_slab<2>(acc, st, st + AS_ROWS * AWM_LD, lane);
-    if (d == nd - 1) {
-      float* sp = s + (long long)pr * Sq * Sk;
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = g + 8 * (e >> 1), kj = 8 * j + 2 * t4 + (e & 1);
-          if (qi < Sq && kj < Sk) sp[qi * Sk + kj] = acc[j][e];
-        }
-    }
-    __syncwarp();  // the next iteration's fetch refills the other stage
-    pr = npr;
-    d = nxd;
-  }
-}
-
-// the fp32 scores: a warp per query row of the block's TPF_ROWS, the row's
-// W <= TPF_LANES lanes in registers, one warp sum per key
-__global__ void __launch_bounds__(TPF_WARPS * 32)
-tp_scores_fma_kernel(const float* __restrict__ q, long long q_bs, long long q_ss,
-                     const float* __restrict__ k, long long k_bs, long long k_ss,
-                     float* __restrict__ s, int Sq, int Sk, int W) {
-  constexpr int NL = TPF_LANES / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ntiles = (Sq + TPF_ROWS - 1) / TPF_ROWS;
-  const long long b = blockIdx.x / ntiles;
-  const int q0 = (blockIdx.x % ntiles) * TPF_ROWS, q1 = min(q0 + TPF_ROWS, Sq);
-  const float* kb = k + b * k_bs;
-  for (int r = q0 + warp; r < q1; r += TPF_WARPS) {
-    const float* qr = q + b * q_bs + (long long)r * q_ss;
-    float qv[NL];
-#pragma unroll
-    for (int i = 0; i < NL; ++i) qv[i] = lane + 32 * i < W ? qr[lane + 32 * i] : 0.0f;
-    float* sr = s + (b * Sq + r) * (long long)Sk;
-    for (int j = 0; j < Sk; ++j) {
-      const float* kr = kb + (long long)j * k_ss;
-      float acc = 0.0f;
-#pragma unroll
-      for (int i = 0; i < NL; ++i)
-        if (lane + 32 * i < W) acc = fmaf(qv[i], kr[lane + 32 * i], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) sr[j] = acc;
-    }
-  }
-}
-
-// the context lanes of a block's TPV_ROWS query rows from the summed scores:
-// the rows' p rounded to T in shared memory, TPV_PAD keys to a row (zero
-// past Sk, rows past Sq zero), then each thread two adjacent context lanes
-// of every row, p read four keys at a time
-template <typename T> struct Pair;
-template <> struct Pair<float> { using type = float2; };
-template <> struct Pair<__nv_bfloat16> { using type = __nv_bfloat162; };
-
-__device__ __forceinline__ float2 to_f2(float2 v) { return v; }
-__device__ __forceinline__ float2 to_f2(__nv_bfloat162 v) { return __bfloat1622float2(v); }
-template <typename T> __device__ __forceinline__ typename Pair<T>::type from_f2(float a, float b);
-template <> __device__ __forceinline__ float2 from_f2<float>(float a, float b) {
-  return make_float2(a, b);
-}
-template <> __device__ __forceinline__ __nv_bfloat162 from_f2<__nv_bfloat16>(float a, float b) {
-  return __floats2bfloat162_rn(a, b);
-}
-
-inline __host__ __device__ int tp_pv_pld(int Sk) { return (Sk + 3) / 4 * 4; }
-
-template <typename T>
-__global__ void __launch_bounds__(TPV_THREADS)
-tp_pv_kernel(const float* __restrict__ s, const T* __restrict__ v, long long v_bs,
-             long long v_ss, const float* __restrict__ mask, T* __restrict__ out,
-             long long o_bs, long long o_ss, int Sq, int Sk, int W, float scale) {
-  using T2 = typename Pair<T>::type;
-  extern __shared__ __align__(16) float tpv_p[];  // [TPV_ROWS][pld]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, pld = tp_pv_pld(Sk);
-  const int ntiles = (Sq + TPV_ROWS - 1) / TPV_ROWS;
-  const long long b = blockIdx.x / ntiles;
-  const int q0 = (blockIdx.x % ntiles) * TPV_ROWS, rows = min(TPV_ROWS, Sq - q0);
-  for (int r = warp; r < TPV_ROWS; r += TPV_THREADS / 32) {
-    float* pr = tpv_p + r * pld;
-    if (r >= rows) {
-      for (int j = lane; j < pld; j += 32) pr[j] = 0.0f;
-      continue;
-    }
-    const float* sr = s + (b * Sq + q0 + r) * (long long)Sk;
-    const float* mr = mask ? mask + (long long)(q0 + r) * Sk : nullptr;
-    float mx = -INFINITY;
-    for (int j = lane; j < Sk; j += 32) {
-      float x = __fmul_rn(sr[j], scale);  // rounded before the mask, as the plain version
-      if (mr) x += mr[j];
-      pr[j] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int j = lane; j < Sk; j += 32) {
-      const float e = expf(pr[j] - mx);
-      pr[j] = e;
-      sum += e;
-    }
-    const float inv = 1.0f / warp_sum(sum);
-    for (int j = lane; j < pld; j += 32) pr[j] = j < Sk ? round_t<T>(pr[j] * inv) : 0.0f;
-  }
-  __syncthreads();
-  const T* vb = v + b * v_bs;
-  for (int c = 2 * threadIdx.x; c < W; c += 2 * TPV_THREADS) {
-    float o[TPV_ROWS][2];
-#pragma unroll
-    for (int r = 0; r < TPV_ROWS; ++r) o[r][0] = o[r][1] = 0.0f;
-    for (int j = 0; j < Sk; j += 4) {
-      float2 vj[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const T2* vp = reinterpret_cast<const T2*>(vb + (long long)(j + u) * v_ss + c);
-        vj[u] = j + u < Sk ? to_f2(*vp) : make_float2(0.0f, 0.0f);
-      }
-#pragma unroll
-      for (int r = 0; r < TPV_ROWS; ++r) {
-        const float4 p4 = *reinterpret_cast<const float4*>(tpv_p + r * pld + j);
-        o[r][0] = fmaf(p4.x, vj[0].x, o[r][0]);
-        o[r][1] = fmaf(p4.x, vj[0].y, o[r][1]);
-        o[r][0] = fmaf(p4.y, vj[1].x, o[r][0]);
-        o[r][1] = fmaf(p4.y, vj[1].y, o[r][1]);
-        o[r][0] = fmaf(p4.z, vj[2].x, o[r][0]);
-        o[r][1] = fmaf(p4.z, vj[2].y, o[r][1]);
-        o[r][0] = fmaf(p4.w, vj[3].x, o[r][0]);
-        o[r][1] = fmaf(p4.w, vj[3].y, o[r][1]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < TPV_ROWS; ++r)
-      if (r < rows)
-        *reinterpret_cast<T2*>(out + b * o_bs + (long long)(q0 + r) * o_ss + c) =
-            from_f2<T>(o[r][0], o[r][1]);
-  }
-}
-
-// s [B, Sq, Sk] fp32 contiguous from q [B, Sq, W] and k [B, Sk, W] (unit
-// stride along W); bf16 needs W a multiple of 64 and 16-byte aligned
-// operands and strides (cp.async), fp32 W <= TPF_LANES
-template <typename T>
-inline cudaError_t attention_tp_scores(const T* q, long long q_bs, long long q_ss, const T* k,
-                                       long long k_bs, long long k_ss, float* s, int B, int Sq,
-                                       int Sk, int W, cudaStream_t stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0) return cudaSuccess;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k);
-    if (W % AWM_SLAB || (ptrs & 15) || ((q_bs | q_ss | k_bs | k_ss) & 7))
-      return cudaErrorInvalidValue;
-    if (Sq <= ATT_SHORT_MAX && Sk <= ATT_SHORT_MAX) {
-      constexpr size_t smem = attention_wide_short_smem_bytes();
-      const int blocks = warp_problem_blocks<tp_scores_short_kernel>(smem, B);
-      tp_scores_short_kernel<<<blocks, AS_WARPS * 32, smem, stream>>>(q, q_bs, q_ss, k, k_bs,
-                                                                      k_ss, s, B, Sq, Sk, W);
-    } else {
-      constexpr size_t smem = sizeof(__nv_bfloat16) * (size_t)AWM_STAGES * AWM_STAGE_ROWS * AWM_LD;
-      const long long blocks = (long long)B * ((Sq + AM_Q - 1) / AM_Q);
-      tp_scores_mma_kernel<<<(unsigned)blocks, AM_THREADS, smem, stream>>>(q, q_bs, q_ss, k, k_bs,
-                                                                          k_ss, s, Sq, Sk, W);
-    }
-  } else {
-    if (W > TPF_LANES) return cudaErrorInvalidValue;
-    const long long blocks = (long long)B * ((Sq + TPF_ROWS - 1) / TPF_ROWS);
-    tp_scores_fma_kernel<<<(unsigned)blocks, TPF_WARPS * 32, 0, stream>>>(q, q_bs, q_ss, k, k_bs,
-                                                                         k_ss, s, Sq, Sk, W);
-  }
-  return cudaGetLastError();
-}
-
-// out [B, Sq, W] (row stride o_ss) from the summed scores s [B, Sq, Sk]
-// (contiguous fp32), v [B, Sk, W] (unit stride along W) and an additive
-// [Sq, Sk] fp32 mask or null; W even, v and out on whole lane pairs
-template <typename T>
-inline cudaError_t attention_tp_pv(const float* s, const T* v, long long v_bs, long long v_ss,
-                                   const float* mask, T* out, long long o_bs, long long o_ss,
-                                   int B, int Sq, int Sk, int W, float scale,
-                                   cudaStream_t stream) {
-  if (B <= 0 || Sq <= 0 || W <= 0) return cudaSuccess;
-  // lane pairs: an even width, pointers and strides on whole pairs
-  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
-  if ((W & 1) || (ptrs & (2 * sizeof(T) - 1)) || ((v_bs | v_ss | o_bs | o_ss) & 1))
-    return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (size_t)TPV_ROWS * tp_pv_pld(Sk);
-  if (smem > smem_optin()) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tp_pv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const long long blocks = (long long)B * ((Sq + TPV_ROWS - 1) / TPV_ROWS);
-  tp_pv_kernel<T><<<(unsigned)blocks, TPV_THREADS, smem, stream>>>(s, v, v_bs, v_ss, mask, out,
-                                                                   o_bs, o_ss, Sq, Sk, W, scale);
   return cudaGetLastError();
 }
 

@@ -110,23 +110,6 @@ __device__ __forceinline__ void tf_load_tile(float* s, const float* __restrict__
   }
 }
 
-// x = hi + lo, both tf32 (fp32 bit patterns with the low 13 mantissa bits 0)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-// c += a b for one m16n8k8 tile: tf32 a (16 x 8, row) and b (8 x 8, col)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // One K slab (TF_BK deep) of a warp's 64 x 32 share of a 128 x 128 tile:
 // the slab's 3xTF32 sums on the tensor cores into a fresh fragment, folded
 // into the fp32 accumulator acc with IEEE adds. As and Bs hold the slab's

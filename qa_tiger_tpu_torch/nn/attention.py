@@ -156,7 +156,8 @@ def _mha_tp(p: MultiheadAttention, query, key, value, num_heads: int, attn_mask,
         scores = reduce_from_model(attention_wide_tp_scores(q, k), grid)
         ctx = attention_wide_tp_pv(copy_to_model(scores, grid), v, attn_mask, scale)
     elif lanes:
-        probs = tp_probs(reduce_from_model(tp_partial_scores(q, k), grid), attn_mask, scale)
+        # q * scale rounds in q's dtype before the product, as in ``attend``
+        probs = tp_probs(reduce_from_model(tp_partial_scores(q * scale, k), grid), attn_mask, 1.0)
         dropped = copy_to_model(probs, grid)
         if prob_mask is not None:
             dropped = dropped * prob_mask[:, 0].float()

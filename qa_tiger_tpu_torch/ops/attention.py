@@ -56,6 +56,9 @@ H100_SMEM_OPTIN = 232_448
 _ATT_WARPS, _AT_Q, _AT_K, _AW_Q = 4, 64, 64, 16
 _AM_Q, _AM_K, _AM_PAD, _AS_WARPS, _AS_ROWS = 64, 64, 8, 4, 16
 _AWM_SLAB, _AWM_STAGES = 64, 2
+# attention_wide's lane split (csrc/attention_tp.cuh, TP_SHORT): a problem of
+# at most this many queries and keys is one warp's
+TP_SHORT_MAX = 16
 
 
 class AttentionPlan(NamedTuple):
@@ -326,12 +329,13 @@ attention_wide_key_bias.launches = 0
 # ---------------------------------------------------------------------------
 
 def tp_scores_route(dtype: torch.dtype, sq: int, sk: int) -> str:
-    """The kernel family of ``attention_wide_tp_scores``: in bf16 "mma_short"
-    (a warp per problem, at most 16 queries and keys) or "mma" (64 query rows
-    a block), in fp32 "fma"."""
-    if dtype != torch.bfloat16:
-        return "fma"
-    return "mma_short" if sq <= 16 and sk <= 16 else "mma"
+    """The kernel family of both lane-split stages, ``attention_wide_tp_scores``
+    and ``attention_wide_tp_pv`` (``csrc/attention_tp.cuh``): the products on
+    ``mma.sync`` in bf16 ("mma"), on 3xTF32 in fp32 ("tf32x3"); "_short"
+    where at most TP_SHORT_MAX queries and keys make a problem one warp's,
+    else 64 query rows a block."""
+    family = "mma" if dtype == torch.bfloat16 else "tf32x3"
+    return f"{family}_short" if sq <= TP_SHORT_MAX and sk <= TP_SHORT_MAX else family
 
 
 def tp_partial_scores(q, k):
@@ -398,25 +402,27 @@ def _check_tp_rows(q, k) -> None:
     _check_rows("k", k, B, W)
     if k.dtype != q.dtype or k.device != q.device:
         raise ValueError("k must match q's dtype and device")
-    if q.dtype == torch.float32 and W > 512:
-        raise ValueError(f"the fp32 scores kernel takes at most 512 lanes, got {W}")
 
 
-def _lanes64(t: torch.Tensor) -> torch.Tensor:
-    """A bf16 operand as the mma kernels read it: lanes zero-padded to a
-    multiple of 64 (zero lanes add nothing to q·kᵀ and give zero context),
-    a contiguous copy where 16-byte copies could not read it."""
-    extra = -t.shape[-1] % 64
+def _lane_slabs(t: torch.Tensor) -> torch.Tensor:
+    """An operand as the lane-split kernels read it: lanes zero-padded to
+    whole 128-byte slabs, 64 bf16 or 32 fp32 (zero lanes add nothing to
+    q·kᵀ and give zero context lanes, dropped), a contiguous copy where
+    16-byte ``cp.async`` copies could not read it (a base off 16 bytes, a
+    batch or row stride off whole 16 bytes)."""
+    per = 16 // t.element_size()
+    extra = -t.shape[-1] % (8 * per)
     if extra:
         return torch.nn.functional.pad(t, (0, extra))
-    return _kernel_operand(t, 1, t.shape[-1], t.shape[-1])
+    if t.data_ptr() % 16 or t.stride(0) % per or t.stride(1) % per:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
 
 
 def _launch_tp_scores(q, k):
     B, Sq, _ = q.shape
     Sk = k.shape[1]
-    if q.dtype == torch.bfloat16:
-        q, k = _lanes64(q), _lanes64(k)
+    q, k = _lane_slabs(q), _lane_slabs(k)
     s = torch.empty(B, Sq, Sk, dtype=torch.float32, device=q.device)
     _build.launch("qt_attention_tp_scores", _build.dtype_code(q), q.data_ptr(), q.stride(0),
                   q.stride(1), k.data_ptr(), k.stride(0), k.stride(1), s.data_ptr(), B, Sq, Sk,
@@ -426,21 +432,10 @@ def _launch_tp_scores(q, k):
     return s
 
 
-def _lane_pairs(t: torch.Tensor) -> torch.Tensor:
-    """v as the second stage reads it, two lanes at a time: an odd width
-    with a zero lane appended (it gives a zero context lane, dropped), a
-    base or stride off whole pairs copied to a contiguous tensor."""
-    if t.shape[-1] % 2:
-        return torch.nn.functional.pad(t, (0, 1))
-    if t.data_ptr() % (2 * t.element_size()) or t.stride(0) % 2 or t.stride(1) % 2:
-        return t.clone(memory_format=torch.contiguous_format)
-    return t
-
-
 def _launch_tp_pv(scores, v, *, mask, scale):
     B, Sq, Sk = scores.shape
     W = v.shape[-1]
-    v = _lane_pairs(v)
+    v = _lane_slabs(v)
     out = torch.empty(B, Sq, v.shape[-1], dtype=v.dtype, device=v.device)
     _build.launch("qt_attention_tp_pv", _build.dtype_code(v), scores.data_ptr(), v.data_ptr(),
                   v.stride(0), v.stride(1), _build.ptr(mask), out.data_ptr(), out.stride(0),

@@ -1376,3 +1376,55 @@ def test_attention_wide_tp_stages(cuda, b, sq, sk, masked, tp, dtype):
     got = torch.cat([A.attention_wide_tp_pv(scores, v[..., c], mask, scale) for c in lanes], -1)
     assert A.attention_wide_tp_pv.launches - npv == 2 * tp
     _check(lambda: got, lambda: A.attention_wide(q, k, v, mask, scale, 1), dtype)
+
+
+# the lane split's kernels at odd lengths: every (Sq, Sk) of these, at 64,
+# 128 and 256 lanes a rank, masked on every other pair
+TP_ODD_LENGTHS = (1, 15, 17, 60, 77, 129)
+TP_ODD_CASES = [(sq, sk, (i + j) % 2 == 1) for i, sq in enumerate(TP_ODD_LENGTHS)
+                for j, sk in enumerate(TP_ODD_LENGTHS)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("w", [64, 128, 256])
+@pytest.mark.parametrize("sq,sk,masked", TP_ODD_CASES)
+def test_attention_wide_tp_stages_odd_lengths(cuda, sq, sk, masked, w, dtype):
+    """Both stages against their plain versions at ragged query and key
+    counts (one 16-row tile; one 64-key tile, whose p the pv kernel holds in
+    registers, and several, where it forms p per tile), each launch counted
+    once; in fp32 the scores also against an fp64 product: within 2^-18 of
+    sum_l |q_l k_l| per element (3xTF32 keeps about fp32's accuracy, where
+    one TF32 pass would be off by up to 2^-11)."""
+    rng = np.random.default_rng(1000 * sq + sk)
+    q, k, v = (_rn(rng, 3, s, w, dtype=dtype) for s in (sq, sk, sk))
+    mask = (torch.triu(torch.full((sq, sk), -1e9, device=cuda), sk // 2 + 1)
+            if masked else None)
+    ns, npv = A.attention_wide_tp_scores.launches, A.attention_wide_tp_pv.launches
+    _check(lambda: A.attention_wide_tp_scores(q, k), lambda: A.tp_partial_scores(q, k),
+           torch.float32)
+    s = A.attention_wide_tp_scores(q, k)
+    assert A.attention_wide_tp_scores.launches - ns == 2
+    if dtype == torch.float32:
+        want = torch.einsum("bqd,bkd->bqk", q.double(), k.double())
+        size = torch.einsum("bqd,bkd->bqk", q.double().abs(), k.double().abs())
+        assert bool(((s.double() - want).abs() <= 2.0 ** -18 * size).all())
+    _check(lambda: A.attention_wide_tp_pv(s, v, mask, w ** -0.5),
+           lambda: A._tp_pv_plain(s, v, mask=mask, scale=w ** -0.5), dtype)
+    assert A.attention_wide_tp_pv.launches - npv == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_wide_tp_stages_copy_misaligned_operands(cuda, dtype):
+    """Operands the kernels' 16-byte copies cannot read as they are: lanes
+    of a packed buffer at an odd offset (the wrapper copies them), and a
+    width off whole slabs (zero-padded lanes, dropped from the context)."""
+    rng = np.random.default_rng(7)
+    for w, off in ((72, 1), (40, 0), (256, 3)):
+        buf = _rn(rng, 5, 60, 3 * w + off, dtype=dtype)
+        q, k, v = (buf[..., off + i * w:off + (i + 1) * w] for i in range(3))
+        _check(lambda: A.attention_wide_tp_scores(q, k), lambda: A.tp_partial_scores(q, k),
+               torch.float32)
+        s = A.attention_wide_tp_scores(q, k)
+        got = A.attention_wide_tp_pv(s, v, None, 0.1)
+        assert got.shape == v.shape
+        _check(lambda: got, lambda: A._tp_pv_plain(s, v, mask=None, scale=0.1), dtype)

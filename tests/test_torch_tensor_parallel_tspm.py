@@ -9,7 +9,9 @@
     versions on the ranks' lanes in turn, the partial scores summed in rank
     order, against ``attention_wide``'s plain version on the whole head, at
     tp 2 and 4, fp32 and bf16, with and without a mask; fp32 also the q, k
-    and v gradients;
+    and v gradients; the stages' route names and lane padding; a bf16 head
+    on the plain branch (a ``prob_mask``, ``need_weights``) rounding q·scale
+    in bf16 as one rank and JAX's ``mha`` do;
 (c) each TSPM block's tensor-parallel form (the ranks simulated as threads,
     ``tests/torch_tp.py``) at tp 2 and 4: without dropout against the JAX
     block on the same numpy inputs, with dropout (the whole realization
@@ -29,6 +31,9 @@
     stream), and a ``StepGraph`` that would capture under gloo raises,
     naming it (QA-TIGER's case: ``test_torch_tensor_parallel_train.py``).
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +45,7 @@ import torch_tp
 from qa_tiger_tpu.data import AVQADataset as JDataset
 from qa_tiger_tpu.data import BatchLoader as JBatchLoader
 from qa_tiger_tpu.models import tspm as J
+from qa_tiger_tpu.nn.attention import mha as j_mha
 from qa_tiger_tpu.parallel import make_mesh
 from qa_tiger_tpu.parallel.mesh import _spec_for
 from qa_tiger_tpu.training.loop import AVQARunner as JAXRunner
@@ -47,6 +53,9 @@ from qa_tiger_tpu.utils import Box as JBox
 from qa_tiger_tpu_torch.convert import nested_to_flat, params_from_jax
 from qa_tiger_tpu_torch.models import TSPM
 from qa_tiger_tpu_torch.models import tspm as P
+from qa_tiger_tpu_torch.nn import attention as nn_attention
+from qa_tiger_tpu_torch.nn.attention import MultiheadAttention, _project, mha
+from qa_tiger_tpu_torch.nn.core import attend
 from qa_tiger_tpu_torch.ops import attention as A
 from qa_tiger_tpu_torch.parallel import tp_spec
 from qa_tiger_tpu_torch.parallel.tensor import QKV, QKV_VEC, merge_shards
@@ -170,6 +179,122 @@ def test_stage_plains_sum_to_attention_wide(tp, dtype, masked):
     for got, w, name in zip(torch.autograd.grad(ctx, (q, k, v), cot),
                             torch.autograd.grad(want, (q, k, v), cot), "qkv"):
         _close_grad(got, w, name)
+
+
+@pytest.mark.parametrize("dtype,sq,sk,route", [
+    (torch.bfloat16, 60, 60, "mma"), (torch.bfloat16, 14, 14, "mma_short"),
+    (torch.bfloat16, 16, 17, "mma"), (torch.bfloat16, 1, 16, "mma_short"),
+    (torch.float32, 60, 60, "tf32x3"), (torch.float32, 14, 14, "tf32x3_short"),
+    (torch.float32, 17, 16, "tf32x3"), (torch.float32, 16, 1, "tf32x3_short"),
+    (torch.float32, 1, 129, "tf32x3")])
+def test_lane_split_routes(dtype, sq, sk, route):
+    """The lane split's stages name their kernel family by dtype and shape
+    class: a warp per problem at most TP_SHORT_MAX queries and keys, else 64
+    query rows a block; bf16 on mma.sync, fp32 on 3xTF32."""
+    assert A.tp_scores_route(dtype, sq, sk) == route
+
+
+def test_lane_split_short_limit_is_the_kernels():
+    """TP_SHORT_MAX is csrc/attention_tp.cuh's TP_SHORT (ATT_SHORT_MAX)."""
+    csrc = Path(A.__file__).resolve().parents[1] / "csrc"
+    tp = (csrc / "attention_tp.cuh").read_text()
+    common = (csrc / "common.cuh").read_text()
+    assert re.search(r"TP_SHORT = ATT_SHORT_MAX\b", tp)
+    limit = re.search(r"ATT_SHORT_MAX = (\d+)", common)
+    assert limit and int(limit.group(1)) == A.TP_SHORT_MAX
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lane_slabs_pad_and_copy(dtype):
+    """What the lane-split kernels read: lanes zero-padded to whole 128-byte
+    slabs (32 fp32, 64 bf16), a copy of a view off 16 bytes, a view on whole
+    16 bytes as it is."""
+    dt = getattr(torch, dtype)
+    slab = 128 // torch.tensor([], dtype=dt).element_size()
+    buf = torch.randn(2, 5, 3 * slab + 1, generator=torch.Generator().manual_seed(0)).to(dt)
+    padded = A._lane_slabs(buf[..., :40])
+    assert padded.shape[-1] == -(-40 // slab) * slab
+    assert torch.equal(padded[..., :40], buf[..., :40]) and not padded[..., 40:].any()
+    odd = A._lane_slabs(buf[..., 1:1 + slab])
+    assert odd.is_contiguous() and torch.equal(odd, buf[..., 1:1 + slab])
+    whole = torch.randn(2, 5, 2 * slab).to(dt)
+    assert A._lane_slabs(whole[..., slab:]).data_ptr() == whole[..., slab:].data_ptr()
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at each element of ``x`` (8 bits of
+    mantissa), the smallest normal's spacing near 0."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+# JAX's bf16 projections round twice (the product, then + bias) where the
+# port's round once, so q, k and v may differ by a bf16 ulp here and there;
+# through the softmax that moves the weights and the output by an ulp or
+# two of their largest element
+JAX_BF16_ULPS = 2
+
+
+@pytest.mark.parametrize("case", ["prob_mask", "need_weights"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_bf16_one_head_plain_split_rounds_q_scale_as_one_rank(tp, case):
+    """One bf16 head split by lanes on the plain branch (a ``prob_mask`` or
+    ``need_weights``): each rank rounds q·scale in bf16 before its partial,
+    as one rank's ``attend`` and JAX's ``mha`` do. The fp32 probabilities
+    equal one rank's within fp32 summation order (atol 1e-6), the context
+    (``out_proj`` the identity, so the output is the context) within 1 bf16
+    ulp of each element; against JAX's ``mha`` the weights and the output
+    within JAX_BF16_ULPS bf16 ulps of their largest element."""
+    rng = np.random.default_rng(40 + tp)
+    B, Sq, Sk, D = 3, 9, 11, 48  # a scale of 1/sqrt(48): q·scale rounds in bf16
+    holder = torch.nn.Module()
+    holder.attn = MultiheadAttention(D, torch.Generator().manual_seed(tp))
+    with torch.no_grad():
+        holder.attn.in_proj_bias.copy_(torch.from_numpy(0.1 * _rn(rng, 3 * D)))
+        holder.attn.out_proj.weight.copy_(torch.eye(D))
+    holder = holder.to(torch.bfloat16).requires_grad_(False)
+    q = torch.from_numpy(_rn(rng, B, Sq, D)).bfloat16()
+    kv = torch.from_numpy(_rn(rng, B, Sk, D)).bfloat16()
+    mask = torch.from_numpy(np.triu(np.full((Sq, Sk), -1e9, np.float32), 4))
+    keep = (rng.random((B, 1, Sq, Sk)) >= DP) / (1.0 - DP)
+    prob_mask = torch.from_numpy(keep.astype(np.float32)) if case == "prob_mask" else None
+    kw = dict(num_heads=1, attn_mask=mask, need_weights=case == "need_weights",
+              prob_mask=prob_mask)
+    seen = []
+
+    def recorded(*args):
+        seen.append(A.tp_probs(*args))
+        return seen[-1]
+
+    want, want_w = mha(holder.attn, q, kv, kv, **kw)
+    _, want_p = attend(*_project(holder.attn, q, kv, kv, D), 1, attn_mask=mask)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nn_attention, "tp_probs", recorded)
+        ranks = torch_tp.run_ranks(tp, lambda grid: mha(
+            torch_tp.sharded(holder, grid).attn, q, kv, kv, grid=grid, **kw))
+    assert len(seen) == tp and all(torch.equal(p, seen[0]) for p in seen)
+    np.testing.assert_allclose(seen[0].numpy(), want_p[:, 0].numpy(), rtol=0, atol=1e-6)
+    out, weights = ranks[0]
+    assert out.dtype == torch.bfloat16 and all(torch.equal(r[0], out) for r in ranks)
+    assert bool(((out.float() - want.float()).abs() <= _bf16_ulp(want)).all())
+    if case == "need_weights":
+        assert weights.dtype == torch.bfloat16
+        assert bool(((weights.float() - want_w.float()).abs() <= _bf16_ulp(want_w)).all())
+
+    jp = {k: jnp.asarray(v.float().numpy(), jnp.bfloat16)
+          for k, v in (("in_proj_weight", holder.attn.in_proj_weight),
+                       ("in_proj_bias", holder.attn.in_proj_bias))}
+    jp["out_proj"] = {k: jnp.asarray(getattr(holder.attn.out_proj, k).float().numpy(),
+                                     jnp.bfloat16) for k in ("weight", "bias")}
+    jkv = jnp.asarray(kv.float().numpy(), jnp.bfloat16)
+    j_out, j_w = j_mha(jp, jnp.asarray(q.float().numpy(), jnp.bfloat16), jkv, jkv, num_heads=1,
+                       attn_mask=jnp.asarray(mask.numpy()), need_weights=True,
+                       prob_mask=None if prob_mask is None else jnp.asarray(keep, jnp.float32))
+    pairs = [(out, j_out)] + ([(weights, j_w)] if case == "need_weights" else [])
+    for got, ref in pairs:
+        ref = torch.from_numpy(np.asarray(ref, np.float32))
+        err = float((got.float() - ref).abs().max())
+        assert err <= JAX_BF16_ULPS * float(_bf16_ulp(ref.abs().max())), err
 
 
 # ---------------------------------------------------------------------------
