@@ -16,9 +16,11 @@ order is A B B A, repeated ``--pairs`` / 2 times (A B for an odd last
 pair), so that neither checkout always runs first. One JSON line per
 process (the recipe's step times, the profiled step's device time and
 idle share, the graph step's times or null; the profile tables go to
-``--out``), then one summary line per checkout: the median of the step
-medians, of the device times and of the graph step's medians. A later
-change to the train step is measured on the graph step by these rows.
+``--out``, with that of a window of 8 replayed graph steps,
+``profile_train_graph``, and its device time), then one summary line per
+checkout: the median of the step medians, of the device times and of the
+graph step's medians. A later change to the train step is measured on the
+graph step by these rows.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ torch.backends.cudnn.allow_tf32 = False
 chip_smoke.check_train(np.random.default_rng(0), collections.defaultdict(dict), Path({out!r}))
 if hasattr(chip_smoke, "time_train_graph"):
     torch.cuda.empty_cache()
-    chip_smoke.time_train_graph(np.random.default_rng(0))
+    chip_smoke.time_train_graph(np.random.default_rng(0), Path({out!r}))
 """
 
 
@@ -59,12 +61,15 @@ def run_one(tree: Path, out: Path) -> dict:
             phases[line.get("phase")] = line
     step, prof = phases["train_fp32_b32"], phases["profile_train"]
     graph = phases.get("train_graph_time", {})
+    window = phases.get("profile_train_graph", {})
     return {"tree": str(tree), "step_ms_median": step["step_ms_median"],
             "step_ms_all": step["step_ms_all"], "device_busy_ms": prof["device_busy_ms"],
             "profiled_wall_ms": prof["wall_ms"], "idle_share": prof["idle_share"],
             "graph_replay_ms_median": graph.get("replay_ms_median"),
             "graph_replay_ms_all": graph.get("replay_ms_all"),
-            "graph_window_ms_per_step": graph.get("window_ms_per_step")}
+            "graph_window_ms_per_step": graph.get("window_ms_per_step"),
+            "graph_profile_busy_ms": window.get("device_busy_ms"),
+            "graph_profile_idle_share": window.get("idle_share")}
 
 
 def main() -> int:

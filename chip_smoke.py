@@ -50,6 +50,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    fused_attn_ln2 also at the 512-wide text tower of RN50 (x[2, 77, 512]
    fp32, x[42, 77, 512] bf16 timed, causal, 8 heads: attention on mma,
    both products on gemm_sm90; ``clip_text_w512`` in its table entry);
+   the keep-masked attention kernels (``attention_keep`` /
+   ``attention_keep_bwd``, kernel "mma_keep", inside both train kernels)
+   alone at the 12 calls of one recipe train step, fp32 and bf16, against
+   their plain versions, their plans the library's, each twice bitwise,
+   timed beside the plain versions and the bound (``keep_attention_step``
+   sums the step's 12);
 4. serving — the Predictor at configs/qa-tiger/vitl14.py with weights from
    a seed: (a) fp32 logits at B=4 against the same state_dict run through
    the plain versions on the CPU; (b) the bf16 B=256 path through
@@ -83,8 +89,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    dropout off, card against CPU (loss, updated parameters, gradients);
    (b) the recipe, fp32 B=32 with dropout: 3 warm-up steps, the launch
    counters reset around one step (every product of the two train kernels'
-   forwards and backwards and of the two MoE calls on gemm_tf32x3), 10
-   timed steps, losses, peak memory;
+   forwards and backwards and of the two MoE calls on gemm_tf32x3; every
+   keep-masked attention of the two train kernels, three a launch, on
+   "mma_keep": ``train_step_attn_routes``), 10 timed steps, losses, peak
+   memory;
    (c) ``evaluate`` over two batches, with its accuracy report;
    (d) resume: two fp32 B=4 steps with dropout, the train state saved and
    restored into a fresh runner whose weights and dropout stream were
@@ -280,7 +288,8 @@ before the card's sums them by phase (``"phase": "seconds"``).
 ``--profile DIR`` also writes torch.profiler tables of one bf16 serving
 forward, a window of 1024 served requests under 4 client threads (its
 device idle share: ``profile_serve``), one train step, a window of 8
-replayed train steps (``profile_train_graph``), one raw-media forward and
+replayed train steps (``profile_train_graph``: no FMA attention kernel may
+run in it), one raw-media forward and
 one TSPM bf16 B=256 forward (``profile_tspm``) and one bf16 CLIP forward
 of each config (``profile_clip_rn50``, ``profile_clip_vitl336``) to DIR,
 each through ``utils.profiling.trace``, whose Chrome trace
@@ -1270,6 +1279,9 @@ def check_train_kernels(rng, gen, entries: dict):
     the recipe shape in fp32 each kernel pair runs twice and every output
     and gradient must be bitwise the same.
 
+    At the recipe shape in each dtype the keep-masked attention kernels
+    run alone at the step's 12 calls (``check_keep_attention``).
+
     Tolerances: fp32, and bf16 forward outputs, max|k - p| <= tol *
     max(1, max|p|) as for the other kernels. bf16 gradients: both the kernel
     and the plain version in bf16 are held to the plain version in fp32 on
@@ -1341,6 +1353,8 @@ def check_train_kernels(rng, gen, entries: dict):
                                              bound_ms_fp32_fma=line["bwd_bound_fma_ms"])
                     entries[c["fwd"]].update(bound_peak="tf32x3",
                                              bound_ms_fp32_fma=line["bound_fma_ms"])
+                    for name in (c["fwd"], c["bwd"]):  # their keep-masked attentions
+                        entries[name].update(attn_route="mma_keep", attn_source=KEEP_SOURCE)
             print(json.dumps(line), flush=True)
             require(ok, f"{c['fwd']} {dname} {c['shape']}: tensor {worst[1]} max|k-p| "
                         f"{worst[2]:.3e} over its limit")
@@ -1351,6 +1365,135 @@ def check_train_kernels(rng, gen, entries: dict):
                     f"expected {c['fwd_routes']}")
             del got, want, ref
         torch.cuda.empty_cache()
+        if label == "recipe":
+            check_keep_attention(dtype, rng, tol)
+            torch.cuda.empty_cache()
+
+
+# the keep-masked (dropout) attentions one recipe train step launches
+# (B=32, 8 heads of 64 lanes): (label, problems' batch, Sq, Sk, q|k|v
+# layout, backward, accumulate_kv); layout "packed" q, k, v column slices
+# of one [.., 3D] projection, "kv" q alone and k, v slices of [.., 2D];
+# the PatchSelecter's probability rounded first
+KEEP_CALLS = [("avq_fwd_question", 64, T, S, "kv", False, False),
+              ("avq_fwd_self", 64, T, T, "packed", False, False),
+              ("avq_fwd_cross", 64, T, T, "kv", False, False),
+              ("avq_bwd_question", 64, T, S, "kv", True, False),
+              ("avq_bwd_self", 64, T, T, "packed", True, False),
+              ("avq_bwd_cross", 64, T, T, "kv", True, False),
+              ("ps_fwd_self", 32 * T, P, P, "packed", False, False),
+              ("ps_fwd_cross_video", 32 * T, 1, P, "kv", False, False),
+              ("ps_fwd_cross_audio", 32 * T, 1, P, "kv", False, False),
+              ("ps_bwd_cross_video", 32 * T, 1, P, "kv", True, False),
+              ("ps_bwd_cross_audio", 32 * T, 1, P, "kv", True, True),
+              ("ps_bwd_self", 32 * T, P, P, "packed", True, False)]
+
+
+def check_keep_attention(dtype, rng, tol: float) -> None:
+    """The keep-masked tensor-core kernels (``ops.avq.attention_keep`` /
+    ``attention_keep_bwd``, kernel "mma_keep") alone at the 12 calls of one
+    recipe train step (KEEP_CALLS), in their layouts: each against its
+    plain version on the same inputs within ``tol`` * max(1, max|p|) and
+    twice bitwise the same; its plan (kernel, shared memory) the library's;
+    timed (``ms``: the median of three readings, ``ms_all``; single readings
+    on this card have jumped by 2-8x within one run) beside the plain
+    version and the bound: bytes (forward q, k, v and ctx; backward q, k,
+    v, g, dq, dk and dv, dk and dv read too where accumulated; the keep
+    mask's used lanes; each once) over 3.35 TB/s, or 4 (forward) / 10
+    (backward) Sq Sk hd operations a problem over the dtype's peak (3xTF32
+    in fp32); a closing line sums the step's 12."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import attention as A
+    from qa_tiger_tpu_torch.ops import avq as AV
+
+    dname = str(dtype).replace("torch.", "")
+    isz = torch.tensor([], dtype=dtype).element_size()
+    D, heads, hd = 512, 8, 64
+    peak = "bfloat16" if dtype == torch.bfloat16 else "tf32x3"
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+
+    def rn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
+
+    for label, nb, sq, sk, layout, backward, accumulate in KEEP_CALLS:
+        if layout == "packed":
+            qkv = rn(nb, sq, 3 * D)
+            q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+        else:
+            q, kv = rn(nb, sq, D), rn(nb, sk, 2 * D)
+            k, v = kv[..., :D], kv[..., D:]
+        lp = -(-heads * sk // 128) * 128
+        drop = rng.random((nb * sq, lp)) < 0.1
+        keep = torch.from_numpy(np.where(drop, 0.0, 1.0 / 0.9).astype(np.float32)).to("cuda",
+                                                                                    dtype)
+        rpf = label.startswith("ps_")
+        plan_fn, lib_fn = ((A.attention_bwd_plan, A.library_bwd_plan) if backward
+                           else (A.attention_plan, A.library_plan))
+        plan = plan_fn(dtype, sq, sk, hd, has_keep=True, limit=A.smem_limit("cuda"))
+        planned = lib_fn(dtype, sq, sk, hd, True)
+        elems = nb * (2 * sq + 2 * sk) * D  # q, k, v and ctx
+        if backward:
+            g = rn(nb, sq, D)
+            acc = (rn(nb, sk, D), rn(nb, sk, D)) if accumulate else None
+            acc0 = tuple(t.clone() for t in acc) if accumulate else None
+
+            def kernel(restore=False):
+                # accumulate_kv: dk, dv from acc0 where ``restore`` (the
+                # checks), else on whatever they hold (the timings)
+                if restore and accumulate:
+                    for t, t0 in zip(acc, acc0):
+                        t.copy_(t0)
+                return AV.attention_keep_bwd(q, k, v, g, keep, heads, rpf, acc)
+
+            def plain():
+                dq, dk, dv = AV.keep_attention_bwd(q, k, v, g, keep, heads, rpf)
+                if accumulate:
+                    dk = (acc0[0].float() + dk.float()).to(dtype)
+                    dv = (acc0[1].float() + dv.float()).to(dtype)
+                return dq, dk, dv
+
+            # q, g, dq; k, v, dk, dv; dk, dv read too where accumulated
+            elems = nb * (3 * sq + 4 * sk) * D + (2 * nb * sk * D if accumulate else 0)
+            flops = 10 * nb * heads * sq * sk * hd
+        else:
+            def kernel(restore=False):
+                return AV.attention_keep(q, k, v, keep, heads, rpf)
+
+            def plain():
+                return AV.keep_attention(q, k, v, keep, heads, rpf)
+
+            flops = 4 * nb * heads * sq * sk * hd
+        got = kernel(restore=True)
+        got = [t.clone() for t in ([got] if torch.is_tensor(got) else got)]
+        again = kernel(restore=True)
+        again = [t.clone() for t in ([again] if torch.is_tensor(again) else again)]
+        want = plain()
+        torch.cuda.synchronize()
+        err, scale = max_err(got, want)
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        nbytes = (elems + nb * sq * heads * sk) * isz  # the keep mask's used lanes
+        b_ms, b_by = bound(nbytes, flops, peak)
+        ok = (err <= tol * max(1.0, scale) and repeat and plan.kernel == "mma_keep"
+              and planned == (plan.kernel, plan.smem_bytes))
+        line = {"kernel": "attention_keep_bwd" if backward else "attention_keep",
+                "call": label, "dtype": dname,
+                "shape": f"q[{nb},{sq},{D}] kv[{nb},{sk},{D}] h{heads} {layout}",
+                "route": plan.route, "attn_kernel": plan.kernel, "smem_bytes": plan.smem_bytes,
+                "library_plan": list(planned), "max_abs_err": err, "max_abs_plain": scale,
+                "tolerance": tol * max(1.0, scale), "bitwise_repeat": repeat}
+        ms_all = [cuda_ms(kernel) for _ in range(3)]
+        line.update(ms=statistics.median(ms_all), ms_all=ms_all, plain_ms=cuda_ms(plain),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by, ok=ok)
+        line["tflops"] = flops / line["ms"] * 1e-9
+        for key in totals:
+            totals[key] += line[key]
+        print(json.dumps(line), flush=True)
+        require(ok, f"keep-masked attention {label} {dname}: max|k-p| {err:.3e}, repeat "
+                    f"{repeat}, plan {tuple(plan)} vs the library's {planned}")
+        del got, again, want
+    print(json.dumps({"phase": "keep_attention_step", "dtype": dname, "launches": len(KEEP_CALLS),
+                      **{f"{k}_sum": v for k, v in totals.items()}}), flush=True)
 
 
 def slice1_grad_cases(dtype, B: int, rng, gen):
@@ -1907,6 +2050,11 @@ TRAIN_LR = 1e-4
 TRAIN_TF32X3_KERNELS = {"fused_patch_select_train_bwd": 14, "fused_avq_train_bwd": 20,
                         "fused_patch_select_train": 7, "fused_avq_train": 10,
                         "fused_gaussian_moe": 4}
+# the keep-masked attention kernels inside the train kernels
+KEEP_SOURCE = "qa_tiger_tpu_torch/csrc/attention_keep.cu"
+# the train kernels whose launch runs three keep-masked attentions
+TRAIN_KEEP_KERNELS = ("fused_avq_train", "fused_avq_train_bwd", "fused_patch_select_train",
+                      "fused_patch_select_train_bwd")
 TRAIN_KERNELS = {"fused_attn_ln2": 12, "fused_avq_train": 1, "fused_avq_train_bwd": 1,
                  "fused_patch_select_train": 1, "fused_patch_select_train_bwd": 1,
                  "fused_gaussian_moe": 2, "attention_wide": 0, "attention_wide_key_bias": 0,
@@ -2012,6 +2160,12 @@ def check_train(rng, entries: dict, profile_dir: Path | None) -> dict:
     for name, n in TRAIN_TF32X3_KERNELS.items():  # every fp32 product on gemm_tf32x3
         require(routes[name] == {"tf32x3": n},
                 f"train step: {name}'s products took {routes[name]}, expected tf32x3 x {n}")
+    attn = {name: dict(ops.KERNELS[name].attn_routes) for name in TRAIN_KEEP_KERNELS}
+    print(json.dumps({"phase": "train_step_attn_routes", **attn}), flush=True)
+    for name in TRAIN_KEEP_KERNELS:  # every keep-masked attention on tensor cores
+        require(attn[name] == {"mma_keep": 3},
+                f"train step: {name}'s keep-masked attentions took {attn[name]}, expected "
+                "mma_keep x 3")
     for name, n in TRAIN_KERNELS.items():
         require(counts[name] == n, f"train step: {name} launched {counts[name]} times, "
                                    f"expected {n}")
@@ -2253,8 +2407,11 @@ def time_graph_steps(runner, staged: list, eager_ms: float | None,
     print(json.dumps(line), flush=True)
     require(np.isfinite(line["last_loss"]), "train_graph: a replayed loss is not finite")
     if profile_dir is not None:
-        profile_step(lambda: runner.train_window(window, TRAIN_LR),
-                     profile_dir / "train_graph_window_fp32_b32.txt", "profile_train_graph")
+        kernels = profile_step(lambda: runner.train_window(window, TRAIN_LR),
+                               profile_dir / "train_graph_window_fp32_b32.txt",
+                               "profile_train_graph")
+        fma = sorted(k for k in kernels if re.search(r"\battention(_bwd)?_kernel<", k))
+        require(not fma, f"train_graph: the replayed step ran FMA attention kernels {fma}")
     return line
 
 
@@ -4496,7 +4653,9 @@ class TrainChain:
 
         outs = []
         for r in range(self.tp):
+            fn.attn_routes = {}
             got = fn(self.k[r], *args(r, self.dtype))
+            attn = dict(fn.attn_routes)  # this launch's keep-masked attentions
             want = fn.plain(self.p[r], *args(r, self.dtype))
             torch.cuda.synchronize()
             g, w = _flat(got), _flat(want)
@@ -4512,7 +4671,8 @@ class TrainChain:
             line = {"phase": "tp_train_chain", "kernel": f"{self.op}_{name}", "tp": self.tp,
                     "rank": r, "dtype": str(self.dtype).replace("torch.", ""),
                     "tensors": len(g), "max_abs_err": err, "max_abs_ref": scale,
-                    "limit": limit, "ok": err <= limit}
+                    "limit": limit, "attn_routes": attn,
+                    "ok": err <= limit and set(attn) <= {"mma_keep"}}
             if self.timed and r == 0:
                 nbytes = _io_bytes(self.k[0].bufs, io[name])
                 b_ms, b_by = bound(nbytes, flops, "tf32x3")
@@ -4522,7 +4682,8 @@ class TrainChain:
                             gemm_routes=dict(getattr(fn, "gemm_routes", {})))
             print(json.dumps(line), flush=True)
             require(line["ok"], f"{self.op} {name} tp{self.tp} rank {r} "
-                                f"{line['dtype']}: {err:.3e} over {limit:.3e}")
+                                f"{line['dtype']}: {err:.3e} over {limit:.3e}, or keep-masked "
+                                f"attentions off the tensor cores ({attn})")
             self.lines.append(line)
             outs.append(got)
         return outs
@@ -5634,7 +5795,7 @@ def timed(name: str, fn, *args):
         print(json.dumps({"phase_seconds": name, "seconds": PHASE_SECONDS[name]}), flush=True)
 
 
-def profile_step(fn, path: Path, phase: str) -> None:
+def profile_step(fn, path: Path, phase: str) -> dict:
     """A torch.profiler table of one call of ``fn`` written to ``path``, and
     its wall time, device busy time and idle share. A line before them
     (``<phase>_kernels``) sets the profiler's count of each device kernel
@@ -5644,7 +5805,8 @@ def profile_step(fn, path: Path, phase: str) -> None:
     temporary directory) ``trace_summary`` reads: a line ``<phase>_trace``
     sets its launches by port kernel (launcher regions, and those whose
     device kernels the trace holds), its device events and its busy time
-    beside the wrappers' and the table's."""
+    beside the wrappers' and the table's. Returns the profiler's count of
+    each device kernel by name."""
     import tempfile
 
     import torch
@@ -5690,6 +5852,7 @@ def profile_step(fn, path: Path, phase: str) -> None:
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
     print(json.dumps({"phase": phase, "wall_ms": wall * 1e3, "device_busy_ms": busy,
                       "idle_share": 1 - busy / (wall * 1e3)}), flush=True)
+    return kernel_counts
 
 
 def main() -> int:

@@ -48,9 +48,15 @@
 //   "mma_wide", 64 query rows per block, the rounded probabilities in
 //   shared memory (one pass up to 128 keys, two beyond), the context by
 //   64-lane chunks;
-// - every other call (fp32, the keep-masked train calls, one query over
-//   more than 16 keys at head sizes up to 128, a wide head past ~1,500 keys
-//   in bf16): route 0, "fma", fp32 FMAs out
+// - a keep mask (the train kernels' dropout attentions, from csrc/avq.cu
+//   and csrc/patch_select_train.cu; no call of this file's entries) at
+//   head sizes 32, 64 and 128 over at most 128 keys, bf16 and fp32: route
+//   3, "mma_keep", the keep-masked tensor-core kernel of
+//   csrc/attention_keep.cu (its own entries qt_attention_keep and
+//   qt_attention_keep_bwd run it alone);
+// - every other call (fp32, a keep mask at other head sizes or longer
+//   keys, one query over more than 16 keys at head sizes up to 128, a wide
+//   head past ~1,500 keys in bf16): route 0, "fma", fp32 FMAs out
 //   of shared memory: keys up to 128 staged whole where they fit the
 //   block's shared memory (one warp per query row); else, at head sizes up
 //   to 128, 64-key tiles in the same two passes, register-tiled 64 x 64 per
@@ -80,23 +86,36 @@ extern "C" const char* qt_error_string(int err) {
 }
 
 // the kernel family qt::attention takes for such a call on the current
-// device: 2 a tensor-core kernel with a warp per problem (mma_short,
-// mma_wide_short), 1 one with 64 query rows per block (mma, mma_wide), 0 an
-// FMA kernel; dtype 0 is float32, 1 bfloat16
+// device: 3 the keep-masked tensor-core kernel (mma_keep), 2 a tensor-core
+// kernel with a warp per problem (mma_short, mma_wide_short), 1 one with 64
+// query rows per block (mma, mma_wide), 0 an FMA kernel; dtype 0 is
+// float32, 1 bfloat16
 extern "C" int qt_attention_route(int dtype, int Sq, int Sk, int hd, int has_keep) {
   return qt::attention_kernel_route(
       qt::attention_plan(dtype == 1, Sq, Sk, hd, has_keep != 0, qt::smem_optin(), nullptr));
 }
 
 // the kernel of qt::attention_plan on the current device (-1 none, 0 staged,
-// 1 tiled, 2 wide-head, 3 mma, 4 mma_short, 5 mma_wide, 6 mma_wide_short),
-// its shared memory in *smem; ops/attention.py holds its own plan
-// (attention_plan) against this one
+// 1 tiled, 2 wide-head, 3 mma, 4 mma_short, 5 mma_wide, 6 mma_wide_short,
+// 7 mma_keep), its shared memory in *smem; ops/attention.py holds its own
+// plan (attention_plan) against this one
 extern "C" int qt_attention_plan(int dtype, int Sq, int Sk, int hd, int has_keep,
                                  long long* smem) {
   size_t bytes = 0;
   const int kernel =
       qt::attention_plan(dtype == 1, Sq, Sk, hd, has_keep != 0, qt::smem_optin(), &bytes);
+  if (smem) *smem = (long long)bytes;
+  return kernel;
+}
+
+// the kernel of qt::attention_bwd_plan on the current device (-1 none, 0
+// staged: attention_bwd_kernel, 7 mma_keep), its shared memory in *smem;
+// ops/attention.py holds attention_bwd_plan against it
+extern "C" int qt_attention_bwd_plan(int dtype, int Sq, int Sk, int hd, int has_keep,
+                                     long long* smem) {
+  size_t bytes = 0;
+  const int kernel =
+      qt::attention_bwd_plan(dtype == 1, Sq, Sk, hd, has_keep != 0, qt::smem_optin(), &bytes);
   if (smem) *smem = (long long)bytes;
   return kernel;
 }

@@ -1,0 +1,741 @@
+// ---------------------------------------------------------------------------
+// The keep-masked (dropout) attention on tensor cores, forward and backward
+// (kernel "mma_keep"): the attentions inside the two train kernels,
+// fused_avq_train (csrc/avq.cu: question-guided, self and cross attention)
+// and fused_patch_select_train (csrc/patch_select_train.cu: the 14-patch
+// self-attention and the two one-query cross attentions), forward and
+// backward, and their tensor-parallel stage forms. They replace, for this
+// card, the attention bodies of those Pallas kernels:
+// qa_tiger_tpu/ops/pallas/avq.py _attn_fwd (:123) and _attn_bwd (:182),
+// and qa_tiger_tpu/ops/pallas/patch_select.py _packed_heads_attn(keep2d=)
+// (:129, the body of _kernel_train :387) with the backward _kernel_bwd
+// recomputes. The callers reach them through qt::attention and
+// qt::attention_bwd (common.cuh), which launch them where attention_plan /
+// attention_bwd_plan choose them: a keep mask, head size 32, 64 or 128, at
+// most ATT_KEEP_MAX_SK keys, shared memory within the card's limit. Every
+// other keep-masked call stays on the FMA kernels (attention_kernel,
+// attention_bwd_kernel) by the plan; nothing falls back after a launch.
+//
+// The op, per (batch element, head) problem, as the Pallas bodies round it:
+//   s = (q kᵀ) * scale, scaled after the product; max, exp, sum in fp32;
+//   pd = round_T(p' keep), p' = p (AVQ) or round_T(p) (PatchSelecter:
+//   round_p_first); ctx = round_T(pd v);
+//   backward, the probabilities recomputed from q and k as above:
+//   dPd = g vᵀ; dP = dPd keep; dS = round_T(p' (dP - rowsum(dP p')));
+//   dq = round_T(scale dS k); dk = round_T(scale dSᵀ q); dv = round_T(pdᵀ g);
+//   accumulate_kv: dk, dv = round_T(out + round_T(new)).
+//
+// Bound on the H100: bytes. At the recipe's shapes (8 heads of 64 lanes; AVQ
+// 60 queries over 60 or 77 keys, PatchSelecter 14 x 14 and 1 x 14) a problem
+// does 4 Sq Sk hd operations forward and 10 backward on (3-4) x S x hd
+// values plus an Sq x Sk keep mask: 7-40 operations per byte in fp32
+// against 3xTF32's ridge of ~50 (494.7 / 3 TFLOP/s over 3.35 TB/s). So the
+// design reads each operand once, keeps scores, probabilities and their
+// gradients on chip, and puts every product on the tensor cores:
+// - a warp owns 16 query rows over all the problem's keys (up to 128, in
+//   16-key steps): the scores and, backward, dPd stay in mma fragments in
+//   registers; softmax, the keep multiply and its rounding run on the
+//   fragments (the row max and sum are shuffles over the four lanes of a
+//   row); pd (forward) and dS (backward, for dq) feed the next product from
+//   registers, converted from C to A fragments in place;
+// - at most 16 queries and keys (PatchSelecter's calls: 15,360 problems of
+//   14 x 14 or 1 x 14) each warp owns a whole problem, four a block
+//   ("short" form); otherwise a block of four warps owns 64 query rows of a
+//   problem forward, the whole problem backward ("long" form, AVQ);
+// - q, k, v (and g) come in by 16-byte cp.async copies into rows padded by
+//   16 bytes, read with ldmatrix (bf16) or as scalar fragments (fp32)
+//   without bank conflicts; the keep mask is read straight from device
+//   memory into the fragments' registers (its rows sit at lane h * Sk of a
+//   row padded to 128 lanes, so they are not 16-byte aligned at Sk = 77 and
+//   could not feed cp.async unchanged);
+// - backward, each warp writes its rows' dS and pd to shared memory; once
+//   every row is in, dk = dSᵀ q and dv = pdᵀ g run by 16-key tiles, each
+//   tile's sum over all query rows in one warp in a fixed order: no atomics,
+//   and a launch repeats bitwise;
+// - bf16 on mma.sync m16n8k16 (fp32 sums); fp32 as 3xTF32 on m16n8k8 (hi/lo
+//   splits, lo·hi + hi·lo + hi·hi), never single-pass TF32. The split is a
+//   truncation (ak_split: a mask and a subtraction; cvt.rna's conversions
+//   made the first build's fp32 products conversion-bound, PERF.md §6),
+//   and each pass runs over four tiles before the next, so that no mma
+//   waits on the one before it. Where an A
+//   operand comes from C fragments (pd, dS) or is read transposed (dSᵀ, pdᵀ),
+//   the k slots of an 8-step are permuted (slot t is element 2t, slot t + 4
+//   element 2t + 1) on both operands, as attention_tp.cuh's pv stage does.
+// Blocks are not persistent: several fit an SM (attention_keep_smem_bytes
+// and attention_keep_bwd_smem_bytes give each shape's shared memory), and
+// the resident blocks overlap one another's copies with their products.
+//
+// Needs 16-byte aligned q, k, v, g and outputs whose batch and row strides
+// are whole 16 bytes, no additive mask and no key bias; a call that breaks
+// that returns cudaErrorInvalidValue (the train kernels' buffers always
+// qualify).
+// ---------------------------------------------------------------------------
+#include <initializer_list>
+
+#include "common.cuh"
+
+namespace qt {
+namespace {
+
+// rows [0, rows) of a head's slice (row stride ss) into dst [rows][LD], zero
+// from row n on; nthr threads share the copy, this one being tid
+template <typename T, int HD>
+__device__ __forceinline__ void ak_load(T* dst, const T* __restrict__ src, long long ss, int rows,
+                                        int n, int tid, int nthr) {
+  constexpr int LD = keep_stage_ld(HD, (int)sizeof(T)), PER = 16 / (int)sizeof(T), C = HD / PER;
+  for (int i = tid; i < rows * C; i += nthr) {
+    const int r = i / C, c = (i % C) * PER;
+    const bool in = r < n;
+    cp_async16(dst + r * LD + c, in ? src + (long long)r * ss + c : src, in);
+  }
+}
+
+// s += the scores of a warp's 16 rows (Qw) against nks 16-key steps of K
+// (Ks), both [*][LD]. A thread's fragment s[j][e] is row g + 8 (e / 2) and
+// key 8 j + 2 t + e % 2 (g = lane / 4, t = lane % 4).
+template <int HD, int KS>
+__device__ __forceinline__ void ak_qk(float (&s)[2 * KS][4], const __nv_bfloat16* Qw,
+                                      const __nv_bfloat16* Ks, int nks, int lane) {
+  constexpr int LD = keep_stage_ld(HD, (int)sizeof(__nv_bfloat16));
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, Qw + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if (ks < nks) {
+        uint32_t b[4];
+        ldmatrix_x4(b, Ks + (ks * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                           ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * ks], a, b[0], b[1]);
+        mma_bf16(s[2 * ks + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// x = hi + lo exactly: hi the tf32 truncation of x (its low 13 mantissa
+// bits cleared, one integer op), lo the fp32 rest, which the tensor core
+// reads as tf32 (it ignores the low 13 bits). Two ALU ops where cvt.rna
+// takes two conversions and a subtraction; per product the error stays
+// about 2^-19 of |x y| (the dropped lo·lo and lo's truncation).
+__device__ __forceinline__ void ak_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c[j] += a b[j] for the first n of AK_GROUP tiles in 3xTF32 (lo·hi, hi·lo,
+// hi·hi), each pass over the group's tiles, so that no two neighbouring
+// mma.sync write one accumulator
+constexpr int AK_GROUP = 4;
+
+__device__ __forceinline__ void ak_mma3(float (*c)[4], const uint32_t (&ah)[4],
+                                        const uint32_t (&al)[4], const uint32_t (&bh)[AK_GROUP][2],
+                                        const uint32_t (&bl)[AK_GROUP][2], int n) {
+#pragma unroll
+  for (int j = 0; j < AK_GROUP; ++j)
+    if (j < n) mma_tf32(c[j], al, bh[j]);
+#pragma unroll
+  for (int j = 0; j < AK_GROUP; ++j)
+    if (j < n) mma_tf32(c[j], ah, bl[j]);
+#pragma unroll
+  for (int j = 0; j < AK_GROUP; ++j)
+    if (j < n) mma_tf32(c[j], ah, bh[j]);
+}
+
+// the same in fp32, 3xTF32, AK_GROUP key tiles at a time
+template <int HD, int KS>
+__device__ __forceinline__ void ak_qk(float (&s)[2 * KS][4], const float* Qw, const float* Ks,
+                                      int nks, int lane) {
+  constexpr int LD = keep_stage_ld(HD, (int)sizeof(float));
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < HD; kk += 8) {
+    uint32_t ah[4], al[4];
+    ak_split(Qw[g * LD + kk + t], ah[0], al[0]);
+    ak_split(Qw[(g + 8) * LD + kk + t], ah[1], al[1]);
+    ak_split(Qw[g * LD + kk + t + 4], ah[2], al[2]);
+    ak_split(Qw[(g + 8) * LD + kk + t + 4], ah[3], al[3]);
+#pragma unroll
+    for (int j0 = 0; j0 < 2 * KS; j0 += AK_GROUP) {
+      if (j0 >= 2 * nks) continue;
+      const int n = min(AK_GROUP, 2 * nks - j0);
+      uint32_t bh[AK_GROUP][2], bl[AK_GROUP][2];
+#pragma unroll
+      for (int j = 0; j < AK_GROUP; ++j) {
+        if (j >= n) continue;
+        ak_split(Ks[(8 * (j0 + j) + g) * LD + kk + t], bh[j][0], bl[j][0]);
+        ak_split(Ks[(8 * (j0 + j) + g) * LD + kk + t + 4], bh[j][1], bl[j][1]);
+      }
+      ak_mma3(s + j0, ah, al, bh, bl, n);
+    }
+  }
+}
+
+// o += p X over nks 16-key steps: p a warp's 16 rows in ak_qk's fragment
+// layout (A from registers), X [key][lane] ([*][LD]: V, or K for dq). A
+// thread's o[n][e] is row g + 8 (e / 2) and lane 8 n + 2 t + e % 2.
+template <int HD, int KS>
+__device__ __forceinline__ void ak_pv(float (&o)[HD / 8][4], const float (&p)[2 * KS][4],
+                                      const __nv_bfloat16* Xs, int nks, int lane) {
+  constexpr int LD = keep_stage_ld(HD, (int)sizeof(__nv_bfloat16));
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    if (ks < nks) {
+      // p holds values rounded to bf16 already, so the packing is exact
+      const uint32_t pa[4] = {pack_bf16(p[2 * ks][0], p[2 * ks][1]),
+                              pack_bf16(p[2 * ks][2], p[2 * ks][3]),
+                              pack_bf16(p[2 * ks + 1][0], p[2 * ks + 1][1]),
+                              pack_bf16(p[2 * ks + 1][2], p[2 * ks + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, Xs + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
+                                 (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// the same in fp32, 3xTF32: k slot t is key 2 t, slot t + 4 key 2 t + 1 of
+// each 8, on both operands; AK_GROUP lane tiles at a time
+template <int HD>
+__device__ __forceinline__ void ak_lanes3(float (&o)[HD / 8][4], const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4], const float* x0, int LD) {
+  // x0: row 2t of this 8-step, lane g; the B fragments (k slot t, t + 4)
+  // of lane tile n at x0[8 n] and x0[LD + 8 n]
+#pragma unroll
+  for (int n0 = 0; n0 < HD / 8; n0 += AK_GROUP) {
+    uint32_t bh[AK_GROUP][2], bl[AK_GROUP][2];
+#pragma unroll
+    for (int n = 0; n < AK_GROUP; ++n) {
+      ak_split(x0[8 * (n0 + n)], bh[n][0], bl[n][0]);
+      ak_split(x0[LD + 8 * (n0 + n)], bh[n][1], bl[n][1]);
+    }
+    ak_mma3(o + n0, ah, al, bh, bl, AK_GROUP);
+  }
+}
+
+template <int HD, int KS>
+__device__ __forceinline__ void ak_pv(float (&o)[HD / 8][4], const float (&p)[2 * KS][4],
+                                      const float* Xs, int nks, int lane) {
+  constexpr int LD = keep_stage_ld(HD, (int)sizeof(float));
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2 * KS; ++j) {
+    if (j >= 2 * nks) continue;
+    uint32_t ah[4], al[4];
+    ak_split(p[j][0], ah[0], al[0]);  // row g, key 2t
+    ak_split(p[j][2], ah[1], al[1]);  // row g + 8, key 2t
+    ak_split(p[j][1], ah[2], al[2]);  // row g, key 2t + 1
+    ak_split(p[j][3], ah[3], al[3]);  // row g + 8, key 2t + 1
+    ak_lanes3<HD>(o, ah, al, Xs + (8 * j + 2 * t) * LD + g, LD);
+  }
+}
+
+// o += Xᵀ Y for keys m0 .. m0 + 15 over nq query steps (16 rows in bf16, 8
+// in fp32): X [query][key] (dS or pd, row stride xld), Y [query][lane] (q or
+// g, [*][LD]). A thread's o[n][e] is key m0 + g + 8 (e / 2) and lane
+// 8 n + 2 t + e % 2.
+template <int HD>
+__device__ __forceinline__ void ak_tn(float (&o)[HD / 8][4], const __nv_bfloat16* X, int xld,
+                                      const __nv_bfloat16* Y, int m0, int nq, int lane) {
+  constexpr int LD = keep_stage_ld(HD, (int)sizeof(__nv_bfloat16));
+  for (int kq = 0; kq < nq; ++kq) {
+    uint32_t a[4];
+    ldmatrix_x4_trans(a, X + (kq * 16 + (lane & 7) + ((lane >> 4) << 3)) * xld + m0 +
+                             ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int dp = 0; dp < HD / 16; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, Y + (kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
+                               (lane >> 4) * 8);
+      mma_bf16(o[2 * dp], a, b[0], b[1]);
+      mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void ak_tn(float (&o)[HD / 8][4], const float* X, int xld,
+                                      const float* Y, int m0, int nq, int lane) {
+  constexpr int LD = keep_stage_ld(HD, (int)sizeof(float));
+  const int g = lane >> 2, t = lane & 3;
+  for (int kq = 0; kq < nq; ++kq) {
+    const float* x0 = X + (kq * 8 + 2 * t) * xld + m0 + g;
+    uint32_t ah[4], al[4];
+    ak_split(x0[0], ah[0], al[0]);        // key m0 + g, query 2t
+    ak_split(x0[8], ah[1], al[1]);        // key m0 + g + 8, query 2t
+    ak_split(x0[xld], ah[2], al[2]);      // key m0 + g, query 2t + 1
+    ak_split(x0[xld + 8], ah[3], al[3]);  // key m0 + g + 8, query 2t + 1
+    ak_lanes3<HD>(o, ah, al, Y + (kq * 8 + 2 * t) * LD + g, LD);
+  }
+}
+
+template <int KS> __device__ __forceinline__ void ak_zero(float (&f)[KS][4]) {
+#pragma unroll
+  for (int j = 0; j < KS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[j][e] = 0.0f;
+}
+
+// the scores (fragments of ak_qk) to fp32 probabilities: * scale, -inf past
+// Sk, the row max and sum over the four lanes of each row
+template <int KS>
+__device__ __forceinline__ void ak_softmax(float (&s)[2 * KS][4], int nks, int Sk, float scale,
+                                           int t4) {
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < 2 * KS; ++j) {
+    if (j >= 2 * nks) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = 8 * j + 2 * t4 + (e & 1) < Sk ? s[j][e] * scale : -INFINITY;
+      s[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+#pragma unroll
+  for (int j = 0; j < 2 * KS; ++j) {
+    if (j >= 2 * nks) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = expf(s[j][e] - mx[e >> 1]);
+      sum[e >> 1] += s[j][e];
+    }
+  }
+  const float inv[2] = {1.0f / quad_sum(sum[0]), 1.0f / quad_sum(sum[1])};
+#pragma unroll
+  for (int j = 0; j < 2 * KS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] *= inv[e >> 1];
+}
+
+// the keep mask's value at fragment (j, e): the thread's rows' keep rows
+// (null past Sq), 0 past Sk
+template <typename T>
+__device__ __forceinline__ float ak_keep(const T* const (&krow)[2], int j, int e, int t4,
+                                         int Sk) {
+  const int key = 8 * j + 2 * t4 + (e & 1);
+  const T* kr = krow[e >> 1];
+  return kr && key < Sk ? to_f<T>(kr[key]) : 0.0f;
+}
+
+__device__ __forceinline__ void ak_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void ak_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// rows r0 + g + 8 r (< n) of a 16 x HD fragment tile to base + row * ss +
+// lane: round_T(o * mul) (dq, where no staging area is free)
+template <typename T, int HD>
+__device__ __forceinline__ void ak_store(T* base, long long ss, const float (&o)[HD / 8][4],
+                                         int r0, int n, float mul, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= n) continue;
+    T* dst = base + (long long)row * ss + 2 * t;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) ak_pair(dst + 8 * j, o[j][2 * r] * mul, o[j][2 * r + 1] * mul);
+  }
+}
+
+// 16-byte chunks of T: a + b, rounded
+template <typename T> __device__ __forceinline__ uint4 ak_add(uint4 a, uint4 b) {
+  constexpr int PER = 16 / (int)sizeof(T);
+  const T* x = reinterpret_cast<const T*>(&a);
+  const T* y = reinterpret_cast<const T*>(&b);
+  uint4 r;
+  T* z = reinterpret_cast<T*>(&r);
+#pragma unroll
+  for (int i = 0; i < PER; ++i) z[i] = from_f<T>(to_f<T>(x[i]) + to_f<T>(y[i]));
+  return r;
+}
+
+// A warp's 16 x HD fragment tile, round_T(o * mul), to device memory through
+// the staging rows S ([16][LD], free for the warp): rows r0 .. r0 + 15 below
+// n to base + row * ss in 16-byte chunks, whole 32-byte sectors; with
+// accumulate out = round_T(out + round_T(o * mul)). Syncs the warp before
+// (S may still be read) and after (S may be reused).
+template <typename T, int HD>
+__device__ __forceinline__ void ak_flush(T* base, long long ss, const float (&o)[HD / 8][4],
+                                         T* S, int r0, int n, float mul, bool accumulate,
+                                         int lane) {
+  constexpr int LD = keep_stage_ld(HD, (int)sizeof(T)), PER = 16 / (int)sizeof(T);
+  constexpr int C = HD / PER;
+  const int g = lane >> 2, t = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      ak_pair(S + (g + 8 * r) * LD + 8 * j + 2 * t, o[j][2 * r] * mul, o[j][2 * r + 1] * mul);
+  __syncwarp();
+  // accumulate: every old chunk is loaded before the first store, so the
+  // loads do not wait on one another behind the stores
+  constexpr int IT = AK_ROWS * C / 32;
+  uint4 old[IT];
+  if (accumulate) {
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = lane + it * 32, r = i / C, c = (i % C) * PER;
+      if (r0 + r < n)
+        old[it] = *reinterpret_cast<const uint4*>(base + (long long)(r0 + r) * ss + c);
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    const int i = lane + it * 32, r = i / C, c = (i % C) * PER;
+    if (r0 + r >= n) continue;
+    uint4 x = *reinterpret_cast<const uint4*>(S + r * LD + c);
+    if (accumulate) x = ak_add<T>(old[it], x);
+    *reinterpret_cast<uint4*>(base + (long long)(r0 + r) * ss + c) = x;
+  }
+  __syncwarp();
+}
+
+// The forward. SHORT (Sq, Sk <= AK_ROWS): a warp per problem, unit
+// blockIdx.x * AK_WARPS + warp, its own Q, K and V rows; otherwise a block
+// per (problem, 64-row query tile), K and V shared by its four warps.
+template <typename T, int HD, bool SHORT>
+__global__ void __launch_bounds__(AK_THREADS)
+attention_keep_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
+                      const T* __restrict__ k, long long k_bs, long long k_ss,
+                      const T* __restrict__ v, long long v_bs, long long v_ss,
+                      T* __restrict__ out, long long o_bs, long long o_ss,
+                      const T* __restrict__ keep, long long keep_ld, int problems, int heads,
+                      int Sq, int Sk, float scale, bool round_p_first) {
+  constexpr int LD = keep_stage_ld(HD, (int)sizeof(T)), KS = SHORT ? 1 : ATT_KEEP_MAX_SK / 16;
+  constexpr int QR = SHORT ? AK_ROWS : AK_Q;  // the staged query rows
+  extern __shared__ __align__(16) unsigned char ak_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int skp = SHORT ? AK_ROWS : keep_pad16(Sk), nks = skp / 16;
+  T* const Qs = reinterpret_cast<T*>(ak_smem) + (SHORT ? (size_t)warp * 3 * AK_ROWS * LD : 0);
+  T* const Ks = Qs + QR * LD;
+  T* const Vs = Ks + skp * LD;
+  const int ntiles = SHORT ? 1 : (Sq + AK_Q - 1) / AK_Q;
+  const long long unit = SHORT ? (long long)blockIdx.x * AK_WARPS + warp : blockIdx.x;
+  if (SHORT && unit >= problems) return;  // no block-wide barrier in this form
+  const long long pr = unit / ntiles, b = pr / heads;
+  const int h = (int)(pr % heads), q0 = (int)(unit % ntiles) * AK_Q;
+  const long long col = (long long)h * HD;
+  const int tid = SHORT ? lane : threadIdx.x, nthr = SHORT ? 32 : AK_THREADS;
+  ak_load<T, HD>(Qs, q + b * q_bs + (long long)q0 * q_ss + col, q_ss, QR, Sq - q0, tid, nthr);
+  ak_load<T, HD>(Ks, k + b * k_bs + col, k_ss, skp, Sk, tid, nthr);
+  ak_load<T, HD>(Vs, v + b * v_bs + col, v_ss, skp, Sk, tid, nthr);
+  cp_async_commit();
+  cp_async_wait<0>();
+  if (SHORT)
+    __syncwarp();
+  else
+    __syncthreads();
+  const int wr = SHORT ? 0 : warp * AK_ROWS, r0 = q0 + wr;  // the warp's first row
+  if (r0 >= Sq) return;  // rows past Sq: this warp only copied
+
+  const T* krow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + g + 8 * r;
+    krow[r] = qi < Sq ? keep + (b * Sq + qi) * keep_ld + (long long)h * Sk : nullptr;
+  }
+  float s[2 * KS][4];
+  ak_zero(s);
+  ak_qk<HD, KS>(s, Qs + wr * LD, Ks, nks, lane);
+  ak_softmax<KS>(s, nks, Sk, scale, t4);
+#pragma unroll
+  for (int j = 0; j < 2 * KS; ++j) {
+    if (j >= 2 * nks) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = round_p_first ? round_t<T>(s[j][e]) : s[j][e];
+      s[j][e] = round_t<T>(p * ak_keep<T>(krow, j, e, t4, Sk));
+    }
+  }
+  float o[HD / 8][4];
+  ak_zero(o);
+  ak_pv<HD, KS>(o, s, Vs, nks, lane);
+  // the warp's Q rows are free once its scores are in
+  ak_flush<T, HD>(out + b * o_bs + col, o_ss, o, Qs + wr * LD, r0, Sq, 1.0f, false, lane);
+}
+
+// The backward. SHORT: a warp per problem as forward; otherwise a block per
+// problem, its warps taking the 16-row query tiles in turn. Shared memory
+// per problem: Q and G [SqP][LD], K and V [SkP][LD] (in the long form at
+// least AK_Q rows together, keep_kv_rows), then dS and pd [SqP]
+// [keep_pld(Sk)] (SqP, SkP: Sq, Sk rounded up to 16; zero rows past them).
+template <typename T, int HD, bool SHORT>
+__global__ void __launch_bounds__(AK_THREADS)
+attention_keep_bwd_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
+                          const T* __restrict__ k, long long k_bs, long long k_ss,
+                          const T* __restrict__ v, long long v_bs, long long v_ss,
+                          const T* __restrict__ g, long long g_bs, long long g_ss,
+                          T* __restrict__ gq, long long gq_bs, long long gq_ss,
+                          T* __restrict__ gk, long long gk_bs, long long gk_ss,
+                          T* __restrict__ gv, long long gv_bs, long long gv_ss,
+                          const T* __restrict__ keep, long long keep_ld, int problems, int heads,
+                          int Sq, int Sk, float scale, bool round_p_first, bool accumulate_kv) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int LD = keep_stage_ld(HD, (int)sizeof(T)), KS = SHORT ? 1 : ATT_KEEP_MAX_SK / 16;
+  extern __shared__ __align__(16) unsigned char akb_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq4 = lane >> 2, t4 = lane & 3;
+  const int sqp = SHORT ? AK_ROWS : keep_pad16(Sq), skp = SHORT ? AK_ROWS : keep_pad16(Sk);
+  const int pld = keep_pld(Sk, (int)sizeof(T)), nks = skp / 16;
+  T* const Qs = reinterpret_cast<T*>(akb_smem) +
+                (SHORT ? (size_t)warp * AK_ROWS * (4 * LD + 2 * pld) : 0);
+  T* const Gs = Qs + sqp * LD;
+  T* const Ks = Gs + sqp * LD;
+  T* const Vs = Ks + skp * LD;
+  T* const Ds = Ks + (SHORT ? 2 * AK_ROWS : keep_kv_rows(Sk)) * LD;  // dS
+  T* const Ps = Ds + sqp * pld;  // pd
+  const long long pr = SHORT ? (long long)blockIdx.x * AK_WARPS + warp : blockIdx.x;
+  if (SHORT && pr >= problems) return;  // no block-wide barrier in this form
+  const long long b = pr / heads;
+  const int h = (int)(pr % heads);
+  const long long col = (long long)h * HD;
+  const int tid = SHORT ? lane : threadIdx.x, nthr = SHORT ? 32 : AK_THREADS;
+  ak_load<T, HD>(Qs, q + b * q_bs + col, q_ss, sqp, Sq, tid, nthr);
+  ak_load<T, HD>(Gs, g + b * g_bs + col, g_ss, sqp, Sq, tid, nthr);
+  ak_load<T, HD>(Ks, k + b * k_bs + col, k_ss, skp, Sk, tid, nthr);
+  ak_load<T, HD>(Vs, v + b * v_bs + col, v_ss, skp, Sk, tid, nthr);
+  cp_async_commit();
+  cp_async_wait<0>();
+  if (SHORT)
+    __syncwarp();
+  else
+    __syncthreads();
+
+  // each warp's query tiles: P, pd, dS in registers; pd and dS to shared
+  // memory (zero in rows past Sq, where keep reads 0); dq from dS
+  for (int r0 = SHORT ? 0 : warp * AK_ROWS; r0 < Sq; r0 += SHORT ? AK_ROWS : AK_Q) {
+    const T* krow[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = r0 + gq4 + 8 * r;
+      krow[r] = qi < Sq ? keep + (b * Sq + qi) * keep_ld + (long long)h * Sk : nullptr;
+    }
+    float s[2 * KS][4], dp[2 * KS][4];
+    ak_zero(s);
+    ak_zero(dp);
+    ak_qk<HD, KS>(s, Qs + r0 * LD, Ks, nks, lane);
+    ak_qk<HD, KS>(dp, Gs + r0 * LD, Vs, nks, lane);  // dPd = g vᵀ
+    ak_softmax<KS>(s, nks, Sk, scale, t4);
+    float dot[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 2 * KS; ++j) {
+      if (j >= 2 * nks) continue;
+      float pd[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float kv = ak_keep<T>(krow, j, e, t4, Sk);
+        const float p = round_p_first ? round_t<T>(s[j][e]) : s[j][e];
+        pd[e] = round_t<T>(p * kv);
+        s[j][e] = p;
+        dp[j][e] *= kv;  // dP = dPd keep
+        dot[e >> 1] = fmaf(dp[j][e], p, dot[e >> 1]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        ak_pair(Ps + (r0 + gq4 + 8 * r) * pld + 8 * j + 2 * t4, pd[2 * r], pd[2 * r + 1]);
+    }
+    dot[0] = quad_sum(dot[0]);
+    dot[1] = quad_sum(dot[1]);
+#pragma unroll
+    for (int j = 0; j < 2 * KS; ++j) {
+      if (j >= 2 * nks) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = round_t<T>(s[j][e] * (dp[j][e] - dot[e >> 1]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        ak_pair(Ds + (r0 + gq4 + 8 * r) * pld + 8 * j + 2 * t4, dp[j][2 * r], dp[j][2 * r + 1]);
+    }
+    float o[HD / 8][4];
+    ak_zero(o);
+    ak_pv<HD, KS>(o, dp, Ks, nks, lane);  // dS k
+    if (SHORT)  // its K rows are the warp's own, and read for the last time
+      ak_flush<T, HD>(gq + b * gq_bs + col, gq_ss, o, Ks, r0, Sq, scale, false, lane);
+    else        // the other warps still read K
+      ak_store<T, HD>(gq + b * gq_bs + col, gq_ss, o, r0, Sq, scale, lane);
+  }
+  if (SHORT)
+    __syncwarp();
+  else
+    __syncthreads();
+
+  // dk = scale dSᵀ q and dv = pdᵀ g by 16-key tiles, one warp a tile; the
+  // K and V rows, dead now, stage each warp's tile (16 rows a warp; the
+  // long form's are at least AK_Q, attention_keep_bwd_smem_bytes)
+  T* const stage = Ks + (SHORT ? 0 : warp * AK_ROWS * LD);
+  const int nq = kBf16 ? sqp / 16 : sqp / 8;
+  for (int it = SHORT ? 0 : warp; it < 2 * nks; it += SHORT ? 1 : AK_WARPS) {
+    const bool dv = it & 1;
+    const int m0 = (it >> 1) * 16;
+    float o[HD / 8][4];
+    ak_zero(o);
+    ak_tn<HD>(o, dv ? Ps : Ds, pld, dv ? Gs : Qs, m0, nq, lane);
+    if (dv)
+      ak_flush<T, HD>(gv + b * gv_bs + col, gv_ss, o, stage, m0, Sk, 1.0f, accumulate_kv, lane);
+    else
+      ak_flush<T, HD>(gk + b * gk_bs + col, gk_ss, o, stage, m0, Sk, scale, accumulate_kv, lane);
+  }
+}
+
+// 16-byte aligned, batch and row strides whole 16 bytes
+template <typename T> bool ak_operand(const void* p, long long bs, long long ss) {
+  constexpr long long PER = 16 / (long long)sizeof(T);
+  return !(reinterpret_cast<uintptr_t>(p) & 15) && !(bs % PER) && !(ss % PER);
+}
+
+template <auto Kernel> cudaError_t ak_set_smem(size_t bytes) {
+  return cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T, int HD>
+cudaError_t keep_fwd(KeepIn q, KeepIn k, KeepIn v, KeepOut out, const T* keep,
+                     long long keep_ld, int B, int Sq, int Sk, int heads, float scale,
+                     bool round_p_first, cudaStream_t stream) {
+  const bool shrt = keep_short(Sq, Sk);
+  const size_t smem = attention_keep_smem_bytes((int)sizeof(T), Sq, Sk, HD);
+  const long long problems = (long long)B * heads;
+  const long long blocks = shrt ? (problems + AK_WARPS - 1) / AK_WARPS
+                                : problems * ((Sq + AK_Q - 1) / AK_Q);
+  if (problems > INT_MAX || blocks > INT_MAX) return cudaErrorInvalidValue;
+  auto kernel = shrt ? attention_keep_kernel<T, HD, true> : attention_keep_kernel<T, HD, false>;
+  cudaError_t err = shrt ? ak_set_smem<attention_keep_kernel<T, HD, true>>(smem)
+                         : ak_set_smem<attention_keep_kernel<T, HD, false>>(smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, AK_THREADS, smem, stream>>>(
+      static_cast<const T*>(q.p), q.bs, q.ss, static_cast<const T*>(k.p), k.bs, k.ss,
+      static_cast<const T*>(v.p), v.bs, v.ss, static_cast<T*>(out.p), out.bs, out.ss, keep,
+      keep_ld, (int)problems, heads, Sq, Sk, scale, round_p_first);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t keep_bwd(KeepIn q, KeepIn k, KeepIn v, KeepIn g, KeepOut gq, KeepOut gk, KeepOut gv,
+                     const T* keep, long long keep_ld, int B, int Sq, int Sk, int heads,
+                     float scale, bool round_p_first, bool accumulate_kv, cudaStream_t stream) {
+  const bool shrt = keep_short(Sq, Sk);
+  const size_t smem = attention_keep_bwd_smem_bytes((int)sizeof(T), Sq, Sk, HD);
+  const long long problems = (long long)B * heads;
+  const long long blocks = shrt ? (problems + AK_WARPS - 1) / AK_WARPS : problems;
+  if (problems > INT_MAX) return cudaErrorInvalidValue;
+  auto kernel =
+      shrt ? attention_keep_bwd_kernel<T, HD, true> : attention_keep_bwd_kernel<T, HD, false>;
+  cudaError_t err = shrt ? ak_set_smem<attention_keep_bwd_kernel<T, HD, true>>(smem)
+                         : ak_set_smem<attention_keep_bwd_kernel<T, HD, false>>(smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, AK_THREADS, smem, stream>>>(
+      static_cast<const T*>(q.p), q.bs, q.ss, static_cast<const T*>(k.p), k.bs, k.ss,
+      static_cast<const T*>(v.p), v.bs, v.ss, static_cast<const T*>(g.p), g.bs, g.ss,
+      static_cast<T*>(gq.p), gq.bs, gq.ss, static_cast<T*>(gk.p), gk.bs, gk.ss,
+      static_cast<T*>(gv.p), gv.bs, gv.ss, keep, keep_ld, (int)problems, heads, Sq, Sk, scale,
+      round_p_first, accumulate_kv);
+  return cudaGetLastError();
+}
+
+template <typename T>
+bool ak_args(std::initializer_list<KeepIn> ins, std::initializer_list<KeepOut> outs,
+             const void* keep, int Sk, int hd) {
+  for (const KeepIn& x : ins)
+    if (!ak_operand<T>(x.p, x.bs, x.ss)) return false;
+  for (const KeepOut& x : outs)
+    if (!ak_operand<T>(x.p, x.bs, x.ss)) return false;
+  return keep && keep_head(hd) && Sk >= 1 && Sk <= ATT_KEEP_MAX_SK;
+}
+
+}  // namespace
+
+cudaError_t attention_keep_fwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepOut out,
+                               const void* keep, long long keep_ld, int B, int Sq, int Sk,
+                               int heads, int hd, float scale, bool round_p_first,
+                               cudaStream_t stream) {
+  if (B <= 0 || Sq <= 0 || heads <= 0) return cudaSuccess;
+  const bool ok = bf16 ? ak_args<__nv_bfloat16>({q, k, v}, {out}, keep, Sk, hd)
+                       : ak_args<float>({q, k, v}, {out}, keep, Sk, hd);
+  if (!ok) return cudaErrorInvalidValue;
+#define QT_KEEP_FWD(T, HD)                                                                       \
+  keep_fwd<T, HD>(q, k, v, out, static_cast<const T*>(keep), keep_ld, B, Sq, Sk, heads, scale, \
+                  round_p_first, stream)
+  if (bf16) {
+    switch (hd) {
+      case 32: return QT_KEEP_FWD(__nv_bfloat16, 32);
+      case 64: return QT_KEEP_FWD(__nv_bfloat16, 64);
+      default: return QT_KEEP_FWD(__nv_bfloat16, 128);
+    }
+  }
+  switch (hd) {
+    case 32: return QT_KEEP_FWD(float, 32);
+    case 64: return QT_KEEP_FWD(float, 64);
+    default: return QT_KEEP_FWD(float, 128);
+  }
+#undef QT_KEEP_FWD
+}
+
+cudaError_t attention_keep_bwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepIn g, KeepOut gq,
+                               KeepOut gk, KeepOut gv, const void* keep, long long keep_ld,
+                               int B, int Sq, int Sk, int heads, int hd, float scale,
+                               bool round_p_first, bool accumulate_kv, cudaStream_t stream) {
+  if (B <= 0 || Sq <= 0 || heads <= 0) return cudaSuccess;
+  const bool ok = bf16 ? ak_args<__nv_bfloat16>({q, k, v, g}, {gq, gk, gv}, keep, Sk, hd)
+                       : ak_args<float>({q, k, v, g}, {gq, gk, gv}, keep, Sk, hd);
+  if (!ok) return cudaErrorInvalidValue;
+#define QT_KEEP_BWD(T, HD)                                                                    \
+  keep_bwd<T, HD>(q, k, v, g, gq, gk, gv, static_cast<const T*>(keep), keep_ld, B, Sq, Sk,    \
+                  heads, scale, round_p_first, accumulate_kv, stream)
+  if (bf16) {
+    switch (hd) {
+      case 32: return QT_KEEP_BWD(__nv_bfloat16, 32);
+      case 64: return QT_KEEP_BWD(__nv_bfloat16, 64);
+      default: return QT_KEEP_BWD(__nv_bfloat16, 128);
+    }
+  }
+  switch (hd) {
+    case 32: return QT_KEEP_BWD(float, 32);
+    case 64: return QT_KEEP_BWD(float, 64);
+    default: return QT_KEEP_BWD(float, 128);
+  }
+#undef QT_KEEP_BWD
+}
+
+}  // namespace qt
+
+// The two kernels by themselves (ops/avq.py attention_keep and
+// attention_keep_bwd), for their checks and timing; the model paths reach
+// them through the train kernels. q, k, v, g and the outputs are [B, S,
+// heads * hd] with unit stride along the lanes (strides in elements); keep
+// [B * Sq, >= heads * Sk] in the operands' type, row stride keep_ld, lane
+// h * Sk + key. dtype 0 float32, 1 bfloat16.
+extern "C" int qt_attention_keep(int dtype, const void* q, long long q_bs, long long q_ss,
+                                 const void* k, long long k_bs, long long k_ss, const void* v,
+                                 long long v_bs, long long v_ss, void* out, long long o_bs,
+                                 long long o_ss, const void* keep, long long keep_ld, int B,
+                                 int Sq, int Sk, int heads, int hd, float scale,
+                                 int round_p_first, void* stream) {
+  return qt::attention_keep_fwd(dtype == 1, {q, q_bs, q_ss}, {k, k_bs, k_ss}, {v, v_bs, v_ss},
+                                {out, o_bs, o_ss}, keep, keep_ld, B, Sq, Sk, heads, hd, scale,
+                                round_p_first != 0, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int qt_attention_keep_bwd(int dtype, const void* q, long long q_bs, long long q_ss,
+                                     const void* k, long long k_bs, long long k_ss,
+                                     const void* v, long long v_bs, long long v_ss,
+                                     const void* g, long long g_bs, long long g_ss, void* gq,
+                                     long long gq_bs, long long gq_ss, void* gk, long long gk_bs,
+                                     long long gk_ss, void* gv, long long gv_bs, long long gv_ss,
+                                     const void* keep, long long keep_ld, int B, int Sq, int Sk,
+                                     int heads, int hd, float scale, int round_p_first,
+                                     int accumulate_kv, void* stream) {
+  return qt::attention_keep_bwd(dtype == 1, {q, q_bs, q_ss}, {k, k_bs, k_ss}, {v, v_bs, v_ss},
+                                {g, g_bs, g_ss}, {gq, gq_bs, gq_ss}, {gk, gk_bs, gk_ss},
+                                {gv, gv_bs, gv_ss}, keep, keep_ld, B, Sq, Sk, heads, hd, scale,
+                                round_p_first != 0, accumulate_kv != 0,
+                                static_cast<cudaStream_t>(stream));
+}

@@ -19,7 +19,7 @@
 // intermediates the backward needs (the projections, the three contexts,
 // x1, h1, relu(.), its dropped copy, x2) are written once by the forward
 // and kept by the autograd Function, so the backward recomputes only the
-// attention probabilities (inside attention_bwd_kernel).
+// attention probabilities (inside the attention backward kernel).
 //
 // Parameter gradients: Pallas sums them over a sequential grid into
 // constant-index blocks. Here the backward writes each per-row gradient
@@ -38,7 +38,10 @@
 // wgmma), the backward's gemm_tile's WMMA loop. The forward's epilogues
 // give gemm_sm90's paired stores the values they round (EpiMaskAdd::value)
 // or store their own pair (EpiReluDrop::store2, two tensors). The three
-// keep-masked attentions stay on qt::attention's FMA kernels.
+// keep-masked attentions, forward and backward, take qt::attention's and
+// qt::attention_bwd's keep-masked tensor-core kernel (attention_keep.cu:
+// bf16 mma.sync, fp32 3xTF32), and each writes the kernel it launched into
+// the plan's attention rows (GemmPlan::attention).
 //
 // Rounding: every value the Pallas bodies cast to the activation type is
 // rounded to T at the same place (round_t), so the bf16 kernels agree with
@@ -221,14 +224,14 @@ cudaError_t forward(void* const* b, int N, int T_, int S, int D, int heads, qt::
                                 EpiBias<T>{w(KVQ), D2, c(QST_B) + D, false}, plan, st)));
   err = qt::attention<T>(c(QQ), (long long)T_ * D, D, c(KVQ), S * D2, D2, c(KVQ) + D, S * D2, D2,
                          w(QCTX), (long long)T_ * D, D, nullptr, N, T_, S, heads, hd, scale, st,
-                         c(M_QST), ldq, false);
+                         c(M_QST), ldq, false, nullptr, plan.attention(T_, S));
   if (err != cudaSuccess) return err;
   // self attention: packed q|k|v from x0
   QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SRC), D}, c(SLF_W), D, R, 3 * D, D,
                                 EpiBias<T>{w(QKV), D3, c(SLF_B), false}, plan, st)));
   err = qt::attention<T>(c(QKV), T_ * D3, D3, c(QKV) + D, T_ * D3, D3, c(QKV) + 2 * D, T_ * D3,
                          D3, w(SCTX), (long long)T_ * D, D, nullptr, N, T_, T_, heads, hd, scale,
-                         st, c(M_SLF), lds, false);
+                         st, c(M_SLF), lds, false, nullptr, plan.attention(T_, T_));
   if (err != cudaSuccess) return err;
   // cross attention: q from x0, k|v from the other stream
   QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SRC), D}, c(CRS_W), D, R, D, D,
@@ -237,7 +240,7 @@ cudaError_t forward(void* const* b, int N, int T_, int S, int D, int heads, qt::
                                 EpiBias<T>{w(KVC), D2, c(CRS_B) + D, false}, plan, st)));
   err = qt::attention<T>(c(QC), (long long)T_ * D, D, c(KVC), T_ * D2, D2, c(KVC) + D, T_ * D2,
                          D2, w(CCTX), (long long)T_ * D, D, nullptr, N, T_, T_, heads, hd, scale,
-                         st, c(M_CRS), lds, false);
+                         st, c(M_CRS), lds, false, nullptr, plan.attention(T_, T_));
   if (err != cudaSuccess) return err;
   // x1 = x0 + d_slf*slf + d_crs*crs + d_qst*qst, summed in that order
   QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SCTX), D}, c(SLF_OW), D, R, D, D,
@@ -277,7 +280,8 @@ cudaError_t attn_block_bwd(const T* g_out, const T* ctx, const T* ow, float* g_o
   qt::col_sum(qt::Val<T>{g_out, D}, R, D, g_ob, false, st);
   QT_CHECK();
   return qt::attention_bwd<T>(q, k, v, {g_ctx, (long long)T_ * D, D}, gq, gk, gv, keep, keep_ld,
-                              N, T_, Sk, heads, hd, 1.0f / sqrtf((float)hd), false, false, st);
+                              N, T_, Sk, heads, hd, 1.0f / sqrtf((float)hd), false, false, st,
+                              plan.attention(T_, Sk));
 }
 
 template <typename T>
@@ -399,19 +403,21 @@ cudaError_t tp_attn(void* const* b, int N, int T_, int S, int D, int Wl, int hea
                                 EpiBias<T>{w(KVQ), W2, c(QST_B) + Wl, false}, plan, st)));
   QT_TRY(qt::attention<T>(c(QQ), (long long)T_ * Wl, Wl, c(KVQ), S * W2, W2, c(KVQ) + Wl, S * W2,
                           W2, w(QCTX), (long long)T_ * Wl, Wl, nullptr, N, T_, S, heads, hd,
-                          scale, st, c(M_QST), ldq, false));
+                          scale, st, c(M_QST), ldq, false, nullptr, plan.attention(T_, S)));
   QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SRC), D}, c(SLF_W), D, R, 3 * Wl, D,
                                 EpiBias<T>{w(QKV), W3, c(SLF_B), false}, plan, st)));
   QT_TRY(qt::attention<T>(c(QKV), T_ * W3, W3, c(QKV) + Wl, T_ * W3, W3, c(QKV) + 2 * Wl,
                           T_ * W3, W3, w(SCTX), (long long)T_ * Wl, Wl, nullptr, N, T_, T_,
-                          heads, hd, scale, st, c(M_SLF), lds, false));
+                          heads, hd, scale, st, c(M_SLF), lds, false, nullptr,
+                          plan.attention(T_, T_)));
   QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SRC), D}, c(CRS_W), D, R, Wl, D,
                                 EpiBias<T>{w(QC), Wl, c(CRS_B), false}, plan, st)));
   QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(VAL), D}, c(CRS_W) + WD, D, R, 2 * Wl, D,
                                 EpiBias<T>{w(KVC), W2, c(CRS_B) + Wl, false}, plan, st)));
   QT_TRY(qt::attention<T>(c(QC), (long long)T_ * Wl, Wl, c(KVC), T_ * W2, W2, c(KVC) + Wl,
                           T_ * W2, W2, w(CCTX), (long long)T_ * Wl, Wl, nullptr, N, T_, T_,
-                          heads, hd, scale, st, c(M_CRS), lds, false));
+                          heads, hd, scale, st, c(M_CRS), lds, false, nullptr,
+                          plan.attention(T_, T_)));
   // the three out_proj partials, fp32 [3, R, D]: self, cross, question
   QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SCTX), Wl}, c(SLF_OW), Wl, R, D, Wl,
                                 qt::EpiF32<T>{part, D, nullptr}, plan, st)));
@@ -521,7 +527,7 @@ cudaError_t attn_block_bwd_tp(const T* g_out, const T* ctx, const T* ow, float* 
   QT_CHECK();
   return qt::attention_bwd<T>(q, k, v, {g_ctx, (long long)T_ * Wl, Wl}, gq, gk, gv, keep,
                               keep_ld, N, T_, Sk, heads, hd, 1.0f / sqrtf((float)hd), false, false,
-                              st);
+                              st, plan.attention(T_, Sk));
 }
 
 template <typename T>
@@ -609,22 +615,24 @@ cudaError_t bwd_tp_attn(void* const* b, int N, int T_, int S, int D, int Wl, int
 }  // namespace
 
 // plan: `products` rows of (M, N, K, chunk, route), the launch's products
-// in launch order (ops/gemm.py gemm_plan), route written here; ws_floats:
-// the room of the WS buffer (fp32 only)
+// in launch order (ops/gemm.py gemm_plan), route written here; attn:
+// `attns` rows of (Sq, Sk, kernel), its keep-masked attentions in launch
+// order (ops/attention.py keep_rows), kernel written here; ws_floats: the
+// room of the WS buffer (fp32 only)
 extern "C" int qt_avq_train_fwd(int dtype, void* const* bufs, int N, int T, int S, int D,
-                                int heads, int* plan, int products, long long ws_floats,
-                                void* stream) {
+                                int heads, int* plan, int products, int* attn, int attns,
+                                long long ws_floats, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const qt::GemmPlan fp{plan, products, 0, nullptr, ws_floats};
+  const qt::GemmPlan fp{plan, products, 0, nullptr, ws_floats, attn, attns};
   if (dtype == 0) return forward<float>(bufs, N, T, S, D, heads, fp, st);
   return forward<__nv_bfloat16>(bufs, N, T, S, D, heads, fp, st);
 }
 
 extern "C" int qt_avq_train_bwd(int dtype, void* const* bufs, int N, int T, int S, int D,
-                                int heads, int* plan, int products, long long ws_floats,
-                                void* stream) {
+                                int heads, int* plan, int products, int* attn, int attns,
+                                long long ws_floats, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const qt::GemmPlan bp{plan, products, 0, nullptr, ws_floats};
+  const qt::GemmPlan bp{plan, products, 0, nullptr, ws_floats, attn, attns};
   if (dtype == 0) return backward<float>(bufs, N, T, S, D, heads, bp, st);
   return backward<__nv_bfloat16>(bufs, N, T, S, D, heads, bp, st);
 }
@@ -633,10 +641,10 @@ extern "C" int qt_avq_train_bwd(int dtype, void* const* bufs, int N, int T, int 
 // the rank's; residual: this rank adds the residual gradient (model rank 0)
 #define QT_AVQ_TP(NAME, CALL)                                                         \
   extern "C" int NAME(int dtype, void* const* bufs, int N, int T, int S, int D, int Wl, \
-                      int heads, int residual, int* plan, int products,                 \
-                      long long ws_floats, void* stream) {                              \
+                      int heads, int residual, int* plan, int products, int* attn,      \
+                      int attns, long long ws_floats, void* stream) {                   \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                                \
-    const qt::GemmPlan gp{plan, products, 0, nullptr, ws_floats};                       \
+    const qt::GemmPlan gp{plan, products, 0, nullptr, ws_floats, attn, attns};          \
     (void)S;                                                                            \
     (void)heads;                                                                        \
     (void)residual;                                                                     \

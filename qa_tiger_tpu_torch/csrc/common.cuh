@@ -1,7 +1,9 @@
 // Device code shared by the kernels of this package: type conversion, warp
 // reductions, a block-level tiled GEMM with a pluggable A loader (row- and
-// column-major), the multi-head attention kernel and its backward, the row
-// LayerNorm kernels and LayerNorm backward, column sums.
+// column-major), the multi-head attention kernels and the FMA backward (the
+// keep-masked tensor-core forward and backward, declared here, are built in
+// attention_keep.cu), the row LayerNorm kernels and LayerNorm backward,
+// column sums.
 //
 // Conventions: activations and parameters arrive in one type T (float or
 // __nv_bfloat16); every sum is taken in fp32; a value is rounded to T where
@@ -18,10 +20,36 @@
 
 #include <type_traits>
 
-// Everything has internal linkage (an unnamed namespace), so each source that
-// includes this header owns its instantiations and no two objects share a
-// kernel symbol at link time.
 namespace qt {
+
+// One operand of the keep-masked tensor-core attention: element (b, row,
+// lane) at p + b * bs + row * ss + lane
+struct KeepIn {
+  const void* p;
+  long long bs, ss;
+};
+struct KeepOut {
+  void* p;
+  long long bs, ss;
+};
+
+// The keep-masked attention on tensor cores (kernel "mma_keep"), forward and
+// backward, for bf16 (bf16 true) or fp32 operands. Defined in
+// attention_keep.cu, the one source that builds its kernels;
+// qt::attention and qt::attention_bwd call them where attention_plan and
+// attention_bwd_plan choose them.
+cudaError_t attention_keep_fwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepOut out,
+                               const void* keep, long long keep_ld, int B, int Sq, int Sk,
+                               int heads, int hd, float scale, bool round_p_first,
+                               cudaStream_t stream);
+cudaError_t attention_keep_bwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepIn g, KeepOut gq,
+                               KeepOut gk, KeepOut gv, const void* keep, long long keep_ld,
+                               int B, int Sq, int Sk, int heads, int hd, float scale,
+                               bool round_p_first, bool accumulate_kv, cudaStream_t stream);
+
+// Everything below has internal linkage (an unnamed namespace), so each
+// source that includes this header owns its instantiations and no two
+// objects share a kernel symbol at link time.
 namespace {
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
@@ -347,8 +375,12 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 // in fp32. mask is an optional additive fp32 [Sq, Sk]; key_bias an optional
 // fp32 [B, Sk] (ToMe's proportional attention, log of the token sizes).
 //
-// Seven kernels; attention_plan decides. bf16 calls without a keep mask, at
-// head sizes 32, 64 and 128, take one of two tensor-core kernels:
+// Eight kernels; attention_plan decides. A call with a keep mask (the train
+// kernels' dropout attentions) at head sizes 32, 64 and 128 over at most
+// ATT_KEEP_MAX_SK keys takes the keep-masked tensor-core kernel in bf16 and
+// fp32 (attention_keep.cu; attention_bwd_plan its backward). bf16 calls
+// without a keep mask, at head sizes 32, 64 and 128, take one of two
+// tensor-core kernels:
 // - at most ATT_SHORT_MAX queries and keys (PatchSelecter's 14-key self- and
 //   cross-attention, fused_attention's packed [BH, 14, 64], QstGrounding's
 //   one query over 2 keys, the last ToMe layers): attention_short_kernel,
@@ -364,9 +396,10 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 //   64 query rows per block.
 // A bf16 head between 128 and 512 lanes has no kernel at its own size: the
 // wrapper zero-pads it to 256 or 512.
-// Every other call (fp32, the keep-masked train calls, one query over more
-// than 16 keys at head sizes up to 128, a wide head past ~1,500 keys in
-// bf16) runs on fp32 FMAs, in one of three kernels chosen by the shared
+// Every other call (fp32 without a keep mask, a keep mask at other head
+// sizes or past ATT_KEEP_MAX_SK keys, one query over more than 16 keys at
+// head sizes up to 128, a wide head past ~1,500 keys in bf16) runs on fp32
+// FMAs, in one of three kernels chosen by the shared
 // memory each needs against the device's opt-in limit per block:
 // - Sk <= ATT_STAGED_MAX_SK where K_h and V_h fit (every such call of the
 //   text tower, AVQ, TempMoE and PatchSelecter; TSPM's TokensAttn in fp32,
@@ -915,20 +948,70 @@ constexpr int AM_Q = 64, AM_K = 64, AM_THREADS = 128, AM_PAD = 8;
 constexpr int ATT_MMA_MIN_SQ = 16, ATT_MMA_MIN_SK = 16, ATT_SHORT_MAX = 16;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The kernel family qt::attention takes. For bf16 without a keep mask at a
-// head size the tensor-core kernels are built for: a warp per problem when
-// both lengths are at most ATT_SHORT_MAX, else 64 query rows per block when
-// there are at least ATT_MMA_MIN_SQ queries and ATT_MMA_MIN_SK keys or the
-// head is 256 or 512 lanes wide (the wide kernels mask any length). The FMA
-// kernels otherwise. attention_plan has the last word: a wide head whose
-// probabilities pass the shared memory goes to the FMA kernels.
-enum AttentionRoute { ATT_ROUTE_FMA = 0, ATT_ROUTE_MMA = 1, ATT_ROUTE_MMA_SHORT = 2 };
+// The kernel family qt::attention takes. With a keep mask, at head sizes
+// 32, 64 and 128 over at most ATT_KEEP_MAX_SK keys, in bf16 and fp32: the
+// keep-masked tensor-core kernel (attention_keep.cu). For bf16 without a
+// keep mask at a head size the tensor-core kernels are built for: a warp per
+// problem when both lengths are at most ATT_SHORT_MAX, else 64 query rows
+// per block when there are at least ATT_MMA_MIN_SQ queries and
+// ATT_MMA_MIN_SK keys or the head is 256 or 512 lanes wide (the wide kernels
+// mask any length). The FMA kernels otherwise (fp32 without a keep mask, a
+// keep mask at other head sizes or past ATT_KEEP_MAX_SK keys).
+// attention_plan has the last word: a call whose tensor-core kernel would
+// pass the shared memory goes to the FMA kernels.
+enum AttentionRoute {
+  ATT_ROUTE_FMA = 0,
+  ATT_ROUTE_MMA = 1,
+  ATT_ROUTE_MMA_SHORT = 2,
+  ATT_ROUTE_MMA_KEEP = 3
+};
 
 inline bool wide_head(int hd) { return hd == 256 || hd == 512; }
 
+// The keep-masked kernels' geometry (attention_keep.cu): a warp owns 16
+// query rows; at most AK_ROWS queries and keys a warp owns a whole problem
+// (the short form), else a block of AK_WARPS warps owns AK_Q query rows
+// (forward) or the whole problem (backward). Staged rows hold hd lanes plus
+// 16 bytes; the backward's dS and pd rows Sk rounded up to 16 keys plus 16
+// bytes (bf16) or 4 lanes (fp32), so that their fragment reads hit 32 banks.
+constexpr int AK_WARPS = 4, AK_THREADS = AK_WARPS * 32, AK_ROWS = 16, AK_Q = AK_WARPS * AK_ROWS;
+constexpr int ATT_KEEP_MAX_SK = 128;
+
+inline bool keep_head(int hd) { return hd == 32 || hd == 64 || hd == 128; }
+inline __host__ __device__ int keep_pad16(int n) { return (n + 15) / 16 * 16; }
+constexpr __host__ __device__ int keep_stage_ld(int hd, int esize) { return hd + 16 / esize; }
+inline __host__ __device__ int keep_pld(int Sk, int esize) {
+  return keep_pad16(Sk) + (esize == 4 ? 4 : 8);
+}
+inline __host__ __device__ bool keep_short(int Sq, int Sk) {
+  return Sq <= AK_ROWS && Sk <= AK_ROWS;
+}
+
+// each form's dynamic shared memory per block
+inline size_t attention_keep_smem_bytes(int esize, int Sq, int Sk, int hd) {
+  const size_t ld = keep_stage_ld(hd, esize);
+  if (keep_short(Sq, Sk)) return (size_t)esize * AK_WARPS * 3 * AK_ROWS * ld;
+  return (size_t)esize * (AK_Q + 2 * keep_pad16(Sk)) * ld;
+}
+
+// the long backward's K and V rows, which stage its warps' dk and dv tiles
+// once K and V are read: at least AK_Q together
+inline __host__ __device__ int keep_kv_rows(int Sk) {
+  return 2 * keep_pad16(Sk) > AK_Q ? 2 * keep_pad16(Sk) : AK_Q;
+}
+
+inline size_t attention_keep_bwd_smem_bytes(int esize, int Sq, int Sk, int hd) {
+  const size_t ld = keep_stage_ld(hd, esize), pld = keep_pld(Sk, esize);
+  if (keep_short(Sq, Sk)) return (size_t)esize * AK_WARPS * AK_ROWS * (4 * ld + 2 * pld);
+  const size_t sq = keep_pad16(Sq);
+  return (size_t)esize * ((2 * sq + keep_kv_rows(Sk)) * ld + 2 * sq * pld);
+}
+
 inline AttentionRoute attention_route(bool bf16, int Sq, int Sk, int hd, bool has_keep) {
   const bool head = hd == 32 || hd == 64 || hd == 128 || wide_head(hd);
-  if (!bf16 || has_keep || !head) return ATT_ROUTE_FMA;
+  if (has_keep)
+    return keep_head(hd) && Sk >= 1 && Sk <= ATT_KEEP_MAX_SK ? ATT_ROUTE_MMA_KEEP : ATT_ROUTE_FMA;
+  if (!bf16 || !head) return ATT_ROUTE_FMA;
   if (Sq <= ATT_SHORT_MAX && Sk <= ATT_SHORT_MAX) return ATT_ROUTE_MMA_SHORT;
   return wide_head(hd) || (Sq >= ATT_MMA_MIN_SQ && Sk >= ATT_MMA_MIN_SK) ? ATT_ROUTE_MMA
                                                                           : ATT_ROUTE_FMA;
@@ -2042,14 +2125,17 @@ inline cudaError_t attention_wide_short(const __nv_bfloat16* q, long long q_bs, 
 }
 
 // Which kernel qt::attention launches, with the shared memory it asks for.
-// The tensor-core routes come first (attention_route); a wide head whose
-// probabilities pass the limit in the mma kernel (far past 577 keys) falls
-// to the FMA kernels, and a bf16 head between 128 and 512 lanes that no
-// tensor-core kernel is built for has none (the wrapper pads it). An FMA
-// call takes the staged kernel up to ATT_STAGED_MAX_SK keys when its
-// Sk-sized shared memory fits the device's opt-in limit per block, else the
-// tiled kernel (head sizes 32, 64, 128) or the wide-head one (256, 512),
-// each if its fixed shared memory fits. Any other call has no kernel
+// The tensor-core routes come first (attention_route): a keep-masked call
+// at head size 32, 64 or 128 over at most ATT_KEEP_MAX_SK keys takes the
+// keep-masked kernel (bf16 and fp32) where its shared memory fits; a wide
+// head whose probabilities pass the limit in the mma kernel (far past 577
+// keys) falls to the FMA kernels, and a bf16 head between 128 and 512 lanes
+// that no tensor-core kernel is built for has none (the wrapper pads it).
+// An FMA call (fp32 or a keep mask the keep-masked kernel does not take)
+// takes the staged kernel up to ATT_STAGED_MAX_SK keys when its Sk-sized
+// shared memory fits the device's opt-in limit per block, else the tiled
+// kernel (head sizes 32, 64, 128) or the wide-head one (256, 512), each if
+// its fixed shared memory fits. Any other call has no kernel
 // (ATT_KERNEL_NONE) and returns cudaErrorInvalidValue; ops/attention.py
 // plans the same rule in Python (attention_plan) and zero-pads a head to the
 // next size that has one.
@@ -2062,13 +2148,23 @@ enum AttentionKernel {
   ATT_KERNEL_SHORT = 4,
   ATT_KERNEL_MMA_WIDE = 5,
   ATT_KERNEL_WIDE_SHORT = 6,
+  ATT_KERNEL_MMA_KEEP = 7,
 };
 
 inline AttentionKernel attention_plan(bool bf16, int Sq, int Sk, int hd, bool has_keep,
                                       size_t limit, size_t* smem) {
-  const AttentionRoute route = attention_route(bf16, Sq, Sk, hd, has_keep);
+  AttentionRoute route = attention_route(bf16, Sq, Sk, hd, has_keep);
   size_t bytes = 0;
   AttentionKernel kernel = ATT_KERNEL_NONE;
+  if (route == ATT_ROUTE_MMA_KEEP) {
+    bytes = attention_keep_smem_bytes(bf16 ? 2 : 4, Sq, Sk, hd);
+    if (bytes <= limit) {
+      if (smem) *smem = bytes;
+      return ATT_KERNEL_MMA_KEEP;
+    }
+    route = ATT_ROUTE_FMA;
+    bytes = 0;
+  }
   if (route != ATT_ROUTE_FMA) {
     const bool shrt = route == ATT_ROUTE_MMA_SHORT;
     if (wide_head(hd)) {
@@ -2114,6 +2210,7 @@ inline AttentionRoute attention_kernel_route(AttentionKernel kernel) {
     case ATT_KERNEL_MMA_WIDE: return ATT_ROUTE_MMA;
     case ATT_KERNEL_SHORT:
     case ATT_KERNEL_WIDE_SHORT: return ATT_ROUTE_MMA_SHORT;
+    case ATT_KERNEL_MMA_KEEP: return ATT_ROUTE_MMA_KEEP;
     default: return ATT_ROUTE_FMA;
   }
 }
@@ -2136,11 +2233,18 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
                              const float* mask, int B, int Sq, int Sk, int heads, int hd,
                              float scale, cudaStream_t stream, const T* keep = nullptr,
                              long long keep_ld = 0, bool round_p_first = false,
-                             const float* key_bias = nullptr) {
+                             const float* key_bias = nullptr, int* kernel_out = nullptr) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   size_t smem = 0;
   const AttentionKernel kernel =
       attention_plan(kBf16, Sq, Sk, hd, keep != nullptr, smem_optin(), &smem);
+  if (kernel_out) *kernel_out = kernel;  // the train kernels' plans (GemmPlan::attention)
+  if (kernel == ATT_KERNEL_MMA_KEEP) {
+    if (mask || key_bias) return cudaErrorInvalidValue;  // no caller adds them to a keep mask
+    return attention_keep_fwd(kBf16, {q, q_bs, q_ss}, {k, k_bs, k_ss}, {v, v_bs, v_ss},
+                              {out, o_bs, o_ss}, keep, keep_ld, B, Sq, Sk, heads, hd, scale,
+                              round_p_first, stream);
+  }
   if constexpr (kBf16) {
 #define QT_TC(KERNEL, HD)                                                                   \
   KERNEL<HD>(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, \
@@ -2192,7 +2296,7 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
 }
 
 // ---------------------------------------------------------------------------
-// Backward of attention_kernel under a keep mask: given g = dL/dctx, writes
+// Backward of the keep-masked attention: given g = dL/dctx, writes
 // dL/dq, dL/dk, dL/dv (in T, strided like the forward's operands). One block
 // per (batch element, head) owns all of that head's queries and keys, so
 // dk and dv are complete inside the block: no atomics, no second pass. The
@@ -2205,10 +2309,33 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
 // round_p_first says. accumulate_kv adds dk and dv to what the outputs hold:
 // out = round_T(out + round_T(new)), the PatchSelecter's sum of its two
 // query streams' key/value gradients.
+//
+// attention_bwd_plan picks the kernel: the keep-masked tensor-core backward
+// (attention_keep.cu, ATT_KERNEL_MMA_KEEP) for a keep mask at head size 32,
+// 64 or 128 over at most ATT_KEEP_MAX_SK keys where its shared memory fits
+// (it grows with Sq); else attention_bwd_kernel below (ATT_KERNEL_STAGED:
+// FMAs, the whole head staged in fp32) where its shared memory fits; else
+// none. ops/attention.py plans the same rule (attention_bwd_plan).
 // ---------------------------------------------------------------------------
 inline size_t attention_bwd_smem_bytes(int Sq, int Sk, int hd) {
   return sizeof(float) * ((size_t)(2 * Sq + 2 * Sk) * (hd + 1) + 2 * (size_t)Sq * Sk
                           + ATT_WARPS * (size_t)Sk);
+}
+
+inline AttentionKernel attention_bwd_plan(bool bf16, int Sq, int Sk, int hd, bool has_keep,
+                                          size_t limit, size_t* smem) {
+  size_t bytes = 0;
+  AttentionKernel kernel = ATT_KERNEL_NONE;
+  if (has_keep && keep_head(hd) && Sk >= 1 && Sk <= ATT_KEEP_MAX_SK)
+    bytes = attention_keep_bwd_smem_bytes(bf16 ? 2 : 4, Sq, Sk, hd);
+  if (bytes && bytes <= limit) {
+    kernel = ATT_KERNEL_MMA_KEEP;
+  } else {
+    bytes = attention_bwd_smem_bytes(Sq, Sk, hd);
+    kernel = bytes <= limit ? ATT_KERNEL_STAGED : ATT_KERNEL_NONE;
+  }
+  if (smem) *smem = bytes;
+  return kernel;
 }
 
 template <typename T>
@@ -2321,8 +2448,19 @@ inline cudaError_t attention_bwd(Strided<const T> q, Strided<const T> k, Strided
                                  Strided<const T> g, Strided<T> gq, Strided<T> gk, Strided<T> gv,
                                  const T* keep, long long keep_ld, int B, int Sq, int Sk,
                                  int heads, int hd, float scale, bool round_p_first,
-                                 bool accumulate_kv, cudaStream_t stream) {
-  const size_t smem = attention_bwd_smem_bytes(Sq, Sk, hd);
+                                 bool accumulate_kv, cudaStream_t stream,
+                                 int* kernel_out = nullptr) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  size_t smem = 0;
+  const AttentionKernel kernel =
+      attention_bwd_plan(kBf16, Sq, Sk, hd, keep != nullptr, smem_optin(), &smem);
+  if (kernel_out) *kernel_out = kernel;  // the train kernels' plans (GemmPlan::attention)
+  if (kernel == ATT_KERNEL_MMA_KEEP)
+    return attention_keep_bwd(kBf16, {q.p, q.bs, q.ss}, {k.p, k.bs, k.ss}, {v.p, v.bs, v.ss},
+                              {g.p, g.bs, g.ss}, {gq.p, gq.bs, gq.ss}, {gk.p, gk.bs, gk.ss},
+                              {gv.p, gv.bs, gv.ss}, keep, keep_ld, B, Sq, Sk, heads, hd, scale,
+                              round_p_first, accumulate_kv, stream);
+  if (kernel != ATT_KERNEL_STAGED) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

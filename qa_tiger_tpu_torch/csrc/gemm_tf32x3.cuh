@@ -301,15 +301,36 @@ template <> struct PlainF32A<RoundColLoad<float>> { static constexpr bool ok = t
 // The products of one train kernel launch as its wrapper planned them
 // (ops/gemm.py gemm_plan): row i of `rows` is (M, N, K, chunk, route) of the
 // i-th product launched, and the kernel writes route (a GemmRoute) as it
-// launches it; ws holds the split-K partials (ws_floats floats).
+// launches it; ws holds the split-K partials (ws_floats floats). Row i of
+// `attn` is (Sq, Sk, kernel) of the i-th keep-masked attention launched
+// (ops/attention.py keep_rows), and qt::attention / qt::attention_bwd write
+// kernel (an AttentionKernel) as they launch it.
 struct GemmPlan {
   int* rows;
   int count;
   int next;
   float* ws;
   long long ws_floats;
-  // every row used: a plan longer than the products launched is refused
-  cudaError_t done() const { return next == count ? cudaSuccess : cudaErrorInvalidValue; }
+  int* attn;
+  int attn_count;
+  int attn_next = 0;
+  bool attn_refused = false;
+  int attn_sink = 0;
+  // where the next attention writes its kernel: its row's last entry, or a
+  // slot of its own (and the launch refused by done()) where the plan names
+  // another shape or no more attentions
+  int* attention(int Sq, int Sk) {
+    int* row = attn_next < attn_count ? attn + 3 * attn_next++ : nullptr;
+    if (row && row[0] == Sq && row[1] == Sk) return row + 2;
+    attn_refused = true;
+    return &attn_sink;
+  }
+  // every row used: a plan longer than the products or attentions launched
+  // is refused
+  cudaError_t done() const {
+    return next == count && attn_next == attn_count && !attn_refused ? cudaSuccess
+                                                                      : cudaErrorInvalidValue;
+  }
 };
 
 // One product of a train kernel, C = A B through epi: fp32 on gemm_tf32x3,

@@ -38,7 +38,10 @@
 // split along their K, the rows, into a workspace WS and summed in a fixed
 // order); in bf16 the forward's products on gemm_sm90 (TMA + wgmma), the
 // backward's on gemm_tile's WMMA loop. The attention over 14 patches and
-// the cross attention stay on qt::attention's keep-masked FMA kernels.
+// the cross attention, forward and backward, take the keep-masked
+// tensor-core kernel (attention_keep.cu), a warp per frame and head, and
+// each writes the kernel it launched into the plan's attention rows
+// (GemmPlan::attention).
 //
 // Under tensor parallelism (parallel/tensor.py) each model rank holds Wl =
 // D / tp columns (its heads' q, k and v rows of both in_proj, the matching
@@ -199,7 +202,7 @@ cudaError_t forward(void* const* b, int BT, int P, int D, int heads, qt::GemmPla
                                 EpiBias<T>{w(QKV), D3, c(SLF_B), false}, plan, st)));
   err = qt::attention<T>(c(QKV), P * D3, D3, c(QKV) + D, P * D3, D3, c(QKV) + 2 * D, P * D3, D3,
                          w(SCTX), (long long)P * D, D, nullptr, BT, P, P, heads, hd, scale, st,
-                         c(M_SLF), lk, true);
+                         c(M_SLF), lk, true, nullptr, plan.attention(P, P));
   if (err != cudaSuccess) return err;
   QT_TRY((planned_gemm<T, true>(RowLoad<T>{c(SCTX), D}, c(SLF_OW), D, R, D, D,
                                 qt::EpiResidual<T>{w(X1), D, c(SLF_OB), c(PATCH), D}, plan, st)));
@@ -216,7 +219,7 @@ cudaError_t forward(void* const* b, int BT, int P, int D, int heads, qt::GemmPla
   for (int s = 0; s < 2; ++s) {
     err = qt::attention<T>(c(Q) + s * BD, D, D, c(KV), P * D2, D2, c(KV) + D, P * D2, D2,
                            w(CTX) + s * BD, D, D, nullptr, BT, 1, P, heads, hd, scale, st,
-                           c(s ? M_CRS_A : M_CRS_V), lk, true);
+                           c(s ? M_CRS_A : M_CRS_V), lk, true, nullptr, plan.attention(1, P));
     if (err != cudaSuccess) return err;
   }
   QT_TRY((planned_gemm<T, true>(
@@ -294,7 +297,7 @@ cudaError_t backward(void* const* b, int BT, int P, int D, int heads, qt::GemmPl
                                {c(KV) + D, P * D2, D2}, {c(G_CTX) + s * BD, D, D},
                                {w(G_QC) + s * BD, D, D}, {w(G_KV), P * D2, D2},
                                {w(G_KV) + D, P * D2, D2}, c(s ? M_CRS_A : M_CRS_V), lk, BT, 1, P,
-                               heads, hd, scale, true, s == 1, st);
+                               heads, hd, scale, true, s == 1, st, plan.attention(1, P));
     if (err != cudaSuccess) return err;
   }
   // cross in_proj: the query half over both streams, the k|v half over patches
@@ -316,7 +319,7 @@ cudaError_t backward(void* const* b, int BT, int P, int D, int heads, qt::GemmPl
                              {c(QKV) + 2 * D, P * D3, D3}, {c(G_SLF), (long long)P * D, D},
                              {w(G_QKV), P * D3, D3}, {w(G_QKV) + D, P * D3, D3},
                              {w(G_QKV) + 2 * D, P * D3, D3}, c(M_SLF), lk, BT, P, P, heads, hd,
-                             scale, true, false, st);
+                             scale, true, false, st, plan.attention(P, P));
   if (err != cudaSuccess) return err;
   QT_TRY(bwd_weight_grad<T>(ColLoad<T>{c(G_QKV), D3}, c(PATCH), D, f(G_SLF_W), 3 * D, D, R,
                             plan, st));
@@ -353,7 +356,7 @@ cudaError_t tp_self(void* const* b, int BT, int P, int D, int Wl, int heads, qt:
                                     qt::EpiBias<T>{w(QKV), W3, c(SLF_B), false}, plan, st)));
   QT_TRY(qt::attention<T>(c(QKV), P * W3, W3, c(QKV) + Wl, P * W3, W3, c(QKV) + 2 * Wl, P * W3,
                           W3, w(SCTX), (long long)P * Wl, Wl, nullptr, BT, P, P, heads, hd,
-                          scale, st, c(M_SLF), lk, true));
+                          scale, st, c(M_SLF), lk, true, nullptr, plan.attention(P, P)));
   QT_TRY((qt::planned_gemm<T, true>(qt::RowLoad<T>{c(SCTX), Wl}, c(SLF_OW), Wl, R, D, Wl,
                                     qt::EpiF32<T>{f(PART), D, nullptr}, plan, st)));
   return plan.done();
@@ -376,7 +379,7 @@ cudaError_t tp_cross(void* const* b, int BT, int P, int D, int Wl, int heads, qt
   for (int s = 0; s < 2; ++s)
     QT_TRY(qt::attention<T>(c(Q) + s * BW, Wl, Wl, c(KV), P * W2, W2, c(KV) + Wl, P * W2, W2,
                             w(CTX) + s * BW, Wl, Wl, nullptr, BT, 1, P, heads, hd, scale, st,
-                            c(s ? M_CRS_A : M_CRS_V), lk, true));
+                            c(s ? M_CRS_A : M_CRS_V), lk, true, nullptr, plan.attention(1, P)));
   QT_TRY((qt::planned_gemm<T, true>(qt::RowLoad<T>{c(CTX), Wl}, c(CRS_OW), Wl, Q2, D, Wl,
                                     qt::EpiF32<T>{f(PART), D, nullptr}, plan, st)));
   return plan.done();
@@ -464,7 +467,7 @@ cudaError_t bwd_tp_cross(void* const* b, int BT, int P, int D, int Wl, int heads
                                 {c(KV) + Wl, P * W2, W2}, {c(G_CTX) + s * BW, Wl, Wl},
                                 {w(G_QC) + s * BW, Wl, Wl}, {w(G_KV), P * W2, W2},
                                 {w(G_KV) + Wl, P * W2, W2}, c(s ? M_CRS_A : M_CRS_V), lk, BT, 1,
-                                P, heads, hd, scale, true, s == 1, st));
+                                P, heads, hd, scale, true, s == 1, st, plan.attention(1, P)));
   QT_TRY(qt::bwd_weight_grad<T>(ColLoad<T>{c(G_QC), Wl}, c(SRC2), D, f(G_CRS_W), Wl, D, Q2, plan,
                                 st));
   qt::col_sum(Val<T>{c(G_QC), Wl}, Q2, Wl, f(G_CRS_B), false, st);
@@ -502,7 +505,7 @@ cudaError_t bwd_tp_self(void* const* b, int BT, int P, int D, int Wl, int heads,
                               {c(QKV) + 2 * Wl, P * W3, W3}, {c(G_SLF), (long long)P * Wl, Wl},
                               {w(G_QKV), P * W3, W3}, {w(G_QKV) + Wl, P * W3, W3},
                               {w(G_QKV) + 2 * Wl, P * W3, W3}, c(M_SLF), lk, BT, P, P, heads, hd,
-                              scale, true, false, st));
+                              scale, true, false, st, plan.attention(P, P)));
   QT_TRY(qt::bwd_weight_grad<T>(ColLoad<T>{c(G_QKV), W3}, c(PATCH), D, f(G_SLF_W), 3 * Wl, D, R,
                                 plan, st));
   qt::col_sum(Val<T>{c(G_QKV), W3}, R, 3 * Wl, f(G_SLF_B), false, st);
@@ -520,22 +523,24 @@ cudaError_t bwd_tp_self(void* const* b, int BT, int P, int D, int Wl, int heads,
 }  // namespace
 
 // plan: `products` rows of (M, N, K, chunk, route), the launch's products
-// in launch order (ops/gemm.py gemm_plan), route written here; ws_floats:
-// the room of the WS buffer (fp32 only)
+// in launch order (ops/gemm.py gemm_plan), route written here; attn:
+// `attns` rows of (Sq, Sk, kernel), its keep-masked attentions in launch
+// order (ops/attention.py keep_rows), kernel written here; ws_floats: the
+// room of the WS buffer (fp32 only)
 extern "C" int qt_patch_select_train_fwd(int dtype, void* const* bufs, int BT, int P, int D,
-                                         int heads, int* plan, int products, long long ws_floats,
-                                         void* stream) {
+                                         int heads, int* plan, int products, int* attn,
+                                         int attns, long long ws_floats, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const qt::GemmPlan fp{plan, products, 0, nullptr, ws_floats};
+  const qt::GemmPlan fp{plan, products, 0, nullptr, ws_floats, attn, attns};
   if (dtype == 0) return forward<float>(bufs, BT, P, D, heads, fp, st);
   return forward<__nv_bfloat16>(bufs, BT, P, D, heads, fp, st);
 }
 
 extern "C" int qt_patch_select_train_bwd(int dtype, void* const* bufs, int BT, int P, int D,
-                                         int heads, int* plan, int products, long long ws_floats,
-                                         void* stream) {
+                                         int heads, int* plan, int products, int* attn,
+                                         int attns, long long ws_floats, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const qt::GemmPlan bp{plan, products, 0, nullptr, ws_floats};
+  const qt::GemmPlan bp{plan, products, 0, nullptr, ws_floats, attn, attns};
   if (dtype == 0) return backward<float>(bufs, BT, P, D, heads, bp, st);
   return backward<__nv_bfloat16>(bufs, BT, P, D, heads, bp, st);
 }
@@ -544,10 +549,10 @@ extern "C" int qt_patch_select_train_bwd(int dtype, void* const* bufs, int BT, i
 // the rank's
 #define QT_PS_TP(NAME, FN)                                                                 \
   extern "C" int NAME(int dtype, void* const* bufs, int BT, int P, int D, int Wl, int heads, \
-                      int residual, int* plan, int products, long long ws_floats,            \
-                      void* stream) {                                                        \
+                      int residual, int* plan, int products, int* attn, int attns,           \
+                      long long ws_floats, void* stream) {                                   \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                                     \
-    const qt::GemmPlan gp{plan, products, 0, nullptr, ws_floats};                            \
+    const qt::GemmPlan gp{plan, products, 0, nullptr, ws_floats, attn, attns};               \
     (void)residual;                                                                          \
     if (dtype == 0) return FN<float>(bufs, BT, P, D, Wl, heads, gp, st);                     \
     return FN<__nv_bfloat16>(bufs, BT, P, D, Wl, heads, gp, st);                             \

@@ -18,6 +18,12 @@ routine each of their products reported as it launched (``gemm_tf32x3`` in
 fp32; in bf16 ``gemm_sm90`` for the forwards, ``gemm_tile``'s WMMA loop for
 the backwards); ``fused_gaussian_moe`` tallies its two products' (its own
 ``wgmma`` kernel or 3xTF32 for the first, ``gemm_tf32x3`` for the second).
+The two train kernels' forwards and backwards, and their TP stages that run
+attention, also tally the kernel of each keep-masked attention they launch
+in ``attn_routes`` ("mma_keep" on tensor cores, else an FMA kernel's name),
+as the launcher reported it in the launch's attention rows
+(``ops.attention.keep_rows``), each time their wrappers run, a graph capture
+included: ``launch_state`` and the replays leave it alone.
 
 ``TP_STAGES`` lists the stages of the tensor-parallel forms
 (``parallel/tensor.py``), eval and train, each with its own ``launches``
@@ -95,11 +101,12 @@ TP_STAGES = {fn.__name__: fn for fn in (
 
 def reset_launches() -> None:
     """Sets every ``launches`` counter to 0 and clears the ``gemm_routes``
-    tallies of the kernels and stages that keep one."""
+    and ``attn_routes`` tallies of the kernels and stages that keep one."""
     for fn in [*KERNELS.values(), *TP_STAGES.values()]:
         fn.launches = 0
-        if hasattr(fn, "gemm_routes"):
-            fn.gemm_routes = {}
+        for tally in ("gemm_routes", "attn_routes"):
+            if hasattr(fn, tally):
+                setattr(fn, tally, {})
 
 
 def launch_counts() -> dict:

@@ -33,12 +33,19 @@ SIGNATURES = {
                      _P, _I, _I, _I, _I, _I, _F, _P],
     "qt_fused_attention": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
                            _I, _I, _I, _I, _F, _P],
-    # not a launcher: the kernel qt::attention takes (0 fma, 1 mma, 2 mma_short)
+    # not a launcher: the kernel family qt::attention takes (0 fma, 1 mma,
+    # 2 mma_short, 3 mma_keep)
     "qt_attention_route": [_I, _I, _I, _I, _I],
     # not a launcher: the kernel and shared memory of qt::attention_plan
     # (ops/attention.py KERNEL_NAMES), and the device's opt-in limit per block
     "qt_attention_plan": [_I, _I, _I, _I, _I, _P],
     "qt_smem_optin": [],
+    # not a launcher: the kernel and shared memory of qt::attention_bwd_plan
+    "qt_attention_bwd_plan": [_I, _I, _I, _I, _I, _P],
+    # the keep-masked tensor-core attention, forward and backward, alone
+    # (ops/avq.py attention_keep, attention_keep_bwd)
+    "qt_attention_keep": [_I] + [_P, _L, _L] * 4 + [_P, _L] + [_I] * 5 + [_F, _I, _P],
+    "qt_attention_keep_bwd": [_I] + [_P, _L, _L] * 7 + [_P, _L] + [_I] * 5 + [_F, _I, _I, _P],
     # not a launcher: the GEMM routine of a fused kernel's product (0 fma,
     # 1 wmma, 2 wgmma)
     "qt_gemm_route": [_I, _I, _I, _I],
@@ -65,17 +72,19 @@ SIGNATURES = {
     "qt_attention_tp_pv": [_I, _P, _P, _L, _L, _P, _P, _L, _L, _I, _I, _I, _I, _F, _P],
     # the train kernels take one table of device pointers (index order: the
     # Buf enum of their source, the BUFFERS lists of ops/avq.py and
-    # ops/patch_select.py)
-    "qt_avq_train_fwd": [_I, _P, _I, _I, _I, _I, _I, _P, _I, _L, _P],
-    "qt_avq_train_bwd": [_I, _P, _I, _I, _I, _I, _I, _P, _I, _L, _P],
-    "qt_patch_select_train_fwd": [_I, _P, _I, _I, _I, _I, _P, _I, _L, _P],
-    "qt_patch_select_train_bwd": [_I, _P, _I, _I, _I, _I, _P, _I, _L, _P],
+    # ops/patch_select.py), then the dimensions, the GEMM plan and its rows,
+    # the attention rows (ops/attention.py keep_rows) and their count, the
+    # split-K workspace's floats
+    "qt_avq_train_fwd": [_I, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _L, _P],
+    "qt_avq_train_bwd": [_I, _P, _I, _I, _I, _I, _I, _P, _I, _P, _I, _L, _P],
+    "qt_patch_select_train_fwd": [_I, _P, _I, _I, _I, _I, _P, _I, _P, _I, _L, _P],
+    "qt_patch_select_train_bwd": [_I, _P, _I, _I, _I, _I, _P, _I, _P, _I, _L, _P],
     # the train kernels' tensor-parallel stages: the same pointer tables,
     # then the rank's dimensions and whether it adds the residual gradient
-    **{name: [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _L, _P] for name in (
+    **{name: [_I, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _L, _P] for name in (
         "qt_avq_train_tp_attn", "qt_avq_train_tp_mid", "qt_avq_train_tp_out",
         "qt_avq_train_bwd_tp_ffn", "qt_avq_train_bwd_tp_attn")},
-    **{name: [_I, _P, _I, _I, _I, _I, _I, _I, _P, _I, _L, _P] for name in (
+    **{name: [_I, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _L, _P] for name in (
         "qt_patch_select_train_tp_self", "qt_patch_select_train_tp_cross",
         "qt_patch_select_train_tp_mlp", "qt_patch_select_train_tp_out",
         "qt_patch_select_train_bwd_tp_mlp", "qt_patch_select_train_bwd_tp_cross",

@@ -9,8 +9,13 @@ without a keep mask take a tensor-core kernel: at head sizes 32, 64 and 128
 the short one (a warp per problem) at most 16 queries and 16 keys, the mma
 one at least 16 of each; at 256 and 512 (and, zero-padded, any head between
 128 and 512 lanes) the wide short one at most 16 of each, the wide mma one
-at any other length whose probabilities fit its shared memory. Every other
-call takes an fp32 FMA kernel: whole keys staged in shared memory up to 128
+at any other length whose probabilities fit its shared memory. A call
+with a keep mask (the train kernels' dropout attentions, which reach the
+kernels from ``csrc/avq.cu`` and ``csrc/patch_select_train.cu``) at head
+sizes 32, 64 and 128 over at most 128 keys takes the keep-masked
+tensor-core kernel in bf16 and fp32 ("mma_keep", ``csrc/attention_keep.cu``;
+``attention_bwd_plan`` plans its backward). Every other call takes an fp32
+FMA kernel: whole keys staged in shared memory up to 128
 keys where they fit the block's opt-in shared memory, else key tiles in two
 passes (64-key tiles at head sizes up to 128, the wide-head kernel's 16 or
 32-key tiles at 256 and 512). ``attention_plan``
@@ -42,12 +47,18 @@ KERNEL_HEAD_SIZES = (32, 64, 128, 256, 512)
 TC_HEAD_SIZES = (32, 64, 128, 256, 512)
 WIDE_HEAD_SIZES = (256, 512)
 # qt_attention_route's codes (csrc/common.cuh, AttentionRoute)
-ROUTES = ("fma", "mma", "mma_short")
+ROUTES = ("fma", "mma", "mma_short", "mma_keep")
 # qt_attention_plan's codes (csrc/common.cuh, AttentionKernel), from 0
-KERNEL_NAMES = ("staged", "tiled", "wide", "mma", "mma_short", "mma_wide", "mma_wide_short")
+KERNEL_NAMES = ("staged", "tiled", "wide", "mma", "mma_short", "mma_wide", "mma_wide_short",
+                "mma_keep")
 # each tensor-core kernel's route; every other kernel's is "fma"
 KERNEL_ROUTES = {"mma": "mma", "mma_wide": "mma", "mma_short": "mma_short",
-                 "mma_wide_short": "mma_short"}
+                 "mma_wide_short": "mma_short", "mma_keep": "mma_keep"}
+# a keep mask (the train kernels' dropout attentions), bf16 and fp32: the
+# head sizes and the longest keys of the keep-masked tensor-core kernels
+# (csrc/attention_keep.cu; ATT_KEEP_MAX_SK)
+KEEP_HEAD_SIZES = (32, 64, 128)
+KEEP_MAX_SK = 128
 # an H100's opt-in shared memory per block, the plan's limit for a call on
 # the CPU; on the card the device's own (qt_smem_optin)
 H100_SMEM_OPTIN = 232_448
@@ -90,10 +101,48 @@ def _smem_bytes(kernel: str, sk: int, hd: int) -> int:
     return 2 * _AS_WARPS * 2 * 3 * _AS_ROWS * (hd + _AM_PAD)
 
 
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _keep_smem_bytes(bf16: bool, sq: int, sk: int, hd: int, backward: bool) -> int:
+    """The keep-masked kernels' dynamic shared memory per block
+    (``attention_keep_smem_bytes`` / ``attention_keep_bwd_smem_bytes`` in
+    csrc/common.cuh): rows of hd lanes plus 16 bytes; at most 16 queries and
+    keys four warps a block, a problem each (q, k, v; backward also g, dS
+    and pd), else the forward's 64 query rows with the problem's k and v,
+    the backward's whole problem (its k and v at least 64 rows together:
+    they stage the warps' dk and dv tiles)."""
+    es = 2 if bf16 else 4
+    ld = hd + 16 // es
+    pld = _pad16(sk) + (8 if bf16 else 4)  # dS / pd rows
+    short = sq <= _AS_ROWS and sk <= _AS_ROWS
+    if not backward:
+        return es * (_AS_WARPS * 3 * _AS_ROWS * ld if short else (_AM_Q + 2 * _pad16(sk)) * ld)
+    if short:
+        return es * _AS_WARPS * _AS_ROWS * (4 * ld + 2 * pld)
+    kv_rows = max(2 * _pad16(sk), _AM_Q)  # k and v, later the warps' dk / dv tiles
+    return es * ((2 * _pad16(sq) + kv_rows) * ld + 2 * _pad16(sq) * pld)
+
+
+def _keep_kernel(bf16: bool, sq: int, sk: int, hd: int, backward: bool,
+                 limit: int) -> int | None:
+    """The keep-masked tensor-core kernel's shared memory where it takes a
+    keep-masked call (a head size of KEEP_HEAD_SIZES, at most KEEP_MAX_SK
+    keys, within ``limit``), else None."""
+    if hd not in KEEP_HEAD_SIZES or not 1 <= sk <= KEEP_MAX_SK:
+        return None
+    nbytes = _keep_smem_bytes(bf16, sq, sk, hd, backward)
+    return nbytes if nbytes <= limit else None
+
+
 def _kernel_at(bf16: bool, sq: int, sk: int, hd: int, has_keep: bool,
                limit: int) -> tuple[str | None, int]:
     """``qt::attention_plan`` at one head size: (kernel or None, bytes)."""
     wide = hd in WIDE_HEAD_SIZES
+    keep_bytes = _keep_kernel(bf16, sq, sk, hd, False, limit) if has_keep else None
+    if keep_bytes is not None:
+        return "mma_keep", keep_bytes
     if bf16 and not has_keep and hd in TC_HEAD_SIZES:
         short = sq <= 16 and sk <= 16
         if wide:
@@ -136,11 +185,13 @@ def smem_limit(device: torch.device | None = None) -> int:
 def attention_plan(dtype: torch.dtype, sq: int, sk: int, hd: int, has_keep: bool = False,
                    limit: int = H100_SMEM_OPTIN) -> AttentionPlan:
     """The kernel the card's ``qt::attention`` takes for a call of this dtype
-    and shape, in pure Python: the tensor-core routes for bf16 without a
-    keep mask at head sizes 32/64/128 and 256/512 (there while the
-    probabilities fit ``limit``), else the staged FMA kernel where its
-    shared memory fits ``limit``, else the tiled (head sizes 32/64/128) or
-    wide-head (256/512) kernel. A call no kernel takes at head size ``hd``
+    and shape, in pure Python: with a keep mask the keep-masked tensor-core
+    kernel ("mma_keep", bf16 and fp32) at head sizes 32/64/128 over at most
+    128 keys; the tensor-core routes for bf16 without a keep mask at head
+    sizes 32/64/128 and 256/512 (there while the probabilities fit
+    ``limit``); else the staged FMA kernel where its shared memory fits
+    ``limit``, else the tiled (head sizes 32/64/128) or wide-head (256/512)
+    kernel. A call no kernel takes at head size ``hd``
     runs zero-padded at the next size one takes (zero lanes add nothing to
     q·kᵀ and give zero context lanes, which the wrapper drops). Raises
     ``ValueError`` naming the shape when no size fits."""
@@ -153,6 +204,58 @@ def attention_plan(dtype: torch.dtype, sq: int, sk: int, hd: int, has_keep: bool
         f"no attention kernel takes Sq={sq}, Sk={sk}, head size {hd} ({dtype}): its shared "
         f"memory would pass the {limit}-byte limit per block, and head sizes past "
         f"{KERNEL_HEAD_SIZES[-1]} have no key-tiled kernel")
+
+
+def attention_bwd_plan(dtype: torch.dtype, sq: int, sk: int, hd: int, has_keep: bool = True,
+                       limit: int = H100_SMEM_OPTIN) -> AttentionPlan:
+    """The kernel of the card's ``qt::attention_bwd`` (the train kernels'
+    attention backward, ``qt::attention_bwd_plan``): with a keep mask at
+    head sizes 32/64/128 over at most 128 keys the keep-masked tensor-core
+    backward ("mma_keep") where its shared memory (which grows with sq)
+    fits ``limit``; else the FMA backward ("staged": the whole head staged
+    in fp32) where its shared memory fits. It runs at ``hd`` itself (the
+    train kernels' heads are never padded); raises ``ValueError`` naming the
+    shape when nothing fits."""
+    bf16 = dtype == torch.bfloat16
+    nbytes = _keep_kernel(bf16, sq, sk, hd, True, limit) if has_keep else None
+    if nbytes is not None:
+        return AttentionPlan("mma_keep", "mma_keep", hd, nbytes)
+    nbytes = 4 * ((2 * sq + 2 * sk) * (hd + 1) + 2 * sq * sk + _ATT_WARPS * sk)
+    if nbytes <= limit:
+        return AttentionPlan("fma", "staged", hd, nbytes)
+    raise ValueError(f"no attention backward takes Sq={sq}, Sk={sk}, head size {hd} "
+                     f"({dtype}): its shared memory would pass the {limit}-byte limit")
+
+
+def keep_rows(shapes) -> torch.Tensor:
+    """The attention rows of one train kernel launch (or one of its
+    tensor-parallel stages): one int32 row (Sq, Sk, kernel) per keep-masked
+    attention (sq, sk) of ``shapes`` in launch order, kernel -1 until the
+    launcher writes the ``KERNEL_NAMES`` code of the kernel it launched
+    (``GemmPlan::attention``, ``csrc/gemm_tf32x3.cuh``). The launcher
+    refuses a launch whose attentions differ from the rows."""
+    return torch.tensor([(sq, sk, -1) for sq, sk in shapes], dtype=torch.int32).reshape(-1, 3)
+
+
+def note_keep_routes(kernel, rows: torch.Tensor) -> None:
+    """Adds one to ``kernel.attn_routes[name]`` for each attention of a
+    launch, ``name`` the kernel it wrote into its row (``keep_rows``)."""
+    for code in rows[:, 2].tolist():
+        name = KERNEL_NAMES[code] if code >= 0 else "none"
+        kernel.attn_routes[name] = kernel.attn_routes.get(name, 0) + 1
+
+
+def library_bwd_plan(dtype: torch.dtype, sq: int, sk: int, hd: int,
+                     has_keep: bool = True) -> tuple[str | None, int]:
+    """(kernel, shared memory bytes) of the library's
+    ``qt_attention_bwd_plan`` on the current card: the card's answer that
+    ``attention_bwd_plan`` is held to. Builds the library."""
+    import ctypes
+
+    nbytes = ctypes.c_longlong(0)
+    code = _build.library().qt_attention_bwd_plan(_build.dtype_code(dtype), sq, sk, hd,
+                                                  int(has_keep), ctypes.byref(nbytes))
+    return (KERNEL_NAMES[code] if code >= 0 else None), nbytes.value
 
 
 def library_plan(dtype: torch.dtype, sq: int, sk: int, hd: int,
@@ -174,8 +277,8 @@ def attention_route(dtype: torch.dtype, sq: int, sk: int, hd: int,
     call of this dtype and shape: "mma_short" (tensor cores, a warp per
     problem of at most 16 queries and keys: kernels mma_short and
     mma_wide_short), "mma" (tensor cores, 64 query rows per block: mma and
-    mma_wide) or "fma", at the head size the wrapper launches
-    (``attention_plan``).
+    mma_wide), "mma_keep" (a keep mask on tensor cores) or "fma", at the
+    head size the wrapper launches (``attention_plan``).
     Asks the kernel library, so it builds it on first use."""
     head = attention_plan(dtype, sq, sk, hd, has_keep).head
     code = _build.library().qt_attention_route(_build.dtype_code(dtype), sq, sk, head,

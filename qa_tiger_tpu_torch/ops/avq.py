@@ -32,11 +32,20 @@ each stage counts its own and tallies its products' routes.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.nn import functional as F
 
-from qa_tiger_tpu_torch.nn.core import attend, layer_norm, linear
+from qa_tiger_tpu_torch.nn.core import layer_norm, linear
 from qa_tiger_tpu_torch.ops import _build
+from qa_tiger_tpu_torch.ops.attention import (
+    attention_bwd_plan,
+    attention_plan,
+    keep_rows,
+    note_keep_routes,
+    smem_limit,
+)
 from qa_tiger_tpu_torch.ops.epilogue import launch_epilogue, tp_stage
 from qa_tiger_tpu_torch.ops.gemm import (
     aligned16,
@@ -108,6 +117,12 @@ BUFFERS = (("src", "val", "wrd") + tuple(f"m_{k}" for k in MASK_KEYS) + WEIGHT_N
               "g_ctx", "g_qq", "g_kvq", "g_qkv", "g_qc", "g_kvc", "ws", "total", "part"))
 
 
+def _attn_shapes(T: int, S: int) -> list:
+    """(Sq, Sk) of the three keep-masked attentions one launch runs, forward
+    or backward: question-guided, self, cross."""
+    return [(T, S), (T, T), (T, T)]
+
+
 def _shapes(N, T, S, D):
     return {"qq": (N * T, D), "kvq": (N * S, 2 * D), "qkv": (N * T, 3 * D), "qc": (N * T, D),
             "kvc": (N * T, 2 * D)}
@@ -134,10 +149,13 @@ class _AVQTrain(torch.autograd.Function):
         ws_floats = plan_workspace(dt, shapes, sms)
         if ws_floats:
             bufs["ws"] = torch.empty(ws_floats, dtype=torch.float32, device=dev)
+        rows = keep_rows(_attn_shapes(T, S))
         _build.launch_table("qt_avq_train_fwd", "qt_avq_num_buffers", BUFFERS, bufs,
-                            N, T, S, D, nhead, plan.data_ptr(), len(shapes), ws_floats)
+                            N, T, S, D, nhead, plan.data_ptr(), len(shapes), rows.data_ptr(),
+                            len(rows), ws_floats)
         fused_avq_train.launches += 1
         note_plan_routes(fused_avq_train, plan)
+        note_keep_routes(fused_avq_train, rows)
         ctx.nhead, ctx.masks = nhead, masks
         ctx.save_for_backward(src, val, wrd, *weights, *[bufs[k] for k in SAVED])
         return bufs["out"]
@@ -183,15 +201,19 @@ def fused_avq_train_bwd(src, val, wrd, weights, saved: dict, masks: dict, g, nhe
     bufs.update({f"m_{k}": masks[k] for k in MASK_KEYS})
     bufs.update(zip(WEIGHT_NAMES, weights))
     bufs.update(zip((f"g_{n}" for n in WEIGHT_NAMES), grads))
+    rows = keep_rows(_attn_shapes(T, S))
     _build.launch_table("qt_avq_train_bwd", "qt_avq_num_buffers", BUFFERS, bufs,
-                        N, T, S, D, nhead, plan.data_ptr(), len(shapes), ws_floats)
+                        N, T, S, D, nhead, plan.data_ptr(), len(shapes), rows.data_ptr(),
+                        len(rows), ws_floats)
     fused_avq_train_bwd.launches += 1
     note_plan_routes(fused_avq_train_bwd, plan)
+    note_keep_routes(fused_avq_train_bwd, rows)
     return bufs["gsrc"], bufs["gval"], bufs["gwrd"], grads
 
 
 fused_avq_train_bwd.launches = 0
 fused_avq_train_bwd.gemm_routes = {}  # the GEMM routine of each product launched
+fused_avq_train_bwd.attn_routes = {}  # the kernel of each attention backward launched
 
 
 def fused_avq_train(src: torch.Tensor, val: torch.Tensor, wrd: torch.Tensor, params,
@@ -236,6 +258,7 @@ def fused_avq_train(src: torch.Tensor, val: torch.Tensor, wrd: torch.Tensor, par
 
 fused_avq_train.launches = 0
 fused_avq_train.gemm_routes = {}  # the GEMM routine of each product launched
+fused_avq_train.attn_routes = {}  # the kernel of each keep-masked attention launched
 
 
 # ---------------------------------------------------------------------------
@@ -261,14 +284,174 @@ def shard_avq_masks(masks: dict, nhead: int, S: int, T: int, rank: int, tp: int)
     return out
 
 
-def keep_attention(q, k, v, keep, heads: int):
-    """``mha``'s plain path from its projections: q [N, Sq, W], k/v [N, Sk,
-    W], the fp32 softmax times ``keep`` [N*Sq, Lp] (lane h*Sk + key) ->
-    ctx [N, Sq, W] in q's dtype."""
+def _keep_heads(keep, N: int, Sq: int, Sk: int, heads: int) -> torch.Tensor:
+    """A probability mask [N*Sq, >= heads*Sk] (lane h*Sk + key) as fp32
+    [N, heads, Sq, Sk]."""
+    return keep[:, :heads * Sk].reshape(N, Sq, heads, Sk).transpose(1, 2).float()
+
+
+def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    N, S, W = t.shape
+    return t.reshape(N, S, heads, W // heads).float()
+
+
+def _keep_probs(q, k, heads: int, round_p_first: bool) -> torch.Tensor:
+    """JAX's ``_attn_fwd`` probabilities: the fp32 product q kᵀ, scaled after
+    it, the fp32 softmax -> [N, heads, Sq, Sk]; rounded to q's dtype (and
+    back to fp32) with ``round_p_first``, as ``_packed_heads_attn`` does."""
+    scale = 1.0 / math.sqrt(q.shape[-1] // heads)
+    s = torch.einsum("nqhd,nkhd->nhqk", _split_heads(q, heads), _split_heads(k, heads)) * scale
+    p = torch.softmax(s, dim=-1)
+    return p.to(q.dtype).float() if round_p_first else p
+
+
+def keep_attention(q, k, v, keep, heads: int, round_p_first: bool = False):
+    """The keep-masked attention's plain version (the kernel's, and the TP
+    stages' on the CPU): q [N, Sq, W], k/v [N, Sk, W], ``keep`` [N*Sq, Lp]
+    (lane h*Sk + key) -> ctx [N, Sq, W] in q's dtype, rounded where JAX's
+    ``_attn_fwd`` (AVQ) and, with ``round_p_first``, ``_packed_heads_attn
+    (keep2d=)`` (PatchSelecter) round: the fp32 probability (or its
+    rounding) times keep, rounded; the context summed in fp32, rounded."""
+    N, Sq, W = q.shape
+    p = _keep_probs(q, k, heads, round_p_first)
+    pd = (p * _keep_heads(keep, N, Sq, k.shape[1], heads)).to(q.dtype).float()
+    ctx = torch.einsum("nhqk,nkhd->nqhd", pd, _split_heads(v, heads))
+    return ctx.to(q.dtype).reshape(N, Sq, W)
+
+
+def keep_score_grads(q, k, v, g, keep, heads: int, round_p_first: bool = False) -> tuple:
+    """The backward's rounded intermediates (pd, dS) [N, heads, Sq, Sk], as
+    JAX's ``_attn_bwd`` forms them from the probabilities recomputed as
+    ``keep_attention`` does (P the fp32 probability, or its rounding with
+    ``round_p_first``): dPd = g vᵀ, dP = dPd keep, dS = round(P (dP -
+    rowsum(dP P)))."""
     N, Sq, _ = q.shape
+    Sk, dt = k.shape[1], q.dtype
+    p = _keep_probs(q, k, heads, round_p_first)
+    kp = _keep_heads(keep, N, Sq, Sk, heads)
+    dp = torch.einsum("nqhd,nkhd->nhqk", _split_heads(g, heads), _split_heads(v, heads)) * kp
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float()
+    return (p * kp).to(dt).float(), ds
+
+
+def keep_attention_bwd(q, k, v, g, keep, heads: int, round_p_first: bool = False):
+    """The backward's plain version, JAX's ``_attn_bwd``: from
+    ``keep_score_grads``' pd and dS, dq = round(scale dS k), dk =
+    round(scale dSᵀ q), dv = round(pdᵀ g) -> (dq, dk, dv) in q's dtype,
+    each in its operand's [N, S, W] layout."""
+    N, Sq, W = q.shape
+    Sk, dt = k.shape[1], q.dtype
+    scale = 1.0 / math.sqrt(W // heads)
+    pd, ds = keep_score_grads(q, k, v, g, keep, heads, round_p_first)
+    dq = torch.einsum("nhqk,nkhd->nqhd", ds, _split_heads(k, heads)) * scale
+    dk = torch.einsum("nhqk,nqhd->nkhd", ds, _split_heads(q, heads)) * scale
+    dv = torch.einsum("nhqk,nqhd->nkhd", pd, _split_heads(g, heads))
+    return dq.to(dt).reshape(N, Sq, W), dk.to(dt).reshape(N, Sk, W), dv.to(dt).reshape(N, Sk, W)
+
+
+def _keep_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the keep-masked kernels' 16-byte ``cp.async`` copies can
+    read it (a 16-byte aligned base, batch and row strides whole 16 bytes),
+    else a contiguous copy; the route does not change."""
+    per = 16 // t.element_size()
+    if t.data_ptr() % 16 or t.stride(0) % per or t.stride(1) % per:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def _keep_args(q, k, v, keep, heads: int, backward: bool):
+    """Checks a keep-masked call for the card (q [N, Sq, W], k/v [N, Sk, W]
+    with unit lane stride, keep [N*Sq, >= heads*Sk] with unit lane stride,
+    all of one dtype and device) and that ``attention_bwd_plan`` /
+    ``attention_plan`` give it the keep-masked kernel; returns the
+    operands as the kernel reads them and the head size."""
+    N, Sq, W = q.shape
     Sk = k.shape[1]
-    pm = keep[:, :heads * Sk].reshape(N, Sq, heads, Sk).transpose(1, 2)
-    return attend(q, k, v, heads, drop=lambda probs: probs * pm.float())[0]
+    for name, t, S in (("q", q, Sq), ("k", k, Sk), ("v", v, Sk)):
+        if t.dim() != 3 or tuple(t.shape) != (N, S, W) or t.stride(2) != 1:
+            raise ValueError(f"{name} must be [{N}, {S}, {W}] with unit lane stride, "
+                             f"got {tuple(t.shape)}")
+        if t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q's dtype and device")
+    if W % heads:
+        raise ValueError(f"width {W} does not split into {heads} heads")
+    if (keep.dim() != 2 or keep.shape[0] != N * Sq or keep.shape[1] < heads * Sk
+            or keep.stride(1) != 1 or keep.dtype != q.dtype or keep.device != q.device):
+        raise ValueError(f"keep must be [{N * Sq}, >= {heads * Sk}] in q's dtype and device "
+                         f"with unit lane stride, got {tuple(keep.shape)} {keep.dtype}")
+    hd = W // heads
+    plan = (attention_bwd_plan if backward else attention_plan)(
+        q.dtype, Sq, Sk, hd, has_keep=True, limit=smem_limit(q.device))
+    if plan.kernel != "mma_keep":
+        raise ValueError(f"the keep-masked tensor-core kernel does not take Sq={Sq}, Sk={Sk}, "
+                         f"head size {hd} ({q.dtype}); the train kernels run it on "
+                         f"{plan.kernel}")
+    return [_keep_operand(t) for t in (q, k, v)], hd
+
+
+def _strided(t: torch.Tensor) -> tuple:
+    return t.data_ptr(), t.stride(0), t.stride(1)
+
+
+def attention_keep(q, k, v, keep, heads: int, round_p_first: bool = False) -> torch.Tensor:
+    """The keep-masked attention kernel by itself (``qt_attention_keep``,
+    csrc/attention_keep.cu: the forward the train kernels launch for their
+    dropout attentions), for its checks and timing; a CPU tensor runs
+    ``keep_attention``. Counts its launches in ``attention_keep.launches``
+    (no model path calls it)."""
+    if q.device.type == "cpu":
+        return keep_attention(q, k, v, keep, heads, round_p_first)
+    (q, k, v), hd = _keep_args(q, k, v, keep, heads, False)
+    N, Sq, W = q.shape
+    out = torch.empty(N, Sq, W, dtype=q.dtype, device=q.device)
+    _build.launch("qt_attention_keep", _build.dtype_code(q), *_strided(q), *_strided(k),
+                  *_strided(v), *_strided(out), keep.data_ptr(), keep.stride(0), N, Sq,
+                  k.shape[1], heads, hd, 1.0 / math.sqrt(hd), int(round_p_first))
+    attention_keep.launches += 1
+    return out
+
+
+attention_keep.launches = 0
+
+
+def attention_keep_bwd(q, k, v, g, keep, heads: int, round_p_first: bool = False,
+                       accumulate_kv: tuple | None = None) -> tuple:
+    """The keep-masked attention backward kernel by itself
+    (``qt_attention_keep_bwd``) -> (dq, dk, dv); a CPU tensor runs
+    ``keep_attention_bwd``. ``accumulate_kv`` = (dk0, dv0) adds the new dk
+    and dv to them as the PatchSelecter's second query stream does, out =
+    round(out + round(new)), and returns them updated in place. Counts its
+    launches in ``attention_keep_bwd.launches`` (no model path calls it)."""
+    if q.device.type == "cpu":
+        dq, dk, dv = keep_attention_bwd(q, k, v, g, keep, heads, round_p_first)
+        if accumulate_kv is not None:
+            dk = accumulate_kv[0].copy_((accumulate_kv[0].float() + dk.float()).to(dk.dtype))
+            dv = accumulate_kv[1].copy_((accumulate_kv[1].float() + dv.float()).to(dv.dtype))
+        return dq, dk, dv
+    (q, k, v), hd = _keep_args(q, k, v, keep, heads, True)
+    if tuple(g.shape) != tuple(q.shape) or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"g must be like q {tuple(q.shape)}, got {tuple(g.shape)}")
+    g = _keep_operand(g)
+    N, Sq, W = q.shape
+    Sk = k.shape[1]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if accumulate_kv is None:
+        dk = torch.empty(N, Sk, W, dtype=q.dtype, device=q.device)
+        dv = torch.empty_like(dk)
+    else:
+        dk, dv = accumulate_kv
+        if any(tuple(t.shape) != (N, Sk, W) or not t.is_contiguous() or t.dtype != q.dtype
+               for t in (dk, dv)):
+            raise ValueError(f"accumulate_kv needs two contiguous [{N}, {Sk}, {W}] tensors")
+    _build.launch("qt_attention_keep_bwd", _build.dtype_code(q), *_strided(q), *_strided(k),
+                  *_strided(v), *_strided(g), *_strided(dq), *_strided(dk), *_strided(dv),
+                  keep.data_ptr(), keep.stride(0), N, Sq, Sk, heads, hd, 1.0 / math.sqrt(hd),
+                  int(round_p_first), int(accumulate_kv is not None))
+    attention_keep_bwd.launches += 1
+    return dq, dk, dv
+
+
+attention_keep_bwd.launches = 0
 
 
 def _tp_attn_plain(src, val, wrd, w, masks, nhead):
@@ -366,18 +549,23 @@ def _bwd_tp_attn_plain(gh1, src, val, wrd, totals, w, masks, nhead: int, residua
     return partial, dict(zip(_OUT_BIASES + (16, 17) + _ATTN_WEIGHTS, g_ln + g_attn))
 
 
-def _stage_launch(stage, name: str, bufs: dict, dims: tuple, products, residual: bool = False):
+def _stage_launch(stage, name: str, bufs: dict, dims: tuple, products, residual: bool = False,
+                  attn=()):
     """One tensor-parallel stage's launch (``qt_avq_train_<name>``) against
-    the plan of its products; counts it and tallies their routes."""
+    the plan of its products and keep-masked attentions (Sq, Sk) ``attn``;
+    counts it and tallies their routes."""
     dev, dt = bufs["src"].device, bufs["src"].dtype
     sms = sm_count(dev)
     plan = gemm_plan(dt, products, sms)
     ws_floats = plan_workspace(dt, products, sms)
     bufs["ws"] = torch.empty(ws_floats, dtype=torch.float32, device=dev) if ws_floats else None
+    rows = keep_rows(attn)
     _build.launch_table(f"qt_avq_train_{name}", "qt_avq_num_buffers", BUFFERS, bufs, *dims,
-                        int(residual), plan.data_ptr(), len(products), ws_floats)
+                        int(residual), plan.data_ptr(), len(products), rows.data_ptr(),
+                        len(rows), ws_floats)
     stage.launches += 1
     note_plan_routes(stage, plan)
+    note_keep_routes(stage, rows)
 
 
 class _AVQState:
@@ -440,7 +628,7 @@ def fused_avq_train_tp_attn(st: _AVQState) -> torch.Tensor:
     st.bufs.update({k: st.empty(R, n) for k, n in widths.items()}, kvq=st.empty(RS, 2 * Wl),
                    part=st.empty(3, N, T, D, dtype=torch.float32))
     _stage_launch(fused_avq_train_tp_attn, "tp_attn", st.bufs, st.dims,
-                  st.shapes["tp_attn"])
+                  st.shapes["tp_attn"], attn=_attn_shapes(T, S))
     fused_avq_train.launches += 1
     return st.bufs["part"]
 
@@ -509,7 +697,7 @@ def fused_avq_train_bwd_tp_attn(st: _AVQState, gh1: torch.Tensor, residual: bool
                    g_qkv=st.empty(R, 3 * Wl), g_qc=st.empty(R, Wl), g_kvc=st.empty(R, 2 * Wl),
                    part=st.empty(2 * R + RS, D, dtype=torch.float32))
     _stage_launch(fused_avq_train_bwd_tp_attn, "bwd_tp_attn", st.bufs, st.dims,
-                  st.shapes["bwd_tp_attn"], residual)
+                  st.shapes["bwd_tp_attn"], residual, attn=_attn_shapes(T, S))
     return st.bufs["part"], {WEIGHT_NAMES.index(n): st.bufs[f"g_{n}"] for n in names}
 
 
@@ -518,6 +706,7 @@ TP_STAGES = (fused_avq_train_tp_attn, fused_avq_train_tp_mid, fused_avq_train_tp
 for _stage in TP_STAGES:
     _stage.launches = 0
     _stage.gemm_routes = {}
+    _stage.attn_routes = {}
 
 
 def round_sum(total: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

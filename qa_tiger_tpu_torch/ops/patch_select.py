@@ -55,7 +55,7 @@ from torch.nn import functional as F
 from qa_tiger_tpu_torch.nn.core import layer_norm, linear, mlp2
 from qa_tiger_tpu_torch.ops import _build, _grad
 from qa_tiger_tpu_torch.ops.epilogue import launch_epilogue, reduce_epilogue_plain, tp_stage
-from qa_tiger_tpu_torch.ops.attention import _wide_reference
+from qa_tiger_tpu_torch.ops.attention import _wide_reference, keep_rows, note_keep_routes
 from qa_tiger_tpu_torch.ops.gemm import (
     aligned16,
     gemm_plan,
@@ -481,11 +481,13 @@ class _PatchSelectTrain(torch.autograd.Function):
         ws_floats = plan_workspace(dt, shapes, sms)
         if ws_floats:
             bufs["ws"] = e(ws_floats, dtype=torch.float32)
+        rows = keep_rows([(P, P), (1, P), (1, P)])
         _build.launch_table("qt_patch_select_train_fwd", "qt_patch_select_train_num_buffers",
                             TRAIN_BUFFERS, bufs, BT, P, D, nhead, plan.data_ptr(), len(shapes),
-                            ws_floats)
+                            rows.data_ptr(), len(rows), ws_floats)
         fused_patch_select_train.launches += 1
         note_plan_routes(fused_patch_select_train, plan)
+        note_keep_routes(fused_patch_select_train, rows)
         ctx.nhead, ctx.masks = nhead, masks
         ctx.save_for_backward(patch, audio, video, *weights, *[bufs[k] for k in SAVED])
         return bufs["a_out"], bufs["v_out"]
@@ -532,16 +534,19 @@ def fused_patch_select_train_bwd(patch, audio, video, weights, saved: dict, mask
     bufs.update({f"m_{k}": masks[k] for k in MASK_KEYS})
     bufs.update(zip(WEIGHT_NAMES, weights))
     bufs.update(zip((f"g_{n}" for n in WEIGHT_NAMES), grads))
+    rows = keep_rows([(1, P), (1, P), (P, P)])
     _build.launch_table("qt_patch_select_train_bwd", "qt_patch_select_train_num_buffers",
                         TRAIN_BUFFERS, bufs, BT, P, D, nhead, plan.data_ptr(), len(shapes),
-                        ws_floats)
+                        rows.data_ptr(), len(rows), ws_floats)
     fused_patch_select_train_bwd.launches += 1
     note_plan_routes(fused_patch_select_train_bwd, plan)
+    note_keep_routes(fused_patch_select_train_bwd, rows)
     return bufs["gpatch"], bufs["gaudio"], bufs["gvideo"], grads
 
 
 fused_patch_select_train_bwd.launches = 0
 fused_patch_select_train_bwd.gemm_routes = {}  # the GEMM routine of each product launched
+fused_patch_select_train_bwd.attn_routes = {}  # the kernel of each attention backward launched
 
 
 def fused_patch_select_train(patch: torch.Tensor, audio: torch.Tensor, video: torch.Tensor,
@@ -573,6 +578,7 @@ def fused_patch_select_train(patch: torch.Tensor, audio: torch.Tensor, video: to
 
 fused_patch_select_train.launches = 0
 fused_patch_select_train.gemm_routes = {}  # the GEMM routine of each product launched
+fused_patch_select_train.attn_routes = {}  # the kernel of each keep-masked attention launched
 
 
 # ---------------------------------------------------------------------------
@@ -716,10 +722,11 @@ class _PSState:
     def empty(self, *shape, dtype=None):
         return torch.empty(*shape, dtype=dtype or self.patch.dtype, device=self.patch.device)
 
-    def launch(self, stage, name: str, part_rows: int | None = None, **bufs) -> None:
+    def launch(self, stage, name: str, part_rows: int | None = None, attn=(), **bufs) -> None:
         """Launch ``qt_patch_select_train_<name>`` with ``bufs`` added and,
         when ``part_rows`` is given, a fresh fp32 partial of that many
-        rows; counts it and tallies its products' routes."""
+        rows; counts it and tallies its products' routes and those of the
+        keep-masked attentions (Sq, Sk) ``attn`` it runs."""
         self.bufs.update(bufs)
         if part_rows is not None:
             self.bufs["part"] = self.empty(part_rows, self.dims[2], dtype=torch.float32)
@@ -730,11 +737,13 @@ class _PSState:
         ws_floats = plan_workspace(dt, products, sms)
         self.bufs["ws"] = (torch.empty(ws_floats, dtype=torch.float32, device=dev)
                            if ws_floats else None)
+        rows = keep_rows(attn)
         _build.launch_table(f"qt_patch_select_train_{name}", "qt_patch_select_train_num_buffers",
                             TRAIN_BUFFERS, self.bufs, *self.dims, 0, plan.data_ptr(),
-                            len(products), ws_floats)
+                            len(products), rows.data_ptr(), len(rows), ws_floats)
         stage.launches += 1
         note_plan_routes(stage, plan)
+        note_keep_routes(stage, rows)
 
 
 def _self_plain(st: _PSState) -> torch.Tensor:
@@ -783,8 +792,9 @@ def fused_patch_select_train_tp_self(st: _PSState) -> torch.Tensor:
     """Forward stage 1: the self-attention's fp32 out_proj partial [R, D]
     over the rank's heads."""
     R, Wl = st.dims[0] * st.dims[1], st.Wl
-    st.launch(fused_patch_select_train_tp_self, "tp_self", R, qkv=st.empty(R, 3 * Wl),
-              sctx=st.empty(R, Wl))
+    P = st.dims[1]
+    st.launch(fused_patch_select_train_tp_self, "tp_self", R, attn=[(P, P)],
+              qkv=st.empty(R, 3 * Wl), sctx=st.empty(R, Wl))
     fused_patch_select_train.launches += 1
     return st.bufs["part"]
 
@@ -796,7 +806,8 @@ def fused_patch_select_train_tp_cross(st: _PSState, total1: torch.Tensor) -> tor
     st.total1 = total1
     BT, P, D, Wl, _ = st.dims
     R = BT * P
-    st.launch(fused_patch_select_train_tp_cross, "tp_cross", 2 * BT, total=total1,
+    st.launch(fused_patch_select_train_tp_cross, "tp_cross", 2 * BT, attn=[(1, P)] * 2,
+              total=total1,
               x1=st.empty(R, D), kv=st.empty(R, 2 * Wl), src2=st.empty(2 * BT, D),
               q=st.empty(2 * BT, Wl), ctx=st.empty(2 * BT, Wl))
     return st.bufs["part"]
@@ -854,7 +865,8 @@ def fused_patch_select_train_bwd_tp_cross(st: _PSState, total: torch.Tensor):
     BT, P, D, Wl, _ = st.dims
     R = BT * P
     grads = _weight_grads(st, (4, 5, 6, 7))
-    st.launch(fused_patch_select_train_bwd_tp_cross, "bwd_tp_cross", R + 2 * BT, total=total,
+    st.launch(fused_patch_select_train_bwd_tp_cross, "bwd_tp_cross", R + 2 * BT,
+              attn=[(1, P)] * 2, total=total,
               g_crs_o=st.empty(2 * BT, D), g_ctx=st.empty(2 * BT, Wl),
               g_qc=st.empty(2 * BT, Wl), g_kv=st.empty(R, 2 * Wl))
     return st.bufs["part"], grads
@@ -869,8 +881,8 @@ def fused_patch_select_train_bwd_tp_self(st: _PSState, total: torch.Tensor):
     BT, P, D, Wl, _ = st.dims
     R = BT * P
     grads = _weight_grads(st, (0, 1, 2, 3))
-    st.launch(fused_patch_select_train_bwd_tp_self, "bwd_tp_self", R, total=total,
-              g_x1=st.empty(*st.patch.shape), gvideo=st.empty(st.B, st.T, D),
+    st.launch(fused_patch_select_train_bwd_tp_self, "bwd_tp_self", R, attn=[(P, P)],
+              total=total, g_x1=st.empty(*st.patch.shape), gvideo=st.empty(st.B, st.T, D),
               gaudio=st.empty(st.B, st.T, D), g_slf=st.empty(R, Wl),
               g_qkv=st.empty(R, 3 * Wl))
     b = st.bufs
@@ -884,6 +896,7 @@ TP_TRAIN_STAGES = (fused_patch_select_train_tp_self, fused_patch_select_train_tp
 for _stage in TP_TRAIN_STAGES:
     _stage.launches = 0
     _stage.gemm_routes = {}
+    _stage.attn_routes = {}
 
 
 def patch_grad_epilogue(total: torch.Tensor, g_x1: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,10 @@ Marked ``gpu``: without a CUDA device every test here skips. On the card
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
 
 Tolerances: fp32 max|k - p| <= 1e-4 * max(1, max|p|) (summation order);
-bf16 3e-2 * max(1, max|p|) (bf16 rounding of outputs and intermediates).
+bf16 3e-2 * max(1, max|p|) (bf16 rounding of outputs and intermediates);
+the keep-masked attention's bf16 kernels, each element within one bf16 ulp
+of the plain version's plus its terms whose pd or dS lies at a rounding
+boundary (``_keep_bounds``: every other rounding point must agree).
 bf16 gradients of the train kernels: the kernel and the plain version in
 bf16 are both held to the plain version in fp32 on the same values, and the
 kernel may be off by at most max(2 x the plain version's error,
@@ -19,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from _keep_bounds import check_bf16
+from _keep_bounds import flips as keep_flips
 from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock, causal_mask
 from qa_tiger_tpu_torch.models.modules import (
     AVQCrossAttn,
@@ -166,12 +171,15 @@ def test_attention_route_rule(cuda):
     assert A.attention_route(bf, 60, 77, 64) == "mma"
     assert A.attention_route(bf, 577, 577, 64) == "mma"
     assert A.attention_route(f32, 577, 577, 64) == "fma"          # fp32 parity route
-    assert A.attention_route(bf, 60, 77, 64, has_keep=True) == "fma"  # train dropout
+    assert A.attention_route(bf, 60, 77, 64, has_keep=True) == "mma_keep"  # train dropout
+    assert A.attention_route(f32, 60, 77, 64, has_keep=True) == "mma_keep"
+    assert A.attention_route(f32, 60, 129, 64, has_keep=True) == "fma"
     assert A.attention_route(bf, 14, 14, 64) == "mma_short"   # PatchSelecter, packed route
     assert A.attention_route(bf, 2, 14, 64) == "mma_short"    # PatchSelecter cross
     assert A.attention_route(bf, 1, 2, 64) == "mma_short"     # QstGrounding
     assert A.attention_route(f32, 14, 14, 64) == "fma"
-    assert A.attention_route(bf, 14, 14, 64, has_keep=True) == "fma"  # train kernels
+    assert A.attention_route(bf, 14, 14, 64, has_keep=True) == "mma_keep"  # train kernels
+    assert A.attention_route(f32, 1, 14, 64, has_keep=True) == "mma_keep"
     assert A.attention_route(bf, 1, 60, 64) == "fma"    # TempMoE
     assert A.attention_route(bf, 60, 15, 64) == "fma"
     assert A.attention_route(bf, 60, 77, 48) == "fma"   # no mma build for hd 48
@@ -186,6 +194,147 @@ def test_attention_route_rule(cuda):
     assert A.attention_route(bf, 60, 2000, 512) == "fma"      # p past the limit
     assert A.attention_route(f32, 60, 60, 512) == "fma"
     assert A.attention_route(bf, 60, 60, 512, has_keep=True) == "fma"
+
+
+# ---------------------------------------------------------------------------
+# the keep-masked tensor-core kernel ("mma_keep"): the train kernels'
+# dropout attentions, forward and backward, alone against their plain
+# versions (ops/avq.py keep_attention, keep_attention_bwd)
+# ---------------------------------------------------------------------------
+
+def _keep_case(rng, N, sq, sk, heads, hd, dtype, lane0=0, ld_extra=0):
+    """q, g [N, sq, W] and k, v [N, sk, W] on the card; keep [N*sq, heads*sk
+    (+ ld_extra)] from the train masks' sampler geometry (0 or 1/(1-p)),
+    its rows starting lane0 lanes into a wider buffer (a base and row
+    stride off 16 bytes)."""
+    W = heads * hd
+    q, g = (_rn(rng, N, sq, W, dtype=dtype) for _ in range(2))
+    k, v = (_rn(rng, N, sk, W, dtype=dtype) for _ in range(2))
+    drop = rng.random((N * sq, lane0 + heads * sk + ld_extra)) < 0.1
+    full = torch.from_numpy(np.where(drop, 0.0, 1.0 / 0.9).astype(np.float32)).to("cuda", dtype)
+    return q, k, v, g, full[:, lane0:lane0 + heads * sk]
+
+
+def _keep_check(q, k, v, g, keep, heads, dtype, round_p_first=False):
+    """The kernel pair against the plain versions, launches counted; in
+    bf16 each element also within one ulp plus its terms at a rounding
+    boundary (``_keep_bounds``); the outputs as (ctx, dq, dk, dv)."""
+    n_fwd, n_bwd = AV.attention_keep.launches, AV.attention_keep_bwd.launches
+    got = [AV.attention_keep(q, k, v, keep, heads, round_p_first),
+           *AV.attention_keep_bwd(q, k, v, g, keep, heads, round_p_first)]
+    want = [AV.keep_attention(q, k, v, keep, heads, round_p_first),
+            *AV.keep_attention_bwd(q, k, v, g, keep, heads, round_p_first)]
+    _check(lambda: got, lambda: want, dtype)
+    if dtype == torch.bfloat16:
+        host = [t.cpu() for t in (q, k, v, g, keep)]
+        bounds = keep_flips(*host, heads, round_p_first)
+        for name, a, b, bound in zip(("ctx", "dq", "dk", "dv"), got, want, bounds):
+            check_bf16(a.float().cpu().numpy(), b.float().cpu().numpy(), bound, name)
+    assert (AV.attention_keep.launches, AV.attention_keep_bwd.launches) == (n_fwd + 1,
+                                                                           n_bwd + 1)
+    return got
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sk", [14, 60, 77, 128])
+@pytest.mark.parametrize("sq", [1, 2, 14, 16, 17, 60, 64, 65])
+def test_keep_attention_kernel_ragged(cuda, sq, sk, dtype):
+    """Both kernels at ragged lengths (the short form at most 16 queries
+    and keys, the long one otherwise; rows past Sq and keys past Sk masked)
+    against their plain versions, and each launch repeated bitwise."""
+    rng = np.random.default_rng(sq * 1000 + sk)
+    heads = 3
+    case = _keep_case(rng, 2, sq, sk, heads, 64, dtype)
+    assert A.attention_plan(dtype, sq, sk, 64, has_keep=True).kernel == "mma_keep"
+    assert A.attention_bwd_plan(dtype, sq, sk, 64).kernel == "mma_keep"
+    first = _keep_check(*case, heads, dtype, round_p_first=sq <= 16)
+    again = [AV.attention_keep(*case[:3], case[4], heads, sq <= 16),
+             *AV.attention_keep_bwd(*case, heads, sq <= 16)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("sq,sk", [(14, 14), (1, 14), (60, 77), (17, 128)])
+def test_keep_attention_kernel_head_sizes(cuda, hd, sq, sk, dtype):
+    """Head sizes 32 and 128 (no model path runs them)."""
+    rng = np.random.default_rng(hd + sq + sk)
+    _keep_check(*_keep_case(rng, 3, sq, sk, 2, hd, dtype), 2, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lane0,ld_extra", [(1, 0), (3, 5), (0, 51)])
+def test_keep_attention_kernel_misaligned_keep_rows(cuda, dtype, lane0, ld_extra):
+    """Keep rows off 16 bytes: a base lane0 lanes into a wider buffer and a
+    row stride that is no multiple of 16 bytes, at AVQ's 60 x 77 (head h's
+    keys at lane 77 h) and PatchSelecter's 14 x 14; the kernel reads the
+    keep mask from device memory straight into its fragments, so nothing
+    is copied and the route stays."""
+    rng = np.random.default_rng(lane0 + ld_extra)
+    for sq, sk in ((60, 77), (14, 14)):
+        case = _keep_case(rng, 2, sq, sk, 4, 64, dtype, lane0, ld_extra)
+        keep = case[4]
+        assert keep.data_ptr() % 16 or keep.stride(0) % (16 // keep.element_size())
+        _keep_check(*case, 4, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_keep_attention_kernel_strided_packed_qkv(cuda, dtype):
+    """q, k and v as column slices of a packed [N, S, 3W] projection (the
+    train kernels' self-attention), and the PatchSelecter's two cross
+    streams over one k|v, the second adding its key and value gradients to
+    the first's (accumulate_kv: round(out + round(new)))."""
+    rng = np.random.default_rng(3)
+    heads, hd = 4, 64
+    W = heads * hd
+    for sq in (60, 14):
+        qkv = _rn(rng, 2, sq, 3 * W, dtype=dtype)
+        q, k, v = qkv[..., :W], qkv[..., W:2 * W], qkv[..., 2 * W:]
+        g = _rn(rng, 2, sq, W, dtype=dtype)
+        keep = _keep_case(rng, 2, sq, sq, heads, hd, dtype)[4]
+        _keep_check(q, k, v, g, keep, heads, dtype, round_p_first=sq == 14)
+    P = 14
+    kv = _rn(rng, 5, P, 2 * W, dtype=dtype)
+    k, v = kv[..., :W], kv[..., W:]
+    streams = [_keep_case(rng, 5, 1, P, heads, hd, dtype) for _ in range(2)]
+    dq0, dk, dv = AV.attention_keep_bwd(streams[0][0], k, v, streams[0][3], streams[0][4],
+                                        heads, True)
+    acc = (dk.clone(), dv.clone())
+    dq1, dka, dva = AV.attention_keep_bwd(streams[1][0], k, v, streams[1][3], streams[1][4],
+                                          heads, True, accumulate_kv=acc)
+    want0 = AV.keep_attention_bwd(streams[0][0], k, v, streams[0][3], streams[0][4], heads, True)
+    want1 = AV.keep_attention_bwd(streams[1][0], k, v, streams[1][3], streams[1][4], heads, True)
+    want_k = (want0[1].float() + want1[1].float()).to(dtype)
+    want_v = (want0[2].float() + want1[2].float()).to(dtype)
+    _check(lambda: [dq0, dq1, dka, dva], lambda: [want0[0], want1[0], want_k, want_v], dtype)
+    assert dka is acc[0] and dva is acc[1]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tp", [2, 4])
+def test_keep_attention_kernel_tp_lane_cut(cuda, dtype, tp):
+    """A model rank's share under tensor parallelism: its heads' q, k and v
+    lanes and the keep mask cut to its heads' lanes (``head_lanes``,
+    re-padded to 128), against the plain version on the same share and
+    against the whole call's lanes of those heads."""
+    from qa_tiger_tpu_torch.parallel.tensor import head_lanes
+
+    rng = np.random.default_rng(tp)
+    heads, hd = 8, 64
+    for sq, sk in ((60, 77), (14, 14), (1, 14)):
+        q, k, v, g, keep = _keep_case(rng, 2, sq, sk, heads, hd, dtype)
+        Lp = -(-heads * sk // 128) * 128
+        keep = torch.nn.functional.pad(keep, (0, Lp - heads * sk)).contiguous()
+        whole = [AV.attention_keep(q, k, v, keep, heads),
+                 *AV.attention_keep_bwd(q, k, v, g, keep, heads)]
+        hl, W = heads // tp, heads * hd // tp
+        for r in range(tp):
+            lanes = slice(r * W, (r + 1) * W)
+            share = [t[..., lanes] for t in (q, k, v, g)]
+            got = _keep_check(*share, head_lanes(keep, heads, sk, r, tp), hl, dtype)
+            for a, b in zip(got, whole):
+                assert torch.equal(a, b[..., lanes])
 
 
 # ---------------------------------------------------------------------------
@@ -849,15 +998,18 @@ def test_train_backward_refuses_a_plan_it_does_not_launch(cuda, kind, fault, mon
 def test_train_backward_routes(cuda, kind, dtype, ragged):
     """The routes one backward launch reports: all 14 or 20 products on
     tf32x3 in fp32, on gemm_tile's WMMA loop in bf16, at row counts that
-    are multiples of 4 and at ones that are not."""
+    are multiples of 4 and at ones that are not; its three attention
+    backwards on the keep-masked tensor-core kernel, as the launcher wrote
+    them into its attention rows."""
     mod, acts, masks, cots, kernel, _, (_, bwd) = _train_case(
         kind, dtype, cuda, np.random.default_rng(7), RAGGED_DIMS[kind] if ragged else None)
-    bwd.gemm_routes = {}
+    bwd.gemm_routes, bwd.attn_routes = {}, {}
     outs = kernel(mod, acts, masks)
     torch.autograd.grad(outs, acts + list(mod.parameters()), cots)
     torch.cuda.synchronize()
     count = 20 if kind == "avq" else 14
     assert bwd.gemm_routes == {"tf32x3" if dtype == torch.float32 else "wmma": count}
+    assert bwd.attn_routes == {"mma_keep": 3}
 
 
 @pytest.mark.parametrize("dims", [RECIPE_DIMS, RAGGED_DIMS], ids=["recipe", "ragged"])
@@ -892,19 +1044,21 @@ FORWARD_DIMS = [("patch_select", (b, 60, 14)) for b in (1, 3, 32)] + [
 @pytest.mark.parametrize("kind,dims", FORWARD_DIMS)
 def test_train_forward_routes(cuda, kind, dims, dtype):
     """One train forward: its products (seven for the PatchSelecter, ten
-    for the AVQ block) on tf32x3 in fp32 and on gemm_sm90 (wgmma) in bf16;
-    its outputs against the plain version on the same masks; a second
-    launch bitwise the same."""
+    for the AVQ block) on tf32x3 in fp32 and on gemm_sm90 (wgmma) in bf16,
+    its three attentions on the keep-masked tensor-core kernel (as the
+    launcher wrote them into its attention rows); its outputs against the
+    plain version on the same masks; a second launch bitwise the same."""
     mod, acts, masks, _, kernel, plain, (fwd, _) = _train_case(
         kind, dtype, cuda, np.random.default_rng(10), dims)
-    fwd.gemm_routes = {}
+    fwd.gemm_routes, fwd.attn_routes = {}, {}
     with torch.no_grad():
         got, want = kernel(mod, acts, masks), plain(mod, acts, masks)
-        routes = dict(fwd.gemm_routes)
+        routes, attn = dict(fwd.gemm_routes), dict(fwd.attn_routes)
         again = kernel(mod, acts, masks)
     torch.cuda.synchronize()
     count = 10 if kind == "avq" else 7
     assert routes == {"tf32x3" if dtype == torch.float32 else "wgmma": count}
+    assert attn == {"mma_keep": 3}
     got, want, again = ([t] if torch.is_tensor(t) else list(t) for t in (got, want, again))
     for g, w, a in zip(got, want, again):
         assert torch.equal(g, a)
@@ -936,6 +1090,42 @@ def test_train_forward_refuses_a_plan_it_does_not_launch(cuda, kind, fault, monk
     monkeypatch.setattr(owner, name, faulty)
     with pytest.raises(RuntimeError, match="train_fwd"):
         kernel(mod, acts, masks)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("fault", ["short", "long", "wrong"])
+@pytest.mark.parametrize("kind", ["avq", "patch_select"])
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_train_refuses_attention_rows_it_does_not_launch(cuda, kind, fault, direction,
+                                                         monkeypatch):
+    """A train launch checks each keep-masked attention against its
+    attention rows (``ops.attention.keep_rows``), forward and backward:
+    rows one attention short, one long, or with a wrong Sq are refused and
+    the wrapper raises."""
+    mod, acts, masks, cots, kernel, _, _ = _train_case(
+        kind, torch.float32, cuda, np.random.default_rng(12))
+    owner = AV if kind == "avq" else PS
+    rows = owner.keep_rows
+
+    def faulty(shapes):
+        got = rows(shapes)
+        if fault == "short":
+            return got[:-1]
+        if fault == "long":
+            return torch.cat([got, got[-1:]])
+        got[0, 0] += 1
+        return got
+
+    if direction == "fwd":
+        monkeypatch.setattr(owner, "keep_rows", faulty)
+        with pytest.raises(RuntimeError, match="train_fwd"):
+            kernel(mod, acts, masks)
+            torch.cuda.synchronize()
+        return
+    outs = kernel(mod, acts, masks)
+    monkeypatch.setattr(owner, "keep_rows", faulty)
+    with pytest.raises(RuntimeError, match="train_bwd"):
+        torch.autograd.grad(outs, acts + list(mod.parameters()), cots)
         torch.cuda.synchronize()
 
 

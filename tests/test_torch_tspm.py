@@ -563,10 +563,12 @@ PINNED_PLANS = [
 @pytest.mark.parametrize("dtype,sq,sk,hd,want", PINNED_PLANS)
 def test_plan_head_sizes_up_to_128_pinned(dtype, sq, sk, hd, want):
     """Head sizes up to 128 plan as before the wide tensor-core kernels;
-    with a keep mask every one of them takes an FMA kernel."""
+    with a keep mask those of 32, 64 and 128 lanes over at most 128 keys
+    take the keep-masked tensor-core kernel, every other an FMA kernel."""
     dt = getattr(torch, dtype)
     assert tuple(A.attention_plan(dt, sq, sk, hd)) == want
-    assert A.attention_plan(dt, sq, sk, hd, has_keep=True).route == "fma"
+    keep_route = "mma_keep" if hd in (32, 64, 128) and sk <= 128 else "fma"
+    assert A.attention_plan(dt, sq, sk, hd, has_keep=True).route == keep_route
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
