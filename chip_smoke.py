@@ -55,14 +55,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    alone at the 12 calls of one recipe train step, fp32 and bf16, against
    their plain versions, their plans the library's, each twice bitwise,
    timed beside the plain versions and the bound (``keep_attention_step``
-   sums the step's 12);
+   sums the step's 12); the fp32 evaluation forward's ``attention_wide``
+   calls (AVQ 60 x 77 and 60 x 60 over 2B, TempMoE 1 x 60 and
+   QstGrounding 1 x 2 over B) and ``fused_patch_select`` at its batch,
+   B=32, timed beside SDPA (fp32, TF32 off) and the 3xTF32 bound (the FMA
+   peak's beside it), each twice bitwise, the kernel of each attention and
+   the route of each product read back from the launch ("mma_nokeep": the
+   keep-masked kernel without its keep multiply; tf32x3 x 7), listed under
+   ``eval_fp32_b32`` in both table entries; every unmasked 14-key
+   PatchSelecter attention must take "mma_short" in bf16 and "mma_nokeep"
+   in fp32, and its eval TP stages the tp = 1 kernel's routes;
 4. serving — the Predictor at configs/qa-tiger/vitl14.py with weights from
    a seed: (a) fp32 logits at B=4 against the same state_dict run through
    the plain versions on the CPU; (b) the bf16 B=256 path through
    ``answer``, with every launch counter reset just before and read just
    after (every product of fused_attn_ln2 and fused_patch_select on
-   gemm_sm90, each fused_gaussian_moe call's on wgmma and tf32x3), then
-   qa/s from the median of timed forwards; (c) 8 requests
+   gemm_sm90, each fused_gaussian_moe call's on wgmma and tf32x3; the
+   kernel of every attention as the launches read it back,
+   ``main_path_attn_routes``: none an FMA kernel), then qa/s from the
+   median of timed forwards; (c) 8 requests
    answered, their top-5 answer names printed;
 5. serve — the serving surface (``qa_tiger_tpu_torch.serve``) over
    bench_serve's corpus (8 videos at the real shapes, a merges file learned
@@ -93,7 +104,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    keep-masked attention of the two train kernels, three a launch, on
    "mma_keep": ``train_step_attn_routes``), 10 timed steps, losses, peak
    memory;
-   (c) ``evaluate`` over two batches, with its accuracy report;
+   (c) ``evaluate`` over two batches, with its accuracy report; then
+   ``eval_fp32_b32``: the forward ``evaluate`` runs (``eval_step``, fp32,
+   the tower in bf16) at B=32, the counters reset around one call
+   (fused_patch_select's products tf32x3 x 7 from its plan rows, no
+   attention on an FMA kernel), the median of 10 calls and qa/s, one
+   profiled call with ``--profile`` (``profile_eval``);
    (d) resume: two fp32 B=4 steps with dropout, the train state saved and
    restored into a fresh runner whose weights and dropout stream were
    scrambled, one more step on each: every parameter bitwise equal; then
@@ -521,6 +537,9 @@ def kernel_cases(dtype, B: int, rng, gen):
 
     dev = "cuda"
     isz = torch.tensor([], dtype=dtype).element_size()
+    fp32 = dtype == torch.float32
+    # fp32: every product and attention on 3xTF32 (gemm_tf32x3, mma_nokeep)
+    peak = "tf32x3" if fp32 else "bfloat16"
 
     def rn(*shape, scale=1.0):
         return torch.from_numpy(
@@ -541,11 +560,13 @@ def kernel_cases(dtype, B: int, rng, gen):
                 q.view(b, sq, heads, 64).transpose(1, 2), k.view(b, sk, heads, 64).transpose(1, 2),
                 v.view(b, sk, heads, 64).transpose(1, 2), scale=sc)
 
+        plan = A.attention_plan(dtype, sq, sk, D // heads)
         cases.append(("attention_wide", f"q[{b},{sq},{D}] kv[{b},{sk},{D}] h{heads}",
                       lambda q=q, k=k, v=v: A.attention_wide(q, k, v, None, sc, heads),
                       lambda q=q, k=k, v=v: A._wide_reference(q, k, v, None, sc, heads),
                       sdpa, (2 * b * sq * D + 2 * b * sk * D) * isz, 4 * b * sq * sk * D,
-                      {"attn": (sq, sk, D // heads)}))
+                      {"attn": (sq, sk, D // heads), "peak": peak, "tally": A.attention_wide,
+                       "want_tally": {"attn_routes": {plan.kernel: 1}}}))
 
     # PatchSelecter: patch [B, 60, 14, 512], audio/video [B, 60, 512]
     ps = PatchSelecter(D, gen).to(dev, dtype)
@@ -560,7 +581,11 @@ def kernel_cases(dtype, B: int, rng, gen):
                   lambda: PS.patch_selecter_plain(ps, patch, audio, video, nhead=heads),
                   None, nbytes, flops, {"gemm": GM.patch_select_gemm_shapes(BT, P, D),
                                         "attn": (P, P, D // heads),
-                                        "want_route": short_route(dtype)}))
+                                        "want_route": short_route(dtype), "peak": peak,
+                                        "tally": PS.fused_patch_select,
+                                        "want_tally": {
+                                            "gemm_routes": {"tf32x3" if fp32 else "wgmma": 7},
+                                            "attn_routes": {short_route(dtype): 2}}}))
     return cases + moe_cases(dtype, B, rng)
 
 
@@ -584,16 +609,17 @@ def text_block_case(dtype, B: int, W: int, H: int, rng, gen, want_route: str | N
             lambda: R._attn_ln2_plain(blk, x, heads=H, mask=mask), None,
             (3 * B * S * W + 4 * W * W + 8 * W) * isz + S * S * 4,
             2 * B * S * W * 4 * W + 2 * B * W * S * (S + 1),
-            {"attn": (S, S, W // H), "gemm": GM.attn_gemm_shapes(B * S, W),
+            {"attn": (S, S, W // H), "attn_bias": True, "gemm": GM.attn_gemm_shapes(B * S, W),
              "want_route": want_route})
 
 
-def short_route(dtype) -> str | None:
-    """The attention route a 14-key problem must take: the short
-    tensor-core kernel in bf16; fp32 is not held to one."""
+def short_route(dtype) -> str:
+    """The attention route an unmasked 14-key problem must take: the short
+    tensor-core kernel in bf16, the keep-masked kernel without a keep mask
+    in fp32 (3xTF32)."""
     import torch
 
-    return "mma_short" if dtype == torch.bfloat16 else None
+    return "mma_short" if dtype == torch.bfloat16 else "mma_nokeep"
 
 
 def patch_attention_case(dtype, B: int, rng):
@@ -705,7 +731,7 @@ def op_kernel_cases(dtype, B: int, rng, gen):
                       sdpa, 4 * bh * s * dh * isz + (s * s * 4 if masked else 0),
                       4 * bh * pairs * dh,
                       {"replaces": "qa_tiger_tpu/ops/pallas/attention.py" + site,
-                       "attn": (s, s, dh),
+                       "attn": (s, s, dh), "attn_bias": masked,
                        "want_route": short_route(dtype) if site == ":116" else None}))
 
     W, H = 768, 12
@@ -717,13 +743,14 @@ def op_kernel_cases(dtype, B: int, rng, gen):
                   lambda: R.fused_attn_half(x, blk, mask, H),
                   lambda: R._attn_half_flat(x, *R._attn_params(blk), heads=H, mask=mask), None,
                   (2 * B * S * W + 4 * W * W + 6 * W) * isz + S * S * 4, attn_flops,
-                  {"attn": (S, S, W // H), "gemm": GM.attn_gemm_shapes(B * S, W)}))
+                  {"attn": (S, S, W // H), "attn_bias": True,
+                   "gemm": GM.attn_gemm_shapes(B * S, W)}))
     cases.append(("fused_resblock", f"x[{B},{S},{W}] causal h{H}",
                   lambda: R.fused_resblock(x, blk, mask, H),
                   lambda: R._resblock_flat(x, *R._resblock_params(blk), heads=H, mask=mask),
                   None, (2 * B * S * W + 12 * W * W + 13 * W) * isz + S * S * 4,
                   attn_flops + 16 * B * S * W * W,
-                  {"attn": (S, S, W // H),
+                  {"attn": (S, S, W // H), "attn_bias": True,
                    "gemm": GM.attn_gemm_shapes(B * S, W) + GM.mlp_gemm_shapes(B * S, W)}))
     return cases
 
@@ -743,7 +770,12 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
     products, whose GEMM routine, "wgmma", "wmma" or "fma", the line and the
     table entry name) or ``routes`` (the routines' names themselves), and
     ``peak`` (the peak the bound divides by, where it is not the dtype's;
-    at "tf32x3" the FMA peak's bound stands beside it). Returns the line."""
+    at "tf32x3" the FMA peak's bound stands beside it). ``attn_bias``: the
+    call adds a mask or a key bias, which the plan weighs. ``tally``: a
+    wrapper whose ``gemm_routes`` / ``attn_routes`` are cleared before the
+    checked launch and read after it (the routes its plan rows and the
+    attention library wrote back), held to ``want_tally`` where given; the
+    line's ``gemm_route`` is then the tally's. Returns the line."""
     import torch
 
     from qa_tiger_tpu_torch.ops import attention as A
@@ -752,6 +784,11 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
     name, shape, kernel, plain, library, nbytes, flops, *rest = case
     extra = rest[0] if rest else {}
     dname = str(dtype).replace("torch.", "")
+    tally = extra.get("tally")
+    if tally is not None:
+        for kind in ("gemm_routes", "attn_routes"):
+            if hasattr(tally, kind):
+                setattr(tally, kind, {})
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err, scale = max_err(got, want)
@@ -761,15 +798,22 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
             "max_abs_err": err, "max_abs_plain": scale,
             "tolerance": tol * max(1.0, scale), "ok": ok}
     if "attn" in extra:
-        attn = extra["attn"]
-        line["route"] = A.attention_route(dtype, *attn)
-        plan = A.attention_plan(dtype, *attn, limit=A.smem_limit("cuda"))
+        attn, bias = extra["attn"], extra.get("attn_bias", False)
+        line["route"] = A.attention_route(dtype, *attn, has_bias=bias)
+        plan = A.attention_plan(dtype, *attn, limit=A.smem_limit("cuda"), has_bias=bias)
         line.update(attn_kernel=plan.kernel, smem_bytes=plan.smem_bytes)
-        planned = A.library_plan(dtype, attn[0], attn[1], plan.head, *attn[3:])
+        planned = A.library_plan(dtype, attn[0], attn[1], plan.head, has_bias=bias)
         ok = line["ok"] = (ok and extra.get("want_route") in (None, line["route"])
                            and planned == (plan.kernel, plan.smem_bytes))
-    routes = extra.get("routes") or sorted({GM.gemm_route(dtype, *mnk)
-                                             for mnk in extra.get("gemm", ())})
+    if tally is not None:  # what one launch wrote back: its plan rows, its kernels
+        for kind in ("gemm_routes", "attn_routes"):
+            if hasattr(tally, kind):
+                line[kind] = dict(getattr(tally, kind))
+        ok = line["ok"] = ok and all(line.get(k) == v
+                                     for k, v in extra.get("want_tally", {}).items())
+    routes = extra.get("routes") or (sorted(line["gemm_routes"]) if "gemm_routes" in line
+                                     else sorted({GM.gemm_route(dtype, *mnk)
+                                                  for mnk in extra.get("gemm", ())}))
     if routes:
         line["gemm_route"] = routes[0] if len(routes) == 1 else routes
     peak = extra.get("peak", dname)
@@ -797,7 +841,10 @@ def run_kernel_case(case, dtype, tol: float, timed: bool, entries: dict | None) 
                 + (f", or route {line['route']}, expected {extra['want_route']}"
                    if extra.get("want_route") else "")
                 + (", or the library's attention plan is not the Python one"
-                   if "attn" in extra else ""))
+                   if "attn" in extra else "")
+                + (f", or one launch's routes {[line.get(k) for k in extra['want_tally']]}, "
+                   f"expected {list(extra['want_tally'].values())}"
+                   if extra.get("want_tally") else ""))
     return line
 
 
@@ -808,7 +855,11 @@ def check_kernels(rng, gen) -> dict:
     forward's x[256] and x[512] in bf16, the train step's x[32] and x[64]
     in fp32 and the raw-media forward's x[2] and x[4] in bf16, these two
     pairs from seeds of their own) and their sums per path; each call runs
-    twice and must repeat bitwise."""
+    twice and must repeat bitwise. Then the fp32 evaluation forward's
+    attention_wide and fused_patch_select calls at its batch, B=32, from a
+    seed of their own, timed beside SDPA (fp32, TF32 off) and their bounds
+    (3xTF32, the FMA peak's beside it), each launch's routes read back
+    (``eval_fp32_b32`` under each entry), every launch twice bitwise."""
     import torch
 
     entries, moe = {}, {"serving": [], "train": [], "e2e": []}
@@ -820,6 +871,16 @@ def check_kernels(rng, gen) -> dict:
                 if case[0] == "fused_gaussian_moe" and timed:
                     moe["serving"].append(line)
                     require_repeat(case)
+        keys = ("shape", "dtype", "route", "attn_kernel", "gemm_route", "attn_routes",
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "bound_fma_ms", "tflops")
+        for case in kernel_cases(torch.float32, 32, np.random.default_rng(23),
+                                 torch.Generator().manual_seed(23)):
+            if case[0] in ("attention_wide", "fused_patch_select"):
+                line = run_kernel_case(case, torch.float32, FP32_TOL, True, None)
+                require_repeat(case)
+                entries[case[0]].setdefault("eval_fp32_b32", []).append(
+                    {k: line[k] for k in keys if k in line})
         for path, dtype, B, tol, seed in (("train", torch.float32, 32, FP32_TOL, 8),
                                           ("e2e", torch.bfloat16, 2, BF16_TOL, 9)):
             for case in moe_cases(dtype, B, np.random.default_rng(seed)):
@@ -838,9 +899,7 @@ def check_kernels(rng, gen) -> dict:
 
 def require_repeat(case) -> None:
     """Two launches of a case's kernel give bitwise the same result."""
-    import torch
-
-    require(torch.equal(case[2](), case[2]()), f"{case[0]} {case[1]}: two launches differ")
+    require(_repeat_equal(case[2]), f"{case[0]} {case[1]}: two launches differ")
 
 
 def check_op_kernels(entries: dict) -> None:
@@ -1075,6 +1134,24 @@ def check_tf32x3_gemms() -> list:
     return lines
 
 
+def require_tensor_core_attention(label: str, kernels=("attention_wide", "fused_patch_select")
+                                   ) -> dict:
+    """Prints the kernel each attention launch of a forward took, as the
+    launchers read it back (``attn_routes`` of ``kernels``, cleared by
+    ``ops.reset_launches``), on a line ``label``, and requires that none
+    took an FMA kernel. Returns the tallies."""
+    from qa_tiger_tpu_torch import ops
+    from qa_tiger_tpu_torch.ops import attention as A
+
+    attn = {name: dict(ops.KERNELS[name].attn_routes) for name in kernels}
+    print(json.dumps({"phase": label, **attn}), flush=True)
+    fma = {name: {k: n for k, n in routes.items() if A.KERNEL_ROUTES.get(k, "fma") == "fma"}
+           for name, routes in attn.items()}
+    fma = {name: routes for name, routes in fma.items() if routes}
+    require(not fma, f"{label}: attentions took FMA kernels: {fma}")
+    return attn
+
+
 def require_wgmma(counts_phase: str) -> None:
     """Every product the bf16 calls of fused_attn_ln2 and fused_patch_select
     launched since the counters were reset went through gemm_sm90, and the
@@ -1132,7 +1209,7 @@ def e2e_kernel_cases(dtype, rng, gen):
                       lambda q=q, k=k, v=v, kb=kb: A._wide_reference(q, k, v, None, 0.125, H,
                                                                       kb),
                       sdpa, 4 * BT * n * W * isz + (BT * n * 4 if bias else 0),
-                      4 * BT * n * n * W, {"attn": (n, n, W // H)}))
+                      4 * BT * n * n * W, {"attn": (n, n, W // H), "attn_bias": bias}))
     S_ = 577
     blk = ResidualAttentionBlock(W, 24, gen).to(dev, dtype)
     x = rn(BT, S_, W)
@@ -1695,6 +1772,11 @@ def check_slice(rng, entries: dict, profile_dir: Path | None) -> tuple[dict, flo
         require(counts[name] == n, f"{name}: {counts[name]} launches, expected {n}")
     require_wgmma("main_path_gemm_routes")
     require(counts["attention_wide"] >= 3, "attention_wide: fewer than 3 launches")
+    attn = require_tensor_core_attention("main_path_attn_routes")
+    require(sum(attn["attention_wide"].values()) == counts["attention_wide"]
+            and sum(attn["fused_patch_select"].values()) == 2,
+            f"main path: attention kernels read back {attn} for "
+            f"{counts['attention_wide']} attention_wide launches and one fused_patch_select")
     for name in EVAL_KERNELS:
         entries[name]["launches"] = counts[name]
     require(len(answers) == 256, "answer() returned the wrong number of rows")
@@ -2199,7 +2281,63 @@ def check_train(rng, entries: dict, profile_dir: Path | None) -> dict:
     acc, loss = runner.evaluate(1, loader)
     print(json.dumps({"phase": "evaluate", "accuracy": acc, "loss": loss}), flush=True)
     require(np.isfinite(loss) and 0.0 <= acc <= 100.0, "evaluate returned no valid numbers")
+    time_eval(runner, profile_dir)
     return counts, 32 / median
+
+
+# one fp32 evaluation forward (eval_step, the tower in bf16): its launches
+EVAL_FP32_KERNELS = {"fused_attn_ln2": 12, "attention_wide": 7, "fused_patch_select": 1,
+                     "fused_gaussian_moe": 2}
+
+
+def time_eval(runner, profile_dir: Path | None) -> dict:
+    """Phase 6(c2), line ``eval_fp32_b32``: the forward that ``evaluate``
+    (``test``, every epoch's validation) runs, ``AVQARunner.eval_step`` in
+    the recipe's fp32 with the tower in bf16, at the eval batch B=32 (a
+    seed of its own): after 3 warm-up calls the counters reset around one
+    call (its launches; fused_patch_select's product routes, tf32x3 x 7,
+    and every attention's kernel, none on an FMA kernel, as the launchers
+    wrote them back), then the median wall of 10 calls, each between two
+    synchronizes, and qa/s; with ``profile_dir`` one profiled call
+    (``profile_eval``)."""
+    import torch
+
+    from qa_tiger_tpu_torch import ops
+
+    batch = runner._device_batch(make_train_batch(np.random.default_rng(24), 32))
+    for _ in range(3):
+        runner.eval_step(batch)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    runner.eval_step(batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    ps_routes = dict(ops.fused_patch_select.gemm_routes)
+    attn = require_tensor_core_attention("eval_fp32_b32_attn_routes")
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        runner.eval_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    median = statistics.median(times)
+    line = {"phase": "eval_fp32_b32", "eval_ms_median": median, "eval_ms_all": times,
+            "qa_per_s": 32e3 / median, "launches": {k: n for k, n in counts.items() if n},
+            "fused_patch_select_gemm_routes": ps_routes, "attn_routes": attn}
+    print(json.dumps(line), flush=True)
+    for name, n in EVAL_FP32_KERNELS.items():
+        require(counts[name] == n, f"eval_fp32_b32: {name} launched {counts[name]} times, "
+                                   f"expected {n}")
+    require(ps_routes == {"tf32x3": 7}, f"eval_fp32_b32: fused_patch_select's products took "
+                                        f"{ps_routes}, expected tf32x3 x 7")
+    require(sum(attn["attention_wide"].values()) == 7
+            and sum(attn["fused_patch_select"].values()) == 2,
+            f"eval_fp32_b32: attention kernels read back {attn}")
+    if profile_dir is not None:
+        profile_step(lambda: runner.eval_step(batch), profile_dir / "eval_fp32_b32.txt",
+                     "profile_eval")
+    return line
 
 
 def check_resume(rng) -> dict:
@@ -3152,7 +3290,7 @@ def check_tspm_attention(entries: dict) -> None:
                     lambda q=q, k=k, v=v: A.attention_wide(q, k, v, mask, W ** -0.5, 1,
                                                            key_bias=kb),
                     lambda q=q, k=k, v=v: A._wide_reference(q, k, v, mask, W ** -0.5, 1, kb),
-                    None, 0, 0, {"attn": (sq, sk, W)})
+                    None, 0, 0, {"attn": (sq, sk, W), "attn_bias": True})
             line = run_kernel_case(case, dtype, tol, False, None)
             require(line["attn_kernel"] == want,
                     f"tspm attention, masked: kernel {line['attn_kernel']}, expected {want}")
@@ -4218,7 +4356,8 @@ def tp_attn_ln2(tp: int, dtype, B: int, tol: float, timed: bool, rng, gen) -> di
                 lambda p=params: R._attn_partial_flat(x, *p, heads=heads, mask=mask), None,
                 (M * W + 2 * W + 4 * Wl * W + 3 * Wl) * isz + M * W * 4 + S * S * 4,
                 2 * M * 3 * Wl * W + 2 * B * Wl * S * (S + 1) + 2 * M * W * Wl,
-                {"attn": (S, S, Wl // heads), "gemm": [(M, 3 * Wl, W), (M, W, Wl)]})
+                {"attn": (S, S, Wl // heads), "attn_bias": True,
+                 "gemm": [(M, 3 * Wl, W), (M, W, Wl)]})
         parts.append(_tp_stage(case, dtype, tol, timed and r == 0, lines))
     total = _tp_sum(parts)
 
@@ -4252,6 +4391,8 @@ def tp_patch_select(tp: int, dtype, B: int, tol: float, timed: bool, rng, gen) -
     BT = B * T
     M, Q = BT * P, 2 * BT
     isz = torch.tensor([], dtype=dtype).element_size()
+    # every stage's products, planned as the single-rank kernel's
+    route = "tf32x3" if dtype == torch.float32 else "wgmma"
 
     def rn(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to("cuda", dtype)
@@ -4285,7 +4426,9 @@ def tp_patch_select(tp: int, dtype, B: int, tol: float, timed: bool, rng, gen) -
                   M * D * isz + attn_w + M * D * 4,
                   2 * M * 3 * Wl * D + 4 * BT * P * P * Wl + 2 * M * D * Wl,
                   {"attn": (P, P, Wl // heads), "want_route": short_route(dtype),
-                   "gemm": [(M, 3 * Wl, D), (M, D, Wl)]})
+                   "tally": PS.fused_patch_select_tp_self,
+                   "want_tally": {"gemm_routes": {route: 2},
+                                  "attn_routes": {short_route(dtype): 1}}})
     bias = ps.slf_attn.out_proj.bias
     x1 = post("fused_patch_select_tp_self_post",
               lambda: PS.fused_patch_select_tp_self_post(total, patch, bias),
@@ -4299,7 +4442,9 @@ def tp_patch_select(tp: int, dtype, B: int, tol: float, timed: bool, rng, gen) -
                   (M * D + Q * D) * isz + attn_w + Q * D * 4,
                   2 * M * 2 * Wl * D + 2 * Q * Wl * D + 4 * Q * P * Wl + 2 * Q * D * Wl,
                   {"attn": (2, P, Wl // heads), "want_route": short_route(dtype),
-                   "gemm": [(M, 2 * Wl, D), (Q, Wl, D), (Q, D, Wl)]})
+                   "tally": PS.fused_patch_select_tp_cross,
+                   "want_tally": {"gemm_routes": {route: 3},
+                                  "attn_routes": {short_route(dtype): 1}}})
     bias = ps.crs_attn.out_proj.bias
     crs = post("fused_patch_select_tp_cross_post",
                lambda: PS.fused_patch_select_tp_cross_post(total, bias, dtype),
@@ -4310,7 +4455,8 @@ def tp_patch_select(tp: int, dtype, B: int, tol: float, timed: bool, rng, gen) -
                   lambda s: F.linear(torch.relu(linear(crs, s.mlp[0].weight, s.mlp[0].bias))
                                      .float(), s.mlp[2].weight.float()),
                   (Q * D + 2 * Hl * D + Hl) * isz + Q * D * 4, 4 * Q * Hl * D,
-                  {"gemm": [(Q, Hl, D), (Q, D, Hl)]})
+                  {"tally": PS.fused_patch_select_tp_mlp,
+                   "want_tally": {"gemm_routes": {route: 2}}})
 
     def plain_out():
         out = total + ps.mlp[2].bias.float()

@@ -54,9 +54,16 @@
 //   3, "mma_keep", the keep-masked tensor-core kernel of
 //   csrc/attention_keep.cu (its own entries qt_attention_keep and
 //   qt_attention_keep_bwd run it alone);
-// - every other call (fp32, a keep mask at other head sizes or longer
-//   keys, one query over more than 16 keys at head sizes up to 128, a wide
-//   head past ~1,500 keys in bf16): route 0, "fma", fp32 FMAs out
+// - no keep mask, additive mask or key bias at head sizes 32, 64 and 128
+//   over at most 128 keys: in fp32 every such call (the fp32 evaluation
+//   forward's AVQ, TempMoE and QstGrounding calls, PatchSelecter's two),
+//   in bf16 fewer than 16 queries over more than 16 keys (TempMoE's
+//   1 x 60): route 4, "mma_nokeep", the same kernel with its keep multiply
+//   compiled out (3xTF32 in fp32, a warp per problem for one query);
+// - every other call (fp32 with a mask or key bias, at other head sizes or
+//   past 128 keys; a keep mask at other head sizes or longer keys; bf16
+//   with fewer than 16 queries over more keys under a mask or key bias;
+//   a wide head past ~1,500 keys in bf16): route 0, "fma", fp32 FMAs out
 //   of shared memory: keys up to 128 staged whole where they fit the
 //   block's shared memory (one warp per query row); else, at head sizes up
 //   to 128, 64-key tiles in the same two passes, register-tiled 64 x 64 per
@@ -71,12 +78,12 @@ template <typename T>
 int run(const void* q, long long q_bs, long long q_ss, const void* k, long long k_bs,
         long long k_ss, const void* v, long long v_bs, long long v_ss, void* out,
         long long o_bs, long long o_ss, const void* mask, const void* key_bias, int B, int Sq,
-        int Sk, int heads, int hd, float scale, void* stream) {
+        int Sk, int heads, int hd, float scale, int* kernel, void* stream) {
   return qt::attention<T>(static_cast<const T*>(q), q_bs, q_ss, static_cast<const T*>(k), k_bs,
                           k_ss, static_cast<const T*>(v), v_bs, v_ss, static_cast<T*>(out), o_bs,
                           o_ss, static_cast<const float*>(mask), B, Sq, Sk, heads, hd, scale,
                           static_cast<cudaStream_t>(stream), nullptr, 0, false,
-                          static_cast<const float*>(key_bias));
+                          static_cast<const float*>(key_bias), kernel);
 }
 
 }  // namespace
@@ -86,24 +93,26 @@ extern "C" const char* qt_error_string(int err) {
 }
 
 // the kernel family qt::attention takes for such a call on the current
-// device: 3 the keep-masked tensor-core kernel (mma_keep), 2 a tensor-core
-// kernel with a warp per problem (mma_short, mma_wide_short), 1 one with 64
-// query rows per block (mma, mma_wide), 0 an FMA kernel; dtype 0 is
-// float32, 1 bfloat16
-extern "C" int qt_attention_route(int dtype, int Sq, int Sk, int hd, int has_keep) {
-  return qt::attention_kernel_route(
-      qt::attention_plan(dtype == 1, Sq, Sk, hd, has_keep != 0, qt::smem_optin(), nullptr));
+// device: 4 the keep-masked kernel without a keep mask (mma_nokeep), 3 the
+// keep-masked tensor-core kernel (mma_keep), 2 a tensor-core kernel with a
+// warp per problem (mma_short, mma_wide_short), 1 one with 64 query rows
+// per block (mma, mma_wide), 0 an FMA kernel; dtype 0 is float32, 1
+// bfloat16; has_bias: an additive mask or a key bias
+extern "C" int qt_attention_route(int dtype, int Sq, int Sk, int hd, int has_keep,
+                                  int has_bias) {
+  return qt::attention_kernel_route(qt::attention_plan(
+      dtype == 1, Sq, Sk, hd, has_keep != 0, has_bias != 0, qt::smem_optin(), nullptr));
 }
 
 // the kernel of qt::attention_plan on the current device (-1 none, 0 staged,
 // 1 tiled, 2 wide-head, 3 mma, 4 mma_short, 5 mma_wide, 6 mma_wide_short,
-// 7 mma_keep), its shared memory in *smem; ops/attention.py holds its own
-// plan (attention_plan) against this one
-extern "C" int qt_attention_plan(int dtype, int Sq, int Sk, int hd, int has_keep,
+// 7 mma_keep, 8 mma_nokeep), its shared memory in *smem; ops/attention.py
+// holds its own plan (attention_plan) against this one
+extern "C" int qt_attention_plan(int dtype, int Sq, int Sk, int hd, int has_keep, int has_bias,
                                  long long* smem) {
   size_t bytes = 0;
-  const int kernel =
-      qt::attention_plan(dtype == 1, Sq, Sk, hd, has_keep != 0, qt::smem_optin(), &bytes);
+  const int kernel = qt::attention_plan(dtype == 1, Sq, Sk, hd, has_keep != 0, has_bias != 0,
+                                        qt::smem_optin(), &bytes);
   if (smem) *smem = (long long)bytes;
   return kernel;
 }
@@ -123,14 +132,16 @@ extern "C" int qt_attention_bwd_plan(int dtype, int Sq, int Sk, int hd, int has_
 // the current device's opt-in shared memory per block, in bytes
 extern "C" int qt_smem_optin() { return (int)qt::smem_optin(); }
 
+// kernel (a host int, may be null): the AttentionKernel the call launched
 extern "C" int qt_attention(int dtype, const void* q, long long q_bs, long long q_ss,
                             const void* k, long long k_bs, long long k_ss, const void* v,
                             long long v_bs, long long v_ss, void* out, long long o_bs,
                             long long o_ss, const void* mask, const void* key_bias, int B,
-                            int Sq, int Sk, int heads, int hd, float scale, void* stream) {
+                            int Sq, int Sk, int heads, int hd, float scale, int* kernel,
+                            void* stream) {
   auto fn = dtype == 0 ? &run<float> : &run<__nv_bfloat16>;
   return fn(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, B, Sq,
-            Sk, heads, hd, scale, stream);
+            Sk, heads, hd, scale, kernel, stream);
 }
 
 // out is a contiguous [BH, Sq, dh]; q, k and v need unit stride along dh.
@@ -140,7 +151,7 @@ extern "C" int qt_fused_attention(int dtype, const void* q, long long q_bs, long
                                   int BH, int Sq, int Sk, int dh, float scale, void* stream) {
   auto fn = dtype == 0 ? &run<float> : &run<__nv_bfloat16>;
   return fn(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, (long long)Sq * dh, dh, mask,
-            nullptr, BH, Sq, Sk, 1, dh, scale, stream);
+            nullptr, BH, Sq, Sk, 1, dh, scale, nullptr, stream);
 }
 
 // attention_wide's tensor-parallel stages for one head split by lanes

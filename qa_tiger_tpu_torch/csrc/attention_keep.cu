@@ -16,6 +16,16 @@
 // other keep-masked call stays on the FMA kernels (attention_kernel,
 // attention_bwd_kernel) by the plan; nothing falls back after a launch.
 //
+// The forward without a keep mask (kernel "mma_nokeep", the keep multiply
+// compiled out) is attention_wide's unmasked body on the same tensor cores:
+// qa_tiger_tpu/ops/pallas/attention.py _wide_body (:202, the pallas_call
+// :351), which rounds as _attn_fwd does with keep = 1. qt::attention takes
+// it for every fp32 call at these head sizes and keys without an additive
+// mask or a key bias (the fp32 evaluation forward's AVQ, TempMoE and
+// QstGrounding calls, fused_patch_select's two, and their tensor-parallel
+// stages), and for the bf16 calls of fewer than 16 queries over more keys
+// that no other tensor-core kernel takes (TempMoE's one query over 60).
+//
 // The op, per (batch element, head) problem, as the Pallas bodies round it:
 //   s = (q kᵀ) * scale, scaled after the product; max, exp, sum in fp32;
 //   pd = round_T(p' keep), p' = p (AVQ) or round_T(p) (PatchSelecter:
@@ -40,8 +50,13 @@
 //   registers, converted from C to A fragments in place;
 // - at most 16 queries and keys (PatchSelecter's calls: 15,360 problems of
 //   14 x 14 or 1 x 14) each warp owns a whole problem, four a block
-//   ("short" form); otherwise a block of four warps owns 64 query rows of a
-//   problem forward, the whole problem backward ("long" form, AVQ);
+//   ("short" form); without a keep mask, at most 16 queries over more keys
+//   the forward gives a warp the whole problem too, one warp a block (the
+//   "warp" form: TempMoE's one query over 60 keys, where a 64-row block
+//   would leave three of its four warps idle); otherwise a block of four
+//   warps owns 64
+//   query rows of a problem forward, the whole problem backward ("long"
+//   form, AVQ);
 // - q, k, v (and g) come in by 16-byte cp.async copies into rows padded by
 //   16 bytes, read with ldmatrix (bf16) or as scalar fragments (fp32)
 //   without bank conflicts; the keep mask is read straight from device
@@ -402,10 +417,15 @@ __device__ __forceinline__ void ak_flush(T* base, long long ss, const float (&o)
   __syncwarp();
 }
 
-// The forward. SHORT (Sq, Sk <= AK_ROWS): a warp per problem, unit
-// blockIdx.x * AK_WARPS + warp, its own Q, K and V rows; otherwise a block
-// per (problem, 64-row query tile), K and V shared by its four warps.
-template <typename T, int HD, bool SHORT>
+// The forward, in the form keep_form gives the call. AK_SHORT (Sq, Sk <=
+// AK_ROWS): a warp per problem, AK_WARPS a block, one 16-key step; AK_WARP
+// (no keep mask, Sq <= AK_ROWS < Sk: one query, as TempMoE's, over up to
+// ATT_KEEP_MAX_SK keys): a warp per problem, a block each, its own 16 Q rows
+// and all the problem's K and V rows; AK_LONG: a block per (problem, 64-row
+// query tile), K and V shared by its four warps. KEEP false (kernel
+// "mma_nokeep": no keep mask, attention_wide's unmasked calls) compiles the
+// keep multiply out: pd = round_T(p), as _wide_body rounds p.
+template <typename T, int HD, int FORM, bool KEEP>
 __global__ void __launch_bounds__(AK_THREADS)
 attention_keep_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
                       const T* __restrict__ k, long long k_bs, long long k_ss,
@@ -413,38 +433,43 @@ attention_keep_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
                       T* __restrict__ out, long long o_bs, long long o_ss,
                       const T* __restrict__ keep, long long keep_ld, int problems, int heads,
                       int Sq, int Sk, float scale, bool round_p_first) {
-  constexpr int LD = keep_stage_ld(HD, (int)sizeof(T)), KS = SHORT ? 1 : ATT_KEEP_MAX_SK / 16;
-  constexpr int QR = SHORT ? AK_ROWS : AK_Q;  // the staged query rows
+  constexpr bool WARP = FORM != AK_LONG;  // a warp owns a whole problem
+  constexpr int WPB = FORM == AK_SHORT ? AK_WARPS : 1;  // warps (problems) a block
+  constexpr int LD = keep_stage_ld(HD, (int)sizeof(T));
+  constexpr int KS = FORM == AK_SHORT ? 1 : ATT_KEEP_MAX_SK / 16;
+  constexpr int QR = WARP ? AK_ROWS : AK_Q;  // the staged query rows
   extern __shared__ __align__(16) unsigned char ak_smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const int skp = SHORT ? AK_ROWS : keep_pad16(Sk), nks = skp / 16;
-  T* const Qs = reinterpret_cast<T*>(ak_smem) + (SHORT ? (size_t)warp * 3 * AK_ROWS * LD : 0);
+  const int skp = FORM == AK_SHORT ? AK_ROWS : keep_pad16(Sk), nks = skp / 16;
+  T* const Qs = reinterpret_cast<T*>(ak_smem) + (WARP ? (size_t)warp * (QR + 2 * skp) * LD : 0);
   T* const Ks = Qs + QR * LD;
   T* const Vs = Ks + skp * LD;
-  const int ntiles = SHORT ? 1 : (Sq + AK_Q - 1) / AK_Q;
-  const long long unit = SHORT ? (long long)blockIdx.x * AK_WARPS + warp : blockIdx.x;
-  if (SHORT && unit >= problems) return;  // no block-wide barrier in this form
+  const int ntiles = WARP ? 1 : (Sq + AK_Q - 1) / AK_Q;
+  const long long unit = WARP ? (long long)blockIdx.x * WPB + warp : blockIdx.x;
+  if (WARP && unit >= problems) return;  // no block-wide barrier in these forms
   const long long pr = unit / ntiles, b = pr / heads;
   const int h = (int)(pr % heads), q0 = (int)(unit % ntiles) * AK_Q;
   const long long col = (long long)h * HD;
-  const int tid = SHORT ? lane : threadIdx.x, nthr = SHORT ? 32 : AK_THREADS;
+  const int tid = WARP ? lane : threadIdx.x, nthr = WARP ? 32 : AK_THREADS;
   ak_load<T, HD>(Qs, q + b * q_bs + (long long)q0 * q_ss + col, q_ss, QR, Sq - q0, tid, nthr);
   ak_load<T, HD>(Ks, k + b * k_bs + col, k_ss, skp, Sk, tid, nthr);
   ak_load<T, HD>(Vs, v + b * v_bs + col, v_ss, skp, Sk, tid, nthr);
   cp_async_commit();
   cp_async_wait<0>();
-  if (SHORT)
+  if (WARP)
     __syncwarp();
   else
     __syncthreads();
-  const int wr = SHORT ? 0 : warp * AK_ROWS, r0 = q0 + wr;  // the warp's first row
+  const int wr = WARP ? 0 : warp * AK_ROWS, r0 = q0 + wr;  // the warp's first row
   if (r0 >= Sq) return;  // rows past Sq: this warp only copied
 
-  const T* krow[2];
+  const T* krow[2] = {nullptr, nullptr};
+  if (KEEP) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = r0 + g + 8 * r;
-    krow[r] = qi < Sq ? keep + (b * Sq + qi) * keep_ld + (long long)h * Sk : nullptr;
+    for (int r = 0; r < 2; ++r) {
+      const int qi = r0 + g + 8 * r;
+      krow[r] = qi < Sq ? keep + (b * Sq + qi) * keep_ld + (long long)h * Sk : nullptr;
+    }
   }
   float s[2 * KS][4];
   ak_zero(s);
@@ -455,8 +480,12 @@ attention_keep_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
     if (j >= 2 * nks) continue;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p = round_p_first ? round_t<T>(s[j][e]) : s[j][e];
-      s[j][e] = round_t<T>(p * ak_keep<T>(krow, j, e, t4, Sk));
+      if (KEEP) {
+        const float p = round_p_first ? round_t<T>(s[j][e]) : s[j][e];
+        s[j][e] = round_t<T>(p * ak_keep<T>(krow, j, e, t4, Sk));
+      } else {
+        s[j][e] = round_t<T>(s[j][e]);
+      }
     }
   }
   float o[HD / 8][4];
@@ -597,25 +626,40 @@ template <auto Kernel> cudaError_t ak_set_smem(size_t bytes) {
   return cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <typename T, int HD, int FORM, bool KEEP>
+cudaError_t keep_fwd_form(KeepIn q, KeepIn k, KeepIn v, KeepOut out, const T* keep,
+                          long long keep_ld, int B, int Sq, int Sk, int heads, float scale,
+                          bool round_p_first, cudaStream_t stream) {
+  const size_t smem = attention_keep_smem_bytes((int)sizeof(T), Sq, Sk, HD, KEEP);
+  const long long problems = (long long)B * heads;
+  const long long blocks = FORM == AK_SHORT  ? (problems + AK_WARPS - 1) / AK_WARPS
+                           : FORM == AK_WARP ? problems
+                                             : problems * ((Sq + AK_Q - 1) / AK_Q);
+  if (problems > INT_MAX || blocks > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = ak_set_smem<attention_keep_kernel<T, HD, FORM, KEEP>>(smem);
+  if (err != cudaSuccess) return err;
+  attention_keep_kernel<T, HD, FORM, KEEP>
+      <<<(unsigned)blocks, FORM == AK_WARP ? 32 : AK_THREADS, smem, stream>>>(
+          static_cast<const T*>(q.p), q.bs, q.ss, static_cast<const T*>(k.p), k.bs, k.ss,
+          static_cast<const T*>(v.p), v.bs, v.ss, static_cast<T*>(out.p), out.bs, out.ss, keep,
+          keep_ld, (int)problems, heads, Sq, Sk, scale, round_p_first);
+  return cudaGetLastError();
+}
+
+// keep null: the unmasked form ("mma_nokeep")
 template <typename T, int HD>
 cudaError_t keep_fwd(KeepIn q, KeepIn k, KeepIn v, KeepOut out, const T* keep,
                      long long keep_ld, int B, int Sq, int Sk, int heads, float scale,
                      bool round_p_first, cudaStream_t stream) {
-  const bool shrt = keep_short(Sq, Sk);
-  const size_t smem = attention_keep_smem_bytes((int)sizeof(T), Sq, Sk, HD);
-  const long long problems = (long long)B * heads;
-  const long long blocks = shrt ? (problems + AK_WARPS - 1) / AK_WARPS
-                                : problems * ((Sq + AK_Q - 1) / AK_Q);
-  if (problems > INT_MAX || blocks > INT_MAX) return cudaErrorInvalidValue;
-  auto kernel = shrt ? attention_keep_kernel<T, HD, true> : attention_keep_kernel<T, HD, false>;
-  cudaError_t err = shrt ? ak_set_smem<attention_keep_kernel<T, HD, true>>(smem)
-                         : ak_set_smem<attention_keep_kernel<T, HD, false>>(smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, AK_THREADS, smem, stream>>>(
-      static_cast<const T*>(q.p), q.bs, q.ss, static_cast<const T*>(k.p), k.bs, k.ss,
-      static_cast<const T*>(v.p), v.bs, v.ss, static_cast<T*>(out.p), out.bs, out.ss, keep,
-      keep_ld, (int)problems, heads, Sq, Sk, scale, round_p_first);
-  return cudaGetLastError();
+#define QT_FORM(FORM, KEEP)                                                                \
+  keep_fwd_form<T, HD, FORM, KEEP>(q, k, v, out, keep, keep_ld, B, Sq, Sk, heads, scale, \
+                                   round_p_first, stream)
+  switch (keep_form(Sq, Sk, keep != nullptr)) {
+    case AK_SHORT: return keep ? QT_FORM(AK_SHORT, true) : QT_FORM(AK_SHORT, false);
+    case AK_WARP: return QT_FORM(AK_WARP, false);
+    default: return keep ? QT_FORM(AK_LONG, true) : QT_FORM(AK_LONG, false);
+  }
+#undef QT_FORM
 }
 
 template <typename T, int HD>
@@ -642,13 +686,13 @@ cudaError_t keep_bwd(KeepIn q, KeepIn k, KeepIn v, KeepIn g, KeepOut gq, KeepOut
 }
 
 template <typename T>
-bool ak_args(std::initializer_list<KeepIn> ins, std::initializer_list<KeepOut> outs,
-             const void* keep, int Sk, int hd) {
+bool ak_args(std::initializer_list<KeepIn> ins, std::initializer_list<KeepOut> outs, int Sk,
+             int hd) {
   for (const KeepIn& x : ins)
     if (!ak_operand<T>(x.p, x.bs, x.ss)) return false;
   for (const KeepOut& x : outs)
     if (!ak_operand<T>(x.p, x.bs, x.ss)) return false;
-  return keep && keep_head(hd) && Sk >= 1 && Sk <= ATT_KEEP_MAX_SK;
+  return keep_head(hd) && Sk >= 1 && Sk <= ATT_KEEP_MAX_SK;
 }
 
 }  // namespace
@@ -658,8 +702,8 @@ cudaError_t attention_keep_fwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepOut 
                                int heads, int hd, float scale, bool round_p_first,
                                cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || heads <= 0) return cudaSuccess;
-  const bool ok = bf16 ? ak_args<__nv_bfloat16>({q, k, v}, {out}, keep, Sk, hd)
-                       : ak_args<float>({q, k, v}, {out}, keep, Sk, hd);
+  const bool ok = bf16 ? ak_args<__nv_bfloat16>({q, k, v}, {out}, Sk, hd)
+                       : ak_args<float>({q, k, v}, {out}, Sk, hd);
   if (!ok) return cudaErrorInvalidValue;
 #define QT_KEEP_FWD(T, HD)                                                                       \
   keep_fwd<T, HD>(q, k, v, out, static_cast<const T*>(keep), keep_ld, B, Sq, Sk, heads, scale, \
@@ -684,8 +728,8 @@ cudaError_t attention_keep_bwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepIn g
                                int B, int Sq, int Sk, int heads, int hd, float scale,
                                bool round_p_first, bool accumulate_kv, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || heads <= 0) return cudaSuccess;
-  const bool ok = bf16 ? ak_args<__nv_bfloat16>({q, k, v, g}, {gq, gk, gv}, keep, Sk, hd)
-                       : ak_args<float>({q, k, v, g}, {gq, gk, gv}, keep, Sk, hd);
+  const bool ok = keep && (bf16 ? ak_args<__nv_bfloat16>({q, k, v, g}, {gq, gk, gv}, Sk, hd)
+                               : ak_args<float>({q, k, v, g}, {gq, gk, gv}, Sk, hd));
   if (!ok) return cudaErrorInvalidValue;
 #define QT_KEEP_BWD(T, HD)                                                                    \
   keep_bwd<T, HD>(q, k, v, g, gq, gk, gv, static_cast<const T*>(keep), keep_ld, B, Sq, Sk,    \

@@ -34,8 +34,9 @@ struct KeepOut {
 };
 
 // The keep-masked attention on tensor cores (kernel "mma_keep"), forward and
-// backward, for bf16 (bf16 true) or fp32 operands. Defined in
-// attention_keep.cu, the one source that builds its kernels;
+// backward, for bf16 (bf16 true) or fp32 operands; the forward with keep
+// null is the same kernel without the keep multiply (kernel "mma_nokeep").
+// Defined in attention_keep.cu, the one source that builds its kernels;
 // qt::attention and qt::attention_bwd call them where attention_plan and
 // attention_bwd_plan choose them.
 cudaError_t attention_keep_fwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepOut out,
@@ -375,10 +376,15 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 // in fp32. mask is an optional additive fp32 [Sq, Sk]; key_bias an optional
 // fp32 [B, Sk] (ToMe's proportional attention, log of the token sizes).
 //
-// Eight kernels; attention_plan decides. A call with a keep mask (the train
+// Nine kernels; attention_plan decides. A call with a keep mask (the train
 // kernels' dropout attentions) at head sizes 32, 64 and 128 over at most
 // ATT_KEEP_MAX_SK keys takes the keep-masked tensor-core kernel in bf16 and
-// fp32 (attention_keep.cu; attention_bwd_plan its backward). bf16 calls
+// fp32 (attention_keep.cu; attention_bwd_plan its backward). A call without
+// a keep mask, an additive mask or a key bias at the same head sizes and
+// keys takes that kernel with its keep multiply compiled out ("mma_nokeep")
+// in fp32 (the fp32 evaluation forward's AVQ, TempMoE, QstGrounding and
+// PatchSelecter attentions) and in bf16 where no kernel below takes it
+// (fewer than 16 queries over more than 16 keys: TempMoE's 1 x 60). bf16 calls
 // without a keep mask, at head sizes 32, 64 and 128, take one of two
 // tensor-core kernels:
 // - at most ATT_SHORT_MAX queries and keys (PatchSelecter's 14-key self- and
@@ -396,14 +402,16 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 //   64 query rows per block.
 // A bf16 head between 128 and 512 lanes has no kernel at its own size: the
 // wrapper zero-pads it to 256 or 512.
-// Every other call (fp32 without a keep mask, a keep mask at other head
-// sizes or past ATT_KEEP_MAX_SK keys, one query over more than 16 keys at
-// head sizes up to 128, a wide head past ~1,500 keys in bf16) runs on fp32
-// FMAs, in one of three kernels chosen by the shared
-// memory each needs against the device's opt-in limit per block:
-// - Sk <= ATT_STAGED_MAX_SK where K_h and V_h fit (every such call of the
-//   text tower, AVQ, TempMoE and PatchSelecter; TSPM's TokensAttn in fp32,
-//   one head of 512 over 14 keys): one block per (batch element, head, tile
+// Every other call (fp32 with a mask or a key bias, or at other head sizes
+// or past ATT_KEEP_MAX_SK keys; a keep mask at other head sizes or past
+// ATT_KEEP_MAX_SK keys; bf16 with fewer than 16 queries over more keys with
+// a mask or a key bias or past ATT_KEEP_MAX_SK keys; a wide head past
+// ~1,500 keys in bf16) runs on fp32 FMAs, in one of three kernels chosen by
+// the shared memory each needs against the device's opt-in limit per block:
+// - Sk <= ATT_STAGED_MAX_SK where K_h and V_h fit (the fp32 text tower's
+//   causal calls; TSPM's TokensAttn in fp32, one head of 512 over 14 keys;
+//   the bf16 calls above with a mask or a key bias): one block per (batch
+//   element, head, tile
 //   of ATT_QROWS queries) stages all of K_h and V_h in shared memory as
 //   fp32, one warp per query row.
 // - head sizes 256 and 512 otherwise (TSPM's AV_Attn in fp32, one head of
@@ -955,7 +963,12 @@ constexpr float LOG2E = 1.4426950408889634f;
 // problem when both lengths are at most ATT_SHORT_MAX, else 64 query rows
 // per block when there are at least ATT_MMA_MIN_SQ queries and
 // ATT_MMA_MIN_SK keys or the head is 256 or 512 lanes wide (the wide kernels
-// mask any length). The FMA kernels otherwise (fp32 without a keep mask, a
+// mask any length). Without a keep mask, an additive mask or a key bias, at
+// head sizes 32, 64 and 128 over at most ATT_KEEP_MAX_SK keys, the same
+// kernel with its keep multiply compiled out ("mma_nokeep") in fp32, and in
+// bf16 for fewer than ATT_MMA_MIN_SQ queries over more than ATT_SHORT_MAX
+// keys. The FMA kernels otherwise (fp32 with a mask or a key bias, wider
+// heads or longer keys; bf16 with a mask or key bias at those lengths; a
 // keep mask at other head sizes or past ATT_KEEP_MAX_SK keys).
 // attention_plan has the last word: a call whose tensor-core kernel would
 // pass the shared memory goes to the FMA kernels.
@@ -963,7 +976,8 @@ enum AttentionRoute {
   ATT_ROUTE_FMA = 0,
   ATT_ROUTE_MMA = 1,
   ATT_ROUTE_MMA_SHORT = 2,
-  ATT_ROUTE_MMA_KEEP = 3
+  ATT_ROUTE_MMA_KEEP = 3,
+  ATT_ROUTE_MMA_NOKEEP = 4
 };
 
 inline bool wide_head(int hd) { return hd == 256 || hd == 512; }
@@ -987,11 +1001,26 @@ inline __host__ __device__ bool keep_short(int Sq, int Sk) {
   return Sq <= AK_ROWS && Sk <= AK_ROWS;
 }
 
-// each form's dynamic shared memory per block
-inline size_t attention_keep_smem_bytes(int esize, int Sq, int Sk, int hd) {
+// The forward's three forms: AK_SHORT at most AK_ROWS queries and keys
+// (AK_WARPS warps a block, a problem each); AK_WARP, without a keep mask, at
+// most AK_ROWS queries over more keys (one query over 17-128 keys,
+// TempMoE's 1 x 60: a block of one warp that owns the problem, where a
+// 64-row block would idle three of its four warps; no keep-masked call of
+// a model has that shape, and those keep the long form); AK_LONG otherwise
+// (64 query rows a block)
+enum KeepForm { AK_SHORT = 0, AK_WARP = 1, AK_LONG = 2 };
+inline __host__ __device__ KeepForm keep_form(int Sq, int Sk, bool has_keep) {
+  return keep_short(Sq, Sk) ? AK_SHORT : Sq <= AK_ROWS && !has_keep ? AK_WARP : AK_LONG;
+}
+
+// each forward form's dynamic shared memory per block: Q, K and V rows
+inline size_t attention_keep_smem_bytes(int esize, int Sq, int Sk, int hd, bool has_keep) {
   const size_t ld = keep_stage_ld(hd, esize);
-  if (keep_short(Sq, Sk)) return (size_t)esize * AK_WARPS * 3 * AK_ROWS * ld;
-  return (size_t)esize * (AK_Q + 2 * keep_pad16(Sk)) * ld;
+  switch (keep_form(Sq, Sk, has_keep)) {
+    case AK_SHORT: return (size_t)esize * AK_WARPS * 3 * AK_ROWS * ld;
+    case AK_WARP: return (size_t)esize * (AK_ROWS + 2 * keep_pad16(Sk)) * ld;
+    default: return (size_t)esize * (AK_Q + 2 * keep_pad16(Sk)) * ld;
+  }
 }
 
 // the long backward's K and V rows, which stage its warps' dk and dv tiles
@@ -1007,14 +1036,20 @@ inline size_t attention_keep_bwd_smem_bytes(int esize, int Sq, int Sk, int hd) {
   return (size_t)esize * ((2 * sq + keep_kv_rows(Sk)) * ld + 2 * sq * pld);
 }
 
-inline AttentionRoute attention_route(bool bf16, int Sq, int Sk, int hd, bool has_keep) {
+// has_bias: the call adds an additive mask or a key bias to its scores,
+// which the keep-masked kernel's two forms do not take
+inline AttentionRoute attention_route(bool bf16, int Sq, int Sk, int hd, bool has_keep,
+                                      bool has_bias) {
   const bool head = hd == 32 || hd == 64 || hd == 128 || wide_head(hd);
-  if (has_keep)
-    return keep_head(hd) && Sk >= 1 && Sk <= ATT_KEEP_MAX_SK ? ATT_ROUTE_MMA_KEEP : ATT_ROUTE_FMA;
-  if (!bf16 || !head) return ATT_ROUTE_FMA;
+  const bool keep_shape = keep_head(hd) && Sk >= 1 && Sk <= ATT_KEEP_MAX_SK;
+  if (has_keep) return keep_shape ? ATT_ROUTE_MMA_KEEP : ATT_ROUTE_FMA;
+  const bool nokeep = keep_shape && !has_bias;
+  if (!bf16) return nokeep ? ATT_ROUTE_MMA_NOKEEP : ATT_ROUTE_FMA;
+  if (!head) return ATT_ROUTE_FMA;
   if (Sq <= ATT_SHORT_MAX && Sk <= ATT_SHORT_MAX) return ATT_ROUTE_MMA_SHORT;
-  return wide_head(hd) || (Sq >= ATT_MMA_MIN_SQ && Sk >= ATT_MMA_MIN_SK) ? ATT_ROUTE_MMA
-                                                                          : ATT_ROUTE_FMA;
+  if (wide_head(hd) || (Sq >= ATT_MMA_MIN_SQ && Sk >= ATT_MMA_MIN_SK)) return ATT_ROUTE_MMA;
+  // one query (fewer than ATT_MMA_MIN_SQ) over more than ATT_SHORT_MAX keys
+  return nokeep && Sq < ATT_MMA_MIN_SQ ? ATT_ROUTE_MMA_NOKEEP : ATT_ROUTE_FMA;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -2127,7 +2162,11 @@ inline cudaError_t attention_wide_short(const __nv_bfloat16* q, long long q_bs, 
 // Which kernel qt::attention launches, with the shared memory it asks for.
 // The tensor-core routes come first (attention_route): a keep-masked call
 // at head size 32, 64 or 128 over at most ATT_KEEP_MAX_SK keys takes the
-// keep-masked kernel (bf16 and fp32) where its shared memory fits; a wide
+// keep-masked kernel (bf16 and fp32) where its shared memory fits, and so,
+// with the keep multiply compiled out ("mma_nokeep"), does a call without a
+// keep mask, an additive mask or a key bias at those head sizes and keys
+// in fp32, and in bf16 where it has fewer than 16 queries over more than
+// 16 keys (the bf16 calls no other tensor-core kernel takes); a wide
 // head whose probabilities pass the limit in the mma kernel (far past 577
 // keys) falls to the FMA kernels, and a bf16 head between 128 and 512 lanes
 // that no tensor-core kernel is built for has none (the wrapper pads it).
@@ -2149,18 +2188,19 @@ enum AttentionKernel {
   ATT_KERNEL_MMA_WIDE = 5,
   ATT_KERNEL_WIDE_SHORT = 6,
   ATT_KERNEL_MMA_KEEP = 7,
+  ATT_KERNEL_MMA_NOKEEP = 8,
 };
 
 inline AttentionKernel attention_plan(bool bf16, int Sq, int Sk, int hd, bool has_keep,
-                                      size_t limit, size_t* smem) {
-  AttentionRoute route = attention_route(bf16, Sq, Sk, hd, has_keep);
+                                      bool has_bias, size_t limit, size_t* smem) {
+  AttentionRoute route = attention_route(bf16, Sq, Sk, hd, has_keep, has_bias);
   size_t bytes = 0;
   AttentionKernel kernel = ATT_KERNEL_NONE;
-  if (route == ATT_ROUTE_MMA_KEEP) {
-    bytes = attention_keep_smem_bytes(bf16 ? 2 : 4, Sq, Sk, hd);
+  if (route == ATT_ROUTE_MMA_KEEP || route == ATT_ROUTE_MMA_NOKEEP) {
+    bytes = attention_keep_smem_bytes(bf16 ? 2 : 4, Sq, Sk, hd, has_keep);
     if (bytes <= limit) {
       if (smem) *smem = bytes;
-      return ATT_KERNEL_MMA_KEEP;
+      return route == ATT_ROUTE_MMA_KEEP ? ATT_KERNEL_MMA_KEEP : ATT_KERNEL_MMA_NOKEEP;
     }
     route = ATT_ROUTE_FMA;
     bytes = 0;
@@ -2211,6 +2251,7 @@ inline AttentionRoute attention_kernel_route(AttentionKernel kernel) {
     case ATT_KERNEL_SHORT:
     case ATT_KERNEL_WIDE_SHORT: return ATT_ROUTE_MMA_SHORT;
     case ATT_KERNEL_MMA_KEEP: return ATT_ROUTE_MMA_KEEP;
+    case ATT_KERNEL_MMA_NOKEEP: return ATT_ROUTE_MMA_NOKEEP;
     default: return ATT_ROUTE_FMA;
   }
 }
@@ -2236,11 +2277,12 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
                              const float* key_bias = nullptr, int* kernel_out = nullptr) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   size_t smem = 0;
-  const AttentionKernel kernel =
-      attention_plan(kBf16, Sq, Sk, hd, keep != nullptr, smem_optin(), &smem);
-  if (kernel_out) *kernel_out = kernel;  // the train kernels' plans (GemmPlan::attention)
-  if (kernel == ATT_KERNEL_MMA_KEEP) {
-    if (mask || key_bias) return cudaErrorInvalidValue;  // no caller adds them to a keep mask
+  const AttentionKernel kernel = attention_plan(kBf16, Sq, Sk, hd, keep != nullptr,
+                                                mask || key_bias, smem_optin(), &smem);
+  if (kernel_out) *kernel_out = kernel;  // the plans' attention rows (GemmPlan::attention)
+  if (kernel == ATT_KERNEL_MMA_KEEP || kernel == ATT_KERNEL_MMA_NOKEEP) {
+    // the plan sends no mask or key bias here; no caller adds them to a keep mask
+    if (mask || key_bias) return cudaErrorInvalidValue;
     return attention_keep_fwd(kBf16, {q, q_bs, q_ss}, {k, k_bs, k_ss}, {v, v_bs, v_ss},
                               {out, o_bs, o_ss}, keep, keep_ld, B, Sq, Sk, heads, hd, scale,
                               round_p_first, stream);

@@ -8,7 +8,9 @@
 // backward: _kernel_train / _kernel_bwd of qa_tiger_tpu/ops/pallas/
 // patch_select.py (pallas_call :827, :880) and _kernel_fwd / _kernel_bwd of
 // qa_tiger_tpu/ops/pallas/avq.py (pallas_call :532, :558), which run on
-// patch_select_train.cu and avq.cu forward<float> and backward<float>.
+// patch_select_train.cu and avq.cu forward<float> and backward<float>, and
+// of the eval PatchSelecter's _kernel (patch_select.py pallas_call :738,
+// patch_select.cu run<float> and its tensor-parallel stages).
 //
 // Bound on the H100: operations. At B=32 the PatchSelecter backward's 14
 // products are ~181 GFLOP against ~0.5 GB of operands and the AVQ
@@ -51,8 +53,9 @@
 // 4 floats (the 16-byte chunks); M, N and K may be ragged (chunks past an
 // edge are zero-filled). A call that breaks that, or whose split-K plan needs
 // more workspace than it was given, returns cudaErrorInvalidValue; nothing
-// falls back to gemm_tile. Every fp32 product of the two train kernels
-// takes this routine: their leading dimensions are D, 2D, 3D and D/2.
+// falls back to gemm_tile. Every fp32 product of the two train kernels and
+// of the eval PatchSelecter takes this routine: their leading dimensions
+// are D, 2D, 3D and D/2, and their shares under tensor parallelism.
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -298,11 +301,12 @@ template <> struct PlainF32A<ColLoad<float>> { static constexpr bool ok = true, 
 template <> struct PlainF32A<RoundRowLoad<float>> { static constexpr bool ok = true, col = false; };
 template <> struct PlainF32A<RoundColLoad<float>> { static constexpr bool ok = true, col = true; };
 
-// The products of one train kernel launch as its wrapper planned them
-// (ops/gemm.py gemm_plan): row i of `rows` is (M, N, K, chunk, route) of the
-// i-th product launched, and the kernel writes route (a GemmRoute) as it
-// launches it; ws holds the split-K partials (ws_floats floats). Row i of
-// `attn` is (Sq, Sk, kernel) of the i-th keep-masked attention launched
+// The products of one planned launch (a train kernel, the eval
+// PatchSelecter, or a tensor-parallel stage of either) as its wrapper
+// planned them (ops/gemm.py gemm_plan): row i of `rows` is (M, N, K, chunk,
+// route) of the i-th product launched, and the kernel writes route (a
+// GemmRoute) as it launches it; ws holds the split-K partials (ws_floats
+// floats). Row i of `attn` is (Sq, Sk, kernel) of the i-th attention launched
 // (ops/attention.py keep_rows), and qt::attention / qt::attention_bwd write
 // kernel (an AttentionKernel) as they launch it.
 struct GemmPlan {
@@ -333,7 +337,7 @@ struct GemmPlan {
   }
 };
 
-// One product of a train kernel, C = A B through epi: fp32 on gemm_tf32x3,
+// One product of a planned launch, C = A B through epi: fp32 on gemm_tf32x3,
 // in the plan's chunks; bf16 with a plain row-major A and an [N, K] B (the
 // forwards' projections) on gemm_rows (gemm_sm90 where gemm_route gives
 // wgmma), any other bf16 product (the backwards') on gemm_tile's WMMA loop.

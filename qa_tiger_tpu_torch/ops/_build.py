@@ -30,15 +30,15 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # launch's cudaError_t as an int
 SIGNATURES = {
     "qt_attention": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
-                     _P, _I, _I, _I, _I, _I, _F, _P],
+                     _P, _I, _I, _I, _I, _I, _F, _P, _P],
     "qt_fused_attention": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
                            _I, _I, _I, _I, _F, _P],
     # not a launcher: the kernel family qt::attention takes (0 fma, 1 mma,
-    # 2 mma_short, 3 mma_keep)
-    "qt_attention_route": [_I, _I, _I, _I, _I],
+    # 2 mma_short, 3 mma_keep, 4 mma_nokeep)
+    "qt_attention_route": [_I, _I, _I, _I, _I, _I],
     # not a launcher: the kernel and shared memory of qt::attention_plan
     # (ops/attention.py KERNEL_NAMES), and the device's opt-in limit per block
-    "qt_attention_plan": [_I, _I, _I, _I, _I, _P],
+    "qt_attention_plan": [_I, _I, _I, _I, _I, _I, _P],
     "qt_smem_optin": [],
     # not a launcher: the kernel and shared memory of qt::attention_bwd_plan
     "qt_attention_bwd_plan": [_I, _I, _I, _I, _I, _P],
@@ -59,13 +59,16 @@ SIGNATURES = {
                     _P, _P, _I, _I, _I, _I, _P],
     "qt_attn_half": [_I] + [_P] * 12 + [_I] * 4 + [_P],
     "qt_mlp_half": [_I] + [_P] * 10 + [_I] * 3 + [_P],
-    "qt_patch_select": [_I] + [_P] * 30 + [_I] * 4 + [_P],
+    # the eval PatchSelecter and its stages: then the GEMM plan and its rows,
+    # the attention rows and their count (none in tp_mlp), the split-K
+    # workspace and its floats (ops/patch_select.py _planned)
+    "qt_patch_select": [_I] + [_P] * 30 + [_I] * 4 + [_P, _I, _P, _I, _P, _L, _P],
     # the tensor-parallel stages (parallel/tensor.py): partials and epilogues
     "qt_attn_ln2_partial": [_I] + [_P] * 11 + [_I] * 5 + [_P],
     "qt_reduce_epilogue": [_I, _I] + [_P] * 7 + [_I, _I, _P],
-    "qt_patch_select_tp_self": [_I] + [_P] * 7 + [_I] * 5 + [_P],
-    "qt_patch_select_tp_cross": [_I] + [_P] * 10 + [_I] * 5 + [_P],
-    "qt_patch_select_tp_mlp": [_I] + [_P] * 6 + [_I] * 3 + [_P],
+    "qt_patch_select_tp_self": [_I] + [_P] * 7 + [_I] * 5 + [_P, _I, _P, _I, _P, _L, _P],
+    "qt_patch_select_tp_cross": [_I] + [_P] * 10 + [_I] * 5 + [_P, _I, _P, _I, _P, _L, _P],
+    "qt_patch_select_tp_mlp": [_I] + [_P] * 6 + [_I] * 3 + [_P, _I, _P, _I, _P, _L, _P],
     "qt_patch_select_tp_out": [_I] + [_P] * 8 + [_I] * 2 + [_P],
     # attention_wide's two stages for a head split by lanes
     "qt_attention_tp_scores": [_I, _P, _L, _L, _P, _L, _L, _P, _I, _I, _I, _I, _P],

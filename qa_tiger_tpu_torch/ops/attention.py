@@ -14,7 +14,12 @@ with a keep mask (the train kernels' dropout attentions, which reach the
 kernels from ``csrc/avq.cu`` and ``csrc/patch_select_train.cu``) at head
 sizes 32, 64 and 128 over at most 128 keys takes the keep-masked
 tensor-core kernel in bf16 and fp32 ("mma_keep", ``csrc/attention_keep.cu``;
-``attention_bwd_plan`` plans its backward). Every other call takes an fp32
+``attention_bwd_plan`` plans its backward). A call without a keep mask, an
+additive mask or a key bias at those head sizes and keys takes the same
+kernel with its keep multiply compiled out ("mma_nokeep"): in fp32 every
+such call (3xTF32; the fp32 evaluation forward's attentions), in bf16 those
+of fewer than 16 queries over more than 16 keys (TempMoE's 1 x 60), which
+no other tensor-core kernel takes. Every other call takes an fp32
 FMA kernel: whole keys staged in shared memory up to 128
 keys where they fit the block's opt-in shared memory, else key tiles in two
 passes (64-key tiles at head sizes up to 128, the wide-head kernel's 16 or
@@ -24,8 +29,10 @@ much shared memory, by the rule ``qt::attention_plan`` applies on the card
 (``csrc/common.cuh``); ``attention_route`` asks the library for the route.
 A call no kernel takes at its own head size is zero-padded to the next
 size one takes; one that no size fits raises, naming its shape. A bf16
-operand the tensor-core kernel cannot read with 16-byte copies is copied to
-a contiguous tensor first; neither changes the route. On CUDA
+operand the tensor-core kernel cannot read with 16-byte copies (an fp32 one
+on "mma_nokeep") is copied to a contiguous tensor first; neither changes
+the route. ``attention_wide.attn_routes`` tallies the kernel each launch
+took, as the library reports it. On CUDA
 the gradient is that of the plain version, recomputed (``ops/_grad.py``),
 the JAX ``custom_vjp`` rules: q, k, v, ``key_bias`` and a mask that
 requires grad get real cotangents.
@@ -47,13 +54,14 @@ KERNEL_HEAD_SIZES = (32, 64, 128, 256, 512)
 TC_HEAD_SIZES = (32, 64, 128, 256, 512)
 WIDE_HEAD_SIZES = (256, 512)
 # qt_attention_route's codes (csrc/common.cuh, AttentionRoute)
-ROUTES = ("fma", "mma", "mma_short", "mma_keep")
+ROUTES = ("fma", "mma", "mma_short", "mma_keep", "mma_nokeep")
 # qt_attention_plan's codes (csrc/common.cuh, AttentionKernel), from 0
 KERNEL_NAMES = ("staged", "tiled", "wide", "mma", "mma_short", "mma_wide", "mma_wide_short",
-                "mma_keep")
+                "mma_keep", "mma_nokeep")
 # each tensor-core kernel's route; every other kernel's is "fma"
 KERNEL_ROUTES = {"mma": "mma", "mma_wide": "mma", "mma_short": "mma_short",
-                 "mma_wide_short": "mma_short", "mma_keep": "mma_keep"}
+                 "mma_wide_short": "mma_short", "mma_keep": "mma_keep",
+                 "mma_nokeep": "mma_nokeep"}
 # a keep mask (the train kernels' dropout attentions), bf16 and fp32: the
 # head sizes and the longest keys of the keep-masked tensor-core kernels
 # (csrc/attention_keep.cu; ATT_KEEP_MAX_SK)
@@ -73,7 +81,7 @@ TP_SHORT_MAX = 16
 
 
 class AttentionPlan(NamedTuple):
-    route: str       # "fma", "mma" or "mma_short"
+    route: str       # one of ROUTES
     kernel: str      # one of KERNEL_NAMES
     head: int        # the head size the kernel runs at (zero-padded past hd)
     smem_bytes: int  # the kernel's dynamic shared memory per block
@@ -105,20 +113,26 @@ def _pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _keep_smem_bytes(bf16: bool, sq: int, sk: int, hd: int, backward: bool) -> int:
+def _keep_smem_bytes(bf16: bool, sq: int, sk: int, hd: int, backward: bool,
+                     has_keep: bool = True) -> int:
     """The keep-masked kernels' dynamic shared memory per block
     (``attention_keep_smem_bytes`` / ``attention_keep_bwd_smem_bytes`` in
     csrc/common.cuh): rows of hd lanes plus 16 bytes; at most 16 queries and
     keys four warps a block, a problem each (q, k, v; backward also g, dS
-    and pd), else the forward's 64 query rows with the problem's k and v,
-    the backward's whole problem (its k and v at least 64 rows together:
+    and pd); forward without a keep mask, at most 16 queries over more keys
+    one warp a block, its 16 query rows and the problem's k and v
+    (``keep_form`` AK_WARP), else 64 query rows with the problem's k and v;
+    backward, the whole problem (its k and v at least 64 rows together:
     they stage the warps' dk and dv tiles)."""
     es = 2 if bf16 else 4
     ld = hd + 16 // es
     pld = _pad16(sk) + (8 if bf16 else 4)  # dS / pd rows
     short = sq <= _AS_ROWS and sk <= _AS_ROWS
     if not backward:
-        return es * (_AS_WARPS * 3 * _AS_ROWS * ld if short else (_AM_Q + 2 * _pad16(sk)) * ld)
+        if short:
+            return es * _AS_WARPS * 3 * _AS_ROWS * ld
+        rows = _AS_ROWS if sq <= _AS_ROWS and not has_keep else _AM_Q
+        return es * (rows + 2 * _pad16(sk)) * ld
     if short:
         return es * _AS_WARPS * _AS_ROWS * (4 * ld + 2 * pld)
     kv_rows = max(2 * _pad16(sk), _AM_Q)  # k and v, later the warps' dk / dv tiles
@@ -126,23 +140,27 @@ def _keep_smem_bytes(bf16: bool, sq: int, sk: int, hd: int, backward: bool) -> i
 
 
 def _keep_kernel(bf16: bool, sq: int, sk: int, hd: int, backward: bool,
-                 limit: int) -> int | None:
+                 limit: int, has_keep: bool = True) -> int | None:
     """The keep-masked tensor-core kernel's shared memory where it takes a
-    keep-masked call (a head size of KEEP_HEAD_SIZES, at most KEEP_MAX_SK
-    keys, within ``limit``), else None."""
+    call (a head size of KEEP_HEAD_SIZES, at most KEEP_MAX_SK keys, within
+    ``limit``), else None."""
     if hd not in KEEP_HEAD_SIZES or not 1 <= sk <= KEEP_MAX_SK:
         return None
-    nbytes = _keep_smem_bytes(bf16, sq, sk, hd, backward)
+    nbytes = _keep_smem_bytes(bf16, sq, sk, hd, backward, has_keep)
     return nbytes if nbytes <= limit else None
 
 
-def _kernel_at(bf16: bool, sq: int, sk: int, hd: int, has_keep: bool,
+def _kernel_at(bf16: bool, sq: int, sk: int, hd: int, has_keep: bool, has_bias: bool,
                limit: int) -> tuple[str | None, int]:
     """``qt::attention_plan`` at one head size: (kernel or None, bytes)."""
     wide = hd in WIDE_HEAD_SIZES
-    keep_bytes = _keep_kernel(bf16, sq, sk, hd, False, limit) if has_keep else None
+    # without a keep mask: every fp32 call, and bf16 with fewer than 16
+    # queries over more than 16 keys, where neither mma kernel takes it
+    nokeep = not has_keep and not has_bias and (not bf16 or (sq < 16 and sk > 16))
+    keep_bytes = (_keep_kernel(bf16, sq, sk, hd, False, limit, has_keep)
+                  if has_keep or nokeep else None)
     if keep_bytes is not None:
-        return "mma_keep", keep_bytes
+        return ("mma_keep" if has_keep else "mma_nokeep"), keep_bytes
     if bf16 and not has_keep and hd in TC_HEAD_SIZES:
         short = sq <= 16 and sk <= 16
         if wide:
@@ -183,13 +201,16 @@ def smem_limit(device: torch.device | None = None) -> int:
 
 
 def attention_plan(dtype: torch.dtype, sq: int, sk: int, hd: int, has_keep: bool = False,
-                   limit: int = H100_SMEM_OPTIN) -> AttentionPlan:
+                   limit: int = H100_SMEM_OPTIN, has_bias: bool = False) -> AttentionPlan:
     """The kernel the card's ``qt::attention`` takes for a call of this dtype
-    and shape, in pure Python: with a keep mask the keep-masked tensor-core
-    kernel ("mma_keep", bf16 and fp32) at head sizes 32/64/128 over at most
-    128 keys; the tensor-core routes for bf16 without a keep mask at head
-    sizes 32/64/128 and 256/512 (there while the probabilities fit
-    ``limit``); else the staged FMA kernel where its shared memory fits
+    and shape, in pure Python (``has_bias``: the call adds an additive mask
+    or a key bias): with a keep mask the keep-masked tensor-core kernel
+    ("mma_keep", bf16 and fp32) at head sizes 32/64/128 over at most 128
+    keys; without a keep mask or bias there the same kernel without its keep
+    multiply ("mma_nokeep") in fp32, and in bf16 for fewer than 16 queries
+    over more than 16 keys; the tensor-core routes for bf16 without a keep
+    mask at head sizes 32/64/128 and 256/512 (there while the probabilities
+    fit ``limit``); else the staged FMA kernel where its shared memory fits
     ``limit``, else the tiled (head sizes 32/64/128) or wide-head (256/512)
     kernel. A call no kernel takes at head size ``hd``
     runs zero-padded at the next size one takes (zero lanes add nothing to
@@ -197,7 +218,7 @@ def attention_plan(dtype: torch.dtype, sq: int, sk: int, hd: int, has_keep: bool
     ``ValueError`` naming the shape when no size fits."""
     bf16 = dtype == torch.bfloat16
     for head in (hd, *(s for s in KERNEL_HEAD_SIZES if s > hd)):
-        kernel, nbytes = _kernel_at(bf16, sq, sk, head, has_keep, limit)
+        kernel, nbytes = _kernel_at(bf16, sq, sk, head, has_keep, has_bias, limit)
         if kernel is not None:
             return AttentionPlan(KERNEL_ROUTES.get(kernel, "fma"), kernel, head, nbytes)
     raise ValueError(
@@ -228,12 +249,12 @@ def attention_bwd_plan(dtype: torch.dtype, sq: int, sk: int, hd: int, has_keep: 
 
 
 def keep_rows(shapes) -> torch.Tensor:
-    """The attention rows of one train kernel launch (or one of its
-    tensor-parallel stages): one int32 row (Sq, Sk, kernel) per keep-masked
-    attention (sq, sk) of ``shapes`` in launch order, kernel -1 until the
-    launcher writes the ``KERNEL_NAMES`` code of the kernel it launched
-    (``GemmPlan::attention``, ``csrc/gemm_tf32x3.cuh``). The launcher
-    refuses a launch whose attentions differ from the rows."""
+    """The attention rows of one planned launch (a train kernel, the eval
+    PatchSelecter, or one of their tensor-parallel stages): one int32 row
+    (Sq, Sk, kernel) per attention (sq, sk) of ``shapes`` in launch order,
+    kernel -1 until the launcher writes the ``KERNEL_NAMES`` code of the
+    kernel it launched (``GemmPlan::attention``, ``csrc/gemm_tf32x3.cuh``).
+    The launcher refuses a launch whose attentions differ from the rows."""
     return torch.tensor([(sq, sk, -1) for sq, sk in shapes], dtype=torch.int32).reshape(-1, 3)
 
 
@@ -259,7 +280,7 @@ def library_bwd_plan(dtype: torch.dtype, sq: int, sk: int, hd: int,
 
 
 def library_plan(dtype: torch.dtype, sq: int, sk: int, hd: int,
-                 has_keep: bool = False) -> tuple[str | None, int]:
+                 has_keep: bool = False, has_bias: bool = False) -> tuple[str | None, int]:
     """(kernel, shared memory bytes) that the library's
     ``qt_attention_plan`` gives at head size ``hd`` on the current card: the
     card's answer that ``attention_plan`` is held to. Builds the library."""
@@ -267,22 +288,23 @@ def library_plan(dtype: torch.dtype, sq: int, sk: int, hd: int,
 
     nbytes = ctypes.c_longlong(0)
     code = _build.library().qt_attention_plan(_build.dtype_code(dtype), sq, sk, hd,
-                                              int(has_keep), ctypes.byref(nbytes))
+                                              int(has_keep), int(has_bias), ctypes.byref(nbytes))
     return (KERNEL_NAMES[code] if code >= 0 else None), nbytes.value
 
 
 def attention_route(dtype: torch.dtype, sq: int, sk: int, hd: int,
-                    has_keep: bool = False) -> str:
+                    has_keep: bool = False, has_bias: bool = False) -> str:
     """The kernel family the card's dispatch (``qt::attention``) takes for a
     call of this dtype and shape: "mma_short" (tensor cores, a warp per
     problem of at most 16 queries and keys: kernels mma_short and
     mma_wide_short), "mma" (tensor cores, 64 query rows per block: mma and
-    mma_wide), "mma_keep" (a keep mask on tensor cores) or "fma", at the
-    head size the wrapper launches (``attention_plan``).
-    Asks the kernel library, so it builds it on first use."""
-    head = attention_plan(dtype, sq, sk, hd, has_keep).head
+    mma_wide), "mma_keep" (a keep mask on tensor cores), "mma_nokeep" (the
+    keep-masked kernel without a keep mask) or "fma", at the head size the
+    wrapper launches (``attention_plan``; ``has_bias``: an additive mask or
+    a key bias). Asks the kernel library, so it builds it on first use."""
+    head = attention_plan(dtype, sq, sk, hd, has_keep, has_bias=has_bias).head
     code = _build.library().qt_attention_route(_build.dtype_code(dtype), sq, sk, head,
-                                               int(has_keep))
+                                               int(has_keep), int(has_bias))
     return ROUTES[code]
 
 
@@ -335,18 +357,21 @@ def _kernel_head(hd: int, sk: int, dtype: torch.dtype = torch.float32, sq: int =
     return attention_plan(dtype, sq, sk, hd, limit=limit).head
 
 
-def _kernel_operand(t: torch.Tensor, heads: int, hd: int, hdp: int) -> torch.Tensor:
-    """``t`` [B, S, heads * hd] as the kernel reads it: each head zero-padded
-    to ``hdp`` lanes where ``hdp > hd``; in bf16, a contiguous copy where the
-    tensor-core kernel's 16-byte ``cp.async`` could not read it (a base off
-    16 bytes, a batch or row stride not a multiple of 8 elements). Neither
-    changes the route, which depends on dtype and shape alone."""
+def _kernel_operand(t: torch.Tensor, heads: int, hd: int, hdp: int,
+                    kernel: str | None = None) -> torch.Tensor:
+    """``t`` [B, S, heads * hd] as the planned kernel reads it: each head
+    zero-padded to ``hdp`` lanes where ``hdp > hd``; a contiguous copy where
+    a tensor-core kernel's 16-byte ``cp.async`` could not read it (a base
+    off 16 bytes, a batch or row stride not a whole 16 bytes: any bf16
+    operand, and an fp32 one of ``kernel`` "mma_nokeep"). Neither changes
+    the route, which depends on dtype and shape alone."""
     if hdp != hd:
         B, S, _ = t.shape
         return torch.nn.functional.pad(t.reshape(B, S, heads, hd),
                                        (0, hdp - hd)).reshape(B, S, heads * hdp)
-    if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or t.stride(0) % 8
-                                      or t.stride(1) % 8):
+    per = 16 // t.element_size()
+    if ((t.dtype == torch.bfloat16 or kernel == "mma_nokeep")
+            and (t.data_ptr() % 16 or t.stride(0) % per or t.stride(1) % per)):
         return t.clone(memory_format=torch.contiguous_format)
     return t
 
@@ -401,12 +426,23 @@ def _wide_reference_kb(q, k, v, key_bias, *, mask, scale, heads):
     return _wide_reference(q, k, v, mask, scale, heads, key_bias)
 
 
+def _plan_of(q, k, mask, key_bias, heads: int) -> AttentionPlan:
+    """``attention_plan`` of a call on the card, at the card's limit."""
+    return attention_plan(q.dtype, q.shape[1], k.shape[1], q.shape[2] // heads,
+                          limit=smem_limit(q.device),
+                          has_bias=mask is not None or key_bias is not None)
+
+
 def _launch(q, k, v, key_bias=None, *, mask, scale, heads):
+    import ctypes
+
     B, Sq, W = q.shape
     hd = W // heads
-    hdp = _kernel_head(hd, k.shape[1], q.dtype, Sq, smem_limit(q.device))
-    q, k, v = (_kernel_operand(t, heads, hd, hdp) for t in (q, k, v))
+    plan = _plan_of(q, k, mask, key_bias, heads)
+    hdp = plan.head
+    q, k, v = (_kernel_operand(t, heads, hd, hdp, plan.kernel) for t in (q, k, v))
     out = torch.empty(B, Sq, heads * hdp, dtype=q.dtype, device=q.device)
+    launched = ctypes.c_int(-1)
     _build.launch(
         "qt_attention", _build.dtype_code(q),
         q.data_ptr(), q.stride(0), q.stride(1),
@@ -414,8 +450,10 @@ def _launch(q, k, v, key_bias=None, *, mask, scale, heads):
         v.data_ptr(), v.stride(0), v.stride(1),
         out.data_ptr(), out.stride(0), out.stride(1),
         _build.ptr(mask), _build.ptr(key_bias), B, Sq, k.shape[1], heads, hdp,
-        float(scale))
+        float(scale), ctypes.byref(launched))
     attention_wide.launches += 1
+    name = KERNEL_NAMES[launched.value] if launched.value >= 0 else "none"
+    attention_wide.attn_routes[name] = attention_wide.attn_routes.get(name, 0) + 1
     if key_bias is not None:
         attention_wide_key_bias.launches += 1
     if hdp != hd:
@@ -424,6 +462,7 @@ def _launch(q, k, v, key_bias=None, *, mask, scale, heads):
 
 
 attention_wide.launches = 0
+attention_wide.attn_routes = {}  # the kernel each launch took, as the library wrote it
 attention_wide_key_bias.launches = 0
 
 
@@ -606,8 +645,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_fused(q, k, v, *, mask, scale):
     BH, Sq, dh = q.shape
-    dhp = _kernel_head(dh, k.shape[1], q.dtype, Sq, smem_limit(q.device))
-    q, k, v = (_kernel_operand(t, 1, dh, dhp) for t in (q, k, v))
+    plan = _plan_of(q, k, mask, None, 1)
+    dhp = plan.head
+    q, k, v = (_kernel_operand(t, 1, dh, dhp, plan.kernel) for t in (q, k, v))
     out = torch.empty(BH, Sq, dhp, dtype=q.dtype, device=q.device)
     _build.launch(
         "qt_fused_attention", _build.dtype_code(q),

@@ -149,7 +149,9 @@ def patch_select_train_tp_gemm_shapes(frames: int, patches: int, width: int,
     """(M, N, K) of the products of each tensor-parallel stage of
     ``fused_patch_select_train`` (``csrc/patch_select_train.cu``) on one
     model rank, in launch order, ``local`` = width / tp the rank's head
-    columns (its MLP hidden share is local / 2):
+    columns (its MLP hidden share is local / 2); the eval stages
+    (``csrc/patch_select.cu``: ``fused_patch_select_tp_self``, ``_tp_cross``,
+    ``_tp_mlp``) launch the forward's three:
 
     - ``tp_self``: the self-attention's qkv over the rank's heads, its
       out_proj partial;

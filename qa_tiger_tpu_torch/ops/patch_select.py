@@ -7,7 +7,12 @@ LayerNorm per stream.
 
 - ``fused_patch_select`` (eval, ``fused_patch_select`` :1022): the CUDA
   kernel in ``csrc/patch_select.cu``; its gradient is the plain version's,
-  recomputed, as the JAX ``custom_vjp`` does.
+  recomputed, as the JAX ``custom_vjp`` does. Its seven products run
+  against a plan from ``ops.gemm.gemm_plan`` as the train kernels' do (in
+  fp32 on ``gemm_tf32x3``, in bf16 on ``gemm_sm90``), and its two
+  attentions report the kernel they took in its attention rows; it tallies
+  both in ``gemm_routes`` and ``attn_routes``, and so do its
+  tensor-parallel stages.
 - ``fused_patch_select_train`` (``fused_patch_select_train`` :961): the
   same module under three explicit dropout masks
   (``models.modules.make_patch_dropout_masks``), a CUDA forward and a CUDA
@@ -60,13 +65,11 @@ from qa_tiger_tpu_torch.ops.gemm import (
     aligned16,
     gemm_plan,
     note_plan_routes,
-    note_routes,
     patch_select_gemm_shapes,
     patch_select_train_bwd_gemm_shapes,
     patch_select_train_tp_gemm_shapes,
     plan_workspace,
     sm_count,
-    tma_ready,
 )
 
 
@@ -182,10 +185,30 @@ def fused_patch_select(patch: torch.Tensor, audio: torch.Tensor,
                                            patch, audio, video, *weights)
 
 
+def _planned(dt, shapes, attns, dev) -> tuple:
+    """The plan of one planned eval launch: (GEMM plan rows, attention rows,
+    the C launcher's plan arguments). The arguments carry the split-K
+    workspace, allocated here where the plan splits a product."""
+    sms = sm_count(dev)
+    plan = gemm_plan(dt, shapes, sms)
+    ws_floats = plan_workspace(dt, shapes, sms)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=dev) if ws_floats else None
+    rows = keep_rows(attns)
+    args = [plan.data_ptr(), len(shapes), rows.data_ptr(), len(rows), _build.ptr(ws), ws_floats]
+    return plan, rows, args, ws
+
+
+def _note_planned(kernel, plan, rows) -> None:
+    """Tallies the routes a planned launch wrote into its plan and rows."""
+    note_plan_routes(kernel, plan)
+    note_keep_routes(kernel, rows)
+
+
 def _launch_eval(patch, audio, video, *weights, nhead):
     B, T, P, D = patch.shape
-    # the operands the bf16 GEMMs read by TMA
-    patch, weights = tma_ready(patch), [tma_ready(w) for w in weights]
+    # the operands the products read in 16-byte chunks (TMA in bf16,
+    # cp.async in fp32)
+    patch, weights = aligned16(patch), [aligned16(w) for w in weights]
     BT = B * T
     dev, dt = patch.device, patch.dtype
     a_out = torch.empty(B, T, D, dtype=dt, device=dev)
@@ -199,18 +222,21 @@ def _launch_eval(patch, audio, video, *weights, nhead):
                torch.empty(2 * BT, D, dtype=dt, device=dev),      # out_proj
                torch.empty(2 * BT, D // 2, dtype=dt, device=dev),  # MLP hidden
                torch.empty(2 * BT, D, dtype=torch.float32, device=dev)]  # MLP out
+    plan, rows, args, _ws = _planned(dt, patch_select_gemm_shapes(BT, P, D), [(P, P), (2, P)],
+                                     dev)
     _build.launch("qt_patch_select", _build.dtype_code(patch),
                   patch.data_ptr(), video.data_ptr(), audio.data_ptr(),
                   *[w.data_ptr() for w in weights],
                   a_out.data_ptr(), v_out.data_ptr(),
-                  *[s.data_ptr() for s in scratch], BT, P, D, nhead)
+                  *[s.data_ptr() for s in scratch], BT, P, D, nhead, *args)
     fused_patch_select.launches += 1
-    note_routes(fused_patch_select, dt, patch_select_gemm_shapes(BT, P, D))
+    _note_planned(fused_patch_select, plan, rows)
     return a_out, v_out
 
 
 fused_patch_select.launches = 0
 fused_patch_select.gemm_routes = {}  # the GEMM routine of each product launched
+fused_patch_select.attn_routes = {}  # the kernel of each of its two attentions
 
 # ---------------------------------------------------------------------------
 # tensor-parallel stages of the eval module
@@ -258,17 +284,19 @@ def fused_patch_select_tp_self(patch: torch.Tensor, slf, nhead: int) -> torch.Te
 def _launch_tp_self(patch, w, b, ow, nhead):
     B, T, P, D = patch.shape
     Wl = w.shape[0] // 3
-    patch, w, b, ow = (tma_ready(t) for t in (patch, w, b, ow))
+    patch, w, b, ow = (aligned16(t) for t in (patch, w, b, ow))
     BT, dev, dt = B * T, patch.device, patch.dtype
     part = torch.empty(B, T, P, D, dtype=torch.float32, device=dev)
     qkv = torch.empty(BT * P, 3 * Wl, dtype=dt, device=dev)
     ctx = torch.empty(BT * P, Wl, dtype=dt, device=dev)
+    shapes = patch_select_train_tp_gemm_shapes(BT, P, D, Wl)["tp_self"]
+    plan, rows, args, _ws = _planned(dt, shapes, [(P, P)], dev)
     _build.launch("qt_patch_select_tp_self", _build.dtype_code(patch), patch.data_ptr(),
                   w.data_ptr(), b.data_ptr(), ow.data_ptr(), part.data_ptr(), qkv.data_ptr(),
-                  ctx.data_ptr(), BT, P, D, Wl, nhead)
+                  ctx.data_ptr(), BT, P, D, Wl, nhead, *args)
     fused_patch_select.launches += 1
     fused_patch_select_tp_self.launches += 1
-    note_routes(fused_patch_select_tp_self, dt, [(BT * P, 3 * Wl, D), (BT * P, D, Wl)])
+    _note_planned(fused_patch_select_tp_self, plan, rows)
     return part
 
 
@@ -325,19 +353,20 @@ def fused_patch_select_tp_cross(x1: torch.Tensor, audio: torch.Tensor, video: to
 def _launch_tp_cross(x1, audio, video, w, b, ow, nhead):
     B, T, P, D = x1.shape
     Wl = w.shape[0] // 3
-    x1, w, ow = tma_ready(x1), tma_ready(w), tma_ready(ow)
+    x1, w, ow = aligned16(x1), aligned16(w), aligned16(ow)
     BT, dev, dt = B * T, x1.device, x1.dtype
     part = torch.empty(B, T, 2, D, dtype=torch.float32, device=dev)
     kv = torch.empty(BT * P, 2 * Wl, dtype=dt, device=dev)
     q = torch.empty(2 * BT, Wl, dtype=dt, device=dev)
     ctx2 = torch.empty(2 * BT, D, dtype=dt, device=dev)
+    shapes = patch_select_train_tp_gemm_shapes(BT, P, D, Wl)["tp_cross"]
+    plan, rows, args, _ws = _planned(dt, shapes, [(2, P)], dev)
     _build.launch("qt_patch_select_tp_cross", _build.dtype_code(x1), x1.data_ptr(),
                   video.data_ptr(), audio.data_ptr(), w.data_ptr(), b.data_ptr(),
                   ow.data_ptr(), part.data_ptr(), kv.data_ptr(), q.data_ptr(), ctx2.data_ptr(),
-                  BT, P, D, Wl, nhead)
+                  BT, P, D, Wl, nhead, *args)
     fused_patch_select_tp_cross.launches += 1
-    note_routes(fused_patch_select_tp_cross, dt,
-                [(BT * P, 2 * Wl, D), (2 * BT, Wl, D), (2 * BT, D, Wl)])
+    _note_planned(fused_patch_select_tp_cross, plan, rows)
     return part
 
 
@@ -382,15 +411,18 @@ def fused_patch_select_tp_mlp(crs: torch.Tensor, mlp) -> torch.Tensor:
 def _launch_tp_mlp(crs, w1, b1, w2):
     B, T, _, D = crs.shape
     Hl = w1.shape[0]
-    crs, w1, w2 = tma_ready(crs), tma_ready(w1), tma_ready(w2)
+    crs, w1, w2 = aligned16(crs), aligned16(w1), aligned16(w2)
     Q = 2 * B * T
     part = torch.empty(B, T, 2, D, dtype=torch.float32, device=crs.device)
     hid = torch.empty(Q, Hl, dtype=crs.dtype, device=crs.device)
+    # the MLP's products run over the query rows alone: any patch count
+    shapes = patch_select_train_tp_gemm_shapes(B * T, 1, D, 2 * Hl)["tp_mlp"]
+    plan, rows, args, _ws = _planned(crs.dtype, shapes, [], crs.device)
     _build.launch("qt_patch_select_tp_mlp", _build.dtype_code(crs), crs.data_ptr(),
                   w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), part.data_ptr(), hid.data_ptr(),
-                  Q, D, Hl)
+                  Q, D, Hl, *args)
     fused_patch_select_tp_mlp.launches += 1
-    note_routes(fused_patch_select_tp_mlp, crs.dtype, [(Q, Hl, D), (Q, D, Hl)])
+    _note_planned(fused_patch_select_tp_mlp, plan, rows)
     return part
 
 
@@ -439,6 +471,8 @@ for _stage in (fused_patch_select_tp_self, fused_patch_select_tp_self_post,
 for _stage in (fused_patch_select_tp_self, fused_patch_select_tp_cross,
                fused_patch_select_tp_mlp):
     _stage.gemm_routes = {}
+for _stage in (fused_patch_select_tp_self, fused_patch_select_tp_cross):
+    _stage.attn_routes = {}
 
 # ---------------------------------------------------------------------------
 # train mode

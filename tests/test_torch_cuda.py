@@ -163,7 +163,8 @@ def test_attention_mma_route_head_sizes(cuda, hd, sk):
 
 
 def test_attention_route_rule(cuda):
-    """The route is a function of dtype, shape and a keep mask only."""
+    """The route is a function of dtype, shape, a keep mask and whether the
+    call adds a mask or a key bias."""
     bf, f32 = torch.bfloat16, torch.float32
     assert A.attention_route(bf, 16, 16, 64) == "mma_short"   # one m16 tile, two n8 tiles
     assert A.attention_route(bf, 17, 16, 64) == "mma"
@@ -177,10 +178,15 @@ def test_attention_route_rule(cuda):
     assert A.attention_route(bf, 14, 14, 64) == "mma_short"   # PatchSelecter, packed route
     assert A.attention_route(bf, 2, 14, 64) == "mma_short"    # PatchSelecter cross
     assert A.attention_route(bf, 1, 2, 64) == "mma_short"     # QstGrounding
-    assert A.attention_route(f32, 14, 14, 64) == "fma"
+    assert A.attention_route(f32, 14, 14, 64) == "mma_nokeep"  # the fp32 eval forward
+    assert A.attention_route(f32, 14, 14, 64, has_bias=True) == "fma"
+    assert A.attention_route(f32, 60, 77, 64) == "mma_nokeep"
+    assert A.attention_route(f32, 1, 2, 64) == "mma_nokeep"
     assert A.attention_route(bf, 14, 14, 64, has_keep=True) == "mma_keep"  # train kernels
     assert A.attention_route(f32, 1, 14, 64, has_keep=True) == "mma_keep"
-    assert A.attention_route(bf, 1, 60, 64) == "fma"    # TempMoE
+    assert A.attention_route(bf, 1, 60, 64) == "mma_nokeep"    # TempMoE
+    assert A.attention_route(bf, 1, 60, 64, has_bias=True) == "fma"
+    assert A.attention_route(bf, 1, 129, 64) == "fma"
     assert A.attention_route(bf, 60, 15, 64) == "fma"
     assert A.attention_route(bf, 60, 77, 48) == "fma"   # no mma build for hd 48
     assert A.attention_route(bf, 14, 14, 48) == "fma"
@@ -335,6 +341,134 @@ def test_keep_attention_kernel_tp_lane_cut(cuda, dtype, tp):
             got = _keep_check(*share, head_lanes(keep, heads, sk, r, tp), hl, dtype)
             for a, b in zip(got, whole):
                 assert torch.equal(a, b[..., lanes])
+
+
+# ---------------------------------------------------------------------------
+# the keep-masked kernel without a keep mask ("mma_nokeep"): every unmasked
+# fp32 call at head sizes 32/64/128 over at most 128 keys (the fp32 eval
+# forward), and bf16 calls of fewer than 16 queries over more than 16 keys
+# (TempMoE's 1 x 60); the kernel each launch took read back from the library
+# ---------------------------------------------------------------------------
+
+# (Sq, Sk, rows per batch element) of the fp32 eval forward's attention_wide
+# calls: AVQ's question-guided, self and cross attention over 2B; TempMoE's
+# and QstGrounding's one query over B
+EVAL_ATTN = [(60, 77, 2), (60, 60, 2), (1, 60, 1), (1, 2, 1)]
+
+
+@pytest.mark.parametrize("B", [2, 32])
+@pytest.mark.parametrize("sq,sk,per", EVAL_ATTN)
+def test_attention_nokeep_eval_shapes_fp32(cuda, B, sq, sk, per):
+    """fp32 at the eval forward's shapes (8 heads of 64, B = 2 and the
+    eval batch 32): the plan and the library's name "mma_nokeep", the
+    launch against the plain version, twice bitwise, its kernel read back."""
+    rng = np.random.default_rng(1000 * sq + sk + B)
+    f32 = torch.float32
+    q, k, v = (_rn(rng, per * B, s, 512, dtype=f32) for s in (sq, sk, sk))
+    plan = A.attention_plan(f32, sq, sk, 64, limit=A.smem_limit(cuda))
+    assert plan.kernel == "mma_nokeep"
+    assert A.library_plan(f32, sq, sk, 64) == (plan.kernel, plan.smem_bytes)
+    A.attention_wide.attn_routes = {}
+    first = A.attention_wide(q, k, v, None, 0.125, 8)
+    _check(lambda: first, lambda: A._wide_reference(q, k, v, None, 0.125, 8), f32)
+    assert torch.equal(first, A.attention_wide(q, k, v, None, 0.125, 8))
+    assert A.attention_wide.attn_routes == {"mma_nokeep": 2}
+
+
+def test_attention_nokeep_bf16_one_query_b256(cuda):
+    """TempMoE's bf16 call of the serving forward, one query over 60 keys at
+    B = 256, 8 heads of 64: within the keep-masked kernel's bf16 bound of the
+    plain version (``_keep_bounds`` with keep = 1: one ulp plus the terms
+    whose probability lies at a rounding boundary), twice bitwise, its
+    kernel read back."""
+    rng = np.random.default_rng(60)
+    bf = torch.bfloat16
+    q, k, v = _rn(rng, 256, 1, 512, dtype=bf), _rn(rng, 256, 60, 512, dtype=bf), \
+        _rn(rng, 256, 60, 512, dtype=bf)
+    A.attention_wide.attn_routes = {}
+    got = A.attention_wide(q, k, v, None, 0.125, 8)
+    want = A._wide_reference(q, k, v, None, 0.125, 8)
+    _check(lambda: got, lambda: want, bf)
+    host = [t.cpu() for t in (q, k, v)]
+    keep = torch.ones(256, 8 * 60, dtype=bf)
+    bound = keep_flips(*host, torch.zeros_like(host[0]), keep, 8)[0]
+    check_bf16(got.float().cpu().numpy(), want.float().cpu().numpy(), bound, "ctx")
+    assert torch.equal(got, A.attention_wide(q, k, v, None, 0.125, 8))
+    assert A.attention_wide.attn_routes == {"mma_nokeep": 2}
+
+
+# (dtype, Sq, Sk) of the three forms at their edges: fp32 at every length,
+# bf16 where it takes this kernel (fewer than 16 queries over more keys)
+NOKEEP_FORMS = [(dt, sq, sk) for dt in DTYPES
+                for sq, sk in ((1, 17), (2, 77), (15, 128), (1, 2), (14, 14), (16, 16),
+                               (17, 60), (60, 77), (64, 128), (65, 33))
+                if dt == torch.float32 or sq < 16 < sk]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype,sq,sk", NOKEEP_FORMS)
+def test_attention_nokeep_forms(cuda, dtype, sq, sk, hd):
+    """The three forms at their edges (a warp per problem at most 16
+    queries and keys, four a block; one warp a block at most 16 queries
+    over more keys; 64 query rows a block), 3 heads as column slices of a
+    packed buffer, against the plain version, twice bitwise, the library's
+    plan the Python one."""
+    rng = np.random.default_rng(sq * 1000 + sk + hd)
+    q, k, v = _packed_qkv(rng, 3, sq, sk, hd * 3, dtype, cuda)
+    plan = A.attention_plan(dtype, sq, sk, hd, limit=A.smem_limit(cuda))
+    assert plan.kernel == "mma_nokeep" and plan.head == hd
+    assert A.library_plan(dtype, sq, sk, hd) == (plan.kernel, plan.smem_bytes)
+    assert A.attention_route(dtype, sq, sk, hd) == "mma_nokeep"
+    A.attention_wide.attn_routes = {}
+    first = A.attention_wide(q, k, v, None, hd ** -0.5, 3)
+    _check(lambda: first, lambda: A._wide_reference(q, k, v, None, hd ** -0.5, 3), dtype)
+    assert torch.equal(first, A.attention_wide(q, k, v, None, hd ** -0.5, 3))
+    assert A.attention_wide.attn_routes == {"mma_nokeep": 2}
+
+
+def test_attention_nokeep_copies_misaligned_fp32_rows(cuda):
+    """An fp32 row stride off a whole 16 bytes, or a base 4 bytes past a
+    16-byte boundary: the wrapper copies the operand and launches the same
+    kernel, which gives the aligned operands' result."""
+    rng = np.random.default_rng(21)
+    f32 = torch.float32
+    q, k, v = _packed_qkv(rng, 2, 60, 77, 128, f32, cuda, pad=1)
+    assert q.stride(1) % 4 == 1
+    buf = _rn(rng, 2, 77, 3 * 128 + 4, dtype=f32)
+    q2, k2, v2 = buf[:, :60, 1:129], buf[..., 129:257], buf[..., 257:385]
+    assert q2.data_ptr() % 16 == 4
+    A.attention_wide.attn_routes = {}
+    for a, b_, c in ((q, k, v), (q2, k2, v2)):
+        got = A.attention_wide(a, b_, c, None, 0.125, 2)
+        _check(lambda: got, lambda: A._wide_reference(a, b_, c, None, 0.125, 2), f32)
+        aligned = A.attention_wide(*(t.contiguous() for t in (a, b_, c)), None, 0.125, 2)
+        assert torch.equal(got, aligned)
+    assert A.attention_wide.attn_routes == {"mma_nokeep": 4}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sq,sk", [(60, 77), (1, 60), (14, 14)])
+def test_attention_with_a_mask_or_key_bias_stays_off_nokeep(cuda, sq, sk, dtype):
+    """A call that adds a mask, a key bias or both keeps the kernel it took
+    before "mma_nokeep" existed (the staged FMA kernel, or in bf16 the mma
+    and short kernels), which the launch reports; the same call without
+    them takes "mma_nokeep" where the rule gives it."""
+    rng = np.random.default_rng(sq + sk)
+    q, k, v = (_rn(rng, 4, s, 256, dtype=dtype) for s in (sq, sk, sk))
+    mask = torch.from_numpy(np.where(rng.random((sq, sk)) < 0.2, -1e9, 0.0)
+                            .astype(np.float32)).to(cuda)
+    kb = torch.from_numpy(np.log(rng.integers(1, 41, (4, sk))).astype(np.float32)).to(cuda)
+    want = A.attention_plan(dtype, sq, sk, 64, has_bias=True, limit=A.smem_limit(cuda)).kernel
+    assert want != "mma_nokeep"
+    for m, b_ in ((mask, None), (None, kb), (mask, kb)):
+        A.attention_wide.attn_routes = {}
+        _check(lambda: A.attention_wide(q, k, v, m, 0.125, 4, key_bias=b_),
+               lambda: A._wide_reference(q, k, v, m, 0.125, 4, b_), dtype)
+        assert A.attention_wide.attn_routes == {want: 1}
+    A.attention_wide.attn_routes = {}
+    A.attention_wide(q, k, v, None, 0.125, 4)
+    nokeep = dtype == torch.float32 or sq < 16 < sk
+    assert A.attention_wide.attn_routes == {"mma_nokeep" if nokeep else want: 1}
 
 
 # ---------------------------------------------------------------------------
@@ -870,7 +1004,9 @@ def test_fused_attn_kernels_on_the_gemm_route(cuda, kind, b, s, w, heads, dtype)
 def test_fused_patch_select_on_the_gemm_route(cuda, b, t, dtype):
     """fused_patch_select at the serving shape (B=256, T=60) and the raw
     media one (B=2) against its plain version; its seven products on
-    gemm_sm90 in bf16."""
+    gemm_sm90 in bf16 and gemm_tf32x3 in fp32, as the plan rows the launch
+    wrote say, its two attentions on the short kernel in bf16 and the
+    keep-masked kernel without a keep mask in fp32."""
     rng = np.random.default_rng(b)
     D = 512
     ps = PatchSelecter(D, torch.Generator().manual_seed(0)).to(cuda, dtype)
@@ -881,9 +1017,92 @@ def test_fused_patch_select_on_the_gemm_route(cuda, b, t, dtype):
                     (2 * b * t, D, D), (2 * b * t, D // 2, D), (2 * b * t, D, D // 2)):
         assert GM.gemm_route(dtype, m, n, k) == route
     n = PS.fused_patch_select.launches
+    PS.fused_patch_select.gemm_routes, PS.fused_patch_select.attn_routes = {}, {}
     _check(lambda: PS.fused_patch_select(patch, audio, video, ps, 8),
            lambda: PS.patch_selecter_plain(ps, patch, audio, video, nhead=8), dtype)
     assert PS.fused_patch_select.launches == n + 1
+    bf16 = dtype == torch.bfloat16
+    assert PS.fused_patch_select.gemm_routes == {"wgmma" if bf16 else "tf32x3": 7}
+    assert PS.fused_patch_select.attn_routes == {"mma_short" if bf16 else "mma_nokeep": 2}
+
+
+@pytest.mark.parametrize("b", [2, 32])
+def test_fused_patch_select_fp32_eval_batch(cuda, b):
+    """fp32 at B = 2 and the eval batch 32 (T = 60): against the plain
+    version, twice bitwise, its products tf32x3 x 7 and its attentions
+    mma_nokeep x 2, read back from the launch."""
+    rng = np.random.default_rng(b + 7)
+    f32, D = torch.float32, 512
+    ps = PatchSelecter(D, torch.Generator().manual_seed(1)).to(cuda, f32)
+    patch = _rn(rng, b, 60, 14, D, dtype=f32)
+    audio, video = _rn(rng, b, 60, D, dtype=f32), _rn(rng, b, 60, D, dtype=f32)
+    PS.fused_patch_select.gemm_routes, PS.fused_patch_select.attn_routes = {}, {}
+    first = PS.fused_patch_select(patch, audio, video, ps, 8)
+    _check(lambda: first, lambda: PS.patch_selecter_plain(ps, patch, audio, video, nhead=8), f32)
+    assert PS.fused_patch_select.gemm_routes == {"tf32x3": 7}
+    assert PS.fused_patch_select.attn_routes == {"mma_nokeep": 2}
+    again = PS.fused_patch_select(patch, audio, video, ps, 8)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tp", [2, 4])
+def test_fused_patch_select_tp_stages_planned(cuda, tp, dtype):
+    """Each eval stage on each model rank against its plain version, its
+    products on the plan (tf32x3 in fp32, wgmma in bf16) and its attention
+    on the kernel tp = 1 takes, read back from the launch."""
+    from qa_tiger_tpu_torch.parallel.tensor import Grid, shard_module_
+
+    rng = np.random.default_rng(tp)
+    D, H, B, T = 512, 8, 2, 60
+    ps = PatchSelecter(D, torch.Generator().manual_seed(tp)).to(cuda, dtype)
+    patch = _rn(rng, B, T, 14, D, dtype=dtype)
+    audio, video = _rn(rng, B, T, D, dtype=dtype), _rn(rng, B, T, D, dtype=dtype)
+    x1 = _rn(rng, B, T, 14, D, dtype=dtype)
+    crs = _rn(rng, B, T, 2, D, dtype=dtype)
+    route = "tf32x3" if dtype == torch.float32 else "wgmma"
+    attn = "mma_nokeep" if dtype == torch.float32 else "mma_short"
+    heads = H // tp
+    for r in range(tp):
+        s = shard_module_(copy.deepcopy(ps), Grid(model_rank=r, model_size=tp))
+        stages = [
+            (PS.fused_patch_select_tp_self,
+             lambda: PS.fused_patch_select_tp_self(patch, s.slf_attn, heads),
+             lambda: PS._tp_self_plain(patch, s.slf_attn.in_proj_weight,
+                                       s.slf_attn.in_proj_bias, s.slf_attn.out_proj.weight,
+                                       heads), 2, {attn: 1}),
+            (PS.fused_patch_select_tp_cross,
+             lambda: PS.fused_patch_select_tp_cross(x1, audio, video, s.crs_attn, heads),
+             lambda: PS._tp_cross_plain(x1, audio, video, s.crs_attn.in_proj_weight,
+                                        s.crs_attn.in_proj_bias, s.crs_attn.out_proj.weight,
+                                        heads), 3, {attn: 1}),
+            (PS.fused_patch_select_tp_mlp, lambda: PS.fused_patch_select_tp_mlp(crs, s.mlp),
+             lambda: PS._tp_mlp_plain(crs, s.mlp[0].weight, s.mlp[0].bias, s.mlp[2].weight),
+             2, None)]
+        for stage, kernel, plain, products, attn_routes in stages:
+            stage.gemm_routes = {}
+            if attn_routes is not None:
+                stage.attn_routes = {}
+            got, want = kernel(), plain()  # fp32 partials; bf16 inputs round as bf16
+            err = (got - want).abs().max().item()
+            assert err <= TOL[dtype] * max(1.0, want.abs().max().item()), err
+            assert stage.gemm_routes == {route: products}
+            if attn_routes is not None:
+                assert stage.attn_routes == attn_routes
+
+
+def test_fused_patch_select_fp32_plan_refusal_raises(cuda):
+    """A width whose fp32 rows gemm_tf32x3 cannot read in 16-byte chunks
+    (D = 18: a row stride off 4 floats) is refused by the planned product
+    and raises; nothing falls back to gemm_tile."""
+    rng = np.random.default_rng(18)
+    f32 = torch.float32
+    ps = PatchSelecter(18, torch.Generator().manual_seed(0)).to(cuda, f32)
+    patch = _rn(rng, 1, 2, 14, 18, dtype=f32)
+    audio, video = _rn(rng, 1, 2, 18, dtype=f32), _rn(rng, 1, 2, 18, dtype=f32)
+    with pytest.raises(RuntimeError, match="qt_patch_select"):
+        PS.fused_patch_select(patch, audio, video, ps, 2)
+        torch.cuda.synchronize()
 
 
 # ---------------------------------------------------------------------------

@@ -342,17 +342,18 @@ def test_attention_plan_unchanged_by_the_split():
     and 4, the kernel it takes at tp 1: the split keeps head size 64 and
     only the head count changes. In bf16 the AVQ calls (60 queries over 77
     or 60 keys) take ``mma``, QstGrounding's one query over 2 keys
-    ``mma_short``, TempMoE's one query over 60 keys the FMA route (B8.4);
-    the text tower's 77 x 77 ``mma``."""
+    ``mma_short``, TempMoE's one query over 60 keys ``mma_nokeep`` (the
+    keep-masked kernel without a keep mask); in fp32 every call
+    ``mma_nokeep``; the text tower's 77 x 77 ``mma``."""
     D, heads, T, S = 512, 8, 60, 77
     calls = {"avq_qst": (T, S, "mma"), "avq_self": (T, T, "mma"), "avq_cross": (T, T, "mma"),
-             "grounding": (1, 2, "mma_short"), "moe": (1, T, "fma")}
+             "grounding": (1, 2, "mma_short"), "moe": (1, T, "mma_nokeep")}
     for dtype in (torch.bfloat16, torch.float32):
         for name, (sq, sk, route) in calls.items():
             plans = {tp: attention_plan(dtype, sq, sk, (D // tp) // (heads // tp))
                      for tp in (1, 2, 4)}
             assert plans[2] == plans[1] == plans[4], name
-            assert plans[1].route == (route if dtype == torch.bfloat16 else "fma"), name
+            assert plans[1].route == (route if dtype == torch.bfloat16 else "mma_nokeep"), name
     text = {tp: attention_plan(torch.bfloat16, S, S, (768 // tp) // (12 // tp)) for tp in (1, 2, 4)}
     assert text[1] == text[2] == text[4] and text[1].route == "mma"
 

@@ -477,11 +477,18 @@ def test_wide_head_plan(dtype, shape, heads, hd):
     keys, the wide mma one (a two-stage ring of 64-lane slabs, 36,864 bytes;
     past 128 keys, in two passes, also p, 64 rows of Sk rounded up to 16
     plus 8) otherwise: 36,864 bytes at 60 keys, 113,664 at 577. fp32 keeps
-    the FMA kernels: the staged kernel
+    the FMA kernels at 256 and 512 lanes: the staged kernel
     holds K_h and V_h in fp32, 255,152 bytes at 60 keys of 512 lanes, which
-    takes the wide-head kernel; 14 keys still fit it."""
+    takes the wide-head kernel; 14 keys still fit it. The four-head calls
+    (128 lanes, one query over 14 or 10 keys) take the short tensor-core
+    kernel in bf16 and, unmasked, the keep-masked kernel without its keep
+    mask in fp32 (a warp per problem, four a block: 101,376 bytes); with a
+    mask or key bias the staged FMA kernel."""
     _, sq, sk = shape
     plan = A.attention_plan(dtype, sq, sk, hd)
+    if hd == 128 and dtype == torch.float32:
+        assert tuple(A.attention_plan(dtype, sq, sk, hd, has_bias=True)) == (
+            "fma", "staged", 128, A._smem_bytes("staged", sk, 128))
     want = {(torch.float32, 60, 512): ("fma", "wide", 99_904),
             (torch.float32, 14, 512): ("fma", "staged", 65_816),
             (torch.float32, 577, 256): ("fma", "wide", 84_800),
@@ -490,8 +497,8 @@ def test_wide_head_plan(dtype, shape, heads, hd):
             (torch.bfloat16, 577, 256): ("mma", "mma_wide", 113_664)}
     if hd == 128:
         want_plan = (("mma_short", "mma_short", 2 * 4 * 2 * 3 * 16 * 136)
-                     if dtype == torch.bfloat16 else ("fma", "staged", A._smem_bytes(
-                         "staged", sk, 128)))
+                     if dtype == torch.bfloat16 else
+                     ("mma_nokeep", "mma_nokeep", 4 * 4 * 3 * 16 * 132))
     else:
         want_plan = want[(dtype, sk, hd)]
     assert (plan.route, plan.kernel, plan.smem_bytes) == want_plan and plan.head == hd
@@ -558,15 +565,32 @@ PINNED_PLANS = [
     ("float32", 577, 577, 128, ("fma", "tiled", 128, 115456)),
     ("float32", 577, 577, 48, ("fma", "tiled", 64, 66304)),
 ]
+# the same calls without a mask or a key bias where that changes the plan:
+# the keep-masked kernel without its keep multiply, every fp32 call at 32,
+# 64 and 128 lanes over at most 128 keys and bf16's one query over more
+# than 16 keys (shared memory: 16 query rows, or 64, and the keys' k and v
+# rows of hd lanes plus 16 bytes; four 16-row problems at 14 x 14)
+NOKEEP_PLANS = {
+    ("bfloat16", 1, 60, 32): ("mma_nokeep", "mma_nokeep", 32, 11520),
+    ("bfloat16", 1, 60, 64): ("mma_nokeep", "mma_nokeep", 64, 20736),
+    ("bfloat16", 1, 60, 128): ("mma_nokeep", "mma_nokeep", 128, 39168),
+    ("float32", 14, 14, 32): ("mma_nokeep", "mma_nokeep", 32, 27648),
+    ("float32", 60, 77, 64): ("mma_nokeep", "mma_nokeep", 64, 60928),
+    ("float32", 1, 60, 128): ("mma_nokeep", "mma_nokeep", 128, 76032),
+    ("float32", 60, 77, 128): ("mma_nokeep", "mma_nokeep", 128, 118272),
+}
 
 
 @pytest.mark.parametrize("dtype,sq,sk,hd,want", PINNED_PLANS)
 def test_plan_head_sizes_up_to_128_pinned(dtype, sq, sk, hd, want):
-    """Head sizes up to 128 plan as before the wide tensor-core kernels;
-    with a keep mask those of 32, 64 and 128 lanes over at most 128 keys
-    take the keep-masked tensor-core kernel, every other an FMA kernel."""
+    """Head sizes up to 128 plan as before the wide tensor-core kernels
+    when the call adds a mask or a key bias; without either, as
+    NOKEEP_PLANS says where that differs; with a keep mask those of 32, 64
+    and 128 lanes over at most 128 keys take the keep-masked tensor-core
+    kernel, every other an FMA kernel."""
     dt = getattr(torch, dtype)
-    assert tuple(A.attention_plan(dt, sq, sk, hd)) == want
+    assert tuple(A.attention_plan(dt, sq, sk, hd, has_bias=True)) == want
+    assert tuple(A.attention_plan(dt, sq, sk, hd)) == NOKEEP_PLANS.get((dtype, sq, sk, hd), want)
     keep_route = "mma_keep" if hd in (32, 64, 128) and sk <= 128 else "fma"
     assert A.attention_plan(dt, sq, sk, hd, has_keep=True).route == keep_route
 
