@@ -64,7 +64,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    keep-masked kernel without its keep multiply; tf32x3 x 7), listed under
    ``eval_fp32_b32`` in both table entries; every unmasked 14-key
    PatchSelecter attention must take "mma_short" in bf16 and "mma_nokeep"
-   in fp32, and its eval TP stages the tp = 1 kernel's routes;
+   in fp32, and its eval TP stages the tp = 1 kernel's routes; the fp32
+   extraction forward's calls at their shapes, each timed beside SDPA and
+   the 3xTF32 bound, twice bitwise, its kernels read back from the launch
+   (``extract_fp32`` in the table entries): the CLIP image block of
+   fused_attn_ln2 (x[120, 577, 1024]: tf32x3 x 2, "mma_nokeep_tiled"),
+   577-token attention and ToMe's key-bias layers 1 and 22
+   ("mma_nokeep_tiled", "mma_nokeep"), and the text towers' causal
+   attention at ``encode_texts``' chunk (q[256, 77, 768] h12) and RN50's
+   prompts (q[42, 77, 512] h8) ("mma_nokeep"); every fp32 fused_attn_ln2
+   line reads back tf32x3 x 2;
 4. serving — the Predictor at configs/qa-tiger/vitl14.py with weights from
    a seed: (a) fp32 logits at B=4 against the same state_dict run through
    the plain versions on the CPU; (b) the bf16 B=256 path through
@@ -148,10 +157,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
 7. raw media — ``pipeline.e2e`` at full width (CLIP ViT-L/14@336px, ToMe
    vit_large_patch16_384 at r=[25]*23, VGGish, the QA-TIGER config):
    (a) fp32 B=1 x T=2 card against CPU (streams, logits, every ToMe
-   matching); (b) bf16 B=2 x T=60 through ``e2e_forward`` with the launch
-   counters reset around one forward (every product of fused_attn_ln2 and
-   fused_patch_select on gemm_sm90), then videos/s from the median of 10;
-   (c) the extraction stages' per-video encoders on one 60-frame video;
+   matching), the launch counters reset around the card's run: no
+   attention on an FMA kernel, fused_attn_ln2's products tf32x3, as the
+   launches read them back (``e2e_fp32_b1_attn_routes``,
+   ``_gemm_routes``); (b) bf16 B=2 x T=60 through ``e2e_forward`` with the
+   launch counters reset around one forward (every product of
+   fused_attn_ln2 and fused_patch_select on gemm_sm90), then videos/s from
+   the median of 10; (c) ``extract``: the fp32 ``clip``, ``tome`` and
+   ``questions`` encoders (one 60-frame video, 256 question texts) timed
+   by ``chip_ab.time_extract`` (2 warm-up calls, the median of 5, one
+   profiled: device busy and idle share), the counters reset around one
+   call of each (its launches, no attention on an FMA kernel,
+   fused_attn_ln2's products tf32x3); then every stage's encoder once on
+   one 60-frame video;
 8. TSPM — ``configs/tspm/vitl14.py`` (hidden 512, topK 10, audio 128,
    vis 768, patch 1024, qst 768; T=60 frames of P=14 patches): (a)
    ``tspm_attention``: ``attention_wide`` at TSPM's calls (AV_Attn's one
@@ -160,12 +178,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    head over 577 keys, bf16 and fp32, against its plain version, timed
    beside its bound and SDPA, each line naming its route and kernel
    (``attn_kernel``: in bf16 mma_wide, mma_wide_short and mma_short, in
-   fp32 wide and staged; the library's plan held to
+   fp32 lane_split (the lane split's 3xTF32 stages at one rank) and
+   mma_nokeep, each fp32 call twice bitwise; the library's plan held to
    ``ops.attention.attention_plan``), and one masked, key-biased call of
    the wide-head kernel (fp32) and of the wide mma kernel (bf16) twice,
    bitwise the same; (b) ``tspm_fp32_b4``:
    the eval forward card against CPU (LOGITS_TOL, the top-K frames equal,
-   the seed's smallest top-K weight gap printed); (c) ``tspm_bf16_b256``:
+   the seed's smallest top-K weight gap printed), no attention of the
+   card's run on an FMA kernel; (c) ``tspm_bf16_b256``:
    ``bench``'s protocol, the counters reset around one forward
    (attention_wide 6, nothing else), profiled with ``--profile``
    (``profile_tspm``); (d) ``tspm_train_fp32_b32``: the recipe (fp32,
@@ -185,7 +205,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    BatchNorm statistics and ``num_batches_tracked``), read back through
    ``load`` and ``build_towers``; (a) ``clip_rn50_fp32`` /
    ``clip_vitl336_fp32``: ``clip_forward`` on 2 images x 4 texts, card
-   against the CPU within LOGITS_TOL; (b) ``clip_rn50_bf16`` /
+   against the CPU within LOGITS_TOL, the card's run with no attention on
+   an FMA kernel and fused_attn_ln2's products tf32x3; (b) ``clip_rn50_bf16`` /
    ``clip_vitl336_bf16``: one video's 60 frames against 42 answer prompts,
    the launch counters reset around one forward (fused_attn_ln2 12 and 36
    times, on gemm_sm90, nothing else), images/s from the median of 10;
@@ -610,7 +631,25 @@ def text_block_case(dtype, B: int, W: int, H: int, rng, gen, want_route: str | N
             (3 * B * S * W + 4 * W * W + 8 * W) * isz + S * S * 4,
             2 * B * S * W * 4 * W + 2 * B * W * S * (S + 1),
             {"attn": (S, S, W // H), "attn_bias": True, "gemm": GM.attn_gemm_shapes(B * S, W),
-             "want_route": want_route})
+             "want_route": want_route, "peak": "tf32x3" if dtype == torch.float32 else "bfloat16",
+             **ln2_tally(dtype, S, W // H, True)})
+
+
+def ln2_tally(dtype, S: int, hd: int, bias: bool) -> dict:
+    """A fused_attn_ln2 case's read-back: in fp32 one launch's products on
+    gemm_tf32x3 and its attention on the kernel ``attention_plan`` names,
+    from its plan rows; in bf16 its products on gemm_sm90 by the route
+    rule (a bf16 launch plans nothing)."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import attention as A
+    from qa_tiger_tpu_torch.ops import resblock as R
+
+    if dtype != torch.float32:
+        return {"tally": R.fused_attn_ln2, "want_tally": {"gemm_routes": {"wgmma": 2}}}
+    kernel = A.attention_plan(dtype, S, S, hd, limit=A.smem_limit("cuda"), has_bias=bias).kernel
+    return {"tally": R.fused_attn_ln2,
+            "want_tally": {"gemm_routes": {"tf32x3": 2}, "attn_routes": {kernel: 1}}}
 
 
 def short_route(dtype) -> str:
@@ -945,8 +984,8 @@ def check_clip_text_kernel(entries: dict) -> None:
     seeds of their own, against its plain version; the bf16 call timed
     beside its bound, its attention on the mma route and its two products
     (qkv N=1536, K=512; out N=512) on gemm_sm90, by the route rule and by
-    one launch's tally. Its bf16 line joins the kernel's table entry as
-    ``clip_text_w512``."""
+    one launch's tally (gemm_tf32x3 in fp32). Its bf16 line joins the
+    kernel's table entry as ``clip_text_w512``."""
     import torch
 
     from qa_tiger_tpu_torch.ops import resblock as R
@@ -962,7 +1001,7 @@ def check_clip_text_kernel(entries: dict) -> None:
             R.fused_attn_ln2.gemm_routes = {}
             case[2]()
             routes = dict(R.fused_attn_ln2.gemm_routes)
-            want = {"wgmma": 2} if bf16 else {"fma": 2}
+            want = {"wgmma": 2} if bf16 else {"tf32x3": 2}
             print(json.dumps({"phase": "clip_text_w512_gemm_routes", "shape": case[1],
                               "dtype": line["dtype"], "fused_attn_ln2": routes}), flush=True)
             require(routes == want and line["gemm_route"] == next(iter(want)),
@@ -1152,6 +1191,28 @@ def require_tensor_core_attention(label: str, kernels=("attention_wide", "fused_
     return attn
 
 
+# the kernels whose launches read back the kernel of each attention they ran
+ATTN_TALLY_KERNELS = ("attention_wide", "fused_patch_select", "fused_attn_ln2")
+
+
+def require_fp32_tensor_cores(label: str) -> dict:
+    """After an fp32 forward, the launch counters reset before it: no
+    attention on an FMA kernel (``require_tensor_core_attention`` over
+    ATTN_TALLY_KERNELS, line ``<label>_attn_routes``) and every product of
+    fused_attn_ln2 on gemm_tf32x3, two a launch, as its plan rows read back
+    (line ``<label>_gemm_routes``). Returns the attention tallies."""
+    from qa_tiger_tpu_torch import ops
+
+    attn = require_tensor_core_attention(f"{label}_attn_routes", ATTN_TALLY_KERNELS)
+    n = ops.launch_counts()["fused_attn_ln2"]
+    routes = dict(ops.KERNELS["fused_attn_ln2"].gemm_routes)
+    print(json.dumps({"phase": f"{label}_gemm_routes", "fused_attn_ln2": routes,
+                      "fused_attn_ln2_launches": n}), flush=True)
+    require(routes == ({"tf32x3": 2 * n} if n else {}),
+            f"{label}: fused_attn_ln2's products took {routes}, expected tf32x3 x {2 * n}")
+    return attn
+
+
 def require_wgmma(counts_phase: str) -> None:
     """Every product the bf16 calls of fused_attn_ln2 and fused_patch_select
     launched since the counters were reset went through gemm_sm90, and the
@@ -1186,6 +1247,7 @@ def e2e_kernel_cases(dtype, rng, gen):
 
     dev, BT, W, H = "cuda", 2 * T, 1024, 16
     isz = torch.tensor([], dtype=dtype).element_size()
+    peak = "tf32x3" if dtype == torch.float32 else "bfloat16"
 
     def rn(*shape):
         return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
@@ -1209,7 +1271,8 @@ def e2e_kernel_cases(dtype, rng, gen):
                       lambda q=q, k=k, v=v, kb=kb: A._wide_reference(q, k, v, None, 0.125, H,
                                                                       kb),
                       sdpa, 4 * BT * n * W * isz + (BT * n * 4 if bias else 0),
-                      4 * BT * n * n * W, {"attn": (n, n, W // H), "attn_bias": bias}))
+                      4 * BT * n * n * W, {"attn": (n, n, W // H), "attn_bias": bias,
+                                           "peak": peak, **attn_tally(dtype, n, n, W // H, bias)}))
     S_ = 577
     blk = ResidualAttentionBlock(W, 24, gen).to(dev, dtype)
     x = rn(BT, S_, W)
@@ -1218,24 +1281,89 @@ def e2e_kernel_cases(dtype, rng, gen):
                   lambda: R._attn_ln2_plain(blk, x, heads=H, mask=None), None,
                   (3 * BT * S_ * W + 4 * W * W + 8 * W) * isz,
                   2 * BT * S_ * W * 4 * W + 4 * BT * S_ * S_ * W,
-                  {"attn": (S_, S_, W // H), "gemm": GM.attn_gemm_shapes(BT * S_, W)}))
+                  {"attn": (S_, S_, W // H), "gemm": GM.attn_gemm_shapes(BT * S_, W),
+                   "peak": peak, **ln2_tally(dtype, S_, W // H, False)}))
+    return cases
+
+
+def attn_tally(dtype, sq: int, sk: int, hd: int, bias: bool) -> dict:
+    """An attention_wide case's read-back: the one launch's kernel, as the
+    library wrote it, the kernel ``attention_plan`` names."""
+    from qa_tiger_tpu_torch.ops import attention as A
+
+    kernel = A.attention_plan(dtype, sq, sk, hd, limit=A.smem_limit("cuda"), has_bias=bias).kernel
+    return {"tally": A.attention_wide, "want_tally": {"attn_routes": {kernel: 1}}}
+
+
+def text_attention_cases(rng):
+    """attention_wide alone at the fp32 text towers' calls, causal: the
+    ``questions`` / ``prompts`` stages' chunk of 256 texts through the
+    ViT-L/14@336px tower (W 768, 12 heads) and RN50's 42 answer prompts (W
+    512, 8 heads), q, k and v as column slices of one packed qkv, as
+    fused_attn_ln2 hands them to the same dispatch; SDPA on the same views
+    and mask. Bytes: q, k, v and the output once, the mask; operations:
+    every score (the kernel computes the masked ones too)."""
+    import torch
+    from torch.nn import functional as F
+
+    from qa_tiger_tpu_torch.models.clip_text import causal_mask
+    from qa_tiger_tpu_torch.ops import attention as A
+
+    dtype, cases = torch.float32, []
+    mask = causal_mask(S, device="cuda")
+    for b, W, H in ((256, 768, 12), (CLIP_PROMPTS, CLIP_TEXT_W, CLIP_TEXT_HEADS)):
+        hd = W // H
+        qkv = torch.from_numpy(rng.standard_normal((b, S, 3 * W), dtype=np.float32)).cuda()
+        q, k, v = qkv[..., :W], qkv[..., W:2 * W], qkv[..., 2 * W:]
+
+        def sdpa(q=q, k=k, v=v, b=b, H=H, hd=hd):
+            return F.scaled_dot_product_attention(
+                *(t.view(b, S, H, hd).transpose(1, 2) for t in (q, k, v)), attn_mask=mask,
+                scale=hd ** -0.5)
+
+        cases.append(("attention_wide", f"text qkv[{b},{S},{3 * W}] causal h{H}",
+                      lambda q=q, k=k, v=v, H=H, hd=hd: A.attention_wide(q, k, v, mask,
+                                                                         hd ** -0.5, H),
+                      lambda q=q, k=k, v=v, H=H, hd=hd: A._wide_reference(q, k, v, mask,
+                                                                          hd ** -0.5, H),
+                      sdpa, 4 * b * S * W * 4 + S * S * 4, 4 * b * S * S * W,
+                      {"attn": (S, S, hd), "attn_bias": True, "peak": "tf32x3",
+                       **attn_tally(dtype, S, S, hd, True)}))
     return cases
 
 
 def check_e2e_kernels(rng, gen, entries: dict) -> None:
-    """Phase 3, at the raw-media shapes, fp32 and bf16, each timed. The
-    key-bias kernel's table entry is its bf16 layer-1 call (the bf16
-    forward's largest); the other kernels keep their serving entries."""
+    """Phase 3, at the raw-media shapes, fp32 and bf16, each timed, each
+    launch's kernels read back (the attention's, and fused_attn_ln2's
+    products: tf32x3 x 2 in fp32, wgmma x 2 in bf16). The key-bias
+    kernel's table entry is its bf16 layer-1 call (the bf16 forward's
+    largest); the other kernels keep their serving entries. The fp32 lines
+    are the extraction forward's (the ``clip`` stage's image tower, the
+    ``tome`` stage's key-bias layers), each run twice, bitwise the same;
+    with them the fp32 text towers' causal attentions
+    (``text_attention_cases``, from a seed of their own), and all go into
+    the kernels' table entries under ``extract_fp32``."""
     import torch
 
-    e2e_entries = {}
+    keys = ("shape", "route", "attn_kernel", "gemm_route", "attn_routes", "max_abs_err", "ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_fma_ms", "tflops")
+    e2e_entries, fp32_lines = {}, {}
     with torch.inference_mode():
         for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
             bf16 = dtype == torch.bfloat16
-            for case in e2e_kernel_cases(dtype, rng, gen):
-                run_kernel_case(case, dtype, tol, True, e2e_entries if bf16 else None)
-            torch.cuda.empty_cache()
+            cases = e2e_kernel_cases(dtype, rng, gen)
+            if not bf16:
+                cases += text_attention_cases(np.random.default_rng(25))
+            for case in cases:
+                line = run_kernel_case(case, dtype, tol, True, e2e_entries if bf16 else None)
+                if not bf16:
+                    require_repeat(case)
+                    fp32_lines.setdefault(case[0], []).append(
+                        {k: line[k] for k in keys if k in line})
+                torch.cuda.empty_cache()
     entries["attention_wide_key_bias"] = e2e_entries["attention_wide_key_bias"]
+    for name, lines in fp32_lines.items():
+        entries[name]["extract_fp32"] = lines
 
 
 def _grads(outs, inputs, cots):
@@ -3031,6 +3159,7 @@ def check_e2e_fp32(rng) -> None:
 
     import torch
 
+    from qa_tiger_tpu_torch import ops
     from qa_tiger_tpu_torch.models.vit import vit_forward
     from qa_tiger_tpu_torch.ops.tome import bipartite_soft_matching, merge_wavg
     from qa_tiger_tpu_torch.pipeline.e2e import e2e_forward, e2e_init, encode_media
@@ -3053,7 +3182,11 @@ def check_e2e_fp32(rng) -> None:
         return ({k: v.float().cpu() for k, v in feats.items()},
                 [{k: v.cpu() for k, v in m.items()} for m in merges])
 
-    (got, got_m), (want, want_m) = run(card, "cuda"), run(cpu, "cpu")
+    ops.reset_launches()
+    got, got_m = run(card, "cuda")
+    torch.cuda.synchronize()
+    require_fp32_tensor_cores("e2e_fp32_b1")
+    want, want_m = run(cpu, "cpu")
     errs = {k: (got[k] - want[k]).abs().max().item() for k in want}
     close = {k: bool(torch.allclose(got[k], want[k], **LOGITS_TOL)) for k in want}
     flips, gaps = [], []
@@ -3143,10 +3276,29 @@ def check_e2e_bf16(rng, profile_dir: Path | None) -> dict:
     return counts
 
 
-def check_extract(rng) -> None:
-    """The extraction stages' per-video encoders on one video, through the
-    stages' own model loading (random weights, the card, fp32): a
-    [60, 384, 384, 3] ToMe array, a [60, 336, 336, 3] CLIP array and 60 s of
+# the fp32 extraction stages' launches per call: the image towers' blocks
+# and ToMe's 23 key-bias layers beside its first, the text tower's 12
+# blocks a chunk of 256 texts
+EXTRACT_LAUNCHES = {"clip": {"fused_attn_ln2": 24, "attention_wide": 0},
+                    "tome": {"fused_attn_ln2": 0, "attention_wide": 24,
+                             "attention_wide_key_bias": 23},
+                    "questions": {"fused_attn_ln2": 12, "attention_wide": 0}}
+
+
+def check_extract(rng, profile_dir: Path | None = None) -> None:
+    """(c) The extraction stages' per-video encoders in fp32, through the
+    stages' own model loading (random weights, the card), timed by
+    ``chip_ab.time_extract`` (the code that times a parent checkout beside
+    this one): ``clip`` (ViT-L/14@336px over one video's 60 frames),
+    ``tome`` (ViT-L/16@384 with 23 merges of 25) and ``questions``
+    (``encode_texts`` over 256 question texts), 2 warm-up calls, the median
+    of 5, each between two synchronizes, and one profiled call each (its
+    device busy time and idle share, ``extract_profile_<stage>``); the
+    outputs' shapes ([60, 768], [60, 14, 1024], [256, 768]) and finiteness.
+    After the warm-up the launch counters are reset around one call of each
+    stage: its launches (``EXTRACT_LAUNCHES``), every fp32 product of
+    fused_attn_ln2 on gemm_tf32x3 and no attention on an FMA kernel, as the
+    launches read them back. Then the ``vggish`` stage's encoder on 60 s of
     PCM written to and read back from a wav."""
     import argparse
     import tempfile
@@ -3154,39 +3306,47 @@ def check_extract(rng) -> None:
     import torch
     from scipy.io import wavfile
 
-    from qa_tiger_tpu_torch.models.clip_image import CLIPVisionTower
-    from qa_tiger_tpu_torch.models.vit import VisionTransformer
+    import chip_ab
+    from qa_tiger_tpu_torch import ops
     from qa_tiger_tpu_torch.pipeline import extract as E
     from qa_tiger_tpu_torch.pipeline.vggish import VGGish, vggish_embed_seconds
 
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        print(json.dumps({"phase": f"extract_{name}_launches", **counts}), flush=True)
+        for kernel, n in EXTRACT_LAUNCHES[name].items():
+            require(counts.get(kernel, 0) == n, f"extract {name}: {kernel} launched "
+                                                f"{counts.get(kernel, 0)} times, expected {n}")
+        require_fp32_tensor_cores(f"extract_{name}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = chip_ab.time_extract(ROOT, profile_dir or Path(tmp), profile_step, counted)
+    for name, shape in (("clip", [T, 768]), ("tome", [T, 14, 1024]),
+                        ("questions", [chip_ab.EXTRACT_TEXTS, 768])):
+        require(rows[name]["shape"] == shape and rows[name]["finite"],
+                f"extract {name}: {rows[name]}, expected {shape}, finite")
+
     args = argparse.Namespace(weights=None, random_weights=True, device=None)
-    stages = {"tome": (VisionTransformer, (T, 14, 1024)), "clip": (CLIPVisionTower, (T, 768)),
-              "vggish": (VGGish, (T, 128))}
-    line = {"phase": "extract"}
     with tempfile.TemporaryDirectory() as tmp:
         wav = Path(tmp) / "video.wav"
         wavfile.write(wav, SR, (3000 * rng.standard_normal(SR * T)).astype(np.int16))
-        inputs = {
-            "tome": lambda: rng.standard_normal((T, 384, 384, 3), dtype=np.float32),
-            "clip": lambda: rng.standard_normal((T, 336, 336, 3), dtype=np.float32),
-            "vggish": lambda: E.read_seconds(wav, T)}
-        encoders = {"tome": lambda m, x: E.encode_tome(m, x, [25] * 23),
-                    "clip": E.encode_clip, "vggish": vggish_embed_seconds}
-        for name, (build, shape) in stages.items():
-            model = E._load_params(args, build)
-            x = torch.from_numpy(inputs[name]()).cuda()
-            with torch.inference_mode():
-                torch.cuda.synchronize()
-                start = time.perf_counter()
-                out = encoders[name](model, x)
-                torch.cuda.synchronize()
-            line[name] = {"shape": list(out.shape), "ms": (time.perf_counter() - start) * 1e3,
-                          "finite": bool(torch.isfinite(out).all())}
-            require(tuple(out.shape) == shape and line[name]["finite"],
-                    f"extract {name}: {line[name]}, expected {shape}, finite")
-            del model, x, out
-            torch.cuda.empty_cache()
+        model = E._load_params(args, VGGish)
+        x = torch.from_numpy(E.read_seconds(wav, T)).cuda()
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = vggish_embed_seconds(model, x)
+            torch.cuda.synchronize()
+    line = {"phase": "extract", "vggish": {"shape": list(out.shape),
+                                           "ms": (time.perf_counter() - start) * 1e3,
+                                           "finite": bool(torch.isfinite(out).all())}}
     print(json.dumps(line), flush=True)
+    require(tuple(out.shape) == (T, 128) and line["vggish"]["finite"],
+            f"extract vggish: {line['vggish']}, expected {(T, 128)}, finite")
 
 
 # ---------------------------------------------------------------------------
@@ -3246,16 +3406,19 @@ def tspm_attention_cases(dtype, rng):
                       lambda q=q, k=k, v=v, sc=sc, h=heads: A.attention_wide(q, k, v, None, sc, h),
                       lambda q=q, k=k, v=v, sc=sc, h=heads: A._wide_reference(q, k, v, None, sc, h),
                       sdpa, (2 * b * sq * W + 2 * b * sk * W) * isz, 4 * b * sq * sk * W,
-                      {"attn": (sq, sk, hd)}))
+                      {"attn": (sq, sk, hd), **attn_tally(dtype, sq, sk, hd, False),
+                       **({"peak": "tf32x3"} if dtype == torch.float32 else {})}))
     return cases
 
 
 # the kernels TSPM's attention calls must take, by dtype: in bf16 the wide
 # tensor-core kernels (AV_Attn, the 577-key head: mma_wide; TokensAttn:
 # mma_wide_short) and the short route (the four-head attn_ffn calls); in
-# fp32 the FMA kernels
+# fp32 the lane split's 3xTF32 stages (the one-head calls and the 577-key
+# head) and the keep-masked kernel without its keep mask (the four-head
+# calls)
 TSPM_ATTN_KERNELS = {"bfloat16": {"mma_wide", "mma_wide_short", "mma_short"},
-                     "float32": {"wide", "staged"}}
+                     "float32": {"lane_split", "mma_nokeep"}}
 
 
 def check_tspm_attention(entries: dict) -> None:
@@ -3279,6 +3442,8 @@ def check_tspm_attention(entries: dict) -> None:
             for case in tspm_attention_cases(dtype, rng):
                 line = run_kernel_case(case, dtype, tol, True, None)
                 lines.append({k: line[k] for k in keys if k in line})
+                if dtype == torch.float32:
+                    require_repeat(case)
         b, sq, sk, W = 8, T, T, 512
         mask = torch.triu(torch.full((sq, sk), float("-inf"), device="cuda"), 1)
         kb = torch.from_numpy(np.log(rng.integers(1, 41, (b, sk))).astype(np.float32)).cuda()
@@ -3357,7 +3522,10 @@ def check_tspm(profile_dir: Path | None) -> tuple[dict, dict]:
     cpu = TSPM(mcfg, seed=0).eval()
     batch = make_tspm_batch(np.random.default_rng(15), 4)
     with torch.inference_mode():
+        ops.reset_launches()
         got = card({k: torch.from_numpy(v).cuda() for k, v in batch.items()}, aux=True)
+        torch.cuda.synchronize()
+        require_tensor_core_attention("tspm_fp32_b4_attn_routes")
         want = cpu({k: torch.from_numpy(v) for k, v in batch.items()}, aux=True)
     logits, ref = got["out"].float().cpu(), want["out"]
     err = (logits - ref).abs().max().item()
@@ -3677,7 +3845,10 @@ def check_clip(profile_dir: Path | None) -> dict:
         card = clip.build_towers(text_sd, vision_sd, encoder_type, device="cuda")
         cpu = clip.build_towers(text_sd, vision_sd, encoder_type, device="cpu")
         with torch.inference_mode():
+            ops.reset_launches()
             got = clip.clip_forward(*card, imgs.cuda(), toks.cuda(), encoder_type=encoder_type)
+            torch.cuda.synchronize()
+            require_fp32_tensor_cores(f"{path}_fp32")
             want = clip.clip_forward(*cpu, imgs, toks, encoder_type=encoder_type)
         got, want = got[0].float().cpu(), want[0]
         err = (got - want).abs().max().item()
@@ -5082,9 +5253,9 @@ TP_TRAIN_STEPS = 3
 # the tower's dtype in the two tp_train runs: fp32, where the first step's
 # gradients are compared, and the recipe's bf16
 TP_TRAIN_TOWERS = ("float32", "bfloat16")
-# the most hidden units of TempMoE's experts whose ReLU may fall on the other
-# side of its kink in the ranks' first step (each shown to lie within the
-# rounding bound of 0 in both runs)
+# the most hidden units of TempMoE's experts, and as many of the AVQ FFN's,
+# whose ReLU may fall on the other side of its kink in the ranks' first step
+# (each shown to lie within the rounding bound of 0 in both runs)
 TP_TRAIN_MAX_KINKS = 8
 # the bf16 tower's losses against one process's, relative: the first step's
 # (the same weights; measured 7.6e-5 on the H100) and the later steps'
@@ -5105,21 +5276,56 @@ TP_TRAIN_STAGE_COUNTS = {"fused_attn_ln2_partial": 12, "fused_attn_ln2_post": 12
 
 
 @contextlib.contextmanager
-def step_probe(model, record: dict, kinks: list | None = None):
+def step_probe(model, record: dict, kinks: list | None = None,
+               avq_kinks: list | None = None):
     """While open: the frozen tower's output (``record["tower"]``: pooled,
     words) and each MoE call's stream and first Linear (``record["moe"]``:
     x, w1t, b1, in call order) recorded on the host, the MoE entry points
-    (``modules.fused_gaussian_moe`` / ``_partial``) wrapped for that. With
-    ``kinks`` (per call a [B, T, E, H] tensor of -1, 0 or +1) the call's
-    hidden ReLU takes the other side of its kink where the entry is not 0:
-    the output is unchanged, and the backward adds (+1) or drops (-1) those
-    hidden units' gradient, as a run whose ReLU fell on that side would."""
+    (``modules.fused_gaussian_moe`` / ``_partial``) wrapped for that; and
+    each AVQ train forward's FFN input, hidden ReLU side and linear1
+    (``record["avq"]``: h1 [R, D], hr > 0 [R, H] over this process's hidden
+    units, w1 [H, D], b1 [H]), as the kernel's forward saved them for its
+    backward (one process: ``modules.fused_avq_train``'s saved tensors; a
+    model rank: its ``_AVQState``, whose hidden columns are its linear1
+    shard). With ``kinks`` (per call a [B, T, E, H] tensor of -1, 0 or +1)
+    the MoE call's hidden ReLU takes the other side of its kink where the
+    entry is not 0: the output is unchanged, and the backward adds (+1) or
+    drops (-1) those hidden units' gradient, as a run whose ReLU fell on
+    that side would. ``avq_kinks`` (per AVQ call an [R, D] tensor of -1, 0
+    or +1) does the same for one process's AVQ FFN: the saved ReLU output
+    its backward reads as the side is set to the smallest normal (+1) or 0
+    (-1) at those units after the forward, which is unchanged."""
     import torch
 
     from qa_tiger_tpu_torch.models import modules
+    from qa_tiger_tpu_torch.ops import avq as AV
 
     saved = modules.fused_gaussian_moe, modules.fused_gaussian_moe_partial
-    record["moe"] = []
+    saved_avq, saved_state = modules.fused_avq_train, AV._AVQState
+    record["moe"], record["avq"], states = [], [], []
+    l1w, l1b = AV.WEIGHT_NAMES.index("l1_w"), AV.WEIGHT_NAMES.index("l1_b")
+    # where _AVQTrain's saved tensors (src, val, wrd, the weights, SAVED)
+    # hold LN1's output h1 and the ReLU's output hr, whose sign the backward
+    # reads as the ReLU's side
+    h1_at, hr_at = (3 + len(AV.WEIGHT_NAMES) + AV.SAVED.index(k) for k in ("h1", "hr"))
+
+    def avq(src, val, wrd, params, masks, nhead):
+        out = saved_avq(src, val, wrd, params, masks, nhead)
+        i = len(record["avq"])
+        h1, hr = (out.grad_fn.saved_tensors[j] for j in (h1_at, hr_at))
+        record["avq"].append([h1.detach().cpu(), (hr > 0).cpu(),
+                              params.linear1.weight.detach().cpu(),
+                              params.linear1.bias.detach().cpu()])
+        if avq_kinks is not None and avq_kinks[i].any():
+            side = avq_kinks[i].to(hr.device)
+            hr.data[side > 0] = torch.finfo(hr.dtype).tiny
+            hr.data[side < 0] = 0
+        return out
+
+    class RecordedState(saved_state):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            states.append(self)
 
     def wrap(fn):
         def call(x, w1t, b1, w2t, *rest):
@@ -5138,22 +5344,28 @@ def step_probe(model, record: dict, kinks: list | None = None):
     hook = model.quest_encoder.register_forward_hook(
         lambda _m, _a, out: record.__setitem__("tower", [t.detach().cpu() for t in out]))
     modules.fused_gaussian_moe, modules.fused_gaussian_moe_partial = map(wrap, saved)
+    modules.fused_avq_train, AV._AVQState = avq, RecordedState
     try:
         yield
     finally:
         modules.fused_gaussian_moe, modules.fused_gaussian_moe_partial = saved
+        modules.fused_avq_train, AV._AVQState = saved_avq, saved_state
         hook.remove()
+    for st in states:
+        record["avq"].append([st.bufs["h1"].detach().cpu(), (st.bufs["hr"] > 0).cpu(),
+                              st.weights[l1w].detach().cpu(), st.weights[l1b].detach().cpu()])
 
 
 def tp_train_run(rank: int | None, tower: str = "float32", kinks: list | None = None,
-                 steps: int = TP_TRAIN_STEPS) -> dict:
+                 steps: int = TP_TRAIN_STEPS, avq_kinks: list | None = None) -> dict:
     """``steps`` ``train_step`` calls at the recipe (fp32, the tower in
     ``tower``, B=32, dropout on, the global batches of ``dp_data``) from
     seed 0 and the runner's own step generator, on a dp1 x tp2 grid
     (``rank``) or in one process (None), the launch counters reset around
     each step: the losses, the per-step launches, stage launches and
     milliseconds, the first step's gradients gathered whole and its
-    ``step_probe`` record (``kinks`` passed to it), and after the last step
+    ``step_probe`` record (``kinks`` and ``avq_kinks`` passed to it), and
+    after the last step
     the replicated parameters as this rank holds them."""
     import torch
 
@@ -5167,7 +5379,7 @@ def tp_train_run(rank: int | None, tower: str = "float32", kinks: list | None = 
     runner = AVQARunner(cfg, mcfg, device="cuda", seed=0, grid=grid)
     out = {"losses": [], "launches": [], "stages": [], "step_ms": [], "probe": {}}
     for i, batch in enumerate(train[:steps]):
-        probe = (step_probe(runner.model, out["probe"], kinks) if i == 0
+        probe = (step_probe(runner.model, out["probe"], kinks, avq_kinks) if i == 0
                  else contextlib.nullcontext())
         with probe:
             torch.cuda.synchronize()
@@ -5233,6 +5445,40 @@ def relu_kinks(single: list, ranks: list) -> tuple[list, list]:
     return sides, kinks
 
 
+def avq_relu_kinks(single: list, ranks: list) -> tuple[list, list]:
+    """The hidden units of the AVQ train forward's FFN whose ReLU the ranks'
+    kernels and one process's took on different sides, as each forward
+    saved it for its backward (``step_probe``'s ``avq`` records: hr > 0; a
+    rank over its linear1 columns). Returns (per AVQ call the [R, D] tensor
+    of the ranks' side minus one process's; each such unit with its fp64
+    pre-activation h1 w + b in both runs beside ``bound``: (gamma_D +
+    2^-21) (sum |h1 w| + |b|) for one process's h1, gamma_D the fp32
+    rounding of a D-term sum and 2^-21 what 3xTF32's dropped lo*lo term and
+    tf32 splits can add per term, plus sum |dh1| |w| for the runs' inputs'
+    difference)."""
+    import torch
+
+    sides, kinks = [], []
+    for c, (h1, on_one, w1, b1) in enumerate(single):
+        side = torch.cat([r[c][1] for r in ranks], dim=-1).float() - on_one.float()
+        sides.append(side)
+        cols = w1.shape[0] // len(ranks)
+        d = h1.shape[-1]
+        gamma = d * 2.0 ** -24 / (1 - d * 2.0 ** -24) + 2.0 ** -21
+        for row, h in side.nonzero().tolist():
+            w = w1[h].double()
+            bias = float(b1[h])
+            x1, xt = h1[row].double(), ranks[h // cols][c][0][row].double()
+            p_one, p_tp = float(x1 @ w) + bias, float(xt @ w) + bias
+            terms = float(x1.abs() @ w.abs()) + abs(bias)
+            bound = gamma * terms + float((x1 - xt).abs() @ w.abs())
+            kinks.append({"call": c, "row": int(row), "unit": int(h),
+                          "ranks_side": int(side[row, h]), "pre_one": p_one, "pre_ranks": p_tp,
+                          "terms_abs": terms, "bound": bound,
+                          "within": max(abs(p_one), abs(p_tp)) <= bound})
+    return sides, kinks
+
+
 def grad_rows(got: dict, want: dict) -> list:
     """Per tensor of ``want``: (error over its own largest element, name,
     that largest element, the error, the count of elements past 1e-4 of
@@ -5268,9 +5514,10 @@ def check_tp_train(pair: dict) -> dict:
     TP_TRAIN_STAGE_COUNTS. fp32 tower: each step's losses within rtol 1e-5;
     the first step's gradients, gathered whole, within 1e-4 of each tensor's
     own largest element against one process's first step with TempMoE's
-    hidden ReLUs on the ranks' side at the units where the two runs' sides
-    differ (``relu_kinks``: at most TP_TRAIN_MAX_KINKS, each within the
-    rounding bound of 0 in both runs; ``step_probe``). bf16 tower: the
+    and the AVQ FFN's hidden ReLUs on the ranks' side at the units where
+    the two runs' sides differ (``relu_kinks``, ``avq_relu_kinks``: at most
+    TP_TRAIN_MAX_KINKS each, each within the rounding bound of 0 in both
+    runs; ``step_probe``). bf16 tower: the
     losses within TP_TRAIN_BF16_LOSS_RTOL. Both print the first step's
     tower output against one process's (``tower_diff``). Returns rank 0's
     launches of its last fp32-tower step."""
@@ -5280,7 +5527,8 @@ def check_tp_train(pair: dict) -> dict:
     single = pair["single"]["train"]
     one, tps = single["float32"], [r["float32"] for r in ranks]
     sides, kinks = relu_kinks(one["probe"]["moe"], [r["probe"]["moe"] for r in tps])
-    aligned = tp_train_run(None, "float32", kinks=sides, steps=1)
+    avq_sides, avq_kinks = avq_relu_kinks(one["probe"]["avq"], [r["probe"]["avq"] for r in tps])
+    aligned = tp_train_run(None, "float32", kinks=sides, steps=1, avq_kinks=avq_sides)
     torch.cuda.empty_cache()
     lines = []
     for tower in TP_TRAIN_TOWERS:
@@ -5308,7 +5556,8 @@ def check_tp_train(pair: dict) -> dict:
             rows = [grad_rows(r["grads"], aligned["grads"]) for r in tps]
             worst = max(row[0][0] for row in rows)
             line.update(
-                relu_kinks=kinks, kinks_within_bound=all(k["within"] for k in kinks),
+                relu_kinks=kinks, avq_relu_kinks=avq_kinks,
+                kinks_within_bound=all(k["within"] for k in kinks + avq_kinks),
                 grads_compared=len(aligned["grads"]), grad_max_err_over_own_max=worst,
                 grads_close=worst <= 1e-4,
                 grad_worst=[{"param": n, "err_over_own_max": q, "own_max_abs": m, "err": e,
@@ -5344,10 +5593,11 @@ def check_tp_train(pair: dict) -> dict:
                                       f"{line['single_losses']} by {loss_err}")
         require(bitwise, f"tp_train ({tower} tower): the ranks' replicated parameters differ")
     fp32 = lines[0]
-    require(len(kinks) <= TP_TRAIN_MAX_KINKS,
-            f"tp_train: {len(kinks)} hidden ReLUs of TempMoE fall on other sides")
+    require(len(kinks) <= TP_TRAIN_MAX_KINKS and len(avq_kinks) <= TP_TRAIN_MAX_KINKS,
+            f"tp_train: {len(kinks)} hidden ReLUs of TempMoE and {len(avq_kinks)} of the AVQ "
+            "FFN fall on other sides")
     require(fp32["kinks_within_bound"], "tp_train: a hidden ReLU whose side differs is not "
-                                        f"within the rounding bound of 0: {kinks}")
+                                        f"within the rounding bound of 0: {kinks + avq_kinks}")
     require(fp32["grads_close"], f"tp_train: a first-step gradient differs by "
                                  f"{fp32['grad_max_err_over_own_max']:.3e} of its own largest "
                                  "element")
@@ -6066,7 +6316,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["e2e"] = timed("e2e_bf16", check_e2e_bf16, rng, args.profile)
         torch.cuda.empty_cache()
-        timed("extract", check_extract, rng)
+        timed("extract", check_extract, rng, args.profile)
         torch.cuda.empty_cache()
         timed("tspm_attention", check_tspm_attention, entries)
         torch.cuda.empty_cache()

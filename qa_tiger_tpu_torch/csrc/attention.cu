@@ -54,14 +54,22 @@
 //   3, "mma_keep", the keep-masked tensor-core kernel of
 //   csrc/attention_keep.cu (its own entries qt_attention_keep and
 //   qt_attention_keep_bwd run it alone);
-// - no keep mask, additive mask or key bias at head sizes 32, 64 and 128
-//   over at most 128 keys: in fp32 every such call (the fp32 evaluation
-//   forward's AVQ, TempMoE and QstGrounding calls, PatchSelecter's two),
-//   in bf16 fewer than 16 queries over more than 16 keys (TempMoE's
-//   1 x 60): route 4, "mma_nokeep", the same kernel with its keep multiply
-//   compiled out (3xTF32 in fp32, a warp per problem for one query);
-// - every other call (fp32 with a mask or key bias, at other head sizes or
-//   past 128 keys; a keep mask at other head sizes or longer keys; bf16
+// - fp32 without a keep mask at head sizes 32, 64 and 128, with or
+//   without an additive mask or a key bias (the fp32 evaluation forward's
+//   AVQ, TempMoE and QstGrounding calls, PatchSelecter's two; the fp32 text
+//   towers' causal calls; ToMe's key-bias layers and the CLIP image tower),
+//   and bf16 without a mask or key bias for fewer than 16 queries over more
+//   than 16 keys (TempMoE's 1 x 60): route 4, "mma_nokeep", the same kernel
+//   with its keep multiply compiled out (3xTF32 in fp32, a warp per problem
+//   for one query), over at most 128 keys; past 128 keys (fp32 only) its
+//   key-tiled form "mma_nokeep_tiled", 128 query rows a block, 64-key tiles
+//   in two passes (the row max and sum, then p and p·v);
+// - fp32 at head sizes 256 and 512 without a mask or key bias (TSPM's
+//   one-head AV_Attn and TokensAttn in fp32): route 5, "tf32x3", kernel
+//   "lane_split", the lane split's two 3xTF32 stages below at one rank, a
+//   head at a time, its fp32 scores through a scratch the wrapper gives;
+// - every other call (fp32 wide heads with a mask or key bias, fp32 at
+//   other head sizes; a keep mask at other head sizes or longer keys; bf16
 //   with fewer than 16 queries over more keys under a mask or key bias;
 //   a wide head past ~1,500 keys in bf16): route 0, "fma", fp32 FMAs out
 //   of shared memory: keys up to 128 staged whole where they fit the
@@ -72,18 +80,50 @@
 // PERF.md has each route's time beside the bound.
 #include "attention_tp.cuh"
 
+namespace qt {
+
+static_assert(ATT_LANES_SMEM == TpScoresGeo<false>::SMEM &&
+                  ATT_LANES_SMEM == TpScoresGeo<true>::SMEM &&
+                  ATT_LANES_SMEM >= TpPvGeo<false>::SMEM && ATT_LANES_SMEM >= TpPvGeo<true>::SMEM,
+              "the plan's lane-split shared memory is the stages' ring");
+
+// The fp32 lane split at one rank, a head at a time: the head's fp32 scores
+// [B, Sq, Sk] into scratch (tp_scores over its hd lanes, unscaled), then
+// tp_pv's scale, softmax and p·v into its context lanes. Each head's pair
+// of launches runs on the stream in order, so one scratch serves them all.
+cudaError_t attention_lanes(KeepIn q, KeepIn k, KeepIn v, KeepOut out, int B, int Sq, int Sk,
+                            int heads, int hd, float scale, float* scratch,
+                            cudaStream_t stream) {
+  if (!scratch) return cudaErrorInvalidValue;
+  for (int h = 0; h < heads; ++h) {
+    const long long col = (long long)h * hd;
+    cudaError_t err = attention_tp_scores<float>(static_cast<const float*>(q.p) + col, q.bs,
+                                                 q.ss, static_cast<const float*>(k.p) + col,
+                                                 k.bs, k.ss, scratch, B, Sq, Sk, hd, stream);
+    if (err != cudaSuccess) return err;
+    err = attention_tp_pv<float>(scratch, static_cast<const float*>(v.p) + col, v.bs, v.ss,
+                                 nullptr, static_cast<float*>(out.p) + col, out.bs, out.ss, B, Sq,
+                                 Sk, hd, scale, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace qt
+
 namespace {
 
 template <typename T>
 int run(const void* q, long long q_bs, long long q_ss, const void* k, long long k_bs,
         long long k_ss, const void* v, long long v_bs, long long v_ss, void* out,
         long long o_bs, long long o_ss, const void* mask, const void* key_bias, int B, int Sq,
-        int Sk, int heads, int hd, float scale, int* kernel, void* stream) {
+        int Sk, int heads, int hd, float scale, int* kernel, void* scratch, void* stream) {
   return qt::attention<T>(static_cast<const T*>(q), q_bs, q_ss, static_cast<const T*>(k), k_bs,
                           k_ss, static_cast<const T*>(v), v_bs, v_ss, static_cast<T*>(out), o_bs,
                           o_ss, static_cast<const float*>(mask), B, Sq, Sk, heads, hd, scale,
                           static_cast<cudaStream_t>(stream), nullptr, 0, false,
-                          static_cast<const float*>(key_bias), kernel);
+                          static_cast<const float*>(key_bias), kernel,
+                          static_cast<float*>(scratch));
 }
 
 }  // namespace
@@ -93,7 +133,8 @@ extern "C" const char* qt_error_string(int err) {
 }
 
 // the kernel family qt::attention takes for such a call on the current
-// device: 4 the keep-masked kernel without a keep mask (mma_nokeep), 3 the
+// device: 5 the lane split's 3xTF32 stages (tf32x3), 4 the keep-masked
+// kernel without a keep mask (mma_nokeep, mma_nokeep_tiled), 3 the
 // keep-masked tensor-core kernel (mma_keep), 2 a tensor-core kernel with a
 // warp per problem (mma_short, mma_wide_short), 1 one with 64 query rows
 // per block (mma, mma_wide), 0 an FMA kernel; dtype 0 is float32, 1
@@ -106,7 +147,8 @@ extern "C" int qt_attention_route(int dtype, int Sq, int Sk, int hd, int has_kee
 
 // the kernel of qt::attention_plan on the current device (-1 none, 0 staged,
 // 1 tiled, 2 wide-head, 3 mma, 4 mma_short, 5 mma_wide, 6 mma_wide_short,
-// 7 mma_keep, 8 mma_nokeep), its shared memory in *smem; ops/attention.py
+// 7 mma_keep, 8 mma_nokeep, 9 mma_nokeep_tiled, 10 lane_split), its shared
+// memory in *smem; ops/attention.py
 // holds its own plan (attention_plan) against this one
 extern "C" int qt_attention_plan(int dtype, int Sq, int Sk, int hd, int has_keep, int has_bias,
                                  long long* smem) {
@@ -132,26 +174,30 @@ extern "C" int qt_attention_bwd_plan(int dtype, int Sq, int Sk, int hd, int has_
 // the current device's opt-in shared memory per block, in bytes
 extern "C" int qt_smem_optin() { return (int)qt::smem_optin(); }
 
-// kernel (a host int, may be null): the AttentionKernel the call launched
+// kernel (a host int, may be null): the AttentionKernel the call launched;
+// scratch: fp32 [B, Sq, Sk] for the lane split's scores (null where the
+// plan is another kernel)
 extern "C" int qt_attention(int dtype, const void* q, long long q_bs, long long q_ss,
                             const void* k, long long k_bs, long long k_ss, const void* v,
                             long long v_bs, long long v_ss, void* out, long long o_bs,
                             long long o_ss, const void* mask, const void* key_bias, int B,
                             int Sq, int Sk, int heads, int hd, float scale, int* kernel,
-                            void* stream) {
+                            void* scratch, void* stream) {
   auto fn = dtype == 0 ? &run<float> : &run<__nv_bfloat16>;
   return fn(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask, key_bias, B, Sq,
-            Sk, heads, hd, scale, kernel, stream);
+            Sk, heads, hd, scale, kernel, scratch, stream);
 }
 
-// out is a contiguous [BH, Sq, dh]; q, k and v need unit stride along dh.
+// out is a contiguous [BH, Sq, dh]; q, k and v need unit stride along dh;
+// scratch as qt_attention's
 extern "C" int qt_fused_attention(int dtype, const void* q, long long q_bs, long long q_ss,
                                   const void* k, long long k_bs, long long k_ss, const void* v,
                                   long long v_bs, long long v_ss, void* out, const void* mask,
-                                  int BH, int Sq, int Sk, int dh, float scale, void* stream) {
+                                  int BH, int Sq, int Sk, int dh, float scale, void* scratch,
+                                  void* stream) {
   auto fn = dtype == 0 ? &run<float> : &run<__nv_bfloat16>;
   return fn(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, (long long)Sq * dh, dh, mask,
-            nullptr, BH, Sq, Sk, 1, dh, scale, nullptr, stream);
+            nullptr, BH, Sq, Sk, 1, dh, scale, nullptr, scratch, stream);
 }
 
 // attention_wide's tensor-parallel stages for one head split by lanes

@@ -17,14 +17,22 @@
 // attention_bwd_kernel) by the plan; nothing falls back after a launch.
 //
 // The forward without a keep mask (kernel "mma_nokeep", the keep multiply
-// compiled out) is attention_wide's unmasked body on the same tensor cores:
+// compiled out) is attention_wide's body on the same tensor cores:
 // qa_tiger_tpu/ops/pallas/attention.py _wide_body (:202, the pallas_call
-// :351), which rounds as _attn_fwd does with keep = 1. qt::attention takes
-// it for every fp32 call at these head sizes and keys without an additive
-// mask or a key bias (the fp32 evaluation forward's AVQ, TempMoE and
+// :351, with the key-bias bodies :247 and :253), which rounds as _attn_fwd
+// does with keep = 1. qt::attention takes it for every fp32 call at these
+// head sizes and keys, an additive mask and a key bias added to the scaled
+// scores before the row max (the fp32 evaluation forward's AVQ, TempMoE and
 // QstGrounding calls, fused_patch_select's two, and their tensor-parallel
-// stages), and for the bf16 calls of fewer than 16 queries over more keys
-// that no other tensor-core kernel takes (TempMoE's one query over 60).
+// stages; the fp32 text towers' causal calls inside fused_attn_ln2; the
+// ToMe layers of at most 128 tokens), and for the bf16 calls of fewer than
+// 16 queries over more keys, without a mask or key bias, that no other
+// tensor-core kernel takes (TempMoE's one query over 60). Past 128 keys
+// its fp32 key-tiled form takes the call ("mma_nokeep_tiled": the CLIP
+// image tower's 577 keys, the long ToMe layers): 128 query rows a block,
+// the keys in 64-key tiles through a two-stage cp.async ring, two passes
+// (the row max and sum, then p and p·v), as attention_mma_kernel orders
+// them in bf16.
 //
 // The op, per (batch element, head) problem, as the Pallas bodies round it:
 //   s = (q kᵀ) * scale, scaled after the product; max, exp, sum in fp32;
@@ -81,9 +89,10 @@
 // the resident blocks overlap one another's copies with their products.
 //
 // Needs 16-byte aligned q, k, v, g and outputs whose batch and row strides
-// are whole 16 bytes, no additive mask and no key bias; a call that breaks
-// that returns cudaErrorInvalidValue (the train kernels' buffers always
-// qualify).
+// are whole 16 bytes, and no additive mask or key bias beside a keep mask
+// or in bf16; a call that breaks that returns cudaErrorInvalidValue (the
+// train kernels' buffers always qualify; attention_wide's wrapper copies an
+// operand that does not).
 // ---------------------------------------------------------------------------
 #include <initializer_list>
 
@@ -417,14 +426,46 @@ __device__ __forceinline__ void ak_flush(T* base, long long ss, const float (&o)
   __syncwarp();
 }
 
+// row qi of the mask [Sq, Sk]; null past Sq or without a mask
+__device__ __forceinline__ const float* ak_mask_row(const float* mask, int qi, int Sq, int Sk) {
+  return mask && qi < Sq ? mask + (long long)qi * Sk : nullptr;
+}
+
+// the fp32 logits of one key tile's scores (ak_qk's fragments, keys k0 +
+// 8 j + 2 t + e % 2): s * scale, + the row's mask (m0: row g, m1: row g + 8;
+// null past Sq or without a mask), + the key bias kb (may be null), in
+// _wide_body's order; keys past Sk (BOUNDED: the tile may reach past Sk)
+// are left to the caller, which sets them to -inf
+template <int KS, bool BOUNDED = true>
+__device__ __forceinline__ void ak_bias(float (&s)[2 * KS][4], int nks, int Sk, float scale,
+                                        int t4, const float* m0, const float* m1,
+                                        const float* kb, int k0) {
+#pragma unroll
+  for (int j = 0; j < 2 * KS; ++j) {
+    if (j >= 2 * nks) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = k0 + 8 * j + 2 * t4 + (e & 1);
+      if (BOUNDED && key >= Sk) continue;
+      float x = s[j][e] * scale;
+      const float* m = e >> 1 ? m1 : m0;
+      if (m) x += m[key];
+      if (kb) x += kb[key];
+      s[j][e] = x;
+    }
+  }
+}
+
 // The forward, in the form keep_form gives the call. AK_SHORT (Sq, Sk <=
 // AK_ROWS): a warp per problem, AK_WARPS a block, one 16-key step; AK_WARP
 // (no keep mask, Sq <= AK_ROWS < Sk: one query, as TempMoE's, over up to
 // ATT_KEEP_MAX_SK keys): a warp per problem, a block each, its own 16 Q rows
 // and all the problem's K and V rows; AK_LONG: a block per (problem, 64-row
 // query tile), K and V shared by its four warps. KEEP false (kernel
-// "mma_nokeep": no keep mask, attention_wide's unmasked calls) compiles the
-// keep multiply out: pd = round_T(p), as _wide_body rounds p.
+// "mma_nokeep": no keep mask, attention_wide's calls) compiles the keep
+// multiply out: pd = round_T(p), as _wide_body rounds p; in fp32 it also
+// adds the additive mask [Sq, Sk] and the key bias [B, Sk] (either may be
+// null) to the scaled scores, before the row max, as _wide_body does.
 template <typename T, int HD, int FORM, bool KEEP>
 __global__ void __launch_bounds__(AK_THREADS)
 attention_keep_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
@@ -432,7 +473,9 @@ attention_keep_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
                       const T* __restrict__ v, long long v_bs, long long v_ss,
                       T* __restrict__ out, long long o_bs, long long o_ss,
                       const T* __restrict__ keep, long long keep_ld, int problems, int heads,
-                      int Sq, int Sk, float scale, bool round_p_first) {
+                      int Sq, int Sk, float scale, bool round_p_first,
+                      const float* __restrict__ mask, const float* __restrict__ key_bias) {
+  constexpr bool BIAS = !KEEP && std::is_same<T, float>::value;  // mask and key bias read
   constexpr bool WARP = FORM != AK_LONG;  // a warp owns a whole problem
   constexpr int WPB = FORM == AK_SHORT ? AK_WARPS : 1;  // warps (problems) a block
   constexpr int LD = keep_stage_ld(HD, (int)sizeof(T));
@@ -474,6 +517,14 @@ attention_keep_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
   float s[2 * KS][4];
   ak_zero(s);
   ak_qk<HD, KS>(s, Qs + wr * LD, Ks, nks, lane);
+  if constexpr (BIAS) {
+    if (mask || key_bias) {
+      ak_bias<KS>(s, nks, Sk, scale, t4, ak_mask_row(mask, r0 + g, Sq, Sk),
+                  ak_mask_row(mask, r0 + g + 8, Sq, Sk), key_bias ? key_bias + b * Sk : nullptr,
+                  0);
+      scale = 1.0f;  // applied: ak_softmax's x * 1 is x
+    }
+  }
   ak_softmax<KS>(s, nks, Sk, scale, t4);
 #pragma unroll
   for (int j = 0; j < 2 * KS; ++j) {
@@ -493,6 +544,154 @@ attention_keep_kernel(const T* __restrict__ q, long long q_bs, long long q_ss,
   ak_pv<HD, KS>(o, s, Vs, nks, lane);
   // the warp's Q rows are free once its scores are in
   ak_flush<T, HD>(out + b * o_bs + col, o_ss, o, Qs + wr * LD, r0, Sq, 1.0f, false, lane);
+}
+
+// The fp32 forward without a keep mask past ATT_KEEP_MAX_SK keys (kernel
+// "mma_nokeep_tiled": the CLIP image tower's 577 keys, the long ToMe
+// layers with their key bias), _wide_body's arithmetic in two passes over
+// AKT_K-key tiles, as attention_mma_kernel's two-pass form orders them in
+// bf16: a block of AKT_WARPS warps owns AKT_Q query rows of a problem (a
+// warp 16 of them); item i of 2 nkt streams key tile i (pass 1: K only)
+// or tile i - nkt (pass 2: K and V) into stage i % 2 of a cp.async ring
+// while the warps work on the other stage. Pass 1 keeps each row's running
+// max and its lanes' parts of the sum rescaled to it (the row's sum is the
+// four parts' total); pass 2 recomputes the same scores, forms p =
+// exp(x - max) / sum after the row's global max and sum, and adds p v. The
+// scores and p·v run on 3xTF32 (ak_qk, ak_pv); each tile's p·v is summed
+// into a fresh fragment and folded into the fp32 context with an IEEE add,
+// as gemm_tf32x3.cuh folds its K slabs, so the context's sum over many
+// tiles rounds to nearest.
+template <int HD>
+__global__ void __launch_bounds__(AKT_THREADS, HD <= 64 ? 2 : 1)
+attention_nokeep_tiled_kernel(const float* __restrict__ q, long long q_bs, long long q_ss,
+                              const float* __restrict__ k, long long k_bs, long long k_ss,
+                              const float* __restrict__ v, long long v_bs, long long v_ss,
+                              float* __restrict__ out, long long o_bs, long long o_ss,
+                              const float* __restrict__ mask, const float* __restrict__ key_bias,
+                              int heads, int Sq, int Sk, float scale) {
+  constexpr int LD = keep_stage_ld(HD, (int)sizeof(float)), KS = AKT_K / 16;
+  extern __shared__ __align__(16) unsigned char akt_smem[];
+  float* const Qs = reinterpret_cast<float*>(akt_smem);  // [AKT_Q][LD]
+  float* const Ks = Qs + AKT_Q * LD;                      // [2][AKT_K][LD]
+  float* const Vs = Ks + 2 * AKT_K * LD;                  // [2][AKT_K][LD]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ntiles = (Sq + AKT_Q - 1) / AKT_Q, nkt = (Sk + AKT_K - 1) / AKT_K;
+  const long long pr = blockIdx.x / ntiles, b = pr / heads;
+  const int h = (int)(pr % heads), q0 = (int)(blockIdx.x % ntiles) * AKT_Q;
+  const long long col = (long long)h * HD;
+  const float* const kh = k + b * k_bs + col;
+  const float* const vh = v + b * v_bs + col;
+  const int wr = warp * AK_ROWS, r0 = q0 + wr;  // the warp's first row
+  // a warp whose 16 rows all lie past Sq copies its share and computes nothing
+  const bool live = r0 < Sq;
+  const float* const m0 = ak_mask_row(mask, r0 + g, Sq, Sk);
+  const float* const m1 = ak_mask_row(mask, r0 + g + 8, Sq, Sk);
+  const float* const kb = key_bias ? key_bias + b * Sk : nullptr;
+
+  const int items = 2 * nkt;
+  auto fetch = [&](int i) {
+    const int st = (i & 1) * AKT_K * LD, k0 = (i < nkt ? i : i - nkt) * AKT_K;
+    ak_load<float, HD>(Ks + st, kh + (long long)k0 * k_ss, k_ss, AKT_K, Sk - k0, tid, AKT_THREADS);
+    if (i >= nkt)
+      ak_load<float, HD>(Vs + st, vh + (long long)k0 * v_ss, v_ss, AKT_K, Sk - k0, tid,
+                         AKT_THREADS);
+  };
+  ak_load<float, HD>(Qs, q + b * q_bs + (long long)q0 * q_ss + col, q_ss, AKT_Q, Sq - q0, tid,
+                     AKT_THREADS);
+  fetch(0);
+  cp_async_commit();
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, inv[2] = {0.0f, 0.0f};
+  float o[HD / 8][4];
+  ak_zero(o);
+  // the logits of key tile k0: scale, mask and key bias where the call has
+  // them (BIASED), -inf past Sk (only the last tile, BOUNDED, reaches it)
+  auto logits = [&](float(&s)[2 * KS][4], int k0, auto biased, auto bounded) {
+    constexpr bool BOUNDED = decltype(bounded)::value;
+    if constexpr (decltype(biased)::value) {
+      ak_bias<KS, BOUNDED>(s, KS, Sk, scale, t4, m0, m1, kb, k0);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2 * KS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+    }
+    if constexpr (BOUNDED) {
+#pragma unroll
+      for (int j = 0; j < 2 * KS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * t4 + (e & 1) >= Sk) s[j][e] = -INFINITY;
+    }
+  };
+  auto tile = [&](int i, auto biased) {
+    const int st = (i & 1) * AKT_K * LD, k0 = (i < nkt ? i : i - nkt) * AKT_K;
+    float s[2 * KS][4];
+    ak_zero(s);
+    ak_qk<HD, KS>(s, Qs + wr * LD, Ks + st, KS, lane);
+    if (k0 + AKT_K <= Sk)
+      logits(s, k0, biased, std::false_type{});
+    else
+      logits(s, k0, biased, std::true_type{});
+    if (i < nkt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 2 * KS; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        const float mn = fmaxf(m[r], quad_max(mx));
+        if (mn == -INFINITY) continue;  // every key so far masked out
+        float part = l[r] * expf(m[r] - mn);
+#pragma unroll
+        for (int j = 0; j < 2 * KS; ++j)
+          part += expf(s[j][2 * r] - mn) + expf(s[j][2 * r + 1] - mn);
+        l[r] = part;
+        m[r] = mn;
+      }
+      if (i == nkt - 1) {
+        inv[0] = 1.0f / quad_sum(l[0]);
+        inv[1] = 1.0f / quad_sum(l[1]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2 * KS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = expf(s[j][e] - m[e >> 1]) * inv[e >> 1];
+      float part[HD / 8][4];
+      ak_zero(part);
+      ak_pv<HD, KS>(part, s, Vs + st, KS, lane);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] += part[n][e];
+    }
+  };
+  auto run = [&](auto biased) {
+    for (int i = 0; i < items; ++i) {
+      if (i + 1 < items) {
+        fetch(i + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // tile i has landed in every thread's share
+      if (live) tile(i, biased);
+      __syncthreads();  // stage i % 2 is refilled by the next iteration's fetch
+    }
+  };
+  if (mask || key_bias)
+    run(std::true_type{});
+  else
+    run(std::false_type{});
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = r0 + g + 8 * r;
+    if (qi >= Sq) continue;
+    float* orow = out + b * o_bs + (long long)qi * o_ss + col + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) ak_pair(orow + 8 * n, o[n][2 * r], o[n][2 * r + 1]);
+  }
 }
 
 // The backward. SHORT: a warp per problem as forward; otherwise a block per
@@ -629,7 +828,8 @@ template <auto Kernel> cudaError_t ak_set_smem(size_t bytes) {
 template <typename T, int HD, int FORM, bool KEEP>
 cudaError_t keep_fwd_form(KeepIn q, KeepIn k, KeepIn v, KeepOut out, const T* keep,
                           long long keep_ld, int B, int Sq, int Sk, int heads, float scale,
-                          bool round_p_first, cudaStream_t stream) {
+                          bool round_p_first, cudaStream_t stream, const float* mask,
+                          const float* key_bias) {
   const size_t smem = attention_keep_smem_bytes((int)sizeof(T), Sq, Sk, HD, KEEP);
   const long long problems = (long long)B * heads;
   const long long blocks = FORM == AK_SHORT  ? (problems + AK_WARPS - 1) / AK_WARPS
@@ -642,18 +842,20 @@ cudaError_t keep_fwd_form(KeepIn q, KeepIn k, KeepIn v, KeepOut out, const T* ke
       <<<(unsigned)blocks, FORM == AK_WARP ? 32 : AK_THREADS, smem, stream>>>(
           static_cast<const T*>(q.p), q.bs, q.ss, static_cast<const T*>(k.p), k.bs, k.ss,
           static_cast<const T*>(v.p), v.bs, v.ss, static_cast<T*>(out.p), out.bs, out.ss, keep,
-          keep_ld, (int)problems, heads, Sq, Sk, scale, round_p_first);
+          keep_ld, (int)problems, heads, Sq, Sk, scale, round_p_first, mask, key_bias);
   return cudaGetLastError();
 }
 
-// keep null: the unmasked form ("mma_nokeep")
+// keep null: the form without a keep mask ("mma_nokeep"; in fp32 with the
+// mask and key bias, either may be null)
 template <typename T, int HD>
 cudaError_t keep_fwd(KeepIn q, KeepIn k, KeepIn v, KeepOut out, const T* keep,
                      long long keep_ld, int B, int Sq, int Sk, int heads, float scale,
-                     bool round_p_first, cudaStream_t stream) {
+                     bool round_p_first, cudaStream_t stream, const float* mask,
+                     const float* key_bias) {
 #define QT_FORM(FORM, KEEP)                                                                \
   keep_fwd_form<T, HD, FORM, KEEP>(q, k, v, out, keep, keep_ld, B, Sq, Sk, heads, scale, \
-                                   round_p_first, stream)
+                                   round_p_first, stream, mask, key_bias)
   switch (keep_form(Sq, Sk, keep != nullptr)) {
     case AK_SHORT: return keep ? QT_FORM(AK_SHORT, true) : QT_FORM(AK_SHORT, false);
     case AK_WARP: return QT_FORM(AK_WARP, false);
@@ -685,14 +887,35 @@ cudaError_t keep_bwd(KeepIn q, KeepIn k, KeepIn v, KeepIn g, KeepOut gq, KeepOut
   return cudaGetLastError();
 }
 
+template <int HD>
+cudaError_t nokeep_tiled(KeepIn q, KeepIn k, KeepIn v, KeepOut out, const float* mask,
+                         const float* key_bias, int B, int Sq, int Sk, int heads, float scale,
+                         cudaStream_t stream) {
+  const size_t smem = attention_nokeep_tiled_smem_bytes(HD);
+  const long long blocks = (long long)B * heads * ((Sq + AKT_Q - 1) / AKT_Q);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = ak_set_smem<attention_nokeep_tiled_kernel<HD>>(smem);
+  if (err != cudaSuccess) return err;
+  attention_nokeep_tiled_kernel<HD><<<(unsigned)blocks, AKT_THREADS, smem, stream>>>(
+      static_cast<const float*>(q.p), q.bs, q.ss, static_cast<const float*>(k.p), k.bs, k.ss,
+      static_cast<const float*>(v.p), v.bs, v.ss, static_cast<float*>(out.p), out.bs, out.ss,
+      mask, key_bias, heads, Sq, Sk, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
-bool ak_args(std::initializer_list<KeepIn> ins, std::initializer_list<KeepOut> outs, int Sk,
-             int hd) {
+bool ak_operands(std::initializer_list<KeepIn> ins, std::initializer_list<KeepOut> outs) {
   for (const KeepIn& x : ins)
     if (!ak_operand<T>(x.p, x.bs, x.ss)) return false;
   for (const KeepOut& x : outs)
     if (!ak_operand<T>(x.p, x.bs, x.ss)) return false;
-  return keep_head(hd) && Sk >= 1 && Sk <= ATT_KEEP_MAX_SK;
+  return true;
+}
+
+template <typename T>
+bool ak_args(std::initializer_list<KeepIn> ins, std::initializer_list<KeepOut> outs, int Sk,
+             int hd) {
+  return ak_operands<T>(ins, outs) && keep_head(hd) && Sk >= 1 && Sk <= ATT_KEEP_MAX_SK;
 }
 
 }  // namespace
@@ -700,14 +923,15 @@ bool ak_args(std::initializer_list<KeepIn> ins, std::initializer_list<KeepOut> o
 cudaError_t attention_keep_fwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepOut out,
                                const void* keep, long long keep_ld, int B, int Sq, int Sk,
                                int heads, int hd, float scale, bool round_p_first,
-                               cudaStream_t stream) {
+                               cudaStream_t stream, const float* mask, const float* key_bias) {
   if (B <= 0 || Sq <= 0 || heads <= 0) return cudaSuccess;
   const bool ok = bf16 ? ak_args<__nv_bfloat16>({q, k, v}, {out}, Sk, hd)
                        : ak_args<float>({q, k, v}, {out}, Sk, hd);
-  if (!ok) return cudaErrorInvalidValue;
+  // a mask or a key bias only in fp32 without a keep mask
+  if (!ok || ((mask || key_bias) && (bf16 || keep))) return cudaErrorInvalidValue;
 #define QT_KEEP_FWD(T, HD)                                                                       \
   keep_fwd<T, HD>(q, k, v, out, static_cast<const T*>(keep), keep_ld, B, Sq, Sk, heads, scale, \
-                  round_p_first, stream)
+                  round_p_first, stream, mask, key_bias)
   if (bf16) {
     switch (hd) {
       case 32: return QT_KEEP_FWD(__nv_bfloat16, 32);
@@ -721,6 +945,20 @@ cudaError_t attention_keep_fwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepOut 
     default: return QT_KEEP_FWD(float, 128);
   }
 #undef QT_KEEP_FWD
+}
+
+cudaError_t attention_nokeep_tiled(KeepIn q, KeepIn k, KeepIn v, KeepOut out, const float* mask,
+                                   const float* key_bias, int B, int Sq, int Sk, int heads,
+                                   int hd, float scale, cudaStream_t stream) {
+  if (B <= 0 || Sq <= 0 || heads <= 0) return cudaSuccess;
+  if (!ak_operands<float>({q, k, v}, {out}) || !keep_head(hd) || Sk < 1)
+    return cudaErrorInvalidValue;
+  switch (hd) {
+    case 32: return nokeep_tiled<32>(q, k, v, out, mask, key_bias, B, Sq, Sk, heads, scale, stream);
+    case 64: return nokeep_tiled<64>(q, k, v, out, mask, key_bias, B, Sq, Sk, heads, scale, stream);
+    default:
+      return nokeep_tiled<128>(q, k, v, out, mask, key_bias, B, Sq, Sk, heads, scale, stream);
+  }
 }
 
 cudaError_t attention_keep_bwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepIn g, KeepOut gq,

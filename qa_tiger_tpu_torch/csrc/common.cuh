@@ -35,18 +35,32 @@ struct KeepOut {
 
 // The keep-masked attention on tensor cores (kernel "mma_keep"), forward and
 // backward, for bf16 (bf16 true) or fp32 operands; the forward with keep
-// null is the same kernel without the keep multiply (kernel "mma_nokeep").
-// Defined in attention_keep.cu, the one source that builds its kernels;
+// null is the same kernel without the keep multiply (kernel "mma_nokeep"),
+// which in fp32 also adds an additive [Sq, Sk] mask and a [B, Sk] key bias
+// (both may be null; bf16 and keep-masked calls take neither).
+// attention_nokeep_tiled is the fp32 forward without a keep mask past
+// ATT_KEEP_MAX_SK keys (kernel "mma_nokeep_tiled"). Defined in
+// attention_keep.cu, the one source that builds their kernels;
 // qt::attention and qt::attention_bwd call them where attention_plan and
 // attention_bwd_plan choose them.
 cudaError_t attention_keep_fwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepOut out,
                                const void* keep, long long keep_ld, int B, int Sq, int Sk,
                                int heads, int hd, float scale, bool round_p_first,
-                               cudaStream_t stream);
+                               cudaStream_t stream, const float* mask = nullptr,
+                               const float* key_bias = nullptr);
+cudaError_t attention_nokeep_tiled(KeepIn q, KeepIn k, KeepIn v, KeepOut out, const float* mask,
+                                   const float* key_bias, int B, int Sq, int Sk, int heads,
+                                   int hd, float scale, cudaStream_t stream);
 cudaError_t attention_keep_bwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepIn g, KeepOut gq,
                                KeepOut gk, KeepOut gv, const void* keep, long long keep_ld,
                                int B, int Sq, int Sk, int heads, int hd, float scale,
                                bool round_p_first, bool accumulate_kv, cudaStream_t stream);
+// The fp32 attention at head sizes 256 and 512 (kernel "lane_split"):
+// attention_tp.cuh's two lane-split stages at one rank, one head at a time,
+// the fp32 scores [B, Sq, Sk] of a head in scratch. Defined in attention.cu.
+cudaError_t attention_lanes(KeepIn q, KeepIn k, KeepIn v, KeepOut out, int B, int Sq, int Sk,
+                            int heads, int hd, float scale, float* scratch,
+                            cudaStream_t stream);
 
 // Everything below has internal linkage (an unnamed namespace), so each
 // source that includes this header owns its instantiations and no two
@@ -376,15 +390,23 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 // in fp32. mask is an optional additive fp32 [Sq, Sk]; key_bias an optional
 // fp32 [B, Sk] (ToMe's proportional attention, log of the token sizes).
 //
-// Nine kernels; attention_plan decides. A call with a keep mask (the train
+// Eleven kernels; attention_plan decides. A call with a keep mask (the train
 // kernels' dropout attentions) at head sizes 32, 64 and 128 over at most
 // ATT_KEEP_MAX_SK keys takes the keep-masked tensor-core kernel in bf16 and
-// fp32 (attention_keep.cu; attention_bwd_plan its backward). A call without
-// a keep mask, an additive mask or a key bias at the same head sizes and
-// keys takes that kernel with its keep multiply compiled out ("mma_nokeep")
-// in fp32 (the fp32 evaluation forward's AVQ, TempMoE, QstGrounding and
-// PatchSelecter attentions) and in bf16 where no kernel below takes it
-// (fewer than 16 queries over more than 16 keys: TempMoE's 1 x 60). bf16 calls
+// fp32 (attention_keep.cu; attention_bwd_plan its backward). An fp32 call
+// without a keep mask at those head sizes takes 3xTF32 tensor cores,
+// additive mask and key bias included: that kernel with its keep multiply
+// compiled out ("mma_nokeep") up to ATT_KEEP_MAX_SK keys (the fp32
+// evaluation forward's AVQ, TempMoE, QstGrounding and PatchSelecter
+// attentions, the fp32 text towers' causal calls, the short ToMe layers),
+// its key-tiled two-pass form past that ("mma_nokeep_tiled": the fp32 CLIP
+// image tower, 577 keys, and the long ToMe layers); at head sizes 256 and
+// 512 without a mask or key bias, the lane split's two 3xTF32 stages
+// ("lane_split", attention_tp.cuh at one rank: TSPM's one-head calls in
+// fp32). A bf16 call without a keep mask, a mask or a key bias at head sizes
+// 32, 64 and 128 over at most ATT_KEEP_MAX_SK keys takes "mma_nokeep" where
+// no kernel below takes it (fewer than 16 queries over more than 16 keys:
+// TempMoE's 1 x 60). bf16 calls
 // without a keep mask, at head sizes 32, 64 and 128, take one of two
 // tensor-core kernels:
 // - at most ATT_SHORT_MAX queries and keys (PatchSelecter's 14-key self- and
@@ -402,22 +424,20 @@ inline void gemm(const ALoad& aload, const T* B, long long ldb, int M, int N, in
 //   64 query rows per block.
 // A bf16 head between 128 and 512 lanes has no kernel at its own size: the
 // wrapper zero-pads it to 256 or 512.
-// Every other call (fp32 with a mask or a key bias, or at other head sizes
-// or past ATT_KEEP_MAX_SK keys; a keep mask at other head sizes or past
+// Every other call (fp32 at head sizes 256 and 512 with a mask or a key
+// bias, or at other head sizes; a keep mask at other head sizes or past
 // ATT_KEEP_MAX_SK keys; bf16 with fewer than 16 queries over more keys with
 // a mask or a key bias or past ATT_KEEP_MAX_SK keys; a wide head past
-// ~1,500 keys in bf16) runs on fp32 FMAs, in one of three kernels chosen by
+// ~1,500 keys in bf16; a call whose tensor-core kernel passes the shared
+// memory limit) runs on fp32 FMAs, in one of three kernels chosen by
 // the shared memory each needs against the device's opt-in limit per block:
-// - Sk <= ATT_STAGED_MAX_SK where K_h and V_h fit (the fp32 text tower's
-//   causal calls; TSPM's TokensAttn in fp32, one head of 512 over 14 keys;
-//   the bf16 calls above with a mask or a key bias): one block per (batch
-//   element, head, tile
+// - Sk <= ATT_STAGED_MAX_SK where K_h and V_h fit (the bf16 calls above
+//   with a mask or a key bias): one block per (batch element, head, tile
 //   of ATT_QROWS queries) stages all of K_h and V_h in shared memory as
 //   fp32, one warp per query row.
-// - head sizes 256 and 512 otherwise (TSPM's AV_Attn in fp32, one head of
-//   512 over 60 keys): the wide-head kernel below, keys in tiles.
-// - longer keys (the CLIP image tower and the first ToMe layers, Sk up to
-//   577): one block per (batch element, head, tile of AT_Q queries) streams
+// - head sizes 256 and 512 otherwise: the wide-head kernel below, keys in
+//   tiles.
+// - longer keys: one block per (batch element, head, tile of AT_Q queries) streams
 //   K_h and V_h through shared memory in tiles of AT_K keys, so its shared
 //   memory does not grow with Sk. Two passes keep the JAX kernels' rounding
 //   point (p = round_T(exp(s - max) / sum), then p v in fp32): the first
@@ -965,19 +985,24 @@ constexpr float LOG2E = 1.4426950408889634f;
 // ATT_MMA_MIN_SK keys or the head is 256 or 512 lanes wide (the wide kernels
 // mask any length). Without a keep mask, an additive mask or a key bias, at
 // head sizes 32, 64 and 128 over at most ATT_KEEP_MAX_SK keys, the same
-// kernel with its keep multiply compiled out ("mma_nokeep") in fp32, and in
-// bf16 for fewer than ATT_MMA_MIN_SQ queries over more than ATT_SHORT_MAX
-// keys. The FMA kernels otherwise (fp32 with a mask or a key bias, wider
-// heads or longer keys; bf16 with a mask or key bias at those lengths; a
-// keep mask at other head sizes or past ATT_KEEP_MAX_SK keys).
-// attention_plan has the last word: a call whose tensor-core kernel would
-// pass the shared memory goes to the FMA kernels.
+// kernel with its keep multiply compiled out ("mma_nokeep") in bf16 for
+// fewer than ATT_MMA_MIN_SQ queries over more than ATT_SHORT_MAX keys. In
+// fp32 without a keep mask: at head sizes 32, 64 and 128 route
+// "mma_nokeep" at any length, with or without a mask or a key bias (past
+// ATT_KEEP_MAX_SK keys its key-tiled form); at head sizes 256 and 512
+// without a mask or a key bias route "tf32x3", the lane split's stages.
+// The FMA kernels otherwise (fp32 wide heads with a mask or key bias, other
+// head sizes; bf16 with a mask or key bias at those lengths; a keep mask at
+// other head sizes or past ATT_KEEP_MAX_SK keys). attention_plan has the
+// last word: a call whose tensor-core kernel would pass the shared memory
+// goes to the FMA kernels.
 enum AttentionRoute {
   ATT_ROUTE_FMA = 0,
   ATT_ROUTE_MMA = 1,
   ATT_ROUTE_MMA_SHORT = 2,
   ATT_ROUTE_MMA_KEEP = 3,
-  ATT_ROUTE_MMA_NOKEEP = 4
+  ATT_ROUTE_MMA_NOKEEP = 4,
+  ATT_ROUTE_TF32X3 = 5
 };
 
 inline bool wide_head(int hd) { return hd == 256 || hd == 512; }
@@ -1036,15 +1061,35 @@ inline size_t attention_keep_bwd_smem_bytes(int esize, int Sq, int Sk, int hd) {
   return (size_t)esize * ((2 * sq + keep_kv_rows(Sk)) * ld + 2 * sq * pld);
 }
 
+// The key-tiled fp32 forward without a keep mask (attention_keep.cu,
+// "mma_nokeep_tiled"): a block of AKT_WARPS warps owns AKT_Q query rows of a
+// problem and streams its keys in AKT_K-key tiles through a two-stage ring;
+// shared memory: the Q rows, then two stages of K and two of V, rows of hd
+// lanes plus 16 bytes
+constexpr int AKT_WARPS = 8, AKT_THREADS = AKT_WARPS * 32, AKT_Q = AKT_WARPS * AK_ROWS,
+              AKT_K = 64;
+inline size_t attention_nokeep_tiled_smem_bytes(int hd) {
+  return sizeof(float) * (size_t)(AKT_Q + 4 * AKT_K) * keep_stage_ld(hd, (int)sizeof(float));
+}
+
+// The lane split's two stages (attention_tp.cuh, "lane_split"): the larger
+// of their rings, two stages of 128 rows of 144 bytes (the scores stage's
+// Q and K slabs; attention_tp.cuh checks it against its geometry)
+constexpr size_t ATT_LANES_SMEM = 2 * 128 * 144;
+
 // has_bias: the call adds an additive mask or a key bias to its scores,
-// which the keep-masked kernel's two forms do not take
+// which the keep-masked kernel takes only in fp32 without a keep mask, and
+// the lane split not at all
 inline AttentionRoute attention_route(bool bf16, int Sq, int Sk, int hd, bool has_keep,
                                       bool has_bias) {
   const bool head = hd == 32 || hd == 64 || hd == 128 || wide_head(hd);
   const bool keep_shape = keep_head(hd) && Sk >= 1 && Sk <= ATT_KEEP_MAX_SK;
   if (has_keep) return keep_shape ? ATT_ROUTE_MMA_KEEP : ATT_ROUTE_FMA;
+  if (!bf16) {
+    if (keep_head(hd) && Sk >= 1) return ATT_ROUTE_MMA_NOKEEP;
+    return wide_head(hd) && Sk >= 1 && !has_bias ? ATT_ROUTE_TF32X3 : ATT_ROUTE_FMA;
+  }
   const bool nokeep = keep_shape && !has_bias;
-  if (!bf16) return nokeep ? ATT_ROUTE_MMA_NOKEEP : ATT_ROUTE_FMA;
   if (!head) return ATT_ROUTE_FMA;
   if (Sq <= ATT_SHORT_MAX && Sk <= ATT_SHORT_MAX) return ATT_ROUTE_MMA_SHORT;
   if (wide_head(hd) || (Sq >= ATT_MMA_MIN_SQ && Sk >= ATT_MMA_MIN_SK)) return ATT_ROUTE_MMA;
@@ -2163,10 +2208,15 @@ inline cudaError_t attention_wide_short(const __nv_bfloat16* q, long long q_bs, 
 // The tensor-core routes come first (attention_route): a keep-masked call
 // at head size 32, 64 or 128 over at most ATT_KEEP_MAX_SK keys takes the
 // keep-masked kernel (bf16 and fp32) where its shared memory fits, and so,
-// with the keep multiply compiled out ("mma_nokeep"), does a call without a
-// keep mask, an additive mask or a key bias at those head sizes and keys
-// in fp32, and in bf16 where it has fewer than 16 queries over more than
-// 16 keys (the bf16 calls no other tensor-core kernel takes); a wide
+// with the keep multiply compiled out ("mma_nokeep"), does an fp32 call
+// without a keep mask at those head sizes and keys (a mask and a key bias
+// included), and a bf16 call without a keep mask, a mask or a key bias
+// that has fewer than 16 queries over more than 16 keys (the bf16 calls no
+// other tensor-core kernel takes); an fp32 call without a keep mask at
+// those head sizes past ATT_KEEP_MAX_SK keys takes the key-tiled form
+// ("mma_nokeep_tiled") and one at head size 256 or 512 without a mask or a
+// key bias the lane split ("lane_split"), each where its shared memory
+// fits; a wide
 // head whose probabilities pass the limit in the mma kernel (far past 577
 // keys) falls to the FMA kernels, and a bf16 head between 128 and 512 lanes
 // that no tensor-core kernel is built for has none (the wrapper pads it).
@@ -2189,6 +2239,8 @@ enum AttentionKernel {
   ATT_KERNEL_WIDE_SHORT = 6,
   ATT_KERNEL_MMA_KEEP = 7,
   ATT_KERNEL_MMA_NOKEEP = 8,
+  ATT_KERNEL_MMA_NOKEEP_TILED = 9,
+  ATT_KERNEL_LANES = 10,
 };
 
 inline AttentionKernel attention_plan(bool bf16, int Sq, int Sk, int hd, bool has_keep,
@@ -2197,13 +2249,25 @@ inline AttentionKernel attention_plan(bool bf16, int Sq, int Sk, int hd, bool ha
   size_t bytes = 0;
   AttentionKernel kernel = ATT_KERNEL_NONE;
   if (route == ATT_ROUTE_MMA_KEEP || route == ATT_ROUTE_MMA_NOKEEP) {
-    bytes = attention_keep_smem_bytes(bf16 ? 2 : 4, Sq, Sk, hd, has_keep);
+    // past ATT_KEEP_MAX_SK keys only fp32 without a keep mask has this route
+    const bool tiled = Sk > ATT_KEEP_MAX_SK;
+    bytes = tiled ? attention_nokeep_tiled_smem_bytes(hd)
+                  : attention_keep_smem_bytes(bf16 ? 2 : 4, Sq, Sk, hd, has_keep);
     if (bytes <= limit) {
       if (smem) *smem = bytes;
-      return route == ATT_ROUTE_MMA_KEEP ? ATT_KERNEL_MMA_KEEP : ATT_KERNEL_MMA_NOKEEP;
+      return route == ATT_ROUTE_MMA_KEEP ? ATT_KERNEL_MMA_KEEP
+             : tiled                     ? ATT_KERNEL_MMA_NOKEEP_TILED
+                                         : ATT_KERNEL_MMA_NOKEEP;
     }
     route = ATT_ROUTE_FMA;
     bytes = 0;
+  }
+  if (route == ATT_ROUTE_TF32X3) {
+    if (ATT_LANES_SMEM <= limit) {
+      if (smem) *smem = ATT_LANES_SMEM;
+      return ATT_KERNEL_LANES;
+    }
+    route = ATT_ROUTE_FMA;
   }
   if (route != ATT_ROUTE_FMA) {
     const bool shrt = route == ATT_ROUTE_MMA_SHORT;
@@ -2251,7 +2315,9 @@ inline AttentionRoute attention_kernel_route(AttentionKernel kernel) {
     case ATT_KERNEL_SHORT:
     case ATT_KERNEL_WIDE_SHORT: return ATT_ROUTE_MMA_SHORT;
     case ATT_KERNEL_MMA_KEEP: return ATT_ROUTE_MMA_KEEP;
-    case ATT_KERNEL_MMA_NOKEEP: return ATT_ROUTE_MMA_NOKEEP;
+    case ATT_KERNEL_MMA_NOKEEP:
+    case ATT_KERNEL_MMA_NOKEEP_TILED: return ATT_ROUTE_MMA_NOKEEP;
+    case ATT_KERNEL_LANES: return ATT_ROUTE_TF32X3;
     default: return ATT_ROUTE_FMA;
   }
 }
@@ -2274,18 +2340,33 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
                              const float* mask, int B, int Sq, int Sk, int heads, int hd,
                              float scale, cudaStream_t stream, const T* keep = nullptr,
                              long long keep_ld = 0, bool round_p_first = false,
-                             const float* key_bias = nullptr, int* kernel_out = nullptr) {
+                             const float* key_bias = nullptr, int* kernel_out = nullptr,
+                             float* scratch = nullptr) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   size_t smem = 0;
   const AttentionKernel kernel = attention_plan(kBf16, Sq, Sk, hd, keep != nullptr,
                                                 mask || key_bias, smem_optin(), &smem);
   if (kernel_out) *kernel_out = kernel;  // the plans' attention rows (GemmPlan::attention)
   if (kernel == ATT_KERNEL_MMA_KEEP || kernel == ATT_KERNEL_MMA_NOKEEP) {
-    // the plan sends no mask or key bias here; no caller adds them to a keep mask
-    if (mask || key_bias) return cudaErrorInvalidValue;
+    // the plan sends a mask or a key bias here only in fp32 without a keep
+    // mask; no caller adds them to a keep mask
+    if ((mask || key_bias) && (kBf16 || keep)) return cudaErrorInvalidValue;
     return attention_keep_fwd(kBf16, {q, q_bs, q_ss}, {k, k_bs, k_ss}, {v, v_bs, v_ss},
                               {out, o_bs, o_ss}, keep, keep_ld, B, Sq, Sk, heads, hd, scale,
-                              round_p_first, stream);
+                              round_p_first, stream, mask, key_bias);
+  }
+  if constexpr (!kBf16) {
+    if (kernel == ATT_KERNEL_MMA_NOKEEP_TILED)
+      return attention_nokeep_tiled({q, q_bs, q_ss}, {k, k_bs, k_ss}, {v, v_bs, v_ss},
+                                    {out, o_bs, o_ss}, mask, key_bias, B, Sq, Sk, heads, hd,
+                                    scale, stream);
+    // the plan sends no mask or key bias to the lane split, and only
+    // attention_wide's and fused_attention's entries give it the scratch
+    if (kernel == ATT_KERNEL_LANES) {
+      if (mask || key_bias) return cudaErrorInvalidValue;
+      return attention_lanes({q, q_bs, q_ss}, {k, k_bs, k_ss}, {v, v_bs, v_ss},
+                             {out, o_bs, o_ss}, B, Sq, Sk, heads, hd, scale, scratch, stream);
+    }
   }
   if constexpr (kBf16) {
 #define QT_TC(KERNEL, HD)                                                                   \

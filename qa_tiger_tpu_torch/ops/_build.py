@@ -29,12 +29,16 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # argument types of every exported C function (csrc/*.cu); each returns the
 # launch's cudaError_t as an int
 SIGNATURES = {
+    # attention_wide and fused_attention: q, k, v, the output, the mask and
+    # the dimensions, the scale, then (qt_attention only) where to write the
+    # kernel launched, the lane split's score scratch (null for any other
+    # kernel), the stream
     "qt_attention": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P,
-                     _P, _I, _I, _I, _I, _I, _F, _P, _P],
+                     _P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
     "qt_fused_attention": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
-                           _I, _I, _I, _I, _F, _P],
+                           _I, _I, _I, _I, _F, _P, _P],
     # not a launcher: the kernel family qt::attention takes (0 fma, 1 mma,
-    # 2 mma_short, 3 mma_keep, 4 mma_nokeep)
+    # 2 mma_short, 3 mma_keep, 4 mma_nokeep, 5 tf32x3)
     "qt_attention_route": [_I, _I, _I, _I, _I, _I],
     # not a launcher: the kernel and shared memory of qt::attention_plan
     # (ops/attention.py KERNEL_NAMES), and the device's opt-in limit per block
@@ -55,16 +59,18 @@ SIGNATURES = {
     "qt_gemm_tf32x3": [_P, _L, _I, _P, _L, _I, _P, _L, _I, _I, _I, _I, _P, _L, _P],
     "qt_gaussian_moe": [_I, _I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _L, _P, _P, _P, _L,
                         _I, _I, _I, _I, _I, _I, _I, _P],
-    "qt_attn_ln2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    _P, _P, _I, _I, _I, _I, _P],
-    "qt_attn_half": [_I] + [_P] * 12 + [_I] * 4 + [_P],
+    # the attention halves: then the GEMM plan and its rows (none in bf16),
+    # the attention rows and their count, the split-K workspace and its
+    # floats (ops/gemm.py launch_plan)
+    "qt_attn_ln2": [_I] + [_P] * 15 + [_I] * 4 + [_P, _I, _P, _I, _P, _L, _P],
+    "qt_attn_half": [_I] + [_P] * 12 + [_I] * 4 + [_P, _I, _P, _I, _P, _L, _P],
     "qt_mlp_half": [_I] + [_P] * 10 + [_I] * 3 + [_P],
     # the eval PatchSelecter and its stages: then the GEMM plan and its rows,
     # the attention rows and their count (none in tp_mlp), the split-K
-    # workspace and its floats (ops/patch_select.py _planned)
+    # workspace and its floats (ops/gemm.py launch_plan)
     "qt_patch_select": [_I] + [_P] * 30 + [_I] * 4 + [_P, _I, _P, _I, _P, _L, _P],
     # the tensor-parallel stages (parallel/tensor.py): partials and epilogues
-    "qt_attn_ln2_partial": [_I] + [_P] * 11 + [_I] * 5 + [_P],
+    "qt_attn_ln2_partial": [_I] + [_P] * 11 + [_I] * 5 + [_P, _I, _P, _I, _P, _L, _P],
     "qt_reduce_epilogue": [_I, _I] + [_P] * 7 + [_I, _I, _P],
     "qt_patch_select_tp_self": [_I] + [_P] * 7 + [_I] * 5 + [_P, _I, _P, _I, _P, _L, _P],
     "qt_patch_select_tp_cross": [_I] + [_P] * 10 + [_I] * 5 + [_P, _I, _P, _I, _P, _L, _P],

@@ -14,23 +14,29 @@ with a keep mask (the train kernels' dropout attentions, which reach the
 kernels from ``csrc/avq.cu`` and ``csrc/patch_select_train.cu``) at head
 sizes 32, 64 and 128 over at most 128 keys takes the keep-masked
 tensor-core kernel in bf16 and fp32 ("mma_keep", ``csrc/attention_keep.cu``;
-``attention_bwd_plan`` plans its backward). A call without a keep mask, an
-additive mask or a key bias at those head sizes and keys takes the same
-kernel with its keep multiply compiled out ("mma_nokeep"): in fp32 every
-such call (3xTF32; the fp32 evaluation forward's attentions), in bf16 those
-of fewer than 16 queries over more than 16 keys (TempMoE's 1 x 60), which
-no other tensor-core kernel takes. Every other call takes an fp32
-FMA kernel: whole keys staged in shared memory up to 128
-keys where they fit the block's opt-in shared memory, else key tiles in two
-passes (64-key tiles at head sizes up to 128, the wide-head kernel's 16 or
-32-key tiles at 256 and 512). ``attention_plan``
+``attention_bwd_plan`` plans its backward). Every fp32 call without a keep
+mask at those head sizes runs on 3xTF32 tensor cores, an additive mask and a
+key bias included: up to 128 keys the same kernel with its keep multiply
+compiled out ("mma_nokeep": the fp32 evaluation forward's attentions, the
+fp32 text towers' causal calls), past 128 keys its key-tiled two-pass form
+("mma_nokeep_tiled": the fp32 CLIP image tower's 577 keys, ToMe's long
+key-bias layers); at head sizes 256 and 512 without a mask or key bias the
+lane split's two stages at one rank, a head at a time ("lane_split":
+TSPM's one-head calls in fp32), which score into a scratch [B, Sq, Sk] the
+wrapper allocates. A bf16 call without a keep mask, a mask or a key bias
+at 32-128 lanes over 17-128 keys with fewer than 16 queries (TempMoE's
+1 x 60) takes "mma_nokeep" too, which no other tensor-core kernel covers.
+Every other call takes an fp32 FMA kernel: whole keys staged in shared
+memory up to 128 keys where they fit the block's opt-in shared memory, else
+key tiles in two passes (64-key tiles at head sizes up to 128, the
+wide-head kernel's 16 or 32-key tiles at 256 and 512). ``attention_plan``
 says in Python which kernel a call takes, at which head size and with how
 much shared memory, by the rule ``qt::attention_plan`` applies on the card
 (``csrc/common.cuh``); ``attention_route`` asks the library for the route.
 A call no kernel takes at its own head size is zero-padded to the next
 size one takes; one that no size fits raises, naming its shape. A bf16
 operand the tensor-core kernel cannot read with 16-byte copies (an fp32 one
-on "mma_nokeep") is copied to a contiguous tensor first; neither changes
+on the 3xTF32 kernels) is copied to a contiguous tensor first; neither changes
 the route. ``attention_wide.attn_routes`` tallies the kernel each launch
 took, as the library reports it. On CUDA
 the gradient is that of the plain version, recomputed (``ops/_grad.py``),
@@ -54,14 +60,18 @@ KERNEL_HEAD_SIZES = (32, 64, 128, 256, 512)
 TC_HEAD_SIZES = (32, 64, 128, 256, 512)
 WIDE_HEAD_SIZES = (256, 512)
 # qt_attention_route's codes (csrc/common.cuh, AttentionRoute)
-ROUTES = ("fma", "mma", "mma_short", "mma_keep", "mma_nokeep")
+ROUTES = ("fma", "mma", "mma_short", "mma_keep", "mma_nokeep", "tf32x3")
 # qt_attention_plan's codes (csrc/common.cuh, AttentionKernel), from 0
 KERNEL_NAMES = ("staged", "tiled", "wide", "mma", "mma_short", "mma_wide", "mma_wide_short",
-                "mma_keep", "mma_nokeep")
+                "mma_keep", "mma_nokeep", "mma_nokeep_tiled", "lane_split")
 # each tensor-core kernel's route; every other kernel's is "fma"
 KERNEL_ROUTES = {"mma": "mma", "mma_wide": "mma", "mma_short": "mma_short",
                  "mma_wide_short": "mma_short", "mma_keep": "mma_keep",
-                 "mma_nokeep": "mma_nokeep"}
+                 "mma_nokeep": "mma_nokeep", "mma_nokeep_tiled": "mma_nokeep",
+                 "lane_split": "tf32x3"}
+# the fp32 kernels that read their operands with 16-byte cp.async copies
+# (every bf16 tensor-core kernel does)
+FP32_TC_KERNELS = ("mma_nokeep", "mma_nokeep_tiled", "lane_split")
 # a keep mask (the train kernels' dropout attentions), bf16 and fp32: the
 # head sizes and the longest keys of the keep-masked tensor-core kernels
 # (csrc/attention_keep.cu; ATT_KEEP_MAX_SK)
@@ -71,10 +81,13 @@ KEEP_MAX_SK = 128
 # the CPU; on the card the device's own (qt_smem_optin)
 H100_SMEM_OPTIN = 232_448
 # the kernels' tiles (csrc/common.cuh): ATT_WARPS; AT_Q, AT_K; AW_Q; AM_Q,
-# AM_K, AM_PAD; AS_WARPS, AS_ROWS; AWM_SLAB, AWM_STAGES
+# AM_K, AM_PAD; AS_WARPS, AS_ROWS; AWM_SLAB, AWM_STAGES; AKT_Q, AKT_K (the
+# key-tiled fp32 kernel's query rows and key tile); ATT_LANES_SMEM
 _ATT_WARPS, _AT_Q, _AT_K, _AW_Q = 4, 64, 64, 16
 _AM_Q, _AM_K, _AM_PAD, _AS_WARPS, _AS_ROWS = 64, 64, 8, 4, 16
 _AWM_SLAB, _AWM_STAGES = 64, 2
+_AKT_Q, _AKT_K = 128, 64
+LANE_SPLIT_SMEM = 2 * 128 * 144
 # attention_wide's lane split (csrc/attention_tp.cuh, TP_SHORT): a problem of
 # at most this many queries and keys is one warp's
 TP_SHORT_MAX = 16
@@ -98,6 +111,11 @@ def _smem_bytes(kernel: str, sk: int, hd: int) -> int:
         return 4 * ((_AW_Q + kt) * (hd + 4) + kt * hd + _AW_Q * (kt + 1))
     if kernel == "mma":
         return 2 * (_AM_Q + 4 * _AM_K) * (hd + _AM_PAD)
+    if kernel == "mma_nokeep_tiled":
+        # the Q rows, two stages of K and two of V: rows of hd + 4 floats
+        return 4 * (_AKT_Q + 4 * _AKT_K) * (hd + 4)
+    if kernel == "lane_split":
+        return LANE_SPLIT_SMEM
     slab_row = _AWM_SLAB + _AM_PAD
     if kernel == "mma_wide":
         # the ring of Q and K slabs (V chunks); in two passes (past 128
@@ -150,13 +168,32 @@ def _keep_kernel(bf16: bool, sq: int, sk: int, hd: int, backward: bool,
     return nbytes if nbytes <= limit else None
 
 
+def _fp32_tc_kernel(sq: int, sk: int, hd: int, has_bias: bool, limit: int) -> tuple:
+    """The 3xTF32 kernel of an fp32 call without a keep mask, with its
+    shared memory, where one takes it within ``limit``: (kernel or None,
+    bytes)."""
+    if hd in KEEP_HEAD_SIZES and sk >= 1:
+        kernel = "mma_nokeep" if sk <= KEEP_MAX_SK else "mma_nokeep_tiled"
+        nbytes = (_keep_smem_bytes(False, sq, sk, hd, False, has_keep=False)
+                  if kernel == "mma_nokeep" else _smem_bytes(kernel, sk, hd))
+    elif hd in WIDE_HEAD_SIZES and sk >= 1 and not has_bias:
+        kernel, nbytes = "lane_split", LANE_SPLIT_SMEM
+    else:
+        return None, 0
+    return (kernel, nbytes) if nbytes <= limit else (None, 0)
+
+
 def _kernel_at(bf16: bool, sq: int, sk: int, hd: int, has_keep: bool, has_bias: bool,
                limit: int) -> tuple[str | None, int]:
     """``qt::attention_plan`` at one head size: (kernel or None, bytes)."""
     wide = hd in WIDE_HEAD_SIZES
-    # without a keep mask: every fp32 call, and bf16 with fewer than 16
-    # queries over more than 16 keys, where neither mma kernel takes it
-    nokeep = not has_keep and not has_bias and (not bf16 or (sq < 16 and sk > 16))
+    if not bf16 and not has_keep:
+        kernel, nbytes = _fp32_tc_kernel(sq, sk, hd, has_bias, limit)
+        if kernel is not None:
+            return kernel, nbytes
+    # bf16 without a keep mask, a mask or a key bias: fewer than 16 queries
+    # over more than 16 keys, where neither mma kernel takes it
+    nokeep = bf16 and not has_keep and not has_bias and sq < 16 and sk > 16
     keep_bytes = (_keep_kernel(bf16, sq, sk, hd, False, limit, has_keep)
                   if has_keep or nokeep else None)
     if keep_bytes is not None:
@@ -206,9 +243,13 @@ def attention_plan(dtype: torch.dtype, sq: int, sk: int, hd: int, has_keep: bool
     and shape, in pure Python (``has_bias``: the call adds an additive mask
     or a key bias): with a keep mask the keep-masked tensor-core kernel
     ("mma_keep", bf16 and fp32) at head sizes 32/64/128 over at most 128
-    keys; without a keep mask or bias there the same kernel without its keep
-    multiply ("mma_nokeep") in fp32, and in bf16 for fewer than 16 queries
-    over more than 16 keys; the tensor-core routes for bf16 without a keep
+    keys; fp32 without a keep mask at head sizes 32/64/128 the same kernel
+    without its keep multiply ("mma_nokeep") over at most 128 keys, its
+    key-tiled form ("mma_nokeep_tiled") past that, a mask or key bias
+    included, and at 256/512 without a mask or key bias the lane split
+    ("lane_split"), each where its shared memory fits ``limit``; bf16
+    without a keep mask or bias "mma_nokeep" for fewer than 16 queries over
+    17-128 keys; the tensor-core routes for bf16 without a keep
     mask at head sizes 32/64/128 and 256/512 (there while the probabilities
     fit ``limit``); else the staged FMA kernel where its shared memory fits
     ``limit``, else the tiled (head sizes 32/64/128) or wide-head (256/512)
@@ -299,7 +340,8 @@ def attention_route(dtype: torch.dtype, sq: int, sk: int, hd: int,
     problem of at most 16 queries and keys: kernels mma_short and
     mma_wide_short), "mma" (tensor cores, 64 query rows per block: mma and
     mma_wide), "mma_keep" (a keep mask on tensor cores), "mma_nokeep" (the
-    keep-masked kernel without a keep mask) or "fma", at the head size the
+    keep-masked kernel without a keep mask, and its key-tiled form),
+    "tf32x3" (the lane split's stages) or "fma", at the head size the
     wrapper launches (``attention_plan``; ``has_bias``: an additive mask or
     a key bias). Asks the kernel library, so it builds it on first use."""
     head = attention_plan(dtype, sq, sk, hd, has_keep, has_bias=has_bias).head
@@ -363,14 +405,14 @@ def _kernel_operand(t: torch.Tensor, heads: int, hd: int, hdp: int,
     zero-padded to ``hdp`` lanes where ``hdp > hd``; a contiguous copy where
     a tensor-core kernel's 16-byte ``cp.async`` could not read it (a base
     off 16 bytes, a batch or row stride not a whole 16 bytes: any bf16
-    operand, and an fp32 one of ``kernel`` "mma_nokeep"). Neither changes
-    the route, which depends on dtype and shape alone."""
+    operand, and an fp32 one of a ``kernel`` in FP32_TC_KERNELS). Neither
+    changes the route, which depends on dtype and shape alone."""
     if hdp != hd:
         B, S, _ = t.shape
         return torch.nn.functional.pad(t.reshape(B, S, heads, hd),
                                        (0, hdp - hd)).reshape(B, S, heads * hdp)
     per = 16 // t.element_size()
-    if ((t.dtype == torch.bfloat16 or kernel == "mma_nokeep")
+    if ((t.dtype == torch.bfloat16 or kernel in FP32_TC_KERNELS)
             and (t.data_ptr() % 16 or t.stride(0) % per or t.stride(1) % per)):
         return t.clone(memory_format=torch.contiguous_format)
     return t
@@ -433,6 +475,14 @@ def _plan_of(q, k, mask, key_bias, heads: int) -> AttentionPlan:
                           has_bias=mask is not None or key_bias is not None)
 
 
+def _lane_scratch(plan: AttentionPlan, B: int, Sq: int, Sk: int, device):
+    """The lane split's fp32 scores of one head [B, Sq, Sk], which every
+    head reuses in turn; None for any other kernel."""
+    if plan.kernel != "lane_split":
+        return None
+    return torch.empty(B, Sq, Sk, dtype=torch.float32, device=device)
+
+
 def _launch(q, k, v, key_bias=None, *, mask, scale, heads):
     import ctypes
 
@@ -443,6 +493,7 @@ def _launch(q, k, v, key_bias=None, *, mask, scale, heads):
     q, k, v = (_kernel_operand(t, heads, hd, hdp, plan.kernel) for t in (q, k, v))
     out = torch.empty(B, Sq, heads * hdp, dtype=q.dtype, device=q.device)
     launched = ctypes.c_int(-1)
+    scratch = _lane_scratch(plan, B, Sq, k.shape[1], q.device)
     _build.launch(
         "qt_attention", _build.dtype_code(q),
         q.data_ptr(), q.stride(0), q.stride(1),
@@ -450,7 +501,7 @@ def _launch(q, k, v, key_bias=None, *, mask, scale, heads):
         v.data_ptr(), v.stride(0), v.stride(1),
         out.data_ptr(), out.stride(0), out.stride(1),
         _build.ptr(mask), _build.ptr(key_bias), B, Sq, k.shape[1], heads, hdp,
-        float(scale), ctypes.byref(launched))
+        float(scale), ctypes.byref(launched), _build.ptr(scratch))
     attention_wide.launches += 1
     name = KERNEL_NAMES[launched.value] if launched.value >= 0 else "none"
     attention_wide.attn_routes[name] = attention_wide.attn_routes.get(name, 0) + 1
@@ -649,12 +700,14 @@ def _launch_fused(q, k, v, *, mask, scale):
     dhp = plan.head
     q, k, v = (_kernel_operand(t, 1, dh, dhp, plan.kernel) for t in (q, k, v))
     out = torch.empty(BH, Sq, dhp, dtype=q.dtype, device=q.device)
+    scratch = _lane_scratch(plan, BH, Sq, k.shape[1], q.device)
     _build.launch(
         "qt_fused_attention", _build.dtype_code(q),
         q.data_ptr(), q.stride(0), q.stride(1),
         k.data_ptr(), k.stride(0), k.stride(1),
         v.data_ptr(), v.stride(0), v.stride(1),
-        out.data_ptr(), _build.ptr(mask), BH, Sq, k.shape[1], dhp, float(scale))
+        out.data_ptr(), _build.ptr(mask), BH, Sq, k.shape[1], dhp, float(scale),
+        _build.ptr(scratch))
     fused_attention.launches += 1
     return out[..., :dh].contiguous() if dhp != dh else out
 

@@ -262,6 +262,31 @@ def _gemm_plan(fp32: bool, shapes: tuple, sms: int) -> tuple:
     return rows, (max((plan.workspace for plan in plans), default=0) if fp32 else 0)
 
 
+def launch_plan(dtype: torch.dtype, shapes, attns, device) -> tuple:
+    """The plan of one planned launch: (GEMM plan rows, ``gemm_plan`` of
+    ``shapes``; attention rows, ``keep_rows`` of ``attns``; the C launcher's
+    plan arguments; the split-K workspace or None). The arguments carry the
+    workspace, allocated here where the plan splits a product."""
+    from qa_tiger_tpu_torch.ops.attention import keep_rows
+
+    sms = sm_count(device)
+    plan = gemm_plan(dtype, shapes, sms)
+    ws_floats = plan_workspace(dtype, shapes, sms)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=device) if ws_floats else None
+    rows = keep_rows(attns)
+    args = [plan.data_ptr(), len(shapes), rows.data_ptr(), len(rows), _build.ptr(ws), ws_floats]
+    return plan, rows, args, ws
+
+
+def note_launch_plan(kernel, plan: torch.Tensor, rows: torch.Tensor) -> None:
+    """Tallies the routes a planned launch wrote into its plan
+    (``gemm_routes``) and attention rows (``attn_routes``)."""
+    from qa_tiger_tpu_torch.ops.attention import note_keep_routes
+
+    note_plan_routes(kernel, plan)
+    note_keep_routes(kernel, rows)
+
+
 def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 

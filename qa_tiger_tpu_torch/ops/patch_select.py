@@ -64,6 +64,8 @@ from qa_tiger_tpu_torch.ops.attention import _wide_reference, keep_rows, note_ke
 from qa_tiger_tpu_torch.ops.gemm import (
     aligned16,
     gemm_plan,
+    launch_plan,
+    note_launch_plan,
     note_plan_routes,
     patch_select_gemm_shapes,
     patch_select_train_bwd_gemm_shapes,
@@ -185,25 +187,6 @@ def fused_patch_select(patch: torch.Tensor, audio: torch.Tensor,
                                            patch, audio, video, *weights)
 
 
-def _planned(dt, shapes, attns, dev) -> tuple:
-    """The plan of one planned eval launch: (GEMM plan rows, attention rows,
-    the C launcher's plan arguments). The arguments carry the split-K
-    workspace, allocated here where the plan splits a product."""
-    sms = sm_count(dev)
-    plan = gemm_plan(dt, shapes, sms)
-    ws_floats = plan_workspace(dt, shapes, sms)
-    ws = torch.empty(ws_floats, dtype=torch.float32, device=dev) if ws_floats else None
-    rows = keep_rows(attns)
-    args = [plan.data_ptr(), len(shapes), rows.data_ptr(), len(rows), _build.ptr(ws), ws_floats]
-    return plan, rows, args, ws
-
-
-def _note_planned(kernel, plan, rows) -> None:
-    """Tallies the routes a planned launch wrote into its plan and rows."""
-    note_plan_routes(kernel, plan)
-    note_keep_routes(kernel, rows)
-
-
 def _launch_eval(patch, audio, video, *weights, nhead):
     B, T, P, D = patch.shape
     # the operands the products read in 16-byte chunks (TMA in bf16,
@@ -222,15 +205,15 @@ def _launch_eval(patch, audio, video, *weights, nhead):
                torch.empty(2 * BT, D, dtype=dt, device=dev),      # out_proj
                torch.empty(2 * BT, D // 2, dtype=dt, device=dev),  # MLP hidden
                torch.empty(2 * BT, D, dtype=torch.float32, device=dev)]  # MLP out
-    plan, rows, args, _ws = _planned(dt, patch_select_gemm_shapes(BT, P, D), [(P, P), (2, P)],
-                                     dev)
+    plan, rows, args, _ws = launch_plan(dt, patch_select_gemm_shapes(BT, P, D),
+                                        [(P, P), (2, P)], dev)
     _build.launch("qt_patch_select", _build.dtype_code(patch),
                   patch.data_ptr(), video.data_ptr(), audio.data_ptr(),
                   *[w.data_ptr() for w in weights],
                   a_out.data_ptr(), v_out.data_ptr(),
                   *[s.data_ptr() for s in scratch], BT, P, D, nhead, *args)
     fused_patch_select.launches += 1
-    _note_planned(fused_patch_select, plan, rows)
+    note_launch_plan(fused_patch_select, plan, rows)
     return a_out, v_out
 
 
@@ -290,13 +273,13 @@ def _launch_tp_self(patch, w, b, ow, nhead):
     qkv = torch.empty(BT * P, 3 * Wl, dtype=dt, device=dev)
     ctx = torch.empty(BT * P, Wl, dtype=dt, device=dev)
     shapes = patch_select_train_tp_gemm_shapes(BT, P, D, Wl)["tp_self"]
-    plan, rows, args, _ws = _planned(dt, shapes, [(P, P)], dev)
+    plan, rows, args, _ws = launch_plan(dt, shapes, [(P, P)], dev)
     _build.launch("qt_patch_select_tp_self", _build.dtype_code(patch), patch.data_ptr(),
                   w.data_ptr(), b.data_ptr(), ow.data_ptr(), part.data_ptr(), qkv.data_ptr(),
                   ctx.data_ptr(), BT, P, D, Wl, nhead, *args)
     fused_patch_select.launches += 1
     fused_patch_select_tp_self.launches += 1
-    _note_planned(fused_patch_select_tp_self, plan, rows)
+    note_launch_plan(fused_patch_select_tp_self, plan, rows)
     return part
 
 
@@ -360,13 +343,13 @@ def _launch_tp_cross(x1, audio, video, w, b, ow, nhead):
     q = torch.empty(2 * BT, Wl, dtype=dt, device=dev)
     ctx2 = torch.empty(2 * BT, D, dtype=dt, device=dev)
     shapes = patch_select_train_tp_gemm_shapes(BT, P, D, Wl)["tp_cross"]
-    plan, rows, args, _ws = _planned(dt, shapes, [(2, P)], dev)
+    plan, rows, args, _ws = launch_plan(dt, shapes, [(2, P)], dev)
     _build.launch("qt_patch_select_tp_cross", _build.dtype_code(x1), x1.data_ptr(),
                   video.data_ptr(), audio.data_ptr(), w.data_ptr(), b.data_ptr(),
                   ow.data_ptr(), part.data_ptr(), kv.data_ptr(), q.data_ptr(), ctx2.data_ptr(),
                   BT, P, D, Wl, nhead, *args)
     fused_patch_select_tp_cross.launches += 1
-    _note_planned(fused_patch_select_tp_cross, plan, rows)
+    note_launch_plan(fused_patch_select_tp_cross, plan, rows)
     return part
 
 
@@ -417,12 +400,12 @@ def _launch_tp_mlp(crs, w1, b1, w2):
     hid = torch.empty(Q, Hl, dtype=crs.dtype, device=crs.device)
     # the MLP's products run over the query rows alone: any patch count
     shapes = patch_select_train_tp_gemm_shapes(B * T, 1, D, 2 * Hl)["tp_mlp"]
-    plan, rows, args, _ws = _planned(crs.dtype, shapes, [], crs.device)
+    plan, rows, args, _ws = launch_plan(crs.dtype, shapes, [], crs.device)
     _build.launch("qt_patch_select_tp_mlp", _build.dtype_code(crs), crs.data_ptr(),
                   w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), part.data_ptr(), hid.data_ptr(),
                   Q, D, Hl, *args)
     fused_patch_select_tp_mlp.launches += 1
-    _note_planned(fused_patch_select_tp_mlp, plan, rows)
+    note_launch_plan(fused_patch_select_tp_mlp, plan, rows)
     return part
 
 

@@ -16,6 +16,16 @@ The JAX package admits a shape to its kernels by TPU memory and launch
 overhead (``_usable``, ``_attn_sizes``, ``_mlp_sizes``); here a CUDA tensor
 always launches the kernel, and a shape the kernel does not take raises.
 
+The fp32 attention halves (``fused_attn_ln2``, ``fused_attn_half`` and
+the TP partial) are planned launches (``ops.gemm.launch_plan``): their two
+products run on ``gemm_tf32x3`` (3xTF32) as the plan rows of
+``attn_gemm_shapes`` say, ln_1 staged first, and the launch writes back the
+route each product took (``gemm_routes``: tf32x3 x 2 a launch) and the
+kernel its attention took (``attn_routes``); a product the plan refuses
+raises. In bf16 they plan nothing: their products take ``gemm_sm90`` where
+``gemm_route`` gives wgmma, tallied by that rule. The MLP half's fp32
+products stay on ``gemm_tile``'s FMA loop.
+
 Under tensor parallelism (``parallel/tensor.py``) ``fused_attn_ln2`` splits
 at its all-reduce into two stages: ``fused_attn_ln2_partial`` (ln_1, the
 rank's heads, its out_proj columns into an fp32 [B, S, W] partial; it
@@ -35,7 +45,15 @@ from qa_tiger_tpu_torch.nn.core import layer_norm, linear, quick_gelu
 from qa_tiger_tpu_torch.ops import _build, _grad
 from qa_tiger_tpu_torch.ops.epilogue import launch_epilogue, no_grad_stage, reduce_epilogue_plain
 from qa_tiger_tpu_torch.ops.attention import _wide_reference
-from qa_tiger_tpu_torch.ops.gemm import attn_gemm_shapes, mlp_gemm_shapes, note_routes, tma_ready
+from qa_tiger_tpu_torch.ops.gemm import (
+    aligned16,
+    attn_gemm_shapes,
+    launch_plan,
+    mlp_gemm_shapes,
+    note_launch_plan,
+    note_routes,
+    tma_ready,
+)
 
 
 def _attn_params(block) -> list:
@@ -199,18 +217,19 @@ def fused_attn_ln2_partial(x: torch.Tensor, block, mask: torch.Tensor | None,
             raise ValueError(f"expected a contiguous {shape}, got {tuple(p.shape)}")
         if p.dtype != x.dtype or p.device != x.device:
             raise ValueError("parameters must match x's dtype and device")
-    params = [tma_ready(p) for p in params]  # the GEMMs' B operands
+    params = [aligned16(p) for p in params]  # the products' B operands (TMA, cp.async)
     part = torch.empty(B, S, W, dtype=torch.float32, device=x.device)
     qkv = torch.empty(B * S, 3 * Wl, dtype=x.dtype, device=x.device)
     ctx = torch.empty(B * S, W, dtype=x.dtype, device=x.device)
     stats = torch.empty(2, B * S, dtype=torch.float32, device=x.device)
+    shapes = [(B * S, 3 * Wl, W), (B * S, W, Wl)]
+    plan, rows, args, _ws = _attn_plan(x, shapes)
     _build.launch("qt_attn_ln2_partial", _build.dtype_code(x), x.data_ptr(),
                   *[p.data_ptr() for p in params], _build.ptr(mask), part.data_ptr(),
-                  qkv.data_ptr(), ctx.data_ptr(), stats.data_ptr(), B, S, W, Wl, heads)
+                  qkv.data_ptr(), ctx.data_ptr(), stats.data_ptr(), B, S, W, Wl, heads, *args)
     fused_attn_ln2.launches += 1
     fused_attn_ln2_partial.launches += 1
-    note_routes(fused_attn_ln2_partial, x.dtype,
-                [(B * S, 3 * Wl, W), (B * S, W, Wl)])
+    _note_attn_plan(fused_attn_ln2_partial, x.dtype, shapes, plan, rows)
     return part
 
 
@@ -237,31 +256,55 @@ def _attn_scratch(x):
             torch.empty(2, B * S, dtype=torch.float32, device=x.device))
 
 
+def _attn_plan(x, shapes) -> tuple:
+    """``launch_plan`` of one fp32 attention half over x [B, S, W]: its
+    products ``shapes`` and its one S x S attention. A bf16 launch plans
+    nothing (null plan arguments), so the serving path's host work per
+    launch stays what it was."""
+    if x.dtype != torch.float32:
+        return None, None, [None, 0, None, 0, None, 0], None
+    return launch_plan(x.dtype, shapes, [(x.shape[1],) * 2], x.device)
+
+
+def _note_attn_plan(kernel, dtype, shapes, plan, rows) -> None:
+    """The routes of one attention-half launch: in fp32 its products' and
+    its attention's from the plan rows it wrote, in bf16 its products' by
+    the route rule."""
+    if plan is None:
+        note_routes(kernel, dtype, shapes)
+    else:
+        note_launch_plan(kernel, plan, rows)
+
+
 def _launch_ln2(x, *params, heads, mask):
     B, S, W = x.shape
-    params = [tma_ready(p) for p in params]  # the GEMMs' B operands
+    params = [aligned16(p) for p in params]  # the products' B operands (TMA, cp.async)
     y, h = torch.empty_like(x), torch.empty_like(x)
     qkv, ctx, stats = _attn_scratch(x)
+    shapes = attn_gemm_shapes(B * S, W)
+    plan, rows, args, _ws = _attn_plan(x, shapes)
     _build.launch("qt_attn_ln2", _build.dtype_code(x), x.data_ptr(),
                   *[p.data_ptr() for p in params], _build.ptr(mask),
                   y.data_ptr(), h.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
-                  stats.data_ptr(), B, S, W, heads)
+                  stats.data_ptr(), B, S, W, heads, *args)
     fused_attn_ln2.launches += 1
-    note_routes(fused_attn_ln2, x.dtype, attn_gemm_shapes(B * S, W))
+    _note_attn_plan(fused_attn_ln2, x.dtype, shapes, plan, rows)
     return y, h
 
 
 def _launch_half(x, *params, heads, mask):
     B, S, W = x.shape
-    params = [tma_ready(p) for p in params]  # the GEMMs' B operands
+    params = [aligned16(p) for p in params]  # the products' B operands (TMA, cp.async)
     y = torch.empty_like(x)
     qkv, ctx, stats = _attn_scratch(x)
+    shapes = attn_gemm_shapes(B * S, W)
+    plan, rows, args, _ws = _attn_plan(x, shapes)
     _build.launch("qt_attn_half", _build.dtype_code(x), x.data_ptr(),
                   *[p.data_ptr() for p in params], _build.ptr(mask),
                   y.data_ptr(), qkv.data_ptr(), ctx.data_ptr(), stats.data_ptr(),
-                  B, S, W, heads)
+                  B, S, W, heads, *args)
     fused_attn_half.launches += 1
-    note_routes(fused_attn_half, x.dtype, attn_gemm_shapes(B * S, W))
+    _note_attn_plan(fused_attn_half, x.dtype, shapes, plan, rows)
     return y
 
 
@@ -289,8 +332,11 @@ fused_attn_ln2_post.launches = 0
 fused_attn_half.launches = 0
 fused_resblock.launches = 0
 # the GEMM routine of each product the attention halves and the MLP half
-# launched
+# launched, and the kernel each fp32 attention half's attention took
 fused_attn_ln2.gemm_routes = {}
 fused_attn_ln2_partial.gemm_routes = {}
 fused_attn_half.gemm_routes = {}
 fused_resblock.gemm_routes = {}
+fused_attn_ln2.attn_routes = {}
+fused_attn_ln2_partial.attn_routes = {}
+fused_attn_half.attn_routes = {}

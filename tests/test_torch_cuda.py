@@ -103,13 +103,13 @@ def test_attention_wide_long_keys_and_key_bias(cuda, dtype, n, bias, masked):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_attn_ln2_clip_image_shape(cuda, dtype):
     """The CLIP ViT-L/14@336px block: 577 tokens, width 1024, 16 heads, no
-    mask (the tensor-core attention inside in bf16, the tiled FMA kernel in
-    fp32)."""
+    mask (the tensor-core attention inside in bf16, its 3xTF32 key-tiled
+    form in fp32)."""
     rng = np.random.default_rng(8)
     blk = ResidualAttentionBlock(1024, 24, torch.Generator().manual_seed(0)).to(cuda, dtype)
     x = _rn(rng, 2, 577, 1024, dtype=dtype)
     assert A.attention_route(dtype, 577, 577, 64) == ("mma" if dtype == torch.bfloat16
-                                                      else "fma")
+                                                      else "mma_nokeep")
     _check(lambda: R.fused_attn_ln2(x, blk, None, 16),
            lambda: R._attn_ln2_plain(blk, x, heads=16, mask=None), dtype)
 
@@ -171,7 +171,7 @@ def test_attention_route_rule(cuda):
     assert A.attention_route(bf, 16, 17, 64) == "mma"
     assert A.attention_route(bf, 60, 77, 64) == "mma"
     assert A.attention_route(bf, 577, 577, 64) == "mma"
-    assert A.attention_route(f32, 577, 577, 64) == "fma"          # fp32 parity route
+    assert A.attention_route(f32, 577, 577, 64) == "mma_nokeep"   # its key-tiled form
     assert A.attention_route(bf, 60, 77, 64, has_keep=True) == "mma_keep"  # train dropout
     assert A.attention_route(f32, 60, 77, 64, has_keep=True) == "mma_keep"
     assert A.attention_route(f32, 60, 129, 64, has_keep=True) == "fma"
@@ -179,7 +179,7 @@ def test_attention_route_rule(cuda):
     assert A.attention_route(bf, 2, 14, 64) == "mma_short"    # PatchSelecter cross
     assert A.attention_route(bf, 1, 2, 64) == "mma_short"     # QstGrounding
     assert A.attention_route(f32, 14, 14, 64) == "mma_nokeep"  # the fp32 eval forward
-    assert A.attention_route(f32, 14, 14, 64, has_bias=True) == "fma"
+    assert A.attention_route(f32, 14, 14, 64, has_bias=True) == "mma_nokeep"
     assert A.attention_route(f32, 60, 77, 64) == "mma_nokeep"
     assert A.attention_route(f32, 1, 2, 64) == "mma_nokeep"
     assert A.attention_route(bf, 14, 14, 64, has_keep=True) == "mma_keep"  # train kernels
@@ -198,7 +198,8 @@ def test_attention_route_rule(cuda):
     assert A.attention_route(bf, 577, 577, 256) == "mma"
     assert A.attention_route(bf, 60, 300, 200) == "mma"       # padded to 256
     assert A.attention_route(bf, 60, 2000, 512) == "fma"      # p past the limit
-    assert A.attention_route(f32, 60, 60, 512) == "fma"
+    assert A.attention_route(f32, 60, 60, 512) == "tf32x3"    # the lane split
+    assert A.attention_route(f32, 60, 60, 512, has_bias=True) == "fma"
     assert A.attention_route(bf, 60, 60, 512, has_keep=True) == "fma"
 
 
@@ -449,17 +450,18 @@ def test_attention_nokeep_copies_misaligned_fp32_rows(cuda):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("sq,sk", [(60, 77), (1, 60), (14, 14)])
 def test_attention_with_a_mask_or_key_bias_stays_off_nokeep(cuda, sq, sk, dtype):
-    """A call that adds a mask, a key bias or both keeps the kernel it took
-    before "mma_nokeep" existed (the staged FMA kernel, or in bf16 the mma
-    and short kernels), which the launch reports; the same call without
-    them takes "mma_nokeep" where the rule gives it."""
+    """A bf16 call that adds a mask, a key bias or both keeps the kernel it
+    took before "mma_nokeep" existed (the staged FMA kernel, the mma and
+    short kernels), an fp32 one takes "mma_nokeep" with them, which the
+    launch reports; the same call without them takes "mma_nokeep" where
+    the rule gives it."""
     rng = np.random.default_rng(sq + sk)
     q, k, v = (_rn(rng, 4, s, 256, dtype=dtype) for s in (sq, sk, sk))
     mask = torch.from_numpy(np.where(rng.random((sq, sk)) < 0.2, -1e9, 0.0)
                             .astype(np.float32)).to(cuda)
     kb = torch.from_numpy(np.log(rng.integers(1, 41, (4, sk))).astype(np.float32)).to(cuda)
     want = A.attention_plan(dtype, sq, sk, 64, has_bias=True, limit=A.smem_limit(cuda)).kernel
-    assert want != "mma_nokeep"
+    assert (want == "mma_nokeep") == (dtype == torch.float32)
     for m, b_ in ((mask, None), (None, kb), (mask, kb)):
         A.attention_wide.attn_routes = {}
         _check(lambda: A.attention_wide(q, k, v, m, 0.125, 4, key_bias=b_),
@@ -590,7 +592,7 @@ def test_attention_odd_head_sizes_over_128_keys(cuda, hd, sk, dtype):
     q, k, v = _packed_qkv(rng, 2, sq, sk, hd * H, dtype, cuda)
     kb = torch.from_numpy(np.log(rng.integers(1, 41, (2, sk))).astype(np.float32)).to(cuda)
     scale = hd ** -0.5
-    want_route = "mma" if dtype == torch.bfloat16 else "fma"
+    want_route = "mma" if dtype == torch.bfloat16 else "mma_nokeep"
     assert A.attention_route(dtype, sq, sk, hd) == want_route
     n = A.attention_wide.launches
     _check(lambda: A.attention_wide(q, k, v, None, scale, H, key_bias=kb),
@@ -982,21 +984,24 @@ def test_gemm_route_on_path_shapes(cuda, m, n, k):
 def test_fused_attn_kernels_on_the_gemm_route(cuda, kind, b, s, w, heads, dtype):
     """fused_attn_ln2 and fused_attn_half at the text tower's serving shape
     (causal) and the CLIP image tower's (577 tokens, no mask) against their
-    plain versions; both products on gemm_sm90 in bf16, gemm_tile's FMA loop
-    in fp32."""
+    plain versions; both products on gemm_sm90 in bf16 and on gemm_tf32x3 in
+    fp32, as each launch's tally reads back."""
     rng = np.random.default_rng(b + s)
     blk = ResidualAttentionBlock(w, heads, torch.Generator().manual_seed(0)).to(cuda, dtype)
     x = _rn(rng, b, s, w, dtype=dtype)
     mask = causal_mask(s, device=cuda) if kind == "text" else None
-    route = "wgmma" if dtype == torch.bfloat16 else "fma"
-    assert GM.gemm_route(dtype, b * s, 3 * w, w) == route
-    assert GM.gemm_route(dtype, b * s, w, w) == route
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    if dtype == torch.bfloat16:
+        assert GM.gemm_route(dtype, b * s, 3 * w, w) == route
+        assert GM.gemm_route(dtype, b * s, w, w) == route
     n_ln2, n_half = R.fused_attn_ln2.launches, R.fused_attn_half.launches
+    R.fused_attn_ln2.gemm_routes, R.fused_attn_half.gemm_routes = {}, {}
     _check(lambda: R.fused_attn_ln2(x, blk, mask, heads),
            lambda: R._attn_ln2_plain(blk, x, heads=heads, mask=mask), dtype)
     _check(lambda: R.fused_attn_half(x, blk, mask, heads),
            lambda: R._attn_half_flat(x, *R._attn_params(blk), heads=heads, mask=mask), dtype)
     assert (R.fused_attn_ln2.launches, R.fused_attn_half.launches) == (n_ln2 + 1, n_half + 1)
+    assert R.fused_attn_ln2.gemm_routes == R.fused_attn_half.gemm_routes == {route: 2}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1564,11 +1569,11 @@ WIDE_HEAD_CASES = [(60, 60, 512, 1), (14, 14, 512, 1), (60, 54, 512, 1), (60, 55
 
 
 def _wide_want(dtype, sq, sk):
-    """(route, kernel) of a wide-head call: the tensor-core kernels in bf16,
-    an FMA kernel (staged or wide) in fp32."""
+    """(route, kernel) of a wide-head call without a mask or key bias: the
+    tensor-core kernels in bf16, the lane split's 3xTF32 stages in fp32."""
     if dtype == torch.bfloat16:
         return ("mma_short", "mma_wide_short") if sq <= 16 and sk <= 16 else ("mma", "mma_wide")
-    return ("fma", None)
+    return ("tf32x3", "lane_split")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1577,10 +1582,10 @@ def _wide_want(dtype, sq, sk):
                                          (True, True)])
 def test_attention_wide_heads(cuda, sq, sk, hd, heads, bias, masked, dtype):
     """q, k and v column slices of one packed buffer, with a key bias and a
-    causal mask or neither; the route and kernel (the tensor-core kernels in
-    bf16, the FMA ones in fp32); the library's plan (kernel, shared memory)
-    is attention_plan's at the card's limit; a second launch bitwise the
-    same."""
+    causal mask or neither; the route and kernel of the plan without them
+    (the tensor-core kernels in bf16, the lane split in fp32); the
+    library's plan (kernel, shared memory) is attention_plan's at the card's
+    limit; a second launch bitwise the same."""
     rng = np.random.default_rng(sq * 1000 + sk + hd)
     q, k, v = _packed_qkv(rng, 3, sq, sk, hd * heads, dtype, cuda)
     kb = (torch.from_numpy(np.log(rng.integers(1, 41, (3, sk))).astype(np.float32)).to(cuda)
@@ -1659,9 +1664,9 @@ def test_attention_wide_head_plans(cuda):
     limit = A.smem_limit(cuda)
     assert limit >= 232_448
     f32, bf = torch.float32, torch.bfloat16
-    assert A.attention_plan(f32, 60, 60, 512, limit=limit).kernel == "wide"
-    assert A.attention_plan(f32, 14, 14, 512, limit=limit).kernel == "staged"
-    assert A.attention_plan(f32, 577, 577, 256, limit=limit).kernel == "wide"
+    assert A.attention_plan(f32, 60, 60, 512, limit=limit).kernel == "lane_split"
+    assert A.attention_plan(f32, 14, 14, 512, limit=limit).kernel == "lane_split"
+    assert A.attention_plan(f32, 577, 577, 256, limit=limit).kernel == "lane_split"
     assert A.attention_plan(bf, 60, 60, 512, limit=limit).kernel == "mma_wide"
     assert A.attention_plan(bf, 14, 14, 512, limit=limit).kernel == "mma_wide_short"
     assert A.attention_plan(bf, 577, 577, 256, limit=limit).kernel == "mma_wide"

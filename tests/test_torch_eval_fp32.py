@@ -80,23 +80,27 @@ def test_eval_and_serving_attentions_plan_onto_tensor_cores(call):
 @pytest.mark.parametrize("call", sorted(EVAL_CALLS))
 def test_calls_the_new_kernel_does_not_take_keep_their_kernels(call, dtype):
     """A mask or a key bias, a keep mask, more than 128 keys, or an fp32 head
-    of 256 or 512 lanes: the kernel each took before "mma_nokeep" (the
-    staged FMA kernel, the mma and short kernels, "mma_keep", the tiled and
-    wide-head FMA kernels)."""
+    of 256 or 512 lanes: in bf16 the kernel each took before "mma_nokeep"
+    (the staged FMA kernel, the mma and short kernels, "mma_keep", the tiled
+    FMA kernel); in fp32 a mask or key bias stays on "mma_nokeep", more than
+    128 keys take its key-tiled form, a wide head the lane split, a keep
+    mask "mma_keep"."""
     sq, sk = EVAL_CALLS[call]
     biased = A.attention_plan(dtype, sq, sk, 64, has_bias=True).kernel
-    assert biased == ("staged" if dtype == F32 or call == "tempmoe" else BF16_KERNELS[call])
+    assert biased == ("mma_nokeep" if dtype == F32 else
+                      "staged" if call == "tempmoe" else BF16_KERNELS[call])
     assert A.attention_plan(dtype, sq, sk, 64, has_keep=True).kernel == "mma_keep"
     long_keys = A.attention_plan(dtype, sq, 129, 64).kernel
-    assert long_keys == ("tiled" if dtype == F32 or sq < 16 else "mma")
+    assert long_keys == ("mma_nokeep_tiled" if dtype == F32 else "tiled" if sq < 16 else "mma")
     if dtype == F32:
         for hd in (256, 512):
-            assert A.attention_plan(F32, sq, sk, hd).kernel in ("staged", "wide")
+            assert A.attention_plan(F32, sq, sk, hd).kernel == "lane_split"
 
 
 def test_kernel_names_and_routes_match_the_library_codes():
     """The C codes (common.cuh AttentionKernel / AttentionRoute, read here
-    from the source) and the Python names agree, "mma_nokeep" last."""
+    from the source) and the Python names agree for "mma_keep" and
+    "mma_nokeep"."""
     text = (CSRC / "common.cuh").read_text()
     kernels = re.search(r"enum AttentionKernel \{(.*?)\};", text, re.S).group(1)
     codes = dict((name, int(code)) for name, code in
@@ -239,7 +243,7 @@ def test_planned_routes_tally_from_the_rows():
     class Kernel:
         gemm_routes, attn_routes = {}, {}
 
-    PS._note_planned(Kernel, plan, rows)
+    PS.note_launch_plan(Kernel, plan, rows)
     assert Kernel.gemm_routes == {"tf32x3": 7}
     assert Kernel.attn_routes == {"mma_nokeep": 2}
 

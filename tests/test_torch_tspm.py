@@ -476,22 +476,21 @@ def test_wide_head_plan(dtype, shape, heads, hd):
     two-stage ring of 64-lane Q and K slabs per warp: 36,864 bytes) at 14
     keys, the wide mma one (a two-stage ring of 64-lane slabs, 36,864 bytes;
     past 128 keys, in two passes, also p, 64 rows of Sk rounded up to 16
-    plus 8) otherwise: 36,864 bytes at 60 keys, 113,664 at 577. fp32 keeps
-    the FMA kernels at 256 and 512 lanes: the staged kernel
-    holds K_h and V_h in fp32, 255,152 bytes at 60 keys of 512 lanes, which
-    takes the wide-head kernel; 14 keys still fit it. The four-head calls
-    (128 lanes, one query over 14 or 10 keys) take the short tensor-core
-    kernel in bf16 and, unmasked, the keep-masked kernel without its keep
-    mask in fp32 (a warp per problem, four a block: 101,376 bytes); with a
-    mask or key bias the staged FMA kernel."""
+    plus 8) otherwise: 36,864 bytes at 60 keys, 113,664 at 577. fp32 takes
+    the lane split's two 3xTF32 stages at 256 and 512 lanes (route tf32x3,
+    two stages of 128 rows of 144 bytes: 36,864 bytes) at any length. The
+    four-head calls (128 lanes, one query over 14 or 10 keys) take the
+    short tensor-core kernel in bf16 and the keep-masked kernel without its
+    keep mask in fp32 (a warp per problem, four a block: 101,376 bytes),
+    with a mask or key bias too."""
     _, sq, sk = shape
     plan = A.attention_plan(dtype, sq, sk, hd)
     if hd == 128 and dtype == torch.float32:
         assert tuple(A.attention_plan(dtype, sq, sk, hd, has_bias=True)) == (
-            "fma", "staged", 128, A._smem_bytes("staged", sk, 128))
-    want = {(torch.float32, 60, 512): ("fma", "wide", 99_904),
-            (torch.float32, 14, 512): ("fma", "staged", 65_816),
-            (torch.float32, 577, 256): ("fma", "wide", 84_800),
+            "mma_nokeep", "mma_nokeep", 128, 4 * 4 * 3 * 16 * 132)
+    want = {(torch.float32, 60, 512): ("tf32x3", "lane_split", 36_864),
+            (torch.float32, 14, 512): ("tf32x3", "lane_split", 36_864),
+            (torch.float32, 577, 256): ("tf32x3", "lane_split", 36_864),
             (torch.bfloat16, 60, 512): ("mma", "mma_wide", 36_864),
             (torch.bfloat16, 14, 512): ("mma_short", "mma_wide_short", 36_864),
             (torch.bfloat16, 577, 256): ("mma", "mma_wide", 113_664)}
@@ -507,16 +506,19 @@ def test_wide_head_plan(dtype, shape, heads, hd):
 
 
 def test_wide_head_plan_limits():
-    """The staged kernel at 512 lanes fits up to 54 keys; a smaller limit
-    moves a call to the tiled kernels; past 512 lanes over many keys
-    nothing fits and the error names the shape. In bf16 the wide mma
+    """fp32 with a mask or key bias at 512 lanes keeps the FMA kernels: the
+    staged kernel fits up to 54 keys, a smaller limit moves a call to the
+    tiled kernels; past 512 lanes over many keys nothing fits and the error
+    names the shape. In bf16 the wide mma
     kernel's p fits up to 1,520 keys (232,448 bytes); past that, or with a
     keep mask, the call takes the FMA wide-head kernel; a bf16 head between
     128 and 512 lanes runs zero-padded on the tensor-core kernels."""
-    assert A.attention_plan(torch.float32, 60, 54, 512).kernel == "staged"
-    assert A.attention_plan(torch.float32, 60, 55, 512).kernel == "wide"
-    assert A.attention_plan(torch.float32, 60, 54, 512, limit=200_000).kernel == "wide"
-    assert A.attention_plan(torch.float32, 60, 300, 200) == ("fma", "wide", 256, 84_800)
+    f32 = torch.float32
+    assert A.attention_plan(f32, 60, 54, 512, has_bias=True).kernel == "staged"
+    assert A.attention_plan(f32, 60, 55, 512, has_bias=True).kernel == "wide"
+    assert A.attention_plan(f32, 60, 54, 512, limit=200_000, has_bias=True).kernel == "wide"
+    assert A.attention_plan(f32, 60, 300, 200, has_bias=True) == ("fma", "wide", 256, 84_800)
+    assert A.attention_plan(f32, 60, 300, 200) == ("tf32x3", "lane_split", 256, 36_864)
     assert A.attention_plan(torch.bfloat16, 60, 300, 100).head == 128
     with pytest.raises(ValueError, match=r"Sq=60, Sk=60, head size 1024"):
         A.attention_plan(torch.float32, 60, 60, 1024)
@@ -537,8 +539,11 @@ def test_wide_head_plan_limits():
 
 
 # the plans of head sizes 32, 64 and 128 (and 48, which runs at its own size
-# or padded to 64), pinned: the QA-TIGER, raw-media and op-level paths'
-# calls keep the kernels they had before the wide-head tensor-core kernels
+# or padded to 64), pinned: the QA-TIGER, raw-media and op-level paths' bf16
+# calls keep the kernels they had before the wide-head tensor-core kernels;
+# fp32 calls with a mask or a key bias take the keep-masked kernel without
+# its keep multiply up to 128 keys and its key-tiled form past them
+# (128 query rows, two stages of 64 K and 64 V rows, rows of hd + 4 floats)
 PINNED_PLANS = [
     ("bfloat16", 1, 2, 32, ("mma_short", "mma_short", 32, 30720)),
     ("bfloat16", 16, 17, 32, ("mma", "mma", 32, 25600)),
@@ -556,14 +561,14 @@ PINNED_PLANS = [
     ("bfloat16", 577, 577, 128, ("mma", "mma", 128, 87040)),
     ("bfloat16", 60, 77, 48, ("fma", "staged", 48, 31876)),
     ("bfloat16", 577, 577, 48, ("mma", "mma", 64, 46080)),
-    ("float32", 14, 14, 32, ("fma", "staged", 32, 4376)),
-    ("float32", 577, 577, 32, ("fma", "tiled", 32, 41728)),
-    ("float32", 60, 77, 64, ("fma", "staged", 64, 41988)),
-    ("float32", 577, 577, 64, ("fma", "tiled", 64, 66304)),
-    ("float32", 1, 60, 128, ("fma", "staged", 128, 64688)),
-    ("float32", 60, 77, 128, ("fma", "staged", 128, 82436)),
-    ("float32", 577, 577, 128, ("fma", "tiled", 128, 115456)),
-    ("float32", 577, 577, 48, ("fma", "tiled", 64, 66304)),
+    ("float32", 14, 14, 32, ("mma_nokeep", "mma_nokeep", 32, 27648)),
+    ("float32", 577, 577, 32, ("mma_nokeep", "mma_nokeep_tiled", 32, 55296)),
+    ("float32", 60, 77, 64, ("mma_nokeep", "mma_nokeep", 64, 60928)),
+    ("float32", 577, 577, 64, ("mma_nokeep", "mma_nokeep_tiled", 64, 104448)),
+    ("float32", 1, 60, 128, ("mma_nokeep", "mma_nokeep", 128, 76032)),
+    ("float32", 60, 77, 128, ("mma_nokeep", "mma_nokeep", 128, 118272)),
+    ("float32", 577, 577, 128, ("mma_nokeep", "mma_nokeep_tiled", 128, 202752)),
+    ("float32", 577, 577, 48, ("mma_nokeep", "mma_nokeep_tiled", 64, 104448)),
 ]
 # the same calls without a mask or a key bias where that changes the plan:
 # the keep-masked kernel without its keep multiply, every fp32 call at 32,
@@ -583,11 +588,11 @@ NOKEEP_PLANS = {
 
 @pytest.mark.parametrize("dtype,sq,sk,hd,want", PINNED_PLANS)
 def test_plan_head_sizes_up_to_128_pinned(dtype, sq, sk, hd, want):
-    """Head sizes up to 128 plan as before the wide tensor-core kernels
-    when the call adds a mask or a key bias; without either, as
-    NOKEEP_PLANS says where that differs; with a keep mask those of 32, 64
-    and 128 lanes over at most 128 keys take the keep-masked tensor-core
-    kernel, every other an FMA kernel."""
+    """Head sizes up to 128 plan as PINNED_PLANS says when the call adds a
+    mask or a key bias; without either, as NOKEEP_PLANS says where that
+    differs; with a keep mask those of 32, 64 and 128 lanes over at most
+    128 keys take the keep-masked tensor-core kernel, every other an FMA
+    kernel."""
     dt = getattr(torch, dtype)
     assert tuple(A.attention_plan(dt, sq, sk, hd, has_bias=True)) == want
     assert tuple(A.attention_plan(dt, sq, sk, hd)) == NOKEEP_PLANS.get((dtype, sq, sk, hd), want)
