@@ -46,8 +46,11 @@ checkout: the median over its processes of each row. The phases:
 - ``bf16``: the checkout's ``chip_smoke.check_slice`` (``slice_bf16_b256``:
   the bf16 B=256 serving forward's median of 10) and
   ``chip_smoke.check_e2e_bf16`` (``e2e_bf16_b2``: the bf16 raw-media
-  forward's median of 10), the paths whose kernels a change to fp32 plans
-  must leave alone.
+  forward's median of 10), and the bf16 ``clip_forward`` of
+  ViT-L/14@336px (one video's 60 frames against 42 prompts, the seed
+  towers written as a CLIP ``.pt`` and read back, as ``chip_smoke.check_clip``
+  builds them), timed by this file's own code: 3 warm-up calls, then the
+  median of 10, each between two synchronizes (``clip_vitl336_bf16_ms``).
 """
 from __future__ import annotations
 
@@ -121,6 +124,34 @@ if "bf16" in PHASES:
     chip_smoke.check_slice(np.random.default_rng(5), collections.defaultdict(dict), None)
     torch.cuda.empty_cache()
     chip_smoke.check_e2e_bf16(np.random.default_rng(6), None)
+    torch.cuda.empty_cache()
+    import tempfile
+    from qa_tiger_tpu_torch.models import clip
+
+    encoder_type, px, _ = chip_smoke.CLIP_CASES["clip_vitl336"]
+    with tempfile.TemporaryDirectory() as tmp:
+        chip_smoke.write_clip_checkpoint(encoder_type, Path(tmp) / "clip.pt", seed=0)
+        text_sd, vision_sd, _ = clip.load(str(Path(tmp) / "clip.pt"))
+    towers = clip.build_towers(text_sd, vision_sd, encoder_type, device="cuda",
+                               dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    frames = torch.randn(chip_smoke.CLIP_FRAMES, px, px, 3, generator=g, device="cuda",
+                         dtype=torch.bfloat16)
+    prompts = torch.from_numpy(chip_smoke.make_tokens(np.random.default_rng(18),
+                                                      chip_smoke.CLIP_PROMPTS)).cuda()
+    with torch.inference_mode():
+        for _ in range(3):
+            clip.clip_forward(*towers, frames, prompts, encoder_type=encoder_type)
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            clip.clip_forward(*towers, frames, prompts, encoder_type=encoder_type)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+    print(json.dumps({{"phase": "ab_clip_vitl336_bf16",
+                      "forward_ms_median": statistics.median(times),
+                      "forward_ms_all": times}}), flush=True)
 """
 
 
@@ -251,7 +282,9 @@ def run_one(tree: Path, out: Path, phases: tuple) -> dict:
         res.update(serving_bf16_ms=lines["slice_bf16_b256"]["forward_ms_median"],
                    serving_bf16_ms_all=lines["slice_bf16_b256"]["forward_ms_all"],
                    e2e_bf16_ms=lines["e2e_bf16_b2"]["forward_ms_median"],
-                   e2e_bf16_ms_all=lines["e2e_bf16_b2"]["forward_ms_all"])
+                   e2e_bf16_ms_all=lines["e2e_bf16_b2"]["forward_ms_all"],
+                   clip_vitl336_bf16_ms=lines["ab_clip_vitl336_bf16"]["forward_ms_median"],
+                   clip_vitl336_bf16_ms_all=lines["ab_clip_vitl336_bf16"]["forward_ms_all"])
     return res
 
 
@@ -259,7 +292,7 @@ def run_one(tree: Path, out: Path, phases: tuple) -> dict:
 SUMMARY_ROWS = ("step_ms_median", "device_busy_ms", "graph_replay_ms_median", "eval_ms_median",
                 "extract_ms_clip", "extract_clip_busy_ms", "extract_ms_tome",
                 "extract_tome_busy_ms", "extract_ms_questions", "extract_questions_busy_ms",
-                "serving_bf16_ms", "e2e_bf16_ms")
+                "serving_bf16_ms", "e2e_bf16_ms", "clip_vitl336_bf16_ms")
 
 
 def main() -> int:

@@ -35,11 +35,16 @@
 //   head) problem on mma.sync, q, k and v brought in by cp.async through a
 //   two-stage ring per warp, the context stored 16 bytes a lane;
 // - the same at least 16 queries and 16 keys otherwise (every bf16 call of
-//   the text tower, AVQ, the CLIP image tower and ToMe but its last layers):
-//   route 1, "mma", q·kᵀ and p·v on mma.sync with fp32 accumulation, K and
-//   V streamed by cp.async through a two-stage shared-memory ring in 64-key
-//   tiles; one pass up to 128 keys, two beyond (row max and sum, then the
-//   rounded probabilities and the context);
+//   the text tower, AVQ and ToMe's layers of at most 128 tokens): route 1,
+//   "mma", q·kᵀ and p·v on mma.sync with fp32 accumulation, K and V streamed
+//   by cp.async through a two-stage shared-memory ring in 64-key tiles; one
+//   pass up to 128 keys, two beyond (row max and sum, then the rounded
+//   probabilities and the context) at head sizes 32 and 128;
+// - the same past 128 keys at head size 64 where sm90_faster holds (the
+//   CLIP image tower's 577 tokens, ToMe's layers of 327-577 and 202-252
+//   tokens): route 6, "wgmma", kernel "mma_sm90" of attention_sm90.cuh,
+//   built here: TMA and wgmma, a persistent block per SM of two consumer
+//   warpgroups and a producer warpgroup, the same two passes;
 // - bf16 without a keep mask at head sizes 256 and 512 (TSPM's one-head
 //   attentions; heads between 128 and 512 lanes zero-padded to them), both
 //   streaming the head in 64-lane slabs through a cp.async ring: at most 16
@@ -78,6 +83,7 @@
 //   block; at head sizes 256 and 512 the wide-head kernel, 16 or 32-key
 //   tiles in the same two passes.
 // PERF.md has each route's time beside the bound.
+#include "attention_sm90.cuh"
 #include "attention_tp.cuh"
 
 namespace qt {
@@ -133,7 +139,8 @@ extern "C" const char* qt_error_string(int err) {
 }
 
 // the kernel family qt::attention takes for such a call on the current
-// device: 5 the lane split's 3xTF32 stages (tf32x3), 4 the keep-masked
+// device: 6 the Hopper kernel (wgmma: mma_sm90), 5 the lane split's 3xTF32
+// stages (tf32x3), 4 the keep-masked
 // kernel without a keep mask (mma_nokeep, mma_nokeep_tiled), 3 the
 // keep-masked tensor-core kernel (mma_keep), 2 a tensor-core kernel with a
 // warp per problem (mma_short, mma_wide_short), 1 one with 64 query rows
@@ -147,7 +154,8 @@ extern "C" int qt_attention_route(int dtype, int Sq, int Sk, int hd, int has_kee
 
 // the kernel of qt::attention_plan on the current device (-1 none, 0 staged,
 // 1 tiled, 2 wide-head, 3 mma, 4 mma_short, 5 mma_wide, 6 mma_wide_short,
-// 7 mma_keep, 8 mma_nokeep, 9 mma_nokeep_tiled, 10 lane_split), its shared
+// 7 mma_keep, 8 mma_nokeep, 9 mma_nokeep_tiled, 10 lane_split, 11
+// mma_sm90), its shared
 // memory in *smem; ops/attention.py
 // holds its own plan (attention_plan) against this one
 extern "C" int qt_attention_plan(int dtype, int Sq, int Sk, int hd, int has_keep, int has_bias,
@@ -173,6 +181,15 @@ extern "C" int qt_attention_bwd_plan(int dtype, int Sq, int Sk, int hd, int has_
 
 // the current device's opt-in shared memory per block, in bytes
 extern "C" int qt_smem_optin() { return (int)qt::smem_optin(); }
+
+// the measurement switch of the Hopper kernel (qt::Sm90Mode): 0 the plan
+// every call gets, 1 the plan leaves its calls on attention_mma_kernel, 2 it
+// takes every head-64 length past 128 keys; returns the mode before
+extern "C" int qt_attention_sm90_mode(int mode) {
+  const int before = qt::attention_sm90_mode();
+  qt::set_attention_sm90_mode(mode);
+  return before;
+}
 
 // kernel (a host int, may be null): the AttentionKernel the call launched;
 // scratch: fp32 [B, Sq, Sk] for the lane split's scores (null where the

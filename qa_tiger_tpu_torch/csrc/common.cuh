@@ -61,6 +61,24 @@ cudaError_t attention_keep_bwd(bool bf16, KeepIn q, KeepIn k, KeepIn v, KeepIn g
 cudaError_t attention_lanes(KeepIn q, KeepIn k, KeepIn v, KeepOut out, int B, int Sq, int Sk,
                             int heads, int hd, float scale, float* scratch,
                             cudaStream_t stream);
+// The bf16 attention past 128 keys for Hopper (kernel "mma_sm90", route
+// "wgmma"): TMA and wgmma, two passes, head size 64 (attention_sm90.cuh,
+// built in attention.cu). attention_sm90_mode is a measurement switch that
+// chip_smoke.py's kernel lines and the card's tests set through
+// qt_attention_sm90_mode: ATT_SM90_DEFAULT (what every caller gets: the
+// calls sm90_faster names), ATT_SM90_OFF (attention_plan leaves every
+// such call on attention_mma_kernel, to time it on the same inputs) or
+// ATT_SM90_ALWAYS (the Hopper kernel at every length past 128 keys, to time
+// and test it where the rule declines it).
+cudaError_t attention_sm90(const __nv_bfloat16* q, long long q_bs, long long q_ss,
+                           const __nv_bfloat16* k, long long k_bs, long long k_ss,
+                           const __nv_bfloat16* v, long long v_bs, long long v_ss,
+                           __nv_bfloat16* out, long long o_bs, long long o_ss, const float* mask,
+                           const float* key_bias, int B, int Sq, int Sk, int heads, int hd,
+                           float scale, cudaStream_t stream);
+enum Sm90Mode { ATT_SM90_DEFAULT = 0, ATT_SM90_OFF = 1, ATT_SM90_ALWAYS = 2 };
+int attention_sm90_mode();
+void set_attention_sm90_mode(int mode);
 
 // Everything below has internal linkage (an unnamed namespace), so each
 // source that includes this header owns its instantiations and no two
@@ -973,10 +991,33 @@ inline cudaError_t attention_wide_head(const T* q, long long q_bs, long long q_s
 // returns cudaErrorInvalidValue.
 // ---------------------------------------------------------------------------
 constexpr int AM_Q = 64, AM_K = 64, AM_THREADS = 128, AM_PAD = 8;
+// attention_sm90's geometry (attention_sm90.cuh): 128 query rows and
+// 128-key tiles, Q double-buffered, AS9_KSTAGES K stages (a call of at most
+// that many key tiles keeps K for both passes) and AS9_VSTAGES V stages of
+// 128 rows x 128 bytes, each K stage's key bias, the barriers, 1 KB of
+// slack to align the tiles to the swizzle atom. It takes bf16 calls at head
+// size 64 with at least ATT_MMA_MIN_SQ queries over at least ATT_SM90_MIN_SK
+// keys (shorter ones keep attention_mma_kernel's one-pass form) where
+// sm90_faster says it beats attention_mma_kernel's two-pass form.
+constexpr int AS9_Q = 128, AS9_K = 128, AS9_KSTAGES = 5, AS9_VSTAGES = 3;
+constexpr int ATT_SM90_MIN_SK = 2 * AM_K + 1;
+// The measured rule (PERF.md, chip_smoke.py's sm90_sweep over ToMe's
+// layers, Sq = Sk): the Hopper kernel's 128-row, 128-key tiles cost a whole
+// tile for a partial one, where attention_mma_kernel's are 64; up to 3
+// tiles it is faster only where the last tile is more than half full (or
+// full), past 3 tiles at every length.
+inline bool sm90_faster(int Sk) {
+  return Sk > 3 * AS9_K || Sk % AS9_K == 0 || Sk % AS9_K > AS9_K / 2;
+}
+constexpr size_t AS9_SMEM = 1024 + (size_t)(2 * AS9_Q + (AS9_KSTAGES + AS9_VSTAGES) * AS9_K) * 128 +
+                            (size_t)AS9_KSTAGES * AS9_K * 4 +
+                            8 * (size_t)(2 * 2 + 2 * AS9_KSTAGES + 2 * AS9_VSTAGES);
 constexpr int ATT_MMA_MIN_SQ = 16, ATT_MMA_MIN_SK = 16, ATT_SHORT_MAX = 16;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The kernel family qt::attention takes. With a keep mask, at head sizes
+// The kernel family qt::attention takes ("wgmma": the Hopper kernel of
+// attention_sm90.cuh, bf16 past 128 keys at head size 64, which
+// attention_plan picks among the "mma" calls). With a keep mask, at head sizes
 // 32, 64 and 128 over at most ATT_KEEP_MAX_SK keys, in bf16 and fp32: the
 // keep-masked tensor-core kernel (attention_keep.cu). For bf16 without a
 // keep mask at a head size the tensor-core kernels are built for: a warp per
@@ -1002,7 +1043,8 @@ enum AttentionRoute {
   ATT_ROUTE_MMA_SHORT = 2,
   ATT_ROUTE_MMA_KEEP = 3,
   ATT_ROUTE_MMA_NOKEEP = 4,
-  ATT_ROUTE_TF32X3 = 5
+  ATT_ROUTE_TF32X3 = 5,
+  ATT_ROUTE_WGMMA = 6
 };
 
 inline bool wide_head(int hd) { return hd == 256 || hd == 512; }
@@ -2216,7 +2258,11 @@ inline cudaError_t attention_wide_short(const __nv_bfloat16* q, long long q_bs, 
 // those head sizes past ATT_KEEP_MAX_SK keys takes the key-tiled form
 // ("mma_nokeep_tiled") and one at head size 256 or 512 without a mask or a
 // key bias the lane split ("lane_split"), each where its shared memory
-// fits; a wide
+// fits; a bf16 call that the mma kernel takes at head size 64 with at
+// least ATT_SM90_MIN_SK keys takes the Hopper kernel ("mma_sm90", route
+// "wgmma") where its shared memory fits and sm90_faster holds (the measured
+// rule), the one-pass form up to 128 keys stays; head sizes 32 and 128 keep
+// the two-pass form, which the Hopper kernel is not built for; a wide
 // head whose probabilities pass the limit in the mma kernel (far past 577
 // keys) falls to the FMA kernels, and a bf16 head between 128 and 512 lanes
 // that no tensor-core kernel is built for has none (the wrapper pads it).
@@ -2241,6 +2287,7 @@ enum AttentionKernel {
   ATT_KERNEL_MMA_NOKEEP = 8,
   ATT_KERNEL_MMA_NOKEEP_TILED = 9,
   ATT_KERNEL_LANES = 10,
+  ATT_KERNEL_MMA_SM90 = 11,
 };
 
 inline AttentionKernel attention_plan(bool bf16, int Sq, int Sk, int hd, bool has_keep,
@@ -2281,6 +2328,14 @@ inline AttentionKernel attention_plan(bool bf16, int Sq, int Sk, int hd, bool ha
         case 64: bytes = shrt ? attention_short_smem_bytes<64>() : attention_mma_smem_bytes<64>(); break;
         default: bytes = shrt ? attention_short_smem_bytes<128>() : attention_mma_smem_bytes<128>();
       }
+      // past 128 keys at head size 64: the Hopper kernel (head sizes 32 and
+      // 128 keep attention_mma_kernel's two-pass form)
+      const int mode = attention_sm90_mode();
+      if (kernel == ATT_KERNEL_MMA && hd == 64 && Sk >= ATT_SM90_MIN_SK && AS9_SMEM <= limit &&
+          mode != ATT_SM90_OFF && (mode == ATT_SM90_ALWAYS || sm90_faster(Sk))) {
+        kernel = ATT_KERNEL_MMA_SM90;
+        bytes = AS9_SMEM;
+      }
     }
   }
   const bool to_fma = route == ATT_ROUTE_FMA || (wide_head(hd) && bytes > limit);
@@ -2318,6 +2373,7 @@ inline AttentionRoute attention_kernel_route(AttentionKernel kernel) {
     case ATT_KERNEL_MMA_NOKEEP:
     case ATT_KERNEL_MMA_NOKEEP_TILED: return ATT_ROUTE_MMA_NOKEEP;
     case ATT_KERNEL_LANES: return ATT_ROUTE_TF32X3;
+    case ATT_KERNEL_MMA_SM90: return ATT_ROUTE_WGMMA;
     default: return ATT_ROUTE_FMA;
   }
 }
@@ -2379,6 +2435,9 @@ inline cudaError_t attention(const T* q, long long q_bs, long long q_ss, const T
         default: return QT_TC(attention_short, 128);
       }
     }
+    if (kernel == ATT_KERNEL_MMA_SM90)
+      return attention_sm90(q, q_bs, q_ss, k, k_bs, k_ss, v, v_bs, v_ss, out, o_bs, o_ss, mask,
+                            key_bias, B, Sq, Sk, heads, hd, scale, stream);
     if (kernel == ATT_KERNEL_MMA) {
       switch (hd) {
         case 32: return QT_TC(attention_mma, 32);

@@ -204,7 +204,7 @@ cudaError_t mlp(const T* x, const T* ln2w, const T* ln2b, const T* wfc, const T*
 // products (ops/gemm.py gemm_plan), route written here; attn_rows: `attns`
 // rows of (Sq, Sk, kernel), its one attention (ops/attention.py keep_rows),
 // kernel written here; ws / ws_floats: the split-K workspace (null / 0 where
-// the plan splits none). A bf16 launch passes none of them (null, 0).
+// the plan splits none). A bf16 launch passes only its attention row.
 #define QT_PLAN \
   GemmPlan { plan, products, 0, static_cast<float*>(ws), ws_floats, attn_rows, attns }
 #define QT_DISPATCH(CALL)                   \

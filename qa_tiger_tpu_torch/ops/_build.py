@@ -38,12 +38,16 @@ SIGNATURES = {
     "qt_fused_attention": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
                            _I, _I, _I, _I, _F, _P, _P],
     # not a launcher: the kernel family qt::attention takes (0 fma, 1 mma,
-    # 2 mma_short, 3 mma_keep, 4 mma_nokeep, 5 tf32x3)
+    # 2 mma_short, 3 mma_keep, 4 mma_nokeep, 5 tf32x3, 6 wgmma)
     "qt_attention_route": [_I, _I, _I, _I, _I, _I],
     # not a launcher: the kernel and shared memory of qt::attention_plan
     # (ops/attention.py KERNEL_NAMES), and the device's opt-in limit per block
     "qt_attention_plan": [_I, _I, _I, _I, _I, _I, _P],
     "qt_smem_optin": [],
+    # not a launcher: the Hopper attention's measurement switch (0 the plan
+    # every call gets, 1 its calls on the mma kernel, 2 every length past
+    # 128 keys); returns the mode before
+    "qt_attention_sm90_mode": [_I],
     # not a launcher: the kernel and shared memory of qt::attention_bwd_plan
     "qt_attention_bwd_plan": [_I, _I, _I, _I, _I, _P],
     # the keep-masked tensor-core attention, forward and backward, alone

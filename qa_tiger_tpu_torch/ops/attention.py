@@ -7,7 +7,11 @@ and ``fused_attention``. The CUDA kernels in ``csrc/attention.cu`` run for
 CUDA tensors, the plain versions for CPU tensors. On the card bf16 calls
 without a keep mask take a tensor-core kernel: at head sizes 32, 64 and 128
 the short one (a warp per problem) at most 16 queries and 16 keys, the mma
-one at least 16 of each; at 256 and 512 (and, zero-padded, any head between
+one at least 16 of each, except at head size 64 past 128 keys where the
+measured rule ``sm90_faster`` holds, which take the Hopper kernel
+("mma_sm90", route "wgmma", ``csrc/attention_sm90.cuh``: TMA and wgmma, the
+CLIP image tower's 577 tokens and most of ToMe's long layers);
+at 256 and 512 (and, zero-padded, any head between
 128 and 512 lanes) the wide short one at most 16 of each, the wide mma one
 at any other length whose probabilities fit its shared memory. A call
 with a keep mask (the train kernels' dropout attentions, which reach the
@@ -60,15 +64,15 @@ KERNEL_HEAD_SIZES = (32, 64, 128, 256, 512)
 TC_HEAD_SIZES = (32, 64, 128, 256, 512)
 WIDE_HEAD_SIZES = (256, 512)
 # qt_attention_route's codes (csrc/common.cuh, AttentionRoute)
-ROUTES = ("fma", "mma", "mma_short", "mma_keep", "mma_nokeep", "tf32x3")
+ROUTES = ("fma", "mma", "mma_short", "mma_keep", "mma_nokeep", "tf32x3", "wgmma")
 # qt_attention_plan's codes (csrc/common.cuh, AttentionKernel), from 0
 KERNEL_NAMES = ("staged", "tiled", "wide", "mma", "mma_short", "mma_wide", "mma_wide_short",
-                "mma_keep", "mma_nokeep", "mma_nokeep_tiled", "lane_split")
+                "mma_keep", "mma_nokeep", "mma_nokeep_tiled", "lane_split", "mma_sm90")
 # each tensor-core kernel's route; every other kernel's is "fma"
 KERNEL_ROUTES = {"mma": "mma", "mma_wide": "mma", "mma_short": "mma_short",
                  "mma_wide_short": "mma_short", "mma_keep": "mma_keep",
                  "mma_nokeep": "mma_nokeep", "mma_nokeep_tiled": "mma_nokeep",
-                 "lane_split": "tf32x3"}
+                 "lane_split": "tf32x3", "mma_sm90": "wgmma"}
 # the fp32 kernels that read their operands with 16-byte cp.async copies
 # (every bf16 tensor-core kernel does)
 FP32_TC_KERNELS = ("mma_nokeep", "mma_nokeep_tiled", "lane_split")
@@ -88,6 +92,24 @@ _AM_Q, _AM_K, _AM_PAD, _AS_WARPS, _AS_ROWS = 64, 64, 8, 4, 16
 _AWM_SLAB, _AWM_STAGES = 64, 2
 _AKT_Q, _AKT_K = 128, 64
 LANE_SPLIT_SMEM = 2 * 128 * 144
+# the Hopper kernel (csrc/common.cuh AS9_*, ATT_SM90_MIN_SK): bf16 at head
+# size 64 over at least SM90_MIN_SK keys; 128 query rows and 128-key tiles,
+# two Q buffers, SM90_KSTAGES K and SM90_VSTAGES V stages of 128 rows x 128
+# bytes, each K stage's key bias, 20 barriers and 1 KB of alignment slack
+SM90_HEAD, SM90_MIN_SK = 64, 129
+_AS9_Q, _AS9_K, SM90_KSTAGES, SM90_VSTAGES = 128, 128, 5, 3
+SM90_SMEM = (1024 + (2 * _AS9_Q + (SM90_KSTAGES + SM90_VSTAGES) * _AS9_K) * 128
+             + SM90_KSTAGES * _AS9_K * 4 + 8 * (4 + 2 * SM90_KSTAGES + 2 * SM90_VSTAGES))
+# the switch of qt_attention_sm90_mode, by index
+SM90_MODES = ("default", "off", "always")
+
+
+def sm90_faster(sk: int) -> bool:
+    """The measured rule of ``qt::sm90_faster`` (csrc/common.cuh): the
+    Hopper kernel's 128-key tiles beat attention_mma_kernel's 64-key ones
+    past 3 tiles, and up to 3 where the last tile is more than half full or
+    full (ToMe's layers, chip_smoke.py's ``sm90_sweep``)."""
+    return sk > 3 * _AS9_K or sk % _AS9_K == 0 or sk % _AS9_K > _AS9_K // 2
 # attention_wide's lane split (csrc/attention_tp.cuh, TP_SHORT): a problem of
 # at most this many queries and keys is one warp's
 TP_SHORT_MAX = 16
@@ -116,6 +138,8 @@ def _smem_bytes(kernel: str, sk: int, hd: int) -> int:
         return 4 * (_AKT_Q + 4 * _AKT_K) * (hd + 4)
     if kernel == "lane_split":
         return LANE_SPLIT_SMEM
+    if kernel == "mma_sm90":
+        return SM90_SMEM
     slab_row = _AWM_SLAB + _AM_PAD
     if kernel == "mma_wide":
         # the ring of Q and K slabs (V chunks); in two passes (past 128
@@ -204,6 +228,9 @@ def _kernel_at(bf16: bool, sq: int, sk: int, hd: int, has_keep: bool, has_bias: 
             kernel = "mma_wide_short" if short else "mma_wide"
         else:
             kernel = "mma_short" if short else "mma" if sq >= 16 and sk >= 16 else None
+            if (kernel == "mma" and hd == SM90_HEAD and sk >= SM90_MIN_SK
+                    and SM90_SMEM <= limit and sm90_faster(sk)):
+                kernel = "mma_sm90"  # past 128 keys: the Hopper kernel
         if kernel is not None:
             nbytes = _smem_bytes(kernel, sk, hd)
             if nbytes <= limit or not wide:
@@ -251,7 +278,9 @@ def attention_plan(dtype: torch.dtype, sq: int, sk: int, hd: int, has_keep: bool
     without a keep mask or bias "mma_nokeep" for fewer than 16 queries over
     17-128 keys; the tensor-core routes for bf16 without a keep
     mask at head sizes 32/64/128 and 256/512 (there while the probabilities
-    fit ``limit``); else the staged FMA kernel where its shared memory fits
+    fit ``limit``), at head size 64 past 128 keys the Hopper kernel
+    ("mma_sm90", route "wgmma") where its shared memory fits and
+    ``sm90_faster`` holds; else the staged FMA kernel where its shared memory fits
     ``limit``, else the tiled (head sizes 32/64/128) or wide-head (256/512)
     kernel. A call no kernel takes at head size ``hd``
     runs zero-padded at the next size one takes (zero lanes add nothing to
@@ -339,7 +368,8 @@ def attention_route(dtype: torch.dtype, sq: int, sk: int, hd: int,
     call of this dtype and shape: "mma_short" (tensor cores, a warp per
     problem of at most 16 queries and keys: kernels mma_short and
     mma_wide_short), "mma" (tensor cores, 64 query rows per block: mma and
-    mma_wide), "mma_keep" (a keep mask on tensor cores), "mma_nokeep" (the
+    mma_wide), "wgmma" (the Hopper kernel mma_sm90: TMA and wgmma, 128
+    query rows per block), "mma_keep" (a keep mask on tensor cores), "mma_nokeep" (the
     keep-masked kernel without a keep mask, and its key-tiled form),
     "tf32x3" (the lane split's stages) or "fma", at the head size the
     wrapper launches (``attention_plan``; ``has_bias``: an additive mask or
@@ -348,6 +378,18 @@ def attention_route(dtype: torch.dtype, sq: int, sk: int, hd: int,
     code = _build.library().qt_attention_route(_build.dtype_code(dtype), sq, sk, head,
                                                int(has_keep), int(has_bias))
     return ROUTES[code]
+
+
+def set_sm90_mode(mode: str) -> str:
+    """Sets the Hopper kernel's measurement switch on the library (one of
+    SM90_MODES: "default", the plan every call gets; "off", its calls
+    planned on ``attention_mma_kernel``,
+    which the library then reports; "always", the Hopper kernel at every
+    head-64 length past 128 keys, ``sm90_faster`` or not) and returns the
+    mode before. ``chip_smoke.py`` and the card's tests time and test the
+    kernel's alternatives on the same inputs this way and set "default"
+    back; no caller of the port sets it. The Python plan is the default's."""
+    return SM90_MODES[_build.library().qt_attention_sm90_mode(SM90_MODES.index(mode))]
 
 
 def _wide_reference(q, k, v, mask, scale, heads, key_bias=None):

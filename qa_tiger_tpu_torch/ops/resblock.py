@@ -22,8 +22,13 @@ products run on ``gemm_tf32x3`` (3xTF32) as the plan rows of
 ``attn_gemm_shapes`` say, ln_1 staged first, and the launch writes back the
 route each product took (``gemm_routes``: tf32x3 x 2 a launch) and the
 kernel its attention took (``attn_routes``); a product the plan refuses
-raises. In bf16 they plan nothing: their products take ``gemm_sm90`` where
-``gemm_route`` gives wgmma, tallied by that rule. The MLP half's fp32
+raises. In bf16 they plan no product: their products take ``gemm_sm90``
+where ``gemm_route`` gives wgmma, tallied by that rule; past 128 tokens
+their one attention row (a three-int host buffer, no tensor) reads back
+the kernel the attention took (``attn_routes``: "mma_sm90", or "mma" where
+the Hopper kernel's rule declines the length). Up to 128 tokens (the text
+towers, the serving path) a bf16 launch passes no row and tallies no
+attention, so its host work stays what it was. The MLP half's fp32
 products stay on ``gemm_tile``'s FMA loop.
 
 Under tensor parallelism (``parallel/tensor.py``) ``fused_attn_ln2`` splits
@@ -35,6 +40,7 @@ ln_2(y)). They take no gradient.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -44,7 +50,7 @@ from torch.nn import functional as F
 from qa_tiger_tpu_torch.nn.core import layer_norm, linear, quick_gelu
 from qa_tiger_tpu_torch.ops import _build, _grad
 from qa_tiger_tpu_torch.ops.epilogue import launch_epilogue, no_grad_stage, reduce_epilogue_plain
-from qa_tiger_tpu_torch.ops.attention import _wide_reference
+from qa_tiger_tpu_torch.ops.attention import KEEP_MAX_SK, KERNEL_NAMES, _wide_reference
 from qa_tiger_tpu_torch.ops.gemm import (
     aligned16,
     attn_gemm_shapes,
@@ -258,20 +264,30 @@ def _attn_scratch(x):
 
 def _attn_plan(x, shapes) -> tuple:
     """``launch_plan`` of one fp32 attention half over x [B, S, W]: its
-    products ``shapes`` and its one S x S attention. A bf16 launch plans
-    nothing (null plan arguments), so the serving path's host work per
-    launch stays what it was."""
+    products ``shapes`` and its one S x S attention. A bf16 launch plans no
+    product (null plan arguments), so the serving path's host work per
+    launch stays small; past KEEP_MAX_SK tokens its one attention row (S, S,
+    kernel) is a ctypes buffer that the launch writes the kernel into."""
     if x.dtype != torch.float32:
-        return None, None, [None, 0, None, 0, None, 0], None
+        if x.shape[1] <= KEEP_MAX_SK:
+            return None, None, [None, 0, None, 0, None, 0], None
+        row = _ATTN_ROW(x.shape[1], x.shape[1], -1)
+        return None, row, [None, 0, ctypes.addressof(row), 1, None, 0], None
     return launch_plan(x.dtype, shapes, [(x.shape[1],) * 2], x.device)
+
+
+_ATTN_ROW = ctypes.c_int * 3  # one attention row (Sq, Sk, kernel)
 
 
 def _note_attn_plan(kernel, dtype, shapes, plan, rows) -> None:
     """The routes of one attention-half launch: in fp32 its products' and
     its attention's from the plan rows it wrote, in bf16 its products' by
-    the route rule."""
+    the route rule and, past 128 tokens, its attention's from its row."""
     if plan is None:
         note_routes(kernel, dtype, shapes)
+        if rows is not None:
+            name = KERNEL_NAMES[rows[2]] if rows[2] >= 0 else "none"
+            kernel.attn_routes[name] = kernel.attn_routes.get(name, 0) + 1
     else:
         note_launch_plan(kernel, plan, rows)
 

@@ -7,7 +7,8 @@ absolute terms for its fp32 summation order (``flips``). Every other
 rounding point must agree: a version that drops one fails. Shared by
 ``test_torch_keep_attention.py`` (the plain versions against JAX, on the
 CPU) and ``test_torch_cuda.py`` (the card's kernels against the plain
-versions); imports no JAX.
+versions); ``wide_flips`` is the same bound for ``attention_wide``'s ctx
+over any number of keys, with a mask and a key bias. Imports no JAX.
 """
 import math
 
@@ -78,6 +79,29 @@ def flips(q, k, v, g, keep, heads: int, round_p_first: bool = False) -> tuple:
             scale * torch.einsum("nhqk,nkhd->nqhd", ds_f, k4.abs()).reshape(N, Sq, W),
             scale * torch.einsum("nhqk,nqhd->nkhd", ds_f, q4.abs()).reshape(N, Sk, W),
             torch.einsum("nhqk,nqhd->nkhd", pd_f, g4.abs()).reshape(N, Sk, W))
+
+
+def wide_flips(q, k, v, mask, scale: float, heads: int, key_bias=None) -> torch.Tensor:
+    """``flips``' ctx bound for ``attention_wide``'s plain version (fp32
+    scores plus the mask and the key bias, p = round(exp(s - m) / l), ctx =
+    round(sum p v)) on CPU inputs: 2 ulp(p) |v| for each term whose p lies
+    within 2^-16 of its size of a bf16 rounding midpoint, and max(2^-16, Sk
+    2^-24) of every term's |p| |v| for the order of the fp32 sum over Sk
+    keys (Sk 2^-24: the worst case of any order; at most 256 keys 2^-16 as
+    ``flips``). -> [B, Sq, W]."""
+    B, Sq, W = q.shape
+    Sk, hd = k.shape[1], W // heads
+    q4, k4, v4 = (x.float().reshape(B, -1, heads, hd) for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q4, k4) * scale
+    if mask is not None:
+        s = s + mask.float()
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    flip = at_boundary(p, 2.0 ** -16 * p)
+    pf = (torch.where(flip, 2 * _ulp(p), torch.zeros_like(p))
+          + max(2.0 ** -16, Sk * 2.0 ** -24) * p.to(torch.bfloat16).float())
+    return torch.einsum("bhqk,bkhd->bqhd", pf, v4.abs()).reshape(B, Sq, W)
 
 
 def check_bf16(got: np.ndarray, want: np.ndarray, flip: torch.Tensor, what: str) -> None:

@@ -4,8 +4,9 @@
 This is the function the card's tensor-core kernel is held to: fp32 scores
 (plus mask and key bias), an fp32 softmax over the whole row, p rounded to
 bf16 after the global max and sum, p·v summed in fp32 and rounded to bf16.
-The key lengths pass one and two 64-key tiles and are not multiples of 16;
-2 heads of 64 lanes. Inputs come from numpy seeds and are rounded to bf16
+The key lengths pass one and two 64-key tiles and are not multiples of 16,
+and 129 and 577 pass one and four of the card's 128-key tiles (the Hopper
+kernel's); 2 heads of 64 lanes. Inputs come from numpy seeds and are rounded to bf16
 before either side sees them.
 
 Tolerance: max|got - want| <= 2e-2 * max(1, max|want|): the two sides round
@@ -30,7 +31,7 @@ def _bf16(rng, *shape):
     return x.float().numpy()
 
 
-@pytest.mark.parametrize("sq,sk", [(20, 145), (16, 77), (33, 200)])
+@pytest.mark.parametrize("sq,sk", [(20, 145), (16, 77), (33, 200), (40, 129), (20, 577)])
 @pytest.mark.parametrize("key_bias,causal", [(False, False), (True, False), (False, True),
                                              (True, True)])
 def test_attention_wide_bf16_matches_jax(sq, sk, key_bias, causal):

@@ -96,6 +96,8 @@ def _want_bf16(sq, sk, hd):
         return "mma_wide_short" if sq <= 16 and sk <= 16 else "mma_wide"
     if sq <= 16 and sk <= 16:
         return "mma_short"
+    if sq >= 16 and sk > 128 and hd == 64 and A.sm90_faster(sk):
+        return "mma_sm90"
     return "mma" if sq >= 16 else "mma_nokeep"
 
 
@@ -103,7 +105,9 @@ def _want_bf16(sq, sk, hd):
 def test_bf16_plans_unchanged(label, sq, sk, hd, bias):
     """The same calls in bf16 keep the kernels they took before: mma, the
     short and wide kernels, "mma_nokeep" only for one query over more than
-    16 keys without a mask or key bias."""
+    16 keys without a mask or key bias; past 128 keys at head size 64 the
+    Hopper kernel ("mma_sm90") that replaced mma's two-pass form where the
+    measured rule says it is faster."""
     assert A.attention_plan(BF, sq, sk, hd, has_bias=bias).kernel == _want_bf16(sq, sk, hd)
 
 

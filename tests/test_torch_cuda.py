@@ -24,6 +24,7 @@ import torch
 
 from _keep_bounds import check_bf16
 from _keep_bounds import flips as keep_flips
+from _keep_bounds import wide_flips
 from qa_tiger_tpu_torch.models.clip_text import ResidualAttentionBlock, causal_mask
 from qa_tiger_tpu_torch.models.modules import (
     AVQCrossAttn,
@@ -108,7 +109,7 @@ def test_fused_attn_ln2_clip_image_shape(cuda, dtype):
     rng = np.random.default_rng(8)
     blk = ResidualAttentionBlock(1024, 24, torch.Generator().manual_seed(0)).to(cuda, dtype)
     x = _rn(rng, 2, 577, 1024, dtype=dtype)
-    assert A.attention_route(dtype, 577, 577, 64) == ("mma" if dtype == torch.bfloat16
+    assert A.attention_route(dtype, 577, 577, 64) == ("wgmma" if dtype == torch.bfloat16
                                                       else "mma_nokeep")
     _check(lambda: R.fused_attn_ln2(x, blk, None, 16),
            lambda: R._attn_ln2_plain(blk, x, heads=16, mask=None), dtype)
@@ -144,8 +145,11 @@ def test_attention_mma_route(cuda, sq, sk, bias, masked):
     kb = torch.from_numpy(np.log(rng.integers(1, 41, (B, sk))).astype(np.float32)).to(cuda) \
         if bias else None
     mask = _causal(sq, sk, cuda) if masked else None
-    # 16 x 16 is also a short problem, which the one-warp kernel takes
-    assert A.attention_route(dt, sq, sk, 64) == ("mma_short" if max(sq, sk) <= 16 else "mma")
+    # 16 x 16 is also a short problem, which the one-warp kernel takes; past
+    # 128 keys the Hopper kernel where the measured rule takes it
+    assert A.attention_route(dt, sq, sk, 64) == ("mma_short" if max(sq, sk) <= 16 else
+                                                 "wgmma" if sk > 128 and A.sm90_faster(sk)
+                                                 else "mma")
     n = A.attention_wide.launches
     _check(lambda: A.attention_wide(q, k, v, mask, 0.125, H, key_bias=kb),
            lambda: A._wide_reference(q, k, v, mask, 0.125, H, kb), dt)
@@ -170,7 +174,12 @@ def test_attention_route_rule(cuda):
     assert A.attention_route(bf, 17, 16, 64) == "mma"
     assert A.attention_route(bf, 16, 17, 64) == "mma"
     assert A.attention_route(bf, 60, 77, 64) == "mma"
-    assert A.attention_route(bf, 577, 577, 64) == "mma"
+    assert A.attention_route(bf, 577, 577, 64) == "wgmma"     # the Hopper kernel
+    assert A.attention_route(bf, 60, 128, 64) == "mma"        # one pass
+    assert A.attention_route(bf, 60, 129, 64) == "mma"        # the rule: one key past
+    assert A.attention_route(bf, 60, 200, 64) == "wgmma"
+    assert A.attention_route(bf, 577, 577, 32) == "mma"       # no Hopper build for 32, 128
+    assert A.attention_route(bf, 577, 577, 128) == "mma"
     assert A.attention_route(f32, 577, 577, 64) == "mma_nokeep"   # its key-tiled form
     assert A.attention_route(bf, 60, 77, 64, has_keep=True) == "mma_keep"  # train dropout
     assert A.attention_route(f32, 60, 77, 64, has_keep=True) == "mma_keep"
@@ -592,7 +601,8 @@ def test_attention_odd_head_sizes_over_128_keys(cuda, hd, sk, dtype):
     q, k, v = _packed_qkv(rng, 2, sq, sk, hd * H, dtype, cuda)
     kb = torch.from_numpy(np.log(rng.integers(1, 41, (2, sk))).astype(np.float32)).to(cuda)
     scale = hd ** -0.5
-    want_route = "mma" if dtype == torch.bfloat16 else "mma_nokeep"
+    want_route = ("mma_nokeep" if dtype == torch.float32 else  # 48 padded to 64:
+                  "wgmma" if hd == 48 and A.sm90_faster(sk) else "mma")  # the Hopper kernel
     assert A.attention_route(dtype, sq, sk, hd) == want_route
     n = A.attention_wide.launches
     _check(lambda: A.attention_wide(q, k, v, None, scale, H, key_bias=kb),
@@ -611,6 +621,200 @@ def test_attention_odd_head_sizes_over_128_keys(cuda, hd, sk, dtype):
         for g, w in zip(got, want):
             err = (g - w).abs().max().item()
             assert err <= TOL[dtype] * max(1.0, w.abs().max().item()), err
+
+
+# ---------------------------------------------------------------------------
+# the Hopper kernel ("mma_sm90", route "wgmma"): bf16 past 128 keys at head
+# size 64 (csrc/attention_sm90.cuh)
+# ---------------------------------------------------------------------------
+
+# (Sq, Sk): key lengths past one 128-key tile (129), ToMe's layers (152,
+# 552), the CLIP image tower's 577, and 1000 keys, whose eight key tiles
+# wrap the five K stages in each pass; query lengths off 64 and 128
+SM90_SHAPES = [(17, 129), (129, 129), (100, 152), (152, 152), (552, 552), (577, 577),
+               (200, 1000), (1000, 1000)]
+
+
+def _sm90_case(rng, B, sq, sk, H, bias, masked, cuda, pad=0):
+    q, k, v = _packed_qkv(rng, B, sq, sk, 64 * H, torch.bfloat16, cuda, pad=pad)
+    kb = torch.from_numpy(np.log(rng.integers(1, 41, (B, sk))).astype(np.float32)).to(cuda) \
+        if bias else None
+    return q, k, v, kb, _causal(sq, sk, cuda) if masked else None
+
+
+@pytest.fixture
+def sm90_always(cuda):
+    """The Hopper kernel at every head-64 length past 128 keys, also where
+    the plan's measured rule keeps attention_mma_kernel; set back after."""
+    before = A.set_sm90_mode("always")
+    yield
+    A.set_sm90_mode(before)
+
+
+@pytest.mark.parametrize("sq,sk", SM90_SHAPES)
+@pytest.mark.parametrize("bias,masked", [(False, False), (True, False), (False, True),
+                                         (True, True)])
+def test_attention_sm90(cuda, sm90_always, sq, sk, bias, masked):
+    """The Hopper kernel against the plain version, q, k and v column slices
+    of one interleaved qkv (row stride 3W), 3 batch elements of 2 heads,
+    with and without a key bias and a causal mask; the launch reads back
+    "mma_sm90" (at 129 and 152 keys only with the switch at "always")."""
+    rng = np.random.default_rng(sq * 7919 + sk)
+    q, k, v, kb, mask = _sm90_case(rng, 3, sq, sk, 2, bias, masked, cuda)
+    assert q.stride(1) == 3 * 128
+    assert A.attention_route(torch.bfloat16, sq, sk, 64, has_bias=bias or masked) == "wgmma"
+    A.attention_wide.attn_routes = {}
+    _check(lambda: A.attention_wide(q, k, v, mask, 0.125, 2, key_bias=kb),
+           lambda: A._wide_reference(q, k, v, mask, 0.125, 2, kb), torch.bfloat16)
+    assert A.attention_wide.attn_routes == {"mma_sm90": 1}
+
+
+@pytest.mark.parametrize("sk", [129, 152, 177, 277, 302])
+def test_attention_sm90_rule_keeps_mma(cuda, sk):
+    """Lengths the measured rule declines (a last 128-key tile at most half
+    full, at most 3 tiles: ToMe's 152, 177, 277 and 302 tokens) keep
+    attention_mma_kernel by default."""
+    rng = np.random.default_rng(sk)
+    q, k, v, kb, _ = _sm90_case(rng, 2, sk, sk, 2, True, False, cuda)
+    assert not A.sm90_faster(sk)
+    A.attention_wide.attn_routes = {}
+    _check(lambda: A.attention_wide(q, k, v, None, 0.125, 2, key_bias=kb),
+           lambda: A._wide_reference(q, k, v, None, 0.125, 2, kb), torch.bfloat16)
+    assert A.attention_wide.attn_routes == {"mma": 1}
+
+
+def test_attention_sm90_fully_masked_rows(cuda):
+    """Rows whose keys are all masked to -inf give what attention_mma_kernel
+    gives (NaN: the row's sum is 0), the other rows the plain result."""
+    rng = np.random.default_rng(5)
+    q, k, v, _, mask = _sm90_case(rng, 2, 400, 400, 2, False, True, cuda)
+    mask[:5] = float("-inf")
+    mask[130:133] = float("-inf")
+    got = A.attention_wide(q, k, v, mask, 0.125, 2)
+    before = A.set_sm90_mode("off")
+    try:
+        A.attention_wide.attn_routes = {}
+        old = A.attention_wide(q, k, v, mask, 0.125, 2)
+        assert A.attention_wide.attn_routes == {"mma": 1}
+    finally:
+        A.set_sm90_mode(before)
+    want = A._wide_reference(q, k, v, mask, 0.125, 2).float()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(old))
+    assert bool(torch.isnan(got[:, :5]).all()) and bool(torch.isnan(got[:, 130:133]).all())
+    live = torch.ones(400, dtype=torch.bool, device=cuda)
+    live[:5] = live[130:133] = False
+    err = (got.float() - want)[:, live].abs().max().item()
+    assert err <= TOL[torch.bfloat16] * max(1.0, want[:, live].abs().max().item()), err
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+def test_attention_sm90_head_sizes_keep_mma(cuda, hd):
+    """Head sizes 32 and 128 past 128 keys stay on attention_mma_kernel's
+    two-pass form (the Hopper kernel is built for 64 lanes)."""
+    rng = np.random.default_rng(hd)
+    q, k, v = _packed_qkv(rng, 2, 150, 577, hd * 2, torch.bfloat16, cuda)
+    assert A.attention_plan(torch.bfloat16, 150, 577, hd).kernel == "mma"
+    A.attention_wide.attn_routes = {}
+    _check(lambda: A.attention_wide(q, k, v, None, hd ** -0.5, 2),
+           lambda: A._wide_reference(q, k, v, None, hd ** -0.5, 2), torch.bfloat16)
+    assert A.attention_wide.attn_routes == {"mma": 1}
+
+
+def test_attention_sm90_copies_misaligned_rows(cuda):
+    """A row stride off 8 elements or a base off 16 bytes cannot feed TMA:
+    the wrapper copies the operand and the Hopper kernel runs on the copy."""
+    rng = np.random.default_rng(12)
+    q, k, v, kb, _ = _sm90_case(rng, 2, 200, 400, 2, True, False, cuda, pad=4)
+    assert q.stride(1) % 8 == 4
+    buf = _rn(rng, 2 * 200 * 128 + 8, dtype=torch.bfloat16)
+    q2 = buf[4:4 + 2 * 200 * 128].view(2, 200, 128)
+    assert q2.data_ptr() % 16 == 8
+    for qq in (q, q2):
+        A.attention_wide.attn_routes = {}
+        _check(lambda: A.attention_wide(qq, k, v, None, 0.125, 2, key_bias=kb),
+               lambda: A._wide_reference(qq, k, v, None, 0.125, 2, kb), torch.bfloat16)
+        assert A.attention_wide.attn_routes == {"mma_sm90": 1}
+
+
+def test_attention_sm90_fused_attention(cuda):
+    """fused_attention's head rows [BH, S, 64] past 128 keys take the Hopper
+    kernel too."""
+    rng = np.random.default_rng(13)
+    qf, kf, vf = (_rn(rng, 6, s, 64, dtype=torch.bfloat16) for s in (200, 577, 577))
+    _check(lambda: A.fused_attention(qf, kf, vf, None, 0.125),
+           lambda: A._fused_attention_plain(qf, kf, vf, mask=None, scale=0.125), torch.bfloat16)
+
+
+# (Sq, Sk, key bias, causal mask, switch, kernel): the CLIP image tower's
+# 577 tokens and ToMe's key-bias 552 on the Hopper kernel, 1000 masked keys
+# under "always"; ToMe's 152 and the image tower's 577 on
+# attention_mma_kernel's two-pass form (the rule's choice, and "off")
+SM90_TIGHT = [(577, 577, False, False, "default", "mma_sm90"),
+              (552, 552, True, False, "default", "mma_sm90"),
+              (300, 1000, True, True, "always", "mma_sm90"),
+              (152, 152, True, False, "default", "mma"),
+              (577, 577, False, False, "off", "mma")]
+
+
+@pytest.mark.parametrize("sq,sk,bias,masked,mode,kernel", SM90_TIGHT)
+def test_attention_sm90_tight_bf16_bound(cuda, sq, sk, bias, masked, mode, kernel):
+    """The two-pass kernels past 128 keys at the tight bf16 bound
+    (``_keep_bounds.wide_flips``: one ulp of each context element plus the
+    terms whose p lies at a rounding boundary and the fp32 order of the
+    sum), which a version with p rounded elsewhere fails
+    (``test_torch_attention_sm90_plan.py::test_bf16_bound_sees_a_moved_rounding``):
+    the contract's rounding point p = round(exp(s - m) / l) kept. 2 batch
+    elements of 2 heads, packed qkv; the launch read back."""
+    rng = np.random.default_rng(sq * 31 + sk)
+    q, k, v, kb, mask = _sm90_case(rng, 2, sq, sk, 2, bias, masked, cuda)
+    before = A.set_sm90_mode(mode)
+    try:
+        A.attention_wide.attn_routes = {}
+        got = A.attention_wide(q, k, v, mask, 0.125, 2, key_bias=kb)
+        torch.cuda.synchronize()
+        assert A.attention_wide.attn_routes == {kernel: 1}
+    finally:
+        A.set_sm90_mode(before)
+    host = [None if t is None else t.cpu() for t in (q, k, v, mask, kb)]
+    want = A._wide_reference(*host[:4], 0.125, 2, host[4])
+    bound = wide_flips(*host[:4], 0.125, 2, host[4])
+    check_bf16(got.float().cpu().numpy(), want.float().numpy(), bound, f"ctx {kernel}")
+
+
+def test_attention_sm90_library_plan(cuda):
+    """The library's plan equals the Python one over a grid that crosses
+    the one-pass limit (128 keys), the five resident K tiles (640 keys) and
+    the head sizes, with and without a mask or key bias."""
+    limit = A.smem_limit(cuda)
+    for sq in (1, 15, 16, 64, 577):
+        for sk in (16, 64, 127, 128, 129, 130, 577, 640, 641, 1000):
+            for hd in (32, 48, 64, 128):
+                for bias in (False, True):
+                    plan = A.attention_plan(torch.bfloat16, sq, sk, hd, limit=limit,
+                                            has_bias=bias)
+                    assert A.library_plan(torch.bfloat16, sq, sk, plan.head, has_bias=bias) == (
+                        plan.kernel, plan.smem_bytes), (sq, sk, hd, bias)
+                    assert A.attention_route(torch.bfloat16, sq, sk, hd,
+                                             has_bias=bias) == plan.route
+
+
+def test_fused_attn_ln2_bf16_reads_back_its_attention(cuda):
+    """A bf16 attention half past 128 tokens writes its attention's kernel
+    into its one attention row: the CLIP image block's 577 tokens
+    "mma_sm90", ToMe-like 152 "mma" (the rule declines it); the text
+    tower's 77 passes no row and tallies nothing."""
+    rng = np.random.default_rng(14)
+    for W, H, S_, mask, want in ((1024, 16, 577, None, {"mma_sm90": 1}),
+                                 (1024, 16, 152, None, {"mma": 1}),
+                                 (768, 12, 77, causal_mask(77, device=cuda), {})):
+        blk = ResidualAttentionBlock(W, H, torch.Generator().manual_seed(0)).to(
+            cuda, torch.bfloat16)
+        x = _rn(rng, 2, S_, W, dtype=torch.bfloat16)
+        R.fused_attn_ln2.attn_routes = {}
+        _check(lambda: R.fused_attn_ln2(x, blk, mask, H),
+               lambda: R._attn_ln2_plain(blk, x, heads=H, mask=mask), torch.bfloat16)
+        assert R.fused_attn_ln2.attn_routes == want
 
 
 def _moe_args(rng, B, T, E, H, D, dtype, cuda):

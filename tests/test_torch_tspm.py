@@ -540,7 +540,9 @@ def test_wide_head_plan_limits():
 
 # the plans of head sizes 32, 64 and 128 (and 48, which runs at its own size
 # or padded to 64), pinned: the QA-TIGER, raw-media and op-level paths' bf16
-# calls keep the kernels they had before the wide-head tensor-core kernels;
+# calls keep the kernels they had before the wide-head tensor-core kernels,
+# but past 128 keys at head size 64, which take the Hopper kernel
+# ("mma_sm90": 128 query rows, Q twice, 5 K and 3 V stages of 16 KB);
 # fp32 calls with a mask or a key bias take the keep-masked kernel without
 # its keep multiply up to 128 keys and its key-tiled form past them
 # (128 query rows, two stages of 64 K and 64 V rows, rows of hd + 4 floats)
@@ -553,14 +555,14 @@ PINNED_PLANS = [
     ("bfloat16", 60, 77, 64, ("mma", "mma", 64, 46080)),
     ("bfloat16", 1, 60, 64, ("fma", "staged", 64, 32944)),
     ("bfloat16", 60, 15, 64, ("fma", "staged", 64, 9004)),
-    ("bfloat16", 577, 577, 64, ("mma", "mma", 64, 46080)),
+    ("bfloat16", 577, 577, 64, ("wgmma", "mma_sm90", 64, 167584)),
     ("bfloat16", 1, 2, 128, ("mma_short", "mma_short", 128, 104448)),
     ("bfloat16", 16, 17, 128, ("mma", "mma", 128, 87040)),
     ("bfloat16", 1, 60, 128, ("fma", "staged", 128, 64688)),
     ("bfloat16", 60, 15, 128, ("fma", "staged", 128, 17708)),
     ("bfloat16", 577, 577, 128, ("mma", "mma", 128, 87040)),
     ("bfloat16", 60, 77, 48, ("fma", "staged", 48, 31876)),
-    ("bfloat16", 577, 577, 48, ("mma", "mma", 64, 46080)),
+    ("bfloat16", 577, 577, 48, ("wgmma", "mma_sm90", 64, 167584)),
     ("float32", 14, 14, 32, ("mma_nokeep", "mma_nokeep", 32, 27648)),
     ("float32", 577, 577, 32, ("mma_nokeep", "mma_nokeep_tiled", 32, 55296)),
     ("float32", 60, 77, 64, ("mma_nokeep", "mma_nokeep", 64, 60928)),
