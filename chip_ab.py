@@ -4,7 +4,7 @@ two checkouts on one GPU, each run alone in fresh processes, in
 alternating order.
 
     python3 chip_ab.py DIR_A DIR_B [--pairs 6] [--out build/ab]
-                       [--phases train,eval,extract,kernels,bf16]
+                       [--phases train,eval,extract,kernels,bf16,gemm,moe]
 
 Each process prints the card's name and power limit (``nvidia-smi``), then
 runs the phases named (all by default) with TF32 off, as ``chip_smoke.py``
@@ -51,6 +51,19 @@ checkout: the median over its processes of each row. The phases:
   towers written as a CLIP ``.pt`` and read back, as ``chip_smoke.check_clip``
   builds them), timed by this file's own code: 3 warm-up calls, then the
   median of 10, each between two synchronizes (``clip_vitl336_bf16_ms``).
+- ``gemm``: the checkout's ``ops.gemm.gemm_tf32x3`` alone at every shape
+  and layout of this file's ``chip_smoke.tf32x3_gemm_shapes`` (the recipe's
+  train products, the fp32 eval PatchSelecter's seven, the fp32 extraction's
+  two), each with its own split-K plan, timed by the checkout's
+  ``chip_smoke.cuda_ms`` on the same seeded operands in every process,
+  beside ``torch.matmul`` fp32 (TF32 off) and with its error against the
+  fp64 product. Rows ``gemm_ms`` by shape.
+- ``moe``: the checkout's ``fused_gaussian_moe`` at every main-path call
+  (``chip_smoke.moe_cases``: bf16 x[256] and x[512] of the serving forward,
+  fp32 x[32] and x[64] of the train step, bf16 x[2] and x[4] of the
+  raw-media forward, from the seeds ``chip_smoke.check_kernels`` takes),
+  each against its plain version and timed by ``chip_smoke.run_kernel_case``.
+  Rows ``moe_ms`` by dtype and shape.
 """
 from __future__ import annotations
 
@@ -61,7 +74,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-PHASES = ("train", "eval", "extract", "kernels", "bf16")
+PHASES = ("train", "eval", "extract", "kernels", "bf16", "gemm", "moe")
 EXTRACT_WARMUP, EXTRACT_RUNS, EXTRACT_TEXTS = 2, 5, 256
 
 PROCESS = r"""
@@ -72,7 +85,7 @@ import numpy as np
 import torch
 import chip_smoke
 
-PHASES, OUT = {phases!r}, Path({out!r})
+PHASES, OUT, GEMM_SHAPES = {phases!r}, Path({out!r}), {gemm_shapes!r}
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 print(json.dumps({{"phase": "ab_card", "card": chip_smoke.gpu_line()}}), flush=True)
@@ -120,6 +133,24 @@ if "kernels" in PHASES:
         for case in cases:
             chip_smoke.run_kernel_case(case, torch.float32, chip_smoke.FP32_TOL, True, None)
             torch.cuda.empty_cache()
+if "gemm" in PHASES:
+    spec = importlib.util.spec_from_file_location("chip_ab_timing", {here!r})
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+    timing.time_gemms(GEMM_SHAPES, chip_smoke.cuda_ms)
+    torch.cuda.empty_cache()
+if "moe" in PHASES:
+    with torch.inference_mode():
+        for dtype, B, tol, seed in ((torch.bfloat16, 256, chip_smoke.BF16_TOL, 5),
+                                    (torch.float32, 32, chip_smoke.FP32_TOL, 8),
+                                    (torch.bfloat16, 2, chip_smoke.BF16_TOL, 9)):
+            for case in chip_smoke.moe_cases(dtype, B, np.random.default_rng(seed)):
+                line = chip_smoke.run_kernel_case(case, dtype, tol, True, None)
+                print(json.dumps({{"phase": "ab_moe",
+                                  "shape": line["dtype"] + " " + line["shape"],
+                                  "ms": line["ms"], "max_abs_err": line["max_abs_err"]}}),
+                      flush=True)
+    torch.cuda.empty_cache()
 if "bf16" in PHASES:
     chip_smoke.check_slice(np.random.default_rng(5), collections.defaultdict(dict), None)
     torch.cuda.empty_cache()
@@ -233,19 +264,67 @@ def time_extract(root: Path, out: Path, profile_step, check=None) -> dict:
     return rows
 
 
-def run_one(tree: Path, out: Path, phases: tuple) -> dict:
+def time_gemms(shapes, cuda_ms) -> None:
+    """``gemm_tf32x3`` of the running checkout at each (M, N, K, A
+    column-major, B as [N, K]) of ``shapes``, on operands drawn from one
+    seed per shape, timed by ``cuda_ms`` beside ``torch.matmul`` fp32; its
+    error against the fp64 product relative to max(1, max|ref|). One line
+    ``ab_gemm`` per shape."""
+    import torch
+
+    from qa_tiger_tpu_torch.ops import gemm as GM
+
+    with torch.inference_mode():
+        for i, (m, n, k, col, b_nk) in enumerate(shapes):
+            gen = torch.Generator(device="cuda").manual_seed(100 + i)
+            a = torch.randn(*((k, m) if col else (m, k)), device="cuda", generator=gen)
+            b = torch.randn(*((n, k) if b_nk else (k, n)), device="cuda", generator=gen)
+            a_mat, b_mat = (a.t() if col else a), (b.t() if b_nk else b)
+            ref = a_mat.double() @ b_mat.double()
+            got = GM.gemm_tf32x3(a, b, a_col_major=col, b_nk=b_nk)
+            err = ((got.double() - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
+            del ref, got
+            ms = cuda_ms(lambda: GM.gemm_tf32x3(a, b, a_col_major=col, b_nk=b_nk))
+            lib = cuda_ms(lambda: torch.matmul(a_mat, b_mat))
+            print(json.dumps({"phase": "ab_gemm", "shape": gemm_key((m, n, k, col, b_nk)),
+                              "ms": ms, "library_ms": lib,
+                              "tflops": 2 * m * n * k / ms * 1e-9, "err_fp64": err}), flush=True)
+            del a, b, a_mat, b_mat
+        torch.cuda.empty_cache()
+
+
+def gemm_key(shape) -> str:
+    m, n, k, col, b_nk = shape
+    return f"{m}x{n}x{k} a{'col' if col else 'row'} b{'nk' if b_nk else 'kn'}"
+
+
+def gemm_shapes() -> list:
+    """This checkout's ``chip_smoke.tf32x3_gemm_shapes``, as (M, N, K, A
+    column-major, B as [N, K]) tuples."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import chip_smoke
+
+    return [tuple(key) for key in sorted(chip_smoke.tf32x3_gemm_shapes())]
+
+
+def run_one(tree: Path, out: Path, phases: tuple, shapes: list) -> dict:
     out.mkdir(parents=True, exist_ok=True)
-    script = PROCESS.format(phases=phases, out=str(out), here=str(Path(__file__).resolve()))
+    script = PROCESS.format(phases=phases, out=str(out), here=str(Path(__file__).resolve()),
+                            gemm_shapes=shapes)
     proc = subprocess.run([sys.executable, "-c", script], cwd=tree, capture_output=True,
                           text=True, timeout=1500)
     if proc.returncode:
         raise SystemExit(f"chip_ab: {tree}: exit {proc.returncode}\n{proc.stderr[-4000:]}"
                          f"\n{proc.stdout[-4000:]}")
-    lines, kernels = {}, {}
+    lines, kernels, gemms, moes = {}, {}, {}, {}
     for text in proc.stdout.splitlines():
         if text.startswith("{"):
             line = json.loads(text)
             lines[line.get("phase")] = line
+            if line.get("phase") == "ab_gemm":
+                gemms[line["shape"]] = {k: line[k] for k in ("ms", "library_ms", "err_fp64")}
+            if line.get("phase") == "ab_moe":
+                moes[line["shape"]] = {k: line[k] for k in ("ms", "max_abs_err")}
             if line.get("kernel") and line.get("dtype") == "float32" and "ms" in line:
                 kernels[f"{line['kernel']} {line['shape']}"] = {
                     k: line.get(k) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -278,6 +357,10 @@ def run_one(tree: Path, out: Path, phases: tuple) -> dict:
             res[f"extract_{stage}_idle_share"] = prof["idle_share"]
     if "kernels" in phases:
         res["kernels_fp32"] = kernels
+    if "gemm" in phases:
+        res["gemm_ms"] = gemms
+    if "moe" in phases:
+        res["moe_ms"] = moes
     if "bf16" in phases:
         res.update(serving_bf16_ms=lines["slice_bf16_b256"]["forward_ms_median"],
                    serving_bf16_ms_all=lines["slice_bf16_b256"]["forward_ms_all"],
@@ -312,8 +395,9 @@ def main() -> int:
     for i in range(args.pairs):
         order += [a, b] if i % 2 == 0 else [b, a]
     results = {str(a): [], str(b): []}
+    shapes = gemm_shapes() if "gemm" in phases else []
     for i, tree in enumerate(order):
-        res = run_one(tree, out / f"run_{i:02d}_{tree.name}", phases)
+        res = run_one(tree, out / f"run_{i:02d}_{tree.name}", phases, shapes)
         res["run"] = i
         print(json.dumps(res), flush=True)
         results[str(tree)].append(res)
@@ -328,6 +412,14 @@ def main() -> int:
             summary["kernel_ms_fp32_medians"] = {
                 shape: statistics.median(r["kernels_fp32"][shape]["ms"] for r in runs)
                 for shape in runs[0]["kernels_fp32"]}
+        if "gemm_ms" in runs[0]:
+            summary["gemm_ms_medians"] = {
+                shape: statistics.median(r["gemm_ms"][shape]["ms"] for r in runs)
+                for shape in runs[0]["gemm_ms"]}
+        if "moe_ms" in runs[0]:
+            summary["moe_ms_medians"] = {
+                shape: statistics.median(r["moe_ms"][shape]["ms"] for r in runs)
+                for shape in runs[0]["moe_ms"]}
         print(json.dumps(summary), flush=True)
     return 0
 

@@ -39,10 +39,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    launch); then the Hopper GEMM alone at every distinct bf16 product shape
    of the four paths, the bf16 AVQ train forward and the MLP half, against
    its plain version, timed beside its bound and ``torch.matmul``; then the
-   train kernels' fp32 GEMM (``gemm_tf32x3``: 3xTF32 on tensor cores,
-   split-K) alone at every product shape of the two backwards and the AVQ
-   forward at B=32, against its plain version and the fp64 product, timed
-   beside its bound and fp32 ``torch.matmul``; the fp32 recipe-shape train
+   fp32 GEMM of every planned fp32 product (``gemm_tf32x3``: 3xTF32 on a
+   Hopper kernel, TMA + ``wgmma``, split-K) alone at every product shape of
+   the two train kernels' forwards and backwards at B=32, the fp32 eval
+   PatchSelecter's seven and the fp32 extraction's CLIP image block's two,
+   against its plain version and the fp64 product, timed beside its bound
+   and fp32 ``torch.matmul``, with the kernel's registers and spills
+   (``tf32x3_ptxas``); the fp32 recipe-shape train
    kernels run twice and must repeat bitwise, and the two train forwards'
    products (seven and ten) must take tf32x3 in fp32 and wgmma in bf16.
    A call shorter than 0.2 ms on the card is timed behind a spin kernel,
@@ -1108,24 +1111,35 @@ def check_gemms() -> list:
     return lines
 
 
-def train_tf32x3_gemm_shapes() -> dict:
-    """Every distinct fp32 (M, N, K) product of the two train backwards and
-    the AVQ train forward at the recipe (B = 32: 32 x 60 PatchSelecter
+def tf32x3_gemm_shapes() -> dict:
+    """Every distinct fp32 (M, N, K) product of the two train kernels,
+    forward and backward, at the recipe (B = 32: 32 x 60 PatchSelecter
     frames of 14 patches, 64 AVQ rows of 60 frames and 77 words, width
-    512), keyed with its operands' layouts, with the kernels that launch
+    512), of the fp32 eval ``fused_patch_select`` at B = 32 (the train
+    forward's seven) and of the fp32 extraction's CLIP image block
+    (``fused_attn_ln2`` over x[120, 577, 1024]: qkv, out_proj) and of
+    ``fused_gaussian_moe``'s second product (s [b, E*H] times W2 [E*H, 512],
+    K = 7 x 256, in bf16 and fp32 alike) at every batch its main-path calls
+    take (``moe_cases``: b = 256, 512 serving; 32, 64 train; 2, 4 raw
+    media), keyed with its operands' layouts, with the kernels that launch
     it. A weight gradient reads A column-major (its K a row count: 26,880
     patch rows, 3,840 query or AVQ rows, 4,928 words) and B as [K, N]; a
-    backward's dgrad reads A row-major and B as [K, N]; a forward product A
-    row-major and B (a weight) as [N, K]."""
+    backward's dgrad and the MoE's second product read A row-major and B as
+    [K, N]; a forward product A row-major and B (a weight) as [N, K]."""
     from qa_tiger_tpu_torch.ops import gemm as GM
 
     rows = {32 * T * P, 2 * 32 * T, 64 * T, 64 * S}
+    moe = [(b, 512, 7 * 256) for B in (256, 32, 2) for b in (B, 2 * B)]
     shapes = {}
     for kernel, mnks, b_nk in (
             ("fused_patch_select_train_bwd",
              GM.patch_select_train_bwd_gemm_shapes(32 * T, P, 512), False),
             ("fused_avq_train_bwd", GM.avq_train_bwd_gemm_shapes(64, T, S, 512), False),
-            ("fused_avq_train", GM.avq_train_fwd_gemm_shapes(64, T, S, 512), True)):
+            ("fused_avq_train", GM.avq_train_fwd_gemm_shapes(64, T, S, 512), True),
+            ("fused_patch_select_train", GM.patch_select_gemm_shapes(32 * T, P, 512), True),
+            ("fused_patch_select", GM.patch_select_gemm_shapes(32 * T, P, 512), True),
+            ("fused_attn_ln2", GM.attn_gemm_shapes(120 * 577, 1024), True),
+            ("fused_gaussian_moe", moe, False)):
         for m, n, k in mnks:
             kernels = shapes.setdefault((m, n, k, not b_nk and k in rows, b_nk), [])
             if kernel not in kernels:
@@ -1134,14 +1148,17 @@ def train_tf32x3_gemm_shapes() -> dict:
 
 
 def check_tf32x3_gemms() -> list:
-    """The train kernels' fp32 GEMM alone (``gemm_tf32x3``, 3xTF32 on
-    mma.sync, the split-K plan) at each distinct product shape and layout
-    of ``train_tf32x3_gemm_shapes``: against its plain
-    version (the same split, three fp32 products) and against the fp64
-    product, both at FP32_TOL; timed beside its bound (operations over the
-    tf32x3 peak; bytes: A, B and C once) and beside ``torch.matmul`` on the
-    same fp32 operands with TF32 off (``library_ms``, a yardstick the port
-    never calls). One line per shape; returns them."""
+    """The fp32 GEMM under every planned fp32 product alone
+    (``gemm_tf32x3``: 3xTF32 on the Hopper kernel, TMA + ``wgmma``, the
+    split-K plan) at each distinct product shape and layout of
+    ``tf32x3_gemm_shapes``: against its plain version (the same split,
+    three fp32 products) and against the fp64 product, both at FP32_TOL;
+    timed beside its bound (operations over the tf32x3 peak; bytes: A, B
+    and C once) and beside ``torch.matmul`` on the same fp32 operands with
+    TF32 off (``library_ms``, a yardstick the port never calls). One line
+    per shape, then the kernel's registers and spills (``kernel_ptxas``, line
+    ``tf32x3_ptxas``);
+    returns the shape lines."""
     import torch
 
     from qa_tiger_tpu_torch.ops import gemm as GM
@@ -1150,7 +1167,7 @@ def check_tf32x3_gemms() -> list:
     sms = GM.sm_count(torch.device("cuda"))
     lines = []
     with torch.inference_mode():
-        for (m, n, k, col, b_nk), kernels in sorted(train_tf32x3_gemm_shapes().items()):
+        for (m, n, k, col, b_nk), kernels in sorted(tf32x3_gemm_shapes().items()):
             a = torch.randn(*((k, m) if col else (m, k)), device="cuda", generator=gen)
             b = torch.randn(*((n, k) if b_nk else (k, n)), device="cuda", generator=gen)
             a_mat = a.t() if col else a
@@ -1186,6 +1203,8 @@ def check_tf32x3_gemms() -> list:
                                 f"{err64:.3e}, over tolerance")
             del a, b, a_mat, b_mat
         torch.cuda.empty_cache()
+    rows = kernel_ptxas("gemm_tf32x3_kernel", "tf32x3_ptxas")
+    require(rows, "the build log names no gemm_tf32x3_kernel")
     return lines
 
 
@@ -1547,15 +1566,23 @@ def check_sm90_sweep(rng, entries: dict) -> None:
 
 
 def sm90_ptxas() -> list:
-    """The Hopper kernel's registers, spills and stack per instantiation, as
-    ``-Xptxas -v`` printed them into this build's log; a line
-    ``sm90_ptxas``."""
+    """The Hopper attention kernel's registers, spills and stack per
+    instantiation (``kernel_ptxas``); a line ``sm90_ptxas``."""
+    rows = kernel_ptxas("attention_sm90_kernel", "sm90_ptxas")
+    require(len(rows) == 4, f"the build log names {len(rows)} Hopper attention kernels, not 4")
+    return rows
+
+
+def kernel_ptxas(kernel: str, phase: str) -> list:
+    """The registers, spills and stack of each instantiation of the kernel
+    named ``kernel``, as ``-Xptxas -v`` printed them into this build's log;
+    a line ``phase``."""
     from qa_tiger_tpu_torch.ops import _build
 
     rows, name = [], None
     for text in _build.build_log.read_text().splitlines():
         if "Compiling entry function" in text:
-            name = text.split("'")[1] if "attention_sm90_kernel" in text else None
+            name = text.split("'")[1] if kernel in text else None
         elif name and "spill stores" in text:
             nums = [int(w) for w in re.findall(r"(\d+) bytes", text)]
             rows.append({"function": name, "stack": nums[0], "spill_stores": nums[1],
@@ -1563,8 +1590,7 @@ def sm90_ptxas() -> list:
         elif name and "Used" in text and "registers" in text:
             rows[-1]["registers"] = int(re.search(r"Used (\d+) registers", text).group(1))
             name = None
-    print(json.dumps({"phase": "sm90_ptxas", "instantiations": rows}), flush=True)
-    require(len(rows) == 4, f"the build log names {len(rows)} Hopper attention kernels, not 4")
+    print(json.dumps({"phase": phase, "instantiations": rows}), flush=True)
     return rows
 
 

@@ -228,12 +228,6 @@ constexpr int AS9_THREADS = 384, AS9_PRODUCER = 256;
 constexpr int AS9_PRODUCER_REGS = 40, AS9_CONSUMER_REGS = 232;
 static_assert(128 * AS9_PRODUCER_REGS + 256 * AS9_CONSUMER_REGS <= 65536, "the register file");
 
-template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
 constexpr int AS9_TILE_BYTES = AS9_K * 128;  // 128 rows of 64 bf16 lanes
 
 // the ex2 of exp2f without its subnormal range (ex2.approx.ftz): a result

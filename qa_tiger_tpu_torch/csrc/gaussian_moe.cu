@@ -31,12 +31,13 @@
 //        wgmma.m64n128k16 on the same W1 tile, so W1 is read once per pair
 //        of samples (from L2) and x once from HBM.
 //      - fp32 (route "tf32x3", and bf16 with D > 512 on widened copies):
-//        gemm_tf32x3's tile, 3xTF32 on mma.sync with the per-slab IEEE
-//        fold, 128 rows = two samples' 64-row chunks, 128 columns; a warp's
-//        64 rows are one sample's chunk, so its shuffles finish the sum.
+//        a 3xTF32 tile on mma.sync (cp.async into padded tiles, the per-slab
+//        IEEE fold of gemm_tf32x3), 128 rows = two samples' 64-row chunks,
+//        128 columns; a warp's 64 rows are one sample's chunk, so its
+//        shuffles finish the sum.
 //   2. out = s W2 + sum_e wsum[b,e] b2_e: gemm_tf32x3 (fp32 A, W2 in fp32,
-//      the wrapper's split-K plan), the bias term and the cast in its
-//      epilogue.
+//      the wrapper's split-K plan; 3xTF32 on its Hopper kernel, TMA +
+//      wgmma), the bias term and the cast in its epilogue.
 // Under tensor parallelism (parallel/tensor.py) each model rank holds H/tp of
 // every expert's hidden columns (w1, b1 and w2's rows) and launches the same
 // two products over N = E*H/tp with out_f32: an fp32 partial [B, D] with a
@@ -58,6 +59,14 @@ constexpr int MOE_MAX_D = 512;  // both samples' x chunks stay in shared memory
 constexpr int MOE_THREADS = 288, MOE_PRODUCER = 256;
 constexpr int MOE_A_SLAB = MOE_ROWS * MOE_BK * 2;     // 8 KB
 constexpr int MOE_B_STAGE = MOE_BN * MOE_BK * 2;      // 16 KB
+
+// The fp32 hidden product's 3xTF32 tile (route "tf32x3"): 128 rows by
+// MOE_BN columns, K slabs of MOE_TF_BK through a cp.async ring of
+// MOE_TF_STAGES stages, 8 warps of 64 x 32 each. A shared-memory tile holds
+// 128 rows (x's rows or W1^T's) by MOE_TF_BK k, rows padded by 4 floats.
+constexpr int MOE_TF_BK = 32, MOE_TF_STAGES = 3, MOE_TF_THREADS = 256;
+constexpr int MOE_TF_LD = MOE_TF_BK + 4, MOE_TF_TILE = 128 * MOE_TF_LD;
+__device__ __forceinline__ int moe_tf_at(int r, int k) { return r * MOE_TF_LD + k; }
 
 // the resident x chunks (two samples x kt slabs), the W1 ring, the
 // cross-warp sums (2 warpgroups x 4 warps x MOE_BN), the barriers, and 1 KB
@@ -271,13 +280,21 @@ moe_hidden_wgmma(const __grid_constant__ CUtensorMap map_x,
   }
 }
 
+// 16 bytes global -> shared, of which the first `bytes` are read and the
+// rest zero-filled (bytes 0: nothing is read)
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(qt::smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 // Rows [0, 128) of an fp32 x tile: row r is t = t0 + r % 64 of sample
-// b0 + r / 64, k in [k0, k0 + TF_BK); rows past T or B and k past D are 0.
+// b0 + r / 64, k in [k0, k0 + MOE_TF_BK); rows past T or B and k past D are 0.
 __device__ __forceinline__ void moe_load_x(float* sa, const float* __restrict__ x, int D, int b0,
                                            int B, int t0, int T, int k0, int tid) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int c = tid + i * qt::TF_THREADS;
+    const int c = tid + i * MOE_TF_THREADS;
     const int r = c >> 3, k = (c & 7) * 4;
     const int bb = b0 + (r >> 6), tt = t0 + (r & 63), gk = k0 + k;
     const float* src = x;
@@ -287,26 +304,97 @@ __device__ __forceinline__ void moe_load_x(float* sa, const float* __restrict__ 
       bytes = (left < 4 ? left : 4) * 4;
       src = x + ((long long)bb * T + tt) * D + gk;
     }
-    qt::cp_async16_n(sa + qt::TfTile<true>::at(r, k), src, bytes);
+    cp_async16_n(sa + moe_tf_at(r, k), src, bytes);
   }
+}
+
+// Rows [n0, n0 + 128) x k [k0, k0 + MOE_TF_BK) of W1^T [N, D] into a tile;
+// rows >= N and k >= D are zero. 1024 chunks of 4 floats, four per thread.
+__device__ __forceinline__ void moe_load_w1(float* sb, const float* __restrict__ w1, int D,
+                                            int n0, int N, int k0, int tid) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = tid + i * MOE_TF_THREADS;
+    const int r = c >> 3, k = (c & 7) * 4;
+    const int gr = n0 + r, gk = k0 + k;
+    const float* src = w1;
+    int bytes = 0;
+    if (gr < N && gk < D) {
+      const int left = D - gk;
+      bytes = (left < 4 ? left : 4) * 4;
+      src = w1 + (long long)gr * D + gk;
+    }
+    cp_async16_n(sb + moe_tf_at(r, k), src, bytes);
+  }
+}
+
+// One K slab of a warp's 64 x 32 share of the tile: the slab's 3xTF32 sums
+// into a fresh fragment, folded into the fp32 accumulator acc with IEEE
+// adds. As and Bs hold the slab's x rows (m) and W1^T rows (n); warp
+// offsets wm, wn, g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void moe_tf32x3_slab(float (&acc)[4][4][4], const float* As,
+                                                const float* Bs, int wm, int wn, int g, int t) {
+  float part[4][4][4];  // this slab's sums, on the tensor cores
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < MOE_TF_BK; kk += 8) {
+    uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = wm + i * 16 + g;
+      qt::split_tf32(As[moe_tf_at(r, kk + t)], ah[i][0], al[i][0]);
+      qt::split_tf32(As[moe_tf_at(r + 8, kk + t)], ah[i][1], al[i][1]);
+      qt::split_tf32(As[moe_tf_at(r, kk + t + 4)], ah[i][2], al[i][2]);
+      qt::split_tf32(As[moe_tf_at(r + 8, kk + t + 4)], ah[i][3], al[i][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = wn + j * 8 + g;
+      qt::split_tf32(Bs[moe_tf_at(c, kk + t)], bh[j][0], bl[j][0]);
+      qt::split_tf32(Bs[moe_tf_at(c, kk + t + 4)], bh[j][1], bl[j][1]);
+    }
+    // one pass over all 16 fragments at a time, so that two products on
+    // the same accumulator are 16 instructions apart, not back to back
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) qt::mma_tf32(part[i][j], al[i], bh[j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) qt::mma_tf32(part[i][j], ah[i], bl[j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) qt::mma_tf32(part[i][j], ah[i], bh[j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
 }
 
 // The fp32 hidden product on 3xTF32: blockIdx.x a 128-column tile,
 // blockIdx.y a pair of samples; warps 0-3 own the first sample's rows, 4-7
 // the second's. TE is the type of b1 and w.
 template <typename TE>
-__global__ void __launch_bounds__(qt::TF_THREADS)
+__global__ void __launch_bounds__(MOE_TF_THREADS)
 moe_hidden_tf32x3(const float* __restrict__ x, const float* __restrict__ w1,
                   const TE* __restrict__ b1, const TE* __restrict__ w, float* __restrict__ s,
                   float* __restrict__ wsum, MoeShape sh) {
   extern __shared__ __align__(16) float moe_tf_smem[];
-  using TA = qt::TfTile<true>;
-  using TB = qt::TfTile<true>;
-  constexpr int STAGE = TA::FLOATS + TB::FLOATS;
+  constexpr int STAGE = 2 * MOE_TF_TILE;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int n0 = blockIdx.x * qt::TF_BN, b0 = 2 * blockIdx.y;
+  const int n0 = blockIdx.x * MOE_BN, b0 = 2 * blockIdx.y;
   const int b = b0 + (warp >> 2);
 
   if (blockIdx.x == 0 && tid < 2 * sh.E) {
@@ -327,7 +415,7 @@ moe_hidden_tf32x3(const float* __restrict__ x, const float* __restrict__ w1,
       part[j][p] = 0.0f;
     }
   const TE* wb = w + (long long)min(b, sh.B - 1) * sh.E * sh.T;
-  const int nk = (sh.D + qt::TF_BK - 1) / qt::TF_BK;
+  const int nk = (sh.D + MOE_TF_BK - 1) / MOE_TF_BK;
   for (int c = 0; c < sh.chunks; ++c) {
     const int c0 = c * MOE_ROWS;
     float acc[4][4][4];
@@ -339,23 +427,23 @@ moe_hidden_tf32x3(const float* __restrict__ x, const float* __restrict__ w1,
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
     auto load = [&](int st, int kt) {
       float* sa = moe_tf_smem + st * STAGE;
-      const int k0 = kt * qt::TF_BK;
+      const int k0 = kt * MOE_TF_BK;
       moe_load_x(sa, x, sh.D, b0, sh.B, c0, sh.T, k0, tid);
-      qt::tf_load_tile<true>(sa + TA::FLOATS, w1, sh.D, n0, sh.N, k0, sh.D, tid);
+      moe_load_w1(sa + MOE_TF_TILE, w1, sh.D, n0, sh.N, k0, tid);
     };
 #pragma unroll
-    for (int st = 0; st < qt::TF_STAGES - 1; ++st) {
+    for (int st = 0; st < MOE_TF_STAGES - 1; ++st) {
       if (st < nk) load(st, st);
       qt::cp_async_commit();
     }
     for (int kt = 0; kt < nk; ++kt) {
-      qt::cp_async_wait<qt::TF_STAGES - 2>();
+      qt::cp_async_wait<MOE_TF_STAGES - 2>();
       __syncthreads();  // slab kt has landed; every warp is done with slab kt - 1
-      if (kt + qt::TF_STAGES - 1 < nk)
-        load((kt + qt::TF_STAGES - 1) % qt::TF_STAGES, kt + qt::TF_STAGES - 1);
+      if (kt + MOE_TF_STAGES - 1 < nk)
+        load((kt + MOE_TF_STAGES - 1) % MOE_TF_STAGES, kt + MOE_TF_STAGES - 1);
       qt::cp_async_commit();
-      const float* As = moe_tf_smem + (kt % qt::TF_STAGES) * STAGE;
-      qt::tf32x3_slab<TA, TB>(acc, As, As + TA::FLOATS, wm, wn, g, t);
+      const float* As = moe_tf_smem + (kt % MOE_TF_STAGES) * STAGE;
+      moe_tf32x3_slab(acc, As, As + MOE_TF_TILE, wm, wn, g, t);
     }
     qt::cp_async_wait<0>();
     __syncthreads();  // the next chunk's first loads overwrite the stages
@@ -392,8 +480,10 @@ moe_hidden_tf32x3(const float* __restrict__ x, const float* __restrict__ w1,
 }
 
 // out[b, n] = acc + sum_e wsum[b, e] b2[e, n], cast once to TO (T, or fp32
-// for a tensor-parallel partial)
+// for a tensor-parallel partial); applied by gemm_tf32x3's split-K pass
+// alone, at one chunk too (after_pass)
 template <typename T, typename TO> struct EpiMoeOut {
+  static constexpr bool after_pass = true;
   TO* out;
   const float* wsum;
   const T* b2;
@@ -447,7 +537,7 @@ cudaError_t hidden_tf32x3(const float* x, const float* w1, const TE* b1, const T
                           float* wsum, MoeShape sh, cudaStream_t stream) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w1);
   if (sh.D % 4 || (ptrs & 15)) return cudaErrorInvalidValue;
-  constexpr int SMEM = qt::TF_STAGES * 2 * qt::TfTile<true>::FLOATS * (int)sizeof(float);
+  constexpr int SMEM = MOE_TF_STAGES * 2 * MOE_TF_TILE * (int)sizeof(float);
   static bool sized = false;
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -458,7 +548,7 @@ cudaError_t hidden_tf32x3(const float* x, const float* w1, const TE* b1, const T
   const long long pairs = (sh.B + 1) / 2;
   if (pairs > 65535) return cudaErrorInvalidValue;
   const dim3 grid(sh.tiles, (unsigned)pairs);
-  moe_hidden_tf32x3<TE><<<grid, qt::TF_THREADS, SMEM, stream>>>(x, w1, b1, w, s, wsum, sh);
+  moe_hidden_tf32x3<TE><<<grid, MOE_TF_THREADS, SMEM, stream>>>(x, w1, b1, w, s, wsum, sh);
   return cudaGetLastError();
 }
 
@@ -487,7 +577,7 @@ cudaError_t run(int route, const void* x, const void* w1, const T* b1, const flo
       return cudaErrorInvalidValue;
     }
   } else if (route == qt::GEMM_ROUTE_TF32X3) {
-    sh.tiles = (sh.N + qt::TF_BN - 1) / qt::TF_BN;
+    sh.tiles = (sh.N + MOE_BN - 1) / MOE_BN;
     err = hidden_tf32x3<T>(static_cast<const float*>(x), static_cast<const float*>(w1), b1, w, s,
                            wsum, sh, stream);
   } else {

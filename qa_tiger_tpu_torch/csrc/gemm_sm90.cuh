@@ -57,8 +57,8 @@ namespace {
 // gemm_tile's FMA loop, bf16 takes gemm_sm90 where N and K are multiples of
 // 8 (TMA's 16-byte rows) and gemm_tile's WMMA loop otherwise. A function of
 // dtype and shape only; nothing falls back at run time. GEMM_ROUTE_TF32X3 is
-// the fp32 tensor-core routine of the train backwards (gemm_tf32x3.cuh,
-// planned_gemm).
+// the 3xTF32 routine of every planned fp32 product (gemm_tf32x3.cuh,
+// planned_gemm: TMA + wgmma).
 enum GemmRoute {
   GEMM_ROUTE_FMA = 0,
   GEMM_ROUTE_WMMA = 1,
@@ -147,6 +147,15 @@ __device__ __forceinline__ void wgmma_commit() {
 
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// a warpgroup's registers a thread, raised or lowered (sm_90a): the producer
+// warpgroup of a warp-specialised kernel gives its share to the consumers
+template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 // keeps the compiler from moving reads or writes of the accumulators across
@@ -393,20 +402,25 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the map of a row-major bf16 [rows, cols] with row stride ld, read in boxes
-// of box_rows x 64 columns (128 bytes) in 128-byte swizzle, zero past the edges
-inline bool tensor_map_2d(CUtensorMap* map, const __nv_bfloat16* p, long long ld, int rows,
-                          int cols, int box_rows) {
+// the map of a row-major bf16 or fp32 [rows, cols] with row stride ld
+// (elements), read in boxes of box_rows x 128 bytes of columns (64 bf16, 32
+// fp32) in 128-byte swizzle, zero past the edges
+template <typename T>
+inline bool tensor_map_2d(CUtensorMap* map, const T* p, long long ld, int rows, int cols,
+                          int box_rows) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value || std::is_same<T, float>::value,
+                "bf16 or fp32 rows");
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {(cuuint32_t)SM90_BK, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / sizeof(T)), (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<__nv_bfloat16*>(p), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map,
+                std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                2, const_cast<T*>(p), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

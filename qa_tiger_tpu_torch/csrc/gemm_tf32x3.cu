@@ -1,6 +1,6 @@
-// The fp32 tensor-core GEMM of the train backwards (gemm_tf32x3.cuh) by
-// itself, for its checks and timing (ops/gemm.py gemm_tf32x3). No model path
-// calls qt_gemm_tf32x3.
+// The fp32 tensor-core GEMM under every planned fp32 product
+// (gemm_tf32x3.cuh: 3xTF32 on TMA + wgmma) by itself, for its checks and
+// timing (ops/gemm.py gemm_tf32x3). No model path calls qt_gemm_tf32x3.
 #include "gemm_tf32x3.cuh"
 
 namespace {

@@ -8,54 +8,66 @@
 // backward: _kernel_train / _kernel_bwd of qa_tiger_tpu/ops/pallas/
 // patch_select.py (pallas_call :827, :880) and _kernel_fwd / _kernel_bwd of
 // qa_tiger_tpu/ops/pallas/avq.py (pallas_call :532, :558), which run on
-// patch_select_train.cu and avq.cu forward<float> and backward<float>, and
-// of the eval PatchSelecter's _kernel (patch_select.py pallas_call :738,
-// patch_select.cu run<float> and its tensor-parallel stages).
+// patch_select_train.cu and avq.cu forward<float> and backward<float>; of
+// the eval PatchSelecter's _kernel (patch_select.py pallas_call :738,
+// patch_select.cu run<float> and its tensor-parallel stages); of the fp32
+// attention halves (resblock.py pallas_call :391, :329: resblock.cu ln_qkv
+// and out_proj); and of the MoE's second product (gaussian_moe.py :107).
 //
 // Bound on the H100: operations. At B=32 the PatchSelecter backward's 14
-// products are ~181 GFLOP against ~0.5 GB of operands and the AVQ
-// backward's 20 are ~59 GFLOP; gemm_tile's fp32 FMA loop ran them at
-// 8-10 TFLOP/s, and the card's FMA peak is 67. The TF32 tensor cores give
-// 495 TFLOP/s dense but keep 10 mantissa bits. This routine:
+// products are ~181 GFLOP against ~0.5 GB of operands, and the CLIP image
+// tower's qkv projection (69,240 x 3,072 x 1,024) is 436 GFLOP against
+// ~1.1 GB. The TF32 tensor cores give 495 TFLOP/s dense but keep 10
+// mantissa bits; the card's fp32 FMA peak is 67. This routine:
 // - splits each operand x = hi + lo, hi = rna_tf32(x), lo = rna_tf32(x - hi)
 //   (cvt.rna.tf32.f32: round to nearest, ties away from zero), and sums
-//   lo·hi + hi·lo + hi·hi per k step on mma.sync.m16n8k8 tf32 -> fp32
-//   (small terms first). The dropped lo·lo term is below 2^-22 of a product,
-//   so the sum keeps about fp32's accuracy at a third of the TF32 rate
-//   (165 TFLOP/s); no product runs single-pass TF32;
-// - sums each K slab on the tensor cores into a fresh fragment and adds it
-//   to the fp32 accumulator with an IEEE add: the tensor cores' own
-//   accumulation does not round to nearest, and one chain over 26,880 rows
-//   drifted by 2e-4 of the result on the card, past the train kernels'
-//   1e-4 rule, where a chain of 12 products per slab does not;
-// - reads A row-major ([M, K], RowLoad / RoundRowLoad) or column-major
-//   (A(m, k) at a[k * lda + m], ColLoad / RoundColLoad: a weight gradient's
-//   transposed G) and B as [N, K] or [K, N], without a transposing copy:
-//   cp.async moves 16-byte chunks along whichever dimension is contiguous
-//   into a 3-stage ring of padded shared-memory tiles (128 x 128 output
-//   tile, K slabs of 32). A tile contiguous along K has rows of 32 + 4
-//   floats, one contiguous along M or N rows of 128 + 8, so that the 8 x 4
-//   fragment pattern (lane = 4 g + t reads (g, t) or (t, g)) hits 32
-//   different banks in either layout; fragments are read with scalar lds
-//   and split in registers. wgmma takes tf32 only with both operands
-//   K-major in shared memory, which the column-major weight-gradient A and
-//   the [K, N] dgrad B are not, so this routine stays on mma.sync;
+//   lo·hi + hi·lo + hi·hi per k step of 8 (small terms first). The dropped
+//   lo·lo term is below 2^-22 of a product, so the sum keeps about fp32's
+//   accuracy at a third of the TF32 rate (165 TFLOP/s); no product runs
+//   single-pass TF32;
+// - sums each K slab (TF_BK = 32 deep: 12 products) on the tensor cores into
+//   a fresh fragment (the slab's first product with scale-d 0) and, once
+//   wgmma.wait_group says it is done, adds it to the fp32 accumulator with
+//   IEEE adds: the tensor cores' own accumulation does not round to
+//   nearest, and one chain over 26,880 rows drifted by 2e-4 of the result
+//   on the card, past the train kernels' 1e-4 rule, where a chain of 12
+//   products per slab does not;
+// - is a Hopper kernel (sm_90a): one persistent block per SM walks the
+//   128 x 128 output tiles and split-K chunks; one producer warp keeps TMA
+//   loads of the raw fp32 A and B slabs (128 rows x 128 bytes, 128-byte
+//   swizzle, zero past M, N and K) in flight into a ring of TFW_STAGES
+//   stages (a full and an empty mbarrier each); two consumer warpgroups own
+//   64 rows each and run wgmma.m64n128k8.f32.tf32.tf32;
+// - takes all four layouts of its callers. wgmma reads a tf32 B only
+//   K-major from shared memory, and neither B as [K, N] (a dgrad's weight,
+//   a weight gradient's X) nor a column-major A (a weight gradient's G) is.
+//   So the consumers split each staged B slab once a block (not once a
+//   warp) into hi and lo tiles, K-major in the 128-byte swizzle the wgmma
+//   descriptor reads, transposing on the way where B is [K, N] (each thread
+//   moves a 4 x 4 block, the blocks given to the lanes on a diagonal so that
+//   both the MN-major reads and the K-major writes of 16 bytes are free of
+//   bank conflicts); A takes wgmma's register form: each thread reads its
+//   fragment straight from the staged tile in either layout and splits it
+//   in registers, so A needs no transposing write. B's split of the next
+//   slab runs while the tensor cores work on this one (two hi/lo buffers);
 // - cuts K into S chunks (split-K) where the output has too few tiles to
 //   fill the SMs once (every weight gradient: 512 x 512 is 16 tiles, K the
-//   26,880 patch rows): each block writes its fp32 partial tile to a
-//   workspace [S, M, N], and a second pass adds the S partials in a fixed
-//   order and applies the epilogue. No atomics: bitwise deterministic.
-//   The caller plans the chunks (ops/gemm.py splitk_plan, handed to a train
-//   backward in its GemmPlan) and allocates the workspace; the routine
-//   allocates nothing.
+//   26,880 patch rows): each chunk's fp32 partial tile goes to a workspace
+//   [S, M, N], and a second pass adds the S partials in a fixed order and
+//   applies the epilogue. No atomics: bitwise deterministic. The caller
+//   plans the chunks (ops/gemm.py splitk_plan, handed to a planned launch
+//   in its GemmPlan) and allocates the workspace; the routine allocates
+//   nothing.
 //
 // Needs 16-byte aligned A and B and leading dimensions that are multiples of
-// 4 floats (the 16-byte chunks); M, N and K may be ragged (chunks past an
-// edge are zero-filled). A call that breaks that, or whose split-K plan needs
-// more workspace than it was given, returns cudaErrorInvalidValue; nothing
-// falls back to gemm_tile. Every fp32 product of the two train kernels and
-// of the eval PatchSelecter takes this routine: their leading dimensions
-// are D, 2D, 3D and D/2, and their shares under tensor parallelism.
+// 4 floats (TMA's 16-byte rule); M, N and K may be ragged. A call that
+// breaks that, whose split-K plan needs more workspace than it was given,
+// or whose tensor maps cuTensorMapEncodeTiled refuses, returns
+// cudaErrorInvalidValue; nothing falls back to another kernel. Every fp32
+// product of the two train kernels, of the eval PatchSelecter, of the fp32
+// attention halves and the MoE's second product takes this routine: their
+// leading dimensions are D, 2D, 3D, D/2, 4W and their shares under tensor
+// parallelism.
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -63,182 +75,308 @@
 namespace qt {
 namespace {
 
-// ops/gemm.py TF32X3_TILE holds the same tile, for the split-K plan
-constexpr int TF_BM = 128, TF_BN = 128, TF_BK = 32, TF_STAGES = 3, TF_THREADS = 256;
+// The output tile and K slab of gemm_tf32x3 (ops/gemm.py TF32X3_TILE holds
+// the same, for the split-K plan)
+constexpr int TF_BM = 128, TF_BN = 128, TF_BK = 32;
 
-// A shared-memory tile of 128 rows (the m or n index) by TF_BK k: rows of
-// TF_BK + 4 when K is the contiguous dimension, else k-rows of 128 + 8
-template <bool KCONTIG> struct TfTile {
-  static constexpr int LD = KCONTIG ? TF_BK + 4 : TF_BM + 8;
-  static constexpr int FLOATS = KCONTIG ? TF_BM * LD : TF_BK * LD;
-  __device__ static __forceinline__ int at(int r, int k) {
-    return KCONTIG ? r * LD + k : k * LD + r;
-  }
-};
+// gemm_tf32x3's kernel: two consumer warpgroups (threads 0-255), then the
+// producer warpgroup, whose first warp issues the loads and which gives
+// registers to the consumers (the accumulator, the slab's fragment and the
+// A fragments are 160 a thread). Shared memory, from a 1 KB aligned base: a
+// ring of TFW_STAGES raw stages (A, then B: 128 rows x 128 bytes each), two
+// hi/lo buffers of B (hi, then lo), the full and empty barriers.
+constexpr int TFW_STAGES = 4, TFW_THREADS = 384, TFW_PRODUCER = 256;
+constexpr int TFW_PRODUCER_REGS = 40, TFW_CONSUMER_REGS = 232;
+static_assert(128 * TFW_PRODUCER_REGS + 256 * TFW_CONSUMER_REGS <= 65536, "the register file");
+constexpr int TFW_TILE = 128 * TF_BK;  // floats of one 128 x 32 tile: 16 KB
+constexpr int TFW_SMEM = 1024 + (2 * TFW_STAGES + 4) * TFW_TILE * 4 + 2 * TFW_STAGES * 8;
+static_assert(TFW_SMEM <= 232448, "one block's shared memory on an H100");
+static_assert(TF_BM == 128 && TF_BN == 128 && TF_BK == 32,
+              "two warpgroups of 64 rows, m64n128k8, a slab row of one 128-byte swizzle span");
 
-// 16 bytes global -> shared, of which the first `bytes` are read and the
-// rest zero-filled (bytes 0: nothing is read)
-__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(bytes)
-               : "memory");
+// float offset of element (r, k) of a tile of 128 rows r x 32 k in 128-byte
+// swizzle (K-major: a row of 128 bytes holds 32 k; the 16-byte chunk k / 4
+// sits at chunk (k / 4) ^ (r % 8)): what a TMA box {32, 128} of a
+// row-major [rows, K] matrix lands as, and what wgmma's descriptor reads
+__device__ __forceinline__ int tfw_kmajor(int r, int k) {
+  return r * 32 + ((((k >> 2) ^ r) & 7) << 2) + (k & 3);
+}
+// the same element in a tile of four 32-row boxes {32, 32} of a matrix
+// whose rows are k (MN-major: A column-major, B as [K, N]): box r / 32,
+// k-row k, chunk (r % 32) / 4 at ((r % 32) / 4) ^ (k % 8)
+__device__ __forceinline__ int tfw_mnmajor(int r, int k) {
+  return (r >> 5) * 1024 + k * 32 + ((((r >> 2) ^ k) & 7) << 2) + (r & 3);
 }
 
-// Rows [r0, r0 + 128) x k [k0, k0 + TF_BK) of g into a tile: element (r, k)
-// at g[r * ld + k] (KCONTIG) or g[k * ld + r]; rows >= rlim and k >= klim
-// are zero. 1024 chunks of 4 floats, four per thread.
-template <bool KCONTIG>
-__device__ __forceinline__ void tf_load_tile(float* s, const float* __restrict__ g, long long ld,
-                                             int r0, int rlim, int k0, int klim, int tid) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = tid + i * TF_THREADS;
-    int r, k;
-    if (KCONTIG) {
-      r = c >> 3;
-      k = (c & 7) * 4;
-    } else {
-      k = c >> 5;
-      r = (c & 31) * 4;
-    }
-    const int gr = r0 + r, gk = k0 + k;
-    const float* src = g;
-    int bytes = 0;
-    if (gr < rlim && gk < klim) {
-      const int left = KCONTIG ? klim - gk : rlim - gr;
-      bytes = (left < 4 ? left : 4) * 4;
-      src = KCONTIG ? g + (long long)gr * ld + gk : g + (long long)gk * ld + gr;
-    }
-    cp_async16_n(s + TfTile<KCONTIG>::at(r, k), src, bytes);
-  }
+// d (64 x 128 fp32, wgmma's C layout) += A (64 x 8 tf32, registers in the
+// A fragment layout: a[0] (row g, k t), a[1] (g + 8, t), a[2] (g, t + 4),
+// a[3] (g + 8, t + 4) of the warp's 16 rows) B (8 x 128 tf32, K-major in
+// 128-byte-swizzled shared memory); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
-// One K slab (TF_BK deep) of a warp's 64 x 32 share of a 128 x 128 tile:
-// the slab's 3xTF32 sums on the tensor cores into a fresh fragment, folded
-// into the fp32 accumulator acc with IEEE adds. As and Bs hold the slab's
-// A rows (m) and B columns (n) in the layouts TA and TB; warp offsets wm, wn,
-// g = lane / 4, t = lane % 4.
-template <class TA, class TB>
-__device__ __forceinline__ void tf32x3_slab(float (&acc)[4][4][4], const float* As,
-                                            const float* Bs, int wm, int wn, int g, int t) {
-  float part[4][4][4];  // this slab's sums, on the tensor cores
+// keeps the compiler from reusing the registers of A fragments that an
+// asynchronous product may still read (placed after its wait)
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < TF_BK; kk += 8) {
-    uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = wm + i * 16 + g;
-      split_tf32(As[TA::at(r, kk + t)], ah[i][0], al[i][0]);
-      split_tf32(As[TA::at(r + 8, kk + t)], ah[i][1], al[i][1]);
-      split_tf32(As[TA::at(r, kk + t + 4)], ah[i][2], al[i][2]);
-      split_tf32(As[TA::at(r + 8, kk + t + 4)], ah[i][3], al[i][3]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = wn + j * 8 + g;
-      split_tf32(Bs[TB::at(c, kk + t)], bh[j][0], bl[j][0]);
-      split_tf32(Bs[TB::at(c, kk + t + 4)], bh[j][1], bl[j][1]);
-    }
-    // one pass over all 16 fragments at a time, so that two products on
-    // the same accumulator are 16 instructions apart, not back to back
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], al[i], bh[j]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], ah[i], bl[j]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_tf32(part[i][j], ah[i], bh[j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(f[i][j])::"memory");
 }
 
-template <bool A_COL, bool B_NK> struct TfSmem {
-  using TA = TfTile<!A_COL>;
-  using TB = TfTile<B_NK>;
-  static constexpr int STAGE = TA::FLOATS + TB::FLOATS;
-  static constexpr int BYTES = TF_STAGES * STAGE * (int)sizeof(float);
-};
+__device__ __forceinline__ float4 tfw_split4(float4 v, float4& lo) {
+  uint32_t h[4], l[4];
+  split_tf32(v.x, h[0], l[0]);
+  split_tf32(v.y, h[1], l[1]);
+  split_tf32(v.z, h[2], l[2]);
+  split_tf32(v.w, h[3], l[3]);
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                   __uint_as_float(l[3]));
+  return make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                     __uint_as_float(h[3]));
+}
 
-// One 128 x 128 output tile over the K chunk blockIdx.z: 8 warps in 2 x 4,
-// each 64 x 32 (4 x 4 m16n8 fragments). With ws null the epilogue applies
-// directly; else the raw sums go to ws[blockIdx.z][m][n].
+// An epilogue functor with `static constexpr bool after_pass = true` is
+// applied by the split-K pass alone, at one chunk too: inlined at each of
+// a thread's 64 sums beside the accumulator, a functor with a loop of its
+// own (the MoE's output: the bias term over the experts) made ptxas spill
+// the kernel's registers
+template <class Epi, class = void> struct AfterPass : std::false_type {};
+template <class Epi>
+struct AfterPass<Epi, std::void_t<decltype(Epi::after_pass)>>
+    : std::integral_constant<bool, Epi::after_pass> {};
+
+// A persistent kernel over works = output tiles x split-K chunks (chunk
+// index outermost; n fastest inside, so that the blocks in flight share
+// their A rows through L2). With ws null the epilogue applies directly;
+// else the raw sums of chunk s go to ws[s][m][n].
 template <bool A_COL, bool B_NK, class Epi>
-__global__ void __launch_bounds__(TF_THREADS)
-gemm_tf32x3_kernel(const float* __restrict__ A, long long lda, const float* __restrict__ B,
-                   long long ldb, int M, int N, int K, int chunk, Epi epi, float* __restrict__ ws) {
-  extern __shared__ __align__(16) float tf_smem[];
-  using Sm = TfSmem<A_COL, B_NK>;
-  using TA = typename Sm::TA;
-  using TB = typename Sm::TB;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int m0 = blockIdx.y * TF_BM, n0 = blockIdx.x * TF_BN;
-  const int kb = blockIdx.z * chunk;
-  const int ke = K - kb < chunk ? K : kb + chunk;
-  const int nk = (ke - kb + TF_BK - 1) / TF_BK;
+__global__ void __launch_bounds__(TFW_THREADS, 1)
+gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b, int M, int N, int K, int chunk,
+                   Epi epi, float* __restrict__ ws) {
+  extern __shared__ unsigned char tfw_smem[];
+  float* base = reinterpret_cast<float*>(tfw_smem + ((1024 - (smem_addr(tfw_smem) & 1023)) & 1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + (2 * TFW_STAGES + 4) * TFW_TILE);
+  uint64_t* empty = full + TFW_STAGES;
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  const int n_tiles = (N + TF_BN - 1) / TF_BN, tiles = (M + TF_BM - 1) / TF_BM * n_tiles;
+  const int works = tiles * ((K + chunk - 1) / chunk);
 
-  auto load = [&](int stage, int kt) {
-    float* s = tf_smem + stage * Sm::STAGE;
-    const int k0 = kb + kt * TF_BK;
-    tf_load_tile<!A_COL>(s, A, lda, m0, M, k0, ke, tid);
-    tf_load_tile<B_NK>(s + TA::FLOATS, B, ldb, n0, N, k0, ke, tid);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TFW_STAGES; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx arrival
+      mbar_init(&empty[s], 1);  // one consumer thread, after both warpgroups read the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the ring position: stage and the parity of its current use
+  int stage = 0, phase = 0;
+  auto advance = [&]() {
+    if (++stage == TFW_STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
   };
-#pragma unroll
-  for (int s = 0; s < TF_STAGES - 1; ++s) {
-    if (s < nk) load(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<TF_STAGES - 2>();
-    __syncthreads();  // slab kt has landed; every warp is done with slab kt - 1
-    if (kt + TF_STAGES - 1 < nk) load((kt + TF_STAGES - 1) % TF_STAGES, kt + TF_STAGES - 1);
-    cp_async_commit();
-    const float* As = tf_smem + (kt % TF_STAGES) * Sm::STAGE;
-    tf32x3_slab<TA, TB>(acc, As, As + TA::FLOATS, wm, wn, g, t);
-  }
-  cp_async_wait<0>();
 
-  float* slice = ws ? ws + (long long)blockIdx.z * M * N : nullptr;
+  if (threadIdx.x >= TFW_PRODUCER) {
+    setmaxnreg_dec<TFW_PRODUCER_REGS>();
+    if (threadIdx.x == TFW_PRODUCER) {
+      for (int w = blockIdx.x; w < works; w += gridDim.x) {
+        const int tile = w % tiles, kb = w / tiles * chunk;
+        const int m0 = tile / n_tiles * TF_BM, n0 = tile % n_tiles * TF_BN;
+        const int ke = K - kb < chunk ? K : kb + chunk;
+        for (int k0 = kb; k0 < ke; k0 += TF_BK) {
+          // a stage's first use passes at once (parity 1 of a fresh barrier)
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], 2 * TFW_TILE * 4);
+          float* sa = base + stage * 2 * TFW_TILE;
+          float* sb = sa + TFW_TILE;
+          if (A_COL) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+            for (int j = 0; j < 4; ++j) tma_load_2d(sa + j * 1024, &map_a, &full[stage], m0 + 32 * j, k0);
+          } else {
+            tma_load_2d(sa, &map_a, &full[stage], k0, m0);
+          }
+          if (B_NK) {
+            tma_load_2d(sb, &map_b, &full[stage], k0, n0);
+          } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + wm + i * 16 + g + (e >> 1) * 8;
-        const int n = n0 + wn + j * 8 + 2 * t + (e & 1);
-        if (m < M && n < N) {
-          if (slice)
-            slice[(long long)m * N + n] = acc[i][j][e];
-          else
-            epi(m, n, acc[i][j][e]);
+            for (int j = 0; j < 4; ++j) tma_load_2d(sb + j * 1024, &map_b, &full[stage], n0 + 32 * j, k0);
+          }
+          advance();
         }
       }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<TFW_CONSUMER_REGS>();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, g = lane >> 2, t4 = lane & 3;
+  const int r0 = wg * 64 + warp * 16 + g;  // this thread's first A row of the tile (r0 + 8 the other)
+  // the B split's share of this thread: in K-major, 16-byte chunks tid + 256 j;
+  // in MN-major, the 4 x 4 block (k 4 q .., n 32 jb + 4 c ..), c = q + d (mod 8)
+  const int jb = tid >> 6, bq = tid & 7, bc = (((tid & 63) >> 3) + bq) & 7;
+  float acc[64], part[64];
+  uint32_t ah[4][4], al[4][4];  // the slab's A fragments, k step kk = 8 kk ..
+  // split the staged B slab into the hi and lo tiles wgmma reads
+  auto split_b = [&](const float* sb, float* hi, float* lo) {
+    if (B_NK) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tid + 256 * j;
+        float4 l;
+        const float4 h = tfw_split4(reinterpret_cast<const float4*>(sb)[c], l);
+        reinterpret_cast<float4*>(hi)[c] = h;
+        reinterpret_cast<float4*>(lo)[c] = l;
+      }
+    } else {
+      float v[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 4 * bq + i;
+        const float4 x =
+            *reinterpret_cast<const float4*>(sb + jb * 1024 + k * 32 + ((bc ^ (k & 7)) << 2));
+        v[i][0] = x.x;
+        v[i][1] = x.y;
+        v[i][2] = x.z;
+        v[i][3] = x.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = 32 * jb + 4 * bc + j, at = n * 32 + ((bq ^ (n & 7)) << 2);
+        float4 l;
+        const float4 h = tfw_split4(make_float4(v[0][j], v[1][j], v[2][j], v[3][j]), l);
+        *reinterpret_cast<float4*>(hi + at) = h;
+        *reinterpret_cast<float4*>(lo + at) = l;
+      }
+    }
+  };
+  auto a_at = [](int r, int k) { return A_COL ? tfw_mnmajor(r, k) : tfw_kmajor(r, k); };
+  // this thread's A fragments of the staged slab: read while the slab
+  // before still runs on the tensor cores, split once it is done
+  float araw[4][4];
+  auto load_a = [&](const float* sa) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = 8 * kk + t4;
+      araw[kk][0] = sa[a_at(r0, k)];
+      araw[kk][1] = sa[a_at(r0 + 8, k)];
+      araw[kk][2] = sa[a_at(r0, k + 4)];
+      araw[kk][3] = sa[a_at(r0 + 8, k + 4)];
+    }
+  };
+  // the slab's 12 products into a fresh part: per k step lo·hi, hi·lo, hi·hi
+  auto issue = [&](const float* hi, const float* lo) {
+    const uint64_t dh = sw128_desc(hi), dl = sw128_desc(lo);
+    fence_regs(part);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // 8 tf32 = 32 bytes = 2 descriptor units
+      wgmma_m64n128k8_tf32(part, al[kk], dh + 2 * kk, kk > 0);
+      wgmma_m64n128k8_tf32(part, ah[kk], dl + 2 * kk, 1);
+      wgmma_m64n128k8_tf32(part, ah[kk], dh + 2 * kk, 1);
+    }
+    wgmma_commit();
+  };
+  // the slab in flight is done: its sums into acc by IEEE adds
+  auto fold = [&]() {
+    wgmma_wait<0>();
+    fence_regs(part);
+    fence_frags(ah);
+    fence_frags(al);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+  };
+  int slab = 0;  // slabs this block has run: the hi/lo buffer is slab % 2
+  const float* sa;
+  float *hi, *lo;
+  // the next slab staged: B split into its hi/lo buffer (whose last reader,
+  // the slab two back, both warpgroups waited for before the last barrier),
+  // this thread's A fragments read
+  auto prepare = [&]() {
+    mbar_wait(&full[stage], phase);
+    sa = base + stage * 2 * TFW_TILE;
+    hi = base + (2 * TFW_STAGES + 2 * (slab++ & 1)) * TFW_TILE;
+    lo = hi + TFW_TILE;
+    split_b(sa + TFW_TILE, hi, lo);
+    load_a(sa);
+  };
+  // its A fragments split and its products issued, once every consumer
+  // thread has written its hi/lo share (made visible to wgmma, the async
+  // proxy) and is done with the stage, which goes back to the producer
+  auto launch = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(araw[kk][e], ah[kk][e], al[kk][e]);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    if (tid == 0) mbar_arrive(&empty[stage]);
+    advance();
+    issue(hi, lo);
+  };
+
+  for (int w = blockIdx.x; w < works; w += gridDim.x) {
+    const int tile = w % tiles, split = w / tiles, kb = split * chunk;
+    const int m0 = tile / n_tiles * TF_BM, n0 = tile % n_tiles * TF_BN;
+    const int ke = K - kb < chunk ? K : kb + chunk;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    prepare();
+    launch();
+    for (int k0 = kb + TF_BK; k0 < ke; k0 += TF_BK) {
+      prepare();  // while the slab before runs
+      fold();
+      launch();
+    }
+    fold();
+
+    float* slice = ws ? ws + (long long)split * M * N : nullptr;
+    // the output's coordinates, opaque to the compiler, so that it computes
+    // no epilogue address before the K loop and holds it across the loop
+    int row = m0 + r0, col = n0 + 2 * t4;
+    asm volatile("" : "+r"(row), "+r"(col));
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      // d[i]: row 16 warp + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 t4 + i % 2
+      const int m = row + 8 * ((i >> 1) & 1), n = col + 8 * (i >> 2) + (i & 1);
+      if (m < M && n < N) {
+        if (AfterPass<Epi>::value || slice)
+          slice[(long long)m * N + n] = acc[i];
+        else
+          epi(m, n, acc[i]);
+      }
+    }
+  }
 }
 
 // out(m, n) = epi(sum over s = 0 .. S-1 of ws[s][m][n]), summed in that order
@@ -253,9 +391,9 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ ws, int S, int M,
 }
 
 // C = A B through epi, K cut into chunks of `chunk` rows (a positive
-// multiple of TF_BK; chunk >= K: no split); more than one chunk needs ws
-// with room for chunks * M * N floats. The caller plans the chunk
-// (ops/gemm.py splitk_plan).
+// multiple of TF_BK; chunk >= K: no split); more than one chunk, or an
+// after_pass epilogue, needs ws with room for chunks * M * N floats. The
+// caller plans the chunk (ops/gemm.py splitk_plan).
 template <bool A_COL, bool B_NK, class Epi>
 inline cudaError_t gemm_tf32x3(const float* A, long long lda, const float* B, long long ldb,
                                int M, int N, int K, const Epi& epi, int chunk, float* ws,
@@ -265,23 +403,32 @@ inline cudaError_t gemm_tf32x3(const float* A, long long lda, const float* B, lo
       chunk % TF_BK)
     return cudaErrorInvalidValue;
   const long long splits = (K + (long long)chunk - 1) / chunk;
-  const long long mt = (M + TF_BM - 1) / TF_BM;
-  if (mt > 65535 || splits > 65535) return cudaErrorInvalidValue;
-  if (splits > 1 && (!ws || (reinterpret_cast<uintptr_t>(ws) & 3) || splits * M * N > ws_floats))
+  const long long works = (long long)((M + TF_BM - 1) / TF_BM) * ((N + TF_BN - 1) / TF_BN) * splits;
+  if (works > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const bool pass = splits > 1 || AfterPass<Epi>::value;  // the sums go through ws
+  if (pass && (!ws || (reinterpret_cast<uintptr_t>(ws) & 3) || splits * M * N > ws_floats))
     return cudaErrorInvalidValue;
-  using Sm = TfSmem<A_COL, B_NK>;
-  static bool sized = false;
+  CUtensorMap map_a, map_b;
+  // A column-major is a row-major [K, M]; B as [K, N] a row-major [K, N]
+  const bool mapped = (A_COL ? tensor_map_2d(&map_a, A, lda, K, M, 32)
+                             : tensor_map_2d(&map_a, A, lda, M, K, TF_BM)) &&
+                      (B_NK ? tensor_map_2d(&map_b, B, ldb, N, K, TF_BN)
+                            : tensor_map_2d(&map_b, B, ldb, K, N, 32));
+  if (!mapped) return cudaErrorInvalidValue;
+  static bool sized = false;  // once per instantiation
   if (!sized) {
     const cudaError_t err = cudaFuncSetAttribute(gemm_tf32x3_kernel<A_COL, B_NK, Epi>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 Sm::BYTES);
+                                                 TFW_SMEM);
     if (err != cudaSuccess) return err;
     sized = true;
   }
-  const dim3 grid((N + TF_BN - 1) / TF_BN, (unsigned)mt, (unsigned)splits);
-  gemm_tf32x3_kernel<A_COL, B_NK, Epi><<<grid, TF_THREADS, Sm::BYTES, stream>>>(
-      A, lda, B, ldb, M, N, K, chunk, epi, splits > 1 ? ws : nullptr);
-  if (splits > 1) {
+  const int sms = sm_count();
+  if (!sms) return cudaErrorInvalidValue;
+  const long long grid = works < sms ? works : sms;
+  gemm_tf32x3_kernel<A_COL, B_NK, Epi><<<(unsigned)grid, TFW_THREADS, TFW_SMEM, stream>>>(
+      map_a, map_b, M, N, K, chunk, epi, pass ? ws : nullptr);
+  if (pass) {
     const long long mn = (long long)M * N;
     splitk_reduce_kernel<Epi><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
         ws, (int)splits, M, N, epi);

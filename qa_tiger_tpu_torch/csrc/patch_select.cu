@@ -20,7 +20,7 @@
 // plan its wrapper built (ops/gemm.py gemm_plan, the seven rows of
 // patch_select_gemm_shapes), as the train forward's do: in bf16 on
 // gemm_sm90 (TMA + wgmma) where gemm_route gives it; in fp32 on the 3xTF32
-// tensor-core routine gemm_tf32x3 (the fp32 evaluation forward that `test`
+// routine gemm_tf32x3 (TMA + wgmma; the fp32 evaluation forward that `test`
 // and every epoch's validation run; gemm_tile's FMA loop took ~18x the
 // products' 3xTF32 bound there). A product the plan does not name, or that
 // gemm_tf32x3 refuses, returns an error: nothing falls back to gemm_tile.

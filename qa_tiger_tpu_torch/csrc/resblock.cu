@@ -21,7 +21,7 @@
 //      and 1/std, which gemm_tile's A load applies, LnRowLoad);
 //   2. GEMM against in_proj [3W, W], plus bias -> qkv: in bf16 gemm_sm90
 //      (gemm_sm90.cuh: TMA + wgmma) on the staged rows; in fp32 gemm_tf32x3
-//      (gemm_tf32x3.cuh: 3xTF32 on the tensor cores) on the staged rows,
+//      (gemm_tf32x3.cuh: 3xTF32 on TMA + wgmma) on the staged rows,
 //      which hold what LnRowLoad computes ((x - mean) * rstd * w + b from
 //      the same row_moments: round_T is the identity in fp32);
 //   3. the attention of qt::attention (common.cuh; the text towers' causal

@@ -151,12 +151,15 @@ def _launch(x, w1t, b1, w2t, b2, w, out_f32: bool = False):
     wsum = torch.empty(B, E, dtype=torch.float32, device=dev)
     out = torch.empty(B, D, dtype=torch.float32 if out_f32 else x.dtype, device=dev)
     plan = splitk_plan(B, D, N, sm_count(dev))
-    ws = torch.empty(plan.workspace, dtype=torch.float32, device=dev) if plan.workspace else None
+    # the output epilogue runs in the split-K pass, at one chunk too
+    # (csrc/gaussian_moe.cu EpiMoeOut): room for every chunk's sums
+    ws_floats = plan.splits * B * D
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=dev)
     _build.launch("qt_gaussian_moe", _build.dtype_code(x), ROUTE_CODES[route], int(out_f32),
                   xk.data_ptr(),
                   w1k.data_ptr(), b1.data_ptr(), w2.data_ptr(), w2.stride(0), b2.data_ptr(),
                   w.data_ptr(), s.data_ptr(), lds, wsum.data_ptr(), out.data_ptr(),
-                  _build.ptr(ws), plan.workspace, plan.chunk, B, T, xk.shape[-1], D, H, E)
+                  ws.data_ptr(), ws_floats, plan.chunk, B, T, xk.shape[-1], D, H, E)
     fused_gaussian_moe.launches += 1
     tally_routes(fused_gaussian_moe, (route, "tf32x3"))
     return out

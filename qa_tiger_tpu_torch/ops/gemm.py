@@ -10,8 +10,11 @@ are the forward and the backward of both train kernels
 (``fused_avq_train``, ``fused_patch_select_train``): each checks its
 products against the plan its wrapper built (``gemm_plan``) and writes into
 it, product by product, the routine it took. Their fp32 products all run on
-``gemm_tf32x3`` (``csrc/gemm_tf32x3.cuh``: 3xTF32 on ``mma.sync``, split-K
-for the backwards' weight gradients); in bf16 the forwards' products take
+``gemm_tf32x3`` (``csrc/gemm_tf32x3.cuh``: 3xTF32 on a Hopper kernel, TMA
+loads of the raw fp32 slabs and ``wgmma``, B split into K-major hi/lo tiles
+once a block; split-K for the backwards' weight gradients), as do the fp32
+products of ``fused_patch_select``, ``fused_attn_ln2``, ``fused_attn_half``
+and the MoE's second Linear; in bf16 the forwards' products take
 ``gemm_sm90`` as above and the backwards' ``gemm_tile``'s WMMA loop.
 ``gemm_route`` names the routine an unplanned product takes.
 ``gemm_sm90`` and ``gemm_tf32x3`` here call a routine alone, so that it can

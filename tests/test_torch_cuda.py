@@ -1315,7 +1315,8 @@ def test_fused_patch_select_fp32_plan_refusal_raises(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the fp32 tensor-core GEMM of the train backwards (gemm_tf32x3: 3xTF32)
+# the fp32 tensor-core GEMM under every planned fp32 product (gemm_tf32x3:
+# 3xTF32 on the Hopper kernel, TMA + wgmma)
 # ---------------------------------------------------------------------------
 
 # ragged extents, the AVQ rows (3,840) and the patch rows (26,880); M x K is
@@ -1355,6 +1356,24 @@ def test_gemm_tf32x3(cuda, m, n, k, a_col_major, b_nk, splits):
     assert got.dtype == torch.float32 and tuple(got.shape) == (m, n)
     assert torch.isfinite(got).all()
     for target in (want.double(), ref):
+        err = (got.double() - target).abs().max().item()
+        assert err <= TOL[torch.float32] * max(1.0, target.abs().max().item()), err
+
+
+@pytest.mark.parametrize("splits", [None, 1])
+@pytest.mark.parametrize("m,n", [(512, 512), (1536, 512), (127, 129)])
+def test_gemm_tf32x3_long_k_against_fp64(cuda, m, n, splits):
+    """A weight gradient's K = 26,880 patch rows, with the recipe's split-K
+    plan and as one chunk (840 slabs, each slab's products folded into the
+    fp32 accumulator by IEEE adds): within 1e-4 * max(1, max|ref|) of the
+    fp64 product, and of the plain version."""
+    rng = np.random.default_rng(m + n)
+    a, b = _padded(rng, 26880, m, cuda), _padded(rng, 26880, n, cuda)
+    got = GM.gemm_tf32x3(a, b, a_col_major=True, splits=splits)
+    ref = a.double().t() @ b.double()
+    want = GM.gemm_tf32x3_plain(a, b, a_col_major=True)
+    torch.cuda.synchronize()
+    for target in (ref, want.double()):
         err = (got.double() - target).abs().max().item()
         assert err <= TOL[torch.float32] * max(1.0, target.abs().max().item()), err
 
@@ -1438,6 +1457,40 @@ def test_train_backward_routes(cuda, kind, dtype, ragged):
     count = 20 if kind == "avq" else 14
     assert bwd.gemm_routes == {"tf32x3" if dtype == torch.float32 else "wmma": count}
     assert bwd.attn_routes == {"mma_keep": 3}
+
+
+@pytest.mark.parametrize("kind", ["avq", "patch_select"])
+def test_recipe_train_products_on_the_hopper_tf32x3_kernel(cuda, kind):
+    """One fp32 train step's launch of each train kernel at the recipe
+    shape (B = 32): every product of the forward (10 or 7) and of the
+    backward (20 or 14), as the launches wrote them into their plan rows,
+    took route tf32x3, which only the Hopper kernel of gemm_tf32x3.cuh
+    (TMA + wgmma) launches; the outputs agree with the plain version at
+    1e-4 * max(1, max|p|) and the gradients are finite and bitwise the same
+    from a second backward. (The gradients' values against the plain version
+    are held at a seed without a ReLU unit on its kink by
+    test_train_backward_bitwise_deterministic: a unit whose pre-activation
+    lies within the products' rounding of 0 takes the other branch and
+    moves an input gradient by a weight's size.)"""
+    mod, acts, masks, cots, kernel, plain, (fwd, bwd) = _train_case(
+        kind, torch.float32, cuda, np.random.default_rng(11), RECIPE_DIMS[kind])
+    for fn in (fwd, bwd):
+        fn.gemm_routes = {}
+    ins = acts + list(mod.parameters())
+    outs = kernel(mod, acts, masks)
+    first = torch.autograd.grad(outs, ins, cots, retain_graph=True)
+    second = torch.autograd.grad(outs, ins, cots)
+    with torch.no_grad():
+        want = plain(mod, acts, masks)
+    torch.cuda.synchronize()
+    assert fwd.gemm_routes == {"tf32x3": 10 if kind == "avq" else 7}
+    assert bwd.gemm_routes == {"tf32x3": 40 if kind == "avq" else 28}
+    outs, want = ([t] if torch.is_tensor(t) else list(t) for t in (outs, want))
+    for g, w in zip(outs, want):
+        err = (g - w).abs().max().item()
+        assert err <= TOL[torch.float32] * max(1.0, w.abs().max().item()), err
+    for i, (g1, g2) in enumerate(zip(first, second)):
+        assert torch.isfinite(g1).all() and torch.equal(g1, g2), i
 
 
 @pytest.mark.parametrize("dims", [RECIPE_DIMS, RAGGED_DIMS], ids=["recipe", "ragged"])

@@ -141,6 +141,35 @@ def test_three_passes_are_needed():
 
 
 # ---------------------------------------------------------------------------
+# the Hopper kernel's tile and shared memory (csrc/gemm_tf32x3.cuh)
+# ---------------------------------------------------------------------------
+
+def _kernel_constant(name: str) -> int:
+    text = (CSRC / "gemm_tf32x3.cuh").read_text()
+    return int(re.search(rf"\b{name} = (\d+)", text).group(1))
+
+
+@pytest.mark.parametrize("name,index", [("TF_BM", 0), ("TF_BN", 1), ("TF_BK", 2)])
+def test_plan_tile_is_the_kernels(name, index):
+    """The split-K plan cuts K in the kernel's slabs and counts its tiles."""
+    assert _kernel_constant(name) == GM.TF32X3_TILE[index]
+
+
+@pytest.mark.parametrize("batch", [2, 4, 32, 64, 256, 512])
+def test_moe_second_product_is_timed_as_it_runs(batch):
+    """``fused_gaussian_moe``'s second product (s [b, E*H] times W2
+    [E*H, D], A row-major, B as [K, N]) at every batch its main-path calls
+    take is among the shapes the card checks and times ``gemm_tf32x3`` at
+    (``chip_smoke.tf32x3_gemm_shapes``, which ``chip_ab.py --phases gemm``
+    times for two checkouts), in bf16 and fp32 alike."""
+    import chip_smoke
+
+    D, E, H = 512, 7, 256
+    shapes = chip_smoke.tf32x3_gemm_shapes()
+    assert "fused_gaussian_moe" in shapes[(batch, D, E * H, False, False)]
+
+
+# ---------------------------------------------------------------------------
 # the split-K plan
 # ---------------------------------------------------------------------------
 
